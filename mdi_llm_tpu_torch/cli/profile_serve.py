@@ -1,0 +1,61 @@
+"""Where a serve run's time goes on the GPU.
+
+Runs the serve CLI's path (same flags as `cli/serve.py`) once to warm up
+and once under `torch.profiler`, then prints one JSON line: the run's
+wall time, the device time summed over all kernels, the device's idle
+share of the wall time, and the kernels that took the most device time.
+The profiler's own cost is inside the profiled wall time, so the idle
+share is an upper bound.
+
+    python -m mdi_llm_tpu_torch.cli.profile_serve --model tiny-llama-1.1b \\
+        --synthetic 16 --n-tokens 64 --sequence-length 2048
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from mdi_llm_tpu_torch.cli import serve as cli
+
+
+def main(argv=None, top: int = 12) -> dict:
+    args = cli.build_parser().parse_args(argv)
+    if torch.device(args.device).type != "cuda":
+        raise SystemExit("profile_serve measures the GPU: run it with a CUDA device")
+    cli.serve(args)  # warm-up: CUDA context, cuBLAS handles, kernel build
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _trace, _results, stats, engine = cli.serve(args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    # device-side events only: the CPU ops that launched them carry the
+    # same time again
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.device_time_total for e in kernels)
+    kernels.sort(key=lambda e: e.device_time_total, reverse=True)
+    line = {
+        "device": torch.cuda.get_device_name(0),
+        "wall_s": round(wall_s, 4),
+        "engine_wall_s": round(stats.wall_s, 4),
+        "device_s": round(device_us / 1e6, 4),
+        "device_idle_share": round(1 - device_us / 1e6 / wall_s, 4),
+        "tokens_generated": stats.tokens_generated,
+        "forward_calls": engine.forward_calls,
+        "top_kernels": [
+            {"name": e.key[:80], "calls": e.count,
+             "device_ms": round(e.device_time_total / 1e3, 3)}
+            for e in kernels[:top]
+        ],
+    }
+    print(json.dumps(line))
+    return line
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,183 @@
+"""Offline serving driver of the port: a synthetic trace through the
+paged-KV continuous-batching engine (`serving/engine.py`).
+
+Port of `mdi_llm_tpu/cli/serve.py` for `--model NAME --synthetic N`:
+random weights from `--seed`, a mixed-length synthetic request trace,
+and the same one-line JSON stats summary on stderr.  Runs on the GPU
+unless `--device cpu` is given; without a GPU and without that flag it
+raises.  Flags of features the port does not carry yet are refused.
+
+    python -m mdi_llm_tpu_torch.cli.serve --model tiny-llama-1.1b --synthetic 16
+    python -m mdi_llm_tpu_torch.cli.serve --device cpu --model pythia-14m \\
+        --synthetic 3 --max-batch 2 --n-tokens 8 --sequence-length 128 --block-size 8
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+from mdi_llm_tpu_torch.cli._common import DTYPES, add_common_args, load_model, refuse
+from mdi_llm_tpu_torch.generation import resolve_device
+
+# flags of the JAX CLI whose features are not ported: refused when set
+_UNPORTED = {
+    "spec_k": 0, "draft_model": None, "host_pool_mib": 0, "tp": 1, "pp": 1,
+    "metrics_out": None, "prom_out": None, "trace_out": None,
+    "xprof_steps": None, "sample_rss": None,
+}
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(description=__doc__)
+    add_common_args(ap)
+    ap.add_argument("--n-tokens", type=int, default=128,
+                    help="max new tokens per request")
+    ap.add_argument("--synthetic", type=int, default=0, metavar="N",
+                    help="queue N synthetic requests with mixed prompt/"
+                    "output lengths (required: no tokenizer is ported yet)")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="KV pool block width (tokens)")
+    ap.add_argument("--max-blocks", type=int, default=None,
+                    help="KV pool size in blocks (default: full coverage)")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="concurrent decode slots")
+    ap.add_argument("--prefill-chunk", type=int, default=128,
+                    help="max prompt tokens one sequence feeds per step")
+    ap.add_argument("--token-budget", type=int, default=None,
+                    help="unified-step token budget (default max_batch + "
+                    "prefill-chunk)")
+    ap.add_argument("--decode-chunk", type=int, default=8,
+                    help="device decode steps per host read (1 = per step)")
+    ap.add_argument("--no-double-buffer", action="store_true",
+                    help="do not launch the next decode chunk before "
+                    "reading the current one")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable hash-based prefix block reuse")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="engine-wide sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=None)
+    ap.add_argument("--top-p", type=float, default=None)
+    ap.add_argument("--policy", default="fcfs",
+                    choices=("fcfs", "priority", "fair", "deadline"),
+                    help="scheduling policy (serving/policy.py)")
+    unported = ap.add_argument_group("not ported yet (refused when set)")
+    unported.add_argument("--spec-k", type=int, default=0)
+    unported.add_argument("--draft-model", default=None)
+    unported.add_argument("--host-pool-mib", type=int, default=0)
+    unported.add_argument("--tp", type=int, default=1)
+    unported.add_argument("--pp", type=int, default=1)
+    for flag in ("--metrics-out", "--prom-out", "--trace-out", "--xprof-steps",
+                 "--sample-rss"):
+        unported.add_argument(flag, default=None)
+    return ap
+
+
+def synthetic_trace(n: int, vocab: int, max_seq: int, max_new: int, seed=10137):
+    """Mixed-length request trace (the JAX CLI's, draw for draw): prompt
+    lengths spread over the first quarter of the window, output budgets
+    over [8, max_new]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        plen = int(rng.integers(4, max(5, max_seq // 4)))
+        new = int(rng.integers(8, max(9, max_new + 1)))
+        new = max(1, min(new, max_seq - plen - 1))
+        prompt = rng.integers(1, vocab, plen).tolist()
+        reqs.append((f"syn{i}", prompt, new))
+    return reqs
+
+
+def make_serving_config(args):
+    from mdi_llm_tpu_torch.config import ServingConfig
+
+    return ServingConfig(
+        block_size=args.block_size,
+        max_blocks=args.max_blocks,
+        max_batch=args.max_batch,
+        prefill_chunk=args.prefill_chunk,
+        token_budget=args.token_budget,
+        decode_chunk=args.decode_chunk,
+        double_buffer=not args.no_double_buffer,
+        prefix_caching=not args.no_prefix_cache,
+        temperature=args.temperature,
+        top_k=args.top_k,
+        top_p=args.top_p,
+    )
+
+
+def build_generator(args, cfg, params):
+    from mdi_llm_tpu_torch.generation import Generator
+
+    kv = None if args.kv_dtype == "auto" else DTYPES[args.kv_dtype]
+    return Generator(
+        cfg, params,
+        max_seq_length=args.sequence_length,
+        cache_dtype=kv or DTYPES[args.dtype],
+        rng_seed=args.seed,
+        device=args.device,
+    )
+
+
+def serve(args):
+    """Build the model and engine the flags describe, queue the synthetic
+    trace and run it; returns (trace, results, stats, engine)."""
+    from mdi_llm_tpu_torch.serving.policy import make_policy
+
+    for name, default in _UNPORTED.items():
+        if getattr(args, name) != default:
+            refuse("--" + name.replace("_", "-"))
+    if not args.synthetic:
+        refuse("text prompts (no tokenizer yet); --synthetic N")
+    resolve_device(args.device)  # raises before any work without the device
+    serving_cfg = make_serving_config(args)
+    cfg, params = load_model(args)
+    gen = build_generator(args, cfg, params)
+    engine = gen.serve(serving=serving_cfg, policy=make_policy(args.policy))
+    trace = synthetic_trace(
+        args.synthetic, cfg.vocab_size, gen.max_seq_length, args.n_tokens
+    )
+    for rid, prompt, new in trace:
+        engine.add_request(rid, prompt, new)
+    results, stats = engine.run()
+    return trace, results, stats, engine
+
+
+def stats_line(stats, engine) -> dict:
+    """The JSON stats line: the engine's stats plus device and route."""
+    line = stats.to_dict()
+    dev = engine.device
+    line.update({
+        "kv_dtype": engine.kv_dtype_name,
+        "tp": 1,
+        "pp": 1,
+        "devices": 1,
+        "tokens_per_s_per_chip": round(stats.tokens_per_s, 2),
+        "forward_calls": engine.forward_calls,
+        "device": {
+            "type": dev.type,
+            "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        },
+    })
+    return line
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    trace, results, stats, engine = serve(args)
+    for rid, prompt, _new in trace:
+        gen_tokens = results.get(rid, [])[len(prompt):]
+        print(f"--- {rid} ({len(gen_tokens)} new tokens) " + "-" * 30)
+        print(gen_tokens)
+    line = stats_line(stats, engine)
+    print(json.dumps(line), file=sys.stderr)
+    return line
+
+
+if __name__ == "__main__":
+    main()

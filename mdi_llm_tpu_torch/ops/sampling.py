@@ -1,0 +1,117 @@
+"""Token sampling: temperature, top-k, top-p.
+
+Port of `mdi_llm_tpu/ops/sampling.py`.  The filters are the same math;
+the random draw comes from an explicit `torch.Generator` instead of a
+`jax.random` key, so sampled streams follow the same distribution but not
+the same draws.  Greedy decoding (temperature 0) is exact argmax — the
+mode in which the port's streams equal the JAX package's token for token.
+`mode`/`top_k` keep their role as the only knobs that change the code
+path; temperature and top_p ride as float32 tensors on the device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def logits_to_probs(
+    logits: torch.Tensor,
+    temperature: float = 1.0,
+    top_k: Optional[int] = None,
+) -> torch.Tensor:
+    """Softmax with temperature and optional top-k clamp (scale, top-k
+    filter, softmax)."""
+    logits = logits.float()
+    if temperature > 0:
+        logits = logits / temperature
+    if top_k is not None and 0 < top_k < logits.shape[-1]:
+        logits = _topk_filter(logits, top_k)
+    return torch.softmax(logits, dim=-1)
+
+
+def _nucleus_filter(logits: torch.Tensor, top_p) -> torch.Tensor:
+    """Mask logits outside the smallest set whose cumulative probability
+    exceeds `top_p` (always keeping the most probable token)."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    sorted_probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(sorted_probs, dim=-1)
+    exceeded = (cum - sorted_probs) > top_p
+    inf = torch.tensor(float("inf"), device=logits.device)
+    cutoff = torch.where(exceeded, inf, sorted_logits).amin(dim=-1, keepdim=True)
+    return torch.where(logits < cutoff, -inf, logits)
+
+
+def _topk_filter(logits: torch.Tensor, top_k: int) -> torch.Tensor:
+    kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+    return torch.where(
+        logits < kth, torch.tensor(float("-inf"), device=logits.device), logits
+    )
+
+
+def sample_mode(
+    temperature: float, top_k: Optional[int] = None, top_p: Optional[float] = None
+) -> str:
+    """The dispatch key for `sample_traced`, in the JAX package's branch
+    order: greedy, then top-p, then temperature + top-k."""
+    if temperature == 0.0:
+        return "greedy"
+    if top_p is not None and 0.0 < top_p < 1.0:
+        return "top_p"
+    return "top_k"
+
+
+def sampling_operands(
+    temperature: float, top_p: Optional[float], device="cpu"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 operands for `sample_traced`; unused knobs get a harmless
+    1.0 so every mode takes the same arguments."""
+    t = temperature if temperature and temperature > 0 else 1.0
+    p = top_p if top_p is not None else 1.0
+    return (
+        torch.tensor(t, dtype=torch.float32, device=device),
+        torch.tensor(p, dtype=torch.float32, device=device),
+    )
+
+
+def filtered_logits(
+    logits: torch.Tensor,
+    temperature: torch.Tensor,
+    top_p: torch.Tensor,
+    *,
+    mode: str,
+    top_k: Optional[int] = None,
+) -> torch.Tensor:
+    """The float32 logits the sampler draws from: temperature-scaled, then
+    nucleus- or top-k-filtered per `mode`."""
+    logits = logits.float()
+    if mode == "greedy":
+        return logits
+    logits = logits / temperature
+    if mode == "top_p":
+        logits = _nucleus_filter(logits, top_p)
+    elif top_k is not None and 0 < top_k < logits.shape[-1]:
+        logits = _topk_filter(logits, top_k)
+    return logits
+
+
+def sample_traced(
+    logits: torch.Tensor,  # (B, V)
+    generator: Optional[torch.Generator],
+    temperature: torch.Tensor,
+    top_p: torch.Tensor,
+    *,
+    mode: str,
+    top_k: Optional[int] = None,
+) -> torch.Tensor:
+    """Next token per row of `logits`: argmax for greedy, else one draw
+    from the filtered distribution with `generator`.  Stays on the device:
+    no host read."""
+    if mode == "greedy":
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(
+        filtered_logits(logits, temperature, top_p, mode=mode, top_k=top_k),
+        dim=-1,
+    )
+    return torch.multinomial(probs, 1, generator=generator).squeeze(-1)

@@ -1,0 +1,671 @@
+"""Continuous-batching serving engine over the paged KV pool.
+
+Port of `mdi_llm_tpu/serving/engine.py` for one device.  One pooled block
+cache (`transformer.init_paged_kv_cache`) is shared by every request in
+flight; the scheduler (`serving/scheduler.py`, a copy of the JAX
+package's) admits requests into `max_batch` slots, and every engine step
+is one of:
+
+- the unified mixed step (`_run_mixed`): whenever prefill work exists,
+  every decode lane's pending token plus prefill chunks up to the token
+  budget pack slot-major into ONE (1, token_budget) ragged forward
+  (`ops/paged_attention.paged_prefill`, kernel K1 on the card);
+- chunked decode (`_run_decode_chunk`): K decode steps run back to back on
+  the device with per-slot limit and stop masks, and the host reads the K
+  tokens once.  With `double_buffer`, chunk N+1 is launched before chunk
+  N's tokens are read: the read is a non-blocking copy into pinned memory
+  plus a CUDA event, so it overlaps chunk N+1's compute;
+- per-token decode (`_run_decode`) when `decode_chunk == 1`.
+
+The pool is updated in place by every forward (the JAX package donates it
+to each jitted step for the same effect).  Greedy streams equal the JAX
+engine's token for token on the same weights (tests/test_torch_serving.py).
+Sampling draws come from one `torch.Generator` per engine, seeded from the
+Generator's `rng_seed`.
+
+Not ported yet, and refused with an error when asked for: speculative
+decoding and draft models, the host-RAM KV tier, int8/float8 pools,
+tensor/pipeline parallel serving, and observability hooks.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from mdi_llm_tpu_torch.config import ServingConfig
+from mdi_llm_tpu_torch.generation import Generator, detect_stop_tokens, find_eot
+from mdi_llm_tpu_torch.models import transformer
+from mdi_llm_tpu_torch.ops.sampling import (
+    sample_mode,
+    sample_traced,
+    sampling_operands,
+)
+from mdi_llm_tpu_torch.serving.kv_pool import KVPool
+from mdi_llm_tpu_torch.serving.scheduler import Request, Scheduler, SequenceState
+
+__all__ = ["ServingEngine", "ServingStats", "check_serving_config"]
+
+_POOL_DTYPES = {
+    "bfloat16": torch.bfloat16, "float16": torch.float16,
+    "float32": torch.float32, "float64": torch.float64,
+}
+
+
+def check_serving_config(serving: ServingConfig) -> None:
+    """Refuse every ServingConfig knob this port does not carry yet (see
+    ROADMAP.md Queue 1): never ignore one, never compute something else."""
+    refused = []
+    if serving.spec_k:
+        refused.append(f"spec_k={serving.spec_k} (speculative decoding)")
+    if serving.draft_model:
+        refused.append(f"draft_model={serving.draft_model!r}")
+    if serving.host_pool_mib > 0:
+        refused.append(f"host_pool_mib={serving.host_pool_mib} (host KV tier)")
+    if serving.kv_dtype is not None and serving.kv_dtype not in _POOL_DTYPES:
+        refused.append(f"kv_dtype={serving.kv_dtype!r} (int8/float8 pools)")
+    if refused:
+        raise ValueError(
+            "not ported to mdi_llm_tpu_torch yet: " + "; ".join(refused)
+        )
+
+
+@dataclass
+class ServingStats:
+    """The JAX engine's stats with the same keys (`to_dict`), so a stats
+    line of either package reads the same.  The speculative and host-tier
+    counters stay 0 here: those features are refused."""
+
+    tokens_generated: int = 0
+    prefill_tokens: int = 0
+    prefill_chunks: int = 0
+    mixed_steps: int = 0
+    decode_steps: int = 0
+    host_syncs: int = 0
+    tokens_dispatched: int = 0
+    tokens_useful: int = 0
+    _occ_sum: float = 0.0
+    _occ_n: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_drafted_ngram: int = 0
+    spec_accepted_ngram: int = 0
+    spec_drafted_model: int = 0
+    spec_accepted_model: int = 0
+    requests_finished: int = 0
+    preemptions: int = 0
+    requests_rejected: int = 0
+    queue_depth_peak: int = 0
+    offered_qps: float = 0.0
+    resident_peak: int = 0
+    prefix_cache_hits: int = 0
+    swaps_out: int = 0
+    swaps_in: int = 0
+    swap_out_bytes: int = 0
+    swap_in_bytes: int = 0
+    prefix_hits_host: int = 0
+    restore_issue_s: float = 0.0
+    wall_s: float = 0.0
+    decode_s: float = 0.0
+    prefill_s: float = 0.0
+    _kv_util_sum: float = 0.0
+    _kv_util_n: int = 0
+    _kv_util_peak: float = 0.0
+
+    def observe_kv_utilization(self, util: float) -> None:
+        self._kv_util_sum += util
+        self._kv_util_n += 1
+        self._kv_util_peak = max(self._kv_util_peak, util)
+
+    def observe_dispatch(self, dispatched: int, useful: int) -> None:
+        self.tokens_dispatched += dispatched
+        self.tokens_useful += useful
+
+    def observe_mixed_occupancy(self, live: int, max_batch: int) -> None:
+        self._occ_sum += live / max(1, max_batch)
+        self._occ_n += 1
+
+    def observe_resident(self, live: int) -> None:
+        self.resident_peak = max(self.resident_peak, live)
+
+    @property
+    def padded_token_frac(self) -> float:
+        if not self.tokens_dispatched:
+            return 0.0
+        return 1.0 - self.tokens_useful / self.tokens_dispatched
+
+    @property
+    def mixed_batch_occupancy(self) -> float:
+        return self._occ_sum / self._occ_n if self._occ_n else 0.0
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.tokens_generated / self.wall_s if self.wall_s else 0.0
+
+    @property
+    def tokens_per_sync(self) -> float:
+        return self.tokens_generated / self.host_syncs if self.host_syncs else 0.0
+
+    @property
+    def spec_accept_rate(self) -> float:
+        return self.spec_accepted / self.spec_drafted if self.spec_drafted else 0.0
+
+    @property
+    def kv_utilization_mean(self) -> float:
+        return self._kv_util_sum / self._kv_util_n if self._kv_util_n else 0.0
+
+    @property
+    def kv_utilization_peak(self) -> float:
+        return self._kv_util_peak
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "requests": self.requests_finished,
+            "tokens_generated": self.tokens_generated,
+            "tokens_per_s": round(self.tokens_per_s, 2),
+            "wall_s": round(self.wall_s, 2),
+            "decode_s": round(self.decode_s, 3),
+            "prefill_s": round(self.prefill_s, 3),
+            "decode_steps": self.decode_steps,
+            "mixed_steps": self.mixed_steps,
+            "prefill_chunks": self.prefill_chunks,
+            "prefill_tokens": self.prefill_tokens,
+            "host_syncs": self.host_syncs,
+            "tokens_per_sync": round(self.tokens_per_sync, 2),
+            "padded_token_frac": round(self.padded_token_frac, 4),
+            "mixed_batch_occupancy": round(self.mixed_batch_occupancy, 4),
+            "spec_accept_rate": round(self.spec_accept_rate, 4),
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_drafted_ngram": self.spec_drafted_ngram,
+            "spec_accepted_ngram": self.spec_accepted_ngram,
+            "spec_drafted_model": self.spec_drafted_model,
+            "spec_accepted_model": self.spec_accepted_model,
+            "kv_block_utilization_mean": round(self.kv_utilization_mean, 4),
+            "kv_block_utilization_peak": round(self.kv_utilization_peak, 4),
+            "prefix_cache_hits": self.prefix_cache_hits,
+            "preemptions": self.preemptions,
+            "swaps_out": self.swaps_out,
+            "swaps_in": self.swaps_in,
+            "swap_out_bytes": self.swap_out_bytes,
+            "swap_in_bytes": self.swap_in_bytes,
+            "prefix_hits_host": self.prefix_hits_host,
+            "restore_issue_s": round(self.restore_issue_s, 4),
+            "resident_peak": self.resident_peak,
+            "requests_rejected": self.requests_rejected,
+            "queue_depth_peak": self.queue_depth_peak,
+            "offered_qps": round(self.offered_qps, 3),
+        }
+
+
+class ServingEngine:
+    """Paged-KV continuous-batching loop bound to one `Generator`.  Build
+    it with `Generator.serve(...)`::
+
+        engine = gen.serve(block_size=16, max_batch=8)
+        engine.add_request("a", prompt_tokens, max_new_tokens=128)
+        results, stats = engine.run()
+    """
+
+    def __init__(self, gen: Generator, serving: ServingConfig, policy=None):
+        check_serving_config(serving)
+        self.gen = gen
+        self.cfg = serving
+        self.device = gen.device
+        bs = serving.block_size
+        if bs < 1:
+            raise ValueError("block_size must be positive")
+        if serving.decode_chunk < 1:
+            raise ValueError("decode_chunk must be >= 1")
+        if serving.kv_dtype is None:
+            self._pool_dtype = gen.cache_dtype
+        else:
+            self._pool_dtype = _POOL_DTYPES[serving.kv_dtype]
+        self.kv_dtype_name = str(self._pool_dtype).replace("torch.", "")
+        self.token_budget = serving.resolved_token_budget()
+        if self.token_budget <= serving.max_batch:
+            raise ValueError(
+                f"token_budget {self.token_budget} must exceed max_batch "
+                f"{serving.max_batch}: the unified step packs one decode "
+                "token per live slot first, so a budget at or below "
+                "max_batch leaves no room for any prefill token"
+            )
+        self.max_seq_length = gen.max_seq_length
+        self.max_blocks_per_seq = -(-self.max_seq_length // bs)
+        num_blocks = serving.num_pool_blocks(self.max_seq_length)
+        self.pool = KVPool(num_blocks, bs, prefix_caching=serving.prefix_caching)
+        self.scheduler = Scheduler(
+            self.pool, serving.max_batch, serving.prefill_chunk,
+            self.max_seq_length, policy=policy,
+        )
+        self._kv = transformer.init_paged_kv_cache(
+            gen.cfg, num_blocks, bs, dtype=self._pool_dtype, device=self.device
+        )
+        # persistent host-side block table, updated incrementally
+        self._tables = np.zeros(
+            (serving.max_batch, self.max_blocks_per_seq), np.int32
+        )
+        self._table_seq: List[Optional[SequenceState]] = [None] * serving.max_batch
+        self._table_len = [0] * serving.max_batch
+        self._t_op, self._p_op = sampling_operands(
+            serving.temperature, serving.top_p, self.device
+        )
+        self._sample_mode = sample_mode(
+            serving.temperature, serving.top_k, serving.top_p
+        )
+        self._rng = torch.Generator(device=self.device).manual_seed(gen.rng_seed)
+        self.forward_calls = 0  # model forwards this engine ran (all layers)
+        self.stats = ServingStats()
+        self._results: Dict[str, List[int]] = {}
+        self._stream_cb = None
+
+    # -- device helpers ------------------------------------------------------
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor without waiting for the device: a
+        pinned staging copy and a non-blocking transfer on CUDA (a plain
+        pageable copy would synchronize the stream and defeat double
+        buffering)."""
+        t = torch.from_numpy(np.array(arr, copy=True))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _read_async(self, x: torch.Tensor):
+        """Start a device -> host copy of `x`; `_wait` returns it as numpy."""
+        if self.device.type != "cuda":
+            return x, None
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    @staticmethod
+    def _wait(pending) -> np.ndarray:
+        host, event = pending
+        if event is not None:
+            event.synchronize()
+        return host.numpy()
+
+    def _forward(self, tokens, pos, tables, paged_ragged=None) -> torch.Tensor:
+        """One model forward over the shared pool; the pool is updated in
+        place (no copy of it is ever made)."""
+        self.forward_calls += 1
+        return transformer.forward(
+            self.gen.cfg, self.gen.params, tokens, pos, self._kv, tables,
+            rope=self.gen.rope, paged_kernel=self.cfg.use_kernel,
+            paged_ragged=paged_ragged,
+        )
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        return sample_traced(
+            logits, self._rng, self._t_op, self._p_op,
+            mode=self._sample_mode, top_k=self.cfg.top_k,
+        ).to(torch.int32)
+
+    # -- request surface -----------------------------------------------------
+
+    def add_request(
+        self,
+        rid: str,
+        prompt: Sequence[int],
+        max_new_tokens: int,
+        stop_sequences: Sequence[Sequence[int]] = (),
+        priority: int = 0,
+        tenant: str = "",
+        ttft_slo_s: Optional[float] = None,
+    ) -> str:
+        """Queue a request; raises ValueError if it can never fit."""
+        self.scheduler.add(Request(
+            rid=rid, prompt=[int(t) for t in prompt],
+            max_new_tokens=int(max_new_tokens),
+            stop_sequences=stop_sequences,
+            priority=int(priority), tenant=str(tenant),
+            ttft_slo_s=ttft_slo_s,
+        ))
+        return rid
+
+    def _sync_tables(self, live: Sequence[SequenceState]) -> np.ndarray:
+        """The persistent (max_batch, max_blocks_per_seq) block table,
+        updated incrementally; every slot not in `live` is zeroed, so a
+        dead lane's writes land in the trash block, never in a real one."""
+        want: List[Optional[SequenceState]] = [None] * self.scheduler.max_batch
+        for seq in live:
+            want[seq.slot] = seq
+        for slot, seq in enumerate(want):
+            if seq is None:
+                if self._table_seq[slot] is not None or self._table_len[slot]:
+                    self._tables[slot] = 0
+                    self._table_seq[slot], self._table_len[slot] = None, 0
+                continue
+            n = len(seq.blocks)
+            if seq is not self._table_seq[slot] or n < self._table_len[slot]:
+                row = self._tables[slot]
+                row[:] = 0
+                row[:n] = seq.blocks
+                self._table_seq[slot], self._table_len[slot] = seq, n
+            elif n > self._table_len[slot]:
+                self._tables[slot, self._table_len[slot]: n] = \
+                    seq.blocks[self._table_len[slot]:]
+                self._table_len[slot] = n
+        return self._tables
+
+    # -- execution -----------------------------------------------------------
+
+    def _run_mixed(self, entries: List[Tuple[SequenceState, int]]) -> None:
+        """ONE unified ragged forward serving every lane: each decode lane's
+        pending token and each prefilling lane's next chunk, packed
+        slot-major into a (1, token_budget) axis; the tail pads with
+        positions past every table, whose writes go to the trash block."""
+        t0 = time.perf_counter()
+        need = {id(s): n for s, n in entries}
+        live = [
+            (s, need[id(s)])
+            for s in self._live_reserved(
+                [s for s, _ in entries], lambda s: need[id(s)]
+            )
+        ]
+        if not live:
+            return
+        B = self.scheduler.max_batch
+        T = self.token_budget
+        trash_pos = self.max_blocks_per_seq * self.pool.block_size
+        tokens = np.zeros((1, T), np.int32)
+        pos = np.full((1, T), trash_pos, np.int32)
+        q_slot = np.zeros((T,), np.int32)
+        q_start = np.zeros((B,), np.int32)
+        q_len = np.zeros((B,), np.int32)
+        last_idx = np.zeros((B,), np.int64)
+        off = 0
+        for seq, n in live:
+            feed = (seq.tokens[seq.fed : seq.fed + n]
+                    if seq.needs_prefill else [seq.next_tok])
+            tokens[0, off : off + n] = feed
+            pos[0, off : off + n] = np.arange(seq.fed, seq.fed + n)
+            q_slot[off : off + n] = seq.slot
+            q_start[seq.slot] = off
+            q_len[seq.slot] = n
+            last_idx[seq.slot] = off + n - 1
+            off += n
+        tables = self._sync_tables([s for s, _ in live])
+        up = self._upload
+        logits = self._forward(
+            up(tokens), up(pos), up(tables),
+            paged_ragged=(up(q_slot), up(q_start), up(q_len)),
+        )
+        nxt = self._sample(logits[0, up(last_idx)])
+        nxt = self._wait(self._read_async(nxt))  # the step's one host read
+        self.stats.mixed_steps += 1
+        self.stats.host_syncs += 1
+        self.stats.observe_dispatch(T, off)
+        self.stats.observe_mixed_occupancy(len(live), B)
+        self.stats.observe_resident(len(self.scheduler.running()))
+        self.stats.observe_kv_utilization(self.pool.utilization)
+        any_decode = False
+        for seq, n in live:
+            if seq.needs_prefill:
+                seq.fed += n
+                self.stats.prefill_tokens += n
+                self.stats.prefill_chunks += 1
+                if seq.fed >= seq.prefill_target:
+                    # the prompt's KV (as far as it was fed) is in the pool
+                    # now: publish its full blocks for prefix reuse
+                    self.pool.register_prefix(
+                        seq.blocks, seq.req.prompt[: seq.fed]
+                    )
+                    if seq.resume_tok is not None:
+                        seq.next_tok = seq.resume_tok  # kept across preemption
+                    else:
+                        self._emit(seq, int(nxt[seq.slot]))
+            else:
+                any_decode = True
+                seq.fed += 1
+                self._emit(seq, int(nxt[seq.slot]))
+        if any_decode:
+            self.stats.decode_steps += 1
+        self.stats.prefill_s += time.perf_counter() - t0
+
+    def _queue_depth(self) -> int:
+        return len(self.scheduler.waiting) + len(self.scheduler.preempted)
+
+    def _emit(self, seq: SequenceState, tok: int) -> None:
+        """Append one generated token, stream it, and retire on stop/limit."""
+        seq.tokens.append(tok)
+        seq.next_tok = tok
+        self.stats.tokens_generated += 1
+        if self._stream_cb is not None:
+            self._stream_cb(seq.req.rid, tok)
+        gen_tokens = seq.generated()
+        if (
+            len(gen_tokens) >= seq.req.max_new_tokens
+            or detect_stop_tokens(gen_tokens, seq.req.stop_sequences)
+            or len(seq.tokens) >= self.max_seq_length
+        ):
+            self._finish(seq)
+
+    def pop_result(self, rid: str) -> Optional[List[int]]:
+        """Take one finished request's tokens (prompt + generation,
+        stop-trimmed) out of the engine, or None if it has not finished."""
+        return self._results.pop(rid, None)
+
+    def _finish(self, seq: SequenceState) -> None:
+        gen_tokens = seq.generated()
+        cut = find_eot(gen_tokens, seq.req.stop_sequences)
+        self._results[seq.req.rid] = seq.tokens[: seq.n_prompt + cut]
+        self.scheduler.retire(seq)
+        self.stats.requests_finished += 1
+
+    def _live_reserved(self, seqs: List[SequenceState], n_writes_of) -> List[SequenceState]:
+        """Sequences that still own their slot AND have block coverage for
+        their next writes; growth may preempt, so re-check slot ownership."""
+        live: List[SequenceState] = []
+        for seq in seqs:
+            if self.scheduler.slots[seq.slot] is seq and \
+                    self.scheduler.ensure_blocks_for(seq, n_writes_of(seq)):
+                live.append(seq)
+        return [s for s in live if self.scheduler.slots[s.slot] is s]
+
+    def _run_decode(self, seqs: List[SequenceState]) -> None:
+        t0 = time.perf_counter()
+        live = self._live_reserved(seqs, lambda s: 1)
+        if not live:
+            return
+        B = self.scheduler.max_batch
+        tok = np.zeros((B,), np.int32)
+        pos = np.zeros((B,), np.int32)
+        for seq in live:
+            tok[seq.slot] = seq.next_tok
+            pos[seq.slot] = seq.fed
+        tables = self._sync_tables(live)
+        logits = self._forward(
+            self._upload(tok)[:, None], self._upload(pos), self._upload(tables)
+        )
+        nxt = self._wait(self._read_async(self._sample(logits[:, -1])))
+        self.stats.decode_steps += 1
+        self.stats.host_syncs += 1
+        self.stats.observe_dispatch(B, len(live))
+        self.stats.observe_resident(len(self.scheduler.running()))
+        self.stats.observe_kv_utilization(self.pool.utilization)
+        for seq in live:
+            seq.fed += 1
+            self._emit(seq, int(nxt[seq.slot]))
+        self.stats.decode_s += time.perf_counter() - t0
+
+    # -- chunked decode (the multi-token serving step) ------------------------
+
+    def _decode_chunk(self, tok, pos, tables, limit, stop_tok, K: int):
+        """K batched decode steps on the device with no host read.  A lane
+        advances while `i < limit[lane]` and it has not sampled its stop
+        token; a frozen lane re-forwards its last (token, position), which
+        rewrites the identical K/V bytes, and a dead lane's zero table row
+        sends its writes to the trash block — so no masked step perturbs a
+        live stream.  Returns (tokens (K, B), final token, final pos)."""
+        done = torch.zeros_like(tok, dtype=torch.bool)
+        toks = []
+        for i in range(K):
+            active = (limit > i) & ~done
+            logits = self._forward(tok[:, None], pos, tables)
+            nxt = torch.where(active, self._sample(logits[:, -1]), tok)
+            done = done | (active & (nxt == stop_tok))
+            pos = pos + active.to(pos.dtype)
+            tok = nxt
+            toks.append(nxt)
+        return torch.stack(toks), tok, pos
+
+    def _chunk_limit(self, seq: SequenceState, K: int, ahead: int = 0) -> int:
+        """Steps this slot may advance in a K-step chunk: its remaining
+        token budget and window room, minus `ahead` tokens already
+        committed to an in-flight chunk."""
+        remaining = seq.req.max_new_tokens - seq.n_generated - ahead
+        window = self.max_seq_length - len(seq.tokens) - ahead
+        return max(0, min(K, remaining, window))
+
+    @staticmethod
+    def _stop1(seq: SequenceState) -> int:
+        """The slot's single-token stop id for the device-side stop mask
+        (-1 for none); longer stop sequences are found host-side."""
+        for s in seq.req.stop_sequences:
+            if len(s) == 1:
+                return int(s[0])
+        return -1
+
+    def _drain_tokens(self, live: List[SequenceState], limits: np.ndarray,
+                      toks: np.ndarray) -> bool:
+        """Credit one drained chunk: emit each live slot's retained tokens
+        (up to its limit, stopping at the first retirement).  True when
+        every slot emitted its full limit and survived."""
+        self.stats.host_syncs += 1
+        self.stats.observe_kv_utilization(self.pool.utilization)
+        self.stats.observe_resident(len(self.scheduler.running()))
+        clean = True
+        for seq in live:
+            if self.scheduler.slots[seq.slot] is not seq:
+                clean = False
+                continue
+            lim = int(limits[seq.slot])
+            emitted = 0
+            for s in range(lim):
+                seq.fed += 1
+                emitted += 1
+                self._emit(seq, int(toks[s, seq.slot]))
+                if seq.done:
+                    break
+            self.stats.tokens_useful += emitted
+            if seq.done or emitted < lim:
+                clean = False
+        return clean
+
+    def _can_pipeline(self) -> bool:
+        """Double buffering is sound only while the scheduler has no other
+        work: an admission or prefill would change the live set in flight,
+        and a preemption would free blocks the device is still writing."""
+        sched = self.scheduler
+        return (
+            self.cfg.double_buffer
+            and not sched.waiting
+            and not sched.preempted
+            and not any(s.needs_prefill for s in sched.running())
+        )
+
+    def _run_decode_chunk(self, seqs: List[SequenceState]) -> None:
+        """One decode action in chunked mode: K device steps per host read,
+        and — while the scheduler has no other work — chunk N+1 launched
+        (chained on the device tensors of chunk N's last step) before chunk
+        N's tokens are read.  Blocks for the next chunk must be reserved
+        without preemption: a victim's blocks could be reallocated while
+        the chunk in flight still writes them."""
+        t0 = time.perf_counter()
+        K = self.cfg.decode_chunk
+        live = self._live_reserved(seqs, lambda s: self._chunk_limit(s, K))
+        if not live:
+            return
+        B = self.scheduler.max_batch
+        tok = np.zeros((B,), np.int32)
+        pos = np.zeros((B,), np.int32)
+        stop1 = np.full((B,), -1, np.int32)
+        limits = np.zeros((B,), np.int32)
+        for seq in live:
+            tok[seq.slot] = seq.next_tok
+            pos[seq.slot] = seq.fed
+            stop1[seq.slot] = self._stop1(seq)
+            limits[seq.slot] = self._chunk_limit(seq, K)
+        tok_d, pos_d = self._upload(tok), self._upload(pos)
+        stop_d = self._upload(stop1)
+        tables = self._sync_tables(live)
+        pending = None  # (limits, tokens being copied to the host)
+        while True:
+            toks_d, tok_d, pos_d = self._decode_chunk(
+                tok_d, pos_d, self._upload(tables), self._upload(limits),
+                stop_d, K,
+            )
+            self.stats.decode_steps += K
+            # useful tokens are credited at drain time (a lane frozen
+            # mid-chunk reports its remaining steps as padding)
+            self.stats.observe_dispatch(B * K, 0)
+            read = self._read_async(toks_d)
+            clean = True
+            if pending is not None:
+                prev_limits, prev_read = pending
+                # THE chunk-boundary read, overlapping the chunk just launched
+                clean = self._drain_tokens(live, prev_limits, self._wait(prev_read))
+            pending = (limits, read)
+            if not (clean and self._can_pipeline()):
+                break
+            # next chunk's limits assuming full emission of this one
+            nxt = np.zeros((B,), np.int32)
+            for seq in live:
+                nxt[seq.slot] = self._chunk_limit(
+                    seq, K, ahead=int(limits[seq.slot])
+                )
+            if not nxt.any():
+                break
+            ok = True
+            for seq in live:
+                ok = ok and self.scheduler.try_reserve(
+                    seq, int(limits[seq.slot]) + int(nxt[seq.slot])
+                )
+            if not ok:
+                break  # pool too tight to reserve without preemption
+            limits = nxt
+            tables = self._sync_tables(live)
+        prev_limits, prev_read = pending
+        self._drain_tokens(live, prev_limits, self._wait(prev_read))
+        self.stats.decode_s += time.perf_counter() - t0
+
+    def step(self) -> bool:
+        """Run one scheduler action; False when nothing was runnable."""
+        action = self.scheduler.next_batch(self.token_budget)
+        self.stats.queue_depth_peak = max(
+            self.stats.queue_depth_peak, self._queue_depth()
+        )
+        if action is None:
+            return False
+        if action[0] == "mixed":
+            self._run_mixed(action[1])
+        elif self.cfg.decode_chunk > 1:
+            self._run_decode_chunk(action[1])
+        else:
+            self._run_decode(action[1])
+        return True
+
+    def run(self, stream_cb=None) -> Tuple[Dict[str, List[int]], ServingStats]:
+        """Drive the loop until every queued request finishes.  Returns
+        {rid: prompt + generation (stop-trimmed)} and the stats;
+        `stream_cb(rid, token)` fires per generated token."""
+        self._stream_cb = stream_cb
+        t0 = time.perf_counter()
+        try:
+            while self.scheduler.has_work:
+                if not self.step():
+                    break
+        finally:
+            self.stats.preemptions = self.scheduler.preemptions
+            self.stats.prefix_cache_hits = self.pool.prefix_hits
+            self.stats.wall_s += time.perf_counter() - t0
+            self._stream_cb = None
+        return dict(self._results), self.stats

@@ -1,0 +1,158 @@
+"""Kernel K1's plain version and the port's paged attention against the
+JAX package, on the CPU.
+
+- The plain version of K1 (`ragged_paged_attention_plain`, also what the
+  wrapper runs on a CPU tensor) is held against the JAX Pallas kernel
+  `ragged_paged_attention(..., interpret=True)` — the same call
+  tests/test_paged_attention.py makes on the CPU — on every row a slot
+  owns, over mha/gqa/mqa x span width {1, 7, 16, 33} with a decode lane,
+  an absent slot and padding rows packed beside it.  Tolerance: float32,
+  atol/rtol 2e-5 (the tolerance the JAX tests hold their kernel to).
+  Rows no slot owns must be exactly zero in the port.
+- `paged_update` (with the trash-block redirect) must write exactly what
+  the JAX version writes; `paged_prefill`/`paged_attention` on both the
+  plain route and the kernel route must match the JAX lax route.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mdi_llm_tpu.ops.paged_attention import paged_attention as jax_paged_attention
+from mdi_llm_tpu.ops.paged_attention import paged_prefill as jax_paged_prefill
+from mdi_llm_tpu.ops.paged_attention import paged_update as jax_paged_update
+from mdi_llm_tpu.ops.ragged_paged_attention import ragged_paged_attention as jax_k1
+from mdi_llm_tpu_torch.ops import paged_attention as tpa
+from mdi_llm_tpu_torch.ops.ragged_paged_attention import (
+    ragged_paged_attention,
+    ragged_paged_attention_plain,
+)
+
+torch.set_num_threads(1)
+TOL = dict(atol=2e-5, rtol=2e-5)
+HEADS = [(8, 8), (8, 2), (4, 1)]
+HEAD_IDS = ["mha", "gqa", "mqa"]
+
+
+def make_pool(n_slots, G, hs, BS, MB, seed):
+    """Random pools with shuffled block ids (block 0 never handed out)."""
+    rng = np.random.default_rng(seed)
+    NB = 1 + n_slots * MB + 2
+    k = rng.standard_normal((NB, BS, G, hs)).astype(np.float32)
+    v = rng.standard_normal((NB, BS, G, hs)).astype(np.float32)
+    tables = rng.permutation(np.arange(1, NB))[: n_slots * MB].reshape(n_slots, MB)
+    return k, v, tables.astype(np.int32)
+
+
+def pack(spans, n_slots, H, hs, T, seed, pad_pos):
+    """spans: [(slot, first position, n_tokens)] packed slot-major; the tail
+    up to T pads with rows no slot owns, at position `pad_pos`."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((1, H, T, hs)).astype(np.float32)
+    q_slot = np.zeros(T, np.int32)
+    q_pos = np.full(T, pad_pos, np.int32)
+    q_start = np.zeros(n_slots, np.int32)
+    q_len = np.zeros(n_slots, np.int32)
+    off = 0
+    for slot, p0, n in spans:
+        q_slot[off:off + n] = slot
+        q_pos[off:off + n] = np.arange(p0, p0 + n)
+        q_start[slot], q_len[slot] = off, n
+        off += n
+    q_start[q_len == 0] = off  # an absent slot's offset points anywhere
+    lens = q_pos[np.clip(q_start, 0, T - 1)] + q_len
+    return q, q_slot, q_start, q_len, lens.astype(np.int32), q_pos, off
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("Tq", [1, 7, 16, 33])
+@pytest.mark.parametrize("heads", HEADS, ids=HEAD_IDS)
+def test_plain_k1_matches_jax_kernel_interpret(heads, Tq):
+    H, G = heads
+    hs, BS, MB, n_slots = 16, 8, 8, 4
+    k, v, tables = make_pool(n_slots, G, hs, BS, MB, seed=Tq)
+    # slot 0: a span of width Tq deep in its table; slot 1: absent;
+    # slot 2: a decode lane; slot 3: a span crossing a block boundary
+    spans = [(0, MB * BS - Tq, Tq), (2, 21, 1), (3, 5, 6)]
+    T = Tq + 1 + 6 + 3  # + 3 padding rows
+    q, _, q_start, q_len, lens, q_pos, off = pack(
+        spans, n_slots, H, hs, T, seed=Tq + 100, pad_pos=MB * BS)
+    scale = hs ** -0.5
+    want = np.asarray(jax_k1(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+        jnp.asarray(q_start), jnp.asarray(q_len), jnp.asarray(lens),
+        jnp.asarray(q_pos), scale=scale, interpret=True,
+    ))
+    args = [t(x) for x in (q, k, v, tables, q_start, q_len, lens, q_pos)]
+    got = ragged_paged_attention_plain(*args, scale=scale).numpy()
+    np.testing.assert_allclose(got[:, :, :off], want[:, :, :off], **TOL)
+    assert not got[:, :, off:].any(), "rows no slot owns must be zero"
+    # on a CPU tensor the wrapper is the plain version, and counts nothing
+    before = ragged_paged_attention.launches
+    np.testing.assert_array_equal(ragged_paged_attention(*args, scale=scale).numpy(), got)
+    assert ragged_paged_attention.launches == before
+
+
+def test_wrapper_refuses_int8_pools():
+    q = torch.zeros(1, 4, 2, 16)
+    pool = {"q": torch.zeros(3, 4, 2, 16, dtype=torch.int8), "scale": torch.ones(3, 2)}
+    z = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int8"):
+        ragged_paged_attention(q, pool, pool, torch.zeros(1, 2, dtype=torch.int32),
+                               z, z, z, torch.zeros(2, dtype=torch.int32), scale=0.25)
+
+
+def test_paged_update_matches_jax_including_trash_redirect():
+    B, T, G, hs, BS, MB, NB = 2, 3, 2, 4, 4, 3, 8
+    rng = np.random.default_rng(0)
+    pool = rng.standard_normal((NB, BS, G, hs)).astype(np.float32)
+    tables = np.array([[1, 2, 3], [4, 5, 6]], np.int32)
+    # row 1's last position lies past its table: it must land in block 0
+    pos = np.array([[5, 6, 7], [10, 11, MB * BS + 1]], np.int32)
+    new = rng.standard_normal((B, T, G, hs)).astype(np.float32)
+    jk, jv = jax_paged_update(jnp.asarray(pool), jnp.asarray(pool),
+                              jnp.asarray(new), jnp.asarray(new * 2),
+                              jnp.asarray(tables), jnp.asarray(pos))
+    tk, tv = t(pool), t(pool)
+    out = tpa.paged_update(tk, tv, t(new), t(new * 2), t(tables), t(pos))
+    assert out[0] is tk and out[1] is tv, "the update is in place"
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tk.numpy()[0, 1], new[1, 2])  # trash block
+
+
+@pytest.mark.parametrize("use_kernel", [False, True], ids=["plain", "kernel-route"])
+@pytest.mark.parametrize("heads", HEADS, ids=HEAD_IDS)
+def test_paged_prefill_matches_jax_lax(heads, use_kernel):
+    H, G = heads
+    hs, BS, MB, n_slots = 16, 8, 6, 3
+    k, v, tables = make_pool(n_slots, G, hs, BS, MB, seed=7)
+    q, q_slot, q_start, q_len, _, q_pos, off = pack(
+        [(0, 30, 1), (2, 3, 20)], n_slots, H, hs, 25, seed=8, pad_pos=MB * BS)
+    want = np.asarray(jax_paged_prefill(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+        jnp.asarray(q_slot), jnp.asarray(q_start), jnp.asarray(q_len),
+        jnp.asarray(q_pos), use_kernel=False))
+    got = tpa.paged_prefill(t(q), t(k), t(v), t(tables), t(q_slot), t(q_start),
+                            t(q_len), t(q_pos), use_kernel=use_kernel).numpy()
+    np.testing.assert_allclose(got[:, :, :off], want[:, :, :off], **TOL)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True], ids=["plain", "kernel-route"])
+@pytest.mark.parametrize("Tq", [1, 5])
+def test_paged_attention_matches_jax_lax(Tq, use_kernel):
+    H, G, hs, BS, MB, B = 8, 2, 16, 4, 8, 3
+    k, v, tables = make_pool(B, G, hs, BS, MB, seed=9)
+    rng = np.random.default_rng(10)
+    q = rng.standard_normal((B, H, Tq, hs)).astype(np.float32)
+    q_pos = np.array([np.arange(p, p + Tq) for p in (0, 13, MB * BS - Tq)], np.int32)
+    want = np.asarray(jax_paged_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+        jnp.asarray(q_pos), use_kernel=False))
+    got = tpa.paged_attention(t(q), t(k), t(v), t(tables), t(q_pos),
+                              use_kernel=use_kernel).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
