@@ -9,8 +9,8 @@ Phases (each prints its lines; any failure exits non-zero):
 
 1. device  — torch.cuda must be available; prints the card's name and
    power limit as nvidia-smi reports them.
-2. build   — builds every kernel of the serving path from `csrc/` (one
-   nvcc each, started together) and prints the build seconds.
+2. build   — builds every kernel of the serving and generation paths from
+   `csrc/` (one nvcc each, started together) and prints the build seconds.
 3. kernel  — kernel K1 (ragged paged attention) against its plain PyTorch
    version on the card, at tiny-llama-1.1b geometry (32 heads, 4 KV
    groups, head size 64, 16-token blocks, 2048-token tables), in float32
@@ -32,9 +32,29 @@ Phases (each prints its lines; any failure exits non-zero):
 5. serve parity — float32, 4 layers at full width, 4 requests of 16 new
    tokens, served through the kernel route and through the plain route on
    the card: the greedy streams must be identical.
+6. flash   — kernel K2 (flash self-attention) against its plain PyTorch
+   version on the card, 32 heads, 4 KV groups, head size 64, in float32
+   and bfloat16: causal B=4 T=2048 (the generate phase's prefill shape),
+   causal T=1000 with the LSE (T not a multiple of the tile), non-causal
+   T=512 with the LSE.  Tolerances as for K1, the LSE's too.  Prints the
+   kernel's time, the plain version's, scaled_dot_product_attention's (a
+   yardstick the port never calls) and the least time the card could
+   take; then K2 against the dense torch route the model takes without
+   flash, at T=256 to 2048 (the crossover for `flash_min_len`).
+7. generate — `Generator.generate` on tiny-llama-1.1b at full width and
+   all 22 layers, bf16, random weights from seed 10137, 2048-token window:
+   4 greedy prompts of 1100-1900 tokens (one 2048 bucket), 64 new tokens
+   in decode chunks of 16.  Every sample must get its 64 tokens in the
+   vocabulary; K2 must be launched once per layer (22) and its plain
+   version never.  Then the sample CLI (`--n-samples 4 --n-tokens 32
+   --greedy`, 8-token prompts below `flash_min_len`) must finish without
+   launching K2.
+8. generate parity — float32, 4 layers at full width, 2 prompts of ~1100
+   tokens, 16 greedy tokens, through K2 and through K2's plain version on
+   the card: the streams must be identical.
 
-The line before the last is the JSON `kernels` record; the last line is
-`{"ok": true, "device": {...}}`.
+The line before the last is the JSON `kernels` record (K1, K2); the last
+line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -262,6 +282,187 @@ def phase_serve_parity():
           f"{len(trace)} greedy streams ({n} tokens) identical through K1 and "
           "the plain route", flush=True)
 
+FLASH_SHAPES = {  # label: (B, T, causal, with_lse)
+    "main": (4, 2048, True, False),
+    "ragged": (2, 1000, True, True),
+    "noncausal": (2, 512, False, True),
+}
+
+
+def flash_bound(B, H, G, T, hs, dtype, causal, with_lse) -> tuple:
+    """(least ms, what bounds it) for K2: q, k, v read once, the output
+    (and LSE) written once, against 4 * hs flops per (head, query, key)
+    pair the mask lets through."""
+    import torch
+
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * B * H + 2 * B * G) * T * hs * item + (4 * B * H * T if with_lse else 0)
+    pairs = T * (T + 1) // 2 if causal else T * T
+    flops = 4 * B * H * hs * pairs
+    peak = PEAK_FLOPS[str(dtype).replace("torch.", "")]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_inputs(B, T, dtype, seed, H=32, G=4, hs=64):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((B, H, T, hs), (B, G, T, hs), (B, G, T, hs))]
+
+
+def phase_flash(record):
+    import torch
+    import torch.nn.functional as F
+
+    from mdi_llm_tpu_torch.ops.attention import multihead_attention
+    from mdi_llm_tpu_torch.ops.flash import (
+        flash_attention,
+        flash_attention_lse,
+        flash_attention_plain,
+    )
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for label, (B, T, causal, with_lse) in FLASH_SHAPES.items():
+            q, k, v = flash_inputs(B, T, dtype, seed=T + B)
+            if with_lse:
+                run = lambda: flash_attention_lse(q, k, v, causal=causal)  # noqa: E731
+            else:
+                run = lambda: (flash_attention(q, k, v), None)  # noqa: E731
+            out, lse = run()
+            torch.cuda.synchronize()
+            ref, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(),
+                                                 causal=causal)
+            err = (out.float() - ref).abs().max().item()
+            if with_lse:
+                err = max(err, (lse - ref_lse).abs().max().item())
+            del ref, ref_lse
+            if not err <= TOL[name]:
+                fail("flash", f"{name} {label}: max|err| {err} (tol {TOL[name]})")
+            worst = max(worst, err)
+            ms = cuda_ms(run, 20)
+            plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal), 3)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), 20)
+            b_ms, b_by = flash_bound(B, 32, 4, T, 64, dtype, causal, with_lse)
+            print(f"flash: K2 {name} {label} B={B} T={T} causal={causal} "
+                  f"lse={with_lse} max_abs_err={err:.3e} ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                  f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+            if name == "bfloat16" and label == "main":  # the generate phase's shape
+                record.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=b_ms, bound_by=b_by)
+            torch.cuda.empty_cache()
+    record["max_abs_err"] = worst
+    # the crossover: K2 against the dense route a prefill takes without flash
+    for T in (256, 512, 1024, 2048):
+        q, k, v = flash_inputs(4, T, torch.bfloat16, seed=T)
+        pos = torch.arange(T, device="cuda").expand(4, T)
+        ms = cuda_ms(lambda: flash_attention(q, k, v), 20)
+        dense_ms = cuda_ms(lambda: multihead_attention(q, k, v, pos, k_pos=pos), 10)
+        print(f"flash: crossover bfloat16 B=4 T={T}: K2 ms={ms:.4f} dense-route "
+              f"ms={dense_ms:.4f} (dense/K2 {dense_ms / ms:.3f})", flush=True)
+        torch.cuda.empty_cache()
+
+
+def tiny_llama_generator(n_layer, dtype, **kw):
+    import torch
+
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+
+    cfg = Config.from_name(TINY_LLAMA, n_layer=n_layer)
+    params = transformer.init_params(cfg, 10137, dtype=dtype, device="cuda")
+    return Generator(cfg, params, max_seq_length=2048, device="cuda", **kw)
+
+
+def long_prompts(lens, vocab, seed=10137):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, n).tolist() for n in lens]
+
+
+def phase_generate(record):
+    import torch
+
+    from mdi_llm_tpu_torch.cli import sample as sample_cli
+    from mdi_llm_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+
+    gen = tiny_llama_generator(22, torch.bfloat16)
+    cfg = gen.cfg
+    # warm-up (cuBLAS handles, allocator), short prompts: not counted
+    gen.generate([[1, 2, 3]] * 4, 4, temperature=0.0)
+    prompts = long_prompts((1100, 1370, 1650, 1900), cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention_plain.calls = 0
+    outs, stats = gen.generate(prompts, 64, temperature=0.0, chunk_size=16)
+    torch.cuda.synchronize()
+    launches, plain = flash_attention.launches, flash_attention_plain.calls
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        new = o[len(p):]
+        if len(new) != 64 or not all(0 <= t < cfg.padded_vocab_size for t in new):
+            fail("generate", f"sample {i} did not get 64 tokens in the vocabulary")
+    if cfg.n_layer != 22 or launches != cfg.n_layer or plain:
+        fail("generate", f"K2 launches {launches} (want {cfg.n_layer}), plain "
+             f"version calls {plain} (want 0)")
+    print("generate: " + json.dumps({
+        "prompt_lens": [len(p) for p in prompts], "new_tokens": 64,
+        "prefill_s": round(stats.prefill_s, 4), "decode_s": round(stats.decode_s, 4),
+        "tokens_generated": stats.tokens_generated,
+        "tokens_per_s": round(stats.tokens_per_s, 2),
+        "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        "k2_launches": launches, "k2_plain_calls": plain}), flush=True)
+    record["launches"] = launches
+    del gen
+    torch.cuda.empty_cache()
+
+    args = sample_cli.build_parser().parse_args(
+        ["--model", TINY_LLAMA, "--n-samples", "4", "--n-tokens", "32", "--greedy"])
+    flash_attention.launches = flash_attention_plain.calls = 0
+    prompt_ids, outs, stats, gen, seconds = sample_cli.run(args)
+    torch.cuda.synchronize()
+    if flash_attention.launches or flash_attention_plain.calls:
+        fail("generate", f"the sample CLI's 8-token prompts launched K2 "
+             f"{flash_attention.launches} times (plain {flash_attention_plain.calls})")
+    if [len(o) - len(p) for o, p in zip(outs, prompt_ids)] != [32] * 4:
+        fail("generate", "the sample CLI did not generate 32 tokens per sample")
+    print(f"generate: sample CLI --n-samples 4 --n-tokens 32 --greedy: "
+          f"{stats.tokens_generated} tokens, {stats.tokens_per_s:.2f} tokens/s "
+          f"decode, 0 K2 launches (prompt bucket 16 < flash_min_len "
+          f"{gen.flash_min_len})", flush=True)
+    del gen
+    torch.cuda.empty_cache()
+
+
+def phase_generate_parity():
+    import torch
+
+    from mdi_llm_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+
+    streams = {}
+    for route, flash_kernel in (("kernel", None), ("plain", False)):
+        gen = tiny_llama_generator(4, torch.float32, use_flash=True,
+                                   flash_kernel=flash_kernel)
+        prompts = long_prompts((1100, 1093), gen.cfg.vocab_size, seed=7)
+        flash_attention.launches = flash_attention_plain.calls = 0
+        streams[route], _ = gen.generate(prompts, 16, temperature=0.0)
+        launched, plain = flash_attention.launches, flash_attention_plain.calls
+        if (launched, plain) != ((4, 0) if route == "kernel" else (0, 4)):
+            fail("generate-parity", f"the {route} run launched K2 {launched} "
+                 f"times and its plain version {plain} times")
+        del gen
+        torch.cuda.empty_cache()
+    if streams["kernel"] != streams["plain"]:
+        fail("generate-parity", "greedy streams differ between K2 and its plain version")
+    print("generate-parity: float32, 4 layers x 2048: 2 greedy streams of 16 "
+          "tokens identical through K2 and its plain version", flush=True)
+
 
 def main() -> None:
     import torch
@@ -280,24 +481,35 @@ def main() -> None:
 
     t0 = time.perf_counter()
     seconds = kernels.build()
-    regs = [ln.strip() for ln in (kernels.BUILD_DIR / "ragged_paged_attention.log")
-            .read_text().splitlines() if "registers" in ln]
     print(f"build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
-          f"({time.perf_counter() - t0:.2f} s wall); K1 ptxas: {regs[:6]}", flush=True)
+          f"({time.perf_counter() - t0:.2f} s wall)", flush=True)
+    for name in kernels.SOURCES:
+        regs = [ln.strip() for ln in (kernels.BUILD_DIR / f"{name}.log")
+                .read_text().splitlines() if "registers" in ln]
+        print(f"build: {name} ptxas: {regs[:6]}", flush=True)
 
-    record = {
+    k1 = {
         "name": "K1 ragged_paged_attention",
         "route": "cuda",
         "source": "mdi_llm_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "mdi_llm_tpu/ops/ragged_paged_attention.py:123",
     }
-    phase_kernel(record)
-    phase_serve(record)
+    k2 = {
+        "name": "K2 flash_attention",
+        "route": "cuda",
+        "source": "mdi_llm_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "mdi_llm_tpu/ops/flash.py:40",
+    }
+    phase_kernel(k1)
+    phase_serve(k1)
     phase_serve_parity()
+    phase_flash(k2)
+    phase_generate(k2)
+    phase_generate_parity()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)
-    print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in (k1, k2)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
-"""Shared CLI plumbing of the port: model/dtype/device flags and model
-loading (the parts of `mdi_llm_tpu/cli/_common.py` the serve CLI needs).
+"""Shared CLI plumbing of the port: model/dtype/device flags, model
+loading and the generation-run flags and report (the parts of
+`mdi_llm_tpu/cli/_common.py` the serve and sample CLIs need).
 
 Only `--model NAME` with random weights drawn from `--seed` is ported;
 checkpoints (`--ckpt`) and weight quantization (`--quantize`) are refused
@@ -9,11 +10,13 @@ until a later slice carries them.
 from __future__ import annotations
 
 import argparse
+import sys
+from pathlib import Path
 from typing import Tuple
 
 import torch
 
-from mdi_llm_tpu_torch.config import Config
+from mdi_llm_tpu_torch.config import TEMPERATURE, TOP_K, Config
 from mdi_llm_tpu_torch.models import transformer
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
@@ -33,7 +36,7 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--quantize", default="none",
                     help="weight quantization (not ported yet: only 'none')")
     ap.add_argument("--kv-dtype", choices=("auto", *DTYPES), default="auto",
-                    help="paged KV pool dtype (auto follows --dtype)")
+                    help="KV cache / paged pool dtype (auto follows --dtype)")
 
 
 def refuse(what: str) -> None:
@@ -56,3 +59,50 @@ def load_model(args) -> Tuple[Config, dict]:
         cfg, args.seed, dtype=DTYPES[args.dtype], device=args.device
     )
     return cfg, params
+
+
+def add_run_args(ap: argparse.ArgumentParser) -> None:
+    """Generation-run flags (the JAX CLI's sample/starter flag set)."""
+    ap.add_argument("--n-samples", type=int, default=1)
+    ap.add_argument("--n-tokens", type=int, default=300, help="tokens per sample")
+    ap.add_argument("--prompt", default="Once upon a time,", help='text or "FILE:<path>"')
+    ap.add_argument("--temperature", type=float, default=TEMPERATURE)
+    ap.add_argument("--top-k", type=int, default=TOP_K)
+    ap.add_argument("--top-p", type=float, default=None)
+    ap.add_argument("--greedy", action="store_true", help="temperature 0 (parity mode)")
+    ap.add_argument("--plots", action="store_true")
+    ap.add_argument("--time-run", type=Path, default=None, help="append run stats CSV")
+    ap.add_argument("--logs-dir", type=Path, default=Path("logs"))
+
+
+def report_run(args, cfg, prompt_ids, outs, stats, gen_time):
+    """Print the samples and the throughput line, and write the tokens/time
+    CSV, its plot and the run-stats CSV under the JAX CLI's file names
+    (one device: one node)."""
+    from mdi_llm_tpu_torch.utils import plots
+
+    for i, (ids, plen) in enumerate(zip(outs, (len(p) for p in prompt_ids))):
+        print(f"--- sample {i} ({len(ids) - plen} new tokens) " + "-" * 30)
+        print(ids)
+    print(
+        f"[1 node(s)] {stats.tokens_generated} tokens in {gen_time:.2f}s — "
+        f"{stats.tokens_per_s:.2f} tok/s decode (prefill {stats.prefill_s:.2f}s)",
+        file=sys.stderr,
+    )
+    if stats.interrupted:
+        print("WARNING: generation interrupted — output is partial", file=sys.stderr)
+    if args.plots or args.time_run:
+        csv_path = plots.tok_time_csv_path(
+            args.logs_dir, 1, cfg.name, args.n_samples
+        )
+        plots.write_tok_time_csv(csv_path, stats.tok_time)
+        if args.plots:
+            plots.plot_tokens_per_time(
+                stats.tok_time, csv_path.with_suffix(".png"),
+                label=f"{cfg.name} 1 node(s)",
+            )
+        if args.time_run:
+            plots.append_run_stats(
+                args.time_run, args.n_samples, cfg.n_layer,
+                args.sequence_length or cfg.block_size, gen_time,
+            )

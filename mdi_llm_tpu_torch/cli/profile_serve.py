@@ -23,6 +23,27 @@ from torch.profiler import ProfilerActivity, profile
 from mdi_llm_tpu_torch.cli import serve as cli
 
 
+def device_summary(prof, wall_s: float, top: int) -> dict:
+    """Device time summed over all kernels of a profiled window, its idle
+    share of `wall_s`, and the `top` kernels by device time."""
+    # device-side events only: the CPU ops that launched them carry the
+    # same time again
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.device_time_total for e in kernels)
+    kernels.sort(key=lambda e: e.device_time_total, reverse=True)
+    return {
+        "device": torch.cuda.get_device_name(0),
+        "wall_s": round(wall_s, 4),
+        "device_s": round(device_us / 1e6, 4),
+        "device_idle_share": round(1 - device_us / 1e6 / wall_s, 4),
+        "top_kernels": [
+            {"name": e.key[:80], "calls": e.count,
+             "device_ms": round(e.device_time_total / 1e3, 3)}
+            for e in kernels[:top]
+        ],
+    }
+
+
 def main(argv=None, top: int = 12) -> dict:
     args = cli.build_parser().parse_args(argv)
     if torch.device(args.device).type != "cuda":
@@ -34,28 +55,12 @@ def main(argv=None, top: int = 12) -> dict:
         _trace, _results, stats, engine = cli.serve(args)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    # device-side events only: the CPU ops that launched them carry the
-    # same time again
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.device_time_total for e in kernels)
-    kernels.sort(key=lambda e: e.device_time_total, reverse=True)
-    line = {
-        "device": torch.cuda.get_device_name(0),
-        "wall_s": round(wall_s, 4),
-        "engine_wall_s": round(stats.wall_s, 4),
-        "device_s": round(device_us / 1e6, 4),
-        "device_idle_share": round(1 - device_us / 1e6 / wall_s, 4),
-        "tokens_generated": stats.tokens_generated,
-        "forward_calls": engine.forward_calls,
-        "top_kernels": [
-            {"name": e.key[:80], "calls": e.count,
-             "device_ms": round(e.device_time_total / 1e3, 3)}
-            for e in kernels[:top]
-        ],
-    }
+    line = device_summary(prof, wall_s, top)
+    line.update(engine_wall_s=round(stats.wall_s, 4),
+                tokens_generated=stats.tokens_generated,
+                forward_calls=engine.forward_calls)
     print(json.dumps(line))
     return line
-
 
 if __name__ == "__main__":
     main()

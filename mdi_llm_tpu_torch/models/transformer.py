@@ -1,21 +1,29 @@
 """Decoder-only transformer as plain functions over a parameter tree.
 
-Port of `mdi_llm_tpu/models/transformer.py`, serving path.  The parameter
-tree keeps the JAX package's layout, so converted weights drop in
-(`mdi_llm_tpu_torch.convert.params_from_numpy`):
+Port of `mdi_llm_tpu/models/transformer.py`, for sequential generation
+and serving.  The parameter tree keeps the JAX package's layout, so
+converted weights drop in (`mdi_llm_tpu_torch.convert.params_from_numpy`):
 
 - every per-layer leaf carries a leading layer axis; `run_blocks` is a
   Python loop that indexes it (the JAX package scans it with `lax.scan`);
 - linear weights are torch-layout `(out, in)`; the attention projection is
   litGPT's fused QKV, interleaved per KV group (`_split_qkv`);
-- the KV cache is the serving engine's pool, `{"k", "v"}` each
-  `(L, num_blocks, block_size, G, hs)`, updated in place through the block
-  tables (`ops/paged_attention.py`).
+- two KV caches, each updated IN PLACE (the JAX package donates the cache
+  to the jitted step for the same effect), so `forward` returns the
+  logits only:
+  - the dense cache of `Generator.generate` and `ChatSession`,
+    `{"k", "v"}` each `(L, B, G, S, hs)` (`init_kv_cache`): chunk row b is
+    written at slot `input_pos[b]`, and slot j holds absolute position j;
+  - the serving engine's pool, `{"k", "v"}` each
+    `(L, num_blocks, block_size, G, hs)`, read and written through block
+    tables (`ops/paged_attention.py`).
 
-Only the paged attention branches are ported: every call here is a
-serving step.  Mixture-of-experts configs are refused.  The large matrix
-products stay `F.linear`, as the JAX package left them to XLA; attention
-goes through kernel K1 on the card.
+Attention runs on the kernels on the card: K1 for every paged call, K2
+(`ops/flash.py`) for a fresh prefill with `use_flash`.  The dense-cache
+attention of decode steps and short prefills stays the torch
+`multihead_attention`, as the JAX package leaves it to XLA; so do the
+large matrix products (`F.linear`).  Mixture-of-experts configs are
+refused.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from mdi_llm_tpu_torch.config import Config
+from mdi_llm_tpu_torch.ops.attention import multihead_attention
+from mdi_llm_tpu_torch.ops.flash import flash_attention
 from mdi_llm_tpu_torch.ops.norms import layer_norm, rms_norm
 from mdi_llm_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -95,12 +105,18 @@ def attention_forward(
     pos: torch.Tensor,  # (B, T) absolute positions
     cos: torch.Tensor,  # (B, T, rope_n_elem) gathered for these positions
     sin: torch.Tensor,
-    k_cache: torch.Tensor,  # this layer's pool (num_blocks, block_size, G, hs)
-    v_cache: torch.Tensor,
-    paged_tables: torch.Tensor,  # (B, max_blocks), or (n_slots, max_blocks)
+    k_cache: Optional[torch.Tensor],  # this layer's cache: dense (B, G, S, hs)
+    # or the paged pool (num_blocks, block_size, G, hs); None: no cache
+    v_cache: Optional[torch.Tensor],
+    input_pos: Optional[torch.Tensor] = None,  # (B,) chunk start (dense cache)
+    paged_tables: Optional[torch.Tensor] = None,  # (B, max_blocks), or
+    # (n_slots, max_blocks) with paged_ragged
     paged_kernel: Optional[bool] = None,
     paged_ragged: Optional[Tuple] = None,  # (q_slot, q_start, q_len): B == 1,
     # tokens packed slot-major, each reading/writing its own slot's table row
+    fresh_prefill: bool = False,
+    use_flash: bool = False,
+    flash_kernel: Optional[bool] = None,
 ) -> torch.Tensor:
     B, T, _ = x.shape
     q, k, v = _split_qkv(cfg, linear(x, p["qkv"]))  # k, v: (B, T, G, hs)
@@ -115,36 +131,50 @@ def attention_forward(
         k = torch.cat(
             [apply_rope(kt[..., :n_elem], cos_b, sin_b), kt[..., n_elem:]], dim=-1
         ).transpose(1, 2)
-    if paged_ragged is not None:
-        # packed-tail padding carries a position past the table's coverage,
-        # so its write lands in the trash block
-        q_slot, q_start, q_len = paged_ragged
-        paged_update(
-            k_cache, v_cache, k[0][:, None], v[0][:, None],
-            paged_tables[q_slot.long()], pos[0][:, None],
-        )
-        y = paged_prefill(
-            q, k_cache, v_cache, paged_tables, q_slot, q_start, q_len, pos[0],
-            use_kernel=paged_kernel,
-        )
+    if paged_tables is not None:
+        if paged_ragged is not None:
+            # packed-tail padding carries a position past the table's
+            # coverage, so its write lands in the trash block
+            q_slot, q_start, q_len = paged_ragged
+            paged_update(
+                k_cache, v_cache, k[0][:, None], v[0][:, None],
+                paged_tables[q_slot.long()], pos[0][:, None],
+            )
+            y = paged_prefill(
+                q, k_cache, v_cache, paged_tables, q_slot, q_start, q_len, pos[0],
+                use_kernel=paged_kernel,
+            )
+        else:
+            paged_update(k_cache, v_cache, k, v, paged_tables, pos)
+            y = paged_attention(
+                q, k_cache, v_cache, paged_tables, pos, use_kernel=paged_kernel
+            )
     else:
-        paged_update(k_cache, v_cache, k, v, paged_tables, pos)
-        y = paged_attention(
-            q, k_cache, v_cache, paged_tables, pos, use_kernel=paged_kernel
-        )
+        k, v = k.transpose(1, 2), v.transpose(1, 2)  # (B, G, T, hs)
+        if k_cache is not None:
+            # write this chunk into row b at slots input_pos[b] + [0, T) (the
+            # cache may be narrower than the compute dtype)
+            rows = torch.arange(B, device=x.device)[:, None]
+            k_cache.transpose(1, 2)[rows, pos] = k.transpose(1, 2).to(k_cache.dtype)
+            v_cache.transpose(1, 2)[rows, pos] = v.transpose(1, 2).to(v_cache.dtype)
+        if k_cache is not None and not fresh_prefill:
+            # attend through the cache: slot j holds absolute position j
+            y = multihead_attention(q, k_cache, v_cache, pos, input_pos + T)
+        elif use_flash and T > 1:
+            # a fresh chunk at offset 0 (q_pos == k_pos == arange(T))
+            y = flash_attention(q, k, v, use_kernel=flash_kernel)
+        else:
+            # no cache, or a fresh prefill: attend the chunk itself
+            y = multihead_attention(q, k, v, pos, k_pos=pos)
     y = y.transpose(1, 2).reshape(B, T, cfg.n_head * cfg.head_size)
     return linear(y.to(x.dtype), p["proj"])
 
 
-def block_forward(cfg, p, x, pos, cos, sin, k_cache, v_cache, paged_tables,
-                  paged_kernel=None, paged_ragged=None) -> torch.Tensor:
+def block_forward(cfg, p, x, pos, cos, sin, k_cache, v_cache, **attn) -> torch.Tensor:
     """One transformer block, parallel-residual (GPT-NeoX) or sequential
-    (Llama) form."""
+    (Llama) form; `attn` goes to `attention_forward`."""
     n1 = _norm(cfg, x, p["norm_1"])
-    att = attention_forward(
-        cfg, p["attn"], n1, pos, cos, sin, k_cache, v_cache, paged_tables,
-        paged_kernel, paged_ragged,
-    )
+    att = attention_forward(cfg, p["attn"], n1, pos, cos, sin, k_cache, v_cache, **attn)
     if cfg.parallel_residual:
         n2 = n1 if cfg.shared_attention_norm else _norm(cfg, x, p["norm_2"])
         return x + att + mlp_forward(cfg, p["mlp"], n2)
@@ -164,13 +194,15 @@ def layer_params(blocks: Params, i: int) -> Params:
     return tree_map(lambda x: x[i], blocks)
 
 
-def run_blocks(cfg, blocks, x, pos, cos, sin, kv: KVCache, paged_tables,
-               paged_kernel=None, paged_ragged=None) -> torch.Tensor:
-    """The block stack over the pooled cache, layer by layer."""
-    for i in range(kv["k"].shape[0]):
+def run_blocks(cfg, blocks, x, pos, cos, sin, kv: Optional[KVCache], **attn) -> torch.Tensor:
+    """The block stack, layer by layer, over the dense cache, the pooled
+    cache or (kv None) none."""
+    L = blocks["norm_1"]["weight"].shape[0]
+    for i in range(L):
         x = block_forward(
-            cfg, layer_params(blocks, i), x, pos, cos, sin, kv["k"][i],
-            kv["v"][i], paged_tables, paged_kernel, paged_ragged,
+            cfg, layer_params(blocks, i), x, pos, cos, sin,
+            None if kv is None else kv["k"][i], None if kv is None else kv["v"][i],
+            **attn,
         )
     return x
 
@@ -199,17 +231,28 @@ def forward(
     params: Params,
     tokens: torch.Tensor,  # (B, T)
     input_pos: torch.Tensor,  # (B,) chunk start, or (B, T) per-token positions
-    kv: KVCache,
-    paged_tables: torch.Tensor,
+    kv: Optional[KVCache] = None,
+    paged_tables: Optional[torch.Tensor] = None,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     paged_kernel: Optional[bool] = None,
     paged_ragged: Optional[Tuple] = None,
+    fresh_prefill: bool = False,
+    use_flash: bool = False,
+    flash_kernel: Optional[bool] = None,
 ) -> torch.Tensor:
-    """Logits (B, T, padded_vocab) of one serving step; the pool in `kv`
-    is updated in place.  With `paged_ragged` (the unified mixed step),
-    `tokens` is a (1, T) packed batch and `input_pos` its (1, T)
-    per-token positions; `paged_tables` is the (n_slots, max_blocks)
-    table."""
+    """Logits (B, T, padded_vocab); the cache in `kv` is updated in place.
+
+    Without `paged_tables`, `kv` is the dense cache (`init_kv_cache`) or
+    None: the chunk is written at each row's `input_pos`, and attention
+    reads the cache up to `input_pos + T`.  `fresh_prefill` (caller
+    contract: input_pos == 0, cache empty) attends the chunk itself
+    instead, and with `use_flash` runs it through K2 (`flash_kernel`
+    False: K2's plain version).
+
+    With `paged_tables`, `kv` is the serving engine's pool.  With
+    `paged_ragged` (the unified mixed step), `tokens` is a (1, T) packed
+    batch and `input_pos` its (1, T) per-token positions; `paged_tables`
+    is the (n_slots, max_blocks) table."""
     B, T = tokens.shape
     if input_pos.dim() == 2:
         pos = input_pos.long()
@@ -220,10 +263,13 @@ def forward(
     # the gather clamps: padding tokens deliberately sit past the table
     cos, sin = gather_rope(rope[0], rope[1], pos)
     x = embed(cfg, params, tokens, pos)
-    x = run_blocks(
-        cfg, params["blocks"], x, pos, cos, sin, kv, paged_tables,
-        paged_kernel, paged_ragged,
-    )
+    if paged_tables is not None:
+        attn = dict(paged_tables=paged_tables, paged_kernel=paged_kernel,
+                    paged_ragged=paged_ragged)
+    else:
+        attn = dict(input_pos=input_pos.long(), fresh_prefill=fresh_prefill,
+                    use_flash=use_flash, flash_kernel=flash_kernel)
+    x = run_blocks(cfg, params["blocks"], x, pos, cos, sin, kv, **attn)
     return head(cfg, params, x)
 
 
@@ -299,6 +345,24 @@ def init_params(
     elif cfg.lm_head_bias:
         params["lm_head"] = {"bias": zeros((V,))}
     return params
+
+
+def init_kv_cache(
+    cfg: Config,
+    batch_size: int,
+    max_seq_length: int,
+    dtype=torch.bfloat16,
+    device="cpu",
+    n_layer: Optional[int] = None,
+) -> KVCache:
+    """Zeroed dense cache for sequential generation: k/v each
+    (L, B, G, S, hs)."""
+    L = cfg.n_layer if n_layer is None else n_layer
+    shape = (L, batch_size, cfg.n_query_groups, max_seq_length, cfg.head_size)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
 
 
 def init_paged_kv_cache(

@@ -50,6 +50,24 @@ def _topk_filter(logits: torch.Tensor, top_k: int) -> torch.Tensor:
     )
 
 
+def sample(
+    logits: torch.Tensor,  # (..., V)
+    generator: Optional[torch.Generator],
+    temperature: float = 1.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+) -> torch.Tensor:
+    """Next token ids from Python-valued knobs (the first token of a run,
+    drawn from the prefill logits): argmax at temperature 0, else one draw
+    with `generator` — nucleus when 0 < top_p < 1, else temperature +
+    top-k, in the JAX package's branch order."""
+    t_op, p_op = sampling_operands(temperature, top_p, device=logits.device)
+    return sample_traced(
+        logits, generator, t_op, p_op,
+        mode=sample_mode(temperature, top_k, top_p), top_k=top_k,
+    )
+
+
 def sample_mode(
     temperature: float, top_k: Optional[int] = None, top_p: Optional[float] = None
 ) -> str:
