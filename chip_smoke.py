@@ -3,14 +3,17 @@
 
 Run from the root of a checkout, on a machine with one CUDA GPU:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PHASE,PHASE,...]
 
-Phases (each prints its lines; any failure exits non-zero):
+runs every phase below in order (`--only` runs the named ones, for
+iterating on one of them).  Each prints its lines; any failure exits
+non-zero.
 
 1. device  — torch.cuda must be available; prints the card's name and
    power limit as nvidia-smi reports them.
-2. build   — builds every kernel of the serving and generation paths from
-   `csrc/` (one nvcc each, started together) and prints the build seconds.
+2. build   — builds every kernel of the serving, generation and training
+   paths from `csrc/` (one nvcc each, started together) and prints the
+   build seconds.
 3. kernel  — kernel K1 (ragged paged attention) against its plain PyTorch
    version on the card, at tiny-llama-1.1b geometry (32 heads, 4 KV
    groups, head size 64, 16-token blocks, 2048-token tables), in float32
@@ -52,8 +55,31 @@ Phases (each prints its lines; any failure exits non-zero):
 8. generate parity — float32, 4 layers at full width, 2 prompts of ~1100
    tokens, 16 greedy tokens, through K2 and through K2's plain version on
    the card: the streams must be identical.
+9. flash-bwd — kernels K3 (dQ) and K4 (per-head dK/dV) against their plain
+   PyTorch versions on the same inputs (K2's output and LSE), 32 heads, 4
+   KV groups, head size 64, float32 and bfloat16: causal B=4 T=2048 (the
+   training shape), causal T=1000 (a ragged tile), non-causal T=512 with
+   an LSE cotangent.  Tolerance as for K1, scaled by the size of the
+   values (the tolerance times max(1, max |plain|)).  Prints each kernel's
+   time, the plain version's, the backward of scaled_dot_product_attention
+   (dQ, dK and dV together; a yardstick the port never calls) and the
+   least time the card could take.
+10. train  — `Trainer.train_step` on tiny-llama-1.1b at full width and all
+   22 layers, bf16, B=4, T=2048, 2 micro-batches per step, remat on, the
+   flash route on, random weights from seed 10137, tokens drawn from 512
+   ids: every optimizer step launches exactly 88 K2 (forward and remat
+   recompute), 44 K3 and 44 K4 and no plain version, an eval batch 22 K2;
+   the step losses are finite and a fixed batch's loss falls by at least
+   `TRAIN_MARGIN` over three steps.  Prints step seconds, tokens/s, the
+   Trainer's TFLOP/s estimate and peak memory.  Then the train CLI on
+   synthetic `train.bin`/`val.bin` in a temporary directory: 2 steps and a
+   checkpoint, then `--init resume` for a third.
+11. train parity — float32, 4 layers at full width, B=2, T=2048: two
+   optimizer steps through K2-K4 and through their plain versions from
+   the same params and batches; the first step's gradients and the losses
+   must agree (tolerances in `phase_train_parity`).
 
-The line before the last is the JSON `kernels` record (K1, K2); the last
+The line before the last is the JSON `kernels` record (K1-K4); the last
 line is `{"ok": true, "device": {...}}`.
 """
 
@@ -368,6 +394,102 @@ def phase_flash(record):
         torch.cuda.empty_cache()
 
 
+FLASH_BWD_SHAPES = {  # label: (B, T, causal, with an LSE cotangent)
+    "main": (4, 2048, True, False),
+    "ragged": (2, 1000, True, False),
+    "noncausal": (2, 512, False, True),
+}
+
+
+def flash_bwd_bound(B, H, G, T, hs, dtype, causal, which) -> tuple:
+    """(least ms, what bounds it) for K3 or K4: q, k, v, dO, the LSE and D
+    read once, dQ (q's dtype) or the per-head float32 dK, dV written once,
+    against 6 * hs (K3) or 8 * hs (K4) flops per (head, query, key) pair
+    the mask lets through."""
+    import torch
+
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * B * H + 2 * B * G) * T * hs * item + 2 * 4 * B * H * T
+    nbytes += B * H * T * hs * item if which == "dq" else 2 * B * H * T * hs * 4
+    pairs = T * (T + 1) // 2 if causal else T * T
+    flops = (6 if which == "dq" else 8) * B * H * hs * pairs
+    peak = PEAK_FLOPS[str(dtype).replace("torch.", "")]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flash_bwd(k3, k4):
+    """K3 and K4 against their plain versions on the same inputs (the
+    forward's output and LSE from K2).  Tolerance, scaled by the size of
+    the values: max |err| <= TOL * max(1, max |plain|), the plain version
+    run in float32 on the same (bfloat16) inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from mdi_llm_tpu_torch.ops.flash import (
+        flash_attention_lse,
+        flash_dkv,
+        flash_dkv_plain,
+        flash_dq,
+        flash_dq_plain,
+    )
+
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for label, (B, T, causal, with_dlse) in FLASH_BWD_SHAPES.items():
+            q, k, v = flash_inputs(B, T, dtype, seed=3 * T + B)
+            scale = 64 ** -0.5
+            out, lse = flash_attention_lse(q, k, v, causal=causal)
+            g = torch.Generator(device="cuda").manual_seed(T)
+            do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+            dsum = (do.float() * out.float()).sum(-1)
+            if with_dlse:
+                dsum = dsum - torch.randn(lse.shape, generator=g, device="cuda")
+            args = (q, k, v, do, lse, dsum, scale, causal)
+            got = {"dq": (flash_dq(*args),), "dkv": flash_dkv(*args)}
+            torch.cuda.synchronize()
+            f32 = [x.float() for x in (q, k, v, do)]
+            ref = {"dq": (flash_dq_plain(*f32, lse, dsum, scale, causal),),
+                   "dkv": flash_dkv_plain(*f32, lse, dsum, scale, causal)}
+            for which in ("dq", "dkv"):
+                for a, r in zip(got[which], ref[which]):
+                    err = (a.float() - r).abs().max().item()
+                    size = max(1.0, r.abs().max().item())
+                    if not err <= TOL[name] * size:
+                        fail("flash-bwd", f"{name} {label} {which}: max|err| {err} "
+                             f"(tol {TOL[name]} x {size:.3f})")
+                    worst[which] = max(worst[which], err)
+            del got, ref, f32
+            torch.cuda.empty_cache()
+            # the yardstick: the backward alone of one SDPA call (dQ, dK
+            # and dV together), at the same shape
+            qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
+                                                     enable_gqa=True)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                lib_out, (qq, kk, vv), do, retain_graph=True), 10)
+            del lib_out, qq, kk, vv
+            for which, rec, kern, plain in (("dq", k3, flash_dq, flash_dq_plain),
+                                            ("dkv", k4, flash_dkv, flash_dkv_plain)):
+                ms = cuda_ms(lambda: kern(*args), 10)
+                plain_ms = cuda_ms(lambda: plain(*args), 2)
+                torch.cuda.empty_cache()
+                b_ms, b_by = flash_bwd_bound(B, 32, 4, T, 64, dtype, causal, which)
+                print(f"flash-bwd: {'K3' if which == 'dq' else 'K4'} {name} {label} "
+                      f"B={B} T={T} causal={causal} dlse={with_dlse} ms={ms:.4f} "
+                      f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA "
+                      f"backward, dQ+dK+dV) bound_ms={b_ms:.5f} ({b_by})", flush=True)
+                if name == "bfloat16" and label == "main":  # the training shape
+                    rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=b_ms, bound_by=b_by)
+            del q, k, v, out, lse, do, dsum, args
+            torch.cuda.empty_cache()
+    k3["max_abs_err"], k4["max_abs_err"] = worst["dq"], worst["dkv"]
+    print(f"flash-bwd: K3 max|err| {worst['dq']:.3e}, K4 max|err| {worst['dkv']:.3e} "
+          "over both dtypes and all three shapes", flush=True)
+
+
 def tiny_llama_generator(n_layer, dtype, **kw):
     import torch
 
@@ -464,9 +586,229 @@ def phase_generate_parity():
           "tokens identical through K2 and its plain version", flush=True)
 
 
-def main() -> None:
+DEVICE = "cuda"
+TRAIN = dict(batch_size=4, block_size=2048, grad_acc_steps=2, learning_rate=1e-3,
+             warmup_iters=0, lr_decay_iters=100, min_lr=1e-4, eval_iters=1,
+             dtype="bfloat16", remat=True)
+TRAIN_VOCAB = 512  # synthetic tokens are drawn from this many ids
+# the fixed batch's loss must fall by this much over three steps; the first
+# run on the card saw 10.8486 -> 6.5078 (a fall of 4.34), so 1.0 leaves room
+TRAIN_MARGIN = 1.0
+
+
+def reset_flash_counts():
+    from mdi_llm_tpu_torch.ops import flash
+
+    flash.flash_attention.launches = flash.flash_dq.launches = flash.flash_dkv.launches = 0
+    flash.flash_attention_plain.calls = flash.flash_dq_plain.calls = 0
+    flash.flash_dkv_plain.calls = 0
+
+
+def flash_counts() -> dict:
+    from mdi_llm_tpu_torch.ops import flash
+
+    return {"K2": flash.flash_attention.launches, "K3": flash.flash_dq.launches,
+            "K4": flash.flash_dkv.launches,
+            "plain": flash.flash_attention_plain.calls + flash.flash_dq_plain.calls
+            + flash.flash_dkv_plain.calls}
+
+
+def synthetic_tokens(n, seed):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, TRAIN_VOCAB, n).astype(np.uint16)
+
+
+def phase_train(k3, k4):
+    """Trainer.train_step on tiny-llama-1.1b at full width and depth, then
+    the train CLI with a checkpoint and `--init resume`."""
+    import math
+    import tempfile
+
+    import numpy as np
     import torch
 
+    from mdi_llm_tpu_torch.cli import train as train_cli
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.training import (
+        Trainer,
+        TrainingConfig,
+        estimate_flops_per_token,
+    )
+    from mdi_llm_tpu_torch.utils import data_loader
+
+    cfg = Config.from_name(TINY_LLAMA)
+    tc = TrainingConfig(**TRAIN)
+    L, a, B, T = cfg.n_layer, tc.grad_acc_steps, tc.batch_size, tc.block_size
+    tr = Trainer(cfg, tc, device=DEVICE)
+    if L != 22 or not tr.use_flash:
+        fail("train", f"{L} layers, use_flash {tr.use_flash}: want 22 layers on the flash route")
+    data = synthetic_tokens(1 << 22, seed=10137)
+    rng = np.random.default_rng(10138)
+    fixed = data_loader.get_batch(data, B, T, rng)
+
+    def batches():
+        xs = np.empty((a, B, T), np.int32)
+        ys = np.empty_like(xs)
+        for m in range(a):
+            xs[m], ys[m] = data_loader.get_batch(data, B, T, rng)
+        return xs, ys
+
+    def evaluate(label):
+        reset_flash_counts()
+        loss = tr.eval_loss(*fixed)
+        got = flash_counts()
+        if got != {"K2": L, "K3": 0, "K4": 0, "plain": 0}:
+            fail("train", f"eval batch ({label}) launched {got}; want K2 = {L} only")
+        return loss
+
+    tr.train_step(*batches())  # warm-up (cuBLAS handles, allocator): not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss0 = evaluate("before")
+    want = {"K2": 2 * L * a, "K3": L * a, "K4": L * a, "plain": 0}
+    steps, total = [], {"K3": 0, "K4": 0}
+    for _ in range(3):
+        xs, ys = batches()
+        torch.cuda.synchronize()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        loss = tr.train_step(xs, ys)  # returns a host float: synchronized
+        dt = time.perf_counter() - t0
+        got = flash_counts()
+        if got != want:
+            fail("train", f"one optimizer step launched {got}; want {want}")
+        total["K3"] += got["K3"]
+        total["K4"] += got["K4"]
+        if not math.isfinite(loss):
+            fail("train", f"step loss {loss}")
+        steps.append((dt, loss))
+    loss1 = evaluate("after")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not (math.isfinite(loss0) and math.isfinite(loss1)) or loss0 - loss1 < TRAIN_MARGIN:
+        fail("train", f"fixed-batch loss {loss0} -> {loss1}: want a fall of at "
+             f"least {TRAIN_MARGIN}")
+    dt = float(np.median([d for d, _ in steps]))
+    tokens = a * B * T
+    tflops = estimate_flops_per_token(cfg, T) * tokens / dt / 1e12
+    print("train: " + json.dumps({
+        "model": TINY_LLAMA, "layers": L, "batch": B, "block": T, "grad_acc": a,
+        "dtype": tc.dtype, "remat": tc.remat, "use_flash": tr.use_flash,
+        "step_s": [round(d, 4) for d, _ in steps], "step_s_median": round(dt, 4),
+        "tokens_per_s": round(tokens / dt, 1), "tflops": round(tflops, 2),
+        "step_losses": [round(x, 4) for _, x in steps],
+        "fixed_batch_loss": [round(loss0, 4), round(loss1, 4)],
+        "peak_memory_gib": round(peak, 3),
+        "launches_per_step": want}), flush=True)
+    k3["launches"], k4["launches"] = total["K3"], total["K4"]
+    del tr
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ds, ck = Path(tmp) / "data", Path(tmp) / "ckpt"
+        ds.mkdir()
+        synthetic_tokens(1 << 21, seed=1).tofile(ds / "train.bin")
+        synthetic_tokens(1 << 18, seed=2).tofile(ds / "val.bin")
+        argv = ["--model", TINY_LLAMA, "--ckpt", str(ck), "--dataset", str(ds),
+                "--batch-size", str(B), "--block-size", str(T), "--learning-rate",
+                str(tc.learning_rate), "--warmup-iters", "0", "--lr-decay-iters", "100",
+                "--log-interval", "1", "--ckpt-interval", "1000", "--eval-iters", "1",
+                "--device", DEVICE]
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        result, trainer = train_cli.main(argv + ["--max-iters", "2"])
+        run_s = time.perf_counter() - t0
+        got = flash_counts()
+        want = {"K2": 2 * 2 * L, "K3": 2 * L, "K4": 2 * L, "plain": 0}
+        losses = [h["loss"] for h in result["history"] if "loss" in h]
+        if got != want or len(losses) != 2 or not all(map(math.isfinite, losses)):
+            fail("train", f"CLI run: launches {got} (want {want}), losses {losses}")
+        del trainer
+        torch.cuda.empty_cache()
+        saved = sorted(p.name for p in ck.iterdir())
+        if saved != ["model_config.yaml", "opt_state.pt", "params.pt", "train_state.json"]:
+            fail("train", f"CLI checkpoint holds {saved}")
+        size = sum(p.stat().st_size for p in ck.iterdir()) / 2**30
+        t1 = time.perf_counter()
+        result, trainer = train_cli.main(argv + ["--init", "resume", "--max-iters", "3"])
+        resume_s = time.perf_counter() - t1
+        hist = [h for h in result["history"] if "loss" in h]
+        if (result["iter_num"] != 3 or trainer.optimizer.count != 3 or [h["iter"] for h in hist]
+                != [3] or not math.isfinite(hist[0]["loss"])):
+            fail("train", f"--init resume did not continue at iter 3: {result}")
+        print(f"train: CLI 2 steps + checkpoint ({size:.2f} GiB) in {run_s:.1f} s, "
+              f"losses {[round(x, 4) for x in losses]}; --init resume continued at "
+              f"iter 3 (loss {hist[0]['loss']:.4f}) in {resume_s:.1f} s", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+
+
+def phase_train_parity():
+    """float32, 4 layers at full width, B=2, T=2048: two optimizer steps
+    through K2-K4 and through their plain versions from the same params and
+    batches.  The kernels sum in another order than the plain einsums, so
+    the first step's gradients agree within 1e-4 of the largest gradient
+    and the losses within 1e-5 (relative)."""
+    import numpy as np
+    import torch
+
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.training import Trainer, TrainingConfig, cross_entropy_loss
+    from mdi_llm_tpu_torch.utils import data_loader
+
+    cfg = Config.from_name(TINY_LLAMA, n_layer=4)
+    tc = TrainingConfig(**{**TRAIN, "batch_size": 2, "grad_acc_steps": 1,
+                           "dtype": "float32", "use_flash": True})
+    params = transformer.init_params(cfg, 10137, dtype=torch.float32, device=DEVICE)
+    data = synthetic_tokens(1 << 20, seed=3)
+    rng = np.random.default_rng(4)
+    batches = [data_loader.get_batch(data, 2, tc.block_size, rng) for _ in range(2)]
+    grads, losses = {}, {}
+    for route, flash_kernel in (("kernel", None), ("plain", False)):
+        tr = Trainer(cfg, tc, params=params, device=DEVICE, flash_kernel=flash_kernel)
+        reset_flash_counts()
+        x, y = (torch.as_tensor(b, device=DEVICE).long() for b in batches[0])
+        loss = cross_entropy_loss(cfg, tr.params, x, y, remat=True, use_flash=True,
+                                  flash_kernel=flash_kernel)
+        grads[route] = torch.autograd.grad(loss, transformer.tree_leaves(tr.params))
+        losses[route] = [tr.train_step(bx[None], by[None]) for bx, by in batches]
+        got = flash_counts()
+        kernel_ran = got["K2"] > 0 and got["K3"] > 0 and got["K4"] > 0
+        if (kernel_ran, got["plain"] > 0) != (route == "kernel", route == "plain"):
+            fail("train-parity", f"the {route} run: {got}")
+        del tr
+        torch.cuda.empty_cache()
+    size = max(g.abs().max().item() for g in grads["plain"])
+    err = max((a - b).abs().max().item() for a, b in zip(grads["kernel"], grads["plain"]))
+    lk, lp = losses["kernel"], losses["plain"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    if not err <= 1e-4 * size or not rel <= 1e-5:
+        fail("train-parity", f"grads max|err| {err} (largest grad {size}), losses "
+             f"{lk} vs {lp} (rel {rel})")
+    print(f"train-parity: float32, {cfg.n_layer} layers x {cfg.n_embd}, B=2 "
+          f"T={tc.block_size}: "
+          f"first-step grads max|err| {err:.3e} (largest {size:.3e}), losses "
+          f"{[round(x, 6) for x in lk]} vs {[round(x, 6) for x in lp]} (rel {rel:.2e}) "
+          "through K2-K4 and their plain versions", flush=True)
+
+
+PHASES = ("kernel", "serve", "serve-parity", "flash", "generate", "generate-parity",
+          "flash-bwd", "train", "train-parity")
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="bring-up check of the port on one GPU")
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help="comma-separated phases to run (default: all)")
+    only = set(ap.parse_args(argv).only.split(","))
+    if not only <= set(PHASES):
+        fail("args", f"unknown phases {sorted(only - set(PHASES))}")
     if not torch.cuda.is_available():
         fail("device", "torch.cuda.is_available() is False: this check needs a GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -486,7 +828,7 @@ def main() -> None:
     for name in kernels.SOURCES:
         regs = [ln.strip() for ln in (kernels.BUILD_DIR / f"{name}.log")
                 .read_text().splitlines() if "registers" in ln]
-        print(f"build: {name} ptxas: {regs[:6]}", flush=True)
+        print(f"build: {name} ptxas: {regs[:12]}", flush=True)
 
     k1 = {
         "name": "K1 ragged_paged_attention",
@@ -500,16 +842,41 @@ def main() -> None:
         "source": "mdi_llm_tpu_torch/csrc/flash_attention.cu",
         "replaces": "mdi_llm_tpu/ops/flash.py:40",
     }
-    phase_kernel(k1)
-    phase_serve(k1)
-    phase_serve_parity()
-    phase_flash(k2)
-    phase_generate(k2)
-    phase_generate_parity()
+    k3 = {
+        "name": "K3 flash_dq",
+        "route": "cuda",
+        "source": "mdi_llm_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "mdi_llm_tpu/ops/flash.py:181",
+    }
+    k4 = {
+        "name": "K4 flash_dkv",
+        "route": "cuda",
+        "source": "mdi_llm_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "mdi_llm_tpu/ops/flash.py:229",
+    }
+    runs = {
+        "kernel": lambda: phase_kernel(k1),
+        "serve": lambda: phase_serve(k1),
+        "serve-parity": phase_serve_parity,
+        "flash": lambda: phase_flash(k2),
+        "generate": lambda: phase_generate(k2),
+        "generate-parity": phase_generate_parity,
+        "flash-bwd": lambda: phase_flash_bwd(k3, k4),
+        "train": lambda: phase_train(k3, k4),
+        "train-parity": phase_train_parity,
+    }
+    for phase in PHASES:
+        if phase in only:
+            t = time.perf_counter()
+            runs[phase]()
+            print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    missing = [(r["name"], k) for r in (k1, k2, k3, k4) for k in keys if k not in r]
+    if only == set(PHASES) and missing:
+        fail("record", f"kernels line lacks {missing}")
     print(card)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in (k1, k2)]}))
+    print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in (k1, k2, k3, k4)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

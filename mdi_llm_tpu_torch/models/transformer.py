@@ -1,11 +1,13 @@
 """Decoder-only transformer as plain functions over a parameter tree.
 
-Port of `mdi_llm_tpu/models/transformer.py`, for sequential generation
-and serving.  The parameter tree keeps the JAX package's layout, so
-converted weights drop in (`mdi_llm_tpu_torch.convert.params_from_numpy`):
+Port of `mdi_llm_tpu/models/transformer.py`, for sequential generation,
+serving and training.  The parameter tree keeps the JAX package's layout,
+so converted weights drop in (`mdi_llm_tpu_torch.convert.params_from_numpy`):
 
 - every per-layer leaf carries a leading layer axis; `run_blocks` is a
-  Python loop that indexes it (the JAX package scans it with `lax.scan`);
+  Python loop over per-layer views of it, one `torch.unbind` per leaf
+  (the JAX package scans it with `lax.scan`), with `remat` checkpointing
+  each block for training;
 - linear weights are torch-layout `(out, in)`; the attention projection is
   litGPT's fused QKV, interleaved per KV group (`_split_qkv`);
 - two KV caches, each updated IN PLACE (the JAX package donates the cache
@@ -19,7 +21,8 @@ converted weights drop in (`mdi_llm_tpu_torch.convert.params_from_numpy`):
     tables (`ops/paged_attention.py`).
 
 Attention runs on the kernels on the card: K1 for every paged call, K2
-(`ops/flash.py`) for a fresh prefill with `use_flash`.  The dense-cache
+(`ops/flash.py`) for a fresh prefill or a training forward with
+`use_flash`, and K3/K4 in that training forward's backward.  The dense-cache
 attention of decode steps and short prefills stays the torch
 `multihead_attention`, as the JAX package leaves it to XLA; so do the
 large matrix products (`F.linear`).  Mixture-of-experts configs are
@@ -33,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mdi_llm_tpu_torch.config import Config
 from mdi_llm_tpu_torch.ops.attention import multihead_attention
@@ -189,21 +193,48 @@ def tree_map(fn, tree: Params) -> Params:
     return fn(tree)
 
 
-def layer_params(blocks: Params, i: int) -> Params:
-    """Layer i's view of the layer-stacked block tree."""
-    return tree_map(lambda x: x[i], blocks)
+def tree_leaves(tree: Params) -> list:
+    """The leaves of a nested-dict tree, in sorted-key order (the order
+    `jax.tree_util.tree_leaves` gives the same tree)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
 
 
-def run_blocks(cfg, blocks, x, pos, cos, sin, kv: Optional[KVCache], **attn) -> torch.Tensor:
+def unbind_layers(blocks: Params, L: int) -> list:
+    """The L per-layer views of the layer-stacked block tree, one
+    `torch.unbind` per leaf: under autograd the layers' gradients then
+    come back as one stack per leaf, where indexing `x[i]` would build a
+    zero-filled (L, ...) gradient for every layer."""
+    views = tree_map(torch.unbind, blocks)  # leaves become L-tuples
+    return [tree_map(lambda v: v[i], views) for i in range(L)]
+
+
+def run_blocks(
+    cfg, blocks, x, pos, cos, sin, kv: Optional[KVCache], remat: bool = False, **attn
+) -> torch.Tensor:
     """The block stack, layer by layer, over the dense cache, the pooled
-    cache or (kv None) none."""
+    cache or (kv None) none.  `remat` (training, kv None) recomputes each
+    block in the backward instead of keeping its activations — the
+    counterpart of the JAX package's `jax.checkpoint` around the scanned
+    block: activation memory of one layer instead of L."""
+    if remat and kv is not None:
+        raise ValueError("remat is a training path (kv must be None)")
     L = blocks["norm_1"]["weight"].shape[0]
+    layers = unbind_layers(blocks, L)
     for i in range(L):
-        x = block_forward(
-            cfg, layer_params(blocks, i), x, pos, cos, sin,
-            None if kv is None else kv["k"][i], None if kv is None else kv["v"][i],
-            **attn,
-        )
+        if remat:
+            # the forward has no randomness, so no RNG state to restore
+            x = checkpoint(
+                functools.partial(block_forward, cfg), layers[i], x, pos, cos, sin,
+                None, None, use_reentrant=False, preserve_rng_state=False, **attn,
+            )
+        else:
+            x = block_forward(
+                cfg, layers[i], x, pos, cos, sin,
+                None if kv is None else kv["k"][i], None if kv is None else kv["v"][i],
+                **attn,
+            )
     return x
 
 
@@ -239,6 +270,7 @@ def forward(
     fresh_prefill: bool = False,
     use_flash: bool = False,
     flash_kernel: Optional[bool] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Logits (B, T, padded_vocab); the cache in `kv` is updated in place.
 
@@ -252,7 +284,11 @@ def forward(
     With `paged_tables`, `kv` is the serving engine's pool.  With
     `paged_ragged` (the unified mixed step), `tokens` is a (1, T) packed
     batch and `input_pos` its (1, T) per-token positions; `paged_tables`
-    is the (n_slots, max_blocks) table."""
+    is the (n_slots, max_blocks) table.
+
+    Without any cache (`kv` None) the forward is the training one: it
+    carries gradients, through K2-K4 with `use_flash` (ops/flash.py), and
+    `remat` recomputes each block in the backward."""
     B, T = tokens.shape
     if input_pos.dim() == 2:
         pos = input_pos.long()
@@ -269,7 +305,7 @@ def forward(
     else:
         attn = dict(input_pos=input_pos.long(), fresh_prefill=fresh_prefill,
                     use_flash=use_flash, flash_kernel=flash_kernel)
-    x = run_blocks(cfg, params["blocks"], x, pos, cos, sin, kv, **attn)
+    x = run_blocks(cfg, params["blocks"], x, pos, cos, sin, kv, remat=remat, **attn)
     return head(cfg, params, x)
 
 
@@ -387,6 +423,15 @@ def init_paged_kv_cache(
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+def count_params(params: Params) -> int:
+    return sum(x.numel() for x in tree_leaves(params))
+
+
+def cast_params(params: Params, dtype) -> Params:
+    """Cast float leaves; integer leaves pass through untouched."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, params)
 
 
 def param_dtype(params: Params) -> torch.dtype:

@@ -94,7 +94,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_importing_the_cli_loads_no_jax():
-    code = ("import sys, mdi_llm_tpu_torch.cli.serve, mdi_llm_tpu_torch.serving.engine; "
+    code = ("import sys, mdi_llm_tpu_torch.cli.serve, mdi_llm_tpu_torch.serving.engine, "
+            "mdi_llm_tpu_torch.cli.train, mdi_llm_tpu_torch.cli.profile_train; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.split('.')[0] == 'mdi_llm_tpu' for m in sys.modules)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

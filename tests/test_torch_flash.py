@@ -13,10 +13,20 @@ on the CPU.
   seq_len 0 where every row sees no key (out 0, LSE exactly NEG_INF), and
   the rows past seq_len that the wrapper slices off.
 - On a CPU tensor the wrapper never reaches the CUDA kernel, and inputs
-  that require grad are refused (the backward kernels K3/K4 are not
-  ported).
+  that require grad flow through the autograd Function's own backward
+  (the plain versions of K3 and K4), not through torch's autograd of the
+  plain forward.
+- K3/K4's plain versions, through that backward, against the JAX
+  package's FlashAttention-2 VJP (the Pallas dQ and dK/dV kernels in
+  interpret mode): MHA T=64, GQA T=100 (pads to the Pallas tiles), MQA
+  T=48 with mixed 16/32 tiles; and `flash_attention_lse` non-causal with a
+  cotangent on the LSE.  Tolerance: float32, atol/rtol 2e-4 (the JAX
+  tests' own for the VJP).
+- The Function under `torch.utils.checkpoint` (remat) recomputes K2 in
+  the backward and gives the same gradients.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -117,16 +127,113 @@ def test_cpu_tensors_never_reach_the_cuda_wrapper(monkeypatch):
         tflash.flash_attention(q, k, v, use_kernel=True)
 
 
-def test_inputs_that_require_grad_are_refused():
-    q, k, v = (t(x) for x in make_qkv(1, 32, 8, seed=2))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K3/K4"):
-        tflash.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="K3/K4"):
-        tflash.flash_attention_lse(q, k, v)
-    with torch.no_grad():
-        out = tflash.flash_attention(q, k, v)
-    assert out.shape == q.shape
+def test_gradients_flow_through_the_function_on_cpu():
+    q, k, v = (t(x).requires_grad_(True) for x in make_qkv(1, 32, 8, seed=2))
+    calls = (tflash.flash_attention_plain.calls, tflash.flash_dq_plain.calls,
+             tflash.flash_dkv_plain.calls)
+    out = tflash.flash_attention(q, k, v)
+    assert out.grad_fn is not None and type(out.grad_fn).__name__ == "_FlashCoreBackward"
+    dq, dk, dv = torch.autograd.grad(out.square().sum(), (q, k, v))
+    assert (tflash.flash_attention_plain.calls, tflash.flash_dq_plain.calls,
+            tflash.flash_dkv_plain.calls) == (calls[0] + 1, calls[1] + 1, calls[2] + 1)
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    # the same gradients as torch's autograd of the plain forward
+    ref = tflash.masked_attention(q, k, v, tflash._chunk_mask(32, True, "cpu"), 8 ** -0.5)[0]
+    want = torch.autograd.grad(ref.square().sum(), (q, k, v))
+    for g, w in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5, rtol=2e-5)
+    with torch.no_grad():  # no grad mode: K2 alone, as before
+        np.testing.assert_allclose(tflash.flash_attention(q, k, v).numpy(),
+                                   out.detach().numpy(), atol=0, rtol=0)
+
+
+def _jax_vjp(fn, q, k, v, co, co_lse=None):
+    def loss(q, k, v):
+        o = fn(q, k, v)
+        if co_lse is None:
+            return jnp.sum(o * co)
+        return jnp.sum(o[0] * co) + jnp.sum(o[1] * co_lse)
+
+    return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+
+
+@pytest.mark.parametrize("groups,T,hs,bq,bk", [
+    (4, 64, 16, 32, 32),   # MHA, aligned T
+    (2, 100, 16, 32, 32),  # GQA, T not a multiple of the tiles
+    (1, 48, 8, 16, 32),    # MQA, mixed tile sizes
+], ids=GRID_IDS)
+def test_plain_k3_k4_match_jax_vjp_interpret(groups, T, hs, bq, bk):
+    q, k, v = make_qkv(groups, T, hs, seed=7 * T + groups)
+    co = np.random.default_rng(T).standard_normal((B, H, T, hs)).astype(np.float32)
+    want = _jax_vjp(lambda q, k, v: jflash.flash_attention(
+        q, k, v, block_q=bq, block_k=bk, interpret=True), q, k, v, co)
+    tq, tk, tv = (t(x).requires_grad_(True) for x in (q, k, v))
+    calls = tflash.flash_dq_plain.calls, tflash.flash_dkv_plain.calls
+    got = torch.autograd.grad((tflash.flash_attention(tq, tk, tv) * t(co)).sum(),
+                              (tq, tk, tv))
+    assert (tflash.flash_dq_plain.calls, tflash.flash_dkv_plain.calls) == (
+        calls[0] + 1, calls[1] + 1)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=2e-4, atol=2e-4,
+                                   err_msg=f"d{name} mismatch")
+
+
+def test_plain_lse_vjp_noncausal_matches_jax_interpret():
+    """`flash_attention_lse(causal=False)` with cotangents on both outputs:
+    the LSE's folds into D (dS = P * (dP - (D - dlse)))."""
+    q, k, v = make_qkv(2, 48, 16, seed=11)
+    rng = np.random.default_rng(12)
+    co = rng.standard_normal((B, H, 48, 16)).astype(np.float32)
+    co_lse = rng.standard_normal((B, H, 48)).astype(np.float32)
+    want = _jax_vjp(lambda q, k, v: jflash.flash_attention_lse(
+        q, k, v, block_q=16, block_k=16, interpret=True, causal=False),
+        q, k, v, co, co_lse)
+    tq, tk, tv = (t(x).requires_grad_(True) for x in (q, k, v))
+    out, lse = tflash.flash_attention_lse(tq, tk, tv, causal=False)
+    got = torch.autograd.grad((out * t(co)).sum() + (lse * t(co_lse)).sum(), (tq, tk, tv))
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=2e-4, atol=2e-4,
+                                   err_msg=f"d{name} mismatch")
+
+
+def test_remat_recomputes_k2_and_keeps_the_gradients():
+    """Under non-reentrant checkpointing the backward reruns the forward
+    (one more plain K2 call) and the Function saves what the recompute
+    produced: the gradients equal those without remat."""
+    from torch.utils.checkpoint import checkpoint
+
+    q, k, v = (t(x).requires_grad_(True) for x in make_qkv(2, 40, 16, seed=4))
+
+    def f(q, k, v):
+        return tflash.flash_attention(q * 1.5, k, v).square().sum()
+
+    want = torch.autograd.grad(f(q, k, v), (q, k, v))
+    before = tflash.flash_attention_plain.calls
+    loss = checkpoint(f, q, k, v, use_reentrant=False)
+    got = torch.autograd.grad(loss, (q, k, v))
+    assert tflash.flash_attention_plain.calls == before + 2
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=0, rtol=0)
+
+
+def test_cpu_backward_never_reaches_the_cuda_kernels(monkeypatch):
+    def no_kernel(*a, **k):
+        raise AssertionError("a CUDA kernel was reached on the CPU")
+
+    monkeypatch.setattr(tflash, "_call", no_kernel)
+    monkeypatch.setattr(kernels, "library", no_kernel)
+    q, k, v = (t(x).requires_grad_(True) for x in make_qkv(2, 40, 16, seed=1))
+    counts = tflash.flash_dq.launches, tflash.flash_dkv.launches
+    out, lse = tflash.flash_attention_lse(q, k, v)
+    torch.autograd.grad(out.sum() + lse.sum(), (q, k, v))
+    assert (tflash.flash_dq.launches, tflash.flash_dkv.launches) == counts
+    monkeypatch.undo()
+    lse = lse.detach()
+    args = (q.detach(), k.detach(), v.detach(), q.detach(), lse, lse, 0.25)
+    for fn in (tflash.flash_dq, tflash.flash_dkv):
+        with pytest.raises(ValueError, match="no kernel for cpu"):
+            fn(*args, use_kernel=True)
 
 
 def test_shape_errors():
