@@ -394,6 +394,8 @@ def phase_flash(record):
         torch.cuda.empty_cache()
 
 
+BWD_F32_TOL = 1e-4  # a float32 output: x max(1, max |plain|)
+BWD_BF16_REL, BWD_BF16_ABS = 2.0 ** -8, 1e-4  # dQ in bfloat16, per element
 FLASH_BWD_SHAPES = {  # label: (B, T, causal, with an LSE cotangent)
     "main": (4, 2048, True, False),
     "ragged": (2, 1000, True, False),
@@ -420,9 +422,12 @@ def flash_bwd_bound(B, H, G, T, hs, dtype, causal, which) -> tuple:
 
 def phase_flash_bwd(k3, k4):
     """K3 and K4 against their plain versions on the same inputs (the
-    forward's output and LSE from K2).  Tolerance, scaled by the size of
-    the values: max |err| <= TOL * max(1, max |plain|), the plain version
-    run in float32 on the same (bfloat16) inputs."""
+    forward's output and LSE from K2), the plain version run in float32 on
+    the same (bfloat16) inputs.  Both kernels compute in float32, so an
+    output in float32 (dQ in float32, K4's dK_h and dV_h in both dtypes)
+    is held to max |err| <= BWD_F32_TOL * max(1, max |plain|), and dQ in
+    bfloat16 to its rounding, element by element:
+    |err| <= 2^-8 |plain| + BWD_BF16_ABS."""
     import torch
     import torch.nn.functional as F
 
@@ -454,12 +459,21 @@ def phase_flash_bwd(k3, k4):
                    "dkv": flash_dkv_plain(*f32, lse, dsum, scale, causal)}
             for which in ("dq", "dkv"):
                 for a, r in zip(got[which], ref[which]):
-                    err = (a.float() - r).abs().max().item()
-                    size = max(1.0, r.abs().max().item())
-                    if not err <= TOL[name] * size:
-                        fail("flash-bwd", f"{name} {label} {which}: max|err| {err} "
-                             f"(tol {TOL[name]} x {size:.3f})")
+                    diff = (a.float() - r).abs()
+                    size = r.abs().max().item()
+                    if which == "dq" and dtype == torch.bfloat16:
+                        # rounded to bfloat16: half an ulp is at most 2^-8 of it
+                        limit = BWD_BF16_REL * r.abs() + BWD_BF16_ABS
+                    else:
+                        limit = BWD_F32_TOL * max(1.0, size)
+                    err, ratio = diff.max().item(), (diff / limit).max().item()
+                    print(f"flash-bwd: {which} {name} {label}: max|err| {err:.3e} "
+                          f"max|plain| {size:.3e} err/limit {ratio:.3e}", flush=True)
+                    if not ratio <= 1.0:
+                        fail("flash-bwd", f"{name} {label} {which}: max|err| {err}, "
+                             f"{ratio:.3f} x its limit")
                     worst[which] = max(worst[which], err)
+                    del diff, limit
             del got, ref, f32
             torch.cuda.empty_cache()
             # the yardstick: the backward alone of one SDPA call (dQ, dK
@@ -775,9 +789,13 @@ def phase_train_parity():
         grads[route] = torch.autograd.grad(loss, transformer.tree_leaves(tr.params))
         losses[route] = [tr.train_step(bx[None], by[None]) for bx, by in batches]
         got = flash_counts()
-        kernel_ran = got["K2"] > 0 and got["K3"] > 0 and got["K4"] > 0
-        if (kernel_ran, got["plain"] > 0) != (route == "kernel", route == "plain"):
-            fail("train-parity", f"the {route} run: {got}")
+        # one gradient and two steps of one micro-batch: per layer each ran
+        # K2 twice (remat) and K3 and K4 once, or their plain versions
+        n = 3 * cfg.n_layer
+        want = ({"K2": 2 * n, "K3": n, "K4": n, "plain": 0} if route == "kernel"
+                else {"K2": 0, "K3": 0, "K4": 0, "plain": 4 * n})
+        if got != want:
+            fail("train-parity", f"the {route} run launched {got}; want {want}")
         del tr
         torch.cuda.empty_cache()
     size = max(g.abs().max().item() for g in grads["plain"])

@@ -15,8 +15,8 @@ through the PV product (the TPU kernel's order); the output is in q's
 dtype, the LSE `(B, n_head, T)` float32, `NEG_INF` on a row that saw no key.
 
 - `flash_attention` (causal) and `flash_attention_lse` are the entry
-  points.  When an input requires grad under grad mode they run as
-  `torch.autograd.Function`s (`_FlashCore`, `_FlashLseCore`): the forward
+  points.  When an input requires grad under grad mode they run as one
+  `torch.autograd.Function` (`_FlashCore`): the forward
   runs K2 with the LSE and saves (q, k, v, out, lse); the backward forms
   D = rowsum(dO * O) in float32 (minus the LSE's cotangent for
   `flash_attention_lse`), runs K3 for dQ and K4 for the per-query-head
@@ -276,60 +276,43 @@ def _forward(q, k, v, scale, causal, use_kernel, with_lse):
     return _launch(q, k, v, scale, causal, with_lse)
 
 
-def _save(ctx, q, k, v, scale, causal, use_kernel):
-    """K2 with the LSE; (q, k, v, out, lse) saved for the backward."""
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out, lse = _forward(q, k, v, scale, causal, use_kernel, with_lse=True)
-    ctx.save_for_backward(q, k, v, out, lse)
-    ctx.scale, ctx.causal, ctx.use_kernel = scale, causal, use_kernel
-    return out, lse
-
-
-def _backward(ctx, do, dlse):
-    """(dq, dk, dv): the FA-2 backward of `_flash_bwd_impl`
-    (mdi_llm_tpu/ops/flash.py), on K3 and K4 or their plain versions."""
-    q, k, v, out, lse = ctx.saved_tensors
-    B, H, T, hs = q.shape
-    G = k.shape[1]
-    # D_i = dO_i . O_i in float32; the LSE's cotangent folds in as a shift
-    # (d lse_i / d s_ij = P_ij, so dS = P * (dP - (D - dlse)))
-    dsum = (do.float() * out.float()).sum(-1)
-    if dlse is not None:
-        dsum = dsum - dlse.float()
-    do = do.to(q.dtype)
-    args = (q, k, v, do, lse, dsum, ctx.scale, ctx.causal)
-    dq = flash_dq(*args, use_kernel=ctx.use_kernel)
-    dk_h, dv_h = flash_dkv(*args, use_kernel=ctx.use_kernel)
-    # GQA: each query head of a group produced its own dK/dV share
-    dk = dk_h.view(B, G, H // G, T, hs).sum(2).to(k.dtype)
-    del dk_h
-    dv = dv_h.view(B, G, H // G, T, hs).sum(2).to(v.dtype)
-    return dq, dk, dv
-
-
 class _FlashCore(torch.autograd.Function):
-    """`flash_attention` under autograd (the JAX `_flash_core`)."""
+    """K2 with its LSE under autograd, differentiable in both outputs (the
+    JAX `_flash_core` and `_flash_lse_core`; `flash_attention` keeps the
+    output alone, and the LSE's unused cotangent then arrives as None)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, use_kernel):
-        return _save(ctx, q, k, v, scale, causal, use_kernel)[0]
-
-    @staticmethod
-    def backward(ctx, do):
-        return (*_backward(ctx, do, None), None, None, None)
-
-
-class _FlashLseCore(torch.autograd.Function):
-    """`flash_attention_lse` under autograd (the JAX `_flash_lse_core`):
-    differentiable in both outputs."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, scale, causal, use_kernel):
-        return _save(ctx, q, k, v, scale, causal, use_kernel)
+        ctx.set_materialize_grads(False)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = _forward(q, k, v, scale, causal, use_kernel, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal, ctx.use_kernel = scale, causal, use_kernel
+        return out, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        return (*_backward(ctx, do, dlse), None, None, None)
+        """(dq, dk, dv): the FA-2 backward of `_flash_bwd_impl`
+        (mdi_llm_tpu/ops/flash.py), on K3 and K4 or their plain versions."""
+        q, k, v, out, lse = ctx.saved_tensors
+        B, H, T, hs = q.shape
+        G = k.shape[1]
+        if do is None:  # only the LSE was used
+            do = torch.zeros_like(out)
+        # D_i = dO_i . O_i in float32; the LSE's cotangent folds in as a
+        # shift (d lse_i / d s_ij = P_ij, so dS = P * (dP - (D - dlse)))
+        dsum = (do.float() * out.float()).sum(-1)
+        if dlse is not None:
+            dsum = dsum - dlse.float()
+        do = do.to(q.dtype)
+        args = (q, k, v, do, lse, dsum, ctx.scale, ctx.causal)
+        dq = flash_dq(*args, use_kernel=ctx.use_kernel)
+        dk_h, dv_h = flash_dkv(*args, use_kernel=ctx.use_kernel)
+        # GQA: each query head of a group produced its own dK/dV share
+        dk = dk_h.view(B, G, H // G, T, hs).sum(2).to(k.dtype)
+        del dk_h
+        dv = dv_h.view(B, G, H // G, T, hs).sum(2).to(v.dtype)
+        return dq, dk, dv, None, None, None
 
 
 def _route(q, k, v, scale, use_kernel):
@@ -356,7 +339,7 @@ def flash_attention_lse(
     Differentiable in both outputs (K3, K4)."""
     scale, use_kernel, grad = _route(q, k, v, scale, use_kernel)
     if grad:
-        return _FlashLseCore.apply(q, k, v, scale, bool(causal), use_kernel)
+        return _FlashCore.apply(q, k, v, scale, bool(causal), use_kernel)
     return _forward(q, k, v, scale, causal, use_kernel, with_lse=True)
 
 
@@ -373,7 +356,7 @@ def flash_attention(
     materializes the (T, T) scores either."""
     scale, use_kernel, grad = _route(q, k, v, scale, use_kernel)
     if grad:
-        return _FlashCore.apply(q, k, v, scale, True, use_kernel)
+        return _FlashCore.apply(q, k, v, scale, True, use_kernel)[0]
     return _forward(q, k, v, scale, True, use_kernel, with_lse=False)[0]
 
 

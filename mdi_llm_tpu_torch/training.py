@@ -398,15 +398,13 @@ class Trainer:
         return torch.load(Path(out_dir) / "params.pt", map_location=resolve_device(device))
 
     @classmethod
-    def resume(cls, out_dir, mesh: Optional[Any] = None, device=None,
-               flash_kernel: Optional[bool] = None) -> "Trainer":
+    def resume(cls, out_dir, mesh: Optional[Any] = None, device=None) -> "Trainer":
         out_dir = Path(out_dir).resolve()
         state = json.loads((out_dir / "train_state.json").read_text())
         cfg = Config.from_checkpoint(out_dir)
         tc = TrainingConfig(**state["training_config"])
         params = cls.load_params(out_dir, device)
-        tr = cls(cfg, tc, mesh=mesh, params=params, out_dir=out_dir, device=device,
-                 flash_kernel=flash_kernel)
+        tr = cls(cfg, tc, mesh=mesh, params=params, out_dir=out_dir, device=device)
         del params
         tr.optimizer.load_state_dict(
             torch.load(out_dir / "opt_state.pt", map_location=tr.device)

@@ -197,6 +197,22 @@ def test_plain_lse_vjp_noncausal_matches_jax_interpret():
                                    err_msg=f"d{name} mismatch")
 
 
+def test_lse_alone_carries_gradients():
+    """A loss of the LSE alone: the output's cotangent arrives as None and
+    the backward takes dO = 0, giving torch's gradients of the plain LSE."""
+    q, k, v = (t(x).requires_grad_(True) for x in make_qkv(2, 40, 8, seed=5))
+    co_lse = t(np.random.default_rng(6).standard_normal((B, H, 40)).astype(np.float32))
+    _, lse = tflash.flash_attention_lse(q, k, v, causal=False)
+    got = torch.autograd.grad((lse * co_lse).sum(), (q, k, v))
+    mask = tflash._chunk_mask(40, False, "cpu")
+    ref = tflash.masked_attention(q, k, v, mask, 8 ** -0.5)[1]
+    want = torch.autograd.grad((ref * co_lse).sum(), (q, k))
+    for name, g, w in zip("qk", got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=2e-5, atol=2e-5,
+                                   err_msg=f"d{name} mismatch")
+    assert not got[2].any()  # the LSE does not depend on v
+
+
 def test_remat_recomputes_k2_and_keeps_the_gradients():
     """Under non-reentrant checkpointing the backward reruns the forward
     (one more plain K2 call) and the Function saves what the recompute
