@@ -35,6 +35,37 @@ non-zero.
 5. serve parity — float32, 4 layers at full width, 4 requests of 16 new
    tokens, served through the kernel route and through the plain route on
    the card: the greedy streams must be identical.
+5a. kernel-q8 — K1 over int8 pools (random payloads, random positive
+   scales per (block, group)) and over float8 pools (e4m3, e5m2) against
+   its plain version on the card, at the `kernel` phase's three span
+   cases, q in float32 and bfloat16; reference and tolerance as for
+   `kernel`, the plain version run in float32 on the same stored pool.
+   Prints the same times; the library yardstick is scaled_dot_product_
+   attention over the already dequantized gathered view (the dequant is
+   not timed), and the bound counts K/V at one byte per element plus the
+   int8 scales.
+5b. serve-q8 — the serve phase's CLI run with `--kv-dtype int8`, then
+   with `--kv-dtype float8` (e4m3): every request finishes with its
+   budget in the vocabulary, K1 is launched 22 times per forward and the
+   plain route never; prints the pool's bytes beside a bf16 pool's.
+5c. serve-q8-parity — the serve-parity phase over an int8 pool, then an
+   e4m3 pool: greedy streams through K1 and through the plain route.
+5d. spec — speculative serving at full size, bf16 pool, `--spec-k 4
+   --draft-model NanoLlama`, greedy: every request finishes in the
+   vocabulary, the draft model and the lookup drafted, and K1 launches
+   are exactly 22 per target forward + 12 per draft forward, the plain
+   route never.  Then `--spec-k 4 --kv-dtype int8 --temperature 0.8`
+   with the same draft model (random weights at temperature 0.8 make the
+   n-gram lookup miss, so the draft model is what drafts): the
+   rejection-sampled verify over the quantized pool.
+5e. spec-parity — float32, 4 layers at full width, a 2-layer NanoLlama
+   draft passed as `draft_gen`: greedy streams with `spec_k=4` and the
+   draft equal the same engine's streams without `spec_k`, all on K1.
+   Parity phases (serve-q8-parity, spec-parity): where two streams
+   diverge, the phase prints the first divergent position and the top-2
+   logit gap of the float32 model there (a dense forward over the common
+   prefix), and passes only if that gap is below 1e-4, a genuine near-tie
+   that a different summation order may flip.
 6. flash   — kernel K2 (flash self-attention) against its plain PyTorch
    version on the card, 32 heads, 4 KV groups, head size 64, in float32
    and bfloat16: causal B=4 T=2048 (the generate phase's prefill shape),
@@ -79,8 +110,8 @@ non-zero.
    the same params and batches; the first step's gradients and the losses
    must agree (tolerances in `phase_train_parity`).
 
-The line before the last is the JSON `kernels` record (K1-K4); the last
-line is `{"ok": true, "device": {...}}`.
+The line before the last is the JSON `kernels` record (K1, K1 over int8
+pools, K2-K4); the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -150,13 +181,18 @@ def make_case(spans, T, dtype, seed, H=32, G=4, hs=64, BS=16, MB=128):
 
 def bound(args, n_owned) -> tuple:
     """(least ms, what bounds it): each input byte read once (only the K/V
-    rows below each present slot's lens), each output byte written once,
-    against the flops of QK and PV over the keys each owned row sees."""
+    rows below each present slot's lens, at the pool's element size, and
+    an int8 pool's scales of the blocks under lens), each output byte
+    written once, against the flops of QK and PV over the keys each owned
+    row sees."""
     q, k, _, tables, _, q_len, lens, q_pos = args
     _, H, T, hs = q.shape
-    G, item = k.shape[2], q.element_size()
-    kv_rows = int(lens[q_len > 0].long().sum())
-    nbytes = 2 * q.numel() * item + 2 * kv_rows * G * hs * item
+    payload = k["q"] if isinstance(k, dict) else k
+    G, BS, item = payload.shape[2], payload.shape[1], q.element_size()
+    live = lens[q_len > 0].long()
+    nbytes = 2 * q.numel() * item + 2 * int(live.sum()) * G * hs * payload.element_size()
+    if isinstance(k, dict):
+        nbytes += 2 * 4 * G * int(((live + BS - 1) // BS).sum())
     nbytes += 4 * (tables.numel() + 3 * q_len.numel() + T)
     flops = 4 * H * hs * int((q_pos[:n_owned].long() + 1).sum())
     peak = PEAK_FLOPS[str(q.dtype).replace("torch.", "")]
@@ -166,14 +202,16 @@ def bound(args, n_owned) -> tuple:
 
 def library_call(args, scale):
     """scaled_dot_product_attention on the gathered dense view of the same
-    batch: per slot, its padded query rows against its contiguous K/V."""
+    batch: per slot, its padded query rows against its contiguous K/V.  A
+    narrow pool's view is dequantized (and cast to q's dtype) here, outside
+    what is timed."""
     import torch
     import torch.nn.functional as F
 
     from mdi_llm_tpu_torch.ops.ragged_paged_attention import gather_paged_kv
 
     q, k, v, tables, q_start, q_len, _, q_pos = args
-    kd, vd = gather_paged_kv(k, tables), gather_paged_kv(v, tables)  # (S, G, W, hs)
+    kd, vd = (gather_paged_kv(x, tables).to(q.dtype) for x in (k, v))  # (S, G, W, hs)
     S, W = tables.shape[0], kd.shape[2]
     L = max(1, int(q_len.max()))
     rows = (q_start.long()[:, None] + torch.arange(L, device="cuda")[None]).clamp(max=q.shape[2] - 1)
@@ -185,6 +223,14 @@ def library_call(args, scale):
         qd, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True)
 
 
+K1_CASES = {  # label: (one (first position, n_tokens) per slot, T)
+    "decode": ([(d, 1) for d in (37, 250, 511, 800, 1203, 1500, 1777, 2000)], 8),
+    "mixed": ([(d, 1) for d in (64, 700, 1400, 1999, 333, 1024)]
+              + [(300, 128), (0, 0)], 136),
+    "verify": ([(d, 5) for d in (10, 400, 900, 1300, 1700, 2040, 555)] + [(0, 0)], 40),
+}
+
+
 def phase_kernel(record):
     import torch
 
@@ -193,12 +239,7 @@ def phase_kernel(record):
         ragged_paged_attention_plain,
     )
 
-    cases = {
-        "decode": ([(d, 1) for d in (37, 250, 511, 800, 1203, 1500, 1777, 2000)], 8),
-        "mixed": ([(d, 1) for d in (64, 700, 1400, 1999, 333, 1024)]
-                  + [(300, 128), (0, 0)], 136),
-        "verify": ([(d, 5) for d in (10, 400, 900, 1300, 1700, 2040, 555)] + [(0, 0)], 40),
-    }
+    cases = K1_CASES
     scale = 64 ** -0.5
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -228,19 +269,22 @@ def phase_kernel(record):
     record["max_abs_err"] = worst
 
 
-def phase_serve(record):
+SERVE_BASE = ["--model", TINY_LLAMA, "--dtype", "bfloat16", "--seed", "10137",
+              "--max-batch", "8", "--block-size", "16", "--sequence-length", "2048"]
+
+
+def serve_checked(phase, argv, draft_layers=0):
+    """The serve CLI on `argv`, with K1's and the plain route's counts set
+    to 0 just before and read just after.  Fails unless every request
+    finished with its budget in the vocabulary, K1 ran exactly once per
+    layer of every target and draft forward, and the plain route never."""
     import torch
 
     from mdi_llm_tpu_torch.cli import serve as cli
     from mdi_llm_tpu_torch.ops import paged_attention as pa
     from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention
 
-    base = ["--model", TINY_LLAMA, "--dtype", "bfloat16", "--seed", "10137",
-            "--max-batch", "8", "--block-size", "16", "--sequence-length", "2048"]
-    # warm-up (CUDA context, cuBLAS handles), not counted
-    cli.serve(cli.build_parser().parse_args(base + ["--synthetic", "2", "--n-tokens", "8"]))
-    torch.cuda.synchronize()
-    args = cli.build_parser().parse_args(base + ["--synthetic", "16", "--n-tokens", "64"])
+    args = cli.build_parser().parse_args(argv)
     ragged_paged_attention.launches = 0
     pa._paged_prefill_plain.calls = pa._paged_attention_plain.calls = 0
     trace, results, stats, engine = cli.serve(args)
@@ -252,23 +296,37 @@ def phase_serve(record):
     for rid, prompt, new in trace:
         out = results.get(rid)
         if out is None or len(out) - len(prompt) != new:
-            fail("serve", f"{rid} did not finish with its {new} tokens")
+            fail(phase, f"{rid} did not finish with its {new} tokens")
         if not all(0 <= t < vocab for t in out[len(prompt):]):
-            fail("serve", f"{rid} produced a token outside the vocabulary")
-    if n_layer != 22 or launches <= 0 or launches != n_layer * engine.forward_calls:
-        fail("serve", f"K1 launches {launches} != {n_layer} layers x "
-             f"{engine.forward_calls} forwards")
+            fail(phase, f"{rid} produced a token outside the vocabulary")
+    want = n_layer * engine.forward_calls + draft_layers * engine.draft_forward_calls
+    if n_layer != 22 or launches <= 0 or launches != want:
+        fail(phase, f"K1 launches {launches} != {n_layer} x {engine.forward_calls} "
+             f"target + {draft_layers} x {engine.draft_forward_calls} draft forwards")
     if plain:
-        fail("serve", f"the plain attention route ran {plain} times on the card")
+        fail(phase, f"the plain attention route ran {plain} times on the card")
     line = cli.stats_line(stats, engine)
+    return line, launches, engine
+
+
+def phase_serve(record):
+    import torch
+
+    from mdi_llm_tpu_torch.cli import serve as cli
+
+    # warm-up (CUDA context, cuBLAS handles), not counted
+    cli.serve(cli.build_parser().parse_args(SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8"]))
+    torch.cuda.synchronize()
+    line, launches, engine = serve_checked(
+        "serve", SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"])
     print("serve: " + json.dumps({k: line[k] for k in (
         "requests", "tokens_generated", "tokens_per_s", "wall_s", "decode_s",
         "prefill_s", "mixed_steps", "decode_steps", "host_syncs",
         "kv_block_utilization_mean", "kv_block_utilization_peak", "forward_calls")}),
         flush=True)
-    print(f"serve: K1 launches {launches} = {n_layer} per forward x "
-          f"{engine.forward_calls} forwards ({stats.mixed_steps} mixed steps, "
-          f"{stats.decode_steps} decode steps in chunks of {args.decode_chunk}); "
+    print(f"serve: K1 launches {launches} = {engine.gen.cfg.n_layer} per forward x "
+          f"{engine.forward_calls} forwards ({line['mixed_steps']} mixed steps, "
+          f"{line['decode_steps']} decode steps in chunks of {engine.cfg.decode_chunk}); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     record["launches"] = launches
 
@@ -307,6 +365,229 @@ def phase_serve_parity():
     print(f"serve-parity: float32, {cfg.n_layer} layers x {cfg.n_embd}: "
           f"{len(trace)} greedy streams ({n} tokens) identical through K1 and "
           "the plain route", flush=True)
+
+
+def narrow_pools(k, v, kind, seed):
+    """The case's pools stored as `kind`: an int8 pool gets payloads drawn
+    from [-127, 127] and scales drawn from [0.5, 2.5] / 127 per (block,
+    group); a float8 pool is the case's draws cast."""
+    import torch
+
+    if kind != "int8":
+        return k.float().to(getattr(torch, kind)), v.float().to(getattr(torch, kind))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def one(x):
+        NB, _, G, _ = x.shape
+        payload = torch.randint(-127, 128, x.shape, generator=g, device="cuda").to(torch.int8)
+        return {"q": payload,
+                "scale": (0.5 + 2 * torch.rand((NB, G), generator=g, device="cuda")) / 127}
+
+    return one(k), one(v)
+
+
+def phase_kernel_q8(record):
+    """K1 over int8 and float8 pools against its plain version in float32
+    on the same stored pool (tolerances as in `phase_kernel`)."""
+    import torch
+
+    from mdi_llm_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+        ragged_paged_attention_plain,
+    )
+
+    scale = 64 ** -0.5
+    worst = 0.0
+    for kind in ("int8", "float8_e4m3fn", "float8_e5m2"):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            for label, (spans, T) in K1_CASES.items():
+                args, owned = make_case(spans, T, dtype, seed=len(spans) + T)
+                kp, vp = narrow_pools(args[1], args[2], kind, seed=T)
+                args = (args[0], kp, vp) + args[3:]
+                out = ragged_paged_attention(*args, scale=scale)
+                torch.cuda.synchronize()
+                ref = ragged_paged_attention_plain(args[0].float(), *args[1:], scale=scale)
+                err = (out.float()[:, :, :owned] - ref[:, :, :owned]).abs().max().item()
+                pad = out[:, :, owned:].abs().max().item() if owned < T else 0.0
+                if not err <= TOL[name] or pad != 0.0:
+                    fail("kernel-q8", f"{kind} pool, q {name} {label}: max|err| {err} "
+                         f"(tol {TOL[name]}), padding rows max {pad}")
+                ms = cuda_ms(lambda: ragged_paged_attention(*args, scale=scale), 50)
+                plain_ms = cuda_ms(lambda: ragged_paged_attention_plain(*args, scale=scale), 5)
+                lib_ms = cuda_ms(library_call(args, scale), 20)
+                b_ms, b_by = bound(args, owned)
+                print(f"kernel-q8: K1 {kind} pool, q {name} {label} T={T} "
+                      f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"library_ms={lib_ms:.4f} (SDPA on the dequantized view, dequant "
+                      f"untimed) bound_ms={b_ms:.5f} ({b_by})", flush=True)
+                if kind == "int8":
+                    worst = max(worst, err)
+                    if name == "bfloat16" and label == "decode":  # the main path's shape
+                        record.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                      bound_ms=b_ms, bound_by=b_by)
+                del args, kp, vp, out, ref
+            torch.cuda.empty_cache()
+    record["max_abs_err"] = worst
+
+
+def phase_serve_q8(record):
+    import torch
+
+    from mdi_llm_tpu_torch.serving.engine import pool_bytes
+
+    run = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"]
+    serve_checked("serve-q8", SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8",
+                                            "--kv-dtype", "int8"])  # warm-up
+    for kv in ("int8", "float8"):
+        line, launches, engine = serve_checked("serve-q8", run + ["--kv-dtype", kv])
+        cfg, nb = engine.gen.cfg, engine.pool.num_blocks
+        bf16 = 2 * cfg.n_layer * nb * engine.cfg.block_size * cfg.n_query_groups * cfg.head_size * 2
+        scales = sum(x["scale"].numel() * 4 for x in engine._kv.values()) if kv == "int8" else 0
+        print(f"serve-q8: --kv-dtype {kv} ({line['kv_dtype']}): " + json.dumps({k: line[k] for k in (
+            "requests", "tokens_generated", "tokens_per_s", "wall_s", "decode_s", "prefill_s",
+            "mixed_steps", "decode_steps", "host_syncs", "forward_calls")}), flush=True)
+        print(f"serve-q8: --kv-dtype {kv}: K1 launches {launches} = {cfg.n_layer} per "
+              f"forward x {engine.forward_calls} forwards; pool {nb} blocks = "
+              f"{pool_bytes(engine._kv) / 1e6:.2f} MB ({scales / 1e6:.3f} MB of scales) "
+              f"against {bf16 / 1e6:.2f} MB as bf16", flush=True)
+        if kv == "int8":
+            record["launches"] = launches
+        del engine
+        torch.cuda.empty_cache()
+
+
+def divergence_ok(phase, gen, got, want, label) -> None:
+    """Compare two dicts of greedy streams; where a stream diverges, print
+    the first divergent position and the float32 model's top-2 logit gap
+    there (a dense forward over the common prefix), and fail unless that
+    gap is below 1e-4."""
+    import torch
+
+    from mdi_llm_tpu_torch.models import transformer
+
+    for rid, w in want.items():
+        g = got.get(rid)
+        if g == w:
+            continue
+        if g is None:
+            fail(phase, f"{label}: {rid} did not finish")
+        i = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+        toks = torch.tensor([w[:i]], device="cuda")
+        with torch.no_grad():
+            logits = transformer.forward(gen.cfg, gen.params, toks,
+                                         torch.zeros(1, dtype=torch.long, device="cuda"))
+        top = torch.topk(logits[0, -1].float(), 2).values
+        gap = (top[0] - top[1]).item()
+        print(f"{phase}: {label}: {rid} diverges at position {i} (tokens "
+              f"{g[i] if i < len(g) else None} vs {w[i] if i < len(w) else None}); "
+              f"top-2 logit gap there {gap:.3e}", flush=True)
+        if not gap < 1e-4:
+            fail(phase, f"{label}: {rid} diverges at position {i} with a top-2 gap of {gap}")
+
+
+def phase_serve_q8_parity():
+    import torch
+
+    from mdi_llm_tpu_torch.cli.serve import synthetic_trace
+    from mdi_llm_tpu_torch.ops import paged_attention as pa
+    from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention
+
+    gen = tiny_llama_generator(4, torch.float32)
+    trace = synthetic_trace(4, gen.cfg.vocab_size, 2048, 16)
+    for kv in ("int8", "float8_e4m3fn"):
+        streams = {}
+        for route, use_kernel in (("kernel", None), ("plain", False)):
+            ragged_paged_attention.launches = 0
+            pa._paged_prefill_plain.calls = pa._paged_attention_plain.calls = 0
+            engine = gen.serve(block_size=16, max_batch=8, use_kernel=use_kernel, kv_dtype=kv)
+            for rid, prompt, new in trace:
+                engine.add_request(rid, prompt, new)
+            streams[route], _ = engine.run()
+            launched = ragged_paged_attention.launches
+            plain = pa._paged_prefill_plain.calls + pa._paged_attention_plain.calls
+            if launched != (4 * engine.forward_calls if route == "kernel" else 0) or \
+                    (plain > 0) != (route == "plain"):
+                fail("serve-q8-parity", f"{kv}: the {route} run launched K1 {launched} "
+                     f"times and took the plain route {plain} times")
+            del engine
+        divergence_ok("serve-q8-parity", gen, streams["kernel"], streams["plain"], kv)
+        n = sum(len(v) for v in streams["kernel"].values())
+        same = sum(streams["kernel"][r] == streams["plain"][r] for r in streams["plain"])
+        print(f"serve-q8-parity: float32, {kv} pool, 4 layers x {gen.cfg.n_embd}: "
+              f"{same} of {len(trace)} greedy streams ({n} tokens) identical through K1 "
+              "and the plain route", flush=True)
+    del gen
+    torch.cuda.empty_cache()
+
+
+def phase_spec():
+    import torch
+
+    draft = ["--spec-k", "4", "--draft-model", "NanoLlama"]
+    run = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"] + draft
+    for label, extra in (("greedy, bf16 pool", []),
+                         ("temperature 0.8, int8 pool", ["--kv-dtype", "int8",
+                                                         "--temperature", "0.8"])):
+        line, launches, engine = serve_checked("spec", run + extra, draft_layers=12)
+        if engine.draft_gen.cfg.n_layer != 12 or not line["spec_drafted"] > 0:
+            fail("spec", f"{label}: spec_drafted {line['spec_drafted']}, draft layers "
+                 f"{engine.draft_gen.cfg.n_layer}")
+        if not extra and not line["spec_drafted_model"] > 0:
+            fail("spec", f"{label}: the draft model never drafted")
+        print(f"spec: {label}: " + json.dumps({k: line[k] for k in (
+            "requests", "tokens_generated", "tokens_per_s", "wall_s", "decode_steps",
+            "mixed_steps", "host_syncs", "spec_drafted", "spec_accepted",
+            "spec_drafted_ngram", "spec_drafted_model", "spec_accepted_model",
+            "forward_calls", "draft_forward_calls", "kv_dtype")}), flush=True)
+        print(f"spec: {label}: K1 launches {launches} = 22 x {engine.forward_calls} "
+              f"target + 12 x {engine.draft_forward_calls} draft forwards", flush=True)
+        del engine
+        torch.cuda.empty_cache()
+
+
+def phase_spec_parity():
+    import torch
+
+    from mdi_llm_tpu_torch.cli.serve import synthetic_trace
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.ops import paged_attention as pa
+    from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention
+
+    gen = tiny_llama_generator(4, torch.float32)
+    dcfg = Config.from_name("NanoLlama", n_layer=2)
+    dgen = Generator(dcfg, transformer.init_params(dcfg, 0, device="cuda"),
+                     max_seq_length=2048, device="cuda")
+    trace = synthetic_trace(4, gen.cfg.vocab_size, 2048, 16)
+    streams = {}
+    for label, knobs in (("plain decode", {}),
+                         ("spec_k=4 + draft", dict(spec_k=4, draft_model="NanoLlama"))):
+        ragged_paged_attention.launches = 0
+        pa._paged_prefill_plain.calls = pa._paged_attention_plain.calls = 0
+        engine = gen.serve(block_size=16, max_batch=8, draft_gen=dgen if knobs else None,
+                           **knobs)
+        for rid, prompt, new in trace:
+            engine.add_request(rid, prompt, new)
+        streams[label], stats = engine.run()
+        want = 4 * engine.forward_calls + 2 * engine.draft_forward_calls
+        plain = pa._paged_prefill_plain.calls + pa._paged_attention_plain.calls
+        if ragged_paged_attention.launches != want or plain:
+            fail("spec-parity", f"{label}: K1 launches {ragged_paged_attention.launches} "
+                 f"(want {want}), plain route {plain}")
+        if knobs and not stats.spec_drafted_model > 0:
+            fail("spec-parity", "the draft model never drafted")
+        del engine
+    divergence_ok("spec-parity", gen, streams["spec_k=4 + draft"], streams["plain decode"],
+                  "spec vs plain decode")
+    print(f"spec-parity: float32, 4 layers x {gen.cfg.n_embd}, 2-layer NanoLlama draft: "
+          f"spec_k=4 streams ({stats.spec_drafted} drafted, {stats.spec_accepted} "
+          f"accepted, {stats.spec_drafted_model} by the model) against plain decode, "
+          "all on K1", flush=True)
+    del gen, dgen
+    torch.cuda.empty_cache()
+
 
 FLASH_SHAPES = {  # label: (B, T, causal, with_lse)
     "main": (4, 2048, True, False),
@@ -812,8 +1093,9 @@ def phase_train_parity():
           "through K2-K4 and their plain versions", flush=True)
 
 
-PHASES = ("kernel", "serve", "serve-parity", "flash", "generate", "generate-parity",
-          "flash-bwd", "train", "train-parity")
+PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
+          "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
+          "train", "train-parity")
 
 
 def main(argv=None) -> None:
@@ -854,6 +1136,12 @@ def main(argv=None) -> None:
         "source": "mdi_llm_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "mdi_llm_tpu/ops/ragged_paged_attention.py:123",
     }
+    k1q8 = {
+        "name": "K1 ragged_paged_attention over int8 pools",
+        "route": "cuda",
+        "source": "mdi_llm_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "mdi_llm_tpu/ops/ragged_paged_attention.py:171",
+    }
     k2 = {
         "name": "K2 flash_attention",
         "route": "cuda",
@@ -876,6 +1164,11 @@ def main(argv=None) -> None:
         "kernel": lambda: phase_kernel(k1),
         "serve": lambda: phase_serve(k1),
         "serve-parity": phase_serve_parity,
+        "kernel-q8": lambda: phase_kernel_q8(k1q8),
+        "serve-q8": lambda: phase_serve_q8(k1q8),
+        "serve-q8-parity": phase_serve_q8_parity,
+        "spec": phase_spec,
+        "spec-parity": phase_spec_parity,
         "flash": lambda: phase_flash(k2),
         "generate": lambda: phase_generate(k2),
         "generate-parity": phase_generate_parity,
@@ -890,11 +1183,12 @@ def main(argv=None) -> None:
             print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    missing = [(r["name"], k) for r in (k1, k2, k3, k4) for k in keys if k not in r]
+    records = (k1, k1q8, k2, k3, k4)
+    missing = [(r["name"], k) for r in records for k in keys if k not in r]
     if only == set(PHASES) and missing:
         fail("record", f"kernels line lacks {missing}")
     print(card)
-    print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in (k1, k2, k3, k4)]}))
+    print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,9 +20,26 @@ from mdi_llm_tpu_torch.config import TEMPERATURE, TOP_K, Config
 from mdi_llm_tpu_torch.models import transformer
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
+# KV-cache dtypes: the cache is written with a cast and upcast at the read
+# (ops/attention.py), so it may be narrower than the compute dtype
+KV_DTYPES = {**DTYPES, "float8": torch.float8_e4m3fn}
 
 
-def add_common_args(ap: argparse.ArgumentParser) -> None:
+def resolve_kv_dtype(name: str):
+    """--kv-dtype as a torch dtype; "auto" -> None (follow the weights).
+    "int8" is not a dense-cache dtype: it selects the quantized paged pool
+    (ServingConfig.kv_dtype), which the serve CLI routes there first."""
+    if name == "int8":
+        raise ValueError(
+            "--kv-dtype int8 quantizes the paged serving pool "
+            "(ServingConfig.kv_dtype), not the dense KV cache"
+        )
+    return None if name == "auto" else KV_DTYPES[name]
+
+
+def add_common_args(ap: argparse.ArgumentParser, serving_kv: bool = False) -> None:
+    """`serving_kv=True` (the serve CLI) also accepts --kv-dtype int8: the
+    paged pool then stores int8 blocks with per-block-per-group scales."""
     ap.add_argument("--model", default=None,
                     help="registry model name (random weights from --seed)")
     ap.add_argument("--ckpt", default=None,
@@ -35,8 +52,14 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
                     help="torch device (default cuda; cpu must be asked for)")
     ap.add_argument("--quantize", default="none",
                     help="weight quantization (not ported yet: only 'none')")
-    ap.add_argument("--kv-dtype", choices=("auto", *DTYPES), default="auto",
-                    help="KV cache / paged pool dtype (auto follows --dtype)")
+    ap.add_argument(
+        "--kv-dtype", choices=("auto", *KV_DTYPES) + (("int8",) if serving_kv else ()),
+        default="auto",
+        help="KV cache / paged pool storage dtype (auto follows --dtype; "
+        "float8 is e4m3, upcast at the read)"
+        + ("; int8 quantizes the paged pool: int8 blocks with per-block-per-"
+           "group scales, dequantized inside kernel K1" if serving_kv else ""),
+    )
 
 
 def refuse(what: str) -> None:

@@ -8,7 +8,8 @@ The profiler's own cost is inside the profiled wall time, so the idle
 share is an upper bound.
 
     python -m mdi_llm_tpu_torch.cli.profile_serve --model tiny-llama-1.1b \\
-        --synthetic 16 --n-tokens 64 --sequence-length 2048
+        --synthetic 16 --n-tokens 64 --sequence-length 2048 [--kv-dtype int8]
+        [--spec-k 4 --draft-model NanoLlama]
 """
 
 from __future__ import annotations
@@ -58,7 +59,9 @@ def main(argv=None, top: int = 12) -> dict:
     line = device_summary(prof, wall_s, top)
     line.update(engine_wall_s=round(stats.wall_s, 4),
                 tokens_generated=stats.tokens_generated,
-                forward_calls=engine.forward_calls)
+                forward_calls=engine.forward_calls,
+                draft_forward_calls=engine.draft_forward_calls,
+                kv_dtype=engine.kv_dtype_name)
     print(json.dumps(line))
     return line
 

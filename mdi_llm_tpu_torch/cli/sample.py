@@ -20,12 +20,12 @@ import time
 import numpy as np
 
 from mdi_llm_tpu_torch.cli._common import (
-    DTYPES,
     add_common_args,
     add_run_args,
     load_model,
     refuse,
     report_run,
+    resolve_kv_dtype,
 )
 from mdi_llm_tpu_torch.generation import resolve_device
 from mdi_llm_tpu_torch.utils.prompts import get_user_prompt
@@ -76,7 +76,7 @@ def run(args):
     t0 = time.perf_counter()
     gen = Generator(
         cfg, params, max_seq_length=args.sequence_length, rng_seed=args.seed,
-        cache_dtype=None if args.kv_dtype == "auto" else DTYPES[args.kv_dtype],
+        cache_dtype=resolve_kv_dtype(args.kv_dtype),
         device=args.device,
     )
     outs, stats = gen.generate(

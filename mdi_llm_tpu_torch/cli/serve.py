@@ -3,9 +3,13 @@ paged-KV continuous-batching engine (`serving/engine.py`).
 
 Port of `mdi_llm_tpu/cli/serve.py` for `--model NAME --synthetic N`:
 random weights from `--seed`, a mixed-length synthetic request trace,
-and the same one-line JSON stats summary on stderr.  Runs on the GPU
-unless `--device cpu` is given; without a GPU and without that flag it
-raises.  Flags of features the port does not carry yet are refused.
+and the same one-line JSON stats summary on stderr.  `--kv-dtype int8`
+serves over the quantized pool and `--kv-dtype float8` over an e4m3 pool;
+`--spec-k K` turns on speculative serving (n-gram drafts, and with
+`--draft-model NAME` a randomly initialised draft model where the lookup
+misses).  Runs on the GPU unless `--device cpu` is given; without a GPU
+and without that flag it raises.  Flags of features the port does not
+carry yet are refused.
 
     python -m mdi_llm_tpu_torch.cli.serve --model tiny-llama-1.1b --synthetic 16
     python -m mdi_llm_tpu_torch.cli.serve --device cpu --model pythia-14m \\
@@ -20,12 +24,18 @@ import sys
 
 import torch
 
-from mdi_llm_tpu_torch.cli._common import DTYPES, add_common_args, load_model, refuse
+from mdi_llm_tpu_torch.cli._common import (
+    DTYPES,
+    add_common_args,
+    load_model,
+    refuse,
+    resolve_kv_dtype,
+)
 from mdi_llm_tpu_torch.generation import resolve_device
 
 # flags of the JAX CLI whose features are not ported: refused when set
 _UNPORTED = {
-    "spec_k": 0, "draft_model": None, "host_pool_mib": 0, "tp": 1, "pp": 1,
+    "host_pool_mib": 0, "tp": 1, "pp": 1,
     "metrics_out": None, "prom_out": None, "trace_out": None,
     "xprof_steps": None, "sample_rss": None,
 }
@@ -33,7 +43,7 @@ _UNPORTED = {
 
 def build_parser():
     ap = argparse.ArgumentParser(description=__doc__)
-    add_common_args(ap)
+    add_common_args(ap, serving_kv=True)
     ap.add_argument("--n-tokens", type=int, default=128,
                     help="max new tokens per request")
     ap.add_argument("--synthetic", type=int, default=0, metavar="N",
@@ -52,6 +62,18 @@ def build_parser():
                     "prefill-chunk)")
     ap.add_argument("--decode-chunk", type=int, default=8,
                     help="device decode steps per host read (1 = per step)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative serving: draft K tokens per request "
+                    "(n-gram prompt lookup, or --draft-model where the "
+                    "lookup misses) and verify them in one ragged forward "
+                    "over the paged pool, emitting up to K+1 tokens per "
+                    "host read; exact-match verify at temperature 0, "
+                    "rejection-sampled verify above it (0 disables)")
+    ap.add_argument("--draft-model", default=None, metavar="NAME",
+                    help="registry name of a small draft model for "
+                    "speculative serving (needs --spec-k > 0), in a second "
+                    "paged pool; its weights are random (seed 0), so it "
+                    "proves the path, not an accept rate")
     ap.add_argument("--no-double-buffer", action="store_true",
                     help="do not launch the next decode chunk before "
                     "reading the current one")
@@ -65,8 +87,6 @@ def build_parser():
                     choices=("fcfs", "priority", "fair", "deadline"),
                     help="scheduling policy (serving/policy.py)")
     unported = ap.add_argument_group("not ported yet (refused when set)")
-    unported.add_argument("--spec-k", type=int, default=0)
-    unported.add_argument("--draft-model", default=None)
     unported.add_argument("--host-pool-mib", type=int, default=0)
     unported.add_argument("--tp", type=int, default=1)
     unported.add_argument("--pp", type=int, default=1)
@@ -94,6 +114,9 @@ def synthetic_trace(n: int, vocab: int, max_seq: int, max_new: int, seed=10137):
 
 
 def make_serving_config(args):
+    """The ServingConfig the flags describe: --kv-dtype int8 selects the
+    quantized pool; the float names reach the pool through the
+    Generator's cache dtype (`build_generator`)."""
     from mdi_llm_tpu_torch.config import ServingConfig
 
     return ServingConfig(
@@ -103,22 +126,28 @@ def make_serving_config(args):
         prefill_chunk=args.prefill_chunk,
         token_budget=args.token_budget,
         decode_chunk=args.decode_chunk,
+        spec_k=args.spec_k,
         double_buffer=not args.no_double_buffer,
         prefix_caching=not args.no_prefix_cache,
         temperature=args.temperature,
         top_k=args.top_k,
         top_p=args.top_p,
+        draft_model=args.draft_model,
+        kv_dtype="int8" if args.kv_dtype == "int8" else None,
     )
 
 
 def build_generator(args, cfg, params):
     from mdi_llm_tpu_torch.generation import Generator
 
-    kv = None if args.kv_dtype == "auto" else DTYPES[args.kv_dtype]
+    dtype = DTYPES[args.dtype]
     return Generator(
         cfg, params,
         max_seq_length=args.sequence_length,
-        cache_dtype=kv or DTYPES[args.dtype],
+        cache_dtype=(
+            dtype if args.kv_dtype == "int8"
+            else resolve_kv_dtype(args.kv_dtype) or dtype
+        ),
         rng_seed=args.seed,
         device=args.device,
     )
@@ -159,6 +188,7 @@ def stats_line(stats, engine) -> dict:
         "devices": 1,
         "tokens_per_s_per_chip": round(stats.tokens_per_s, 2),
         "forward_calls": engine.forward_calls,
+        "draft_forward_calls": engine.draft_forward_calls,
         "device": {
             "type": dev.type,
             "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",

@@ -1,4 +1,4 @@
-// Ragged paged attention for Hopper (sm_90a), fp pools.
+// Ragged paged attention for Hopper (sm_90a), over fp, int8 and float8 pools.
 //
 // Replaces the Pallas kernel `_unified_kernel` in
 // mdi_llm_tpu/ops/ragged_paged_attention.py (launched by
@@ -7,7 +7,9 @@
 // same function, not the same grid:
 //
 //   queries  q      (1, n_head, T, hs)  slot-major packed ragged batch
-//   pools    k, v   (NB, BS, G, hs)     block-table-indexed KV blocks
+//   pools    k, v   (NB, BS, G, hs)     block-table-indexed KV blocks, stored
+//                                       as q's type, int8, e4m3 or e5m2
+//   scales   k, v   (NB, G) float32     int8 pools only: per (block, group)
 //   tables          (S, MB) int32       slot s's key j lives in block
 //                                       tables[s, j / BS] at offset j % BS
 //   spans           q_start, q_len, lens (S,) int32
@@ -29,14 +31,21 @@
 //  - each 32-key KV tile is staged in shared memory with 16-byte loads,
 //    converted to float32; in the score phase lane i owns key i, in the PV
 //    phase lane i owns output dims i, i+32, ...;
+//  - a narrow pool is dequantized in that staging step, inside the block
+//    loop (the TPU kernel's `_unified_kernel` quantized branch): one 16-byte
+//    load brings 16 int8 or float8 values; int8 values are multiplied in
+//    float32 by the scale of (tables[s, key / BS], g), one scalar read per
+//    16-byte load, and only for keys below the walk's end, so no scale past
+//    `lens` is read; float8 values convert exactly to float32.  No
+//    dequantized copy of the pool or of the gathered view is ever built;
 //  - the key mask j <= q_pos[t] is per row, and a row that sees no valid key
 //    in a tile leaves its state untouched (the finite NEG_INF of the TPU
 //    kernel needed explicit row gating for the same reason).
 //
 // Bound on the H100: decode (one token per slot) reads every K and V row
-// below lens once and does ~4 flops per byte read, far below the card's
-// ~295 flops/byte balance point, so it is bound by the bytes of K and V
-// under lens.  This first version keeps those bytes to one read per
+// below lens once and does ~4 flops per byte read (~8 at one byte per
+// element), far below the card's ~295 flops/byte balance point, so it is
+// bound by the bytes of K and V under lens (plus the int8 scales).  This first version keeps those bytes to one read per
 // (slot, group, row tile) and does its math on CUDA cores; it does not yet
 // overlap the next tile's loads with the current tile's math or split long
 // contexts over several blocks (split-KV), which is where it loses to the
@@ -44,8 +53,11 @@
 
 #include <math.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -75,6 +87,29 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
     dst[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void load16(const int8_t* src, float* dst) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dst[i] = static_cast<float>(b[i]);
+}
+template <typename F8>
+__device__ __forceinline__ void load16_fp8(const F8* src, float* dst) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __nv_fp8_storage_t* b = reinterpret_cast<const __nv_fp8_storage_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    F8 x;
+    x.__x = b[i];
+    dst[i] = static_cast<float>(x);
+  }
+}
+__device__ __forceinline__ void load16(const __nv_fp8_e4m3* src, float* dst) {
+  load16_fp8(src, dst);
+}
+__device__ __forceinline__ void load16(const __nv_fp8_e5m2* src, float* dst) {
+  load16_fp8(src, dst);
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -87,16 +122,21 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int HS>
+// T: q and out (float or bfloat16); KV: pool storage (T, int8_t,
+// __nv_fp8_e4m3 or __nv_fp8_e5m2); k_scale/v_scale: (NB, G) float32 for an
+// int8 pool, unused otherwise.
+template <typename T, typename KV, int HS>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ tables,
+    const T* __restrict__ q, const KV* __restrict__ k_pool,
+    const KV* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ tables,
     const int* __restrict__ q_start, const int* __restrict__ q_len,
     const int* __restrict__ lens, const int* __restrict__ q_pos,
     T* __restrict__ out, int n_tok, int n_head, int G, int BS, int MB,
     float scale) {
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
+  constexpr int VEC = 16 / sizeof(KV);  // elements per 16-byte load
   constexpr int VPR = HS / VEC;        // 16-byte loads per key row
   constexpr int DPL = HS / 32;         // output dims per lane
   constexpr int KST = HS + 1;          // padded K row: lane-per-key reads hit distinct banks
@@ -159,10 +199,19 @@ ragged_paged_attention_kernel(
       const int j = i / VPR, c = (i % VPR) * VEC, key = k0 + j;
       float kv[VEC], vv[VEC];
       if (key < n_keys) {
-        const size_t base =
-            (((size_t)table[key / BS] * BS + key % BS) * G + g) * HS + c;
+        const int blk = table[key / BS];
+        const size_t base = (((size_t)blk * BS + key % BS) * G + g) * HS + c;
         load16(k_pool + base, kv);
         load16(v_pool + base, vv);
+        if constexpr (kInt8) {  // int8 * scale in float32, as the reference
+          const float sk = k_scale[(size_t)blk * G + g];
+          const float sv = v_scale[(size_t)blk * G + g];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            kv[e] *= sk;
+            vv[e] *= sv;
+          }
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) kv[e] = vv[e] = 0.f;
@@ -219,67 +268,75 @@ ragged_paged_attention_kernel(
   }
 }
 
-template <typename T, int HS>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* tables, const int* q_start, const int* q_len,
-           const int* lens, const int* q_pos, void* out, int n_tok,
-           int n_head, int G, int BS, int S, int MB, float scale,
-           cudaStream_t stream) {
+struct Args {
+  const void *q, *k_pool, *v_pool;
+  const float *k_scale, *v_scale;
+  const int *tables, *q_start, *q_len, *lens, *q_pos;
+  void* out;
+  int n_tok, n_head, G, BS, S, MB;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename KV, int HS>
+int launch(const Args& a) {
   const size_t smem = (size_t)(kRows * HS + kKeys * (HS + 1) + kKeys * HS) * sizeof(float);
-  auto kern = ragged_paged_attention_kernel<T, HS>;
+  auto kern = ragged_paged_attention_kernel<T, KV, HS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int qpk = n_head / G;
-  const dim3 grid((qpk * n_tok + kRows - 1) / kRows, G, S);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, q_start, q_len, lens, q_pos,
-      static_cast<T*>(out), n_tok, n_head, G, BS, MB, scale);
+  const int qpk = a.n_head / a.G;
+  const dim3 grid((qpk * a.n_tok + kRows - 1) / kRows, a.G, a.S);
+  kern<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k_pool),
+      static_cast<const KV*>(a.v_pool), a.k_scale, a.v_scale, a.tables,
+      a.q_start, a.q_len, a.lens, a.q_pos, static_cast<T*>(a.out), a.n_tok,
+      a.n_head, a.G, a.BS, a.MB, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_hs(int hs, const void* q, const void* k_pool, const void* v_pool,
-              const int* tables, const int* q_start, const int* q_len,
-              const int* lens, const int* q_pos, void* out, int n_tok,
-              int n_head, int G, int BS, int S, int MB, float scale,
-              cudaStream_t stream) {
+template <typename T, typename KV>
+int launch_hs(int hs, const Args& a) {
   switch (hs) {
-    case 32:
-      return launch<T, 32>(q, k_pool, v_pool, tables, q_start, q_len, lens, q_pos,
-                           out, n_tok, n_head, G, BS, S, MB, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k_pool, v_pool, tables, q_start, q_len, lens, q_pos,
-                           out, n_tok, n_head, G, BS, S, MB, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k_pool, v_pool, tables, q_start, q_len, lens, q_pos,
-                            out, n_tok, n_head, G, BS, S, MB, scale, stream);
-    default:
-      return -1;
+    case 32: return launch<T, KV, 32>(a);
+    case 64: return launch<T, KV, 64>(a);
+    case 128: return launch<T, KV, 128>(a);
+    default: return -1;
+  }
+}
+
+// the pool's storage: its own q type, or one of the narrow types
+template <typename T>
+int launch_kv(int kv_dtype, int hs, const Args& a) {
+  switch (kv_dtype) {
+    case 0: return launch_hs<T, T>(hs, a);
+    case 2: return (a.k_scale && a.v_scale) ? launch_hs<T, int8_t>(hs, a) : -1;
+    case 3: return launch_hs<T, __nv_fp8_e4m3>(hs, a);
+    case 4: return launch_hs<T, __nv_fp8_e5m2>(hs, a);
+    default: return -1;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns 0, -1 for an unsupported
-// (dtype, hs), or the cudaError_t of the launch.
+// dtype (q and out): 0 = float32, 1 = bfloat16.  kv_dtype (the pools): 0 =
+// the same as q, 2 = int8 with k_scale/v_scale (NB, G) float32, 3 =
+// float8_e4m3fn, 4 = float8_e5m2; the scale pointers are null for every
+// pool but int8.  Returns 0, -1 for an unsupported (dtype, kv_dtype, hs),
+// or the cudaError_t of the launch.
 extern "C" int ragged_paged_attention_launch(
-    int dtype, int hs, const void* q, const void* k_pool, const void* v_pool,
+    int dtype, int kv_dtype, int hs, const void* q, const void* k_pool,
+    const void* v_pool, const void* k_scale, const void* v_scale,
     const void* tables, const void* q_start, const void* q_len,
     const void* lens, const void* q_pos, void* out, int n_tok, int n_head,
     int G, int BS, int S, int MB, float scale, void* stream) {
-  const int* tb = static_cast<const int*>(tables);
-  const int* qs = static_cast<const int*>(q_start);
-  const int* ql = static_cast<const int*>(q_len);
-  const int* ln = static_cast<const int*>(lens);
-  const int* qp = static_cast<const int*>(q_pos);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_hs<float>(hs, q, k_pool, v_pool, tb, qs, ql, ln, qp, out,
-                            n_tok, n_head, G, BS, S, MB, scale, st);
-  if (dtype == 1)
-    return launch_hs<__nv_bfloat16>(hs, q, k_pool, v_pool, tb, qs, ql, ln, qp,
-                                    out, n_tok, n_head, G, BS, S, MB, scale, st);
+  const Args a{q, k_pool, v_pool,
+               static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+               static_cast<const int*>(tables), static_cast<const int*>(q_start),
+               static_cast<const int*>(q_len), static_cast<const int*>(lens),
+               static_cast<const int*>(q_pos), out, n_tok, n_head, G, BS, S, MB,
+               scale, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return launch_kv<float>(kv_dtype, hs, a);
+  if (dtype == 1) return launch_kv<__nv_bfloat16>(kv_dtype, hs, a);
   return -1;
 }

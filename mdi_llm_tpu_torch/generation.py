@@ -608,7 +608,7 @@ class Generator:
 
     # -- serving -------------------------------------------------------------
 
-    def serve(self, serving=None, policy=None, **knobs):
+    def serve(self, serving=None, policy=None, draft_gen=None, **knobs):
         """A paged-KV continuous-batching engine over this model
         (`serving/engine.py`).  Pass a `ServingConfig`, or its fields as
         keywords::
@@ -616,6 +616,10 @@ class Generator:
             engine = gen.serve(block_size=16, max_batch=8)
             engine.add_request("r0", prompt_tokens, max_new_tokens=128)
             results, stats = engine.run()
+
+        `draft_gen` takes a Generator for `ServingConfig.draft_model`'s
+        weights (same vocabulary as this model); None lets the engine
+        initialise the named config with random weights.
         """
         from mdi_llm_tpu_torch.config import ServingConfig
         from mdi_llm_tpu_torch.serving.engine import ServingEngine
@@ -624,7 +628,7 @@ class Generator:
             serving = ServingConfig(**knobs)
         elif knobs:
             raise ValueError("pass a ServingConfig or keywords, not both")
-        return ServingEngine(self, serving, policy=policy)
+        return ServingEngine(self, serving, policy=policy, draft_gen=draft_gen)
 
 
 def _verify_accept(gen: Generator, kv, tok, draft, K: int, positions) -> List[int]:

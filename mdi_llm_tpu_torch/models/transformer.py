@@ -17,8 +17,10 @@ so converted weights drop in (`mdi_llm_tpu_torch.convert.params_from_numpy`):
     `{"k", "v"}` each `(L, B, G, S, hs)` (`init_kv_cache`): chunk row b is
     written at slot `input_pos[b]`, and slot j holds absolute position j;
   - the serving engine's pool, `{"k", "v"}` each
-    `(L, num_blocks, block_size, G, hs)`, read and written through block
-    tables (`ops/paged_attention.py`).
+    `(L, num_blocks, block_size, G, hs)` (fp or float8) or each an int8
+    pool `{"q", "scale"}`, read and written through block tables
+    (`ops/paged_attention.py`); `run_blocks` hands every layer views of
+    its slice.
 
 Attention runs on the kernels on the card: K1 for every paged call, K2
 (`ops/flash.py`) for a fresh prefill or a training forward with
@@ -232,7 +234,8 @@ def run_blocks(
         else:
             x = block_forward(
                 cfg, layers[i], x, pos, cos, sin,
-                None if kv is None else kv["k"][i], None if kv is None else kv["v"][i],
+                None if kv is None else _layer_pool(kv["k"], i),
+                None if kv is None else _layer_pool(kv["v"], i),
                 **attn,
             )
     return x
@@ -410,19 +413,37 @@ def init_paged_kv_cache(
     n_layer: Optional[int] = None,
 ) -> KVCache:
     """Pooled block cache for the serving engine: k/v each
-    (L, num_blocks, block_size, G, hs), fp only.  Block 0 is the allocator's
-    write-only trash block (`serving.kv_pool.KVPool`)."""
-    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
-        raise ValueError(
-            f"paged pool dtype {dtype!r}: only floating-point pools are "
-            "ported (int8 pools wait for K1's int8 branch, ROADMAP Queue 2)"
-        )
+    (L, num_blocks, block_size, G, hs) of a floating dtype (float8
+    included), or with `dtype="int8"` each the quantized pool `{"q": int8
+    (L, num_blocks, block_size, G, hs), "scale": float32 (L, num_blocks,
+    G)}`.  Block 0 is the allocator's write-only trash block
+    (`serving.kv_pool.KVPool`)."""
     L = cfg.n_layer if n_layer is None else n_layer
     shape = (L, num_blocks, block_size, cfg.n_query_groups, cfg.head_size)
+    if dtype == "int8":
+        return {
+            side: {
+                "q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "scale": torch.zeros(shape[:2] + shape[3:4], device=device),
+            }
+            for side in ("k", "v")
+        }
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(
+            f"paged pool dtype {dtype!r}: a floating dtype or 'int8'"
+        )
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+def _layer_pool(pool, i: int):
+    """Layer i's slice of a stacked pool: views, so the in-place writes of
+    the forward land in the pool."""
+    if isinstance(pool, dict):
+        return {"q": pool["q"][i], "scale": pool["scale"][i]}
+    return pool[i]
 
 
 def count_params(params: Params) -> int:

@@ -4,7 +4,9 @@ PyTorch version.
 Replaces the Pallas kernel `_unified_kernel`
 (mdi_llm_tpu/ops/ragged_paged_attention.py:123).  One packed, slot-major
 ragged query batch `(1, n_head, T, hs)` attends through per-slot block
-tables into a pool `(NB, BS, G, hs)`: token t of slot s (inside the span
+tables into a pool `(NB, BS, G, hs)`, stored as q's dtype, as float8
+(e4m3 or e5m2), or as the JAX package's int8 pool `{"q": int8 (NB, BS,
+G, hs), "scale": float32 (NB, G)}`.  Token t of slot s (inside the span
 `[q_start[s], q_start[s] + q_len[s])`) sees key j of its slot iff
 `j <= q_pos[t]`.  Decode (spans of width 1), verify-width spans and
 prefill chunks are all the same call.
@@ -17,14 +19,17 @@ prefill chunks are all the same call.
   kernel launches and nothing else.
 - `ragged_paged_attention_plain` is the gather-then-dense math of the JAX
   package's lax route (`_paged_prefill_lax`): each token reads its own
-  slot's contiguous KV view through `multihead_attention`.  The CPU tests
-  hold it against the JAX kernel in interpret mode; on the card the kernel
-  is held against it.
+  slot's contiguous KV view through `multihead_attention`.  An int8 pool
+  is dequantized in that gather (`int8 * scale` in float32) and the
+  attention runs with q in float32, cast back at the end; a float8 pool is
+  upcast to q's dtype at the read.  The CPU tests hold it against the JAX
+  kernel in interpret mode; on the card the kernel is held against it.
 
 Rows that no slot owns come out as zeros from both.  `lens` (the deepest
 visible position + 1 of each slot) only bounds the kernel's walk over the
 table; validity is decided by `q_pos` alone, so the plain version does not
-need it.  fp pools only: int8 pools are refused (not ported yet).
+need it.  The kernel dequantizes a narrow pool inside its block loop and
+never builds a dequantized copy of the pool or of the gathered view.
 """
 
 from __future__ import annotations
@@ -48,12 +53,27 @@ __all__ = [
 PLAIN_CHUNK = 64
 KERNEL_HEAD_SIZES = (32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# pool storage codes of the kernel: 0 is "the same dtype as q"
+_NARROW_KV = {torch.int8: 2, torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 
 
-def gather_paged_kv(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+def _pool_parts(pool):
+    """(payload, scale or None): fp and float8 pools are bare tensors, int8
+    pools are {"q": int8 blocks, "scale": float32 (NB, G)}."""
+    if isinstance(pool, dict):
+        return pool["q"], pool["scale"]
+    return pool, None
+
+
+def gather_paged_kv(pool, block_tables: torch.Tensor) -> torch.Tensor:
     """Each table row's contiguous (B, G, MB * BS, hs) view of the pool;
-    flattened slot j holds absolute position j."""
-    g = pool[block_tables.long()]  # (B, MB, BS, G, hs)
+    flattened slot j holds absolute position j.  An int8 pool comes out
+    dequantized in float32 (`int8 * scale`, the kernel's in-loop math)."""
+    payload, scale = _pool_parts(pool)
+    tables = block_tables.long()
+    g = payload[tables]  # (B, MB, BS, G, hs)
+    if scale is not None:
+        g = g.float() * scale[tables][:, :, None, :, None]
     B, MB, BS, G, hs = g.shape
     return g.reshape(B, MB * BS, G, hs).permute(0, 2, 1, 3)
 
@@ -61,10 +81,13 @@ def gather_paged_kv(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Ten
 def token_attention(q, k_pool, v_pool, block_tables, q_slot, q_pos, scale):
     """Every packed token is one lane of dense attention over its own
     slot's contiguous view: q (1, n_head, T, hs), q_slot/q_pos (T,).
-    Returns (1, n_head, T, hs) in q's dtype."""
+    Returns (1, n_head, T, hs) in q's dtype; over an int8 pool q runs in
+    float32, as the dequantized K/V do."""
     k = gather_paged_kv(k_pool, block_tables)  # (S, G, W, hs)
     v = gather_paged_kv(v_pool, block_tables)
     qt = q[0].transpose(0, 1)[:, :, None, :]  # (T, n_head, 1, hs)
+    if isinstance(k_pool, dict):
+        qt = qt.float()
     sl, ps = q_slot.long(), q_pos.long()
     parts = []
     for c in range(0, qt.shape[0], PLAIN_CHUNK):
@@ -74,7 +97,7 @@ def token_attention(q, k_pool, v_pool, block_tables, q_slot, q_pos, scale):
             ps[c : c + PLAIN_CHUNK, None], scale=scale,
         ))
     out = torch.cat(parts)  # (T, n_head, 1, hs)
-    return out[:, :, 0, :].transpose(0, 1)[None]
+    return out[:, :, 0, :].transpose(0, 1)[None].to(q.dtype)
 
 
 def _span_owner(q_start, q_len, T):
@@ -90,18 +113,9 @@ def ragged_paged_attention_plain(
 ) -> torch.Tensor:
     """The plain PyTorch version of K1 (same arguments as the wrapper)."""
     del lens  # bounds the kernel's walk only; q_pos decides validity
-    _check_fp_pool(k_pool)
     q_slot, owned = _span_owner(q_start, q_len, q.shape[2])
     out = token_attention(q, k_pool, v_pool, block_tables, q_slot, q_pos, scale)
     return torch.where(owned[None, None, :, None], out, torch.zeros_like(out))
-
-
-def _check_fp_pool(pool) -> None:
-    if isinstance(pool, dict):
-        raise ValueError(
-            "ragged_paged_attention: int8 pools ({'q', 'scale'}) are not "
-            "ported yet (ROADMAP Queue 2, K1-int8); serve with an fp pool"
-        )
 
 
 def _lib():
@@ -109,29 +123,53 @@ def _lib():
     fn = lib.ragged_paged_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i] + [p] * 9 + [i] * 6 + [ctypes.c_float, p]
+        fn.argtypes = [i, i, i] + [p] * 11 + [i] * 6 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check_kernel_args(q, k_pool, v_pool, block_tables, q_start, q_len, lens, q_pos):
+def _check_pools(k_pool, v_pool):
+    """The pools' (payload, payload, scale, scale, storage code): both
+    bare tensors, or both int8 dicts with contiguous float32 (NB, G)
+    scales."""
+    if isinstance(k_pool, dict) != isinstance(v_pool, dict):
+        raise ValueError("k_pool and v_pool must both be int8 pools or neither")
+    k, ks = _pool_parts(k_pool)
+    v, vs = _pool_parts(v_pool)
+    if k.dim() != 4 or k.shape != v.shape or k.dtype != v.dtype:
+        raise ValueError("k_pool and v_pool must both be (NB, BS, G, hs) of one dtype")
+    if ks is not None:
+        if k.dtype != torch.int8:
+            raise ValueError(f"an int8 pool's payload must be int8, got {k.dtype}")
+        for s in (ks, vs):
+            if s.dtype != torch.float32 or tuple(s.shape) != (k.shape[0], k.shape[2]):
+                raise ValueError(
+                    f"an int8 pool's scale must be float32 (NB, G) = "
+                    f"{(k.shape[0], k.shape[2])}, got {s.dtype} {tuple(s.shape)}"
+                )
+            if not s.is_contiguous():
+                raise ValueError("an int8 pool's scale must be contiguous")
+    elif k.dtype == torch.int8:
+        raise ValueError("an int8 payload needs its scales: pass {'q', 'scale'}")
+    return k, v, ks, vs
+
+
+def _check_kernel_args(q, k, v, scales, block_tables, q_start, q_len, lens, q_pos):
     if q.dim() != 4 or q.shape[0] != 1:
         raise ValueError(f"q must be (1, n_head, T, hs), got {tuple(q.shape)}")
     _, n_head, T, hs = q.shape
-    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
-        raise ValueError("k_pool and v_pool must both be (NB, BS, G, hs)")
-    G = k_pool.shape[2]
+    G = k.shape[2]
     if n_head % G:
         raise ValueError(f"n_head={n_head} must be a multiple of G={G}")
-    if hs not in KERNEL_HEAD_SIZES or k_pool.shape[3] != hs:
+    if hs not in KERNEL_HEAD_SIZES or k.shape[3] != hs:
         raise ValueError(
-            f"head size {hs} (pool {k_pool.shape[3]}): the kernel is built "
+            f"head size {hs} (pool {k.shape[3]}): the kernel is built "
             f"for {KERNEL_HEAD_SIZES}"
         )
-    if q.dtype not in _KERNEL_DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+    if q.dtype not in _KERNEL_DTYPES or (k.dtype != q.dtype and k.dtype not in _NARROW_KV):
         raise ValueError(
-            f"dtypes q={q.dtype} k={k_pool.dtype} v={v_pool.dtype}: the "
-            "kernel takes float32 or bfloat16, the same for all three"
+            f"dtypes q={q.dtype} pool={k.dtype}: the kernel takes q in float32 "
+            "or bfloat16 over a pool of q's dtype, int8 or float8"
         )
     S = block_tables.shape[0]
     meta = {"block_tables": (block_tables, 2), "q_start": (q_start, 1),
@@ -141,18 +179,18 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, q_start, q_len, lens, q_
             raise ValueError(f"{name} must be a contiguous {nd}-D int32 tensor")
         if x.shape[0] != (T if name == "q_pos" else S):
             raise ValueError(f"{name} has leading size {x.shape[0]}")
-    for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+    for name, x in (("q", q), ("k_pool", k), ("v_pool", v)):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    for x in (k_pool, v_pool, block_tables, q_start, q_len, lens, q_pos):
+    for x in (k, v, *scales, block_tables, q_start, q_len, lens, q_pos):
         if x.device != q.device:
             raise ValueError(f"every argument must be on {q.device}, got {x.device}")
 
 
 def ragged_paged_attention(
     q: torch.Tensor,  # (1, n_head, T, hs) packed slot-major ragged queries
-    k_pool: torch.Tensor,  # (NB, BS, G, hs)
-    v_pool: torch.Tensor,
+    k_pool,  # (NB, BS, G, hs), or an int8 pool {"q", "scale"}
+    v_pool,
     block_tables: torch.Tensor,  # (S, MB) int32
     q_start: torch.Tensor,  # (S,) int32 span offset per slot
     q_len: torch.Tensor,  # (S,) int32 span length (0 = slot absent)
@@ -164,7 +202,7 @@ def ragged_paged_attention(
     """K1.  Returns (1, n_head, T, hs) in q's dtype, zeros where no slot
     owns the row.  CPU tensors take the plain version; CUDA tensors
     launch the kernel on the current stream, or raise."""
-    _check_fp_pool(k_pool)
+    k, v, ks, vs = _check_pools(k_pool, v_pool)
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
             q, k_pool, v_pool, block_tables, q_start, q_len, lens, q_pos,
@@ -172,22 +210,25 @@ def ragged_paged_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention: no kernel for {q.device}")
-    _check_kernel_args(q, k_pool, v_pool, block_tables, q_start, q_len, lens, q_pos)
+    scales = () if ks is None else (ks, vs)
+    _check_kernel_args(q, k, v, scales, block_tables, q_start, q_len, lens, q_pos)
     _, n_head, T, hs = q.shape
-    NB, BS, G, _ = k_pool.shape
+    NB, BS, G, _ = k.shape
     S, MB = block_tables.shape
     out = torch.zeros_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib()(
-        _KERNEL_DTYPES[q.dtype], hs, q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), block_tables.data_ptr(), q_start.data_ptr(),
-        q_len.data_ptr(), lens.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        _KERNEL_DTYPES[q.dtype], 0 if k.dtype == q.dtype else _NARROW_KV[k.dtype],
+        hs, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
+        block_tables.data_ptr(), q_start.data_ptr(), q_len.data_ptr(),
+        lens.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
         T, n_head, G, BS, S, MB, float(scale), stream,
     )
     if rc != 0:
         raise RuntimeError(
             f"ragged_paged_attention kernel launch failed (code {rc}) for "
-            f"q {tuple(q.shape)} {q.dtype}, pool {tuple(k_pool.shape)}"
+            f"q {tuple(q.shape)} {q.dtype}, pool {tuple(k.shape)} {k.dtype}"
         )
     ragged_paged_attention.launches += 1
     return out

@@ -7,6 +7,8 @@ the same draws.  Greedy decoding (temperature 0) is exact argmax — the
 mode in which the port's streams equal the JAX package's token for token.
 `mode`/`top_k` keep their role as the only knobs that change the code
 path; temperature and top_p ride as float32 tensors on the device.
+`speculative_verify` is the serving engine's accept/resample rule for
+speculative decoding.
 """
 
 from __future__ import annotations
@@ -133,3 +135,60 @@ def sample_traced(
         dim=-1,
     )
     return torch.multinomial(probs, 1, generator=generator).squeeze(-1)
+
+
+def speculative_verify(
+    logits: torch.Tensor,  # (B, K+1, V): row i scores input position i
+    draft: torch.Tensor,  # (B, K) int: draft[:, i] proposes position i+1
+    draft_len: torch.Tensor,  # (B,) int: valid drafts per row (0..K)
+    generator: Optional[torch.Generator],
+    temperature: torch.Tensor,
+    top_p: torch.Tensor,
+    *,
+    mode: str,
+    top_k: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rejection-sampled speculative verify for deterministic drafts (an
+    n-gram lookup or a greedy draft model: `p_draft` is one-hot), the JAX
+    package's `speculative_verify`.  Draft token d is accepted with
+    probability p(d), else one token is drawn from p with d masked out, so
+    every emitted token is distributed as the per-step sampler's draw;
+    `mode == "greedy"` is the exact-match accept against the argmax.  The
+    draws come from `generator`, so they follow the same law as JAX's but
+    are not the same draws.
+
+    Returns (out (B, K+1) int32, n_emit (B,) int32): row b emits
+    `out[b, :n_emit[b]]`, its accepted draft prefix and then one resampled
+    (on a rejection) or bonus token."""
+    B, K1, V = logits.shape
+    K = K1 - 1
+    dev = logits.device
+    draft = draft.long()
+    f = filtered_logits(logits, temperature, top_p, mode=mode, top_k=top_k)
+    valid = torch.arange(K, device=dev)[None, :] < draft_len[:, None]
+    if mode == "greedy":
+        g = torch.argmax(f, dim=-1)  # (B, K+1)
+        match = (g[:, :K] == draft) & valid
+        a = torch.cumprod(match.int(), dim=-1).sum(dim=-1)
+        return g.int(), (a + 1).int()
+    probs = torch.softmax(f, dim=-1)  # the verify distribution p
+    u = torch.rand((B, K), generator=generator, device=dev)
+    p_draft_tok = probs[:, :K].gather(-1, draft[..., None])[..., 0]  # p_i(d_i)
+    accept = (u < p_draft_tok) & valid
+    a = torch.cumprod(accept.int(), dim=-1).sum(dim=-1)  # leading accepts
+    # position a's draw: the residual (rejected token masked) after a
+    # rejection, the untouched bonus distribution after full acceptance
+    row_f = f.gather(1, a[:, None, None].expand(B, 1, V))[:, 0]
+    if K > 0:
+        rej_tok = draft.gather(1, a.clamp(max=K - 1)[:, None])[:, 0]
+        masked = torch.where(
+            torch.arange(V, device=dev)[None, :] == rej_tok[:, None],
+            torch.tensor(float("-inf"), device=dev), row_f,
+        )
+        row_f = torch.where((a < draft_len)[:, None], masked, row_f)
+    last = torch.multinomial(torch.softmax(row_f, dim=-1), 1, generator=generator)[:, 0]
+    cols = torch.arange(K1, device=dev)[None, :]
+    padded = torch.nn.functional.pad(draft, (0, 1))  # (B, K+1)
+    out = torch.where(cols < a[:, None], padded, torch.zeros_like(padded))
+    out = torch.where(cols == a[:, None], last[:, None], out)
+    return out.int(), (a + 1).int()

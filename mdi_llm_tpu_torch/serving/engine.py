@@ -10,6 +10,12 @@ is one of:
   every decode lane's pending token plus prefill chunks up to the token
   budget pack slot-major into ONE (1, token_budget) ragged forward
   (`ops/paged_attention.paged_prefill`, kernel K1 on the card);
+- speculative decode (`_run_spec_decode`, with `spec_k`): each slot drafts
+  up to `spec_k` tokens (prompt n-gram lookup, or the draft model where it
+  misses) and ONE ragged verify forward of width `spec_k + 1` per slot
+  scores them; exact-match accept at temperature 0, the rejection-sampled
+  accept/resample of `ops/sampling.speculative_verify` above it.  A turn
+  where no slot drafts falls back to the decode below;
 - chunked decode (`_run_decode_chunk`): K decode steps run back to back on
   the device with per-slot limit and stop masks, and the host reads the K
   tokens once.  With `double_buffer`, chunk N+1 is launched before chunk
@@ -18,14 +24,18 @@ is one of:
 - per-token decode (`_run_decode`) when `decode_chunk == 1`.
 
 The pool is updated in place by every forward (the JAX package donates it
-to each jitted step for the same effect).  Greedy streams equal the JAX
-engine's token for token on the same weights (tests/test_torch_serving.py).
-Sampling draws come from one `torch.Generator` per engine, seeded from the
-Generator's `rng_seed`.
+to each jitted step for the same effect).  Its storage is the Generator's
+cache dtype, or `ServingConfig.kv_dtype`: a float name (float8 included)
+casts on write, "int8" builds the quantized pool of per-(block, group)
+scales.  A draft model (`draft_model`, or `Generator.serve(draft_gen=)`)
+keeps its own paged pool of the same dtype and follows the target's feed
+positions through the mixed steps.  Greedy streams equal the JAX engine's
+token for token on the same weights (tests/test_torch_serving.py,
+tests/test_torch_spec_serving.py).  Sampling draws come from one
+`torch.Generator` per engine, seeded from the Generator's `rng_seed`.
 
-Not ported yet, and refused with an error when asked for: speculative
-decoding and draft models, the host-RAM KV tier, int8/float8 pools,
-tensor/pipeline parallel serving, and observability hooks.
+Not ported yet, and refused with an error when asked for: the host-RAM KV
+tier, tensor/pipeline parallel serving, and observability hooks.
 """
 
 from __future__ import annotations
@@ -37,13 +47,21 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mdi_llm_tpu_torch.config import ServingConfig
-from mdi_llm_tpu_torch.generation import Generator, detect_stop_tokens, find_eot
+from mdi_llm_tpu_torch.config import ServingConfig, dtype_bytes
+from mdi_llm_tpu_torch.generation import (
+    Generator,
+    accept_draft,
+    detect_stop_tokens,
+    find_eot,
+    ngram_draft,
+    pad_draft,
+)
 from mdi_llm_tpu_torch.models import transformer
 from mdi_llm_tpu_torch.ops.sampling import (
     sample_mode,
     sample_traced,
     sampling_operands,
+    speculative_verify,
 )
 from mdi_llm_tpu_torch.serving.kv_pool import KVPool
 from mdi_llm_tpu_torch.serving.scheduler import Request, Scheduler, SequenceState
@@ -51,34 +69,78 @@ from mdi_llm_tpu_torch.serving.scheduler import Request, Scheduler, SequenceStat
 __all__ = ["ServingEngine", "ServingStats", "check_serving_config"]
 
 _POOL_DTYPES = {
-    "bfloat16": torch.bfloat16, "float16": torch.float16,
-    "float32": torch.float32, "float64": torch.float64,
+    "float8": torch.float8_e4m3fn, "float8_e4m3fn": torch.float8_e4m3fn,
+    "float8_e5m2": torch.float8_e5m2, "bfloat16": torch.bfloat16,
+    "float16": torch.float16, "float32": torch.float32, "float64": torch.float64,
 }
 
 
 def check_serving_config(serving: ServingConfig) -> None:
     """Refuse every ServingConfig knob this port does not carry yet (see
-    ROADMAP.md Queue 1): never ignore one, never compute something else."""
-    refused = []
-    if serving.spec_k:
-        refused.append(f"spec_k={serving.spec_k} (speculative decoding)")
-    if serving.draft_model:
-        refused.append(f"draft_model={serving.draft_model!r}")
+    ROADMAP.md Queue 1), and the combinations the JAX engine refuses, with
+    its messages: never ignore one, never compute something else."""
     if serving.host_pool_mib > 0:
-        refused.append(f"host_pool_mib={serving.host_pool_mib} (host KV tier)")
-    if serving.kv_dtype is not None and serving.kv_dtype not in _POOL_DTYPES:
-        refused.append(f"kv_dtype={serving.kv_dtype!r} (int8/float8 pools)")
-    if refused:
         raise ValueError(
-            "not ported to mdi_llm_tpu_torch yet: " + "; ".join(refused)
+            "not ported to mdi_llm_tpu_torch yet: "
+            f"host_pool_mib={serving.host_pool_mib} (host KV tier)"
         )
+    if serving.block_size < 1:
+        raise ValueError("block_size must be positive")
+    if serving.decode_chunk < 1:
+        raise ValueError("decode_chunk must be >= 1")
+    if serving.spec_k < 0:
+        raise ValueError("spec_k must be >= 0")
+    if (
+        serving.spec_k
+        and serving.temperature != 0.0
+        and not serving.spec_verify_sampled()
+    ):
+        raise ValueError(
+            "spec_sampled=False pins the exact-match verify, which "
+            "emits greedy successors and is only exact at "
+            "temperature=0 — drop spec_sampled=False (auto selects "
+            "the rejection-sampled verify at temperature>0) or set "
+            "temperature=0"
+        )
+    if serving.draft_model and not serving.spec_k:
+        raise ValueError(
+            "draft_model is a drafter for speculative serving: set "
+            "spec_k > 0 (the draft scan proposes up to spec_k tokens "
+            "per slot per verify)"
+        )
+
+
+def resolve_pool_dtype(serving: ServingConfig, cache_dtype: torch.dtype):
+    """(pool dtype, its name) as the JAX engine resolves `kv_dtype`: None
+    keeps the Generator's cache dtype; "int8" is the quantized pool;
+    "float8" and "float8_e4m3fn" are e4m3, "float8_e5m2" is e5m2, and the
+    float names cast on write.  Unknown names are refused through the byte
+    table (`config.dtype_bytes`), known non-storage ones by name."""
+    if serving.kv_dtype is None:
+        return cache_dtype, str(cache_dtype).replace("torch.", "")
+    name = serving.resolved_kv_dtype()
+    dtype_bytes(name)  # ValueError on names the table doesn't know
+    if name == "int8":
+        return "int8", name
+    if name not in _POOL_DTYPES:
+        raise ValueError(
+            f"kv_dtype {name!r} is not a paged-pool storage dtype: "
+            "use 'int8' (quantized blocks + per-block scales) or a "
+            "float dtype (cast on write)"
+        )
+    return _POOL_DTYPES[name], name
+
+
+def pool_bytes(kv) -> int:
+    """Device bytes of a pool (payload and scales)."""
+    return sum(x.numel() * x.element_size() for x in transformer.tree_leaves(kv))
 
 
 @dataclass
 class ServingStats:
     """The JAX engine's stats with the same keys (`to_dict`), so a stats
-    line of either package reads the same.  The speculative and host-tier
-    counters stay 0 here: those features are refused."""
+    line of either package reads the same.  The host-tier counters stay 0
+    here: that feature is refused."""
 
     tokens_generated: int = 0
     prefill_tokens: int = 0
@@ -211,21 +273,16 @@ class ServingEngine:
         results, stats = engine.run()
     """
 
-    def __init__(self, gen: Generator, serving: ServingConfig, policy=None):
+    def __init__(self, gen: Generator, serving: ServingConfig, policy=None,
+                 draft_gen: Optional[Generator] = None):
         check_serving_config(serving)
         self.gen = gen
         self.cfg = serving
         self.device = gen.device
         bs = serving.block_size
-        if bs < 1:
-            raise ValueError("block_size must be positive")
-        if serving.decode_chunk < 1:
-            raise ValueError("decode_chunk must be >= 1")
-        if serving.kv_dtype is None:
-            self._pool_dtype = gen.cache_dtype
-        else:
-            self._pool_dtype = _POOL_DTYPES[serving.kv_dtype]
-        self.kv_dtype_name = str(self._pool_dtype).replace("torch.", "")
+        self._pool_dtype, self.kv_dtype_name = resolve_pool_dtype(
+            serving, gen.cache_dtype
+        )
         self.token_budget = serving.resolved_token_budget()
         if self.token_budget <= serving.max_batch:
             raise ValueError(
@@ -259,9 +316,92 @@ class ServingEngine:
         )
         self._rng = torch.Generator(device=self.device).manual_seed(gen.rng_seed)
         self.forward_calls = 0  # model forwards this engine ran (all layers)
+        self.draft_forward_calls = 0  # the draft model's forwards
+        # optional draft model with its own paged pool; all None without
+        # draft_model, so every other path is untouched
+        self.draft_gen: Optional[Generator] = None
+        self.draft_pool: Optional[KVPool] = None
+        self._draft_kv = None
+        self._draft_tables: Optional[np.ndarray] = None
+        if serving.draft_model:
+            self._init_draft(draft_gen)
         self.stats = ServingStats()
         self._results: Dict[str, List[int]] = {}
         self._stream_cb = None
+
+    # -- draft model (speculative drafting over a second paged pool) ---------
+
+    def _init_draft(self, draft_gen: Optional[Generator]) -> None:
+        """Build the draft Generator and its own paged pool, sized by
+        `ServingConfig.num_draft_blocks`.  The draft pool has the target
+        pool's dtype, no prefix cache and no host tier: draft KV is always
+        recomputable from the token list, so retire/preempt drop it
+        wholesale (`Scheduler._release_draft`)."""
+        serving = self.cfg
+        tcfg = self.gen.cfg
+        dcfg = draft_gen.cfg if draft_gen is not None else serving.draft_config()
+        if dcfg.padded_vocab_size != tcfg.padded_vocab_size:
+            raise ValueError(
+                f"draft_model {serving.draft_model!r} has padded vocab "
+                f"{dcfg.padded_vocab_size}, the target has "
+                f"{tcfg.padded_vocab_size}: the rejection verify compares "
+                "token ids, so drafter and verifier must share a vocabulary"
+            )
+        if dcfg.block_size < self.max_seq_length:
+            raise ValueError(
+                f"draft_model {serving.draft_model!r} context window "
+                f"{dcfg.block_size} is smaller than the engine's "
+                f"max_seq_length {self.max_seq_length}: the draft must "
+                "follow every lane to the window edge"
+            )
+        if draft_gen is None:
+            draft_gen = self._build_draft_gen(dcfg)
+        self.draft_gen = draft_gen
+        n_blocks = serving.num_draft_blocks(self.max_seq_length)
+        self.draft_pool = KVPool(n_blocks, serving.block_size, prefix_caching=False)
+        self.scheduler.draft_pool = self.draft_pool
+        self._draft_kv = transformer.init_paged_kv_cache(
+            dcfg, n_blocks, serving.block_size, dtype=self._pool_dtype,
+            device=self.device,
+        )
+        self._draft_tables = np.zeros(
+            (serving.max_batch, self.max_blocks_per_seq), np.int32
+        )
+
+    def _build_draft_gen(self, dcfg) -> Generator:
+        """The draft Generator when the caller hands none in: random
+        weights (seed 0, as the JAX engine's PRNGKey(0)) at the target's
+        parameter dtype, on the target's device."""
+        gen = self.gen
+        dparams = transformer.init_params(
+            dcfg, 0, dtype=transformer.param_dtype(gen.params), device=gen.device
+        )
+        return Generator(
+            dcfg, dparams, max_seq_length=self.max_seq_length,
+            cache_dtype=gen.cache_dtype, rng_seed=gen.rng_seed, device=gen.device,
+        )
+
+    def _ensure_draft_blocks(self, seq: SequenceState, n_tokens: int) -> bool:
+        """Grow `seq`'s draft-pool table to cover `n_tokens` positions,
+        without preemption (the draft pool is a fixed carve-out; a lane it
+        cannot cover keeps the n-gram drafter)."""
+        pool = self.draft_pool
+        need = pool.blocks_needed(min(n_tokens, self.max_seq_length))
+        while len(seq.draft_blocks) < need:
+            got = pool.alloc(1)
+            if got is None:
+                return False
+            seq.draft_blocks.extend(got)
+        return True
+
+    def _sync_draft_tables(self, seqs: Sequence[SequenceState]) -> np.ndarray:
+        """Block table into the draft pool, rebuilt per dispatch; zero rows
+        send every absent or stale lane's writes to its trash block."""
+        t = self._draft_tables
+        t[:] = 0
+        for seq in seqs:
+            t[seq.slot, : len(seq.draft_blocks)] = seq.draft_blocks
+        return t
 
     # -- device helpers ------------------------------------------------------
 
@@ -299,6 +439,16 @@ class ServingEngine:
         return transformer.forward(
             self.gen.cfg, self.gen.params, tokens, pos, self._kv, tables,
             rope=self.gen.rope, paged_kernel=self.cfg.use_kernel,
+            paged_ragged=paged_ragged,
+        )
+
+    def _draft_forward(self, tokens, pos, tables, paged_ragged=None) -> torch.Tensor:
+        """One draft-model forward over the draft pool, in place."""
+        self.draft_forward_calls += 1
+        dgen = self.draft_gen
+        return transformer.forward(
+            dgen.cfg, dgen.params, tokens, pos, self._draft_kv, tables,
+            rope=dgen.rope, paged_kernel=self.cfg.use_kernel,
             paged_ragged=paged_ragged,
         )
 
@@ -394,12 +544,13 @@ class ServingEngine:
             off += n
         tables = self._sync_tables([s for s, _ in live])
         up = self._upload
-        logits = self._forward(
-            up(tokens), up(pos), up(tables),
-            paged_ragged=(up(q_slot), up(q_start), up(q_len)),
-        )
-        nxt = self._sample(logits[0, up(last_idx)])
-        nxt = self._wait(self._read_async(nxt))  # the step's one host read
+        ragged = (up(q_slot), up(q_start), up(q_len))
+        logits = self._forward(up(tokens), up(pos), up(tables), paged_ragged=ragged)
+        read = self._read_async(self._sample(logits[0, up(last_idx)]))
+        # the draft model follows the same packed batch, queued before the
+        # host waits on the step's one read
+        self._mirror_mixed_to_draft(live, tokens, pos, ragged)
+        nxt = self._wait(read)  # the step's one host read
         self.stats.mixed_steps += 1
         self.stats.host_syncs += 1
         self.stats.observe_dispatch(T, off)
@@ -429,6 +580,31 @@ class ServingEngine:
         if any_decode:
             self.stats.decode_steps += 1
         self.stats.prefill_s += time.perf_counter() - t0
+
+    def _mirror_mixed_to_draft(self, live, tokens: np.ndarray, pos: np.ndarray,
+                               ragged) -> None:
+        """Feed the mixed step's packed batch through the draft model, so
+        its pool tracks the target's feed positions (`draft_fed == fed`).
+        Only lanes the draft follows get table rows: stale lanes, and lanes
+        the draft carve-out cannot cover, write into the draft trash block
+        and keep the n-gram drafter."""
+        if self.draft_gen is None:
+            return
+        fresh = []
+        for seq, n in live:
+            if seq.draft_stale or seq.draft_fed != seq.fed:
+                continue
+            if not self._ensure_draft_blocks(seq, seq.fed + n):
+                seq.draft_stale = True  # the carve-out cannot follow it
+                continue
+            fresh.append((seq, n))
+        if not fresh:
+            return
+        tables = self._sync_draft_tables([s for s, _ in fresh])
+        up = self._upload
+        self._draft_forward(up(tokens), up(pos), up(tables), paged_ragged=ragged)
+        for seq, n in fresh:
+            seq.draft_fed += n
 
     def _queue_depth(self) -> int:
         return len(self.scheduler.waiting) + len(self.scheduler.preempted)
@@ -565,8 +741,11 @@ class ServingEngine:
         work: an admission or prefill would change the live set in flight,
         and a preemption would free blocks the device is still writing."""
         sched = self.scheduler
+        # with spec_k a chunk is only the no-draft fallback: control returns
+        # to the scheduler after every chunk so drafting lanes verify again
         return (
             self.cfg.double_buffer
+            and not self.cfg.spec_k
             and not sched.waiting
             and not sched.preempted
             and not any(s.needs_prefill for s in sched.running())
@@ -637,6 +816,221 @@ class ServingEngine:
         self._drain_tokens(live, prev_limits, self._wait(prev_read))
         self.stats.decode_s += time.perf_counter() - t0
 
+    # -- speculative decode (ragged verify over the paged pool) ---------------
+
+    def _draft_ready(self, seq: SequenceState) -> bool:
+        """May this lane use the model drafter this round?  Its draft KV
+        must trail by a gap the (K+2)-wide catch-up absorbs, and the draft
+        pool must cover every scan write (positions through fed + K + 1).
+        A lane past the absorbable gap goes stale for good and keeps the
+        n-gram drafter (the JAX engine's rule)."""
+        if self.draft_gen is None or seq.draft_stale:
+            return False
+        gap = seq.fed - seq.draft_fed
+        if not 0 <= gap <= self.cfg.spec_k + 1:
+            seq.draft_stale = True
+            return False
+        return self._ensure_draft_blocks(seq, seq.fed + self.cfg.spec_k + 2)
+
+    def _draft_scan(self, toks_in, tables, pos0, n_in, K: int) -> torch.Tensor:
+        """K greedy draft tokens per lane (the JAX `_draft_scan_fn`): one
+        ragged catch-up forward over the lane's last `n_in` undrafted tokens
+        (pending token included), then K-1 single-token steps feeding each
+        proposal back.  Greedy drafts keep `p_draft` one-hot, as
+        `speculative_verify` assumes.  Rows with n_in = 0 are dead lanes;
+        their zero table rows send every write to the draft trash block.
+        Returns (B, K) int32 on the device."""
+        logits = self._draft_forward(toks_in, pos0, tables)  # (B, F, V)
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        tok = torch.argmax(logits[rows, (n_in - 1).clamp(min=0).long()], dim=-1)
+        drafts = [tok]
+        pos = pos0 + n_in.clamp(min=1)
+        for _ in range(K - 1):
+            tok = torch.argmax(self._draft_forward(tok[:, None], pos, tables)[:, -1], dim=-1)
+            drafts.append(tok)
+            pos = pos + 1
+        return torch.stack(drafts, dim=1).to(torch.int32)
+
+    def _run_draft_scan(self, seqs: List[SequenceState], K: int):
+        """One draft scan proposing K tokens for each of `seqs`; costs one
+        host read, paid only on rounds where some lane uses the model
+        drafter."""
+        B = self.scheduler.max_batch
+        F = K + 2
+        toks_in = np.zeros((B, F), np.int32)
+        pos0 = np.zeros((B,), np.int32)
+        n_in = np.zeros((B,), np.int32)
+        for seq in seqs:
+            # decode-phase invariant: tokens[fed] is the pending token, so
+            # the catch-up feed is every token the draft has not seen yet
+            feed = seq.tokens[seq.draft_fed : seq.fed + 1]
+            toks_in[seq.slot, : len(feed)] = feed
+            pos0[seq.slot] = seq.draft_fed
+            n_in[seq.slot] = len(feed)
+        up = self._upload
+        d = self._draft_scan(
+            up(toks_in), up(self._sync_draft_tables(seqs)), up(pos0), up(n_in), K
+        )
+        d = self._wait(self._read_async(d))
+        self.stats.host_syncs += 1
+        # the scan's F-wide feed plus K-1 single steps; useful credit rides
+        # the verify's accepted tokens
+        self.stats.observe_dispatch(B * F + B * max(K - 1, 0), 0)
+        return [(seq, [int(t) for t in d[seq.slot]]) for seq in seqs]
+
+    def _verify(self, toks_in, tables, pos) -> torch.Tensor:
+        """Greedy verify: one ragged multi-query forward scoring every
+        slot's [pending] + draft at its own depth; the argmax successor at
+        every position, (B, K+1) int32."""
+        return torch.argmax(self._forward(toks_in, pos, tables), dim=-1).to(torch.int32)
+
+    def _verify_sample(self, toks_in, tables, pos, draft_len):
+        """Rejection-sampled verify: the same forward, then the accept /
+        resample rule of `speculative_verify` against the distribution the
+        per-step sampler draws from.  Returns (out, n_emit)."""
+        logits = self._forward(toks_in, pos, tables)
+        return speculative_verify(
+            logits, toks_in[:, 1:], draft_len, self._rng, self._t_op, self._p_op,
+            mode=self._sample_mode, top_k=self.cfg.top_k,
+        )
+
+    def _run_spec_decode(self, seqs: List[SequenceState]) -> bool:
+        """Batched speculative step: draft up to `spec_k` tokens per slot —
+        prompt lookup first (`ngram_draft`), the draft model where it
+        misses — score every slot's [pending] + draft in ONE ragged verify
+        forward, and emit each slot's accepted prefix and one more token.
+        Exact-match verify at temperature 0, rejection-sampled above it
+        (`ServingConfig.spec_verify_sampled`).  Returns False when no slot
+        drafted: the caller then runs a plain decode turn."""
+        K = self.cfg.spec_k
+        sampled = self.cfg.spec_verify_sampled()
+        candidates = [s for s in seqs if self.scheduler.slots[s.slot] is s]
+        drafts: Dict[int, List[int]] = {}
+        source: Dict[int, str] = {}
+        model_lanes: List[SequenceState] = []
+        for seq in candidates:
+            # draft only with window room for all K+1 writes and at least 2
+            # tokens of budget left, capped at remaining-1 so the
+            # reservation never exceeds what admission guaranteed
+            room = self.max_seq_length - seq.fed - 1
+            remaining = seq.req.max_new_tokens - seq.n_generated
+            if room >= K + 1 and remaining >= 2:
+                d = ngram_draft(seq.tokens, K)[: remaining - 1]
+                if d:
+                    drafts[seq.slot] = [int(t) for t in d]
+                    source[seq.slot] = "ngram"
+                elif self._draft_ready(seq):
+                    model_lanes.append(seq)
+        if model_lanes:
+            for seq, d in self._run_draft_scan(model_lanes, K):
+                remaining = seq.req.max_new_tokens - seq.n_generated
+                d = d[: remaining - 1]
+                if d:
+                    drafts[seq.slot] = d
+                    source[seq.slot] = "model"
+        if not drafts:
+            return False
+        t0 = time.perf_counter()
+        live = self._live_reserved(
+            candidates, lambda s: len(drafts.get(s.slot, ())) + 1
+        )
+        if not live:
+            self.stats.decode_s += time.perf_counter() - t0
+            return True
+        B = self.scheduler.max_batch
+        toks_in = np.zeros((B, K + 1), np.int32)
+        pos = np.zeros((B,), np.int32)
+        dlen = np.zeros((B,), np.int32)
+        fed0 = {id(s): s.fed for s in live}
+        for seq in live:
+            toks_in[seq.slot] = [int(seq.next_tok)] + pad_draft(drafts.get(seq.slot, []), K)
+            pos[seq.slot] = seq.fed
+            dlen[seq.slot] = len(drafts.get(seq.slot, ()))
+        up = self._upload
+        args = (up(toks_in), up(self._sync_tables(live)), up(pos))
+        if sampled:
+            out, n_emit = self._verify_sample(*args, up(dlen))
+            # tokens and emit counts in one host read
+            got = self._wait(self._read_async(torch.cat([out, n_emit[:, None]], dim=1)))
+            bursts = {
+                seq.slot: [int(t) for t in got[seq.slot, : int(got[seq.slot, -1])]]
+                for seq in live
+            }
+        else:
+            g = self._wait(self._read_async(self._verify(*args)))
+            # accept only over the real draft length: a 0-padded row must
+            # not luck into matching the model's 0-token successor
+            bursts = {
+                seq.slot: accept_draft(
+                    pad_draft(drafts.get(seq.slot, []), K), g[seq.slot],
+                    len(drafts.get(seq.slot, ())),
+                )
+                for seq in live
+            }
+        self.stats.decode_steps += 1
+        self.stats.host_syncs += 1
+        # useful side credited per slot below as len(burst); rejected
+        # draft rows are padding
+        self.stats.observe_dispatch(B * (K + 1), 0)
+        self.stats.observe_kv_utilization(self.pool.utilization)
+        self.stats.observe_resident(len(self.scheduler.running()))
+        for seq in live:
+            d = drafts.get(seq.slot, [])
+            burst = bursts[seq.slot]
+            src = source.get(seq.slot)
+            accepted = len(burst) - 1
+            self.stats.spec_drafted += len(d)
+            self.stats.spec_accepted += accepted
+            if src == "model":
+                self.stats.spec_drafted_model += len(d)
+                self.stats.spec_accepted_model += accepted
+            elif src == "ngram":
+                self.stats.spec_drafted_ngram += len(d)
+                self.stats.spec_accepted_ngram += accepted
+            self.stats.tokens_useful += len(burst)
+            for t in burst:
+                seq.fed += 1
+                self._emit(seq, int(t))
+                if seq.done:
+                    break
+            if src == "model" and not seq.done:
+                # the scan wrote draft KV for proposals d_1..d_{K-1}; their
+                # accepted prefix is real sequence now, and the next
+                # catch-up resumes right after it
+                seq.draft_fed = fed0[id(seq)] + 1 + min(accepted, K - 1)
+        self.stats.decode_s += time.perf_counter() - t0
+        return True
+
+    def prime(self) -> None:
+        """Run the speculative forwards once with inert operands: one
+        verify (the sampled one when the engine samples), and with a draft
+        model one draft scan and one draft mixed step.  Every table row is
+        0, so every write lands in a trash block and no live block or
+        sequence changes.  The JAX engine compiles its executables here;
+        on the card it warms the same kernels and library handles."""
+        K = self.cfg.spec_k
+        if not K:
+            return
+        B = self.scheduler.max_batch
+        up = self._upload
+        tables = up(np.zeros((B, self.max_blocks_per_seq), np.int32))
+        toks = up(np.zeros((B, K + 1), np.int32))
+        zB = up(np.zeros((B,), np.int32))
+        if self.cfg.spec_verify_sampled():
+            self._verify_sample(toks, tables, zB, zB)
+        else:
+            self._verify(toks, tables, zB)
+        if self.draft_gen is None:
+            return
+        dtables = up(np.zeros_like(self._draft_tables))
+        self._draft_scan(up(np.zeros((B, K + 2), np.int32)), dtables, zB, zB, K)
+        T = self.token_budget
+        trash_pos = self.max_blocks_per_seq * self.pool.block_size
+        self._draft_forward(
+            up(np.zeros((1, T), np.int32)), up(np.full((1, T), trash_pos, np.int32)),
+            dtables, paged_ragged=(up(np.zeros((T,), np.int32)), zB, zB),
+        )
+
     def step(self) -> bool:
         """Run one scheduler action; False when nothing was runnable."""
         action = self.scheduler.next_batch(self.token_budget)
@@ -647,6 +1041,8 @@ class ServingEngine:
             return False
         if action[0] == "mixed":
             self._run_mixed(action[1])
+        elif self.cfg.spec_k and self._run_spec_decode(action[1]):
+            pass  # the speculative verify served this decode turn
         elif self.cfg.decode_chunk > 1:
             self._run_decode_chunk(action[1])
         else:

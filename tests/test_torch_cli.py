@@ -1,7 +1,8 @@
 """The port's serve CLI, its device rule and its import boundary.
 
 - `python -m mdi_llm_tpu_torch.cli.serve --device cpu ...` serves a
-  synthetic trace and prints the JSON stats line on stderr;
+  synthetic trace and prints the JSON stats line on stderr, over an fp,
+  int8 or float8 pool and with speculative serving and a draft model;
 - without `--device cpu` on a machine with no GPU it raises, and does not
   fall back to the CPU;
 - every flag of a feature the port does not carry is refused;
@@ -57,8 +58,25 @@ def test_cli_raises_without_a_gpu_instead_of_falling_back():
     assert "tokens_generated" not in proc.stderr
 
 
+@pytest.mark.parametrize("flags,check", [
+    (["--kv-dtype", "int8"], {"kv_dtype": "int8"}),
+    (["--kv-dtype", "float8"], {"kv_dtype": "float8_e4m3fn"}),
+    (["--n-tokens", "12", "--spec-k", "2", "--draft-model", "pythia-14m"], {"kv_dtype": "bfloat16"}),
+], ids=["int8", "float8", "spec-draft"])
+def test_cli_serves_narrow_pools_and_spec_on_cpu(flags, check):
+    proc = _run(["--device", "cpu", *CPU_RUN, *flags])
+    assert proc.returncode == 0, proc.stderr
+    line = json.loads(proc.stderr.strip().splitlines()[-1])
+    assert line["requests"] == 3 and line["tokens_generated"] > 0
+    assert {k: line[k] for k in check} == check
+    if "--spec-k" in flags:
+        assert line["spec_drafted_model"] > 0 and line["draft_forward_calls"] > 0
+    else:
+        assert line["draft_forward_calls"] == 0
+
+
 @pytest.mark.parametrize("flags", [
-    ["--spec-k", "4"], ["--draft-model", "pythia-14m"], ["--host-pool-mib", "64"],
+    ["--host-pool-mib", "64"],
     ["--tp", "2"], ["--pp", "2"], ["--quantize", "int8"], ["--ckpt", "some/dir"],
     ["--metrics-out", "m.json"], ["--prom-out", "m.txt"], ["--trace-out", "t.json"],
     ["--xprof-steps", "4"], ["--sample-rss", "0.5"],
@@ -70,8 +88,17 @@ def test_cli_refuses_unported_flags(flags):
 
 
 def test_cli_refuses_unported_kv_dtype():
+    """A dtype no pool stores is refused by the parser; int8 (the
+    quantized paged pool) is a serving dtype only, refused for the dense
+    cache of the sample CLI."""
+    from mdi_llm_tpu_torch.cli import sample
+
     with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["--kv-dtype", "int8"])
+        cli.build_parser().parse_args(["--kv-dtype", "int4"])
+    assert cli.build_parser().parse_args(["--kv-dtype", "int8"]).kv_dtype == "int8"
+    with pytest.raises(SystemExit):
+        sample.build_parser().parse_args(["--kv-dtype", "int8"])
+    assert sample.build_parser().parse_args(["--kv-dtype", "float8"]).kv_dtype == "float8"
 
 
 def _imports(path):

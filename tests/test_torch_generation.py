@@ -275,6 +275,18 @@ def test_generator_refuses_unported_options(pythia, kw):
         pythia.tgen(**kw)
 
 
+def test_float8_dense_cache_matches_jax(pythia):
+    """--kv-dtype float8 on the sequential path: a dense e4m3 cache, cast
+    on write and upcast at the read, gives the JAX Generator's greedy
+    streams."""
+    prompts = prompts_of(pythia.tc.vocab_size, (5, 3), seed=4)
+    jg = jgen_mod.Generator(pythia.jc, pythia.jp, cache_dtype=jnp.float8_e4m3fn, use_flash=False)
+    want, _ = jg.generate(prompts, 8, chunk_size=4, **GREEDY)
+    got, _ = Generator(pythia.tc, pythia.tp, cache_dtype=torch.float8_e4m3fn,
+                       device="cpu").generate(prompts, 8, chunk_size=4, **GREEDY)
+    assert got == want
+
+
 def _sample_cli(args):
     return subprocess.run(
         [sys.executable, "-m", "mdi_llm_tpu_torch.cli.sample", *args],

@@ -5,10 +5,10 @@ JAX package, on the CPU.
   wrapper runs on a CPU tensor) is held against the JAX Pallas kernel
   `ragged_paged_attention(..., interpret=True)` — the same call
   tests/test_paged_attention.py makes on the CPU — on every row a slot
-  owns, over mha/gqa/mqa x span width {1, 7, 16, 33} with a decode lane,
-  an absent slot and padding rows packed beside it.  Tolerance: float32,
-  atol/rtol 2e-5 (the tolerance the JAX tests hold their kernel to).
-  Rows no slot owns must be exactly zero in the port.
+  owns, over mha/gqa/mqa x fp/int8 pools x span width {1, 7, 16, 33}
+  with a decode lane, an absent slot and padding rows packed beside it.
+  Tolerance: float32, atol/rtol 2e-5 (the tolerance the JAX tests hold
+  their kernel to).  Rows no slot owns must be exactly zero in the port.
 - `paged_update` (with the trash-block redirect) must write exactly what
   the JAX version writes; `paged_prefill`/`paged_attention` on both the
   plain route and the kernel route must match the JAX lax route.
@@ -45,6 +45,15 @@ def make_pool(n_slots, G, hs, BS, MB, seed):
     return k, v, tables.astype(np.int32)
 
 
+def make_q8_pool(shape, seed):
+    """An int8 pool {"q", "scale"} of random payloads in [-127, 127] and
+    random positive per-(block, group) scales, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    NB, _, G, _ = shape
+    return {"q": rng.integers(-127, 128, shape).astype(np.int8),
+            "scale": rng.uniform(0.5, 2.5, (NB, G)).astype(np.float32) / 127}
+
+
 def pack(spans, n_slots, H, hs, T, seed, pad_pos):
     """spans: [(slot, first position, n_tokens)] packed slot-major; the tail
     up to T pads with rows no slot owns, at position `pad_pos`."""
@@ -66,15 +75,26 @@ def pack(spans, n_slots, H, hs, T, seed, pad_pos):
 
 
 def t(a):
+    if isinstance(a, dict):
+        return {key: t(x) for key, x in a.items()}
     return torch.from_numpy(np.array(a))
 
 
+def j(a):
+    if isinstance(a, dict):
+        return {key: jnp.asarray(x) for key, x in a.items()}
+    return jnp.asarray(a)
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
 @pytest.mark.parametrize("Tq", [1, 7, 16, 33])
 @pytest.mark.parametrize("heads", HEADS, ids=HEAD_IDS)
-def test_plain_k1_matches_jax_kernel_interpret(heads, Tq):
+def test_plain_k1_matches_jax_kernel_interpret(heads, Tq, kv):
     H, G = heads
     hs, BS, MB, n_slots = 16, 8, 8, 4
     k, v, tables = make_pool(n_slots, G, hs, BS, MB, seed=Tq)
+    if kv == "int8":
+        k, v = make_q8_pool(k.shape, seed=Tq + 1), make_q8_pool(v.shape, seed=Tq + 2)
     # slot 0: a span of width Tq deep in its table; slot 1: absent;
     # slot 2: a decode lane; slot 3: a span crossing a block boundary
     spans = [(0, MB * BS - Tq, Tq), (2, 21, 1), (3, 5, 6)]
@@ -83,7 +103,7 @@ def test_plain_k1_matches_jax_kernel_interpret(heads, Tq):
         spans, n_slots, H, hs, T, seed=Tq + 100, pad_pos=MB * BS)
     scale = hs ** -0.5
     want = np.asarray(jax_k1(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+        jnp.asarray(q), j(k), j(v), jnp.asarray(tables),
         jnp.asarray(q_start), jnp.asarray(q_len), jnp.asarray(lens),
         jnp.asarray(q_pos), scale=scale, interpret=True,
     ))
@@ -98,12 +118,27 @@ def test_plain_k1_matches_jax_kernel_interpret(heads, Tq):
 
 
 def test_wrapper_refuses_int8_pools():
-    q = torch.zeros(1, 4, 2, 16)
-    pool = {"q": torch.zeros(3, 4, 2, 16, dtype=torch.int8), "scale": torch.ones(3, 2)}
-    z = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="int8"):
-        ragged_paged_attention(q, pool, pool, torch.zeros(1, 2, dtype=torch.int32),
-                               z, z, z, torch.zeros(2, dtype=torch.int32), scale=0.25)
+    """The wrapper takes a well-formed int8 pool and refuses malformed
+    ones: a scale of the wrong shape or dtype, a payload that is not int8,
+    an int8 payload without scales, and an int8 k pool beside an fp v."""
+    q = torch.randn(1, 4, 2, 16)
+    pool = t(make_q8_pool((3, 4, 2, 16), seed=0))
+    tables = torch.tensor([[1, 2]], dtype=torch.int32)
+    meta = (torch.zeros(1, dtype=torch.int32), torch.tensor([2], dtype=torch.int32),
+            torch.tensor([7], dtype=torch.int32), torch.tensor([5, 6], dtype=torch.int32))
+    out = ragged_paged_attention(q, pool, pool, tables, *meta, scale=0.25)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    bad = [
+        ({"q": pool["q"], "scale": torch.ones(3, 3)}, "scale"),
+        ({"q": pool["q"], "scale": torch.ones(3, 2, dtype=torch.float64)}, "scale"),
+        ({"q": pool["q"].float(), "scale": pool["scale"]}, "int8"),
+        (pool["q"], "scales"),
+    ]
+    for kp, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            ragged_paged_attention(q, kp, kp, tables, *meta, scale=0.25)
+    with pytest.raises(ValueError, match="both"):
+        ragged_paged_attention(q, pool, pool["q"].float(), tables, *meta, scale=0.25)
 
 
 def test_paged_update_matches_jax_including_trash_redirect():

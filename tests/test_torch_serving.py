@@ -10,7 +10,8 @@
   the same mixed-length trace: per-token decode, chunked decode with and
   without double buffering, a token budget smaller than a prompt, a
   prefix-cache hit and a preemption on a tight pool.
-- Every ServingConfig knob the port does not carry raises.
+- Every ServingConfig knob the port does not carry raises, and the
+  combinations the JAX engine refuses raise with the JAX engine's message.
 """
 
 import dataclasses
@@ -242,12 +243,23 @@ def test_engine_preemption_on_tight_pool(served):
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(spec_k=4), dict(draft_model="pythia-14m"), dict(host_pool_mib=64),
-    dict(kv_dtype="int8"), dict(kv_dtype="float8"), dict(kv_dtype="float8_e5m2"),
-], ids=["spec_k", "draft_model", "host_pool_mib", "int8", "float8", "float8_e5m2"])
+    dict(host_pool_mib=64), dict(draft_model="pythia-14m"),
+    dict(spec_k=2, spec_sampled=False, temperature=0.8), dict(spec_k=-1),
+    dict(kv_dtype="int9"), dict(kv_dtype="int32"),
+], ids=["host_pool_mib", "draft_without_spec_k", "exact_verify_sampling", "spec_k_negative",
+        "unknown_kv_dtype", "non_storage_kv_dtype"])
 def test_unported_knobs_raise(served, knobs):
-    with pytest.raises(ValueError, match="not ported"):
+    """The host tier is not ported; every other case is a refusal of the
+    JAX engine, which the port makes with the same message."""
+    if "host_pool_mib" in knobs:
+        with pytest.raises(ValueError, match="not ported"):
+            served[1].serve(**knobs)
+        return
+    with pytest.raises(ValueError) as want:
+        served[0].serve(**knobs)
+    with pytest.raises(ValueError) as got:
         served[1].serve(**knobs)
+    assert str(got.value) == str(want.value)
 
 
 def test_engine_refuses_tight_token_budget(served):
