@@ -11,37 +11,61 @@
 //                        where the row saw no key (l == 0)
 //
 // Key j is valid for query i iff j < T, and j <= i when causal.  Head h
-// reads KV group h / (H / G).  q is scaled by `scale` in float32 before the
-// QK product and P stays float32 through the PV product, as in the TPU
-// kernel.
+// reads KV group h / (H / G).  Logits, softmax and accumulators are
+// float32.
 //
-// Design.  The TPU kernel holds the whole K/V of a head in VMEM and loops
-// over key blocks in one program per (b, h, query tile).  Shared memory is
-// far smaller here, so K/V tiles stream from device memory instead:
-//  - one thread block per (query tile of 32 rows, head, batch row); causal
-//    grids start with the tiles nearest the end of the chunk, which have
-//    the most keys to walk, so the long blocks are scheduled first;
-//  - the tile's 32 rows are held in shared memory in float32, pre-scaled;
-//    each 32-key K/V tile is staged in shared memory with 16-byte loads and
-//    converted to float32; a causal block stops at the key tile holding its
-//    last row (the causal frontier), a non-causal one walks all T keys;
+// Two kernels, chosen by dtype alone:
+//
+// bfloat16 (the main path of generation and training): tensor cores.
+//  - Bound.  At prefill lengths the work grows as T^2 while the bytes grow
+//    as T (causal: 4 * B * H * hs * T(T+1)/2 flops), so on the H100 the
+//    kernel is bound by operations, and only bf16 tensor cores (989
+//    TFLOP/s dense) reach that bound; CUDA-core float32 math cannot get
+//    below flops / 67 TFLOP/s.
+//  - One block per (query tile of 128 rows, head, batch row) of three
+//    warpgroups: two consumers own 64 rows each, one producer thread
+//    issues every copy.  Causal grids start with the tiles nearest the end
+//    of the chunk, which walk the most keys.
+//  - The producer brings the Q tile once and the K/V tiles of 128 keys into
+//    a ring of 2 shared-memory stages by TMA (cp.async.bulk.tensor, one box
+//    per 64-column panel with the 128-byte swizzle, 32 columns and 64-byte
+//    at hs 32; rows past T read as zeros), each stage with a
+//    "full" mbarrier (the copies' bytes) and an "empty" one (every consumer
+//    thread is done with it), so the next tiles are in flight while this
+//    one's math runs and no consumer spends an instruction on a copy.
+//  - S = Q K^T by wgmma.m64n128k16 from shared memory (bf16 operands,
+//    float32 accumulation, both K-major, swizzled); scale is
+//    applied to the float32 scores (for hs = 64 it is 1/8, so this equals
+//    the TPU kernel's pre-scaled q exactly).
+//  - Online softmax on the accumulator registers: row max and sum over the
+//    four threads that share a row by shuffles, all in float32; the mask is
+//    evaluated only on tiles that reach past the chunk or the diagonal, and
+//    a consumer skips the tiles wholly above its rows' diagonal.
+//  - P is rounded to bf16 in registers and is the register A operand of
+//    O += P V (wgmma.m64nHSk16, V read transposed from shared memory).
+//    That rounding (2^-9 relative per element) is the only one the float32
+//    kernel does not make; l sums the unrounded p.
+//
+// float32 (the parity checks' dtype, which needs true float32 products:
+// TF32 tensor cores would not do): CUDA cores.
+//  - one block per (query tile of 32 rows, head, batch row); the tile's
+//    rows are held in shared memory in float32, pre-scaled; each 32-key
+//    K/V tile is staged in shared memory with 16-byte loads;
 //  - in the score phase lane i owns key i, in the PV phase lane i owns
 //    output dims i, i + 32, ...; every warp owns 8 rows, and keeps their
-//    running max m, sum l and accumulator in float32 registers (online
-//    softmax); a row with no valid key in a tile leaves its state as it was.
+//    running max m, sum l and accumulator in float32 registers.
 //
-// Bound on the H100: over one chunk of T keys each K/V byte is read by
-// every query tile of its group's heads, and the work grows as T^2, so at
-// prefill lengths (T >= 1024) the kernel is bound by operations, not bytes
-// (causal: 4 * B * H * hs * T(T+1)/2 flops).  This first version does that
-// math on CUDA cores in float32: tensor cores (mma/wgmma), TMA and
-// overlapping the next tile's loads with the current tile's math are where
-// it loses to the bound, and are later work.
+// Both: a causal block stops at the key tile holding its last row, a
+// non-causal one walks all T keys; a row that sees no key gives out 0 and
+// lse -1e30.
 
-#include <math.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -53,24 +77,12 @@ constexpr int kKeys = 32;                     // keys per K/V tile, one per lane
 constexpr float kNegInf = -1e30f;             // the TPU kernel's finite NEG_INF
 
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// 16 bytes of T at `src` (16-byte aligned) -> float dst[16 / sizeof(T)]
+// 16 bytes at `src` (16-byte aligned) -> float dst[4]
 __device__ __forceinline__ void load16(const float* src, float* dst) {
   const float4 v = *reinterpret_cast<const float4*>(src);
   dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -81,6 +93,8 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
+
+// ---- float32: CUDA cores ----
 
 template <typename T, int HS>
 __global__ void __launch_bounds__(kThreads)
@@ -237,20 +251,302 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_hs(int hs, const void* q, const void* k, const void* v, void* out,
-              float* lse, int B, int H, int G, int n_tok, float scale,
+// ---- bfloat16: tensor cores (wgmma), fed by TMA ----
+
+constexpr int kWgConsumers = 2;                      // consumer warpgroups, 64 rows each
+constexpr int kWgThreads = (kWgConsumers + 1) * 128;  // and one producer warpgroup
+constexpr int kWgRows = kWgConsumers * 64;           // query rows per block
+constexpr int kWgKeys = 128;                          // keys per K/V tile
+constexpr int kWgStages = 2;                         // K/V tiles in the ring
+// shared panels: PANEL columns (128 bytes, 64 at hs 32) x the tile's rows,
+// written by TMA with the matching swizzle
+template <int HS> struct Panel {
+  static constexpr int kCols = HS < 64 ? HS : 64;
+  static constexpr int kRowBytes = kCols * 2;
+  static constexpr int kLayout = kRowBytes == 128 ? 1 : 2;  // descriptor: 128B or 64B swizzle
+};
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+// one panel (Panel<HS>::kCols columns) of `rows` rows of a (hs, T, heads) map
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int col, int row, int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(col), "r"(row), "r"(head) : "memory");
+}
+// shared-memory matrix descriptor: start, leading and stride byte offsets,
+// swizzle layout (1 = 128-byte, 2 = 64-byte)
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo, uint32_t sbo, int layout) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <int HS>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HS / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (HS == 32) wgmma_rs_n32_tb(o, a, db);
+  if constexpr (HS == 64) wgmma_rs_n64_tb(o, a, db);
+  if constexpr (HS == 128) wgmma_rs_n128_tb(o, a, db);
+}
+
+// Shared layout of every tile: HS / kCols panels, each the tile's rows x one
+// swizzled row of kCols columns (what one TMA box writes); 8-row groups lie
+// 8 * kRowBytes apart.  Q and K (A and B of Q K^T) are K-major: a 16-column
+// k-step starts 32 bytes further into the row.  V (B of P V) is MN-major,
+// read transposed: a 16-key k-step starts 16 rows further, and its second
+// 64-column panel (hs 128) lies one panel further (the leading offset).
+template <int HS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wg_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                          int H, int G, int n_tok, float scale, int causal) {
+  constexpr int Q_BYTES = kWgRows * HS * 2;
+  constexpr int KV_BYTES = kWgKeys * HS * 2;
+  constexpr int NT_O = HS / 8;
+  constexpr int PC = Panel<HS>::kCols, RB = Panel<HS>::kRowBytes, LAY = Panel<HS>::kLayout;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;
+  unsigned char* ks = qs + Q_BYTES;
+  unsigned char* vs = ks + kWgStages * KV_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + kWgStages * KV_BYTES);
+  uint64_t* empty = full + kWgStages;
+  uint64_t* q_bar = empty + kWgStages;
+
+  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g = h / (H / G);
+  const int row0 = tile * kWgRows;
+  const int n_keys = causal ? min(n_tok, row0 + kWgRows) : n_tok;
+  const int n_tiles = (n_keys + kWgKeys - 1) / kWgKeys;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgConsumers * 128);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kWgConsumers) {  // the producer: one thread issues every copy
+    if (threadIdx.x % 128 == 0) {
+      mbar_expect_tx(q_bar, Q_BYTES);
+      for (int c = 0; c < HS / PC; ++c)
+        tma_load(qs + c * kWgRows * RB, &mq, q_bar, PC * c, row0, b * H + h);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kWgStages;
+        if (t >= kWgStages) mbar_wait(&empty[s], (t / kWgStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * KV_BYTES);
+        for (int c = 0; c < HS / PC; ++c) {
+          tma_load(ks + s * KV_BYTES + c * kWgKeys * RB, &mk, &full[s], PC * c, t * kWgKeys, b * G + g);
+          tma_load(vs + s * KV_BYTES + c * kWgKeys * RB, &mv, &full[s], PC * c, t * kWgKeys, b * G + g);
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int wrow0 = row0 + wg * 64;                  // this warpgroup's first row
+  const int wrow = wrow0 + warp * 16 + lane / 4;     // this thread's rows: wrow, wrow + 8
+  float o[HS / 2];
+#pragma unroll
+  for (int i = 0; i < HS / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  mbar_wait(q_bar, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kWgStages;
+    const int k0 = t * kWgKeys;
+    mbar_wait(&full[s], (t / kWgStages) & 1);
+    if (!causal || k0 <= wrow0 + 63) {  // uniform over the warpgroup
+      const unsigned char* kt = ks + s * KV_BYTES;
+      const unsigned char* vt = vs + s * KV_BYTES;
+      float sc[kWgKeys / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HS / 16; ++kk) {
+        const int pan = kk / (PC / 16), in = (kk % (PC / 16)) * 32;
+        wgmma_ss_n128(sc, wg_desc(qs + pan * kWgRows * RB + wg * 64 * RB + in, 16, 8 * RB, LAY),
+                    wg_desc(kt + pan * kWgKeys * RB + in, 16, 8 * RB, LAY), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+
+      const bool masked = k0 + kWgKeys > n_tok || (causal && k0 + kWgKeys - 1 > wrow0);
+#pragma unroll
+      for (int n = 0; n < kWgKeys / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * n + e] * scale;
+          if (masked) {
+            const int key = k0 + n * 8 + 2 * (lane % 4) + (e & 1);
+            const int row = wrow + (e >= 2 ? 8 : 0);
+            if (key >= n_tok || (causal && key > row)) x = -INFINITY;
+          }
+          sc[4 * n + e] = x;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int n = 0; n < kWgKeys / 8; ++n)
+          mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float base = mx == -INFINITY ? 0.f : mx * kLog2e;
+        const float corr = exp2f(m[r] * kLog2e - base);
+        m[r] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < kWgKeys / 8; ++n) {
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            sc[4 * n + e] = exp2f(sc[4 * n + e] * kLog2e - base);
+            sum += sc[4 * n + e];
+          }
+        }
+        l[r] = l[r] * corr + sum;
+#pragma unroll
+        for (int n = 0; n < NT_O; ++n) {
+          o[4 * n + 2 * r] *= corr;
+          o[4 * n + 2 * r + 1] *= corr;
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(sc[8 * kk], sc[8 * kk + 1]),
+                                pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
+                                pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
+                                pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
+        wgmma_pv<HS>(o, pa, wg_desc(vt + kk * 16 * RB, kWgKeys * RB, 8 * RB, LAY));
+      }
+      wgmma_commit();
+      wgmma_wait0();
+    }
+    mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int row = wrow + 8 * r;
+    if (row >= n_tok) continue;
+    const bool live = sum > 0.f;
+    const float inv = live ? 1.f / sum : 0.f;
+    __nv_bfloat16* orow = out + (((size_t)b * H + h) * n_tok + row) * HS + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < NT_O; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+          __floats2bfloat162_rn(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((size_t)b * H + h) * n_tok + row] = live ? m[r] + logf(sum) : kNegInf;
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// a (hs, T, heads) bf16 map whose box is one swizzled panel of `rows` rows;
+// rows past T read as zeros
+int make_map(CUtensorMap* map, const void* base, int hs, int n_tok, int heads, int rows) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return -2;
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)hs, (cuuint64_t)n_tok, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)hs * 2, (cuuint64_t)n_tok * hs * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)(hs < 64 ? hs : 64), (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                hs < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0 : -3;
+}
+
+template <int HS>
+int launch_tc(const void* q, const void* k, const void* v, void* out, float* lse,
+              int B, int H, int G, int n_tok, float scale, int causal,
+              cudaStream_t stream) {
+  if (n_tok == 0) return 0;
+  CUtensorMap mq, mk, mv;
+  int rc = make_map(&mq, q, HS, n_tok, B * H, kWgRows);
+  if (rc == 0) rc = make_map(&mk, k, HS, n_tok, B * G, kWgKeys);
+  if (rc == 0) rc = make_map(&mv, v, HS, n_tok, B * G, kWgKeys);
+  if (rc != 0) return rc;
+  const size_t smem = (size_t)(kWgRows + 2 * kWgStages * kWgKeys) * HS * 2 +
+                      (2 * kWgStages + 1) * sizeof(uint64_t) + 1024;
+  auto kern = flash_attention_wg_kernel<HS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n_tok + kWgRows - 1) / kWgRows, H, B);
+  kern<<<grid, kWgThreads, smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(out),
+                                           lse, H, G, n_tok, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+int launch_hs(int dtype, int hs, const void* q, const void* k, const void* v,
+              void* out, float* lse, int B, int H, int G, int n_tok, float scale,
               int causal, cudaStream_t stream) {
+#define FLASH_HS(N)                                                              \
+  case N:                                                                        \
+    return dtype == 0                                                            \
+               ? launch<float, N>(q, k, v, out, lse, B, H, G, n_tok, scale,      \
+                                  causal, stream)                                \
+               : launch_tc<N>(q, k, v, out, lse, B, H, G, n_tok, scale, causal,  \
+                              stream);
   switch (hs) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, lse, B, H, G, n_tok, scale, causal, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, lse, B, H, G, n_tok, scale, causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, lse, B, H, G, n_tok, scale, causal, stream);
+    FLASH_HS(32)
+    FLASH_HS(64)
+    FLASH_HS(128)
     default:
       return -1;
   }
+#undef FLASH_HS
 }
 
 }  // namespace
@@ -262,12 +558,7 @@ extern "C" int flash_attention_launch(
     int dtype, int hs, const void* q, const void* k, const void* v, void* out,
     void* lse, int B, int H, int G, int n_tok, float scale, int causal,
     void* stream) {
-  float* l = static_cast<float*>(lse);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_hs<float>(hs, q, k, v, out, l, B, H, G, n_tok, scale, causal, st);
-  if (dtype == 1)
-    return launch_hs<__nv_bfloat16>(hs, q, k, v, out, l, B, H, G, n_tok, scale,
-                                    causal, st);
-  return -1;
+  if (dtype != 0 && dtype != 1) return -1;
+  return launch_hs(dtype, hs, q, k, v, out, static_cast<float*>(lse), B, H, G,
+                   n_tok, scale, causal, static_cast<cudaStream_t>(stream));
 }

@@ -4,8 +4,10 @@ Every source `csrc/<name>.cu` has a plain C interface.  At first use it is
 compiled by `nvcc` for `sm_90a` (Hopper) into `build/torch_kernels/` at the
 repository root and loaded with `ctypes`; nothing is compiled when a
 module is imported, so the CPU-only test machines import every module.
-The library's file name carries a digest of its source and flags, so an
-edited source is rebuilt and a stale library is never loaded.  A failed
+The library's file name carries a digest of its source, of every header
+under `csrc/` (a shared `*.cuh` may be included by any source) and of the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.  A failed
 build raises with the compiler's output.
 
     python -c "from mdi_llm_tpu_torch import kernels; print(kernels.build())"
@@ -48,8 +50,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

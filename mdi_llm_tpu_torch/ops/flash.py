@@ -10,9 +10,12 @@ keys are the same chunk (q_pos == k_pos == arange(T)): q is
 `(B, n_head, T, hs)`, k/v are `(B, n_query_groups, T, hs)`, and head h reads
 group `h // (n_head // G)`.  Key j is valid for query i iff j <= i
 (causal) — every key when `causal=False`.  The logits and the softmax
-are float32, q is scaled before the QK product and P stays float32
-through the PV product (the TPU kernel's order); the output is in q's
-dtype, the LSE `(B, n_head, T)` float32, `NEG_INF` on a row that saw no key.
+are float32; the output is in q's dtype, the LSE `(B, n_head, T)`
+float32, `NEG_INF` on a row that saw no key.  The plain versions and the
+float32 kernels scale q before the QK product and keep P float32 through
+the PV product (the TPU kernel's order); K2 over bfloat16 inputs runs on
+tensor cores, scales the float32 scores and rounds P to bfloat16 for the
+PV product (chosen by dtype alone, `csrc/flash_attention.cu`).
 
 - `flash_attention` (causal) and `flash_attention_lse` are the entry
   points.  When an input requires grad under grad mode they run as one

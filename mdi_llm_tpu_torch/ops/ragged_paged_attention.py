@@ -16,7 +16,16 @@ prefill chunks are all the same call.
   (`csrc/ragged_paged_attention.cu`, built on first use by
   `mdi_llm_tpu_torch.kernels`) or raises.  There is no fallback from the
   kernel to the plain version.  `ragged_paged_attention.launches` counts
-  kernel launches and nothing else.
+  kernel launches and nothing else, one per call.
+- Split-KV: the kernel splits each slot's walk over chunks of keys; the
+  plan (`split_plan`: the chunk, the number of chunks, the grid) comes
+  from static shapes alone, never from `lens` or `q_pos`, so the wrapper
+  reads no device value.  With more than one chunk the kernel writes
+  per-chunk partials into a float32 workspace (`torch.empty`, here) and a
+  second kernel merges them; `ragged_paged_attention.merge_launches`
+  counts that one.  `split_attention_plain` is the same arithmetic
+  (partials per chunk, merged by log-sum-exp in chunk order) in plain
+  PyTorch, which the CPU tests hold against the unsplit plain version.
 - `ragged_paged_attention_plain` is the gather-then-dense math of the JAX
   package's lax route (`_paged_prefill_lax`): each token reads its own
   slot's contiguous KV view through `multihead_attention`.  An int8 pool
@@ -46,6 +55,8 @@ __all__ = [
     "ragged_paged_attention_plain",
     "gather_paged_kv",
     "token_attention",
+    "split_plan",
+    "split_attention_plain",
 ]
 
 # packed tokens per chunk in the plain route: bounds the (chunk, G, window,
@@ -55,6 +66,16 @@ KERNEL_HEAD_SIZES = (32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # pool storage codes of the kernel: 0 is "the same dtype as q"
 _NARROW_KV = {torch.int8: 2, torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
+# the kernel's tiles (csrc/ragged_paged_attention.cu: kRows, kKeys) and the
+# split's limits: chunks of at least MIN_CHUNK keys, at most MAX_CHUNKS of
+# them (a 2048-key table: 16 chunks of 128).  A pure decode step (T <= S,
+# one row per head of each lane) has only its key walk to spread over the
+# card, so it takes chunks of DECODE_CHUNK, up to the merge's 32 chunks:
+# 8 slots x 4 groups at depths up to 2000 then put ~4 live blocks per SM
+# in flight.
+ROW_TILE, KEY_TILE = 16, 32
+MIN_CHUNK, MAX_CHUNKS = 128, 16
+DECODE_CHUNK, DECODE_MAX_CHUNKS = 64, 32
 
 
 def _pool_parts(pool):
@@ -108,6 +129,66 @@ def _span_owner(q_start, q_len, T):
     return in_span.int().argmax(dim=0), in_span.any(dim=0)
 
 
+def split_plan(n_head: int, G: int, T: int, S: int, BS: int, MB: int, hs: int) -> dict:
+    """K1's split of the key walk, from static shapes alone: `chunk` keys
+    per block (a multiple of KEY_TILE; smaller for a pure decode step,
+    T <= S), `n_chunks` chunks over a table of
+    MB * BS keys, the kernel's `grid` (row tiles x chunks, G, S) and the
+    float32 `workspace` values the partials need (0 with one chunk)."""
+    width = MB * BS
+    chunk, most = (DECODE_CHUNK, DECODE_MAX_CHUNKS) if T <= S else (MIN_CHUNK, MAX_CHUNKS)
+    while -(-width // chunk) > most:
+        chunk *= 2
+    n_chunks = -(-width // chunk)
+    row_tiles = -(-(n_head // G) * T // ROW_TILE)
+    return {"chunk": chunk, "n_chunks": n_chunks, "grid": (row_tiles * n_chunks, G, S),
+            "workspace": n_chunks * n_head * T * (hs + 2) if n_chunks > 1 else 0}
+
+
+def plan_for(q, k_payload, block_tables) -> dict:
+    """`split_plan` for one call, read off the tensors' shapes alone."""
+    _, n_head, T, hs = q.shape
+    _, BS, G, _ = k_payload.shape
+    S, MB = block_tables.shape
+    return split_plan(n_head, G, T, S, BS, MB, hs)
+
+
+def split_attention_plain(
+    q, k_pool, v_pool, block_tables, q_start, q_len, lens, q_pos, *, scale, chunk
+) -> torch.Tensor:
+    """The kernel's split arithmetic in plain PyTorch, float32: token t of
+    slot s sees keys [0, min(lens[s], MB * BS, q_pos[t] + 1)); each chunk
+    of `chunk` keys gives (m, l, acc) per row (m = -inf, l = 0 where the
+    chunk holds no valid key), and the chunks merge in order by
+    log-sum-exp.  Rows no slot owns, and rows that see no key, are 0."""
+    T = q.shape[2]
+    q_slot, owned = _span_owner(q_start, q_len, T)
+    sl = q_slot.long()
+    k = gather_paged_kv(k_pool, block_tables).float()[sl]  # (T, G, W, hs)
+    v = gather_paged_kv(v_pool, block_tables).float()[sl]
+    H, W = q.shape[1], k.shape[2]
+    heads = torch.arange(H) // (H // k.shape[1])
+    k, v = k[:, heads], v[:, heads]  # (T, H, W, hs)
+    s = torch.einsum("htd,thwd->htw", q[0].float(), k) * scale
+    end = torch.minimum(lens.long()[sl].clamp(max=W), q_pos.long() + 1).clamp(min=0)
+    valid = (torch.arange(W)[None, :] < (end * owned)[:, None])[None]  # (1, T, W)
+    ms, ls, accs = [], [], []
+    for c0 in range(0, W, chunk):
+        sc = s[..., c0:c0 + chunk].masked_fill(~valid[..., c0:c0 + chunk], float("-inf"))
+        m = sc.amax(-1)  # (H, T)
+        p = torch.exp(sc - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("htw,thwd->htd", p, v[:, :, c0:c0 + chunk]))
+    mx = torch.stack(ms).amax(0)
+    num, den = torch.zeros_like(accs[0]), torch.zeros_like(ls[0])
+    for m, l, acc in zip(ms, ls, accs):
+        w = torch.where(torch.isfinite(m), torch.exp(m - mx), 0.0)
+        num, den = num + w[..., None] * acc, den + w * l
+    out = torch.where(den[..., None] > 0, num / den.clamp(min=1e-30)[..., None], 0.0)
+    return out[None].to(q.dtype)
+
+
 def ragged_paged_attention_plain(
     q, k_pool, v_pool, block_tables, q_start, q_len, lens, q_pos, *, scale
 ) -> torch.Tensor:
@@ -120,12 +201,14 @@ def ragged_paged_attention_plain(
 
 def _lib():
     lib = kernels.library("ragged_paged_attention")
-    fn = lib.ragged_paged_attention_launch
+    fn, merge = lib.ragged_paged_attention_launch, lib.ragged_paged_attention_merge_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, i] + [p] * 11 + [i] * 6 + [ctypes.c_float, p]
+        fn.argtypes = [i, i, i] + [p] * 11 + [i] * 6 + [ctypes.c_float, p, i, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        merge.argtypes = [i, i] + [p] * 6 + [i] * 6 + [p]
+        merge.restype = ctypes.c_int
+    return fn, merge
 
 
 def _check_pools(k_pool, v_pool):
@@ -213,17 +296,25 @@ def ragged_paged_attention(
     scales = () if ks is None else (ks, vs)
     _check_kernel_args(q, k, v, scales, block_tables, q_start, q_len, lens, q_pos)
     _, n_head, T, hs = q.shape
-    NB, BS, G, _ = k.shape
+    BS, G = k.shape[1], k.shape[2]
     S, MB = block_tables.shape
-    out = torch.zeros_like(q)
+    plan = plan_for(q, k, block_tables)
+    ws = (torch.empty(plan["workspace"], dtype=torch.float32, device=q.device)
+          if plan["workspace"] else None)
+    # with a merge, the two kernels write every row (zeros where no slot
+    # owns it); without one the kernel leaves such rows as they are
+    out = torch.empty_like(q) if ws is not None else torch.zeros_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib()(
-        _KERNEL_DTYPES[q.dtype], 0 if k.dtype == q.dtype else _NARROW_KV[k.dtype],
+    fn, merge = _lib()
+    dtype = _KERNEL_DTYPES[q.dtype]
+    spans = (q_start.data_ptr(), q_len.data_ptr(), lens.data_ptr(), q_pos.data_ptr())
+    rc = fn(
+        dtype, 0 if k.dtype == q.dtype else _NARROW_KV[k.dtype],
         hs, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
-        block_tables.data_ptr(), q_start.data_ptr(), q_len.data_ptr(),
-        lens.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
-        T, n_head, G, BS, S, MB, float(scale), stream,
+        block_tables.data_ptr(), *spans, out.data_ptr(),
+        T, n_head, G, BS, S, MB, float(scale),
+        None if ws is None else ws.data_ptr(), plan["chunk"], plan["n_chunks"], stream,
     )
     if rc != 0:
         raise RuntimeError(
@@ -231,7 +322,14 @@ def ragged_paged_attention(
             f"q {tuple(q.shape)} {q.dtype}, pool {tuple(k.shape)} {k.dtype}"
         )
     ragged_paged_attention.launches += 1
+    if ws is not None:
+        rc = merge(dtype, hs, ws.data_ptr(), *spans, out.data_ptr(), T, n_head, S,
+                   MB * BS, plan["chunk"], plan["n_chunks"], stream)
+        if rc != 0:
+            raise RuntimeError(f"ragged_paged_attention merge launch failed (code {rc})")
+        ragged_paged_attention.merge_launches += 1
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.merge_launches = 0

@@ -191,3 +191,84 @@ def test_paged_attention_matches_jax_lax(Tq, use_kernel):
     got = tpa.paged_attention(t(q), t(k), t(v), t(tables), t(q_pos),
                               use_kernel=use_kernel).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+# K1's split-KV arithmetic: the host-side plan and the merge of partials.
+TINY_LLAMA_K1 = dict(n_head=32, G=4, hs=64, BS=16, MB=128)  # the chip phases' geometry
+K1_SHAPES = {"decode": (8, 8), "mixed": (136, 8), "verify": (40, 8)}  # label: (T, S)
+
+
+@pytest.mark.parametrize("label", list(K1_SHAPES))
+def test_split_plan_comes_from_static_shapes(label):
+    """The plan at the decode, mixed and verify shapes the chip phases run:
+    16 chunks of 128 keys over a 2048-key table, 32 of 64 for the pure
+    decode step (T <= S); the same plan from meta tensors, which hold no
+    data, so the wrapper's plan reads none."""
+    from mdi_llm_tpu_torch.ops import ragged_paged_attention as rpa
+
+    T, S = K1_SHAPES[label]
+    g = TINY_LLAMA_K1
+    plan = rpa.split_plan(g["n_head"], g["G"], T, S, g["BS"], g["MB"], g["hs"])
+    row_tiles = -(-(g["n_head"] // g["G"]) * T // rpa.ROW_TILE)
+    chunk, n = (64, 32) if label == "decode" else (128, 16)
+    assert plan == {"chunk": chunk, "n_chunks": n, "grid": (row_tiles * n, g["G"], S),
+                    "workspace": n * g["n_head"] * T * (g["hs"] + 2)}
+    meta = dict(device="meta")
+    got = rpa.plan_for(torch.empty(1, g["n_head"], T, g["hs"], **meta),
+                       torch.empty(1 + S * g["MB"], g["BS"], g["G"], g["hs"], **meta),
+                       torch.empty(S, g["MB"], dtype=torch.int32, **meta))
+    assert got == plan
+    if label == "decode":
+        # the decode case's live blocks (depths 37-2000, as the chip phase):
+        # at least ~2 per SM of an H100's 132
+        depths = (37, 250, 511, 800, 1203, 1500, 1777, 2000)
+        live = g["G"] * sum(-(-(d + 1) // plan["chunk"]) for d in depths)
+        assert live >= 2 * 132
+
+
+def test_split_plan_bounds_the_chunk_count():
+    from mdi_llm_tpu_torch.ops import ragged_paged_attention as rpa
+
+    for T, S, least, most in ((4, 3, rpa.MIN_CHUNK, rpa.MAX_CHUNKS),
+                              (3, 4, rpa.DECODE_CHUNK, rpa.DECODE_MAX_CHUNKS)):
+        for width in (8, 128, 129, 2048, 2049, 8192, 131072):
+            plan = rpa.split_plan(8, 2, T, S, 16, -(-width // 16), 32)
+            chunk, n = plan["chunk"], plan["n_chunks"]
+            assert chunk % rpa.KEY_TILE == 0 and chunk >= least
+            assert n <= most <= 32, "the merge kernel holds one chunk per lane"
+            assert (n - 1) * chunk < -(-width // 16) * 16 <= n * chunk
+            assert (plan["workspace"] == 0) == (n == 1)
+
+
+@pytest.mark.parametrize("chunk", [8, 16])
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+@pytest.mark.parametrize("heads", HEADS, ids=HEAD_IDS)
+def test_split_merge_matches_unsplit_plain_and_jax_kernel(heads, kv, chunk):
+    """Per-chunk partials merged by log-sum-exp (`split_attention_plain`,
+    the kernel's split arithmetic) against the unsplit plain version and
+    the JAX kernel in interpret mode, float32 at 2e-5.  Slot 0 spans 7
+    tokens deep in its table (its walk spans every chunk), slot 1 is
+    absent, slot 2 is a decode lane at position 2 * chunk - 1 (its walk ends
+    exactly on a chunk boundary), slot 3 a decode lane at 9 (the later chunks hold
+    no valid key for it); 3 padding rows no slot owns."""
+    from mdi_llm_tpu_torch.ops.ragged_paged_attention import split_attention_plain
+
+    H, G = heads
+    hs, BS, MB, n_slots = 16, 8, 8, 4
+    k, v, tables = make_pool(n_slots, G, hs, BS, MB, seed=chunk)
+    if kv == "int8":
+        k, v = make_q8_pool(k.shape, seed=chunk + 1), make_q8_pool(v.shape, seed=chunk + 2)
+    spans = [(0, MB * BS - 7, 7), (2, 2 * chunk - 1, 1), (3, 9, 1)]
+    q, _, q_start, q_len, lens, q_pos, off = pack(
+        spans, n_slots, H, hs, 12, seed=chunk + 100, pad_pos=MB * BS)
+    scale = hs ** -0.5
+    args = [t(x) for x in (q, k, v, tables, q_start, q_len, lens, q_pos)]
+    got = split_attention_plain(*args, scale=scale, chunk=chunk).numpy()
+    plain = ragged_paged_attention_plain(*args, scale=scale).numpy()
+    want = np.asarray(jax_k1(
+        jnp.asarray(q), j(k), j(v), jnp.asarray(tables), jnp.asarray(q_start),
+        jnp.asarray(q_len), jnp.asarray(lens), jnp.asarray(q_pos), scale=scale,
+        interpret=True))
+    np.testing.assert_allclose(got[:, :, :off], plain[:, :, :off], **TOL)
+    np.testing.assert_allclose(got[:, :, :off], want[:, :, :off], **TOL)
+    assert not got[:, :, off:].any(), "rows no slot owns must be zero"
