@@ -93,15 +93,20 @@ non-zero.
 8. generate parity — float32, 4 layers at full width, 2 prompts of ~1100
    tokens, 16 greedy tokens, through K2 and through K2's plain version on
    the card: the streams must be identical.
-9. flash-bwd — kernels K3 (dQ) and K4 (per-head dK/dV) against their plain
-   PyTorch versions on the same inputs (K2's output and LSE), 32 heads, 4
-   KV groups, head size 64, float32 and bfloat16: causal B=4 T=2048 (the
-   training shape), causal T=1000 (a ragged tile), non-causal T=512 with
-   an LSE cotangent.  Tolerance as for K1, scaled by the size of the
-   values (the tolerance times max(1, max |plain|)).  Prints each kernel's
-   time, the plain version's, the backward of scaled_dot_product_attention
-   (dQ, dK and dV together; a yardstick the port never calls) and the
-   least time the card could take.
+9. flash-bwd — kernels K3 (dQ) and K4 (dK/dV, summed over each KV group)
+   against their plain PyTorch versions on the same inputs (K2's output and
+   LSE), 32 heads, 4 KV groups, head size 64, float32 and bfloat16: causal
+   B=4 T=2048 (the training shape), causal T=1000 (a ragged tile),
+   non-causal T=512 with an LSE cotangent; in bfloat16 also head sizes 32
+   and 128 at B=1 T=1000, non-causal T=300 at head size 128 with an LSE
+   cotangent and causal T=7 (shorter than a tile).  float32 inputs (the
+   CUDA-core kernels): every output within 1e-4 x max(1, max |plain|).
+   bfloat16 inputs (the tensor-core kernels): every element within the
+   rounding-error bound of `flash_bwd_bf16_limits` against the plain
+   version run in float32 on the same inputs; err/limit is printed.
+   Prints each kernel's time, the plain version's, the backward of
+   scaled_dot_product_attention (dQ, dK and dV together; a yardstick the
+   port never calls) and the least time the card could take.
 10. train  — `Trainer.train_step` on tiny-llama-1.1b at full width and all
    22 layers, bf16, B=4, T=2048, 2 micro-batches per step, remat on, the
    flash route on, random weights from seed 10137, tokens drawn from 512
@@ -116,6 +121,11 @@ non-zero.
    optimizer steps through K2-K4 and through their plain versions from
    the same params and batches; the first step's gradients and the losses
    must agree (tolerances in `phase_train_parity`).
+12. train parity bf16 — the same set-up in bfloat16, where K2-K4 run on
+   tensor cores: one gradient through them and one through their plain
+   versions from the same params and batch, with exact launch counts; per
+   leaf ||g_kernel - g_plain||_2 <= 2^-5 ||g_plain||_2 and the losses
+   within 2^-8 (relative).
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4); the last line is `{"ok": true, "device": {...}}`.
@@ -703,24 +713,32 @@ def phase_flash(record):
 
 
 BWD_F32_TOL = 1e-4  # a float32 output: x max(1, max |plain|)
-BWD_BF16_REL, BWD_BF16_ABS = 2.0 ** -8, 1e-4  # dQ in bfloat16, per element
-FLASH_BWD_SHAPES = {  # label: (B, T, causal, with an LSE cotangent)
-    "main": (4, 2048, True, False),
-    "ragged": (2, 1000, True, False),
-    "noncausal": (2, 512, False, True),
+FLASH_BWD_SHAPES = {  # label: (B, T, causal, with an LSE cotangent, head size)
+    "main": (4, 2048, True, False, 64),
+    "ragged": (2, 1000, True, False, 64),
+    "noncausal": (2, 512, False, True, 64),
+}
+# bfloat16 only (every instance of the tensor-core kernels, and their
+# edges): head sizes 32 and 128 at a ragged T, non-causal with an LSE
+# cotangent at a T that is no multiple of 64, a chunk shorter than a tile
+FLASH_BWD_BF16_SHAPES = {
+    "hs32": (1, 1000, True, False, 32),
+    "hs128": (1, 1000, True, False, 128),
+    "hs128-noncausal": (1, 300, False, True, 128),
+    "T7": (1, 7, True, False, 64),
 }
 
 
 def flash_bwd_bound(B, H, G, T, hs, dtype, causal, which) -> tuple:
     """(least ms, what bounds it) for K3 or K4: q, k, v, dO, the LSE and D
-    read once, dQ (q's dtype) or the per-head float32 dK, dV written once,
+    read once, dQ (q's dtype) or the per-group float32 dK, dV written once,
     against 6 * hs (K3) or 8 * hs (K4) flops per (head, query, key) pair
     the mask lets through."""
     import torch
 
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * B * H + 2 * B * G) * T * hs * item + 2 * 4 * B * H * T
-    nbytes += B * H * T * hs * item if which == "dq" else 2 * B * H * T * hs * 4
+    nbytes += B * H * T * hs * item if which == "dq" else 2 * B * G * T * hs * 4
     pairs = T * (T + 1) // 2 if causal else T * T
     flops = (6 if which == "dq" else 8) * B * H * hs * pairs
     peak = PEAK_FLOPS[str(dtype).replace("torch.", "")]
@@ -728,14 +746,57 @@ def flash_bwd_bound(B, H, G, T, hs, dtype, causal, which) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def flash_bwd_bf16_limits(q, k, v, do, lse, dsum, scale, causal, ref) -> tuple:
+    """Element-wise limits (dQ, dK, dV) on K3/K4 over bfloat16 inputs,
+    against `ref` = (dQ, dK, dV) of the plain versions run in float32 on
+    the same bfloat16 inputs.  They bound the roundings the tensor-core
+    kernels add, at u = 2^-8 (bfloat16's unit roundoff), with a factor 2 of
+    headroom for the float32 summation order:
+
+      dQ  2^-8 |ref| + 2^-7 scale (|dS| |K|)   dS rounded, dQ rounded once
+      dK  2^-7 scale (|dS|^T |Q|)              dS rounded
+      dV  2^-7 (P^T |dO|)                      P rounded
+
+    each plus 1e-4 max(1, max |ref|); the products are group-summed and
+    take the plain math's own P and |dS|.  Any device; nothing here needs
+    a GPU."""
+    import torch
+
+    from mdi_llm_tpu_torch.ops.flash import _bwd_terms
+
+    f32 = [x.float() for x in (q, k, v, do)]
+    qg, dog, p, ds = _bwd_terms(*f32, lse, dsum, scale, causal)
+    ads = ds.abs_()
+    del ds
+    kf = f32[1].abs()
+
+    def shared(r):
+        return 1e-4 * max(1.0, r.abs().max().item())
+
+    dq, dk, dv = ref
+    lim_dq = 2.0 ** -7 * scale * torch.einsum("bgrts,bgsh->bgrth", ads, kf).reshape(q.shape)
+    lim_dq += 2.0 ** -8 * dq.abs() + shared(dq)
+    lim_dk = 2.0 ** -7 * scale * torch.einsum("bgrts,bgrth->bgsh", ads, qg.abs()) + shared(dk)
+    del ads
+    lim_dv = 2.0 ** -7 * torch.einsum("bgrts,bgrth->bgsh", p, dog.abs()) + shared(dv)
+    return lim_dq, lim_dk, lim_dv
+
+
+def err_ratio(got, ref, limit) -> tuple:
+    """(max |got - ref|, max over elements of |got - ref| / limit): a
+    ratio above 1 fails."""
+    diff = (got.float() - ref).abs()
+    return diff.max().item(), (diff / limit).max().item()
+
+
 def phase_flash_bwd(k3, k4):
     """K3 and K4 against their plain versions on the same inputs (the
-    forward's output and LSE from K2), the plain version run in float32 on
-    the same (bfloat16) inputs.  Both kernels compute in float32, so an
-    output in float32 (dQ in float32, K4's dK_h and dV_h in both dtypes)
-    is held to max |err| <= BWD_F32_TOL * max(1, max |plain|), and dQ in
-    bfloat16 to its rounding, element by element:
-    |err| <= 2^-8 |plain| + BWD_BF16_ABS."""
+    forward's output and LSE from K2), the plain versions run in float32 on
+    the same (bfloat16) inputs.  float32 inputs run the CUDA-core kernels,
+    which compute as the plain versions do: every output is held to
+    max |err| <= BWD_F32_TOL * max(1, max |plain|).  bfloat16 inputs run
+    the tensor-core kernels, held element by element to
+    `flash_bwd_bf16_limits`."""
     import torch
     import torch.nn.functional as F
 
@@ -748,68 +809,67 @@ def phase_flash_bwd(k3, k4):
     )
 
     worst = {"dq": 0.0, "dkv": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
+    cases = [(torch.float32, label, shape) for label, shape in FLASH_BWD_SHAPES.items()]
+    cases += [(torch.bfloat16, label, shape) for label, shape in
+              {**FLASH_BWD_SHAPES, **FLASH_BWD_BF16_SHAPES}.items()]
+    for dtype, label, (B, T, causal, with_dlse, hs) in cases:
         name = str(dtype).replace("torch.", "")
-        for label, (B, T, causal, with_dlse) in FLASH_BWD_SHAPES.items():
-            q, k, v = flash_inputs(B, T, dtype, seed=3 * T + B)
-            scale = 64 ** -0.5
-            out, lse = flash_attention_lse(q, k, v, causal=causal)
-            g = torch.Generator(device="cuda").manual_seed(T)
-            do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
-            dsum = (do.float() * out.float()).sum(-1)
-            if with_dlse:
-                dsum = dsum - torch.randn(lse.shape, generator=g, device="cuda")
-            args = (q, k, v, do, lse, dsum, scale, causal)
-            got = {"dq": (flash_dq(*args),), "dkv": flash_dkv(*args)}
-            torch.cuda.synchronize()
-            f32 = [x.float() for x in (q, k, v, do)]
-            ref = {"dq": (flash_dq_plain(*f32, lse, dsum, scale, causal),),
-                   "dkv": flash_dkv_plain(*f32, lse, dsum, scale, causal)}
-            for which in ("dq", "dkv"):
-                for a, r in zip(got[which], ref[which]):
-                    diff = (a.float() - r).abs()
-                    size = r.abs().max().item()
-                    if which == "dq" and dtype == torch.bfloat16:
-                        # rounded to bfloat16: half an ulp is at most 2^-8 of it
-                        limit = BWD_BF16_REL * r.abs() + BWD_BF16_ABS
-                    else:
-                        limit = BWD_F32_TOL * max(1.0, size)
-                    err, ratio = diff.max().item(), (diff / limit).max().item()
-                    print(f"flash-bwd: {which} {name} {label}: max|err| {err:.3e} "
-                          f"max|plain| {size:.3e} err/limit {ratio:.3e}", flush=True)
-                    if not ratio <= 1.0:
-                        fail("flash-bwd", f"{name} {label} {which}: max|err| {err}, "
-                             f"{ratio:.3f} x its limit")
-                    worst[which] = max(worst[which], err)
-                    del diff, limit
-            del got, ref, f32
+        q, k, v = flash_inputs(B, T, dtype, seed=3 * T + B, hs=hs)
+        scale = hs ** -0.5
+        out, lse = flash_attention_lse(q, k, v, causal=causal)
+        g = torch.Generator(device="cuda").manual_seed(T)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+        dsum = (do.float() * out.float()).sum(-1)
+        if with_dlse:
+            dsum = dsum - torch.randn(lse.shape, generator=g, device="cuda")
+        args = (q, k, v, do, lse, dsum, scale, causal)
+        got = (flash_dq(*args),) + flash_dkv(*args)
+        torch.cuda.synchronize()
+        f32 = [x.float() for x in (q, k, v, do)]
+        ref = (flash_dq_plain(*f32, lse, dsum, scale, causal),) + \
+            flash_dkv_plain(*f32, lse, dsum, scale, causal)
+        del f32
+        if dtype == torch.bfloat16:
+            limits = flash_bwd_bf16_limits(q, k, v, do, lse, dsum, scale, causal, ref)
+        else:
+            limits = [BWD_F32_TOL * max(1.0, r.abs().max().item()) for r in ref]
+        for which, a, r, lim in zip(("dq", "dk", "dv"), got, ref, limits):
+            err, ratio = err_ratio(a, r, lim)
+            print(f"flash-bwd: {which} {name} {label}: max|err| {err:.3e} "
+                  f"max|plain| {r.abs().max().item():.3e} err/limit {ratio:.3e}", flush=True)
+            if not ratio <= 1.0:
+                fail("flash-bwd", f"{name} {label} {which}: max|err| {err}, "
+                     f"{ratio:.3f} x its limit")
+            kernel = "dq" if which == "dq" else "dkv"
+            worst[kernel] = max(worst[kernel], err)
+        del got, ref, limits
+        torch.cuda.empty_cache()
+        # the yardstick: the backward alone of one SDPA call (dQ, dK and
+        # dV together), at the same shape
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
+                                                 enable_gqa=True)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qq, kk, vv), do, retain_graph=True), 10)
+        del lib_out, qq, kk, vv
+        for which, rec, kern, plain in (("dq", k3, flash_dq, flash_dq_plain),
+                                        ("dkv", k4, flash_dkv, flash_dkv_plain)):
+            ms = cuda_ms(lambda: kern(*args), 10)
+            plain_ms = cuda_ms(lambda: plain(*args), 2)
             torch.cuda.empty_cache()
-            # the yardstick: the backward alone of one SDPA call (dQ, dK
-            # and dV together), at the same shape
-            qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
-            lib_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
-                                                     enable_gqa=True)
-            lib_ms = cuda_ms(lambda: torch.autograd.grad(
-                lib_out, (qq, kk, vv), do, retain_graph=True), 10)
-            del lib_out, qq, kk, vv
-            for which, rec, kern, plain in (("dq", k3, flash_dq, flash_dq_plain),
-                                            ("dkv", k4, flash_dkv, flash_dkv_plain)):
-                ms = cuda_ms(lambda: kern(*args), 10)
-                plain_ms = cuda_ms(lambda: plain(*args), 2)
-                torch.cuda.empty_cache()
-                b_ms, b_by = flash_bwd_bound(B, 32, 4, T, 64, dtype, causal, which)
-                print(f"flash-bwd: {'K3' if which == 'dq' else 'K4'} {name} {label} "
-                      f"B={B} T={T} causal={causal} dlse={with_dlse} ms={ms:.4f} "
-                      f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA "
-                      f"backward, dQ+dK+dV) bound_ms={b_ms:.5f} ({b_by})", flush=True)
-                if name == "bfloat16" and label == "main":  # the training shape
-                    rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=b_ms, bound_by=b_by)
-            del q, k, v, out, lse, do, dsum, args
-            torch.cuda.empty_cache()
+            b_ms, b_by = flash_bwd_bound(B, 32, 4, T, hs, dtype, causal, which)
+            print(f"flash-bwd: {'K3' if which == 'dq' else 'K4'} {name} {label} "
+                  f"B={B} T={T} hs={hs} causal={causal} dlse={with_dlse} ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA "
+                  f"backward, dQ+dK+dV) bound_ms={b_ms:.5f} ({b_by})", flush=True)
+            if name == "bfloat16" and label == "main":  # the training shape
+                rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+        del q, k, v, out, lse, do, dsum, args
+        torch.cuda.empty_cache()
     k3["max_abs_err"], k4["max_abs_err"] = worst["dq"], worst["dkv"]
     print(f"flash-bwd: K3 max|err| {worst['dq']:.3e}, K4 max|err| {worst['dkv']:.3e} "
-          "over both dtypes and all three shapes", flush=True)
+          "over both dtypes and every shape", flush=True)
 
 
 def tiny_llama_generator(n_layer, dtype, **kw):
@@ -1120,9 +1180,69 @@ def phase_train_parity():
           "through K2-K4 and their plain versions", flush=True)
 
 
+TRAIN_BF16_GRAD_REL = 2.0 ** -5  # per leaf, ||g_kernel - g_plain|| / ||g_plain||
+TRAIN_BF16_LOSS_REL = 2.0 ** -8
+
+
+def phase_train_parity_bf16():
+    """bfloat16, 4 layers at full width, B=2, T=2048: one gradient through
+    K2-K4 (the tensor-core kernels) and one through their plain versions
+    (`flash_kernel=False`, float32 math on bfloat16 inputs) from the same
+    params and batch.  Per leaf, ||g_kernel - g_plain||_2 <=
+    TRAIN_BF16_GRAD_REL ||g_plain||_2, and the losses agree within
+    TRAIN_BF16_LOSS_REL (relative)."""
+    import numpy as np
+    import torch
+
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.training import cross_entropy_loss
+    from mdi_llm_tpu_torch.utils import data_loader
+
+    cfg = Config.from_name(TINY_LLAMA, n_layer=4)
+    params = transformer.init_params(cfg, 10137, dtype=torch.bfloat16, device=DEVICE)
+    transformer.tree_map(lambda x: x.requires_grad_(True), params)
+    leaves = transformer.tree_leaves(params)
+    data = synthetic_tokens(1 << 20, seed=5)
+    x, y = (torch.as_tensor(b, device=DEVICE).long() for b in
+            data_loader.get_batch(data, 2, TRAIN["block_size"], np.random.default_rng(6)))
+    grads, losses = {}, {}
+    n = cfg.n_layer
+    for route, flash_kernel in (("kernel", None), ("plain", False)):
+        reset_flash_counts()
+        loss = cross_entropy_loss(cfg, params, x, y, remat=True, use_flash=True,
+                                  flash_kernel=flash_kernel)
+        grads[route] = [g.float() for g in torch.autograd.grad(loss, leaves)]
+        losses[route] = loss.item()
+        got = flash_counts()
+        # one gradient with remat: per layer K2 twice, K3 and K4 once, or
+        # their plain versions
+        want = ({"K2": 2 * n, "K3": n, "K4": n, "plain": 0} if route == "kernel"
+                else {"K2": 0, "K3": 0, "K4": 0, "plain": 4 * n})
+        if got != want:
+            fail("train-parity-bf16", f"the {route} run launched {got}; want {want}")
+        torch.cuda.empty_cache()
+    ratios = []
+    for i, (a, b) in enumerate(zip(grads["kernel"], grads["plain"])):
+        norm = b.norm().item()
+        ratios.append(((a - b).norm().item() / norm if norm > 0 else (a - b).norm().item(), i))
+    worst, leaf = max(ratios)
+    lk, lp = losses["kernel"], losses["plain"]
+    rel = abs(lk - lp) / abs(lp)
+    print(f"train-parity-bf16: bfloat16, {n} layers x {cfg.n_embd}, B=2 "
+          f"T={TRAIN['block_size']}: worst leaf ||g_kernel - g_plain|| / ||g_plain|| "
+          f"{worst:.3e} (leaf {leaf} of {len(leaves)}; limit {TRAIN_BF16_GRAD_REL:.3e}), "
+          f"loss {lk:.6f} vs {lp:.6f} (rel {rel:.2e}, limit {TRAIN_BF16_LOSS_REL:.2e}) "
+          "through K2-K4 and their plain versions", flush=True)
+    if not worst <= TRAIN_BF16_GRAD_REL or not rel <= TRAIN_BF16_LOSS_REL:
+        fail("train-parity-bf16", f"gradient ratio {worst} (leaf {leaf}), loss rel {rel}")
+    del grads, params, leaves
+    torch.cuda.empty_cache()
+
+
 PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
-          "train", "train-parity")
+          "train", "train-parity", "train-parity-bf16")
 
 
 def main(argv=None) -> None:
@@ -1202,6 +1322,7 @@ def main(argv=None) -> None:
         "flash-bwd": lambda: phase_flash_bwd(k3, k4),
         "train": lambda: phase_train(k3, k4),
         "train-parity": phase_train_parity,
+        "train-parity-bf16": phase_train_parity_bf16,
     }
     for phase in PHASES:
         if phase in only:

@@ -30,10 +30,9 @@ from mdi_llm_tpu_torch.cli.profile_serve import device_summary
 from mdi_llm_tpu_torch.config import Config
 from mdi_llm_tpu_torch.training import Trainer, TrainingConfig
 
-# name fragments: K2 is flash_attention_kernel (float32) or
-# flash_attention_wg_kernel (bfloat16)
-FLASH_KERNELS = {"K2": "flash_attention_", "K3": "flash_dq_kernel",
-                 "K4": "flash_dkv_kernel"}
+# name fragments: each kernel is flash_<name>_kernel (float32) or
+# flash_<name>_wg_kernel (bfloat16)
+FLASH_KERNELS = {"K2": "flash_attention_", "K3": "flash_dq_", "K4": "flash_dkv_"}
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -65,6 +65,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -258,68 +259,10 @@ constexpr int kWgThreads = (kWgConsumers + 1) * 128;  // and one producer warpgr
 constexpr int kWgRows = kWgConsumers * 64;           // query rows per block
 constexpr int kWgKeys = 128;                          // keys per K/V tile
 constexpr int kWgStages = 2;                         // K/V tiles in the ring
-// shared panels: PANEL columns (128 bytes, 64 at hs 32) x the tile's rows,
-// written by TMA with the matching swizzle
-template <int HS> struct Panel {
-  static constexpr int kCols = HS < 64 ? HS : 64;
-  static constexpr int kRowBytes = kCols * 2;
-  static constexpr int kLayout = kRowBytes == 128 ? 1 : 2;  // descriptor: 128B or 64B swizzle
-};
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-// one panel (Panel<HS>::kCols columns) of `rows` rows of a (hs, T, heads) map
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int col, int row, int head) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-         "r"(col), "r"(row), "r"(head) : "memory");
-}
-// shared-memory matrix descriptor: start, leading and stride byte offsets,
-// swizzle layout (1 = 128-byte, 2 = 64-byte)
-__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo, uint32_t sbo, int layout) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-template <int HS>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HS / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HS == 32) wgmma_rs_n32_tb(o, a, db);
-  if constexpr (HS == 64) wgmma_rs_n64_tb(o, a, db);
-  if constexpr (HS == 128) wgmma_rs_n128_tb(o, a, db);
-}
-
-// Shared layout of every tile: HS / kCols panels, each the tile's rows x one
-// swizzled row of kCols columns (what one TMA box writes); 8-row groups lie
-// 8 * kRowBytes apart.  Q and K (A and B of Q K^T) are K-major: a 16-column
-// k-step starts 32 bytes further into the row.  V (B of P V) is MN-major,
-// read transposed: a 16-key k-step starts 16 rows further, and its second
-// 64-column panel (hs 128) lies one panel further (the leading offset).
+// Tiles in the panel layout of tma.cuh: Q and K (A and B of Q K^T) are
+// K-major, V (B of P V) is MN-major, read transposed.
 template <int HS>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attention_wg_kernel(const __grid_constant__ CUtensorMap mq,
@@ -332,7 +275,7 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap mq,
   constexpr int NT_O = HS / 8;
   constexpr int PC = Panel<HS>::kCols, RB = Panel<HS>::kRowBytes, LAY = Panel<HS>::kLayout;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* smem = smem_aligned(smem_raw);
   unsigned char* qs = smem;
   unsigned char* ks = qs + Q_BYTES;
   unsigned char* vs = ks + kWgStages * KV_BYTES;
@@ -355,7 +298,7 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap mq,
       mbar_init(&empty[s], kWgConsumers * 128);
     }
     mbar_init(q_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -453,7 +396,7 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap mq,
                                 pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
                                 pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
                                 pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
-        wgmma_pv<HS>(o, pa, wg_desc(vt + kk * 16 * RB, kWgKeys * RB, 8 * RB, LAY));
+        wgmma_rs_tb<HS>(o, pa, wg_desc(vt + kk * 16 * RB, kWgKeys * RB, 8 * RB, LAY));
       }
       wgmma_commit();
       wgmma_wait0();
@@ -478,33 +421,6 @@ flash_attention_wg_kernel(const __grid_constant__ CUtensorMap mq,
     if (lse != nullptr && lane % 4 == 0)
       lse[((size_t)b * H + h) * n_tok + row] = live ? m[r] + logf(sum) : kNegInf;
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// a (hs, T, heads) bf16 map whose box is one swizzled panel of `rows` rows;
-// rows past T read as zeros
-int make_map(CUtensorMap* map, const void* base, int hs, int n_tok, int heads, int rows) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return -2;
-  }
-  const cuuint64_t dims[3] = {(cuuint64_t)hs, (cuuint64_t)n_tok, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)hs * 2, (cuuint64_t)n_tok * hs * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)(hs < 64 ? hs : 64), (cuuint32_t)rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                hs < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? 0 : -3;
 }
 
 template <int HS>

@@ -15,16 +15,19 @@ float32, `NEG_INF` on a row that saw no key.  The plain versions and the
 float32 kernels scale q before the QK product and keep P float32 through
 the PV product (the TPU kernel's order); K2 over bfloat16 inputs runs on
 tensor cores, scales the float32 scores and rounds P to bfloat16 for the
-PV product (chosen by dtype alone, `csrc/flash_attention.cu`).
+PV product (chosen by dtype alone, `csrc/flash_attention.cu`).  K3 and K4
+over bfloat16 inputs run on tensor cores too and round P and dS to
+bfloat16 as operands of their last products (`csrc/flash_attention_bwd.cu`).
 
 - `flash_attention` (causal) and `flash_attention_lse` are the entry
   points.  When an input requires grad under grad mode they run as one
   `torch.autograd.Function` (`_FlashCore`): the forward
   runs K2 with the LSE and saves (q, k, v, out, lse); the backward forms
   D = rowsum(dO * O) in float32 (minus the LSE's cotangent for
-  `flash_attention_lse`), runs K3 for dQ and K4 for the per-query-head
-  float32 dK/dV, and sums those over each GQA group before casting to k's
-  dtype.  Otherwise K2 runs alone, without the LSE for `flash_attention`.
+  `flash_attention_lse`), runs K3 for dQ and K4 for dK/dV, which K4
+  returns in float32 already summed over each GQA group, and casts those
+  to k's dtype.  Otherwise K2 runs alone, without the LSE for
+  `flash_attention`.
 - Routing, forward and backward alike: a CPU tensor goes to the plain
   versions (`flash_attention_plain`, `flash_dq_plain`, `flash_dkv_plain`),
   a CUDA tensor launches the hand-written kernels (`csrc/flash_attention.cu`
@@ -127,13 +130,13 @@ def flash_dq_plain(q, k, v, do, lse, dsum, scale, causal=True):
 
 
 def flash_dkv_plain(q, k, v, do, lse, dsum, scale, causal=True):
-    """The plain PyTorch version of K4: per query head, float32
-    (dK_h = scale * dS^T Q, dV_h = P^T dO), each (B, n_head, T, hs)."""
+    """The plain PyTorch version of K4: float32 (dK = scale * dS^T Q,
+    dV = P^T dO), each (B, G, T, hs), summed over each group's heads."""
     flash_dkv_plain.calls += 1
     qg, dog, p, ds = _bwd_terms(q, k, v, do, lse, dsum, scale, causal)
-    dk = scale * torch.einsum("bgrts,bgrth->bgrsh", ds, qg)
-    dv = torch.einsum("bgrts,bgrth->bgrsh", p, dog)
-    return dk.reshape(q.shape), dv.reshape(q.shape)
+    dk = scale * torch.einsum("bgrts,bgrth->bgsh", ds, qg)
+    dv = torch.einsum("bgrts,bgrth->bgsh", p, dog)
+    return dk, dv
 
 
 flash_attention_plain.calls = 0
@@ -251,8 +254,8 @@ def flash_dkv(
     q, k, v, do, lse, dsum, scale: float, causal: bool = True,
     *, use_kernel: Optional[bool] = None,  # None → the tensor's device decides
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4: per query head, float32 (dK_h, dV_h), each (B, n_head, T, hs);
-    the caller sums them over each GQA group."""
+    """K4: float32 (dK, dV), each (B, G, T, hs), summed over each GQA
+    group's query heads inside the kernel (one launch)."""
     if use_kernel is None:
         use_kernel = q.device.type != "cpu"
     if not use_kernel:
@@ -260,7 +263,7 @@ def flash_dkv(
     _check_kernel_args(q, k, v, (do,))
     _check_stats(q, lse, dsum)
     q, k, v, do, lse, dsum = _aligned(q=q, k=k, v=v, do=do, lse=lse, dsum=dsum)
-    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     _call("flash_attention_bwd", "flash_attention_dkv_launch", q, k,
           [x.data_ptr() for x in (q, k, v, do, lse, dsum, dk, dv)], scale, causal)
@@ -298,8 +301,6 @@ class _FlashCore(torch.autograd.Function):
         """(dq, dk, dv): the FA-2 backward of `_flash_bwd_impl`
         (mdi_llm_tpu/ops/flash.py), on K3 and K4 or their plain versions."""
         q, k, v, out, lse = ctx.saved_tensors
-        B, H, T, hs = q.shape
-        G = k.shape[1]
         if do is None:  # only the LSE was used
             do = torch.zeros_like(out)
         # D_i = dO_i . O_i in float32; the LSE's cotangent folds in as a
@@ -310,12 +311,8 @@ class _FlashCore(torch.autograd.Function):
         do = do.to(q.dtype)
         args = (q, k, v, do, lse, dsum, ctx.scale, ctx.causal)
         dq = flash_dq(*args, use_kernel=ctx.use_kernel)
-        dk_h, dv_h = flash_dkv(*args, use_kernel=ctx.use_kernel)
-        # GQA: each query head of a group produced its own dK/dV share
-        dk = dk_h.view(B, G, H // G, T, hs).sum(2).to(k.dtype)
-        del dk_h
-        dv = dv_h.view(B, G, H // G, T, hs).sum(2).to(v.dtype)
-        return dq, dk, dv, None, None, None
+        dk, dv = flash_dkv(*args, use_kernel=ctx.use_kernel)  # group-summed
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
 def _route(q, k, v, scale, use_kernel):

@@ -24,7 +24,20 @@ on the CPU.
   tests' own for the VJP).
 - The Function under `torch.utils.checkpoint` (remat) recomputes K2 in
   the backward and gives the same gradients.
+- K3/K4's plain versions called directly, with the LSE and D that the
+  JAX package's `_flash_bwd_impl` (the Pallas dQ and dK/dV kernels in
+  interpret mode) forms from the same forward: dQ, and dK/dV summed over
+  each KV group, within 2e-4 over MHA/GQA/MQA, ragged T, causal and
+  non-causal with an LSE cotangent.
+- `chip_smoke.flash_bwd_bf16_limits`, the element-wise bound the card
+  holds the tensor-core K3/K4 to: an emulation of the kernels' roundings
+  (P and dS rounded to bfloat16 before their products, dQ rounded once)
+  lies within it over several seeds, and an error of 4x the limit
+  planted at one element is caught.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -258,3 +271,101 @@ def test_shape_errors():
         tflash.flash_attention(q, k[:, :, :16], v[:, :, :16])
     with pytest.raises(ValueError, match="multiple of G"):
         tflash.flash_attention(q[:, :3], k, v)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal-dlse"])
+@pytest.mark.parametrize("groups,T,hs,bq,bk", [
+    (4, 64, 16, 32, 32),   # MHA, aligned T
+    (2, 100, 16, 32, 32),  # GQA, T not a multiple of the tiles
+    (1, 48, 8, 16, 32),    # MQA, mixed tile sizes
+], ids=GRID_IDS)
+def test_plain_k3_k4_per_group_match_jax_bwd_impl(groups, T, hs, bq, bk, causal):
+    """K4's plain version returns dK/dV already summed over each KV group,
+    as `_flash_bwd_impl` does after its kernel; both take the same LSE (the
+    JAX forward's) and the same D = rowsum(dO * O) - dlse."""
+    q, k, v = make_qkv(groups, T, hs, seed=5 * T + groups)
+    rng = np.random.default_rng(T + groups)
+    do = rng.standard_normal((B, H, T, hs)).astype(np.float32)
+    dlse = None if causal else rng.standard_normal((B, H, T)).astype(np.float32)
+    scale = hs ** -0.5
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    out, lse = jflash._flash_fwd_impl(scale, bq, bk, True, causal, jq, jk, jv, True)
+    want = [np.asarray(g) for g in jflash._flash_bwd_impl(
+        scale, bq, bk, True, causal, (jq, jk, jv, out, lse), jnp.asarray(do),
+        None if dlse is None else jnp.asarray(dlse))]
+    lse_t = t(np.asarray(lse)[:, :, :T])
+    dsum = (t(do) * t(np.asarray(out))).sum(-1)
+    if dlse is not None:
+        dsum = dsum - t(dlse)
+    args = (t(q), t(k), t(v), t(do), lse_t, dsum, scale, causal)
+    dq = tflash.flash_dq_plain(*args)
+    dk, dv = tflash.flash_dkv_plain(*args)
+    assert dk.shape == dv.shape == (B, groups, T, hs) and dk.dtype == torch.float32
+    for name, g, w in zip("qkv", (dq, dk, dv), want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=2e-4, atol=2e-4,
+                                   err_msg=f"d{name} mismatch")
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bf16_case(seed, causal, groups=2, T=40, hs=16):
+    """bfloat16 inputs, the forward's LSE and D, and the plain versions'
+    float32 (dQ, dK, dV) on them."""
+    q, k, v = (t(x).bfloat16() for x in make_qkv(groups, T, hs, seed=seed))
+    rng = np.random.default_rng(seed + 100)
+    do = t(rng.standard_normal((B, H, T, hs)).astype(np.float32)).bfloat16()
+    scale = hs ** -0.5
+    out, lse = tflash.flash_attention_plain(q.float(), k.float(), v.float(), scale, causal)
+    dsum = (do.float() * out).sum(-1)
+    if not causal:
+        dsum = dsum - t(rng.standard_normal((B, H, T)).astype(np.float32))
+    args = (q, k, v, do, lse, dsum, scale, causal)
+    f32 = [x.float() for x in (q, k, v, do)] + [lse, dsum, scale, causal]
+    ref = (tflash.flash_dq_plain(*f32),) + tflash.flash_dkv_plain(*f32)
+    return args, ref
+
+
+def _emulate_kernel_roundings(q, k, v, do, lse, dsum, scale, causal):
+    """K3/K4's arithmetic on bfloat16 inputs: float32 S, dP, P and dS; P
+    and dS rounded to bfloat16 as operands of dV, dK and dQ; dQ rounded to
+    bfloat16 once."""
+    qg, dog, p, ds = tflash._bwd_terms(q.float(), k.float(), v.float(), do.float(),
+                                       lse, dsum, scale, causal)
+    p_b, ds_b = p.bfloat16().float(), ds.bfloat16().float()
+    dq = scale * torch.einsum("bgrts,bgsh->bgrth", ds_b, k.float())
+    dk = scale * torch.einsum("bgrts,bgrth->bgsh", ds_b, qg)
+    dv = torch.einsum("bgrts,bgrth->bgsh", p_b, dog)
+    return dq.reshape(q.shape).bfloat16(), dk, dv
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal-dlse"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_limits_hold_for_the_kernels_roundings(seed, causal):
+    cs = _chip_smoke()
+    args, ref = _bf16_case(seed, causal)
+    limits = cs.flash_bwd_bf16_limits(*args, ref)
+    got = _emulate_kernel_roundings(*args)
+    for name, g, r, lim in zip(("dq", "dk", "dv"), got, ref, limits):
+        assert lim.shape == r.shape and (lim > 0).all()
+        err, ratio = cs.err_ratio(g, r, lim)
+        assert err > 0, f"{name}: the emulation made no rounding"
+        assert ratio <= 1.0, f"{name}: {ratio} x the limit"
+
+
+def test_bf16_limits_catch_a_planted_error():
+    cs = _chip_smoke()
+    args, ref = _bf16_case(7, True)
+    limits = cs.flash_bwd_bf16_limits(*args, ref)
+    got = _emulate_kernel_roundings(*args)
+    for i, (g, r, lim) in enumerate(zip(got, ref, limits)):
+        bad = g.float().clone()
+        idx = tuple(int(n) // 2 for n in bad.shape)
+        bad[idx] = r[idx] + 4 * lim[idx]
+        _, ratio = cs.err_ratio(bad, r, lim)
+        assert ratio > 1.0, f"output {i}: a 4x error was not caught ({ratio})"
