@@ -126,16 +126,35 @@ non-zero.
    versions from the same params and batch, with exact launch counts; per
    leaf ||g_kernel - g_plain||_2 <= 2^-5 ||g_plain||_2 and the losses
    within 2^-8 (relative).
+13. ckpt   — a real checkpoint through the normal entry points: the serve
+   phase's weights (tiny-llama-1.1b, bf16, seed 10137) written by the
+   port's reverse map as a HF snapshot of three safetensors shards with
+   its index and config.json, converted by `cli.prepare_model`, every
+   loaded leaf bit-identical to the written one; `cli.serve --ckpt` must
+   give the 16 greedy streams of `cli.serve --model` with K1 at 22
+   launches per forward and the plain route never; `Generator.generate`
+   on the loaded weights over the generate phase's prompts must launch
+   K2 exactly 22 times and give the original weights' tokens.  Prints
+   the seconds to write, convert, load and serve beside the card.
+14. chat   — a 32000-word word-level tokenizer.json in that checkpoint,
+   then `cli.chat --ckpt` through stdin for two turns: a pasted
+   1500-word first turn (bucket 2048) prefills the empty cache through K2
+   (exactly 22 launches), a 12-word second turn takes the dense route;
+   the conversation must equal a direct `ChatSession` run's.  Where the
+   `tokenizers` library is missing it says so and stops there.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
-pools, K2-K4); the last line is `{"ok": true, "device": {...}}`.
+pools, K2-K4, each with `paths`: its launches in every phase that drives
+it); the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -313,7 +332,7 @@ def serve_checked(phase, argv, draft_layers=0):
     args = cli.build_parser().parse_args(argv)
     ragged_paged_attention.launches = ragged_paged_attention.merge_launches = 0
     pa._paged_prefill_plain.calls = pa._paged_attention_plain.calls = 0
-    trace, results, stats, engine = cli.serve(args)
+    trace, results, stats, engine, _tokenizer = cli.serve(args)
     torch.cuda.synchronize()
     launches = ragged_paged_attention.launches
     engine.k1_merge_launches = ragged_paged_attention.merge_launches
@@ -333,7 +352,7 @@ def serve_checked(phase, argv, draft_layers=0):
     if plain:
         fail(phase, f"the plain attention route ran {plain} times on the card")
     line = cli.stats_line(stats, engine)
-    return line, launches, engine
+    return line, launches, engine, results
 
 
 def phase_serve(record):
@@ -344,7 +363,7 @@ def phase_serve(record):
     # warm-up (CUDA context, cuBLAS handles), not counted
     cli.serve(cli.build_parser().parse_args(SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8"]))
     torch.cuda.synchronize()
-    line, launches, engine = serve_checked(
+    line, launches, engine, _results = serve_checked(
         "serve", SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"])
     print("serve: " + json.dumps({k: line[k] for k in (
         "requests", "tokens_generated", "tokens_per_s", "wall_s", "decode_s",
@@ -357,6 +376,7 @@ def phase_serve(record):
           f"{line['decode_steps']} decode steps in chunks of {engine.cfg.decode_chunk}); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     record["launches"] = launches
+    record.setdefault("paths", {})["serve"] = launches
 
 
 def phase_serve_parity():
@@ -467,7 +487,7 @@ def phase_serve_q8(record):
     serve_checked("serve-q8", SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8",
                                             "--kv-dtype", "int8"])  # warm-up
     for kv in ("int8", "float8"):
-        line, launches, engine = serve_checked("serve-q8", run + ["--kv-dtype", kv])
+        line, launches, engine, _results = serve_checked("serve-q8", run + ["--kv-dtype", kv])
         cfg, nb = engine.gen.cfg, engine.pool.num_blocks
         bf16 = 2 * cfg.n_layer * nb * engine.cfg.block_size * cfg.n_query_groups * cfg.head_size * 2
         scales = sum(x["scale"].numel() * 4 for x in engine._kv.values()) if kv == "int8" else 0
@@ -481,6 +501,7 @@ def phase_serve_q8(record):
               f"against {bf16 / 1e6:.2f} MB as bf16", flush=True)
         if kv == "int8":
             record["launches"] = launches
+            record.setdefault("paths", {})["serve-q8"] = launches
         del engine
         torch.cuda.empty_cache()
 
@@ -557,7 +578,7 @@ def phase_spec():
     for label, extra in (("greedy, bf16 pool", []),
                          ("temperature 0.8, int8 pool", ["--kv-dtype", "int8",
                                                          "--temperature", "0.8"])):
-        line, launches, engine = serve_checked("spec", run + extra, draft_layers=12)
+        line, launches, engine, _results = serve_checked("spec", run + extra, draft_layers=12)
         if engine.draft_gen.cfg.n_layer != 12 or not line["spec_drafted"] > 0:
             fail("spec", f"{label}: spec_drafted {line['spec_drafted']}, draft layers "
                  f"{engine.draft_gen.cfg.n_layer}")
@@ -923,13 +944,14 @@ def phase_generate(record):
         "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
         "k2_launches": launches, "k2_plain_calls": plain}), flush=True)
     record["launches"] = launches
+    record.setdefault("paths", {})["generate"] = launches
     del gen
     torch.cuda.empty_cache()
 
     args = sample_cli.build_parser().parse_args(
         ["--model", TINY_LLAMA, "--n-samples", "4", "--n-tokens", "32", "--greedy"])
     flash_attention.launches = flash_attention_plain.calls = 0
-    prompt_ids, outs, stats, gen, seconds = sample_cli.run(args)
+    prompt_ids, outs, stats, gen, _tokenizer, seconds = sample_cli.run(args)
     torch.cuda.synchronize()
     if flash_attention.launches or flash_attention_plain.calls:
         fail("generate", f"the sample CLI's 8-token prompts launched K2 "
@@ -1005,7 +1027,6 @@ def phase_train(k3, k4):
     """Trainer.train_step on tiny-llama-1.1b at full width and depth, then
     the train CLI with a checkpoint and `--init resume`."""
     import math
-    import tempfile
 
     import numpy as np
     import torch
@@ -1083,6 +1104,7 @@ def phase_train(k3, k4):
         "peak_memory_gib": round(peak, 3),
         "launches_per_step": want}), flush=True)
     k3["launches"], k4["launches"] = total["K3"], total["K4"]
+    k3["paths"], k4["paths"] = {"train": total["K3"]}, {"train": total["K4"]}
     del tr
     torch.cuda.empty_cache()
 
@@ -1240,9 +1262,222 @@ def phase_train_parity_bf16():
     torch.cuda.empty_cache()
 
 
+# the HF config.json of tiny-llama-1.1b that `Config.from_hf_config` maps
+# back onto the registry entry (TinyLlama-1.1B's published config)
+TINY_LLAMA_HF = {
+    "model_type": "llama", "architectures": ["LlamaForCausalLM"],
+    "_name_or_path": TINY_LLAMA, "vocab_size": 32000, "hidden_size": 2048,
+    "intermediate_size": 5632, "num_hidden_layers": 22, "num_attention_heads": 32,
+    "num_key_value_heads": 4, "max_position_embeddings": 2048, "rms_norm_eps": 1e-5,
+    "rope_theta": 10000.0, "tie_word_embeddings": False, "hidden_act": "silu",
+    "bos_token_id": 1, "eos_token_id": 2, "torch_dtype": "bfloat16",
+}
+SHARD_BYTES = 1 << 30  # three safetensors shards for tiny-llama-1.1b in bf16
+
+
+def write_snapshot(ckpt_dir):
+    """The serve phase's weights (tiny-llama-1.1b, bf16, --seed 10137) as a
+    HF snapshot in `ckpt_dir`: the port's reverse map into sharded
+    safetensors, the index and config.json.  Returns (cfg, params, the
+    shard paths, seconds)."""
+    import torch
+
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.utils import checkpoint as ck
+
+    cfg = Config.from_name(TINY_LLAMA)
+    params = transformer.init_params(cfg, 10137, dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shards = ck.write_hf_shards(ck.convert_to_hf_state_dict(cfg, params), ckpt_dir,
+                                shard_bytes=SHARD_BYTES)
+    (Path(ckpt_dir) / "config.json").write_text(json.dumps(TINY_LLAMA_HF, indent=1))
+    return cfg, params, shards, time.perf_counter() - t0
+
+
+def phase_ckpt(k1, k2, card, ckpt_dir):
+    """A real checkpoint through the normal entry points, at full width and
+    depth: the serve phase's weights written as a sharded HF snapshot,
+    `cli.prepare_model` on it, every loaded leaf bit-identical to the
+    original; `cli.serve --ckpt` token-identical to `cli.serve --model` at
+    the same seed with K1 at 22 launches per forward; `Generator.generate`
+    on the loaded weights over the generate phase's prompts with exactly 22
+    K2 launches and the original weights' tokens."""
+    import torch
+
+    from mdi_llm_tpu_torch.cli import prepare_model
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+    from mdi_llm_tpu_torch.utils import checkpoint as ck
+
+    cfg, params, shards, write_s = write_snapshot(ckpt_dir)
+    size = sum(p.stat().st_size for p in shards)
+    t0 = time.perf_counter()
+    prepare_model.main([str(ckpt_dir)])
+    convert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lcfg, loaded = ck.load_checkpoint(ckpt_dir, device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    skip = {"hf_config", "padding_multiple"}  # registry-only fields
+    if {k: v for k, v in lcfg.asdict().items() if k not in skip} != {
+            k: v for k, v in cfg.asdict().items() if k not in skip}:
+        fail("ckpt", f"the converted config differs from {TINY_LLAMA}'s")
+    want, got = transformer.tree_leaves(params), transformer.tree_leaves(loaded)
+    if len(want) != len(got) or not all(
+            a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            for a, b in zip(want, got)):
+        fail("ckpt", "a loaded leaf is not bit-identical to the written one")
+
+    ckpt_base = ["--ckpt", str(ckpt_dir)] + SERVE_BASE[2:]
+    runs = {}
+    for label, base in (("--model", SERVE_BASE), ("--ckpt", ckpt_base)):
+        t0 = time.perf_counter()
+        line, launches, engine, results = serve_checked(
+            "ckpt", base + ["--synthetic", "16", "--n-tokens", "64"])
+        runs[label] = (line, launches, engine.forward_calls, results,
+                       time.perf_counter() - t0)
+        del engine
+        torch.cuda.empty_cache()
+    if runs["--ckpt"][3] != runs["--model"][3]:
+        fail("ckpt", "cli.serve --ckpt streams differ from cli.serve --model's")
+    line, launches, forwards, results, serve_s = runs["--ckpt"]
+
+    prompts = long_prompts((1100, 1370, 1650, 1900), cfg.vocab_size)
+    outs = {}
+    for label, p in (("original", params), ("loaded", loaded)):
+        gen = Generator(lcfg, p, max_seq_length=2048, device=DEVICE)
+        flash_attention.launches = flash_attention_plain.calls = 0
+        t0 = time.perf_counter()
+        outs[label], stats = gen.generate(prompts, 64, temperature=0.0, chunk_size=16)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        k2_launches, plain = flash_attention.launches, flash_attention_plain.calls
+        if k2_launches != 22 or plain:
+            fail("ckpt", f"{label} weights: K2 launches {k2_launches} (want 22), "
+                 f"plain version calls {plain} (want 0)")
+        del gen
+    if outs["loaded"] != outs["original"]:
+        fail("ckpt", "Generator.generate on the loaded weights differs from the original's")
+    print("ckpt: " + json.dumps({
+        "shards": len(shards), "snapshot_gib": round(size / 2**30, 3),
+        "write_s": round(write_s, 2), "convert_s": round(convert_s, 2),
+        "load_s": round(load_s, 2), "serve_s": round(serve_s, 2),
+        "serve_tokens_per_s": line["tokens_per_s"], "k1_launches": launches,
+        "forwards": forwards, "serve_model_s": round(runs["--model"][4], 2),
+        "generate_s": round(gen_s, 2),
+        "generate_prefill_s": round(stats.prefill_s, 4), "k2_launches": k2_launches}),
+        flush=True)
+    print(f"ckpt: {len(shards)} safetensors shards ({size / 2**30:.2f} GiB) written in "
+          f"{write_s:.1f} s, converted by cli.prepare_model in {convert_s:.1f} s, "
+          f"loaded to the card in {load_s:.1f} s, every leaf bit-identical; cli.serve "
+          f"--ckpt (load included) {serve_s:.1f} s against --model's "
+          f"{runs['--model'][4]:.1f} s, 16 streams identical, K1 "
+          f"{launches} = 22 x {forwards} forwards; generate on the loaded weights: 22 K2 "
+          f"launches, the original weights' tokens; on {card}", flush=True)
+    k1.setdefault("paths", {})["ckpt"] = launches
+    k2.setdefault("paths", {})["ckpt"] = k2_launches
+    del params, loaded
+    torch.cuda.empty_cache()
+
+
+CHAT_VOCAB = 32000
+CHAT_WORDS = 1500  # the pasted first turn: its prompt bucket is 2048
+
+
+def write_word_tokenizer(ckpt_dir):
+    """A 32000-entry word-level tokenizer.json ("<unk>", "<s>", "</s>",
+    then "w3" ... "w31999", split on whitespace), written as the JSON the
+    `tokenizers` library saves for one, and its tokenizer_config.json."""
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2, **{f"w{i}": i for i in range(3, CHAT_VOCAB)}}
+    tok = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": [],
+           "normalizer": None, "pre_tokenizer": {"type": "Whitespace"},
+           "post_processor": None, "decoder": None,
+           "model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"}}
+    (Path(ckpt_dir) / "tokenizer.json").write_text(json.dumps(tok))
+    (Path(ckpt_dir) / "tokenizer_config.json").write_text(json.dumps(
+        {"bos_token": "<s>", "eos_token": "</s>", "add_bos_token": True}))
+
+
+def phase_chat(k2, card, ckpt_dir):
+    """`cli.chat --ckpt` through stdin for two turns on the ckpt phase's
+    checkpoint with a word-level tokenizer: a pasted 1500-word first turn
+    prefills the empty cache through K2 (22 launches), a short second turn
+    takes the dense route; the replies equal a direct ChatSession run."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from mdi_llm_tpu_torch.cli import chat as chat_cli
+    from mdi_llm_tpu_torch.cli import prepare_model
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+    from mdi_llm_tpu_torch.utils import checkpoint as ck
+    from mdi_llm_tpu_torch.utils.prompts import style_for_model
+    from mdi_llm_tpu_torch.utils.tokenizer import Tokenizer
+
+    if importlib.util.find_spec("tokenizers") is None:
+        print("chat: tokenizers is not installed on this machine; the text path is "
+              "held on the CPU only", flush=True)
+        return
+    if not ck.has_checkpoint(ckpt_dir):  # run without the ckpt phase
+        write_snapshot(ckpt_dir)
+        prepare_model.main([str(ckpt_dir)])
+    write_word_tokenizer(ckpt_dir)
+    rng = np.random.default_rng(10137)
+    turns = [" ".join(f"w{i}" for i in rng.integers(3, CHAT_VOCAB, n)) for n in (CHAT_WORDS, 12)]
+    argv = ["--ckpt", str(ckpt_dir), "--device", DEVICE, "--temperature", "0",
+            "--n-tokens", "32"]
+    old_stdin, sys.stdin = sys.stdin, io.StringIO("\n".join(turns) + "\n")
+    printed = io.StringIO()
+    flash_attention.launches = flash_attention_plain.calls = 0
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            session = chat_cli.main(argv)
+        torch.cuda.synchronize()
+        chat_s = time.perf_counter() - t0
+    finally:
+        sys.stdin = old_stdin
+    launches, plain = flash_attention.launches, flash_attention_plain.calls
+    if launches != 22 or plain:
+        fail("chat", f"K2 launches {launches} (want 22, the first turn's prefill), "
+             f"plain version calls {plain} (want 0)")
+
+    tok = Tokenizer(ckpt_dir)
+    cfg, params = ck.load_checkpoint(ckpt_dir, dtype=torch.bfloat16, device=DEVICE)
+    style = style_for_model(cfg.name)
+    direct = Generator(cfg, params, max_seq_length=2048, device=DEVICE).chat_session()
+    turn_ids, replies = [], []
+    for t in turns:
+        turn_ids.append(tok.encode(style.apply(t)).tolist())
+        replies.append(list(direct.send(turn_ids[-1], 32, temperature=0.0,
+                                        stop_sequences=style.stop_tokens(tok))))
+    if session.history != direct.history or not all(replies):
+        fail("chat", "cli.chat's conversation differs from a direct ChatSession run")
+    text = printed.getvalue()
+    if not all(tok.decode(np.asarray(r)) in text for r in replies):
+        fail("chat", "cli.chat did not print the decoded replies")
+    print("chat: " + json.dumps({
+        "turn_tokens": [len(t) for t in turn_ids], "reply_tokens": [len(r) for r in replies],
+        "chat_s": round(chat_s, 2), "k2_launches": launches}), flush=True)
+    print(f"chat: cli.chat --ckpt, 2 turns through stdin ({len(turn_ids[0])}-token pasted "
+          f"prompt into the empty cache: 22 K2 launches; {len(turn_ids[1])}-token second "
+          f"turn on the dense route) in {chat_s:.1f} s (load included), replies identical "
+          f"to a direct ChatSession; on {card}", flush=True)
+    k2.setdefault("paths", {})["chat"] = launches
+    del direct, params
+    torch.cuda.empty_cache()
+
+
 PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
-          "train", "train-parity", "train-parity-bf16")
+          "train", "train-parity", "train-parity-bf16", "ckpt", "chat")
 
 
 def main(argv=None) -> None:
@@ -1323,16 +1558,25 @@ def main(argv=None) -> None:
         "train": lambda: phase_train(k3, k4),
         "train-parity": phase_train_parity,
         "train-parity-bf16": phase_train_parity_bf16,
+        "ckpt": lambda: phase_ckpt(k1, k2, card, ckpt_dir),
+        "chat": lambda: phase_chat(k2, card, ckpt_dir),
     }
-    for phase in PHASES:
-        if phase in only:
-            t = time.perf_counter()
-            runs[phase]()
-            print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = Path(tmp) / TINY_LLAMA
+        for phase in PHASES:
+            if phase in only:
+                t = time.perf_counter()
+                runs[phase]()
+                print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
     records = (k1, k1q8, k2, k3, k4)
     missing = [(r["name"], k) for r in records for k in keys if k not in r]
+    k2_paths = {"generate", "ckpt"} | (
+        {"chat"} if importlib.util.find_spec("tokenizers") else set())
+    if only == set(PHASES) and (set(k1["paths"]) != {"serve", "ckpt"}
+                                or set(k2["paths"]) != k2_paths):
+        fail("record", f"K1 paths {k1['paths']}, K2 paths {k2['paths']}")
     if only == set(PHASES) and missing:
         fail("record", f"kernels line lacks {missing}")
     print(card)

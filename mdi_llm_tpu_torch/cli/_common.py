@@ -1,10 +1,12 @@
-"""Shared CLI plumbing of the port: model/dtype/device flags, model
-loading and the generation-run flags and report (the parts of
-`mdi_llm_tpu/cli/_common.py` the serve and sample CLIs need).
+"""Shared CLI plumbing of the port: model/dtype/device flags, model,
+tokenizer and prompt-style loading, and the generation-run flags and
+report (the parts of `mdi_llm_tpu/cli/_common.py` the single-device CLIs
+need).
 
-Only `--model NAME` with random weights drawn from `--seed` is ported;
-checkpoints (`--ckpt`) and weight quantization (`--quantize`) are refused
-until a later slice carries them.
+`--ckpt DIR` loads a checkpoint of the port (`params.pt`), converting a
+directory that holds HF weights in place first; `--model NAME` draws
+random weights from `--seed`.  Weight quantization (`--quantize`) is
+refused until a later slice carries it.
 """
 
 from __future__ import annotations
@@ -12,12 +14,21 @@ from __future__ import annotations
 import argparse
 import sys
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from mdi_llm_tpu_torch.config import TEMPERATURE, TOP_K, Config
 from mdi_llm_tpu_torch.models import transformer
+from mdi_llm_tpu_torch.utils import checkpoint as ckpt_utils
+from mdi_llm_tpu_torch.utils.prompts import (
+    PromptStyle,
+    has_prompt_style,
+    load_prompt_style,
+    style_for_model,
+)
+from mdi_llm_tpu_torch.utils.tokenizer import Tokenizer
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 # KV-cache dtypes: the cache is written with a cast and upcast at the read
@@ -42,8 +53,9 @@ def add_common_args(ap: argparse.ArgumentParser, serving_kv: bool = False) -> No
     paged pool then stores int8 blocks with per-block-per-group scales."""
     ap.add_argument("--model", default=None,
                     help="registry model name (random weights from --seed)")
-    ap.add_argument("--ckpt", default=None,
-                    help="checkpoint directory (not ported yet: refused)")
+    ap.add_argument("--ckpt", type=Path, default=None,
+                    help="checkpoint directory (params.pt, or HF weights that "
+                    "are converted in place first)")
     ap.add_argument("--dtype", choices=list(DTYPES), default="bfloat16")
     ap.add_argument("--seed", type=int, default=10137)
     ap.add_argument("--sequence-length", type=int, default=None,
@@ -68,20 +80,43 @@ def refuse(what: str) -> None:
     )
 
 
-def load_model(args) -> Tuple[Config, dict]:
-    """(config, random params from --seed on --device) for --model."""
-    if args.ckpt:
-        refuse("--ckpt (checkpoint loading)")
+def load_model(
+    args, need_tokenizer: bool = True
+) -> Tuple[Config, dict, Optional[Tokenizer], Optional[PromptStyle]]:
+    """(config, params on --device, tokenizer, prompt style) from --ckpt
+    or --model.  A --ckpt dir holding raw HF weights is converted in place
+    first; its tokenizer and prompt style load when `need_tokenizer`.
+    --model draws random weights from --seed and has no tokenizer."""
     if args.quantize != "none":
-        refuse(f"--quantize {args.quantize}")
-    if not args.model:
-        raise SystemExit("--model is required")
-    cfg = Config.from_name(args.model)
-    transformer.check_supported(cfg)
-    params = transformer.init_params(
-        cfg, args.seed, dtype=DTYPES[args.dtype], device=args.device
-    )
-    return cfg, params
+        refuse(f"--quantize {args.quantize} (weight quantization, item 10)")
+    dtype = DTYPES[args.dtype]
+    tokenizer = prompt_style = None
+    if args.ckpt:
+        ckpt_dir = Path(args.ckpt)
+        if not ckpt_dir.is_dir():
+            raise SystemExit(f"--ckpt {ckpt_dir}: no such checkpoint directory")
+        if not ckpt_utils.has_checkpoint(ckpt_dir):
+            ckpt_utils.convert_hf_checkpoint(ckpt_dir, model_name=args.model, dtype=dtype)
+        cfg = Config.from_checkpoint(ckpt_dir)
+        transformer.check_supported(cfg)
+        cfg, params = ckpt_utils.load_checkpoint(
+            ckpt_dir, dtype=dtype, cfg=cfg, device=args.device
+        )
+        if need_tokenizer:
+            tokenizer = Tokenizer(ckpt_dir)
+            prompt_style = (
+                load_prompt_style(ckpt_dir)
+                if has_prompt_style(ckpt_dir)
+                else style_for_model(cfg.name)
+            )
+    elif args.model:
+        cfg = Config.from_name(args.model)
+        transformer.check_supported(cfg)
+        params = transformer.init_params(cfg, args.seed, dtype=dtype, device=args.device)
+        prompt_style = style_for_model(cfg.name)
+    else:
+        raise SystemExit("one of --ckpt or --model is required")
+    return cfg, params, tokenizer, prompt_style
 
 
 def add_run_args(ap: argparse.ArgumentParser) -> None:
@@ -98,15 +133,15 @@ def add_run_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--logs-dir", type=Path, default=Path("logs"))
 
 
-def report_run(args, cfg, prompt_ids, outs, stats, gen_time):
-    """Print the samples and the throughput line, and write the tokens/time
-    CSV, its plot and the run-stats CSV under the JAX CLI's file names
-    (one device: one node)."""
+def report_run(args, cfg, tokenizer, prompt_ids, outs, stats, gen_time):
+    """Print the samples (decoded where there is a tokenizer) and the
+    throughput line, and write the tokens/time CSV, its plot and the
+    run-stats CSV under the JAX CLI's file names (one device: one node)."""
     from mdi_llm_tpu_torch.utils import plots
 
     for i, (ids, plen) in enumerate(zip(outs, (len(p) for p in prompt_ids))):
         print(f"--- sample {i} ({len(ids) - plen} new tokens) " + "-" * 30)
-        print(ids)
+        print(tokenizer.decode(np.asarray(ids)) if tokenizer is not None else ids)
     print(
         f"[1 node(s)] {stats.tokens_generated} tokens in {gen_time:.2f}s — "
         f"{stats.tokens_per_s:.2f} tok/s decode (prefill {stats.prefill_s:.2f}s)",

@@ -45,7 +45,7 @@ def main(argv=None) -> dict:
         raise SystemExit("profile_generate measures the GPU: it needs a CUDA device")
     args.device, args.dtype, args.seed, args.ckpt, args.quantize = (
         "cuda", "bfloat16", 10137, None, "none")
-    cfg, params = load_model(args)
+    cfg, params, _tokenizer, _style = load_model(args)
     gen = Generator(cfg, params, rng_seed=args.seed, flash_min_len=args.flash_min_len)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in args.prompt_lens]

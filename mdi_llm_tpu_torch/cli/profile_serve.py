@@ -53,7 +53,7 @@ def main(argv=None, top: int = 12) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _trace, _results, stats, engine = cli.serve(args)
+        _trace, _results, stats, engine, _tokenizer = cli.serve(args)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     line = device_summary(prof, wall_s, top)

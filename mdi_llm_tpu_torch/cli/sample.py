@@ -1,13 +1,17 @@
 """Text generation CLI of the port, one device.
 
 Port of the single-device branch of `mdi_llm_tpu/cli/sample.py`:
-`Generator.generate` over `--n-samples` prompts with random weights from
-`--seed`.  No tokenizer is ported yet, so every prompt is 8 random token
-ids drawn from `--seed` (as the JAX CLI does without a tokenizer) and the
+`Generator.generate` over `--n-samples` prompts.  With `--ckpt DIR` the
+prompts (`--prompt TEXT` or `FILE:<path>`, one per blank-line-separated
+paragraph) go through the checkpoint's prompt style and tokenizer,
+generation stops at the style's stop sequences, and the samples print
+decoded.  With `--model NAME` (random weights from `--seed`, no
+tokenizer) every prompt is 8 random token ids drawn from `--seed` and the
 samples print as token ids.  Runs on the GPU unless `--device cpu` is
 given; without a GPU and without that flag it raises.  Flags of features
 the port does not carry yet are refused.
 
+    python -m mdi_llm_tpu_torch.cli.sample --ckpt checkpoints/tiny-llama --prompt "Once upon a time,"
     python -m mdi_llm_tpu_torch.cli.sample --model tiny-llama-1.1b --n-samples 4 --greedy
     python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8
 """
@@ -57,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(args):
     """Build the model the flags describe and generate; returns
-    (prompt_ids, outs, stats, gen, seconds)."""
+    (prompt_ids, outs, stats, gen, tokenizer, seconds)."""
     from mdi_llm_tpu_torch.generation import Generator
 
     for name, default in _UNPORTED.items():
@@ -69,10 +73,15 @@ def run(args):
             "--speculative requires --greedy (or --temperature 0) and --n-samples 1"
         )
     resolve_device(args.device)  # raises before any work without the device
-    cfg, params = load_model(args)
-    rng = np.random.default_rng(args.seed)
-    prompt_ids = [rng.integers(1, cfg.vocab_size, 8).tolist()
-                  for _ in get_user_prompt(args.prompt, args.n_samples)]
+    cfg, params, tokenizer, prompt_style = load_model(args)
+    raw_prompts = get_user_prompt(args.prompt, args.n_samples)
+    if tokenizer is not None:
+        prompt_ids = [tokenizer.encode(prompt_style.apply(p)).tolist() for p in raw_prompts]
+        stop_seqs = prompt_style.stop_tokens(tokenizer)
+    else:
+        rng = np.random.default_rng(args.seed)
+        prompt_ids = [rng.integers(1, cfg.vocab_size, 8).tolist() for _ in raw_prompts]
+        stop_seqs = ()
     t0 = time.perf_counter()
     gen = Generator(
         cfg, params, max_seq_length=args.sequence_length, rng_seed=args.seed,
@@ -81,16 +90,16 @@ def run(args):
     )
     outs, stats = gen.generate(
         prompt_ids, args.n_tokens, temperature=temperature, top_k=args.top_k,
-        top_p=args.top_p, chunk_size=args.chunk,
+        top_p=args.top_p, stop_sequences=stop_seqs, chunk_size=args.chunk,
         speculative=args.speculative or None,
     )
-    return prompt_ids, outs, stats, gen, time.perf_counter() - t0
+    return prompt_ids, outs, stats, gen, tokenizer, time.perf_counter() - t0
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    prompt_ids, outs, stats, gen, seconds = run(args)
-    report_run(args, gen.cfg, prompt_ids, outs, stats, seconds)
+    prompt_ids, outs, stats, gen, tokenizer, seconds = run(args)
+    report_run(args, gen.cfg, tokenizer, prompt_ids, outs, stats, seconds)
     if stats.interrupted:
         raise SystemExit(130)  # conventional SIGINT exit code
     return outs

@@ -1,16 +1,22 @@
-"""Offline serving driver of the port: a synthetic trace through the
+"""Offline serving driver of the port: a request trace through the
 paged-KV continuous-batching engine (`serving/engine.py`).
 
-Port of `mdi_llm_tpu/cli/serve.py` for `--model NAME --synthetic N`:
-random weights from `--seed`, a mixed-length synthetic request trace,
-and the same one-line JSON stats summary on stderr.  `--kv-dtype int8`
-serves over the quantized pool and `--kv-dtype float8` over an e4m3 pool;
+Port of `mdi_llm_tpu/cli/serve.py` on one device: the weights of
+`--ckpt DIR` (HF weights in it are converted in place first) or random
+weights of `--model NAME` from `--seed`; the trace is text prompts
+(`--prompt-file`, one per line, or `--prompt` repeated `--n-requests`
+times) tokenized by the checkpoint's tokenizer, with the outputs printed
+decoded, or a mixed-length synthetic trace (`--synthetic N`, no
+tokenizer needed); the same one-line JSON stats summary goes to stderr.
+`--kv-dtype int8` serves over the quantized pool and `--kv-dtype float8`
+over an e4m3 pool;
 `--spec-k K` turns on speculative serving (n-gram drafts, and with
 `--draft-model NAME` a randomly initialised draft model where the lookup
 misses).  Runs on the GPU unless `--device cpu` is given; without a GPU
 and without that flag it raises.  Flags of features the port does not
 carry yet are refused.
 
+    python -m mdi_llm_tpu_torch.cli.serve --ckpt checkpoints/tiny-llama --prompt-file prompts.txt
     python -m mdi_llm_tpu_torch.cli.serve --model tiny-llama-1.1b --synthetic 16
     python -m mdi_llm_tpu_torch.cli.serve --device cpu --model pythia-14m \\
         --synthetic 3 --max-batch 2 --n-tokens 8 --sequence-length 128 --block-size 8
@@ -21,7 +27,9 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from mdi_llm_tpu_torch.cli._common import (
@@ -46,9 +54,15 @@ def build_parser():
     add_common_args(ap, serving_kv=True)
     ap.add_argument("--n-tokens", type=int, default=128,
                     help="max new tokens per request")
+    ap.add_argument("--prompt", default="Once upon a time,",
+                    help="prompt text used when no --prompt-file/--synthetic")
+    ap.add_argument("--prompt-file", type=Path, default=None,
+                    help="file with one prompt per line")
+    ap.add_argument("--n-requests", type=int, default=8,
+                    help="requests queued when using --prompt")
     ap.add_argument("--synthetic", type=int, default=0, metavar="N",
                     help="queue N synthetic requests with mixed prompt/"
-                    "output lengths (required: no tokenizer is ported yet)")
+                    "output lengths instead of text prompts")
     ap.add_argument("--block-size", type=int, default=16,
                     help="KV pool block width (tokens)")
     ap.add_argument("--max-blocks", type=int, default=None,
@@ -154,27 +168,38 @@ def build_generator(args, cfg, params):
 
 
 def serve(args):
-    """Build the model and engine the flags describe, queue the synthetic
-    trace and run it; returns (trace, results, stats, engine)."""
+    """Build the model and engine the flags describe, queue the trace and
+    run it; returns (trace, results, stats, engine, tokenizer)."""
     from mdi_llm_tpu_torch.serving.policy import make_policy
 
     for name, default in _UNPORTED.items():
         if getattr(args, name) != default:
             refuse("--" + name.replace("_", "-"))
-    if not args.synthetic:
-        refuse("text prompts (no tokenizer yet); --synthetic N")
     resolve_device(args.device)  # raises before any work without the device
     serving_cfg = make_serving_config(args)
-    cfg, params = load_model(args)
+    cfg, params, tokenizer, _style = load_model(args, need_tokenizer=not args.synthetic)
     gen = build_generator(args, cfg, params)
     engine = gen.serve(serving=serving_cfg, policy=make_policy(args.policy))
-    trace = synthetic_trace(
-        args.synthetic, cfg.vocab_size, gen.max_seq_length, args.n_tokens
-    )
+    if args.synthetic:
+        trace = synthetic_trace(
+            args.synthetic, cfg.vocab_size, gen.max_seq_length, args.n_tokens
+        )
+    else:
+        if tokenizer is None:
+            raise SystemExit(
+                "text prompts need a tokenizer (--ckpt); use --synthetic "
+                "with --model for tokenizer-free runs"
+            )
+        if args.prompt_file:
+            texts = [ln for ln in args.prompt_file.read_text().splitlines() if ln.strip()]
+        else:
+            texts = [args.prompt] * args.n_requests
+        trace = [(f"req{i}", tokenizer.encode(t).tolist(), args.n_tokens)
+                 for i, t in enumerate(texts)]
     for rid, prompt, new in trace:
         engine.add_request(rid, prompt, new)
     results, stats = engine.run()
-    return trace, results, stats, engine
+    return trace, results, stats, engine, tokenizer
 
 
 def stats_line(stats, engine) -> dict:
@@ -199,11 +224,12 @@ def stats_line(stats, engine) -> dict:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    trace, results, stats, engine = serve(args)
+    trace, results, stats, engine, tokenizer = serve(args)
     for rid, prompt, _new in trace:
-        gen_tokens = results.get(rid, [])[len(prompt):]
+        out = results.get(rid, [])
+        gen_tokens = out[len(prompt):]
         print(f"--- {rid} ({len(gen_tokens)} new tokens) " + "-" * 30)
-        print(gen_tokens)
+        print(tokenizer.decode(np.asarray(out)) if tokenizer is not None else gen_tokens)
     line = stats_line(stats, engine)
     print(json.dumps(line), file=sys.stderr)
     return line

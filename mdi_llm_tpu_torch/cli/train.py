@@ -9,14 +9,16 @@ bins, sampled by the native C++ loader where `make -C native` builds it,
 else by the NumPy loader), prints one JSON line per log entry and writes
 the checkpoint to `--ckpt` (default `out`).  `--init scratch` draws random
 weights from `--seed` (or takes the params of a checkpoint the port wrote
-in `--ckpt` before), `--init resume` continues a run from its checkpoint.
+in `--ckpt` before), `--init hf` starts from the checkpoint in `--ckpt`
+(HF weights there are converted in place first), `--init resume`
+continues a run from its checkpoint.
 `--use-flash auto` runs attention through the flash kernels K2-K4 on a GPU
 at `--block-size` >= 2048.  It runs on `cuda` and raises without a GPU
 unless `--device cpu` is given.
 
-Refused, each naming its ROADMAP item: `--init hf` (checkpoint
-conversion), `--mesh` and `--coordinator`/`--process-id`/`--num-processes`
-(multi-device training), and MoE settings other than the defaults.
+Refused, each naming its ROADMAP item: `--mesh` and
+`--coordinator`/`--process-id`/`--num-processes` (multi-device training),
+and MoE settings other than the defaults.
 """
 
 from __future__ import annotations
@@ -27,8 +29,14 @@ from pathlib import Path
 
 from mdi_llm_tpu_torch.cli._common import DTYPES, refuse
 from mdi_llm_tpu_torch.config import Config
+from mdi_llm_tpu_torch.generation import resolve_device
 from mdi_llm_tpu_torch.training import Trainer, TrainingConfig
 from mdi_llm_tpu_torch.utils import data_loader, native_loader
+from mdi_llm_tpu_torch.utils.checkpoint import (
+    convert_hf_checkpoint,
+    has_checkpoint,
+    load_checkpoint,
+)
 
 
 def build_parser():
@@ -77,8 +85,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.init == "hf":
-        refuse("--init hf (checkpoint conversion, item 9)")
     if args.mesh:
         refuse("--mesh (multi-device training, items 14-17)")
     if args.coordinator or args.process_id is not None or args.num_processes is not None:
@@ -112,15 +118,19 @@ def main(argv=None):
         trainer = Trainer.resume(out_dir, device=args.device)
         print(f"resumed at iter {trainer.iter_num}", flush=True)
     else:
-        cfg = (
-            Config.from_checkpoint(out_dir)
-            if (out_dir / "model_config.yaml").exists()
-            else Config.from_name(args.model or out_dir.name)
-        )
-        params = None
-        if args.ckpt and (out_dir / "params.pt").exists():
-            params = Trainer.load_params(out_dir, args.device)
-        trainer = Trainer(cfg, tc, params=params, out_dir=out_dir, device=args.device)
+        device = resolve_device(args.device)
+        if args.init == "hf" and not has_checkpoint(out_dir):
+            convert_hf_checkpoint(out_dir, model_name=args.model, dtype=DTYPES[tc.dtype])
+        if args.init == "hf" or (args.ckpt and has_checkpoint(out_dir)):
+            cfg, params = load_checkpoint(out_dir, device=device)
+        else:
+            cfg = (
+                Config.from_checkpoint(out_dir)
+                if (out_dir / "model_config.yaml").exists()
+                else Config.from_name(args.model or out_dir.name)
+            )
+            params = None
+        trainer = Trainer(cfg, tc, params=params, out_dir=out_dir, device=device)
 
     train_p, val_p = args.dataset / "train.bin", args.dataset / "val.bin"
     if native_loader.is_available():

@@ -755,14 +755,8 @@ def _yaml_scalar(v: Any) -> str:
 
 def _parse_simple_yaml(text: str) -> Dict[str, Any]:
     """Minimal YAML subset parser for flat `model_config.yaml` files (scalars
-    plus one level of nested dict, which is all litGPT/the reference emit).
-    Avoids a hard pyyaml dependency; uses it when available."""
-    try:
-        import yaml  # type: ignore
-
-        return yaml.safe_load(text)
-    except ImportError:
-        pass
+    plus one level of nested dict, which is all `Config.save` and litGPT
+    emit).  The port never needs pyyaml: the GPU machine may not have it."""
     out: Dict[str, Any] = {}
     current: Optional[str] = None
     for raw in text.splitlines():
@@ -800,8 +794,10 @@ def _yaml_value(v: str) -> Any:
         return float(v)
     except ValueError:
         pass
-    if len(v) >= 2 and v[0] in "'\"" and v[-1] == v[0]:
-        return v[1:-1]
+    if len(v) >= 2 and v[0] == '"' and v[-1] == '"':
+        return json.loads(v)  # `_yaml_scalar` writes strings as JSON
+    if len(v) >= 2 and v[0] == "'" and v[-1] == "'":
+        return v[1:-1].replace("''", "'")
     return v
 
 

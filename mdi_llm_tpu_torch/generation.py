@@ -147,6 +147,44 @@ def stop_filtered_stream(raw_stream, stop_sequences):
     yield from ready
 
 
+class StreamPrinter:
+    """Incremental console printer for a token stream (the chat CLI's):
+    stop-prefix hold-back (StopPrefixFilter) plus incremental re-decode,
+    so multi-byte and merged tokens print correctly — text is written only
+    once the decoded reply extends what was printed.
+
+    `push(tok)` feeds the filtered live stream; `emit(tok)` bypasses the
+    filter (for sources that already filtered, e.g. generate_chat);
+    `finish(final_tokens)` reconciles with the authoritative trimmed
+    output — emitting any held-back or missed tail — and returns the
+    printed token list."""
+
+    def __init__(self, tokenizer, stop_sequences: Sequence[Sequence[int]], out=None):
+        import sys
+
+        self.tokenizer = tokenizer
+        self.out = out or sys.stdout
+        self.reply: List[int] = []
+        self.printed = ""
+        self.filter = StopPrefixFilter(stop_sequences, self.emit)
+
+    def emit(self, tok: int) -> None:
+        self.reply.append(tok)
+        text = self.tokenizer.decode(np.asarray(self.reply))
+        if text.startswith(self.printed):
+            self.out.write(text[len(self.printed) :])
+            self.out.flush()
+            self.printed = text
+
+    def push(self, tok: int) -> None:
+        self.filter.push(tok)
+
+    def finish(self, final_tokens: Sequence[int]) -> List[int]:
+        for tok in list(final_tokens)[len(self.reply) :]:
+            self.emit(tok)
+        return self.reply
+
+
 def ngram_draft(tokens: Sequence[int], k: int, ngram: int = 3) -> List[int]:
     """Prompt-lookup drafting for speculative decoding: find the most recent
     earlier occurrence of the trailing `ngram` tokens and propose the k

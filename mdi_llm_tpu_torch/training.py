@@ -19,8 +19,9 @@ What differs from the JAX package:
   `ops/flash.py`: K2 forward with the LSE, K3 and K4 in the backward.
   `remat` recomputes each block in the backward (`torch.utils.checkpoint`),
   so K2 runs twice per layer and micro-batch and K3, K4 once.
-- Checkpoints are the port's own files: `params.pt` and `opt_state.pt`
-  (`torch.save`), `model_config.yaml` (`Config.save`) and
+- Checkpoints are the port's own files: `params.pt` and
+  `model_config.yaml` (`utils/checkpoint.save_checkpoint`, read back by
+  `load_checkpoint`), `opt_state.pt` (`torch.save`) and
   `train_state.json` with the JAX package's keys.
 - Random init draws from a `torch.Generator` (`transformer.init_params`),
   so a scratch run starts from other numbers than the JAX package's; the
@@ -43,6 +44,7 @@ from mdi_llm_tpu_torch.config import Config
 from mdi_llm_tpu_torch.generation import resolve_device
 from mdi_llm_tpu_torch.models import transformer
 from mdi_llm_tpu_torch.utils import data_loader
+from mdi_llm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 NORMS = frozenset({"norm_1", "norm_2", "ln_f"})
@@ -375,12 +377,8 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def save(self, out_dir) -> Path:
-        out_dir = Path(out_dir).resolve()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        torch.save(transformer.tree_map(lambda x: x.detach(), self.params),
-                   out_dir / "params.pt")
+        out_dir = save_checkpoint(self.params, self.cfg, out_dir)
         torch.save(self.optimizer.state_dict(), out_dir / "opt_state.pt")
-        self.cfg.save(out_dir)
         (out_dir / "train_state.json").write_text(
             json.dumps(
                 {
@@ -392,18 +390,12 @@ class Trainer:
         )
         return out_dir
 
-    @staticmethod
-    def load_params(out_dir, device=None):
-        """The params of a checkpoint written by `save`, on `device`."""
-        return torch.load(Path(out_dir) / "params.pt", map_location=resolve_device(device))
-
     @classmethod
     def resume(cls, out_dir, mesh: Optional[Any] = None, device=None) -> "Trainer":
         out_dir = Path(out_dir).resolve()
         state = json.loads((out_dir / "train_state.json").read_text())
-        cfg = Config.from_checkpoint(out_dir)
         tc = TrainingConfig(**state["training_config"])
-        params = cls.load_params(out_dir, device)
+        cfg, params = load_checkpoint(out_dir, device=resolve_device(device))
         tr = cls(cfg, tc, mesh=mesh, params=params, out_dir=out_dir, device=device)
         del params
         tr.optimizer.load_state_dict(

@@ -15,8 +15,8 @@
   resume exact; the NumPy and native loaders give the JAX package's
   batches.
 - The train CLI on the CPU, then `--init resume`; without a GPU it
-  raises; `--mesh`, `--init hf` and `--coordinator` are refused, and the
-  Trainer refuses meshes and MoE.
+  raises; `--mesh` and `--coordinator` are refused, `--init hf` without
+  weights in `--ckpt` too, and the Trainer refuses meshes and MoE.
 """
 
 import json
@@ -323,12 +323,17 @@ def test_train_cli_raises_without_a_gpu(tmp_path):
         train_cli.main([*argv, "--max-iters", "1"])
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mesh", "dp=2"], ["--init", "hf"], ["--coordinator", "localhost:1234"],
-], ids=lambda f: f[0])
-def test_train_cli_refuses_unported_flags(tmp_path, flags):
-    argv = [*CLI_RUN, "--dataset", str(tmp_path), "--device", "cpu", *flags]
-    with pytest.raises(SystemExit, match="not ported"):
+@pytest.mark.parametrize("flags,error,match", [
+    (["--mesh", "dp=2"], SystemExit, "not ported"),
+    # --init hf is ported: a --ckpt with neither params.pt nor HF weights
+    # is refused before any work
+    (["--init", "hf"], FileNotFoundError, r"no \*.safetensors or \*.bin weights"),
+    (["--coordinator", "localhost:1234"], SystemExit, "not ported"),
+], ids=["--mesh", "--init", "--coordinator"])
+def test_train_cli_refuses_unported_flags(tmp_path, flags, error, match):
+    argv = [*CLI_RUN, "--dataset", str(tmp_path), "--device", "cpu",
+            "--ckpt", str(tmp_path), *flags]
+    with pytest.raises(error, match=match):
         train_cli.main(argv)
 
 
