@@ -35,7 +35,9 @@ non-zero.
    (8 steps) with double buffering.  Every request must finish with its
    token budget, every token must be in the vocabulary, K1 must have been
    launched 22 times per model forward and the plain route never; prints
-   the merge kernel's launches beside K1's.
+   the merge kernel's launches beside K1's.  Here and in every serving and
+   generation phase below the engine's steps and generate's decode chunks
+   run as CUDA graphs (phase 15), so launches are counted at replay.
 5. serve parity — float32, 4 layers at full width, 4 requests of 16 new
    tokens, served through the kernel route and through the plain route on
    the card: the greedy streams must be identical but for a genuine
@@ -142,6 +144,25 @@ non-zero.
    (exactly 22 launches), a 12-word second turn takes the dense route;
    the conversation must equal a direct `ChatSession` run's.  Where the
    `tokenizers` library is missing it says so and stops there.
+15. graphs — the engine's and the Generator's steps as CUDA graphs
+   (the default everywhere above) against eager launches of the same step
+   bodies (the private `_graphs=False` switch), in turns eager, graph,
+   graph, eager, at full tiny-llama-1.1b width and depth in bf16: the
+   serve phase's trace through `cli.build` + `engine.run()` over bf16,
+   int8 and e4m3 pools, and the generate phase's run (each Generator
+   called once first, so the timed calls are the second with their
+   shapes).  Fails unless greedy streams are identical between the routes
+   (the near-tie rule of the parity phases applies), host_syncs are equal,
+   K1 launches are 22 per forward on both routes, no serve run captures a
+   graph inside its steps and a second generate call captures none.  The
+   sampled check: a temperature-0.8 serve and generate from the same
+   generator state on both routes, printed as the number of streams
+   identical draw for draw, and the frequency test of
+   `sampled_frequencies_ok` on the graph route's mixed and decode steps.
+   Prints tokens/s, decode_s, prefill_s, captures, capture seconds and
+   peak memory per run, and the device time of 22 layers' paged writes
+   (one decode forward of 8 lanes) over an int8 pool against a bf16 one,
+   timed as graph replays.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4, each with `paths`: its launches in every phase that drives
@@ -368,7 +389,8 @@ def phase_serve(record):
     print("serve: " + json.dumps({k: line[k] for k in (
         "requests", "tokens_generated", "tokens_per_s", "wall_s", "decode_s",
         "prefill_s", "mixed_steps", "decode_steps", "host_syncs",
-        "kv_block_utilization_mean", "kv_block_utilization_peak", "forward_calls")}),
+        "kv_block_utilization_mean", "kv_block_utilization_peak", "forward_calls",
+        "graph_captures", "graph_replays", "capture_s")}),
         flush=True)
     print(f"serve: K1 launches {launches} = {engine.gen.cfg.n_layer} per forward x "
           f"{engine.forward_calls} forwards, its merge kernel "
@@ -493,7 +515,8 @@ def phase_serve_q8(record):
         scales = sum(x["scale"].numel() * 4 for x in engine._kv.values()) if kv == "int8" else 0
         print(f"serve-q8: --kv-dtype {kv} ({line['kv_dtype']}): " + json.dumps({k: line[k] for k in (
             "requests", "tokens_generated", "tokens_per_s", "wall_s", "decode_s", "prefill_s",
-            "mixed_steps", "decode_steps", "host_syncs", "forward_calls")}), flush=True)
+            "mixed_steps", "decode_steps", "host_syncs", "forward_calls", "graph_captures",
+            "capture_s")}), flush=True)
         print(f"serve-q8: --kv-dtype {kv}: K1 launches {launches} = {cfg.n_layer} per "
               f"forward x {engine.forward_calls} forwards, its merge kernel "
               f"{engine.k1_merge_launches}; pool {nb} blocks = "
@@ -941,6 +964,7 @@ def phase_generate(record):
         "prefill_s": round(stats.prefill_s, 4), "decode_s": round(stats.decode_s, 4),
         "tokens_generated": stats.tokens_generated,
         "tokens_per_s": round(stats.tokens_per_s, 2),
+        "graph_captures": stats.captures, "capture_s": round(stats.capture_s, 4),
         "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
         "k2_launches": launches, "k2_plain_calls": plain}), flush=True)
     record["launches"] = launches
@@ -1475,9 +1499,273 @@ def phase_chat(k2, card, ckpt_dir):
     torch.cuda.empty_cache()
 
 
+GRAPH_ROUTES = (("eager", False), ("graphs", True), ("graphs", True), ("eager", False))
+GRAPH_POOLS = (("bf16", []), ("int8", ["--kv-dtype", "int8"]), ("e4m3", ["--kv-dtype", "float8"]))
+
+
+def graph_serve_run(phase, argv, graphs):
+    """The serve CLI's engine (`cli.build`) on one route, its `run()` with
+    every count set to 0 just before and read just after.  Fails unless K1
+    ran 22 times per forward and the plain route never, and a graph engine
+    captured every step when it was built (none inside the run) and
+    replayed them; an eager one captures and replays nothing.  Returns
+    (results, summary, engine)."""
+    import torch
+
+    from mdi_llm_tpu_torch.cli import serve as cli
+    from mdi_llm_tpu_torch.ops import paged_attention as pa
+    from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention
+
+    args = cli.build_parser().parse_args(argv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _trace, engine, _tokenizer = cli.build(args, _graphs=graphs)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    built = engine.graph_stats()
+    ragged_paged_attention.launches = ragged_paged_attention.merge_launches = 0
+    pa._paged_prefill_plain.calls = pa._paged_attention_plain.calls = 0
+    results, stats = engine.run()
+    torch.cuda.synchronize()
+    launches = ragged_paged_attention.launches
+    plain = pa._paged_prefill_plain.calls + pa._paged_attention_plain.calls
+    after = engine.graph_stats()
+    n_layer = engine.gen.cfg.n_layer
+    if n_layer != 22 or launches <= 0 or launches != n_layer * engine.forward_calls or plain:
+        fail(phase, f"_graphs={graphs}: K1 launches {launches} != {n_layer} x "
+             f"{engine.forward_calls} forwards, plain route {plain}")
+    if graphs and (built["captures"] != built["steps"] or after["captures"] != built["captures"]
+                   or after["replays"] <= 0):
+        fail(phase, f"graph engine: {built} when built, {after} after the run")
+    if not graphs and (after["captures"] or after["replays"]):
+        fail(phase, f"eager engine captured or replayed: {after}")
+    summary = {"route": "graphs" if graphs else "eager",
+               "tokens_per_s": round(stats.tokens_per_s, 2), "wall_s": round(stats.wall_s, 4),
+               "decode_s": round(stats.decode_s, 4), "prefill_s": round(stats.prefill_s, 4),
+               "host_syncs": stats.host_syncs, "forward_calls": engine.forward_calls,
+               "k1_launches": launches, "graph_captures": built["captures"],
+               "graph_replays": after["replays"], "capture_s": round(built["capture_s"], 4),
+               "build_s": round(build_s, 3),
+               "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)}
+    return results, summary, engine
+
+
+def sampled_frequencies_ok(phase, gen, n_requests=512, top_k=4, temperature=0.8):
+    """The distribution test of the port's CPU suite, on the card:
+    `n_requests` requests of one prompt, 2 new tokens each, at
+    `temperature` and `top_k`.  The first token (the mixed step's draw)
+    must follow the filtered softmax of the prompt's last logits, and the
+    second (the decode step's) the filtered softmax after each first token
+    that came up at least 64 times: |freq - p| < 5 sigma + 1e-3 per token,
+    p from a dense forward of the same model."""
+    import numpy as np
+    import torch
+
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.ops.sampling import filtered_logits, sampling_operands
+
+    prompt = long_prompts((24,), gen.cfg.vocab_size, seed=3)[0]
+    engine = gen.serve(block_size=16, max_batch=8, temperature=temperature, top_k=top_k)
+    for i in range(n_requests):
+        engine.add_request(f"s{i}", prompt, 2)
+    results, _ = engine.run()
+    draws = np.array([results[f"s{i}"][len(prompt):] for i in range(n_requests)])
+    t_op, p_op = sampling_operands(temperature, None, device="cuda")
+
+    def probs(ctx):
+        with torch.no_grad():
+            logits = transformer.forward(gen.cfg, gen.params, torch.tensor([ctx], device="cuda"),
+                                         torch.zeros(1, dtype=torch.long, device="cuda"))
+        f = filtered_logits(logits[0, -1:], t_op, p_op, mode="top_k", top_k=top_k)
+        return torch.softmax(f, dim=-1)[0].cpu().numpy()
+
+    firsts, counts = np.unique(draws[:, 0], return_counts=True)
+    cases = [(prompt, draws[:, 0])] + [(prompt + [int(t)], draws[draws[:, 0] == t, 1])
+                                       for t, c in zip(firsts, counts) if c >= 64]
+    worst = 0.0
+    for ctx, got in cases:
+        p = probs(ctx)
+        freq = np.bincount(got, minlength=len(p)) / len(got)
+        ratio = float(np.max(np.abs(freq - p) / (5.0 * np.sqrt(p * (1.0 - p) / len(got)) + 1e-3)))
+        worst = max(worst, ratio)
+        if not ratio < 1.0 or np.any(freq[p == 0.0] > 0):
+            fail(phase, f"sampled draws after {len(ctx)} tokens: frequencies {freq[p > 0]} "
+                 f"against {p[p > 0]} over {len(got)} draws")
+    print(f"{phase}: sampled distribution test: {len(cases)} positions, worst "
+          f"|freq - p| / (5 sigma + 1e-3) {worst:.3f} over {n_requests} requests", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+
+def paged_write_ms(kv_dtype, lanes=8, n_layer=22):
+    """Device ms of one decode forward's paged K/V writes (`paged_update`
+    of `lanes` tokens into each of `n_layer` layers of a tiny-llama pool
+    stored as `kv_dtype`), timed as replays of one CUDA graph that holds
+    all of them."""
+    import torch
+
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.ops.paged_attention import paged_update
+
+    cfg = Config.from_name(TINY_LLAMA)
+    nb = 1 + lanes * 128
+    kv = transformer.init_paged_kv_cache(cfg, nb, 16, dtype=kv_dtype, device="cuda",
+                                         n_layer=n_layer)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    new = torch.randn((n_layer, 2, lanes, 1, cfg.n_query_groups, cfg.head_size),
+                      generator=g, device="cuda").to(torch.bfloat16)
+    tables = torch.arange(1, nb, device="cuda", dtype=torch.int32).reshape(lanes, 128)
+    pos = torch.tensor([[37 + 211 * i] for i in range(lanes)], device="cuda")
+
+    def writes():
+        for layer in range(n_layer):
+            kl, vl = (transformer._layer_pool(kv[side], layer) for side in ("k", "v"))
+            paged_update(kl, vl, new[layer, 0], new[layer, 1], tables, pos)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        writes()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        writes()
+    return cuda_ms(graph.replay, 50)
+
+
+def phase_graphs(k1, k2, card):
+    """CUDA graphs against eager launches of the same steps, in turns
+    eager, graph, graph, eager (the module docstring, phase 15)."""
+    import statistics
+
+    import torch
+
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+
+    def medians(runs):
+        return {route: statistics.median(s["tokens_per_s"] for _, s in runs if s["route"] == route)
+                for route in ("eager", "graphs")}
+
+    base = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"]
+    graph_serve_run("graphs", SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8"], True)
+    for pool, extra in GRAPH_POOLS:
+        runs = []
+        for route, graphs in GRAPH_ROUTES:
+            results, summary, engine = graph_serve_run("graphs", base + extra, graphs)
+            runs.append((results, summary))
+            print(f"graphs: serve {pool} pool: " + json.dumps(summary), flush=True)
+            if pool == "bf16" and graphs:
+                k1.setdefault("paths", {})["graphs"] = summary["k1_launches"]
+            gen = engine.gen
+            del engine
+            torch.cuda.empty_cache()
+        syncs = {s["host_syncs"] for _, s in runs}
+        if len(syncs) != 1:
+            fail("graphs", f"{pool} pool: host_syncs differ between runs: {syncs}")
+        for a, b in ((1, 0), (2, 3)):
+            divergence_ok("graphs", gen, runs[a][0], runs[b][0], f"{pool} pool, graphs vs eager")
+        same = sum(runs[1][0][r] == runs[0][0][r] for r in runs[0][0])
+        med = medians(runs)
+        print(f"graphs: serve {pool} pool: {same} of {len(runs[0][0])} greedy streams identical "
+              f"between eager and graph runs, host_syncs {syncs.pop()} on every run; median "
+              f"tokens/s eager {med['eager']} graphs {med['graphs']} "
+              f"(x{med['graphs'] / med['eager']:.3f}); on {card}", flush=True)
+        del gen
+        torch.cuda.empty_cache()
+
+    cfg = Config.from_name(TINY_LLAMA)
+    params = transformer.init_params(cfg, 10137, dtype=torch.bfloat16, device="cuda")
+    gens = {graphs: Generator(cfg, params, max_seq_length=2048, device="cuda", _graphs=graphs)
+            for graphs in (False, True)}
+    prompts = long_prompts((1100, 1370, 1650, 1900), cfg.vocab_size)
+    first = {}
+    for graphs, gen in gens.items():  # first calls: the graph route captures here
+        outs, stats = gen.generate(prompts, 64, temperature=0.0, chunk_size=16)
+        first[graphs] = (outs, stats.captures, stats.capture_s)
+    if not first[True][1] > 0 or first[False][1]:
+        fail("graphs", f"generate's first calls captured {first[True][1]} (graphs) and "
+             f"{first[False][1]} (eager) decode-chunk graphs")
+    runs = []
+    for route, graphs in GRAPH_ROUTES:
+        gen = gens[graphs]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = flash_attention_plain.calls = 0
+        outs, stats = gen.generate(prompts, 64, temperature=0.0, chunk_size=16)
+        torch.cuda.synchronize()
+        launches, plain = flash_attention.launches, flash_attention_plain.calls
+        if launches != 22 or plain or stats.captures:
+            fail("graphs", f"generate ({route}): K2 launches {launches}, plain {plain}, "
+                 f"captures {stats.captures} (want 22, 0, 0)")
+        summary = {"route": route, "tokens_per_s": round(stats.tokens_per_s, 2),
+                   "decode_s": round(stats.decode_s, 4), "prefill_s": round(stats.prefill_s, 4),
+                   "graph_captures": stats.captures, "graph_steps": gen.graph_stats()["steps"],
+                   "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)}
+        print("graphs: generate: " + json.dumps(summary), flush=True)
+        runs.append((outs, summary))
+        if graphs:
+            k2.setdefault("paths", {})["graphs"] = launches
+    if any(outs != first[False][0] for outs, _ in runs) or first[True][0] != first[False][0]:
+        fail("graphs", "generate's greedy tokens differ between eager and graph runs")
+    med = medians(runs)
+    kept = sum(x.numel() * x.element_size() for kv in gens[True]._caches.values()
+               for x in kv.values())
+    # the graphs' private pools: what the card gets back when they go
+    n_steps = gens[True].graph_stats()["steps"]
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    gens[True]._steps.clear()
+    torch.cuda.empty_cache()
+    pools = (reserved - torch.cuda.memory_reserved()) / 2**20
+    print(f"graphs: generate: tokens identical on every run; the first graph call captured "
+          f"{first[True][1]} decode chunks in {first[True][2]:.3f} s, the later ones none; "
+          f"median decode tokens/s eager {med['eager']} graphs {med['graphs']} "
+          f"(x{med['graphs'] / med['eager']:.3f}); between calls the Generator keeps "
+          f"{len(gens[True]._caches)} dense caches ({kept / 2**20:.1f} MiB) and {n_steps} "
+          f"step graphs whose private pools hold {pools:.1f} MiB; on {card}", flush=True)
+    del gens
+    torch.cuda.empty_cache()
+
+    # the sampled check: the same generator state on both routes
+    serve_draws = {}
+    for route, graphs in GRAPH_ROUTES[:2]:
+        serve_draws[route], _summary, engine = graph_serve_run(
+            "graphs", base + ["--temperature", "0.8"], graphs)
+        del engine
+        torch.cuda.empty_cache()
+    gen_draws = {graphs: Generator(cfg, params, max_seq_length=2048, device="cuda",
+                                   _graphs=graphs).generate(prompts, 32, temperature=0.8,
+                                                            top_k=None)[0]
+                 for graphs in (False, True)}
+    same = sum(serve_draws["graphs"][r] == serve_draws["eager"][r] for r in serve_draws["eager"])
+    print(f"graphs: temperature 0.8 from the same generator state: {same} of "
+          f"{len(serve_draws['eager'])} serve streams and "
+          f"{sum(a == b for a, b in zip(gen_draws[True], gen_draws[False]))} of "
+          f"{len(prompts)} generate samples identical draw for draw between eager and "
+          "graph runs", flush=True)
+    # the distribution test holds the graph route's draws either way; it is
+    # the whole check where the draws differ from eager's.  float32, so the
+    # dense reference's top-k set is the engine's (in bf16 the two routes'
+    # roundings can swap a near-tie at the top-k boundary)
+    del params
+    torch.cuda.empty_cache()
+    sampled_frequencies_ok("graphs", tiny_llama_generator(4, torch.float32))
+    torch.cuda.empty_cache()
+
+    ms = {kind: paged_write_ms(kind) for kind in ("int8", torch.bfloat16)}
+    print(f"graphs: paged K/V writes of one decode forward (8 lanes x 22 layers), device "
+          f"time as graph replays: int8 pool {ms['int8']:.4f} ms, bf16 pool "
+          f"{ms[torch.bfloat16]:.4f} ms; on {card}", flush=True)
+
+
 PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
-          "train", "train-parity", "train-parity-bf16", "ckpt", "chat")
+          "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs")
 
 
 def main(argv=None) -> None:
@@ -1560,6 +1848,7 @@ def main(argv=None) -> None:
         "train-parity-bf16": phase_train_parity_bf16,
         "ckpt": lambda: phase_ckpt(k1, k2, card, ckpt_dir),
         "chat": lambda: phase_chat(k2, card, ckpt_dir),
+        "graphs": lambda: phase_graphs(k1, k2, card),
     }
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = Path(tmp) / TINY_LLAMA
@@ -1572,9 +1861,9 @@ def main(argv=None) -> None:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
     records = (k1, k1q8, k2, k3, k4)
     missing = [(r["name"], k) for r in records for k in keys if k not in r]
-    k2_paths = {"generate", "ckpt"} | (
+    k2_paths = {"generate", "ckpt", "graphs"} | (
         {"chat"} if importlib.util.find_spec("tokenizers") else set())
-    if only == set(PHASES) and (set(k1["paths"]) != {"serve", "ckpt"}
+    if only == set(PHASES) and (set(k1["paths"]) != {"serve", "ckpt", "graphs"}
                                 or set(k2["paths"]) != k2_paths):
         fail("record", f"K1 paths {k1['paths']}, K2 paths {k2['paths']}")
     if only == set(PHASES) and missing:

@@ -1,8 +1,13 @@
-"""Where a serve run's time goes on the GPU.
+"""Where a serve run's time goes on the GPU, with the engine's steps as
+CUDA graphs and as eager launches, in one call.
 
-Runs the serve CLI's path (same flags as `cli/serve.py`) once to warm up
-and once under `torch.profiler`, then prints one JSON line: the run's
-wall time, the device time summed over all kernels, the device's idle
+For each route (the graphs the port runs, then eager launches of the same
+step bodies, for comparison), builds the serve CLI's model and engine
+(same flags as `cli/serve.py`; on the graph route the steps are captured
+here, outside the window), runs the trace once to warm up, builds again
+and profiles `engine.run()` alone under `torch.profiler`, and prints one
+JSON line: the run's wall time, the device time summed over all kernels
+(the profiler sees each kernel of a replayed graph), the device's idle
 share of the wall time, and the kernels that took the most device time.
 The profiler's own cost is inside the profiled wall time, so the idle
 share is an upper bound.
@@ -45,25 +50,40 @@ def device_summary(prof, wall_s: float, top: int) -> dict:
     }
 
 
-def main(argv=None, top: int = 12) -> dict:
+def main(argv=None, top: int = 12) -> list:
     args = cli.build_parser().parse_args(argv)
     if torch.device(args.device).type != "cuda":
         raise SystemExit("profile_serve measures the GPU: run it with a CUDA device")
-    cli.serve(args)  # warm-up: CUDA context, cuBLAS handles, kernel build
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _trace, _results, stats, engine, _tokenizer = cli.serve(args)
+    lines = []
+    for route, graphs in (("graphs", True), ("eager", False)):
+        # warm-up: CUDA context, cuBLAS handles, kernel build
+        cli.serve(args, _graphs=graphs)
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    line = device_summary(prof, wall_s, top)
-    line.update(engine_wall_s=round(stats.wall_s, 4),
-                tokens_generated=stats.tokens_generated,
-                forward_calls=engine.forward_calls,
-                draft_forward_calls=engine.draft_forward_calls,
-                kv_dtype=engine.kv_dtype_name)
-    print(json.dumps(line))
-    return line
+        _trace, engine, _tokenizer = cli.build(args, _graphs=graphs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _results, stats = engine.run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        line = {"route": route, **device_summary(prof, wall_s, top)}
+        graph_stats = engine.graph_stats()
+        line.update(engine_wall_s=round(stats.wall_s, 4),
+                    tokens_generated=stats.tokens_generated,
+                    tokens_per_s=round(stats.tokens_per_s, 2),
+                    host_syncs=stats.host_syncs,
+                    forward_calls=engine.forward_calls,
+                    draft_forward_calls=engine.draft_forward_calls,
+                    graph_captures=graph_stats["captures"],
+                    graph_replays=graph_stats["replays"],
+                    capture_s=round(graph_stats["capture_s"], 4),
+                    kv_dtype=engine.kv_dtype_name)
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        del engine
+        torch.cuda.empty_cache()
+    return lines
+
 
 if __name__ == "__main__":
     main()

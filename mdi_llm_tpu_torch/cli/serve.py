@@ -151,7 +151,7 @@ def make_serving_config(args):
     )
 
 
-def build_generator(args, cfg, params):
+def build_generator(args, cfg, params, _graphs=None):
     from mdi_llm_tpu_torch.generation import Generator
 
     dtype = DTYPES[args.dtype]
@@ -164,12 +164,15 @@ def build_generator(args, cfg, params):
         ),
         rng_seed=args.seed,
         device=args.device,
+        _graphs=_graphs,
     )
 
 
-def serve(args):
-    """Build the model and engine the flags describe, queue the trace and
-    run it; returns (trace, results, stats, engine, tokenizer)."""
+def build(args, _graphs=None):
+    """Build the model and engine the flags describe and queue the trace;
+    returns (trace, engine, tokenizer).  On the card the engine's steps are
+    CUDA graphs captured here; `_graphs=False` (comparisons only) launches
+    them eagerly."""
     from mdi_llm_tpu_torch.serving.policy import make_policy
 
     for name, default in _UNPORTED.items():
@@ -178,7 +181,7 @@ def serve(args):
     resolve_device(args.device)  # raises before any work without the device
     serving_cfg = make_serving_config(args)
     cfg, params, tokenizer, _style = load_model(args, need_tokenizer=not args.synthetic)
-    gen = build_generator(args, cfg, params)
+    gen = build_generator(args, cfg, params, _graphs=_graphs)
     engine = gen.serve(serving=serving_cfg, policy=make_policy(args.policy))
     if args.synthetic:
         trace = synthetic_trace(
@@ -198,13 +201,22 @@ def serve(args):
                  for i, t in enumerate(texts)]
     for rid, prompt, new in trace:
         engine.add_request(rid, prompt, new)
+    return trace, engine, tokenizer
+
+
+def serve(args, _graphs=None):
+    """`build`, then run the trace; returns (trace, results, stats, engine,
+    tokenizer)."""
+    trace, engine, tokenizer = build(args, _graphs=_graphs)
     results, stats = engine.run()
     return trace, results, stats, engine, tokenizer
 
 
 def stats_line(stats, engine) -> dict:
-    """The JSON stats line: the engine's stats plus device and route."""
+    """The JSON stats line: the engine's stats plus device, route and the
+    step graphs (captured when the engine was built, outside wall_s)."""
     line = stats.to_dict()
+    graphs = engine.graph_stats()
     dev = engine.device
     line.update({
         "kv_dtype": engine.kv_dtype_name,
@@ -214,6 +226,9 @@ def stats_line(stats, engine) -> dict:
         "tokens_per_s_per_chip": round(stats.tokens_per_s, 2),
         "forward_calls": engine.forward_calls,
         "draft_forward_calls": engine.draft_forward_calls,
+        "graph_captures": graphs["captures"],
+        "graph_replays": graphs["replays"],
+        "capture_s": round(graphs["capture_s"], 3),
         "device": {
             "type": dev.type,
             "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",

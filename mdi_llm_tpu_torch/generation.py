@@ -13,13 +13,21 @@ Port of `mdi_llm_tpu/generation.py` for one device:
   prefills only each new turn at its offset.
 - `Generator.serve`: the paged-KV serving engine (`serving/engine.py`).
 
-PyTorch runs eagerly, so the JAX package's jitted per-shape executables
-(`_prefill_fn(B, T)`, `_decode_chunk_fn(B, K)`, `_verify_fn(T)`,
-`_prefill_at_fn(T)`, `_grow_kv_fn(S)`) become plain methods (`_prefill`,
-`_decode_chunk`, `_verify`, `_prefill_at`, `_grow_kv`), and the cache is
-updated in place where the JAX package donates it.  A prefill whose bucket
-reaches `flash_min_len` runs its attention through kernel K2
-(`ops/flash.py`) when `use_flash` is on — by default on a CUDA device.
+`generate`'s decode chunk, the JAX package's `_decode_chunk_fn(B, K)`, is
+a `StepGraph` (`utils/step_graph.py`) per (B, cache_len, n_steps, mode,
+top_k): on the card a CUDA graph captured at its first run and replayed,
+over a dense KV cache kept per (B, cache_len) on the Generator and zeroed
+at the start of every call (the JAX package starts each call from fresh
+zeros and donates the cache to each step).  The caches and graphs of one
+cache length are kept between calls, so a second call with the same
+shapes captures nothing.  The other jitted executables (`_prefill_fn(B,
+T)`, `_verify_fn(T)`, `_prefill_at_fn(T)`, `_grow_kv_fn(S)`) become plain
+methods that launch eagerly (`_prefill`, `_verify`, `_prefill_at`,
+`_grow_kv`), as do the one-step decodes of `ChatSession` and the n-gram
+speculative path (`_decode_chunk`); the cache is updated in place where
+the JAX package donates it.  A prefill whose bucket reaches
+`flash_min_len` runs its attention through kernel K2 (`ops/flash.py`) when
+`use_flash` is on — by default on a CUDA device.
 The random draws come from one `torch.Generator` seeded with `rng_seed`:
 sampled streams follow the JAX package's distribution, not its draws;
 greedy streams are the same token for token.
@@ -38,12 +46,14 @@ from mdi_llm_tpu_torch.config import TEMPERATURE, TOP_K, Config
 from mdi_llm_tpu_torch.models import transformer
 from mdi_llm_tpu_torch.ops.flash import KERNEL_HEAD_SIZES
 from mdi_llm_tpu_torch.ops.sampling import (
+    operand_values,
     sample,
     sample_mode,
     sample_traced,
     sampling_operands,
 )
 from mdi_llm_tpu_torch.utils.context_managers import catch_loop_errors
+from mdi_llm_tpu_torch.utils.step_graph import StepGraph, summarize
 
 
 def resolve_device(device=None) -> torch.device:
@@ -246,6 +256,10 @@ class GenerationStats:
     compactions: int = 0
     # True when the decode loop ended on Ctrl-C (partial output)
     interrupted: bool = False
+    # decode-chunk graphs this call captured, and the seconds that took
+    # (inside decode_s)
+    captures: int = 0
+    capture_s: float = 0.0
 
     @property
     def tokens_per_s(self) -> float:
@@ -280,6 +294,8 @@ class Generator:
         mesh: Any = None,
         scan_unroll: int = 1,
         abstract: bool = False,
+        _graphs: Optional[bool] = None,  # None → CUDA graphs on the card;
+        # False launches the step bodies eagerly (comparisons on the card)
     ):
         if quantize not in (None, "none"):
             _refuse(f"quantize={quantize!r}: weight quantization, item 10")
@@ -312,6 +328,11 @@ class Generator:
                 f"{cfg.name}: head size {cfg.head_size} is not one kernel K2 "
                 f"is built for {KERNEL_HEAD_SIZES}; pass use_flash=False"
             )
+        self._graphs = self.device.type == "cuda" if _graphs is None else bool(_graphs)
+        # generate's dense caches per (B, cache_len) and decode-chunk steps
+        # per (B, cache_len, n_steps, mode, top_k), one cache length at a time
+        self._caches: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
+        self._steps: Dict[tuple, StepGraph] = {}
 
     # -- model steps ---------------------------------------------------------
 
@@ -354,19 +375,66 @@ class Generator:
         logits = self._forward(self._tensor(batch), self._tensor([pos]), kv)
         return self._last_logits(logits, [true_len])
 
-    def _decode_chunk(self, tok, kv, positions, n_steps: int, t_op, p_op,
-                      mode: str, top_k) -> np.ndarray:
+    def _decode_steps(self, tok, pos, kv, n_steps: int, t_op, p_op, mode: str,
+                      top_k) -> torch.Tensor:
         """`n_steps` decode steps from the last tokens `tok` (B,) at
-        `positions` (B,); one host read at the end.  Returns (n_steps, B)."""
-        tok = self._tensor(tok)
-        pos = self._tensor(positions)
+        positions `pos` (B,), device tensors; returns (n_steps, B) on the
+        device, with no host read."""
         toks = []
         for _ in range(n_steps):
             logits = self._forward(tok[:, None], pos, kv)
             tok = sample_traced(logits[:, -1], self.rng, t_op, p_op, mode=mode, top_k=top_k)
             toks.append(tok)
             pos = pos + 1
-        return torch.stack(toks).cpu().numpy()
+        return torch.stack(toks)
+
+    def _decode_chunk(self, tok, kv, positions, n_steps: int, t_op, p_op,
+                      mode: str, top_k) -> np.ndarray:
+        """`_decode_steps` launched eagerly from host values; one host read
+        at the end.  Returns (n_steps, B)."""
+        toks = self._decode_steps(
+            self._tensor(tok), self._tensor(positions), kv, n_steps, t_op, p_op, mode, top_k
+        )
+        return toks.cpu().numpy()
+
+    def _run_cache(self, B: int, cache_len: int) -> Dict[str, torch.Tensor]:
+        """generate's dense cache of (B, cache_len), kept on the Generator:
+        the decode-chunk graphs read and write it at a fixed address."""
+        key = (B, cache_len)
+        if key not in self._caches:
+            self._caches[key] = self._init_kv(B, cache_len)
+        return self._caches[key]
+
+    def _keep_cache_len(self, cache_len: int) -> None:
+        """Drop the caches and steps of every other cache length: what a
+        Generator keeps between calls is bounded by one run's shapes."""
+        self._caches = {k: v for k, v in self._caches.items() if k[1] == cache_len}
+        self._steps = {k: v for k, v in self._steps.items() if k[1] == cache_len}
+
+    def _decode_step(self, B: int, cache_len: int, n_steps: int, mode: str,
+                     top_k) -> StepGraph:
+        """generate's decode chunk (the JAX `_decode_chunk_fn(B, n_steps)`)
+        at one key, over the cache of (B, cache_len)."""
+        key = (B, cache_len, n_steps, mode, top_k)
+        if key not in self._steps:
+
+            def buf(*shape, dtype=torch.long):
+                return torch.zeros(shape, dtype=dtype, device=self.device)
+
+            self._steps[key] = StepGraph(
+                "generate.decode_chunk", key, self, Generator._decode_steps,
+                dict(tok=buf(B), pos=buf(B), t_op=buf(dtype=torch.float32),
+                     p_op=buf(dtype=torch.float32)),
+                static=dict(kv=self._run_cache(B, cache_len), n_steps=n_steps,
+                            mode=mode, top_k=top_k),
+                capture=self._graphs, generators=[self.rng],
+            )
+        return self._steps[key]
+
+    def graph_stats(self) -> Dict[str, Any]:
+        """generate's decode-chunk steps held now: built, captured,
+        replayed, capture seconds."""
+        return summarize(self._steps.values())
 
     def _verify(self, tokens: np.ndarray, kv, positions) -> np.ndarray:
         """Greedy verification forward for speculative decoding: the greedy
@@ -460,18 +528,25 @@ class Generator:
 
         stats = GenerationStats()
         t0 = time.perf_counter()
+        self._keep_cache_len(cache_len)
+        graphs0 = self.graph_stats()
         p0 = list(prompts[0])
         if shared_prefill is None:  # greedy only (see the docstring)
             shared_prefill = temperature == 0.0
         shared = shared_prefill and B > 1 and all(list(p) == p0 for p in prompts[1:])
         if shared:
-            kv1 = self._init_kv(1, cache_len)
+            kv1 = self._run_cache(1, cache_len)
+            for x in kv1.values():
+                x.zero_()
             last1 = self._prefill(batch[:1], kv1, lens[:1])
             last_logits = last1.expand(B, -1)
-            kv = {n: x.expand(-1, B, -1, -1, -1).contiguous() for n, x in kv1.items()}
-            del kv1
+            kv = self._run_cache(B, cache_len)
+            for n, x in kv1.items():
+                kv[n].copy_(x.expand(-1, B, -1, -1, -1))
         else:
-            kv = self._init_kv(B, cache_len)
+            kv = self._run_cache(B, cache_len)
+            for x in kv.values():
+                x.zero_()
             last_logits = self._prefill(batch, kv, lens)
         # first sampled token (from the prefill logits)
         tok = self._first_token(last_logits, temperature, top_k, top_p)
@@ -570,13 +645,17 @@ class Generator:
                 return
             sel = active + [active[0]] * (nB - len(active))
             sel_t = self._tensor(sel)
-            kv = {kk: vv.index_select(1, sel_t) for kk, vv in kv.items()}
+            small = self._run_cache(nB, cache_len)
+            for kk, vv in kv.items():
+                small[kk].copy_(vv.index_select(1, sel_t))
+            kv = small
             tok = tok[np.asarray(sel)]
             positions = positions[np.asarray(sel)]
             lanes = [lanes[b] for b in active] + [None] * (nB - len(active))
             stats.compactions += 1
 
-        t_op, p_op, mode = self._sampling(temperature, top_k, top_p)
+        mode = sample_mode(temperature, top_k, top_p)
+        t_val, p_val = operand_values(temperature, top_p)
         # Ctrl-C mid-loop returns what was generated so far
         with catch_loop_errors() as guard:
             while n < max_new_tokens and not all(done) and not stats.interrupted:
@@ -586,7 +665,11 @@ class Generator:
                 k = min(chunk_size, max_new_tokens - n, room)
                 if k < 1:
                     break
-                toks_np = self._decode_chunk(tok, kv, positions, k, t_op, p_op, mode, top_k)
+                step = self._decode_step(len(lanes), cache_len, k, mode, top_k)
+                # a copy: the step's outputs are overwritten by its next run
+                toks_np = np.array(step.run(
+                    tok=tok, pos=positions, t_op=t_val, p_op=p_val
+                ).cpu())
                 for i in range(k):
                     n += 1
                     emit(toks_np[i], n)
@@ -595,6 +678,9 @@ class Generator:
 
         stats.interrupted = stats.interrupted or guard.interrupted
         stats.decode_s = time.perf_counter() - t_dec
+        graphs = self.graph_stats()
+        stats.captures = graphs["captures"] - graphs0["captures"]
+        stats.capture_s = graphs["capture_s"] - graphs0["capture_s"]
         stats.tokens_generated = sum(len(o) - l for o, l in zip(out, lens))
 
         # final truncation at the earliest stop sequence

@@ -244,7 +244,11 @@ def run_blocks(
 def embed(cfg: Config, params: Params, tokens: torch.Tensor, pos: torch.Tensor):
     x = params["wte"]["weight"][tokens.long()]
     if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.n_embd**0.5, dtype=x.dtype, device=x.device)
+        # the JAX package multiplies by the scale cast to x's dtype; a 0-d
+        # CPU tensor keeps that rounding and is read as a kernel argument,
+        # where a device tensor made from a scalar would be a host-to-device
+        # copy (refused inside a CUDA graph capture)
+        x = x * torch.full((), cfg.n_embd**0.5, dtype=x.dtype)
     if cfg.pos_embedding == "learned":
         wpe = params["wpe"]["weight"]
         x = x + wpe[pos.long().clamp(0, wpe.shape[0] - 1)]

@@ -45,9 +45,9 @@ def multihead_attention(
     if kv_valid_len is not None:
         slot = torch.arange(Tk, device=q.device)
         mask = mask & (slot[None, None, :] < kv_valid_len[:, None, None])
-    logits = torch.where(
-        mask[:, None, None], logits, torch.tensor(NEG_INF, device=q.device)
-    )
+    # a Python scalar, not a device tensor made from one: that would be a
+    # host-to-device copy, illegal inside a CUDA graph capture
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
     probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     probs = (probs / probs.sum(dim=-1, keepdim=True)).to(v.dtype)
     out = torch.einsum("bgqts,bgsh->bgqth", probs, v)

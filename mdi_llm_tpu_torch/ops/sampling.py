@@ -40,16 +40,15 @@ def _nucleus_filter(logits: torch.Tensor, top_p) -> torch.Tensor:
     sorted_probs = torch.softmax(sorted_logits, dim=-1)
     cum = torch.cumsum(sorted_probs, dim=-1)
     exceeded = (cum - sorted_probs) > top_p
-    inf = torch.tensor(float("inf"), device=logits.device)
-    cutoff = torch.where(exceeded, inf, sorted_logits).amin(dim=-1, keepdim=True)
-    return torch.where(logits < cutoff, -inf, logits)
+    # Python scalars in `torch.where`: a device tensor made from a scalar
+    # is a host-to-device copy, which a CUDA graph capture refuses
+    cutoff = torch.where(exceeded, float("inf"), sorted_logits).amin(dim=-1, keepdim=True)
+    return torch.where(logits < cutoff, float("-inf"), logits)
 
 
 def _topk_filter(logits: torch.Tensor, top_k: int) -> torch.Tensor:
     kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-    return torch.where(
-        logits < kth, torch.tensor(float("-inf"), device=logits.device), logits
-    )
+    return torch.where(logits < kth, float("-inf"), logits)
 
 
 def sample(
@@ -82,13 +81,20 @@ def sample_mode(
     return "top_k"
 
 
+def operand_values(temperature: float, top_p: Optional[float]) -> Tuple[float, float]:
+    """The values of `sampling_operands`: unused knobs get a harmless 1.0
+    so every mode takes the same arguments."""
+    t = temperature if temperature and temperature > 0 else 1.0
+    p = top_p if top_p is not None else 1.0
+    return float(t), float(p)
+
+
 def sampling_operands(
     temperature: float, top_p: Optional[float], device="cpu"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """float32 operands for `sample_traced`; unused knobs get a harmless
-    1.0 so every mode takes the same arguments."""
-    t = temperature if temperature and temperature > 0 else 1.0
-    p = top_p if top_p is not None else 1.0
+    """float32 operands for `sample_traced` (`operand_values` on
+    `device`)."""
+    t, p = operand_values(temperature, top_p)
     return (
         torch.tensor(t, dtype=torch.float32, device=device),
         torch.tensor(p, dtype=torch.float32, device=device),
@@ -182,8 +188,7 @@ def speculative_verify(
     if K > 0:
         rej_tok = draft.gather(1, a.clamp(max=K - 1)[:, None])[:, 0]
         masked = torch.where(
-            torch.arange(V, device=dev)[None, :] == rej_tok[:, None],
-            torch.tensor(float("-inf"), device=dev), row_f,
+            torch.arange(V, device=dev)[None, :] == rej_tok[:, None], float("-inf"), row_f,
         )
         row_f = torch.where((a < draft_len)[:, None], masked, row_f)
     last = torch.multinomial(torch.softmax(row_f, dim=-1), 1, generator=generator)[:, 0]

@@ -23,11 +23,20 @@ is one of:
   plus a CUDA event, so it overlaps chunk N+1's compute;
 - per-token decode (`_run_decode`) when `decode_chunk == 1`.
 
-The pool is updated in place by every forward (the JAX package donates it
-to each jitted step for the same effect).  Its storage is the Generator's
-cache dtype, or `ServingConfig.kv_dtype`: a float name (float8 included)
-casts on write, "int8" builds the quantized pool of per-(block, group)
-scales.  A draft model (`draft_model`, or `Generator.serve(draft_gen=)`)
+The mixed step, the decode chunk and the per-token decode are each one
+`StepGraph` (`utils/step_graph.py`), the counterpart of the JAX engine's
+jitted executables per shape (`_mixed_fn(B, T)`, `_decode_chunk_fn(B, K)`,
+`_decode_fn(B)`): static input buffers at (max_batch, token_budget) or
+(max_batch, decode_chunk), filled per step, and on the card a CUDA graph
+captured over them when the engine is built, with inert operands (all-zero
+tables: every write lands in the trash block), and replayed at every step
+— kernel K1 included.  The CPU runs the same bodies on the same buffers.
+The speculative verify, the draft scan and the draft mirror of the mixed
+step stay eager.  The pool is updated in place by every forward (the JAX
+package donates it to each jitted step for the same effect).  Its storage
+is the Generator's cache dtype, or `ServingConfig.kv_dtype`: a float name
+(float8 included) casts on write, "int8" builds the quantized pool of
+per-(block, group) scales.  A draft model (`draft_model`, or `Generator.serve(draft_gen=)`)
 keeps its own paged pool of the same dtype and follows the target's feed
 positions through the mixed steps.  Greedy streams equal the JAX engine's
 token for token on the same weights (tests/test_torch_serving.py,
@@ -65,6 +74,7 @@ from mdi_llm_tpu_torch.ops.sampling import (
 )
 from mdi_llm_tpu_torch.serving.kv_pool import KVPool
 from mdi_llm_tpu_torch.serving.scheduler import Request, Scheduler, SequenceState
+from mdi_llm_tpu_torch.utils.step_graph import StepGraph, summarize
 
 __all__ = ["ServingEngine", "ServingStats", "check_serving_config"]
 
@@ -274,7 +284,11 @@ class ServingEngine:
     """
 
     def __init__(self, gen: Generator, serving: ServingConfig, policy=None,
-                 draft_gen: Optional[Generator] = None):
+                 draft_gen: Optional[Generator] = None,
+                 _graphs: Optional[bool] = None):
+        """`_graphs` (private, for comparisons on the card only): False
+        runs the step bodies as eager launches; None follows the
+        Generator's switch (CUDA graphs on the card)."""
         check_serving_config(serving)
         self.gen = gen
         self.cfg = serving
@@ -328,6 +342,59 @@ class ServingEngine:
         self.stats = ServingStats()
         self._results: Dict[str, List[int]] = {}
         self._stream_cb = None
+        self._graphs = gen._graphs if _graphs is None else bool(_graphs)
+        self._steps = self._build_steps()
+        self._capture_steps()
+
+    # -- the per-shape steps (CUDA graphs on the card) -----------------------
+
+    def _build_steps(self) -> Dict[str, StepGraph]:
+        """The mixed step at (max_batch, token_budget) and the decode step
+        this engine takes: the K-step chunk at (max_batch, decode_chunk), or
+        the per-token decode at max_batch.  Each keys on the sampler's mode
+        and top_k too, as the JAX engine's executables do; temperature and
+        top_p ride as the device operands `_t_op`/`_p_op`."""
+        B, T = self.scheduler.max_batch, self.token_budget
+        MB, K = self.max_blocks_per_seq, self.cfg.decode_chunk
+        sampler = (self._sample_mode, self.cfg.top_k)
+
+        def buf(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        def step(name, key, body, **inputs):
+            return StepGraph(
+                name, key + sampler, self, body, inputs, capture=self._graphs,
+                generators=[self._rng], counters=["forward_calls"],
+            )
+
+        cls = type(self)
+        steps = {"mixed": step(
+            "mixed", (B, T), cls._mixed_body, tokens=buf(1, T), pos=buf(1, T),
+            q_slot=buf(T), q_start=buf(B), q_len=buf(B),
+            last_idx=buf(B, dtype=torch.int64), tables=buf(B, MB),
+        )}
+        if K > 1:
+            steps["decode_chunk"] = step(
+                "decode_chunk", (B, K), cls._decode_chunk_body, tok=buf(B),
+                pos=buf(B), tables=buf(B, MB), limit=buf(B), stop_tok=buf(B),
+            )
+        else:
+            steps["decode"] = step(
+                "decode", (B,), cls._decode_body, tok=buf(B), pos=buf(B),
+                tables=buf(B, MB),
+            )
+        return steps
+
+    def _capture_steps(self) -> None:
+        """Capture every step over its zero-filled (inert) inputs: all-zero
+        tables send every write to the trash block, so no live block
+        changes.  A no-op on the CPU and with `_graphs` off."""
+        for s in self._steps.values():
+            s.prime()
+
+    def graph_stats(self) -> Dict[str, Any]:
+        """Steps built, graphs captured and replayed, capture seconds."""
+        return summarize(self._steps.values())
 
     # -- draft model (speculative drafting over a second paged pool) ---------
 
@@ -416,9 +483,11 @@ class ServingEngine:
         return t
 
     def _read_async(self, x: torch.Tensor):
-        """Start a device -> host copy of `x`; `_wait` returns it as numpy."""
+        """Start a device -> host copy of `x`; `_wait` returns it as numpy.
+        A step's outputs are overwritten by its next run, so the CPU copies
+        too."""
         if self.device.type != "cuda":
-            return x, None
+            return x.clone(), None
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         host.copy_(x, non_blocking=True)
         event = torch.cuda.Event()
@@ -543,13 +612,14 @@ class ServingEngine:
             last_idx[seq.slot] = off + n - 1
             off += n
         tables = self._sync_tables([s for s, _ in live])
-        up = self._upload
-        ragged = (up(q_slot), up(q_start), up(q_len))
-        logits = self._forward(up(tokens), up(pos), up(tables), paged_ragged=ragged)
-        read = self._read_async(self._sample(logits[0, up(last_idx)]))
+        step = self._steps["mixed"]
+        read = self._read_async(step.run(
+            tokens=tokens, pos=pos, q_slot=q_slot, q_start=q_start, q_len=q_len,
+            last_idx=last_idx, tables=tables,
+        ))
         # the draft model follows the same packed batch, queued before the
         # host waits on the step's one read
-        self._mirror_mixed_to_draft(live, tokens, pos, ragged)
+        self._mirror_mixed_to_draft(live, step.inputs)
         nxt = self._wait(read)  # the step's one host read
         self.stats.mixed_steps += 1
         self.stats.host_syncs += 1
@@ -581,13 +651,20 @@ class ServingEngine:
             self.stats.decode_steps += 1
         self.stats.prefill_s += time.perf_counter() - t0
 
-    def _mirror_mixed_to_draft(self, live, tokens: np.ndarray, pos: np.ndarray,
-                               ragged) -> None:
+    def _mixed_body(self, tokens, pos, q_slot, q_start, q_len, last_idx, tables):
+        """The mixed step (the JAX `_mixed_fn`): one ragged forward, then
+        the sampled successor of each slot's last packed token, (B,)."""
+        logits = self._forward(tokens, pos, tables, paged_ragged=(q_slot, q_start, q_len))
+        return self._sample(logits[0, last_idx])
+
+    def _mirror_mixed_to_draft(self, live, inputs: Dict[str, torch.Tensor]) -> None:
         """Feed the mixed step's packed batch through the draft model, so
         its pool tracks the target's feed positions (`draft_fed == fed`).
-        Only lanes the draft follows get table rows: stale lanes, and lanes
-        the draft carve-out cannot cover, write into the draft trash block
-        and keep the n-gram drafter."""
+        It reads the mixed step's static inputs, which hold this step's
+        batch until the next step loads its own (stream order).  Only lanes
+        the draft follows get table rows: stale lanes, and lanes the draft
+        carve-out cannot cover, write into the draft trash block and keep
+        the n-gram drafter."""
         if self.draft_gen is None:
             return
         fresh = []
@@ -600,9 +677,9 @@ class ServingEngine:
             fresh.append((seq, n))
         if not fresh:
             return
-        tables = self._sync_draft_tables([s for s, _ in fresh])
-        up = self._upload
-        self._draft_forward(up(tokens), up(pos), up(tables), paged_ragged=ragged)
+        tables = self._upload(self._sync_draft_tables([s for s, _ in fresh]))
+        ragged = (inputs["q_slot"], inputs["q_start"], inputs["q_len"])
+        self._draft_forward(inputs["tokens"], inputs["pos"], tables, paged_ragged=ragged)
         for seq, n in fresh:
             seq.draft_fed += n
 
@@ -658,10 +735,9 @@ class ServingEngine:
             tok[seq.slot] = seq.next_tok
             pos[seq.slot] = seq.fed
         tables = self._sync_tables(live)
-        logits = self._forward(
-            self._upload(tok)[:, None], self._upload(pos), self._upload(tables)
-        )
-        nxt = self._wait(self._read_async(self._sample(logits[:, -1])))
+        nxt = self._wait(self._read_async(
+            self._steps["decode"].run(tok=tok, pos=pos, tables=tables)
+        ))
         self.stats.decode_steps += 1
         self.stats.host_syncs += 1
         self.stats.observe_dispatch(B, len(live))
@@ -672,18 +748,23 @@ class ServingEngine:
             self._emit(seq, int(nxt[seq.slot]))
         self.stats.decode_s += time.perf_counter() - t0
 
+    def _decode_body(self, tok, pos, tables):
+        """The per-token decode step (the JAX `_decode_fn`): (B,) successors."""
+        return self._sample(self._forward(tok[:, None], pos, tables)[:, -1])
+
     # -- chunked decode (the multi-token serving step) ------------------------
 
-    def _decode_chunk(self, tok, pos, tables, limit, stop_tok, K: int):
-        """K batched decode steps on the device with no host read.  A lane
-        advances while `i < limit[lane]` and it has not sampled its stop
-        token; a frozen lane re-forwards its last (token, position), which
-        rewrites the identical K/V bytes, and a dead lane's zero table row
+    def _decode_chunk_body(self, tok, pos, tables, limit, stop_tok):
+        """K = decode_chunk batched decode steps on the device with no host
+        read (the JAX `_decode_chunk_fn`).  A lane advances while `i <
+        limit[lane]` and it has not sampled its stop token; a frozen lane
+        re-forwards its last (token, position), which rewrites the
+        identical K/V bytes, and a dead lane's zero table row
         sends its writes to the trash block — so no masked step perturbs a
         live stream.  Returns (tokens (K, B), final token, final pos)."""
         done = torch.zeros_like(tok, dtype=torch.bool)
         toks = []
-        for i in range(K):
+        for i in range(self.cfg.decode_chunk):
             active = (limit > i) & ~done
             logits = self._forward(tok[:, None], pos, tables)
             nxt = torch.where(active, self._sample(logits[:, -1]), tok)
@@ -773,15 +854,15 @@ class ServingEngine:
             pos[seq.slot] = seq.fed
             stop1[seq.slot] = self._stop1(seq)
             limits[seq.slot] = self._chunk_limit(seq, K)
-        tok_d, pos_d = self._upload(tok), self._upload(pos)
-        stop_d = self._upload(stop1)
+        step = self._steps["decode_chunk"]
+        # chunk N+1 starts from chunk N's final token and position: the
+        # step's own outputs, copied into its inputs on the device
+        carry = dict(tok=tok, pos=pos, stop_tok=stop1)
         tables = self._sync_tables(live)
         pending = None  # (limits, tokens being copied to the host)
         while True:
-            toks_d, tok_d, pos_d = self._decode_chunk(
-                tok_d, pos_d, self._upload(tables), self._upload(limits),
-                stop_d, K,
-            )
+            toks_d, tok_d, pos_d = step.run(tables=tables, limit=limits, **carry)
+            carry = dict(tok=tok_d, pos=pos_d)
             self.stats.decode_steps += K
             # useful tokens are credited at drain time (a lane frozen
             # mid-chunk reports its remaining steps as padding)
@@ -1006,8 +1087,9 @@ class ServingEngine:
         verify (the sampled one when the engine samples), and with a draft
         model one draft scan and one draft mixed step.  Every table row is
         0, so every write lands in a trash block and no live block or
-        sequence changes.  The JAX engine compiles its executables here;
-        on the card it warms the same kernels and library handles."""
+        sequence changes.  The JAX engine compiles its executables here; on
+        the card it warms the same kernels and library handles (the step
+        graphs were captured when the engine was built)."""
         K = self.cfg.spec_k
         if not K:
             return
