@@ -163,10 +163,40 @@ non-zero.
    peak memory per run, and the device time of 22 layers' paged writes
    (one decode forward of 8 lanes) over an int8 pool against a bf16 one,
    timed as graph replays.
+16. server — the observer and the open-system server (`obs/`, `server/`,
+   `cli/server.py`) at the serve phase's set-up (tiny-llama-1.1b, all 22
+   layers, bf16, random weights from seed 10137, 8 slots, 16-token blocks,
+   2048-token window, decode chunk 8 with double buffering, CUDA graphs),
+   over 32 synthetic requests (prompts 4-511, 8-64 new tokens):
+   (a) the trace through an offline `engine.run()`, then submitted whole
+   to a `ServingFrontend` before `start()` with the observer on and off:
+   the streams and host_syncs must equal the offline run's;
+   (b) the trace through `OpenLoopRunner` at Poisson rates of 25% and
+   100% of (a)'s finished requests per second;
+   (c) `cli.server` as a subprocess on a free localhost port (its module
+   run as `__main__`, with K1's counts printed at exit): one SSE and one
+   JSON completion must give the greedy tokens of the same requests
+   served alone in-process, and (a)'s but for a bf16 near-tie (what else
+   is in the batch decides whether a decode token runs in a mixed step
+   or a decode chunk, another summation order: `bf16_near_tie` prints
+   the divergence and fails unless the bf16 top-2 gap there is within two
+   bf16 roundings), `/healthz` 200,
+   `/metrics` parses with `serving_tokens_generated_total` equal to
+   `/v1/stats`' `tokens_generated`, and SIGTERM drains and exits 0;
+   (d) `cli.serve --spec-k 4 --draft-model NanoLlama --metrics-out
+   --trace-out`: the observer's spec counters equal the stats line's,
+   the verify spans carry `spec_k` 4 and their `accepted` sum to
+   `spec_accepted`.  Every part: K1 launched 22 times per forward (and
+   12 per draft forward) and the plain route never, counted at replay; no
+   capture after warm-up (the captures guard, or `graph_captures_total`
+   read from the observer); no step report with `error` set; MFU and MBU
+   in (0, 1].  Prints TTFT/TPOT/E2E/queue-wait p50/p95/p99, tokens/s and
+   MFU/MBU per part, with the card's name and power limit.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4, each with `paths`: its launches in every phase that drives
-it); the last line is `{"ok": true, "device": {...}}`.
+it, K1's `server` the closed submission's with the observer on); the last
+line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -372,7 +402,7 @@ def serve_checked(phase, argv, draft_layers=0):
              f"target + {draft_layers} x {engine.draft_forward_calls} draft forwards")
     if plain:
         fail(phase, f"the plain attention route ran {plain} times on the card")
-    line = cli.stats_line(stats, engine)
+    line = cli.stats_line(stats, engine, [len(p) + n / 2 for _rid, p, n in trace])
     return line, launches, engine, results
 
 
@@ -1763,9 +1793,411 @@ def phase_graphs(k1, k2, card):
           f"{ms[torch.bfloat16]:.4f} ms; on {card}", flush=True)
 
 
+SERVER_REQUESTS = 32  # the closed submission's synthetic trace
+# the server's process under cli.server's own entry, with K1's and the plain
+# route's counts printed when it exits (a replay runs no Python, so the
+# counts are StepGraph's, as in every phase)
+SERVER_ENTRY = (
+    "import atexit, json, runpy, sys\n"
+    "from mdi_llm_tpu_torch.ops import paged_attention as pa\n"
+    "from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention as k1\n"
+    "atexit.register(lambda: print('K1-COUNTS ' + json.dumps({'k1': k1.launches, "
+    "'plain': pa._paged_prefill_plain.calls + pa._paged_attention_plain.calls}), "
+    "file=sys.stderr, flush=True))\n"
+    "sys.argv = ['mdi_llm_tpu_torch.cli.server'] + sys.argv[1:]\n"
+    "runpy.run_module('mdi_llm_tpu_torch.cli.server', run_name='__main__', alter_sys=True)\n"
+)
+
+
+def reset_k1_counts():
+    from mdi_llm_tpu_torch.ops import paged_attention as pa
+    from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention
+
+    ragged_paged_attention.launches = ragged_paged_attention.merge_launches = 0
+    pa._paged_prefill_plain.calls = pa._paged_attention_plain.calls = 0
+
+
+def k1_counts() -> tuple:
+    import torch
+
+    from mdi_llm_tpu_torch.ops import paged_attention as pa
+    from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention
+
+    torch.cuda.synchronize()
+    return (ragged_paged_attention.launches,
+            pa._paged_prefill_plain.calls + pa._paged_attention_plain.calls)
+
+
+def utilization_ok(phase, label, mfu, mbu) -> None:
+    if mfu is None or mbu is None or not (0 < mfu <= 1 and 0 < mbu <= 1):
+        fail(phase, f"{label}: MFU {mfu} / MBU {mbu} not in (0, 1] (is the card an "
+             "SXM H100, the one row of obs/roofline.DEVICE_PEAKS?)")
+
+
+def server_part(label, gen, serving, trace, drive, observe=True):
+    """One part of the `server` phase: a fresh engine over `gen` (captured
+    when built, its observer measuring with device capture), `drive(engine)`
+    with every count set to 0 just before and read just after, under a
+    captures guard marked warm once the engine is built.  Fails unless K1
+    ran 22 times per forward, the plain route never, nothing captured after
+    warm-up, no step report has `error` set, every request finished with
+    its budget in the vocabulary and MFU/MBU lie in (0, 1].  Returns
+    (results, engine, launches, summary)."""
+    from mdi_llm_tpu_torch.cli import serve as cli
+    from mdi_llm_tpu_torch.obs import ServingObserver
+    from mdi_llm_tpu_torch.utils.profiling import CompileGuard, RecompileError
+
+    guard = CompileGuard(label=f"server {label}")
+    with guard:
+        engine = gen.serve(serving=serving, obs=ServingObserver(device=True) if observe else None)
+        guard.mark_warm()
+        reset_k1_counts()
+        results, extra = drive(engine)
+        launches, plain = k1_counts()
+    try:
+        guard.expect_clean()
+    except RecompileError as e:
+        fail("server", f"{label}: {e}")
+    n_layer, vocab = gen.cfg.n_layer, gen.cfg.padded_vocab_size
+    if n_layer != 22 or launches <= 0 or launches != n_layer * engine.forward_calls or plain:
+        fail("server", f"{label}: K1 launches {launches} != {n_layer} x "
+             f"{engine.forward_calls} forwards, plain route {plain}")
+    for rid, prompt, new in trace:
+        out = results.get(rid)
+        if out is None or len(out) - len(prompt) != new or not all(
+                0 <= t < vocab for t in out[len(prompt):]):
+            fail("server", f"{label}: {rid} did not finish with its {new} tokens in the vocabulary")
+    stats = engine.stats
+    if observe:
+        errors = {r.name: r.error for r in engine.obs.device.reports() if r.error}
+        if errors or len(engine.obs.device) < 2:
+            fail("server", f"{label}: step reports {errors or 'missing'}")
+    roof = cli.roofline_block(engine, stats, [len(p) + n / 2 for _rid, p, n in trace])
+    utilization_ok("server", label, roof["mfu"], roof["mbu"])
+    summary = {"part": label, "requests": stats.requests_finished,
+               "tokens_generated": stats.tokens_generated,
+               "engine_tokens_per_s": round(stats.tokens_per_s, 2),
+               "host_syncs": stats.host_syncs, "forward_calls": engine.forward_calls,
+               "k1_launches": launches, "captures_after_warmup": guard.captures_after_warmup,
+               "mfu": roof["mfu"], "mbu": roof["mbu"], **extra}
+    if observe:
+        summary["latency"] = {name: {k: round(v, 5) for k, v in s.items() if k != "count"}
+                              for name, s in engine.obs.latency_summaries().items()}
+    return results, engine, launches, summary
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_call(port, method, path, body=None, timeout=300):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+
+
+def bf16_near_tie(phase, gen, got, want, label) -> None:
+    """Where two greedy bf16 streams of one prompt diverge, print the first
+    divergent position and the top-2 gap of the bf16 model's logits there
+    (a dense forward over the common prefix; the float32 model's gap
+    beside it), and fail unless the bf16 gap is within two bf16 roundings
+    of the larger logit: two streams served in other batches (a decode
+    token in a mixed step or in a decode chunk, another summation order)
+    may flip such a tie, and no other."""
+    import math
+
+    import torch
+
+    from mdi_llm_tpu_torch.models import transformer
+
+    for rid, w in want.items():
+        g = got[rid]
+        if g == w:
+            continue
+        i = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+        toks = torch.tensor([w[:i]], device=gen.device)
+        gaps = {}
+        with torch.no_grad():
+            for name, params in (("bf16", gen.params),
+                                 ("f32", transformer.tree_map(lambda x: x.float(), gen.params))):
+                logits = transformer.forward(gen.cfg, params, toks,
+                                             torch.zeros(1, dtype=torch.long, device=gen.device))
+                top = torch.topk(logits[0, -1].float(), 2).values
+                gaps[name] = ((top[0] - top[1]).item(), top[0].abs().item())
+                del params
+        gap, top0 = gaps["bf16"]
+        limit = 2 * 2.0 ** (math.floor(math.log2(max(top0, 1e-30))) - 7)
+        print(f"{phase}: {label}: {rid} diverges at position {i} (tokens "
+              f"{g[i] if i < len(g) else None} vs {w[i] if i < len(w) else None}); bf16 "
+              f"top-2 gap there {gap:.5f} (limit {limit:.5f}), float32 {gaps['f32'][0]:.5f}",
+              flush=True)
+        if not gap <= limit:
+            fail(phase, f"{label}: {rid} diverges at position {i} with a bf16 top-2 gap of "
+                 f"{gap} > {limit}")
+        torch.cuda.empty_cache()
+
+
+def phase_server_http(want, solo, trace, gen, card, tmp):
+    """(c): the server CLI as a subprocess on a free localhost port."""
+    import os
+    import signal
+
+    port = free_port()
+    err_path = Path(tmp) / "server.err"
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", SERVER_ENTRY, *SERVE_BASE, "--port", str(port)],
+            cwd=str(Path(__file__).resolve().parent), stdout=subprocess.DEVNULL, stderr=err,
+            env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)))
+    try:
+        t0 = time.perf_counter()
+        while True:
+            try:
+                st, _h, body = http_call(port, "GET", "/healthz", timeout=10)
+                break
+            except OSError:
+                if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                    fail("server", f"the HTTP server never came up: {err_path.read_text()[-3000:]}")
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        if st != 200 or json.loads(body)["status"] != "ok":
+            fail("server", f"/healthz {st} {body!r}")
+        got = {}
+        rid, prompt, new = trace[0]
+        st, hdrs, raw = http_call(port, "POST", "/v1/completions", json.dumps(
+            {"prompt": prompt, "max_tokens": new, "stream": True}))
+        events = [b for b in raw.decode().split("\n\n") if b.strip()]
+        tokens = [json.loads(b.split("data: ", 1)[1])["token"] for b in events
+                  if b.startswith("event: token")]
+        if st != 200 or hdrs.get("Content-Type") != "text/event-stream" or not any(
+                b.startswith("event: done") for b in events):
+            fail("server", f"SSE request: status {st}, {len(events)} events")
+        got[rid] = tokens
+        rid2, prompt2, new2 = trace[1]
+        st, _h, body = http_call(port, "POST", "/v1/completions",
+                                 json.dumps({"prompt": prompt2, "max_tokens": new2}))
+        if st != 200:
+            fail("server", f"JSON request: status {st} {body[:200]!r}")
+        got[rid2] = json.loads(body)["tokens"]
+        got = {r: p + got[r] for r, p, _n in trace[:2]}
+        if got != solo:
+            fail("server", "HTTP: tokens differ from the same requests served alone in-process")
+        st, _h, body = http_call(port, "GET", "/v1/stats")
+        stats = json.loads(body)
+        st2, _h, text = http_call(port, "GET", "/metrics")
+        samples = {}
+        for ln in text.decode().splitlines():
+            if ln and not ln.startswith("#"):
+                name, value = ln.rsplit(" ", 1)
+                samples[name] = float(value)
+        if st != 200 or st2 != 200 or samples.get("serving_tokens_generated_total") != \
+                stats["tokens_generated"] or stats["tokens_generated"] != new + new2:
+            fail("server", f"/v1/stats {st} tokens {stats.get('tokens_generated')}, /metrics "
+                 f"{st2} serving_tokens_generated_total "
+                 f"{samples.get('serving_tokens_generated_total')}")
+        if samples.get("graph_captures_total") != 0:
+            fail("server", f"the server captured {samples.get('graph_captures_total')} "
+                 "steps while serving")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = err_path.read_text()
+    if rc != 0 or "draining" not in err:
+        fail("server", f"SIGTERM: exit {rc}: {err[-3000:]}")
+    bf16_near_tie("server", gen, got, {r: want[r] for r, _p, _n in trace[:2]},
+                  f"HTTP vs the closed submission, on {card}")
+    same = sum(got[r] == want[r] for r, _p, _n in trace[:2])
+    counts = json.loads(err.split("K1-COUNTS ", 1)[1].splitlines()[0])
+    line = json.loads([ln for ln in err.splitlines() if ln.startswith("{")][-1])
+    if counts["k1"] != 22 * line["forward_calls"] or counts["plain"] or counts["k1"] <= 0:
+        fail("server", f"HTTP server: K1 {counts['k1']} != 22 x {line['forward_calls']} "
+             f"forwards, plain route {counts['plain']}")
+    dev = line["device"]
+    errors = {n: r["error"] for n, r in dev["reports"].items() if r["error"]}
+    if errors or line["graph_captures"] != 2 or line["graph_replays"] <= 0:
+        fail("server", f"HTTP server: reports {errors}, captures {line['graph_captures']}, "
+             f"replays {line['graph_replays']}")
+    utilization_ok("server", "HTTP", dev["mfu"], dev["mbu"])
+    print("server: (c) HTTP " + json.dumps({
+        "up_s": round(up_s, 2), "requests": line["requests"],
+        "tokens_generated": line["tokens_generated"], "tokens_per_s": line["tokens_per_s"],
+        "forward_calls": line["forward_calls"], "k1_launches": counts["k1"],
+        "captures_while_serving": 0, "mfu": dev["mfu"], "mbu": dev["mbu"],
+        "ttft_s": line["latency"]["ttft_s"], "tpot_s": line["latency"]["tpot_s"]})
+        + f"; SSE and JSON tokens equal the requests served alone in-process, {same} of 2 "
+        f"equal (a)'s, /metrics tokens = /v1/stats tokens, SIGTERM drained, exit 0; "
+        f"on {card}", flush=True)
+    return counts["k1"]
+
+
+def phase_server_spec(card, tmp):
+    """(d): cli.serve with speculative serving and a draft model, writing
+    the metrics and the trace: the observer's spec counters equal the
+    stats line's, the verify spans carry spec_k 4 and their accepted sum
+    is spec_accepted."""
+    import contextlib
+    import io
+
+    from mdi_llm_tpu_torch.cli import serve as cli
+
+    m_path, t_path = Path(tmp) / "spec-metrics.json", Path(tmp) / "spec-trace.json"
+    argv = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64", "--spec-k", "4",
+                         "--draft-model", "NanoLlama", "--metrics-out", str(m_path),
+                         "--trace-out", str(t_path)]
+    reset_k1_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        line = cli.main(argv)
+    launches, plain = k1_counts()
+    want = 22 * line["forward_calls"] + 12 * line["draft_forward_calls"]
+    if launches != want or plain or not line["spec_drafted"] > 0:
+        fail("server", f"spec: K1 launches {launches} (want {want}), plain {plain}, "
+             f"drafted {line['spec_drafted']}")
+    counters = json.loads(m_path.read_text())["metrics"]["counters"]
+    pairs = {"serving_spec_drafted_total": "spec_drafted",
+             "serving_spec_accepted_total": "spec_accepted",
+             "serving_spec_drafted_ngram_total": "spec_drafted_ngram",
+             "serving_spec_drafted_model_total": "spec_drafted_model",
+             "serving_tokens_generated_total": "tokens_generated",
+             "serving_host_syncs_total": "host_syncs"}
+    off = {c: (counters.get(c, 0), line[k]) for c, k in pairs.items()
+           if counters.get(c, 0) != line[k]}
+    if off or counters.get("graph_captures_total") != 0:
+        fail("server", f"spec: observer vs stats line {off}, captures while serving "
+             f"{counters.get('graph_captures_total')}")
+    spans = [e["args"] for e in json.loads(t_path.read_text())["traceEvents"]
+             if e.get("ph") == "X" and e.get("name") == "verify"]
+    accepted = sum(a["accepted"] for a in spans)
+    if not spans or any(a["spec_k"] != 4 for a in spans) or accepted != line["spec_accepted"]:
+        fail("server", f"spec: {len(spans)} verify spans, accepted sum {accepted} != "
+             f"{line['spec_accepted']}")
+    dev = line["device"]
+    errors = {n: r["error"] for n, r in dev["reports"].items() if r["error"]}
+    if errors or not any(n.startswith("verify") for n in dev["reports"]):
+        fail("server", f"spec: step reports {errors or list(dev['reports'])}")
+    utilization_ok("server", "spec", dev["mfu"], dev["mbu"])
+    print("server: (d) spec " + json.dumps({
+        k: line[k] for k in ("requests", "tokens_generated", "tokens_per_s", "host_syncs",
+                             "spec_drafted", "spec_accepted", "spec_drafted_model",
+                             "forward_calls", "draft_forward_calls")})
+        + f" verify spans {len(spans)} (spec_k 4, accepted sum {accepted}), K1 {launches} = "
+        f"22 x target + 12 x draft forwards, mfu {dev['mfu']} mbu {dev['mbu']}, reports "
+        f"{sorted(dev['reports'])}; on {card}", flush=True)
+
+
+def phase_server(k1, card):
+    """The observer and the open-system server on the card (the module
+    docstring, phase 16)."""
+    import torch
+
+    from mdi_llm_tpu_torch.cli import serve as cli
+    from mdi_llm_tpu_torch.server import OpenLoopRunner, ServingFrontend, poisson_arrivals
+
+    class RecordingFrontend(ServingFrontend):
+        """Keeps every handle it hands out (the open-loop runner does not)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.handles = {}
+
+        def submit(self, *a, **kw):
+            handle = super().submit(*a, **kw)
+            self.handles[handle.rid] = handle
+            return handle
+
+    args = cli.build_parser().parse_args(SERVE_BASE)
+    serving = cli.make_serving_config(args)
+    warm, _tokenizer = cli.build_engine(args, need_tokenizer=False)
+    gen = warm.gen
+    _serve_trace(warm, [("w0", [1, 2, 3], 8), ("w1", list(range(1, 40)), 8)])  # CUDA warm-up
+    del warm
+    trace = cli.synthetic_trace(SERVER_REQUESTS, gen.cfg.vocab_size, gen.max_seq_length, 64)
+
+    def offline(engine):
+        return _serve_trace(engine, trace)[0], {}
+
+    def closed(engine):
+        front = ServingFrontend(engine, max_queue=len(trace))
+        handles = {rid: front.submit(p, n, rid=rid) for rid, p, n in trace}
+        t0 = time.perf_counter()
+        front.start()
+        if not front.drain(timeout=600):
+            fail("server", "the closed submission did not drain")
+        wall = time.perf_counter() - t0
+        front.stop()
+        return ({rid: h.result for rid, h in handles.items() if h.result is not None},
+                {"wall_s": round(wall, 4), "requests_per_s": round(len(trace) / wall, 3)})
+
+    want, _e, _l, s_off = server_part("(a) offline engine.run", gen, serving, trace, offline)
+    print("server: " + json.dumps(s_off) + f"; on {card}", flush=True)
+    parts = {}
+    for label, observe in (("(a) frontend, observer on", True), ("(a) frontend, observer off", False)):
+        got, engine, launches, summary = server_part(label, gen, serving, trace, closed, observe)
+        if got != want or summary["host_syncs"] != s_off["host_syncs"]:
+            fail("server", f"{label}: streams equal {got == want}, host_syncs "
+                 f"{summary['host_syncs']} vs offline {s_off['host_syncs']}")
+        parts[label] = summary
+        print("server: " + json.dumps(summary) + f"; streams and host_syncs = offline's; on {card}",
+              flush=True)
+        if observe:
+            k1.setdefault("paths", {})["server"] = launches
+        del engine
+    rate = parts["(a) frontend, observer on"]["requests_per_s"]
+
+    for share in (0.25, 1.0):
+        qps = share * rate
+
+        def open_loop(engine, qps=qps):
+            front = RecordingFrontend(engine, max_queue=len(trace)).start()
+            rep = OpenLoopRunner(front, poisson_arrivals(trace, qps, seed=10137),
+                                 drain_timeout_s=600).run()
+            front.drain(timeout=600)
+            front.stop()
+            if rep.completed != len(trace) or rep.rejected or rep.errored:
+                fail("server", f"open loop at {qps:.3f} req/s: {rep.to_dict()}")
+            return ({rid: h.result for rid, h in front.handles.items() if h.result is not None},
+                    {"offered_qps": round(qps, 3), "load": f"{share:.0%} of (a)",
+                     "wall_s": round(rep.wall_s, 4),
+                     "tokens_per_s": round(engine.stats.tokens_generated / rep.wall_s, 2)})
+
+        _got, engine, _launches, summary = server_part(
+            f"(b) open loop {share:.0%}", gen, serving, trace, open_loop)
+        print("server: " + json.dumps(summary) + f"; on {card}", flush=True)
+        del engine
+    # (c)'s two requests served alone, as the HTTP server serves them
+    solo = {}
+    for item in trace[:2]:
+        solo.update(_serve_trace(gen.serve(serving=serving), [item])[0])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_server_http(want, solo, trace, gen, card, tmp)
+        del gen
+        torch.cuda.empty_cache()
+        phase_server_spec(card, tmp)
+    torch.cuda.empty_cache()
+
+
+def _serve_trace(engine, trace):
+    for rid, prompt, new in trace:
+        engine.add_request(rid, prompt, new)
+    return engine.run()
+
+
 PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
-          "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs")
+          "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs", "server")
 
 
 def main(argv=None) -> None:
@@ -1849,6 +2281,7 @@ def main(argv=None) -> None:
         "ckpt": lambda: phase_ckpt(k1, k2, card, ckpt_dir),
         "chat": lambda: phase_chat(k2, card, ckpt_dir),
         "graphs": lambda: phase_graphs(k1, k2, card),
+        "server": lambda: phase_server(k1, card),
     }
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = Path(tmp) / TINY_LLAMA
@@ -1863,7 +2296,7 @@ def main(argv=None) -> None:
     missing = [(r["name"], k) for r in records for k in keys if k not in r]
     k2_paths = {"generate", "ckpt", "graphs"} | (
         {"chat"} if importlib.util.find_spec("tokenizers") else set())
-    if only == set(PHASES) and (set(k1["paths"]) != {"serve", "ckpt", "graphs"}
+    if only == set(PHASES) and (set(k1["paths"]) != {"serve", "ckpt", "graphs", "server"}
                                 or set(k2["paths"]) != k2_paths):
         fail("record", f"K1 paths {k1['paths']}, K2 paths {k2['paths']}")
     if only == set(PHASES) and missing:

@@ -14,12 +14,23 @@ over an e4m3 pool;
 `--draft-model NAME` a randomly initialised draft model where the lookup
 misses).  Runs on the GPU unless `--device cpu` is given; without a GPU
 and without that flag it raises.  Flags of features the port does not
-carry yet are refused.
+carry yet (`--host-pool-mib`, `--tp`, `--pp`) are refused.
+
+Observability rides every run (`obs/`, hooks at the engine's host-sync
+boundaries): the stats line carries the per-request latency block
+(TTFT/TPOT/E2E/queue-wait p50/p95/p99) and, unless `--no-device-obs`, a
+`device` block with the achieved MFU/MBU against the card's peak (null
+off the peak table, e.g. on the CPU) and each step's report
+(`obs/device.py`).  `--metrics-out`/`--prom-out` write the metrics
+registry (JSON / Prometheus text), `--trace-out` a Perfetto-loadable
+request/step timeline, `--sample-rss` adds a host RSS gauge, and
+`--xprof-steps N` writes a torch.profiler trace of N mid-run steps.
 
     python -m mdi_llm_tpu_torch.cli.serve --ckpt checkpoints/tiny-llama --prompt-file prompts.txt
     python -m mdi_llm_tpu_torch.cli.serve --model tiny-llama-1.1b --synthetic 16
     python -m mdi_llm_tpu_torch.cli.serve --device cpu --model pythia-14m \\
-        --synthetic 3 --max-batch 2 --n-tokens 8 --sequence-length 128 --block-size 8
+        --synthetic 3 --max-batch 2 --n-tokens 8 --sequence-length 128 --block-size 8 \\
+        --metrics-out logs/metrics.json --trace-out logs/trace.json
 """
 
 from __future__ import annotations
@@ -40,13 +51,10 @@ from mdi_llm_tpu_torch.cli._common import (
     resolve_kv_dtype,
 )
 from mdi_llm_tpu_torch.generation import resolve_device
+from mdi_llm_tpu_torch.models import transformer
 
 # flags of the JAX CLI whose features are not ported: refused when set
-_UNPORTED = {
-    "host_pool_mib": 0, "tp": 1, "pp": 1,
-    "metrics_out": None, "prom_out": None, "trace_out": None,
-    "xprof_steps": None, "sample_rss": None,
-}
+_UNPORTED = {"host_pool_mib": 0, "tp": 1, "pp": 1}
 
 
 def build_parser():
@@ -100,13 +108,44 @@ def build_parser():
     ap.add_argument("--policy", default="fcfs",
                     choices=("fcfs", "priority", "fair", "deadline"),
                     help="scheduling policy (serving/policy.py)")
+    # observability: recorded at the engine's host-sync boundaries only
+    ap.add_argument("--metrics-out", type=Path, default=None, metavar="JSON",
+                    help="write serving metrics JSON: per-request "
+                    "TTFT/TPOT/E2E/queue-wait p50/p95/p99, the counter/"
+                    "gauge/histogram registry, the serving stats and the "
+                    "step reports")
+    ap.add_argument("--prom-out", type=Path, default=None, metavar="TXT",
+                    help="also write the metrics registry in Prometheus "
+                    "text exposition format")
+    ap.add_argument("--trace-out", type=Path, default=None, metavar="JSON",
+                    help="write a Chrome-trace-event timeline of the run "
+                    "(request lifecycles + engine steps), for Perfetto")
+    ap.add_argument("--trace-ring", type=int, default=65536,
+                    help="bounded ring capacity for trace events and the "
+                    "completed-request percentile window")
+    ap.add_argument("--sample-rss", type=float, default=None, nargs="?",
+                    const=0.5, metavar="SECONDS",
+                    help="sample the host process tree's RSS into a "
+                    "host_rss_bytes gauge at most once per this many "
+                    "seconds (default 0.5 when given bare), at host-sync "
+                    "boundaries only (needs psutil)")
+    ap.add_argument("--no-device-obs", action="store_true",
+                    help="skip the step reports (counted FLOPs and bytes "
+                    "per captured step) and the MFU/MBU block of the stats "
+                    "line")
+    ap.add_argument("--xprof-steps", type=int, default=None, metavar="N",
+                    help="wrap N mid-run engine steps (after --xprof-skip) "
+                    "in a torch.profiler trace written as a Chrome trace "
+                    "(utils/profiling.StepWindowProfiler)")
+    ap.add_argument("--xprof-dir", type=Path, default=Path("logs/xprof"),
+                    metavar="DIR", help="where --xprof-steps writes the trace")
+    ap.add_argument("--xprof-skip", type=int, default=8,
+                    help="engine steps to let pass before the --xprof-steps "
+                    "window opens")
     unported = ap.add_argument_group("not ported yet (refused when set)")
     unported.add_argument("--host-pool-mib", type=int, default=0)
     unported.add_argument("--tp", type=int, default=1)
     unported.add_argument("--pp", type=int, default=1)
-    for flag in ("--metrics-out", "--prom-out", "--trace-out", "--xprof-steps",
-                 "--sample-rss"):
-        unported.add_argument(flag, default=None)
     return ap
 
 
@@ -127,10 +166,10 @@ def synthetic_trace(n: int, vocab: int, max_seq: int, max_new: int, seed=10137):
     return reqs
 
 
-def make_serving_config(args):
-    """The ServingConfig the flags describe: --kv-dtype int8 selects the
-    quantized pool; the float names reach the pool through the
-    Generator's cache dtype (`build_generator`)."""
+def make_serving_config(args, admission_queue=None):
+    """The ServingConfig the flags describe (shared with `cli.server`):
+    --kv-dtype int8 selects the quantized pool; the float names reach the
+    pool through the Generator's cache dtype (`build_generator`)."""
     from mdi_llm_tpu_torch.config import ServingConfig
 
     return ServingConfig(
@@ -148,6 +187,7 @@ def make_serving_config(args):
         top_p=args.top_p,
         draft_model=args.draft_model,
         kv_dtype="int8" if args.kv_dtype == "int8" else None,
+        admission_queue=admission_queue,
     )
 
 
@@ -168,21 +208,38 @@ def build_generator(args, cfg, params, _graphs=None):
     )
 
 
-def build(args, _graphs=None):
-    """Build the model and engine the flags describe and queue the trace;
-    returns (trace, engine, tokenizer).  On the card the engine's steps are
-    CUDA graphs captured here; `_graphs=False` (comparisons only) launches
-    them eagerly."""
+def make_observer(args):
+    """The observer every run carries (the JAX CLI always builds one)."""
+    from mdi_llm_tpu_torch.obs import ServingObserver
+
+    return ServingObserver(ring=args.trace_ring, rss_interval_s=args.sample_rss,
+                           device=not args.no_device_obs)
+
+
+def build_engine(args, need_tokenizer, _graphs=None, admission_queue=None):
+    """The model and an empty engine the flags describe, with its observer
+    (`engine.obs`); returns (engine, tokenizer).  On the card the engine's
+    steps are CUDA graphs captured here; `_graphs=False` (comparisons
+    only) launches them eagerly."""
     from mdi_llm_tpu_torch.serving.policy import make_policy
 
     for name, default in _UNPORTED.items():
         if getattr(args, name) != default:
             refuse("--" + name.replace("_", "-"))
     resolve_device(args.device)  # raises before any work without the device
-    serving_cfg = make_serving_config(args)
-    cfg, params, tokenizer, _style = load_model(args, need_tokenizer=not args.synthetic)
+    serving_cfg = make_serving_config(args, admission_queue=admission_queue)
+    cfg, params, tokenizer, _style = load_model(args, need_tokenizer=need_tokenizer)
     gen = build_generator(args, cfg, params, _graphs=_graphs)
-    engine = gen.serve(serving=serving_cfg, policy=make_policy(args.policy))
+    engine = gen.serve(serving=serving_cfg, obs=make_observer(args),
+                       policy=make_policy(args.policy))
+    return engine, tokenizer
+
+
+def build(args, _graphs=None):
+    """Build the model and engine the flags describe and queue the trace;
+    returns (trace, engine, tokenizer)."""
+    engine, tokenizer = build_engine(args, not args.synthetic, _graphs=_graphs)
+    cfg, gen = engine.gen.cfg, engine.gen
     if args.synthetic:
         trace = synthetic_trace(
             args.synthetic, cfg.vocab_size, gen.max_seq_length, args.n_tokens
@@ -205,16 +262,71 @@ def build(args, _graphs=None):
 
 
 def serve(args, _graphs=None):
-    """`build`, then run the trace; returns (trace, results, stats, engine,
-    tokenizer)."""
+    """`build`, then run the trace (with the `--xprof-steps` window);
+    returns (trace, results, stats, engine, tokenizer)."""
     trace, engine, tokenizer = build(args, _graphs=_graphs)
-    results, stats = engine.run()
+    xprof = None
+    if args.xprof_steps:
+        from mdi_llm_tpu_torch.utils.profiling import StepWindowProfiler
+
+        xprof = StepWindowProfiler(args.xprof_dir, args.xprof_steps, skip=args.xprof_skip)
+    try:
+        results, stats = engine.run(step_hook=xprof.on_step if xprof is not None else None)
+    finally:
+        if xprof is not None:
+            xprof.close()  # short runs / exceptions: never leak a window
+    if xprof is not None and xprof.window is not None:
+        print(f"cli.serve: profiler window steps {xprof.window[0]}-{xprof.window[1]} "
+              f"-> {xprof.path} (open in Perfetto)", file=sys.stderr)
     return trace, results, stats, engine, tokenizer
 
 
-def stats_line(stats, engine) -> dict:
-    """The JSON stats line: the engine's stats plus device, route and the
-    step graphs (captured when the engine was built, outside wall_s)."""
+def device_kind(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def roofline_block(engine, stats, contexts) -> dict:
+    """The stats line's `device` block: achieved MFU/MBU of the run against
+    the card's peak (`obs/roofline.py`; null off the peak table) at the
+    mean context of `contexts`, and with an observer the engine's step
+    reports."""
+    from mdi_llm_tpu_torch.obs import roofline as rf
+
+    gen, kind = engine.gen, device_kind(engine.device)
+    ctx_mean = int(sum(contexts) / max(1, len(contexts)))
+    B = engine.scheduler.max_batch
+    eff_batch = (max(1, round(stats.mixed_batch_occupancy * B))
+                 if stats.mixed_batch_occupancy else B)
+    roof = rf.serving_roofline(
+        gen.cfg, engine.cfg, tokens_per_s=stats.tokens_per_s, context=ctx_mean,
+        batch=eff_batch, weight_bytes=rf.param_bytes(gen.params), device_kind=kind,
+        dtype=str(transformer.param_dtype(gen.params)).replace("torch.", ""),
+    )
+    block = {
+        "device_kind": rf.normalize_device_kind(kind),
+        "mfu": None if roof["mfu"] is None else round(roof["mfu"], 6),
+        "mbu": None if roof["mbu"] is None else round(roof["mbu"], 6),
+        "achieved_tflops_per_s": round(roof["achieved_tflops_per_s"], 4),
+        "achieved_hbm_gbps": round(roof["achieved_hbm_gbps"], 4),
+        "context_mean": ctx_mean,
+    }
+    obs = engine.obs
+    if obs is not None:
+        block["executables"] = len(obs.device)
+        block["reports"] = {
+            name: {k: r[k] for k in ("flops", "argument_bytes", "output_bytes",
+                                     "temp_bytes", "alias_bytes", "error")}
+            for name, r in obs.device.to_dict().items()}
+    return block
+
+
+def stats_line(stats, engine, contexts=()) -> dict:
+    """The JSON stats line: the engine's stats, the JAX CLI's topology
+    keys, the latency block, and the port's own keys (forward counts and
+    the step graphs, captured when the engine was built, outside
+    wall_s); `device` names the card and, with the observer's device
+    capture on, carries `roofline_block` over the requests' `contexts`
+    (prompt + half the generation each)."""
     line = stats.to_dict()
     graphs = engine.graph_stats()
     dev = engine.device
@@ -229,12 +341,32 @@ def stats_line(stats, engine) -> dict:
         "graph_captures": graphs["captures"],
         "graph_replays": graphs["replays"],
         "capture_s": round(graphs["capture_s"], 3),
-        "device": {
-            "type": dev.type,
-            "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-        },
+        "device": {"type": dev.type, "kind": device_kind(dev)},
     })
+    obs = engine.obs
+    if obs is not None:
+        line["latency"] = {
+            name: {k: (round(v, 6) if isinstance(v, float) else v) for k, v in summ.items()}
+            for name, summ in obs.latency_summaries().items()}
+        if obs.device.capture_enabled:
+            line["device"].update(roofline_block(engine, stats, contexts))
     return line
+
+
+def write_outputs(args, obs, stats, origin="cli.serve") -> None:
+    """--metrics-out, --prom-out and --trace-out."""
+    if args.metrics_out:
+        args.metrics_out.parent.mkdir(parents=True, exist_ok=True)
+        args.metrics_out.write_text(json.dumps(obs.metrics_dict(stats), indent=2) + "\n")
+        print(f"{origin}: metrics -> {args.metrics_out}", file=sys.stderr)
+    if args.prom_out:
+        args.prom_out.parent.mkdir(parents=True, exist_ok=True)
+        args.prom_out.write_text(obs.metrics.render_prometheus())
+        print(f"{origin}: prometheus -> {args.prom_out}", file=sys.stderr)
+    if args.trace_out:
+        obs.tracer.write_chrome_trace(args.trace_out)
+        print(f"{origin}: trace -> {args.trace_out} (open in https://ui.perfetto.dev)",
+              file=sys.stderr)
 
 
 def main(argv=None):
@@ -245,8 +377,11 @@ def main(argv=None):
         gen_tokens = out[len(prompt):]
         print(f"--- {rid} ({len(gen_tokens)} new tokens) " + "-" * 30)
         print(tokenizer.decode(np.asarray(out)) if tokenizer is not None else gen_tokens)
-    line = stats_line(stats, engine)
+    contexts = [len(p) + max(0, len(results.get(rid, [])) - len(p)) / 2
+                for rid, p, _new in trace]
+    line = stats_line(stats, engine, contexts)
     print(json.dumps(line), file=sys.stderr)
+    write_outputs(args, engine.obs, stats)
     return line
 
 

@@ -333,6 +333,34 @@ class Generator:
         # per (B, cache_len, n_steps, mode, top_k), one cache length at a time
         self._caches: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
         self._steps: Dict[tuple, StepGraph] = {}
+        # step reports (obs/device.py), keyed (label, shape key, pool dtype)
+        # and shared across the engines of this Generator, so each step is
+        # measured once, when its first engine is built
+        self._exec_reports: Dict[Any, Any] = {}
+        # generate()'s reports: attach_device_obs() sets a
+        # DeviceReportRegistry; its prefill and decode-chunk steps are
+        # measured into it at their first run per shape
+        self.device_obs = None
+
+    def attach_device_obs(self, registry) -> None:
+        """Attach an `obs.device.DeviceReportRegistry`: later `generate()`
+        calls measure each prefill (B, bucket) and decode chunk (B,
+        n_steps) once, at its first run (the decode chunk's warm-up
+        before capture, the prefill's real call).  None detaches.  The
+        serving engine has its own hook, `ServingObserver(device=True)`."""
+        self.device_obs = registry
+
+    def _dev_call(self, label, key, fn, *args):
+        """`fn(*args)`, measured as the (label, key) report at its first
+        call when a registry that captures is attached."""
+        reg = self.device_obs
+        if reg is None or not reg.capture_enabled or reg.get(label, key) is not None:
+            return fn(*args)
+        from mdi_llm_tpu_torch.obs.device import introspect_call
+
+        out, rep = introspect_call(fn, args, label, key)
+        reg.add(rep)
+        return out
 
     # -- model steps ---------------------------------------------------------
 
@@ -430,6 +458,20 @@ class Generator:
                 capture=self._graphs, generators=[self.rng],
             )
         return self._steps[key]
+
+    def _measure_decode_chunk(self, step: StepGraph, key, values, kv) -> None:
+        """With a registry attached, the decode chunk's report at its first
+        run per key: its warm-up over this run's values (which writes the
+        bytes the run then writes) under the probe."""
+        if self.device_obs is None:
+            return
+        from mdi_llm_tpu_torch.obs.device import introspect_step, tensor_bytes
+
+        def measure():
+            step.load(**values)
+            return introspect_step(step, "decode_chunk", key, alias_bytes=tensor_bytes(kv))
+
+        self.device_obs.capture("decode_chunk", key, measure)
 
     def graph_stats(self) -> Dict[str, Any]:
         """generate's decode-chunk steps held now: built, captured,
@@ -538,7 +580,7 @@ class Generator:
             kv1 = self._run_cache(1, cache_len)
             for x in kv1.values():
                 x.zero_()
-            last1 = self._prefill(batch[:1], kv1, lens[:1])
+            last1 = self._dev_call("prefill", (1, Tb), self._prefill, batch[:1], kv1, lens[:1])
             last_logits = last1.expand(B, -1)
             kv = self._run_cache(B, cache_len)
             for n, x in kv1.items():
@@ -547,7 +589,7 @@ class Generator:
             kv = self._run_cache(B, cache_len)
             for x in kv.values():
                 x.zero_()
-            last_logits = self._prefill(batch, kv, lens)
+            last_logits = self._dev_call("prefill", (B, Tb), self._prefill, batch, kv, lens)
         # first sampled token (from the prefill logits)
         tok = self._first_token(last_logits, temperature, top_k, top_p)
         stats.prefill_s = time.perf_counter() - t0
@@ -666,10 +708,10 @@ class Generator:
                 if k < 1:
                     break
                 step = self._decode_step(len(lanes), cache_len, k, mode, top_k)
+                values = dict(tok=tok, pos=positions, t_op=t_val, p_op=p_val)
+                self._measure_decode_chunk(step, (len(lanes), k), values, kv)
                 # a copy: the step's outputs are overwritten by its next run
-                toks_np = np.array(step.run(
-                    tok=tok, pos=positions, t_op=t_val, p_op=p_val
-                ).cpu())
+                toks_np = np.array(step.run(**values).cpu())
                 for i in range(k):
                     n += 1
                     emit(toks_np[i], n)
@@ -732,7 +774,7 @@ class Generator:
 
     # -- serving -------------------------------------------------------------
 
-    def serve(self, serving=None, policy=None, draft_gen=None, **knobs):
+    def serve(self, serving=None, obs=None, policy=None, draft_gen=None, **knobs):
         """A paged-KV continuous-batching engine over this model
         (`serving/engine.py`).  Pass a `ServingConfig`, or its fields as
         keywords::
@@ -741,9 +783,10 @@ class Generator:
             engine.add_request("r0", prompt_tokens, max_new_tokens=128)
             results, stats = engine.run()
 
-        `draft_gen` takes a Generator for `ServingConfig.draft_model`'s
-        weights (same vocabulary as this model); None lets the engine
-        initialise the named config with random weights.
+        `obs` takes a `ServingObserver` (`obs/`). `draft_gen` takes a
+        Generator for `ServingConfig.draft_model`'s weights (same
+        vocabulary as this model); None lets the engine initialise the
+        named config with random weights.
         """
         from mdi_llm_tpu_torch.config import ServingConfig
         from mdi_llm_tpu_torch.serving.engine import ServingEngine
@@ -752,7 +795,7 @@ class Generator:
             serving = ServingConfig(**knobs)
         elif knobs:
             raise ValueError("pass a ServingConfig or keywords, not both")
-        return ServingEngine(self, serving, policy=policy, draft_gen=draft_gen)
+        return ServingEngine(self, serving, obs=obs, policy=policy, draft_gen=draft_gen)
 
 
 def _verify_accept(gen: Generator, kv, tok, draft, K: int, positions) -> List[int]:

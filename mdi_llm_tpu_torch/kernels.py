@@ -15,10 +15,19 @@ build raises with the compiler's output.
 builds all of them (one `nvcc` each, started together) and prints the
 seconds each took; `build/torch_kernels/<name>.log` keeps the `-Xptxas -v`
 register and shared-memory report.
+
+A kernel is called through ctypes, so `torch.utils.flop_counter.
+FlopCounterMode` (which the observability layer counts a step's
+operations with, `obs/device.py`) cannot see it.  `flop_tally()` opens a
+tally for the current thread; while it is open every wrapper adds the
+operations of each launch, counted from its static shapes, through
+`add_flops`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -26,7 +35,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Iterator, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -37,6 +46,33 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_tally: contextvars.ContextVar = contextvars.ContextVar("flop_tally", default=None)
+
+
+class FlopTally:
+    """Operations the kernel wrappers launched while the tally was open."""
+
+    def __init__(self):
+        self.flops = 0.0
+
+
+@contextlib.contextmanager
+def flop_tally() -> Iterator[FlopTally]:
+    """Count the kernels' operations launched in this context (thread)."""
+    tally = FlopTally()
+    token = _tally.set(tally)
+    try:
+        yield tally
+    finally:
+        _tally.reset(token)
+
+
+def add_flops(n: float) -> None:
+    """Called by a kernel wrapper at each launch: adds `n` to the open
+    tally, if any (a no-op outside `flop_tally`)."""
+    tally = _tally.get()
+    if tally is not None:
+        tally.flops += n
 
 
 def _nvcc() -> str:

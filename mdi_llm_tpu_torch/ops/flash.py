@@ -217,6 +217,8 @@ def _launch(q, k, v, scale, causal, with_lse):
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            lse.data_ptr() if with_lse else None), scale, causal)
     flash_attention.launches += 1
+    # the full T x T product (the plain version's dense count)
+    kernels.add_flops(4.0 * B * H * T * T * q.shape[-1])
     return out, lse
 
 

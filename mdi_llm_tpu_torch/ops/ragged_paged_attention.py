@@ -322,6 +322,9 @@ def ragged_paged_attention(
             f"q {tuple(q.shape)} {q.dtype}, pool {tuple(k.shape)} {k.dtype}"
         )
     ragged_paged_attention.launches += 1
+    # every packed row against the whole table window (the count of the
+    # plain route's dense math, which the CPU's FlopCounterMode sees)
+    kernels.add_flops(4.0 * T * n_head * hs * MB * BS)
     if ws is not None:
         rc = merge(dtype, hs, ws.data_ptr(), *spans, out.data_ptr(), T, n_head, S,
                    MB * BS, plan["chunk"], plan["n_chunks"], stream)

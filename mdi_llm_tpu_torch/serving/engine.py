@@ -43,8 +43,23 @@ token for token on the same weights (tests/test_torch_serving.py,
 tests/test_torch_spec_serving.py).  Sampling draws come from one
 `torch.Generator` per engine, seeded from the Generator's `rng_seed`.
 
+Observability (`obs/`): pass `obs=ServingObserver()` and the engine
+feeds it at the host-sync boundaries it already owns, as the JAX engine
+does: `obs.step` once per step after the step's host read (mixed,
+decode, decode_chunk, draft_scan, verify with `spec_k` and `accepted`),
+`obs.prefill_chunk`, `obs.tokens` in `_emit`, `obs.spec` per verified
+lane; the scheduler reports the lifecycle edges.  Every hook is Python
+outside the captured step bodies (a hook inside a body would run once at
+capture and never at replay), adds no host sync, no device op and no
+capture.  Under double buffering chunk N's tokens are stamped at chunk
+N's own host read.  `ServingObserver(device=True)` measures each step
+once when the engine is built (`obs/device.py`), reports cached on the
+Generator per (step, shape, pool dtype); the eager verify is measured at
+its first call.  `run(step_hook=)` fires after every engine step (the
+bounded profiler window and the open-system server hang off it).
+
 Not ported yet, and refused with an error when asked for: the host-RAM KV
-tier, tensor/pipeline parallel serving, and observability hooks.
+tier and tensor/pipeline parallel serving.
 """
 
 from __future__ import annotations
@@ -66,6 +81,7 @@ from mdi_llm_tpu_torch.generation import (
     pad_draft,
 )
 from mdi_llm_tpu_torch.models import transformer
+from mdi_llm_tpu_torch.obs.device import introspect_call, introspect_step
 from mdi_llm_tpu_torch.ops.sampling import (
     sample_mode,
     sample_traced,
@@ -283,8 +299,8 @@ class ServingEngine:
         results, stats = engine.run()
     """
 
-    def __init__(self, gen: Generator, serving: ServingConfig, policy=None,
-                 draft_gen: Optional[Generator] = None,
+    def __init__(self, gen: Generator, serving: ServingConfig, obs=None,
+                 policy=None, draft_gen: Optional[Generator] = None,
                  _graphs: Optional[bool] = None):
         """`_graphs` (private, for comparisons on the card only): False
         runs the step bodies as eager launches; None follows the
@@ -313,6 +329,10 @@ class ServingEngine:
             self.pool, serving.max_batch, serving.prefill_chunk,
             self.max_seq_length, policy=policy,
         )
+        # observability (obs.ServingObserver or None): fed only at host-sync
+        # boundaries, outside the captured step bodies
+        self.obs = obs
+        self.scheduler.observer = obs  # lifecycle edges report from there
         self._kv = transformer.init_paged_kv_cache(
             gen.cfg, num_blocks, bs, dtype=self._pool_dtype, device=self.device
         )
@@ -388,9 +408,37 @@ class ServingEngine:
     def _capture_steps(self) -> None:
         """Capture every step over its zero-filled (inert) inputs: all-zero
         tables send every write to the trash block, so no live block
-        changes.  A no-op on the CPU and with `_graphs` off."""
-        for s in self._steps.values():
+        changes.  A no-op on the CPU and with `_graphs` off, except that an
+        observer with device capture measures each step here, once per
+        (step, shape, pool dtype) per Generator (`obs/device.py`)."""
+        for label, s in self._steps.items():
+            if self._device_capture():
+                self._publish(label, s.key[:-2], lambda s=s, label=label:
+                              introspect_step(s, label, s.key[:-2], self.kv_dtype_name,
+                                              alias_bytes=pool_bytes(self._kv)))
             s.prime()
+
+    def _device_capture(self) -> bool:
+        return self.obs is not None and self.obs.device.capture_enabled
+
+    def _publish(self, label, key, measure) -> None:
+        """Measure (label, key) once per Generator and publish the report."""
+        cache = self.gen._exec_reports
+        k = (label, tuple(key), self.kv_dtype_name)
+        if k not in cache:
+            cache[k] = measure()
+        self.obs.publish_device_report(cache[k])
+
+    def _observed(self, label, key, fn, *args):
+        """`fn(*args)`, an eager step: its first call per Generator runs
+        under the observer's probe when device capture is on."""
+        k = (label, tuple(key), self.kv_dtype_name)
+        if not self._device_capture() or k in self.gen._exec_reports:
+            return fn(*args)
+        out, rep = introspect_call(fn, args, label, key, self.kv_dtype_name,
+                                   alias_bytes=pool_bytes(self._kv))
+        self._publish(label, key, lambda: rep)
+        return out
 
     def graph_stats(self) -> Dict[str, Any]:
         """Steps built, graphs captured and replayed, capture seconds."""
@@ -627,12 +675,22 @@ class ServingEngine:
         self.stats.observe_mixed_occupancy(len(live), B)
         self.stats.observe_resident(len(self.scheduler.running()))
         self.stats.observe_kv_utilization(self.pool.utilization)
+        if self.obs is not None:
+            # one stamp at THIS boundary; every token/retirement below
+            # shares it
+            self.obs.step(
+                "mixed", width=T, live=len(live), t_start=t0,
+                kv_utilization=self.pool.utilization,
+                queue_depth=self._queue_depth(), useful_tokens=off,
+            )
         any_decode = False
         for seq, n in live:
             if seq.needs_prefill:
                 seq.fed += n
                 self.stats.prefill_tokens += n
                 self.stats.prefill_chunks += 1
+                if self.obs is not None:
+                    self.obs.prefill_chunk(seq.req.rid, n)
                 if seq.fed >= seq.prefill_target:
                     # the prompt's KV (as far as it was fed) is in the pool
                     # now: publish its full blocks for prefix reuse
@@ -691,6 +749,8 @@ class ServingEngine:
         seq.tokens.append(tok)
         seq.next_tok = tok
         self.stats.tokens_generated += 1
+        if self.obs is not None:
+            self.obs.tokens(seq.req.rid)  # stamped at the last sync
         if self._stream_cb is not None:
             self._stream_cb(seq.req.rid, tok)
         gen_tokens = seq.generated()
@@ -743,6 +803,12 @@ class ServingEngine:
         self.stats.observe_dispatch(B, len(live))
         self.stats.observe_resident(len(self.scheduler.running()))
         self.stats.observe_kv_utilization(self.pool.utilization)
+        if self.obs is not None:
+            self.obs.step(
+                "decode", width=B, live=len(live), t_start=t0,
+                kv_utilization=self.pool.utilization,
+                queue_depth=self._queue_depth(),
+            )
         for seq in live:
             seq.fed += 1
             self._emit(seq, int(nxt[seq.slot]))
@@ -799,6 +865,16 @@ class ServingEngine:
         self.stats.host_syncs += 1
         self.stats.observe_kv_utilization(self.pool.utilization)
         self.stats.observe_resident(len(self.scheduler.running()))
+        if self.obs is not None:
+            # stamped at THIS chunk's host read (its tokens were just
+            # read); the span starts at the previous boundary, which under
+            # double buffering is this chunk's wall window
+            self.obs.step(
+                "decode_chunk",
+                width=self.scheduler.max_batch * self.cfg.decode_chunk,
+                live=len(live), kv_utilization=self.pool.utilization,
+                queue_depth=self._queue_depth(),
+            )
         clean = True
         for seq in live:
             if self.scheduler.slots[seq.slot] is not seq:
@@ -936,6 +1012,7 @@ class ServingEngine:
         """One draft scan proposing K tokens for each of `seqs`; costs one
         host read, paid only on rounds where some lane uses the model
         drafter."""
+        t0 = time.perf_counter()
         B = self.scheduler.max_batch
         F = K + 2
         toks_in = np.zeros((B, F), np.int32)
@@ -957,6 +1034,12 @@ class ServingEngine:
         # the scan's F-wide feed plus K-1 single steps; useful credit rides
         # the verify's accepted tokens
         self.stats.observe_dispatch(B * F + B * max(K - 1, 0), 0)
+        if self.obs is not None:
+            self.obs.step(
+                "draft_scan", width=B * F, live=len(seqs), t_start=t0,
+                kv_utilization=self.pool.utilization,
+                queue_depth=self._queue_depth(), spec_k=K,
+            )
         return [(seq, [int(t) for t in d[seq.slot]]) for seq in seqs]
 
     def _verify(self, toks_in, tables, pos) -> torch.Tensor:
@@ -1030,7 +1113,8 @@ class ServingEngine:
         up = self._upload
         args = (up(toks_in), up(self._sync_tables(live)), up(pos))
         if sampled:
-            out, n_emit = self._verify_sample(*args, up(dlen))
+            out, n_emit = self._observed("verify_sample", (B, K + 1),
+                                         self._verify_sample, *args, up(dlen))
             # tokens and emit counts in one host read
             got = self._wait(self._read_async(torch.cat([out, n_emit[:, None]], dim=1)))
             bursts = {
@@ -1038,7 +1122,8 @@ class ServingEngine:
                 for seq in live
             }
         else:
-            g = self._wait(self._read_async(self._verify(*args)))
+            g = self._wait(self._read_async(
+                self._observed("verify", (B, K + 1), self._verify, *args)))
             # accept only over the real draft length: a 0-padded row must
             # not luck into matching the model's 0-token successor
             bursts = {
@@ -1050,6 +1135,13 @@ class ServingEngine:
             }
         self.stats.decode_steps += 1
         self.stats.host_syncs += 1
+        if self.obs is not None:
+            self.obs.step(
+                "verify", width=B * (K + 1), live=len(live), t_start=t0,
+                kv_utilization=self.pool.utilization,
+                queue_depth=self._queue_depth(), spec_k=K,
+                accepted=sum(len(b) - 1 for b in bursts.values()),
+            )
         # useful side credited per slot below as len(burst); rejected
         # draft rows are padding
         self.stats.observe_dispatch(B * (K + 1), 0)
@@ -1068,6 +1160,8 @@ class ServingEngine:
             elif src == "ngram":
                 self.stats.spec_drafted_ngram += len(d)
                 self.stats.spec_accepted_ngram += accepted
+            if self.obs is not None and src is not None:
+                self.obs.spec(len(d), accepted, src)
             self.stats.tokens_useful += len(burst)
             for t in burst:
                 seq.fed += 1
@@ -1131,19 +1225,49 @@ class ServingEngine:
             self._run_decode(action[1])
         return True
 
-    def run(self, stream_cb=None) -> Tuple[Dict[str, List[int]], ServingStats]:
+    def run(self, stream_cb=None,
+            step_hook=None) -> Tuple[Dict[str, List[int]], ServingStats]:
         """Drive the loop until every queued request finishes.  Returns
         {rid: prompt + generation (stop-trimmed)} and the stats;
-        `stream_cb(rid, token)` fires per generated token."""
+        `stream_cb(rid, token)` fires per generated token, `step_hook(i)`
+        after the i-th engine step (1-based): `cli.serve --xprof-steps`
+        hangs its profiler window there, the open-system server its
+        admissions (`server/frontend.py`)."""
         self._stream_cb = stream_cb
         t0 = time.perf_counter()
+        n_steps = 0
+        if self.obs is not None:
+            self.obs.attach_compile_hook()
         try:
             while self.scheduler.has_work:
                 if not self.step():
                     break
+                if step_hook is not None:
+                    n_steps += 1
+                    step_hook(n_steps)
         finally:
             self.stats.preemptions = self.scheduler.preemptions
             self.stats.prefix_cache_hits = self.pool.prefix_hits
             self.stats.wall_s += time.perf_counter() - t0
             self._stream_cb = None
+            if self.obs is not None:
+                self._publish_run_end()
         return dict(self._results), self.stats
+
+    def _publish_run_end(self) -> None:
+        """The JAX engine's run epilogue: detach the captures hook, publish
+        every report cached on the Generator for this pool dtype (a fresh
+        observer on a warm model gets them without measuring), the prefix
+        hit counter and the pool gauges."""
+        obs = self.obs
+        obs.detach_compile_hook()
+        for (_l, _k, variant), rep in self.gen._exec_reports.items():
+            if variant == self.kv_dtype_name:
+                obs.publish_device_report(rep)
+        hits = obs.metrics.counter(
+            "serving_prefix_hit_blocks_total", "pool blocks reused copy-free",
+        )
+        if self.pool.prefix_hits > hits.value:  # observer may be shared
+            hits.set_to(self.pool.prefix_hits)
+        for k, v in self.pool.snapshot().items():
+            obs.metrics.gauge(f"serving_kv_pool_{k}", f"KVPool.{k} at run end").set(v)

@@ -41,6 +41,13 @@ does not.  So `StepGraph` puts every counter back after the warm-up and
 the capture, keeps the change the capture made, and adds it again at
 every replay: counts are those of the steps that ran, the same as an
 eager run of the same steps.
+
+Every capture is reported to `utils/profiling.note_capture` (the
+captures guard and the observability layer's captures counter).
+`prime(probe=...)` runs the step's warm-up under a probe that counts its
+operations and measures the capture (`obs/device.py`); on the CPU, or
+with capture off, the body runs once under the probe with every counter
+and generator put back.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ import torch
 from mdi_llm_tpu_torch.ops import flash
 from mdi_llm_tpu_torch.ops import paged_attention as pa
 from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention
+from mdi_llm_tpu_torch.utils import profiling
 
 __all__ = ["StepGraph", "CudaGraph", "kernel_counters", "summarize"]
 
@@ -173,19 +181,30 @@ class StepGraph:
         for (obj, attr), v in zip(self._counters(), values):
             setattr(obj, attr, v)
 
-    def prime(self) -> None:
+    def prime(self, probe=None) -> None:
         """Capture now (a no-op on the CPU, with capture off, or when
-        captured already), over whatever the static inputs hold."""
+        captured already), over whatever the static inputs hold.  With a
+        `probe` (`obs/device.py`) the warm-up runs under `probe.measure`
+        and `probe.capture_begins`/`captured` bracket the capture; without
+        capture (or captured already) the body runs once under the probe,
+        leaving no trace."""
+        if probe is not None and (not self.capturing or self.graph is not None):
+            self._held(lambda: probe.measure(self.call))
+            return
         if not self.capturing or self.graph is not None:
             return
         t0 = time.perf_counter()
         before = self._counts()
         try:
             graph = CudaGraph(self.generators)
-            graph.warm_up(self.call)
+            graph.warm_up(self.call if probe is None else lambda: probe.measure(self.call))
             warm = self._counts()
+            if probe is not None:
+                probe.capture_begins()
             outputs = graph.capture(self.call)
-        except RuntimeError as e:
+            if probe is not None:
+                probe.captured()
+        except Exception as e:
             self._set_counts(before)
             raise RuntimeError(
                 f"CUDA graph capture of step {self.name!r} at key {self.key} failed: {e}"
@@ -195,6 +214,18 @@ class StepGraph:
         self.graph, self.outputs = graph, outputs
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
+        profiling.note_capture(self)
+
+    def _held(self, fn: Callable[[], Any]) -> None:
+        """Run `fn` now, then put every counter and generator back."""
+        counts = self._counts()
+        states = [g.get_state() for g in self.generators]
+        try:
+            fn()
+        finally:
+            self._set_counts(counts)
+            for g, st in zip(self.generators, states):
+                g.set_state(st)
 
     def run(self, **values) -> Any:
         """Load `values`, then replay (capturing first if needed); without

@@ -5,7 +5,10 @@
   int8 or float8 pool and with speculative serving and a draft model;
 - without `--device cpu` on a machine with no GPU it raises, and does not
   fall back to the CPU;
-- every flag of a feature the port does not carry is refused;
+- every flag of a feature the port does not carry is refused
+  (`--host-pool-mib`, `--tp`, `--pp`, `--quantize`); the observability
+  flags are ported: `--metrics-out`, `--prom-out`, `--trace-out`,
+  `--xprof-steps` and `--sample-rss` each do their work;
 - no module of the port, and not `chip_smoke.py`, imports jax, ml_dtypes,
   orbax, yaml or the JAX package, and only the tokenizer imports
   `tokenizers` (an AST scan); importing the CLIs leaves jax out of
@@ -70,8 +73,45 @@ def test_cli_serves_on_cpu_and_prints_stats_line():
     assert line["requests"] == 3
     assert line["tokens_generated"] > 0 and line["tokens_per_s"] > 0
     assert "kv_block_utilization_mean" in line
-    assert line["device"] == {"type": "cpu", "kind": "cpu"}
+    # the CPU is off the peak table: MFU/MBU are null, the reports are there
+    assert {k: line["device"][k] for k in ("type", "kind", "device_kind", "mfu", "mbu")} == {
+        "type": "cpu", "kind": "cpu", "device_kind": None, "mfu": None, "mbu": None}
+    assert line["device"]["executables"] == 2 and line["latency"]["ttft_s"]["count"] == 3
     assert proc.stdout.count("--- syn") == 3
+
+
+# the port's own stats-line keys: forward counts and the step graphs at
+# the top level; the device's type, its peak-table key and the step
+# reports in `device`
+PORT_ONLY_KEYS = {"forward_calls", "draft_forward_calls", "graph_captures",
+                  "graph_replays", "capture_s"}
+PORT_ONLY_DEVICE_KEYS = {"type", "device_kind", "reports"}
+
+
+@pytest.mark.parametrize("flags", [[], ["--no-device-obs"]], ids=["device-obs", "no-device-obs"])
+def test_stats_line_has_the_jax_clis_keys(flags):
+    """The port's stats line carries every key of the JAX serve CLI's, and
+    only its own named extras beside them; so do its `latency` and
+    `device` blocks (the JAX line has no `device` with --no-device-obs,
+    the port's keeps the card's type and name)."""
+    jax_proc = subprocess.run(
+        [sys.executable, "-m", "mdi_llm_tpu.cli.serve", "--device", "cpu", *CPU_RUN, *flags],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT)))
+    assert jax_proc.returncode == 0, jax_proc.stderr
+    proc = _run(["--device", "cpu", *CPU_RUN, *flags])
+    assert proc.returncode == 0, proc.stderr
+    jline = json.loads(jax_proc.stderr.strip().splitlines()[-1])
+    line = json.loads(proc.stderr.strip().splitlines()[-1])
+    extra = PORT_ONLY_KEYS | ({"device"} if flags else set())
+    assert set(line) - extra == set(jline)
+    assert extra <= set(line)
+    assert {k: set(v) for k, v in line["latency"].items()} == {
+        k: set(v) for k, v in jline["latency"].items()}
+    if not flags:
+        assert set(line["device"]) - PORT_ONLY_DEVICE_KEYS == set(jline["device"])
+    else:
+        assert set(line["device"]) == {"type", "kind"}
 
 
 def test_cli_raises_without_a_gpu_instead_of_falling_back():
@@ -106,15 +146,43 @@ def test_cli_serves_narrow_pools_and_spec_on_cpu(flags, check):
     (["--quantize", "int8"], "not ported"),
     # --ckpt is ported: a directory that is not there is refused by name
     (["--ckpt", "some/dir"], "some/dir: no such checkpoint directory"),
-    (["--metrics-out", "m.json"], "not ported"), (["--prom-out", "m.txt"], "not ported"),
-    (["--trace-out", "t.json"], "not ported"), (["--xprof-steps", "4"], "not ported"),
-    (["--sample-rss", "0.5"], "not ported"),
-], ids=["--host-pool-mib", "--tp", "--pp", "--quantize", "--ckpt", "--metrics-out",
-        "--prom-out", "--trace-out", "--xprof-steps", "--sample-rss"])
+], ids=["--host-pool-mib", "--tp", "--pp", "--quantize", "--ckpt"])
 def test_cli_refuses_unported_flags(flags, match):
     args = cli.build_parser().parse_args(["--device", "cpu", *CPU_RUN, *flags])
     with pytest.raises(SystemExit, match=match):
         cli.serve(args)
+
+
+@pytest.mark.parametrize("flag", ["--metrics-out", "--prom-out", "--trace-out",
+                                  "--xprof-steps", "--sample-rss"])
+def test_cli_observability_flags_do_their_work(flag, tmp_path, capsys):
+    """Each observability flag, refused before the port carried it, now
+    writes its file or its gauge (the serve CLI in-process, on the CPU)."""
+    extra = {"--metrics-out": [flag, str(tmp_path / "m.json")],
+             "--prom-out": [flag, str(tmp_path / "m.txt")],
+             "--trace-out": [flag, str(tmp_path / "t.json")],
+             "--xprof-steps": [flag, "2", "--xprof-skip", "1", "--xprof-dir", str(tmp_path)],
+             "--sample-rss": [flag, "0", "--metrics-out", str(tmp_path / "m.json")]}[flag]
+    line = cli.main(["--device", "cpu", *CPU_RUN, *extra])
+    assert line["requests"] == 3
+    if flag == "--metrics-out":
+        got = json.loads((tmp_path / "m.json").read_text())
+        assert got["metrics"]["counters"]["serving_tokens_generated_total"] == line["tokens_generated"]
+        assert got["serving_stats"]["host_syncs"] == line["host_syncs"]
+    elif flag == "--prom-out":
+        text = (tmp_path / "m.txt").read_text()
+        assert f"serving_tokens_generated_total {line['tokens_generated']}\n" in text
+    elif flag == "--trace-out":
+        events = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+        assert {e["name"] for e in events if e.get("ph") == "X" and e["pid"] == 2} >= {
+            "mixed", "decode_chunk"}
+    elif flag == "--xprof-steps":
+        (trace,) = tmp_path.glob("steps_*.json")
+        assert json.loads(trace.read_text())["traceEvents"]
+        assert "profiler window steps 2-3" in capsys.readouterr().err
+    else:
+        gauges = json.loads((tmp_path / "m.json").read_text())["metrics"]["gauges"]
+        assert gauges["host_rss_bytes"] > 0
 
 
 def test_cli_refuses_unported_kv_dtype():
@@ -161,7 +229,9 @@ def test_importing_the_cli_loads_no_jax():
             "mdi_llm_tpu_torch.cli.train, mdi_llm_tpu_torch.cli.profile_train, "
             "mdi_llm_tpu_torch.cli.chat, mdi_llm_tpu_torch.cli.prepare_model, "
             "mdi_llm_tpu_torch.cli.convert_to_hf, mdi_llm_tpu_torch.cli.inspect_ckpt, "
-            "mdi_llm_tpu_torch.cli.model_surgery; "
+            "mdi_llm_tpu_torch.cli.model_surgery, mdi_llm_tpu_torch.cli.server, "
+            "mdi_llm_tpu_torch.obs, mdi_llm_tpu_torch.obs.device, mdi_llm_tpu_torch.server, "
+            "mdi_llm_tpu_torch.server.http, mdi_llm_tpu_torch.utils.profiling; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.split('.')[0] == 'mdi_llm_tpu' for m in sys.modules)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
