@@ -192,11 +192,56 @@ non-zero.
    read from the observer); no step report with `error` set; MFU and MBU
    in (0, 1].  Prints TTFT/TPOT/E2E/queue-wait p50/p95/p99, tokens/s and
    MFU/MBU per part, with the card's name and power limit.
+17. tier  — the host-RAM KV tier (`serving/host_tier.py`) at the serve
+   phase's set-up with the pool cut to 112 blocks (1024 cover every slot's
+   window) over 24 requests: 4 sharing a 256-token prefix, the serve
+   phase's 16 synthetic ones, 4 more with that prefix.  The serve CLI's
+   engine runs them with `--host-pool-mib 1024`, then with 0 (recompute
+   preemption), then on the full pool: the tier run must swap out, swap in
+   and restore spilled prefix blocks (`prefix_hits_host`), the recompute
+   run must preempt, the full-pool run must not; all must launch K1 22
+   times per forward and the plain route never and capture nothing after
+   warm-up (the tier run goes first once more and last; the last is
+   compared, and both must give the same streams).  The runs batch
+   differently (and a recompute re-prefills its
+   victims' generated tokens), so in bf16 a stream's KV history differs
+   by roundings between them and no rule on one step bounds a divergence
+   (two runs diverged by more than two bf16 roundings, and by more than
+   the bf16 model's error on the two tokens): the bf16 divergences are
+   printed (`bf16_divergences`), and the same three runs in float32 (4
+   layers at full width) must give the full pool's streams but for a
+   near-tie below 1e-4 (`divergence_ok`), the tier run swapping in and
+   hitting spilled prefixes there too.  Prints tokens/s of the
+   three, the prefill tokens the swaps saved, the link rate the cost model
+   observed and the restore wait's p50 (a histogram estimate).  Then, over
+   bf16, int8 (payload and scales) and e4m3 pools filled with random bytes,
+   11 blocks fetched to host slots and restored into 11 other blocks must
+   round-trip byte for byte (`torch.equal` on the raw bytes), changing no
+   other block; and pinned copies of 1, 8 and 32 pool blocks each way are
+   timed by CUDA events (the link table's row in `serving/host_tier.py`).
+18. quant — weight quantization (`ops/quant.py`) on tiny-llama-1.1b at
+   full width and depth: (a) the serve phase's CLI run in bf16 and with
+   `--quantize int8`, `w8a8` and `int4`: each as the serve phase checks
+   it (K1 22 per forward, replayed inside the step graphs), with the
+   weights' stored bytes, tokens/s, MFU/MBU, the greedy tokens' agreement
+   with bf16 (printed: random weights make them diverge legitimately) and
+   each step report's flops over bf16's (w8a8 within 0.01%); (b)
+   `Generator(quantize=...).generate` on the generate phase's 4 prompts
+   with exactly 22 K2 launches, decode tokens/s (the graph capture taken
+   out) and prefill seconds beside bf16's; (c) one float32 forward of each
+   mode (4 layers) against the same forward through
+   `plain_quantized_einsum` (float64 products): max |err| <= 1e-4 x
+   max(1, max |plain|); (d) `cli.prepare_model --quantize int8` on
+   the ckpt phase's snapshot: every leaf of the sibling equal to the
+   card's quantizer's on the same weights, and `cli.serve --ckpt
+   <sibling>` giving the streams of `--ckpt <snapshot> --quantize int8`.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4, each with `paths`: its launches in every phase that drives
-it, K1's `server` the closed submission's with the observer on); the last
-line is `{"ok": true, "device": {...}}`.
+it, K1's `server` the closed submission's with the observer on, its
+`quant` summed over the three quantized serves, K2's `quant` over the
+three quantized generates); the last line is `{"ok": true, "device":
+{...}}`.
 """
 
 from __future__ import annotations
@@ -1947,6 +1992,47 @@ def bf16_near_tie(phase, gen, got, want, label) -> None:
         torch.cuda.empty_cache()
 
 
+def bf16_divergences(phase, gen, got, want, label) -> int:
+    """Print, for every greedy bf16 stream of `got` that diverges from
+    `want`'s, the first divergent position i, the tokens a and b there and
+    the two tokens' logits in a dense forward of the bf16 model and of the
+    float32 model over the common prefix: the float32 gap |f32[a] -
+    f32[b]| beside the bf16 model's error on them.  Returns how many
+    diverge; gates nothing (a stream whose KV history was computed in
+    other batches differs by roundings at every position, so no bound on
+    one step holds it)."""
+    import torch
+
+    from mdi_llm_tpu_torch.models import transformer
+
+    n = 0
+    for rid, w in want.items():
+        g = got[rid]
+        if g == w:
+            continue
+        n += 1
+        i = next((j for j, (x, y) in enumerate(zip(g, w)) if x != y), min(len(g), len(w)))
+        if i >= min(len(g), len(w)):
+            fail(phase, f"{label}: {rid} streams differ in length")
+        a, b = g[i], w[i]
+        toks = torch.tensor([w[:i]], device=gen.device)
+        logits = {}
+        with torch.no_grad():
+            for name, params in (("bf16", gen.params),
+                                 ("f32", transformer.tree_map(lambda x: x.float(), gen.params))):
+                out = transformer.forward(gen.cfg, params, toks,
+                                          torch.zeros(1, dtype=torch.long, device=gen.device))
+                logits[name] = out[0, -1].float()
+                del params, out
+        l16, l32 = logits["bf16"], logits["f32"]
+        gap = abs(l32[a] - l32[b]).item()
+        err = (abs(l16[a] - l32[a]) + abs(l16[b] - l32[b])).item()
+        print(f"{phase}: {label}: {rid} diverges at position {i} (tokens {a} vs {b}); "
+              f"float32 logit gap between them {gap:.5f}, the bf16 model's error on them "
+              f"{err:.5f}", flush=True)
+        torch.cuda.empty_cache()
+    return n
+
 def phase_server_http(want, solo, trace, gen, card, tmp):
     """(c): the server CLI as a subprocess on a free localhost port."""
     import os
@@ -2189,6 +2275,460 @@ def phase_server(k1, card):
     torch.cuda.empty_cache()
 
 
+TIER_BLOCKS = 112  # of 1024 for full coverage: the 24 requests preempt
+TIER_HOST_MIB = 1024
+TIER_CHUNK_BLOCKS = (1, 8, 32)  # link-rate transfer widths, in pool blocks
+
+
+def tier_trace(vocab):
+    """The serve phase's 16 synthetic requests between two groups of 4
+    that share a 256-token prefix: the first group registers the prefix
+    chain, the synthetic requests evict it from the pool (spilling it with
+    a tier), and the last group finds it again."""
+    import numpy as np
+
+    from mdi_llm_tpu_torch.cli.serve import synthetic_trace
+
+    rng = np.random.default_rng(10138)
+    shared = rng.integers(1, vocab, 256).tolist()
+
+    def group(tag):
+        return [(f"{tag}{i}", shared + rng.integers(1, vocab, int(rng.integers(8, 64))).tolist(), 32)
+                for i in range(4)]
+
+    return group("head") + synthetic_trace(16, vocab, 2048, 64) + group("tail")
+
+
+def tier_serve(label, argv, trace):
+    """The serve CLI's engine for `argv` over `trace`, its `run()` under a
+    captures guard marked warm once the engine is built, with K1's and the
+    plain route's counts set to 0 just before and read just after.  Fails
+    unless every request finished in the vocabulary, K1 ran 22 times per
+    forward, the plain route never, and nothing was captured after warm-up.
+    Returns (results, engine, launches, summary)."""
+    from mdi_llm_tpu_torch.cli import serve as cli
+    from mdi_llm_tpu_torch.utils.profiling import CompileGuard, RecompileError
+
+    args = cli.build_parser().parse_args(argv)
+    guard = CompileGuard(label=f"tier {label}")
+    with guard:
+        engine, _tokenizer = cli.build_engine(args, need_tokenizer=False)
+        guard.mark_warm()
+        reset_k1_counts()
+        results, stats = _serve_trace(engine, trace)
+        launches, plain = k1_counts()
+    try:
+        guard.expect_clean()
+    except RecompileError as e:
+        fail("tier", f"{label}: {e}")
+    n_layer, vocab = engine.gen.cfg.n_layer, engine.gen.cfg.padded_vocab_size
+    if n_layer != 22 or launches <= 0 or launches != n_layer * engine.forward_calls or plain:
+        fail("tier", f"{label}: K1 launches {launches} != {n_layer} x "
+             f"{engine.forward_calls} forwards, plain route {plain}")
+    for rid, prompt, new in trace:
+        out = results.get(rid)
+        if out is None or len(out) - len(prompt) != new or not all(
+                0 <= t < vocab for t in out[len(prompt):]):
+            fail("tier", f"{label}: {rid} did not finish with its {new} tokens in the vocabulary")
+    summary = {"run": label, "tokens_per_s": round(stats.tokens_per_s, 2),
+               "wall_s": round(stats.wall_s, 4), "prefill_tokens": stats.prefill_tokens,
+               "preemptions": stats.preemptions, "swaps_out": stats.swaps_out,
+               "swaps_in": stats.swaps_in, "swap_out_bytes": stats.swap_out_bytes,
+               "swap_in_bytes": stats.swap_in_bytes, "prefix_hits_host": stats.prefix_hits_host,
+               "prefix_cache_hits": stats.prefix_cache_hits,
+               "restore_issue_s": round(stats.restore_issue_s, 5), "host_syncs": stats.host_syncs,
+               "forward_calls": engine.forward_calls, "k1_launches": launches,
+               "captures_after_warmup": guard.captures_after_warmup}
+    return results, engine, launches, summary
+
+
+def tier_f32_parity(trace, card):
+    """The tier trace in float32 (4 layers at full width) on the tight pool
+    with the tier, on it recomputing, and on the full pool: the tier run
+    must swap in and hit spilled prefixes, and both tight runs must give
+    the full pool's streams but for a float32 near-tie (`divergence_ok`)."""
+    import torch
+
+    gen = tiny_llama_generator(4, torch.float32)
+    knobs = dict(block_size=16, max_batch=8)
+    streams, stats = {}, {}
+    for label, extra in (("tier", dict(max_blocks=TIER_BLOCKS, host_pool_mib=TIER_HOST_MIB)),
+                         ("recompute", dict(max_blocks=TIER_BLOCKS)), ("full pool", {})):
+        streams[label], stats[label] = _serve_trace(gen.serve(**knobs, **extra), trace)
+    s = stats["tier"]
+    if not (s.swaps_in > 0 and s.prefix_hits_host > 0 and stats["recompute"].preemptions):
+        fail("tier", f"float32: tier run {s.to_dict()}, recompute run preemptions "
+             f"{stats['recompute'].preemptions}")
+    for label in ("tier", "recompute"):
+        divergence_ok("tier", gen, streams[label], streams["full pool"], f"float32 {label} vs full pool")
+    same = {k: sum(streams[k][r] == streams["full pool"][r] for r in streams[k])
+            for k in ("tier", "recompute")}
+    print(f"tier: float32, 4 layers at full width: {same['tier']} of {len(trace)} streams of "
+          f"the tier run ({s.swaps_out} swaps out, {s.swaps_in} in, {s.prefix_hits_host} "
+          f"host prefix hits) and {same['recompute']} of the recompute run identical to "
+          f"the full pool's; on {card}", flush=True)
+    del gen
+    torch.cuda.empty_cache()
+
+
+def tier_round_trip(gen, label, kv_dtype, seed):
+    """Random bytes in every leaf of a fresh engine's pool (payload and
+    scales), 11 blocks fetched to host slots (two fixed-width chunks, the
+    second padded) and restored into 11 other blocks: the slots must hold
+    the blocks' bytes, the restored blocks must equal the originals byte
+    for byte, and no other block but the trash block may change."""
+    import torch
+
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.serving.host_tier import raw_dtype
+
+    engine = gen.serve(block_size=16, max_batch=8, max_blocks=64, host_pool_mib=64,
+                       kv_dtype=kv_dtype)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    raws = [x.view(raw_dtype(x.dtype)) for x in transformer.tree_leaves(engine._kv)]
+    for r in raws:
+        info = torch.iinfo(r.dtype)
+        r.copy_(torch.randint(info.min, info.max, r.shape, generator=g, device=DEVICE,
+                              dtype=torch.int64).to(r.dtype))
+    src = [5, 9, 17, 3, 40, 41, 42, 43, 44, 50, 51]
+    dst = [60, 61, 2, 33, 34, 35, 20, 21, 22, 7, 8]
+    slots = engine.host_tier.store.alloc(len(src))
+    before = [r.clone() for r in raws]
+    engine._issue_fetch(src, slots)
+    engine._drain_swaps()
+    idx = torch.tensor(src, device=DEVICE)
+    for r, host in zip(raws, engine.host_tier.store.read(slots)):
+        if not torch.equal(host.view(r.dtype).to(DEVICE), r.index_select(1, idx).movedim(1, 0)):
+            fail("tier", f"{label}: a host slot does not hold its block's bytes")
+    engine._restore(slots, dst)
+    torch.cuda.synchronize()
+    keep = [b for b in range(raws[0].shape[1]) if b not in dst and b != 0]
+    for r, old in zip(raws, before):
+        if not torch.equal(r[:, dst], old[:, src]):
+            fail("tier", f"{label}: restored blocks differ from the fetched ones")
+        if not torch.equal(r[:, keep], old[:, keep]):
+            fail("tier", f"{label}: a restore changed a block outside its targets")
+    leaves = [f"{tuple(x.shape)} {str(x.dtype).replace('torch.', '')}"
+              for x in transformer.tree_leaves(engine._kv)]
+    del engine
+    return leaves
+
+
+def link_rates(block_bytes):
+    """Pinned device -> host and host -> device GB/s of `TIER_CHUNK_BLOCKS`
+    blocks per copy, by CUDA events over 50 copies each."""
+    import torch
+
+    out = {}
+    for n in TIER_CHUNK_BLOCKS:
+        nbytes = n * block_bytes
+        dev = torch.empty(nbytes, dtype=torch.uint8, device=DEVICE)
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        d2h = cuda_ms(lambda: host.copy_(dev, non_blocking=True), 50)
+        h2d = cuda_ms(lambda: dev.copy_(host, non_blocking=True), 50)
+        out[n] = {"bytes": nbytes, "d2h_gbps": round(nbytes / d2h / 1e6, 3),
+                  "h2d_gbps": round(nbytes / h2d / 1e6, 3),
+                  "d2h_ms": round(d2h, 5), "h2d_ms": round(h2d, 5)}
+        del dev, host
+    return out
+
+
+def phase_tier(k1, card):
+    """The host-RAM KV tier on the card (the module docstring, phase 17)."""
+    import torch
+
+    from mdi_llm_tpu_torch.cli import serve as cli
+    from mdi_llm_tpu_torch.serving.host_tier import lookup_host_link_gbps
+
+    full = SERVE_BASE + ["--no-device-obs"]
+    tight = full + ["--max-blocks", str(TIER_BLOCKS)]
+    warm, _tokenizer = cli.build_engine(cli.build_parser().parse_args(full),
+                                        need_tokenizer=False)
+    gen = warm.gen
+    _serve_trace(warm, [("w0", [1, 2, 3], 8), ("w1", list(range(1, 40)), 8)])  # CUDA warm-up
+    del warm
+    trace = tier_trace(gen.cfg.vocab_size)
+    runs = {}
+    tiered = tight + ["--host-pool-mib", str(TIER_HOST_MIB)]
+    # the first tier run pays the process's first launches of the tier's
+    # copy kernels; the second is the one compared
+    for label, argv in (("tier, first", tiered), ("recompute", tight), ("full pool", full),
+                        ("tier", tiered)):
+        runs[label] = tier_serve(label, argv, trace)
+        torch.cuda.empty_cache()
+    first = runs.pop("tier, first")
+    if first[0] != runs["tier"][0]:
+        fail("tier", "two tier runs of one trace gave different streams")
+    print("tier: " + json.dumps(first[3]) + f"; on {card}", flush=True)
+    del first
+    got, engine, launches, s_on = runs["tier"]
+    rec, _e, _l, s_off = runs["recompute"]
+    want, _e, _l, s_full = runs["full pool"]
+    tier = engine.host_tier
+    restore = engine.obs.metrics.histogram("serving_restore_wait_ms")
+    s_on.update({
+        "host_blocks": tier.store.num_slots,
+        "host_pool_mib": round(tier.store.nbytes / 2**20, 1),
+        "block_bytes": engine._host_block_bytes,
+        "prefill_tokens_saved": s_off["prefill_tokens"] - s_on["prefill_tokens"],
+        "link_gbps_prior": lookup_host_link_gbps(torch.cuda.get_device_name(0)),
+        "link_gbps_observed": round(tier.cost_model.link_gbps, 3),
+        "prefill_tokens_per_s_observed": round(tier.cost_model.prefill_tokens_per_s, 1),
+        "restore_wait_ms_p50": round(restore.percentile(50), 4),
+        "restore_waits": restore.count})
+    for s in (s_on, s_off, s_full):
+        print("tier: " + json.dumps(s) + f"; on {card}", flush=True)
+    if not (s_on["swaps_out"] > 0 and s_on["swaps_in"] > 0 and s_on["prefix_hits_host"] > 0):
+        fail("tier", f"the tier run did not swap out, swap in and hit spilled prefixes: {s_on}")
+    if s_off["swaps_out"] or s_off["swaps_in"] or not s_off["preemptions"] \
+            or s_full["preemptions"]:
+        fail("tier", f"the recompute run {s_off}, the full-pool run {s_full}")
+    # each run batches differently (and a recompute re-prefills its victims'
+    # generated tokens): in bf16 a stream's KV history differs by roundings
+    # between the runs, so its divergences are printed; the float32 runs
+    # (`tier_f32_parity`) hold the tier to the near-tie rule of the parity
+    # phases
+    for label, streams in (("tier", got), ("recompute", rec)):
+        bf16_divergences("tier", gen, streams, want, f"{label} vs full pool")
+    same = {label: sum(r[rid] == want[rid] for rid in want)
+            for label, r in (("tier", got), ("recompute", rec))}
+    print(f"tier: {len(trace)} requests over {TIER_BLOCKS} pool blocks: streams identical "
+          f"to the full pool's {same['tier']} with the tier, {same['recompute']} "
+          f"recomputing (the others as checked above); tokens/s {s_on['tokens_per_s']} "
+          f"with the tier, {s_off['tokens_per_s']} recomputing, {s_full['tokens_per_s']} "
+          f"on the full pool; {s_on['prefill_tokens_saved']} prefill tokens saved; "
+          f"restore_wait p50 {s_on['restore_wait_ms_p50']} ms (histogram estimate); "
+          f"on {card}", flush=True)
+    k1.setdefault("paths", {})["tier"] = launches
+    block_bytes = engine._host_block_bytes
+    del engine, runs, got, rec, want
+
+    tier_f32_parity(trace, card)
+    for label, kv_dtype, seed in (("bf16", None, 1), ("int8", "int8", 2), ("e4m3", "float8", 3)):
+        leaves = tier_round_trip(gen, label, kv_dtype, seed)
+        print(f"tier: {label} pool round trip byte-identical, 11 blocks in 2 chunks "
+              f"to host slots and back into 11 other blocks; leaves {leaves}", flush=True)
+    rates = link_rates(block_bytes)
+    print("tier: pinned copies " + json.dumps({f"{n} blocks": r for n, r in rates.items()})
+          + f" ({block_bytes} bytes per bf16 block); on {card}", flush=True)
+    del gen
+    torch.cuda.empty_cache()
+
+
+QUANT_MODES = ("int8", "w8a8", "int4")
+
+
+def plain_quantized_einsum(spec, x, p):
+    """The plain version of `quant.quantized_einsum` for the linear specs:
+    w8 and int4 as a float64 product with the dequantized weights; w8a8
+    with the same per-token int8 activations, their int8 product with the
+    weights as a float64 product (exact, as the int32 one is), then the
+    same float32 scaling.  (A float64 scaling would move activations across
+    int8 rounding boundaries in later layers: a discontinuity, not an
+    error of the route.)"""
+    import torch
+
+    from mdi_llm_tpu_torch.ops import quant
+
+    if "weight_q8" in p:
+        xf = x.float()
+        xs = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / torch.full((), 127.0,
+                                                                          device=x.device),
+                         min=1e-10)
+        xq = torch.clamp(torch.round(xf / xs), -127, 127)
+        y = (xq.double() @ p["weight_q8"].double().t()).float()
+        return (y * xs * p["scale"]).to(x.dtype)
+    if "weight_q4" in p:
+        w = quant.unpack_w4(p["weight_q4"], p["scale"], torch.float64)
+    elif "weight_q" in p:
+        w = p["weight_q"].double() * p["scale"].double()[..., None]
+    else:
+        w = p["weight"].double()
+    return (x.double() @ w.t()).to(x.dtype)
+
+
+def quant_forward_parity():
+    """One float32 forward of each mode (4 layers at full width) against
+    the same forward through `plain_quantized_einsum`: max |err| <=
+    1e-4 x max(1, max |plain|).  Returns {mode: (err, limit)}."""
+    from unittest import mock
+
+    import torch
+
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.ops.quant import FLAG_TO_MODE, quantize_params
+
+    cfg = Config.from_name(TINY_LLAMA, n_layer=4)
+    params = transformer.init_params(cfg, 10137, dtype=torch.float32, device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    toks = torch.randint(1, cfg.vocab_size, (2, 100), generator=g, device=DEVICE)
+    pos = torch.zeros(2, dtype=torch.long, device=DEVICE)
+    out = {}
+    with torch.no_grad():
+        for mode in QUANT_MODES:
+            qp = quantize_params(params, mode=FLAG_TO_MODE[mode])
+            got = transformer.forward(cfg, qp, toks, pos)
+            with mock.patch.object(transformer, "quantized_einsum", plain_quantized_einsum):
+                ref = transformer.forward(cfg, qp, toks, pos)
+            err = (got - ref).abs().max().item()
+            limit = TOL["float32"] * max(1.0, ref.abs().max().item())
+            if not err <= limit:
+                fail("quant", f"{mode}: f32 forward max |err| {err} > {limit} against the plain version")
+            out[mode] = (err, limit)
+            del qp, got, ref
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def agreement(got, want, prompts):
+    """Generated tokens equal to `want`'s up to each stream's first
+    divergence, over all generated tokens."""
+    same = total = 0
+    for key, w in want.items():
+        g, n = got[key], prompts[key]
+        new_w, new_g = w[n:], g[n:]
+        k = next((i for i, (a, b) in enumerate(zip(new_g, new_w)) if a != b),
+                 min(len(new_g), len(new_w)))
+        same, total = same + k, total + len(new_w)
+    return round(same / max(1, total), 4)
+
+
+def phase_quant(k1, k2, card, ckpt_dir):
+    """Weight quantization on the card (the module docstring, phase 18)."""
+    import torch
+
+    from mdi_llm_tpu_torch.cli import prepare_model
+    from mdi_llm_tpu_torch.cli import serve as cli
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.obs.roofline import param_bytes
+    from mdi_llm_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+    from mdi_llm_tpu_torch.ops.quant import quantize_params, tree_has_quantized
+    from mdi_llm_tpu_torch.utils import checkpoint as ck
+
+    # (a) the serve CLI, bf16 then each mode, K1 replayed inside the graphs
+    serve_argv = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"]
+    serves, k1_launches = {}, 0
+    for mode in ("none",) + QUANT_MODES:
+        line, launches, engine, results = serve_checked("quant", serve_argv + ["--quantize", mode])
+        graphs = engine.graph_stats()
+        if graphs["captures"] != graphs["steps"] or graphs["replays"] <= 0:
+            fail("quant", f"--quantize {mode}: step graphs {graphs}")
+        if (mode != "none") != bool(engine.gen.quantized):
+            fail("quant", f"--quantize {mode}: Generator.quantized is {engine.gen.quantized}")
+        dev = line["device"]
+        utilization_ok("quant", f"serve --quantize {mode}", dev.get("mfu"), dev.get("mbu"))
+        flops = {n: r["flops"] for n, r in dev["reports"].items()}
+        if not flops or None in flops.values():
+            fail("quant", f"--quantize {mode}: step reports {dev['reports']}")
+        serves[mode] = (line, results, param_bytes(engine.gen.params), flops)
+        if mode != "none":
+            k1_launches += launches
+        engine_vocab = engine.gen.cfg.vocab_size
+        del engine
+        torch.cuda.empty_cache()
+    bline, bres, bbytes, bflops = serves["none"]
+    trace = cli.synthetic_trace(16, engine_vocab, 2048, 64)
+    lens = {rid: len(p) for rid, p, _n in trace}
+    for mode in QUANT_MODES:
+        line, results, nbytes, flops = serves[mode]
+        ratio = {n: round(flops[n] / bflops[n], 6) for n in bflops}
+        if mode == "w8a8" and any(abs(r - 1) > 1e-4 for r in ratio.values()):
+            fail("quant", f"w8a8 step flops / bf16 step flops {ratio} (want within 0.01%)")
+        print("quant: serve " + json.dumps({
+            "quantize": mode, "weight_bytes": nbytes, "bf16_weight_bytes": bbytes,
+            "tokens_per_s": line["tokens_per_s"], "bf16_tokens_per_s": bline["tokens_per_s"],
+            "mfu": line["device"]["mfu"], "mbu": line["device"]["mbu"],
+            "bf16_mbu": bline["device"]["mbu"], "forward_calls": line["forward_calls"],
+            "graph_captures": line["graph_captures"], "graph_replays": line["graph_replays"],
+            "greedy_agreement_with_bf16": agreement(results, bres, lens),
+            "step_flops_over_bf16": ratio}) + f"; on {card}", flush=True)
+    k1.setdefault("paths", {})["quant"] = k1_launches
+
+    # (b) Generator.generate on the generate phase's prompts, K2 in the prefill
+    cfg = Config.from_name(TINY_LLAMA)
+    params = transformer.init_params(cfg, 10137, dtype=torch.bfloat16, device=DEVICE)
+    prompts = long_prompts((1100, 1370, 1650, 1900), cfg.vocab_size)
+    plens = {i: len(p) for i, p in enumerate(prompts)}
+    gens, k2_launches = {}, 0
+    for mode in ("none",) + QUANT_MODES:
+        gen = Generator(cfg, params, max_seq_length=2048, device=DEVICE, quantize=mode)
+        gen.generate([[1, 2, 3]] * 4, 4, temperature=0.0)  # warm-up, not counted
+        torch.cuda.synchronize()
+        flash_attention.launches = flash_attention_plain.calls = 0
+        outs, stats = gen.generate(prompts, 64, temperature=0.0, chunk_size=16)
+        torch.cuda.synchronize()
+        launches, plain = flash_attention.launches, flash_attention_plain.calls
+        if launches != 22 or plain:
+            fail("quant", f"generate --quantize {mode}: K2 launches {launches} (want 22), "
+                 f"plain version calls {plain} (want 0)")
+        for i, (p, o) in enumerate(zip(prompts, outs)):
+            if len(o) - len(p) != 64 or not all(0 <= t < cfg.padded_vocab_size for t in o[len(p):]):
+                fail("quant", f"generate --quantize {mode}: sample {i} did not get 64 tokens")
+        # decode tokens/s without the decode-chunk graph's first capture
+        # (the warm-up call's shapes differ), which decode_s includes
+        decode_tps = stats.tokens_generated / (stats.decode_s - stats.capture_s)
+        gens[mode] = (dict(enumerate(outs)), stats, decode_tps)
+        if mode != "none":
+            k2_launches += launches
+            print("quant: generate " + json.dumps({
+                "quantize": mode, "prefill_s": round(stats.prefill_s, 4),
+                "decode_s": round(stats.decode_s, 4), "capture_s": round(stats.capture_s, 4),
+                "decode_tokens_per_s": round(decode_tps, 2),
+                "bf16_decode_tokens_per_s": round(gens["none"][2], 2),
+                "bf16_prefill_s": round(gens["none"][1].prefill_s, 4),
+                "k2_launches": launches, "graph_captures": stats.captures,
+                "greedy_agreement_with_bf16": agreement(gens[mode][0], gens["none"][0], plens)})
+                + f"; on {card}", flush=True)
+        del gen
+        torch.cuda.empty_cache()
+    k2.setdefault("paths", {})["quant"] = k2_launches
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) a float32 forward of each mode against its plain version
+    for mode, (err, limit) in quant_forward_parity().items():
+        print(f"quant: f32 forward, 4 layers at full width, {mode}: max |err| {err:.3e} "
+              f"<= {limit:.3e} against the float64 plain version", flush=True)
+
+    # (d) prepare_model --quantize int8 on the ckpt phase's snapshot
+    if not ck.has_checkpoint(ckpt_dir):
+        write_snapshot(ckpt_dir)
+        prepare_model.main([str(ckpt_dir)])
+    t0 = time.perf_counter()
+    prepare_model.main([str(ckpt_dir), "--quantize", "int8"])
+    prep_s = time.perf_counter() - t0
+    sibling = ckpt_dir.parent / f"{ckpt_dir.name}-int8"
+    _cfg, stored = ck.load_checkpoint(sibling, device=DEVICE)
+    _cfg, original = ck.load_checkpoint(ckpt_dir, device=DEVICE)
+    on_card = quantize_params(original, mode="w8")
+    want, got = transformer.tree_leaves(on_card), transformer.tree_leaves(stored)
+    differ = [i for i, (a, b) in enumerate(zip(want, got))
+              if not (a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b))]
+    if not tree_has_quantized(stored) or len(want) != len(got) or differ:
+        fail("quant", f"the sibling (quantized on the CPU) differs from the card's quantizer "
+             f"on the same weights in leaves {differ} of {len(want)}")
+    del stored, original, on_card, want, got
+    torch.cuda.empty_cache()
+    ckpt_base = SERVE_BASE[2:] + ["--synthetic", "16", "--n-tokens", "64"]
+    _l, _n, e_sib, r_sib = serve_checked("quant", ["--ckpt", str(sibling)] + ckpt_base)
+    sib_quantized = e_sib.gen.quantized
+    del e_sib
+    _l, _n, e_flag, r_flag = serve_checked(
+        "quant", ["--ckpt", str(ckpt_dir), "--quantize", "int8"] + ckpt_base)
+    del e_flag
+    if not sib_quantized or r_sib != r_flag:
+        fail("quant", f"the int8 sibling (quantized {sib_quantized}) served other tokens than "
+             "--quantize int8 on the original")
+    print(f"quant: prepare_model --quantize int8 wrote {sibling.name} in {prep_s:.1f} s; "
+          "every leaf equal to the card's quantizer's, the sibling loads quantized and "
+          "serves --quantize int8's 16 greedy streams", flush=True)
+    torch.cuda.empty_cache()
+
+
 def _serve_trace(engine, trace):
     for rid, prompt, new in trace:
         engine.add_request(rid, prompt, new)
@@ -2197,7 +2737,8 @@ def _serve_trace(engine, trace):
 
 PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
-          "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs", "server")
+          "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs", "server",
+          "tier", "quant")
 
 
 def main(argv=None) -> None:
@@ -2282,6 +2823,8 @@ def main(argv=None) -> None:
         "chat": lambda: phase_chat(k2, card, ckpt_dir),
         "graphs": lambda: phase_graphs(k1, k2, card),
         "server": lambda: phase_server(k1, card),
+        "tier": lambda: phase_tier(k1, card),
+        "quant": lambda: phase_quant(k1, k2, card, ckpt_dir),
     }
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = Path(tmp) / TINY_LLAMA
@@ -2294,10 +2837,10 @@ def main(argv=None) -> None:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
     records = (k1, k1q8, k2, k3, k4)
     missing = [(r["name"], k) for r in records for k in keys if k not in r]
-    k2_paths = {"generate", "ckpt", "graphs"} | (
+    k2_paths = {"generate", "ckpt", "graphs", "quant"} | (
         {"chat"} if importlib.util.find_spec("tokenizers") else set())
-    if only == set(PHASES) and (set(k1["paths"]) != {"serve", "ckpt", "graphs", "server"}
-                                or set(k2["paths"]) != k2_paths):
+    k1_paths = {"serve", "ckpt", "graphs", "server", "tier", "quant"}
+    if only == set(PHASES) and (set(k1["paths"]) != k1_paths or set(k2["paths"]) != k2_paths):
         fail("record", f"K1 paths {k1['paths']}, K2 paths {k2['paths']}")
     if only == set(PHASES) and missing:
         fail("record", f"kernels line lacks {missing}")

@@ -5,8 +5,10 @@ need).
 
 `--ckpt DIR` loads a checkpoint of the port (`params.pt`), converting a
 directory that holds HF weights in place first; `--model NAME` draws
-random weights from `--seed`.  Weight quantization (`--quantize`) is
-refused until a later slice carries it.
+random weights from `--seed`.  `--quantize int8|w8a8|int4` quantizes
+the weights when the Generator is built (`ops/quant.py`); a checkpoint
+written by `prepare_model --quantize` loads already quantized, with
+`--quantize none`.
 """
 
 from __future__ import annotations
@@ -62,8 +64,13 @@ def add_common_args(ap: argparse.ArgumentParser, serving_kv: bool = False) -> No
                     help="truncate max context")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu must be asked for)")
-    ap.add_argument("--quantize", default="none",
-                    help="weight quantization (not ported yet: only 'none')")
+    ap.add_argument(
+        "--quantize", choices=("none", "int8", "w8a8", "int4"), default="none",
+        help="int8: weight-only per-channel int8 (half the weight bytes); "
+        "w8a8: also quantizes activations per token and contracts int8 x "
+        "int8 -> int32; int4: group-wise weight-only nibbles (a quarter of "
+        "the weight bytes, coarser numerics)",
+    )
     ap.add_argument(
         "--kv-dtype", choices=("auto", *KV_DTYPES) + (("int8",) if serving_kv else ()),
         default="auto",
@@ -87,8 +94,6 @@ def load_model(
     or --model.  A --ckpt dir holding raw HF weights is converted in place
     first; its tokenizer and prompt style load when `need_tokenizer`.
     --model draws random weights from --seed and has no tokenizer."""
-    if args.quantize != "none":
-        refuse(f"--quantize {args.quantize} (weight quantization, item 10)")
     dtype = DTYPES[args.dtype]
     tokenizer = prompt_style = None
     if args.ckpt:

@@ -73,6 +73,7 @@ def main(argv=None):
     gen = Generator(
         cfg, params, max_seq_length=args.sequence_length, rng_seed=args.seed,
         cache_dtype=resolve_kv_dtype(args.kv_dtype), device=args.device,
+        quantize=args.quantize,
     )
 
     print(f"Chatting with {cfg.name} — empty line or Ctrl-D to exit.")

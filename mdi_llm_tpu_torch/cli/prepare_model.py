@@ -4,20 +4,30 @@ Port of `mdi_llm_tpu/cli/prepare_model.py` for a local directory: the HF
 weights in it (`*.safetensors` or `*.bin`, with their `config.json`) are
 converted in place into a checkpoint of the port (`params.pt` +
 `model_config.yaml`, the tokenizer files kept beside them), unless one is
-there already.  Nothing is downloaded: a hub name is refused.  Stage
-partitioning (`--n-stages`, item 15) and pre-quantized copies
-(`--quantize`, item 10) are refused.
+there already.  Nothing is downloaded: a hub name is refused.
+`--quantize int8|int4` also writes a pre-quantized copy into the sibling
+directory `<ckpt>-<mode>/` (quantized `params.pt`, the config and the
+tokenizer files), which every CLI's `--ckpt` loads with no further flag.
+Stage partitioning (`--n-stages`, item 15) is refused.
 
     python -m mdi_llm_tpu_torch.cli.prepare_model checkpoints/TinyLlama-1.1B-Chat-v1.0
+    python -m mdi_llm_tpu_torch.cli.prepare_model checkpoints/TinyLlama-1.1B-Chat-v1.0 --quantize int8
 """
 
 from __future__ import annotations
 
 import argparse
+import shutil
 from pathlib import Path
 
 from mdi_llm_tpu_torch.cli._common import refuse
-from mdi_llm_tpu_torch.utils.checkpoint import convert_hf_checkpoint, has_checkpoint
+from mdi_llm_tpu_torch.utils.checkpoint import (
+    TOKENIZER_FILES,
+    convert_hf_checkpoint,
+    has_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
 
 DTYPES = ("bfloat16", "float32")
 
@@ -26,9 +36,14 @@ def build_parser():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("model", help="local HF checkpoint directory")
     ap.add_argument("--dtype", choices=DTYPES, default="bfloat16")
+    ap.add_argument(
+        "--quantize", choices=("none", "int8", "int4"), default="none",
+        help="additionally write a pre-quantized checkpoint (<ckpt>-<mode>/) "
+        "that every CLI loads with no further flags: quantize once here "
+        "instead of in every process at load",
+    )
     unported = ap.add_argument_group("not ported yet (refused when set)")
     unported.add_argument("--n-stages", "--n-nodes", type=int, default=0, dest="n_stages")
-    unported.add_argument("--quantize", default="none")
     return ap
 
 
@@ -38,8 +53,6 @@ def main(argv=None) -> Path:
     args = build_parser().parse_args(argv)
     if args.n_stages > 1:
         refuse("--n-stages (stage partitioning, item 15)")
-    if args.quantize != "none":
-        refuse(f"--quantize {args.quantize} (weight quantization, item 10)")
     ckpt_dir = Path(args.model)
     if not ckpt_dir.is_dir():
         raise SystemExit(
@@ -49,6 +62,19 @@ def main(argv=None) -> Path:
         )
     if not has_checkpoint(ckpt_dir):
         convert_hf_checkpoint(ckpt_dir, dtype=getattr(torch, args.dtype))
+    if args.quantize != "none":
+        from mdi_llm_tpu_torch.ops.quant import FLAG_TO_MODE, quantize_params
+
+        cfg, params = load_checkpoint(ckpt_dir)
+        qp = quantize_params(params, mode=FLAG_TO_MODE[args.quantize])
+        q_dir = ckpt_dir.parent / f"{ckpt_dir.name}-{args.quantize}"
+        save_checkpoint(qp, cfg, q_dir)
+        # the tokenizer files travel with the quantized copy, so it is a
+        # self-contained --ckpt target
+        for name in TOKENIZER_FILES:
+            if (ckpt_dir / name).exists():
+                shutil.copy(ckpt_dir / name, q_dir / name)
+        print(f"wrote {args.quantize}-quantized checkpoint -> {q_dir}")
     print(f"checkpoint ready: {ckpt_dir}")
     return ckpt_dir
 

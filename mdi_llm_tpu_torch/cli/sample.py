@@ -86,7 +86,7 @@ def run(args):
     gen = Generator(
         cfg, params, max_seq_length=args.sequence_length, rng_seed=args.seed,
         cache_dtype=resolve_kv_dtype(args.kv_dtype),
-        device=args.device,
+        device=args.device, quantize=args.quantize,
     )
     outs, stats = gen.generate(
         prompt_ids, args.n_tokens, temperature=temperature, top_k=args.top_k,

@@ -12,9 +12,13 @@ tokenizer needed); the same one-line JSON stats summary goes to stderr.
 over an e4m3 pool;
 `--spec-k K` turns on speculative serving (n-gram drafts, and with
 `--draft-model NAME` a randomly initialised draft model where the lookup
-misses).  Runs on the GPU unless `--device cpu` is given; without a GPU
-and without that flag it raises.  Flags of features the port does not
-carry yet (`--host-pool-mib`, `--tp`, `--pp`) are refused.
+misses).  `--host-pool-mib N` puts a host-RAM block tier behind the pool
+(`serving/host_tier.py`): preemption victims swap to it and cold prefix
+chains spill to it; the stats line's `swaps_*` and `prefix_hits_host`
+count its work.  `--quantize int8|w8a8|int4` serves quantized weights
+(`ops/quant.py`).  Runs on the GPU unless `--device cpu` is given;
+without a GPU and without that flag it raises.  Flags of features the
+port does not carry yet (`--tp`, `--pp`) are refused.
 
 Observability rides every run (`obs/`, hooks at the engine's host-sync
 boundaries): the stats line carries the per-request latency block
@@ -31,6 +35,9 @@ request/step timeline, `--sample-rss` adds a host RSS gauge, and
     python -m mdi_llm_tpu_torch.cli.serve --device cpu --model pythia-14m \\
         --synthetic 3 --max-batch 2 --n-tokens 8 --sequence-length 128 --block-size 8 \\
         --metrics-out logs/metrics.json --trace-out logs/trace.json
+    python -m mdi_llm_tpu_torch.cli.serve --device cpu --model pythia-14m \\
+        --synthetic 6 --max-batch 4 --n-tokens 48 --sequence-length 128 --block-size 8 \\
+        --max-blocks 24 --host-pool-mib 16
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ from mdi_llm_tpu_torch.generation import resolve_device
 from mdi_llm_tpu_torch.models import transformer
 
 # flags of the JAX CLI whose features are not ported: refused when set
-_UNPORTED = {"host_pool_mib": 0, "tp": 1, "pp": 1}
+_UNPORTED = {"tp": 1, "pp": 1}
 
 
 def build_parser():
@@ -101,6 +108,17 @@ def build_parser():
                     "reading the current one")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable hash-based prefix block reuse")
+    ap.add_argument("--host-pool-mib", type=int, default=0,
+                    help="host-RAM KV block tier in MiB (0 = off): "
+                    "preemption victims swap their int8/fp blocks to "
+                    "pinned host slabs and resume without re-prefill "
+                    "(when the swap cost model beats recompute), and "
+                    "cold prefix chains spill there instead of being "
+                    "dropped")
+    ap.add_argument("--host-link-gbps", type=float, default=None,
+                    help="host<->device link bandwidth (GB/s) for the "
+                    "swap-vs-recompute cost model (default: the "
+                    "per-device table in serving/host_tier.py)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="engine-wide sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=None)
@@ -143,7 +161,6 @@ def build_parser():
                     help="engine steps to let pass before the --xprof-steps "
                     "window opens")
     unported = ap.add_argument_group("not ported yet (refused when set)")
-    unported.add_argument("--host-pool-mib", type=int, default=0)
     unported.add_argument("--tp", type=int, default=1)
     unported.add_argument("--pp", type=int, default=1)
     return ap
@@ -188,6 +205,11 @@ def make_serving_config(args, admission_queue=None):
         draft_model=args.draft_model,
         kv_dtype="int8" if args.kv_dtype == "int8" else None,
         admission_queue=admission_queue,
+        host_pool_mib=args.host_pool_mib,
+        host_link_gbps=args.host_link_gbps,
+        # spill needs the prefix hash chains: without the prefix cache the
+        # tier serves preemption swaps only
+        host_prefix_spill=not args.no_prefix_cache,
     )
 
 
@@ -204,6 +226,7 @@ def build_generator(args, cfg, params, _graphs=None):
         ),
         rng_seed=args.seed,
         device=args.device,
+        quantize=args.quantize,
         _graphs=_graphs,
     )
 
@@ -216,11 +239,13 @@ def make_observer(args):
                            device=not args.no_device_obs)
 
 
-def build_engine(args, need_tokenizer, _graphs=None, admission_queue=None):
+def build_engine(args, need_tokenizer, _graphs=None, admission_queue=None,
+                 origin="cli.serve"):
     """The model and an empty engine the flags describe, with its observer
     (`engine.obs`); returns (engine, tokenizer).  On the card the engine's
     steps are CUDA graphs captured here; `_graphs=False` (comparisons
-    only) launches them eagerly."""
+    only) launches them eagerly.  With a host tier, a line on stderr says
+    its size (`origin` names the CLI)."""
     from mdi_llm_tpu_torch.serving.policy import make_policy
 
     for name, default in _UNPORTED.items():
@@ -232,6 +257,11 @@ def build_engine(args, need_tokenizer, _graphs=None, admission_queue=None):
     gen = build_generator(args, cfg, params, _graphs=_graphs)
     engine = gen.serve(serving=serving_cfg, obs=make_observer(args),
                        policy=make_policy(args.policy))
+    if engine.host_tier is not None:
+        store = engine.host_tier.store
+        print(f"{origin}: host KV tier {store.num_slots} blocks ~= "
+              f"{store.nbytes / 2**20:.1f} MiB "
+              f"{'pinned ' if store.pin_memory else ''}host RAM", file=sys.stderr)
     return engine, tokenizer
 
 

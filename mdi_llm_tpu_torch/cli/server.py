@@ -18,8 +18,8 @@ accepting, finish in-flight streams, stop the engine — bounded by
 latency block) then goes to stderr.  It runs on the GPU unless
 `--device cpu` is given; the engine's steps are captured as CUDA graphs
 before the listener opens, and the engine thread only replays them.
-It takes `cli.serve`'s flags; `--tp`, `--pp` and `--host-pool-mib` are
-refused (not ported).
+It takes `cli.serve`'s flags (the host tier's and `--quantize` among
+them); `--tp` and `--pp` are refused (not ported).
 
     python -m mdi_llm_tpu_torch.cli.server --model tiny-llama-1.1b --port 8080
     python -m mdi_llm_tpu_torch.cli.server --ckpt checkpoints/tiny-llama --policy deadline
@@ -68,7 +68,8 @@ def main(argv=None):
     # token-id requests always work; text prompts need the checkpoint's
     # tokenizer (the HTTP layer answers 400 without one)
     engine, tokenizer = serve_cli.build_engine(
-        args, need_tokenizer=False, admission_queue=args.admission_queue)
+        args, need_tokenizer=False, admission_queue=args.admission_queue,
+        origin="cli.server")
     obs = engine.obs
     frontend = ServingFrontend(engine, max_queue=args.admission_queue)
     server = ServingHTTPServer(

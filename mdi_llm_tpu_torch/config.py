@@ -4,9 +4,9 @@ A copy of `mdi_llm_tpu/config.py`: the port keeps its own so that it never
 imports the JAX package.  `Config`, the `name_to_config`/`configs`
 registry, `ServingConfig` and `dtype_bytes` are unchanged, so a config and
 its pool formulas mean the same thing in both packages
-(tests/test_torch_config.py holds them equal).  The one method dropped is
-`ServingConfig.resolved_host_link_gbps`: the host-RAM KV tier is not part
-of the port yet, and the engine refuses `host_pool_mib > 0`.
+(tests/test_torch_config.py holds them equal).
+`ServingConfig.resolved_host_link_gbps` reads the port's own link table
+(`serving/host_tier.py`, keyed on the CUDA device name).
 """
 
 from __future__ import annotations
@@ -735,6 +735,18 @@ class ServingConfig:
         mdi-audit `kv_pool` breakdown and `--host-gb` check read this."""
         n = self.num_host_blocks(cfg, dtype)
         return n * self.block_bytes(cfg, dtype, tp=1)["total_bytes"]
+
+    def resolved_host_link_gbps(self, device_kind: Optional[str] = None) -> float:
+        """Host<->device link bandwidth (GB/s) the swap cost model uses:
+        `host_link_gbps` when set, else the table in
+        `serving.host_tier.HOST_LINK_GBPS` keyed on `device_kind` (the CUDA
+        device name; its conservative default covers the CPU and unknown
+        cards).  0 means swapping can never win."""
+        if self.host_link_gbps is not None:
+            return float(self.host_link_gbps)
+        from mdi_llm_tpu_torch.serving.host_tier import lookup_host_link_gbps
+
+        return lookup_host_link_gbps(device_kind)
 
 
 def _yaml_scalar(v: Any) -> str:

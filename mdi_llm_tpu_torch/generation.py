@@ -12,6 +12,10 @@ Port of `mdi_llm_tpu/generation.py` for one device:
   stop-prefix hold-back; the session keeps its cache across turns and
   prefills only each new turn at its offset.
 - `Generator.serve`: the paged-KV serving engine (`serving/engine.py`).
+- `Generator(quantize="int8" | "w8a8" | "int4")`: the linears and an
+  untied head quantized once, on the device (`ops/quant.py`); a tree
+  that is quantized already (a `prepare_model --quantize` checkpoint) is
+  recognised by its leaves.  The caches take the float weights' dtype.
 
 `generate`'s decode chunk, the JAX package's `_decode_chunk_fn(B, K)`, is
 a `StepGraph` (`utils/step_graph.py`) per (B, cache_len, n_steps, mode,
@@ -45,6 +49,7 @@ import torch
 from mdi_llm_tpu_torch.config import TEMPERATURE, TOP_K, Config
 from mdi_llm_tpu_torch.models import transformer
 from mdi_llm_tpu_torch.ops.flash import KERNEL_HEAD_SIZES
+from mdi_llm_tpu_torch.ops.quant import FLAG_TO_MODE, quantize_params, tree_has_quantized
 from mdi_llm_tpu_torch.ops.sampling import (
     operand_values,
     sample,
@@ -290,15 +295,16 @@ class Generator:
         device=None,  # None → "cuda"
         flash_kernel: Optional[bool] = None,  # None → K2 on a CUDA device,
         # its plain version on the CPU; False → the plain version anywhere
-        quantize: Optional[str] = None,
+        quantize: Optional[str] = None,  # None | "none" | "int8" (weight-only)
+        # | "w8a8" (int8 activations too) | "int4" (ops/quant.py)
         mesh: Any = None,
         scan_unroll: int = 1,
         abstract: bool = False,
         _graphs: Optional[bool] = None,  # None → CUDA graphs on the card;
         # False launches the step bodies eagerly (comparisons on the card)
     ):
-        if quantize not in (None, "none"):
-            _refuse(f"quantize={quantize!r}: weight quantization, item 10")
+        if quantize not in (None, "none") and quantize not in FLAG_TO_MODE:
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         if mesh is not None:
             _refuse("mesh=...: tp/dp/ep meshes, items 14-16")
         if scan_unroll != 1:
@@ -308,8 +314,14 @@ class Generator:
         transformer.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = transformer.tree_map(lambda x: x.to(self.device), params)
-        if cache_dtype is None:
+        params = transformer.tree_map(lambda x: x.to(self.device), params)
+        if quantize in FLAG_TO_MODE:
+            # quantized leaf by leaf on the device, where the tree stays
+            params = quantize_params(params, mode=FLAG_TO_MODE[quantize])
+        self.params = params
+        # structural: a pre-quantized checkpoint loads with quantize=None
+        self.quantized = tree_has_quantized(params)
+        if cache_dtype is None:  # the float weights' dtype, never a scale's
             cache_dtype = transformer.param_dtype(self.params)
         self.cache_dtype = cache_dtype
         self.max_seq_length = int(

@@ -27,8 +27,9 @@ Attention runs on the kernels on the card: K1 for every paged call, K2
 `use_flash`, and K3/K4 in that training forward's backward.  The dense-cache
 attention of decode steps and short prefills stays the torch
 `multihead_attention`, as the JAX package leaves it to XLA; so do the
-large matrix products (`F.linear`).  Mixture-of-experts configs are
-refused.
+large matrix products (`F.linear`, and `ops/quant.quantized_einsum` for
+the linears and the untied head of a quantized tree).  Mixture-of-experts
+configs are refused.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from mdi_llm_tpu_torch.ops.paged_attention import (
     paged_prefill,
     paged_update,
 )
+from mdi_llm_tpu_torch.ops.quant import is_quantized, quantized_einsum
 from mdi_llm_tpu_torch.ops.rope import apply_rope, build_rope_cache, gather_rope
 
 Params = Dict[str, Any]
@@ -56,7 +58,10 @@ KVCache = Dict[str, torch.Tensor]
 
 
 def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
-    return F.linear(x, p["weight"], p.get("bias"))
+    if not is_quantized(p):
+        return F.linear(x, p["weight"], p.get("bias"))
+    y = quantized_einsum("...i,oi->...o", x, p)
+    return y + p["bias"] if "bias" in p else y
 
 
 def _norm(cfg: Config, x: torch.Tensor, p: Params) -> torch.Tensor:
@@ -258,7 +263,7 @@ def embed(cfg: Config, params: Params, tokens: torch.Tensor, pos: torch.Tensor):
 def head(cfg: Config, params: Params, x: torch.Tensor) -> torch.Tensor:
     x = _norm(cfg, x, params["ln_f"])
     w = params["wte"] if cfg.tie_embeddings else params["lm_head"]
-    logits = F.linear(x, w["weight"])
+    logits = quantized_einsum("...d,vd->...v", x, w)
     if cfg.lm_head_bias:
         logits = logits + params["lm_head"]["bias"]
     return logits
@@ -455,16 +460,25 @@ def count_params(params: Params) -> int:
 
 
 def cast_params(params: Params, dtype) -> Params:
-    """Cast float leaves; integer leaves pass through untouched."""
+    """Cast float leaves; integer leaves (quantized weights) pass through
+    untouched."""
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, params)
 
 
 def param_dtype(params: Params) -> torch.dtype:
-    """dtype of the first floating leaf, in sorted-key order."""
-    if not isinstance(params, dict):
-        return params.dtype
-    for k in sorted(params):
-        dt = param_dtype(params[k])
-        if dt.is_floating_point:
-            return dt
+    """dtype of the first floating weight leaf, in sorted-key order.  The
+    f32 "scale" leaves of quantized linears are skipped: they would win the
+    sorted order and silently make KV caches and pools float32."""
+    for leaf in _weight_leaves(params):
+        if leaf.dtype.is_floating_point:
+            return leaf.dtype
     raise ValueError("no floating weight leaves in param tree")
+
+
+def _weight_leaves(tree: Params):
+    if not isinstance(tree, dict):
+        yield tree
+        return
+    for k in sorted(tree):
+        if k != "scale":
+            yield from _weight_leaves(tree[k])

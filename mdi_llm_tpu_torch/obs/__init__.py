@@ -48,7 +48,9 @@ one(s)):
   `step_<label>_{flops,bytes_accessed,temp_bytes}`.
 
 The host-tier hooks (`tier_swap_out`, `tier_swap_in`, `restore_wait`)
-wait for the host KV tier (ROADMAP item 8).
+are the JAX observer's: the engine calls them as it queues a swap-out,
+as it restores a swapped victim or a spilled prefix block
+(`serving/host_tier.py`).
 """
 
 from __future__ import annotations
@@ -87,6 +89,14 @@ __all__ = [
 ]
 
 LATENCY_METRICS = ("ttft_s", "tpot_s", "e2e_s", "queue_wait_s")
+
+# host-tier restore-issue wait histogram bounds, in MILLISECONDS (restores
+# are issued at host-sync boundaries and run behind the next step, so the
+# interesting range sits well under the request-latency buckets)
+RESTORE_WAIT_BUCKETS_MS = (
+    0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+    500.0, 1000.0,
+)
 
 # port metric name (or prefix) -> the JAX observer's name(s) for it
 JAX_NAMES = {
@@ -242,6 +252,32 @@ class ServingObserver:
             self.metrics.counter("serving_preemptions_swapped_total",
                                  "preemptions resolved by host-tier swap "
                                  "instead of recompute").inc()
+
+    # -- host-tier transfers (serving/host_tier.py) --------------------------
+
+    def tier_swap_out(self, n_blocks: int, nbytes: int) -> None:
+        """One victim's blocks gathered toward host slots (bytes counted
+        at issue time; the copies are waited for at a later sync
+        boundary)."""
+        self.metrics.counter("serving_swap_out_bytes_total",
+                             "KV bytes swapped HBM → host").inc(nbytes)
+        self.metrics.counter("serving_swap_out_blocks_total",
+                             "KV blocks swapped HBM → host").inc(n_blocks)
+
+    def tier_swap_in(self, n_blocks: int, nbytes: int) -> None:
+        self.metrics.counter("serving_swap_in_bytes_total",
+                             "KV bytes restored host → HBM").inc(nbytes)
+        self.metrics.counter("serving_swap_in_blocks_total",
+                             "KV blocks restored host → HBM").inc(n_blocks)
+
+    def restore_wait(self, seconds: float) -> None:
+        """Host time spent issuing one restore (staging read, upload and
+        in-place write queued: the part not hidden behind the next step)."""
+        self.metrics.histogram(
+            "serving_restore_wait_ms",
+            "host-side wait per host→HBM restore issue",
+            buckets=RESTORE_WAIT_BUCKETS_MS,
+        ).observe(seconds * 1e3)
 
     def spec(self, drafted: int, accepted: int, source: str) -> None:
         """One lane's speculative verify outcome, split by draft source

@@ -1,0 +1,329 @@
+"""Weight quantization: int8 (weight-only or W8A8) and group-wise int4.
+
+Port of `mdi_llm_tpu/ops/quant.py`.  Batched decode reads every weight once
+per step, so storing the linear weights narrower cuts the bytes a step
+moves.  The layouts are the JAX package's, so a quantized tree means the
+same thing in both packages:
+
+- a linear's ``{"weight": (..., out, in)}`` becomes ``{"weight_q": int8
+  (..., out, in), "scale": f32 (..., out)}`` (mode "w8"), the same under
+  key "weight_q8" (mode "w8a8": activations are quantized per token too,
+  and the contraction runs int8 x int8 -> int32), or ``{"weight_q4": int8
+  (..., out, in/2), "scale": f32 (..., out, in/group)}`` (mode "w4": two
+  signed nibbles per byte, one scale per group of the input axis);
+- 1-D weights (norms), biases and the embedding table (a gather, and the
+  tied head) keep their dtype; an untied `lm_head` is quantized.
+
+The quantizer runs in torch on the tensor's own device, in float32 with
+the JAX quantizer's arithmetic (f32 division, round half to even,
+symmetric clip), so its bytes and scales equal the JAX package's for the
+same float32 input (tests/test_torch_quant.py).
+
+The contractions are left to torch ops, as the JAX package leaves them to
+XLA; no hand-written kernel is involved.  Where XLA fuses the int8 ->
+bf16 conversion into the dot's operand read, the "w8" and "w4" routes
+here build a converted copy of each weight per call (ROADMAP, open speed
+work); "w8a8" runs `torch._int_mm`, whose CUDA form needs more than 16
+rows, so short inputs (a decode step) are padded with zero rows.
+`FlopCounterMode` does not count `torch._int_mm`: the contraction adds
+its 2·M·N·K to the kernels' tally (`kernels.add_flops`).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from mdi_llm_tpu_torch import kernels
+
+Params = Any
+
+# CLI/engine flag -> storage mode, shared by every quantizing entry point
+FLAG_TO_MODE = {"int8": "w8", "w8a8": "w8a8", "int4": "w4"}
+_WKEY = {"w8": "weight_q", "w8a8": "weight_q8", "w4": "weight_q4"}
+
+# param-tree keys never quantized: embeddings feed gathers and tied heads;
+# norm weights are vectors (per-layer-stacked they look 2-D, hence by name)
+SKIP_KEYS = ("wte", "wpe", "norm_1", "norm_2", "ln_f")
+
+W4_GROUP = 128  # input-axis group size for int4 scales
+
+# torch._int_mm on CUDA takes more than 16 rows
+_INT_MM_MIN_ROWS = 17
+
+
+def _div(a: torch.Tensor, d: float) -> torch.Tensor:
+    """`a / d` rounded as one float32 division, as numpy and XLA divide: a
+    CUDA division by a Python scalar multiplies by its reciprocal, which
+    can differ in the last bit."""
+    return a / torch.full_like(a, d)
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in _WKEY:
+        raise ValueError(f"unknown quantization mode {mode!r}")
+
+
+def quantize_tensor(w: torch.Tensor):
+    """Per-output-channel symmetric int8: scale over the last (input) axis.
+    Works for stacked layouts too ((L, out, in) -> scale (L, out))."""
+    w = w.float()
+    scale = _div(w.abs().amax(dim=-1), 127.0)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(w / safe[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_tensor(q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32):
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+def w4_group_size(in_d: int, group: int = W4_GROUP) -> int:
+    """Largest power-of-two divisor of `in_d` that is <= `group`: the int4
+    scale-group width for an input dim."""
+    g = min(group, in_d)
+    while in_d % g:
+        g //= 2
+    return g
+
+
+def quantize_tensor4(w: torch.Tensor, group: int = W4_GROUP):
+    """Group-wise symmetric int4, packed two nibbles per int8 byte (even
+    input positions in the low nibble).  Returns (packed int8 (..., out,
+    in/2), scale f32 (..., out, in/group)).  The group scales sit along the
+    contracted axis, so they cannot factor out of one product (`_w4_einsum`
+    applies them per group)."""
+    w = w.float()
+    in_d = w.shape[-1]
+    if in_d % 2:
+        raise ValueError(f"int4 packing needs an even input dim, got {in_d}")
+    g = w4_group_size(in_d, group)
+    wg = w.reshape(*w.shape[:-1], in_d // g, g)
+    scale = _div(wg.abs().amax(dim=-1), 7.0)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(wg / safe[..., None]), -7, 7).to(torch.int8)
+    q = q.reshape(*w.shape[:-1], in_d)
+    lo, hi = q[..., 0::2], q[..., 1::2]
+    packed = ((lo & 0x0F) | (hi << 4)).to(torch.int8)
+    return packed, scale
+
+
+def _nibbles(packed: torch.Tensor):
+    """The low and high nibble planes, sign-extended: (p << 4) >> 4 and
+    p >> 4 (arithmetic shifts on int8)."""
+    return (packed << 4) >> 4, packed >> 4
+
+
+def unpack_w4(packed: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Nibble unpack + group dequant -> (..., out, in) in `dtype`."""
+    lo, hi = _nibbles(packed)
+    q = torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], -1)
+    in_d = q.shape[-1]
+    n_g = scale.shape[-1]
+    qg = q.reshape(*q.shape[:-1], n_g, in_d // n_g).to(scale.dtype)
+    w = qg * scale[..., None]
+    return w.reshape(*q.shape[:-1], in_d).to(dtype)
+
+
+def is_quantized(p: Params) -> bool:
+    return isinstance(p, dict) and (
+        "weight_q" in p or "weight_q8" in p or "weight_q4" in p
+    )
+
+
+def tree_has_quantized(params: Params) -> bool:
+    """True if any subtree is a quantized linear: detects pre-quantized
+    checkpoints structurally, whatever the --quantize flag (a
+    `prepare_model --quantize` sibling loads with quantize='none')."""
+    if isinstance(params, dict):
+        return is_quantized(params) or any(
+            tree_has_quantized(v) for v in params.values()
+        )
+    return False
+
+
+def quantize_params(params: Params, skip: Sequence[str] = SKIP_KEYS,
+                    mode: str = "w8") -> Params:
+    """Walk a param tree, replacing every >=2-D "weight" (outside `skip`
+    subtrees) with its quantized leaf and f32 "scale".  Biases and norm
+    weights pass through unchanged; `mode` selects the storage key and so
+    the execution path.  Each leaf is quantized on its own device."""
+    _check_mode(mode)
+    wkey = _WKEY[mode]
+
+    def walk(node, name):
+        if not isinstance(node, dict) or name in skip:
+            return node
+        out = {}
+        for k, v in node.items():
+            if k == "weight" and v.dim() >= 2:
+                q, s = quantize_tensor4(v) if mode == "w4" else quantize_tensor(v)
+                out[wkey], out["scale"] = q, s
+            else:
+                out[k] = walk(v, k)
+        return out
+
+    return walk(params, "")
+
+
+def init_quantized_params(cfg, seed: int = 0, mode: str = "w8",
+                          dtype=torch.bfloat16, device="cpu"):
+    """Random already-quantized parameters for benchmarking large models:
+    the int8 (or packed int4) linears are drawn directly, uniform, with
+    scales chosen so the dequantized std matches `init_params` (incl. the
+    1/sqrt(2L) output-projection scaling), so the model never exists in
+    float.  Norms, embeddings and the head are `dtype`.  For throughput
+    work, not accuracy (the values are uniform, not rounded gaussians; the
+    draws differ from the JAX package's)."""
+    _check_mode(mode)
+    if cfg.mlp_class_name == "LLaMAMoE":
+        raise ValueError(
+            f"{cfg.name}: mlp_class_name='LLaMAMoE' is not ported "
+            "(mixture-of-experts waits for a later slice, ROADMAP Queue 1)"
+        )
+    wkey = _WKEY[mode]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    L, D, V, I = cfg.n_layer, cfg.n_embd, cfg.padded_vocab_size, cfg.intermediate_size
+    std = 0.02
+    proj_std = std / (2 * L) ** 0.5
+
+    def ints(low, high, shape):
+        return torch.randint(low, high, shape, generator=gen, device=device,
+                             dtype=torch.int8)
+
+    def qlin(out_d, in_d, s=std):
+        if mode == "w4":
+            # random packed nibbles in [-8, 7]; rms 4.61 -> matching scale
+            g = w4_group_size(in_d)
+            return {wkey: ints(-128, 128, (L, out_d, in_d // 2)),
+                    "scale": torch.full((L, out_d, in_d // g), s / 4.61, device=device)}
+        # 73.3 = rms of uniform int8 in [-127, 127]
+        return {wkey: ints(-127, 128, (L, out_d, in_d)),
+                "scale": torch.full((L, out_d), s / 73.3, device=device)}
+
+    def norm(lead=(L,)):
+        p = {"weight": torch.ones(lead + (D,), dtype=dtype, device=device)}
+        if cfg.norm_class_name == "LayerNorm" and cfg.bias:
+            p["bias"] = torch.zeros(lead + (D,), dtype=dtype, device=device)
+        return p
+
+    def emb(rows):
+        return (torch.randn((rows, D), generator=gen, device=device) * 0.02).to(dtype)
+
+    attn = {"qkv": qlin(cfg.qkv_size, D), "proj": qlin(D, cfg.attn_out_size, proj_std)}
+    if cfg.mlp_class_name == "GptNeoxMLP":
+        mlp = {"fc": qlin(I, D), "proj": qlin(D, I, proj_std)}
+    elif cfg.mlp_class_name in ("LLaMAMLP", "GemmaMLP"):
+        mlp = {"fc_1": qlin(I, D), "fc_2": qlin(I, D), "proj": qlin(D, I, proj_std)}
+    else:
+        raise NotImplementedError(
+            f"init_quantized_params: unknown mlp_class_name {cfg.mlp_class_name!r}"
+        )
+    blocks = {"norm_1": norm(), "attn": attn, "mlp": mlp}
+    if not cfg.shared_attention_norm:
+        blocks["norm_2"] = norm()
+    params = {"wte": {"weight": emb(V)}, "blocks": blocks, "ln_f": norm(())}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"weight": emb(V)}
+    return params
+
+
+def _subscripts(spec: str):
+    xin, out = spec.split("->")
+    x_sub, w_sub = xin.split(",")
+    return x_sub, w_sub, out
+
+
+def _is_linear(spec: str, w: torch.Tensor) -> bool:
+    """`spec` contracts x's last axis with a 2-D (out, in) weight's last
+    axis and appends `out`: the shape `F.linear` computes."""
+    x_sub, w_sub, out = _subscripts(spec)
+    return (w.dim() == 2 and len(w_sub) == 2 and x_sub[-1] == w_sub[1]
+            and out == x_sub[:-1] + w_sub[0])
+
+
+def _apply_scale(spec: str, y: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Multiply `y` (the quantized contraction's result) by the per-channel
+    scale, aligned by einsum label rather than trailing-axis broadcasting:
+    the scale's dims are the weight subscripts minus the contracted last
+    one, which need not be trailing in the output."""
+    x_sub, w_sub, out = _subscripts(spec)
+    if out == x_sub[:-1] + w_sub[:-1]:  # the scale's axes trail: broadcast
+        return y * scale
+    return torch.einsum(f"{out},{w_sub[:-1]}->{out}", y, scale)
+
+
+def _int_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 x (N, K) int8 -> (M, N) int32, exact; M padded with zero
+    rows to what `torch._int_mm` takes on CUDA, the padding sliced off."""
+    M = xq.shape[0]
+    rows = max(_INT_MM_MIN_ROWS, M)
+    rows = -(-rows // 8) * 8
+    if rows != M:
+        xq = torch.cat([xq, xq.new_zeros((rows - M, xq.shape[1]))])
+    kernels.add_flops(2.0 * M * wq.shape[0] * wq.shape[1])
+    return torch._int_mm(xq, wq.t())[:M]
+
+
+def _w8a8(spec: str, x: torch.Tensor, p: Params) -> torch.Tensor:
+    """Dynamic per-token symmetric int8 activations and an exact int8 x
+    int8 -> int32 contraction, then the activation and weight scales."""
+    wq = p["weight_q8"]
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    xs = torch.clamp(_div(amax, 127.0), min=1e-10)
+    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    if not _is_linear(spec, wq):
+        raise NotImplementedError(
+            f"w8a8 contracts through torch._int_mm: a linear-shaped spec "
+            f"(x's last axis against a 2-D weight's) is needed, got {spec!r}"
+        )
+    y = _int_mm(xq.reshape(-1, xq.shape[-1]), wq).reshape(*x.shape[:-1], wq.shape[0])
+    # xs covers x's leading (token/batch) dims and broadcasts over out
+    return _apply_scale(spec, y.float() * xs, p["scale"]).to(x.dtype)
+
+
+def quantized_einsum(spec: str, x: torch.Tensor, p: Params) -> torch.Tensor:
+    """einsum against a (possibly) quantized weight dict.  `spec` contracts
+    x with the stored (out, in)-layout weight; the per-out-channel scale is
+    applied to the result (exact: it factors out of the contraction)."""
+    if "weight_q8" in p:
+        return _w8a8(spec, x, p)
+    if "weight_q" in p:
+        w = p["weight_q"].to(x.dtype)
+        y = F.linear(x, w) if _is_linear(spec, w) else torch.einsum(spec, x, w)
+        return _apply_scale(spec, y, p["scale"].to(x.dtype))
+    if "weight_q4" in p:
+        return _w4_einsum(spec, x, p)
+    w = p["weight"]
+    return F.linear(x, w) if _is_linear(spec, w) else torch.einsum(spec, x, w)
+
+
+def _w4_einsum(spec: str, x: torch.Tensor, p: Params) -> torch.Tensor:
+    """int4 contraction over the two nibble planes, as the JAX package
+    computes it: the low and high planes contract the even and odd input
+    positions separately, and the group scales, which lie along the
+    contracted axis, apply in a second small einsum over the group axis:
+
+        z[.., out, g] = xe_g . lo_g[out] + xo_g . hi_g[out]
+        y[.., out]    = sum_g z[.., out, g] * scale[out, g]
+    """
+    x_sub, w_sub, out = _subscripts(spec)
+    if x_sub[-1] != w_sub[-1] or "g" in spec or "k" in spec:
+        raise NotImplementedError(
+            f"_w4_einsum requires a last-subscript contraction and reserves "
+            f"letters 'g'/'k' for the group axes; got {spec!r}"
+        )
+    packed, scale = p["weight_q4"], p["scale"]
+    nG = scale.shape[-1]
+    Gh = packed.shape[-1] // nG  # per-plane group width
+    lo, hi = _nibbles(packed)
+    xe = x[..., 0::2].reshape(*x.shape[:-1], nG, Gh)
+    xo = x[..., 1::2].reshape(*x.shape[:-1], nG, Gh)
+    wl = lo.reshape(*packed.shape[:-1], nG, Gh).to(x.dtype)
+    wh = hi.reshape(*packed.shape[:-1], nG, Gh).to(x.dtype)
+    zspec = f"{x_sub[:-1]}gk,{w_sub[:-1]}gk->{out}g"
+    z = torch.einsum(zspec, xe, wl) + torch.einsum(zspec, xo, wh)
+    return torch.einsum(f"{out}g,{w_sub[:-1]}g->{out}", z, scale.to(x.dtype))

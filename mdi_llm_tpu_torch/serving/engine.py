@@ -58,13 +58,29 @@ Generator per (step, shape, pool dtype); the eager verify is measured at
 its first call.  `run(step_hook=)` fires after every engine step (the
 bounded profiler window and the open-system server hang off it).
 
-Not ported yet, and refused with an error when asked for: the host-RAM KV
-tier and tensor/pipeline parallel serving.
+The host-RAM KV tier (`ServingConfig.host_pool_mib > 0`,
+`serving/host_tier.py`): a preemption victim's blocks are gathered on the
+device and copied to host slots instead of being recomputed, and prefix
+chains evicted from the pool spill there.  Both are eager, fixed-width
+(`swap_chunk_blocks`) torch ops queued on the stream the steps replay on,
+outside every step graph: a gather is queued before any later step can
+write the freed blocks, its rows are copied into the pinned host slabs
+behind the next steps and waited for at the next host-sync boundary
+(`_drain_swaps`, after the step's own read: no host sync is added); a
+restore copies slab rows into a device buffer and writes it into the
+pool's own tensors in place (`index_copy_`), which every captured graph
+reads.  Padding reads block 0 and padding writes go to the trash block,
+as in the JAX engine.
+
+Not ported yet, and refused with an error when asked for: tensor and
+pipeline parallel serving.
 """
 
 from __future__ import annotations
 
+import math
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -88,6 +104,13 @@ from mdi_llm_tpu_torch.ops.sampling import (
     sampling_operands,
     speculative_verify,
 )
+from mdi_llm_tpu_torch.serving.host_tier import (
+    HostBlockStore,
+    HostTier,
+    SwapCostModel,
+    SwapRecord,
+    raw_dtype,
+)
 from mdi_llm_tpu_torch.serving.kv_pool import KVPool
 from mdi_llm_tpu_torch.serving.scheduler import Request, Scheduler, SequenceState
 from mdi_llm_tpu_torch.utils.step_graph import StepGraph, summarize
@@ -105,11 +128,6 @@ def check_serving_config(serving: ServingConfig) -> None:
     """Refuse every ServingConfig knob this port does not carry yet (see
     ROADMAP.md Queue 1), and the combinations the JAX engine refuses, with
     its messages: never ignore one, never compute something else."""
-    if serving.host_pool_mib > 0:
-        raise ValueError(
-            "not ported to mdi_llm_tpu_torch yet: "
-            f"host_pool_mib={serving.host_pool_mib} (host KV tier)"
-        )
     if serving.block_size < 1:
         raise ValueError("block_size must be positive")
     if serving.decode_chunk < 1:
@@ -165,8 +183,8 @@ def pool_bytes(kv) -> int:
 @dataclass
 class ServingStats:
     """The JAX engine's stats with the same keys (`to_dict`), so a stats
-    line of either package reads the same.  The host-tier counters stay 0
-    here: that feature is refused."""
+    line of either package reads the same.  The host-tier counters are
+    folded from the tier at run end, and stay 0 without one."""
 
     tokens_generated: int = 0
     prefill_tokens: int = 0
@@ -290,6 +308,18 @@ class ServingStats:
         }
 
 
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """`t`'s bytes as the integer dtype of its element width (a view)."""
+    return t.view(raw_dtype(t.dtype))
+
+
+def _weak(method):
+    """A bound method held weakly: hooks on the pool and the scheduler must
+    not keep a finished engine (and its device pool) alive."""
+    ref = weakref.WeakMethod(method)
+    return lambda *args: ref()(*args)
+
+
 class ServingEngine:
     """Paged-KV continuous-batching loop bound to one `Generator`.  Build
     it with `Generator.serve(...)`::
@@ -298,6 +328,10 @@ class ServingEngine:
         engine.add_request("a", prompt_tokens, max_new_tokens=128)
         results, stats = engine.run()
     """
+
+    # which axis of a pool leaf indexes blocks: the host tier's gathers,
+    # restores and slab layout key off it
+    _kv_block_axis = 1
 
     def __init__(self, gen: Generator, serving: ServingConfig, obs=None,
                  policy=None, draft_gen: Optional[Generator] = None,
@@ -336,6 +370,15 @@ class ServingEngine:
         self._kv = transformer.init_paged_kv_cache(
             gen.cfg, num_blocks, bs, dtype=self._pool_dtype, device=self.device
         )
+        # host-RAM tier (serving/host_tier.py): host_pool_mib = 0 leaves
+        # every table, hook and step untouched
+        self.host_tier: Optional[HostTier] = None
+        self._host_block_bytes = 0
+        # gathers whose copies into host slots are queued: (start and end
+        # timing events on a CUDA device, host seconds, live block count)
+        self._pending_swaps: List[Tuple[Any, Any, float, int]] = []
+        if serving.host_pool_mib > 0:
+            self._init_host_tier()
         # persistent host-side block table, updated incrementally
         self._tables = np.zeros(
             (serving.max_batch, self.max_blocks_per_seq), np.int32
@@ -518,6 +561,208 @@ class ServingEngine:
             t[seq.slot, : len(seq.draft_blocks)] = seq.draft_blocks
         return t
 
+    # -- host-RAM tier (serving/host_tier.py) --------------------------------
+
+    def _kv_leaf_shapes(self) -> List[Tuple[Tuple[int, ...], torch.dtype]]:
+        """(shape, dtype) per pool leaf in sorted-key order: the slab
+        template the host store mirrors and what fetch and restore move."""
+        return [(tuple(x.shape), x.dtype) for x in transformer.tree_leaves(self._kv)]
+
+    def _init_host_tier(self) -> None:
+        """Build the host block store and cost model and install the tier
+        hooks on the pool and the scheduler.  Slab shapes come from the
+        live pool leaves, so fp, float8 and int8 (payload and scales)
+        pools round-trip byte for byte; the slot count divides the
+        `host_pool_mib` budget by the per-block bytes, exactly
+        `ServingConfig.num_host_blocks`.  On a CUDA device the slabs are
+        pinned and the link prior is looked up by the device's name."""
+        ba = self._kv_block_axis
+        leaf_shapes = self._kv_leaf_shapes()
+        per_block = sum(
+            dtype.itemsize * math.prod(shape[:ba] + shape[ba + 1:])
+            for shape, dtype in leaf_shapes
+        )
+        self._host_block_bytes = per_block
+        num_slots = (self.cfg.host_pool_mib * 2**20) // max(1, per_block)
+        cuda = self.device.type == "cuda"
+        device_kind = torch.cuda.get_device_name(self.device) if cuda else None
+        self.host_tier = HostTier(
+            HostBlockStore(leaf_shapes, ba, num_slots, pin_memory=cuda),
+            SwapCostModel(link_gbps=self.cfg.resolved_host_link_gbps(device_kind)),
+            # spilling rides the hash chain: without prefix caching there
+            # is no chain to key the spilled blocks
+            prefix_spill=self.cfg.host_prefix_spill and self.cfg.prefix_caching,
+        )
+        self.pool.host = self.host_tier
+        if self.host_tier.prefix_spill:
+            self.pool.spill_hook = _weak(self._spill_block)
+            self.pool.restore_hook = _weak(self._restore_spilled)
+        self.scheduler.swap_out_hook = _weak(self._swap_out)
+        self.scheduler.swap_in_hook = _weak(self._swap_in)
+        self.scheduler.swap_drop_hook = _weak(self._swap_drop)
+
+    def _issue_fetch(self, blocks: List[int], slots: List[int]) -> None:
+        """Queue gather snapshots of `blocks` in fixed-width chunks of
+        `swap_chunk_blocks` (short tails pad with reads of block 0), each
+        followed by its rows' copies into the host `slots`.  They run on the
+        stream the steps replay on, after every step already queued and
+        before any later one: the blocks may return to the free list at
+        once.  The copies are waited for at the next host-sync boundary
+        (`_drain_swaps`); on a CUDA device two timing events bracket them,
+        so the cost model learns the transfer's own time."""
+        W = max(1, self.cfg.swap_chunk_blocks)
+        ba = self._kv_block_axis
+        leaves = [_raw(x) for x in transformer.tree_leaves(self._kv)]
+        store = self.host_tier.store
+        cuda = self.device.type == "cuda"
+        t0 = time.perf_counter()
+        start = end = None
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        for i in range(0, len(blocks), W):
+            chunk = blocks[i : i + W]
+            idx = np.zeros((W,), np.int64)
+            idx[: len(chunk)] = chunk
+            idx_d = self._upload(idx)
+            gathered = [x.index_select(ba, idx_d).movedim(ba, 0).contiguous() for x in leaves]
+            store.write(slots[i : i + W], gathered, non_blocking=cuda)
+        if cuda:
+            end.record()
+        self._pending_swaps.append((start, end, time.perf_counter() - t0, len(blocks)))
+
+    def _drain_swaps(self) -> None:
+        """Wait for every pending gather's copies into the host slots.
+        Runs at host-sync boundaries (each step, and before any host-slab
+        read), so the copies overlap the steps queued after them; their
+        measured time (device time between the events on a CUDA device,
+        the synchronous copies' host time on the CPU) feeds the cost
+        model's link estimate."""
+        if not self._pending_swaps:
+            return
+        seconds = 0.0
+        nbytes = 0
+        for start, end, host_s, n in self._pending_swaps:
+            if end is not None:
+                end.synchronize()  # the slots are readable only now
+                seconds += start.elapsed_time(end) / 1e3
+            else:
+                seconds += host_s
+            nbytes += n * self._host_block_bytes
+        self._pending_swaps.clear()
+        self.host_tier.cost_model.observe_transfer(nbytes, seconds)
+
+    def _restore(self, slots: List[int], blocks: List[int]) -> None:
+        """Write the payload of host `slots` into pool `blocks` in place,
+        in fixed-width chunks: each chunk's rows are copied from the pinned
+        slabs into a device buffer and written with `index_copy_` into the
+        pool's own tensors (a captured step graph reads them, so they are
+        never rebound); padding rows go to the trash block 0.  The copies
+        are queued on the stream, ahead of the next step and of any later
+        fetch into the same slots, so the slots may be released at once."""
+        W = max(1, self.cfg.swap_chunk_blocks)
+        ba = self._kv_block_axis
+        leaves = [_raw(x) for x in transformer.tree_leaves(self._kv)]
+        store = self.host_tier.store
+        for i in range(0, len(blocks), W):
+            chunk = blocks[i : i + W]
+            idx = np.zeros((W,), np.int64)  # padding writes to the trash block
+            idx[: len(chunk)] = chunk
+            idx_d = self._upload(idx)
+            rows = store.read(slots[i : i + W], width=W, device=self.device,
+                              non_blocking=True)
+            for leaf, payload in zip(leaves, rows):
+                leaf.index_copy_(ba, idx_d, payload.view(leaf.dtype).movedim(0, ba))
+
+    def _swap_out(self, seq: SequenceState) -> Optional[SwapRecord]:
+        """Scheduler hook at `preempt_latest`, called while the victim
+        still owns its blocks: decide swap vs recompute from the cost
+        model, claim host slots and queue the gather.  Returns the
+        SwapRecord riding the preempted entry, or None for recompute."""
+        tier = self.host_tier
+        if tier is None or seq.fed <= 0:
+            return None
+        n_blocks = self.pool.blocks_needed(seq.fed)
+        nbytes = n_blocks * self._host_block_bytes
+        # recompute would re-prefill every fed token on resume
+        if not tier.cost_model.should_swap(nbytes, seq.fed):
+            return None
+        slots = tier.alloc_for_swap(n_blocks)
+        if slots is None:
+            return None
+        self._issue_fetch(seq.blocks[:n_blocks], slots)
+        tier.swaps_out += 1
+        tier.swap_out_bytes += nbytes
+        if self.obs is not None:
+            self.obs.tier_swap_out(n_blocks, nbytes)
+        return SwapRecord(slots=slots, n_tokens=seq.fed, nbytes=nbytes)
+
+    def _swap_in(self, record: SwapRecord, blocks: List[int]) -> None:
+        """Scheduler hook at a swapped resume's admission: restore the
+        record's payload into the freshly allocated `blocks`, queued ahead
+        of the resumed sequence's next step."""
+        if len(blocks) != len(record.slots):
+            raise ValueError(
+                f"swap-in of {len(record.slots)} host slots into {len(blocks)} blocks"
+            )
+        tier = self.host_tier
+        self._drain_swaps()  # the record's own gather may still be pending
+        t0 = time.perf_counter()
+        self._restore(record.slots, blocks)
+        tier.store.release(record.slots)
+        tier.swaps_in += 1
+        tier.swap_in_bytes += record.nbytes
+        dt = time.perf_counter() - t0
+        self.stats.restore_issue_s += dt
+        if self.obs is not None:
+            self.obs.tier_swap_in(len(blocks), record.nbytes)
+            self.obs.restore_wait(dt)
+
+    def _swap_drop(self, record: SwapRecord) -> None:
+        """Release a swap record's host slots without restoring (the
+        frontend cancelled the preempted request)."""
+        self._drain_swaps()  # its gather may still target those slots
+        self.host_tier.store.release(record.slots)
+
+    def _spill_block(self, blk: int, chain_hash: int) -> None:
+        """Pool hook as a cached chain block is evicted: copy it to a host
+        slot instead of dropping it.  The gather is queued before the
+        block's new owner can write it, so eviction stays copy-free in the
+        pool."""
+        tier = self.host_tier
+        slot = tier.alloc_for_spill()
+        if slot is None:
+            return
+        self._issue_fetch([blk], [slot])
+        tier.record_spill(chain_hash, slot)
+
+    def _restore_spilled(self, chain_hash: int) -> Optional[int]:
+        """Pool hook on a prefix-cache miss: if the chain spilled to the
+        host tier, claim a fresh block (refcount 1), restore its payload
+        and hand it back to `match_prefix`; the hit counts as
+        `prefix_hits_host`.  None when the hash is not spilled or the pool
+        has no block to spare (the host copy is then dropped)."""
+        tier = self.host_tier
+        slot = tier.take_spill(chain_hash)
+        if slot is None:
+            return None
+        got = self.pool.alloc(1)
+        if got is None:
+            tier.store.release([slot])
+            return None
+        self._drain_swaps()  # the spill's gather may still be in flight
+        t0 = time.perf_counter()
+        self._restore([slot], got)
+        tier.store.release([slot])
+        tier.swaps_in += 1
+        tier.swap_in_bytes += self._host_block_bytes
+        dt = time.perf_counter() - t0
+        self.stats.restore_issue_s += dt
+        if self.obs is not None:
+            self.obs.tier_swap_in(1, self._host_block_bytes)
+            self.obs.restore_wait(dt)
+        return got[0]
+
     # -- device helpers ------------------------------------------------------
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -639,6 +884,7 @@ class ServingEngine:
         ]
         if not live:
             return
+        n_prefill_toks = sum(n for s, n in live if s.needs_prefill)
         B = self.scheduler.max_batch
         T = self.token_budget
         trash_pos = self.max_blocks_per_seq * self.pool.block_size
@@ -707,6 +953,10 @@ class ServingEngine:
                 self._emit(seq, int(nxt[seq.slot]))
         if any_decode:
             self.stats.decode_steps += 1
+        if self.host_tier is not None and n_prefill_toks:
+            self.host_tier.cost_model.observe_prefill(
+                n_prefill_toks, time.perf_counter() - t0
+            )
         self.stats.prefill_s += time.perf_counter() - t0
 
     def _mixed_body(self, tokens, pos, q_slot, q_start, q_len, last_idx, tables):
@@ -1223,6 +1473,9 @@ class ServingEngine:
             self._run_decode_chunk(action[1])
         else:
             self._run_decode(action[1])
+        # host tier: this step's preemptions and spills queued gathers; their
+        # copies completed behind the step, whose own read already waited
+        self._drain_swaps()
         return True
 
     def run(self, stream_cb=None,
@@ -1248,6 +1501,14 @@ class ServingEngine:
         finally:
             self.stats.preemptions = self.scheduler.preemptions
             self.stats.prefix_cache_hits = self.pool.prefix_hits
+            if self.host_tier is not None:
+                self._drain_swaps()  # park in-flight snapshots in the slabs
+                tier = self.host_tier
+                self.stats.swaps_out = tier.swaps_out
+                self.stats.swaps_in = tier.swaps_in
+                self.stats.swap_out_bytes = tier.swap_out_bytes
+                self.stats.swap_in_bytes = tier.swap_in_bytes
+                self.stats.prefix_hits_host = self.pool.prefix_hits_host
             self.stats.wall_s += time.perf_counter() - t0
             self._stream_cb = None
             if self.obs is not None:

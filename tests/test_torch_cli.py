@@ -5,10 +5,10 @@
   int8 or float8 pool and with speculative serving and a draft model;
 - without `--device cpu` on a machine with no GPU it raises, and does not
   fall back to the CPU;
-- every flag of a feature the port does not carry is refused
-  (`--host-pool-mib`, `--tp`, `--pp`, `--quantize`); the observability
-  flags are ported: `--metrics-out`, `--prom-out`, `--trace-out`,
-  `--xprof-steps` and `--sample-rss` each do their work;
+- every flag of a feature the port does not carry is refused (`--tp`,
+  `--pp`); `--host-pool-mib` and `--quantize` are ported and serve; the
+  observability flags are ported: `--metrics-out`, `--prom-out`,
+  `--trace-out`, `--xprof-steps` and `--sample-rss` each do their work;
 - no module of the port, and not `chip_smoke.py`, imports jax, ml_dtypes,
   orbax, yaml or the JAX package, and only the tokenizer imports
   `tokenizers` (an AST scan); importing the CLIs leaves jax out of
@@ -141,14 +141,26 @@ def test_cli_serves_narrow_pools_and_spec_on_cpu(flags, check):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--host-pool-mib", "64"], "not ported"),
+    # the host tier and weight quantization are ported (match None): the
+    # run serves every request, with the tier's stats keys and quantized
+    # weights
+    (["--host-pool-mib", "64"], None),
     (["--tp", "2"], "not ported"), (["--pp", "2"], "not ported"),
-    (["--quantize", "int8"], "not ported"),
+    (["--quantize", "int8"], None),
     # --ckpt is ported: a directory that is not there is refused by name
     (["--ckpt", "some/dir"], "some/dir: no such checkpoint directory"),
 ], ids=["--host-pool-mib", "--tp", "--pp", "--quantize", "--ckpt"])
 def test_cli_refuses_unported_flags(flags, match):
     args = cli.build_parser().parse_args(["--device", "cpu", *CPU_RUN, *flags])
+    if match is None:
+        _trace, _results, stats, engine, _tok = cli.serve(args)
+        assert stats.requests_finished == 3
+        if "--quantize" in flags:
+            assert engine.gen.quantized
+        else:
+            assert engine.host_tier.store.num_slots > 0
+            assert {"swaps_out", "swaps_in", "prefix_hits_host"} <= set(stats.to_dict())
+        return
     with pytest.raises(SystemExit, match=match):
         cli.serve(args)
 
@@ -231,7 +243,8 @@ def test_importing_the_cli_loads_no_jax():
             "mdi_llm_tpu_torch.cli.convert_to_hf, mdi_llm_tpu_torch.cli.inspect_ckpt, "
             "mdi_llm_tpu_torch.cli.model_surgery, mdi_llm_tpu_torch.cli.server, "
             "mdi_llm_tpu_torch.obs, mdi_llm_tpu_torch.obs.device, mdi_llm_tpu_torch.server, "
-            "mdi_llm_tpu_torch.server.http, mdi_llm_tpu_torch.utils.profiling; "
+            "mdi_llm_tpu_torch.server.http, mdi_llm_tpu_torch.utils.profiling, "
+            "mdi_llm_tpu_torch.serving.host_tier, mdi_llm_tpu_torch.ops.quant; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.split('.')[0] == 'mdi_llm_tpu' for m in sys.modules)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

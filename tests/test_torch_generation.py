@@ -271,6 +271,15 @@ def test_host_helpers_match_jax():
     dict(quantize="int8"), dict(mesh={"tp": 2}), dict(scan_unroll=2), dict(abstract=True),
 ], ids=lambda kw: next(iter(kw)))
 def test_generator_refuses_unported_options(pythia, kw):
+    """Weight quantization is ported: `quantize="int8"` generates the JAX
+    Generator's greedy tokens in the same mode; the other options are
+    still refused."""
+    if "quantize" in kw:
+        prompts = prompts_of(pythia.tc.vocab_size, (5, 2), seed=1)
+        want, _ = pythia.jgen(**kw).generate(prompts, 8, chunk_size=4, **GREEDY)
+        got, _ = pythia.tgen(**kw).generate(prompts, 8, chunk_size=4, **GREEDY)
+        assert got == want
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pythia.tgen(**kw)
 

@@ -10,8 +10,9 @@
   the same mixed-length trace: per-token decode, chunked decode with and
   without double buffering, a token budget smaller than a prompt, a
   prefix-cache hit and a preemption on a tight pool.
-- Every ServingConfig knob the port does not carry raises, and the
-  combinations the JAX engine refuses raise with the JAX engine's message.
+- The combinations the JAX engine refuses raise with the JAX engine's
+  message; `host_pool_mib` builds the host tier
+  (tests/test_torch_host_tier.py holds it against the JAX engine).
 """
 
 import dataclasses
@@ -249,11 +250,14 @@ def test_engine_preemption_on_tight_pool(served):
 ], ids=["host_pool_mib", "draft_without_spec_k", "exact_verify_sampling", "spec_k_negative",
         "unknown_kv_dtype", "non_storage_kv_dtype"])
 def test_unported_knobs_raise(served, knobs):
-    """The host tier is not ported; every other case is a refusal of the
-    JAX engine, which the port makes with the same message."""
+    """The host tier is ported: `host_pool_mib` builds the engine with a
+    host store of the JAX engine's slots and bytes.  Every other case is a
+    refusal of the JAX engine, which the port makes with the same
+    message."""
     if "host_pool_mib" in knobs:
-        with pytest.raises(ValueError, match="not ported"):
-            served[1].serve(**knobs)
+        jstore = served[0].serve(**knobs).host_tier.store
+        tstore = served[1].serve(**knobs).host_tier.store
+        assert (tstore.num_slots, tstore.nbytes) == (jstore.num_slots, jstore.nbytes) != (0, 0)
         return
     with pytest.raises(ValueError) as want:
         served[0].serve(**knobs)
