@@ -235,12 +235,65 @@ non-zero.
    the ckpt phase's snapshot: every leaf of the sibling equal to the
    card's quantizer's on the same weights, and `cli.serve --ckpt
    <sibling>` giving the streams of `--ckpt <snapshot> --quantize int8`.
+19. moe   — Mixtral-8x7B (`Config.from_name("Mixtral-8x7B-v0.1")`, its
+   published widths checked: n_embd 4096, 32 heads over 8 KV groups, head
+   size 128, intermediate 14336, 8 experts, top 2, rope base 1e6) in bf16
+   with random weights from seed 10137, cut to 16 of its 32 layers (46.4 GB
+   of blocks): (a) the serve phase's CLI run and trace with `--override
+   n_layer=16`, K1 at exactly 16 launches per forward inside the step
+   graphs and the plain route never; prints tokens/s, MFU and MBU (MFU
+   counts the dense formulation's 8 experts per token), the stored weight
+   bytes, peak memory and graph captures; the same trace through the plain
+   route, its bf16 divergences from K1's streams printed with the router
+   flips at the diverging step (`router_flips`), not gated; (b)
+   `Generator.generate` on the generate phase's 4 prompts, 64 new tokens,
+   K2 at exactly 16 launches; K2 at that prefill's shape (B=4, T=2048, 32
+   heads over 8 groups, hs 128) against its plain version, timed beside
+   it and SDPA; (c) float32 at full width and 2 layers: the greedy serve
+   streams through K1 and the plain route, and generate's through K2 and
+   its plain version, equal but for a near-tie (`divergence_ok`).
+20. moe-quant — Mixtral-8x7B at all 32 layers with int8 weights
+   (`init_quantized_params(mode="w8")`, 46.4 GB): the moe phase's trace
+   served (K1 32 per forward) and generate on its prompts (K2 exactly 32),
+   stored bytes, tokens/s and MFU/MBU printed; at 4 layers a float32
+   forward of each mode (w8, w8a8, int4) against a float64 plain version
+   of the quantized forward (`plain_moe_quantized_einsum`): max |err| <=
+   1e-4 x max(1, max |plain|); then the trace served once in each mode at
+   4 layers, peak memory printed (int4's bounded by `quant.W4_Z_BYTES`).
+21. moe-train — `Trainer.train_step` at Mixtral's width, 2 layers, bf16,
+   B=1, T=2048, remat, the flash route, `moe_aux_weight` 0.01: the
+   reckoned memory first, then 3 steps with exactly 4 K2, 2 K3 and 2 K4
+   launches each; prints step seconds, tokens/s, losses, the layer-mean
+   aux and peak memory.  K3 and K4 at that attention shape against their
+   plain versions (bf16 limits), timed beside them and SDPA's backward.
+   Then float32 at 1 layer: the first gradient and two steps' losses
+   through K2-K4 and through their plain versions within `train-parity`'s
+   limits.
+22. tune  — `python -m mdi_llm_tpu_torch.ops.tuning` (`tuning.main`) on
+   the card for tiny-llama-1.1b's K1 geometry (32 heads, 4 groups, hs 64)
+   and Mixtral's (32, 8, 128), bf16, 16-token blocks: the serve trace's
+   steps recorded on a one-layer stand-in, every candidate held against
+   the plain version, then timed over those steps, each weighted by its
+   count; prints the winner, the default and the committed entry.  Where
+   the winner is not the default split, the trace served whole (22 and 16
+   layers, bf16) with the default and the winner in the order default,
+   winner, winner, default on fresh engines, each taking as many forwards
+   as the recording has steps: tokens/s printed.  K1 at Mixtral's
+   geometry at the spot steps (`tuning.SERVE_TRACE_CASES`) with the
+   winner and the default, the plain version and SDPA.  Then the
+   tiny-llama serve trace at float32 (4 layers) with the defaults and
+   under an `MDI_TUNE_TABLE` table holding a non-default split: no capture
+   after warm-up, K1 4 per forward, the greedy streams equal
+   (`divergence_ok`); an invalid entry (min_chunk 48) raises at
+   resolution and at a K1 call.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4, each with `paths`: its launches in every phase that drives
 it, K1's `server` the closed submission's with the observer on, its
 `quant` summed over the three quantized serves, K2's `quant` over the
-three quantized generates); the last line is `{"ok": true, "device":
+three quantized generates, K1's `moe-quant` over the int8 and the three
+4-layer serves, its `tune` the tuned serve's, K3's and K4's `moe-train`
+over the three counted steps); the last line is `{"ok": true, "device":
 {...}}`.
 """
 
@@ -414,40 +467,47 @@ SERVE_BASE = ["--model", TINY_LLAMA, "--dtype", "bfloat16", "--seed", "10137",
               "--max-batch", "8", "--block-size", "16", "--sequence-length", "2048"]
 
 
-def serve_checked(phase, argv, draft_layers=0):
-    """The serve CLI on `argv`, with K1's and the plain route's counts set
-    to 0 just before and read just after.  Fails unless every request
-    finished with its budget in the vocabulary, K1 ran exactly once per
-    layer of every target and draft forward, and the plain route never."""
-    import torch
-
+def served(phase, run, n_layer, draft_layers=0, plain_route=False):
+    """`run()` -> (trace, results, stats, engine), with K1's and the plain
+    route's counts set to 0 just before and read just after.  Fails unless
+    the target has `n_layer` layers, every request finished with its
+    budget in the vocabulary, and K1 ran exactly once per layer of every
+    target and draft forward and the plain route never (`plain_route`:
+    K1 never and the plain route did).  Returns (trace, results, stats
+    line, engine, K1 launches)."""
     from mdi_llm_tpu_torch.cli import serve as cli
-    from mdi_llm_tpu_torch.ops import paged_attention as pa
     from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention
 
-    args = cli.build_parser().parse_args(argv)
-    ragged_paged_attention.launches = ragged_paged_attention.merge_launches = 0
-    pa._paged_prefill_plain.calls = pa._paged_attention_plain.calls = 0
-    trace, results, stats, engine, _tokenizer = cli.serve(args)
-    torch.cuda.synchronize()
-    launches = ragged_paged_attention.launches
+    reset_k1_counts()
+    trace, results, stats, engine = run()
+    launches, plain = k1_counts()
     engine.k1_merge_launches = ragged_paged_attention.merge_launches
-    plain = pa._paged_prefill_plain.calls + pa._paged_attention_plain.calls
-    n_layer = engine.gen.cfg.n_layer
+    want = 0 if plain_route else (n_layer * engine.forward_calls
+                                  + draft_layers * engine.draft_forward_calls)
+    if engine.gen.cfg.n_layer != n_layer or launches != want or (plain > 0) != plain_route \
+            or (not plain_route and launches <= 0):
+        fail(phase, f"K1 launches {launches}, plain route {plain}: want {want} = {n_layer} x "
+             f"{engine.forward_calls} target + {draft_layers} x "
+             f"{engine.draft_forward_calls} draft forwards on the "
+             f"{'plain' if plain_route else 'kernel'} route")
     vocab = engine.gen.cfg.padded_vocab_size
     for rid, prompt, new in trace:
         out = results.get(rid)
-        if out is None or len(out) - len(prompt) != new:
-            fail(phase, f"{rid} did not finish with its {new} tokens")
-        if not all(0 <= t < vocab for t in out[len(prompt):]):
-            fail(phase, f"{rid} produced a token outside the vocabulary")
-    want = n_layer * engine.forward_calls + draft_layers * engine.draft_forward_calls
-    if n_layer != 22 or launches <= 0 or launches != want:
-        fail(phase, f"K1 launches {launches} != {n_layer} x {engine.forward_calls} "
-             f"target + {draft_layers} x {engine.draft_forward_calls} draft forwards")
-    if plain:
-        fail(phase, f"the plain attention route ran {plain} times on the card")
+        if out is None or len(out) - len(prompt) != new or not all(
+                0 <= t < vocab for t in out[len(prompt):]):
+            fail(phase, f"{rid} did not finish with its {new} tokens in the vocabulary")
     line = cli.stats_line(stats, engine, [len(p) + n / 2 for _rid, p, n in trace])
+    return trace, results, line, engine, launches
+
+
+def serve_checked(phase, argv, draft_layers=0, n_layer=22):
+    """The serve CLI on `argv`, checked by `served`; returns (stats line,
+    K1 launches, engine, results)."""
+    from mdi_llm_tpu_torch.cli import serve as cli
+
+    args = cli.build_parser().parse_args(argv)
+    _trace, results, line, engine, launches = served(
+        phase, lambda: cli.serve(args)[:4], n_layer, draft_layers)
     return line, launches, engine, results
 
 
@@ -2729,6 +2789,759 @@ def phase_quant(k1, k2, card, ckpt_dir):
     torch.cuda.empty_cache()
 
 
+MIXTRAL = "Mixtral-8x7B-v0.1"
+MOE_LAYERS = 16  # of 32: 46.4 GB of bf16 blocks beside the pool and activations
+# Mixtral-8x7B's published widths, which every MoE phase checks it runs at
+MIXTRAL_WIDTHS = dict(n_embd=4096, n_head=32, n_query_groups=8, head_size=128,
+                      intermediate_size=14336, n_expert=8, n_expert_per_token=2,
+                      padded_vocab_size=32256, rope_base=1000000)
+MOE_SERVE = ["--model", MIXTRAL, "--override", f"n_layer={MOE_LAYERS}", "--dtype", "bfloat16",
+             "--seed", "10137", "--max-batch", "8", "--block-size", "16",
+             "--sequence-length", "2048", "--synthetic", "16", "--n-tokens", "64"]
+
+
+def free() -> None:
+    """Collect what a phase dropped (an engine and its step graphs hold
+    reference cycles) and hand the cached blocks back to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mixtral_config(phase, n_layer):
+    from mdi_llm_tpu_torch.config import Config
+
+    cfg = Config.from_name(MIXTRAL, n_layer=n_layer)
+    widths_ok(phase, cfg)
+    return cfg
+
+
+def widths_ok(phase, cfg) -> None:
+    got = {k: getattr(cfg, k) for k in MIXTRAL_WIDTHS}
+    if got != MIXTRAL_WIDTHS or cfg.mlp_class_name != "LLaMAMoE":
+        fail(phase, f"Mixtral's widths {got} ({cfg.mlp_class_name}), want {MIXTRAL_WIDTHS}")
+
+
+def engine_serve(phase, gen, trace, n_layer, serving=None, observe=True, use_kernel=None):
+    """`trace` through a fresh engine over `gen` (the serve CLI's defaults:
+    8 slots, 16-token blocks, token budget 136, decode chunks of 8 with
+    double buffering, CUDA graphs; `use_kernel=False` takes the plain
+    route), checked by `served`.  Returns (results, stats line, engine,
+    K1 launches)."""
+    import dataclasses
+
+    from mdi_llm_tpu_torch.config import ServingConfig
+    from mdi_llm_tpu_torch.obs import ServingObserver
+
+    serving = serving or ServingConfig(block_size=16, max_batch=8)
+    if use_kernel is not None:
+        serving = dataclasses.replace(serving, use_kernel=use_kernel)
+    engine = gen.serve(serving=serving, obs=ServingObserver(device=True) if observe else None)
+    _trace, results, line, engine, launches = served(
+        phase, lambda: (trace, *_serve_trace(engine, trace), engine), n_layer,
+        plain_route=use_kernel is False)
+    return results, line, engine, launches
+
+
+def router_flips(gen, prefix) -> tuple:
+    """Two bf16 dense forwards over `prefix`, attention through the torch
+    route and through K2 (another summation order), with each MoE layer's
+    top-k experts recorded: (layers whose top-k set differs at the last
+    position, (layer, position) pairs that differ, pairs compared)."""
+    from unittest import mock
+
+    import torch
+
+    from mdi_llm_tpu_torch.models import transformer
+
+    real = transformer.moe_forward
+    picks = {}
+
+    def recording(cfg, p, x, with_aux=False):
+        router = transformer.quantized_einsum("...i,ei->...e", x, p["gate"]).float()
+        top = torch.topk(torch.softmax(router, -1), cfg.n_expert_per_token, dim=-1).indices
+        picks[route].append(top.sort(dim=-1).values)
+        return real(cfg, p, x, with_aux=with_aux)
+
+    toks = torch.tensor([prefix], device=gen.device)
+    zero = torch.zeros(1, dtype=torch.long, device=gen.device)
+    with torch.no_grad(), mock.patch.object(transformer, "moe_forward", recording):
+        for route, flash in (("dense", False), ("K2", True)):
+            picks[route] = []
+            transformer.forward(gen.cfg, gen.params, toks, zero, use_flash=flash)
+    differ = torch.stack([(a != b).any(-1)[0] for a, b in zip(picks["dense"], picks["K2"])])
+    return int(differ[:, -1].sum()), int(differ.sum()), differ.numel()
+
+
+def moe_divergences(phase, gen, got, want, label) -> int:
+    """Print, for every greedy bf16 stream of `got` that diverges from
+    `want`'s, the first divergent position, the tokens there, the bf16
+    model's top-2 logit gap over the common prefix and the router flips
+    `router_flips` finds there.  Gates nothing: a router near-tie flips
+    with the summation order and changes the token's output far more than
+    the logits' gap shows.  Returns how many diverge."""
+    import torch
+
+    from mdi_llm_tpu_torch.models import transformer
+
+    n = 0
+    for rid, w in want.items():
+        g = got[rid]
+        if g == w:
+            continue
+        n += 1
+        i = next((j for j, (x, y) in enumerate(zip(g, w)) if x != y), min(len(g), len(w)))
+        with torch.no_grad():
+            logits = transformer.forward(gen.cfg, gen.params, torch.tensor([w[:i]], device=gen.device),
+                                         torch.zeros(1, dtype=torch.long, device=gen.device))
+        top = torch.topk(logits[0, -1].float(), 2).values
+        last, pairs, total = router_flips(gen, w[:i])
+        print(f"{phase}: {label}: {rid} diverges at position {i} (tokens "
+              f"{g[i] if i < len(g) else None} vs {w[i] if i < len(w) else None}); bf16 "
+              f"top-2 gap {(top[0] - top[1]).item():.5f}; router flips dense vs K2 "
+              f"attention at the diverging step: {last} of {gen.cfg.n_layer} layers "
+              f"({pairs} of {total} (layer, position) pairs over the prefix)", flush=True)
+        del logits
+        free()
+    return n
+
+
+def flash_case_ms(B, T, H, G, hs, dtype=None):
+    """K2 against its plain version at one causal shape: returns the
+    kernel's max |err| and (ms, plain ms, SDPA ms, bound ms, bound by)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mdi_llm_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+
+    dtype = dtype or torch.bfloat16
+    name = str(dtype).replace("torch.", "")
+    q, k, v = flash_inputs(B, T, dtype, seed=T + B + hs, H=H, G=G, hs=hs)
+    out = flash_attention(q, k, v)
+    ref, _lse = flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+    err = (out.float() - ref).abs().max().item()
+    del ref, out
+    if not err <= TOL[name]:
+        fail("flash", f"K2 {name} B={B} T={T} H={H} G={G} hs={hs}: max|err| {err}")
+    ms = cuda_ms(lambda: flash_attention(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), 3)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20)
+    free()
+    return err, (ms, plain_ms, lib_ms) + flash_bound(B, H, G, T, hs, dtype, True, False)
+
+
+def phase_moe(k1, k2, card):
+    """Mixtral-8x7B at full width in bf16 (the module docstring, phase 19)."""
+    import dataclasses
+
+    import torch
+
+    from mdi_llm_tpu_torch.cli import serve as cli
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.obs.roofline import param_bytes
+    from mdi_llm_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+
+    # (a) the serve CLI at 16 layers, K1 replayed inside the step graphs
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    line, launches, engine, results = serve_checked("moe", MOE_SERVE, n_layer=MOE_LAYERS)
+    gen, cfg = engine.gen, engine.gen.cfg
+    widths_ok("moe", cfg)
+    graphs = engine.graph_stats()
+    if graphs["captures"] != graphs["steps"] or graphs["replays"] <= 0:
+        fail("moe", f"step graphs {graphs}")
+    dev = line["device"]
+    utilization_ok("moe", "serve", dev.get("mfu"), dev.get("mbu"))
+    print("moe: serve " + json.dumps({
+        "model": MIXTRAL, "layers": cfg.n_layer, **{k: line[k] for k in (
+            "requests", "tokens_generated", "tokens_per_s", "wall_s", "decode_s", "prefill_s",
+            "mixed_steps", "decode_steps", "host_syncs", "forward_calls", "graph_captures",
+            "graph_replays", "capture_s")},
+        "mfu": dev["mfu"], "mbu": dev["mbu"], "weight_bytes": param_bytes(gen.params),
+        "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        "k1_launches": launches, "k1_merge_launches": engine.k1_merge_launches})
+        + f"; MFU counts the dense formulation's 8 experts per token; on {card}", flush=True)
+    k1.setdefault("paths", {})["moe"] = launches
+    args = cli.build_parser().parse_args(MOE_SERVE)
+    trace = cli.synthetic_trace(16, cfg.vocab_size, 2048, 64)
+    serving = cli.make_serving_config(args)
+    params = gen.params
+    del engine, gen
+    free()
+
+    # the same trace through the plain route in bf16: divergences printed only
+    gen = Generator(cfg, params, max_seq_length=2048, device=DEVICE)
+    plain_results, _pl, engine, _n = engine_serve("moe", gen, trace, MOE_LAYERS, serving=serving,
+                                                  observe=False, use_kernel=False)
+    del engine
+    free()
+    n_div = moe_divergences("moe", gen, results, plain_results, "bf16 K1 vs plain route")
+    print(f"moe: bf16 serve, {n_div} of {len(trace)} greedy streams diverge between K1 and "
+          "the plain route (printed, not gated: parity is held in float32 below)", flush=True)
+
+    # (b) Generator.generate, K2 in the prefill
+    gen.generate([[1, 2, 3]] * 4, 4, temperature=0.0)  # warm-up, not counted
+    prompts = long_prompts((1100, 1370, 1650, 1900), cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention_plain.calls = 0
+    outs, stats = gen.generate(prompts, 64, temperature=0.0, chunk_size=16)
+    torch.cuda.synchronize()
+    k2_launches, plain = flash_attention.launches, flash_attention_plain.calls
+    if k2_launches != MOE_LAYERS or plain:
+        fail("moe", f"generate: K2 launches {k2_launches} (want {MOE_LAYERS}), plain {plain}")
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        if len(o) - len(p) != 64 or not all(0 <= t < cfg.padded_vocab_size for t in o[len(p):]):
+            fail("moe", f"generate: sample {i} did not get 64 tokens in the vocabulary")
+    print("moe: generate " + json.dumps({
+        "prompt_lens": [len(p) for p in prompts], "new_tokens": 64,
+        "prefill_s": round(stats.prefill_s, 4), "decode_s": round(stats.decode_s, 4),
+        "capture_s": round(stats.capture_s, 4), "tokens_per_s": round(stats.tokens_per_s, 2),
+        "decode_tokens_per_s": round(stats.tokens_generated / (stats.decode_s - stats.capture_s), 2),
+        "graph_captures": stats.captures, "k2_launches": k2_launches,
+        "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)})
+        + f"; on {card}", flush=True)
+    k2.setdefault("paths", {})["moe"] = k2_launches
+    del gen, params, outs
+    free()
+
+    # K2 at the generate prefill's shape: Mixtral's 32 heads over 8 groups, hs 128
+    err, (ms, plain_ms, lib_ms, b_ms, b_by) = flash_case_ms(4, 2048, 32, 8, 128)
+    print(f"moe: K2 bfloat16 B=4 T=2048 H=32 G=8 hs=128 causal max_abs_err={err:.3e} "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by}); on {card}", flush=True)
+
+    # (c) float32 parity at full width, 2 layers: K1 vs plain, K2 vs plain
+    cfg2 = mixtral_config("moe", 2)
+    params = transformer.init_params(cfg2, 10137, dtype=torch.float32, device=DEVICE)
+    gen = Generator(cfg2, params, max_seq_length=2048, device=DEVICE)
+    ptrace = cli.synthetic_trace(4, cfg2.vocab_size, 2048, 16)
+    streams = {}
+    for route, use_kernel in (("kernel", None), ("plain", False)):
+        streams[route], _line, engine, _n = engine_serve(
+            "moe", gen, ptrace, 2, observe=False, use_kernel=use_kernel)
+        del engine
+    divergence_ok("moe", gen, streams["kernel"], streams["plain"], "f32 K1 vs plain")
+    gstreams = {}
+    for route, flash_kernel in (("kernel", None), ("plain", False)):
+        g = Generator(cfg2, params, max_seq_length=2048, device=DEVICE, use_flash=True,
+                      flash_kernel=flash_kernel)
+        flash_attention.launches = flash_attention_plain.calls = 0
+        gstreams[route], _ = g.generate(long_prompts((1100, 1093), cfg2.vocab_size, seed=7),
+                                        16, temperature=0.0)
+        got = (flash_attention.launches, flash_attention_plain.calls)
+        if got != ((2, 0) if route == "kernel" else (0, 2)):
+            fail("moe", f"f32 generate, {route} route: K2 launches and plain calls {got}")
+        del g
+    divergence_ok("moe", gen, dict(enumerate(gstreams["kernel"])),
+                  dict(enumerate(gstreams["plain"])), "f32 generate K2 vs plain")
+    print(f"moe: float32, 2 layers x {cfg2.n_embd}: {len(ptrace)} greedy serve streams "
+          f"through K1 and the plain route, 2 generate streams through K2 and its plain "
+          f"version: equal", flush=True)
+    del gen, params
+    free()
+
+
+def plain_moe_quantized_einsum(spec, x, p):
+    """`plain_quantized_einsum` for every spec the MoE forward contracts:
+    the linear specs as there; the expert specs as a float64 einsum with
+    the dequantized weights (w8a8: with the same per-token int8
+    activations, scaled as the route scales them)."""
+    import torch
+
+    from mdi_llm_tpu_torch.ops import quant
+
+    if quant._is_linear(spec, next(v for k, v in p.items() if k != "scale")):
+        return plain_quantized_einsum(spec, x, p)
+    if "weight_q8" in p:
+        xf = x.float()
+        xs = torch.clamp(xf.abs().amax(dim=-1, keepdim=True)
+                         / torch.full((), 127.0, device=x.device), min=1e-10)
+        xq = torch.clamp(torch.round(xf / xs), -127, 127)
+        y = torch.einsum(spec, xq.double(), p["weight_q8"].double()).float()
+        extra = y.dim() - (x.dim() - 1)
+        xs = xs.reshape(xs.shape[:-1] + (1,) * max(extra, 1))
+        return quant._apply_scale(spec, y * xs, p["scale"]).to(x.dtype)
+    if "weight_q4" in p:
+        w = quant.unpack_w4(p["weight_q4"], p["scale"], torch.float64)
+    else:
+        w = p["weight_q"].double() * p["scale"].double()[..., None]
+    return torch.einsum(spec, x.double(), w).to(x.dtype)
+
+
+def phase_moe_quant(k1, k2, card):
+    """Quantized Mixtral-8x7B (the module docstring, phase 20)."""
+    from unittest import mock
+
+    import torch
+
+    from mdi_llm_tpu_torch.cli.serve import synthetic_trace
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.obs.roofline import param_bytes
+    from mdi_llm_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+    from mdi_llm_tpu_torch.ops.quant import (
+        FLAG_TO_MODE,
+        init_quantized_params,
+        quantize_params,
+    )
+
+    # (a) all 32 layers, int8 weights: serve and generate
+    cfg = mixtral_config("moe-quant", 32)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_quantized_params(cfg, seed=10137, mode="w8", dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = Generator(cfg, params, max_seq_length=2048, device=DEVICE)
+    if not gen.quantized:
+        fail("moe-quant", "the int8 tree is not seen as quantized")
+    trace = synthetic_trace(16, cfg.vocab_size, 2048, 64)
+    _res, line, engine, launches = engine_serve("moe-quant", gen, trace, 32)
+    dev = line["device"]
+    utilization_ok("moe-quant", "serve int8", dev.get("mfu"), dev.get("mbu"))
+    print("moe-quant: serve " + json.dumps({
+        "model": MIXTRAL, "layers": 32, "quantize": "int8", "init_s": round(init_s, 2),
+        "weight_bytes": param_bytes(params), **{k: line[k] for k in (
+            "requests", "tokens_generated", "tokens_per_s", "wall_s", "decode_s", "prefill_s",
+            "forward_calls", "graph_captures", "graph_replays", "capture_s")},
+        "mfu": dev["mfu"], "mbu": dev["mbu"], "k1_launches": launches,
+        "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)})
+        + f"; MBU counts the stored int8 bytes; on {card}", flush=True)
+    k1_launches = launches
+    del engine
+    free()
+    gen.generate([[1, 2, 3]] * 4, 4, temperature=0.0)  # warm-up, not counted
+    prompts = long_prompts((1100, 1370, 1650, 1900), cfg.vocab_size)
+    torch.cuda.synchronize()
+    flash_attention.launches = flash_attention_plain.calls = 0
+    outs, stats = gen.generate(prompts, 64, temperature=0.0, chunk_size=16)
+    torch.cuda.synchronize()
+    k2_launches, plain = flash_attention.launches, flash_attention_plain.calls
+    if k2_launches != 32 or plain:
+        fail("moe-quant", f"generate: K2 launches {k2_launches} (want 32), plain {plain}")
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        if len(o) - len(p) != 64 or not all(0 <= t < cfg.padded_vocab_size for t in o[len(p):]):
+            fail("moe-quant", f"generate: sample {i} did not get 64 tokens in the vocabulary")
+    print("moe-quant: generate " + json.dumps({
+        "layers": 32, "quantize": "int8", "prefill_s": round(stats.prefill_s, 4),
+        "decode_s": round(stats.decode_s, 4), "capture_s": round(stats.capture_s, 4),
+        "decode_tokens_per_s": round(stats.tokens_generated / (stats.decode_s - stats.capture_s), 2),
+        "k2_launches": k2_launches,
+        "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)})
+        + f"; on {card}", flush=True)
+    del gen, params, outs
+    free()
+
+    # (b) 4 layers: a float32 forward of each mode against its float64 plain version
+    cfg4 = mixtral_config("moe-quant", 4)
+    params = transformer.init_params(cfg4, 10137, dtype=torch.float32, device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    toks = torch.randint(1, cfg4.vocab_size, (2, 64), generator=g, device=DEVICE)
+    pos = torch.zeros(2, dtype=torch.long, device=DEVICE)
+    with torch.no_grad():
+        for mode in QUANT_MODES:
+            qp = quantize_params(params, mode=FLAG_TO_MODE[mode])
+            got = transformer.forward(cfg4, qp, toks, pos)
+            with mock.patch.object(transformer, "quantized_einsum", plain_moe_quantized_einsum):
+                ref = transformer.forward(cfg4, qp, toks, pos)
+            err = (got - ref).abs().max().item()
+            limit = TOL["float32"] * max(1.0, ref.abs().max().item())
+            print(f"moe-quant: f32 forward, 4 layers at full width, {mode}: max |err| "
+                  f"{err:.3e} <= {limit:.3e} against the float64 plain version", flush=True)
+            if not err <= limit:
+                fail("moe-quant", f"{mode}: f32 forward max |err| {err} > {limit}")
+            del qp, got, ref
+            free()
+    del params
+    free()
+
+    # (c) 4 layers: the trace served once in each mode
+    for mode in QUANT_MODES:
+        torch.cuda.reset_peak_memory_stats()
+        params = init_quantized_params(cfg4, seed=10137, mode=FLAG_TO_MODE[mode],
+                                       dtype=torch.bfloat16, device=DEVICE)
+        gen = Generator(cfg4, params, max_seq_length=2048, device=DEVICE)
+        _res, line, engine, launches = engine_serve("moe-quant", gen, trace, 4, observe=False)
+        print("moe-quant: serve " + json.dumps({
+            "layers": 4, "quantize": mode, "weight_bytes": param_bytes(params),
+            "tokens_per_s": line["tokens_per_s"], "forward_calls": line["forward_calls"],
+            "k1_launches": launches,
+            "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)})
+            + f"; on {card}", flush=True)
+        k1_launches += launches
+        del engine, gen, params
+        free()
+    k1.setdefault("paths", {})["moe-quant"] = k1_launches
+    k2.setdefault("paths", {})["moe-quant"] = k2_launches
+
+
+MOE_TRAIN = dict(batch_size=1, block_size=2048, grad_acc_steps=1, learning_rate=1e-3,
+                 warmup_iters=0, lr_decay_iters=100, min_lr=1e-4, eval_iters=1,
+                 dtype="bfloat16", remat=True, use_flash=True, moe_aux_weight=0.01)
+
+
+def flash_bwd_case_ms(B, T, H, G, hs, card):
+    """K3 and K4 against their plain versions at one causal bf16 shape
+    (held to `flash_bwd_bf16_limits`), then timed beside the plain
+    versions and SDPA's backward; returns {"dq"/"dkv": (ms, plain ms,
+    library ms, bound ms, bound by, max |err|)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from mdi_llm_tpu_torch.ops.flash import (
+        flash_attention_lse,
+        flash_dkv,
+        flash_dkv_plain,
+        flash_dq,
+        flash_dq_plain,
+    )
+
+    dtype, scale = torch.bfloat16, hs ** -0.5
+    q, k, v = flash_inputs(B, T, dtype, seed=5 * T + hs, H=H, G=G, hs=hs)
+    out, lse = flash_attention_lse(q, k, v, causal=True)
+    g = torch.Generator(device=DEVICE).manual_seed(T + 1)
+    do = torch.randn(q.shape, generator=g, device=DEVICE).to(dtype)
+    dsum = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, dsum, scale, True)
+    got = (flash_dq(*args),) + flash_dkv(*args)
+    f32 = [x.float() for x in (q, k, v, do)]
+    ref = (flash_dq_plain(*f32, lse, dsum, scale, True),) + flash_dkv_plain(*f32, lse, dsum, scale, True)
+    del f32
+    limits = flash_bwd_bf16_limits(q, k, v, do, lse, dsum, scale, True, ref)
+    errs = {}
+    for which, a, r, lim in zip(("dq", "dk", "dv"), got, ref, limits):
+        err, ratio = err_ratio(a, r, lim)
+        if not ratio <= 1.0:
+            fail("moe-train", f"K3/K4 bf16 B={B} T={T} H={H} G={G} hs={hs} {which}: "
+                 f"max|err| {err}, {ratio:.3f} x its limit")
+        errs["dq" if which == "dq" else "dkv"] = max(errs.get("dq" if which == "dq" else "dkv", 0.0), err)
+    del got, ref, limits
+    free()
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, enable_gqa=True)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (qq, kk, vv), do, retain_graph=True), 10)
+    del lib_out, qq, kk, vv
+    out_rows = {}
+    for which, kern, plain in (("dq", flash_dq, flash_dq_plain), ("dkv", flash_dkv, flash_dkv_plain)):
+        ms = cuda_ms(lambda: kern(*args), 10)
+        plain_ms = cuda_ms(lambda: plain(*args), 2)
+        b_ms, b_by = flash_bwd_bound(B, H, G, T, hs, dtype, True, which)
+        out_rows[which] = (ms, plain_ms, lib_ms, b_ms, b_by, errs[which])
+        print(f"moe-train: {'K3' if which == 'dq' else 'K4'} bfloat16 B={B} T={T} H={H} G={G} "
+              f"hs={hs} causal max_abs_err={errs[which]:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} (SDPA backward, dQ+dK+dV) bound_ms={b_ms:.5f} ({b_by}); "
+              f"on {card}", flush=True)
+        free()
+    return out_rows
+
+
+def phase_moe_train(k3, k4, card):
+    """Mixtral-8x7B training steps (the module docstring, phase 21)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.training import (
+        Trainer,
+        TrainingConfig,
+        cross_entropy_loss,
+        estimate_flops_per_token,
+    )
+    from mdi_llm_tpu_torch.utils import data_loader
+
+    cfg = mixtral_config("moe-train", 2)
+    tc = TrainingConfig(**MOE_TRAIN)
+    L, B, T = cfg.n_layer, tc.batch_size, tc.block_size
+    n = cfg.estimate_params()
+    # bf16 params, float32 accumulated gradients and two float32 moments
+    print(f"moe-train: {n:.4e} parameters: reckoned {n * (2 + 4 + 8) / 1e9:.1f} GB of params, "
+          f"gradients and moments before activations (plus bf16 autograd gradients, "
+          f"{2 * n / 1e9:.1f} GB)", flush=True)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tc, device=DEVICE)
+    if not tr.use_flash or tr.moe_aux_weight != 0.01:
+        fail("moe-train", f"use_flash {tr.use_flash}, moe_aux_weight {tr.moe_aux_weight}")
+    data = synthetic_tokens(1 << 20, seed=11)
+    rng = np.random.default_rng(12)
+    tr.train_step(*(b[None] for b in data_loader.get_batch(data, B, T, rng)))  # warm-up
+    want = {"K2": 2 * L, "K3": L, "K4": L, "plain": 0}
+    steps, total = [], {"K3": 0, "K4": 0}
+    for _ in range(3):
+        x, y = data_loader.get_batch(data, B, T, rng)
+        torch.cuda.synchronize()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        loss = tr.train_step(x[None], y[None])
+        dt = time.perf_counter() - t0
+        got = flash_counts()
+        if got != want:
+            fail("moe-train", f"one optimizer step launched {got}; want {want}")
+        total["K3"] += got["K3"]
+        total["K4"] += got["K4"]
+        with torch.no_grad():
+            xt, yt = (torch.as_tensor(a, device=DEVICE).long() for a in (x, y))
+            _logits, aux = transformer.forward(cfg, tr.params, xt, torch.zeros(
+                B, dtype=torch.long, device=DEVICE), use_flash=True, collect_moe_aux=True)
+        if not (math.isfinite(loss) and math.isfinite(aux.item())):
+            fail("moe-train", f"step loss {loss}, aux {aux.item()}")
+        steps.append((dt, loss, aux.item() / L))
+        del _logits
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dt = float(np.median([d for d, _l, _a in steps]))
+    print("moe-train: " + json.dumps({
+        "model": MIXTRAL, "layers": L, "batch": B, "block": T, "dtype": tc.dtype,
+        "remat": tc.remat, "use_flash": tr.use_flash, "moe_aux_weight": tc.moe_aux_weight,
+        "step_s": [round(d, 4) for d, _l, _a in steps], "step_s_median": round(dt, 4),
+        "tokens_per_s": round(B * T / dt, 1),
+        "tflops": round(estimate_flops_per_token(cfg, T) * B * T / dt / 1e12, 2),
+        "step_losses": [round(lo, 4) for _d, lo, _a in steps],
+        "aux_layer_mean": [round(a, 5) for _d, _l, a in steps],
+        "peak_memory_gib": round(peak, 3), "launches_per_step": want})
+        + f"; TFLOP/s counts the dense formulation's 8 experts; on {card}", flush=True)
+    k3.setdefault("paths", {})["moe-train"] = total["K3"]
+    k4.setdefault("paths", {})["moe-train"] = total["K4"]
+    del tr
+    free()
+
+    # K3 and K4 at this phase's attention shape
+    flash_bwd_case_ms(B, T, 32, 8, 128, card)
+
+    # float32, 1 layer: losses and the first gradient through K2-K4 and their plain versions
+    cfg1 = mixtral_config("moe-train", 1)
+    tc1 = TrainingConfig(**{**MOE_TRAIN, "dtype": "float32"})
+    params = transformer.init_params(cfg1, 10137, dtype=torch.float32, device=DEVICE)
+    batches = [data_loader.get_batch(data, B, T, np.random.default_rng(13)) for _ in range(2)]
+    grads, losses = {}, {}
+    for route, flash_kernel in (("kernel", None), ("plain", False)):
+        tr = Trainer(cfg1, tc1, params=params, device=DEVICE, flash_kernel=flash_kernel)
+        reset_flash_counts()
+        x, y = (torch.as_tensor(b, device=DEVICE).long() for b in batches[0])
+        loss = cross_entropy_loss(cfg1, tr.params, x, y, remat=True, use_flash=True,
+                                  flash_kernel=flash_kernel, moe_aux_weight=0.01)
+        grads[route] = torch.autograd.grad(loss, transformer.tree_leaves(tr.params))
+        losses[route] = [tr.train_step(bx[None], by[None]) for bx, by in batches]
+        got = flash_counts()
+        want = ({"K2": 6, "K3": 3, "K4": 3, "plain": 0} if route == "kernel"
+                else {"K2": 0, "K3": 0, "K4": 0, "plain": 12})
+        if got != want:
+            fail("moe-train", f"f32 parity, the {route} run launched {got}; want {want}")
+        del tr
+        free()
+    size = max(g.abs().max().item() for g in grads["plain"])
+    err = max((a - b).abs().max().item() for a, b in zip(grads["kernel"], grads["plain"]))
+    lk, lp = losses["kernel"], losses["plain"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    print(f"moe-train: float32, 1 layer x {cfg1.n_embd}, B={B} T={T}, aux weight 0.01: "
+          f"first-step grads max|err| {err:.3e} (largest {size:.3e}), losses "
+          f"{[round(v, 6) for v in lk]} vs {[round(v, 6) for v in lp]} (rel {rel:.2e}) through "
+          "K2-K4 and their plain versions", flush=True)
+    if not err <= 1e-4 * size or not rel <= 1e-5:
+        fail("moe-train", f"grads max|err| {err} (largest {size}), losses {lk} vs {lp}")
+    del grads, params
+    free()
+
+
+TUNE_GEOMETRIES = {"tiny-llama-1.1b": (32, 4, 64), MIXTRAL: (32, 8, 128)}
+# the serve and moe phases' trace and engine, as the tuning CLI's flags
+TUNE_SERVE = ["--synthetic", "16", "--n-tokens", "64", "--sequence-length", "2048",
+              "--max-batch", "8", "--block-size", "16", "--dtype", "bfloat16", "--seed", "10137"]
+
+
+def phase_tune(k1, card):
+    """K1's tuning tables (the module docstring, phase 22)."""
+    import os
+
+    import torch
+
+    from mdi_llm_tpu_torch.cli.serve import synthetic_trace
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.ops import ragged_paged_attention as rpa
+    from mdi_llm_tpu_torch.ops import tuning
+    from mdi_llm_tpu_torch.utils.profiling import CompileGuard, RecompileError
+
+    dev_name = torch.cuda.get_device_name(0)
+    winners, env = {}, os.environ.pop(tuning.TUNE_TABLE_ENV, None)
+    tables_dir = tempfile.TemporaryDirectory()
+    for model in TUNE_GEOMETRIES:
+        # (a) the serve trace's steps recorded on a one-layer stand-in, every
+        # candidate timed over them, each step weighted by its count
+        t0 = time.perf_counter()
+        out = str(Path(tables_dir.name) / f"{model}.json")
+        res = tuning.main(TUNE_SERVE + ["--model", model, "--out", out, "--device", DEVICE])
+        best, results, key = res["winner"], res["results"], res["key"]
+        committed, meta = tuning.resolve_kernel_params(
+            *TUNE_GEOMETRIES[model], 16, torch.bfloat16, torch.bfloat16, device_kind=dev_name)
+        rows = {tuple(r["params"].values()): r for r in results}
+        default = rows[tuple(tuning.DEFAULT_PARAMS.to_dict().values())]
+        comm = rows[tuple(committed.to_dict().values())]
+        print(f"tune: {model} ({key}) over the serve trace's {res['steps']} steps "
+              f"({len(res['cases'])} distinct): winner {best.to_dict()} "
+              f"{json.dumps({k: round(v, 5) for k, v in rows[tuple(best.to_dict().values())]['ms'].items()})}"
+              f" ms against the default's "
+              f"{json.dumps({k: round(v, 5) for k, v in default['ms'].items()})}; committed "
+              f"entry ({meta['table_source']}) {committed.to_dict()} total "
+              f"{comm['total_ms']:.5f} ms; {len(results)} candidates in "
+              f"{time.perf_counter() - t0:.1f} s; on {card}", flush=True)
+        winners[model] = (best, results, res["steps"])
+        free()
+
+    # (b) the trace served whole with the default and the winning split, in
+    # the order default, winner, winner, default, each on a fresh engine
+    for model, n_layer in ((TINY_LLAMA, 22), (MIXTRAL, MOE_LAYERS)):
+        best, _results, n_steps = winners[model]
+        if best == tuning.DEFAULT_PARAMS:
+            print(f"tune: {model}: the winner is the default split; no serve to compare",
+                  flush=True)
+            continue
+        cfg = Config.from_name(model, n_layer=n_layer)
+        gen = Generator(cfg, transformer.init_params(cfg, 10137, dtype=torch.bfloat16,
+                                                     device=DEVICE),
+                        max_seq_length=2048, device=DEVICE)
+        trace = synthetic_trace(16, cfg.vocab_size, 2048, 64)
+        key = tuning.geometry_key(dev_name, cfg.n_head, cfg.n_query_groups, cfg.head_size, 16,
+                                  torch.bfloat16, torch.bfloat16)
+        tables = {}
+        for label, p in (("default", tuning.DEFAULT_PARAMS), ("winner", best)):
+            tables[label] = str(Path(tables_dir.name) / f"{model}-{label}-serve.json")
+            tuning.save_tuning_table(tables[label], dev_name, {key: p.to_dict()})
+        rates, streams = {"default": [], "winner": []}, {}
+        try:
+            for label in ("default", "winner", "winner", "default"):
+                os.environ[tuning.TUNE_TABLE_ENV] = tables[label]
+                streams[label], line, engine, _n = engine_serve(
+                    "tune", gen, trace, n_layer, observe=False)
+                if engine.forward_calls != n_steps:
+                    fail("tune", f"{model}: the serve took {engine.forward_calls} forwards, "
+                         f"the recorded trace {n_steps} steps")
+                rates[label].append(line["tokens_per_s"])
+                del engine
+                free()
+        finally:
+            os.environ.pop(tuning.TUNE_TABLE_ENV, None)
+        same = sum(streams["winner"][r] == streams["default"][r] for r in streams["default"])
+        print(f"tune: {model} bf16 {n_layer} layers, the serve trace served whole: default "
+              f"{tuning.DEFAULT_PARAMS.to_dict()} {rates['default']} tokens/s, winner "
+              f"{best.to_dict()} {rates['winner']} tokens/s (order default, winner, winner, "
+              f"default); winner faster in both pairs: "
+              f"{min(rates['winner']) > max(rates['default'])}; {same} of {len(trace)} bf16 "
+              f"streams equal; on {card}", flush=True)
+        del gen
+        free()
+
+    # K1 at Mixtral's geometry at the spot steps: the winner and the default
+    # beside the plain version and SDPA
+    H, G, hs = TUNE_GEOMETRIES[MIXTRAL]
+    tuned = winners[MIXTRAL][0]
+    for i, (label, (spans, T, _w)) in enumerate(tuning.SERVE_TRACE_CASES.items()):
+        args, owned = tuning.make_case(spans, T, H, G, hs, 16, 128, torch.bfloat16, DEVICE, seed=i + 1)
+        scale = hs ** -0.5
+        ms = {name: cuda_ms(lambda p=p: rpa.ragged_paged_attention(*args, scale=scale, params=p), 50)
+              for name, p in (("tuned", tuned), ("default", tuning.DEFAULT_PARAMS))}
+        plain_ms = cuda_ms(lambda: rpa.ragged_paged_attention_plain(*args, scale=scale), 5)
+        lib_ms = cuda_ms(library_call(args, scale), 20)
+        b_ms, b_by = bound(args, owned)
+        print(f"tune: K1 bfloat16 Mixtral {label} T={T} H={H} G={G} hs={hs} tuned_ms="
+              f"{ms['tuned']:.4f} ({tuned.to_dict()}) default_ms={ms['default']:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by}); "
+              f"on {card}", flush=True)
+        del args
+        free()
+
+    # serve tiny-llama at float32 under a table holding a non-default winner
+    best, results, _n = winners[TINY_LLAMA]
+    H, G, hs = TUNE_GEOMETRIES[TINY_LLAMA]
+
+    def mixed_chunk(p):
+        return rpa.split_plan(H, G, 136, 8, 16, 128, hs, p)["chunk"]
+
+    if best == tuning.DEFAULT_PARAMS:  # the fastest candidate with another mixed plan
+        best = next(p for p in (tuning.KernelParams.from_dict(r["params"]) for r in
+                                sorted(results, key=lambda r: r["total_ms"]))
+                    if mixed_chunk(p) != mixed_chunk(tuning.DEFAULT_PARAMS))
+    cfg = Config.from_name(TINY_LLAMA, n_layer=4)
+    gen = Generator(cfg, transformer.init_params(cfg, 10137, dtype=torch.float32, device=DEVICE),
+                    max_seq_length=2048, device=DEVICE)
+    trace = synthetic_trace(16, gen.cfg.vocab_size, 2048, 64)
+    streams = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        table = str(Path(tmp) / "k1.json")
+        fkey = tuning.geometry_key(dev_name, cfg.n_head, cfg.n_query_groups, cfg.head_size, 16,
+                                   torch.float32, torch.float32)
+        tuning.save_tuning_table(table, dev_name, {fkey: best.to_dict()})
+        try:
+            for label in ("default", "tuned"):
+                if label == "tuned":
+                    os.environ[tuning.TUNE_TABLE_ENV] = table
+                q = torch.empty(1, cfg.n_head, 8, cfg.head_size, device=DEVICE)
+                params = tuning.kernel_params_for(
+                    q, torch.empty(1, 16, cfg.n_query_groups, cfg.head_size, device=DEVICE))
+                if (params == best) != (label == "tuned"):
+                    fail("tune", f"{label} serve resolves {params}")
+                guard = CompileGuard(label=f"tune {label}")
+                with guard:
+                    engine = gen.serve(block_size=16, max_batch=8)
+                    guard.mark_warm()
+                    reset_k1_counts()
+                    streams[label], stats = _serve_trace(engine, trace)
+                    launches, plain = k1_counts()
+                try:
+                    guard.expect_clean()
+                except RecompileError as e:
+                    fail("tune", f"{label}: {e}")
+                if launches != 4 * engine.forward_calls or launches <= 0 or plain:
+                    fail("tune", f"{label}: K1 launches {launches} (want 4 x "
+                         f"{engine.forward_calls}), plain route {plain}")
+                print(f"tune: tiny-llama float32 4 layers, {label} K1 params {params.to_dict()}: "
+                      f"{stats.tokens_generated} tokens, {stats.tokens_per_s:.2f} tokens/s, K1 "
+                      f"{launches} launches, captures after warm-up "
+                      f"{guard.captures_after_warmup}", flush=True)
+                if label == "tuned":
+                    k1.setdefault("paths", {})["tune"] = launches
+                del engine
+            # an invalid entry raises, at resolution and at a K1 call
+            table = str(Path(tmp) / "bad.json")
+            tuning.save_tuning_table(table, dev_name, {fkey: dict(best.to_dict(), min_chunk=48)})
+            os.environ[tuning.TUNE_TABLE_ENV] = table
+            args, _owned = tuning.make_case([(5, 1)], 1, cfg.n_head, cfg.n_query_groups,
+                                            cfg.head_size, 16, 4, torch.float32, DEVICE)
+            for what, call in (
+                    ("resolution", lambda: tuning.resolve_kernel_params(
+                        cfg.n_head, cfg.n_query_groups, cfg.head_size, 16, torch.float32,
+                        torch.float32, device_kind=dev_name)),
+                    ("K1 call", lambda: rpa.ragged_paged_attention(*args, scale=0.125))):
+                try:
+                    call()
+                except ValueError as e:
+                    if fkey not in str(e):
+                        fail("tune", f"the invalid entry's error does not name it: {e}")
+                    print(f"tune: an invalid entry raises at {what}: {str(e)[:160]}", flush=True)
+                else:
+                    fail("tune", f"an invalid entry (min_chunk 48) did not raise at {what}")
+        finally:
+            os.environ.pop(tuning.TUNE_TABLE_ENV, None)
+            if env is not None:
+                os.environ[tuning.TUNE_TABLE_ENV] = env
+    divergence_ok("tune", gen, streams["tuned"], streams["default"], "tuned vs default K1")
+    same = sum(streams["tuned"][r] == streams["default"][r] for r in streams["default"])
+    print(f"tune: {same} of {len(trace)} greedy float32 streams identical under the tuned "
+          f"table ({best.to_dict()}) and the defaults", flush=True)
+    del gen
+    tables_dir.cleanup()
+    free()
+
+
 def _serve_trace(engine, trace):
     for rid, prompt, new in trace:
         engine.add_request(rid, prompt, new)
@@ -2738,7 +3551,7 @@ def _serve_trace(engine, trace):
 PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
           "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs", "server",
-          "tier", "quant")
+          "tier", "quant", "moe", "moe-quant", "moe-train", "tune")
 
 
 def main(argv=None) -> None:
@@ -2825,6 +3638,10 @@ def main(argv=None) -> None:
         "server": lambda: phase_server(k1, card),
         "tier": lambda: phase_tier(k1, card),
         "quant": lambda: phase_quant(k1, k2, card, ckpt_dir),
+        "moe": lambda: phase_moe(k1, k2, card),
+        "moe-quant": lambda: phase_moe_quant(k1, k2, card),
+        "moe-train": lambda: phase_moe_train(k3, k4, card),
+        "tune": lambda: phase_tune(k1, card),
     }
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = Path(tmp) / TINY_LLAMA
@@ -2837,11 +3654,15 @@ def main(argv=None) -> None:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
     records = (k1, k1q8, k2, k3, k4)
     missing = [(r["name"], k) for r in records for k in keys if k not in r]
-    k2_paths = {"generate", "ckpt", "graphs", "quant"} | (
+    k2_paths = {"generate", "ckpt", "graphs", "quant", "moe", "moe-quant"} | (
         {"chat"} if importlib.util.find_spec("tokenizers") else set())
-    k1_paths = {"serve", "ckpt", "graphs", "server", "tier", "quant"}
-    if only == set(PHASES) and (set(k1["paths"]) != k1_paths or set(k2["paths"]) != k2_paths):
-        fail("record", f"K1 paths {k1['paths']}, K2 paths {k2['paths']}")
+    k1_paths = {"serve", "ckpt", "graphs", "server", "tier", "quant", "moe", "moe-quant", "tune"}
+    k34_paths = {"train", "moe-train"}
+    if only == set(PHASES) and (set(k1["paths"]) != k1_paths or set(k2["paths"]) != k2_paths
+                                or set(k3["paths"]) != k34_paths
+                                or set(k4["paths"]) != k34_paths):
+        fail("record", f"K1 paths {k1['paths']}, K2 paths {k2['paths']}, K3 paths "
+             f"{k3['paths']}, K4 paths {k4['paths']}")
     if only == set(PHASES) and missing:
         fail("record", f"kernels line lacks {missing}")
     print(card)

@@ -5,15 +5,19 @@ need).
 
 `--ckpt DIR` loads a checkpoint of the port (`params.pt`), converting a
 directory that holds HF weights in place first; `--model NAME` draws
-random weights from `--seed`.  `--quantize int8|w8a8|int4` quantizes
-the weights when the Generator is built (`ops/quant.py`); a checkpoint
-written by `prepare_model --quantize` loads already quantized, with
-`--quantize none`.
+random weights from `--seed`, with `--override KEY=VALUE` changing
+fields of the registry config (a depth cut, or a tiny width for the
+CPU). `--quantize int8|w8a8|int4` quantizes the weights when the
+Generator is built (`ops/quant.py`); a checkpoint written by
+`prepare_model --quantize` loads already quantized, with `--quantize
+none`.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import sys
 from pathlib import Path
 from typing import Optional, Tuple
@@ -55,6 +59,7 @@ def add_common_args(ap: argparse.ArgumentParser, serving_kv: bool = False) -> No
     paged pool then stores int8 blocks with per-block-per-group scales."""
     ap.add_argument("--model", default=None,
                     help="registry model name (random weights from --seed)")
+    add_override_arg(ap)
     ap.add_argument("--ckpt", type=Path, default=None,
                     help="checkpoint directory (params.pt, or HF weights that "
                     "are converted in place first)")
@@ -81,6 +86,29 @@ def add_common_args(ap: argparse.ArgumentParser, serving_kv: bool = False) -> No
     )
 
 
+def add_override_arg(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument(
+        "--override", action="append", default=[], metavar="KEY=VALUE",
+        help="set a field of --model's registry config (repeatable; VALUE is "
+        "read as JSON, else as a string), e.g. --override n_layer=16",
+    )
+
+
+def config_overrides(items) -> dict:
+    """`--override KEY=VALUE` items as Config keyword arguments."""
+    fields = {f.name for f in dataclasses.fields(Config)}
+    out = {}
+    for item in items:
+        key, sep, value = item.partition("=")
+        if not sep or key not in fields:
+            raise SystemExit(f"--override {item!r}: want KEY=VALUE with KEY a Config field")
+        try:
+            out[key] = json.loads(value)
+        except json.JSONDecodeError:
+            out[key] = value
+    return out
+
+
 def refuse(what: str) -> None:
     raise SystemExit(
         f"mdi_llm_tpu_torch: {what} is not ported yet (see ROADMAP.md Queue 1)"
@@ -96,6 +124,10 @@ def load_model(
     --model draws random weights from --seed and has no tokenizer."""
     dtype = DTYPES[args.dtype]
     tokenizer = prompt_style = None
+    overrides = config_overrides(getattr(args, "override", []))
+    if args.ckpt and overrides:
+        raise SystemExit("--override changes a registry config: it goes with --model, "
+                         "not with --ckpt")
     if args.ckpt:
         ckpt_dir = Path(args.ckpt)
         if not ckpt_dir.is_dir():
@@ -115,7 +147,7 @@ def load_model(
                 else style_for_model(cfg.name)
             )
     elif args.model:
-        cfg = Config.from_name(args.model)
+        cfg = Config.from_name(args.model, **overrides)
         transformer.check_supported(cfg)
         params = transformer.init_params(cfg, args.seed, dtype=dtype, device=args.device)
         prompt_style = style_for_model(cfg.name)

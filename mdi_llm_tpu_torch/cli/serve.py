@@ -24,7 +24,8 @@ Observability rides every run (`obs/`, hooks at the engine's host-sync
 boundaries): the stats line carries the per-request latency block
 (TTFT/TPOT/E2E/queue-wait p50/p95/p99) and, unless `--no-device-obs`, a
 `device` block with the achieved MFU/MBU against the card's peak (null
-off the peak table, e.g. on the CPU) and each step's report
+off the peak table, e.g. on the CPU; an MoE model's MFU counts all its
+experts, as its dense formulation computes them) and each step's report
 (`obs/device.py`).  `--metrics-out`/`--prom-out` write the metrics
 registry (JSON / Prometheus text), `--trace-out` a Perfetto-loadable
 request/step timeline, `--sample-rss` adds a host RSS gauge, and

@@ -16,9 +16,12 @@ continues a run from its checkpoint.
 at `--block-size` >= 2048.  It runs on `cuda` and raises without a GPU
 unless `--device cpu` is given.
 
+An MoE config (Mixtral) trains in the dense formulation with
+`--moe-aux-weight` times its load-balancing loss.
+
 Refused, each naming its ROADMAP item: `--mesh` and
 `--coordinator`/`--process-id`/`--num-processes` (multi-device training),
-and MoE settings other than the defaults.
+and `--moe-capacity-factor` (the token dispatch of an ep mesh, item 16).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import argparse
 import json
 from pathlib import Path
 
-from mdi_llm_tpu_torch.cli._common import DTYPES, refuse
+from mdi_llm_tpu_torch.cli._common import DTYPES, add_override_arg, config_overrides, refuse
 from mdi_llm_tpu_torch.config import Config
 from mdi_llm_tpu_torch.generation import resolve_device
 from mdi_llm_tpu_torch.training import Trainer, TrainingConfig
@@ -46,6 +49,7 @@ def build_parser():
                     help="output (and --init resume input) directory, default out")
     ap.add_argument("--model", default=None,
                     help="registry model name (default: the --ckpt directory's name)")
+    add_override_arg(ap)
     ap.add_argument("--dtype", choices=list(DTYPES), default="bfloat16")
     ap.add_argument("--seed", type=int, default=10137)
     ap.add_argument("--device", default="cuda",
@@ -74,9 +78,11 @@ def build_parser():
     )
     ap.add_argument("--mesh", default=None, help="not ported yet: refused")
     ap.add_argument("--moe-aux-weight", type=float, default=0.01,
-                    help="MoE training is not ported: only the default")
+                    help="weight of the MoE load-balancing loss (layer mean; "
+                    "no effect on dense configs)")
     ap.add_argument("--moe-capacity-factor", type=float, default=None,
-                    help="MoE training is not ported: only the default")
+                    help="expert capacity of the ep mesh's token dispatch: not "
+                    "ported yet (ROADMAP item 16), refused when set")
     ap.add_argument("--coordinator", default=None, help="not ported yet: refused")
     ap.add_argument("--process-id", type=int, default=None, help="not ported yet: refused")
     ap.add_argument("--num-processes", type=int, default=None, help="not ported yet: refused")
@@ -113,6 +119,13 @@ def main(argv=None):
         moe_capacity_factor=args.moe_capacity_factor,
     )
     out_dir = Path(args.ckpt) if args.ckpt else Path("out")
+    overrides = config_overrides(args.override)
+    if overrides and (args.init != "scratch" or has_checkpoint(out_dir)
+                      or (out_dir / "model_config.yaml").exists()):
+        raise SystemExit(
+            f"--override changes a registry config: it goes with --model, not with "
+            f"--init {args.init} or an out dir ({out_dir}) that holds a checkpoint or "
+            "model_config.yaml")
 
     if args.init == "resume":
         trainer = Trainer.resume(out_dir, device=args.device)
@@ -127,7 +140,7 @@ def main(argv=None):
             cfg = (
                 Config.from_checkpoint(out_dir)
                 if (out_dir / "model_config.yaml").exists()
-                else Config.from_name(args.model or out_dir.name)
+                else Config.from_name(args.model or out_dir.name, **overrides)
             )
             params = None
         trainer = Trainer(cfg, tc, params=params, out_dir=out_dir, device=device)

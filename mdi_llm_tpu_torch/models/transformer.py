@@ -29,7 +29,10 @@ attention of decode steps and short prefills stays the torch
 `multihead_attention`, as the JAX package leaves it to XLA; so do the
 large matrix products (`F.linear`, and `ops/quant.quantized_einsum` for
 the linears and the untied head of a quantized tree).  Mixture-of-experts
-configs are refused.
+layers (`moe_forward`) run the JAX package's dense formulation: every
+expert on every token, weighted by the router's renormalised top-k, as
+matrix products of the stacked expert weights (no Pallas kernel lies on
+that path in the JAX package either).
 """
 
 from __future__ import annotations
@@ -76,25 +79,67 @@ def _gelu(cfg: Config, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if cfg.gelu_approximate == "tanh" else "none")
 
 
+MLP_CLASSES = ("GptNeoxMLP", "LLaMAMLP", "GemmaMLP", "LLaMAMoE")
+
+
 def check_supported(cfg: Config) -> None:
-    """Refuse configs whose layers the port does not carry yet."""
-    if cfg.mlp_class_name not in ("GptNeoxMLP", "LLaMAMLP", "GemmaMLP"):
+    """Refuse configs whose layers the port does not carry."""
+    if cfg.mlp_class_name not in MLP_CLASSES:
         raise ValueError(
             f"{cfg.name}: mlp_class_name={cfg.mlp_class_name!r} is not ported "
-            "(mixture-of-experts waits for a later slice, ROADMAP Queue 1)"
+            f"(the port carries {MLP_CLASSES})"
         )
 
 
-def mlp_forward(cfg: Config, p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp_forward(cfg: Config, p: Params, x: torch.Tensor, moe_aux: bool = False):
+    """The (B, T, D) output; with `moe_aux` (LLaMAMoE only), (out, aux)."""
     kind = cfg.mlp_class_name
+    if moe_aux and kind != "LLaMAMoE":
+        raise ValueError(f"moe_aux requires an MoE config (got {kind!r})")
     if kind == "GptNeoxMLP":
         return linear(_gelu(cfg, linear(x, p["fc"])), p["proj"])
     if kind == "LLaMAMLP":
         return linear(F.silu(linear(x, p["fc_1"])) * linear(x, p["fc_2"]), p["proj"])
     if kind == "GemmaMLP":
         return linear(_gelu(cfg, linear(x, p["fc_1"])) * linear(x, p["fc_2"]), p["proj"])
+    if kind == "LLaMAMoE":
+        return moe_forward(cfg, p, x, with_aux=moe_aux)
     check_supported(cfg)
     raise ValueError(f"unknown mlp_class_name {kind!r}")
+
+
+def moe_forward(cfg: Config, p: Params, x: torch.Tensor, with_aux: bool = False):
+    """Top-k routed mixture of experts in the JAX package's dense
+    formulation (`mdi_llm_tpu/models/transformer.moe_forward`): every
+    expert runs on every token, and the router's top-k weights,
+    renormalised over the selected experts, zero out the rest.  The router
+    runs in x's dtype and is cast to float32 for the softmax and top-k;
+    the expert stacks are `gate` (E, D), `experts.fc_1`/`fc_2` (E, I, D)
+    and `experts.proj` (E, D, I).
+
+    `with_aux` also returns the load-balancing loss E * sum_e f_e * P_e
+    (f_e: the share of top-k assignments routed to expert e, detached;
+    P_e: the mean router probability of e), 1.0 at uniform routing."""
+    E = cfg.n_expert
+    router = quantized_einsum("...i,ei->...e", x, p["gate"]).float()
+    probs = torch.softmax(router, dim=-1)  # (..., E)
+    topv, topi = torch.topk(probs, cfg.n_expert_per_token, dim=-1)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    # the normalised top-k weights scattered back to a dense (..., E) table
+    onehot = F.one_hot(topi, E).to(probs.dtype)  # (..., k, E)
+    dense_w = torch.einsum("...k,...ke->...e", topv, onehot)
+    ex = p["experts"]
+    h1 = quantized_einsum("...d,eid->...ei", x, ex["fc_1"])
+    h2 = quantized_einsum("...d,eid->...ei", x, ex["fc_2"])
+    out = quantized_einsum("...ei,edi->...ed", F.silu(h1) * h2, ex["proj"])
+    y = torch.einsum("...ed,...e->...d", out, dense_w.to(out.dtype)).to(x.dtype)
+    if not with_aux:
+        return y
+    assign = onehot.detach().reshape(-1, E).sum(dim=0)  # top-k assignments per expert
+    n_tokens = probs.numel() // E
+    f = assign / float(n_tokens * cfg.n_expert_per_token)
+    pm = probs.reshape(-1, E).sum(dim=0) / float(n_tokens)
+    return y, E * (f * pm).sum()
 
 
 def _split_qkv(cfg: Config, qkv: torch.Tensor):
@@ -181,16 +226,23 @@ def attention_forward(
     return linear(y.to(x.dtype), p["proj"])
 
 
-def block_forward(cfg, p, x, pos, cos, sin, k_cache, v_cache, **attn) -> torch.Tensor:
+def block_forward(cfg, p, x, pos, cos, sin, k_cache, v_cache,
+                  collect_moe_aux: bool = False, **attn):
     """One transformer block, parallel-residual (GPT-NeoX) or sequential
-    (Llama) form; `attn` goes to `attention_forward`."""
+    (Llama) form; `attn` goes to `attention_forward`.  With
+    `collect_moe_aux` (MoE training) returns (x, this layer's aux loss)."""
     n1 = _norm(cfg, x, p["norm_1"])
     att = attention_forward(cfg, p["attn"], n1, pos, cos, sin, k_cache, v_cache, **attn)
     if cfg.parallel_residual:
         n2 = n1 if cfg.shared_attention_norm else _norm(cfg, x, p["norm_2"])
-        return x + att + mlp_forward(cfg, p["mlp"], n2)
-    x = x + att
-    return x + mlp_forward(cfg, p["mlp"], _norm(cfg, x, p["norm_2"]))
+        x = x + att
+    else:
+        x = x + att
+        n2 = _norm(cfg, x, p["norm_2"])
+    out = mlp_forward(cfg, p["mlp"], n2, moe_aux=collect_moe_aux)
+    if collect_moe_aux:
+        return x + out[0], out[1]
+    return x + out
 
 
 def tree_map(fn, tree: Params) -> Params:
@@ -218,32 +270,46 @@ def unbind_layers(blocks: Params, L: int) -> list:
 
 
 def run_blocks(
-    cfg, blocks, x, pos, cos, sin, kv: Optional[KVCache], remat: bool = False, **attn
-) -> torch.Tensor:
+    cfg, blocks, x, pos, cos, sin, kv: Optional[KVCache], remat: bool = False,
+    collect_moe_aux: bool = False, **attn
+):
     """The block stack, layer by layer, over the dense cache, the pooled
     cache or (kv None) none.  `remat` (training, kv None) recomputes each
     block in the backward instead of keeping its activations — the
     counterpart of the JAX package's `jax.checkpoint` around the scanned
-    block: activation memory of one layer instead of L."""
+    block: activation memory of one layer instead of L.
+
+    `collect_moe_aux` (MoE training, kv None) returns (x, the layers'
+    summed load-balancing aux in float32); each layer's aux comes back
+    through its checkpointed block under remat."""
     if remat and kv is not None:
         raise ValueError("remat is a training path (kv must be None)")
+    if collect_moe_aux and kv is not None:
+        raise ValueError("collect_moe_aux is a training path (kv must be None)")
     L = blocks["norm_1"]["weight"].shape[0]
     layers = unbind_layers(blocks, L)
+    block = functools.partial(block_forward, cfg, collect_moe_aux=collect_moe_aux)
+    aux_sum = None
     for i in range(L):
         if remat:
             # the forward has no randomness, so no RNG state to restore
-            x = checkpoint(
-                functools.partial(block_forward, cfg), layers[i], x, pos, cos, sin,
-                None, None, use_reentrant=False, preserve_rng_state=False, **attn,
+            out = checkpoint(
+                block, layers[i], x, pos, cos, sin, None, None,
+                use_reentrant=False, preserve_rng_state=False, **attn,
             )
         else:
-            x = block_forward(
-                cfg, layers[i], x, pos, cos, sin,
+            out = block(
+                layers[i], x, pos, cos, sin,
                 None if kv is None else _layer_pool(kv["k"], i),
                 None if kv is None else _layer_pool(kv["v"], i),
                 **attn,
             )
-    return x
+        if collect_moe_aux:
+            x, aux = out
+            aux_sum = aux if aux_sum is None else aux_sum + aux
+        else:
+            x = out
+    return (x, aux_sum) if collect_moe_aux else x
 
 
 def embed(cfg: Config, params: Params, tokens: torch.Tensor, pos: torch.Tensor):
@@ -283,7 +349,8 @@ def forward(
     use_flash: bool = False,
     flash_kernel: Optional[bool] = None,
     remat: bool = False,
-) -> torch.Tensor:
+    collect_moe_aux: bool = False,
+):
     """Logits (B, T, padded_vocab); the cache in `kv` is updated in place.
 
     Without `paged_tables`, `kv` is the dense cache (`init_kv_cache`) or
@@ -300,7 +367,9 @@ def forward(
 
     Without any cache (`kv` None) the forward is the training one: it
     carries gradients, through K2-K4 with `use_flash` (ops/flash.py), and
-    `remat` recomputes each block in the backward."""
+    `remat` recomputes each block in the backward.  `collect_moe_aux` (MoE
+    training) returns (logits, the layer-summed load-balancing aux): the
+    JAX package's third return, the cache being updated in place here."""
     B, T = tokens.shape
     if input_pos.dim() == 2:
         pos = input_pos.long()
@@ -317,8 +386,11 @@ def forward(
     else:
         attn = dict(input_pos=input_pos.long(), fresh_prefill=fresh_prefill,
                     use_flash=use_flash, flash_kernel=flash_kernel)
-    x = run_blocks(cfg, params["blocks"], x, pos, cos, sin, kv, remat=remat, **attn)
-    return head(cfg, params, x)
+    out = run_blocks(cfg, params["blocks"], x, pos, cos, sin, kv, remat=remat,
+                     collect_moe_aux=collect_moe_aux, **attn)
+    if collect_moe_aux:
+        return head(cfg, params, out[0]), out[1]
+    return head(cfg, params, out)
 
 
 @functools.lru_cache(maxsize=16)
@@ -345,7 +417,11 @@ def init_params(
     """Random weights from `seed` in the JAX package's tree layout:
     normal(0, 0.02), output projections scaled by 1/sqrt(2 * n_layer),
     norms at one, biases at zero.  Drawn on `device` with a
-    `torch.Generator` (the values differ from the JAX package's draws)."""
+    `torch.Generator` (the values differ from the JAX package's draws).
+    A leaf is drawn in float32 and cast, except the MoE expert stacks,
+    which are drawn one (layer, expert) matrix at a time into the `dtype`
+    stack: a whole float32 draw of Mixtral's (L, E, I, D) would not fit
+    beside the weights on one card."""
     check_supported(cfg)
     L = cfg.n_layer if n_layer is None else n_layer
     D, V, I = cfg.n_embd, cfg.padded_vocab_size, cfg.intermediate_size
@@ -355,6 +431,13 @@ def init_params(
 
     def w(shape, s=std):
         return (torch.randn(shape, generator=gen, device=device) * s).to(dtype)
+
+    def w_stack(shape, s=std):  # (L, E, ...), one (layer, expert) draw at a time
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            for e in range(shape[1]):
+                out[i, e] = torch.randn(shape[2:], generator=gen, device=device) * s
+        return out
 
     def zeros(shape):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -374,6 +457,16 @@ def init_params(
     attn = {"qkv": lin(cfg.qkv_size, D), "proj": lin(D, cfg.attn_out_size, proj_std)}
     if cfg.mlp_class_name == "GptNeoxMLP":
         mlp = {"fc": lin(I, D), "proj": lin(D, I, proj_std)}
+    elif cfg.mlp_class_name == "LLaMAMoE":
+        E = cfg.n_expert
+        mlp = {
+            "gate": {"weight": w((L, E, D))},
+            "experts": {
+                "fc_1": {"weight": w_stack((L, E, I, D))},
+                "fc_2": {"weight": w_stack((L, E, I, D))},
+                "proj": {"weight": w_stack((L, E, D, I), proj_std)},
+            },
+        }
     else:
         mlp = {
             "fc_1": lin(I, D, bias=False),

@@ -86,7 +86,10 @@ def _linear_flops_per_token(cfg: Config) -> float:
     every LINEAR parameter.  The token embedding is a gather (no FLOPs),
     so one V·D is subtracted from `estimate_params`; the lm_head matmul
     always runs — for tied embeddings it reuses the subtracted wte, so
-    the V·D goes back in."""
+    the V·D goes back in.  A mixture-of-experts config counts all E
+    experts (`estimate_params`): the dense formulation the port runs
+    (`transformer.moe_forward`) does E / top-k times a routed model's
+    expert work, and its MFU is that of the work done."""
     N = cfg.estimate_params()
     emb = cfg.padded_vocab_size * cfg.n_embd
     lin = N - emb

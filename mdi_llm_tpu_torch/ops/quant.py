@@ -27,10 +27,19 @@ work); "w8a8" runs `torch._int_mm`, whose CUDA form needs more than 16
 rows, so short inputs (a decode step) are padded with zero rows.
 `FlopCounterMode` does not count `torch._int_mm`: the contraction adds
 its 2·M·N·K to the kernels' tally (`kernels.add_flops`).
+
+The mixture-of-experts contractions (`EXPERT_UP` "...d,eid->...ei" over
+`fc_1`/`fc_2` (E, I, D), `EXPERT_DOWN` "...ei,edi->...ed" over `proj`
+(E, D, I)) take the einsum branch (torch's einsum reads the stacks in
+place, as batched products); w8a8 folds E * I into `_int_mm`'s N for the
+up stacks and runs one `_int_mm` per expert for the down stack.  int4's
+intermediate holds one value per (row, output, scale group): its rows
+are split so that it stays under `W4_Z_BYTES`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Sequence
 
 import torch
@@ -52,6 +61,14 @@ W4_GROUP = 128  # input-axis group size for int4 scales
 
 # torch._int_mm on CUDA takes more than 16 rows
 _INT_MM_MIN_ROWS = 17
+
+# the mixture-of-experts contractions (models/transformer.moe_forward)
+EXPERT_UP, EXPERT_DOWN = "...d,eid->...ei", "...ei,edi->...ed"
+
+# int4's per-group partial products of one contraction are built a block
+# of rows at a time, each block's under this many bytes (Mixtral's expert
+# stacks: 7.3 MB a row in bfloat16, so 146 rows a block)
+W4_Z_BYTES = 1 << 30
 
 
 def _div(a: torch.Tensor, d: float) -> torch.Tensor:
@@ -178,11 +195,6 @@ def init_quantized_params(cfg, seed: int = 0, mode: str = "w8",
     work, not accuracy (the values are uniform, not rounded gaussians; the
     draws differ from the JAX package's)."""
     _check_mode(mode)
-    if cfg.mlp_class_name == "LLaMAMoE":
-        raise ValueError(
-            f"{cfg.name}: mlp_class_name='LLaMAMoE' is not ported "
-            "(mixture-of-experts waits for a later slice, ROADMAP Queue 1)"
-        )
     wkey = _WKEY[mode]
     gen = torch.Generator(device=device).manual_seed(seed)
     L, D, V, I = cfg.n_layer, cfg.n_embd, cfg.padded_vocab_size, cfg.intermediate_size
@@ -193,15 +205,16 @@ def init_quantized_params(cfg, seed: int = 0, mode: str = "w8",
         return torch.randint(low, high, shape, generator=gen, device=device,
                              dtype=torch.int8)
 
-    def qlin(out_d, in_d, s=std):
+    def qlin(out_d, in_d, s=std, lead=(L,)):
+        # `lead`: the stack dims, (L, E) for the MoE expert stacks
         if mode == "w4":
             # random packed nibbles in [-8, 7]; rms 4.61 -> matching scale
             g = w4_group_size(in_d)
-            return {wkey: ints(-128, 128, (L, out_d, in_d // 2)),
-                    "scale": torch.full((L, out_d, in_d // g), s / 4.61, device=device)}
+            return {wkey: ints(-128, 128, (*lead, out_d, in_d // 2)),
+                    "scale": torch.full((*lead, out_d, in_d // g), s / 4.61, device=device)}
         # 73.3 = rms of uniform int8 in [-127, 127]
-        return {wkey: ints(-127, 128, (L, out_d, in_d)),
-                "scale": torch.full((L, out_d), s / 73.3, device=device)}
+        return {wkey: ints(-127, 128, (*lead, out_d, in_d)),
+                "scale": torch.full((*lead, out_d), s / 73.3, device=device)}
 
     def norm(lead=(L,)):
         p = {"weight": torch.ones(lead + (D,), dtype=dtype, device=device)}
@@ -217,6 +230,16 @@ def init_quantized_params(cfg, seed: int = 0, mode: str = "w8",
         mlp = {"fc": qlin(I, D), "proj": qlin(D, I, proj_std)}
     elif cfg.mlp_class_name in ("LLaMAMLP", "GemmaMLP"):
         mlp = {"fc_1": qlin(I, D), "fc_2": qlin(I, D), "proj": qlin(D, I, proj_std)}
+    elif cfg.mlp_class_name == "LLaMAMoE":
+        E = cfg.n_expert
+        mlp = {
+            "gate": qlin(E, D),  # (L, E, D): the router's logits
+            "experts": {
+                "fc_1": qlin(I, D, lead=(L, E)),
+                "fc_2": qlin(I, D, lead=(L, E)),
+                "proj": qlin(D, I, proj_std, lead=(L, E)),
+            },
+        }
     else:
         raise NotImplementedError(
             f"init_quantized_params: unknown mlp_class_name {cfg.mlp_class_name!r}"
@@ -267,6 +290,29 @@ def _int_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xq, wq.t())[:M]
 
 
+def w8a8_int(spec: str, xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The exact int8 x int8 -> int32 contraction of `spec` through
+    `torch._int_mm`: a linear-shaped spec as one product; EXPERT_UP with
+    the E * I rows of the (E, I, D) stack as the product's N; EXPERT_DOWN
+    as one product per expert of the (E, D, I) stack."""
+    if _is_linear(spec, wq):
+        return _int_mm(xq.reshape(-1, xq.shape[-1]), wq).reshape(*xq.shape[:-1], wq.shape[0])
+    if spec == EXPERT_UP and wq.dim() == 3:
+        E, I, D = wq.shape
+        y = _int_mm(xq.reshape(-1, D), wq.reshape(E * I, D))
+        return y.reshape(*xq.shape[:-1], E, I)
+    if spec == EXPERT_DOWN and wq.dim() == 3:
+        E, D, I = wq.shape
+        xe = xq.reshape(-1, E, I)
+        y = torch.stack([_int_mm(xe[:, e].contiguous(), wq[e]) for e in range(E)], dim=1)
+        return y.reshape(*xq.shape[:-2], E, D)
+    raise NotImplementedError(
+        f"w8a8 contracts through torch._int_mm: a linear-shaped spec (x's last "
+        f"axis against a 2-D weight's) or an expert spec ({EXPERT_UP!r}, "
+        f"{EXPERT_DOWN!r} over a 3-D stack) is needed, got {spec!r}"
+    )
+
+
 def _w8a8(spec: str, x: torch.Tensor, p: Params) -> torch.Tensor:
     """Dynamic per-token symmetric int8 activations and an exact int8 x
     int8 -> int32 contraction, then the activation and weight scales."""
@@ -275,13 +321,12 @@ def _w8a8(spec: str, x: torch.Tensor, p: Params) -> torch.Tensor:
     amax = xf.abs().amax(dim=-1, keepdim=True)
     xs = torch.clamp(_div(amax, 127.0), min=1e-10)
     xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
-    if not _is_linear(spec, wq):
-        raise NotImplementedError(
-            f"w8a8 contracts through torch._int_mm: a linear-shaped spec "
-            f"(x's last axis against a 2-D weight's) is needed, got {spec!r}"
-        )
-    y = _int_mm(xq.reshape(-1, xq.shape[-1]), wq).reshape(*x.shape[:-1], wq.shape[0])
-    # xs covers x's leading (token/batch) dims and broadcasts over out
+    y = w8a8_int(spec, xq, wq)
+    # xs covers x's leading dims; trailing singleton axes make it broadcast
+    # over whatever output dims the spec appends (1 for a linear, 2 for
+    # EXPERT_UP: (..., 1, 1); EXPERT_DOWN keeps its expert axis: (..., E, 1))
+    extra = y.dim() - (x.dim() - 1)
+    xs = xs.reshape(xs.shape[:-1] + (1,) * max(extra, 1))
     return _apply_scale(spec, y.float() * xs, p["scale"]).to(x.dtype)
 
 
@@ -309,6 +354,10 @@ def _w4_einsum(spec: str, x: torch.Tensor, p: Params) -> torch.Tensor:
 
         z[.., out, g] = xe_g . lo_g[out] + xo_g . hi_g[out]
         y[.., out]    = sum_g z[.., out, g] * scale[out, g]
+
+    Where x's leading dims are the spec's "...", z is built for a block of
+    those rows at a time, under `W4_Z_BYTES` a block; rows are independent,
+    so the values are the same.
     """
     x_sub, w_sub, out = _subscripts(spec)
     if x_sub[-1] != w_sub[-1] or "g" in spec or "k" in spec:
@@ -325,5 +374,25 @@ def _w4_einsum(spec: str, x: torch.Tensor, p: Params) -> torch.Tensor:
     wl = lo.reshape(*packed.shape[:-1], nG, Gh).to(x.dtype)
     wh = hi.reshape(*packed.shape[:-1], nG, Gh).to(x.dtype)
     zspec = f"{x_sub[:-1]}gk,{w_sub[:-1]}gk->{out}g"
-    z = torch.einsum(zspec, xe, wl) + torch.einsum(zspec, xo, wh)
-    return torch.einsum(f"{out}g,{w_sub[:-1]}g->{out}", z, scale.to(x.dtype))
+    sspec = f"{out}g,{w_sub[:-1]}g->{out}"
+    sc = scale.to(x.dtype)
+
+    def rows(a, b):
+        z = torch.einsum(zspec, xe[a:b], wl) + torch.einsum(zspec, xo[a:b], wh)
+        return torch.einsum(sspec, z, sc)
+
+    lead = x.dim() - (len(x_sub) - 3)  # the dims "..." covers
+    if not (x_sub.startswith("...") and out.startswith("...")) or lead == 0:
+        return rows(None, None)
+    sizes = dict(zip(w_sub, packed.shape))
+    sizes.update(zip(x_sub[3:], x.shape[lead:]))
+    per_row = nG * math.prod(sizes[c] for c in out[3:]) * x.element_size()
+    block = max(1, W4_Z_BYTES // per_row)
+    n = math.prod(x.shape[:lead])
+    if n <= block:
+        return rows(None, None)
+    shape = x.shape
+    xe = xe.reshape(n, *xe.shape[lead:])
+    xo = xo.reshape(n, *xo.shape[lead:])
+    y = torch.cat([rows(a, a + block) for a in range(0, n, block)])
+    return y.reshape(*shape[:lead], *y.shape[1:])

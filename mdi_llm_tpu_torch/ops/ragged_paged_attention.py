@@ -20,12 +20,15 @@ prefill chunks are all the same call.
 - Split-KV: the kernel splits each slot's walk over chunks of keys; the
   plan (`split_plan`: the chunk, the number of chunks, the grid) comes
   from static shapes alone, never from `lens` or `q_pos`, so the wrapper
-  reads no device value.  With more than one chunk the kernel writes
-  per-chunk partials into a float32 workspace (`torch.empty`, here) and a
-  second kernel merges them; `ragged_paged_attention.merge_launches`
-  counts that one.  `split_attention_plain` is the same arithmetic
-  (partials per chunk, merged by log-sum-exp in chunk order) in plain
-  PyTorch, which the CPU tests hold against the unsplit plain version.
+  reads no device value. Its knobs are resolved per card and geometry
+  from the tuning tables of `ops/tuning.py` (explicit `params=`, the
+  `MDI_TUNE_TABLE` table, the committed defaults, the constants below).
+  With more than one chunk the kernel writes per-chunk partials into a
+  float32 workspace (`torch.empty`, here) and a second kernel merges
+  them; `ragged_paged_attention.merge_launches` counts that one.
+  `split_attention_plain` is the same arithmetic (partials per chunk,
+  merged by log-sum-exp in chunk order) in plain PyTorch, which the CPU
+  tests hold against the unsplit plain version.
 - `ragged_paged_attention_plain` is the gather-then-dense math of the JAX
   package's lax route (`_paged_prefill_lax`): each token reads its own
   slot's contiguous KV view through `multihead_attention`.  An int8 pool
@@ -67,7 +70,8 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # pool storage codes of the kernel: 0 is "the same dtype as q"
 _NARROW_KV = {torch.int8: 2, torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 # the kernel's tiles (csrc/ragged_paged_attention.cu: kRows, kKeys) and the
-# split's limits: chunks of at least MIN_CHUNK keys, at most MAX_CHUNKS of
+# split's conservative limits (ops/tuning.DEFAULT_PARAMS; a tuning table may
+# set others): chunks of at least MIN_CHUNK keys, at most MAX_CHUNKS of
 # them (a 2048-key table: 16 chunks of 128).  A pure decode step (T <= S,
 # one row per head of each lane) has only its key walk to spread over the
 # card, so it takes chunks of DECODE_CHUNK, up to the merge's 32 chunks:
@@ -129,14 +133,21 @@ def _span_owner(q_start, q_len, T):
     return in_span.int().argmax(dim=0), in_span.any(dim=0)
 
 
-def split_plan(n_head: int, G: int, T: int, S: int, BS: int, MB: int, hs: int) -> dict:
+def split_plan(n_head: int, G: int, T: int, S: int, BS: int, MB: int, hs: int,
+               params) -> dict:
     """K1's split of the key walk, from static shapes alone: `chunk` keys
     per block (a multiple of KEY_TILE; smaller for a pure decode step,
     T <= S), `n_chunks` chunks over a table of
     MB * BS keys, the kernel's `grid` (row tiles x chunks, G, S) and the
-    float32 `workspace` values the partials need (0 with one chunk)."""
+    float32 `workspace` values the partials need (0 with one chunk).
+    `params` (an `ops.tuning.KernelParams`; `tuning.DEFAULT_PARAMS` holds
+    the constants above) gives the least chunk and the most chunks of each
+    kind of step."""
     width = MB * BS
-    chunk, most = (DECODE_CHUNK, DECODE_MAX_CHUNKS) if T <= S else (MIN_CHUNK, MAX_CHUNKS)
+    if T <= S:
+        chunk, most = params.decode_chunk, params.decode_max_chunks
+    else:
+        chunk, most = params.min_chunk, params.max_chunks
     while -(-width // chunk) > most:
         chunk *= 2
     n_chunks = -(-width // chunk)
@@ -145,12 +156,12 @@ def split_plan(n_head: int, G: int, T: int, S: int, BS: int, MB: int, hs: int) -
             "workspace": n_chunks * n_head * T * (hs + 2) if n_chunks > 1 else 0}
 
 
-def plan_for(q, k_payload, block_tables) -> dict:
+def plan_for(q, k_payload, block_tables, params) -> dict:
     """`split_plan` for one call, read off the tensors' shapes alone."""
     _, n_head, T, hs = q.shape
     _, BS, G, _ = k_payload.shape
     S, MB = block_tables.shape
-    return split_plan(n_head, G, T, S, BS, MB, hs)
+    return split_plan(n_head, G, T, S, BS, MB, hs, params)
 
 
 def split_attention_plain(
@@ -281,10 +292,13 @@ def ragged_paged_attention(
     q_pos: torch.Tensor,  # (T,) int32 absolute position per packed token
     *,
     scale: float,
+    params=None,  # ops.tuning.KernelParams; None: resolved for the card
 ) -> torch.Tensor:
     """K1.  Returns (1, n_head, T, hs) in q's dtype, zeros where no slot
     owns the row.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel on the current stream, or raise."""
+    launch the kernel on the current stream, or raise.  The split's
+    knobs are `params`, else `ops.tuning.kernel_params_for` the card and
+    geometry (resolved once, on the host)."""
     k, v, ks, vs = _check_pools(k_pool, v_pool)
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
@@ -298,7 +312,11 @@ def ragged_paged_attention(
     _, n_head, T, hs = q.shape
     BS, G = k.shape[1], k.shape[2]
     S, MB = block_tables.shape
-    plan = plan_for(q, k, block_tables)
+    from mdi_llm_tpu_torch.ops import tuning
+
+    params = (tuning.kernel_params_for(q, k) if params is None
+              else tuning.checked_params(params, n_head, hs))
+    plan = plan_for(q, k, block_tables, params)
     ws = (torch.empty(plan["workspace"], dtype=torch.float32, device=q.device)
           if plan["workspace"] else None)
     # with a merge, the two kernels write every row (zeros where no slot

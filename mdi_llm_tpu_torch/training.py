@@ -8,8 +8,12 @@ eval with `estimate_loss`, checkpoint-on-best with patience early stop,
 and the TFLOP/s estimate of the log lines.
 
 What differs from the JAX package:
-- One device.  A mesh (dp/tp/sp/pp/ep) and MoE configs are refused: they
-  wait for later slices (ROADMAP Queue 1, items 14-17).
+- One device.  A mesh (dp/tp/sp/pp/ep) is refused: it waits for later
+  slices (ROADMAP Queue 1, items 14-17).  MoE configs train in the dense
+  formulation (`transformer.moe_forward`) with the load-balancing aux
+  weighted by `moe_aux_weight`; `moe_capacity_factor` acts only on the
+  token dispatch of an `ep` mesh (item 16), so anything but None is
+  refused.
 - The optimizer is written out (`AdamW`) with optax's arithmetic:
   `clip_by_global_norm` divides by the norm itself (torch's
   `clip_grad_norm_` adds 1e-6), the moments are float32, the update of
@@ -77,8 +81,9 @@ class TrainingConfig:
     # attention through K2 forward + the K3/K4 backward (ops/flash.py)
     # instead of the dense torch route; None → CUDA and block_size >= 2048
     use_flash: Optional[bool] = None
-    # MoE knobs of the JAX package; only their defaults are accepted (MoE
-    # training is not ported)
+    # MoE: the load-balancing aux weight (0 for dense configs, as in the
+    # JAX package); the capacity factor of the ep mesh's token dispatch
+    # (item 16), refused unless None
     moe_aux_weight: float = 0.01
     moe_capacity_factor: Optional[float] = None
 
@@ -118,16 +123,24 @@ def lr_schedule(tc: TrainingConfig):
 
 def cross_entropy_loss(
     cfg: Config, params, tokens, targets, remat=True, use_flash=False,
-    flash_kernel: Optional[bool] = None,
+    flash_kernel: Optional[bool] = None, moe_aux_weight: float = 0.0,
 ) -> torch.Tensor:
     """Mean next-token CE in float32 over the padded vocabulary (the
-    padding columns only enter the softmax normalizer)."""
+    padding columns only enter the softmax normalizer).  `moe_aux_weight`
+    > 0 adds that weight times the layer-mean load-balancing aux of an
+    LLaMAMoE config."""
     B = tokens.shape[0]
-    logits = transformer.forward(
+    collect = moe_aux_weight > 0 and cfg.mlp_class_name == "LLaMAMoE"
+    out = transformer.forward(
         cfg, params, tokens, torch.zeros(B, dtype=torch.long, device=tokens.device),
         remat=remat, use_flash=use_flash, flash_kernel=flash_kernel,
+        collect_moe_aux=collect,
     )
-    return F.cross_entropy(logits.float().flatten(0, 1), targets.flatten().long())
+    logits = out[0] if collect else out
+    loss = F.cross_entropy(logits.float().flatten(0, 1), targets.flatten().long())
+    if collect:
+        loss = loss + moe_aux_weight * out[1] / cfg.n_layer
+    return loss
 
 
 def decay_mask(params) -> dict:
@@ -203,7 +216,7 @@ def estimate_flops_per_token(cfg: Config, T: int) -> float:
 
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(
-        f"mdi_llm_tpu_torch trains on one device without MoE: {what} is not "
+        f"mdi_llm_tpu_torch trains on one device: {what} is not "
         f"ported yet (ROADMAP Queue 1, {item})"
     )
 
@@ -228,8 +241,9 @@ class Trainer:
         if mesh is not None:
             _refuse("a training mesh (dp/tp/sp/pp/ep)", "items 14-17")
         transformer.check_supported(cfg)
-        if tc.moe_aux_weight != 0.01 or tc.moe_capacity_factor is not None:
-            _refuse("moe_aux_weight / moe_capacity_factor (MoE training)", "item 16")
+        if tc.moe_capacity_factor is not None:
+            _refuse("moe_capacity_factor (the MoE token dispatch of an ep mesh)",
+                    "item 16")
         self.cfg = cfg
         self.tc = tc
         self.device = resolve_device(device)
@@ -245,6 +259,8 @@ class Trainer:
             else bool(tc.use_flash)
         )
         self.flash_kernel = flash_kernel
+        # the aux term applies to MoE configs only, as in the JAX package
+        self.moe_aux_weight = tc.moe_aux_weight if cfg.mlp_class_name == "LLaMAMoE" else 0.0
         dtype = DTYPES[tc.dtype]
         if params is None:
             params = transformer.init_params(cfg, tc.seed, dtype=dtype, device=self.device)
@@ -267,7 +283,7 @@ class Trainer:
     def _loss(self, x, y, remat: bool) -> torch.Tensor:
         return cross_entropy_loss(
             self.cfg, self.params, x, y, remat=remat, use_flash=self.use_flash,
-            flash_kernel=self.flash_kernel,
+            flash_kernel=self.flash_kernel, moe_aux_weight=self.moe_aux_weight,
         )
 
     def train_step(self, xs: np.ndarray, ys: np.ndarray) -> float:

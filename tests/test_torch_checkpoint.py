@@ -6,8 +6,8 @@ against the JAX package's and against `transformers`, on the CPU.
   7b layout and the new decoder), phi, gemma and mixtral.  Both packages'
   `convert_hf_checkpoint` run in float32, and the two param trees must be
   equal leaf by leaf (exactly).
-- For every non-MoE family, the port's float32 forward on the converted
-  weights gives HF's logits within 2e-4.
+- For every family, mixtral's experts included, the port's float32
+  forward on the converted weights gives HF's logits within 2e-4.
 - `convert_to_hf_state_dict` gives back every original tensor exactly,
   from float32 and from bfloat16 snapshots, and from sharded ones; the
   QKV interleave is an exact permutation at 1, G < H and H KV groups.
@@ -72,7 +72,6 @@ FAMILIES = {
         num_experts_per_tok=2, max_position_embeddings=64,
         tie_word_embeddings=False), 7),
 }
-DENSE = [f for f in FAMILIES if f != "mixtral"]
 TOKENS = [[1, 5, 9, 44, 63, 2, 17]]
 
 
@@ -123,7 +122,7 @@ def test_converted_tree_equals_the_jax_packages(snapshots, family):
         np.testing.assert_array_equal(t.numpy(), np.asarray(want[name]), err_msg=name)
 
 
-@pytest.mark.parametrize("family", DENSE)
+@pytest.mark.parametrize("family", list(FAMILIES))
 def test_port_forward_on_converted_weights_matches_hf_logits(snapshots, family):
     model, d = snapshots[family]
     cfg, params = port_convert(d / "hf", d / "port-fwd")

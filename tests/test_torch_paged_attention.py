@@ -205,10 +205,11 @@ def test_split_plan_comes_from_static_shapes(label):
     decode step (T <= S); the same plan from meta tensors, which hold no
     data, so the wrapper's plan reads none."""
     from mdi_llm_tpu_torch.ops import ragged_paged_attention as rpa
+    from mdi_llm_tpu_torch.ops.tuning import DEFAULT_PARAMS
 
     T, S = K1_SHAPES[label]
     g = TINY_LLAMA_K1
-    plan = rpa.split_plan(g["n_head"], g["G"], T, S, g["BS"], g["MB"], g["hs"])
+    plan = rpa.split_plan(g["n_head"], g["G"], T, S, g["BS"], g["MB"], g["hs"], DEFAULT_PARAMS)
     row_tiles = -(-(g["n_head"] // g["G"]) * T // rpa.ROW_TILE)
     chunk, n = (64, 32) if label == "decode" else (128, 16)
     assert plan == {"chunk": chunk, "n_chunks": n, "grid": (row_tiles * n, g["G"], S),
@@ -216,7 +217,7 @@ def test_split_plan_comes_from_static_shapes(label):
     meta = dict(device="meta")
     got = rpa.plan_for(torch.empty(1, g["n_head"], T, g["hs"], **meta),
                        torch.empty(1 + S * g["MB"], g["BS"], g["G"], g["hs"], **meta),
-                       torch.empty(S, g["MB"], dtype=torch.int32, **meta))
+                       torch.empty(S, g["MB"], dtype=torch.int32, **meta), DEFAULT_PARAMS)
     assert got == plan
     if label == "decode":
         # the decode case's live blocks (depths 37-2000, as the chip phase):
@@ -228,11 +229,12 @@ def test_split_plan_comes_from_static_shapes(label):
 
 def test_split_plan_bounds_the_chunk_count():
     from mdi_llm_tpu_torch.ops import ragged_paged_attention as rpa
+    from mdi_llm_tpu_torch.ops.tuning import DEFAULT_PARAMS
 
     for T, S, least, most in ((4, 3, rpa.MIN_CHUNK, rpa.MAX_CHUNKS),
                               (3, 4, rpa.DECODE_CHUNK, rpa.DECODE_MAX_CHUNKS)):
         for width in (8, 128, 129, 2048, 2049, 8192, 131072):
-            plan = rpa.split_plan(8, 2, T, S, 16, -(-width // 16), 32)
+            plan = rpa.split_plan(8, 2, T, S, 16, -(-width // 16), 32, DEFAULT_PARAMS)
             chunk, n = plan["chunk"], plan["n_chunks"]
             assert chunk % rpa.KEY_TILE == 0 and chunk >= least
             assert n <= most <= 32, "the merge kernel holds one chunk per lane"

@@ -155,9 +155,17 @@ def test_init_quantized_params_has_the_jax_layout():
         assert list(got) == list(want)
         for k in want:
             assert tuple(got[k].shape) == np.asarray(want[k]).shape, k
-    moe = TConfig(**{**TINY, "mlp_class_name": "LLaMAMoE", "n_expert": 4, "n_expert_per_token": 2})
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tq.init_quantized_params(moe)
+    # MoE: a quantized (L, E, D) gate and expert stacks with leading (L, E)
+    moe = {**TINY, "mlp_class_name": "LLaMAMoE", "n_expert": 4, "n_expert_per_token": 2}
+    for mode in ("w8", "w8a8", "w4"):
+        got = _flat(tq.init_quantized_params(TConfig(**moe), seed=0, mode=mode,
+                                             dtype=torch.float32))
+        want = _flat(jq.init_quantized_params(JConfig(**moe), seed=0, mode=mode,
+                                              dtype=np.float32))
+        assert list(got) == list(want)
+        for k in want:
+            assert tuple(got[k].shape) == np.asarray(want[k]).shape, k
+        assert got["/blocks/mlp/experts/fc_1/scale"].shape[:2] == (3, 4)
 
 
 # ---------------------------------------------------------------------------

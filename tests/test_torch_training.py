@@ -4,7 +4,8 @@
   against optax, `cross_entropy_loss`, `count_params` / `cast_params`:
   equal to the JAX package's on the same params (`params_from_numpy`).
 - `Trainer.train_step`: 3 optimizer steps of 2 micro-batches, float32, on
-  `tests/test_model.tiny_config` (MHA) and a GQA variant, the port with
+  `tests/test_model.tiny_config` (MHA), a GQA variant and the tiny MoE
+  variant (4 experts, top 2, the aux at weight 0.01), the port with
   remat off/on and `use_flash` off/on (on the CPU, K2-K4's plain versions
   through the autograd Function), all against the JAX Trainer without
   flash (Pallas does not run un-interpreted on the CPU) and without remat
@@ -16,7 +17,8 @@
   batches.
 - The train CLI on the CPU, then `--init resume`; without a GPU it
   raises; `--mesh` and `--coordinator` are refused, `--init hf` without
-  weights in `--ckpt` too, and the Trainer refuses meshes and MoE.
+  weights in `--ckpt` too, and the Trainer refuses meshes and an MoE
+  capacity factor (the ep mesh's token dispatch).
 """
 
 import json
@@ -51,7 +53,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 LOSS_RTOL = 1e-5
 PARAM_TOL = dict(rtol=2e-4, atol=2e-5)
-CONFIGS = {"mha": {}, "gqa": {"n_query_groups": 2}}
+CONFIGS = {"mha": {}, "gqa": {"n_query_groups": 2}, "moe": CONFIG_VARIANTS["moe"]}
 MODES = {  # port (remat, use_flash)
     "dense": (False, False), "remat": (True, False),
     "flash": (False, True), "remat-flash": (True, True),
@@ -338,14 +340,19 @@ def test_train_cli_refuses_unported_flags(tmp_path, flags, error, match):
 
 
 def test_trainer_refuses_meshes_and_moe():
+    """Meshes and the MoE capacity factor (which acts only on an ep mesh's
+    token dispatch, item 16) are refused.  MoE configs train (their steps
+    are `test_train_steps_match_jax[moe-*]`), and a dense config takes any
+    `moe_aux_weight` and ignores it, as the JAX Trainer does."""
     cfg = port_cfg(tiny_config())
     with pytest.raises(NotImplementedError, match="mesh"):
         ttr.Trainer(cfg, port_tc(), mesh={"dp": 2}, device="cpu")
     moe = port_cfg(tiny_config(**CONFIG_VARIANTS["moe"]))
-    with pytest.raises(ValueError, match="not ported"):
-        ttr.Trainer(moe, port_tc(), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttr.Trainer(cfg, port_tc(moe_aux_weight=0.0), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        ttr.Trainer(moe, port_tc(moe_capacity_factor=1.25), device="cpu")
+    assert ttr.Trainer(moe, port_tc(), device="cpu").moe_aux_weight == 0.01
+    assert ttr.Trainer(cfg, port_tc(moe_aux_weight=0.0), device="cpu").moe_aux_weight == 0.0
+    assert ttr.Trainer(cfg, port_tc(moe_aux_weight=0.5), device="cpu").moe_aux_weight == 0.0
     # the flash gate: CUDA and block_size >= 2048 only, unless asked for
     assert ttr.Trainer(cfg, port_tc(block_size=16), device="cpu").use_flash is False
     assert ttr.Trainer(cfg, port_tc(use_flash=True), device="cpu").use_flash is True

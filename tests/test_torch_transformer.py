@@ -155,10 +155,19 @@ def test_param_tree_layout_matches_jax(model):
 
 
 def test_moe_configs_are_refused():
+    """Mixture-of-experts configs were refused before the port carried
+    them; now they build in the JAX package's layout (their parity is
+    tests/test_torch_moe.py's), and only an mlp class the port does not
+    know is refused."""
     cfg = TConfig.from_name("Mixtral-8x7B-v0.1", n_layer=1, n_embd=64, n_head=4,
                             n_query_groups=2, intermediate_size=64, n_expert=4,
                             n_expert_per_token=2)
+    ttf.check_supported(cfg)
+    mlp = ttf.init_params(cfg, seed=0)["blocks"]["mlp"]
+    assert tuple(mlp["gate"]["weight"].shape) == (1, 4, 64)
+    assert tuple(mlp["experts"]["proj"]["weight"].shape) == (1, 4, 64, 64)
+    unknown = TConfig.from_name("Mixtral-8x7B-v0.1", n_layer=1, mlp_class_name="SwitchMLP")
     with pytest.raises(ValueError, match="not ported"):
-        ttf.init_params(cfg, seed=0)
+        ttf.init_params(unknown, seed=0)
     with pytest.raises(ValueError, match="not ported"):
-        ttf.check_supported(cfg)
+        ttf.check_supported(unknown)
