@@ -286,6 +286,35 @@ non-zero.
    after warm-up, K1 4 per forward, the greedy streams equal
    (`divergence_ok`); an invalid entry (min_chunk 48) raises at
    resolution and at a K1 call.
+23. pipeline — the paper's recurrent pipeline (`parallel/pipeline.py`)
+   in one process on the card, through `cli.starter` with
+   `examples/node_configs/standalone.json`: tiny-llama-1.1b at full
+   width and all 22 layers, bf16, seed 10137, S = 2 and S = 4 stages
+   (the reference table's [10, 12] and [4, 6, 6, 6]), M = 2 samples per
+   slot, 2·S greedy 8-token prompts, 64 new tokens.  Every sample gets its
+   64 tokens in the vocabulary; a second call on the same engine replays
+   the captured decode chunks (no capture) and gives the same streams;
+   the ring launches none of K1-K4 and no plain route.  The streams are
+   compared with `Generator.generate`'s at B = S·M on the same prompts:
+   bf16 divergences printed (`bf16_divergences`: the ring multiplies M
+   rows where generate multiplies S·M, so the bf16 histories part at the
+   first near-tie; not gated).  Prints the ring's tokens/s (second call), rotations,
+   graph captures and replays, bytes per hop and generate's tokens/s.
+   Then float32 at 4 layers, S = 2 and 4: the ring's streams equal
+   generate's (`divergence_ok`) and the eager ring's (`_graphs=False`)
+   exactly; with overlapped chunks a finished lane runs past a 64-slot
+   cache (its positions clamped) and the stream is generate's.
+24. pipeline-nodes — `cli.starter` and one `cli.secondary` as two
+   processes sharing the card (gloo, the hop staged through pinned host
+   buffers), each under `cli.mem_monitor`: in float32 at 4 layers (S = 2,
+   M = 2, 4 samples, 32 tokens) the streams are the one-process ring's
+   (`divergence_ok`); in bf16 at 22 layers (64 tokens) every sample gets
+   its budget.  Prints the stats line, each process's ring line (backend,
+   hops, bytes, mean and fastest hop ms, its allocator's peak reserved
+   bytes) and each monitor's peaks: the process's card memory as
+   `nvidia-smi --query-compute-apps` lists it (`none` in a container whose
+   processes nvidia-smi lists under one other pid) and the card's
+   memory in use.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4, each with `paths`: its launches in every phase that drives
@@ -3542,6 +3571,272 @@ def phase_tune(k1, card):
     free()
 
 
+PIPE_CONFIG = "examples/node_configs/standalone.json"
+PIPE_RUNS = ((2, [10, 12]), (4, [4, 6, 6, 6]))  # stages, the reference table's split of 22
+PIPE_M = 2  # samples per ring slot: 2 * S samples fill the ring
+PIPE_TOKENS = 64
+PIPE_F32_LAYERS = 4
+
+
+def all_kernel_counts() -> dict:
+    """Launches of K1-K4 and calls of every plain version or plain route."""
+    from mdi_llm_tpu_torch.ops import flash
+    from mdi_llm_tpu_torch.ops import paged_attention as pa
+    from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention as k1
+
+    return {"K1": k1.launches, "K2": flash.flash_attention.launches,
+            "K3": flash.flash_dq.launches, "K4": flash.flash_dkv.launches,
+            "plain": pa._paged_prefill_plain.calls + pa._paged_attention_plain.calls
+            + flash.flash_attention_plain.calls + flash.flash_dq_plain.calls
+            + flash.flash_dkv_plain.calls}
+
+
+def ring_budget_ok(phase, label, outs, prompts, n_new, vocab) -> None:
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        new = o[len(p):]
+        if len(new) != n_new or not all(0 <= t < vocab for t in new):
+            fail(phase, f"{label}: sample {i} did not get {n_new} tokens in the vocabulary")
+
+
+def hop_bytes(M, D, itemsize) -> int:
+    """One payload hop: the activations (M, 1, D) and 1 + 2M int64s."""
+    return M * D * itemsize + 8 * (1 + 2 * M)
+
+
+def phase_pipeline(card):
+    """The recurrent pipeline in one process on the card (the module
+    docstring, phase 23)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mdi_llm_tpu_torch.cli import starter as starter_cli
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.parallel.nodes import parse_nodes_config
+    from mdi_llm_tpu_torch.parallel.pipeline import PipelineEngine
+
+    root = Path(__file__).resolve().parent
+    nodes = parse_nodes_config(root / PIPE_CONFIG)
+    gen = None
+    for S, split in PIPE_RUNS:
+        n = S * PIPE_M
+        args = starter_cli.build_parser().parse_args(
+            ["--model", TINY_LLAMA, "--dtype", "bfloat16", "--seed", "10137", "--greedy",
+             "--n-samples", str(n), "--n-tokens", str(PIPE_TOKENS), "--sequence-length",
+             "2048", "--pipeline-stages", str(S), "--samples-per-slot", str(PIPE_M),
+             "--nodes-config", str(root / PIPE_CONFIG)])
+        before = all_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(io.StringIO()):
+            outs, stats, seconds, eng = starter_cli.run_node(args, nodes, 0)
+        cfg = eng.cfg
+        prompts = [o[:8] for o in outs]
+        ring_budget_ok("pipeline", f"S={S}", outs, prompts, PIPE_TOKENS, cfg.padded_vocab_size)
+        if eng.counts != split or cfg.n_layer != 22:
+            fail("pipeline", f"S={S}: stage split {eng.counts}, want {split} of 22 layers")
+        # the second call replays the captured chunks: no capture inside
+        outs2, st2 = eng.generate(prompts, PIPE_TOKENS, temperature=0.0)
+        torch.cuda.synchronize()
+        graphs = eng.graph_stats()
+        if outs2 != outs or st2.captures or not graphs["replays"]:
+            fail("pipeline", f"S={S}: second call streams equal {outs2 == outs}, captures "
+                 f"{st2.captures}, replays {graphs['replays']}")
+        ring_peak = torch.cuda.max_memory_allocated() / 2**30
+        if all_kernel_counts() != before:
+            fail("pipeline", f"S={S}: the ring launched a kernel: {before} -> "
+                 f"{all_kernel_counts()}")
+        del eng
+        free()
+        if gen is None:
+            params = transformer.init_params(cfg, 10137, dtype=torch.bfloat16, device="cuda")
+            gen = Generator(cfg, params, max_seq_length=2048, device="cuda")
+        gen.generate(prompts, PIPE_TOKENS, temperature=0.0)  # capture outside the timing
+        want, gst = gen.generate(prompts, PIPE_TOKENS, temperature=0.0)
+        torch.cuda.synchronize()
+        got_d = {i: o for i, o in enumerate(outs)}
+        want_d = {i: w for i, w in enumerate(want)}
+        # printed, not gated: the ring multiplies M = 2 rows where generate
+        # multiplies S·M, so every product rounds in another order and the
+        # bf16 histories part at the first near-tie (stream parity is held
+        # in float32 below, as in the tier and moe phases)
+        n_div = bf16_divergences("pipeline", gen, got_d, want_d, f"S={S} ring vs generate")
+        print("pipeline: " + json.dumps({
+            "card": card, "S": S, "split": split, "M": PIPE_M, "samples": n,
+            "new_tokens": PIPE_TOKENS, "dtype": "bfloat16",
+            "ring_tokens_per_s": st2.tokens_per_s, "ring_decode_s": st2.decode_s,
+            "ring_prefill_s": st2.prefill_s, "ring_first_call_tokens_per_s": stats.tokens_per_s,
+            "rotations": st2.rotations, "graph_captures": graphs["captures"],
+            "graph_replays": graphs["replays"], "capture_s": graphs["capture_s"],
+            "bytes_per_hop": hop_bytes(PIPE_M, cfg.n_embd, 2),
+            "generate_batch": n, "generate_tokens_per_s": gst.tokens_per_s,
+            "generate_decode_s": gst.decode_s, "generate_prefill_s": gst.prefill_s,
+            "ring_over_generate": st2.tokens_per_s / gst.tokens_per_s,
+            "bf16_streams_diverging": n_div, "ring_peak_memory_gib": ring_peak,
+            "kernel_launches": 0}), flush=True)
+    del gen
+    free()
+
+    # float32 at 4 layers: the ring's streams are generate's; the eager
+    # ring's are the graph ring's; a lane past the cache is clamped
+    cfg = Config.from_name(TINY_LLAMA, n_layer=PIPE_F32_LAYERS)
+    params = transformer.init_params(cfg, 10137, dtype=torch.float32, device="cuda")
+    gen = Generator(cfg, params, max_seq_length=2048, device="cuda")
+    for S, _split in PIPE_RUNS:
+        prompts = long_prompts([8 + 3 * i for i in range(S * PIPE_M)], cfg.vocab_size, seed=S)
+        want, _ = gen.generate(prompts, 32, temperature=0.0)
+        routes = {}
+        for graphs in (True, False):
+            eng = PipelineEngine(cfg, params, n_stages=S, samples_per_slot=PIPE_M,
+                                 max_seq_length=2048, device="cuda", _graphs=graphs)
+            routes[graphs], st = eng.generate(prompts, 32, temperature=0.0)
+            if graphs and not eng.graph_stats()["replays"]:
+                fail("pipeline", f"float32 S={S}: the graph route replayed nothing")
+        divergence_ok("pipeline", gen, dict(enumerate(routes[True])), dict(enumerate(want)),
+                      f"float32 S={S} ring vs generate")
+        if routes[True] != routes[False]:
+            fail("pipeline", f"float32 S={S}: the graph ring's streams differ from the eager ring's")
+        print(f"pipeline: float32 {PIPE_F32_LAYERS} layers S={S}: {len(prompts)} streams of 32 "
+              f"tokens, graph ring = eager ring, ring vs generate: "
+              f"{sum(a == b for a, b in zip(routes[True], want))}/{len(want)} identical",
+              flush=True)
+    prompt, new = [[5, 9, 2]], 61
+    short = Generator(cfg, params, max_seq_length=64, device="cuda")
+    want, _ = short.generate(prompt, new, temperature=0.0)
+    eng = PipelineEngine(cfg, params, n_stages=2, max_seq_length=64, overlap_chunks=True,
+                         device="cuda")
+    got, st = eng.generate(prompt, new, temperature=0.0)
+    torch.cuda.synchronize()
+    divergence_ok("pipeline", short, {0: got[0]}, {0: want[0]}, "bubble lane past the cache")
+    print(f"pipeline: overlapped chunks run a finished lane past the 64-slot cache "
+          f"({len(got[0])} tokens, {st.rotations} rotations): clamped, streams as generate's",
+          flush=True)
+    del gen, short, eng, params
+    free()
+
+
+def node_pair(tmp, argv, label, timeout=300):
+    """`cli.starter` and one `cli.secondary` as two processes on the card
+    (one localhost config), each under `cli.mem_monitor`; returns (starter
+    stdout, starter stderr, secondary stderr, {role: the monitor's peak
+    gpu_bytes and card_bytes, or its word for them})."""
+    import csv
+    import os
+
+    root = Path(__file__).resolve().parent
+    cfg_path = Path(tmp) / f"{label}.json"
+    cfg_path.write_text(json.dumps({"nodes": {
+        "starter": {"addr": "127.0.0.1", "communication": {"port": free_port()}},
+        "secondary": [{"addr": "127.0.0.1", "communication": {"port": free_port()}}]}}))
+    env = dict(os.environ, PYTHONPATH=str(root))
+
+    def cmd(role, extra):
+        return [sys.executable, "-m", "mdi_llm_tpu_torch.cli.mem_monitor", "-o",
+                str(Path(tmp) / f"{label}-{role}.csv"), "--interval", "0.25", "--",
+                sys.executable, "-m", f"mdi_llm_tpu_torch.cli.{role}", *argv,
+                "--nodes-config", str(cfg_path), *extra]
+
+    sec_err = Path(tmp) / f"{label}-secondary.err"
+    with open(sec_err, "w") as err:
+        sec = subprocess.Popen(cmd("secondary", ["0"]), cwd=str(root), env=env,
+                               stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        sta = subprocess.run(cmd("starter", []), cwd=str(root), env=env,
+                             capture_output=True, text=True, timeout=timeout)
+        sec.wait(timeout=timeout)
+    finally:
+        for p in (sec,):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    serr = sec_err.read_text()
+    if sta.returncode or sec.returncode:
+        fail("pipeline-nodes", f"{label}: starter exit {sta.returncode}, secondary exit "
+             f"{sec.returncode}\n{sta.stderr[-3000:]}\n{serr[-3000:]}")
+    mem = {}
+    for role in ("starter", "secondary"):
+        with open(Path(tmp) / f"{label}-{role}.csv") as f:
+            rows = list(csv.DictReader(f))
+        mem[role] = {}
+        for col in ("gpu_bytes", "card_bytes"):
+            vals = [r[col] for r in rows]
+            ints = [int(v) for v in vals if v.isdigit()]
+            mem[role][col] = max(ints) if ints else (vals[-1] if vals else "no samples")
+    return sta.stdout, sta.stderr, serr, mem
+
+
+def printed_samples(stdout):
+    import re
+
+    out, grab = [], False
+    for line in stdout.splitlines():
+        if line.startswith("--- sample"):
+            grab = True
+        elif grab and line.startswith("["):
+            out.append([int(x) for x in re.findall(r"-?\d+", line)])
+            grab = False
+    return out
+
+
+def ring_line(stderr):
+    return json.loads(next(ln for ln in stderr.splitlines() if ln.startswith("ring: "))[6:])
+
+
+def phase_pipeline_nodes(card):
+    """The starter and a secondary as two processes sharing the card (the
+    module docstring, phase 24)."""
+    import torch
+
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.parallel.pipeline import PipelineEngine
+
+    base = ["--model", TINY_LLAMA, "--seed", "10137", "--greedy", "--sequence-length", "2048",
+            "--samples-per-slot", str(PIPE_M), "--n-samples", str(2 * PIPE_M)]
+    with tempfile.TemporaryDirectory() as tmp:
+        # float32, 4 layers: the two-process streams are the one-process ring's
+        f32 = base + ["--dtype", "float32", "--override", f"n_layer={PIPE_F32_LAYERS}",
+                      "--n-tokens", "32"]
+        out, err, serr, _mem = node_pair(tmp, f32, "f32")
+        got = printed_samples(out)
+        cfg = Config.from_name(TINY_LLAMA, n_layer=PIPE_F32_LAYERS)
+        params = transformer.init_params(cfg, 10137, dtype=torch.float32, device="cuda")
+        prompts = [g[:8] for g in got]
+        want, _ = PipelineEngine(cfg, params, n_stages=2, samples_per_slot=PIPE_M,
+                                 max_seq_length=2048, device="cuda").generate(
+            prompts, 32, temperature=0.0)
+        ring_budget_ok("pipeline-nodes", "float32", got, prompts, 32, cfg.padded_vocab_size)
+        gen = Generator(cfg, params, max_seq_length=2048, device="cuda")
+        divergence_ok("pipeline-nodes", gen, dict(enumerate(got)), dict(enumerate(want)),
+                      "float32 two processes vs one")
+        if ring_line(err)["backend"] != "gloo" or ring_line(serr)["stages"] != [1]:
+            fail("pipeline-nodes", f"float32: ring lines {ring_line(err)} {ring_line(serr)}")
+        print(f"pipeline-nodes: float32 {PIPE_F32_LAYERS} layers, 2 processes (gloo, hop "
+              f"through pinned host buffers): {sum(a == b for a, b in zip(got, want))}/"
+              f"{len(want)} streams identical to the one-process ring", flush=True)
+        del gen, params
+        free()
+        # bf16 at full depth: tokens/s, the hop, each process's card memory
+        bf16 = base + ["--dtype", "bfloat16", "--n-tokens", str(PIPE_TOKENS)]
+        t0 = time.perf_counter()
+        out, err, serr, mem = node_pair(tmp, bf16, "bf16")
+        wall = time.perf_counter() - t0
+        got = printed_samples(out)
+        ring_budget_ok("pipeline-nodes", "bf16", got, [g[:8] for g in got], PIPE_TOKENS, 32000)
+        stats_line = next(ln for ln in err.splitlines() if "tok/s decode" in ln)
+        print("pipeline-nodes: " + json.dumps({
+            "card": card, "dtype": "bfloat16", "layers": 22, "S": 2, "M": PIPE_M,
+            "samples": len(got), "new_tokens": PIPE_TOKENS, "stats_line": stats_line,
+            "starter_ring": ring_line(err), "secondary_ring": ring_line(serr),
+            "mem_monitor_peaks": mem,
+            "cuda_max_reserved_bytes": {"starter": ring_line(err).get("cuda_max_reserved_bytes"),
+                                        "secondary": ring_line(serr).get("cuda_max_reserved_bytes")},
+            "wall_s_both_processes": wall}), flush=True)
+
+
 def _serve_trace(engine, trace):
     for rid, prompt, new in trace:
         engine.add_request(rid, prompt, new)
@@ -3551,7 +3846,8 @@ def _serve_trace(engine, trace):
 PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
           "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs", "server",
-          "tier", "quant", "moe", "moe-quant", "moe-train", "tune")
+          "tier", "quant", "moe", "moe-quant", "moe-train", "tune", "pipeline",
+          "pipeline-nodes")
 
 
 def main(argv=None) -> None:
@@ -3642,6 +3938,8 @@ def main(argv=None) -> None:
         "moe-quant": lambda: phase_moe_quant(k1, k2, card),
         "moe-train": lambda: phase_moe_train(k3, k4, card),
         "tune": lambda: phase_tune(k1, card),
+        "pipeline": lambda: phase_pipeline(card),
+        "pipeline-nodes": lambda: phase_pipeline_nodes(card),
     }
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = Path(tmp) / TINY_LLAMA

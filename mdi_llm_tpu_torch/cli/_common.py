@@ -18,6 +18,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
+import os
 import sys
 from pathlib import Path
 from typing import Optional, Tuple
@@ -170,17 +172,20 @@ def add_run_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--logs-dir", type=Path, default=Path("logs"))
 
 
-def report_run(args, cfg, tokenizer, prompt_ids, outs, stats, gen_time):
+def report_run(args, cfg, tokenizer, prompt_ids, outs, stats, gen_time,
+               n_nodes: int = 1, label: Optional[str] = None):
     """Print the samples (decoded where there is a tokenizer) and the
     throughput line, and write the tokens/time CSV, its plot and the
-    run-stats CSV under the JAX CLI's file names (one device: one node)."""
+    run-stats CSV under the JAX CLI's file names, which carry the node
+    count (`n_nodes`; `label` heads the throughput line)."""
     from mdi_llm_tpu_torch.utils import plots
 
+    label = label or f"{n_nodes} node(s)"
     for i, (ids, plen) in enumerate(zip(outs, (len(p) for p in prompt_ids))):
         print(f"--- sample {i} ({len(ids) - plen} new tokens) " + "-" * 30)
         print(tokenizer.decode(np.asarray(ids)) if tokenizer is not None else ids)
     print(
-        f"[1 node(s)] {stats.tokens_generated} tokens in {gen_time:.2f}s — "
+        f"[{label}] {stats.tokens_generated} tokens in {gen_time:.2f}s — "
         f"{stats.tokens_per_s:.2f} tok/s decode (prefill {stats.prefill_s:.2f}s)",
         file=sys.stderr,
     )
@@ -188,16 +193,62 @@ def report_run(args, cfg, tokenizer, prompt_ids, outs, stats, gen_time):
         print("WARNING: generation interrupted — output is partial", file=sys.stderr)
     if args.plots or args.time_run:
         csv_path = plots.tok_time_csv_path(
-            args.logs_dir, 1, cfg.name, args.n_samples
+            args.logs_dir, n_nodes, cfg.name, args.n_samples
         )
         plots.write_tok_time_csv(csv_path, stats.tok_time)
         if args.plots:
             plots.plot_tokens_per_time(
                 stats.tok_time, csv_path.with_suffix(".png"),
-                label=f"{cfg.name} 1 node(s)",
+                label=f"{cfg.name} {n_nodes} node(s)",
             )
         if args.time_run:
             plots.append_run_stats(
                 args.time_run, args.n_samples, cfg.n_layer,
                 args.sequence_length or cfg.block_size, gen_time,
             )
+
+
+def add_log_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("-v", "--verbose", action="store_true")
+    ap.add_argument("--debug", action="store_true",
+                    help="debug logging; a node also writes logs/logs_<role>.log")
+
+
+def setup_logging(args, role: Optional[str] = None) -> logging.Logger:
+    """Console logging; with --debug and a node role, also a per-role file
+    `<logs_dir>/logs_<role>.log` (the reference's logs_starter.log /
+    logs_secondary<i>.log).  Calling it again does not stack handlers."""
+    debug = getattr(args, "debug", False)
+    level = logging.DEBUG if debug else (
+        logging.INFO if getattr(args, "verbose", False) else logging.WARNING)
+    logging.basicConfig(level=level, format="%(asctime)s %(name)s %(message)s")
+    log = logging.getLogger("mdi_llm_tpu_torch")
+    if debug and role:
+        logs_dir = Path(getattr(args, "logs_dir", None) or "logs")
+        logs_dir.mkdir(parents=True, exist_ok=True)
+        path = logs_dir / f"logs_{role}.log"
+        for h in list(log.handlers):
+            if isinstance(h, logging.FileHandler) and h.baseFilename == os.path.abspath(path):
+                h.close()
+                log.removeHandler(h)
+        fh = logging.FileHandler(path)
+        fh.setLevel(logging.DEBUG)
+        fh.setFormatter(logging.Formatter("%(asctime)s %(name)s %(message)s"))
+        log.addHandler(fh)
+    return log
+
+
+def select_device(args, node_device: Optional[str] = None) -> torch.device:
+    """The run's device by precedence: an explicit --device, then the node
+    JSON's "device", then cuda.  A CUDA device on a machine without one
+    raises (the port never falls back to the CPU by itself).  Sets
+    `args.device` to the choice."""
+    from mdi_llm_tpu_torch.generation import resolve_device
+
+    choice = args.device or node_device or "cuda"
+    try:
+        torch.device(choice)
+    except RuntimeError:
+        raise SystemExit(f"device {choice!r} is not a torch device (cuda or cpu)")
+    args.device = choice
+    return resolve_device(choice)

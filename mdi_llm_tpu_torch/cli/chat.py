@@ -1,17 +1,21 @@
-"""Interactive chat REPL of the port, one device, streaming token output.
+"""Interactive chat REPL of the port, streaming token output.
 
-Port of the single-device backend of `mdi_llm_tpu/cli/chat.py`: each
-turn gets the model's prompt style, tokens print as they decode
-(`StreamPrinter`: incremental re-decode, so multi-byte and merged tokens
-print correctly, and stop-sequence prefixes are held back), and the
-conversation lives in one `ChatSession`, which keeps its KV cache across
-turns and prefills only each new turn (a first turn whose prompt bucket
-reaches 2048 prefills through kernel K2).  Ctrl-C during a reply rolls
-the session back to the conversation so far.  An empty line or end of
-input ends the chat.
+Port of `mdi_llm_tpu/cli/chat.py` for one device and for the recurrent
+pipeline: each turn gets the model's prompt style, tokens print as they
+decode (`StreamPrinter`: incremental re-decode, so multi-byte and merged
+tokens print correctly, and stop-sequence prefixes are held back).  On
+one device the conversation lives in one `ChatSession`, which keeps its
+KV cache across turns and prefills only each new turn (a first turn whose
+prompt bucket reaches 2048 prefills through kernel K2); Ctrl-C during a
+reply rolls the session back to the conversation so far.  With
+`--pipeline-stages S` the turns stream through an S-stage ring
+(`parallel/pipeline.PipelineEngine`, `--rotations-per-call` rotations per
+steady call), which re-prefills the window every turn, as the JAX
+package's does.  An empty line or end of input ends the chat.
 
     python -m mdi_llm_tpu_torch.cli.chat --ckpt checkpoints/tiny-llama
     python -m mdi_llm_tpu_torch.cli.chat --device cpu --ckpt DIR --temperature 0
+    python -m mdi_llm_tpu_torch.cli.chat --device cpu --ckpt DIR --pipeline-stages 2
 
 Needs a checkpoint with a tokenizer (`--ckpt`).  Runs on the GPU unless
 `--device cpu` is given; without a GPU and without that flag it raises.
@@ -33,10 +37,7 @@ from mdi_llm_tpu_torch.config import TEMPERATURE, TOP_K
 from mdi_llm_tpu_torch.generation import Generator, StreamPrinter, resolve_device
 
 # streaming backends of the JAX CLI: flag -> the ROADMAP item carrying it
-_UNPORTED = {
-    "tp_devices": "item 14", "pipeline_stages": "item 15",
-    "ep_devices": "item 16", "sp_devices": "item 16",
-}
+_UNPORTED = {"tp_devices": "item 14", "ep_devices": "item 16", "sp_devices": "item 16"}
 
 
 def build_parser():
@@ -52,8 +53,14 @@ def build_parser():
         "the whole conversation, verify in one forward (requires "
         "--temperature 0)",
     )
+    ap.add_argument("--pipeline-stages", type=int, default=0,
+                    help="stream over an S-stage recurrent pipeline ring (tokens "
+                    "surface as stage 0 collects them)")
+    ap.add_argument("--rotations-per-call", type=int, default=2,
+                    help="pipeline streaming: ring rotations per steady call "
+                    "(smaller: earlier first bytes; larger: more throughput)")
     unported = ap.add_argument_group("not ported yet (refused when set)")
-    for flag in ("--tp-devices", "--pipeline-stages", "--ep-devices", "--sp-devices"):
+    for flag in ("--tp-devices", "--ep-devices", "--sp-devices"):
         unported.add_argument(flag, type=int, default=0)
     return ap
 
@@ -65,11 +72,25 @@ def main(argv=None):
             refuse(f"--{name.replace('_', '-')} ({item})")
     if args.speculative and args.temperature != 0.0:
         raise SystemExit("--speculative requires --temperature 0 (greedy)")
+    if args.speculative and args.pipeline_stages:
+        raise SystemExit("--speculative applies to the one-device session; drop "
+                         "--pipeline-stages")
     resolve_device(args.device)  # raises before any work without the device
     cfg, params, tokenizer, prompt_style = load_model(args)
     if tokenizer is None:
         raise SystemExit("chat needs a checkpoint with a tokenizer (--ckpt)")
     stop_seqs = prompt_style.stop_tokens(tokenizer)
+    if args.pipeline_stages:
+        from mdi_llm_tpu_torch.parallel.pipeline import PipelineEngine
+
+        eng = PipelineEngine(
+            cfg, params, n_stages=args.pipeline_stages,
+            max_seq_length=args.sequence_length, rng_seed=args.seed,
+            quantize=args.quantize, cache_dtype=resolve_kv_dtype(args.kv_dtype),
+            rotations_per_call=args.rotations_per_call, device=args.device,
+        )
+        print(f"Chatting with {cfg.name} — empty line or Ctrl-D to exit.")
+        return _ring_chat(args, eng, tokenizer, prompt_style, stop_seqs)
     gen = Generator(
         cfg, params, max_seq_length=args.sequence_length, rng_seed=args.seed,
         cache_dtype=resolve_kv_dtype(args.kv_dtype), device=args.device,
@@ -81,11 +102,7 @@ def main(argv=None):
     # latency tracks the turn length rather than the conversation length
     session = gen.chat_session()
     while True:
-        try:
-            user = input(">> ").strip()
-        except (EOFError, KeyboardInterrupt):
-            print()
-            break
+        user = _read_turn()
         if not user:
             break
         turn = tokenizer.encode(prompt_style.apply(user)).tolist()
@@ -108,6 +125,43 @@ def main(argv=None):
             session.rollback(pre_turn + turn + printer.reply)
         print()
     return session
+
+
+def _read_turn() -> str:
+    try:
+        return input(">> ").strip()
+    except (EOFError, KeyboardInterrupt):
+        print()
+        return ""
+
+
+def _ring_chat(args, eng, tokenizer, prompt_style, stop_seqs):
+    """The pipeline backend: every turn re-prefills the conversation's
+    window (slid to fit the reply) and streams the reply through the
+    ring's collect callback; the engine's cut list is authoritative, and
+    `finish` prints a held-back tail.  Returns the conversation's tokens."""
+    history: list = []
+    while True:
+        user = _read_turn()
+        if not user:
+            break
+        turn = tokenizer.encode(prompt_style.apply(user)).tolist()
+        context = history + turn
+        limit = eng.max_seq_length - args.n_tokens - 1
+        if len(context) > limit > 0:
+            context = context[-limit:]  # slide the window
+        printer = StreamPrinter(tokenizer, stop_seqs)
+        outs, stats = eng.generate(
+            [context], args.n_tokens, temperature=args.temperature, top_k=args.top_k,
+            top_p=args.top_p, stop_sequences=stop_seqs,
+            stream_cb=lambda _j, tok: printer.push(tok),
+        )
+        printer.finish(outs[0][len(context):])
+        print()
+        history = context + printer.reply
+        if stats.interrupted:
+            print("[interrupted]")
+    return history
 
 
 if __name__ == "__main__":

@@ -2,10 +2,11 @@
 sizes.
 
 Port of `mdi_llm_tpu/cli/inspect_ckpt.py` for checkpoints of the port
-(`params.pt`).  The stage view (`--n-stages`) waits for stage
-partitioning (item 15) and is refused.
+(`params.pt`).  `--n-stages S` adds the stage view: the layers, bytes
+and extra leaves of each of S pipeline stages (`parallel/partition.py`).
 
     python -m mdi_llm_tpu_torch.cli.inspect_ckpt --ckpt checkpoints/custom/NanoLlama
+    python -m mdi_llm_tpu_torch.cli.inspect_ckpt --ckpt checkpoints/custom/NanoLlama --n-stages 2
 """
 
 from __future__ import annotations
@@ -13,15 +14,14 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from mdi_llm_tpu_torch.cli._common import refuse
 
 
 def build_parser():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ckpt", type=Path, required=True)
     ap.add_argument("--keys-only", action="store_true")
-    unported = ap.add_argument_group("not ported yet (refused when set)")
-    unported.add_argument("--n-stages", type=int, default=0)
+    ap.add_argument("--n-stages", type=int, default=0,
+                    help="also show the split over this many pipeline stages")
     return ap
 
 
@@ -37,8 +37,6 @@ def main(argv=None) -> int:
     from mdi_llm_tpu_torch.utils.checkpoint import load_checkpoint
 
     args = build_parser().parse_args(argv)
-    if args.n_stages > 1:
-        refuse("--n-stages (stage partitioning, item 15)")
     cfg, params = load_checkpoint(args.ckpt)
     leaves = list(_flatten(params))
     n_params = sum(t.numel() for _, t in leaves)
@@ -54,6 +52,15 @@ def main(argv=None) -> int:
         else:
             print(f"{name:60s} {str(t.dtype).replace('torch.', ''):10s} {tuple(t.shape)}")
     print(f"# total bytes: {total:,} ({total / 2**20:.1f} MiB)")
+    if args.n_stages > 1:
+        from mdi_llm_tpu_torch.parallel.partition import split_params, stage_layers
+
+        counts = stage_layers(cfg.n_layer, args.n_stages)
+        print(f"\n# stage split over {args.n_stages} stages: layers {counts}")
+        for i, st in enumerate(split_params(cfg, params, args.n_stages)):
+            sz = sum(t.numel() * t.element_size() for _, t in _flatten(st))
+            keys = [k for k in st if k != "blocks"]
+            print(f"  stage {i}: {counts[i]} layers, {sz / 2**20:.1f} MiB, extras={keys}")
     return total
 
 

@@ -8,10 +8,13 @@ there already.  Nothing is downloaded: a hub name is refused.
 `--quantize int8|int4` also writes a pre-quantized copy into the sibling
 directory `<ckpt>-<mode>/` (quantized `params.pt`, the config and the
 tokenizer files), which every CLI's `--ckpt` loads with no further flag.
-Stage partitioning (`--n-stages`, item 15) is refused.
+`--n-stages S` also writes the stage partition: one checkpoint per stage
+under `<ckpt>/chunks/<S>stages/stage_<i>/` (`parallel/partition.py`'s
+split) and its `stage_map.json` (for the quantized copy too).
 
     python -m mdi_llm_tpu_torch.cli.prepare_model checkpoints/TinyLlama-1.1B-Chat-v1.0
     python -m mdi_llm_tpu_torch.cli.prepare_model checkpoints/TinyLlama-1.1B-Chat-v1.0 --quantize int8
+    python -m mdi_llm_tpu_torch.cli.prepare_model checkpoints/TinyLlama-1.1B-Chat-v1.0 --n-stages 2
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import argparse
 import shutil
 from pathlib import Path
 
-from mdi_llm_tpu_torch.cli._common import refuse
+from mdi_llm_tpu_torch.parallel.partition import save_stage_manifest, split_params
 from mdi_llm_tpu_torch.utils.checkpoint import (
     TOKENIZER_FILES,
     convert_hf_checkpoint,
@@ -42,17 +45,27 @@ def build_parser():
         "that every CLI loads with no further flags: quantize once here "
         "instead of in every process at load",
     )
-    unported = ap.add_argument_group("not ported yet (refused when set)")
-    unported.add_argument("--n-stages", "--n-nodes", type=int, default=0, dest="n_stages")
+    ap.add_argument("--n-stages", "--n-nodes", type=int, default=0, dest="n_stages",
+                    help="also write one checkpoint per pipeline stage and the "
+                    "stage manifest")
     return ap
+
+
+def write_stages(base_dir: Path, cfg, params, n_stages: int, quantize: str = "none") -> Path:
+    """One checkpoint per stage under `base_dir/chunks/<S>stages/` and its
+    `stage_map.json`; returns the chunk directory."""
+    chunk_dir = base_dir / "chunks" / f"{n_stages}stages"
+    for i, st in enumerate(split_params(cfg, params, n_stages)):
+        save_checkpoint(st, cfg, chunk_dir / f"stage_{i}")
+    save_stage_manifest(chunk_dir, cfg, n_stages, quantize=quantize)
+    print(f"wrote {n_stages} stage checkpoints -> {chunk_dir}")
+    return chunk_dir
 
 
 def main(argv=None) -> Path:
     import torch
 
     args = build_parser().parse_args(argv)
-    if args.n_stages > 1:
-        refuse("--n-stages (stage partitioning, item 15)")
     ckpt_dir = Path(args.model)
     if not ckpt_dir.is_dir():
         raise SystemExit(
@@ -62,10 +75,14 @@ def main(argv=None) -> Path:
         )
     if not has_checkpoint(ckpt_dir):
         convert_hf_checkpoint(ckpt_dir, dtype=getattr(torch, args.dtype))
+    cfg = params = None
+    if args.n_stages > 1 or args.quantize != "none":
+        cfg, params = load_checkpoint(ckpt_dir)
+    if args.n_stages > 1:
+        write_stages(ckpt_dir, cfg, params, args.n_stages)
     if args.quantize != "none":
         from mdi_llm_tpu_torch.ops.quant import FLAG_TO_MODE, quantize_params
 
-        cfg, params = load_checkpoint(ckpt_dir)
         qp = quantize_params(params, mode=FLAG_TO_MODE[args.quantize])
         q_dir = ckpt_dir.parent / f"{ckpt_dir.name}-{args.quantize}"
         save_checkpoint(qp, cfg, q_dir)
@@ -74,6 +91,8 @@ def main(argv=None) -> Path:
         for name in TOKENIZER_FILES:
             if (ckpt_dir / name).exists():
                 shutil.copy(ckpt_dir / name, q_dir / name)
+        if args.n_stages > 1:  # pipeline deployments get quantized stage chunks too
+            write_stages(q_dir, cfg, qp, args.n_stages, quantize=args.quantize)
         print(f"wrote {args.quantize}-quantized checkpoint -> {q_dir}")
     print(f"checkpoint ready: {ckpt_dir}")
     return ckpt_dir

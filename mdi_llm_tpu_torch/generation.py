@@ -257,6 +257,10 @@ class GenerationStats:
     prefill_s: float = 0.0
     decode_s: float = 0.0
     tokens_generated: int = 0
+    # pipeline engine: full ring rotations executed (scheduling efficiency)
+    rotations: int = 0
+    # pipeline engine: lanes refilled token by token (partial-slot refills)
+    token_fills: int = 0
     # batch compactions performed (early-stop lane reclaim)
     compactions: int = 0
     # True when the decode loop ended on Ctrl-C (partial output)

@@ -260,6 +260,12 @@ def tree_leaves(tree: Params) -> list:
     return [tree]
 
 
+def slice_blocks(blocks: Params, start: int, stop: int) -> Params:
+    """Layers [start, stop) of the layer-stacked block tree: a leading-axis
+    slice of every leaf (views, no copy)."""
+    return tree_map(lambda x: x[start:stop], blocks)
+
+
 def unbind_layers(blocks: Params, L: int) -> list:
     """The L per-layer views of the layer-stacked block tree, one
     `torch.unbind` per leaf: under autograd the layers' gradients then

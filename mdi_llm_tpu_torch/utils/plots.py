@@ -74,3 +74,32 @@ def plot_tokens_per_time(
     fig.savefig(out_png, dpi=120)
     plt.close(fig)
     return out_png
+
+
+def plot_overlay(csv_paths: Sequence[PathLike], out_png: PathLike) -> Path:
+    """Overlay several tokens-vs-time CSVs (one curve per file)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    out_png = Path(out_png)
+    fig, ax = plt.subplots(figsize=(8, 5))
+    for p in csv_paths:
+        p = Path(p)
+        xs, ys = [], []
+        with p.open() as f:
+            r = csv.reader(f)
+            next(r)
+            for row in r:
+                ys.append(int(row[0]))
+                xs.append(float(row[1]))
+        ax.plot(xs, ys, label=p.stem)
+    ax.set_xlabel("time (s)")
+    ax.set_ylabel("tokens generated")
+    ax.grid(True, alpha=0.3)
+    ax.legend(fontsize=7)
+    fig.tight_layout()
+    fig.savefig(out_png, dpi=120)
+    plt.close(fig)
+    return out_png

@@ -424,7 +424,8 @@ def test_checkpoint_tools_on_the_converted_checkpoint(converted, tmp_path, capsy
     """inspect_ckpt lists every leaf; convert_to_hf writes safetensors and
     .bin that `transformers` loads back to the original weights;
     model_surgery patches the config and drops a leaf; prepare_model
-    refuses a hub name and stage partitioning."""
+    refuses a hub name and writes the stage partition (`--n-stages`), which
+    inspect_ckpt shows."""
     import transformers
 
     port_dir, _ = converted
@@ -451,14 +452,18 @@ def test_checkpoint_tools_on_the_converted_checkpoint(converted, tmp_path, capsy
     assert "head" in params and "lm_head" not in params
     with pytest.raises(SystemExit, match="downloads nothing"):
         prepare_model.main(["TinyLlama/TinyLlama-1.1B-Chat-v1.0"])
-    with pytest.raises(SystemExit, match="not ported"):
-        prepare_model.main([str(work), "--n-stages", "3"])
-    with pytest.raises(SystemExit, match="not ported"):
-        inspect_ckpt.main(["--ckpt", str(work), "--n-stages", "2"])
+    prepare_model.main([str(work), "--n-stages", "2"])
+    assert (work / "chunks" / "2stages" / "stage_map.json").exists()
+    capsys.readouterr()
+    inspect_ckpt.main(["--ckpt", str(work), "--n-stages", "2"])
+    assert "# stage split over 2 stages" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flag", ["--tp-devices", "--pipeline-stages", "--ep-devices",
                                   "--sp-devices"])
 def test_chat_cli_refuses_unported_backends(flag):
-    with pytest.raises(SystemExit, match="not ported"):
+    """tp, ep and sp are refused; the recurrent pipeline backend is ported
+    and, like every chat, needs a checkpoint's tokenizer."""
+    match = "needs a checkpoint with a tokenizer" if flag == "--pipeline-stages" else "not ported"
+    with pytest.raises(SystemExit, match=match):
         chat_cli.main(["--device", "cpu", "--model", "pythia-14m", flag, "2"])

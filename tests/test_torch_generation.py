@@ -319,10 +319,18 @@ def test_sample_cli_runs_on_cpu_and_raises_without_a_gpu(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--pipeline-stages", "--sp-devices", "--tp-devices",
                                   "--ep-devices", "--coordinator", "--profile-dir"])
-def test_sample_cli_refuses_unported_flags(flag):
+def test_sample_cli_refuses_unported_flags(flag, tmp_path):
+    """The flags of features the port does not carry are refused; the
+    recurrent pipeline (`--pipeline-stages`) and `--profile-dir` are
+    ported and run."""
     from mdi_llm_tpu_torch.cli import sample as cli
 
+    value = str(tmp_path / "prof") if flag == "--profile-dir" else "2"
     args = cli.build_parser().parse_args(
-        ["--device", "cpu", "--model", "pythia-14m", flag, "2"])
+        ["--device", "cpu", "--model", "pythia-14m", "--n-tokens", "4", "--greedy", flag, value])
+    if flag in ("--pipeline-stages", "--profile-dir"):
+        _prompts, outs, stats, _gen, _tok, _s = cli.run(args)
+        assert stats.tokens_generated == 4 and len(outs) == 1
+        return
     with pytest.raises(SystemExit, match="not ported"):
         cli.run(args)
