@@ -315,14 +315,38 @@ non-zero.
    `nvidia-smi --query-compute-apps` lists it (`none` in a container whose
    processes nvidia-smi lists under one other pid) and the card's
    memory in use.
+25. pp-serve — pipeline-parallel serving (`serving/pipeline.py`): the
+   serve phase's CLI run and trace (tiny-llama-1.1b, all 22 layers, bf16,
+   seed 10137, 16 synthetic requests, 8 slots, 16-token blocks, 2048-token
+   window, 64 new tokens, decode chunks of 8 with double buffering) with
+   `--pp 2` and `--pp 4` (the reference table's [10, 12] and [4, 6, 6,
+   6], every stage on the card), then `--pp 2 --kv-dtype int8` (K1's int8
+   branch inside the ring).  Each run: every request finishes with its
+   budget in the vocabulary, K1 launches exactly once per stage layer the
+   engine counts (`stage_layer_runs`: 22 per tick, 2S - 1 ticks per mixed
+   step and 8S + S per decode chunk, bubbles included; each with its merge
+   kernel where the split plan has one), the plain route never, the steps
+   are captured when the engine is built and replayed, host_syncs equal the
+   single engine's on the same trace.  Prints tokens/s beside the single
+   engine's in the same process and their ratio, the `pipeline` block,
+   the capture seconds, the launch counts beside their prediction, peak
+   memory and the bf16 divergences from the single engine's streams
+   (`bf16_divergences`: the ring runs K1 and the products at 8/S lanes or
+   T/S tokens, another summation order; printed, never gated).  Then
+   float32 at 4 layers, full width, S = 2 and 4, 4 requests of 16 new
+   tokens: the ring through K1 must give the single engine's streams
+   through K1 and the ring's through the plain route (`divergence_ok`: a
+   divergence passes only at a top-2 gap below 1e-4), with equal
+   host_syncs.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4, each with `paths`: its launches in every phase that drives
 it, K1's `server` the closed submission's with the observer on, its
 `quant` summed over the three quantized serves, K2's `quant` over the
 three quantized generates, K1's `moe-quant` over the int8 and the three
-4-layer serves, its `tune` the tuned serve's, K3's and K4's `moe-train`
-over the three counted steps); the last line is `{"ok": true, "device":
+4-layer serves, its `tune` the tuned serve's, its `pp-serve` over the
+three ring serves, K3's and K4's `moe-train` over the three counted
+steps); the last line is `{"ok": true, "device":
 {...}}`.
 """
 
@@ -3837,6 +3861,140 @@ def phase_pipeline_nodes(card):
             "wall_s_both_processes": wall}), flush=True)
 
 
+PP_SERVE_RUNS = ((2, [10, 12]), (4, [4, 6, 6, 6]))  # stages, the reference table's split of 22
+PP_SERVE_ARGV = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"]
+PP_SERVE_F32_LAYERS = 4
+
+
+def pp_served(phase, argv, S, split):
+    """The serve CLI on `argv` with `--pp S`, K1's and the plain route's
+    counts set to 0 just before and read just after.  Fails unless the
+    engine is the ring over `split` of 22 layers, every request finished
+    with its budget in the vocabulary, K1 launched exactly once per stage
+    layer the engine ran and the plain route never, and the steps were
+    captured when the engine was built and replayed in the run.  Returns
+    (stats line, K1 launches, merge launches, engine, results)."""
+    from mdi_llm_tpu_torch.cli import serve as cli
+    from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention
+    from mdi_llm_tpu_torch.serving.pipeline import PipelinedServingEngine
+
+    args = cli.build_parser().parse_args(argv + ["--pp", str(S)])
+    reset_k1_counts()
+    trace, results, stats, engine, _tok = cli.serve(args)
+    launches, plain = k1_counts()
+    merges = ragged_paged_attention.merge_launches
+    if not isinstance(engine, PipelinedServingEngine) or engine._stage_counts != split \
+            or engine.gen.cfg.n_layer != 22:
+        fail(phase, f"--pp {S}: engine {type(engine).__name__} over {engine.gen.cfg.n_layer} "
+             f"layers split {getattr(engine, '_stage_counts', None)}, want {split} of 22")
+    if launches != engine.stage_layer_runs or plain or not launches:
+        fail(phase, f"--pp {S}: K1 launches {launches}, plain route {plain}: want "
+             f"{engine.stage_layer_runs} = the stage layers the ring ran")
+    graphs = engine.graph_stats()
+    if graphs["captures"] != graphs["steps"] or not graphs["replays"]:
+        fail(phase, f"--pp {S}: steps {graphs['steps']}, captures {graphs['captures']}, "
+             f"replays {graphs['replays']}: the ring's steps must replay as graphs")
+    vocab = engine.gen.cfg.padded_vocab_size
+    for rid, prompt, new in trace:
+        out = results.get(rid)
+        if out is None or len(out) - len(prompt) != new or not all(
+                0 <= t < vocab for t in out[len(prompt):]):
+            fail(phase, f"--pp {S}: {rid} did not finish with its {new} tokens in the vocabulary")
+    line = cli.stats_line(stats, engine, [len(p) + n / 2 for _rid, p, n in trace])
+    return line, launches, merges, engine, results
+
+
+def phase_pp_serve(k1, card):
+    """Pipeline-parallel serving on the card (the module docstring, phase
+    25)."""
+    import torch
+
+    from mdi_llm_tpu_torch.cli import serve as cli
+    from mdi_llm_tpu_torch.cli.serve import synthetic_trace
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.ops import paged_attention as pa
+    from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention
+    from mdi_llm_tpu_torch.parallel.mesh import pipeline_mesh
+
+    # warm-up (CUDA context, cuBLAS handles), not counted
+    cli.serve(cli.build_parser().parse_args(SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8"]))
+    torch.cuda.synchronize()
+    total = 0
+    for kv, extra, runs in (("bfloat16", [], PP_SERVE_RUNS),
+                            ("int8", ["--kv-dtype", "int8"], PP_SERVE_RUNS[:1])):
+        argv = PP_SERVE_ARGV + extra
+        single_line, _launches, single, want = serve_checked("pp-serve", argv)
+        for S, split in runs:
+            torch.cuda.reset_peak_memory_stats()
+            line, launches, merges, engine, got = pp_served("pp-serve", argv, S, split)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            total += launches
+            K = engine.cfg.decode_chunk
+            chunks = (engine.forward_calls - line["mixed_steps"]) // K
+            n_div = bf16_divergences("pp-serve", single.gen, got, want,
+                                     f"--pp {S} {kv} pool vs the single engine")
+            if line["host_syncs"] != single_line["host_syncs"]:
+                fail("pp-serve", f"--pp {S} {kv}: host_syncs {line['host_syncs']}, the single "
+                     f"engine's {single_line['host_syncs']}")
+            print("pp-serve: " + json.dumps({
+                "card": card, "pp": S, "split": split, "kv_dtype": kv, "requests": 16,
+                "new_tokens": 64, "tokens_per_s": line["tokens_per_s"],
+                "single_tokens_per_s": single_line["tokens_per_s"],
+                "pp_over_single": line["tokens_per_s"] / single_line["tokens_per_s"],
+                "wall_s": line["wall_s"], "single_wall_s": single_line["wall_s"],
+                "pipeline": line["pipeline"], "devices": line["devices"],
+                "tokens_per_s_per_chip": line["tokens_per_s_per_chip"],
+                "mixed_steps": line["mixed_steps"], "decode_chunks": chunks,
+                "decode_chunk": K, "forward_calls": engine.forward_calls,
+                "host_syncs": line["host_syncs"], "k1_launches": launches,
+                "k1_merge_launches": merges, "stage_layer_runs": engine.stage_layer_runs,
+                "k1_launches_predicted": 22 * ((2 * S - 1) * line["mixed_steps"]
+                                               + (K * S + S) * chunks),
+                "graph_captures": line["graph_captures"], "graph_replays": line["graph_replays"],
+                "capture_s": line["capture_s"], "single_capture_s": single_line["capture_s"],
+                "bf16_divergences": n_div, "peak_memory_gib": peak}), flush=True)
+            del engine, got
+            free()
+        del single, want
+        free()
+    k1.setdefault("paths", {})["pp-serve"] = total
+
+    # float32 at 4 layers: the ring through K1 gives the single engine's
+    # streams through K1 and the ring's through the plain route
+    gen = tiny_llama_generator(PP_SERVE_F32_LAYERS, torch.float32)
+    trace = synthetic_trace(4, gen.cfg.vocab_size, 2048, 16)
+    want, wstats = _serve_trace(gen.serve(block_size=16, max_batch=8), trace)
+    for S in (2, 4):
+        ppgen = Generator(gen.cfg, gen.params, max_seq_length=2048, device=gen.device,
+                          mesh=pipeline_mesh(S, [gen.device]))
+        streams = {}
+        for route, use_kernel in (("kernel", None), ("plain", False)):
+            reset_k1_counts()
+            engine = ppgen.serve(block_size=16, max_batch=8, use_kernel=use_kernel)
+            streams[route], stats = _serve_trace(engine, trace)
+            launched, plain = k1_counts()
+            want_launches = engine.stage_layer_runs if route == "kernel" else 0
+            if launched != want_launches or (plain > 0) != (route == "plain"):
+                fail("pp-serve", f"float32 S={S}: the {route} run launched K1 {launched} times "
+                     f"(want {want_launches}) and took the plain route {plain} times")
+            if stats.host_syncs != wstats.host_syncs:
+                fail("pp-serve", f"float32 S={S} {route}: host_syncs {stats.host_syncs}, the "
+                     f"single engine's {wstats.host_syncs}")
+            del engine
+        divergence_ok("pp-serve", gen, streams["kernel"], want,
+                      f"float32 S={S} ring (K1) vs single engine (K1)")
+        divergence_ok("pp-serve", gen, streams["kernel"], streams["plain"],
+                      f"float32 S={S} ring K1 vs ring plain route")
+        same = sum(streams["kernel"][r] == want[r] for r in want)
+        print(f"pp-serve: float32 {PP_SERVE_F32_LAYERS} layers x {gen.cfg.n_embd}, S={S}: "
+              f"{same} of {len(trace)} greedy streams identical to the single engine's, "
+              f"{sum(streams['kernel'][r] == streams['plain'][r] for r in want)} to the plain "
+              f"route's; host_syncs {wstats.host_syncs} as the single engine's", flush=True)
+        del ppgen
+    del gen
+    free()
+
+
 def _serve_trace(engine, trace):
     for rid, prompt, new in trace:
         engine.add_request(rid, prompt, new)
@@ -3847,7 +4005,7 @@ PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
           "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs", "server",
           "tier", "quant", "moe", "moe-quant", "moe-train", "tune", "pipeline",
-          "pipeline-nodes")
+          "pipeline-nodes", "pp-serve")
 
 
 def main(argv=None) -> None:
@@ -3940,6 +4098,7 @@ def main(argv=None) -> None:
         "tune": lambda: phase_tune(k1, card),
         "pipeline": lambda: phase_pipeline(card),
         "pipeline-nodes": lambda: phase_pipeline_nodes(card),
+        "pp-serve": lambda: phase_pp_serve(k1, card),
     }
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = Path(tmp) / TINY_LLAMA
@@ -3954,7 +4113,8 @@ def main(argv=None) -> None:
     missing = [(r["name"], k) for r in records for k in keys if k not in r]
     k2_paths = {"generate", "ckpt", "graphs", "quant", "moe", "moe-quant"} | (
         {"chat"} if importlib.util.find_spec("tokenizers") else set())
-    k1_paths = {"serve", "ckpt", "graphs", "server", "tier", "quant", "moe", "moe-quant", "tune"}
+    k1_paths = {"serve", "ckpt", "graphs", "server", "tier", "quant", "moe", "moe-quant", "tune",
+                "pp-serve"}
     k34_paths = {"train", "moe-train"}
     if only == set(PHASES) and (set(k1["paths"]) != k1_paths or set(k2["paths"]) != k2_paths
                                 or set(k3["paths"]) != k34_paths

@@ -16,9 +16,13 @@ misses).  `--host-pool-mib N` puts a host-RAM block tier behind the pool
 (`serving/host_tier.py`): preemption victims swap to it and cold prefix
 chains spill to it; the stats line's `swaps_*` and `prefix_hits_host`
 count its work.  `--quantize int8|w8a8|int4` serves quantized weights
-(`ops/quant.py`).  Runs on the GPU unless `--device cpu` is given;
-without a GPU and without that flag it raises.  Flags of features the
-port does not carry yet (`--tp`, `--pp`) are refused.
+(`ops/quant.py`).  `--pp S` serves over an S-stage recurrent ring
+(`serving/pipeline.py`), every stage on `--device`: the layers split
+by the reference's stage table, each stage's paged attention through K1,
+and the stats line gains the ring's `pipeline` block (stages, lanes,
+each stage's layers, the bubble fraction).  Runs on the GPU unless
+`--device cpu` is given; without a GPU and without that flag it raises.
+A flag of a feature the port does not carry yet (`--tp`) is refused.
 
 Observability rides every run (`obs/`, hooks at the engine's host-sync
 boundaries): the stats line carries the per-request latency block
@@ -39,6 +43,8 @@ request/step timeline, `--sample-rss` adds a host RSS gauge, and
     python -m mdi_llm_tpu_torch.cli.serve --device cpu --model pythia-14m \\
         --synthetic 6 --max-batch 4 --n-tokens 48 --sequence-length 128 --block-size 8 \\
         --max-blocks 24 --host-pool-mib 16
+    python -m mdi_llm_tpu_torch.cli.serve --device cpu --model pythia-14m \\
+        --synthetic 3 --max-batch 2 --n-tokens 8 --sequence-length 128 --block-size 8 --pp 2
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ from mdi_llm_tpu_torch.generation import resolve_device
 from mdi_llm_tpu_torch.models import transformer
 
 # flags of the JAX CLI whose features are not ported: refused when set
-_UNPORTED = {"tp": 1, "pp": 1}
+_UNPORTED = {"tp": 1}
 
 
 def build_parser():
@@ -124,6 +130,12 @@ def build_parser():
                     help="engine-wide sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=None)
     ap.add_argument("--top-p", type=float, default=None)
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline-parallel serving: split the layers over "
+                    "this many recurrent ring stages (the reference's stage "
+                    "table), all on --device, each holding its own shard of "
+                    "the paged KV pool; decode lanes fill the ring, so keep "
+                    "--max-batch >= --pp.  1 = no pipelining")
     ap.add_argument("--policy", default="fcfs",
                     choices=("fcfs", "priority", "fair", "deadline"),
                     help="scheduling policy (serving/policy.py)")
@@ -163,7 +175,6 @@ def build_parser():
                     "window opens")
     unported = ap.add_argument_group("not ported yet (refused when set)")
     unported.add_argument("--tp", type=int, default=1)
-    unported.add_argument("--pp", type=int, default=1)
     return ap
 
 
@@ -215,11 +226,15 @@ def make_serving_config(args, admission_queue=None):
 
 
 def build_generator(args, cfg, params, _graphs=None):
+    """The Generator the flags describe; with `--pp S > 1` on a pipeline
+    mesh of S stages, all on `--device`."""
     from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.parallel.mesh import pipeline_mesh
 
     dtype = DTYPES[args.dtype]
     return Generator(
         cfg, params,
+        mesh=pipeline_mesh(args.pp, [args.device]) if args.pp > 1 else None,
         max_seq_length=args.sequence_length,
         cache_dtype=(
             dtype if args.kv_dtype == "int8"
@@ -353,20 +368,22 @@ def roofline_block(engine, stats, contexts) -> dict:
 
 def stats_line(stats, engine, contexts=()) -> dict:
     """The JSON stats line: the engine's stats, the JAX CLI's topology
-    keys, the latency block, and the port's own keys (forward counts and
-    the step graphs, captured when the engine was built, outside
-    wall_s); `device` names the card and, with the observer's device
-    capture on, carries `roofline_block` over the requests' `contexts`
-    (prompt + half the generation each)."""
+    keys (with `--pp` > 1 its `pipeline` block too), the latency block,
+    and the port's own keys (forward counts and the step graphs, captured
+    when the engine was built, outside wall_s); `device` names the card
+    and, with the observer's device capture on, carries `roofline_block`
+    over the requests' `contexts` (prompt + half the generation each)."""
     line = stats.to_dict()
     graphs = engine.graph_stats()
     dev = engine.device
+    pp = getattr(engine, "n_stages", 1)
+    n_dev = getattr(engine, "devices", 1)
     line.update({
         "kv_dtype": engine.kv_dtype_name,
         "tp": 1,
-        "pp": 1,
-        "devices": 1,
-        "tokens_per_s_per_chip": round(stats.tokens_per_s, 2),
+        "pp": pp,
+        "devices": n_dev,
+        "tokens_per_s_per_chip": round(stats.tokens_per_s / n_dev, 2),
         "forward_calls": engine.forward_calls,
         "draft_forward_calls": engine.draft_forward_calls,
         "graph_captures": graphs["captures"],
@@ -374,6 +391,8 @@ def stats_line(stats, engine, contexts=()) -> dict:
         "capture_s": round(graphs["capture_s"], 3),
         "device": {"type": dev.type, "kind": device_kind(dev)},
     })
+    if pp > 1:
+        line["pipeline"] = engine.pipeline_fill()
     obs = engine.obs
     if obs is not None:
         line["latency"] = {

@@ -19,7 +19,8 @@ latency block) then goes to stderr.  It runs on the GPU unless
 `--device cpu` is given; the engine's steps are captured as CUDA graphs
 before the listener opens, and the engine thread only replays them.
 It takes `cli.serve`'s flags (the host tier's and `--quantize` among
-them); `--tp` and `--pp` are refused (not ported).
+them); `--tp` is refused (not ported), and so is `--pp`: the JAX
+package's server has no pipeline-parallel engine either.
 
     python -m mdi_llm_tpu_torch.cli.server --model tiny-llama-1.1b --port 8080
     python -m mdi_llm_tpu_torch.cli.server --ckpt checkpoints/tiny-llama --policy deadline
@@ -36,6 +37,7 @@ import signal
 import sys
 
 from mdi_llm_tpu_torch.cli import serve as serve_cli
+from mdi_llm_tpu_torch.cli._common import refuse
 
 
 def build_parser():
@@ -62,6 +64,8 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.pp != 1:
+        refuse("cli.server --pp")
     from mdi_llm_tpu_torch.server import ServingFrontend
     from mdi_llm_tpu_torch.server.http import ServingHTTPServer
 

@@ -11,7 +11,10 @@ Port of `mdi_llm_tpu/generation.py` for one device:
 - `generate_chat` and `ChatSession`: single-sample token streams with
   stop-prefix hold-back; the session keeps its cache across turns and
   prefills only each new turn at its offset.
-- `Generator.serve`: the paged-KV serving engine (`serving/engine.py`).
+- `Generator.serve`: the paged-KV serving engine (`serving/engine.py`);
+  on a pipeline mesh (`Generator(mesh=parallel.mesh.pipeline_mesh(S,
+  devices))`, S >= 2) the engine over the stage ring
+  (`serving/pipeline.py`).  The other paths run on stage 0's device.
 - `Generator(quantize="int8" | "w8a8" | "int4")`: the linears and an
   untied head quantized once, on the device (`ops/quant.py`); a tree
   that is quantized already (a `prepare_model --quantize` checkpoint) is
@@ -282,6 +285,21 @@ def _refuse(what: str) -> None:
     )
 
 
+def _pipeline_mesh(mesh, device) -> Dict[int, torch.device]:
+    """`mesh` as {stage: device}, stages 0..S-1: the dict
+    `parallel.mesh.pipeline_mesh` returns.  Any other mesh (tp, dp or ep
+    axes) is refused; `device`, when given, must be stage 0's."""
+    if not (isinstance(mesh, dict) and mesh and set(mesh) == set(range(len(mesh)))):
+        _refuse(f"mesh={mesh!r}: only the {{stage: device}} pipeline mesh of "
+                "parallel.mesh.pipeline_mesh is ported; tp and dp meshes are "
+                "item 14, ep meshes item 16")
+    stages = {s: resolve_device(d) for s, d in mesh.items()}
+    if device is not None and torch.device(device) != stages[0]:
+        raise ValueError(f"device={device!r} is not stage 0's device {stages[0]}: "
+                         "a Generator on a pipeline mesh runs on stage 0's device")
+    return stages
+
+
 class Generator:
     """One model on one device: config, parameters (the layer-stacked tree
     of `transformer.init_params`), context window, KV dtype, rope tables,
@@ -301,7 +319,7 @@ class Generator:
         # its plain version on the CPU; False → the plain version anywhere
         quantize: Optional[str] = None,  # None | "none" | "int8" (weight-only)
         # | "w8a8" (int8 activations too) | "int4" (ops/quant.py)
-        mesh: Any = None,
+        mesh: Any = None,  # {stage: device} of parallel.mesh.pipeline_mesh
         scan_unroll: int = 1,
         abstract: bool = False,
         _graphs: Optional[bool] = None,  # None → CUDA graphs on the card;
@@ -310,13 +328,15 @@ class Generator:
         if quantize not in (None, "none") and quantize not in FLAG_TO_MODE:
             raise ValueError(f"unknown quantize mode {quantize!r}")
         if mesh is not None:
-            _refuse("mesh=...: tp/dp/ep meshes, items 14-16")
+            mesh = _pipeline_mesh(mesh, device)
+            device = mesh[0]
         if scan_unroll != 1:
             _refuse(f"scan_unroll={scan_unroll}: the layers run as a Python loop")
         if abstract:
             _refuse("abstract=True: trace-only analysis, item 18")
         transformer.check_supported(cfg)
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         params = transformer.tree_map(lambda x: x.to(self.device), params)
         if quantize in FLAG_TO_MODE:
@@ -802,7 +822,9 @@ class Generator:
         `obs` takes a `ServingObserver` (`obs/`). `draft_gen` takes a
         Generator for `ServingConfig.draft_model`'s weights (same
         vocabulary as this model); None lets the engine initialise the
-        named config with random weights.
+        named config with random weights.  On a pipeline mesh of S >= 2
+        stages the engine is `serving/pipeline.PipelinedServingEngine`,
+        with the same request and stats surface.
         """
         from mdi_llm_tpu_torch.config import ServingConfig
         from mdi_llm_tpu_torch.serving.engine import ServingEngine
@@ -811,6 +833,11 @@ class Generator:
             serving = ServingConfig(**knobs)
         elif knobs:
             raise ValueError("pass a ServingConfig or keywords, not both")
+        if self.mesh is not None and len(self.mesh) > 1:
+            from mdi_llm_tpu_torch.serving.pipeline import PipelinedServingEngine
+
+            return PipelinedServingEngine(self, serving, obs=obs, policy=policy,
+                                          draft_gen=draft_gen)
         return ServingEngine(self, serving, obs=obs, policy=policy, draft_gen=draft_gen)
 
 

@@ -72,8 +72,10 @@ pool's own tensors in place (`index_copy_`), which every captured graph
 reads.  Padding reads block 0 and padding writes go to the trash block,
 as in the JAX engine.
 
-Not ported yet, and refused with an error when asked for: tensor and
-pipeline parallel serving.
+Pipeline-parallel serving is `serving/pipeline.py`'s subclass, which
+overrides the pool (`_init_pool`), the forward and the decode chunk.  Not
+ported yet, and refused with an error when asked for: tensor parallel
+serving.
 """
 
 from __future__ import annotations
@@ -332,6 +334,8 @@ class ServingEngine:
     # which axis of a pool leaf indexes blocks: the host tier's gathers,
     # restores and slab layout key off it
     _kv_block_axis = 1
+    # the engine's own int counters that a replayed step advances
+    _step_counters = ("forward_calls",)
 
     def __init__(self, gen: Generator, serving: ServingConfig, obs=None,
                  policy=None, draft_gen: Optional[Generator] = None,
@@ -367,9 +371,7 @@ class ServingEngine:
         # boundaries, outside the captured step bodies
         self.obs = obs
         self.scheduler.observer = obs  # lifecycle edges report from there
-        self._kv = transformer.init_paged_kv_cache(
-            gen.cfg, num_blocks, bs, dtype=self._pool_dtype, device=self.device
-        )
+        self._kv = self._init_pool(num_blocks, bs)
         # host-RAM tier (serving/host_tier.py): host_pool_mib = 0 leaves
         # every table, hook and step untouched
         self.host_tier: Optional[HostTier] = None
@@ -409,6 +411,13 @@ class ServingEngine:
         self._steps = self._build_steps()
         self._capture_steps()
 
+    def _init_pool(self, num_blocks: int, bs: int):
+        """The device pool every step reads and writes: one (L, num_blocks,
+        bs, G, hs) tree of the pool dtype on the engine's device."""
+        return transformer.init_paged_kv_cache(
+            self.gen.cfg, num_blocks, bs, dtype=self._pool_dtype, device=self.device
+        )
+
     # -- the per-shape steps (CUDA graphs on the card) -----------------------
 
     def _build_steps(self) -> Dict[str, StepGraph]:
@@ -427,7 +436,7 @@ class ServingEngine:
         def step(name, key, body, **inputs):
             return StepGraph(
                 name, key + sampler, self, body, inputs, capture=self._graphs,
-                generators=[self._rng], counters=["forward_calls"],
+                generators=[self._rng], counters=self._step_counters,
             )
 
         cls = type(self)
@@ -624,8 +633,9 @@ class ServingEngine:
             chunk = blocks[i : i + W]
             idx = np.zeros((W,), np.int64)
             idx[: len(chunk)] = chunk
-            idx_d = self._upload(idx)
-            gathered = [x.index_select(ba, idx_d).movedim(ba, 0).contiguous() for x in leaves]
+            idx_d = self._upload_per_device(idx, leaves)
+            gathered = [x.index_select(ba, idx_d[x.device]).movedim(ba, 0).contiguous()
+                        for x in leaves]
             store.write(slots[i : i + W], gathered, non_blocking=cuda)
         if cuda:
             end.record()
@@ -668,11 +678,12 @@ class ServingEngine:
             chunk = blocks[i : i + W]
             idx = np.zeros((W,), np.int64)  # padding writes to the trash block
             idx[: len(chunk)] = chunk
-            idx_d = self._upload(idx)
+            idx_d = self._upload_per_device(idx, leaves)
             rows = store.read(slots[i : i + W], width=W, device=self.device,
                               non_blocking=True)
             for leaf, payload in zip(leaves, rows):
-                leaf.index_copy_(ba, idx_d, payload.view(leaf.dtype).movedim(0, ba))
+                payload = payload.to(leaf.device, non_blocking=True)
+                leaf.index_copy_(ba, idx_d[leaf.device], payload.view(leaf.dtype).movedim(0, ba))
 
     def _swap_out(self, seq: SequenceState) -> Optional[SwapRecord]:
         """Scheduler hook at `preempt_latest`, called while the victim
@@ -765,15 +776,21 @@ class ServingEngine:
 
     # -- device helpers ------------------------------------------------------
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor without waiting for the device: a
-        pinned staging copy and a non-blocking transfer on CUDA (a plain
-        pageable copy would synchronize the stream and defeat double
-        buffering)."""
+    def _upload(self, arr: np.ndarray, device=None) -> torch.Tensor:
+        """Host array -> device tensor (the engine's device by default)
+        without waiting for the device: a pinned staging copy and a
+        non-blocking transfer on CUDA (a plain pageable copy would
+        synchronize the stream and defeat double buffering)."""
+        device = self.device if device is None else device
         t = torch.from_numpy(np.array(arr, copy=True))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
         return t
+
+    def _upload_per_device(self, arr: np.ndarray, leaves) -> Dict[torch.device, torch.Tensor]:
+        """`arr` uploaded once to each device that holds one of `leaves`
+        (a staged pool spreads its leaves over the stages' devices)."""
+        return {d: self._upload(arr, d) for d in {x.device for x in leaves}}
 
     def _read_async(self, x: torch.Tensor):
         """Start a device -> host copy of `x`; `_wait` returns it as numpy.

@@ -5,8 +5,10 @@
   int8 or float8 pool and with speculative serving and a draft model;
 - without `--device cpu` on a machine with no GPU it raises, and does not
   fall back to the CPU;
-- every flag of a feature the port does not carry is refused (`--tp`,
-  `--pp`); `--host-pool-mib` and `--quantize` are ported and serve; the
+- every flag of a feature the port does not carry is refused (`--tp`);
+  `--host-pool-mib`, `--quantize` and `--pp` are ported and serve (`--pp
+  2` prints the `--pp 1` streams, and its stats line carries the ring's
+  topology and `pipeline` block; `cli.server` keeps refusing `--pp`); the
   observability flags are ported: `--metrics-out`, `--prom-out`,
   `--trace-out`, `--xprof-steps` and `--sample-rss` each do their work;
 - no module of the port, and not `chip_smoke.py`, imports jax, ml_dtypes,
@@ -145,7 +147,7 @@ def test_cli_serves_narrow_pools_and_spec_on_cpu(flags, check):
     # run serves every request, with the tier's stats keys and quantized
     # weights
     (["--host-pool-mib", "64"], None),
-    (["--tp", "2"], "not ported"), (["--pp", "2"], "not ported"),
+    (["--tp", "2"], "not ported"), (["--pp", "2"], None),
     (["--quantize", "int8"], None),
     # --ckpt is ported: a directory that is not there is refused by name
     (["--ckpt", "some/dir"], "some/dir: no such checkpoint directory"),
@@ -157,12 +159,44 @@ def test_cli_refuses_unported_flags(flags, match):
         assert stats.requests_finished == 3
         if "--quantize" in flags:
             assert engine.gen.quantized
+        elif "--pp" in flags:
+            assert engine.n_stages == 2 and engine.stage_layer_runs > 0
         else:
             assert engine.host_tier.store.num_slots > 0
             assert {"swaps_out", "swaps_in", "prefix_hits_host"} <= set(stats.to_dict())
         return
     with pytest.raises(SystemExit, match=match):
         cli.serve(args)
+
+
+def test_cli_pp_serves_the_pp1_streams_with_the_ring_in_its_stats_line(capsys):
+    """`--pp 2` (pythia-14m's 6 layers as [2, 4], both stages on the CPU)
+    prints the `--pp 1` streams (float32, so the ring's other batch shapes
+    round alike); its stats line has the JAX CLI's `pp`, `devices`,
+    `tokens_per_s_per_chip` and `pipeline`; without `--device cpu` it
+    raises here, and `cli.server` refuses `--pp`."""
+    from mdi_llm_tpu_torch.cli import server as server_cli
+
+    run = ["--device", "cpu", *CPU_RUN, "--dtype", "float32"]
+    lines, printed = {}, {}
+    for pp in (1, 2):
+        lines[pp] = cli.main([*run, "--pp", str(pp)])
+        out, err = capsys.readouterr()
+        assert json.loads(err.strip().splitlines()[-1]) == lines[pp]
+        printed[pp] = out
+    assert printed[2] == printed[1] and printed[1].count("--- syn") == 3
+    line = lines[2]
+    assert (line["pp"], line["devices"], line["requests"]) == (2, 1, 3)
+    assert line["tokens_per_s_per_chip"] == round(line["tokens_per_s"], 2)
+    assert line["pipeline"] == {"stages": 2, "lanes": 2, "stage_layers": [2, 4],
+                                "bubble_fraction": 0.0, "stage_occupancy": [1.0, 1.0]}
+    assert "pipeline" not in lines[1] and lines[1]["pp"] == 1
+    assert line["host_syncs"] == lines[1]["host_syncs"]
+    with pytest.raises(SystemExit, match="--pp is not ported"):
+        server_cli.main([*run, "--pp", "2"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match=r"torch.cuda.is_available\(\) is False"):
+            cli.serve(cli.build_parser().parse_args([*CPU_RUN, "--pp", "2"]))
 
 
 @pytest.mark.parametrize("flag", ["--metrics-out", "--prom-out", "--trace-out",
@@ -244,7 +278,8 @@ def test_importing_the_cli_loads_no_jax():
             "mdi_llm_tpu_torch.cli.model_surgery, mdi_llm_tpu_torch.cli.server, "
             "mdi_llm_tpu_torch.obs, mdi_llm_tpu_torch.obs.device, mdi_llm_tpu_torch.server, "
             "mdi_llm_tpu_torch.server.http, mdi_llm_tpu_torch.utils.profiling, "
-            "mdi_llm_tpu_torch.serving.host_tier, mdi_llm_tpu_torch.ops.quant; "
+            "mdi_llm_tpu_torch.serving.host_tier, mdi_llm_tpu_torch.ops.quant, "
+            "mdi_llm_tpu_torch.serving.pipeline; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.split('.')[0] == 'mdi_llm_tpu' for m in sys.modules)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
