@@ -338,6 +338,41 @@ non-zero.
    through K1 and the ring's through the plain route (`divergence_ok`: a
    divergence passes only at a top-2 gap below 1e-4), with equal
    host_syncs.
+26. tp-serve — tensor-parallel serving (`Generator(mesh=make_mesh({"tp":
+   N}, ["cuda"]))`, every rank on the card): first K1 at the ranks'
+   geometries against its plain version, q bfloat16, over bf16 and int8
+   pools, at the `kernel` phase's decode, mixed and verify cases with 16
+   heads over 2 KV groups (tp 2) and 8 heads over 1 (tp 4), head size
+   64, its knobs resolved on the model's 32-head 4-group geometry as the
+   serving path resolves them (reference, tolerance and times as for
+   `kernel`).  Then the serve phase's CLI run and trace with `--tp 2`,
+   `--tp 4` and `--tp 2 --kv-dtype int8`, the single engine on the same
+   trace beside each pool: every request finishes with its budget in the
+   vocabulary, K1 launches exactly tp x 22 per target forward (counted at
+   replay), the plain route never, the steps are captured and replayed,
+   host_syncs equal the single engine's.  Prints tokens/s beside the
+   single engine's and their ratio, the capture seconds and the bf16
+   divergences from the single engine's streams (`bf16_divergences`: the
+   ranks' partial sums meet in an all-reduce, another summation order;
+   printed, never gated).  Then float32 at 4 layers, tp 2 and 4: the
+   streams through K1 must give the single engine's and the tp engine's
+   through the plain route (`divergence_ok`).
+27. tp-generate — K2 at the generate phase's prefill shape (B=4, T=2048,
+   causal, bf16) with 16 heads over 2 groups and 8 over 1, against its
+   plain version (times as for `flash`); then `Generator(mesh=make_mesh(
+   {"tp": 2}, ["cuda"])).generate` on the generate phase's four prompts
+   (1100-1900 tokens, bucket 2048), 64 new tokens: exactly 2 x 22 K2
+   launches for the prefill, the plain version never, the decode chunks
+   captured; bf16 divergences from the single device printed.  Then
+   float32 at 4 layers: tp 2 and dp x tp = 2 x 2 generate the single
+   device's streams (`divergence_ok`).
+28. tools — `cli.prepare_data` on a text file the phase writes, tokenized
+   by the chat phase's word-level tokenizer into train.bin and val.bin,
+   then `cli.evaluate` on the ckpt phase's checkpoint (all 22 layers,
+   bf16) over those bins: its loss must equal, within 1e-3, the port's
+   `cross_entropy_loss` computed here on the same batches.  Without the
+   ckpt phase it writes the snapshot first, as `chat` does; without the
+   `tokenizers` library it says so and skips, as `chat` does.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4, each with `paths`: its launches in every phase that drives
@@ -345,8 +380,9 @@ it, K1's `server` the closed submission's with the observer on, its
 `quant` summed over the three quantized serves, K2's `quant` over the
 three quantized generates, K1's `moe-quant` over the int8 and the three
 4-layer serves, its `tune` the tuned serve's, its `pp-serve` over the
-three ring serves, K3's and K4's `moe-train` over the three counted
-steps); the last line is `{"ok": true, "device":
+three ring serves, its `tp-serve` over the three tp serves, K2's
+`tp-generate` the tp 2 generate's, K3's and K4's `moe-train` over the
+three counted steps); the last line is `{"ok": true, "device":
 {...}}`.
 """
 
@@ -4001,11 +4037,371 @@ def _serve_trace(engine, trace):
     return engine.run()
 
 
+TP_SIZES = (2, 4)
+TP_SERVE_ARGV = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"]
+TP_F32_LAYERS = 4
+TP_K1_CASES = ("decode", "mixed", "verify")
+
+
+def phase_tp_kernels(record):
+    """K1 at the tp ranks' geometries (the module docstring, phase 26),
+    its knobs resolved on the model's whole geometry as the path does."""
+    import torch
+
+    from mdi_llm_tpu_torch.ops import tuning
+    from mdi_llm_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+        ragged_paged_attention_plain,
+    )
+
+    rows = {}
+    for tp in TP_SIZES:
+        H, G = 32 // tp, 4 // tp
+        for kind in ("bfloat16", "int8"):
+            for label in TP_K1_CASES:
+                spans, T, hs = K1_CASES[label]
+                scale = hs ** -0.5
+                args, owned = make_case(spans, T, torch.bfloat16, seed=len(spans) + T,
+                                        H=H, G=G, hs=hs)
+                if kind == "int8":
+                    kp, vp = narrow_pools(args[1], args[2], kind, seed=T)
+                    args = (args[0], kp, vp) + args[3:]
+                pool = args[1]["q"] if kind == "int8" else args[1]
+                params = tuning.global_kernel_params(32, 4, hs, pool.shape[1], torch.bfloat16,
+                                                     pool.dtype, pool.device)
+                out = ragged_paged_attention(*args, scale=scale, params=params)
+                torch.cuda.synchronize()
+                ref = ragged_paged_attention_plain(args[0].float(), *args[1:], scale=scale)
+                err = (out.float()[:, :, :owned] - ref[:, :, :owned]).abs().max().item()
+                pad = out[:, :, owned:].abs().max().item() if owned < T else 0.0
+                if not err <= TOL["bfloat16"] or pad != 0.0:
+                    fail("tp-serve", f"K1 {H}h/{G}g {kind} pool {label}: max|err| {err} "
+                         f"(tol {TOL['bfloat16']}), padding rows max {pad}")
+                ms = cuda_ms(lambda: ragged_paged_attention(*args, scale=scale, params=params), 50)
+                plain_ms = cuda_ms(lambda: ragged_paged_attention_plain(*args, scale=scale), 5)
+                lib_ms = cuda_ms(library_call(args, scale), 20)
+                b_ms, b_by = bound(args, owned)
+                rows[(tp, kind, label)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                               bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+                print(f"tp-serve: K1 tp={tp} ({H} heads / {G} groups) {kind} pool, q bfloat16 "
+                      f"{label} T={T} hs={hs} params={params.to_dict()} max_abs_err={err:.3e} "
+                      f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                      f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+                del args, out, ref
+            torch.cuda.empty_cache()
+    record["max_abs_err"] = max(record.get("max_abs_err", 0.0),
+                                max(r["max_abs_err"] for r in rows.values()))
+    return rows
+
+
+def tp_served(phase, argv, tp):
+    """The serve CLI on `argv` with `--tp tp`, K1's and the plain route's
+    counts set to 0 just before and read just after.  Fails unless the
+    engine runs 22 layers over tp ranks on one card, every request
+    finished with its budget in the vocabulary, K1 launched exactly tp x
+    22 per target forward and the plain route never, and the steps were
+    captured when the engine was built and replayed in the run.  Returns
+    (stats line, K1 launches, engine, results)."""
+    from mdi_llm_tpu_torch.cli import serve as cli
+
+    from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention
+
+    args = cli.build_parser().parse_args(argv + ["--tp", str(tp)])
+    reset_k1_counts()
+    trace, results, stats, engine, _tok = cli.serve(args)
+    launches, plain = k1_counts()
+    engine.k1_merge_launches = ragged_paged_attention.merge_launches
+    gen = engine.gen
+    if gen.tp != tp or gen.cfg.n_layer != 22 or set(engine._kv) != set(range(tp)):
+        fail(phase, f"--tp {tp}: Generator tp {gen.tp}, {gen.cfg.n_layer} layers, pool "
+             f"ranks {sorted(engine._kv)}")
+    want = tp * 22 * engine.forward_calls
+    if launches != want or plain or not launches:
+        fail(phase, f"--tp {tp}: K1 launches {launches}, plain route {plain}: want {want} "
+             f"= {tp} ranks x 22 layers x {engine.forward_calls} forwards")
+    graphs = engine.graph_stats()
+    if graphs["captures"] != graphs["steps"] or not graphs["replays"]:
+        fail(phase, f"--tp {tp}: steps {graphs['steps']}, captures {graphs['captures']}, "
+             f"replays {graphs['replays']}: the tp engine's steps must replay as graphs")
+    vocab = gen.cfg.padded_vocab_size
+    for rid, prompt, new in trace:
+        out = results.get(rid)
+        if out is None or len(out) - len(prompt) != new or not all(
+                0 <= t < vocab for t in out[len(prompt):]):
+            fail(phase, f"--tp {tp}: {rid} did not finish with its {new} tokens in the "
+                 "vocabulary")
+    line = cli.stats_line(stats, engine, [len(p) + n / 2 for _rid, p, n in trace])
+    return line, launches, engine, results
+
+
+def phase_tp_serve(k1, card):
+    """Tensor-parallel serving on the card (the module docstring, phase 26)."""
+    import torch
+
+    from mdi_llm_tpu_torch.cli import serve as cli
+    from mdi_llm_tpu_torch.cli.serve import synthetic_trace
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.parallel.mesh import make_mesh
+
+    phase_tp_kernels(k1)
+    # warm-up (CUDA context, cuBLAS handles), not counted
+    cli.serve(cli.build_parser().parse_args(SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8",
+                                                          "--tp", "2"]))
+    torch.cuda.synchronize()
+    total = 0
+    for kv, extra, sizes in (("bfloat16", [], TP_SIZES), ("int8", ["--kv-dtype", "int8"], (2,))):
+        argv = TP_SERVE_ARGV + extra
+        single_line, _launches, single, want = serve_checked("tp-serve", argv)
+        for tp in sizes:
+            torch.cuda.reset_peak_memory_stats()
+            line, launches, engine, got = tp_served("tp-serve", argv, tp)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            total += launches
+            n_div = bf16_divergences("tp-serve", single.gen, got, want,
+                                     f"--tp {tp} {kv} pool vs the single engine")
+            if line["host_syncs"] != single_line["host_syncs"]:
+                fail("tp-serve", f"--tp {tp} {kv}: host_syncs {line['host_syncs']}, the single "
+                     f"engine's {single_line['host_syncs']}")
+            print("tp-serve: " + json.dumps({
+                "card": card, "tp": tp, "kv_dtype": kv, "requests": 16, "new_tokens": 64,
+                "tokens_per_s": line["tokens_per_s"],
+                "single_tokens_per_s": single_line["tokens_per_s"],
+                "tp_over_single": line["tokens_per_s"] / single_line["tokens_per_s"],
+                "wall_s": line["wall_s"], "single_wall_s": single_line["wall_s"],
+                "n_chips": line["n_chips"], "devices": line["devices"],
+                "mixed_steps": line["mixed_steps"], "forward_calls": engine.forward_calls,
+                "host_syncs": line["host_syncs"], "k1_launches": launches,
+                "k1_merge_launches": engine.k1_merge_launches,
+                "graph_captures": line["graph_captures"], "graph_replays": line["graph_replays"],
+                "capture_s": line["capture_s"], "single_capture_s": single_line["capture_s"],
+                "bf16_divergences": n_div, "peak_memory_gib": peak}), flush=True)
+            del engine, got
+            free()
+        del single, want
+        free()
+    k1.setdefault("paths", {})["tp-serve"] = total
+
+    # float32 at 4 layers: the tp engine through K1 gives the single
+    # engine's streams through K1 and its own through the plain route
+    gen = tiny_llama_generator(TP_F32_LAYERS, torch.float32)
+    trace = synthetic_trace(4, gen.cfg.vocab_size, 2048, 16)
+    want, wstats = _serve_trace(gen.serve(block_size=16, max_batch=8), trace)
+    for tp in TP_SIZES:
+        tgen = Generator(gen.cfg, gen.params, max_seq_length=2048, device=gen.device,
+                         mesh=make_mesh({"tp": tp}, [gen.device]))
+        streams = {}
+        for route, use_kernel in (("kernel", None), ("plain", False)):
+            reset_k1_counts()
+            engine = tgen.serve(block_size=16, max_batch=8, use_kernel=use_kernel)
+            streams[route], stats = _serve_trace(engine, trace)
+            launched, plain = k1_counts()
+            want_launches = tp * TP_F32_LAYERS * engine.forward_calls if route == "kernel" else 0
+            if launched != want_launches or (plain > 0) != (route == "plain"):
+                fail("tp-serve", f"float32 tp={tp}: the {route} run launched K1 {launched} "
+                     f"times (want {want_launches}) and took the plain route {plain} times")
+            if stats.host_syncs != wstats.host_syncs:
+                fail("tp-serve", f"float32 tp={tp} {route}: host_syncs {stats.host_syncs}, "
+                     f"the single engine's {wstats.host_syncs}")
+            del engine
+        divergence_ok("tp-serve", gen, streams["kernel"], want,
+                      f"float32 tp={tp} (K1) vs single engine (K1)")
+        divergence_ok("tp-serve", gen, streams["kernel"], streams["plain"],
+                      f"float32 tp={tp} K1 vs plain route")
+        same = sum(streams["kernel"][r] == want[r] for r in want)
+        print(f"tp-serve: float32 {TP_F32_LAYERS} layers x {gen.cfg.n_embd}, tp={tp}: "
+              f"{same} of {len(trace)} greedy streams identical to the single engine's, "
+              f"{sum(streams['kernel'][r] == streams['plain'][r] for r in want)} to the plain "
+              f"route's; host_syncs {wstats.host_syncs} as the single engine's", flush=True)
+        del tgen
+    del gen
+    free()
+
+
+def phase_tp_generate(k2, card):
+    """Tensor-parallel generation on the card (the module docstring,
+    phase 27)."""
+    import torch
+
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+    from mdi_llm_tpu_torch.parallel.mesh import make_mesh
+
+    B, T = 4, 2048
+    for tp in TP_SIZES:
+        H, G = 32 // tp, 4 // tp
+        q, k, v = flash_inputs(B, T, torch.bfloat16, seed=T + tp, H=H, G=G)
+        out = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref, _lse = flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+        err = (out.float() - ref).abs().max().item()
+        del ref, _lse
+        if not err <= TOL["bfloat16"]:
+            fail("tp-generate", f"K2 {H}h/{G}g: max|err| {err} (tol {TOL['bfloat16']})")
+        ms = cuda_ms(lambda: flash_attention(q, k, v), 20)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), 3)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20)
+        b_ms, b_by = flash_bound(B, H, G, T, 64, torch.bfloat16, True, False)
+        k2["max_abs_err"] = max(k2.get("max_abs_err", 0.0), err)
+        print(f"tp-generate: K2 tp={tp} ({H} heads / {G} groups) bfloat16 B={B} T={T} "
+              f"hs=64 causal max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})", flush=True)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+
+    single = tiny_llama_generator(22, torch.bfloat16)
+    cfg = single.cfg
+    prompts = long_prompts((1100, 1370, 1650, 1900), cfg.vocab_size)
+    single.generate([[1, 2, 3]] * 4, 4, temperature=0.0)  # warm-up, not counted
+    want, wstats = single.generate(prompts, 64, temperature=0.0, chunk_size=16)
+    gen = Generator(cfg, single.params, max_seq_length=2048, device="cuda",
+                    mesh=make_mesh({"tp": 2}, ["cuda"]))
+    gen.generate([[1, 2, 3]] * 4, 4, temperature=0.0)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention_plain.calls = 0
+    outs, stats = gen.generate(prompts, 64, temperature=0.0, chunk_size=16)
+    torch.cuda.synchronize()
+    launches, plain = flash_attention.launches, flash_attention_plain.calls
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        new = o[len(p):]
+        if len(new) != 64 or not all(0 <= t < cfg.padded_vocab_size for t in new):
+            fail("tp-generate", f"sample {i} did not get 64 tokens in the vocabulary")
+    if launches != 2 * 22 or plain or not stats.captures:
+        fail("tp-generate", f"K2 launches {launches} (want 2 x 22), plain version calls "
+             f"{plain} (want 0), decode-chunk captures {stats.captures} (want > 0)")
+    n_div = bf16_divergences("tp-generate", single, dict(enumerate(outs)),
+                             dict(enumerate(want)), "tp=2 generate vs the single device")
+    tp_replay_s = stats.decode_s - stats.capture_s
+    single_replay_s = wstats.decode_s - wstats.capture_s
+    print("tp-generate: " + json.dumps({
+        "card": card, "tp": 2, "prompt_lens": [len(p) for p in prompts], "new_tokens": 64,
+        "prefill_s": round(stats.prefill_s, 4), "single_prefill_s": round(wstats.prefill_s, 4),
+        "decode_s": round(stats.decode_s, 4), "single_decode_s": round(wstats.decode_s, 4),
+        "tokens_per_s": round(stats.tokens_per_s, 2),
+        "single_tokens_per_s": round(wstats.tokens_per_s, 2),
+        # decode_s holds this run's graph captures: tokens/s without them
+        "replay_tokens_per_s": stats.tokens_generated / tp_replay_s,
+        "single_replay_tokens_per_s": wstats.tokens_generated / single_replay_s,
+        "tp_over_single": single_replay_s / tp_replay_s,
+        "graph_captures": stats.captures, "capture_s": round(stats.capture_s, 4),
+        "single_capture_s": round(wstats.capture_s, 4),
+        "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        "k2_launches": launches, "k2_plain_calls": plain, "bf16_divergences": n_div}),
+        flush=True)
+    k2.setdefault("paths", {})["tp-generate"] = launches
+    del gen, single
+    free()
+
+    # float32 at 4 layers: tp 2 and dp x tp = 2 x 2 generate the single
+    # device's streams
+    single = tiny_llama_generator(TP_F32_LAYERS, torch.float32)
+    prompts = long_prompts((1100, 1370, 1650, 1900), single.cfg.vocab_size, seed=7)
+    want, _ = single.generate(prompts, 16, temperature=0.0)
+    for axes in ({"tp": 2}, {"dp": 2, "tp": 2}):
+        gen = Generator(single.cfg, single.params, max_seq_length=2048, device="cuda",
+                        mesh=make_mesh(axes, ["cuda"]))
+        flash_attention.launches = flash_attention_plain.calls = 0
+        got, _ = gen.generate(prompts, 16, temperature=0.0)
+        launched = flash_attention.launches
+        n_ranks = axes["tp"] * axes.get("dp", 1)
+        if launched != n_ranks * TP_F32_LAYERS or flash_attention_plain.calls:
+            fail("tp-generate", f"float32 {axes}: K2 launches {launched} (want {n_ranks} x "
+                 f"{TP_F32_LAYERS}), plain version calls {flash_attention_plain.calls}")
+        divergence_ok("tp-generate", single, dict(enumerate(got)), dict(enumerate(want)),
+                      f"float32 {axes} vs the single device")
+        print(f"tp-generate: float32 {TP_F32_LAYERS} layers x {single.cfg.n_embd}, mesh "
+              f"{axes}: {sum(g == w for g, w in zip(got, want))} of {len(want)} greedy "
+              f"streams identical to the single device's; K2 launches {launched}", flush=True)
+        del gen
+    del single
+    free()
+
+
+TOOLS_WORDS = 60000  # the text file's words: ~54k train and ~6k val tokens
+
+
+def phase_tools(card, ckpt_dir):
+    """`cli.prepare_data` and `cli.evaluate` on the card (the module
+    docstring, phase 28)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from mdi_llm_tpu_torch.cli import evaluate as evaluate_cli
+    from mdi_llm_tpu_torch.cli import prepare_data
+    from mdi_llm_tpu_torch.cli import prepare_model
+    from mdi_llm_tpu_torch.training import cross_entropy_loss
+    from mdi_llm_tpu_torch.utils import checkpoint as ck
+    from mdi_llm_tpu_torch.utils import data_loader
+    from mdi_llm_tpu_torch.utils.tokenizer import Tokenizer
+
+    if importlib.util.find_spec("tokenizers") is None:
+        print("tools: tokenizers is not installed on this machine; prepare_data and "
+              "evaluate are held on the CPU only", flush=True)
+        return
+    if not ck.has_checkpoint(ckpt_dir):  # run without the ckpt phase
+        print("tools: the ckpt phase did not run: writing its snapshot here", flush=True)
+        write_snapshot(ckpt_dir)
+        prepare_model.main([str(ckpt_dir)])
+    write_word_tokenizer(ckpt_dir)
+    data_dir = Path(ckpt_dir).parent / "tools-data"
+    data_dir.mkdir(exist_ok=True)
+    rng = np.random.default_rng(10137)
+    text = data_dir / "input.txt"
+    text.write_text(" ".join(f"w{i}" for i in rng.integers(3, CHAT_VOCAB, TOOLS_WORDS)))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_p, val_p = prepare_data.main(["--dataset", str(text), "--ckpt", str(ckpt_dir)])
+    prep_s = time.perf_counter() - t0
+    ids = Tokenizer(ckpt_dir).encode(text.read_text(), bos=False)
+    bins = np.concatenate([np.fromfile(train_p, np.uint16), np.fromfile(val_p, np.uint16)])
+    if not np.array_equal(bins, ids.astype(np.uint16)):
+        fail("tools", "train.bin + val.bin are not the text's tokens in order")
+
+    argv = ["--ckpt", str(ckpt_dir), "--dataset", str(data_dir), "--split", "val",
+            "--eval-iters", "4", "--batch-size", "4", "--block-size", "1024",
+            "--dtype", "bfloat16", "--device", DEVICE]
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = evaluate_cli.main(argv)
+    eval_s = time.perf_counter() - t0
+    rec = json.loads(printed.getvalue().strip().splitlines()[-1])
+    if rc != 0 or set(rec) != {"ckpt", "split", "tokens", "eval_iters", "loss", "perplexity"}:
+        fail("tools", f"cli.evaluate returned {rc} with keys {sorted(rec)}")
+    cfg, params = ck.load_checkpoint(ckpt_dir, dtype=torch.bfloat16, device=DEVICE)
+    if cfg.n_layer != 22:
+        fail("tools", f"the checkpoint has {cfg.n_layer} layers, want 22")
+    data = data_loader.open_bin(val_p)
+    draws = np.random.default_rng(10137)
+    losses = []
+    with torch.no_grad():
+        for _ in range(4):
+            x, y = data_loader.get_batch(data, 4, 1024, draws)
+            losses.append(float(cross_entropy_loss(
+                cfg, params, torch.from_numpy(x).to(DEVICE), torch.from_numpy(y).to(DEVICE),
+                remat=False)))
+    direct = float(np.mean(losses))
+    if not abs(rec["loss"] - direct) <= 1e-3 or not np.isfinite(direct):
+        fail("tools", f"cli.evaluate loss {rec['loss']} against the direct "
+             f"cross_entropy_loss {direct}")
+    print("tools: " + json.dumps({
+        "card": card, "text_words": TOOLS_WORDS, "train_tokens": int(np.fromfile(
+            train_p, np.uint16).size), "val_tokens": int(data.size),
+        "prepare_data_s": round(prep_s, 3), "evaluate": rec, "evaluate_s": round(eval_s, 2),
+        "direct_loss": direct}), flush=True)
+    del params
+    free()
+
+
 PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
           "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs", "server",
           "tier", "quant", "moe", "moe-quant", "moe-train", "tune", "pipeline",
-          "pipeline-nodes", "pp-serve")
+          "pipeline-nodes", "pp-serve", "tp-serve", "tp-generate", "tools")
 
 
 def main(argv=None) -> None:
@@ -4099,6 +4495,9 @@ def main(argv=None) -> None:
         "pipeline": lambda: phase_pipeline(card),
         "pipeline-nodes": lambda: phase_pipeline_nodes(card),
         "pp-serve": lambda: phase_pp_serve(k1, card),
+        "tp-serve": lambda: phase_tp_serve(k1, card),
+        "tp-generate": lambda: phase_tp_generate(k2, card),
+        "tools": lambda: phase_tools(card, ckpt_dir),
     }
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = Path(tmp) / TINY_LLAMA
@@ -4111,10 +4510,10 @@ def main(argv=None) -> None:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
     records = (k1, k1q8, k2, k3, k4)
     missing = [(r["name"], k) for r in records for k in keys if k not in r]
-    k2_paths = {"generate", "ckpt", "graphs", "quant", "moe", "moe-quant"} | (
+    k2_paths = {"generate", "ckpt", "graphs", "quant", "moe", "moe-quant", "tp-generate"} | (
         {"chat"} if importlib.util.find_spec("tokenizers") else set())
     k1_paths = {"serve", "ckpt", "graphs", "server", "tier", "quant", "moe", "moe-quant", "tune",
-                "pp-serve"}
+                "pp-serve", "tp-serve"}
     k34_paths = {"train", "moe-train"}
     if only == set(PHASES) and (set(k1["paths"]) != k1_paths or set(k2["paths"]) != k2_paths
                                 or set(k3["paths"]) != k34_paths

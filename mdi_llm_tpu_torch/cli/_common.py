@@ -10,7 +10,8 @@ fields of the registry config (a depth cut, or a tiny width for the
 CPU). `--quantize int8|w8a8|int4` quantizes the weights when the
 Generator is built (`ops/quant.py`); a checkpoint written by
 `prepare_model --quantize` loads already quantized, with `--quantize
-none`.
+none`.  `make_tp_mesh` is the tensor-parallel mesh of `--tp` and
+`--tp-devices`, every rank on `--device`.
 """
 
 from __future__ import annotations
@@ -109,6 +110,24 @@ def config_overrides(items) -> dict:
         except json.JSONDecodeError:
             out[key] = value
     return out
+
+
+def make_tp_mesh(tp_devices: int, quantize: str, device: str = "cuda"):
+    """Shared --tp-devices / --tp handling: validate, then a 1-D tp mesh
+    (`parallel.mesh.make_mesh`).  Composes with --quantize: quantized
+    layouts split under the adapted Megatron specs
+    (`parallel.sharding.adapt_specs_to_tree`).
+
+    One deliberate difference from the JAX CLI, which lays the mesh over
+    the first N devices: every rank goes on the one `--device` (the
+    default `cuda`, or `cpu`), so one card runs tp = N.  A mesh over
+    several cards is `make_mesh({"tp": N}, devices)` in the library."""
+    del quantize  # accepted everywhere, as in the JAX CLI
+    if tp_devices < 1:
+        raise SystemExit("--tp-devices must be a positive device count")
+    from mdi_llm_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh({"tp": tp_devices}, [device])
 
 
 def refuse(what: str) -> None:

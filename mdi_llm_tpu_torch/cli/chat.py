@@ -1,6 +1,7 @@
 """Interactive chat REPL of the port, streaming token output.
 
-Port of `mdi_llm_tpu/cli/chat.py` for one device and for the recurrent
+Port of `mdi_llm_tpu/cli/chat.py` for one device, a tensor-parallel mesh
+(`--tp-devices N`, every rank on `--device`) and the recurrent
 pipeline: each turn gets the model's prompt style, tokens print as they
 decode (`StreamPrinter`: incremental re-decode, so multi-byte and merged
 tokens print correctly, and stop-sequence prefixes are held back).  On
@@ -16,11 +17,12 @@ package's does.  An empty line or end of input ends the chat.
     python -m mdi_llm_tpu_torch.cli.chat --ckpt checkpoints/tiny-llama
     python -m mdi_llm_tpu_torch.cli.chat --device cpu --ckpt DIR --temperature 0
     python -m mdi_llm_tpu_torch.cli.chat --device cpu --ckpt DIR --pipeline-stages 2
+    python -m mdi_llm_tpu_torch.cli.chat --device cpu --ckpt DIR --tp-devices 2
 
 Needs a checkpoint with a tokenizer (`--ckpt`).  Runs on the GPU unless
 `--device cpu` is given; without a GPU and without that flag it raises.
 The JAX CLI's other streaming backends are refused, each naming the
-ROADMAP item that carries it.
+ROADMAP item that carries it, and, as there, one backend at a time.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import argparse
 from mdi_llm_tpu_torch.cli._common import (
     add_common_args,
     load_model,
+    make_tp_mesh,
     refuse,
     resolve_kv_dtype,
 )
@@ -37,7 +40,7 @@ from mdi_llm_tpu_torch.config import TEMPERATURE, TOP_K
 from mdi_llm_tpu_torch.generation import Generator, StreamPrinter, resolve_device
 
 # streaming backends of the JAX CLI: flag -> the ROADMAP item carrying it
-_UNPORTED = {"tp_devices": "item 14", "ep_devices": "item 16", "sp_devices": "item 16"}
+_UNPORTED = {"ep_devices": "item 16", "sp_devices": "item 16"}
 
 
 def build_parser():
@@ -59,14 +62,24 @@ def build_parser():
     ap.add_argument("--rotations-per-call", type=int, default=2,
                     help="pipeline streaming: ring rotations per steady call "
                     "(smaller: earlier first bytes; larger: more throughput)")
+    ap.add_argument("--tp-devices", type=int, default=0,
+                    help="chat over N tensor-parallel ranks, all on --device "
+                    "(0 = off)")
     unported = ap.add_argument_group("not ported yet (refused when set)")
-    for flag in ("--tp-devices", "--ep-devices", "--sp-devices"):
+    for flag in ("--ep-devices", "--sp-devices"):
         unported.add_argument(flag, type=int, default=0)
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    backends = (args.tp_devices, args.pipeline_stages, args.ep_devices, args.sp_devices)
+    if sum(bool(f) for f in backends) > 1:
+        raise SystemExit(
+            "--tp-devices, --pipeline-stages, --ep-devices and --sp-devices "
+            "are separate streaming backends; pick one (for a pipe x tp "
+            "mesh use cli/starter.py)"
+        )
     for name, item in _UNPORTED.items():
         if getattr(args, name):
             refuse(f"--{name.replace('_', '-')} ({item})")
@@ -95,6 +108,8 @@ def main(argv=None):
         cfg, params, max_seq_length=args.sequence_length, rng_seed=args.seed,
         cache_dtype=resolve_kv_dtype(args.kv_dtype), device=args.device,
         quantize=args.quantize,
+        mesh=(make_tp_mesh(args.tp_devices, args.quantize, args.device)
+              if args.tp_devices else None),
     )
 
     print(f"Chatting with {cfg.name} — empty line or Ctrl-D to exit.")

@@ -1,7 +1,10 @@
-"""Text generation CLI of the port: one device, or the recurrent pipeline.
+"""Text generation CLI of the port: one device, a tensor-parallel mesh, or
+the recurrent pipeline.
 
 Port of `mdi_llm_tpu/cli/sample.py`: `Generator.generate` over
-`--n-samples` prompts, or with `--pipeline-stages S` the recurrent
+`--n-samples` prompts (with `--tp-devices N` over N tensor-parallel
+ranks, every rank on `--device`: `cli._common.make_tp_mesh`), or with
+`--pipeline-stages S` the recurrent
 pipeline (`parallel/pipeline.PipelineEngine`: S stages in one process on
 the device, `--samples-per-slot` samples per ring slot, `--chunk` ring
 rotations per steady call, `--overlap-chunks`).  With `--ckpt DIR` the
@@ -14,12 +17,15 @@ samples print as token ids.  `--profile-dir DIR` writes a torch.profiler
 trace of the run (`utils/profiling.profile`), `--debug` a cProfile dump
 into `--logs-dir`.  Runs on the GPU unless `--device cpu` is given;
 without a GPU and without that flag it raises.  Flags of features the
-port does not carry yet are refused.
+port does not carry yet are refused, naming their ROADMAP item
+(`--tp-devices` with `--pipeline-stages`, a pipe x tp mesh: item 14,
+second half); the JAX CLI's exclusions between the parallelism flags hold.
 
     python -m mdi_llm_tpu_torch.cli.sample --ckpt checkpoints/tiny-llama --prompt "Once upon a time,"
     python -m mdi_llm_tpu_torch.cli.sample --model tiny-llama-1.1b --n-samples 4 --greedy
     python -m mdi_llm_tpu_torch.cli.sample --model tiny-llama-1.1b --n-samples 4 --pipeline-stages 2 --samples-per-slot 2
     python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8
+    python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8 --tp-devices 2
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from mdi_llm_tpu_torch.cli._common import (
     add_log_args,
     add_run_args,
     load_model,
+    make_tp_mesh,
     refuse,
     report_run,
     resolve_kv_dtype,
@@ -43,8 +50,9 @@ from mdi_llm_tpu_torch.cli._common import (
 from mdi_llm_tpu_torch.generation import resolve_device
 from mdi_llm_tpu_torch.utils.prompts import get_user_prompt
 
-# flags of the JAX CLI whose features are not ported: refused when set
-_UNPORTED = {"sp_devices": 0, "tp_devices": 0, "ep_devices": 0, "coordinator": None}
+# flags of the JAX CLI whose features are not ported: flag -> (default, item)
+_UNPORTED = {"sp_devices": (0, "item 16"), "ep_devices": (0, "item 16"),
+             "coordinator": (None, "item 14, second half")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,9 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
                     "the previous one's tokens")
     ap.add_argument("--profile-dir", type=Path, default=None,
                     help="write a torch.profiler trace of the run here")
+    ap.add_argument("--tp-devices", type=int, default=0,
+                    help="tensor-parallel generation over N ranks, all on "
+                    "--device (0 = off)")
     add_log_args(ap)
     unported = ap.add_argument_group("not ported yet (refused when set)")
-    for flag in ("--sp-devices", "--tp-devices", "--ep-devices"):
+    for flag in ("--sp-devices", "--ep-devices"):
         unported.add_argument(flag, type=int, default=0)
     unported.add_argument("--coordinator", default=None)
     return ap
@@ -80,9 +91,21 @@ def run(args):
     from mdi_llm_tpu_torch.generation import Generator
     from mdi_llm_tpu_torch.utils.profiling import profile
 
-    for name, default in _UNPORTED.items():
+    if args.tp_devices and args.sp_devices:
+        raise SystemExit("--tp-devices is exclusive with --sp-devices")
+    if args.tp_devices < 0:
+        raise SystemExit("--tp-devices must be a positive device count")
+    if args.ep_devices and (args.tp_devices or args.sp_devices or args.pipeline_stages):
+        raise SystemExit(
+            "--ep-devices is a standalone expert-parallel mesh; drop the "
+            "other parallelism flags"
+        )
+    for name, (default, item) in _UNPORTED.items():
         if getattr(args, name) != default:
-            refuse("--" + name.replace("_", "-"))
+            refuse(f"--{name.replace('_', '-')} ({item})")
+    if args.tp_devices and args.pipeline_stages:
+        refuse("--tp-devices with --pipeline-stages (a pipe x tp mesh, "
+               "item 14, second half)")
     temperature = 0.0 if args.greedy else args.temperature
     if args.speculative:
         if args.pipeline_stages:
@@ -124,6 +147,8 @@ def run(args):
                 cfg, params, max_seq_length=args.sequence_length, rng_seed=args.seed,
                 cache_dtype=resolve_kv_dtype(args.kv_dtype),
                 device=args.device, quantize=args.quantize,
+                mesh=(make_tp_mesh(args.tp_devices, args.quantize, args.device)
+                      if args.tp_devices else None),
             )
             outs, stats = gen.generate(
                 prompt_ids, args.n_tokens, chunk_size=args.chunk,
@@ -135,7 +160,7 @@ def run(args):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     prompt_ids, outs, stats, gen, tokenizer, seconds = run(args)
-    n_nodes = args.pipeline_stages or 1
+    n_nodes = args.pipeline_stages or args.tp_devices or 1
     report_run(args, gen.cfg, tokenizer, prompt_ids, outs, stats, seconds, n_nodes,
                f"{n_nodes} node(s)" + (f", {stats.rotations} rotations"
                                        if args.pipeline_stages else ""))

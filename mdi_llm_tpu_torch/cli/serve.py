@@ -1,7 +1,7 @@
 """Offline serving driver of the port: a request trace through the
 paged-KV continuous-batching engine (`serving/engine.py`).
 
-Port of `mdi_llm_tpu/cli/serve.py` on one device: the weights of
+Port of `mdi_llm_tpu/cli/serve.py`: the weights of
 `--ckpt DIR` (HF weights in it are converted in place first) or random
 weights of `--model NAME` from `--seed`; the trace is text prompts
 (`--prompt-file`, one per line, or `--prompt` repeated `--n-requests`
@@ -20,9 +20,14 @@ count its work.  `--quantize int8|w8a8|int4` serves quantized weights
 (`serving/pipeline.py`), every stage on `--device`: the layers split
 by the reference's stage table, each stage's paged attention through K1,
 and the stats line gains the ring's `pipeline` block (stages, lanes,
-each stage's layers, the bubble fraction).  Runs on the GPU unless
-`--device cpu` is given; without a GPU and without that flag it raises.
-A flag of a feature the port does not carry yet (`--tp`) is refused.
+each stage's layers, the bubble fraction).  `--tp N` serves over a
+tensor-parallel mesh of N ranks, every rank on `--device`
+(`cli._common.make_tp_mesh`): the weights split under the Megatron
+rules, the pool's KV groups over the ranks, each rank's paged attention
+through K1; the stats line's `tp` and `n_chips` (tp x pp, the JAX line's
+chip count) say so.  `--tp` with `--pp` is refused (ROADMAP item 14,
+second half).  Runs on the GPU unless `--device cpu` is given; without a
+GPU and without that flag it raises.
 
 Observability rides every run (`obs/`, hooks at the engine's host-sync
 boundaries): the stats line carries the per-request latency block
@@ -45,6 +50,8 @@ request/step timeline, `--sample-rss` adds a host RSS gauge, and
         --max-blocks 24 --host-pool-mib 16
     python -m mdi_llm_tpu_torch.cli.serve --device cpu --model pythia-14m \\
         --synthetic 3 --max-batch 2 --n-tokens 8 --sequence-length 128 --block-size 8 --pp 2
+    python -m mdi_llm_tpu_torch.cli.serve --device cpu --model pythia-14m \\
+        --synthetic 3 --max-batch 2 --n-tokens 8 --sequence-length 128 --block-size 8 --tp 2
 """
 
 from __future__ import annotations
@@ -61,14 +68,12 @@ from mdi_llm_tpu_torch.cli._common import (
     DTYPES,
     add_common_args,
     load_model,
+    make_tp_mesh,
     refuse,
     resolve_kv_dtype,
 )
 from mdi_llm_tpu_torch.generation import resolve_device
 from mdi_llm_tpu_torch.models import transformer
-
-# flags of the JAX CLI whose features are not ported: refused when set
-_UNPORTED = {"tp": 1}
 
 
 def build_parser():
@@ -136,6 +141,11 @@ def build_parser():
                     "table), all on --device, each holding its own shard of "
                     "the paged KV pool; decode lanes fill the ring, so keep "
                     "--max-batch >= --pp.  1 = no pipelining")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel serving over this many ranks, all "
+                    "on --device: the weights split under the Megatron "
+                    "rules, the paged pool's KV groups over the ranks, one "
+                    "all-reduce per row-parallel product.  1 = no split")
     ap.add_argument("--policy", default="fcfs",
                     choices=("fcfs", "priority", "fair", "deadline"),
                     help="scheduling policy (serving/policy.py)")
@@ -173,8 +183,6 @@ def build_parser():
     ap.add_argument("--xprof-skip", type=int, default=8,
                     help="engine steps to let pass before the --xprof-steps "
                     "window opens")
-    unported = ap.add_argument_group("not ported yet (refused when set)")
-    unported.add_argument("--tp", type=int, default=1)
     return ap
 
 
@@ -227,14 +235,20 @@ def make_serving_config(args, admission_queue=None):
 
 def build_generator(args, cfg, params, _graphs=None):
     """The Generator the flags describe; with `--pp S > 1` on a pipeline
-    mesh of S stages, all on `--device`."""
+    mesh of S stages, with `--tp N > 1` on a tp mesh of N ranks, all on
+    `--device`."""
     from mdi_llm_tpu_torch.generation import Generator
     from mdi_llm_tpu_torch.parallel.mesh import pipeline_mesh
 
     dtype = DTYPES[args.dtype]
+    mesh = None
+    if args.pp > 1:
+        mesh = pipeline_mesh(args.pp, [args.device])
+    elif args.tp > 1:
+        mesh = make_tp_mesh(args.tp, args.quantize, args.device)
     return Generator(
         cfg, params,
-        mesh=pipeline_mesh(args.pp, [args.device]) if args.pp > 1 else None,
+        mesh=mesh,
         max_seq_length=args.sequence_length,
         cache_dtype=(
             dtype if args.kv_dtype == "int8"
@@ -264,9 +278,10 @@ def build_engine(args, need_tokenizer, _graphs=None, admission_queue=None,
     its size (`origin` names the CLI)."""
     from mdi_llm_tpu_torch.serving.policy import make_policy
 
-    for name, default in _UNPORTED.items():
-        if getattr(args, name) != default:
-            refuse("--" + name.replace("_", "-"))
+    if args.tp > 1 and args.pp > 1:
+        refuse("--tp with --pp (a pipe x tp mesh, ROADMAP item 14, second half)")
+    if args.tp < 1:
+        raise SystemExit("--tp must be a positive rank count")
     resolve_device(args.device)  # raises before any work without the device
     serving_cfg = make_serving_config(args, admission_queue=admission_queue)
     cfg, params, tokenizer, _style = load_model(args, need_tokenizer=need_tokenizer)
@@ -368,7 +383,9 @@ def roofline_block(engine, stats, contexts) -> dict:
 
 def stats_line(stats, engine, contexts=()) -> dict:
     """The JSON stats line: the engine's stats, the JAX CLI's topology
-    keys (with `--pp` > 1 its `pipeline` block too), the latency block,
+    keys (`tp`, `pp`, `n_chips` = tp x pp, the JAX line's chip count;
+    `devices`, the distinct devices the engine runs on; with `--pp` > 1
+    the `pipeline` block too), the latency block,
     and the port's own keys (forward counts and the step graphs, captured
     when the engine was built, outside wall_s); `device` names the card
     and, with the observer's device capture on, carries `roofline_block`
@@ -377,11 +394,13 @@ def stats_line(stats, engine, contexts=()) -> dict:
     graphs = engine.graph_stats()
     dev = engine.device
     pp = getattr(engine, "n_stages", 1)
-    n_dev = getattr(engine, "devices", 1)
+    tp = engine.gen.tp
+    n_dev = engine.devices
     line.update({
         "kv_dtype": engine.kv_dtype_name,
-        "tp": 1,
+        "tp": tp,
         "pp": pp,
+        "n_chips": tp * pp,
         "devices": n_dev,
         "tokens_per_s_per_chip": round(stats.tokens_per_s / n_dev, 2),
         "forward_calls": engine.forward_calls,

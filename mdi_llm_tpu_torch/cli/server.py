@@ -18,9 +18,10 @@ accepting, finish in-flight streams, stop the engine — bounded by
 latency block) then goes to stderr.  It runs on the GPU unless
 `--device cpu` is given; the engine's steps are captured as CUDA graphs
 before the listener opens, and the engine thread only replays them.
-It takes `cli.serve`'s flags (the host tier's and `--quantize` among
-them); `--tp` is refused (not ported), and so is `--pp`: the JAX
-package's server has no pipeline-parallel engine either.
+It takes `cli.serve`'s flags (the host tier's, `--quantize` and `--tp`
+among them: `--tp N` serves over N tensor-parallel ranks on `--device`);
+`--pp` is refused: the JAX package's server has no pipeline-parallel
+engine either.
 
     python -m mdi_llm_tpu_torch.cli.server --model tiny-llama-1.1b --port 8080
     python -m mdi_llm_tpu_torch.cli.server --ckpt checkpoints/tiny-llama --policy deadline

@@ -16,7 +16,7 @@ The device is `--device`, else the node JSON's "device", else cuda; a
 CUDA device on a machine without one raises.  A refusal on the starter
 (an unported flag, a bad stage count, a failed load) reaches every
 secondary as an abort through the run-spec channel, so no process waits
-on a spec that never comes.  `--tp-devices > 1` is ROADMAP item 14; the
+on a spec that never comes.  `--tp-devices > 1` is ROADMAP item 14, second half; the
 JAX starter's mdi-audit preflight (`--no-preflight`, `--hbm-gb`) is item
 18: both are refused when set.
 
@@ -74,7 +74,8 @@ def add_node_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--chunk", type=int, default=16,
                     help="steady-state ring rotations per call")
     ap.add_argument("--tp-devices", type=int, default=None,
-                    help="tensor-parallel devices per stage (item 14: refused above 1)")
+                    help="tensor-parallel devices per stage (item 14, second half: "
+                    "refused above 1)")
     ap.add_argument("--overlap-chunks", action="store_true",
                     help="run the next steady chunk before reading the previous one")
 
@@ -100,7 +101,8 @@ def _starter_spec(args, nodes_cfg: NodesConfig):
         refuse("--no-preflight/--hbm-gb (the mdi-audit plan preflight, item 18)")
     eff_tp = args.tp_devices if args.tp_devices is not None else nodes_cfg.tp_devices
     if eff_tp > 1:
-        refuse(f"--tp-devices {eff_tp} (tensor parallelism inside a stage, item 14)")
+        refuse(f"--tp-devices {eff_tp} (tensor parallelism inside a stage, "
+               "item 14, second half)")
     n_nodes = nodes_cfg.n_nodes
     n_stages = args.pipeline_stages or nodes_cfg.pipeline_stages or n_nodes
     if n_stages % n_nodes:

@@ -92,9 +92,10 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.mesh:
-        refuse("--mesh (multi-device training, items 14-17)")
+        refuse("--mesh (multi-device training, item 14, second half)")
     if args.coordinator or args.process_id is not None or args.num_processes is not None:
-        refuse("--coordinator/--process-id/--num-processes (multi-host training, item 17)")
+        refuse("--coordinator/--process-id/--num-processes (multi-host training, "
+               "item 14, second half)")
 
     tc = TrainingConfig(
         batch_size=args.batch_size,

@@ -1,7 +1,6 @@
-"""Generation on one device: sequential generation and the serving engine's
-model handle.
+"""Generation: sequential generation and the serving engine's model handle.
 
-Port of `mdi_llm_tpu/generation.py` for one device:
+Port of `mdi_llm_tpu/generation.py`, on one device or on a tp/dp mesh:
 
 - `Generator.generate`: pow2 prompt buckets, a dense KV cache sized to
   the run, one prefill (a shared-prompt batch prefills one lane and
@@ -15,6 +14,17 @@ Port of `mdi_llm_tpu/generation.py` for one device:
   on a pipeline mesh (`Generator(mesh=parallel.mesh.pipeline_mesh(S,
   devices))`, S >= 2) the engine over the stage ring
   (`serving/pipeline.py`).  The other paths run on stage 0's device.
+- `Generator(mesh=parallel.mesh.make_mesh({"dp": D, "tp": N}, devices))`:
+  the weights split under the Megatron rules (`parallel/sharding.py`),
+  each position's slice on its device (one device entry: every position
+  on it, as one card runs tp = 2 or 4).  Every forward is
+  `transformer.sharded_forward` over each dp replica's tp ranks, on its
+  rows of the batch; the dense cache splits its groups over tp and its
+  rows over dp, the serving pool its groups over tp.  A batch dp does
+  not divide, streaming under dp, and serving under dp, ep or sp are
+  refused with the JAX package's messages; batch compaction and the
+  shared-prompt prefill stay off on a mesh, as there.  The decode chunk
+  stays a CUDA graph when every position is on one card.
 - `Generator(quantize="int8" | "w8a8" | "int4")`: the linears and an
   untied head quantized once, on the device (`ops/quant.py`); a tree
   that is quantized already (a `prepare_model --quantize` checkpoint) is
@@ -60,6 +70,7 @@ from mdi_llm_tpu_torch.ops.sampling import (
     sample_traced,
     sampling_operands,
 )
+from mdi_llm_tpu_torch.parallel.mesh import Mesh
 from mdi_llm_tpu_torch.utils.context_managers import catch_loop_errors
 from mdi_llm_tpu_torch.utils.step_graph import StepGraph, summarize
 
@@ -285,14 +296,41 @@ def _refuse(what: str) -> None:
     )
 
 
+# mesh axes of the JAX package the port's Generator does not run yet, and
+# the ROADMAP item that carries each
+_UNPORTED_AXES = {"ep": "item 16", "sp": "item 16", "pp": "item 14, second half",
+                  "pipe": "item 14, second half"}
+
+
+def _check_inference_mesh(mesh: Mesh) -> None:
+    """A `make_mesh` mesh the Generator runs: `tp` and `dp` axes (any
+    axis of size 1 is harmless).  ep and sp meshes, and a pipeline axis
+    crossed with tp, are refused naming their ROADMAP item."""
+    for axis, size in mesh.shape.items():
+        if size <= 1 or axis in ("tp", "dp"):
+            continue
+        if axis in _UNPORTED_AXES:
+            _refuse(f"mesh with {axis}={size}: {axis} meshes are "
+                    f"{_UNPORTED_AXES[axis]}; the pipeline ring takes "
+                    "parallel.mesh.pipeline_mesh's {stage: device}")
+        raise ValueError(f"mesh axis {axis!r} (size {size}): the Generator "
+                         "runs tp and dp axes")
+
+
 def _pipeline_mesh(mesh, device) -> Dict[int, torch.device]:
     """`mesh` as {stage: device}, stages 0..S-1: the dict
-    `parallel.mesh.pipeline_mesh` returns.  Any other mesh (tp, dp or ep
-    axes) is refused; `device`, when given, must be stage 0's."""
+    `parallel.mesh.pipeline_mesh` returns; `device`, when given, must be
+    stage 0's.  Any other dict is refused (a tp or dp mesh is a
+    `parallel.mesh.make_mesh` Mesh)."""
     if not (isinstance(mesh, dict) and mesh and set(mesh) == set(range(len(mesh)))):
-        _refuse(f"mesh={mesh!r}: only the {{stage: device}} pipeline mesh of "
-                "parallel.mesh.pipeline_mesh is ported; tp and dp meshes are "
-                "item 14, ep meshes item 16")
+        tp = isinstance(mesh, dict) and mesh.get("tp", 1) > 1
+        piped = isinstance(mesh, dict) and max(mesh.get("pp", 1), mesh.get("pipe", 1)) > 1
+        if tp and piped:
+            _refuse(f"mesh={mesh!r}: a pipe x tp mesh is ROADMAP item 14, second half")
+        raise TypeError(
+            f"mesh={mesh!r}: pass the {{stage: device}} dict of "
+            "parallel.mesh.pipeline_mesh or a parallel.mesh.make_mesh Mesh "
+            "(tp and dp axes)")
     stages = {s: resolve_device(d) for s, d in mesh.items()}
     if device is not None and torch.device(device) != stages[0]:
         raise ValueError(f"device={device!r} is not stage 0's device {stages[0]}: "
@@ -319,7 +357,8 @@ class Generator:
         # its plain version on the CPU; False → the plain version anywhere
         quantize: Optional[str] = None,  # None | "none" | "int8" (weight-only)
         # | "w8a8" (int8 activations too) | "int4" (ops/quant.py)
-        mesh: Any = None,  # {stage: device} of parallel.mesh.pipeline_mesh
+        mesh: Any = None,  # {stage: device} of parallel.mesh.pipeline_mesh,
+        # or a parallel.mesh.make_mesh Mesh of tp and dp axes
         scan_unroll: int = 1,
         abstract: bool = False,
         _graphs: Optional[bool] = None,  # None → CUDA graphs on the card;
@@ -327,7 +366,16 @@ class Generator:
     ):
         if quantize not in (None, "none") and quantize not in FLAG_TO_MODE:
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        if mesh is not None:
+        tp_mesh = None
+        if isinstance(mesh, Mesh):
+            _check_inference_mesh(mesh)
+            tp_mesh = mesh
+            first = resolve_device(mesh.devices.flat[0])
+            if device is not None and torch.device(device) != first:
+                raise ValueError(f"device={device!r} is not the mesh's first device "
+                                 f"{first}: a Generator on a mesh runs there")
+            device = first
+        elif mesh is not None:
             mesh = _pipeline_mesh(mesh, device)
             device = mesh[0]
         if scan_unroll != 1:
@@ -345,6 +393,7 @@ class Generator:
         self.params = params
         # structural: a pre-quantized checkpoint loads with quantize=None
         self.quantized = tree_has_quantized(params)
+        self._init_mesh(tp_mesh)
         if cache_dtype is None:  # the float weights' dtype, never a scale's
             cache_dtype = transformer.param_dtype(self.params)
         self.cache_dtype = cache_dtype
@@ -352,6 +401,10 @@ class Generator:
             min(max_seq_length or cfg.block_size, cfg.block_size)
         )
         self.rope = transformer.get_rope_cache(cfg, device=self.device)
+        if self._shards is not None:
+            self._ropes = {i: self.rope if d == self.device
+                           else transformer.get_rope_cache(cfg, device=d)
+                           for i, d in self._devices.items()}
         self.rng_seed = int(rng_seed)
         self.rng = torch.Generator(device=self.device).manual_seed(self.rng_seed)
         self.use_flash = self.device.type == "cuda" if use_flash is None else bool(use_flash)
@@ -364,7 +417,12 @@ class Generator:
                 f"{cfg.name}: head size {cfg.head_size} is not one kernel K2 "
                 f"is built for {KERNEL_HEAD_SIZES}; pass use_flash=False"
             )
-        self._graphs = self.device.type == "cuda" if _graphs is None else bool(_graphs)
+        one_card = self._shards is None or len(set(self._devices.values())) == 1
+        if _graphs and not one_card:
+            raise ValueError("the decode chunk is captured only when every rank "
+                             "of the mesh runs on one device")
+        self._graphs = (self.device.type == "cuda" and one_card
+                        if _graphs is None else bool(_graphs))
         # generate's dense caches per (B, cache_len) and decode-chunk steps
         # per (B, cache_len, n_steps, mode, top_k), one cache length at a time
         self._caches: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
@@ -377,6 +435,35 @@ class Generator:
         # DeviceReportRegistry; its prefill and decode-chunk steps are
         # measured into it at their first run per shape
         self.device_obs = None
+
+    def _init_mesh(self, mesh: Optional[Mesh]) -> None:
+        """Lay the weights over a tp/dp mesh (`parallel/sharding.py`): each
+        position's slice of every leaf on its device, and per dp replica its
+        positions in tp order.  Without a mesh, every field is None."""
+        self._tp_mesh = mesh
+        self._shards = self._replicas = self._devices = None
+        self.tp = self.dp = 1
+        if mesh is None:
+            return
+        from mdi_llm_tpu_torch.parallel.sharding import (
+            regroup_w4_row_scales,
+            shard_params,
+            validate_tp_divisibility,
+        )
+
+        self.tp, self.dp = int(mesh.shape.get("tp", 1)), int(mesh.shape.get("dp", 1))
+        # vocab counts here: the Generator splits the embedding and head
+        validate_tp_divisibility(self.cfg, self.tp, check_vocab=True)
+        self._shards = shard_params(self.params, self.cfg, mesh,
+                                    "tp" if self.tp > 1 else None)
+        regroup_w4_row_scales(self.params, self._shards, mesh)
+        coords = list(mesh.positions())
+        self._devices = {i: resolve_device(d) for i, d in enumerate(mesh.device_list())}
+        self._replicas = [
+            sorted((i for i, c in enumerate(coords) if c.get("dp", 0) == d),
+                   key=lambda i: coords[i].get("tp", 0))
+            for d in range(self.dp)
+        ]
 
     def attach_device_obs(self, registry) -> None:
         """Attach an `obs.device.DeviceReportRegistry`: later `generate()`
@@ -401,18 +488,52 @@ class Generator:
     # -- model steps ---------------------------------------------------------
 
     def _forward(self, tokens, input_pos, kv, **kw) -> torch.Tensor:
+        """The model's logits; the cache in `kv` is updated in place.  On a
+        mesh, each dp replica runs `transformer.sharded_forward` over its
+        tp ranks on its rows of the batch (`kv` then holds each position's
+        cache), and the logits meet on the first device."""
         with torch.no_grad():
-            return transformer.forward(
-                self.cfg, self.params, tokens, input_pos, kv, rope=self.rope, **kw
-            )
+            if self._shards is None:
+                return transformer.forward(
+                    self.cfg, self.params, tokens, input_pos, kv, rope=self.rope, **kw
+                )
+            rows = tokens.shape[0] // self.dp
+            outs = []
+            for d, ranks in enumerate(self._replicas):
+                sl = slice(d * rows, (d + 1) * rows)
+                outs.append(transformer.sharded_forward(
+                    self.cfg, [self._shards[i] for i in ranks], tokens[sl], input_pos[sl],
+                    None if kv is None else [kv[i] for i in ranks],
+                    ropes=[self._ropes[i] for i in ranks], **kw,
+                ).to(self.device))
+            return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.long, device=self.device)
 
     def _init_kv(self, B: int, cache_len: int):
-        return transformer.init_kv_cache(
-            self.cfg, B, cache_len, dtype=self.cache_dtype, device=self.device
-        )
+        """The dense cache of B rows; on a mesh {position: its replica's
+        B/dp rows and its rank's G/tp groups, on its device}."""
+        if self._shards is None:
+            return transformer.init_kv_cache(
+                self.cfg, B, cache_len, dtype=self.cache_dtype, device=self.device
+            )
+        cfg_r = transformer.shard_config(self.cfg, self.tp)
+        return {i: transformer.init_kv_cache(cfg_r, B // self.dp, cache_len,
+                                             dtype=self.cache_dtype, device=d)
+                for i, d in self._devices.items()}
+
+    def init_paged_kv(self, num_blocks: int, block_size: int, dtype):
+        """The serving engine's pool (`transformer.init_paged_kv_cache`); on
+        a tp mesh {rank: (L, num_blocks, block_size, G/tp, hs) on its
+        device}, with the int8 pool's (L, num_blocks, G/tp) scales."""
+        if self._shards is None:
+            return transformer.init_paged_kv_cache(
+                self.cfg, num_blocks, block_size, dtype=dtype, device=self.device)
+        cfg_r = transformer.shard_config(self.cfg, self.tp)
+        return {i: transformer.init_paged_kv_cache(cfg_r, num_blocks, block_size,
+                                                   dtype=dtype, device=self._devices[i])
+                for i in self._replicas[0]}
 
     def _last_logits(self, logits, true_len) -> torch.Tensor:
         rows = torch.arange(logits.shape[0], device=self.device)
@@ -526,8 +647,8 @@ class Generator:
         """A longer session cache with the old entries in its leading
         corner."""
         fresh = self._init_kv(1, new_len)
-        for name, x in old.items():
-            fresh[name][..., : x.shape[3], :] = x
+        for new, x in zip(transformer.tree_leaves(fresh), transformer.tree_leaves(old)):
+            new[..., : x.shape[3], :] = x
         return fresh
 
     def _sampling(self, temperature, top_k, top_p):
@@ -602,6 +723,11 @@ class Generator:
         batch = np.zeros((B, Tb), np.int32)
         for i, p in enumerate(prompts):
             batch[i, : lens[i]] = np.asarray(p, np.int32)
+        if B % self.dp:
+            raise ValueError(
+                f"batch of {B} samples must be divisible by the mesh's "
+                f"dp={self.dp}"
+            )
         cache_len = _run_cache_len(self.max_seq_length, total_max, Tb)
 
         stats = GenerationStats()
@@ -611,7 +737,10 @@ class Generator:
         p0 = list(prompts[0])
         if shared_prefill is None:  # greedy only (see the docstring)
             shared_prefill = temperature == 0.0
-        shared = shared_prefill and B > 1 and all(list(p) == p0 for p in prompts[1:])
+        # unmeshed only, as in the JAX package: on a mesh the lanes and the
+        # cache are split, and the plain prefill is parallel already
+        shared = (shared_prefill and B > 1 and self._shards is None
+                  and all(list(p) == p0 for p in prompts[1:]))
         if shared:
             kv1 = self._run_cache(1, cache_len)
             for x in kv1.values():
@@ -623,7 +752,7 @@ class Generator:
                 kv[n].copy_(x.expand(-1, B, -1, -1, -1))
         else:
             kv = self._run_cache(B, cache_len)
-            for x in kv.values():
+            for x in transformer.tree_leaves(kv):
                 x.zero_()
             last_logits = self._dev_call("prefill", (B, Tb), self._prefill, batch, kv, lens)
         # first sampled token (from the prefill logits)
@@ -737,7 +866,9 @@ class Generator:
         # Ctrl-C mid-loop returns what was generated so far
         with catch_loop_errors() as guard:
             while n < max_new_tokens and not all(done) and not stats.interrupted:
-                if compact:
+                # mesh runs keep their lane count: the cache is laid out
+                # for the dp-divisible batch
+                if compact and self._shards is None:
                     compact_lanes()
                 room = cache_len - int(positions.max()) - 1
                 k = min(chunk_size, max_new_tokens - n, room)
@@ -780,6 +911,10 @@ class Generator:
         """Streaming single-sample generation: yields tokens as they are
         sampled, holding back potential stop-sequence prefixes so a partial
         stop marker is never emitted."""
+        # at call time: a raise in the generator body would surface only at
+        # the caller's first next()
+        if self.dp > 1:
+            raise ValueError("streaming generates one sample; use a tp-only mesh")
         return stop_filtered_stream(
             self._generate_stream(
                 prompt, max_new_tokens, temperature, top_k, top_p, stop_sequences
@@ -827,13 +962,15 @@ class Generator:
         with the same request and stats surface.
         """
         from mdi_llm_tpu_torch.config import ServingConfig
-        from mdi_llm_tpu_torch.serving.engine import ServingEngine
+        from mdi_llm_tpu_torch.serving.engine import ServingEngine, validate_serving_mesh
 
+        # refused here, naming the axis, before any pool is allocated
+        validate_serving_mesh(self._tp_mesh)
         if serving is None:
             serving = ServingConfig(**knobs)
         elif knobs:
             raise ValueError("pass a ServingConfig or keywords, not both")
-        if self.mesh is not None and len(self.mesh) > 1:
+        if isinstance(self.mesh, dict) and len(self.mesh) > 1:
             from mdi_llm_tpu_torch.serving.pipeline import PipelinedServingEngine
 
             return PipelinedServingEngine(self, serving, obs=obs, policy=policy,
@@ -904,6 +1041,8 @@ class ChatSession:
     """
 
     def __init__(self, gen: Generator):
+        if gen.dp > 1:
+            raise ValueError("chat session streams one sample; use a tp-only mesh")
         self.gen = gen
         self.reset()
 

@@ -33,12 +33,19 @@ layers (`moe_forward`) run the JAX package's dense formulation: every
 expert on every token, weighted by the router's renormalised top-k, as
 matrix products of the stacked expert weights (no Pallas kernel lies on
 that path in the JAX package either).
+
+`sharded_forward` is the same forward over the ranks of a tensor-parallel
+split (`parallel/sharding.py`, the JAX package's GSPMD layout): each rank
+runs this module's layer code on its slice through its rank config
+(`shard_config`), and the partial sums of the row-parallel products meet
+in one all-reduce each (`parallel/collectives.py`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +62,7 @@ from mdi_llm_tpu_torch.ops.paged_attention import (
 )
 from mdi_llm_tpu_torch.ops.quant import is_quantized, quantized_einsum
 from mdi_llm_tpu_torch.ops.rope import apply_rope, build_rope_cache, gather_rope
+from mdi_llm_tpu_torch.parallel.collectives import all_gather, all_reduce
 
 Params = Dict[str, Any]
 KVCache = Dict[str, torch.Tensor]
@@ -91,24 +99,29 @@ def check_supported(cfg: Config) -> None:
         )
 
 
-def mlp_forward(cfg: Config, p: Params, x: torch.Tensor, moe_aux: bool = False):
-    """The (B, T, D) output; with `moe_aux` (LLaMAMoE only), (out, aux)."""
+def mlp_forward(cfg: Config, p: Params, x: torch.Tensor, moe_aux: bool = False,
+                project: bool = True):
+    """The (B, T, D) output; with `moe_aux` (LLaMAMoE only), (out, aux).
+    `project=False` (a dense MLP) returns the input of the `proj` product
+    instead, for a tensor-parallel rank to contract (`_row_parallel`)."""
     kind = cfg.mlp_class_name
     if moe_aux and kind != "LLaMAMoE":
         raise ValueError(f"moe_aux requires an MoE config (got {kind!r})")
+    proj = (lambda h: linear(h, p["proj"])) if project else (lambda h: h)
     if kind == "GptNeoxMLP":
-        return linear(_gelu(cfg, linear(x, p["fc"])), p["proj"])
+        return proj(_gelu(cfg, linear(x, p["fc"])))
     if kind == "LLaMAMLP":
-        return linear(F.silu(linear(x, p["fc_1"])) * linear(x, p["fc_2"]), p["proj"])
+        return proj(F.silu(linear(x, p["fc_1"])) * linear(x, p["fc_2"]))
     if kind == "GemmaMLP":
-        return linear(_gelu(cfg, linear(x, p["fc_1"])) * linear(x, p["fc_2"]), p["proj"])
+        return proj(_gelu(cfg, linear(x, p["fc_1"])) * linear(x, p["fc_2"]))
     if kind == "LLaMAMoE":
         return moe_forward(cfg, p, x, with_aux=moe_aux)
     check_supported(cfg)
     raise ValueError(f"unknown mlp_class_name {kind!r}")
 
 
-def moe_forward(cfg: Config, p: Params, x: torch.Tensor, with_aux: bool = False):
+def moe_forward(cfg: Config, p: Params, x: torch.Tensor, with_aux: bool = False,
+                expert_offset: int = 0):
     """Top-k routed mixture of experts in the JAX package's dense
     formulation (`mdi_llm_tpu/models/transformer.moe_forward`): every
     expert runs on every token, and the router's top-k weights,
@@ -119,15 +132,20 @@ def moe_forward(cfg: Config, p: Params, x: torch.Tensor, with_aux: bool = False)
 
     `with_aux` also returns the load-balancing loss E * sum_e f_e * P_e
     (f_e: the share of top-k assignments routed to expert e, detached;
-    P_e: the mean router probability of e), 1.0 at uniform routing."""
-    E = cfg.n_expert
+    P_e: the mean router probability of e), 1.0 at uniform routing.
+
+    A tensor-parallel rank holds `cfg.n_expert` of the router's experts,
+    from `expert_offset` on (`sharded_forward`): the router is whole, and
+    the rank returns its experts' share of the output."""
     router = quantized_einsum("...i,ei->...e", x, p["gate"]).float()
+    E = router.shape[-1]  # every expert of the router
     probs = torch.softmax(router, dim=-1)  # (..., E)
     topv, topi = torch.topk(probs, cfg.n_expert_per_token, dim=-1)
     topv = topv / topv.sum(dim=-1, keepdim=True)
     # the normalised top-k weights scattered back to a dense (..., E) table
     onehot = F.one_hot(topi, E).to(probs.dtype)  # (..., k, E)
     dense_w = torch.einsum("...k,...ke->...e", topv, onehot)
+    dense_w = dense_w[..., expert_offset : expert_offset + cfg.n_expert]
     ex = p["experts"]
     h1 = quantized_einsum("...d,eid->...ei", x, ex["fc_1"])
     h2 = quantized_einsum("...d,eid->...ei", x, ex["fc_2"])
@@ -170,9 +188,12 @@ def attention_forward(
     paged_kernel: Optional[bool] = None,
     paged_ragged: Optional[Tuple] = None,  # (q_slot, q_start, q_len): B == 1,
     # tokens packed slot-major, each reading/writing its own slot's table row
+    paged_params=None,  # K1's split knobs (ops.tuning.KernelParams); None:
+    # resolved for this call's geometry
     fresh_prefill: bool = False,
     use_flash: bool = False,
     flash_kernel: Optional[bool] = None,
+    project: bool = True,  # False: the heads' output, before `proj`
 ) -> torch.Tensor:
     B, T, _ = x.shape
     q, k, v = _split_qkv(cfg, linear(x, p["qkv"]))  # k, v: (B, T, G, hs)
@@ -198,12 +219,13 @@ def attention_forward(
             )
             y = paged_prefill(
                 q, k_cache, v_cache, paged_tables, q_slot, q_start, q_len, pos[0],
-                use_kernel=paged_kernel,
+                use_kernel=paged_kernel, params=paged_params,
             )
         else:
             paged_update(k_cache, v_cache, k, v, paged_tables, pos)
             y = paged_attention(
-                q, k_cache, v_cache, paged_tables, pos, use_kernel=paged_kernel
+                q, k_cache, v_cache, paged_tables, pos, use_kernel=paged_kernel,
+                params=paged_params,
             )
     else:
         k, v = k.transpose(1, 2), v.transpose(1, 2)  # (B, G, T, hs)
@@ -222,8 +244,8 @@ def attention_forward(
         else:
             # no cache, or a fresh prefill: attend the chunk itself
             y = multihead_attention(q, k, v, pos, k_pos=pos)
-    y = y.transpose(1, 2).reshape(B, T, cfg.n_head * cfg.head_size)
-    return linear(y.to(x.dtype), p["proj"])
+    y = y.transpose(1, 2).reshape(B, T, cfg.n_head * cfg.head_size).to(x.dtype)
+    return linear(y, p["proj"]) if project else y
 
 
 def block_forward(cfg, p, x, pos, cos, sin, k_cache, v_cache,
@@ -319,7 +341,11 @@ def run_blocks(
 
 
 def embed(cfg: Config, params: Params, tokens: torch.Tensor, pos: torch.Tensor):
-    x = params["wte"]["weight"][tokens.long()]
+    return _embed_finish(cfg, params, params["wte"]["weight"][tokens.long()], pos)
+
+
+def _embed_finish(cfg: Config, params: Params, x: torch.Tensor, pos: torch.Tensor):
+    """The looked-up rows `x`, scaled and with learned positions added."""
     if cfg.scale_embeddings:
         # the JAX package multiplies by the scale cast to x's dtype; a 0-d
         # CPU tensor keeps that rounding and is read as a kernel argument,
@@ -333,7 +359,12 @@ def embed(cfg: Config, params: Params, tokens: torch.Tensor, pos: torch.Tensor):
 
 
 def head(cfg: Config, params: Params, x: torch.Tensor) -> torch.Tensor:
-    x = _norm(cfg, x, params["ln_f"])
+    return _head_logits(cfg, params, _norm(cfg, x, params["ln_f"]))
+
+
+def _head_logits(cfg: Config, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The logits of the normed hidden states `x` (a rank's vocabulary
+    slice when `params` is a tensor-parallel rank's tree)."""
     w = params["wte"] if cfg.tie_embeddings else params["lm_head"]
     logits = quantized_einsum("...d,vd->...v", x, w)
     if cfg.lm_head_bias:
@@ -397,6 +428,176 @@ def forward(
     if collect_moe_aux:
         return head(cfg, params, out[0]), out[1]
     return head(cfg, params, out)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel forward
+# ---------------------------------------------------------------------------
+
+
+def shard_config(cfg: Config, tp: int) -> Config:
+    """A tensor-parallel rank's config: n_head/tp heads over
+    n_query_groups/tp KV groups, and intermediate_size/tp (dense MLP) or
+    n_expert/tp experts (MoE).  The head size, the top-k and every other
+    field stay the model's."""
+    if tp == 1:
+        return cfg
+    kw = dict(n_head=cfg.n_head // tp, n_query_groups=cfg.n_query_groups // tp)
+    if cfg.mlp_class_name == "LLaMAMoE":
+        kw["n_expert"] = cfg.n_expert // tp
+    else:
+        kw["intermediate_size"] = cfg.intermediate_size // tp
+    return dataclasses.replace(cfg, **kw)
+
+
+def _replicated(devices: Sequence[torch.device], fn: Callable[[int], Any]) -> List[Any]:
+    """`fn(r)` for each rank r, computed once per distinct device and
+    shared by the ranks on it (the value is a replicated one)."""
+    memo: Dict[torch.device, Any] = {}
+    for r, d in enumerate(devices):
+        if d not in memo:
+            memo[d] = fn(r)
+    return [memo[d] for d in devices]
+
+
+def _row_parallel(hs: Sequence[torch.Tensor], lins: Sequence[Params], rep) -> List[torch.Tensor]:
+    """A row-parallel linear over the ranks: each rank contracts its input
+    slice `hs[r]` with its weight slice, the partial sums are all-reduced,
+    and the bias (whole on every rank) is added once, after the sum.  A
+    w8a8 weight quantizes every slice on the whole row's per-token max
+    |h| (`ops.quant._w8a8`)."""
+    amax = None
+    if "weight_q8" in lins[0]:
+        amax = all_reduce([h.float().abs().amax(dim=-1, keepdim=True) for h in hs], op="max")
+    y = all_reduce([
+        quantized_einsum("...i,oi->...o", h, lin, amax=None if amax is None else amax[r])
+        for r, (h, lin) in enumerate(zip(hs, lins))
+    ])
+    return rep(lambda r: y[r] + lins[r]["bias"] if "bias" in lins[r] else y[r])
+
+
+def _sharded_embed(cfg: Config, ranks: Sequence[Params], tokens, pos, rep) -> List[torch.Tensor]:
+    """The vocabulary-parallel lookup: each rank gathers the rows of its
+    vocabulary slice, zero where a token lies outside it, and the ranks'
+    rows are summed (exactly one rank holds each token)."""
+    parts = []
+    for r, p in enumerate(ranks):
+        w = p["wte"]["weight"]
+        V = w.shape[0]
+        t = tokens.to(w.device).long() - r * V
+        inside = (t >= 0) & (t < V)
+        parts.append(torch.where(inside[..., None], w[t.clamp(0, V - 1)], 0.0))
+    x = all_reduce(parts)
+    return rep(lambda r: _embed_finish(cfg, ranks[r], x[r], pos[r]))
+
+
+def _sharded_block(cfg, cfg_r, lay, x, pos, cos, sin, caches, attn, rep):
+    """One block over the ranks: the attention of each rank's heads and
+    the MLP of each rank's slice (or experts) are partial sums, each
+    all-reduced once and then given its row-parallel bias; norms and
+    residuals are replicated.  Both block shapes (parallel residual with
+    or without a shared norm, and sequential) as `block_forward`."""
+    tp = len(lay)
+    n1 = rep(lambda r: _norm(cfg, x[r], lay[r]["norm_1"]))
+    heads = [attention_forward(cfg_r, lay[r]["attn"], n1[r], pos[r], cos[r], sin[r],
+                               *caches[r], project=False, **attn[r])
+             for r in range(tp)]
+    att = _row_parallel(heads, [lay[r]["attn"]["proj"] for r in range(tp)], rep)
+    if cfg.parallel_residual:
+        n2 = n1 if cfg.shared_attention_norm else rep(
+            lambda r: _norm(cfg, x[r], lay[r]["norm_2"]))
+        x = rep(lambda r: x[r] + att[r])
+    else:
+        x = rep(lambda r: x[r] + att[r])
+        n2 = rep(lambda r: _norm(cfg, x[r], lay[r]["norm_2"]))
+
+    if cfg.mlp_class_name == "LLaMAMoE":
+        # each rank's experts: a partial sum of the routed output
+        out = all_reduce([moe_forward(cfg_r, lay[r]["mlp"], n2[r],
+                                      expert_offset=r * cfg_r.n_expert)
+                          for r in range(tp)])
+    else:
+        hidden = [mlp_forward(cfg_r, lay[r]["mlp"], n2[r], project=False) for r in range(tp)]
+        out = _row_parallel(hidden, [lay[r]["mlp"]["proj"] for r in range(tp)], rep)
+    return rep(lambda r: x[r] + out[r])
+
+
+def sharded_forward(
+    cfg: Config,
+    ranks: Sequence[Params],
+    tokens: torch.Tensor,
+    input_pos: torch.Tensor,
+    kv: Optional[Sequence[KVCache]] = None,
+    paged_tables: Optional[torch.Tensor] = None,
+    ropes: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
+    paged_kernel: Optional[bool] = None,
+    paged_ragged: Optional[Tuple] = None,
+    paged_params=None,
+    fresh_prefill: bool = False,
+    use_flash: bool = False,
+    flash_kernel: Optional[bool] = None,
+) -> torch.Tensor:
+    """`forward` over the tp ranks of one Megatron split: `ranks` holds
+    each rank's tree (`parallel.sharding.shard_params`), in rank order,
+    each on its device; `kv` each rank's cache, dense `(L, B, G/tp, S,
+    hs)` or the paged pool `(L, NB, BS, G/tp, hs)`, updated in place;
+    `ropes` each rank's rope tables.  Returns the logits (B, T,
+    padded_vocab) on rank 0's device.
+
+    Each rank runs the layer code of `forward` on its slice through the
+    rank config (`shard_config`): its heads over its KV groups (the fused
+    qkv keeps whole groups in a contiguous row slice), K1 on its pool
+    slice or K2 on its prefill, its MLP slice or its experts.  Partial
+    sums meet in one all-reduce after each row-parallel product (the
+    attention and MLP `proj`), whose bias is then added once; the
+    embedding is a vocabulary-parallel lookup summed across ranks, and
+    the head's vocabulary slices are gathered.  K1's split knobs are
+    resolved on the model's whole geometry (`ops.tuning.
+    global_kernel_params`) unless `paged_params` gives them."""
+    tp = len(ranks)
+    cfg_r = shard_config(cfg, tp)
+    devs = [p["ln_f"]["weight"].device for p in ranks]
+    rep = functools.partial(_replicated, devs)
+    B, T = tokens.shape
+    if input_pos.dim() == 2:
+        pos0 = input_pos.long()
+    else:
+        pos0 = input_pos.long()[:, None] + torch.arange(T, device=tokens.device)
+    pos = rep(lambda r: pos0.to(devs[r]))
+    if ropes is None:
+        ropes = [get_rope_cache(cfg, device=d) for d in devs]
+    # the gather clamps: padding tokens deliberately sit past the table
+    cs = rep(lambda r: gather_rope(ropes[r][0], ropes[r][1], pos[r]))
+    cos, sin = [c for c, _ in cs], [s_ for _, s_ in cs]
+    x = _sharded_embed(cfg, ranks, tokens, pos, rep)
+    if paged_tables is not None:
+        if paged_params is None and devs[0].type == "cuda" and paged_kernel is not False:
+            from mdi_llm_tpu_torch.ops import tuning
+            from mdi_llm_tpu_torch.ops.ragged_paged_attention import _pool_parts
+
+            pool = _pool_parts(kv[0]["k"])[0]  # (L, NB, BS, G/tp, hs)
+            paged_params = tuning.global_kernel_params(
+                cfg.n_head, cfg.n_query_groups, cfg.head_size, pool.shape[2],
+                x[0].dtype, pool.dtype, devs[0])
+        attn = rep(lambda r: dict(
+            paged_tables=paged_tables.to(devs[r]), paged_kernel=paged_kernel,
+            paged_ragged=(None if paged_ragged is None
+                          else tuple(a.to(devs[r]) for a in paged_ragged)),
+            paged_params=paged_params))
+    else:
+        attn = rep(lambda r: dict(
+            input_pos=input_pos.long().to(devs[r]), fresh_prefill=fresh_prefill,
+            use_flash=use_flash, flash_kernel=flash_kernel))
+    L = ranks[0]["blocks"]["norm_1"]["weight"].shape[0]
+    layers = [unbind_layers(p["blocks"], L) for p in ranks]
+    for i in range(L):
+        caches = [(None, None) if kv is None
+                  else (_layer_pool(kv[r]["k"], i), _layer_pool(kv[r]["v"], i))
+                  for r in range(tp)]
+        x = _sharded_block(cfg, cfg_r, [layers[r][i] for r in range(tp)], x, pos,
+                           cos, sin, caches, attn, rep)
+    normed = rep(lambda r: _norm(cfg, x[r], ranks[r]["ln_f"]))
+    return all_gather([_head_logits(cfg, ranks[r], normed[r]) for r in range(tp)], -1)[0]
 
 
 @functools.lru_cache(maxsize=16)

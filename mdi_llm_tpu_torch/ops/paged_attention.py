@@ -22,7 +22,10 @@ sequence's block table holds absolute positions `[i * block_size, (i + 1)
   to kernel K1 (`ops/ragged_paged_attention.py`) and a CPU tensor to the
   plain route, the JAX package's lax math.  `use_kernel=False` forces the
   plain route on any device (the on-card parity check uses it);
-  `use_kernel=True` always goes through the K1 wrapper.
+  `use_kernel=True` always goes through the K1 wrapper.  `params` (K1's
+  split knobs) is for a tensor-parallel rank, whose knobs are resolved on
+  the model's whole geometry (`ops.tuning.global_kernel_params`); None
+  resolves them on the call's own.
   `_paged_prefill_plain.calls` / `_paged_attention_plain.calls` count the
   plain route, so a run on the card can show it was never taken.
 """
@@ -132,6 +135,7 @@ def paged_prefill(
     q_pos: torch.Tensor,  # (T,) absolute position per packed token
     scale: Optional[float] = None,
     use_kernel: Optional[bool] = None,  # None → the tensor's device decides
+    params=None,  # K1's split knobs; None: resolved for this geometry
 ) -> torch.Tensor:
     """Ragged mixed prefill+decode attention over the paged pool; returns
     (1, n_head, T, hs).  Packed rows no slot owns are garbage (plain
@@ -153,7 +157,7 @@ def paged_prefill(
     lens = q_pos.to(i32)[qstart.long().clamp(0, T - 1)] + qlen
     return ragged_paged_attention(
         q.contiguous(), k_pool, v_pool, block_tables.to(i32), qstart, qlen,
-        lens, q_pos.to(i32), scale=scale,
+        lens, q_pos.to(i32), scale=scale, params=params,
     )
 
 
@@ -165,6 +169,7 @@ def paged_attention(
     q_pos: torch.Tensor,  # (B, Tq) absolute query positions
     scale: Optional[float] = None,
     use_kernel: Optional[bool] = None,  # None → the tensor's device decides
+    params=None,  # K1's split knobs; None: resolved for this geometry
 ) -> torch.Tensor:
     """Causal GQA attention through per-sequence block tables; returns
     (B, n_head, Tq, hs).  The kernel route packs sequence b as the span
@@ -183,6 +188,6 @@ def paged_attention(
     lens = (q_pos.amax(dim=1) + 1).to(i32)
     out = ragged_paged_attention(
         qp, k_pool, v_pool, block_tables.to(i32), qstart, qlen, lens,
-        q_pos.reshape(-1).to(i32).contiguous(), scale=scale,
+        q_pos.reshape(-1).to(i32).contiguous(), scale=scale, params=params,
     )
     return out[0].reshape(n_head, B, Tq, hs).transpose(0, 1)

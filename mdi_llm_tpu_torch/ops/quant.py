@@ -19,6 +19,14 @@ the JAX quantizer's arithmetic (f32 division, round half to even,
 symmetric clip), so its bytes and scales equal the JAX package's for the
 same float32 input (tests/test_torch_quant.py).
 
+Tensor-parallel ranks (`models/transformer.sharded_forward`) run their
+slices through `quantized_einsum` unchanged, with two fits for a
+row-parallel weight, whose contracted axis is split: w8a8 quantizes a
+rank's activation slice on the whole row's max |x| (`amax`), as XLA's
+reduction over the split axis does, and int4 group scales the tp size
+does not divide are refitted to each rank's slice
+(`parallel.sharding.regroup_w4_row_scales`).
+
 The contractions are left to torch ops, as the JAX package leaves them to
 XLA; no hand-written kernel is involved.  Where XLA fuses the int8 ->
 bf16 conversion into the dot's operand read, the "w8" and "w4" routes
@@ -313,12 +321,16 @@ def w8a8_int(spec: str, xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _w8a8(spec: str, x: torch.Tensor, p: Params) -> torch.Tensor:
+def _w8a8(spec: str, x: torch.Tensor, p: Params, amax=None) -> torch.Tensor:
     """Dynamic per-token symmetric int8 activations and an exact int8 x
-    int8 -> int32 contraction, then the activation and weight scales."""
+    int8 -> int32 contraction, then the activation and weight scales.
+    `amax` (..., 1), when given, is each token's max |x| over the whole
+    contracted axis: a tensor-parallel rank holding a slice of that axis
+    quantizes its slice on the whole row's scale, as one device does."""
     wq = p["weight_q8"]
     xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
     xs = torch.clamp(_div(amax, 127.0), min=1e-10)
     xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
     y = w8a8_int(spec, xq, wq)
@@ -330,12 +342,14 @@ def _w8a8(spec: str, x: torch.Tensor, p: Params) -> torch.Tensor:
     return _apply_scale(spec, y.float() * xs, p["scale"]).to(x.dtype)
 
 
-def quantized_einsum(spec: str, x: torch.Tensor, p: Params) -> torch.Tensor:
+def quantized_einsum(spec: str, x: torch.Tensor, p: Params, amax=None) -> torch.Tensor:
     """einsum against a (possibly) quantized weight dict.  `spec` contracts
     x with the stored (out, in)-layout weight; the per-out-channel scale is
-    applied to the result (exact: it factors out of the contraction)."""
+    applied to the result (exact: it factors out of the contraction).
+    `amax`: w8a8's per-token activation max over the whole contracted axis
+    (`_w8a8`), for a rank that holds a slice of it; other modes ignore it."""
     if "weight_q8" in p:
-        return _w8a8(spec, x, p)
+        return _w8a8(spec, x, p, amax)
     if "weight_q" in p:
         w = p["weight_q"].to(x.dtype)
         y = F.linear(x, w) if _is_linear(spec, w) else torch.einsum(spec, x, w)

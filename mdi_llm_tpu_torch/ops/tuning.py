@@ -72,6 +72,7 @@ __all__ = [
     "geometry_key",
     "resolve_kernel_params",
     "kernel_params_for",
+    "global_kernel_params",
     "validate_kernel_params",
     "load_tuning_table",
     "save_tuning_table",
@@ -271,6 +272,17 @@ def kernel_params_for(q: torch.Tensor, k_payload: torch.Tensor) -> KernelParams:
                      _dtype_name(q.dtype), _dtype_name(k_payload.dtype),
                      os.environ.get(TUNE_TABLE_ENV) or None)
 
+
+
+def global_kernel_params(n_head: int, n_groups: int, head_size: int, block_size: int,
+                         q_dtype, kv_dtype, device: torch.device) -> KernelParams:
+    """K1's parameters for a tensor-parallel rank's calls, resolved on the
+    model's whole geometry (`n_head` heads over `n_groups` KV groups), as
+    the JAX package resolves them outside its shard_map (`mdi_llm_tpu/ops/
+    paged_attention.py:256-259`); memoised like `kernel_params_for`."""
+    return _resolved(_device_name(device.index or 0), n_head, n_groups, head_size,
+                     block_size, _dtype_name(q_dtype), _dtype_name(kv_dtype),
+                     os.environ.get(TUNE_TABLE_ENV) or None)
 
 
 # ---------------------------------------------------------------------------

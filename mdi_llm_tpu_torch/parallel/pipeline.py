@@ -107,7 +107,7 @@ class PipelineEngine:
         quantize: Optional[str] = None,  # None | "none" | "int8" | "w8a8" | "int4"
         samples_per_slot: int = 1,  # M: samples travelling together per ring slot
         rotations_per_call: int = 16,  # steady-state ring rotations per call
-        tp: int = 1,  # tensor-parallel devices per stage (item 14: refused)
+        tp: int = 1,  # tensor-parallel devices per stage (item 14, second half: refused)
         overlap_chunks: bool = False,  # run the next steady chunk before
         # reading the previous one's emissions
         device=None,  # None -> "cuda"; the device of every stage without devices

@@ -72,10 +72,20 @@ pool's own tensors in place (`index_copy_`), which every captured graph
 reads.  Padding reads block 0 and padding writes go to the trash block,
 as in the JAX engine.
 
-Pipeline-parallel serving is `serving/pipeline.py`'s subclass, which
-overrides the pool (`_init_pool`), the forward and the decode chunk.  Not
-ported yet, and refused with an error when asked for: tensor parallel
-serving.
+Tensor-parallel serving (`Generator(mesh=make_mesh({"tp": N}, devices))`)
+runs in this engine: the pool is {rank: (L, num_blocks, block_size, G/tp,
+hs)} (`Generator.init_paged_kv`; the int8 pool's scales split the same
+group axis), one block id indexing every rank's slice, and every forward
+is `transformer.sharded_forward`: each rank's K1 over its own heads and
+pool slice, with the shared tables and spans, its knobs resolved on the
+model's whole geometry.  The scheduler, pool, prefix cache, preemption,
+speculation, a draft model (on the same mesh) and the host tier (one slab
+per rank leaf) are host-side and run unchanged; the steps stay CUDA
+graphs when every rank is on one card, and launch eagerly otherwise.
+`validate_serving_mesh` refuses dp, ep and sp meshes with the JAX
+package's messages.  Pipeline-parallel serving is `serving/pipeline.py`'s
+subclass, which overrides the pool (`_init_pool`), the forward and the
+decode chunk.
 """
 
 from __future__ import annotations
@@ -117,13 +127,57 @@ from mdi_llm_tpu_torch.serving.kv_pool import KVPool
 from mdi_llm_tpu_torch.serving.scheduler import Request, Scheduler, SequenceState
 from mdi_llm_tpu_torch.utils.step_graph import StepGraph, summarize
 
-__all__ = ["ServingEngine", "ServingStats", "check_serving_config"]
+__all__ = ["ServingEngine", "ServingStats", "check_serving_config", "validate_serving_mesh"]
 
 _POOL_DTYPES = {
     "float8": torch.float8_e4m3fn, "float8_e4m3fn": torch.float8_e4m3fn,
     "float8_e5m2": torch.float8_e5m2, "bfloat16": torch.bfloat16,
     "float16": torch.float16, "float32": torch.float32, "float64": torch.float64,
 }
+
+
+def validate_serving_mesh(mesh) -> None:
+    """Refuse meshes the serving engine cannot run, naming the offending
+    axis and the supported alternative (the JAX package's messages).
+    Called from `Generator.serve()`, before any pool is allocated.
+
+    Supported: no mesh, a `tp` axis (the paged pool splits its KV-group
+    axis) or a `pp` axis.  dp > 1 is not: requests are scheduled into
+    slots, not batch-split, so a dp axis would replicate the pool without
+    serving anything on the replicas.  ep would need the MoE all_to_all
+    threaded through every serving dispatch, and sp's sequence-split
+    cache contradicts the pooled block layout."""
+    if mesh is None:
+        return
+    for axis in mesh.axis_names:
+        size = int(mesh.shape[axis])
+        if size <= 1 or axis in ("tp", "pp"):
+            continue
+        if axis == "dp":
+            raise ValueError(
+                f"serving does not support dp={size}: the engine "
+                "schedules requests into slots, not dp-split batches — "
+                "use a tp and/or pp mesh (or run one engine per replica)"
+            )
+        if axis == "ep":
+            raise ValueError(
+                f"serving does not support ep={size}: expert parallelism "
+                "would need the MoE all_to_all threaded through every "
+                "serving dispatch — shard experts within a stage via tp, "
+                "or split layers over pp"
+            )
+        if axis == "sp":
+            raise ValueError(
+                f"serving does not support sp={size}: a sequence-sharded "
+                "cache contradicts the pooled block layout (every block "
+                "holds full heads of a token span) — use tp and/or pp"
+            )
+        raise ValueError(
+            f"serving does not support a mesh with axis {axis!r} "
+            f"(size {size}): only tensor parallelism ('tp', KV-group "
+            "sharding) and pipeline parallelism ('pp', per-stage pool "
+            "shards), alone or composed, serve the paged pool"
+        )
 
 
 def check_serving_config(serving: ServingConfig) -> None:
@@ -413,10 +467,10 @@ class ServingEngine:
 
     def _init_pool(self, num_blocks: int, bs: int):
         """The device pool every step reads and writes: one (L, num_blocks,
-        bs, G, hs) tree of the pool dtype on the engine's device."""
-        return transformer.init_paged_kv_cache(
-            self.gen.cfg, num_blocks, bs, dtype=self._pool_dtype, device=self.device
-        )
+        bs, G, hs) tree of the pool dtype on the engine's device, or on a tp
+        mesh one (L, num_blocks, bs, G/tp, hs) tree per rank on its device
+        (`Generator.init_paged_kv`)."""
+        return self.gen.init_paged_kv(num_blocks, bs, self._pool_dtype)
 
     # -- the per-shape steps (CUDA graphs on the card) -----------------------
 
@@ -496,6 +550,11 @@ class ServingEngine:
         """Steps built, graphs captured and replayed, capture seconds."""
         return summarize(self._steps.values())
 
+    @property
+    def devices(self) -> int:
+        """Distinct devices the pool lies on (tp ranks may share one)."""
+        return len({x.device for x in transformer.tree_leaves(self._kv)})
+
     # -- draft model (speculative drafting over a second paged pool) ---------
 
     def _init_draft(self, draft_gen: Optional[Generator]) -> None:
@@ -527,10 +586,8 @@ class ServingEngine:
         n_blocks = serving.num_draft_blocks(self.max_seq_length)
         self.draft_pool = KVPool(n_blocks, serving.block_size, prefix_caching=False)
         self.scheduler.draft_pool = self.draft_pool
-        self._draft_kv = transformer.init_paged_kv_cache(
-            dcfg, n_blocks, serving.block_size, dtype=self._pool_dtype,
-            device=self.device,
-        )
+        self._draft_kv = draft_gen.init_paged_kv(n_blocks, serving.block_size,
+                                                 self._pool_dtype)
         self._draft_tables = np.zeros(
             (serving.max_batch, self.max_blocks_per_seq), np.int32
         )
@@ -538,7 +595,7 @@ class ServingEngine:
     def _build_draft_gen(self, dcfg) -> Generator:
         """The draft Generator when the caller hands none in: random
         weights (seed 0, as the JAX engine's PRNGKey(0)) at the target's
-        parameter dtype, on the target's device."""
+        parameter dtype, on the target's device and mesh."""
         gen = self.gen
         dparams = transformer.init_params(
             dcfg, 0, dtype=transformer.param_dtype(gen.params), device=gen.device
@@ -546,6 +603,7 @@ class ServingEngine:
         return Generator(
             dcfg, dparams, max_seq_length=self.max_seq_length,
             cache_dtype=gen.cache_dtype, rng_seed=gen.rng_seed, device=gen.device,
+            mesh=gen._tp_mesh,
         )
 
     def _ensure_draft_blocks(self, seq: SequenceState, n_tokens: int) -> bool:
@@ -815,21 +873,16 @@ class ServingEngine:
         """One model forward over the shared pool; the pool is updated in
         place (no copy of it is ever made)."""
         self.forward_calls += 1
-        return transformer.forward(
-            self.gen.cfg, self.gen.params, tokens, pos, self._kv, tables,
-            rope=self.gen.rope, paged_kernel=self.cfg.use_kernel,
-            paged_ragged=paged_ragged,
-        )
+        return self.gen._forward(tokens, pos, self._kv, paged_tables=tables,
+                                 paged_kernel=self.cfg.use_kernel,
+                                 paged_ragged=paged_ragged)
 
     def _draft_forward(self, tokens, pos, tables, paged_ragged=None) -> torch.Tensor:
         """One draft-model forward over the draft pool, in place."""
         self.draft_forward_calls += 1
-        dgen = self.draft_gen
-        return transformer.forward(
-            dgen.cfg, dgen.params, tokens, pos, self._draft_kv, tables,
-            rope=dgen.rope, paged_kernel=self.cfg.use_kernel,
-            paged_ragged=paged_ragged,
-        )
+        return self.draft_gen._forward(tokens, pos, self._draft_kv, paged_tables=tables,
+                                       paged_kernel=self.cfg.use_kernel,
+                                       paged_ragged=paged_ragged)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return sample_traced(

@@ -72,7 +72,7 @@ Where the stages run:
 
 Refused, as by the JAX engine: a draft model (the draft pool has no ring);
 a tensor-parallel axis inside each stage is not ported (ROADMAP item 14,
-`parallel/mesh.pipeline_mesh`); a model with fewer layers than stages
+second half; `parallel/mesh.pipeline_mesh`); a model with fewer layers than stages
 (`partition.stage_layers`).
 """
 

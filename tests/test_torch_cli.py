@@ -5,8 +5,8 @@
   int8 or float8 pool and with speculative serving and a draft model;
 - without `--device cpu` on a machine with no GPU it raises, and does not
   fall back to the CPU;
-- every flag of a feature the port does not carry is refused (`--tp`);
-  `--host-pool-mib`, `--quantize` and `--pp` are ported and serve (`--pp
+- every flag of a feature the port does not carry is refused;
+  `--host-pool-mib`, `--quantize`, `--tp` and `--pp` are ported and serve (`--pp
   2` prints the `--pp 1` streams, and its stats line carries the ring's
   topology and `pipeline` block; `cli.server` keeps refusing `--pp`); the
   observability flags are ported: `--metrics-out`, `--prom-out`,
@@ -85,8 +85,10 @@ def test_cli_serves_on_cpu_and_prints_stats_line():
 # the port's own stats-line keys: forward counts and the step graphs at
 # the top level; the device's type, its peak-table key and the step
 # reports in `device`
+# `n_chips` is the JAX line's tp x pp count, which the JAX line prints as
+# `devices`; the port's `devices` counts the distinct devices
 PORT_ONLY_KEYS = {"forward_calls", "draft_forward_calls", "graph_captures",
-                  "graph_replays", "capture_s"}
+                  "graph_replays", "capture_s", "n_chips"}
 PORT_ONLY_DEVICE_KEYS = {"type", "device_kind", "reports"}
 
 
@@ -147,7 +149,7 @@ def test_cli_serves_narrow_pools_and_spec_on_cpu(flags, check):
     # run serves every request, with the tier's stats keys and quantized
     # weights
     (["--host-pool-mib", "64"], None),
-    (["--tp", "2"], "not ported"), (["--pp", "2"], None),
+    (["--tp", "2"], None), (["--pp", "2"], None),
     (["--quantize", "int8"], None),
     # --ckpt is ported: a directory that is not there is refused by name
     (["--ckpt", "some/dir"], "some/dir: no such checkpoint directory"),
@@ -161,6 +163,8 @@ def test_cli_refuses_unported_flags(flags, match):
             assert engine.gen.quantized
         elif "--pp" in flags:
             assert engine.n_stages == 2 and engine.stage_layer_runs > 0
+        elif "--tp" in flags:
+            assert engine.gen.tp == 2 and sorted(engine._kv) == [0, 1]
         else:
             assert engine.host_tier.store.num_slots > 0
             assert {"swaps_out", "swaps_in", "prefix_hits_host"} <= set(stats.to_dict())
@@ -497,8 +501,9 @@ def test_checkpoint_tools_on_the_converted_checkpoint(converted, tmp_path, capsy
 @pytest.mark.parametrize("flag", ["--tp-devices", "--pipeline-stages", "--ep-devices",
                                   "--sp-devices"])
 def test_chat_cli_refuses_unported_backends(flag):
-    """tp, ep and sp are refused; the recurrent pipeline backend is ported
-    and, like every chat, needs a checkpoint's tokenizer."""
-    match = "needs a checkpoint with a tokenizer" if flag == "--pipeline-stages" else "not ported"
+    """ep and sp are refused; the recurrent pipeline and tp backends are
+    ported and, like every chat, need a checkpoint's tokenizer."""
+    match = ("needs a checkpoint with a tokenizer"
+             if flag in ("--pipeline-stages", "--tp-devices") else "not ported")
     with pytest.raises(SystemExit, match=match):
         chat_cli.main(["--device", "cpu", "--model", "pythia-14m", flag, "2"])

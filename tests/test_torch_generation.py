@@ -271,14 +271,28 @@ def test_host_helpers_match_jax():
     dict(quantize="int8"), dict(mesh={"tp": 2}), dict(scan_unroll=2), dict(abstract=True),
 ], ids=lambda kw: next(iter(kw)))
 def test_generator_refuses_unported_options(pythia, kw):
-    """Weight quantization is ported: `quantize="int8"` generates the JAX
-    Generator's greedy tokens in the same mode; the other options are
+    """Weight quantization and tp meshes are ported: `quantize="int8"`
+    generates the JAX Generator's greedy tokens in the same mode, and a
+    `make_mesh({"tp": 2})` mesh the JAX tp Generator's (a bare dict of
+    axis sizes is not a mesh: refused by type); the other options are
     still refused."""
+    prompts = prompts_of(pythia.tc.vocab_size, (5, 2), seed=1)
     if "quantize" in kw:
-        prompts = prompts_of(pythia.tc.vocab_size, (5, 2), seed=1)
         want, _ = pythia.jgen(**kw).generate(prompts, 8, chunk_size=4, **GREEDY)
         got, _ = pythia.tgen(**kw).generate(prompts, 8, chunk_size=4, **GREEDY)
         assert got == want
+        return
+    if "mesh" in kw:
+        from mdi_llm_tpu.parallel.mesh import make_mesh as jmake_mesh
+        from mdi_llm_tpu_torch.parallel.mesh import make_mesh
+
+        want, _ = pythia.jgen(mesh=jmake_mesh(kw["mesh"], jax.devices()[:2])).generate(
+            prompts, 8, chunk_size=4, **GREEDY)
+        got, _ = pythia.tgen(mesh=make_mesh(kw["mesh"], ["cpu"])).generate(
+            prompts, 8, chunk_size=4, **GREEDY)
+        assert got == want
+        with pytest.raises(TypeError, match="make_mesh"):
+            pythia.tgen(**kw)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pythia.tgen(**kw)
@@ -321,14 +335,14 @@ def test_sample_cli_runs_on_cpu_and_raises_without_a_gpu(tmp_path):
                                   "--ep-devices", "--coordinator", "--profile-dir"])
 def test_sample_cli_refuses_unported_flags(flag, tmp_path):
     """The flags of features the port does not carry are refused; the
-    recurrent pipeline (`--pipeline-stages`) and `--profile-dir` are
-    ported and run."""
+    recurrent pipeline (`--pipeline-stages`), tensor parallelism
+    (`--tp-devices`) and `--profile-dir` are ported and run."""
     from mdi_llm_tpu_torch.cli import sample as cli
 
     value = str(tmp_path / "prof") if flag == "--profile-dir" else "2"
     args = cli.build_parser().parse_args(
         ["--device", "cpu", "--model", "pythia-14m", "--n-tokens", "4", "--greedy", flag, value])
-    if flag in ("--pipeline-stages", "--profile-dir"):
+    if flag in ("--pipeline-stages", "--profile-dir", "--tp-devices"):
         _prompts, outs, stats, _gen, _tok, _s = cli.run(args)
         assert stats.tokens_generated == 4 and len(outs) == 1
         return

@@ -49,7 +49,7 @@ from mdi_llm_tpu_torch.generation import Generator
 from mdi_llm_tpu_torch.models import transformer as ttf
 from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention_plain
 from mdi_llm_tpu_torch.ops.rope import gather_rope
-from mdi_llm_tpu_torch.parallel.mesh import pipeline_mesh
+from mdi_llm_tpu_torch.parallel.mesh import make_mesh, pipeline_mesh
 from mdi_llm_tpu_torch.serving.engine import ServingEngine, pool_bytes
 from mdi_llm_tpu_torch.serving.pipeline import PipelinedServingEngine, segment_spans
 from mdi_llm_tpu_torch.utils import step_graph
@@ -387,8 +387,14 @@ def test_pp_refuses_a_draft_model(model):
         model.pp[2].serve(spec_k=2, draft_model="pythia-14m", draft_gen=model.tgen)
 
 
-@pytest.mark.parametrize("mesh", [{"pp": 2, "tp": 2}, {"tp": 2}], ids=["pp-tp", "tp"])
+@pytest.mark.parametrize("mesh", [{"pp": 2, "tp": 2}, {"pipe": 2, "tp": 2}],
+                         ids=["pp-tp", "tp"])
 def test_tp_meshes_are_refused_naming_item_14(model, mesh):
+    """A pipe x tp mesh, as a dict of axis sizes or a `make_mesh` Mesh
+    with a pipeline axis beside tp, is item 14's second half (a tp mesh
+    alone is ported: tests/test_torch_tp_serving.py)."""
+    if "pipe" in mesh:
+        mesh = make_mesh(mesh, ["cpu"])
     with pytest.raises(NotImplementedError, match="item 14"):
         model.gen(mesh=mesh)
     with pytest.raises(NotImplementedError, match="item 14"):

@@ -464,15 +464,18 @@ def test_server_cli_subprocess_serves_and_drains_on_sigterm(tmp_path):
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--pp", "2"], ["--host-pool-mib", "64"]],
                          ids=["--tp", "--pp", "--host-pool-mib"])
 def test_server_cli_refuses_unported_flags(flags):
-    """`--host-pool-mib` is ported: the server's flags build an engine with
-    the host tier (the listener is not started here); `--tp` and `--pp`
-    are still refused."""
+    """`--host-pool-mib` and `--tp` are ported: the server's flags build an
+    engine with the host tier, or over two tensor-parallel ranks (the
+    listener is not started here); `--pp` is still refused."""
     argv = ["--device", "cpu", "--model", "pythia-14m", *flags]
-    if "--host-pool-mib" in flags:
+    if "--pp" not in flags:
         args = server_cli.build_parser().parse_args(argv + ["--no-device-obs"])
         engine, _tok = server_cli.serve_cli.build_engine(args, need_tokenizer=False,
                                                          origin="cli.server")
-        assert engine.host_tier.store.num_slots > 0 and engine.cfg.host_pool_mib == 64
+        if "--tp" in flags:
+            assert engine.gen.tp == 2 and sorted(engine._kv) == [0, 1]
+        else:
+            assert engine.host_tier.store.num_slots > 0 and engine.cfg.host_pool_mib == 64
         return
     with pytest.raises(SystemExit, match="not ported"):
         server_cli.main(argv)
