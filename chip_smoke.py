@@ -373,6 +373,37 @@ non-zero.
    `cross_entropy_loss` computed here on the same batches.  Without the
    ckpt phase it writes the snapshot first, as `chat` does; without the
    `tokenizers` library it says so and skips, as `chat` does.
+29. mesh-train — the meshed Trainer (`Trainer(mesh=make_mesh(axes,
+   ["cuda"]))`, every position on the card): first K3 and K4 at the tp
+   ranks' geometries (B=4, T=2048, causal, bf16, hs 64: 16 heads over 2
+   groups and 8 over 1) against their plain versions (bf16 limits), timed
+   beside them, SDPA's backward and the bound.  Then the train phase's
+   set-up (tiny-llama-1.1b, all 22 layers, bf16, B=4, T=2048, 2
+   micro-batches, remat, the flash route, random weights from seed 10137)
+   without a mesh and on `dp=2`, `tp=2`, `dp=2,tp=2`, `dp=1,pp=2` and
+   `dp=1,pp=2,tp=2`, one warm-up step and three counted ones each on the
+   same batches: every step runs 2 x 22 x (the mesh's positions) layer
+   runs (the Trainer's `layer_runs`: a pp ring runs S micro-batches of
+   each dp shard's rows) and launches K2 twice per run, K3 and K4 once,
+   and no plain version; prints step seconds beside the unmeshed step's,
+   the losses and peak memory.  Then float32 at 4 layers, B=2, grad_clip
+   0.05 (clipping engaged), lr 1e-4 (`MESH_F32`): each mesh, through K2-K4
+   and through their plain versions (`flash_kernel=False`), takes three
+   steps whose losses equal the unmeshed Trainer's on the same route
+   within 1e-5 (relative) and whose parameters in the standard layout
+   equal its within rtol 2e-4, atol 2e-5.
+30. mesh-train-procs — `python -m mdi_llm_tpu_torch.cli.train --mesh dp=2`
+   as two processes sharing the card (`--coordinator` on a free localhost
+   port, gloo staged through pinned host memory), each under its own time
+   limit, through an entry that reports its Trainer (step seconds, the
+   gradient all-reduce's seconds, calls and bytes, layer runs, K2-K4
+   launches) and writes no checkpoint: in float32 at 4 layers (B=2,
+   grad_clip 0.05) process 0's three loss lines equal one process's
+   `--mesh dp=2` run's within 1e-5 (relative) and process 1 prints none;
+   in bf16 at 22 layers (the train phase's shape) each process runs 3 x 2
+   x 22 layers, K2 twice per run and K3, K4 once, and the losses are
+   finite; prints both processes' step and all-reduce seconds beside one
+   process's steps.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4, each with `paths`: its launches in every phase that drives
@@ -382,7 +413,8 @@ three quantized generates, K1's `moe-quant` over the int8 and the three
 4-layer serves, its `tune` the tuned serve's, its `pp-serve` over the
 three ring serves, its `tp-serve` over the three tp serves, K2's
 `tp-generate` the tp 2 generate's, K3's and K4's `moe-train` over the
-three counted steps); the last line is `{"ok": true, "device":
+three counted steps, K2's, K3's and K4's `mesh-train` over the five
+meshes' counted bf16 steps); the last line is `{"ok": true, "device":
 {...}}`.
 """
 
@@ -3276,7 +3308,7 @@ MOE_TRAIN = dict(batch_size=1, block_size=2048, grad_acc_steps=1, learning_rate=
                  dtype="bfloat16", remat=True, use_flash=True, moe_aux_weight=0.01)
 
 
-def flash_bwd_case_ms(B, T, H, G, hs, card):
+def flash_bwd_case_ms(B, T, H, G, hs, card, phase="moe-train"):
     """K3 and K4 against their plain versions at one causal bf16 shape
     (held to `flash_bwd_bf16_limits`), then timed beside the plain
     versions and SDPA's backward; returns {"dq"/"dkv": (ms, plain ms,
@@ -3308,7 +3340,7 @@ def flash_bwd_case_ms(B, T, H, G, hs, card):
     for which, a, r, lim in zip(("dq", "dk", "dv"), got, ref, limits):
         err, ratio = err_ratio(a, r, lim)
         if not ratio <= 1.0:
-            fail("moe-train", f"K3/K4 bf16 B={B} T={T} H={H} G={G} hs={hs} {which}: "
+            fail(phase, f"K3/K4 bf16 B={B} T={T} H={H} G={G} hs={hs} {which}: "
                  f"max|err| {err}, {ratio:.3f} x its limit")
         errs["dq" if which == "dq" else "dkv"] = max(errs.get("dq" if which == "dq" else "dkv", 0.0), err)
     del got, ref, limits
@@ -3323,7 +3355,7 @@ def flash_bwd_case_ms(B, T, H, G, hs, card):
         plain_ms = cuda_ms(lambda: plain(*args), 2)
         b_ms, b_by = flash_bwd_bound(B, H, G, T, hs, dtype, True, which)
         out_rows[which] = (ms, plain_ms, lib_ms, b_ms, b_by, errs[which])
-        print(f"moe-train: {'K3' if which == 'dq' else 'K4'} bfloat16 B={B} T={T} H={H} G={G} "
+        print(f"{phase}: {'K3' if which == 'dq' else 'K4'} bfloat16 B={B} T={T} H={H} G={G} "
               f"hs={hs} causal max_abs_err={errs[which]:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} (SDPA backward, dQ+dK+dV) bound_ms={b_ms:.5f} ({b_by}); "
               f"on {card}", flush=True)
@@ -4397,11 +4429,317 @@ def phase_tools(card, ckpt_dir):
     free()
 
 
+MESH_TRAIN_MESHES = ({"dp": 2}, {"tp": 2}, {"dp": 2, "tp": 2}, {"dp": 1, "pp": 2},
+                     {"dp": 1, "pp": 2, "tp": 2})
+MESH_F32_LAYERS = 4
+# clipping engaged (the first norm is far above 0.05).  The learning rate
+# sets how far float32 rounding moves AdamW's normalised update: at 1e-3
+# the first run's 3e8 parameters differed by up to 2.7e-5 on every mesh
+# and route (m/sqrt(v) is sensitive where m cancels), at the tolerance;
+# at 1e-4 rounding moves them by a tenth of that, while a wrong gradient
+# still moves an update by O(lr), 5x the tolerance
+MESH_F32 = dict(TRAIN, batch_size=2, grad_acc_steps=1, dtype="float32", use_flash=True,
+                grad_clip=0.05, learning_rate=1e-4)
+MESH_PARAM_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_training.py's mesh tolerance
+
+
+def mesh_params_close(phase, label, got, want) -> float:
+    """Fail unless every leaf of `got` is within `MESH_PARAM_TOL` of
+    `want`'s (both standard-layout trees); returns the largest |diff|."""
+    import torch
+
+    from mdi_llm_tpu_torch.models.transformer import tree_leaves
+
+    worst, bad = 0.0, 0
+    rtol, atol = MESH_PARAM_TOL["rtol"], MESH_PARAM_TOL["atol"]
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        d = (a.detach().float() - b.detach().float()).abs()
+        worst = max(worst, d.max().item())
+        bad += int((d > atol + rtol * b.detach().float().abs()).sum().item())
+    if bad:
+        fail(phase, f"{label}: {bad} parameters outside rtol {rtol} atol {atol} of the "
+             f"unmeshed Trainer's (largest |diff| {worst:.3e})")
+    return worst
+
+
+def phase_mesh_train(k2, k3, k4, card):
+    """The meshed Trainer on the card (the module docstring, phase 29)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.parallel.mesh import make_mesh
+    from mdi_llm_tpu_torch.training import Trainer, TrainingConfig
+    from mdi_llm_tpu_torch.utils import data_loader
+
+    # K3 and K4 at the tp ranks' geometries, the training shape
+    for tp in TP_SIZES:
+        rows = flash_bwd_case_ms(4, 2048, 32 // tp, 4 // tp, 64, card, phase="mesh-train")
+        k3["max_abs_err"] = max(k3.get("max_abs_err", 0.0), rows["dq"][5])
+        k4["max_abs_err"] = max(k4.get("max_abs_err", 0.0), rows["dkv"][5])
+
+    cfg = Config.from_name(TINY_LLAMA)
+    tc = TrainingConfig(**TRAIN)
+    L, a, B, T = cfg.n_layer, tc.grad_acc_steps, tc.batch_size, tc.block_size
+    data = synthetic_tokens(1 << 22, seed=10137)
+    rng = np.random.default_rng(10139)
+
+    def batches():
+        xs = np.empty((a, B, T), np.int32)
+        ys = np.empty_like(xs)
+        for m in range(a):
+            xs[m], ys[m] = data_loader.get_batch(data, B, T, rng)
+        return xs, ys
+
+    fixed = [batches() for _ in range(4)]  # warm-up + 3 counted steps, the same for every run
+    results, totals = {}, {"K2": 0, "K3": 0, "K4": 0}
+    for axes in (None,) + MESH_TRAIN_MESHES:
+        label = "none" if axes is None else ",".join(f"{k}={v}" for k, v in axes.items())
+        mesh = None if axes is None else make_mesh(axes, [DEVICE])
+        free()
+        tr = Trainer(cfg, tc, mesh=mesh, device=DEVICE)
+        if not tr.use_flash:
+            fail("mesh-train", f"{label}: the flash route is off")
+        tr.train_step(*fixed[0])  # warm-up: not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per_step = a * L * (1 if axes is None else math.prod(axes.values()))
+        steps = []
+        for xs, ys in fixed[1:]:
+            torch.cuda.synchronize()
+            reset_flash_counts()
+            runs0 = tr.layer_runs
+            t0 = time.perf_counter()
+            loss = tr.train_step(xs, ys)
+            dt = time.perf_counter() - t0
+            got = flash_counts()
+            runs = tr.layer_runs - runs0
+            if axes is not None and runs != per_step:
+                fail("mesh-train", f"{label}: {runs} layer runs in a step; want {per_step}")
+            want = {"K2": 2 * per_step, "K3": per_step, "K4": per_step, "plain": 0}
+            if got != want:
+                fail("mesh-train", f"{label}: one optimizer step launched {got}; want {want}")
+            if not math.isfinite(loss):
+                fail("mesh-train", f"{label}: step loss {loss}")
+            if axes is not None:
+                for kk in totals:
+                    totals[kk] += got[kk]
+            steps.append((dt, loss))
+        results[label] = {
+            "step_s": [round(d, 4) for d, _ in steps],
+            "step_s_median": round(float(np.median([d for d, _ in steps])), 4),
+            "step_losses": [round(x, 4) for _, x in steps],
+            "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+            "launches_per_step": want}
+        del tr
+    base = results["none"]["step_s_median"]
+    for label, r in results.items():
+        r["over_unmeshed"] = round(r["step_s_median"] / base, 4)
+    print("mesh-train: " + json.dumps({
+        "card": card, "model": TINY_LLAMA, "layers": L, "batch": B, "block": T,
+        "grad_acc": a, "dtype": tc.dtype, "remat": tc.remat, "runs": results}), flush=True)
+    k2.setdefault("paths", {})["mesh-train"] = totals["K2"]
+    k3.setdefault("paths", {})["mesh-train"] = totals["K3"]
+    k4.setdefault("paths", {})["mesh-train"] = totals["K4"]
+    free()
+
+    # float32 at 4 layers: every mesh's params after three steps equal the
+    # unmeshed Trainer's on the same attention route, K2-K4 or their plain
+    # versions
+    cfg4 = Config.from_name(TINY_LLAMA, n_layer=MESH_F32_LAYERS)
+    tc4 = TrainingConfig(**MESH_F32)
+    params = transformer.init_params(cfg4, 10137, dtype=torch.float32, device=DEVICE)
+    steps4 = [tuple(b[None] for b in data_loader.get_batch(data, 2, T, rng)) for _ in range(3)]
+    for route, flash_kernel in (("kernels", None), ("plain", False)):
+        ref = Trainer(cfg4, tc4, params=params, device=DEVICE, flash_kernel=flash_kernel)
+        want_losses = [ref.train_step(x, y) for x, y in steps4]
+        for axes in MESH_TRAIN_MESHES:
+            label = f"float32 {axes} {route}"
+            tr = Trainer(cfg4, tc4, mesh=make_mesh(axes, [DEVICE]), params=params,
+                         device=DEVICE, flash_kernel=flash_kernel)
+            reset_flash_counts()
+            losses = [tr.train_step(x, y) for x, y in steps4]
+            got = flash_counts()
+            runs = tr.layer_runs
+            counts = ({"K2": 2 * runs, "K3": runs, "K4": runs, "plain": 0} if flash_kernel is None
+                      else {"K2": 0, "K3": 0, "K4": 0, "plain": 4 * runs})
+            if got != counts:
+                fail("mesh-train", f"{label}: launched {got}; want {counts}")
+            rel = max(abs(g - w) / abs(w) for g, w in zip(losses, want_losses))
+            if not rel <= 1e-5:
+                fail("mesh-train", f"{label}: losses {losses} against the unmeshed "
+                     f"{want_losses} (rel {rel:.2e})")
+            worst = mesh_params_close("mesh-train", label, tr._standard_params(), ref.params)
+            print(f"mesh-train: {label}, {MESH_F32_LAYERS} layers x {cfg4.n_embd}, B=2 "
+                  f"T={T}, lr {tc4.learning_rate}, grad_clip {tc4.grad_clip}: params after 3 "
+                  f"steps within {MESH_PARAM_TOL} of the unmeshed Trainer's on the same "
+                  f"route (largest |diff| {worst:.3e}), losses rel {rel:.2e}; launches "
+                  f"{got}", flush=True)
+            del tr
+            free()
+        del ref
+        free()
+    del params
+    free()
+
+
+def train_report(argv) -> dict:
+    """`cli.train argv` in this process, its Trainer reported: step
+    seconds, the gradient all-reduce's seconds (`Trainer.grad_sync_s`),
+    the dp group's calls and bytes, layer runs, K2-K4 launches and peak
+    memory.  The checkpoint is not written (what a job writes is held on
+    the CPU)."""
+    from unittest import mock
+
+    import torch
+
+    from mdi_llm_tpu_torch import training
+    from mdi_llm_tpu_torch.cli import train as train_cli
+
+    steps = []
+    step = training.Trainer.train_step
+
+    def timed(self, xs, ys):
+        t0 = time.perf_counter()
+        loss = step(self, xs, ys)  # a host float: synchronized
+        steps.append(time.perf_counter() - t0)
+        return loss
+
+    reset_flash_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(training.Trainer, "train_step", timed), \
+            mock.patch.object(training.Trainer, "save", lambda self, out_dir: out_dir):
+        _, tr = train_cli.main(argv)
+    g = tr.layout.dp_group if tr.layout is not None else None
+    rec = {"step_s": steps, "layer_runs": tr.layer_runs, **flash_counts(),
+           "grad_allreduce_s": tr.grad_sync_s, "dp_group_calls": g.calls if g else None,
+           "dp_group_bytes": g.bytes if g else None,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del tr
+    free()
+    return rec
+
+
+# one process of a `cli.train` job, reporting as `train_report` does
+MESH_PROCS_ENTRY = (
+    "import json, sys\n"
+    "import chip_smoke\n"
+    "rec = chip_smoke.train_report(sys.argv[1:])\n"
+    "print('MESH-PROCS ' + json.dumps(rec), file=sys.stderr)\n"
+)
+
+
+def mesh_job(phase, argv, n=2, timeout=300):
+    """`cli.train argv` through `MESH_PROCS_ENTRY` as processes 0..n-1 of
+    one job on a free localhost port, each under its own time limit;
+    returns [(stdout, the `train_report` record)] in process order."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    coord = ["--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", str(n)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_PROCS_ENTRY, *argv, *coord, "--process-id", str(i)],
+        cwd=str(root), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(n)]
+    outs = []
+    try:
+        for i, p in enumerate(procs):
+            try:
+                o, e = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                fail(phase, f"process {i} of {n} ran past {timeout} s")
+            if p.returncode:
+                fail(phase, f"process {i} of {n} exited {p.returncode}:\n{e[-3000:]}")
+            rec = [ln for ln in e.splitlines() if ln.startswith("MESH-PROCS ")]
+            outs.append((o, json.loads(rec[-1][len("MESH-PROCS "):])))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def mesh_one(argv):
+    """`cli.train argv` in this process: (stdout, the `train_report`
+    record)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rec = train_report(argv)
+    return out.getvalue(), rec
+
+
+def phase_mesh_train_procs(card):
+    """The train CLI over two processes sharing the card (the module
+    docstring, phase 30)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = Path(tmp) / "data"
+        ds.mkdir()
+        synthetic_tokens(1 << 21, seed=21).tofile(ds / "train.bin")
+        synthetic_tokens(1 << 18, seed=22).tofile(ds / "val.bin")
+        base = ["--model", TINY_LLAMA, "--dataset", str(ds), "--ckpt", str(Path(tmp) / "ck"),
+                "--block-size", str(TRAIN["block_size"]), "--warmup-iters", "0",
+                "--learning-rate", "1e-3", "--lr-decay-iters", "100", "--log-interval", "1",
+                "--ckpt-interval", "1000", "--eval-iters", "1", "--max-iters", "3",
+                "--mesh", "dp=2", "--use-flash", "on",
+                "--device", DEVICE]
+
+        def loss_lines(stdout):
+            return [json.loads(ln)["loss"] for ln in stdout.splitlines()
+                    if ln.startswith("{") and "loss" in ln]
+
+        # float32 at 4 layers: the two processes' loss lines are one process's
+        f32 = base + ["--dtype", "float32", "--override", f"n_layer={MESH_F32_LAYERS}",
+                      "--batch-size", "2", "--grad-clip", "0.05"]
+        one_out, one = mesh_one(f32)
+        jobs = mesh_job("mesh-train-procs", f32)
+        want, got = loss_lines(one_out), loss_lines(jobs[0][0])
+        rel = max((abs(g - w) / abs(w) for g, w in zip(got, want)), default=float("inf"))
+        if len(got) != 3 or len(want) != 3 or loss_lines(jobs[1][0]) or not rel <= 1e-5:
+            fail("mesh-train-procs", f"float32 loss lines: two processes {got} (process 1 "
+                 f"printed {loss_lines(jobs[1][0])}), one process {want} (rel {rel})")
+        print(f"mesh-train-procs: float32 {MESH_F32_LAYERS} layers, dp=2 over 2 processes "
+              f"(gloo, staged through pinned host memory): loss lines {got} against one "
+              f"process's {want} (rel {rel:.2e})", flush=True)
+
+        # bf16 at full depth: step seconds and the gradient all-reduce's
+        bf16 = base + ["--dtype", "bfloat16", "--batch-size", str(TRAIN["batch_size"]),
+                       "--grad-acc-steps", str(TRAIN["grad_acc_steps"])]
+        one_out, one = mesh_one(bf16)
+        jobs = mesh_job("mesh-train-procs", bf16)
+        for i, (out, rec) in enumerate(jobs):
+            runs = rec["layer_runs"]
+            if runs != 3 * TRAIN["grad_acc_steps"] * 22 or (rec["K2"], rec["K3"], rec["K4"]) != (
+                    2 * runs, runs, runs):
+                fail("mesh-train-procs", f"process {i}: layer runs {runs}, launches "
+                     f"{rec['K2']}/{rec['K3']}/{rec['K4']}")
+        losses = loss_lines(jobs[0][0])
+        if len(losses) != 3 or not all(map(lambda v: v == v and abs(v) < 1e9, losses)):
+            fail("mesh-train-procs", f"bf16 loss lines {losses}")
+        print("mesh-train-procs: " + json.dumps({
+            "card": card, "model": TINY_LLAMA, "layers": 22, "dtype": "bfloat16",
+            "mesh": "dp=2", "batch": TRAIN["batch_size"], "block": TRAIN["block_size"],
+            "grad_acc": TRAIN["grad_acc_steps"], "losses": losses,
+            "one_process": {"step_s": one["step_s"], "peak_memory_gib": one["peak_memory_gib"],
+                            "losses": loss_lines(one_out)},
+            "two_processes": [{k: rec[k] for k in ("step_s", "grad_allreduce_s", "dp_group_calls",
+                                                   "dp_group_bytes", "peak_memory_gib")}
+                              for _, rec in jobs]}), flush=True)
+
+
 PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
           "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs", "server",
           "tier", "quant", "moe", "moe-quant", "moe-train", "tune", "pipeline",
-          "pipeline-nodes", "pp-serve", "tp-serve", "tp-generate", "tools")
+          "pipeline-nodes", "pp-serve", "tp-serve", "tp-generate", "tools", "mesh-train",
+          "mesh-train-procs")
 
 
 def main(argv=None) -> None:
@@ -4498,6 +4836,8 @@ def main(argv=None) -> None:
         "tp-serve": lambda: phase_tp_serve(k1, card),
         "tp-generate": lambda: phase_tp_generate(k2, card),
         "tools": lambda: phase_tools(card, ckpt_dir),
+        "mesh-train": lambda: phase_mesh_train(k2, k3, k4, card),
+        "mesh-train-procs": lambda: phase_mesh_train_procs(card),
     }
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = Path(tmp) / TINY_LLAMA
@@ -4510,11 +4850,12 @@ def main(argv=None) -> None:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
     records = (k1, k1q8, k2, k3, k4)
     missing = [(r["name"], k) for r in records for k in keys if k not in r]
-    k2_paths = {"generate", "ckpt", "graphs", "quant", "moe", "moe-quant", "tp-generate"} | (
+    k2_paths = {"generate", "ckpt", "graphs", "quant", "moe", "moe-quant", "tp-generate",
+                "mesh-train"} | (
         {"chat"} if importlib.util.find_spec("tokenizers") else set())
     k1_paths = {"serve", "ckpt", "graphs", "server", "tier", "quant", "moe", "moe-quant", "tune",
                 "pp-serve", "tp-serve"}
-    k34_paths = {"train", "moe-train"}
+    k34_paths = {"train", "moe-train", "mesh-train"}
     if only == set(PHASES) and (set(k1["paths"]) != k1_paths or set(k2["paths"]) != k2_paths
                                 or set(k3["paths"]) != k34_paths
                                 or set(k4["paths"]) != k34_paths):

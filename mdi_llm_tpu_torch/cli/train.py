@@ -2,26 +2,38 @@
 
     python -m mdi_llm_tpu_torch.cli.train --model tiny-llama-1.1b \\
         --ckpt out/tiny-llama --dataset data/shakespeare --batch-size 4 \\
-        --block-size 2048 --grad-acc-steps 2 --max-iters 100
+        --block-size 2048 --grad-acc-steps 2 --max-iters 100 --mesh dp=2
 
-trains on one GPU from `--dataset`'s `train.bin`/`val.bin` (uint16 token
-bins, sampled by the native C++ loader where `make -C native` builds it,
-else by the NumPy loader), prints one JSON line per log entry and writes
-the checkpoint to `--ckpt` (default `out`).  `--init scratch` draws random
+trains from `--dataset`'s `train.bin`/`val.bin` (uint16 token bins,
+sampled by the native C++ loader where `make -C native` builds it, else
+by the NumPy loader), prints one JSON line per log entry and writes the
+checkpoint to `--ckpt` (default `out`).  `--init scratch` draws random
 weights from `--seed` (or takes the params of a checkpoint the port wrote
 in `--ckpt` before), `--init hf` starts from the checkpoint in `--ckpt`
 (HF weights there are converted in place first), `--init resume`
-continues a run from its checkpoint.
+continues a run from its checkpoint, on any mesh.
 `--use-flash auto` runs attention through the flash kernels K2-K4 on a GPU
 at `--block-size` >= 2048.  It runs on `cuda` and raises without a GPU
 unless `--device cpu` is given.
 
+`--mesh` ("dp=2", "tp=2", "dp=2,tp=2", "dp=1,pp=2", "dp=2,pp=2,tp=2")
+lays the Trainer over a mesh whose every position sits on `--device` in
+one process.  `--coordinator host:port --process-id I --num-processes N`
+runs it over N processes (one command per process, process 0 holding the
+TCP store at host:port; NCCL when each has a card of its own, else gloo,
+staged through pinned host memory on a shared card): each holds a
+contiguous block of the mesh's positions (the DDP/torchrun path of the
+reference), samples the same global batch and keeps its rows; process 0
+alone prints and writes the checkpoint.  A process that does not join
+within `parallel.nodes.TIMEOUT_S` seconds, or stops answering, fails the
+others.
+
 An MoE config (Mixtral) trains in the dense formulation with
 `--moe-aux-weight` times its load-balancing loss.
 
-Refused, each naming its ROADMAP item: `--mesh` and
-`--coordinator`/`--process-id`/`--num-processes` (multi-device training),
-and `--moe-capacity-factor` (the token dispatch of an ep mesh, item 16).
+Refused, each naming its ROADMAP item: `--mesh` with `sp` or `ep` (ring
+attention and token-dispatch experts, item 16) and
+`--moe-capacity-factor` (the token dispatch of an ep mesh, item 16).
 """
 
 from __future__ import annotations
@@ -33,6 +45,8 @@ from pathlib import Path
 from mdi_llm_tpu_torch.cli._common import DTYPES, add_override_arg, config_overrides, refuse
 from mdi_llm_tpu_torch.config import Config
 from mdi_llm_tpu_torch.generation import resolve_device
+from mdi_llm_tpu_torch.parallel import nodes
+from mdi_llm_tpu_torch.parallel.mesh import make_mesh
 from mdi_llm_tpu_torch.training import Trainer, TrainingConfig
 from mdi_llm_tpu_torch.utils import data_loader, native_loader
 from mdi_llm_tpu_torch.utils.checkpoint import (
@@ -76,26 +90,46 @@ def build_parser():
         help="attention via the flash kernels (K2 forward, K3/K4 backward); "
         "auto = on a GPU at block size >= 2048",
     )
-    ap.add_argument("--mesh", default=None, help="not ported yet: refused")
+    ap.add_argument("--mesh", default=None,
+                    help='e.g. "dp=2", "tp=2", "dp=2,tp=2", "dp=1,pp=2" (GPipe stages), '
+                    '"dp=2,pp=2,tp=2"; sp and ep meshes are item 16')
     ap.add_argument("--moe-aux-weight", type=float, default=0.01,
                     help="weight of the MoE load-balancing loss (layer mean; "
-                    "no effect on dense configs)")
+                    "no effect on dense configs, not applied on pp meshes)")
     ap.add_argument("--moe-capacity-factor", type=float, default=None,
                     help="expert capacity of the ep mesh's token dispatch: not "
                     "ported yet (ROADMAP item 16), refused when set")
-    ap.add_argument("--coordinator", default=None, help="not ported yet: refused")
-    ap.add_argument("--process-id", type=int, default=None, help="not ported yet: refused")
-    ap.add_argument("--num-processes", type=int, default=None, help="not ported yet: refused")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0's TCP store: train one mesh over "
+                    "--num-processes processes (each given its --process-id)")
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--num-processes", type=int, default=None)
     return ap
+
+
+def parse_mesh(spec):
+    """{axis: size} of "dp=2,tp=2" (the JAX CLI's `parse_mesh` grammar)."""
+    if not spec:
+        return None
+    axes = {}
+    for part in spec.split(","):
+        k, _, v = part.partition("=")
+        axes[k.strip()] = int(v)
+    return axes
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        refuse("--mesh (multi-device training, item 14, second half)")
+    axes = parse_mesh(args.mesh)
+    for axis in ("sp", "ep"):
+        if axes and axes.get(axis, 1) > 1:
+            refuse(f"--mesh with {axis} (ring attention and token-dispatch experts, "
+                   "item 16)")
     if args.coordinator or args.process_id is not None or args.num_processes is not None:
-        refuse("--coordinator/--process-id/--num-processes (multi-host training, "
-               "item 14, second half)")
+        if not args.coordinator or args.process_id is None or args.num_processes is None:
+            raise SystemExit("--coordinator, --process-id and --num-processes go together")
+        if not axes:
+            raise SystemExit("--coordinator trains one mesh over the processes: give --mesh")
 
     tc = TrainingConfig(
         batch_size=args.batch_size,
@@ -128,13 +162,35 @@ def main(argv=None):
             f"--init {args.init} or an out dir ({out_dir}) that holds a checkpoint or "
             "model_config.yaml")
 
+    pid, n_proc = (args.process_id or 0), (args.num_processes or 1)
+    try:
+        if args.coordinator:
+            ring = nodes.init_distributed(
+                nodes.coordinator_config(args.coordinator, n_proc), pid,
+                device=args.device)
+            device = ring.device
+        else:
+            device = resolve_device(args.device)
+        mesh = make_mesh(axes, [device], pid, n_proc) if axes else None
+        return _train(args, tc, out_dir, overrides, device, mesh, lead=pid == 0)
+    finally:
+        nodes.shutdown_distributed()
+
+
+def _train(args, tc, out_dir, overrides, device, mesh, lead: bool):
+    """Build the Trainer, fit it and save; only the lead process prints."""
+    say = print if lead else (lambda *a, **k: None)
     if args.init == "resume":
-        trainer = Trainer.resume(out_dir, device=args.device)
-        print(f"resumed at iter {trainer.iter_num}", flush=True)
+        trainer = Trainer.resume(out_dir, mesh=mesh, device=device)
+        say(f"resumed at iter {trainer.iter_num}", flush=True)
     else:
-        device = resolve_device(args.device)
         if args.init == "hf" and not has_checkpoint(out_dir):
-            convert_hf_checkpoint(out_dir, model_name=args.model, dtype=DTYPES[tc.dtype])
+            if lead:
+                convert_hf_checkpoint(out_dir, model_name=args.model, dtype=DTYPES[tc.dtype])
+            if mesh is not None and mesh.num_processes > 1:
+                import torch.distributed as dist
+
+                dist.barrier()  # the others read what process 0 converted
         if args.init == "hf" or (args.ckpt and has_checkpoint(out_dir)):
             cfg, params = load_checkpoint(out_dir, device=device)
         else:
@@ -144,23 +200,23 @@ def main(argv=None):
                 else Config.from_name(args.model or out_dir.name, **overrides)
             )
             params = None
-        trainer = Trainer(cfg, tc, params=params, out_dir=out_dir, device=device)
+        trainer = Trainer(cfg, tc, mesh=mesh, params=params, out_dir=out_dir, device=device)
 
     train_p, val_p = args.dataset / "train.bin", args.dataset / "val.bin"
     if native_loader.is_available():
         train = native_loader.NativeBinDataset(train_p, seed=args.seed)
         val = native_loader.NativeBinDataset(val_p, seed=args.seed + 1) if val_p.exists() else None
-        print("using native C++ data loader", flush=True)
+        say("using native C++ data loader", flush=True)
     else:
         train = data_loader.open_bin(train_p)
         val = data_loader.open_bin(val_p) if val_p.exists() else None
 
     def log_cb(entry):
-        print(json.dumps(entry), flush=True)
+        say(json.dumps(entry), flush=True)
 
     result = trainer.fit(train, val, max_iters=args.max_iters, log_cb=log_cb)
     trainer.save(out_dir)
-    print(
+    say(
         f"finished at iter {result['iter_num']}, best val loss "
         f"{result['best_val_loss']:.4f} → {out_dir}"
     )

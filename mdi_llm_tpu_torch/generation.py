@@ -305,7 +305,11 @@ _UNPORTED_AXES = {"ep": "item 16", "sp": "item 16", "pp": "item 14, second half"
 def _check_inference_mesh(mesh: Mesh) -> None:
     """A `make_mesh` mesh the Generator runs: `tp` and `dp` axes (any
     axis of size 1 is harmless).  ep and sp meshes, and a pipeline axis
-    crossed with tp, are refused naming their ROADMAP item."""
+    crossed with tp, are refused naming their ROADMAP item, and so is a
+    mesh spread over processes (the training CLI's `--coordinator`)."""
+    if mesh.num_processes > 1:
+        _refuse(f"mesh over {mesh.num_processes} processes: sample --coordinator "
+                "is item 14, second half")
     for axis, size in mesh.shape.items():
         if size <= 1 or axis in ("tp", "dp"):
             continue

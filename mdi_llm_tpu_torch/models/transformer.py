@@ -38,7 +38,9 @@ that path in the JAX package either).
 split (`parallel/sharding.py`, the JAX package's GSPMD layout): each rank
 runs this module's layer code on its slice through its rank config
 (`shard_config`), and the partial sums of the row-parallel products meet
-in one all-reduce each (`parallel/collectives.py`).
+in one all-reduce each (`parallel/collectives.py`).  Its pieces
+(`TPRanks`: embed, blocks, head) also carry the training meshes, under
+autograd and, across processes, through the collectives' Megatron pair.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ from mdi_llm_tpu_torch.ops.paged_attention import (
 )
 from mdi_llm_tpu_torch.ops.quant import is_quantized, quantized_einsum
 from mdi_llm_tpu_torch.ops.rope import apply_rope, build_rope_cache, gather_rope
-from mdi_llm_tpu_torch.parallel.collectives import all_gather, all_reduce
+from mdi_llm_tpu_torch.parallel.collectives import all_gather, all_reduce, copy_to_ranks
 
 Params = Dict[str, Any]
 KVCache = Dict[str, torch.Tensor]
@@ -120,8 +122,7 @@ def mlp_forward(cfg: Config, p: Params, x: torch.Tensor, moe_aux: bool = False,
     raise ValueError(f"unknown mlp_class_name {kind!r}")
 
 
-def moe_forward(cfg: Config, p: Params, x: torch.Tensor, with_aux: bool = False,
-                expert_offset: int = 0):
+def moe_forward(cfg: Config, p: Params, x: torch.Tensor, with_aux: bool = False):
     """Top-k routed mixture of experts in the JAX package's dense
     formulation (`mdi_llm_tpu/models/transformer.moe_forward`): every
     expert runs on every token, and the router's top-k weights,
@@ -134,9 +135,20 @@ def moe_forward(cfg: Config, p: Params, x: torch.Tensor, with_aux: bool = False,
     (f_e: the share of top-k assignments routed to expert e, detached;
     P_e: the mean router probability of e), 1.0 at uniform routing.
 
-    A tensor-parallel rank holds `cfg.n_expert` of the router's experts,
-    from `expert_offset` on (`sharded_forward`): the router is whole, and
-    the rank returns its experts' share of the output."""
+    A tensor-parallel rank routes with the whole router and runs its own
+    experts (`moe_route`, `moe_experts`: `TPRanks.block`)."""
+    probs, onehot, dense_w = moe_route(cfg, p, x)
+    y = moe_experts(p, x, dense_w)
+    if not with_aux:
+        return y
+    assign, prob_sum = moe_stats(probs, onehot)
+    return y, moe_aux_loss(cfg, assign, prob_sum, probs.numel() // probs.shape[-1])
+
+
+def moe_route(cfg: Config, p: Params, x: torch.Tensor):
+    """The router over every expert: (probs (..., E) float32, the top-k
+    one-hots (..., k, E), the renormalised top-k weights as a dense
+    (..., E) table)."""
     router = quantized_einsum("...i,ei->...e", x, p["gate"]).float()
     E = router.shape[-1]  # every expert of the router
     probs = torch.softmax(router, dim=-1)  # (..., E)
@@ -144,20 +156,33 @@ def moe_forward(cfg: Config, p: Params, x: torch.Tensor, with_aux: bool = False,
     topv = topv / topv.sum(dim=-1, keepdim=True)
     # the normalised top-k weights scattered back to a dense (..., E) table
     onehot = F.one_hot(topi, E).to(probs.dtype)  # (..., k, E)
-    dense_w = torch.einsum("...k,...ke->...e", topv, onehot)
-    dense_w = dense_w[..., expert_offset : expert_offset + cfg.n_expert]
+    return probs, onehot, torch.einsum("...k,...ke->...e", topv, onehot)
+
+
+def moe_experts(p: Params, x: torch.Tensor, dense_w: torch.Tensor) -> torch.Tensor:
+    """Every expert of `p` on every token of `x`, weighted by its column
+    of `dense_w` (..., n_expert of p)."""
     ex = p["experts"]
     h1 = quantized_einsum("...d,eid->...ei", x, ex["fc_1"])
     h2 = quantized_einsum("...d,eid->...ei", x, ex["fc_2"])
     out = quantized_einsum("...ei,edi->...ed", F.silu(h1) * h2, ex["proj"])
-    y = torch.einsum("...ed,...e->...d", out, dense_w.to(out.dtype)).to(x.dtype)
-    if not with_aux:
-        return y
-    assign = onehot.detach().reshape(-1, E).sum(dim=0)  # top-k assignments per expert
-    n_tokens = probs.numel() // E
+    return torch.einsum("...ed,...e->...d", out, dense_w.to(out.dtype)).to(x.dtype)
+
+
+def moe_stats(probs: torch.Tensor, onehot: torch.Tensor):
+    """The aux's sums over tokens: (top-k assignments per expert,
+    detached; router probability per expert), each (E,)."""
+    E = probs.shape[-1]
+    return onehot.detach().reshape(-1, E).sum(dim=0), probs.reshape(-1, E).sum(dim=0)
+
+
+def moe_aux_loss(cfg: Config, assign: torch.Tensor, prob_sum: torch.Tensor,
+                 n_tokens: int) -> torch.Tensor:
+    """E * sum_e f_e * P_e from `moe_stats`' sums over `n_tokens` tokens
+    (sums over several batches' shards give the whole batch's aux)."""
     f = assign / float(n_tokens * cfg.n_expert_per_token)
-    pm = probs.reshape(-1, E).sum(dim=0) / float(n_tokens)
-    return y, E * (f * pm).sum()
+    pm = prob_sum / float(n_tokens)
+    return assign.shape[-1] * (f * pm).sum()
 
 
 def _split_qkv(cfg: Config, qkv: torch.Tensor):
@@ -460,66 +485,156 @@ def _replicated(devices: Sequence[torch.device], fn: Callable[[int], Any]) -> Li
     return [memo[d] for d in devices]
 
 
-def _row_parallel(hs: Sequence[torch.Tensor], lins: Sequence[Params], rep) -> List[torch.Tensor]:
+def _row_parallel(hs: Sequence[torch.Tensor], lins: Sequence[Params], rep,
+                  group=None) -> List[torch.Tensor]:
     """A row-parallel linear over the ranks: each rank contracts its input
-    slice `hs[r]` with its weight slice, the partial sums are all-reduced,
-    and the bias (whole on every rank) is added once, after the sum.  A
-    w8a8 weight quantizes every slice on the whole row's per-token max
-    |h| (`ops.quant._w8a8`)."""
+    slice `hs[r]` with its weight slice, the partial sums are all-reduced
+    (over `group`'s processes too), and the bias (whole on every rank) is
+    added once, after the sum.  A w8a8 weight quantizes every slice on the
+    whole row's per-token max |h| (`ops.quant._w8a8`)."""
     amax = None
     if "weight_q8" in lins[0]:
-        amax = all_reduce([h.float().abs().amax(dim=-1, keepdim=True) for h in hs], op="max")
+        amax = all_reduce([h.float().abs().amax(dim=-1, keepdim=True) for h in hs],
+                          op="max", group=group)
     y = all_reduce([
         quantized_einsum("...i,oi->...o", h, lin, amax=None if amax is None else amax[r])
         for r, (h, lin) in enumerate(zip(hs, lins))
-    ])
+    ], group=group)
     return rep(lambda r: y[r] + lins[r]["bias"] if "bias" in lins[r] else y[r])
 
 
-def _sharded_embed(cfg: Config, ranks: Sequence[Params], tokens, pos, rep) -> List[torch.Tensor]:
-    """The vocabulary-parallel lookup: each rank gathers the rows of its
-    vocabulary slice, zero where a token lies outside it, and the ranks'
-    rows are summed (exactly one rank holds each token)."""
-    parts = []
-    for r, p in enumerate(ranks):
-        w = p["wte"]["weight"]
-        V = w.shape[0]
-        t = tokens.to(w.device).long() - r * V
-        inside = (t >= 0) & (t < V)
-        parts.append(torch.where(inside[..., None], w[t.clamp(0, V - 1)], 0.0))
-    x = all_reduce(parts)
-    return rep(lambda r: _embed_finish(cfg, ranks[r], x[r], pos[r]))
+class TPRanks:
+    """The tensor-parallel ranks of one model replica that this process
+    runs: `ranks` each rank's tree (`parallel.sharding.shard_params`, or a
+    Trainer's views), in rank order, each on its device; `group` the
+    processes that hold the replica's other ranks (a
+    `parallel.collectives.CommGroup`, in tp order; None when this process
+    holds them all).  `tp` counts the replica's ranks over every process,
+    `offset` is this process's first rank, `cfg_r` a rank's config
+    (`shard_config`)."""
 
+    def __init__(self, cfg: Config, ranks: Sequence[Params], group=None):
+        self.cfg, self.ranks, self.group = cfg, list(ranks), group
+        n_proc = 1 if group is None else group.size
+        self.tp = len(self.ranks) * n_proc
+        self.offset = 0 if group is None else group.index * len(self.ranks)
+        self.cfg_r = shard_config(cfg, self.tp)
+        self.devs = [p["ln_f"]["weight"].device for p in self.ranks]
+        self.rep = functools.partial(_replicated, self.devs)
 
-def _sharded_block(cfg, cfg_r, lay, x, pos, cos, sin, caches, attn, rep):
-    """One block over the ranks: the attention of each rank's heads and
-    the MLP of each rank's slice (or experts) are partial sums, each
-    all-reduced once and then given its row-parallel bias; norms and
-    residuals are replicated.  Both block shapes (parallel residual with
-    or without a shared norm, and sequential) as `block_forward`."""
-    tp = len(lay)
-    n1 = rep(lambda r: _norm(cfg, x[r], lay[r]["norm_1"]))
-    heads = [attention_forward(cfg_r, lay[r]["attn"], n1[r], pos[r], cos[r], sin[r],
-                               *caches[r], project=False, **attn[r])
-             for r in range(tp)]
-    att = _row_parallel(heads, [lay[r]["attn"]["proj"] for r in range(tp)], rep)
-    if cfg.parallel_residual:
-        n2 = n1 if cfg.shared_attention_norm else rep(
-            lambda r: _norm(cfg, x[r], lay[r]["norm_2"]))
-        x = rep(lambda r: x[r] + att[r])
-    else:
-        x = rep(lambda r: x[r] + att[r])
-        n2 = rep(lambda r: _norm(cfg, x[r], lay[r]["norm_2"]))
+    def positions(self, tokens, input_pos, ropes=None):
+        """Each rank's (pos, cos, sin) for a chunk at `input_pos`."""
+        T = tokens.shape[1]
+        if input_pos.dim() == 2:
+            pos0 = input_pos.long()
+        else:
+            pos0 = input_pos.long()[:, None] + torch.arange(T, device=tokens.device)
+        pos = self.rep(lambda r: pos0.to(self.devs[r]))
+        if ropes is None:
+            ropes = [get_rope_cache(self.cfg, device=d) for d in self.devs]
+        # the gather clamps: padding tokens deliberately sit past the table
+        cs = self.rep(lambda r: gather_rope(ropes[r][0], ropes[r][1], pos[r]))
+        return pos, [c for c, _ in cs], [s_ for _, s_ in cs]
 
-    if cfg.mlp_class_name == "LLaMAMoE":
-        # each rank's experts: a partial sum of the routed output
-        out = all_reduce([moe_forward(cfg_r, lay[r]["mlp"], n2[r],
-                                      expert_offset=r * cfg_r.n_expert)
-                          for r in range(tp)])
-    else:
-        hidden = [mlp_forward(cfg_r, lay[r]["mlp"], n2[r], project=False) for r in range(tp)]
-        out = _row_parallel(hidden, [lay[r]["mlp"]["proj"] for r in range(tp)], rep)
-    return rep(lambda r: x[r] + out[r])
+    def embed(self, tokens, pos) -> List[torch.Tensor]:
+        """The vocabulary-parallel lookup: each rank gathers the rows of its
+        vocabulary slice, zero where a token lies outside it, and the
+        ranks' rows are summed (exactly one rank holds each token)."""
+        parts = []
+        for r, p in enumerate(self.ranks):
+            w = p["wte"]["weight"]
+            V = w.shape[0]
+            t = tokens.to(w.device).long() - (self.offset + r) * V
+            inside = (t >= 0) & (t < V)
+            parts.append(torch.where(inside[..., None], w[t.clamp(0, V - 1)], 0.0))
+        x = all_reduce(parts, group=self.group)
+        return self.rep(lambda r: _embed_finish(self.cfg, self.ranks[r], x[r], pos[r]))
+
+    def layers(self) -> List[list]:
+        """Each rank's per-layer views (`unbind_layers`)."""
+        L = self.ranks[0]["blocks"]["norm_1"]["weight"].shape[0]
+        return [unbind_layers(p["blocks"], L) for p in self.ranks]
+
+    def block(self, lay, x, pos, cos, sin, caches, attn, collect_moe_aux=False):
+        """One block over the ranks: the attention of each rank's heads and
+        the MLP of each rank's slice (or experts) are partial sums, each
+        all-reduced once and then given its row-parallel bias; norms and
+        residuals are replicated.  Both block shapes (parallel residual
+        with or without a shared norm, and sequential) as `block_forward`.
+        `collect_moe_aux` also returns the router's `moe_stats` (the whole
+        router, computed once per device)."""
+        cfg, cfg_r, rep, group, tp = self.cfg, self.cfg_r, self.rep, self.group, len(lay)
+        n1 = rep(lambda r: _norm(cfg, x[r], lay[r]["norm_1"]))
+        n1c = rep(lambda r: copy_to_ranks(n1[r], group))
+        heads = [attention_forward(cfg_r, lay[r]["attn"], n1c[r], pos[r], cos[r], sin[r],
+                                   *caches[r], project=False, **attn[r])
+                 for r in range(tp)]
+        att = _row_parallel(heads, [lay[r]["attn"]["proj"] for r in range(tp)], rep, group)
+        if cfg.parallel_residual:
+            n2 = n1 if cfg.shared_attention_norm else rep(
+                lambda r: _norm(cfg, x[r], lay[r]["norm_2"]))
+            x = rep(lambda r: x[r] + att[r])
+        else:
+            x = rep(lambda r: x[r] + att[r])
+            n2 = rep(lambda r: _norm(cfg, x[r], lay[r]["norm_2"]))
+        n2c = rep(lambda r: copy_to_ranks(n2[r], group))
+        stats = None
+        if cfg.mlp_class_name == "LLaMAMoE":
+            # the whole router once per device; each rank's experts give a
+            # partial sum of the routed output
+            route = rep(lambda r: moe_route(cfg, lay[r]["mlp"], n2[r]))
+            dense_w = rep(lambda r: copy_to_ranks(route[r][2], group))
+            n_e = cfg_r.n_expert
+            out = all_reduce([
+                moe_experts(lay[r]["mlp"], n2c[r],
+                            dense_w[r][..., (self.offset + r) * n_e:(self.offset + r + 1) * n_e])
+                for r in range(tp)], group=group)
+            if collect_moe_aux:
+                stats = moe_stats(route[0][0], route[0][1])
+        else:
+            hidden = [mlp_forward(cfg_r, lay[r]["mlp"], n2c[r], project=False)
+                      for r in range(tp)]
+            out = _row_parallel(hidden, [lay[r]["mlp"]["proj"] for r in range(tp)], rep, group)
+        x = rep(lambda r: x[r] + out[r])
+        return (x, stats) if collect_moe_aux else x
+
+    def blocks(self, layers, x, pos, cos, sin, attn, start=0, stop=None, kv=None,
+               remat=False, collect_moe_aux=False):
+        """Layers [start, stop) of `layers` (`self.layers()`) over the
+        ranks; `kv` each rank's cache.  `remat` recomputes each layer's
+        rank group in the backward (one `torch.utils.checkpoint` per
+        layer, as `run_blocks`).  With `collect_moe_aux` returns (x, the
+        layers' `moe_stats` stacked (n_layers, 2, E))."""
+        if remat and kv is not None:
+            raise ValueError("remat is a training path (kv must be None)")
+        stop = len(layers[0]) if stop is None else stop
+        stats = []
+        for i in range(start, stop):
+            lay = [layers[r][i] for r in range(len(self.ranks))]
+            caches = [(None, None) if kv is None
+                      else (_layer_pool(kv[r]["k"], i), _layer_pool(kv[r]["v"], i))
+                      for r in range(len(self.ranks))]
+            if remat:
+                out = checkpoint(self.block, lay, x, pos, cos, sin, caches, attn,
+                                 collect_moe_aux, use_reentrant=False,
+                                 preserve_rng_state=False)
+            else:
+                out = self.block(lay, x, pos, cos, sin, caches, attn, collect_moe_aux)
+            if collect_moe_aux:
+                x, st = out
+                stats.append(torch.stack(st))
+            else:
+                x = out
+        return (x, torch.stack(stats)) if collect_moe_aux else x
+
+    def head(self, x) -> torch.Tensor:
+        """The logits (B, T, padded_vocab) on the first rank's device: each
+        rank's vocabulary slice of the normed states, gathered."""
+        cfg, rep = self.cfg, self.rep
+        normed = rep(lambda r: copy_to_ranks(_norm(cfg, x[r], self.ranks[r]["ln_f"]),
+                                             self.group))
+        return all_gather([_head_logits(cfg, self.ranks[r], normed[r])
+                           for r in range(len(self.ranks))], -1, self.group)[0]
 
 
 def sharded_forward(
@@ -536,7 +651,10 @@ def sharded_forward(
     fresh_prefill: bool = False,
     use_flash: bool = False,
     flash_kernel: Optional[bool] = None,
-) -> torch.Tensor:
+    remat: bool = False,
+    collect_moe_aux: bool = False,
+    group=None,
+):
     """`forward` over the tp ranks of one Megatron split: `ranks` holds
     each rank's tree (`parallel.sharding.shard_params`), in rank order,
     each on its device; `kv` each rank's cache, dense `(L, B, G/tp, S,
@@ -553,23 +671,18 @@ def sharded_forward(
     embedding is a vocabulary-parallel lookup summed across ranks, and
     the head's vocabulary slices are gathered.  K1's split knobs are
     resolved on the model's whole geometry (`ops.tuning.
-    global_kernel_params`) unless `paged_params` gives them."""
-    tp = len(ranks)
-    cfg_r = shard_config(cfg, tp)
-    devs = [p["ln_f"]["weight"].device for p in ranks]
-    rep = functools.partial(_replicated, devs)
-    B, T = tokens.shape
-    if input_pos.dim() == 2:
-        pos0 = input_pos.long()
-    else:
-        pos0 = input_pos.long()[:, None] + torch.arange(T, device=tokens.device)
-    pos = rep(lambda r: pos0.to(devs[r]))
-    if ropes is None:
-        ropes = [get_rope_cache(cfg, device=d) for d in devs]
-    # the gather clamps: padding tokens deliberately sit past the table
-    cs = rep(lambda r: gather_rope(ropes[r][0], ropes[r][1], pos[r]))
-    cos, sin = [c for c, _ in cs], [s_ for _, s_ in cs]
-    x = _sharded_embed(cfg, ranks, tokens, pos, rep)
+    global_kernel_params`) unless `paged_params` gives them.
+
+    Without a cache it is the training forward (`training.Trainer` on a
+    mesh): it carries gradients, through K2-K4 per rank with `use_flash`,
+    `remat` recomputes each layer's rank group in the backward, and
+    `collect_moe_aux` returns (logits, the layers' `moe_stats` (L, 2,
+    E)).  `group` holds the replica's ranks in other processes
+    (`TPRanks`)."""
+    tr = TPRanks(cfg, ranks, group)
+    devs = tr.devs
+    pos, cos, sin = tr.positions(tokens, input_pos, ropes)
+    x = tr.embed(tokens, pos)
     if paged_tables is not None:
         if paged_params is None and devs[0].type == "cuda" and paged_kernel is not False:
             from mdi_llm_tpu_torch.ops import tuning
@@ -579,25 +692,20 @@ def sharded_forward(
             paged_params = tuning.global_kernel_params(
                 cfg.n_head, cfg.n_query_groups, cfg.head_size, pool.shape[2],
                 x[0].dtype, pool.dtype, devs[0])
-        attn = rep(lambda r: dict(
+        attn = tr.rep(lambda r: dict(
             paged_tables=paged_tables.to(devs[r]), paged_kernel=paged_kernel,
             paged_ragged=(None if paged_ragged is None
                           else tuple(a.to(devs[r]) for a in paged_ragged)),
             paged_params=paged_params))
     else:
-        attn = rep(lambda r: dict(
+        attn = tr.rep(lambda r: dict(
             input_pos=input_pos.long().to(devs[r]), fresh_prefill=fresh_prefill,
             use_flash=use_flash, flash_kernel=flash_kernel))
-    L = ranks[0]["blocks"]["norm_1"]["weight"].shape[0]
-    layers = [unbind_layers(p["blocks"], L) for p in ranks]
-    for i in range(L):
-        caches = [(None, None) if kv is None
-                  else (_layer_pool(kv[r]["k"], i), _layer_pool(kv[r]["v"], i))
-                  for r in range(tp)]
-        x = _sharded_block(cfg, cfg_r, [layers[r][i] for r in range(tp)], x, pos,
-                           cos, sin, caches, attn, rep)
-    normed = rep(lambda r: _norm(cfg, x[r], ranks[r]["ln_f"]))
-    return all_gather([_head_logits(cfg, ranks[r], normed[r]) for r in range(tp)], -1)[0]
+    out = tr.blocks(tr.layers(), x, pos, cos, sin, attn, kv=kv, remat=remat,
+                    collect_moe_aux=collect_moe_aux)
+    if collect_moe_aux:
+        return tr.head(out[0]), out[1]
+    return tr.head(out)
 
 
 @functools.lru_cache(maxsize=16)

@@ -11,7 +11,12 @@ Port of `mdi_llm_tpu/parallel/mesh.py`.
   slice on the rank's device and sums the partial results
   (`parallel/collectives.py`).  One addition, the rule `pipeline_mesh`
   has too: `devices` with ONE entry puts every mesh position on that
-  device, which is how one card runs tp = 2 or 4.
+  device, which is how one card runs tp = 2 or 4.  A mesh over the
+  processes of a job (`num_processes` > 1, the training CLI's
+  `--coordinator`) gives each process `n / num_processes` contiguous
+  positions, process-major, as `jax.distributed` lays out its global
+  device list (`Mesh.owned`); `devices` then names the process's own
+  device, where every position it owns sits.
 - `pipeline_mesh` maps each pipeline stage to a `torch.device` where the
   JAX package lays S stages over a 1-D `pipe` mesh axis.  Three layouts:
   S stages on one device (`devices` one entry, or None: the default
@@ -38,12 +43,26 @@ class Mesh:
     {axis: size} in that order, and `devices`, a numpy object array of
     `torch.device`s of that shape (positions may share a device)."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Tuple[str, ...]):
+    def __init__(self, devices: np.ndarray, axis_names: Tuple[str, ...],
+                 process_id: int = 0, num_processes: int = 1):
         if devices.ndim != len(axis_names):
             raise ValueError(f"a {devices.ndim}-d device grid for axes {axis_names}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, devices.shape))
+        self.process_id, self.num_processes = process_id, num_processes
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def owned(self, process_id: Optional[int] = None) -> range:
+        """The row-major indices of the positions process `process_id`
+        (default: this one) holds: a contiguous block of size /
+        num_processes."""
+        p = self.process_id if process_id is None else process_id
+        n = self.size // self.num_processes
+        return range(p * n, (p + 1) * n)
 
     def positions(self):
         """Every mesh position as {axis: coordinate}, row-major (the order
@@ -56,7 +75,9 @@ class Mesh:
         return list(self.devices.flat)
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={sorted({str(d) for d in self.devices.flat})})"
+        procs = (f", process {self.process_id} of {self.num_processes}"
+                 if self.num_processes > 1 else "")
+        return f"Mesh({self.shape}, devices={sorted({str(d) for d in self.devices.flat})}{procs})"
 
 
 def _default_devices():
@@ -68,10 +89,30 @@ def _default_devices():
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def make_mesh(axes: Dict[str, int], devices: Optional[Sequence] = None) -> Mesh:
+def make_mesh(axes: Dict[str, int], devices: Optional[Sequence] = None,
+              process_id: int = 0, num_processes: int = 1) -> Mesh:
     """A Mesh with the given {axis_name: size}.  Sizes must multiply to at
     most the device count; pass -1 for one axis to infer it.  `devices`
-    with one entry puts every position on that device (any sizes)."""
+    with one entry puts every position on that device (any sizes).
+
+    Over `num_processes` > 1 processes, `devices` is this process's one
+    device (every position it owns sits there), every size is given and
+    they multiply to a multiple of `num_processes`."""
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"process_id {process_id} out of range for {num_processes} processes")
+    if num_processes > 1:
+        if devices is None or len(devices) != 1 or -1 in axes.values():
+            raise ValueError(
+                f"a mesh over {num_processes} processes takes this process's one "
+                f"device and every axis's size; got {dict(axes)} on devices={devices!r}")
+        n = math.prod(axes.values())
+        if n % num_processes:
+            raise ValueError(
+                f"mesh {dict(axes)} has {n} positions: not a multiple of the "
+                f"{num_processes} processes")
+        mesh = make_mesh(axes, devices)
+        mesh.process_id, mesh.num_processes = process_id, num_processes
+        return mesh
     devs = [torch.device(d) for d in (devices if devices is not None else _default_devices())]
     sizes = dict(axes)
     for name, v in sizes.items():

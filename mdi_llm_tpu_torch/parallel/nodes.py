@@ -116,6 +116,19 @@ def parse_nodes_config(path) -> NodesConfig:
     )
 
 
+def coordinator_config(coordinator: str, num_processes: int) -> NodesConfig:
+    """The mesh schema's config from `--coordinator host:port` and
+    `--num-processes` (the training CLI's job: process 0 holds the store)."""
+    addr, _, port = coordinator.rpartition(":")
+    if not addr or not port.isdigit():
+        raise SystemExit(f"--coordinator must be host:port, got {coordinator!r}")
+    if num_processes < 1:
+        raise SystemExit(f"--num-processes must be >= 1, got {num_processes}")
+    return NodesConfig(starter=NodeInfo(addr=addr, comm_port=int(port)),
+                       secondary=[NodeInfo(addr="?", comm_port=0)
+                                  for _ in range(num_processes - 1)])
+
+
 def node_device(device, process_id: int) -> torch.device:
     """A process's device: "cuda" without an index takes card
     `process_id % device_count`, so processes of one host spread over its

@@ -1,4 +1,4 @@
-"""Megatron sharding rules for tensor-parallel inference.
+"""Megatron sharding rules for tensor-parallel inference and training.
 
 Port of `mdi_llm_tpu/parallel/sharding.py`.  The rule table keeps the
 JAX package's PartitionSpec vocabulary, so the two read line by line
@@ -41,6 +41,9 @@ __all__ = [
     "validate_tp_divisibility",
     "adapt_specs_to_tree",
     "shard_params",
+    "split_dims",
+    "tp_slice",
+    "unshard_params",
     "regroup_w4_row_scales",
     "batch_spec",
     "paged_kv_spec",
@@ -243,6 +246,40 @@ def shard_params(
         i: walk(params, specs, coords, dev)
         for i, (coords, dev) in enumerate(zip(mesh.positions(), mesh.device_list()))
     }
+
+
+def split_dims(cfg: Config, params: Any, tp_axis: str = "tp") -> Any:
+    """The tree of each leaf's dimension that the tp rules split, None
+    where the leaf is replicated over tp (norms, row-parallel biases, the
+    MoE router)."""
+    specs = adapt_specs_to_tree(param_specs(cfg, tp_axis), params)
+
+    def walk(p_node, s_node):
+        if isinstance(p_node, dict):
+            return {k: walk(v, s_node[k]) for k, v in p_node.items()}
+        return s_node.index(tp_axis) if tp_axis in s_node else None
+
+    return walk(params, specs)
+
+
+def tp_slice(x: torch.Tensor, dim: Optional[int], n: int, i: int) -> torch.Tensor:
+    """Slice `i` of `n` contiguous slices of `x` along `dim` (a view; `x`
+    itself where `dim` is None or `n` is 1)."""
+    if dim is None or n == 1:
+        return x
+    w = x.shape[dim] // n
+    return x.narrow(dim, i * w, w)
+
+
+def unshard_params(leaves, dims, group) -> list:
+    """The standard layout of a process's `leaves` (`dims` their split
+    dimensions, leaf for leaf): each split leaf gathered over the
+    processes of `group` (a `collectives.CommGroup` in tp order), the
+    replicated ones as they are.  Without a group the leaves are already
+    standard.  Collective: every process of the group calls it."""
+    if group is None or group.size == 1:
+        return list(leaves)
+    return [x if d is None else group.all_gather(x.detach(), d) for x, d in zip(leaves, dims)]
 
 
 def batch_spec(dp_axis: str = "dp", sp_axis: Optional[str] = None) -> P:

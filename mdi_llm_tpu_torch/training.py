@@ -1,19 +1,57 @@
-"""Training: the single-device pre-training loop.
+"""Training: the pre-training loop, on one device or on a dp/tp/pp mesh.
 
-Port of the unmeshed path of `mdi_llm_tpu/training.py`: init from scratch
-or from given params, AdamW with weight decay masked to weight matrices,
-a cosine learning rate with linear warmup, gradient accumulation with the
+Port of `mdi_llm_tpu/training.py`: init from scratch or from given
+params, AdamW with weight decay masked to weight matrices, a cosine
+learning rate with linear warmup, gradient accumulation with the
 micro-batch gradients summed in float32, global-norm clipping, periodic
 eval with `estimate_loss`, checkpoint-on-best with patience early stop,
 and the TFLOP/s estimate of the log lines.
 
+Meshes (`Trainer(mesh=parallel.mesh.make_mesh(axes, devices))`), the
+JAX Trainer's dp, tp, dp x tp and GPipe pp / pp x tp:
+- dp: the global batch is sampled as without a mesh; each dp position
+  takes its contiguous rows, and the loss is the global mean, so the
+  gradients are the unmeshed ones.  tp: each rank runs its slice of every
+  layer (`transformer.sharded_forward`, `TPRanks`), with its attention on
+  K2-K4 where the flash route is on.  pp: the balanced split of the JAX
+  ring (the larger stages last), S micro-batches per dp shard in the
+  ring's order (stage s runs micro-batch t - s at micro-step t, embed at
+  stage 0, the head and the loss on the last stage's outputs); the
+  bubbles and the JAX ring's zero-padded layers compute exact zeros
+  there and are skipped here, so no padded layer exists to train.
+- One tree per process (`parallel/sharding.split_dims`): the standard
+  layout where the process holds every tp rank (one process: always),
+  else its slice of the tp axis; the ranks' trees are views of it, so
+  one card keeps one copy of the weights, and AdamW's moments and the
+  gradients follow those leaves.  Checkpoints are in the standard layout
+  on every mesh, so a run resumes on any other.
+- Across processes (`mesh` from `make_mesh(..., process_id,
+  num_processes)` after `parallel/nodes.init_distributed`), each process
+  holds a contiguous block of positions: whole pp groups, and whole tp
+  groups or a part of one.  The tp collectives then run through
+  `torch.distributed` under autograd (`parallel/collectives.py`), the
+  gradients are summed over the processes that hold the same tp slice
+  (once per step, after accumulation), the clip's norm counts each
+  replicated leaf once, and process 0 writes the checkpoint after a
+  gather.  Every process samples the same global batch.
+- `layer_runs` counts each layer a rank runs on a micro-batch: on the
+  flash route each launches K2 once (twice with remat) and K3 and K4
+  once.  `grad_sync_s` sums the host seconds of the gradient all-reduce
+  across processes (waiting for the slowest peer included).
+
 What differs from the JAX package:
-- One device.  A mesh (dp/tp/sp/pp/ep) is refused: it waits for later
-  slices (ROADMAP Queue 1, items 14-17).  MoE configs train in the dense
-  formulation (`transformer.moe_forward`) with the load-balancing aux
-  weighted by `moe_aux_weight`; `moe_capacity_factor` acts only on the
-  token dispatch of an `ep` mesh (item 16), so anything but None is
-  refused.
+- The flash route on a mesh.  The JAX Trainer refuses `use_flash` on a
+  dp/tp/pp mesh (GSPMD cannot partition the Pallas call) and runs those
+  meshes on its dense route; the port's ranks run their own layer code,
+  so a mesh takes the unmeshed gate below.  Losses differ by rounding.
+- sp and ep meshes (ring attention, token-dispatch experts) are ROADMAP
+  item 16 and refused; MoE configs train in the dense formulation
+  (`transformer.moe_forward`) with the load-balancing aux weighted by
+  `moe_aux_weight` (its router statistics summed over the dp shards
+  before the aux is formed, the JAX package's whole-batch aux);
+  `moe_capacity_factor` acts only on the token dispatch of an `ep` mesh
+  (item 16), so anything but None is refused.  Eval is pure
+  cross-entropy, as the JAX Trainer's.
 - The optimizer is written out (`AdamW`) with optax's arithmetic:
   `clip_by_global_norm` divides by the norm itself (torch's
   `clip_grad_norm_` adds 1e-6), the moments are float32, the update of
@@ -35,6 +73,7 @@ What differs from the JAX package:
 from __future__ import annotations
 
 import json
+import sys
 import time
 from dataclasses import asdict, dataclass
 from pathlib import Path
@@ -47,6 +86,14 @@ import torch.nn.functional as F
 from mdi_llm_tpu_torch.config import Config
 from mdi_llm_tpu_torch.generation import resolve_device
 from mdi_llm_tpu_torch.models import transformer
+from mdi_llm_tpu_torch.parallel.collectives import CommGroup
+from mdi_llm_tpu_torch.parallel.mesh import Mesh
+from mdi_llm_tpu_torch.parallel.sharding import (
+    split_dims,
+    tp_slice,
+    unshard_params,
+    validate_tp_divisibility,
+)
 from mdi_llm_tpu_torch.utils import data_loader
 from mdi_llm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
@@ -176,11 +223,15 @@ class AdamW:
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
 
     @torch.no_grad()
-    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor]) -> None:
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+               norm: Optional[torch.Tensor] = None) -> None:
         """Apply one update to the `params` leaves in place; `grads` are the
-        float32 gradients (clipped in place)."""
+        float32 gradients (clipped in place) and `norm` their global norm
+        (default: over `grads`; a mesh's slices need the norm of the whole
+        tree)."""
         tc = self.tc
-        norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+        if norm is None:
+            norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
         if not bool(norm < tc.grad_clip):
             for g in grads:
                 g.div_(norm).mul_(tc.grad_clip)
@@ -216,34 +267,132 @@ def estimate_flops_per_token(cfg: Config, T: int) -> float:
 
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(
-        f"mdi_llm_tpu_torch trains on one device: {what} is not "
-        f"ported yet (ROADMAP Queue 1, {item})"
+        f"mdi_llm_tpu_torch: {what} is not ported yet (ROADMAP Queue 1, {item})"
     )
 
 
-class Trainer:
-    """Single-device trainer (the JAX `Trainer` without a mesh).
+TRAIN_AXES = ("dp", "tp", "pp")
+_ITEM_16_AXES = {"sp": "ring attention", "ep": "token-dispatch experts"}
 
-    `device` None means CUDA (and raises without a GPU); pass "cpu" to run
-    on the CPU.  `flash_kernel=False` sends the flash route through the
-    plain versions of K2-K4 on any device (the on-card parity check)."""
+
+class MeshLayout:
+    """How a training mesh's positions fall on this process.
+
+    Sizes `dp`, `tp`, `pp` (1 where the mesh lacks the axis); this
+    process's dp coordinates `dp_coords` and tp coordinates `tp_start`,
+    `tp_start + tp_local`; `tp_group`, the processes holding the other tp
+    ranks of its replicas (None when it holds them all), and `dp_group`,
+    the processes holding the same tp ranks of other replicas (None when
+    it holds every replica): `parallel.collectives.CommGroup`s, built by
+    every process in one order."""
+
+    def __init__(self, mesh: Mesh):
+        for axis, size in mesh.shape.items():
+            if axis in _ITEM_16_AXES and size > 1:
+                _refuse(f"a training mesh with {axis}={size} ({_ITEM_16_AXES[axis]})",
+                        "item 16")
+            if axis not in TRAIN_AXES and axis not in _ITEM_16_AXES:
+                raise ValueError(f"mesh axis {axis!r} (size {size}): a training mesh "
+                                 f"has the axes {TRAIN_AXES}")
+        self.dp, self.tp, self.pp = (int(mesh.shape.get(a, 1)) for a in TRAIN_AXES)
+        coords = list(mesh.positions())
+        spans = [self._span(mesh, coords, p) for p in range(mesh.num_processes)]
+        self.dp_coords, self.tp_start, self.tp_local = spans[mesh.process_id]
+        self.tp_group = self.dp_group = None
+        if mesh.num_processes == 1:
+            return
+        by_dp: Dict[tuple, list] = {}
+        by_tp: Dict[tuple, list] = {}
+        for p, (dps, t0, k) in enumerate(spans):
+            by_dp.setdefault(dps, []).append((t0, p))
+            by_tp.setdefault((t0, k), []).append((dps, p))
+        for dps, members in by_dp.items():
+            if sorted(t for t, _ in members) != list(range(0, self.tp, self.tp_local)):
+                raise ValueError(f"the processes holding dp coordinates {dps} do not "
+                                 f"hold each tp rank once: {members}")
+        for tps, members in by_tp.items():
+            if sorted(d for dps, _ in members for d in dps) != list(range(self.dp)):
+                raise ValueError(f"the processes holding tp ranks {tps} do not hold "
+                                 f"each dp coordinate once: {members}")
+        # every process builds every group, in one order
+        for kind, table in (("tp", by_dp), ("dp", by_tp)):
+            for key in sorted(table):
+                ranks = [p for _, p in sorted(table[key])]
+                if len(ranks) == 1:
+                    continue
+                group = CommGroup(ranks)
+                if mesh.process_id in ranks:
+                    setattr(self, f"{kind}_group", group)
+
+    def _span(self, mesh: Mesh, coords, p: int):
+        own = [coords[i] for i in mesh.owned(p)]
+        dps = tuple(sorted({c.get("dp", 0) for c in own}))
+        tps = sorted({c.get("tp", 0) for c in own})
+        n_pp = len({c.get("pp", 0) for c in own})
+        if (len(own) != len(dps) * len(tps) * n_pp or n_pp != self.pp
+                or tps != list(range(tps[0], tps[0] + len(tps))) or self.tp % len(tps)):
+            raise ValueError(
+                f"process {p} of {mesh.num_processes} holds the mesh positions {own}: "
+                "a process holds whole pp groups, and whole tp groups or a contiguous "
+                "part of one (order the mesh's axes dp, pp, tp)")
+        return dps, tps[0], len(tps)
+
+    @property
+    def counts_replicated(self) -> bool:
+        """Whether this process counts the replicated leaves in the clip's
+        norm (the first of its tp group)."""
+        return self.tp_group is None or self.tp_group.index == 0
+
+
+def _with_leaves(tree, leaves):
+    """`tree`'s structure holding `leaves` (in `transformer.tree_leaves`
+    order)."""
+    it = iter(leaves)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return walk(tree)
+
+
+class Trainer:
+    """The trainer, on one device or on a dp/tp/pp mesh (the module
+    docstring).
+
+    `device` None means CUDA (and raises without a GPU), or the mesh's
+    device; pass "cpu" to run on the CPU.  `flash_kernel=False` sends the
+    flash route through the plain versions of K2-K4 on any device (the
+    on-card parity check)."""
 
     def __init__(
         self,
         cfg: Config,
         tc: TrainingConfig,
-        mesh: Optional[Any] = None,
+        mesh: Optional[Mesh] = None,
         params: Optional[Any] = None,
         out_dir: Optional[Path] = None,
         device=None,
         flash_kernel: Optional[bool] = None,
     ):
-        if mesh is not None:
-            _refuse("a training mesh (dp/tp/sp/pp/ep)", "items 14-17")
         transformer.check_supported(cfg)
         if tc.moe_capacity_factor is not None:
             _refuse("moe_capacity_factor (the MoE token dispatch of an ep mesh)",
                     "item 16")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh={mesh!r}: pass a parallel.mesh.make_mesh Mesh")
+        self.mesh = mesh
+        self.layout = None if mesh is None else MeshLayout(mesh)
+        if mesh is not None:
+            here = {torch.device(mesh.device_list()[i]) for i in mesh.owned()}
+            if len(here) > 1:
+                raise ValueError(f"{mesh}: a training mesh puts every position of a "
+                                 "process on its one device (one process per card)")
+            first = resolve_device(here.pop())
+            if device is not None and resolve_device(device) != first:
+                raise ValueError(f"device={device!r} is not the mesh's device {first}")
+            device = first
         self.cfg = cfg
         self.tc = tc
         self.device = resolve_device(device)
@@ -253,6 +402,7 @@ class Trainer:
         self.best_val_loss = float("inf")
         # the JAX gate with the TPU read as CUDA: the dense route wins below
         # 2048 there, and the threshold is kept until this card measures it
+        # (on a mesh too: the module docstring)
         self.use_flash = (
             self.device.type == "cuda" and self.block_size >= 2048
             if tc.use_flash is None
@@ -261,6 +411,10 @@ class Trainer:
         self.flash_kernel = flash_kernel
         # the aux term applies to MoE configs only, as in the JAX package
         self.moe_aux_weight = tc.moe_aux_weight if cfg.mlp_class_name == "LLaMAMoE" else 0.0
+        self.layer_runs = 0
+        self.grad_sync_s = 0.0
+        if self.layout is not None:
+            self._check_mesh()
         dtype = DTYPES[tc.dtype]
         if params is None:
             params = transformer.init_params(cfg, tc.seed, dtype=dtype, device=self.device)
@@ -270,25 +424,189 @@ class Trainer:
                 lambda x: x.detach().to(device=self.device, dtype=dtype, copy=True),
                 params,
             )
+        self._dims = transformer.tree_leaves(split_dims(cfg, params))
+        if self.layout is not None and mesh.num_processes > 1:
+            import torch.distributed as dist
+
+            from mdi_llm_tpu_torch.parallel import nodes
+
+            # every process must start from the same weights
+            nodes.check_params_consistency(params, nodes.RingGroup(
+                dist.get_rank(), dist.get_world_size(), dist.get_backend(), self.device))
+            params = self._to_local_tree(params)
         transformer.tree_map(lambda x: x.requires_grad_(True), params)
         self.params = params
         self.optimizer = AdamW(tc, params)
         self._acc: Optional[List[torch.Tensor]] = None
 
     # ------------------------------------------------------------------
+    # the mesh's layout
+    # ------------------------------------------------------------------
+
+    def _check_mesh(self) -> None:
+        """The JAX constructor's checks (`mdi_llm_tpu/training.py`)."""
+        lay, cfg, tc = self.layout, self.cfg, self.tc
+        if lay.tp > 1:
+            validate_tp_divisibility(cfg, lay.tp)
+        if lay.pp > 1:
+            S = lay.pp
+            # balanced split (NOT the inference table): the larger stages last
+            base, rem = divmod(cfg.n_layer, S)
+            self.pp_counts = [base + (1 if s >= S - rem else 0) for s in range(S)]
+            if tc.batch_size % (lay.dp * S):
+                raise ValueError(
+                    f"pp training microbatches each dp shard over the stages: "
+                    f"batch_size {tc.batch_size} must divide by dp×pp={lay.dp * S}"
+                )
+            if self.moe_aux_weight:
+                print(
+                    "warning: moe_aux_weight is not applied on pp training "
+                    "meshes (MoE trains dense, pure CE there); set "
+                    "moe_aux_weight=0 to silence",
+                    file=sys.stderr,
+                )
+                self.moe_aux_weight = 0.0
+        elif tc.batch_size % lay.dp:
+            raise ValueError(f"batch_size {tc.batch_size} must divide by dp={lay.dp}: each "
+                             "dp position takes its contiguous rows")
+
+    def _local(self, leaves) -> List[torch.Tensor]:
+        """This process's tp slice of standard-layout `leaves` (copies)."""
+        lay = self.layout
+        n = lay.tp // lay.tp_local
+        return [tp_slice(x, d, n, lay.tp_start // lay.tp_local).clone()
+                for x, d in zip(leaves, self._dims)]
+
+    def _to_local_tree(self, params):
+        if self.layout.tp_local == self.layout.tp:
+            return params
+        return _with_leaves(params, self._local(transformer.tree_leaves(params)))
+
+    def _standard(self, leaves) -> List[torch.Tensor]:
+        """`leaves` of this process's tree in the standard layout
+        (collective over the tp group)."""
+        group = None if self.layout is None else self.layout.tp_group
+        return unshard_params(leaves, self._dims, group)
+
+    def _standard_params(self):
+        """The params in the standard layout, whatever the mesh."""
+        return _with_leaves(self.params,
+                            self._standard(transformer.tree_leaves(self.params)))
+
+    def _rank_trees(self) -> List[Any]:
+        """Each of this process's tp ranks' trees: views of `self.params`."""
+        k = self.layout.tp_local
+        leaves = transformer.tree_leaves(self.params)
+        return [_with_leaves(self.params,
+                             [tp_slice(x, d, k, r) for x, d in zip(leaves, self._dims)])
+                for r in range(k)]
+
+    # ------------------------------------------------------------------
 
     def _tokens(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).long()
 
-    def _loss(self, x, y, remat: bool) -> torch.Tensor:
+    def _loss(self, x, y, remat: bool, aux_weight: Optional[float] = None) -> torch.Tensor:
+        """The loss of a batch: without a mesh the unmeshed
+        `cross_entropy_loss`; on a mesh this process's part of it
+        (`_mesh_loss`)."""
+        w = self.moe_aux_weight if aux_weight is None else aux_weight
+        if self.layout is not None:
+            return self._mesh_loss(x, y, remat, w)
         return cross_entropy_loss(
             self.cfg, self.params, x, y, remat=remat, use_flash=self.use_flash,
-            flash_kernel=self.flash_kernel, moe_aux_weight=self.moe_aux_weight,
+            flash_kernel=self.flash_kernel, moe_aux_weight=w,
         )
 
+    def _mesh_loss(self, x, y, remat: bool, aux_weight: float) -> torch.Tensor:
+        """This process's part of the global loss of the batch (x, y): the
+        cross-entropy summed over its dp positions' rows, over the
+        batch's whole token count, plus its part of the aux (the router's
+        assignments summed over every dp shard, its own probabilities);
+        summed over the dp group it is the unmeshed loss."""
+        cfg, lay = self.cfg, self.layout
+        B, T = x.shape
+        rows = B // lay.dp
+        collect = aux_weight > 0
+        ranks = transformer.TPRanks(cfg, self._rank_trees(), lay.tp_group)
+        ce, stats = 0.0, 0.0
+        for d in lay.dp_coords:
+            xd, yd = x[d * rows:(d + 1) * rows], y[d * rows:(d + 1) * rows]
+            if lay.pp > 1:
+                logits = self._pp_logits(ranks, xd, remat)
+            else:
+                out = transformer.sharded_forward(
+                    cfg, ranks.ranks, xd, torch.zeros(rows, dtype=torch.long, device=xd.device),
+                    use_flash=self.use_flash, flash_kernel=self.flash_kernel, remat=remat,
+                    collect_moe_aux=collect, group=lay.tp_group)
+                self.layer_runs += cfg.n_layer * lay.tp_local
+                logits = out[0] if collect else out
+                if collect:
+                    stats = stats + out[1]
+            ce = ce + F.cross_entropy(logits.float().flatten(0, 1), yd.flatten().long(),
+                                      reduction="sum")
+        loss = ce / float(B * T)
+        if collect:  # stats (L, 2, E): assignments, probabilities
+            assign = stats[:, 0]
+            if lay.dp_group is not None:
+                assign = lay.dp_group.all_reduce_(assign.clone())
+            aux = transformer.moe_aux_loss(cfg, assign, stats[:, 1], B * T)
+            loss = loss + aux_weight * aux / cfg.n_layer
+        return loss
+
+    def _pp_logits(self, ranks, x, remat: bool) -> torch.Tensor:
+        """The GPipe ring over one dp shard's rows `x`: S micro-batches,
+        stage s running micro-batch t - s at micro-step t (bubbles
+        skipped), embed at stage 0; the head over the last stage's
+        outputs in micro-batch order."""
+        S = self.layout.pp
+        mu = x.shape[0] // S
+        pos, cos, sin = ranks.positions(x[:mu], torch.zeros(mu, dtype=torch.long,
+                                                             device=x.device))
+        attn = ranks.rep(lambda r: dict(input_pos=torch.zeros(mu, dtype=torch.long,
+                                                              device=ranks.devs[r]),
+                                        use_flash=self.use_flash,
+                                        flash_kernel=self.flash_kernel))
+        layers = ranks.layers()
+        starts = np.cumsum([0] + self.pp_counts).tolist()
+        entering: List[Any] = [None] * S  # the activation entering each stage
+        emitted: List[Any] = [None] * S
+        for t in range(2 * S - 1):
+            for s in reversed(range(S)):  # stage s + 1 reads what s emitted last step
+                mb = t - s
+                if not 0 <= mb < S:
+                    continue
+                h = ranks.embed(x[mb * mu:(mb + 1) * mu], pos) if s == 0 else entering[s]
+                h = ranks.blocks(layers, h, pos, cos, sin, attn, start=starts[s],
+                                 stop=starts[s + 1], remat=remat)
+                self.layer_runs += self.pp_counts[s] * len(ranks.ranks)
+                if s == S - 1:
+                    emitted[mb] = h
+                else:
+                    entering[s + 1] = h
+        return ranks.head(ranks.rep(lambda r: torch.cat([e[r] for e in emitted])))
+
+    def _grad_norm(self, grads) -> torch.Tensor:
+        """The global norm of the whole tree's gradients: split leaves
+        summed over the tp group, replicated leaves counted once."""
+        lay = self.layout
+        sq = torch.stack([g.square().sum() for g, d in zip(grads, self._dims)
+                          if d is not None or lay.counts_replicated]).sum()
+        if lay.tp_group is not None:
+            lay.tp_group.all_reduce_(sq)
+        return sq.sqrt()
+
+    def _global_value(self, loss: torch.Tensor) -> torch.Tensor:
+        """A detached per-process loss summed over the dp group."""
+        v = loss.detach().clone()
+        if self.layout is not None and self.layout.dp_group is not None:
+            self.layout.dp_group.all_reduce_(v)
+        return v
+
     def train_step(self, xs: np.ndarray, ys: np.ndarray) -> float:
-        """One optimizer step over (grad_acc_steps, batch, T) token arrays:
-        the micro-batch gradients are summed in float32 and averaged."""
+        """One optimizer step over (grad_acc_steps, batch, T) token arrays
+        (the global batch on a mesh): the micro-batch gradients are summed
+        in float32 and averaged."""
         xs, ys = self._tokens(xs), self._tokens(ys)
         leaves = transformer.tree_leaves(self.params)
         if self._acc is None:
@@ -305,16 +623,23 @@ class Trainer:
                     acc.add_(g)
             del grads
             losses.append(loss.detach())
+        if self.layout is not None and self.layout.dp_group is not None:
+            t0 = time.perf_counter()  # once per step, after accumulation
+            self.layout.dp_group.all_reduce_many_(self._acc)
+            self.grad_sync_s += time.perf_counter() - t0
         for acc in self._acc:
             acc.div_(xs.shape[0])
-        self.optimizer.update(leaves, self._acc)
+        norm = None if self.layout is None else self._grad_norm(self._acc)
+        self.optimizer.update(leaves, self._acc, norm=norm)
         self.iter_num += 1
-        return float(torch.stack(losses).mean())
+        return float(self._global_value(torch.stack(losses).mean()))
 
     @torch.no_grad()
     def eval_loss(self, x, y) -> float:
-        """The loss of one batch, without gradients and without remat."""
-        return float(self._loss(self._tokens(x), self._tokens(y), remat=False))
+        """The cross-entropy of one batch (no aux, as the JAX Trainer's
+        eval), without gradients and without remat."""
+        return float(self._global_value(
+            self._loss(self._tokens(x), self._tokens(y), remat=False, aux_weight=0.0)))
 
     @staticmethod
     def _sample_batch(data, batch_size, block_size, rng):
@@ -393,8 +718,17 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def save(self, out_dir) -> Path:
-        out_dir = save_checkpoint(self.params, self.cfg, out_dir)
-        torch.save(self.optimizer.state_dict(), out_dir / "opt_state.pt")
+        """Write the checkpoint in the standard layout, whatever the mesh:
+        collective across processes (a gather of the tp slices), and
+        process 0 alone writes."""
+        params = self._standard_params()
+        state = self.optimizer.state_dict()
+        state = dict(state, mu=self._standard(state["mu"]), nu=self._standard(state["nu"]))
+        out_dir = Path(out_dir).resolve()
+        if self.mesh is not None and self.mesh.process_id != 0:
+            return out_dir
+        out_dir = save_checkpoint(params, self.cfg, out_dir)
+        torch.save(state, out_dir / "opt_state.pt")
         (out_dir / "train_state.json").write_text(
             json.dumps(
                 {
@@ -407,16 +741,21 @@ class Trainer:
         return out_dir
 
     @classmethod
-    def resume(cls, out_dir, mesh: Optional[Any] = None, device=None) -> "Trainer":
+    def resume(cls, out_dir, mesh: Optional[Mesh] = None, device=None) -> "Trainer":
+        """A Trainer continuing the checkpoint in `out_dir` on `mesh` (any
+        mesh, or none: checkpoints are in the standard layout)."""
         out_dir = Path(out_dir).resolve()
         state = json.loads((out_dir / "train_state.json").read_text())
         tc = TrainingConfig(**state["training_config"])
+        if mesh is not None and device is None:
+            device = mesh.device_list()[mesh.owned()[0]]
         cfg, params = load_checkpoint(out_dir, device=resolve_device(device))
         tr = cls(cfg, tc, mesh=mesh, params=params, out_dir=out_dir, device=device)
         del params
-        tr.optimizer.load_state_dict(
-            torch.load(out_dir / "opt_state.pt", map_location=tr.device)
-        )
+        opt = torch.load(out_dir / "opt_state.pt", map_location=tr.device)
+        if tr.layout is not None and tr.layout.tp_local < tr.layout.tp:
+            opt = dict(opt, mu=tr._local(opt["mu"]), nu=tr._local(opt["nu"]))
+        tr.optimizer.load_state_dict(opt)
         tr.iter_num = state["iter_num"]
         tr.best_val_loss = state["best_val_loss"]
         return tr

@@ -16,9 +16,11 @@
   resume exact; the NumPy and native loaders give the JAX package's
   batches.
 - The train CLI on the CPU, then `--init resume`; without a GPU it
-  raises; `--mesh` and `--coordinator` are refused, `--init hf` without
-  weights in `--ckpt` too, and the Trainer refuses meshes and an MoE
-  capacity factor (the ep mesh's token dispatch).
+  raises; `--mesh` with an sp axis (item 16) and `--coordinator` without
+  `--process-id`/`--num-processes` are refused, `--init hf` without
+  weights in `--ckpt` too, and the Trainer refuses sp meshes and an MoE
+  capacity factor (the ep mesh's token dispatch, item 16).  The meshes
+  the Trainer takes are `tests/test_torch_mesh_training.py`'s.
 """
 
 import json
@@ -44,6 +46,7 @@ from mdi_llm_tpu_torch.config import Config as TConfig
 from mdi_llm_tpu_torch.convert import params_from_numpy
 from mdi_llm_tpu_torch.models import transformer as ttf
 from mdi_llm_tpu_torch.ops import flash as tflash
+from mdi_llm_tpu_torch.parallel.mesh import make_mesh
 from mdi_llm_tpu_torch.utils import data_loader as tdl
 from mdi_llm_tpu_torch.utils import native_loader as tnl
 from tests.test_model import CONFIG_VARIANTS, tiny_config
@@ -326,11 +329,13 @@ def test_train_cli_raises_without_a_gpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--mesh", "dp=2"], SystemExit, "not ported"),
+    # --mesh is ported; an sp axis (ring attention) is item 16
+    (["--mesh", "dp=2,sp=2"], SystemExit, "item 16"),
     # --init hf is ported: a --ckpt with neither params.pt nor HF weights
     # is refused before any work
     (["--init", "hf"], FileNotFoundError, r"no \*.safetensors or \*.bin weights"),
-    (["--coordinator", "localhost:1234"], SystemExit, "not ported"),
+    # --coordinator is ported: it needs --process-id and --num-processes
+    (["--coordinator", "localhost:1234"], SystemExit, "go together"),
 ], ids=["--mesh", "--init", "--coordinator"])
 def test_train_cli_refuses_unported_flags(tmp_path, flags, error, match):
     argv = [*CLI_RUN, "--dataset", str(tmp_path), "--device", "cpu",
@@ -340,13 +345,15 @@ def test_train_cli_refuses_unported_flags(tmp_path, flags, error, match):
 
 
 def test_trainer_refuses_meshes_and_moe():
-    """Meshes and the MoE capacity factor (which acts only on an ep mesh's
-    token dispatch, item 16) are refused.  MoE configs train (their steps
-    are `test_train_steps_match_jax[moe-*]`), and a dense config takes any
-    `moe_aux_weight` and ignores it, as the JAX Trainer does."""
+    """sp meshes (ring attention) and the MoE capacity factor (which acts
+    only on an ep mesh's token dispatch) are refused, naming item 16.  MoE
+    configs train (their steps are `test_train_steps_match_jax[moe-*]`),
+    and a dense config takes any `moe_aux_weight` and ignores it, as the
+    JAX Trainer does."""
     cfg = port_cfg(tiny_config())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ttr.Trainer(cfg, port_tc(), mesh={"dp": 2}, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        ttr.Trainer(cfg, port_tc(), mesh=make_mesh({"dp": 1, "sp": 2}, ["cpu"]),
+                    device="cpu")
     moe = port_cfg(tiny_config(**CONFIG_VARIANTS["moe"]))
     with pytest.raises(NotImplementedError, match="item 16"):
         ttr.Trainer(moe, port_tc(moe_capacity_factor=1.25), device="cpu")
