@@ -404,6 +404,48 @@ non-zero.
    x 22 layers, K2 twice per run and K3, K4 once, and the losses are
    finite; prints both processes' step and all-reduce seconds beside one
    process's steps.
+   Beside its parameter check the float32 part prints, per mesh and route,
+   the largest |diff| between the first step's gradients (summed,
+   averaged, before the optimizer clips them) and the unmeshed Trainer's,
+   absolute and relative to the leaf's largest gradient.
+31. pp-tp-serve — pp x tp serving (`serving/pipeline.py` with a tp axis
+   inside each stage): the pp-serve phase's CLI run and trace with `--pp 2
+   --tp 2` (the reference table's [10, 12], two ranks per stage, every
+   rank on the card), over a bf16 pool and an int8 pool, the single engine
+   on the same trace beside each: every request finishes with its budget
+   in the vocabulary, K1 launches exactly 2 x `stage_layer_runs` (once per
+   stage layer and rank, at the rank's 16-head 2-group geometry, its knobs
+   resolved on the model's 32-head 4-group one), each with its merge
+   kernel, the plain route never, the steps are captured when the engine
+   is built and replayed, host_syncs equal the single engine's.  Prints
+   tokens/s beside the single engine's, `stage_layer_runs`, the capture
+   seconds and the bf16 divergences (printed, not gated).  Then float32 at
+   4 layers: the pp 2 x tp 2 engine through K1 gives the single engine's
+   streams and its own through the plain route (`divergence_ok`).
+32. pipeline-tp — the pipe x tp ring (`PipelineEngine(tp=2)` through
+   `cli.starter --tp-devices 2` and `standalone.json`, one process): S = 2
+   ([10, 12]), M = 2, 4 greedy 8-token prompts, 64 new tokens, at full
+   width and depth in bf16, beside the same ring at tp = 1 and
+   `Generator.generate` at B = 4: every sample gets its budget, a second
+   call replays the captured chunks and gives the same streams, the ring
+   launches none of K1-K4 and no plain route.  Prints tokens/s, rotations,
+   captures and the ratios.  Then float32 at 4 layers: the pipe x tp
+   ring's streams are generate's (`divergence_ok`).
+33. inference-procs — inference over two processes sharing the card
+   (gloo through pinned host buffers), each under its own time limit:
+   (a) `cli.sample --coordinator ... --tp-devices 2` (one tp rank per
+   process) through an entry that runs the CLI three times in the same
+   two processes, each a job on its own port: float32 at 4 layers greedy
+   (both processes' streams equal one process's tp 2 run, `divergence_ok`)
+   and at temperature 0.8 (the two processes draw the same tokens); bf16
+   at 22 layers on the generate phase's four prompts (1100-1900 tokens,
+   the CLI's prompt source swapped for them), 64 new tokens: each process
+   launches K2 exactly 22 times (one rank x 22 layers) and its plain
+   version never, the two print the same streams.  Prints decode tokens/s
+   beside the one-process tp 2 run's (its graphs replayed) and the
+   collectives' calls, bytes and host seconds.  (b) `cli.starter` and
+   `cli.secondary` with `--tp-devices 2` (each process one stage of two
+   ranks), float32 at 4 layers: the one-process pipe x tp ring's streams.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4, each with `paths`: its launches in every phase that drives
@@ -414,8 +456,9 @@ three quantized generates, K1's `moe-quant` over the int8 and the three
 three ring serves, its `tp-serve` over the three tp serves, K2's
 `tp-generate` the tp 2 generate's, K3's and K4's `moe-train` over the
 three counted steps, K2's, K3's and K4's `mesh-train` over the five
-meshes' counted bf16 steps); the last line is `{"ok": true, "device":
-{...}}`.
+meshes' counted bf16 steps, K1's `pp-tp-serve` over its two ring serves,
+K2's `inference-procs` over the two processes' bf16 run); the last line
+is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -3809,7 +3852,7 @@ def phase_pipeline(card):
     free()
 
 
-def node_pair(tmp, argv, label, timeout=300):
+def node_pair(tmp, argv, label, timeout=300, phase="pipeline-nodes"):
     """`cli.starter` and one `cli.secondary` as two processes on the card
     (one localhost config), each under `cli.mem_monitor`; returns (starter
     stdout, starter stderr, secondary stderr, {role: the monitor's peak
@@ -3845,7 +3888,7 @@ def node_pair(tmp, argv, label, timeout=300):
                 p.wait()
     serr = sec_err.read_text()
     if sta.returncode or sec.returncode:
-        fail("pipeline-nodes", f"{label}: starter exit {sta.returncode}, secondary exit "
+        fail(phase, f"{label}: starter exit {sta.returncode}, secondary exit "
              f"{sec.returncode}\n{sta.stderr[-3000:]}\n{serr[-3000:]}")
     mem = {}
     for role in ("starter", "secondary"):
@@ -3934,30 +3977,32 @@ PP_SERVE_ARGV = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"]
 PP_SERVE_F32_LAYERS = 4
 
 
-def pp_served(phase, argv, S, split):
-    """The serve CLI on `argv` with `--pp S`, K1's and the plain route's
-    counts set to 0 just before and read just after.  Fails unless the
-    engine is the ring over `split` of 22 layers, every request finished
-    with its budget in the vocabulary, K1 launched exactly once per stage
-    layer the engine ran and the plain route never, and the steps were
-    captured when the engine was built and replayed in the run.  Returns
-    (stats line, K1 launches, merge launches, engine, results)."""
+def pp_served(phase, argv, S, split, tp=1):
+    """The serve CLI on `argv` with `--pp S` (and `--tp tp`), K1's and the
+    plain route's counts set to 0 just before and read just after.  Fails
+    unless the engine is the ring over `split` of 22 layers with tp ranks
+    per stage, every request finished with its budget in the vocabulary,
+    K1 launched exactly once per stage layer the engine ran and rank and
+    the plain route never, and the steps were captured when the engine was
+    built and replayed in the run.  Returns (stats line, K1 launches,
+    merge launches, engine, results)."""
     from mdi_llm_tpu_torch.cli import serve as cli
     from mdi_llm_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention
     from mdi_llm_tpu_torch.serving.pipeline import PipelinedServingEngine
 
-    args = cli.build_parser().parse_args(argv + ["--pp", str(S)])
+    args = cli.build_parser().parse_args(argv + ["--pp", str(S), "--tp", str(tp)])
     reset_k1_counts()
     trace, results, stats, engine, _tok = cli.serve(args)
     launches, plain = k1_counts()
     merges = ragged_paged_attention.merge_launches
     if not isinstance(engine, PipelinedServingEngine) or engine._stage_counts != split \
-            or engine.gen.cfg.n_layer != 22:
-        fail(phase, f"--pp {S}: engine {type(engine).__name__} over {engine.gen.cfg.n_layer} "
-             f"layers split {getattr(engine, '_stage_counts', None)}, want {split} of 22")
-    if launches != engine.stage_layer_runs or plain or not launches:
-        fail(phase, f"--pp {S}: K1 launches {launches}, plain route {plain}: want "
-             f"{engine.stage_layer_runs} = the stage layers the ring ran")
+            or engine.gen.cfg.n_layer != 22 or engine._tp != tp:
+        fail(phase, f"--pp {S} --tp {tp}: engine {type(engine).__name__} over "
+             f"{engine.gen.cfg.n_layer} layers split {getattr(engine, '_stage_counts', None)} "
+             f"tp {getattr(engine, '_tp', None)}, want {split} of 22, tp {tp}")
+    if launches != tp * engine.stage_layer_runs or plain or not launches:
+        fail(phase, f"--pp {S} --tp {tp}: K1 launches {launches}, plain route {plain}: want "
+             f"{tp} x {engine.stage_layer_runs} = the stage layers the ring ran, per rank")
     graphs = engine.graph_stats()
     if graphs["captures"] != graphs["steps"] or not graphs["replays"]:
         fail(phase, f"--pp {S}: steps {graphs['steps']}, captures {graphs['captures']}, "
@@ -4553,15 +4598,19 @@ def phase_mesh_train(k2, k3, k4, card):
     tc4 = TrainingConfig(**MESH_F32)
     params = transformer.init_params(cfg4, 10137, dtype=torch.float32, device=DEVICE)
     steps4 = [tuple(b[None] for b in data_loader.get_batch(data, 2, T, rng)) for _ in range(3)]
+    grad_diffs = {}
     for route, flash_kernel in (("kernels", None), ("plain", False)):
         ref = Trainer(cfg4, tc4, params=params, device=DEVICE, flash_kernel=flash_kernel)
+        want_grads = first_step_grads(ref)
         want_losses = [ref.train_step(x, y) for x, y in steps4]
         for axes in MESH_TRAIN_MESHES:
             label = f"float32 {axes} {route}"
             tr = Trainer(cfg4, tc4, mesh=make_mesh(axes, [DEVICE]), params=params,
                          device=DEVICE, flash_kernel=flash_kernel)
+            got_grads = first_step_grads(tr)
             reset_flash_counts()
             losses = [tr.train_step(x, y) for x, y in steps4]
+            grad_diffs[label] = grad_diff(tr._standard(got_grads[0]), want_grads[0])
             got = flash_counts()
             runs = tr.layer_runs
             counts = ({"K2": 2 * runs, "K3": runs, "K4": runs, "plain": 0} if flash_kernel is None
@@ -4577,13 +4626,44 @@ def phase_mesh_train(k2, k3, k4, card):
                   f"T={T}, lr {tc4.learning_rate}, grad_clip {tc4.grad_clip}: params after 3 "
                   f"steps within {MESH_PARAM_TOL} of the unmeshed Trainer's on the same "
                   f"route (largest |diff| {worst:.3e}), losses rel {rel:.2e}; launches "
-                  f"{got}", flush=True)
+                  f"{got}; first-step gradients before the optimizer: {grad_diffs[label]}",
+                  flush=True)
             del tr
             free()
         del ref
         free()
+    print("mesh-train: gradients " + json.dumps({"card": card, "dtype": "float32",
+                                                   "layers": MESH_F32_LAYERS,
+                                                   "per_mesh": grad_diffs}), flush=True)
     del params
     free()
+
+
+def first_step_grads(tr) -> list:
+    """Make `tr`'s optimizer keep a copy of the float32 gradients its first
+    step is handed (summed over the micro-batches and the dp group,
+    averaged, not yet clipped) in the list it returns."""
+    kept = []
+    update = tr.optimizer.update
+
+    def keeping(params, grads, norm=None):
+        if not kept:
+            kept.append([g.detach().clone() for g in grads])
+        return update(params, grads, norm=norm)
+
+    tr.optimizer.update = keeping
+    return kept
+
+
+def grad_diff(got, want) -> dict:
+    """The largest |got - want| over every gradient leaf, and over every
+    leaf that largest difference relative to the leaf's largest |want|."""
+    worst = rel = 0.0
+    for a, b in zip(got, want):
+        d = (a.float() - b.float()).abs().max().item()
+        worst = max(worst, d)
+        rel = max(rel, d / max(b.float().abs().max().item(), 1e-30))
+    return {"max_abs_diff": worst, "max_rel_to_leaf_max": rel}
 
 
 def train_report(argv) -> dict:
@@ -4734,12 +4814,376 @@ def phase_mesh_train_procs(card):
                               for _, rec in jobs]}), flush=True)
 
 
+PP_TP = (2, [10, 12], 2)  # stages, the reference table's split of 22, tp ranks per stage
+
+
+def phase_pp_tp_serve(k1, card):
+    """pp x tp serving on the card (the module docstring, phase 31)."""
+    import torch
+
+    from mdi_llm_tpu_torch.cli.serve import synthetic_trace
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.parallel.mesh import pipeline_mesh
+
+    S, split, tp = PP_TP
+    total = 0
+    for kv, extra in (("bfloat16", []), ("int8", ["--kv-dtype", "int8"])):
+        argv = PP_SERVE_ARGV + extra
+        single_line, _launches, single, want = serve_checked("pp-tp-serve", argv)
+        torch.cuda.reset_peak_memory_stats()
+        line, launches, merges, engine, got = pp_served("pp-tp-serve", argv, S, split, tp=tp)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        total += launches
+        if merges != launches:
+            fail("pp-tp-serve", f"{kv}: {merges} merge launches for {launches} K1 launches "
+                 f"(want one merge per launch: {tp} x {engine.stage_layer_runs})")
+        if line["host_syncs"] != single_line["host_syncs"]:
+            fail("pp-tp-serve", f"{kv}: host_syncs {line['host_syncs']}, the single "
+                 f"engine's {single_line['host_syncs']}")
+        n_div = bf16_divergences("pp-tp-serve", single.gen, got, want,
+                                 f"--pp {S} --tp {tp} {kv} pool vs the single engine")
+        print("pp-tp-serve: " + json.dumps({
+            "card": card, "pp": S, "tp": tp, "split": split, "kv_dtype": kv, "requests": 16,
+            "new_tokens": 64, "tokens_per_s": line["tokens_per_s"],
+            "single_tokens_per_s": single_line["tokens_per_s"],
+            "pp_tp_over_single": line["tokens_per_s"] / single_line["tokens_per_s"],
+            "wall_s": line["wall_s"], "single_wall_s": single_line["wall_s"],
+            "n_chips": line["n_chips"], "devices": line["devices"],
+            "pipeline": line["pipeline"], "mixed_steps": line["mixed_steps"],
+            "forward_calls": engine.forward_calls, "host_syncs": line["host_syncs"],
+            "stage_layer_runs": engine.stage_layer_runs, "k1_launches": launches,
+            "k1_merge_launches": merges, "graph_captures": line["graph_captures"],
+            "graph_replays": line["graph_replays"], "capture_s": line["capture_s"],
+            "single_capture_s": single_line["capture_s"], "bf16_divergences": n_div,
+            "peak_memory_gib": peak}), flush=True)
+        del engine, got, single, want
+        free()
+    k1.setdefault("paths", {})["pp-tp-serve"] = total
+
+    # float32 at 4 layers: the pp x tp ring through K1 gives the single
+    # engine's streams through K1 and its own through the plain route
+    gen = tiny_llama_generator(PP_SERVE_F32_LAYERS, torch.float32)
+    trace = synthetic_trace(4, gen.cfg.vocab_size, 2048, 16)
+    want, wstats = _serve_trace(gen.serve(block_size=16, max_batch=8), trace)
+    ppgen = Generator(gen.cfg, gen.params, max_seq_length=2048, device=gen.device,
+                      mesh=pipeline_mesh(S, [gen.device], tp=tp))
+    streams = {}
+    for route, use_kernel in (("kernel", None), ("plain", False)):
+        reset_k1_counts()
+        engine = ppgen.serve(block_size=16, max_batch=8, use_kernel=use_kernel)
+        streams[route], stats = _serve_trace(engine, trace)
+        launched, plain = k1_counts()
+        want_launches = tp * engine.stage_layer_runs if route == "kernel" else 0
+        if launched != want_launches or (plain > 0) != (route == "plain"):
+            fail("pp-tp-serve", f"float32 {route}: K1 launched {launched} times (want "
+                 f"{want_launches}), the plain route {plain} times")
+        if stats.host_syncs != wstats.host_syncs:
+            fail("pp-tp-serve", f"float32 {route}: host_syncs {stats.host_syncs}, the single "
+                 f"engine's {wstats.host_syncs}")
+        del engine
+    divergence_ok("pp-tp-serve", gen, streams["kernel"], want,
+                  f"float32 pp {S} x tp {tp} (K1) vs single engine (K1)")
+    divergence_ok("pp-tp-serve", gen, streams["kernel"], streams["plain"],
+                  f"float32 pp {S} x tp {tp} K1 vs plain route")
+    print(f"pp-tp-serve: float32 {PP_SERVE_F32_LAYERS} layers x {gen.cfg.n_embd}, pp {S} x tp "
+          f"{tp}: {sum(streams['kernel'][r] == want[r] for r in want)} of {len(trace)} greedy "
+          f"streams identical to the single engine's, "
+          f"{sum(streams['kernel'][r] == streams['plain'][r] for r in want)} to the plain "
+          f"route's; host_syncs {wstats.host_syncs} as the single engine's", flush=True)
+    del ppgen, gen
+    free()
+
+
+def phase_pipeline_tp(card):
+    """The pipe x tp ring on the card (the module docstring, phase 32)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mdi_llm_tpu_torch.cli import starter as starter_cli
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.parallel.nodes import parse_nodes_config
+    from mdi_llm_tpu_torch.parallel.pipeline import PipelineEngine
+
+    S, split, tp = PP_TP
+    root = Path(__file__).resolve().parent
+    nodes = parse_nodes_config(root / PIPE_CONFIG)
+    n = S * PIPE_M
+    rows, streams = {}, {}
+    for ranks in (tp, 1):
+        args = starter_cli.build_parser().parse_args(
+            ["--model", TINY_LLAMA, "--dtype", "bfloat16", "--seed", "10137", "--greedy",
+             "--n-samples", str(n), "--n-tokens", str(PIPE_TOKENS), "--sequence-length",
+             "2048", "--pipeline-stages", str(S), "--samples-per-slot", str(PIPE_M),
+             "--tp-devices", str(ranks), "--nodes-config", str(root / PIPE_CONFIG)])
+        before = all_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(io.StringIO()):
+            outs, stats, _seconds, eng = starter_cli.run_node(args, nodes, 0)
+        cfg = eng.cfg
+        prompts = [o[:8] for o in outs]
+        ring_budget_ok("pipeline-tp", f"tp={ranks}", outs, prompts, PIPE_TOKENS,
+                       cfg.padded_vocab_size)
+        if eng.counts != split or eng.tp != ranks or cfg.n_layer != 22:
+            fail("pipeline-tp", f"tp={ranks}: split {eng.counts}, tp {eng.tp}, want {split} "
+                 f"of 22 layers, tp {ranks}")
+        outs2, st2 = eng.generate(prompts, PIPE_TOKENS, temperature=0.0)
+        torch.cuda.synchronize()
+        graphs = eng.graph_stats()
+        if outs2 != outs or st2.captures or not graphs["replays"]:
+            fail("pipeline-tp", f"tp={ranks}: second call streams equal {outs2 == outs}, "
+                 f"captures {st2.captures}, replays {graphs['replays']}")
+        after = all_kernel_counts()
+        if after != before:
+            fail("pipeline-tp", f"tp={ranks}: the ring launched a kernel: {before} -> {after}")
+        streams[ranks] = outs
+        rows[f"tp={ranks}"] = {
+            "tokens_per_s": st2.tokens_per_s, "decode_s": st2.decode_s,
+            "prefill_s": st2.prefill_s, "first_call_tokens_per_s": stats.tokens_per_s,
+            "rotations": st2.rotations, "graph_captures": graphs["captures"],
+            "graph_replays": graphs["replays"], "capture_s": graphs["capture_s"],
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "kernel_launches": {k: after[k] - before[k] for k in after}}
+        del eng
+        free()
+    params = transformer.init_params(cfg, 10137, dtype=torch.bfloat16, device="cuda")
+    gen = Generator(cfg, params, max_seq_length=2048, device="cuda")
+    gen.generate(prompts, PIPE_TOKENS, temperature=0.0)  # capture outside the timing
+    want, gst = gen.generate(prompts, PIPE_TOKENS, temperature=0.0)
+    torch.cuda.synchronize()
+    n_div = bf16_divergences("pipeline-tp", gen, dict(enumerate(streams[tp])),
+                             dict(enumerate(want)), f"S={S} tp={tp} ring vs generate")
+    print("pipeline-tp: " + json.dumps({
+        "card": card, "S": S, "split": split, "tp": tp, "M": PIPE_M, "samples": n,
+        "new_tokens": PIPE_TOKENS, "dtype": "bfloat16", "rings": rows,
+        "tp_ring_over_tp1_ring": rows[f"tp={tp}"]["tokens_per_s"] / rows["tp=1"]["tokens_per_s"],
+        "generate_batch": n, "generate_tokens_per_s": gst.tokens_per_s,
+        "tp_ring_over_generate": rows[f"tp={tp}"]["tokens_per_s"] / gst.tokens_per_s,
+        "bytes_per_hop": hop_bytes(PIPE_M, cfg.n_embd, 2),
+        "bf16_streams_diverging_from_generate": n_div}), flush=True)
+    del gen, params
+    free()
+
+    # float32 at 4 layers: the pipe x tp ring's streams are generate's
+    cfg = Config.from_name(TINY_LLAMA, n_layer=PIPE_F32_LAYERS)
+    params = transformer.init_params(cfg, 10137, dtype=torch.float32, device="cuda")
+    gen = Generator(cfg, params, max_seq_length=2048, device="cuda")
+    prompts = long_prompts([8 + 3 * i for i in range(S * PIPE_M)], cfg.vocab_size, seed=S)
+    want, _ = gen.generate(prompts, 32, temperature=0.0)
+    before = all_kernel_counts()
+    eng = PipelineEngine(cfg, params, n_stages=S, tp=tp, samples_per_slot=PIPE_M,
+                         max_seq_length=2048, device="cuda")
+    got, _ = eng.generate(prompts, 32, temperature=0.0)
+    torch.cuda.synchronize()
+    if all_kernel_counts() != before or not eng.graph_stats()["replays"]:
+        fail("pipeline-tp", f"float32: kernel counts {before} -> {all_kernel_counts()}, "
+             f"replays {eng.graph_stats()['replays']}")
+    divergence_ok("pipeline-tp", gen, dict(enumerate(got)), dict(enumerate(want)),
+                  f"float32 S={S} tp={tp} ring vs generate")
+    print(f"pipeline-tp: float32 {PIPE_F32_LAYERS} layers S={S} tp={tp}: {len(prompts)} "
+          f"streams of 32 tokens, {sum(a == b for a, b in zip(got, want))}/{len(want)} "
+          "identical to generate's; no kernel launched", flush=True)
+    del gen, eng, params
+    free()
+
+
+INFER_LENS = (1100, 1370, 1650, 1900)  # the generate phase's prompts
+INFER_F32 = ["--model", TINY_LLAMA, "--dtype", "float32", "--override",
+             f"n_layer={TP_F32_LAYERS}", "--seed", "10137", "--n-samples", "4",
+             "--n-tokens", "32", "--sequence-length", "2048", "--device", DEVICE]
+INFER_BF16 = ["--model", TINY_LLAMA, "--dtype", "bfloat16", "--seed", "10137",
+              "--n-samples", "4", "--n-tokens", "64", "--sequence-length", "2048",
+              "--chunk", "16", "--greedy", "--device", DEVICE]
+# one process of a two-process `cli.sample` job, running the runs of its
+# JSON spec in turn, each a job of its own on its own port
+INFER_PROCS_ENTRY = (
+    "import json, sys\n"
+    "import chip_smoke\n"
+    "spec = json.loads(sys.argv[1])\n"
+    "recs = [chip_smoke.sample_report(r['argv'] + ['--coordinator', '127.0.0.1:%d' % r['port'],\n"
+    "                                  '--num-processes', '2', '--process-id',\n"
+    "                                  str(spec['process_id'])], r['long'])\n"
+    "        for r in spec['runs']]\n"
+    "print('INFER-PROCS ' + json.dumps(recs), file=sys.stderr, flush=True)\n"
+)
+
+
+def sample_report(argv, long=False) -> dict:
+    """`cli.sample argv` (its `run`) in this process, K2's counts set to 0
+    just before and read just after; with `long` its prompts are the
+    generate phase's four long prompts instead of the CLI's 8-token draws.
+    Returns the streams, stats, K2 launches and plain calls, and the tp
+    group's collective calls, bytes and host seconds (None in one
+    process)."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from mdi_llm_tpu_torch.cli import sample as sample_cli
+
+    args = sample_cli.build_parser().parse_args(argv)
+    patch = contextlib.nullcontext()
+    if long:
+        patch = mock.patch.object(sample_cli, "prompt_ids_for", lambda a, cfg, t, st: (
+            long_prompts(INFER_LENS, cfg.vocab_size), ()))
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    reset_flash_counts()
+    with patch:
+        prompt_ids, outs, stats, gen, _tok, seconds = sample_cli.run(args)
+    sync()
+    counts = flash_counts()
+    g = gen._group
+    rec = {"prompt_lens": [len(p) for p in prompt_ids], "outs": outs, "seconds": seconds,
+           "tokens_per_s": stats.tokens_per_s, "decode_s": stats.decode_s,
+           "prefill_s": stats.prefill_s, "captures": stats.captures,
+           "capture_s": stats.capture_s, "tokens_generated": stats.tokens_generated,
+           "K2": counts["K2"], "plain": counts["plain"],
+           "collective_calls": g.calls if g else None,
+           "collective_bytes": g.bytes if g else None,
+           "collective_s": g.seconds if g else None}
+    del gen
+    free()
+    return rec
+
+
+def sample_pair(phase, runs, timeout=400) -> list:
+    """`runs` ([{"argv": [...], "long": bool}]) through `INFER_PROCS_ENTRY`
+    as processes 0 and 1 of a job per run, each process under its own time
+    limit; returns each process's list of `sample_report` records."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    runs = [dict(r, port=free_port()) for r in runs]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", INFER_PROCS_ENTRY,
+         json.dumps({"process_id": i, "runs": runs})],
+        cwd=str(root), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    recs = []
+    try:
+        for i, p in enumerate(procs):
+            try:
+                _o, e = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                fail(phase, f"process {i} ran past {timeout} s")
+            if p.returncode:
+                fail(phase, f"process {i} exited {p.returncode}:\n{e[-3000:]}")
+            line = [ln for ln in e.splitlines() if ln.startswith("INFER-PROCS ")]
+            recs.append(json.loads(line[-1][len("INFER-PROCS "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return recs
+
+
+def phase_inference_procs(k2, card):
+    """Inference over two processes sharing the card (the module
+    docstring, phase 33)."""
+    import torch
+
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.parallel.pipeline import PipelineEngine
+
+    tp2 = ["--tp-devices", "2"]
+    sampled = ["--temperature", "0.8", "--top-k", "20"]
+    # (a) cli.sample --coordinator --tp-devices 2: float32 greedy and
+    # sampled at 4 layers, bf16 greedy at 22 layers on the long prompts
+    p0, p1 = sample_pair("inference-procs", [
+        {"argv": INFER_F32 + tp2 + ["--greedy"], "long": False},
+        {"argv": INFER_F32 + tp2 + sampled, "long": False},
+        {"argv": INFER_BF16 + tp2, "long": True}])
+    one = sample_report(INFER_F32 + tp2 + ["--greedy"])
+    cfg4 = Config.from_name(TINY_LLAMA, n_layer=TP_F32_LAYERS)
+    params4 = transformer.init_params(cfg4, 10137, dtype=torch.float32, device=DEVICE)
+    gen4 = Generator(cfg4, params4, max_seq_length=2048, device=DEVICE)
+    for i, recs in enumerate((p0, p1)):
+        divergence_ok("inference-procs", gen4, dict(enumerate(recs[0]["outs"])),
+                      dict(enumerate(one["outs"])),
+                      f"float32 process {i} of 2 vs one process, tp 2")
+    if p0[1]["outs"] != p1[1]["outs"] or p0[1]["outs"] == p0[0]["outs"]:
+        fail("inference-procs", "float32 at temperature 0.8: the two processes drew "
+             f"different tokens ({p0[1]['outs']} vs {p1[1]['outs']}), or greedy ones")
+    if p0[2]["outs"] != p1[2]["outs"]:
+        fail("inference-procs", "bf16: the two processes printed different streams")
+    for i, recs in enumerate((p0, p1)):
+        r = recs[2]
+        if r["K2"] != 22 or r["plain"] or r["prompt_lens"] != list(INFER_LENS):
+            fail("inference-procs", f"bf16 process {i}: K2 launches {r['K2']} (want 22: one "
+                 f"rank x 22 layers), plain calls {r['plain']}, prompts {r['prompt_lens']}")
+        ring_budget_ok("inference-procs", f"bf16 process {i}", r["outs"],
+                       long_prompts(INFER_LENS, 32000), 64, 32000)
+    # the same bf16 run in one process (its decode chunks captured): a
+    # first call captures, the second is timed
+    sample_report(INFER_BF16 + tp2, long=True)
+    single = sample_report(INFER_BF16 + tp2, long=True)
+    # printed, not gated: the same sums in the same order, but the one
+    # process's decode replays captured graphs
+    n_div = sum(a != b for a, b in zip(p0[2]["outs"], single["outs"]))
+    k2.setdefault("paths", {})["inference-procs"] = p0[2]["K2"] + p1[2]["K2"]
+
+    def row(r):
+        return {k: r[k] for k in ("tokens_per_s", "decode_s", "prefill_s", "captures",
+                                  "capture_s", "K2", "collective_calls",
+                                  "collective_bytes", "collective_s")}
+
+    replay_s = single["decode_s"] - single["capture_s"]
+    print("inference-procs: " + json.dumps({
+        "card": card, "model": TINY_LLAMA, "layers": 22, "dtype": "bfloat16", "tp": 2,
+        "prompt_lens": list(INFER_LENS), "new_tokens": 64,
+        "two_processes": [row(p0[2]), row(p1[2])], "one_process": row(single),
+        "one_process_replay_tokens_per_s": single["tokens_generated"] / replay_s,
+        "two_over_one_decode": p0[2]["tokens_per_s"] / (single["tokens_generated"] / replay_s),
+        "bf16_streams_differing_from_one_process": n_div,
+        "float32_streams_identical": sum(a == b for a, b in zip(p0[0]["outs"], one["outs"])),
+        "float32_sampled_equal_across_processes": p0[1]["outs"] == p1[1]["outs"]}),
+        flush=True)
+
+    # (b) cli.starter / cli.secondary with --tp-devices 2 (each process one
+    # stage of two ranks): float32 streams are the one-process ring's
+    base = ["--model", TINY_LLAMA, "--seed", "10137", "--greedy", "--sequence-length", "2048",
+            "--samples-per-slot", str(PIPE_M), "--n-samples", str(2 * PIPE_M),
+            "--dtype", "float32", "--override", f"n_layer={PIPE_F32_LAYERS}", "--n-tokens",
+            "32", "--tp-devices", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out, err, serr, _mem = node_pair(tmp, base, "tp-f32", phase="inference-procs")
+    got = printed_samples(out)
+    prompts = [g[:8] for g in got]
+    ring_budget_ok("inference-procs", "starter/secondary float32", got, prompts, 32,
+                   cfg4.padded_vocab_size)
+    want, _ = PipelineEngine(cfg4, params4, n_stages=2, tp=2, samples_per_slot=PIPE_M,
+                             max_seq_length=2048, device=DEVICE).generate(
+        prompts, 32, temperature=0.0)
+    divergence_ok("inference-procs", gen4, dict(enumerate(got)), dict(enumerate(want)),
+                  "float32 starter/secondary (tp 2 per stage) vs the one-process ring")
+    lines = [ring_line(err), ring_line(serr)]
+    if [(ln["stages"], ln["tp"], ln["backend"]) for ln in lines] != [
+            ([0], 2, "gloo"), ([1], 2, "gloo")]:
+        fail("inference-procs", f"starter/secondary ring lines {lines}")
+    print("inference-procs: starter/secondary " + json.dumps({
+        "card": card, "dtype": "float32", "layers": PIPE_F32_LAYERS, "S": 2, "tp": 2,
+        "M": PIPE_M, "samples": len(got), "identical_to_one_process": sum(
+            a == b for a, b in zip(got, want)), "starter_ring": lines[0],
+        "secondary_ring": lines[1]}), flush=True)
+    del gen4, params4
+    free()
+
+
 PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
           "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs", "server",
           "tier", "quant", "moe", "moe-quant", "moe-train", "tune", "pipeline",
           "pipeline-nodes", "pp-serve", "tp-serve", "tp-generate", "tools", "mesh-train",
-          "mesh-train-procs")
+          "mesh-train-procs", "pp-tp-serve", "pipeline-tp", "inference-procs")
 
 
 def main(argv=None) -> None:
@@ -4838,6 +5282,9 @@ def main(argv=None) -> None:
         "tools": lambda: phase_tools(card, ckpt_dir),
         "mesh-train": lambda: phase_mesh_train(k2, k3, k4, card),
         "mesh-train-procs": lambda: phase_mesh_train_procs(card),
+        "pp-tp-serve": lambda: phase_pp_tp_serve(k1, card),
+        "pipeline-tp": lambda: phase_pipeline_tp(card),
+        "inference-procs": lambda: phase_inference_procs(k2, card),
     }
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = Path(tmp) / TINY_LLAMA
@@ -4851,10 +5298,10 @@ def main(argv=None) -> None:
     records = (k1, k1q8, k2, k3, k4)
     missing = [(r["name"], k) for r in records for k in keys if k not in r]
     k2_paths = {"generate", "ckpt", "graphs", "quant", "moe", "moe-quant", "tp-generate",
-                "mesh-train"} | (
+                "mesh-train", "inference-procs"} | (
         {"chat"} if importlib.util.find_spec("tokenizers") else set())
     k1_paths = {"serve", "ckpt", "graphs", "server", "tier", "quant", "moe", "moe-quant", "tune",
-                "pp-serve", "tp-serve"}
+                "pp-serve", "tp-serve", "pp-tp-serve"}
     k34_paths = {"train", "moe-train", "mesh-train"}
     if only == set(PHASES) and (set(k1["paths"]) != k1_paths or set(k2["paths"]) != k2_paths
                                 or set(k3["paths"]) != k34_paths

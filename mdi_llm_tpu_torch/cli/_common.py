@@ -112,22 +112,25 @@ def config_overrides(items) -> dict:
     return out
 
 
-def make_tp_mesh(tp_devices: int, quantize: str, device: str = "cuda"):
+def make_tp_mesh(tp_devices: int, quantize: str, device: str = "cuda",
+                 process_id: int = 0, num_processes: int = 1):
     """Shared --tp-devices / --tp handling: validate, then a 1-D tp mesh
-    (`parallel.mesh.make_mesh`).  Composes with --quantize: quantized
-    layouts split under the adapted Megatron specs
+    (`parallel.mesh.make_mesh`), over `num_processes` processes when the
+    CLI joined a job (`--coordinator`).  Composes with --quantize:
+    quantized layouts split under the adapted Megatron specs
     (`parallel.sharding.adapt_specs_to_tree`).
 
     One deliberate difference from the JAX CLI, which lays the mesh over
-    the first N devices: every rank goes on the one `--device` (the
-    default `cuda`, or `cpu`), so one card runs tp = N.  A mesh over
-    several cards is `make_mesh({"tp": N}, devices)` in the library."""
+    the first N devices: every rank (of this process) goes on the one
+    `--device` (the default `cuda`, or `cpu`), so one card runs tp = N.
+    A mesh over several cards is `make_mesh({"tp": N}, devices)` in the
+    library."""
     del quantize  # accepted everywhere, as in the JAX CLI
     if tp_devices < 1:
         raise SystemExit("--tp-devices must be a positive device count")
     from mdi_llm_tpu_torch.parallel.mesh import make_mesh
 
-    return make_mesh({"tp": tp_devices}, [device])
+    return make_mesh({"tp": tp_devices}, [device], process_id, num_processes)
 
 
 def refuse(what: str) -> None:

@@ -1,14 +1,24 @@
 """Text generation CLI of the port: one device, a tensor-parallel mesh, or
-the recurrent pipeline.
+the recurrent pipeline, in one process or over several.
 
 Port of `mdi_llm_tpu/cli/sample.py`: `Generator.generate` over
 `--n-samples` prompts (with `--tp-devices N` over N tensor-parallel
 ranks, every rank on `--device`: `cli._common.make_tp_mesh`), or with
-`--pipeline-stages S` the recurrent
-pipeline (`parallel/pipeline.PipelineEngine`: S stages in one process on
-the device, `--samples-per-slot` samples per ring slot, `--chunk` ring
-rotations per steady call, `--overlap-chunks`).  With `--ckpt DIR` the
-prompts (`--prompt TEXT` or `FILE:<path>`, one per blank-line-separated
+`--pipeline-stages S` the recurrent pipeline
+(`parallel/pipeline.PipelineEngine`: S stages on the device,
+`--samples-per-slot` samples per ring slot, `--chunk` ring rotations per
+steady call, `--overlap-chunks`; with `--tp-devices N` too, N
+tensor-parallel ranks inside each stage).  `--coordinator host:port
+--process-id I --num-processes P` first joins a job of P processes
+(`parallel/nodes.init_distributed`, as `cli/train.py` does; the JAX CLI's
+`jax.distributed.initialize`): `--tp-devices N` then splits the tp ranks
+over the processes (each process's share on its own device, the partial
+sums meeting in `torch.distributed` collectives, every process sampling
+the same tokens from the same seed), `--pipeline-stages S` splits the
+stages (each process a contiguous group, with its tp ranks), the hop
+between processes a send/recv.  As in the JAX CLI every process prints
+the samples and the throughput line.  With `--ckpt DIR` the prompts
+(`--prompt TEXT` or `FILE:<path>`, one per blank-line-separated
 paragraph) go through the checkpoint's prompt style and tokenizer,
 generation stops at the style's stop sequences, and the samples print
 decoded.  With `--model NAME` (random weights from `--seed`, no
@@ -17,15 +27,17 @@ samples print as token ids.  `--profile-dir DIR` writes a torch.profiler
 trace of the run (`utils/profiling.profile`), `--debug` a cProfile dump
 into `--logs-dir`.  Runs on the GPU unless `--device cpu` is given;
 without a GPU and without that flag it raises.  Flags of features the
-port does not carry yet are refused, naming their ROADMAP item
-(`--tp-devices` with `--pipeline-stages`, a pipe x tp mesh: item 14,
-second half); the JAX CLI's exclusions between the parallelism flags hold.
+port does not carry yet are refused, naming their ROADMAP item; the JAX
+CLI's exclusions between the parallelism flags hold.
 
     python -m mdi_llm_tpu_torch.cli.sample --ckpt checkpoints/tiny-llama --prompt "Once upon a time,"
     python -m mdi_llm_tpu_torch.cli.sample --model tiny-llama-1.1b --n-samples 4 --greedy
-    python -m mdi_llm_tpu_torch.cli.sample --model tiny-llama-1.1b --n-samples 4 --pipeline-stages 2 --samples-per-slot 2
+    python -m mdi_llm_tpu_torch.cli.sample --model tiny-llama-1.1b --n-samples 4 --pipeline-stages 2 --samples-per-slot 2 --tp-devices 2
     python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8
     python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8 --tp-devices 2
+    # two processes, one tp rank each (start process 1 the same way):
+    python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8 \\
+        --tp-devices 2 --coordinator 127.0.0.1:29511 --num-processes 2 --process-id 0
 """
 
 from __future__ import annotations
@@ -48,11 +60,11 @@ from mdi_llm_tpu_torch.cli._common import (
     setup_logging,
 )
 from mdi_llm_tpu_torch.generation import resolve_device
+from mdi_llm_tpu_torch.parallel import nodes
 from mdi_llm_tpu_torch.utils.prompts import get_user_prompt
 
 # flags of the JAX CLI whose features are not ported: flag -> (default, item)
-_UNPORTED = {"sp_devices": (0, "item 16"), "ep_devices": (0, "item 16"),
-             "coordinator": (None, "item 14, second half")}
+_UNPORTED = {"sp_devices": (0, "item 16"), "ep_devices": (0, "item 16")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,7 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
         "(single sample, temperature 0; exact)",
     )
     ap.add_argument("--pipeline-stages", type=int, default=0,
-                    help="recurrent pipeline over S stages (one process, one device)")
+                    help="recurrent pipeline over S stages (on the device, or split "
+                    "over the processes of --coordinator)")
     ap.add_argument("--samples-per-slot", type=int, default=1,
                     help="pipeline mode: samples batched per ring slot (M)")
     ap.add_argument("--overlap-chunks", action="store_true",
@@ -75,22 +88,36 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile-dir", type=Path, default=None,
                     help="write a torch.profiler trace of the run here")
     ap.add_argument("--tp-devices", type=int, default=0,
-                    help="tensor-parallel generation over N ranks, all on "
-                    "--device (0 = off)")
+                    help="tensor-parallel generation over N ranks, all on --device "
+                    "(split over the processes of --coordinator); with "
+                    "--pipeline-stages, N ranks inside each stage (0 = off)")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0's TCP store: join a job of "
+                    "--num-processes processes (each given its --process-id)")
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--num-processes", type=int, default=None)
     add_log_args(ap)
     unported = ap.add_argument_group("not ported yet (refused when set)")
     for flag in ("--sp-devices", "--ep-devices"):
         unported.add_argument(flag, type=int, default=0)
-    unported.add_argument("--coordinator", default=None)
     return ap
+
+
+def prompt_ids_for(args, cfg, tokenizer, prompt_style):
+    """(the prompts' token ids, the stop sequences): `--prompt` through the
+    prompt style and the tokenizer, or without a tokenizer 8 random ids
+    per sample from `--seed`."""
+    raw_prompts = get_user_prompt(args.prompt, args.n_samples)
+    if tokenizer is not None:
+        prompt_ids = [tokenizer.encode(prompt_style.apply(p)).tolist() for p in raw_prompts]
+        return prompt_ids, prompt_style.stop_tokens(tokenizer)
+    rng = np.random.default_rng(args.seed)
+    return [rng.integers(1, cfg.vocab_size, 8).tolist() for _ in raw_prompts], ()
 
 
 def run(args):
     """Build the model the flags describe and generate; returns
     (prompt_ids, outs, stats, engine, tokenizer, seconds)."""
-    from mdi_llm_tpu_torch.generation import Generator
-    from mdi_llm_tpu_torch.utils.profiling import profile
-
     if args.tp_devices and args.sp_devices:
         raise SystemExit("--tp-devices is exclusive with --sp-devices")
     if args.tp_devices < 0:
@@ -103,9 +130,9 @@ def run(args):
     for name, (default, item) in _UNPORTED.items():
         if getattr(args, name) != default:
             refuse(f"--{name.replace('_', '-')} ({item})")
-    if args.tp_devices and args.pipeline_stages:
-        refuse("--tp-devices with --pipeline-stages (a pipe x tp mesh, "
-               "item 14, second half)")
+    job = (args.coordinator, args.process_id, args.num_processes)
+    if any(v is not None for v in job) and any(v is None for v in job):
+        raise SystemExit("--coordinator, --process-id and --num-processes go together")
     temperature = 0.0 if args.greedy else args.temperature
     if args.speculative:
         if args.pipeline_stages:
@@ -117,15 +144,27 @@ def run(args):
             )
     setup_logging(args)
     resolve_device(args.device)  # raises before any work without the device
+    ring = None
+    if args.coordinator:
+        ring = nodes.init_distributed(
+            nodes.coordinator_config(args.coordinator, args.num_processes),
+            args.process_id, device=args.device)
+        if ring is not None:
+            args.device = str(ring.device)
+    try:
+        return _generate(args, temperature, ring)
+    finally:
+        if ring is not None:
+            nodes.shutdown_distributed()
+
+
+def _generate(args, temperature, ring):
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.utils.profiling import profile
+
     cfg, params, tokenizer, prompt_style = load_model(args)
-    raw_prompts = get_user_prompt(args.prompt, args.n_samples)
-    if tokenizer is not None:
-        prompt_ids = [tokenizer.encode(prompt_style.apply(p)).tolist() for p in raw_prompts]
-        stop_seqs = prompt_style.stop_tokens(tokenizer)
-    else:
-        rng = np.random.default_rng(args.seed)
-        prompt_ids = [rng.integers(1, cfg.vocab_size, 8).tolist() for _ in raw_prompts]
-        stop_seqs = ()
+    nodes.check_params_consistency(params, ring)  # every process, the same weights
+    prompt_ids, stop_seqs = prompt_ids_for(args, cfg, tokenizer, prompt_style)
     sampling = dict(temperature=temperature, top_k=args.top_k, top_p=args.top_p,
                     stop_sequences=stop_seqs)
     host_prof = args.logs_dir / "sample_profile.prof" if args.debug else None
@@ -139,7 +178,8 @@ def run(args):
                 max_seq_length=args.sequence_length, rng_seed=args.seed,
                 quantize=args.quantize, cache_dtype=resolve_kv_dtype(args.kv_dtype),
                 samples_per_slot=args.samples_per_slot, rotations_per_call=args.chunk,
-                overlap_chunks=args.overlap_chunks, device=args.device,
+                tp=max(1, args.tp_devices), overlap_chunks=args.overlap_chunks,
+                device=args.device, ring=ring,
             )
             outs, stats = gen.generate(prompt_ids, args.n_tokens, **sampling)
         else:
@@ -147,7 +187,9 @@ def run(args):
                 cfg, params, max_seq_length=args.sequence_length, rng_seed=args.seed,
                 cache_dtype=resolve_kv_dtype(args.kv_dtype),
                 device=args.device, quantize=args.quantize,
-                mesh=(make_tp_mesh(args.tp_devices, args.quantize, args.device)
+                mesh=(make_tp_mesh(args.tp_devices, args.quantize, args.device,
+                                   0 if ring is None else ring.rank,
+                                   1 if ring is None else ring.world)
                       if args.tp_devices else None),
             )
             outs, stats = gen.generate(
@@ -160,7 +202,8 @@ def run(args):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     prompt_ids, outs, stats, gen, tokenizer, seconds = run(args)
-    n_nodes = args.pipeline_stages or args.tp_devices or 1
+    n_nodes = (args.pipeline_stages * max(1, args.tp_devices) if args.pipeline_stages
+               else args.tp_devices or 1)
     report_run(args, gen.cfg, tokenizer, prompt_ids, outs, stats, seconds, n_nodes,
                f"{n_nodes} node(s)" + (f", {stats.rotations} rotations"
                                        if args.pipeline_stages else ""))

@@ -7,8 +7,8 @@ and then exits non-zero), loads the model itself (`--ckpt`, or random
 weights from its own `--seed`: a mismatch with the starter's weights is
 refused on every process), runs its contiguous group of stages of the
 ring and returns the starter's outputs.  The run's flags (stages,
-samples per slot, chunk, overlap, dtype) come from the starter's spec;
-they are accepted here for launch-script symmetry.  With `--debug` it
+samples per slot, chunk, tp ranks per stage, overlap, dtype) come from
+the starter's spec; they are accepted here for launch-script symmetry.  With `--debug` it
 logs into `<logs-dir>/logs_secondary<IDX>.log`.
 
     python -m mdi_llm_tpu_torch.cli.secondary --model tiny-llama-1.1b --nodes-config cfg.json 0

@@ -25,8 +25,10 @@ tensor-parallel mesh of N ranks, every rank on `--device`
 (`cli._common.make_tp_mesh`): the weights split under the Megatron
 rules, the pool's KV groups over the ranks, each rank's paged attention
 through K1; the stats line's `tp` and `n_chips` (tp x pp, the JAX line's
-chip count) say so.  `--tp` with `--pp` is refused (ROADMAP item 14,
-second half).  Runs on the GPU unless `--device cpu` is given; without a
+chip count) say so.  `--tp N --pp S` composes them: the S-stage ring
+with N ranks inside each stage (`parallel.mesh.pipeline_mesh(S,
+[--device], tp=N)`), each stage's pool split over its ranks' KV groups,
+K1 once per stage layer and rank.  Runs on the GPU unless `--device cpu` is given; without a
 GPU and without that flag it raises.
 
 Observability rides every run (`obs/`, hooks at the engine's host-sync
@@ -52,6 +54,8 @@ request/step timeline, `--sample-rss` adds a host RSS gauge, and
         --synthetic 3 --max-batch 2 --n-tokens 8 --sequence-length 128 --block-size 8 --pp 2
     python -m mdi_llm_tpu_torch.cli.serve --device cpu --model pythia-14m \\
         --synthetic 3 --max-batch 2 --n-tokens 8 --sequence-length 128 --block-size 8 --tp 2
+    python -m mdi_llm_tpu_torch.cli.serve --device cpu --model pythia-14m \\
+        --synthetic 3 --max-batch 2 --n-tokens 8 --sequence-length 128 --block-size 8 --tp 2 --pp 2
 """
 
 from __future__ import annotations
@@ -69,7 +73,6 @@ from mdi_llm_tpu_torch.cli._common import (
     add_common_args,
     load_model,
     make_tp_mesh,
-    refuse,
     resolve_kv_dtype,
 )
 from mdi_llm_tpu_torch.generation import resolve_device
@@ -235,15 +238,15 @@ def make_serving_config(args, admission_queue=None):
 
 def build_generator(args, cfg, params, _graphs=None):
     """The Generator the flags describe; with `--pp S > 1` on a pipeline
-    mesh of S stages, with `--tp N > 1` on a tp mesh of N ranks, all on
-    `--device`."""
+    mesh of S stages (of `--tp` ranks each), with `--tp N > 1` alone on a
+    tp mesh of N ranks, all on `--device`."""
     from mdi_llm_tpu_torch.generation import Generator
     from mdi_llm_tpu_torch.parallel.mesh import pipeline_mesh
 
     dtype = DTYPES[args.dtype]
     mesh = None
     if args.pp > 1:
-        mesh = pipeline_mesh(args.pp, [args.device])
+        mesh = pipeline_mesh(args.pp, [args.device], tp=args.tp)
     elif args.tp > 1:
         mesh = make_tp_mesh(args.tp, args.quantize, args.device)
     return Generator(
@@ -278,8 +281,6 @@ def build_engine(args, need_tokenizer, _graphs=None, admission_queue=None,
     its size (`origin` names the CLI)."""
     from mdi_llm_tpu_torch.serving.policy import make_policy
 
-    if args.tp > 1 and args.pp > 1:
-        refuse("--tp with --pp (a pipe x tp mesh, ROADMAP item 14, second half)")
     if args.tp < 1:
         raise SystemExit("--tp must be a positive rank count")
     resolve_device(args.device)  # raises before any work without the device

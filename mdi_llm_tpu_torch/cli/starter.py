@@ -16,13 +16,15 @@ The device is `--device`, else the node JSON's "device", else cuda; a
 CUDA device on a machine without one raises.  A refusal on the starter
 (an unported flag, a bad stage count, a failed load) reaches every
 secondary as an abort through the run-spec channel, so no process waits
-on a spec that never comes.  `--tp-devices > 1` is ROADMAP item 14, second half; the
-JAX starter's mdi-audit preflight (`--no-preflight`, `--hbm-gb`) is item
-18: both are refused when set.
+on a spec that never comes.  `--tp-devices N` (or the node config's
+`tp_devices`) runs N tensor-parallel ranks inside each stage, all on the
+process's device, and travels in the run spec as the JAX starter's `tp`
+does.  The JAX starter's mdi-audit preflight (`--no-preflight`,
+`--hbm-gb`) is item 18: refused when set.
 
     python -m mdi_llm_tpu_torch.cli.starter --model tiny-llama-1.1b \
         --nodes-config examples/node_configs/standalone.json --pipeline-stages 2 \
-        --samples-per-slot 2 --n-samples 4 --greedy
+        --samples-per-slot 2 --n-samples 4 --greedy --tp-devices 2
     # two processes (run cli/secondary.py with the same flags and index 0):
     python -m mdi_llm_tpu_torch.cli.starter --model tiny-llama-1.1b --nodes-config cfg.json
 """
@@ -74,8 +76,8 @@ def add_node_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--chunk", type=int, default=16,
                     help="steady-state ring rotations per call")
     ap.add_argument("--tp-devices", type=int, default=None,
-                    help="tensor-parallel devices per stage (item 14, second half: "
-                    "refused above 1)")
+                    help="tensor-parallel ranks per stage, on each process's device "
+                    "(default: the node config's tp_devices, else 1)")
     ap.add_argument("--overlap-chunks", action="store_true",
                     help="run the next steady chunk before reading the previous one")
 
@@ -99,10 +101,10 @@ def _starter_spec(args, nodes_cfg: NodesConfig):
     Returns (spec, cfg, params, tokenizer)."""
     if getattr(args, "no_preflight", False) or getattr(args, "hbm_gb", None) is not None:
         refuse("--no-preflight/--hbm-gb (the mdi-audit plan preflight, item 18)")
+    # CLI beats the config file, the config the default of 1
     eff_tp = args.tp_devices if args.tp_devices is not None else nodes_cfg.tp_devices
-    if eff_tp > 1:
-        refuse(f"--tp-devices {eff_tp} (tensor parallelism inside a stage, "
-               "item 14, second half)")
+    if eff_tp < 1:
+        raise SystemExit(f"--tp-devices {eff_tp} must be a positive device count")
     n_nodes = nodes_cfg.n_nodes
     n_stages = args.pipeline_stages or nodes_cfg.pipeline_stages or n_nodes
     if n_stages % n_nodes:
@@ -124,7 +126,7 @@ def _starter_spec(args, nodes_cfg: NodesConfig):
         dtype=args.dtype, quantize=args.quantize, kv_dtype=args.kv_dtype,
         seq_len=args.sequence_length, n_stages=n_stages,
         samples_per_slot=args.samples_per_slot, rotations_per_call=args.chunk,
-        overlap_chunks=args.overlap_chunks,
+        tp=eff_tp, overlap_chunks=args.overlap_chunks,
     )
     return spec, cfg, params, tokenizer
 
@@ -174,7 +176,7 @@ def _run(args, nodes_cfg, process_id, ring, log):
         rng_seed=spec["seed"], quantize=spec["quantize"],
         cache_dtype=resolve_kv_dtype(spec["kv_dtype"]),
         samples_per_slot=spec["samples_per_slot"],
-        rotations_per_call=spec["rotations_per_call"],
+        rotations_per_call=spec["rotations_per_call"], tp=spec["tp"],
         overlap_chunks=spec["overlap_chunks"], device=args.device, ring=ring,
     )
     del params
@@ -206,7 +208,7 @@ def _run(args, nodes_cfg, process_id, ring, log):
         printer.finish(outs[0][len(spec["prompt_ids"][0]):])
         print()
     ring_line = {"process": process_id, "stages": engine.owned, "n_stages": engine.n_stages,
-                 "backend": backend, "rotations": stats.rotations,
+                 "tp": engine.tp, "backend": backend, "rotations": stats.rotations,
                  **(ring.stats() if ring is not None else {}),
                  **{k: v for k, v in engine.graph_stats().items() if k != "steps"}}
     dev = engine.mesh[engine.owned[0]]

@@ -70,7 +70,7 @@ from mdi_llm_tpu_torch.ops.sampling import (
     sample_traced,
     sampling_operands,
 )
-from mdi_llm_tpu_torch.parallel.mesh import Mesh
+from mdi_llm_tpu_torch.parallel.mesh import PIPE_AXES, Mesh, make_mesh, pipe_axis, stage_ranks
 from mdi_llm_tpu_torch.utils.context_managers import catch_loop_errors
 from mdi_llm_tpu_torch.utils.step_graph import StepGraph, summarize
 
@@ -298,43 +298,42 @@ def _refuse(what: str) -> None:
 
 # mesh axes of the JAX package the port's Generator does not run yet, and
 # the ROADMAP item that carries each
-_UNPORTED_AXES = {"ep": "item 16", "sp": "item 16", "pp": "item 14, second half",
-                  "pipe": "item 14, second half"}
+_UNPORTED_AXES = {"ep": "item 16", "sp": "item 16"}
 
 
 def _check_inference_mesh(mesh: Mesh) -> None:
-    """A `make_mesh` mesh the Generator runs: `tp` and `dp` axes (any
-    axis of size 1 is harmless).  ep and sp meshes, and a pipeline axis
-    crossed with tp, are refused naming their ROADMAP item, and so is a
-    mesh spread over processes (the training CLI's `--coordinator`)."""
-    if mesh.num_processes > 1:
-        _refuse(f"mesh over {mesh.num_processes} processes: sample --coordinator "
-                "is item 14, second half")
+    """A `make_mesh` mesh the Generator runs: `tp`, `dp` and a pipeline
+    axis (`pp` or `pipe`; any axis of size 1 is harmless).  ep and sp
+    meshes are refused naming their ROADMAP item.  A mesh over processes
+    (`sample --coordinator`) splits its tp axis only: each process holds
+    a contiguous part of the one tp group."""
     for axis, size in mesh.shape.items():
-        if size <= 1 or axis in ("tp", "dp"):
+        if size <= 1 or axis in ("tp", "dp") + PIPE_AXES:
             continue
         if axis in _UNPORTED_AXES:
-            _refuse(f"mesh with {axis}={size}: {axis} meshes are "
-                    f"{_UNPORTED_AXES[axis]}; the pipeline ring takes "
-                    "parallel.mesh.pipeline_mesh's {stage: device}")
+            _refuse(f"mesh with {axis}={size}: {axis} meshes are {_UNPORTED_AXES[axis]}")
         raise ValueError(f"mesh axis {axis!r} (size {size}): the Generator "
-                         "runs tp and dp axes")
+                         "runs tp, dp and pipeline axes")
+    if mesh.num_processes > 1:
+        pa = pipe_axis(mesh)
+        if mesh.shape.get("dp", 1) > 1 or (pa and mesh.shape[pa] > 1):
+            raise ValueError(
+                f"mesh {mesh.shape} over {mesh.num_processes} processes: a Generator's "
+                "processes split its tp axis only (the ring over processes is "
+                "parallel.pipeline.PipelineEngine(ring=...), `sample --coordinator "
+                "--pipeline-stages`)")
 
 
 def _pipeline_mesh(mesh, device) -> Dict[int, torch.device]:
     """`mesh` as {stage: device}, stages 0..S-1: the dict
     `parallel.mesh.pipeline_mesh` returns; `device`, when given, must be
-    stage 0's.  Any other dict is refused (a tp or dp mesh is a
-    `parallel.mesh.make_mesh` Mesh)."""
+    stage 0's.  Any other dict is refused: a tp, dp or pipe x tp mesh is
+    a `parallel.mesh.make_mesh` Mesh, as in the JAX package."""
     if not (isinstance(mesh, dict) and mesh and set(mesh) == set(range(len(mesh)))):
-        tp = isinstance(mesh, dict) and mesh.get("tp", 1) > 1
-        piped = isinstance(mesh, dict) and max(mesh.get("pp", 1), mesh.get("pipe", 1)) > 1
-        if tp and piped:
-            _refuse(f"mesh={mesh!r}: a pipe x tp mesh is ROADMAP item 14, second half")
         raise TypeError(
             f"mesh={mesh!r}: pass the {{stage: device}} dict of "
             "parallel.mesh.pipeline_mesh or a parallel.mesh.make_mesh Mesh "
-            "(tp and dp axes)")
+            "(tp, dp and pipeline axes)")
     stages = {s: resolve_device(d) for s, d in mesh.items()}
     if device is not None and torch.device(device) != stages[0]:
         raise ValueError(f"device={device!r} is not stage 0's device {stages[0]}: "
@@ -371,17 +370,36 @@ class Generator:
         if quantize not in (None, "none") and quantize not in FLAG_TO_MODE:
             raise ValueError(f"unknown quantize mode {quantize!r}")
         tp_mesh = None
+        # {stage: [its tp ranks' devices]} on a pipeline mesh of S >= 2
+        # stages (the staged serving engine's layout), else None
+        self.stage_ranks = None
         if isinstance(mesh, Mesh):
             _check_inference_mesh(mesh)
-            tp_mesh = mesh
-            first = resolve_device(mesh.devices.flat[0])
+            pa = pipe_axis(mesh)
+            if pa is not None and mesh.shape[pa] > 1:
+                # the staged engine runs the stages; generate() runs, as
+                # the JAX Generator's replicated pipeline axis does, over
+                # stage 0's tp ranks
+                self.stage_ranks = stage_ranks(mesh)
+                devs0 = self.stage_ranks[0]
+                if len(devs0) > 1:
+                    tp_mesh = make_mesh({"tp": len(devs0)}, devs0)
+                mesh = {s: devs[0] for s, devs in self.stage_ranks.items()}
+            else:
+                tp_mesh = mesh
+        if tp_mesh is not None:
+            first = resolve_device(tp_mesh.devices.flat[tp_mesh.owned()[0]])
             if device is not None and torch.device(device) != first:
                 raise ValueError(f"device={device!r} is not the mesh's first device "
                                  f"{first}: a Generator on a mesh runs there")
             device = first
-        elif mesh is not None:
+        if isinstance(mesh, dict):
             mesh = _pipeline_mesh(mesh, device)
             device = mesh[0]
+            if self.stage_ranks is None:
+                self.stage_ranks = {s: [d] for s, d in mesh.items()}
+        else:
+            mesh = tp_mesh
         if scan_unroll != 1:
             _refuse(f"scan_unroll={scan_unroll}: the layers run as a Python loop")
         if abstract:
@@ -421,10 +439,11 @@ class Generator:
                 f"{cfg.name}: head size {cfg.head_size} is not one kernel K2 "
                 f"is built for {KERNEL_HEAD_SIZES}; pass use_flash=False"
             )
-        one_card = self._shards is None or len(set(self._devices.values())) == 1
+        one_card = self._shards is None or (
+            self._group is None and len(set(self._devices.values())) == 1)
         if _graphs and not one_card:
             raise ValueError("the decode chunk is captured only when every rank "
-                             "of the mesh runs on one device")
+                             "of the mesh runs on one device, in one process")
         self._graphs = (self.device.type == "cuda" and one_card
                         if _graphs is None else bool(_graphs))
         # generate's dense caches per (B, cache_len) and decode-chunk steps
@@ -445,7 +464,7 @@ class Generator:
         position's slice of every leaf on its device, and per dp replica its
         positions in tp order.  Without a mesh, every field is None."""
         self._tp_mesh = mesh
-        self._shards = self._replicas = self._devices = None
+        self._shards = self._replicas = self._devices = self._group = None
         self.tp = self.dp = 1
         if mesh is None:
             return
@@ -461,13 +480,24 @@ class Generator:
         self._shards = shard_params(self.params, self.cfg, mesh,
                                     "tp" if self.tp > 1 else None)
         regroup_w4_row_scales(self.params, self._shards, mesh)
+        owned = set(mesh.owned())
+        self._shards = {i: t for i, t in self._shards.items() if i in owned}
         coords = list(mesh.positions())
-        self._devices = {i: resolve_device(d) for i, d in enumerate(mesh.device_list())}
+        self._devices = {i: resolve_device(d) for i, d in enumerate(mesh.device_list())
+                         if i in owned}
         self._replicas = [
-            sorted((i for i, c in enumerate(coords) if c.get("dp", 0) == d),
+            sorted((i for i, c in enumerate(coords) if c.get("dp", 0) == d and i in owned),
                    key=lambda i: coords[i].get("tp", 0))
             for d in range(self.dp)
         ]
+        if mesh.num_processes > 1:
+            # every process holds a contiguous part of the one tp group
+            # (`_check_inference_mesh`): their partial sums meet in the
+            # group's collectives, and each samples the same tokens from
+            # the same gathered logits, its generator seeded alike
+            from mdi_llm_tpu_torch.parallel.collectives import CommGroup
+
+            self._group = CommGroup(range(mesh.num_processes))
 
     def attach_device_obs(self, registry) -> None:
         """Attach an `obs.device.DeviceReportRegistry`: later `generate()`
@@ -508,7 +538,7 @@ class Generator:
                 outs.append(transformer.sharded_forward(
                     self.cfg, [self._shards[i] for i in ranks], tokens[sl], input_pos[sl],
                     None if kv is None else [kv[i] for i in ranks],
-                    ropes=[self._ropes[i] for i in ranks], **kw,
+                    ropes=[self._ropes[i] for i in ranks], group=self._group, **kw,
                 ).to(self.device))
             return outs[0] if len(outs) == 1 else torch.cat(outs)
 
@@ -962,14 +992,20 @@ class Generator:
         Generator for `ServingConfig.draft_model`'s weights (same
         vocabulary as this model); None lets the engine initialise the
         named config with random weights.  On a pipeline mesh of S >= 2
-        stages the engine is `serving/pipeline.PipelinedServingEngine`,
-        with the same request and stats surface.
+        stages (a tp axis inside each stage or not) the engine is
+        `serving/pipeline.PipelinedServingEngine`, with the same request
+        and stats surface.
         """
         from mdi_llm_tpu_torch.config import ServingConfig
         from mdi_llm_tpu_torch.serving.engine import ServingEngine, validate_serving_mesh
 
         # refused here, naming the axis, before any pool is allocated
         validate_serving_mesh(self._tp_mesh)
+        if self._group is not None:
+            raise ValueError(
+                "serving over processes: each process would run its own scheduler "
+                "over the shared collectives; serve in one process (the serve CLI has "
+                "no --coordinator, as the JAX package's has none)")
         if serving is None:
             serving = ServingConfig(**knobs)
         elif knobs:

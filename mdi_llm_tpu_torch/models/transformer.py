@@ -511,7 +511,9 @@ class TPRanks:
     `parallel.collectives.CommGroup`, in tp order; None when this process
     holds them all).  `tp` counts the replica's ranks over every process,
     `offset` is this process's first rank, `cfg_r` a rank's config
-    (`shard_config`)."""
+    (`shard_config`).  A rank's tree may hold a pipeline stage's blocks
+    only (`parallel.sharding.shard_ranks` of a `split_params` stage):
+    `stage` runs them; `embed` and `head` need the whole rank tree."""
 
     def __init__(self, cfg: Config, ranks: Sequence[Params], group=None):
         self.cfg, self.ranks, self.group = cfg, list(ranks), group
@@ -519,7 +521,7 @@ class TPRanks:
         self.tp = len(self.ranks) * n_proc
         self.offset = 0 if group is None else group.index * len(self.ranks)
         self.cfg_r = shard_config(cfg, self.tp)
-        self.devs = [p["ln_f"]["weight"].device for p in self.ranks]
+        self.devs = [next(iter(tree_leaves(p))).device for p in self.ranks]
         self.rep = functools.partial(_replicated, self.devs)
 
     def positions(self, tokens, input_pos, ropes=None):
@@ -626,6 +628,26 @@ class TPRanks:
             else:
                 x = out
         return (x, torch.stack(stats)) if collect_moe_aux else x
+
+    def stage(self, layers, x, pos, cos, sin, kv, **attn) -> torch.Tensor:
+        """The layers `layers` (`self.layers()`: a pipeline stage's slice)
+        over the ranks from one copy of the activations `x` and of `pos`,
+        `cos` and `sin`, each moved to every rank's device, rank r through
+        its cache `kv[r]` with the attention keywords `attn` (tensors and
+        tuples of tensors moved likewise): the output on the first rank's
+        device, where the ranks' copies are equal after each block's
+        all-reduce."""
+
+        def move(r, v):
+            if isinstance(v, torch.Tensor):
+                return v.to(self.devs[r], non_blocking=True)
+            if isinstance(v, tuple):
+                return tuple(move(r, a) for a in v)
+            return v
+
+        args = [self.rep(lambda r, t=t: move(r, t)) for t in (x, pos, cos, sin)]
+        attn_r = self.rep(lambda r: {k: move(r, v) for k, v in attn.items()})
+        return self.blocks(layers, *args, attn_r, kv=kv)[0]
 
     def head(self, x) -> torch.Tensor:
         """The logits (B, T, padded_vocab) on the first rank's device: each

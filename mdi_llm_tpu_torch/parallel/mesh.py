@@ -23,19 +23,29 @@ Port of `mdi_llm_tpu/parallel/mesh.py`.
   device), the ring's hop a shift on that device; S stages on S local
   devices, the hop a copy between them; a process's share of the stages
   (`stages` a range of stage indices), the hop to a stage of another
-  process a send/recv (`parallel/nodes.py`).  A tensor-parallel axis
-  inside each stage (`tp > 1`) is ROADMAP item 14, second half.
+  process a send/recv (`parallel/nodes.py`).  With a tensor-parallel
+  axis inside each stage (`tp > 1`) it returns what the JAX package's
+  returns: a `Mesh` with axes `("pipe", "tp")`, stage s's rank r at
+  position (s, r).
+- `stage_ranks(mesh)` reads either form as {stage: [the devices of its tp
+  ranks]} for the stages this process runs.  A pipe x tp mesh over
+  processes gives each process whole tp groups of a contiguous group of
+  stages (the layout `jax.distributed` gives such a mesh, its pipeline
+  axis first); any other layout is refused, naming it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "pipeline_mesh"]
+__all__ = ["Mesh", "make_mesh", "pipeline_mesh", "pipe_axis", "stage_ranks", "PIPE_AXES"]
+
+# the names of a mesh's pipeline axis: the ring's "pipe", the serving "pp"
+PIPE_AXES = ("pipe", "pp")
 
 
 class Mesh:
@@ -152,17 +162,30 @@ def pipeline_mesh(
     devices: Optional[Sequence] = None,
     tp: int = 1,
     stages: Optional[Sequence[int]] = None,
-) -> Dict[int, torch.device]:
+):
     """{stage index: device} for the stages `stages` (default: all S).
     `devices` holds one device for all stages, or one per stage (each
-    process's share indexes it by global stage)."""
-    if tp > 1:
-        raise NotImplementedError(
-            f"tp={tp}: a tensor-parallel axis inside each stage is not ported "
-            "yet (ROADMAP item 14, second half)"
-        )
+    process's share indexes it by global stage).
+
+    With `tp > 1` the pipe x tp mesh: a `Mesh` of axes ("pipe", "tp"),
+    `devices` one device for every position or S x tp of them, stage-major.
+    A process's share of it is `make_mesh({"pipe": S, "tp": tp}, [device],
+    process_id, num_processes)`."""
     if n_stages < 1:
         raise ValueError(f"n_stages must be >= 1, got {n_stages}")
+    if tp < 1:
+        raise ValueError(f"tp={tp} must be a positive device count")
+    if tp > 1:
+        if stages is not None:
+            raise ValueError(
+                "a process's share of a pipe x tp mesh is make_mesh({'pipe': S, 'tp': "
+                "tp}, [device], process_id, num_processes), not `stages`")
+        devs = list(devices or ["cuda"])
+        if len(devs) not in (1, n_stages * tp):
+            raise ValueError(
+                f"{len(devs)} devices for {n_stages} stages x tp={tp}: give one device "
+                "for every position or one per position, stage-major")
+        return make_mesh({"pipe": n_stages, "tp": tp}, devs)
     devs = [torch.device(d) for d in (devices or ["cuda"])]
     if len(devs) not in (1, n_stages):
         raise ValueError(
@@ -173,3 +196,46 @@ def pipeline_mesh(
     if not all(0 <= s < n_stages for s in owned):
         raise ValueError(f"stages {list(owned)} out of range for {n_stages} stages")
     return {s: devs[0] if len(devs) == 1 else devs[s] for s in owned}
+
+
+def pipe_axis(mesh: Mesh) -> Optional[str]:
+    """The name of `mesh`'s pipeline axis ("pipe" or "pp"), None without
+    one."""
+    found = [a for a in PIPE_AXES if a in mesh.shape]
+    if len(found) > 1:
+        raise ValueError(f"mesh {mesh.shape} has two pipeline axes {found}")
+    return found[0] if found else None
+
+
+def stage_ranks(mesh) -> Dict[int, List[torch.device]]:
+    """{stage: [the device of each of its tp ranks, in tp order]} for the
+    stages this process runs: from `pipeline_mesh`'s {stage: device} (one
+    rank each), or from a Mesh of a pipeline axis ("pipe" or "pp") and a
+    "tp" axis (any order; the other axes must have size 1).
+
+    Over processes the process must hold whole tp groups of a contiguous
+    group of stages (`Mesh.owned`, row-major): the pipeline axis first,
+    and a stage count the process count divides."""
+    if isinstance(mesh, dict):
+        return {s: [torch.device(d)] for s, d in sorted(mesh.items())}
+    pa = pipe_axis(mesh)
+    extra = {a: n for a, n in mesh.shape.items() if a not in (pa, "tp") and n > 1}
+    if pa is None or extra:
+        raise ValueError(f"mesh {mesh.shape}: a pipeline mesh has a pipeline axis "
+                         f"{PIPE_AXES} and a tp axis, and no other axis above size 1")
+    coords = list(mesh.positions())
+    devs = mesh.device_list()
+    out: Dict[int, Dict[int, torch.device]] = {}
+    for i in mesh.owned():
+        c = coords[i]
+        out.setdefault(c[pa], {})[c.get("tp", 0)] = devs[i]
+    tp = int(mesh.shape.get("tp", 1))
+    stages = sorted(out)
+    whole = all(sorted(r) == list(range(tp)) for r in out.values())
+    if not whole or stages != list(range(stages[0], stages[0] + len(stages))):
+        raise ValueError(
+            f"process {mesh.process_id} of {mesh.num_processes} holds the positions "
+            f"{[coords[i] for i in mesh.owned()]} of mesh {mesh.shape}: a process of a "
+            "pipeline mesh holds whole tp groups of a contiguous group of stages (put "
+            f"the {pa!r} axis first and give it a multiple of the process count)")
+    return {s: [torch.device(out[s][r]) for r in range(tp)] for s in stages}

@@ -65,7 +65,7 @@ class NodesConfig:
     starter: NodeInfo
     secondary: List[NodeInfo] = field(default_factory=list)
     pipeline_stages: Optional[int] = None  # None -> one stage per node
-    tp_devices: int = 1  # tensor-parallel devices per stage (item 14, second half)
+    tp_devices: int = 1  # tensor-parallel ranks per stage (the starter's default)
 
     @property
     def n_nodes(self) -> int:

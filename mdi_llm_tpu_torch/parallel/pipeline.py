@@ -19,6 +19,15 @@ Port of `mdi_llm_tpu/parallel/pipeline.py` (`PipelineEngine`):
 - Per-sample caches: each stage keeps a dense cache of (layers,
   n_slots = S + 1, M, G, seq, hs); the slot id travels with the payload,
   and the trailing slot absorbs the writes of bubble payloads.
+- A tensor-parallel axis inside each stage (`tp`, or the ("pipe", "tp")
+  `Mesh` of `pipeline_mesh(S, devices, tp=N)`): each stage's blocks are
+  sliced per rank under the Megatron rules (`sharding.shard_ranks`) and
+  run over its ranks (`models.transformer.TPRanks`), one all-reduce per
+  row-parallel product, each rank over its own cache of G/tp groups.
+  After a stage's last all-reduce the activations are replicated, so the
+  payload and the hop stay as they are: one copy travels.  The embedding
+  and the head stay whole on stage 0, as the JAX ring keeps them
+  replicated.
 - The continuous scheduler: the first S * M prompts prefill in one
   pipelined call; a sample that finishes frees its lane, fully free slots
   are refilled by another pipelined prefill, a free lane of a busy slot
@@ -38,7 +47,9 @@ Where the stages run (`parallel/mesh.pipeline_mesh`):
 - One process, S devices: the hop copies the payload to the next stage's
   device; the ring launches eagerly.
 - Several processes (`ring`, a `nodes.RingGroup`): each owns a
-  contiguous group of S / n_processes stages; the hop between processes
+  contiguous group of S / n_processes stages (with tp > 1, their ranks
+  too, all on its one device: the collectives inside a stage stay in the
+  process); the hop between processes
   is one send/recv of the payload per micro-step.  Process 0 runs the
   host loop and broadcasts each ring call (its micro-step count and
   overrides) before making it, so every process runs the same
@@ -78,8 +89,9 @@ from mdi_llm_tpu_torch.models import transformer
 from mdi_llm_tpu_torch.ops.quant import FLAG_TO_MODE, quantize_params
 from mdi_llm_tpu_torch.ops.rope import gather_rope
 from mdi_llm_tpu_torch.ops.sampling import operand_values, sample, sample_mode, sample_traced
-from mdi_llm_tpu_torch.parallel.mesh import pipeline_mesh
+from mdi_llm_tpu_torch.parallel.mesh import Mesh, make_mesh, pipe_axis, pipeline_mesh, stage_ranks
 from mdi_llm_tpu_torch.parallel.partition import split_params, stage_layers
+from mdi_llm_tpu_torch.parallel.sharding import shard_ranks, validate_tp_divisibility
 from mdi_llm_tpu_torch.utils.context_managers import catch_loop_errors
 from mdi_llm_tpu_torch.utils.step_graph import StepGraph, summarize
 
@@ -99,15 +111,16 @@ class PipelineEngine:
         cfg: Config,
         params: Any,
         n_stages: Optional[int] = None,
-        mesh: Optional[Dict[int, Any]] = None,  # {stage: device}, pipeline_mesh
+        mesh: Any = None,  # {stage: device} of pipeline_mesh, or its pipe x tp Mesh
         max_seq_length: Optional[int] = None,
         cache_dtype: Optional[torch.dtype] = None,  # None -> params dtype
         rng_seed: int = 1337,
         devices: Optional[Sequence] = None,  # one device, or one per stage
+        # (per position, stage-major, with tp > 1)
         quantize: Optional[str] = None,  # None | "none" | "int8" | "w8a8" | "int4"
         samples_per_slot: int = 1,  # M: samples travelling together per ring slot
         rotations_per_call: int = 16,  # steady-state ring rotations per call
-        tp: int = 1,  # tensor-parallel devices per stage (item 14, second half: refused)
+        tp: int = 1,  # tensor-parallel ranks per stage (a pipe x tp mesh)
         overlap_chunks: bool = False,  # run the next steady chunk before
         # reading the previous one's emissions
         device=None,  # None -> "cuda"; the device of every stage without devices
@@ -117,14 +130,30 @@ class PipelineEngine:
     ):
         if quantize not in (None, "none") and quantize not in FLAG_TO_MODE:
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        if tp != 1:
-            pipeline_mesh(1, tp=tp)  # raises, naming the item
+        if tp < 1:
+            raise ValueError(f"tp={tp} must be a positive device count")
         transformer.check_supported(cfg)
         self.ring = ring
         P = 1 if ring is None else ring.world
         rank = 0 if ring is None else ring.rank
+        if isinstance(mesh, Mesh):
+            pa = pipe_axis(mesh)
+            mesh_tp = int(mesh.shape.get("tp", 1))
+            if pa is None or tp not in (1, mesh_tp):
+                raise ValueError(f"mesh {mesh.shape} for a ring of tp={tp}: pass "
+                                 "pipeline_mesh(S, devices, tp=N)")
+            tp = mesh_tp
+            if n_stages not in (None, mesh.shape[pa]):
+                raise ValueError(f"n_stages={n_stages} and a mesh of {mesh.shape[pa]} stages")
+            n_stages = mesh.shape[pa]
+            if mesh.num_processes != P:
+                raise ValueError(f"a mesh over {mesh.num_processes} processes for a ring "
+                                 f"of {P}")
+        elif isinstance(mesh, dict) and tp > 1:
+            raise ValueError("a {stage: device} mesh has no tp axis: pass "
+                             "pipeline_mesh(S, devices, tp=N)")
         if n_stages is None:
-            n_stages = len(mesh) if mesh else (len(devices) if devices else P)
+            n_stages = len(mesh) if mesh else (len(devices) // tp if devices else P)
         S = int(n_stages)
         if S % P:
             raise ValueError(f"{S} stages do not split over {P} processes: the stage "
@@ -133,10 +162,23 @@ class PipelineEngine:
         if mesh is None:
             if devices is None:
                 devices = [resolve_device(device) if ring is None else ring.device]
-            mesh = pipeline_mesh(S, devices, stages=range(rank * per, (rank + 1) * per))
-        for d in mesh.values():
-            resolve_device(d)  # a CUDA stage without a GPU raises
-        self.mesh = {s: torch.device(d) for s, d in mesh.items()}
+            if tp == 1:
+                mesh = pipeline_mesh(S, devices, stages=range(rank * per, (rank + 1) * per))
+            elif ring is None:
+                mesh = pipeline_mesh(S, devices, tp=tp)
+            else:
+                if len(devices) != 1:
+                    raise ValueError("each process of a pipe x tp ring runs its ranks on "
+                                     "its one device")
+                mesh = make_mesh({"pipe": S, "tp": tp}, devices, rank, P)
+        validate_tp_divisibility(cfg, tp)
+        # {stage: [its ranks' devices]} for the stages this process runs
+        self.ranks = stage_ranks(mesh)
+        for devs in self.ranks.values():
+            for d in devs:
+                resolve_device(d)  # a CUDA stage without a GPU raises
+        self.tp = tp
+        self.mesh = {s: devs[0] for s, devs in self.ranks.items()}
         self.owned = sorted(self.mesh)
         self.n_stages = S
         self.cfg = cfg
@@ -155,11 +197,25 @@ class PipelineEngine:
         # a process that owns only some stages keeps copies of its slices,
         # so the rest of the full tree can be freed
         own = (lambda x, d: x.to(d).clone()) if len(self.owned) < S else (lambda x, d: x.to(d))
-        self.stage_blocks = {
-            s: transformer.tree_map(lambda x, d=self.mesh[s]: own(x, d), stages[s]["blocks"])
-            for s in self.owned
-        }
-        self.dtype = transformer.param_dtype(next(iter(self.stage_blocks.values())))
+        # tp = 1: each stage's block tree; tp > 1: each stage's ranks
+        # (`models.transformer.TPRanks`) over its rank trees, the slices
+        # of `sharding.shard_ranks`, and their per-layer views
+        self.stage_blocks = {}
+        self._tp_ranks: Dict[int, transformer.TPRanks] = {}
+        self._tp_layers: Dict[int, list] = {}
+        for s in self.owned:
+            if tp == 1:
+                self.stage_blocks[s] = transformer.tree_map(
+                    lambda x, d=self.mesh[s]: own(x, d), stages[s]["blocks"])
+                continue
+            trees = [transformer.tree_map(lambda x, d=d: own(x, d), t) for t, d in zip(
+                shard_ranks(cfg, {"blocks": stages[s]["blocks"]}, self.ranks[s]),
+                self.ranks[s])]
+            self.stage_blocks[s] = [t["blocks"] for t in trees]
+            self._tp_ranks[s] = transformer.TPRanks(cfg, trees)
+            self._tp_layers[s] = self._tp_ranks[s].layers()
+        first = self.stage_blocks[self.owned[0]]
+        self.dtype = transformer.param_dtype(first[0] if tp > 1 else first)
         self.cache_dtype = self.dtype if cache_dtype is None else cache_dtype
         self.head_params = None
         if 0 in self.mesh:
@@ -171,12 +227,13 @@ class PipelineEngine:
         dev0 = self.mesh[self.owned[0]]
         self.rng_seed = int(rng_seed)
         self.rng = torch.Generator(device=dev0).manual_seed(self.rng_seed)
-        one_device = len({str(d) for d in self.mesh.values()}) == 1 and ring is None
+        one_device = ring is None and len(
+            {str(d) for devs in self.ranks.values() for d in devs}) == 1
         self._graphs = (one_device and dev0.type == "cuda") if _graphs is None else bool(_graphs)
         if self._graphs and not one_device:
             raise ValueError("the ring is captured only when every stage runs in one "
                              "process on one device")
-        self._caches: Dict[int, Dict[int, Dict[str, torch.Tensor]]] = {}
+        self._caches: Dict[int, Dict[int, Any]] = {}
         self._steps: Dict[tuple, StepGraph] = {}
         self._empty_chunk_cache: Dict[int, Dict[str, torch.Tensor]] = {}
         # the decode payload entering each owned stage: persistent buffers
@@ -195,22 +252,35 @@ class PipelineEngine:
     # state
     # ------------------------------------------------------------------
 
-    def _kv(self, cache_len: int) -> Dict[int, Dict[str, torch.Tensor]]:
+    def _kv(self, cache_len: int) -> Dict[int, Any]:
         """Each owned stage's cache (layers, n_slots, M, G, cache_len, hs)
-        for runs of this cache length, kept between calls; the caches and
-        steps of other lengths are dropped."""
+        for runs of this cache length, kept between calls (with tp > 1 one
+        per rank, each over its G/tp groups, on the rank's device); the
+        caches and steps of other lengths are dropped."""
         if cache_len not in self._caches:
             self._caches = {}
             self._steps = {k: v for k, v in self._steps.items() if k[0] == cache_len}
-            cfg = self.cfg
-            self._caches[cache_len] = {
-                s: {name: torch.zeros(
+            cfg = transformer.shard_config(self.cfg, self.tp)
+
+            def cache(s, dev):
+                return {name: torch.zeros(
                     (self.counts[s], self.n_slots, self.M, cfg.n_query_groups, cache_len,
-                     cfg.head_size), dtype=self.cache_dtype, device=self.mesh[s])
+                     cfg.head_size), dtype=self.cache_dtype, device=dev)
                     for name in ("k", "v")}
+
+            self._caches[cache_len] = {
+                s: cache(s, self.mesh[s]) if self.tp == 1
+                else [cache(s, d) for d in self.ranks[s]]
                 for s in self.owned
             }
         return self._caches[cache_len]
+
+    @staticmethod
+    def _zero_caches(kv) -> None:
+        for c in kv.values():
+            for cache in c if isinstance(c, list) else [c]:
+                for x in cache.values():
+                    x.zero_()
 
     def _reset_payload(self) -> None:
         for x, sid, pos, val in self._pay.values():
@@ -236,23 +306,28 @@ class PipelineEngine:
     def _stage_forward(self, s: int, kv, x, sid, input_pos) -> torch.Tensor:
         """Stage s's blocks on x (M, T, D), the M samples of ring slot `sid`
         (1,), at per-sample cache offsets `input_pos` (M,); reads and
-        writes that slot of the stage's cache.  Positions are clamped to
-        the cache: only bubble lanes ever reach past it."""
+        writes that slot of the stage's cache (of every rank's, over its
+        tp ranks).  Positions are clamped to the cache: only bubble lanes
+        ever reach past it."""
         T = x.shape[1]
-        cache = kv[s]
-        cache_len = cache["k"].shape[4]
+        caches = kv[s] if self.tp > 1 else [kv[s]]
+        cache_len = caches[0]["k"].shape[4]
         input_pos = input_pos.clamp(0, cache_len - T)
         pos = input_pos[:, None] + torch.arange(T, device=x.device)[None, :]
         cos, sin = gather_rope(*self.rope[s], pos)
-        slot = {name: self._slot(c).index_select(1, sid)[:, 0].view(c.dtype)
-                for name, c in cache.items()}
+        slots = [{name: self._slot(c).index_select(1, sid.to(c.device))[:, 0].view(c.dtype)
+                  for name, c in cache.items()} for cache in caches]
+        attn = dict(input_pos=input_pos, fresh_prefill=False, use_flash=False)
         with torch.no_grad():
-            out = transformer.run_blocks(
-                self.cfg, self.stage_blocks[s], x, pos, cos, sin, slot,
-                input_pos=input_pos, fresh_prefill=False, use_flash=False,
-            )
-        for name, c in cache.items():
-            self._slot(c).index_copy_(1, sid, self._slot(slot[name])[:, None])
+            if self.tp == 1:
+                out = transformer.run_blocks(self.cfg, self.stage_blocks[s], x, pos, cos, sin,
+                                             slots[0], **attn)
+            else:
+                out = self._tp_ranks[s].stage(self._tp_layers[s], x, pos, cos, sin, slots,
+                                              **attn)
+        for cache, slot in zip(caches, slots):
+            for name, c in cache.items():
+                self._slot(c).index_copy_(1, sid.to(c.device), self._slot(slot[name])[:, None])
         return out
 
     def _advance(self, pay: Dict[int, Payload], proc0: Optional[Payload], kv,
@@ -405,9 +480,7 @@ class PipelineEngine:
             op = cmd["op"]
             if op == "begin":
                 cache_len = cmd["cache_len"]
-                for c in self._kv(cache_len).values():
-                    for x in c.values():
-                        x.zero_()
+                self._zero_caches(self._kv(cache_len))
             elif op == "prefill":
                 self._prefill_ring(self._kv(cache_len), cmd["W"], cmd["T"])
             elif op == "decode":
@@ -540,9 +613,7 @@ class PipelineEngine:
         )
         self._command({"op": "begin", "cache_len": cache_len})
         kv = self._kv(cache_len)
-        for c in kv.values():
-            for x in c.values():
-                x.zero_()
+        self._zero_caches(kv)
 
         out = [list(p) for p in prompts]
         done = [False] * N

@@ -24,6 +24,11 @@ Rules (laid over the layer-stacked tree):
   (`paged_kv_spec`), the int8 pool's `(L, NB, G)` scales the same axis
   (`paged_kv_scale_spec`), and the block tables replicate
   (`block_table_spec`): the host allocator knows nothing of devices.
+
+A pipeline stage's tree (`partition.split_params`) keeps the layer axis
+of every block leaf, so `shard_ranks` slices it under the same rules: the
+counterpart of the JAX ring's `adapt_specs_to_tree(..., leading_axes=1)`,
+whose extra leading axis is the stage axis the port does not stack.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ __all__ = [
     "tp_slice",
     "unshard_params",
     "regroup_w4_row_scales",
+    "shard_ranks",
     "batch_spec",
     "paged_kv_spec",
     "paged_kv_scale_spec",
@@ -351,3 +357,21 @@ def regroup_w4_row_scales(params: Any, shards: Dict[int, Any], mesh,
             leaf["scale"] = scale.index_select(-1, idx.to(scale.device)).to(
                 leaf["weight_q4"].device)
     return shards
+
+
+def shard_ranks(cfg: Config, tree: Any, devices) -> list:
+    """Each tensor-parallel rank's slice of `tree` (the whole model's, or a
+    pipeline stage's `partition.split_params` tree), rank r on
+    `devices[r]`, in rank order: `shard_params` over a 1-D tp mesh of
+    those devices (views where a rank shares the tree's device), then
+    `regroup_w4_row_scales`."""
+    import numpy as np
+
+    from mdi_llm_tpu_torch.parallel.mesh import Mesh
+
+    grid = np.empty(len(devices), dtype=object)
+    for i, d in enumerate(devices):
+        grid[i] = torch.device(d)
+    mesh = Mesh(grid, ("tp",))
+    shards = regroup_w4_row_scales(tree, shard_params(tree, cfg, mesh), mesh)
+    return [shards[i] for i in range(len(devices))]

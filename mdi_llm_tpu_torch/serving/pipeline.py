@@ -70,10 +70,19 @@ Where the stages run:
   device; the steps launch eagerly.  Written, not verified on several
   cards.
 
+A tensor-parallel axis inside each stage (`Generator(mesh=make_mesh({"pp":
+S, "tp": N}, devices))`, or `pipeline_mesh(S, devices, tp=N)`; the JAX
+engine splits each stage's pool on its KV-group axis the same way): each
+stage's blocks are sliced per rank (`parallel.sharding.shard_ranks`) and
+run over its ranks (`models.transformer.TPRanks`), its pool is one
+`(L_s, num_blocks, block_size, G/tp, hs)` tree per rank under the same
+block ids, and K1 runs once per stage layer and rank, on the rank's pool
+slice, with the same rebased spans, its split knobs resolved on the
+model's whole geometry: K1 launches = tp x `stage_layer_runs`.  The
+embedding and the head stay whole on stage 0.
+
 Refused, as by the JAX engine: a draft model (the draft pool has no ring);
-a tensor-parallel axis inside each stage is not ported (ROADMAP item 14,
-second half; `parallel/mesh.pipeline_mesh`); a model with fewer layers than stages
-(`partition.stage_layers`).
+a model with fewer layers than stages (`partition.stage_layers`).
 """
 
 from __future__ import annotations
@@ -87,6 +96,7 @@ from mdi_llm_tpu_torch.config import ServingConfig
 from mdi_llm_tpu_torch.models import transformer
 from mdi_llm_tpu_torch.ops.rope import gather_rope
 from mdi_llm_tpu_torch.parallel.partition import split_params, stage_layers
+from mdi_llm_tpu_torch.parallel.sharding import shard_ranks
 from mdi_llm_tpu_torch.serving.engine import ServingEngine
 
 __all__ = ["PipelinedServingEngine", "segment_spans"]
@@ -127,19 +137,30 @@ class PipelinedServingEngine(ServingEngine):
                 "for single-device serving use ServingEngine"
             )
         S = len(mesh)
+        cfg = gen.cfg
         # raises when n_layer < S: every stage needs a block
-        self._stage_counts = stage_layers(gen.cfg.n_layer, S)
+        self._stage_counts = stage_layers(cfg.n_layer, S)
         self._pp = S
-        self._stage_dev = [torch.device(mesh[s]) for s in range(S)]
-        one_device = len(set(self._stage_dev)) == 1
+        self._ranks = [gen.stage_ranks[s] for s in range(S)]  # each stage's tp ranks
+        self._tp = len(self._ranks[0])
+        self._stage_dev = [devs[0] for devs in self._ranks]
+        one_device = len({d for devs in self._ranks for d in devs}) == 1
         if _graphs and not one_device:
             raise ValueError("the ring's steps are captured only when every stage "
                              "runs on one device")
-        stages = split_params(gen.cfg, gen.params, S)
-        self._stage_blocks = [
-            transformer.tree_map(lambda x, d=dev: x.to(d), st["blocks"])
-            for st, dev in zip(stages, self._stage_dev)
-        ]
+        stages = split_params(cfg, gen.params, S)
+        if self._tp == 1:
+            self._stage_blocks = [
+                transformer.tree_map(lambda x, d=dev: x.to(d), st["blocks"])
+                for st, dev in zip(stages, self._stage_dev)
+            ]
+        else:
+            # each stage's blocks sliced per rank (views on a rank that
+            # shares the weights' device), run over its ranks
+            self._stage_tp = [
+                transformer.TPRanks(cfg, shard_ranks(cfg, {"blocks": st["blocks"]}, devs))
+                for st, devs in zip(stages, self._ranks)]
+            self._stage_layers = [tr.layers() for tr in self._stage_tp]
         self._head = {k: stages[0][k] for k in ("wte", "wpe", "ln_f", "lm_head")
                       if k in stages[0]}
         self._stage_rope = [tuple(r.to(d) for r in gen.rope) for d in self._stage_dev]
@@ -152,25 +173,41 @@ class PipelinedServingEngine(ServingEngine):
 
     def _init_pool(self, num_blocks: int, bs: int):
         """{stage: pool of (L_s, num_blocks, bs, G, hs)} on each stage's
-        device: one block id indexes every stage's pool, and each stage
-        stores only its own layers' K/V under it."""
-        return {
-            s: transformer.init_paged_kv_cache(
-                self.gen.cfg, num_blocks, bs, dtype=self._pool_dtype,
-                device=self._stage_dev[s], n_layer=self._stage_counts[s])
-            for s in range(self._pp)
-        }
+        device, or over tp ranks {stage: {rank: (L_s, num_blocks, bs, G/tp,
+        hs) on the rank's device}} (the int8 pool's scales (L_s,
+        num_blocks, G/tp)): one block id indexes every stage's and every
+        rank's pool, and each stores only its own layers' and groups' K/V
+        under it."""
+        cfg = transformer.shard_config(self.gen.cfg, self._tp)
+
+        def pool(s, dev):
+            return transformer.init_paged_kv_cache(
+                cfg, num_blocks, bs, dtype=self._pool_dtype, device=dev,
+                n_layer=self._stage_counts[s])
+
+        if self._tp == 1:
+            return {s: pool(s, self._stage_dev[s]) for s in range(self._pp)}
+        kv = {s: {r: pool(s, d) for r, d in enumerate(self._ranks[s])}
+              for s in range(self._pp)}
+        # K1's split knobs on the model's whole geometry, as the tp
+        # engine's `sharded_forward` resolves them
+        self._k1_params = None
+        dev = self._stage_dev[0]
+        if dev.type == "cuda" and self.cfg.use_kernel is not False:
+            from mdi_llm_tpu_torch.ops import tuning
+            from mdi_llm_tpu_torch.ops.ragged_paged_attention import _pool_parts
+
+            full = self.gen.cfg
+            self._k1_params = tuning.global_kernel_params(
+                full.n_head, full.n_query_groups, full.head_size, bs, self._x_dtype,
+                _pool_parts(kv[0][0]["k"])[0].dtype, dev)
+        return kv
 
     # -- topology (cli reporting) ---------------------------------------------
 
     @property
     def n_stages(self) -> int:
         return self._pp
-
-    @property
-    def devices(self) -> int:
-        """Distinct devices the stages run on."""
-        return len(set(self._stage_dev))
 
     def pipeline_fill(self) -> Dict[str, Any]:
         """The JAX engine's fill model: lanes (max_batch), stages, each
@@ -194,17 +231,23 @@ class PipelinedServingEngine(ServingEngine):
 
     def _stage(self, s: int, x, pos, tables, ragged=None) -> torch.Tensor:
         """Stage s's blocks on x (B, T, D) at positions pos (B, T), through
-        its own pool; `tables` is zeroed for a bubble."""
+        its own pool (over tp ranks, each rank's K1 on its own pool slice
+        with the same tables and spans); `tables` is zeroed for a
+        bubble."""
         self.stage_layer_runs += self._stage_counts[s]
         pos = self._to(s, pos).long()
         cos, sin = gather_rope(*self._stage_rope[s], pos)
         if ragged is not None:
             ragged = tuple(self._to(s, r) for r in ragged)
-        return transformer.run_blocks(
-            self.gen.cfg, self._stage_blocks[s], self._to(s, x), pos, cos, sin,
-            self._kv[s], paged_tables=self._to(s, tables),
-            paged_kernel=self.cfg.use_kernel, paged_ragged=ragged,
-        )
+        attn = dict(paged_tables=self._to(s, tables), paged_kernel=self.cfg.use_kernel,
+                    paged_ragged=ragged)
+        x = self._to(s, x)
+        if self._tp == 1:
+            return transformer.run_blocks(self.gen.cfg, self._stage_blocks[s], x, pos, cos,
+                                          sin, self._kv[s], **attn)
+        kv = [self._kv[s][r] for r in range(self._tp)]
+        return self._stage_tp[s].stage(self._stage_layers[s], x, pos, cos, sin, kv,
+                                       paged_params=self._k1_params, **attn)
 
     def _embed(self, tokens, pos) -> torch.Tensor:
         return transformer.embed(self.gen.cfg, self._head, tokens, pos.long())

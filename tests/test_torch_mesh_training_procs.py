@@ -59,14 +59,13 @@ def dataset(tmp_path_factory):
     return ds
 
 
-def _job(argv, n=2, timeout=PROC_TIMEOUT):
-    """`cli.train argv` as processes 0..n-1 of one job on a free port,
-    each under its own time limit (a hang fails the test): [(returncode,
-    stdout, stderr)] in process order."""
+def _job(argv, n=2, timeout=PROC_TIMEOUT, cmd=("-m", "mdi_llm_tpu_torch.cli.train")):
+    """`cli.train argv` (or `python *cmd argv`) as processes 0..n-1 of one
+    job on a free port, each under its own time limit (a hang fails the
+    test): [(returncode, stdout, stderr)] in process order."""
     coord = ["--coordinator", f"127.0.0.1:{_free_port()}", "--num-processes", str(n)]
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "mdi_llm_tpu_torch.cli.train", *argv, *coord,
-         "--process-id", str(i)],
+        [sys.executable, *cmd, *argv, *coord, "--process-id", str(i)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT, env=ENV)
         for i in range(n)]
     out = []
@@ -75,7 +74,7 @@ def _job(argv, n=2, timeout=PROC_TIMEOUT):
             o, e = p.communicate(timeout=timeout)
             out.append((p.returncode, o, e))
     except subprocess.TimeoutExpired:
-        raise AssertionError(f"a training process hung past {timeout} s")
+        raise AssertionError(f"a process of the job hung past {timeout} s")
     finally:
         for p in procs:
             if p.poll() is None:

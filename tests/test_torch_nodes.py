@@ -9,8 +9,8 @@
   each under its own subprocess time limit: the streams of the
   one-process ring and of one device, with 2 stages and with 4 (two per
   process, M = 2, refills); a mismatched `--seed` ends both processes
-  with a non-zero exit, and so does a starter refusal (`--tp-devices 2`,
-  item 14) through the abort sentinel;
+  with a non-zero exit, and so does a starter refusal (`--no-preflight`,
+  item 18) through the abort sentinel;
 - the CLI flags this slice ported, on `--device cpu`: `cli.sample
   --pipeline-stages` (with `--samples-per-slot`, `--overlap-chunks`,
   `--profile-dir`), `cli.chat --pipeline-stages` against the JAX ring's
@@ -212,8 +212,8 @@ def test_mismatched_seed_ends_both_processes(tmp_path):
 
 def test_starter_refusal_ends_the_secondary(tmp_path):
     (rc, _, err), (src, _, serr) = _run_pair(_two_nodes(tmp_path),
-                                             COMMON + ["--tp-devices", "2"], COMMON)
-    assert rc != 0 and "item 14" in err
+                                             COMMON + ["--no-preflight"], COMMON)
+    assert rc != 0 and "item 18" in err
     assert src != 0 and "starter aborted the job" in serr
 
 

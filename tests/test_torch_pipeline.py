@@ -22,9 +22,9 @@ streams must be identical across the three, and the port's
 Beside those: the quantized modes (int8, w8a8, int4) against the port's
 `Generator` with the same `quantize`; a sampled run reproducible from its
 seed; Ctrl-C inside the host loop returning partial results; the stage
-placements (one device, one per stage, a process's share); the JAX
-package's pipe x tp cases replaced by the refusal of
-`tp > 1` (ROADMAP item 14); `partition` against the JAX package's over a
+placements (one device, one per stage, a process's share); a pipe x tp
+ring on the CPU (the JAX package's pipe x tp cases are
+`tests/test_torch_pp_tp.py`'s); `partition` against the JAX package's over a
 grid of (n_layer, n_stages), the padding round trip and the stage
 manifest byte for byte; the step-graph plumbing of the decode chunk on
 the CPU (the stand-in graph of `test_torch_graphs.py`); the ring launches
@@ -322,11 +322,23 @@ def test_sampled_ring_reproducible_from_its_seed(model):
 
 @pytest.mark.parametrize("case", ["engine", "mesh"])
 def test_tp_is_refused_naming_item_14(model, case):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        if case == "engine":
-            model.tpipe(2, tp=2)
-        else:
-            pipeline_mesh(2, ["cpu"], tp=2)
+    """Once refused (the pipe x tp ring was item 14's second half), now
+    run: `tp=2` and the ("pipe", "tp") Mesh of `pipeline_mesh(2, ["cpu"],
+    tp=2)` give the single device's greedy streams, each stage's blocks
+    over two ranks of G/2 cached groups; the JAX ring's cases are held in
+    tests/test_torch_pp_tp.py."""
+    if case == "engine":
+        eng = model.tpipe(2, tp=2)
+    else:
+        mesh = pipeline_mesh(2, ["cpu"], tp=2)
+        assert mesh.axis_names == ("pipe", "tp") and mesh.shape == {"pipe": 2, "tp": 2}
+        eng = PipelineEngine(model.tc, model.tp, mesh=mesh, cache_dtype=torch.float32)
+    assert (eng.n_stages, eng.tp, eng.counts) == (2, 2, [2, 3])
+    assert [len(eng.stage_blocks[s]) for s in (0, 1)] == [2, 2]
+    got, stats = eng.generate(PROMPTS[:2], 6, **GREEDY)
+    assert got == model.single(PROMPTS[:2], 6) and stats.tokens_generated == 12
+    caches = next(iter(eng._caches.values()))
+    assert caches[0][1]["k"].shape[3] == model.tc.n_query_groups // 2
 
 
 def test_ring_launches_no_kernel_and_graph_plumbing(model, monkeypatch):

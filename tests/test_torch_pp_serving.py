@@ -23,7 +23,9 @@ same float32 weights (JAX `init_params`, moved over by
   engine's forward within 1e-5;
 - segments of a random packed ragged batch with rebased spans
   (`segment_spans`) give K1's plain version the whole batch's owned rows;
-- the refusals (a draft model, a tp mesh, fewer layers than stages), the
+- the refusals (a draft model, fewer layers than stages), a pipe x tp
+  mesh served (the JAX composed engine's cases are
+  `tests/test_torch_pp_tp.py`'s), the
   routing of a one-stage mesh, `pipeline_fill` against the JAX engine's
   formula, each stage's pool bytes;
 - the steps' capture plumbing through the stand-in graph of
@@ -390,15 +392,19 @@ def test_pp_refuses_a_draft_model(model):
 @pytest.mark.parametrize("mesh", [{"pp": 2, "tp": 2}, {"pipe": 2, "tp": 2}],
                          ids=["pp-tp", "tp"])
 def test_tp_meshes_are_refused_naming_item_14(model, mesh):
-    """A pipe x tp mesh, as a dict of axis sizes or a `make_mesh` Mesh
-    with a pipeline axis beside tp, is item 14's second half (a tp mesh
-    alone is ported: tests/test_torch_tp_serving.py)."""
-    if "pipe" in mesh:
-        mesh = make_mesh(mesh, ["cpu"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        model.gen(mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        pipeline_mesh(2, ["cpu"], tp=2)
+    """Once refused (item 14's second half), now served: a `make_mesh`
+    Mesh with a pipeline axis ("pp" or "pipe") beside tp builds the staged
+    engine over two ranks per stage, whose streams are the single
+    engine's (the cases against the JAX composed engine are
+    tests/test_torch_pp_tp.py's)."""
+    gen = model.gen(mesh=make_mesh(mesh, ["cpu"]))
+    assert gen.tp == 2 and gen.stage_ranks == {s: [torch.device("cpu")] * 2 for s in (0, 1)}
+    prompts = model.prompts((3, 9, 17))
+    knobs = dict(block_size=4, max_batch=3, prefill_chunk=8, decode_chunk=4)
+    got, _, engine = _serve(gen, prompts, [6, 8, 5], **knobs)
+    assert isinstance(engine, PipelinedServingEngine) and sorted(engine._kv[1]) == [0, 1]
+    assert got == _serve(model.tgen, prompts, [6, 8, 5], **knobs)[0]
+    assert pipeline_mesh(2, ["cpu"], tp=2).shape == {"pipe": 2, "tp": 2}
 
 
 def test_fewer_layers_than_stages_is_refused(model):

@@ -20,9 +20,9 @@ float32 weights (JAX `init_params`, moved over by `params_from_numpy`) of
   `make_mesh`'s errors and `validate_tp_divisibility`'s against the JAX
   package's; the collectives;
 - the refusals (a ragged batch under dp, streaming and chat under dp,
-  indivisible heads, ep/sp and pipe x tp meshes naming their ROADMAP
-  item) and the sample and chat CLIs' `--tp-devices` with the JAX CLI's
-  flag exclusions.
+  indivisible heads, ep/sp meshes naming their ROADMAP item), generate on
+  a pipeline mesh (over stage 0's tp ranks), and the sample and chat
+  CLIs' `--tp-devices` with the JAX CLI's flag exclusions.
 """
 
 import dataclasses
@@ -183,8 +183,9 @@ def test_dp_rejects_ragged_batch(model, devices):
 
 def test_cli_tp_flag_exclusions():
     """The JAX CLI's exclusions: tp with sp, ep with the other flags (sample),
-    one streaming backend at a time (chat); and the port's own refusal of a
-    pipe x tp mesh, naming its ROADMAP item."""
+    one streaming backend at a time (chat); `--tp-devices` with
+    `--pipeline-stages`, once refused, runs the pipe x tp ring and prints
+    the single device's greedy streams."""
     from mdi_llm_tpu_torch.cli import chat as chat_cli
     from mdi_llm_tpu_torch.cli import sample as sample_cli
 
@@ -193,8 +194,9 @@ def test_cli_tp_flag_exclusions():
         sample_cli.main(base + ["--tp-devices", "2", "--sp-devices", "2"])
     with pytest.raises(SystemExit, match="standalone expert-parallel"):
         sample_cli.main(base + ["--tp-devices", "2", "--ep-devices", "2"])
-    with pytest.raises(SystemExit, match="item 14, second half"):
-        sample_cli.main(base + ["--tp-devices", "2", "--pipeline-stages", "2"])
+    f32 = base + ["--greedy", "--dtype", "float32"]
+    assert sample_cli.main(f32 + ["--tp-devices", "2", "--pipeline-stages", "2"]) == \
+        sample_cli.main(f32)
     with pytest.raises(SystemExit, match="separate streaming backends"):
         chat_cli.main(["--device", "cpu", "--model", "pythia-14m", "--tp-devices", "2",
                        "--pipeline-stages", "2"])
@@ -501,24 +503,44 @@ def test_shard_config_is_each_ranks_share():
 # ---------------------------------------------------------------------------
 
 
+# the ids are the ones these cases had when the pipeline meshes were
+# refused (item 14, second half): they are ported now, and run
 @pytest.mark.parametrize("axes,match", [
-    ({"ep": 2}, "item 16"), ({"sp": 2}, "item 16"), ({"pp": 2, "tp": 2}, "item 14, second half"),
-    ({"pipe": 2}, "item 14, second half"),
+    pytest.param({"ep": 2}, "item 16", id="axes0-item 16"),
+    pytest.param({"sp": 2}, "item 16", id="axes1-item 16"),
+    pytest.param({"pp": 2, "tp": 2}, None, id="axes2-item 14, second half"),
+    pytest.param({"pipe": 2}, None, id="axes3-item 14, second half"),
 ])
 def test_unported_meshes_are_refused_naming_their_item(model, axes, match):
+    """ep and sp meshes are refused naming item 16; a pipeline axis, alone
+    or beside tp, generates as the JAX Generator does with its replicated
+    pipeline axis: over stage 0's tp ranks, the single device's streams."""
     _, _, tc, tp = model
-    with pytest.raises(NotImplementedError, match=match):
-        _gen(tc, tp, axes)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            _gen(tc, tp, axes)
+        return
+    gen = _gen(tc, tp, axes)
+    assert set(gen.mesh) == {0, 1} and gen.tp == axes.get("tp", 1)
+    single = Generator(tc, tp, device="cpu", cache_dtype=torch.float32)
+    assert gen.generate(PROMPTS[:3], 4, **GREEDY)[0] == \
+        single.generate(PROMPTS[:3], 4, **GREEDY)[0]
 
 
 def test_pipe_by_tp_stays_refused(model):
+    """Once a refusal, now the ported layout: `pipeline_mesh(S, devices,
+    tp=N)` is a ("pipe", "tp") Mesh the Generator lays over its stages'
+    ranks.  A bare dict of axis sizes is not a mesh (the JAX Generator
+    takes a Mesh): refused by type, as is a {stage: device} dict with a
+    gap."""
     _, _, tc, tp = model
-    with pytest.raises(NotImplementedError, match="item 14, second half"):
-        pipeline_mesh(2, ["cpu"], tp=2)
-    with pytest.raises(NotImplementedError, match="item 14, second half"):
-        Generator(tc, tp, device="cpu", mesh={"pp": 2, "tp": 2})
-    with pytest.raises(TypeError, match="make_mesh"):
-        Generator(tc, tp, device="cpu", mesh={"tp": 2})
+    mesh = pipeline_mesh(2, ["cpu"], tp=2)
+    assert mesh.axis_names == ("pipe", "tp") and mesh.size == 4
+    gen = Generator(tc, tp, device="cpu", mesh=mesh)
+    assert gen.stage_ranks == {0: [torch.device("cpu")] * 2, 1: [torch.device("cpu")] * 2}
+    for bad in ({"pp": 2, "tp": 2}, {"tp": 2}, {0: "cpu", 2: "cpu"}):
+        with pytest.raises(TypeError, match="make_mesh"):
+            Generator(tc, tp, device="cpu", mesh=bad)
 
 
 # ---------------------------------------------------------------------------

@@ -441,11 +441,17 @@ def test_serve_cli_tp_prints_its_topology_and_the_single_streams(capsys):
     assert json.loads(got.err.strip().splitlines()[-1])["tp"] == 2
 
 
-def test_serve_cli_refuses_tp_with_pp_naming_item_14():
-    args = serve_cli.build_parser().parse_args(["--device", "cpu", *CPU_RUN, "--tp", "2",
-                                                "--pp", "2"])
-    with pytest.raises(SystemExit, match="item 14, second half"):
-        serve_cli.serve(args)
+def test_serve_cli_refuses_tp_with_pp_naming_item_14(capsys):
+    """Once refused (item 14, second half): `cli.serve --tp 2 --pp 2`
+    (float32) serves over the pipe x tp ring and prints the `--tp 1`
+    streams; its stats line says tp 2, pp 2 and n_chips 4 on one device."""
+    base = ["--device", "cpu", "--dtype", "float32", *CPU_RUN, "--no-device-obs"]
+    serve_cli.main(base)
+    want = capsys.readouterr()
+    line = serve_cli.main(base + ["--tp", "2", "--pp", "2"])
+    got = capsys.readouterr()
+    assert got.out == want.out
+    assert (line["tp"], line["pp"], line["n_chips"], line["devices"]) == (2, 2, 4, 1)
 
 
 def test_server_cli_builds_a_tp_engine():
