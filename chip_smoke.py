@@ -7,7 +7,11 @@ Run from the root of a checkout, on a machine with one CUDA GPU:
 
 runs every phase below in order (`--only` runs the named ones, for
 iterating on one of them).  Each prints its lines; any failure exits
-non-zero.
+non-zero.  Python's bytecode goes to `build/pycache/` in the checkout
+(`PYTHONPYCACHEPREFIX`, unless the caller set one; written even under
+`PYTHONDONTWRITEBYTECODE`), so the processes the phases start load the
+modules torch imports late (`torch.distributed`, `torch._dynamo` under
+remat) compiled instead of compiling them again.
 
 1. device  — torch.cuda must be available; prints the card's name and
    power limit as nvidia-smi reports them.
@@ -58,7 +62,8 @@ non-zero.
 5c. serve-q8-parity — the serve-parity phase over an int8 pool, then an
    e4m3 pool: greedy streams through K1 and through the plain route.
 5d. spec — speculative serving at full size, bf16 pool, `--spec-k 4
-   --draft-model NanoLlama`, greedy: every request finishes in the
+   --draft-model NanoLlama`, greedy, the serve trace's 16 requests with
+   `SPEC_TOKENS` (32) new tokens each: every request finishes in the
    vocabulary, the draft model and the lookup drafted, and K1 launches
    are exactly 22 per target forward + 12 per draft forward, the plain
    route never.  Then `--spec-k 4 --kv-dtype int8 --temperature 0.8`
@@ -117,8 +122,10 @@ non-zero.
    the step losses are finite and a fixed batch's loss falls by at least
    `TRAIN_MARGIN` over three steps.  Prints step seconds, tokens/s, the
    Trainer's TFLOP/s estimate and peak memory.  Then the train CLI on
-   synthetic `train.bin`/`val.bin` in a temporary directory: 2 steps and a
-   checkpoint, then `--init resume` for a third.
+   synthetic `train.bin`/`val.bin` in a temporary directory, cut to
+   `TRAIN_CLI_LAYERS` layers (`--override`; the checkpoint's size, not the
+   step, is what the depth costs): 2 steps and a checkpoint, then
+   `--init resume` for a third, which reads the depth from the checkpoint.
 11. train parity — float32, 4 layers at full width, B=2, T=2048: two
    optimizer steps through K2-K4 and through their plain versions from
    the same params and batches; the first step's gradients and the losses
@@ -146,10 +153,11 @@ non-zero.
    `tokenizers` library is missing it says so and stops there.
 15. graphs — the engine's and the Generator's steps as CUDA graphs
    (the default everywhere above) against eager launches of the same step
-   bodies (the private `_graphs=False` switch), in turns eager, graph,
-   graph, eager, at full tiny-llama-1.1b width and depth in bf16: the
-   serve phase's trace through `cli.build` + `engine.run()` over bf16,
-   int8 and e4m3 pools, and the generate phase's run (each Generator
+   bodies (the private `_graphs=False` switch), at full tiny-llama-1.1b
+   width and depth in bf16: the serve phase's trace through `cli.build` +
+   `engine.run()` over a bf16 pool in turns eager, graph, graph, eager,
+   over int8 and e4m3 pools eager then graph, and the generate phase's
+   run in turns eager, graph, graph, eager (each Generator
    called once first, so the timed calls are the second with their
    shapes).  Fails unless greedy streams are identical between the routes
    (the near-tie rule of the parity phases applies), host_syncs are equal,
@@ -253,9 +261,10 @@ non-zero.
    streams through K1 and the plain route, and generate's through K2 and
    its plain version, equal but for a near-tie (`divergence_ok`).
 20. moe-quant — Mixtral-8x7B at all 32 layers with int8 weights
-   (`init_quantized_params(mode="w8")`, 46.4 GB): the moe phase's trace
-   served (K1 32 per forward) and generate on its prompts (K2 exactly 32),
-   stored bytes, tokens/s and MFU/MBU printed; at 4 layers a float32
+   (`init_quantized_params(mode="w8")`, 46.4 GB): the moe phase's 16
+   requests served with `MOE_QUANT_TOKENS` new tokens each (K1 32 per
+   forward) and generate on its prompts, `MOE_QUANT_TOKENS` new tokens (K2
+   exactly 32), stored bytes, tokens/s and MFU/MBU printed; at 4 layers a float32
    forward of each mode (w8, w8a8, int4) against a float64 plain version
    of the quantized forward (`plain_moe_quantized_einsum`): max |err| <=
    1e-4 x max(1, max |plain|); then the trace served once in each mode at
@@ -306,12 +315,13 @@ non-zero.
    cache (its positions clamped) and the stream is generate's.
 24. pipeline-nodes — `cli.starter` and one `cli.secondary` as two
    processes sharing the card (gloo, the hop staged through pinned host
-   buffers), each under `cli.mem_monitor`: in float32 at 4 layers (S = 2,
-   M = 2, 4 samples, 32 tokens) the streams are the one-process ring's
-   (`divergence_ok`); in bf16 at 22 layers (64 tokens) every sample gets
-   its budget.  Prints the stats line, each process's ring line (backend,
-   hops, bytes, mean and fastest hop ms, its allocator's peak reserved
-   bytes) and each monitor's peaks: the process's card memory as
+   buffers), each under `cli.mem_monitor`, running two jobs in turn: in
+   float32 at 4 layers (S = 2, M = 2, 4 samples, 32 tokens) the streams
+   are the one-process ring's (`divergence_ok`); in bf16 at 22 layers (64
+   tokens) every sample gets its budget.  Prints the bf16 job's stats
+   line, seconds and each process's ring line (backend, hops, bytes, mean
+   and fastest hop ms, its allocator's peak reserved bytes) and each
+   monitor's peaks over both jobs: the process's card memory as
    `nvidia-smi --query-compute-apps` lists it (`none` in a container whose
    processes nvidia-smi lists under one other pid) and the card's
    memory in use.
@@ -327,7 +337,9 @@ non-zero.
    step and 8S + S per decode chunk, bubbles included; each with its merge
    kernel where the split plan has one), the plain route never, the steps
    are captured when the engine is built and replayed, host_syncs equal the
-   single engine's on the same trace.  Prints tokens/s beside the single
+   single engine's on the same trace (its run served once per pool in the
+   process, `single_reference`, and reused by tp-serve and pp-tp-serve).
+   Prints tokens/s beside the single
    engine's in the same process and their ratio, the `pipeline` block,
    the capture seconds, the launch counts beside their prediction, peak
    memory and the bf16 divergences from the single engine's streams
@@ -400,10 +412,19 @@ non-zero.
    launches) and writes no checkpoint: in float32 at 4 layers (B=2,
    grad_clip 0.05) process 0's three loss lines equal one process's
    `--mesh dp=2` run's within 1e-5 (relative) and process 1 prints none;
-   in bf16 at 22 layers (the train phase's shape) each process runs 3 x 2
-   x 22 layers, K2 twice per run and K3, K4 once, and the losses are
-   finite; prints both processes' step and all-reduce seconds beside one
-   process's steps.
+   in bf16 at the train phase's shape cut to `MESH_PROCS_DP_LAYERS` (11)
+   layers (the gradient all-reduce, through host memory, is the step)
+   each process runs 3 x 2 x 11 layers, K2 twice per run and K3, K4 once,
+   and the losses are finite; prints both processes' step and all-reduce
+   seconds beside one process's steps.  Then the same two parts for `--mesh pp=2` (each
+   process one GPipe stage, the hop a gloo send/recv of each
+   micro-batch's activations and, in the backward, of their gradients)
+   and `--mesh pp=2,tp=2` (one stage and its whole tp group each): the
+   float32 loss lines equal one process's run on the same mesh; in bf16
+   each process holds stages [i, i+1), runs 3 x 2 x 2 micro-batches x 11
+   layers (x 2 ranks with tp) and launches K2 twice per run and K3, K4
+   once; prints the step seconds beside one process's and the pp group's
+   calls, bytes and host seconds.
    Beside its parameter check the float32 part prints, per mesh and route,
    the largest |diff| between the first step's gradients (summed,
    averaged, before the optimizer clips them) and the unmeshed Trainer's,
@@ -439,13 +460,34 @@ non-zero.
    (both processes' streams equal one process's tp 2 run, `divergence_ok`)
    and at temperature 0.8 (the two processes draw the same tokens); bf16
    at 22 layers on the generate phase's four prompts (1100-1900 tokens,
-   the CLI's prompt source swapped for them), 64 new tokens: each process
+   the CLI's prompt source swapped for them), 32 new tokens: each process
    launches K2 exactly 22 times (one rank x 22 layers) and its plain
    version never, the two print the same streams.  Prints decode tokens/s
    beside the one-process tp 2 run's (its graphs replayed) and the
    collectives' calls, bytes and host seconds.  (b) `cli.starter` and
    `cli.secondary` with `--tp-devices 2` (each process one stage of two
-   ranks), float32 at 4 layers: the one-process pipe x tp ring's streams.
+   ranks), float32 at 4 layers, as a fourth job of the same two
+   processes: the one-process pipe x tp ring's streams.
+34. sp — sequence-parallel inference (`parallel/sp_inference.py`) at
+   Llama-3-8B's full width and depth (32 layers, 4096 wide, 32 heads, 8
+   KV groups, hs 128), bf16, random weights: K2 with its LSE against its
+   plain version at the sp 2 ring's block shapes (B=2, T=4096, causal and
+   non-causal), ring attention's gradient (P=2, T=1024 per rank: K2, K3
+   and K4 with the LSE's cotangent against the plain ring in float32,
+   within `flash_bwd_bf16_limits` of the whole sequence times P plus P
+   bf16 roundings; err/limit printed), then two prompts of 8128 and
+   6000 random tokens, 64 greedy new tokens each, through the
+   `Generator` (K2 once per layer) and `SPGenerator` at sp 2 with and
+   without `use_flash` and at sp 4 with `use_flash, flash_min_len=1024`:
+   K2 launches exactly P^2 x 32 per flash prefill and 0 on the plain
+   ring, every sample gets its 64 tokens; prints prefill seconds, decode
+   tokens/s, each rank's KV bytes beside the Generator's cache and the
+   bf16 divergences from the Generator's streams (printed with the
+   top-2 gap there, not gated: the sp prefill's other attention
+   arithmetic differs by roundings at every position).
+   Then float32 at 4 layers: sp 2 and sp 4 on both routes give the
+   Generator's streams (`divergence_ok`), and an `SPChatSession` of two
+   turns around a Ctrl-C rollback gives the `ChatSession`'s replies.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4, each with `paths`: its launches in every phase that drives
@@ -457,7 +499,9 @@ three ring serves, its `tp-serve` over the three tp serves, K2's
 `tp-generate` the tp 2 generate's, K3's and K4's `moe-train` over the
 three counted steps, K2's, K3's and K4's `mesh-train` over the five
 meshes' counted bf16 steps, K1's `pp-tp-serve` over its two ring serves,
-K2's `inference-procs` over the two processes' bf16 run); the last line
+K2's `inference-procs` over the two processes' bf16 run, K2's `sp` over
+the three bf16 sp prefills, K3's and K4's `sp` the counted ring
+gradient's); the last line
 is `{"ok": true, "device": {...}}`.
 """
 
@@ -673,6 +717,23 @@ def serve_checked(phase, argv, draft_layers=0, n_layer=22):
     _trace, results, line, engine, launches = served(
         phase, lambda: cli.serve(args)[:4], n_layer, draft_layers)
     return line, launches, engine, results
+
+
+SINGLE_REFS = {}  # tuple(argv): the single engine's (stats line, Generator, results)
+
+
+def single_reference(phase, argv):
+    """The single engine's run of the serve CLI on `argv` that the split
+    engines (pp-serve, tp-serve, pp-tp-serve) are held against: served
+    and checked once per argv in this process, then reused.  Returns
+    (stats line, its Generator, results)."""
+    key = tuple(argv)
+    if key not in SINGLE_REFS:
+        line, _launches, engine, results = serve_checked(phase, argv)
+        SINGLE_REFS[key] = (line, engine.gen, results)
+        del engine
+        free()
+    return SINGLE_REFS[key]
 
 
 def phase_serve(record):
@@ -892,11 +953,14 @@ def phase_serve_q8_parity():
     torch.cuda.empty_cache()
 
 
+SPEC_TOKENS = 32  # new tokens per request of the spec phase's eager verify steps
+
+
 def phase_spec():
     import torch
 
     draft = ["--spec-k", "4", "--draft-model", "NanoLlama"]
-    run = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"] + draft
+    run = SERVE_BASE + ["--synthetic", "16", "--n-tokens", str(SPEC_TOKENS)] + draft
     for label, extra in (("greedy, bf16 pool", []),
                          ("temperature 0.8, int8 pool", ["--kv-dtype", "int8",
                                                          "--temperature", "0.8"])):
@@ -1321,6 +1385,7 @@ TRAIN_VOCAB = 512  # synthetic tokens are drawn from this many ids
 # the fixed batch's loss must fall by this much over three steps; the first
 # run on the card saw 10.8486 -> 6.5078 (a fall of 4.34), so 1.0 leaves room
 TRAIN_MARGIN = 1.0
+TRAIN_CLI_LAYERS = 4  # the train CLI's checkpoint round trip: params and moments
 
 
 def reset_flash_counts():
@@ -1441,15 +1506,19 @@ def phase_train(k3, k4):
                 str(tc.learning_rate), "--warmup-iters", "0", "--lr-decay-iters", "100",
                 "--log-interval", "1", "--ckpt-interval", "1000", "--eval-iters", "1",
                 "--device", DEVICE]
+        L = TRAIN_CLI_LAYERS
         reset_flash_counts()
         t0 = time.perf_counter()
-        result, trainer = train_cli.main(argv + ["--max-iters", "2"])
+        result, trainer = train_cli.main(argv + ["--override", f"n_layer={L}",
+                                                 "--max-iters", "2"])
         run_s = time.perf_counter() - t0
         got = flash_counts()
         want = {"K2": 2 * 2 * L, "K3": 2 * L, "K4": 2 * L, "plain": 0}
         losses = [h["loss"] for h in result["history"] if "loss" in h]
-        if got != want or len(losses) != 2 or not all(map(math.isfinite, losses)):
-            fail("train", f"CLI run: launches {got} (want {want}), losses {losses}")
+        if (trainer.cfg.n_layer != L or got != want or len(losses) != 2
+                or not all(map(math.isfinite, losses))):
+            fail("train", f"CLI run: {trainer.cfg.n_layer} layers, launches {got} (want "
+                 f"{want}), losses {losses}")
         del trainer
         torch.cuda.empty_cache()
         saved = sorted(p.name for p in ck.iterdir())
@@ -1461,9 +1530,9 @@ def phase_train(k3, k4):
         resume_s = time.perf_counter() - t1
         hist = [h for h in result["history"] if "loss" in h]
         if (result["iter_num"] != 3 or trainer.optimizer.count != 3 or [h["iter"] for h in hist]
-                != [3] or not math.isfinite(hist[0]["loss"])):
-            fail("train", f"--init resume did not continue at iter 3: {result}")
-        print(f"train: CLI 2 steps + checkpoint ({size:.2f} GiB) in {run_s:.1f} s, "
+                != [3] or not math.isfinite(hist[0]["loss"]) or trainer.cfg.n_layer != L):
+            fail("train", f"--init resume did not continue at iter 3 on {L} layers: {result}")
+        print(f"train: CLI at {L} layers, 2 steps + checkpoint ({size:.2f} GiB) in {run_s:.1f} s, "
               f"losses {[round(x, 4) for x in losses]}; --init resume continued at "
               f"iter 3 (loss {hist[0]['loss']:.4f}) in {resume_s:.1f} s", flush=True)
         del trainer
@@ -1799,7 +1868,9 @@ def phase_chat(k2, card, ckpt_dir):
 
 
 GRAPH_ROUTES = (("eager", False), ("graphs", True), ("graphs", True), ("eager", False))
-GRAPH_POOLS = (("bf16", []), ("int8", ["--kv-dtype", "int8"]), ("e4m3", ["--kv-dtype", "float8"]))
+# pool: (serve CLI flags, the routes in turn)
+GRAPH_POOLS = (("bf16", [], GRAPH_ROUTES), ("int8", ["--kv-dtype", "int8"], GRAPH_ROUTES[:2]),
+               ("e4m3", ["--kv-dtype", "float8"], GRAPH_ROUTES[:2]))
 
 
 def graph_serve_run(phase, argv, graphs):
@@ -1952,9 +2023,9 @@ def phase_graphs(k1, k2, card):
 
     base = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"]
     graph_serve_run("graphs", SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8"], True)
-    for pool, extra in GRAPH_POOLS:
+    for pool, extra, routes in GRAPH_POOLS:
         runs = []
-        for route, graphs in GRAPH_ROUTES:
+        for route, graphs in routes:
             results, summary, engine = graph_serve_run("graphs", base + extra, graphs)
             runs.append((results, summary))
             print(f"graphs: serve {pool} pool: " + json.dumps(summary), flush=True)
@@ -1966,7 +2037,7 @@ def phase_graphs(k1, k2, card):
         syncs = {s["host_syncs"] for _, s in runs}
         if len(syncs) != 1:
             fail("graphs", f"{pool} pool: host_syncs differ between runs: {syncs}")
-        for a, b in ((1, 0), (2, 3)):
+        for a, b in ((1, 0), (2, 3))[:len(runs) // 2]:
             divergence_ok("graphs", gen, runs[a][0], runs[b][0], f"{pool} pool, graphs vs eager")
         same = sum(runs[1][0][r] == runs[0][0][r] for r in runs[0][0])
         med = medians(runs)
@@ -2955,6 +3026,7 @@ def phase_quant(k1, k2, card, ckpt_dir):
 
 MIXTRAL = "Mixtral-8x7B-v0.1"
 MOE_LAYERS = 16  # of 32: 46.4 GB of bf16 blocks beside the pool and activations
+MOE_QUANT_TOKENS = 16  # new tokens per request of int8 Mixtral at all 32 layers
 # Mixtral-8x7B's published widths, which every MoE phase checks it runs at
 MIXTRAL_WIDTHS = dict(n_embd=4096, n_head=32, n_query_groups=8, head_size=128,
                       intermediate_size=14336, n_expert=8, n_expert_per_token=2,
@@ -3255,7 +3327,7 @@ def phase_moe_quant(k1, k2, card):
         quantize_params,
     )
 
-    # (a) all 32 layers, int8 weights: serve and generate
+    # (a) all 32 layers, int8 weights: serve and generate, fewer new tokens
     cfg = mixtral_config("moe-quant", 32)
     free()
     torch.cuda.reset_peak_memory_stats()
@@ -3267,7 +3339,8 @@ def phase_moe_quant(k1, k2, card):
     if not gen.quantized:
         fail("moe-quant", "the int8 tree is not seen as quantized")
     trace = synthetic_trace(16, cfg.vocab_size, 2048, 64)
-    _res, line, engine, launches = engine_serve("moe-quant", gen, trace, 32)
+    _res, line, engine, launches = engine_serve(
+        "moe-quant", gen, synthetic_trace(16, cfg.vocab_size, 2048, MOE_QUANT_TOKENS), 32)
     dev = line["device"]
     utilization_ok("moe-quant", "serve int8", dev.get("mfu"), dev.get("mbu"))
     print("moe-quant: serve " + json.dumps({
@@ -3285,16 +3358,19 @@ def phase_moe_quant(k1, k2, card):
     prompts = long_prompts((1100, 1370, 1650, 1900), cfg.vocab_size)
     torch.cuda.synchronize()
     flash_attention.launches = flash_attention_plain.calls = 0
-    outs, stats = gen.generate(prompts, 64, temperature=0.0, chunk_size=16)
+    outs, stats = gen.generate(prompts, MOE_QUANT_TOKENS, temperature=0.0, chunk_size=16)
     torch.cuda.synchronize()
     k2_launches, plain = flash_attention.launches, flash_attention_plain.calls
     if k2_launches != 32 or plain:
         fail("moe-quant", f"generate: K2 launches {k2_launches} (want 32), plain {plain}")
     for i, (p, o) in enumerate(zip(prompts, outs)):
-        if len(o) - len(p) != 64 or not all(0 <= t < cfg.padded_vocab_size for t in o[len(p):]):
-            fail("moe-quant", f"generate: sample {i} did not get 64 tokens in the vocabulary")
+        if len(o) - len(p) != MOE_QUANT_TOKENS or not all(
+                0 <= t < cfg.padded_vocab_size for t in o[len(p):]):
+            fail("moe-quant", f"generate: sample {i} did not get {MOE_QUANT_TOKENS} tokens "
+                 "in the vocabulary")
     print("moe-quant: generate " + json.dumps({
-        "layers": 32, "quantize": "int8", "prefill_s": round(stats.prefill_s, 4),
+        "layers": 32, "quantize": "int8", "new_tokens": MOE_QUANT_TOKENS,
+        "prefill_s": round(stats.prefill_s, 4),
         "decode_s": round(stats.decode_s, 4), "capture_s": round(stats.capture_s, 4),
         "decode_tokens_per_s": round(stats.tokens_generated / (stats.decode_s - stats.capture_s), 2),
         "k2_launches": k2_launches,
@@ -3351,8 +3427,8 @@ MOE_TRAIN = dict(batch_size=1, block_size=2048, grad_acc_steps=1, learning_rate=
                  dtype="bfloat16", remat=True, use_flash=True, moe_aux_weight=0.01)
 
 
-def flash_bwd_case_ms(B, T, H, G, hs, card, phase="moe-train"):
-    """K3 and K4 against their plain versions at one causal bf16 shape
+def flash_bwd_case_ms(B, T, H, G, hs, card, phase="moe-train", causal=True):
+    """K3 and K4 against their plain versions at one bf16 shape (causal or not)
     (held to `flash_bwd_bf16_limits`), then timed beside the plain
     versions and SDPA's backward; returns {"dq"/"dkv": (ms, plain ms,
     library ms, bound ms, bound by, max |err|)}."""
@@ -3369,16 +3445,17 @@ def flash_bwd_case_ms(B, T, H, G, hs, card, phase="moe-train"):
 
     dtype, scale = torch.bfloat16, hs ** -0.5
     q, k, v = flash_inputs(B, T, dtype, seed=5 * T + hs, H=H, G=G, hs=hs)
-    out, lse = flash_attention_lse(q, k, v, causal=True)
+    out, lse = flash_attention_lse(q, k, v, causal=causal)
     g = torch.Generator(device=DEVICE).manual_seed(T + 1)
     do = torch.randn(q.shape, generator=g, device=DEVICE).to(dtype)
     dsum = (do.float() * out.float()).sum(-1)
-    args = (q, k, v, do, lse, dsum, scale, True)
+    args = (q, k, v, do, lse, dsum, scale, causal)
     got = (flash_dq(*args),) + flash_dkv(*args)
     f32 = [x.float() for x in (q, k, v, do)]
-    ref = (flash_dq_plain(*f32, lse, dsum, scale, True),) + flash_dkv_plain(*f32, lse, dsum, scale, True)
+    ref = (flash_dq_plain(*f32, lse, dsum, scale, causal),) + flash_dkv_plain(*f32, lse, dsum, scale,
+                                                                            causal)
     del f32
-    limits = flash_bwd_bf16_limits(q, k, v, do, lse, dsum, scale, True, ref)
+    limits = flash_bwd_bf16_limits(q, k, v, do, lse, dsum, scale, causal, ref)
     errs = {}
     for which, a, r, lim in zip(("dq", "dk", "dv"), got, ref, limits):
         err, ratio = err_ratio(a, r, lim)
@@ -3389,17 +3466,17 @@ def flash_bwd_case_ms(B, T, H, G, hs, card, phase="moe-train"):
     del got, ref, limits
     free()
     qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, enable_gqa=True)
+    lib_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal, enable_gqa=True)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (qq, kk, vv), do, retain_graph=True), 10)
     del lib_out, qq, kk, vv
     out_rows = {}
     for which, kern, plain in (("dq", flash_dq, flash_dq_plain), ("dkv", flash_dkv, flash_dkv_plain)):
         ms = cuda_ms(lambda: kern(*args), 10)
         plain_ms = cuda_ms(lambda: plain(*args), 2)
-        b_ms, b_by = flash_bwd_bound(B, H, G, T, hs, dtype, True, which)
+        b_ms, b_by = flash_bwd_bound(B, H, G, T, hs, dtype, causal, which)
         out_rows[which] = (ms, plain_ms, lib_ms, b_ms, b_by, errs[which])
         print(f"{phase}: {'K3' if which == 'dq' else 'K4'} bfloat16 B={B} T={T} H={H} G={G} "
-              f"hs={hs} causal max_abs_err={errs[which]:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"hs={hs} causal={causal} max_abs_err={errs[which]:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} (SDPA backward, dQ+dK+dV) bound_ms={b_ms:.5f} ({b_by}); "
               f"on {card}", flush=True)
         free()
@@ -3852,26 +3929,49 @@ def phase_pipeline(card):
     free()
 
 
-def node_pair(tmp, argv, label, timeout=300, phase="pipeline-nodes"):
-    """`cli.starter` and one `cli.secondary` as two processes on the card
-    (one localhost config), each under `cli.mem_monitor`; returns (starter
-    stdout, starter stderr, secondary stderr, {role: the monitor's peak
-    gpu_bytes and card_bytes, or its word for them})."""
+# one node's process of a job per argv, the runs in turn in one interpreter
+# (`cli.starter` or `cli.secondary` main); after each run a marker line on
+# stdout and on stderr, the latter with the run's seconds
+NODE_END = "NODE-RUN-END "
+NODE_ENTRY = (
+    "import json, sys, time\n"
+    "from mdi_llm_tpu_torch.cli import secondary, starter\n"
+    "job = json.loads(sys.argv[1])\n"
+    "cli = starter if job['role'] == 'starter' else secondary\n"
+    "for argv in job['runs']:\n"
+    "    t0 = time.perf_counter()\n"
+    "    cli.main(argv)\n"
+    f"    print({NODE_END!r}, flush=True)\n"
+    f"    print({NODE_END!r} + str(time.perf_counter() - t0), file=sys.stderr, flush=True)\n"
+)
+
+
+def node_pair(tmp, runs, label, timeout=300):
+    """`cli.starter` and one `cli.secondary` as two processes on the card,
+    each under `cli.mem_monitor`, which run the node CLIs' argv `runs` in
+    turn (each its own localhost config); returns, per run, (starter
+    stdout, starter stderr, secondary stderr, the starter's seconds) and
+    {role: the monitor's peak gpu_bytes and card_bytes over every run, or
+    its word for them}."""
     import csv
     import os
 
     root = Path(__file__).resolve().parent
-    cfg_path = Path(tmp) / f"{label}.json"
-    cfg_path.write_text(json.dumps({"nodes": {
-        "starter": {"addr": "127.0.0.1", "communication": {"port": free_port()}},
-        "secondary": [{"addr": "127.0.0.1", "communication": {"port": free_port()}}]}}))
+    configs = []
+    for i in range(len(runs)):
+        cfg_path = Path(tmp) / f"{label}-{i}.json"
+        cfg_path.write_text(json.dumps({"nodes": {
+            "starter": {"addr": "127.0.0.1", "communication": {"port": free_port()}},
+            "secondary": [{"addr": "127.0.0.1", "communication": {"port": free_port()}}]}}))
+        configs.append(str(cfg_path))
     env = dict(os.environ, PYTHONPATH=str(root))
 
     def cmd(role, extra):
+        job = {"role": role, "runs": [argv + ["--nodes-config", c, *extra]
+                                      for argv, c in zip(runs, configs)]}
         return [sys.executable, "-m", "mdi_llm_tpu_torch.cli.mem_monitor", "-o",
                 str(Path(tmp) / f"{label}-{role}.csv"), "--interval", "0.25", "--",
-                sys.executable, "-m", f"mdi_llm_tpu_torch.cli.{role}", *argv,
-                "--nodes-config", str(cfg_path), *extra]
+                sys.executable, "-c", NODE_ENTRY, json.dumps(job)]
 
     sec_err = Path(tmp) / f"{label}-secondary.err"
     with open(sec_err, "w") as err:
@@ -3888,8 +3988,24 @@ def node_pair(tmp, argv, label, timeout=300, phase="pipeline-nodes"):
                 p.wait()
     serr = sec_err.read_text()
     if sta.returncode or sec.returncode:
-        fail(phase, f"{label}: starter exit {sta.returncode}, secondary exit "
+        fail("pipeline-nodes", f"{label}: starter exit {sta.returncode}, secondary exit "
              f"{sec.returncode}\n{sta.stderr[-3000:]}\n{serr[-3000:]}")
+
+    def split(text):
+        parts, cur = [], []
+        for ln in text.splitlines():
+            if ln.startswith(NODE_END):
+                parts.append(("\n".join(cur), ln[len(NODE_END):]))
+                cur = []
+            else:
+                cur.append(ln)
+        return parts
+
+    outs, errs, serrs = split(sta.stdout), split(sta.stderr), split(serr)
+    if not len(outs) == len(errs) == len(serrs) == len(runs):
+        fail("pipeline-nodes", f"{label}: {len(runs)} runs, the starter ended {len(outs)} / "
+             f"{len(errs)} and the secondary {len(serrs)}\n{sta.stderr[-3000:]}\n"
+             f"{serr[-3000:]}")
     mem = {}
     for role in ("starter", "secondary"):
         with open(Path(tmp) / f"{label}-{role}.csv") as f:
@@ -3899,7 +4015,8 @@ def node_pair(tmp, argv, label, timeout=300, phase="pipeline-nodes"):
             vals = [r[col] for r in rows]
             ints = [int(v) for v in vals if v.isdigit()]
             mem[role][col] = max(ints) if ints else (vals[-1] if vals else "no samples")
-    return sta.stdout, sta.stderr, serr, mem
+    return [(o, e, se, float(sec_s)) for (o, _), (e, sec_s), (se, _) in
+            zip(outs, errs, serrs)], mem
 
 
 def printed_samples(stdout):
@@ -3935,7 +4052,10 @@ def phase_pipeline_nodes(card):
         # float32, 4 layers: the two-process streams are the one-process ring's
         f32 = base + ["--dtype", "float32", "--override", f"n_layer={PIPE_F32_LAYERS}",
                       "--n-tokens", "32"]
-        out, err, serr, _mem = node_pair(tmp, f32, "f32")
+        # bf16 at full depth: tokens/s, the hop, each process's card memory
+        bf16 = base + ["--dtype", "bfloat16", "--n-tokens", str(PIPE_TOKENS)]
+        runs, mem = node_pair(tmp, [f32, bf16], "nodes")
+        out, err, serr, _s = runs[0]
         got = printed_samples(out)
         cfg = Config.from_name(TINY_LLAMA, n_layer=PIPE_F32_LAYERS)
         params = transformer.init_params(cfg, 10137, dtype=torch.float32, device="cuda")
@@ -3954,11 +4074,7 @@ def phase_pipeline_nodes(card):
               f"{len(want)} streams identical to the one-process ring", flush=True)
         del gen, params
         free()
-        # bf16 at full depth: tokens/s, the hop, each process's card memory
-        bf16 = base + ["--dtype", "bfloat16", "--n-tokens", str(PIPE_TOKENS)]
-        t0 = time.perf_counter()
-        out, err, serr, mem = node_pair(tmp, bf16, "bf16")
-        wall = time.perf_counter() - t0
+        out, err, serr, run_s = runs[1]
         got = printed_samples(out)
         ring_budget_ok("pipeline-nodes", "bf16", got, [g[:8] for g in got], PIPE_TOKENS, 32000)
         stats_line = next(ln for ln in err.splitlines() if "tok/s decode" in ln)
@@ -3969,7 +4085,7 @@ def phase_pipeline_nodes(card):
             "mem_monitor_peaks": mem,
             "cuda_max_reserved_bytes": {"starter": ring_line(err).get("cuda_max_reserved_bytes"),
                                         "secondary": ring_line(serr).get("cuda_max_reserved_bytes")},
-            "wall_s_both_processes": wall}), flush=True)
+            "starter_run_s": run_s}), flush=True)
 
 
 PP_SERVE_RUNS = ((2, [10, 12]), (4, [4, 6, 6, 6]))  # stages, the reference table's split of 22
@@ -4036,7 +4152,7 @@ def phase_pp_serve(k1, card):
     for kv, extra, runs in (("bfloat16", [], PP_SERVE_RUNS),
                             ("int8", ["--kv-dtype", "int8"], PP_SERVE_RUNS[:1])):
         argv = PP_SERVE_ARGV + extra
-        single_line, _launches, single, want = serve_checked("pp-serve", argv)
+        single_line, single_gen, want = single_reference("pp-serve", argv)
         for S, split in runs:
             torch.cuda.reset_peak_memory_stats()
             line, launches, merges, engine, got = pp_served("pp-serve", argv, S, split)
@@ -4044,7 +4160,7 @@ def phase_pp_serve(k1, card):
             total += launches
             K = engine.cfg.decode_chunk
             chunks = (engine.forward_calls - line["mixed_steps"]) // K
-            n_div = bf16_divergences("pp-serve", single.gen, got, want,
+            n_div = bf16_divergences("pp-serve", single_gen, got, want,
                                      f"--pp {S} {kv} pool vs the single engine")
             if line["host_syncs"] != single_line["host_syncs"]:
                 fail("pp-serve", f"--pp {S} {kv}: host_syncs {line['host_syncs']}, the single "
@@ -4068,7 +4184,7 @@ def phase_pp_serve(k1, card):
                 "bf16_divergences": n_div, "peak_memory_gib": peak}), flush=True)
             del engine, got
             free()
-        del single, want
+        del single_gen, want
         free()
     k1.setdefault("paths", {})["pp-serve"] = total
 
@@ -4228,13 +4344,13 @@ def phase_tp_serve(k1, card):
     total = 0
     for kv, extra, sizes in (("bfloat16", [], TP_SIZES), ("int8", ["--kv-dtype", "int8"], (2,))):
         argv = TP_SERVE_ARGV + extra
-        single_line, _launches, single, want = serve_checked("tp-serve", argv)
+        single_line, single_gen, want = single_reference("tp-serve", argv)
         for tp in sizes:
             torch.cuda.reset_peak_memory_stats()
             line, launches, engine, got = tp_served("tp-serve", argv, tp)
             peak = torch.cuda.max_memory_allocated() / 2**30
             total += launches
-            n_div = bf16_divergences("tp-serve", single.gen, got, want,
+            n_div = bf16_divergences("tp-serve", single_gen, got, want,
                                      f"--tp {tp} {kv} pool vs the single engine")
             if line["host_syncs"] != single_line["host_syncs"]:
                 fail("tp-serve", f"--tp {tp} {kv}: host_syncs {line['host_syncs']}, the single "
@@ -4254,7 +4370,7 @@ def phase_tp_serve(k1, card):
                 "bf16_divergences": n_div, "peak_memory_gib": peak}), flush=True)
             del engine, got
             free()
-        del single, want
+        del single_gen, want
         free()
     k1.setdefault("paths", {})["tp-serve"] = total
 
@@ -4477,6 +4593,7 @@ def phase_tools(card, ckpt_dir):
 MESH_TRAIN_MESHES = ({"dp": 2}, {"tp": 2}, {"dp": 2, "tp": 2}, {"dp": 1, "pp": 2},
                      {"dp": 1, "pp": 2, "tp": 2})
 MESH_F32_LAYERS = 4
+MESH_PROCS_DP_LAYERS = 11  # tiny-llama cut for dp 2 over two processes in bf16
 # clipping engaged (the first norm is far above 0.05).  The learning rate
 # sets how far float32 rounding moves AdamW's normalised update: at 1e-3
 # the first run's 3e8 parameters differed by up to 2.7e-5 on every mesh
@@ -4694,54 +4811,70 @@ def train_report(argv) -> dict:
             mock.patch.object(training.Trainer, "save", lambda self, out_dir: out_dir):
         _, tr = train_cli.main(argv)
     g = tr.layout.dp_group if tr.layout is not None else None
+    pp = tr.layout.pp_group if tr.layout is not None else None
     rec = {"step_s": steps, "layer_runs": tr.layer_runs, **flash_counts(),
            "grad_allreduce_s": tr.grad_sync_s, "dp_group_calls": g.calls if g else None,
            "dp_group_bytes": g.bytes if g else None,
+           "pp_group_calls": pp.calls if pp else None,
+           "pp_group_bytes": pp.bytes if pp else None,
+           "pp_group_s": pp.seconds if pp else None,
+           "stages": list(tr.layout.stages) if tr.layout is not None else None,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
     del tr
     free()
     return rec
 
 
-# one process of a `cli.train` job, reporting as `train_report` does
+# one process of a job per `cli.train` run, in one interpreter, reporting
+# each run's stdout and `train_report` record as `train_report` gives them
 MESH_PROCS_ENTRY = (
-    "import json, sys\n"
+    "import contextlib, io, json, sys\n"
     "import chip_smoke\n"
-    "rec = chip_smoke.train_report(sys.argv[1:])\n"
-    "print('MESH-PROCS ' + json.dumps(rec), file=sys.stderr)\n"
+    "job = json.loads(sys.argv[1])\n"
+    "for argv in job['runs']:\n"
+    "    out = io.StringIO()\n"
+    "    with contextlib.redirect_stdout(out):\n"
+    "        rec = chip_smoke.train_report(argv + ['--process-id', str(job['process_id'])])\n"
+    "    print('MESH-PROCS ' + json.dumps([out.getvalue(), rec]), file=sys.stderr, flush=True)\n"
 )
 
 
-def mesh_job(phase, argv, n=2, timeout=300):
-    """`cli.train argv` through `MESH_PROCS_ENTRY` as processes 0..n-1 of
-    one job on a free localhost port, each under its own time limit;
-    returns [(stdout, the `train_report` record)] in process order."""
+def mesh_jobs(phase, runs, n=2, timeout=600):
+    """Each `cli.train` argv of `runs` as processes 0..n-1 of one job on a
+    free localhost port, the runs in turn inside the same n processes
+    (through `MESH_PROCS_ENTRY`), each process under its own time limit;
+    returns, per run, [(stdout, the `train_report` record)] in process
+    order."""
     import os
 
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root))
-    coord = ["--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", str(n)]
+    runs = [argv + ["--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", str(n)]
+            for argv in runs]
     procs = [subprocess.Popen(
-        [sys.executable, "-c", MESH_PROCS_ENTRY, *argv, *coord, "--process-id", str(i)],
+        [sys.executable, "-c", MESH_PROCS_ENTRY, json.dumps({"process_id": i, "runs": runs})],
         cwd=str(root), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for i in range(n)]
-    outs = []
+    per_proc = []
     try:
         for i, p in enumerate(procs):
             try:
-                o, e = p.communicate(timeout=timeout)
+                _o, e = p.communicate(timeout=timeout)
             except subprocess.TimeoutExpired:
                 fail(phase, f"process {i} of {n} ran past {timeout} s")
             if p.returncode:
                 fail(phase, f"process {i} of {n} exited {p.returncode}:\n{e[-3000:]}")
-            rec = [ln for ln in e.splitlines() if ln.startswith("MESH-PROCS ")]
-            outs.append((o, json.loads(rec[-1][len("MESH-PROCS "):])))
+            recs = [json.loads(ln[len("MESH-PROCS "):]) for ln in e.splitlines()
+                    if ln.startswith("MESH-PROCS ")]
+            if len(recs) != len(runs):
+                fail(phase, f"process {i} of {n} reported {len(recs)} of {len(runs)} runs")
+            per_proc.append([tuple(r) for r in recs])
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    return outs
+    return [[per_proc[i][j] for i in range(n)] for j in range(len(runs))]
 
 
 def mesh_one(argv):
@@ -4758,7 +4891,8 @@ def mesh_one(argv):
 
 def phase_mesh_train_procs(card):
     """The train CLI over two processes sharing the card (the module
-    docstring, phase 30)."""
+    docstring, phase 30): every run of the phase in one pair of
+    processes, after the one-process runs they are held against."""
     with tempfile.TemporaryDirectory() as tmp:
         ds = Path(tmp) / "data"
         ds.mkdir()
@@ -4768,50 +4902,77 @@ def phase_mesh_train_procs(card):
                 "--block-size", str(TRAIN["block_size"]), "--warmup-iters", "0",
                 "--learning-rate", "1e-3", "--lr-decay-iters", "100", "--log-interval", "1",
                 "--ckpt-interval", "1000", "--eval-iters", "1", "--max-iters", "3",
-                "--mesh", "dp=2", "--use-flash", "on",
-                "--device", DEVICE]
+                "--use-flash", "on", "--device", DEVICE]
 
         def loss_lines(stdout):
             return [json.loads(ln)["loss"] for ln in stdout.splitlines()
                     if ln.startswith("{") and "loss" in ln]
 
-        # float32 at 4 layers: the two processes' loss lines are one process's
-        f32 = base + ["--dtype", "float32", "--override", f"n_layer={MESH_F32_LAYERS}",
-                      "--batch-size", "2", "--grad-clip", "0.05"]
-        one_out, one = mesh_one(f32)
-        jobs = mesh_job("mesh-train-procs", f32)
-        want, got = loss_lines(one_out), loss_lines(jobs[0][0])
-        rel = max((abs(g - w) / abs(w) for g, w in zip(got, want)), default=float("inf"))
-        if len(got) != 3 or len(want) != 3 or loss_lines(jobs[1][0]) or not rel <= 1e-5:
-            fail("mesh-train-procs", f"float32 loss lines: two processes {got} (process 1 "
-                 f"printed {loss_lines(jobs[1][0])}), one process {want} (rel {rel})")
-        print(f"mesh-train-procs: float32 {MESH_F32_LAYERS} layers, dp=2 over 2 processes "
-              f"(gloo, staged through pinned host memory): loss lines {got} against one "
-              f"process's {want} (rel {rel:.2e})", flush=True)
+        # float32 at 4 layers: the two processes' loss lines are one
+        # process's; bf16 at full depth: step seconds, the gradient
+        # all-reduce's (dp) and the hop's (pp); dp 2, then GPipe stages
+        # over the two processes: pp 2 (one stage each) and pp 2 x tp 2
+        # (one stage and its whole tp group each)
+        meshes = ("dp=2", "pp=2", "pp=2,tp=2")
+        f32 = {m: base + ["--mesh", m, "--dtype", "float32", "--override",
+                          f"n_layer={MESH_F32_LAYERS}", "--batch-size", "2", "--grad-clip", "0.05"]
+               for m in meshes}
+        bf16 = {m: base + ["--mesh", m, "--dtype", "bfloat16", "--batch-size",
+                           str(TRAIN["batch_size"]), "--grad-acc-steps",
+                           str(TRAIN["grad_acc_steps"])] for m in meshes}
+        bf16["dp=2"] += ["--override", f"n_layer={MESH_PROCS_DP_LAYERS}"]
+        order = [(m, part) for m in meshes for part in (f32, bf16)]
+        ones = {(m, id(part)): mesh_one(part[m]) for m, part in order}
+        jobs = dict(zip(((m, id(part)) for m, part in order),
+                        mesh_jobs("mesh-train-procs", [part[m] for m, part in order])))
 
-        # bf16 at full depth: step seconds and the gradient all-reduce's
-        bf16 = base + ["--dtype", "bfloat16", "--batch-size", str(TRAIN["batch_size"]),
-                       "--grad-acc-steps", str(TRAIN["grad_acc_steps"])]
-        one_out, one = mesh_one(bf16)
-        jobs = mesh_job("mesh-train-procs", bf16)
-        for i, (out, rec) in enumerate(jobs):
-            runs = rec["layer_runs"]
-            if runs != 3 * TRAIN["grad_acc_steps"] * 22 or (rec["K2"], rec["K3"], rec["K4"]) != (
-                    2 * runs, runs, runs):
-                fail("mesh-train-procs", f"process {i}: layer runs {runs}, launches "
-                     f"{rec['K2']}/{rec['K3']}/{rec['K4']}")
-        losses = loss_lines(jobs[0][0])
-        if len(losses) != 3 or not all(map(lambda v: v == v and abs(v) < 1e9, losses)):
-            fail("mesh-train-procs", f"bf16 loss lines {losses}")
-        print("mesh-train-procs: " + json.dumps({
-            "card": card, "model": TINY_LLAMA, "layers": 22, "dtype": "bfloat16",
-            "mesh": "dp=2", "batch": TRAIN["batch_size"], "block": TRAIN["block_size"],
-            "grad_acc": TRAIN["grad_acc_steps"], "losses": losses,
-            "one_process": {"step_s": one["step_s"], "peak_memory_gib": one["peak_memory_gib"],
-                            "losses": loss_lines(one_out)},
-            "two_processes": [{k: rec[k] for k in ("step_s", "grad_allreduce_s", "dp_group_calls",
-                                                   "dp_group_bytes", "peak_memory_gib")}
-                              for _, rec in jobs]}), flush=True)
+        for mesh in meshes:
+            tp = 2 if "tp" in mesh else 1
+            one_out, _one = ones[(mesh, id(f32))]
+            job = jobs[(mesh, id(f32))]
+            want, got = loss_lines(one_out), loss_lines(job[0][0])
+            rel = max((abs(g - w) / abs(w) for g, w in zip(got, want)), default=float("inf"))
+            if len(got) != 3 or len(want) != 3 or loss_lines(job[1][0]) or not rel <= 1e-5:
+                fail("mesh-train-procs", f"float32 {mesh}: loss lines {got} over two processes "
+                     f"(process 1 printed {loss_lines(job[1][0])}) against one process's "
+                     f"{want} (rel {rel})")
+            how = ("gloo, staged through pinned host memory" if mesh == "dp=2"
+                   else "one stage each, the hop a gloo send/recv")
+            print(f"mesh-train-procs: float32 {MESH_F32_LAYERS} layers, {mesh} over 2 processes "
+                  f"({how}): loss lines {got} against one process's {want} (rel {rel:.2e})",
+                  flush=True)
+
+            one_out, one = ones[(mesh, id(bf16))]
+            job = jobs[(mesh, id(bf16))]
+            for i, (out, rec) in enumerate(job):
+                runs = rec["layer_runs"]
+                if mesh == "dp=2":
+                    ok = runs == 3 * TRAIN["grad_acc_steps"] * MESH_PROCS_DP_LAYERS
+                else:  # steps x grad-acc x the 2 micro-batches x a stage's 11 layers
+                    ok = (runs == 3 * TRAIN["grad_acc_steps"] * 2 * 11 * tp
+                          and rec["stages"] == [i, i + 1])
+                if not ok or (rec["K2"], rec["K3"], rec["K4"]) != (2 * runs, runs, runs):
+                    fail("mesh-train-procs", f"{mesh} process {i}: stages {rec['stages']}, "
+                         f"layer runs {runs}, launches {rec['K2']}/{rec['K3']}/{rec['K4']}")
+            losses = loss_lines(job[0][0])
+            if len(losses) != 3 or not all(map(lambda v: v == v and abs(v) < 1e9, losses)):
+                fail("mesh-train-procs", f"bf16 {mesh} loss lines {losses}")
+            if mesh == "dp=2":
+                one_keys = ("step_s", "peak_memory_gib")
+                two_keys = ("step_s", "grad_allreduce_s", "dp_group_calls", "dp_group_bytes",
+                            "peak_memory_gib")
+            else:
+                one_keys = ("step_s", "peak_memory_gib", "layer_runs")
+                two_keys = ("stages", "step_s", "layer_runs", "K2", "K3", "K4", "pp_group_calls",
+                            "pp_group_bytes", "pp_group_s", "peak_memory_gib")
+            print("mesh-train-procs: " + json.dumps({
+                "card": card, "model": TINY_LLAMA,
+                "layers": MESH_PROCS_DP_LAYERS if mesh == "dp=2" else 22, "dtype": "bfloat16",
+                "mesh": mesh, "batch": TRAIN["batch_size"], "block": TRAIN["block_size"],
+                "grad_acc": TRAIN["grad_acc_steps"], "losses": losses,
+                "one_process": {**{k: one[k] for k in one_keys}, "losses": loss_lines(one_out)},
+                "two_processes": [{k: rec[k] for k in two_keys} for _, rec in job]}),
+                flush=True)
 
 
 PP_TP = (2, [10, 12], 2)  # stages, the reference table's split of 22, tp ranks per stage
@@ -4829,7 +4990,7 @@ def phase_pp_tp_serve(k1, card):
     total = 0
     for kv, extra in (("bfloat16", []), ("int8", ["--kv-dtype", "int8"])):
         argv = PP_SERVE_ARGV + extra
-        single_line, _launches, single, want = serve_checked("pp-tp-serve", argv)
+        single_line, single_gen, want = single_reference("pp-tp-serve", argv)
         torch.cuda.reset_peak_memory_stats()
         line, launches, merges, engine, got = pp_served("pp-tp-serve", argv, S, split, tp=tp)
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -4840,7 +5001,7 @@ def phase_pp_tp_serve(k1, card):
         if line["host_syncs"] != single_line["host_syncs"]:
             fail("pp-tp-serve", f"{kv}: host_syncs {line['host_syncs']}, the single "
                  f"engine's {single_line['host_syncs']}")
-        n_div = bf16_divergences("pp-tp-serve", single.gen, got, want,
+        n_div = bf16_divergences("pp-tp-serve", single_gen, got, want,
                                  f"--pp {S} --tp {tp} {kv} pool vs the single engine")
         print("pp-tp-serve: " + json.dumps({
             "card": card, "pp": S, "tp": tp, "split": split, "kv_dtype": kv, "requests": 16,
@@ -4856,9 +5017,11 @@ def phase_pp_tp_serve(k1, card):
             "graph_replays": line["graph_replays"], "capture_s": line["capture_s"],
             "single_capture_s": single_line["capture_s"], "bf16_divergences": n_div,
             "peak_memory_gib": peak}), flush=True)
-        del engine, got, single, want
+        del engine, got, single_gen, want
         free()
     k1.setdefault("paths", {})["pp-tp-serve"] = total
+    SINGLE_REFS.clear()  # the last phase held against them
+    free()
 
     # float32 at 4 layers: the pp x tp ring through K1 gives the single
     # engine's streams through K1 and its own through the plain route
@@ -4994,19 +5157,35 @@ INFER_LENS = (1100, 1370, 1650, 1900)  # the generate phase's prompts
 INFER_F32 = ["--model", TINY_LLAMA, "--dtype", "float32", "--override",
              f"n_layer={TP_F32_LAYERS}", "--seed", "10137", "--n-samples", "4",
              "--n-tokens", "32", "--sequence-length", "2048", "--device", DEVICE]
+INFER_BF16_TOKENS = 32  # decode over two processes is gloo calls, one per product
 INFER_BF16 = ["--model", TINY_LLAMA, "--dtype", "bfloat16", "--seed", "10137",
-              "--n-samples", "4", "--n-tokens", "64", "--sequence-length", "2048",
-              "--chunk", "16", "--greedy", "--device", DEVICE]
-# one process of a two-process `cli.sample` job, running the runs of its
-# JSON spec in turn, each a job of its own on its own port
+              "--n-samples", "4", "--n-tokens", str(INFER_BF16_TOKENS),
+              "--sequence-length", "2048", "--chunk", "16", "--greedy", "--device", DEVICE]
+# one process of two-process jobs, running the runs of its JSON spec in
+# turn, each a job of its own on its own port: a `cli.sample` run
+# (`sample_report`), or with "node" a `cli.starter` (process 0) or
+# `cli.secondary` (process 1) run on the nodes config "node", its stdout
+# and stderr kept
 INFER_PROCS_ENTRY = (
-    "import json, sys\n"
+    "import contextlib, io, json, sys\n"
     "import chip_smoke\n"
+    "from mdi_llm_tpu_torch.cli import secondary, starter\n"
     "spec = json.loads(sys.argv[1])\n"
-    "recs = [chip_smoke.sample_report(r['argv'] + ['--coordinator', '127.0.0.1:%d' % r['port'],\n"
-    "                                  '--num-processes', '2', '--process-id',\n"
-    "                                  str(spec['process_id'])], r['long'])\n"
-    "        for r in spec['runs']]\n"
+    "me = spec['process_id']\n"
+    "recs = []\n"
+    "for r in spec['runs']:\n"
+    "    if 'node' not in r:\n"
+    "        recs.append(chip_smoke.sample_report(r['argv'] + [\n"
+    "            '--coordinator', '127.0.0.1:%d' % r['port'], '--num-processes', '2',\n"
+    "            '--process-id', str(me)], r['long']))\n"
+    "        continue\n"
+    "    out, err = io.StringIO(), io.StringIO()\n"
+    "    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):\n"
+    "        if me == 0:\n"
+    "            starter.main(r['argv'] + ['--nodes-config', r['node']])\n"
+    "        else:\n"
+    "            secondary.main(r['argv'] + ['--nodes-config', r['node'], '0'])\n"
+    "    recs.append({'stdout': out.getvalue(), 'stderr': err.getvalue()})\n"
     "print('INFER-PROCS ' + json.dumps(recs), file=sys.stderr, flush=True)\n"
 )
 
@@ -5052,9 +5231,11 @@ def sample_report(argv, long=False) -> dict:
 
 
 def sample_pair(phase, runs, timeout=400) -> list:
-    """`runs` ([{"argv": [...], "long": bool}]) through `INFER_PROCS_ENTRY`
-    as processes 0 and 1 of a job per run, each process under its own time
-    limit; returns each process's list of `sample_report` records."""
+    """`runs` ([{"argv": [...], "long": bool}], or {"argv": [...], "node":
+    a nodes config path} for a starter/secondary job) through
+    `INFER_PROCS_ENTRY` as processes 0 and 1 of a job per run, each
+    process under its own time limit; returns each process's list of
+    records (`sample_report`'s, or the node run's stdout and stderr)."""
     import os
 
     root = Path(__file__).resolve().parent
@@ -5096,12 +5277,26 @@ def phase_inference_procs(k2, card):
 
     tp2 = ["--tp-devices", "2"]
     sampled = ["--temperature", "0.8", "--top-k", "20"]
+    # (b)'s job: cli.starter / cli.secondary with --tp-devices 2 (each
+    # process one stage of two ranks), float32
+    node_base = ["--model", TINY_LLAMA, "--seed", "10137", "--greedy", "--sequence-length",
+                 "2048", "--samples-per-slot", str(PIPE_M), "--n-samples", str(2 * PIPE_M),
+                 "--dtype", "float32", "--override", f"n_layer={PIPE_F32_LAYERS}",
+                 "--n-tokens", "32", "--tp-devices", "2"]
+    node_tmp = tempfile.TemporaryDirectory()
+    node_cfg = Path(node_tmp.name) / "tp-f32.json"
+    node_cfg.write_text(json.dumps({"nodes": {
+        "starter": {"addr": "127.0.0.1", "communication": {"port": free_port()}},
+        "secondary": [{"addr": "127.0.0.1", "communication": {"port": free_port()}}]}}))
     # (a) cli.sample --coordinator --tp-devices 2: float32 greedy and
-    # sampled at 4 layers, bf16 greedy at 22 layers on the long prompts
-    p0, p1 = sample_pair("inference-procs", [
-        {"argv": INFER_F32 + tp2 + ["--greedy"], "long": False},
-        {"argv": INFER_F32 + tp2 + sampled, "long": False},
-        {"argv": INFER_BF16 + tp2, "long": True}])
+    # sampled at 4 layers, bf16 greedy at 22 layers on the long prompts;
+    # then (b)'s job in the same two processes
+    with node_tmp:
+        p0, p1 = sample_pair("inference-procs", [
+            {"argv": INFER_F32 + tp2 + ["--greedy"], "long": False},
+            {"argv": INFER_F32 + tp2 + sampled, "long": False},
+            {"argv": INFER_BF16 + tp2, "long": True},
+            {"argv": node_base, "node": str(node_cfg)}])
     one = sample_report(INFER_F32 + tp2 + ["--greedy"])
     cfg4 = Config.from_name(TINY_LLAMA, n_layer=TP_F32_LAYERS)
     params4 = transformer.init_params(cfg4, 10137, dtype=torch.float32, device=DEVICE)
@@ -5121,7 +5316,7 @@ def phase_inference_procs(k2, card):
             fail("inference-procs", f"bf16 process {i}: K2 launches {r['K2']} (want 22: one "
                  f"rank x 22 layers), plain calls {r['plain']}, prompts {r['prompt_lens']}")
         ring_budget_ok("inference-procs", f"bf16 process {i}", r["outs"],
-                       long_prompts(INFER_LENS, 32000), 64, 32000)
+                       long_prompts(INFER_LENS, 32000), INFER_BF16_TOKENS, 32000)
     # the same bf16 run in one process (its decode chunks captured): a
     # first call captures, the second is timed
     sample_report(INFER_BF16 + tp2, long=True)
@@ -5139,7 +5334,7 @@ def phase_inference_procs(k2, card):
     replay_s = single["decode_s"] - single["capture_s"]
     print("inference-procs: " + json.dumps({
         "card": card, "model": TINY_LLAMA, "layers": 22, "dtype": "bfloat16", "tp": 2,
-        "prompt_lens": list(INFER_LENS), "new_tokens": 64,
+        "prompt_lens": list(INFER_LENS), "new_tokens": INFER_BF16_TOKENS,
         "two_processes": [row(p0[2]), row(p1[2])], "one_process": row(single),
         "one_process_replay_tokens_per_s": single["tokens_generated"] / replay_s,
         "two_over_one_decode": p0[2]["tokens_per_s"] / (single["tokens_generated"] / replay_s),
@@ -5150,12 +5345,7 @@ def phase_inference_procs(k2, card):
 
     # (b) cli.starter / cli.secondary with --tp-devices 2 (each process one
     # stage of two ranks): float32 streams are the one-process ring's
-    base = ["--model", TINY_LLAMA, "--seed", "10137", "--greedy", "--sequence-length", "2048",
-            "--samples-per-slot", str(PIPE_M), "--n-samples", str(2 * PIPE_M),
-            "--dtype", "float32", "--override", f"n_layer={PIPE_F32_LAYERS}", "--n-tokens",
-            "32", "--tp-devices", "2"]
-    with tempfile.TemporaryDirectory() as tmp:
-        out, err, serr, _mem = node_pair(tmp, base, "tp-f32", phase="inference-procs")
+    out, err, serr = p0[3]["stdout"], p0[3]["stderr"], p1[3]["stderr"]
     got = printed_samples(out)
     prompts = [g[:8] for g in got]
     ring_budget_ok("inference-procs", "starter/secondary float32", got, prompts, 32,
@@ -5178,17 +5368,340 @@ def phase_inference_procs(k2, card):
     free()
 
 
+SP_MODEL = "Llama-3-8B"
+SP_WIDTHS = dict(n_layer=32, n_embd=4096, n_head=32, n_query_groups=8, head_size=128,
+                 block_size=8192)
+SP_PROMPTS = (8128, 6000)  # one bucket of 8192: local chunks 4096 (sp 2), 2048 (sp 4)
+SP_RUNS = ((2, True, 2048), (2, False, 2048), (4, True, 1024))  # P, use_flash, flash_min_len
+SP_F32_LAYERS = 4
+
+
+def sp_ring_inputs(P, T, dtype, seed, B=1, H=32, G=8, hs=128):
+    """The ranks' (q, k, v, pos) lists of one ring: P chunks of T tokens."""
+    import torch
+
+    q, k, v = flash_inputs(B, P * T, dtype, seed, H=H, G=G, hs=hs)
+    pos = torch.arange(P * T, device="cuda").expand(B, P * T)
+    return [list(x.chunk(P, dim=2)) for x in (q, k, v)] + [list(pos.chunk(P, dim=1))]
+
+
+def sp_ring_limits(q, k, v, do, out, lse, dsum, scale, ref, P) -> tuple:
+    """Element-wise limits (dQ, dK, dV) on the flash ring's bfloat16
+    gradient against `ref`, the plain ring's in float32 on the same
+    inputs.  The ring's gradient is causal attention's over the whole
+    sequence (`out`, `lse`, `dsum` its float32 output, LSE and D): each
+    block's dS is that attention's dS on the block's pairs.  Three
+    sources of rounding, at bfloat16's u = 2^-8 with a factor 2 of
+    headroom:
+
+    - each of the P blocks' K3/K4 as in `flash_bwd_bf16_limits` (which
+      takes dO exact): P times that limit;
+    - each block's dO (w_b dO, w_b the block's merge weight) and its saved
+      output O_b enter K3/K4 rounded to bf16: dP and D move by up to
+      2^-8 |dO| |V|^T and 2^-8 rowsum(|dO| |O|), so dS by P times their
+      sum, which dQ = scale dS K and dK = scale dS^T Q carry;
+    - autograd sums the P blocks' bf16 gradients of a chunk in bf16: P
+      roundings of |ref|."""
+    import torch
+
+    from mdi_llm_tpu_torch.ops.flash import _bwd_terms
+
+    B, H, T, hs = q.shape
+    G = k.shape[1]
+    lim_dq, lim_dk, lim_dv = (P * x for x in flash_bwd_bf16_limits(
+        q, k, v, do, lse, dsum, scale, True, ref))
+    qg, dog, p, _ = _bwd_terms(q.float(), k.float(), v.float(), do.float(), lse, dsum,
+                               scale, True)
+    og = out.float().reshape(B, G, H // G, T, hs).abs()
+    e = torch.einsum("bgrth,bgsh->bgrts", dog.abs(), v.float().abs())
+    e.add_((dog.abs() * og).sum(-1)[..., None])
+    e.mul_(p).mul_(2.0 ** -7)
+    del p, og
+    lim_dq += scale * torch.einsum("bgrts,bgsh->bgrth", e, k.float().abs()).reshape(q.shape)
+    lim_dk += scale * torch.einsum("bgrts,bgrth->bgsh", e, qg.abs())
+    del e
+    return tuple(lim + P * 2.0 ** -8 * r.abs() for lim, r in zip((lim_dq, lim_dk, lim_dv), ref))
+
+
+def sp_ring_grad(k2, k3, k4, card):
+    """Ring attention's gradient on the card: P=2 ranks of T=1024, 32
+    heads / 8 groups / hs 128, bfloat16.  The flash ring (K2 with its LSE,
+    K3 and K4 with the LSE's cotangent) against the plain ring run in
+    float32 on the same inputs, within `sp_ring_limits`.  Returns the
+    launches of the counted flash run."""
+    import torch
+
+    from mdi_llm_tpu_torch.ops.flash import _bwd_terms, flash_attention_plain
+    from mdi_llm_tpu_torch.ops.ring_attention import ring_attention
+
+    P, T = 2, 1024
+    qs, ks, vs, ps = sp_ring_inputs(P, T, torch.bfloat16, seed=17)
+    g = torch.Generator(device="cuda").manual_seed(18)
+    co = torch.randn((1, 32, P * T, 128), generator=g, device="cuda").to(torch.bfloat16)
+
+    def grads(dtype, use_flash):
+        leaves = [torch.cat(x, dim=2).to(dtype).requires_grad_(True) for x in (qs, ks, vs)]
+        out = ring_attention(*(list(x.chunk(P, dim=2)) for x in leaves), ps, ps,
+                             use_flash=use_flash)
+        (torch.cat(out, dim=2).float() * co.float()).sum().backward()
+        return [x.grad for x in leaves]
+
+    grads(torch.bfloat16, True)  # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_flash_counts()
+    got = grads(torch.bfloat16, True)
+    torch.cuda.synchronize()
+    counts = flash_counts()
+    if (counts["K2"], counts["K3"], counts["K4"], counts["plain"]) != (P * P,) * 3 + (0,):
+        fail("sp", f"ring gradient launches {counts} (want {P * P} of K2-K4, no plain)")
+    ref = grads(torch.float32, False)
+    q, k, v = (torch.cat(x, dim=2) for x in (qs, ks, vs))
+    scale = 1.0 / 128 ** 0.5
+    with torch.no_grad():  # the whole sequence's LSE and D, for the limits
+        out, lse = flash_attention_plain(q.float(), k.float(), v.float(), scale, True)
+        dsum = (co.float() * out.float()).sum(-1)
+    lims = sp_ring_limits(q, k, v, co, out, lse, dsum, scale, ref, P)
+    del out, lse, dsum
+    worst = {}
+    for name, a, r, lim in zip(("dq", "dk", "dv"), got, ref, lims):
+        err, ratio = err_ratio(a, r, lim)
+        worst[name] = (err, ratio)
+        if not ratio <= 1.0:
+            fail("sp", f"ring gradient {name}: max|err| {err} at err/limit {ratio}")
+    t_flash = cuda_ms(lambda: grads(torch.bfloat16, True), 5)
+    t_plain = cuda_ms(lambda: grads(torch.bfloat16, False), 3)
+    print("sp: " + json.dumps({
+        "card": card, "ring_gradient": {"P": P, "T_per_rank": T, "heads": 32, "groups": 8,
+                                        "hs": 128, "dtype": "bfloat16"},
+        "err_over_limit": {n: round(r, 4) for n, (_, r) in worst.items()},
+        "max_abs_err": {n: e for n, (e, _) in worst.items()},
+        "launches": counts, "flash_ring_fwd_bwd_ms": t_flash,
+        "plain_ring_fwd_bwd_ms": t_plain}), flush=True)
+    k3["max_abs_err"] = max(k3.get("max_abs_err", 0.0), worst["dq"][0])
+    k4["max_abs_err"] = max(k4.get("max_abs_err", 0.0), worst["dk"][0], worst["dv"][0])
+    del got, ref, lims, q, k, v
+    free()
+    # K3 and K4 alone at the ring's two block shapes: the diagonal block
+    # (causal) and a rotated one (non-causal)
+    for causal in (True, False):
+        flash_bwd_case_ms(1, T, 32, 8, 128, card, phase="sp", causal=causal)
+    return counts
+
+
+def sp_k2_shapes(k2, card):
+    """K2 against its plain version at the sp 2 ring's two block shapes
+    (the main path's: B=2 rows, T=4096 per rank, 32 heads / 8 groups /
+    hs 128, bfloat16, with the LSE): causal (the diagonal block) and
+    non-causal (a rotated chunk)."""
+    import torch
+
+    from mdi_llm_tpu_torch.ops.flash import flash_attention_lse, flash_attention_plain
+
+    B, T = 2, 4096
+    q, k, v = flash_inputs(B, T, torch.bfloat16, seed=41, H=32, G=8, hs=128)
+    for causal in (True, False):
+        out, lse = flash_attention_lse(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
+        err = (out.float() - ref).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        del ref, ref_lse, out, lse
+        if not (err <= TOL["bfloat16"] and lse_err <= TOL["bfloat16"]):
+            fail("sp", f"K2 ring block causal={causal}: max|err| {err}, lse {lse_err}")
+        ms = cuda_ms(lambda: flash_attention_lse(q, k, v, causal=causal), 20)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal), 3)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), 20)
+        b_ms, b_by = flash_bound(B, 32, 8, T, 128, torch.bfloat16, causal, True)
+        k2["max_abs_err"] = max(k2.get("max_abs_err", 0.0), err)
+        print(f"sp: {card}: K2 ring block bfloat16 B={B} T={T} 32h/8g hs=128 causal={causal} "
+              f"with LSE max_abs_err={err:.3e} lse_err={lse_err:.3e} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
+              flush=True)
+        torch.cuda.empty_cache()
+    del q, k, v
+    free()
+
+
+def sp_divergences(phase, gen, got, want, label) -> int:
+    """bf16 streams of one model through two routes: for every stream of
+    `got` that diverges from `want`'s, print the first divergent position
+    and the top-2 logit gap there of `gen`'s bf16 model (a K2 prefill over
+    the common prefix) beside two bf16 roundings of the larger logit (the
+    `bf16_near_tie` measure, without its float32 copy of an 8B model).
+    Returns how many diverge; gates nothing: the sp prefill computes every
+    position's K/V through another attention arithmetic than the
+    Generator's K2 (a float32 ring, or K2 blocks merged in float32), so
+    the histories differ by roundings at every position and no bound on
+    one step holds them (`bf16_divergences`); parity is held in float32."""
+    import math
+
+    import torch
+
+    from mdi_llm_tpu_torch.models import transformer
+
+    n = 0
+    for rid, w in want.items():
+        g = got[rid]
+        if g == w:
+            continue
+        n += 1
+        i = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+        toks = torch.tensor([w[:i]], device="cuda")
+        with torch.no_grad():
+            logits = transformer.forward(gen.cfg, gen.params, toks,
+                                         torch.zeros(1, dtype=torch.long, device="cuda"),
+                                         use_flash=True)
+        top = torch.topk(logits[0, -1].float(), 2).values
+        gap, top0 = (top[0] - top[1]).item(), top[0].abs().item()
+        two = 2 * 2.0 ** (math.floor(math.log2(max(top0, 1e-30))) - 7)
+        print(f"{phase}: {label}: {rid} diverges at position {i}; the Generator's bf16 "
+              f"top-2 gap there {gap:.5f} (two bf16 roundings: {two:.5f})", flush=True)
+        del logits
+        torch.cuda.empty_cache()
+    return n
+
+
+def phase_sp(k2, k3, k4, card):
+    """Sequence-parallel inference on the card (the module docstring,
+    phase 34)."""
+    import torch
+
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+    from mdi_llm_tpu_torch.parallel.sp_inference import SPGenerator
+
+    sp_k2_shapes(k2, card)
+    k34 = sp_ring_grad(k2, k3, k4, card)
+    k3.setdefault("paths", {})["sp"] = k34["K3"]
+    k4.setdefault("paths", {})["sp"] = k34["K4"]
+
+    cfg = Config.from_name(SP_MODEL)
+    got_w = {k: getattr(cfg, k) for k in SP_WIDTHS}
+    if got_w != SP_WIDTHS:
+        fail("sp", f"{SP_MODEL}'s widths {got_w}, want {SP_WIDTHS}")
+    params = transformer.init_params(cfg, 10137, dtype=torch.bfloat16, device="cuda")
+    prompts = long_prompts(SP_PROMPTS, cfg.vocab_size, seed=34)
+    new = 64
+    single = Generator(cfg, params, max_seq_length=cfg.block_size, device="cuda")
+    single.generate([[1, 2, 3]] * 2, 4, temperature=0.0)  # warm-up, not counted
+    torch.cuda.synchronize()
+    flash_attention.launches = flash_attention_plain.calls = 0
+    want, wstats = single.generate(prompts, new, temperature=0.0)
+    torch.cuda.synchronize()
+    if flash_attention.launches != cfg.n_layer or flash_attention_plain.calls:
+        fail("sp", f"Generator: K2 launches {flash_attention.launches} (want {cfg.n_layer})")
+    single_kv = sum(x.numel() * x.element_size()
+                    for c in single._caches.values() for x in c.values())
+    want = dict(enumerate(want))
+    print("sp: " + json.dumps({
+        "card": card, "model": SP_MODEL, "layers": cfg.n_layer, "dtype": "bfloat16",
+        "route": "Generator", "prompt_lens": list(SP_PROMPTS), "new_tokens": new,
+        "prefill_s": wstats.prefill_s, "decode_tokens_per_s": wstats.tokens_per_s,
+        # decode_s holds this run's graph capture: tokens/s without it
+        "replay_tokens_per_s": wstats.tokens_generated / (wstats.decode_s - wstats.capture_s),
+        "capture_s": wstats.capture_s, "k2_launches": cfg.n_layer, "kv_bytes": single_kv}),
+        flush=True)
+    total = 0
+    for P, use_flash, fml in SP_RUNS:
+        sp = SPGenerator(cfg, params, n_devices=P, devices=["cuda"],
+                         max_seq_length=cfg.block_size, use_flash=use_flash, flash_min_len=fml)
+        sp.generate([[1, 2, 3]] * 2, 4, temperature=0.0)  # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = flash_attention_plain.calls = 0
+        outs, stats = sp.generate(prompts, new, temperature=0.0)
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        expect = P * P * cfg.n_layer if use_flash else 0
+        if launches != expect or flash_attention_plain.calls:
+            fail("sp", f"sp {P} use_flash={use_flash}: K2 launches {launches} (want "
+                 f"{expect}), plain version calls {flash_attention_plain.calls}")
+        total += launches
+        for i, (p, o) in enumerate(zip(prompts, outs)):
+            if len(o) - len(p) != new or not all(0 <= t < cfg.padded_vocab_size
+                                                 for t in o[len(p):]):
+                fail("sp", f"sp {P}: sample {i} did not get {new} tokens in the vocabulary")
+        Tl, C = sp._geometry(max(SP_PROMPTS), new)
+        n_div = sp_divergences("sp", single, dict(enumerate(outs)), want,
+                               f"sp {P} use_flash={use_flash} vs the Generator")
+        print("sp: " + json.dumps({
+            "card": card, "model": SP_MODEL, "dtype": "bfloat16", "sp": P,
+            "use_flash": use_flash, "flash_min_len": fml, "local_chunk": Tl,
+            "prefill_s": stats.prefill_s, "decode_tokens_per_s": stats.tokens_per_s,
+            "k2_launches": launches, "kv_bytes_per_rank": sp.kv_bytes(len(prompts), C),
+            "single_kv_bytes": single_kv, "bf16_divergences": n_div,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
+        del sp
+        free()
+    k2.setdefault("paths", {})["sp"] = total
+    del single, params
+    free()
+
+    # float32 at 4 layers: every sp stream is the Generator's, on both routes
+    cfg = Config.from_name(SP_MODEL, n_layer=SP_F32_LAYERS)
+    params = transformer.init_params(cfg, 10137, dtype=torch.float32, device="cuda")
+    single = Generator(cfg, params, max_seq_length=cfg.block_size, device="cuda")
+    want, _ = single.generate(prompts, 16, temperature=0.0)
+    want = dict(enumerate(want))
+    for P in (2, 4):
+        for use_flash in (True, False):
+            sp = SPGenerator(cfg, params, n_devices=P, devices=["cuda"],
+                             max_seq_length=cfg.block_size, use_flash=use_flash,
+                             flash_min_len=1024)
+            got, _ = sp.generate(prompts, 16, temperature=0.0)
+            got = dict(enumerate(got))
+            divergence_ok("sp", single, got, want, f"float32 sp {P} use_flash={use_flash}")
+            print(f"sp: float32 {SP_F32_LAYERS} layers, sp {P} use_flash={use_flash}: "
+                  f"{sum(got[i] == want[i] for i in want)} of {len(want)} greedy streams "
+                  "identical to the Generator's", flush=True)
+            del sp
+            free()
+    # an SPChatSession of two turns with a Ctrl-C rollback: the ChatSession's
+    turns = long_prompts((3000, 700, 40), cfg.vocab_size, seed=35)
+    replies = {}
+    for name, sess in (("chat", single.chat_session()),
+                       ("sp", SPGenerator(cfg, params, n_devices=2, devices=["cuda"],
+                                          max_seq_length=cfg.block_size, use_flash=True,
+                                          flash_min_len=1024).chat_session())):
+        r1 = list(sess.send(turns[0], 12, temperature=0.0))
+        pre = sess.history[:]
+        it = sess.send(turns[1], 12, temperature=0.0)
+        partial = [next(it), next(it)]
+        sess.rollback(pre + turns[1] + partial)
+        r3 = list(sess.send(turns[2], 12, temperature=0.0))
+        replies[name] = (r1, partial, r3, sess.history)
+        del sess
+    if replies["sp"] != replies["chat"]:
+        fail("sp", "float32 SPChatSession (two turns and a rollback) differs from the "
+             f"ChatSession: {replies['sp'][:3]} vs {replies['chat'][:3]}")
+    print(f"sp: float32 {SP_F32_LAYERS} layers: an SPChatSession over 2 ranks (turns of "
+          f"3000 and 40 tokens around a rolled-back 700-token turn) gives the ChatSession's "
+          f"replies {replies['sp'][0]} / {replies['sp'][2]}", flush=True)
+    del single, params
+    free()
+
+
 PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
           "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs", "server",
           "tier", "quant", "moe", "moe-quant", "moe-train", "tune", "pipeline",
           "pipeline-nodes", "pp-serve", "tp-serve", "tp-generate", "tools", "mesh-train",
-          "mesh-train-procs", "pp-tp-serve", "pipeline-tp", "inference-procs")
+          "mesh-train-procs", "pp-tp-serve", "pipeline-tp", "inference-procs", "sp")
 
 
 def main(argv=None) -> None:
     import argparse
+    import os
 
+    # before torch: this process writes the bytecode every later one reads
+    os.environ.setdefault("PYTHONPYCACHEPREFIX",
+                          str(Path(__file__).resolve().parent / "build" / "pycache"))
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
+    sys.dont_write_bytecode = False
     import torch
 
     ap = argparse.ArgumentParser(description="bring-up check of the port on one GPU")
@@ -5285,6 +5798,7 @@ def main(argv=None) -> None:
         "pp-tp-serve": lambda: phase_pp_tp_serve(k1, card),
         "pipeline-tp": lambda: phase_pipeline_tp(card),
         "inference-procs": lambda: phase_inference_procs(k2, card),
+        "sp": lambda: phase_sp(k2, k3, k4, card),
     }
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = Path(tmp) / TINY_LLAMA
@@ -5298,11 +5812,11 @@ def main(argv=None) -> None:
     records = (k1, k1q8, k2, k3, k4)
     missing = [(r["name"], k) for r in records for k in keys if k not in r]
     k2_paths = {"generate", "ckpt", "graphs", "quant", "moe", "moe-quant", "tp-generate",
-                "mesh-train", "inference-procs"} | (
+                "mesh-train", "inference-procs", "sp"} | (
         {"chat"} if importlib.util.find_spec("tokenizers") else set())
     k1_paths = {"serve", "ckpt", "graphs", "server", "tier", "quant", "moe", "moe-quant", "tune",
                 "pp-serve", "tp-serve", "pp-tp-serve"}
-    k34_paths = {"train", "moe-train", "mesh-train"}
+    k34_paths = {"train", "moe-train", "mesh-train", "sp"}
     if only == set(PHASES) and (set(k1["paths"]) != k1_paths or set(k2["paths"]) != k2_paths
                                 or set(k3["paths"]) != k34_paths
                                 or set(k4["paths"]) != k34_paths):

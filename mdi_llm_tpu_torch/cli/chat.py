@@ -12,12 +12,18 @@ reply rolls the session back to the conversation so far.  With
 `--pipeline-stages S` the turns stream through an S-stage ring
 (`parallel/pipeline.PipelineEngine`, `--rotations-per-call` rotations per
 steady call), which re-prefills the window every turn, as the JAX
-package's does.  An empty line or end of input ends the chat.
+package's does.  With `--sp-devices N` the conversation lives in an
+`SPChatSession` over N sequence-parallel ranks on `--device`
+(`parallel/sp_inference.py`: the first turn's ring prefill writes each
+rank's cache shard, later turns append round-robin; `--sp-flash` sends
+the ring through K2, `--sp-chunk` decode steps per host read).  An empty
+line or end of input ends the chat.
 
     python -m mdi_llm_tpu_torch.cli.chat --ckpt checkpoints/tiny-llama
     python -m mdi_llm_tpu_torch.cli.chat --device cpu --ckpt DIR --temperature 0
     python -m mdi_llm_tpu_torch.cli.chat --device cpu --ckpt DIR --pipeline-stages 2
     python -m mdi_llm_tpu_torch.cli.chat --device cpu --ckpt DIR --tp-devices 2
+    python -m mdi_llm_tpu_torch.cli.chat --device cpu --ckpt DIR --sp-devices 2 --sp-flash
 
 Needs a checkpoint with a tokenizer (`--ckpt`).  Runs on the GPU unless
 `--device cpu` is given; without a GPU and without that flag it raises.
@@ -40,7 +46,7 @@ from mdi_llm_tpu_torch.config import TEMPERATURE, TOP_K
 from mdi_llm_tpu_torch.generation import Generator, StreamPrinter, resolve_device
 
 # streaming backends of the JAX CLI: flag -> the ROADMAP item carrying it
-_UNPORTED = {"ep_devices": "item 16", "sp_devices": "item 16"}
+_UNPORTED = {"ep_devices": "item 16"}
 
 
 def build_parser():
@@ -65,9 +71,18 @@ def build_parser():
     ap.add_argument("--tp-devices", type=int, default=0,
                     help="chat over N tensor-parallel ranks, all on --device "
                     "(0 = off)")
+    ap.add_argument("--sp-devices", type=int, default=0,
+                    help="sequence-parallel streaming over N ranks, all on --device: "
+                    "ring-attention prefill and a sequence-split KV cache "
+                    "(parallel/sp_inference.SPChatSession; 0 = off)")
+    ap.add_argument("--sp-flash", action="store_true",
+                    help="run the sp prefill ring through kernel K2 (engages when "
+                    "the local chunk is >= 2048)")
+    ap.add_argument("--sp-chunk", type=int, default=8,
+                    help="sp streaming: decode steps per host read (smaller: "
+                    "earlier first bytes; larger: more throughput)")
     unported = ap.add_argument_group("not ported yet (refused when set)")
-    for flag in ("--ep-devices", "--sp-devices"):
-        unported.add_argument(flag, type=int, default=0)
+    unported.add_argument("--ep-devices", type=int, default=0)
     return ap
 
 
@@ -86,8 +101,8 @@ def main(argv=None):
     if args.speculative and args.temperature != 0.0:
         raise SystemExit("--speculative requires --temperature 0 (greedy)")
     if args.speculative and args.pipeline_stages:
-        raise SystemExit("--speculative applies to the one-device session; drop "
-                         "--pipeline-stages")
+        raise SystemExit("--speculative applies to session backends (one device, tp, "
+                         "sp); drop --pipeline-stages")
     resolve_device(args.device)  # raises before any work without the device
     cfg, params, tokenizer, prompt_style = load_model(args)
     if tokenizer is None:
@@ -104,13 +119,23 @@ def main(argv=None):
         )
         print(f"Chatting with {cfg.name} — empty line or Ctrl-D to exit.")
         return _ring_chat(args, eng, tokenizer, prompt_style, stop_seqs)
-    gen = Generator(
-        cfg, params, max_seq_length=args.sequence_length, rng_seed=args.seed,
-        cache_dtype=resolve_kv_dtype(args.kv_dtype), device=args.device,
-        quantize=args.quantize,
-        mesh=(make_tp_mesh(args.tp_devices, args.quantize, args.device)
-              if args.tp_devices else None),
-    )
+    if args.sp_devices:
+        from mdi_llm_tpu_torch.parallel.sp_inference import SPGenerator
+
+        gen = SPGenerator(
+            cfg, params, n_devices=args.sp_devices, devices=[resolve_device(args.device)],
+            max_seq_length=args.sequence_length, rng_seed=args.seed,
+            cache_dtype=resolve_kv_dtype(args.kv_dtype), decode_chunk=args.sp_chunk,
+            use_flash=args.sp_flash, quantize=args.quantize,
+        )
+    else:
+        gen = Generator(
+            cfg, params, max_seq_length=args.sequence_length, rng_seed=args.seed,
+            cache_dtype=resolve_kv_dtype(args.kv_dtype), device=args.device,
+            quantize=args.quantize,
+            mesh=(make_tp_mesh(args.tp_devices, args.quantize, args.device)
+                  if args.tp_devices else None),
+        )
 
     print(f"Chatting with {cfg.name} — empty line or Ctrl-D to exit.")
     # cross-turn KV reuse: each turn prefills only its new tokens, so turn

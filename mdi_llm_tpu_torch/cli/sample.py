@@ -16,7 +16,11 @@ over the processes (each process's share on its own device, the partial
 sums meeting in `torch.distributed` collectives, every process sampling
 the same tokens from the same seed), `--pipeline-stages S` splits the
 stages (each process a contiguous group, with its tp ranks), the hop
-between processes a send/recv.  As in the JAX CLI every process prints
+between processes a send/recv.  `--sp-devices N` generates over N
+sequence-parallel ranks on `--device` (`parallel/sp_inference.
+SPGenerator`: ring-attention prefill, the KV cache split over the ranks;
+`--sp-flash` sends the prefill ring through K2), in one process.  As in
+the JAX CLI every process prints
 the samples and the throughput line.  With `--ckpt DIR` the prompts
 (`--prompt TEXT` or `FILE:<path>`, one per blank-line-separated
 paragraph) go through the checkpoint's prompt style and tokenizer,
@@ -35,6 +39,7 @@ CLI's exclusions between the parallelism flags hold.
     python -m mdi_llm_tpu_torch.cli.sample --model tiny-llama-1.1b --n-samples 4 --pipeline-stages 2 --samples-per-slot 2 --tp-devices 2
     python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8
     python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8 --tp-devices 2
+    python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8 --sp-devices 2 --sp-flash
     # two processes, one tp rank each (start process 1 the same way):
     python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8 \\
         --tp-devices 2 --coordinator 127.0.0.1:29511 --num-processes 2 --process-id 0
@@ -64,7 +69,7 @@ from mdi_llm_tpu_torch.parallel import nodes
 from mdi_llm_tpu_torch.utils.prompts import get_user_prompt
 
 # flags of the JAX CLI whose features are not ported: flag -> (default, item)
-_UNPORTED = {"sp_devices": (0, "item 16"), "ep_devices": (0, "item 16")}
+_UNPORTED = {"ep_devices": (0, "item 16")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -96,10 +101,16 @@ def build_parser() -> argparse.ArgumentParser:
                     "--num-processes processes (each given its --process-id)")
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--sp-devices", type=int, default=0,
+                    help="sequence-parallel inference over N ranks, all on --device: "
+                    "ring-attention prefill and a sequence-split KV cache (the "
+                    "context grows with N; 0 = off)")
+    ap.add_argument("--sp-flash", action="store_true",
+                    help="run the sp prefill ring through kernel K2 (engages when "
+                    "the local chunk is >= 2048)")
     add_log_args(ap)
     unported = ap.add_argument_group("not ported yet (refused when set)")
-    for flag in ("--sp-devices", "--ep-devices"):
-        unported.add_argument(flag, type=int, default=0)
+    unported.add_argument("--ep-devices", type=int, default=0)
     return ap
 
 
@@ -170,7 +181,24 @@ def _generate(args, temperature, ring):
     host_prof = args.logs_dir / "sample_profile.prof" if args.debug else None
     t0 = time.perf_counter()
     with profile(logdir=args.profile_dir, host_profile_path=host_prof):
-        if args.pipeline_stages:
+        if args.sp_devices:
+            if args.pipeline_stages:
+                raise SystemExit("--sp-devices and --pipeline-stages are exclusive")
+            if args.speculative:
+                raise SystemExit("--speculative applies to single-device decode only")
+            if ring is not None:
+                raise SystemExit("--sp-devices runs its ranks in one process (sp over "
+                                 "processes is ROADMAP item 19); drop --coordinator")
+            from mdi_llm_tpu_torch.parallel.sp_inference import SPGenerator
+
+            gen = SPGenerator(
+                cfg, params, n_devices=args.sp_devices, devices=[resolve_device(args.device)],
+                max_seq_length=args.sequence_length, rng_seed=args.seed,
+                cache_dtype=resolve_kv_dtype(args.kv_dtype), use_flash=args.sp_flash,
+                quantize=args.quantize,
+            )
+            outs, stats = gen.generate(prompt_ids, args.n_tokens, **sampling)
+        elif args.pipeline_stages:
             from mdi_llm_tpu_torch.parallel.pipeline import PipelineEngine
 
             gen = PipelineEngine(
@@ -203,7 +231,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     prompt_ids, outs, stats, gen, tokenizer, seconds = run(args)
     n_nodes = (args.pipeline_stages * max(1, args.tp_devices) if args.pipeline_stages
-               else args.tp_devices or 1)
+               else args.tp_devices or args.sp_devices or 1)
     report_run(args, gen.cfg, tokenizer, prompt_ids, outs, stats, seconds, n_nodes,
                f"{n_nodes} node(s)" + (f", {stats.rotations} rotations"
                                        if args.pipeline_stages else ""))

@@ -24,7 +24,11 @@ TCP store at host:port; NCCL when each has a card of its own, else gloo,
 staged through pinned host memory on a shared card): each holds a
 contiguous block of the mesh's positions (the DDP/torchrun path of the
 reference), samples the same global batch and keeps its rows; process 0
-alone prints and writes the checkpoint.  A process that does not join
+alone prints and writes the checkpoint.  With `--mesh pp=2` (or
+`pp=2,tp=2`) over two processes each holds one GPipe stage (with its
+whole tp group): the stages' activations and their gradients pass
+between the processes (`training.MeshLayout`, the mesh's axes in the
+order dp, pp, tp).  A process that does not join
 within `parallel.nodes.TIMEOUT_S` seconds, or stops answering, fails the
 others.
 

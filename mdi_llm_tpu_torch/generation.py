@@ -298,22 +298,30 @@ def _refuse(what: str) -> None:
 
 # mesh axes of the JAX package the port's Generator does not run yet, and
 # the ROADMAP item that carries each
-_UNPORTED_AXES = {"ep": "item 16", "sp": "item 16"}
+_UNPORTED_AXES = {"ep": "item 16"}
 
 
 def _check_inference_mesh(mesh: Mesh) -> None:
-    """A `make_mesh` mesh the Generator runs: `tp`, `dp` and a pipeline
-    axis (`pp` or `pipe`; any axis of size 1 is harmless).  ep and sp
-    meshes are refused naming their ROADMAP item.  A mesh over processes
-    (`sample --coordinator`) splits its tp axis only: each process holds
-    a contiguous part of the one tp group."""
+    """A `make_mesh` mesh the Generator runs: `tp`, `dp`, `sp` and a
+    pipeline axis (`pp` or `pipe`; any axis of size 1 is harmless).  An sp
+    axis is replicated, as the JAX Generator (which reads only tp, dp and
+    ep) leaves it: the sequence splits over sp in
+    `parallel.sp_inference.SPGenerator`.  ep meshes are refused naming
+    their ROADMAP item.  A mesh over processes (`sample --coordinator`)
+    splits its tp axis only: each process holds a contiguous part of the
+    one tp group."""
     for axis, size in mesh.shape.items():
-        if size <= 1 or axis in ("tp", "dp") + PIPE_AXES:
+        if size <= 1 or axis in ("tp", "dp", "sp") + PIPE_AXES:
             continue
         if axis in _UNPORTED_AXES:
             _refuse(f"mesh with {axis}={size}: {axis} meshes are {_UNPORTED_AXES[axis]}")
         raise ValueError(f"mesh axis {axis!r} (size {size}): the Generator "
-                         "runs tp, dp and pipeline axes")
+                         "runs tp, dp, sp and pipeline axes")
+    if mesh.num_processes > 1 and mesh.shape.get("sp", 1) > 1:
+        raise ValueError(
+            f"mesh {mesh.shape} over {mesh.num_processes} processes: an sp axis splits "
+            "the sequence in parallel.sp_inference.SPGenerator, whose ranks share one "
+            "process (sp over processes is ROADMAP item 19)")
     if mesh.num_processes > 1:
         pa = pipe_axis(mesh)
         if mesh.shape.get("dp", 1) > 1 or (pa and mesh.shape[pa] > 1):
@@ -322,6 +330,16 @@ def _check_inference_mesh(mesh: Mesh) -> None:
                 "processes split its tp axis only (the ring over processes is "
                 "parallel.pipeline.PipelineEngine(ring=...), `sample --coordinator "
                 "--pipeline-stages`)")
+
+
+def _without_sp(mesh: Mesh) -> Mesh:
+    """`mesh` with its sp axis dropped (the positions at sp coordinate 0):
+    the Generator replicates over sp."""
+    i = mesh.axis_names.index("sp")
+    names = mesh.axis_names[:i] + mesh.axis_names[i + 1:]
+    devices = np.take(mesh.devices, [0], axis=i)
+    return Mesh(devices.reshape([n for a, n in mesh.shape.items() if a != "sp"] or [1]),
+                names or ("tp",), mesh.process_id, mesh.num_processes)
 
 
 def _pipeline_mesh(mesh, device) -> Dict[int, torch.device]:
@@ -361,7 +379,8 @@ class Generator:
         quantize: Optional[str] = None,  # None | "none" | "int8" (weight-only)
         # | "w8a8" (int8 activations too) | "int4" (ops/quant.py)
         mesh: Any = None,  # {stage: device} of parallel.mesh.pipeline_mesh,
-        # or a parallel.mesh.make_mesh Mesh of tp and dp axes
+        # or a parallel.mesh.make_mesh Mesh of tp, dp, sp (replicated) and
+        # pipeline axes
         scan_unroll: int = 1,
         abstract: bool = False,
         _graphs: Optional[bool] = None,  # None → CUDA graphs on the card;
@@ -375,6 +394,12 @@ class Generator:
         self.stage_ranks = None
         if isinstance(mesh, Mesh):
             _check_inference_mesh(mesh)
+            if "sp" in mesh.shape:
+                mesh = _without_sp(mesh)
+                if mesh.size == 1:  # sp alone: one replica on one device
+                    device = mesh.devices.flat[0] if device is None else device
+                    mesh = None
+        if isinstance(mesh, Mesh):
             pa = pipe_axis(mesh)
             if pa is not None and mesh.shape[pa] > 1:
                 # the staged engine runs the stages; generate() runs, as

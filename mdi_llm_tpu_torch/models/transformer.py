@@ -63,6 +63,7 @@ from mdi_llm_tpu_torch.ops.paged_attention import (
     paged_update,
 )
 from mdi_llm_tpu_torch.ops.quant import is_quantized, quantized_einsum
+from mdi_llm_tpu_torch.ops.ring_attention import ring_attention
 from mdi_llm_tpu_torch.ops.rope import apply_rope, build_rope_cache, gather_rope
 from mdi_llm_tpu_torch.parallel.collectives import all_gather, all_reduce, copy_to_ranks
 
@@ -221,18 +222,7 @@ def attention_forward(
     project: bool = True,  # False: the heads' output, before `proj`
 ) -> torch.Tensor:
     B, T, _ = x.shape
-    q, k, v = _split_qkv(cfg, linear(x, p["qkv"]))  # k, v: (B, T, G, hs)
-    q = q.transpose(1, 2)  # (B, n_head, T, hs)
-    n_elem = cfg.rope_n_elem
-    if n_elem > 0:
-        cos_b, sin_b = cos[:, None], sin[:, None]
-        q = torch.cat(
-            [apply_rope(q[..., :n_elem], cos_b, sin_b), q[..., n_elem:]], dim=-1
-        )
-        kt = k.transpose(1, 2)
-        k = torch.cat(
-            [apply_rope(kt[..., :n_elem], cos_b, sin_b), kt[..., n_elem:]], dim=-1
-        ).transpose(1, 2)
+    q, k, v = attention_qkv(cfg, p, x, cos, sin)
     if paged_tables is not None:
         if paged_ragged is not None:
             # packed-tail padding carries a position past the table's
@@ -269,7 +259,34 @@ def attention_forward(
         else:
             # no cache, or a fresh prefill: attend the chunk itself
             y = multihead_attention(q, k, v, pos, k_pos=pos)
-    y = y.transpose(1, 2).reshape(B, T, cfg.n_head * cfg.head_size).to(x.dtype)
+    return attention_out(cfg, p, y, x.dtype, project)
+
+
+def attention_qkv(cfg: Config, p: Params, x: torch.Tensor, cos: torch.Tensor,
+                  sin: torch.Tensor):
+    """The attention's projections with rope applied: q (B, n_head, T,
+    hs), k and v (B, T, G, hs)."""
+    q, k, v = _split_qkv(cfg, linear(x, p["qkv"]))
+    q = q.transpose(1, 2)
+    n_elem = cfg.rope_n_elem
+    if n_elem > 0:
+        cos_b, sin_b = cos[:, None], sin[:, None]
+        q = torch.cat(
+            [apply_rope(q[..., :n_elem], cos_b, sin_b), q[..., n_elem:]], dim=-1
+        )
+        kt = k.transpose(1, 2)
+        k = torch.cat(
+            [apply_rope(kt[..., :n_elem], cos_b, sin_b), kt[..., n_elem:]], dim=-1
+        ).transpose(1, 2)
+    return q, k, v
+
+
+def attention_out(cfg: Config, p: Params, y: torch.Tensor, dtype,
+                  project: bool = True) -> torch.Tensor:
+    """The heads' output `y` (B, n_head, T, hs) as (B, T, n_head * hs) in
+    `dtype`, through `proj` unless `project` is False."""
+    B, _, T, _ = y.shape
+    y = y.transpose(1, 2).reshape(B, T, cfg.n_head * cfg.head_size).to(dtype)
     return linear(y, p["proj"]) if project else y
 
 
@@ -280,6 +297,12 @@ def block_forward(cfg, p, x, pos, cos, sin, k_cache, v_cache,
     `collect_moe_aux` (MoE training) returns (x, this layer's aux loss)."""
     n1 = _norm(cfg, x, p["norm_1"])
     att = attention_forward(cfg, p["attn"], n1, pos, cos, sin, k_cache, v_cache, **attn)
+    return block_finish(cfg, p, x, n1, att, collect_moe_aux)
+
+
+def block_finish(cfg, p, x, n1, att, collect_moe_aux: bool = False):
+    """The rest of a block after its attention output `att` (`n1` the
+    block input `x` under `norm_1`): the residual, `norm_2` and the MLP."""
     if cfg.parallel_residual:
         n2 = n1 if cfg.shared_attention_norm else _norm(cfg, x, p["norm_2"])
         x = x + att
@@ -728,6 +751,78 @@ def sharded_forward(
     if collect_moe_aux:
         return tr.head(out[0]), out[1]
     return tr.head(out)
+
+
+class SPRanks:
+    """The sequence-parallel ranks of one model replica: each rank holds
+    the whole weights (`params`, one tree per rank, shared by the ranks of
+    one device) and a contiguous chunk of the sequence, with its cache
+    shard.  The layer-by-layer runner beside `TPRanks`: ring attention
+    needs every rank's K/V of a layer before any rank can finish that
+    layer, so `blocks` runs each layer's projections on every rank, then
+    the attention over the ranks (`attend`), then each rank's rest of the
+    block.  A replicated input (a decode token, the same on every rank)
+    runs once per device (`replicated=True`)."""
+
+    def __init__(self, cfg: Config, params: Sequence[Params]):
+        self.cfg, self.params = cfg, list(params)
+        self.P = len(self.params)
+        self.devs = [next(iter(tree_leaves(p))).device for p in self.params]
+        self.rep = functools.partial(_replicated, self.devs)
+        L = self.params[0]["blocks"]["norm_1"]["weight"].shape[0]
+        self._layers = self.rep(lambda r: unbind_layers(self.params[r]["blocks"], L))
+
+    def each(self, replicated: bool):
+        """How a per-rank step runs: once per device for a replicated
+        input, else once per rank."""
+        return self.rep if replicated else (lambda fn: [fn(r) for r in range(self.P)])
+
+    def positions(self, pos: Sequence[torch.Tensor], ropes, replicated=False):
+        """Each rank's (cos, sin) at its positions `pos[r]`; the gather
+        clamps, since padded bucket positions run past the table."""
+        cs = self.each(replicated)(lambda r: gather_rope(ropes[r][0], ropes[r][1], pos[r]))
+        return [c for c, _ in cs], [s_ for _, s_ in cs]
+
+    def embed(self, tokens, pos, replicated=False) -> List[torch.Tensor]:
+        return self.each(replicated)(
+            lambda r: embed(self.cfg, self.params[r], tokens[r], pos[r]))
+
+    def blocks(self, x, cos, sin, attend, replicated=False) -> List[torch.Tensor]:
+        """Every layer over the ranks: `x`, `cos`, `sin` per rank;
+        `attend(i, qs, ks, vs)` (layer i, each rank's q (B, n_head, T, hs)
+        and k, v (B, G, T, hs)) returns each rank's heads' output."""
+        cfg, each = self.cfg, self.each(replicated)
+        for i in range(len(self._layers[0])):
+            lay = [self._layers[r][i] for r in range(self.P)]
+            n1 = each(lambda r: _norm(cfg, x[r], lay[r]["norm_1"]))
+            qkv = each(lambda r: attention_qkv(cfg, lay[r]["attn"], n1[r], cos[r], sin[r]))
+            ys = attend(i, [q for q, _, _ in qkv], [k.transpose(1, 2) for _, k, _ in qkv],
+                        [v.transpose(1, 2) for _, _, v in qkv])
+            x = each(lambda r: block_finish(
+                cfg, lay[r], x[r], n1[r],
+                attention_out(cfg, lay[r]["attn"], ys[r], x[r].dtype)))
+        return x
+
+    def head(self, x: torch.Tensor, r: int = 0) -> torch.Tensor:
+        """The logits of the hidden states `x` through rank r's head."""
+        return head(self.cfg, self.params[r], x)
+
+    def forward(self, tokens, input_pos, use_flash=False, flash_kernel=None, ropes=None):
+        """The cache-less forward (training and eval): each rank's chunk
+        `tokens[r]` (B, T) starting at `input_pos[r]` (B,), ring attention
+        with q_pos == k_pos; each rank's logits (B, T, padded_vocab)."""
+        T = tokens[0].shape[1]
+        pos = [ip.long()[:, None] + torch.arange(T, device=ip.device) for ip in input_pos]
+        if ropes is None:
+            ropes = [get_rope_cache(self.cfg, device=d) for d in self.devs]
+        cos, sin = self.positions(pos, ropes)
+
+        def attend(i, qs, ks, vs):
+            return ring_attention(qs, ks, vs, pos, pos, use_flash=use_flash,
+                                  use_kernel=flash_kernel)
+
+        x = self.blocks(self.embed(tokens, pos), cos, sin, attend)
+        return [self.head(x[r], r) for r in range(self.P)]
 
 
 @functools.lru_cache(maxsize=16)

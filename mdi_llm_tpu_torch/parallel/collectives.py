@@ -36,9 +36,12 @@ A bare `dist.all_reduce` inside the forward would be invisible to
 autograd: every tp gradient would come out wrong.  `CommGroup` also
 moves whole tensors (`all_reduce_`, `all_reduce_many_`, `all_gather`)
 outside autograd: the data-parallel gradient all-reduce, the clip's
-norm, the checkpoint's gather.  Under gloo a CUDA tensor travels through a pinned
-host buffer (processes sharing one card); under NCCL it stays on its
-card.
+norm, the checkpoint's gather, and the pipeline stages' activations and
+their gradients (`send`, `recv`: point to point, outside autograd; the
+Trainer makes a received activation a leaf and sends its gradient back,
+the Megatron schedule).  Under gloo a CUDA tensor travels through a
+pinned host buffer (processes sharing one card); under NCCL it stays on
+its card.
 """
 
 from __future__ import annotations
@@ -102,14 +105,20 @@ class CommGroup:
     def _stage(self, x: torch.Tensor, key: str) -> torch.Tensor:
         """`x` where the backend can read it: a pinned host copy under gloo
         for a CUDA tensor, else `x` itself."""
+        buf = self._buffer(x, key)
+        if buf is not x:
+            buf.copy_(x.reshape(-1))
+        return buf
+
+    def _buffer(self, x: torch.Tensor, key: str) -> torch.Tensor:
+        """The pinned host buffer `_stage` uses for `x` under gloo (flat, not
+        filled), else `x` itself."""
         if not (self.staged and x.device.type == "cuda"):
             return x
         n = x.numel() * x.element_size()
         if key not in self._pinned or self._pinned[key].numel() < n:
             self._pinned[key] = torch.empty(n, dtype=torch.uint8, pin_memory=True)
-        buf = self._pinned[key][:n].view(x.dtype)
-        buf.copy_(x.reshape(-1))
-        return buf
+        return self._pinned[key][:n].view(x.dtype)
 
     def _tick(self, t0: float, x: torch.Tensor) -> None:
         if x.device.type == "cuda":
@@ -147,6 +156,26 @@ class CommGroup:
                     b.copy_(flat[off : off + b.numel()].view_as(b))
                     off += b.numel()
             bucket, size = ([x], x.numel() * x.element_size()) if x is not None else ([], 0)
+
+    def send(self, x: torch.Tensor, to: int) -> None:
+        """Send `x` to the group's process `to` (a group index): the
+        pipeline stage hop.  Blocking under gloo: a peer receives in the
+        same order as this process sends."""
+        t0 = time.perf_counter()
+        dist.send(self._stage(x.detach().contiguous(), "send"), self.ranks[to])
+        self._tick(t0, x)
+
+    def recv(self, shape, dtype, device, frm: int) -> torch.Tensor:
+        """A tensor of `shape` and `dtype` on `device`, received from the
+        group's process `frm` (a group index)."""
+        t0 = time.perf_counter()
+        out = torch.empty(shape, dtype=dtype, device=device)
+        buf = self._buffer(out, "recv")
+        dist.recv(buf, self.ranks[frm])
+        if buf is not out:
+            out.copy_(buf.reshape(out.shape), non_blocking=True)
+        self._tick(t0, out)
+        return out
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The group's `x`s joined along `dim` in group order (every

@@ -27,17 +27,34 @@ JAX Trainer's dp, tp, dp x tp and GPipe pp / pp x tp:
   on every mesh, so a run resumes on any other.
 - Across processes (`mesh` from `make_mesh(..., process_id,
   num_processes)` after `parallel/nodes.init_distributed`), each process
-  holds a contiguous block of positions: whole pp groups, and whole tp
-  groups or a part of one.  The tp collectives then run through
-  `torch.distributed` under autograd (`parallel/collectives.py`), the
-  gradients are summed over the processes that hold the same tp slice
-  (once per step, after accumulation), the clip's norm counts each
-  replicated leaf once, and process 0 writes the checkpoint after a
-  gather.  Every process samples the same global batch.
-- `layer_runs` counts each layer a rank runs on a micro-batch: on the
-  flash route each launches K2 once (twice with remat) and K3 and K4
-  once.  `grad_sync_s` sums the host seconds of the gradient all-reduce
-  across processes (waiting for the slowest peer included).
+  holds a contiguous block of positions (`MeshLayout`): whole dp
+  coordinates, and either every stage with whole tp groups or a part of
+  one, or a contiguous range of stages each with its whole tp group (the
+  mesh's axes in the order dp, pp, tp).  The tp collectives then run
+  through `torch.distributed` under autograd (`parallel/collectives.py`),
+  the gradients are summed over the processes that hold the same stages
+  and tp slice (once per step, after accumulation), the clip's norm
+  counts each replicated leaf once, and process 0 writes the checkpoint
+  after a gather.  Every process samples the same global batch.
+- GPipe stages on other processes: a process holds the layers of its
+  stages only (the embedding with stage 0; the final norm and the head,
+  and a tied embedding, with the last), runs only those stages in the
+  ring's order, and updates only those leaves.  The hop is the Megatron
+  schedule: a stage sends its outputs on (`CommGroup.send`); the next
+  process receives them as a leaf that requires grad; after the forward
+  the last stage differentiates the loss, every other process receives
+  the gradients of what it sent, in the order it sent it, and
+  differentiates its outputs with them; the gradients of its received
+  leaves go back to their sender.  The loss reaches every process (a sum
+  over the pp group), the clip's norm sums over it (a tied embedding's
+  gradients of stage 0 and the last stage summed first and counted
+  once), and `save` gathers every stage's leaves and AdamW moments on
+  process 0, in the standard layout.
+- `layer_runs` counts each layer a rank of this process runs on a
+  micro-batch: on the flash route each launches K2 once (twice with
+  remat) and K3 and K4 once.  `grad_sync_s` sums the host seconds of the
+  gradient all-reduce across processes (waiting for the slowest peer
+  included).
 
 What differs from the JAX package:
 - The flash route on a mesh.  The JAX Trainer refuses `use_flash` on a
@@ -279,14 +296,23 @@ class MeshLayout:
     """How a training mesh's positions fall on this process.
 
     Sizes `dp`, `tp`, `pp` (1 where the mesh lacks the axis); this
-    process's dp coordinates `dp_coords` and tp coordinates `tp_start`,
-    `tp_start + tp_local`; `tp_group`, the processes holding the other tp
-    ranks of its replicas (None when it holds them all), and `dp_group`,
-    the processes holding the same tp ranks of other replicas (None when
-    it holds every replica): `parallel.collectives.CommGroup`s, built by
-    every process in one order."""
+    process's dp coordinates `dp_coords`, its stages `stages` (a range
+    (s0, s1) of the pp axis) and its tp coordinates `tp_start`, `tp_start
+    + tp_local`.  The `parallel.collectives.CommGroup`s, each None when
+    this process holds the whole axis: `tp_group`, the processes holding
+    the other tp ranks of its stages and replicas; `dp_group`, those
+    holding the same stages and tp ranks of the other replicas; `pp_group`,
+    those holding the other stages of its replica and tp ranks, in stage
+    order (`pp_stages` their stage ranges); `tie_group` (with `tie`, the
+    tied embedding) the first and last of the pp group.  Every process
+    builds every group, in one order.
 
-    def __init__(self, mesh: Mesh):
+    A process holds whole dp coordinates, and either every stage with a
+    contiguous part of the tp axis, or a contiguous range of stages each
+    with its whole tp group (the mesh's axes then in the order dp, pp,
+    tp)."""
+
+    def __init__(self, mesh: Mesh, tie: bool = False):
         for axis, size in mesh.shape.items():
             if axis in _ITEM_16_AXES and size > 1:
                 _refuse(f"a training mesh with {axis}={size} ({_ITEM_16_AXES[axis]})",
@@ -297,51 +323,84 @@ class MeshLayout:
         self.dp, self.tp, self.pp = (int(mesh.shape.get(a, 1)) for a in TRAIN_AXES)
         coords = list(mesh.positions())
         spans = [self._span(mesh, coords, p) for p in range(mesh.num_processes)]
-        self.dp_coords, self.tp_start, self.tp_local = spans[mesh.process_id]
-        self.tp_group = self.dp_group = None
+        self.dp_coords, self.stages, self.tp_start, self.tp_local = spans[mesh.process_id]
+        self.tp_group = self.dp_group = self.pp_group = self.tie_group = None
+        self.pp_stages = [self.stages]
         if mesh.num_processes == 1:
             return
-        by_dp: Dict[tuple, list] = {}
-        by_tp: Dict[tuple, list] = {}
-        for p, (dps, t0, k) in enumerate(spans):
-            by_dp.setdefault(dps, []).append((t0, p))
-            by_tp.setdefault((t0, k), []).append((dps, p))
-        for dps, members in by_dp.items():
+        tables: Dict[str, Dict[tuple, list]] = {"tp": {}, "dp": {}, "pp": {}}
+        for p, (dps, sts, t0, k) in enumerate(spans):
+            tables["tp"].setdefault((dps, sts), []).append((t0, p))
+            tables["dp"].setdefault((sts, t0, k), []).append((dps, p))
+            tables["pp"].setdefault((dps, t0, k), []).append((sts, p))
+        for key, members in tables["tp"].items():
             if sorted(t for t, _ in members) != list(range(0, self.tp, self.tp_local)):
-                raise ValueError(f"the processes holding dp coordinates {dps} do not "
-                                 f"hold each tp rank once: {members}")
-        for tps, members in by_tp.items():
+                raise ValueError(f"the processes holding dp coordinates and stages {key} do "
+                                 f"not hold each tp rank once: {members}")
+        for key, members in tables["dp"].items():
             if sorted(d for dps, _ in members for d in dps) != list(range(self.dp)):
-                raise ValueError(f"the processes holding tp ranks {tps} do not hold "
-                                 f"each dp coordinate once: {members}")
+                raise ValueError(f"the processes holding stages and tp ranks {key} do not "
+                                 f"hold each dp coordinate once: {members}")
+        for key, members in tables["pp"].items():
+            edges = sorted(members)
+            if [a for (a, _), _ in edges] != [0] + [b for (_, b), _ in edges[:-1]] \
+                    or edges[-1][0][1] != self.pp:
+                raise ValueError(f"the processes holding dp coordinates and tp ranks {key} "
+                                 f"do not hold each stage once: {members}")
         # every process builds every group, in one order
-        for kind, table in (("tp", by_dp), ("dp", by_tp)):
-            for key in sorted(table):
-                ranks = [p for _, p in sorted(table[key])]
+        for kind in ("tp", "dp", "pp"):
+            for key in sorted(tables[kind]):
+                ranks = [p for _, p in sorted(tables[kind][key])]
                 if len(ranks) == 1:
                     continue
                 group = CommGroup(ranks)
                 if mesh.process_id in ranks:
                     setattr(self, f"{kind}_group", group)
+                    if kind == "pp":
+                        self.pp_stages = [sts for sts, _ in sorted(tables[kind][key])]
+                if kind == "pp" and tie:
+                    tied = CommGroup([ranks[0], ranks[-1]])
+                    if mesh.process_id in tied.ranks:
+                        self.tie_group = tied
 
     def _span(self, mesh: Mesh, coords, p: int):
         own = [coords[i] for i in mesh.owned(p)]
         dps = tuple(sorted({c.get("dp", 0) for c in own}))
         tps = sorted({c.get("tp", 0) for c in own})
-        n_pp = len({c.get("pp", 0) for c in own})
-        if (len(own) != len(dps) * len(tps) * n_pp or n_pp != self.pp
-                or tps != list(range(tps[0], tps[0] + len(tps))) or self.tp % len(tps)):
+        sts = sorted({c.get("pp", 0) for c in own})
+        where = f"process {p} of {mesh.num_processes} holds the mesh positions {own}"
+        if (len(own) != len(dps) * len(tps) * len(sts)
+                or tps != list(range(tps[0], tps[0] + len(tps))) or self.tp % len(tps)
+                or sts != list(range(sts[0], sts[0] + len(sts)))):
             raise ValueError(
-                f"process {p} of {mesh.num_processes} holds the mesh positions {own}: "
-                "a process holds whole pp groups, and whole tp groups or a contiguous "
-                "part of one (order the mesh's axes dp, pp, tp)")
-        return dps, tps[0], len(tps)
+                f"{where}: a process holds whole dp coordinates, a contiguous range of "
+                "stages and a contiguous part of the tp axis (order the mesh's axes dp, "
+                "pp, tp)")
+        if len(sts) < self.pp:
+            names = [a for a in mesh.axis_names if mesh.shape[a] > 1]
+            if names != [a for a in ("dp", "pp", "tp") if a in names]:
+                raise ValueError(
+                    f"{where}: a process that holds part of the pp axis needs the mesh's "
+                    f"axes in the order dp, pp, tp (got {names}), so that it holds one "
+                    "replica's consecutive stages and passes their activations to the "
+                    "process of the next ones")
+            if len(tps) != self.tp:
+                raise ValueError(
+                    f"{where}: a process that holds part of the pp axis holds each of its "
+                    "stages with the whole tp group (a stage hop between processes that "
+                    "each hold part of a tp group is not ported)")
+        return dps, (sts[0], sts[-1] + 1), tps[0], len(tps)
 
     @property
     def counts_replicated(self) -> bool:
         """Whether this process counts the replicated leaves in the clip's
         norm (the first of its tp group)."""
         return self.tp_group is None or self.tp_group.index == 0
+
+    @property
+    def split_stages(self) -> bool:
+        """Whether the pp axis is split over processes."""
+        return self.pp_group is not None
 
 
 def _with_leaves(tree, leaves):
@@ -383,7 +442,7 @@ class Trainer:
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh={mesh!r}: pass a parallel.mesh.make_mesh Mesh")
         self.mesh = mesh
-        self.layout = None if mesh is None else MeshLayout(mesh)
+        self.layout = None if mesh is None else MeshLayout(mesh, tie=cfg.tie_embeddings)
         if mesh is not None:
             here = {torch.device(mesh.device_list()[i]) for i in mesh.owned()}
             if len(here) > 1:
@@ -424,7 +483,10 @@ class Trainer:
                 lambda x: x.detach().to(device=self.device, dtype=dtype, copy=True),
                 params,
             )
-        self._dims = transformer.tree_leaves(split_dims(cfg, params))
+        # the whole standard tree's shapes, and this process's split dims
+        self._meta = transformer.tree_map(lambda x: torch.empty_like(x, device="meta"),
+                                          params)
+        self._dims = transformer.tree_leaves(self._stage_tree(split_dims(cfg, params)))
         if self.layout is not None and mesh.num_processes > 1:
             import torch.distributed as dist
 
@@ -438,6 +500,13 @@ class Trainer:
         self.params = params
         self.optimizer = AdamW(tc, params)
         self._acc: Optional[List[torch.Tensor]] = None
+        # with the pp axis split: the tied embedding's leaf index, and the
+        # activations this micro-batch received and sent (`_micro_grads`)
+        self._wte_index = None
+        if self.layout is not None and self.layout.tie_group is not None:
+            index = _with_leaves(params, range(len(self._dims)))
+            self._wte_index = index["wte"]["weight"]
+        self._pp_io: tuple = ([], [])
 
     # ------------------------------------------------------------------
     # the mesh's layout
@@ -453,6 +522,7 @@ class Trainer:
             # balanced split (NOT the inference table): the larger stages last
             base, rem = divmod(cfg.n_layer, S)
             self.pp_counts = [base + (1 if s >= S - rem else 0) for s in range(S)]
+            self.pp_starts = np.cumsum([0] + self.pp_counts).tolist()
             if tc.batch_size % (lay.dp * S):
                 raise ValueError(
                     f"pp training microbatches each dp shard over the stages: "
@@ -470,17 +540,51 @@ class Trainer:
             raise ValueError(f"batch_size {tc.batch_size} must divide by dp={lay.dp}: each "
                              "dp position takes its contiguous rows")
 
-    def _local(self, leaves) -> List[torch.Tensor]:
-        """This process's tp slice of standard-layout `leaves` (copies)."""
+    def _stage_tree(self, tree, stages=None):
+        """The part of a standard-layout `tree` (tensors, or any leaves) that
+        the stages `stages` (default: this process's) hold: their layers'
+        slice of every block leaf, the embedding with stage 0, the final
+        norm and the head (and a tied embedding) with the last stage."""
         lay = self.layout
+        if lay is None or lay.pp == 1:
+            return tree
+        s0, s1 = lay.stages if stages is None else stages
+        if (s0, s1) == (0, lay.pp):
+            return tree
+        unknown = set(tree) - {"wte", "wpe", "blocks", "ln_f", "lm_head"}
+        if unknown:
+            raise ValueError(f"parameter tree keys {sorted(unknown)}: no stage holds them")
+        keep = set()
+        if s0 == 0:
+            keep |= {"wte", "wpe"}
+        if s1 == lay.pp:
+            keep |= {"ln_f", "lm_head"} | ({"wte"} if self.cfg.tie_embeddings else set())
+        a, b = self.pp_starts[s0], self.pp_starts[s1]
+        out = {k: v for k, v in tree.items() if k in keep}
+        out["blocks"] = transformer.tree_map(
+            lambda x: x[a:b] if isinstance(x, torch.Tensor) else x, tree["blocks"])
+        return out
+
+    @property
+    def _split(self) -> bool:
+        """Whether this process holds part of the tree."""
+        lay = self.layout
+        return lay is not None and (lay.tp_local < lay.tp or lay.stages != (0, lay.pp))
+
+    def _local(self, leaves) -> List[torch.Tensor]:
+        """This process's part of the whole tree's standard-layout
+        `leaves`: its stages and its tp slice (copies)."""
+        lay = self.layout
+        leaves = transformer.tree_leaves(self._stage_tree(_with_leaves(self._meta, leaves)))
         n = lay.tp // lay.tp_local
         return [tp_slice(x, d, n, lay.tp_start // lay.tp_local).clone()
                 for x, d in zip(leaves, self._dims)]
 
     def _to_local_tree(self, params):
-        if self.layout.tp_local == self.layout.tp:
+        if not self._split:
             return params
-        return _with_leaves(params, self._local(transformer.tree_leaves(params)))
+        return _with_leaves(self._stage_tree(self._meta),
+                            self._local(transformer.tree_leaves(params)))
 
     def _standard(self, leaves) -> List[torch.Tensor]:
         """`leaves` of this process's tree in the standard layout
@@ -488,10 +592,38 @@ class Trainer:
         group = None if self.layout is None else self.layout.tp_group
         return unshard_params(leaves, self._dims, group)
 
+    def _whole(self, leaves, dtype=None) -> Optional[List[torch.Tensor]]:
+        """The whole tree's standard-layout leaves from this process's
+        `leaves` (of `dtype`, default the params'): gathered over the tp
+        group, then over the pp group on process 0 (the others get None;
+        collective over both groups)."""
+        leaves = self._standard(leaves)
+        lay = self.layout
+        if lay is None or not lay.split_stages:
+            return leaves
+        pp = lay.pp_group
+        if pp.ranks[0] != 0:  # another replica's stages: process 0 has its own
+            return None
+        if pp.index > 0:
+            for x in leaves:
+                pp.send(x.detach(), 0)
+            return None
+        trees = [_with_leaves(self.params, leaves)]
+        for j in range(1, pp.size):
+            part = self._stage_tree(self._meta, lay.pp_stages[j])
+            trees.append(_with_leaves(part, [pp.recv(m.shape, dtype or m.dtype, self.device, j)
+                                             for m in transformer.tree_leaves(part)]))
+        whole = {k: next(t[k] for t in trees if k in t) for k in self._meta if k != "blocks"}
+        whole["blocks"] = _with_leaves(self._meta["blocks"], [
+            torch.cat(parts) for parts in zip(*(transformer.tree_leaves(t["blocks"])
+                                                for t in trees))])
+        return transformer.tree_leaves(whole)
+
     def _standard_params(self):
-        """The params in the standard layout, whatever the mesh."""
-        return _with_leaves(self.params,
-                            self._standard(transformer.tree_leaves(self.params)))
+        """The params in the standard layout, whatever the mesh (None on a
+        process other than 0 when the pp axis is split)."""
+        leaves = self._whole(transformer.tree_leaves(self.params))
+        return None if leaves is None else _with_leaves(self._meta, leaves)
 
     def _rank_trees(self) -> List[Any]:
         """Each of this process's tp ranks' trees: views of `self.params`."""
@@ -529,11 +661,13 @@ class Trainer:
         rows = B // lay.dp
         collect = aux_weight > 0
         ranks = transformer.TPRanks(cfg, self._rank_trees(), lay.tp_group)
-        ce, stats = 0.0, 0.0
+        ce, stats = torch.zeros((), device=self.device), 0.0
         for d in lay.dp_coords:
             xd, yd = x[d * rows:(d + 1) * rows], y[d * rows:(d + 1) * rows]
             if lay.pp > 1:
                 logits = self._pp_logits(ranks, xd, remat)
+                if logits is None:  # the last stage is another process's
+                    continue
             else:
                 out = transformer.sharded_forward(
                     cfg, ranks.ranks, xd, torch.zeros(rows, dtype=torch.long, device=xd.device),
@@ -554,13 +688,19 @@ class Trainer:
             loss = loss + aux_weight * aux / cfg.n_layer
         return loss
 
-    def _pp_logits(self, ranks, x, remat: bool) -> torch.Tensor:
+    def _pp_logits(self, ranks, x, remat: bool) -> Optional[torch.Tensor]:
         """The GPipe ring over one dp shard's rows `x`: S micro-batches,
         stage s running micro-batch t - s at micro-step t (bubbles
-        skipped), embed at stage 0; the head over the last stage's
-        outputs in micro-batch order."""
-        S = self.layout.pp
-        mu = x.shape[0] // S
+        skipped), embed at stage 0; the head over the last stage's outputs
+        in micro-batch order (None where another process holds the last
+        stage).  Only this process's stages run: a stage whose input is
+        another process's receives it (`CommGroup.recv`; a leaf that
+        requires grad when grad is on), and its last stage sends its
+        outputs on, in micro-batch order; both are recorded in `_pp_io`
+        for the backward (`_micro_grads`)."""
+        lay = self.layout
+        S, (s0, s1), pp = lay.pp, lay.stages, lay.pp_group
+        mu, T = x.shape[0] // S, x.shape[1]
         pos, cos, sin = ranks.positions(x[:mu], torch.zeros(mu, dtype=torch.long,
                                                              device=x.device))
         attn = ranks.rep(lambda r: dict(input_pos=torch.zeros(mu, dtype=torch.long,
@@ -568,39 +708,89 @@ class Trainer:
                                         use_flash=self.use_flash,
                                         flash_kernel=self.flash_kernel))
         layers = ranks.layers()
-        starts = np.cumsum([0] + self.pp_counts).tolist()
+        base = self.pp_starts[s0]  # this process's layers start there
+        grad = torch.is_grad_enabled()
         entering: List[Any] = [None] * S  # the activation entering each stage
         emitted: List[Any] = [None] * S
         for t in range(2 * S - 1):
-            for s in reversed(range(S)):  # stage s + 1 reads what s emitted last step
+            for s in reversed(range(s0, s1)):  # stage s + 1 reads what s emitted last step
                 mb = t - s
                 if not 0 <= mb < S:
                     continue
-                h = ranks.embed(x[mb * mu:(mb + 1) * mu], pos) if s == 0 else entering[s]
-                h = ranks.blocks(layers, h, pos, cos, sin, attn, start=starts[s],
-                                 stop=starts[s + 1], remat=remat)
+                if s == 0:
+                    h = ranks.embed(x[mb * mu:(mb + 1) * mu], pos)
+                elif s == s0:
+                    got = pp.recv((mu, T, self.cfg.n_embd), DTYPES[self.tc.dtype],
+                                  ranks.devs[0], pp.index - 1)
+                    if grad:
+                        got.requires_grad_(True)
+                        self._pp_io[0].append(got)
+                    h = ranks.rep(lambda r: got.to(ranks.devs[r]))
+                else:
+                    h = entering[s]
+                h = ranks.blocks(layers, h, pos, cos, sin, attn, start=self.pp_starts[s] - base,
+                                 stop=self.pp_starts[s + 1] - base, remat=remat)
                 self.layer_runs += self.pp_counts[s] * len(ranks.ranks)
                 if s == S - 1:
                     emitted[mb] = h
+                elif s == s1 - 1:
+                    pp.send(h[0], pp.index + 1)
+                    if grad:
+                        self._pp_io[1].append(h[0])
                 else:
                     entering[s + 1] = h
+        if s1 < S:
+            return None
         return ranks.head(ranks.rep(lambda r: torch.cat([e[r] for e in emitted])))
+
+    def _micro_grads(self, x, y, leaves):
+        """(this process's part of the loss of the batch (x, y), the
+        gradients of `leaves`).  With the pp axis split, the Megatron
+        schedule: the process of the last stage differentiates the loss;
+        a process that sent activations receives their gradients, in the
+        order it sent them, and differentiates its outputs with them; the
+        gradients of the activations it received go back to their
+        sender, in the order they came."""
+        lay = self.layout
+        if lay is None or not lay.split_stages:
+            loss = self._loss(x, y, self.tc.remat)
+            return loss, torch.autograd.grad(loss, leaves, allow_unused=True)
+        self._pp_io = ([], [])
+        loss = self._loss(x, y, self.tc.remat)
+        (got, sent), pp = self._pp_io, lay.pp_group
+        self._pp_io = ([], [])
+        inputs = list(leaves) + got
+        if sent:
+            back = [pp.recv(h.shape, h.dtype, h.device, pp.index + 1) for h in sent]
+            grads = torch.autograd.grad(sent, inputs, grad_outputs=back, allow_unused=True)
+        else:
+            grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+        for h, g in zip(got, grads[len(leaves):]):
+            pp.send(torch.zeros_like(h) if g is None else g, pp.index - 1)
+        return loss, grads[:len(leaves)]
 
     def _grad_norm(self, grads) -> torch.Tensor:
         """The global norm of the whole tree's gradients: split leaves
-        summed over the tp group, replicated leaves counted once."""
+        summed over the tp group, replicated leaves counted once, each
+        stage's leaves on its process (summed over the pp group), a tied
+        embedding once (on stage 0's process)."""
         lay = self.layout
-        sq = torch.stack([g.square().sum() for g, d in zip(grads, self._dims)
-                          if d is not None or lay.counts_replicated]).sum()
-        if lay.tp_group is not None:
-            lay.tp_group.all_reduce_(sq)
+        skip = self._wte_index if lay.stages[0] > 0 else None
+        sq = torch.stack([g.square().sum() for i, (g, d) in enumerate(zip(grads, self._dims))
+                          if (d is not None or lay.counts_replicated) and i != skip]).sum()
+        for group in (lay.tp_group, lay.pp_group):
+            if group is not None:
+                group.all_reduce_(sq)
         return sq.sqrt()
 
     def _global_value(self, loss: torch.Tensor) -> torch.Tensor:
-        """A detached per-process loss summed over the dp group."""
+        """A detached per-process loss summed over the dp group, then over
+        the pp group (only the last stage's processes hold a part)."""
         v = loss.detach().clone()
-        if self.layout is not None and self.layout.dp_group is not None:
-            self.layout.dp_group.all_reduce_(v)
+        for group in (() if self.layout is None
+                      else (self.layout.dp_group, self.layout.pp_group)):
+            if group is not None:
+                group.all_reduce_(v)
         return v
 
     def train_step(self, xs: np.ndarray, ys: np.ndarray) -> float:
@@ -616,8 +806,7 @@ class Trainer:
                 acc.zero_()
         losses = []
         for m in range(xs.shape[0]):
-            loss = self._loss(xs[m], ys[m], self.tc.remat)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            loss, grads = self._micro_grads(xs[m], ys[m], leaves)
             for acc, g in zip(self._acc, grads):
                 if g is not None:  # an unused leaf's gradient is zero
                     acc.add_(g)
@@ -629,6 +818,9 @@ class Trainer:
             self.grad_sync_s += time.perf_counter() - t0
         for acc in self._acc:
             acc.div_(xs.shape[0])
+        if self._wte_index is not None:
+            # the tied embedding's gradients of stage 0 and the last stage
+            self.layout.tie_group.all_reduce_(self._acc[self._wte_index])
         norm = None if self.layout is None else self._grad_norm(self._acc)
         self.optimizer.update(leaves, self._acc, norm=norm)
         self.iter_num += 1
@@ -723,7 +915,8 @@ class Trainer:
         process 0 alone writes."""
         params = self._standard_params()
         state = self.optimizer.state_dict()
-        state = dict(state, mu=self._standard(state["mu"]), nu=self._standard(state["nu"]))
+        state = dict(state, mu=self._whole(state["mu"], torch.float32),
+                     nu=self._whole(state["nu"], torch.float32))
         out_dir = Path(out_dir).resolve()
         if self.mesh is not None and self.mesh.process_id != 0:
             return out_dir
@@ -753,7 +946,7 @@ class Trainer:
         tr = cls(cfg, tc, mesh=mesh, params=params, out_dir=out_dir, device=device)
         del params
         opt = torch.load(out_dir / "opt_state.pt", map_location=tr.device)
-        if tr.layout is not None and tr.layout.tp_local < tr.layout.tp:
+        if tr._split:
             opt = dict(opt, mu=tr._local(opt["mu"]), nu=tr._local(opt["nu"]))
         tr.optimizer.load_state_dict(opt)
         tr.iter_num = state["iter_num"]

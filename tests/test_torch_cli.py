@@ -403,6 +403,26 @@ def test_chat_cli_two_turns_give_the_jax_chat_sessions_replies(converted, monkey
         assert r and tok.decode(np.asarray(r)) in out
 
 
+def test_chat_cli_sp_devices_gives_the_jax_chat_sessions_replies(converted, monkeypatch,
+                                                                 capsys):
+    """`cli.chat --sp-devices 2` (an `SPChatSession` over two ranks on the
+    CPU, its sp flags set) keeps the JAX single-device session's
+    conversation."""
+    port_dir, jax_dir = converted
+    turns = ["w5 w6 w7 w8", "w9 w10"]
+    monkeypatch.setattr(sys, "stdin", io.StringIO("\n".join(turns) + "\n"))
+    session = chat_cli.main(["--device", "cpu", "--ckpt", str(port_dir), *CKPT_RUN,
+                             "--temperature", "0", "--n-tokens", "12", "--sp-devices", "2",
+                             "--sp-flash", "--sp-chunk", "3"])
+    assert type(session).__name__ == "SPChatSession" and session.gen.P == 2
+    gen, tok, style = jax_model(jax_dir)
+    jsess = gen.chat_session()
+    for t in turns:
+        list(jsess.send(tok.encode(style.apply(t)).tolist(), 12, temperature=0.0,
+                        stop_sequences=style.stop_tokens(tok)))
+    assert session.history == jsess.history
+
+
 def test_train_cli_init_hf_steps_from_the_converted_weights(hf_snapshot, tmp_path):
     ckpt = tmp_path / "ckpt"
     shutil.copytree(hf_snapshot, ckpt)
@@ -501,9 +521,10 @@ def test_checkpoint_tools_on_the_converted_checkpoint(converted, tmp_path, capsy
 @pytest.mark.parametrize("flag", ["--tp-devices", "--pipeline-stages", "--ep-devices",
                                   "--sp-devices"])
 def test_chat_cli_refuses_unported_backends(flag):
-    """ep and sp are refused; the recurrent pipeline and tp backends are
+    """ep is refused; the recurrent pipeline, tp and sp backends are
     ported and, like every chat, need a checkpoint's tokenizer."""
     match = ("needs a checkpoint with a tokenizer"
-             if flag in ("--pipeline-stages", "--tp-devices") else "not ported")
+             if flag in ("--pipeline-stages", "--tp-devices", "--sp-devices")
+             else "not ported")
     with pytest.raises(SystemExit, match=match):
         chat_cli.main(["--device", "cpu", "--model", "pythia-14m", flag, "2"])

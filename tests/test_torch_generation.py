@@ -336,9 +336,9 @@ def test_sample_cli_runs_on_cpu_and_raises_without_a_gpu(tmp_path):
 def test_sample_cli_refuses_unported_flags(flag, tmp_path):
     """The flags of features the port does not carry are refused; the
     recurrent pipeline (`--pipeline-stages`), tensor parallelism
-    (`--tp-devices`), `--profile-dir` and `--coordinator` (here a job of
-    one process; two are tests/test_torch_inference_procs.py's) are
-    ported and run."""
+    (`--tp-devices`), sequence parallelism (`--sp-devices`),
+    `--profile-dir` and `--coordinator` (here a job of one process; two
+    are tests/test_torch_inference_procs.py's) are ported and run."""
     from mdi_llm_tpu_torch.cli import sample as cli
 
     value = {"--profile-dir": str(tmp_path / "prof"),
@@ -347,7 +347,8 @@ def test_sample_cli_refuses_unported_flags(flag, tmp_path):
     args = cli.build_parser().parse_args(
         ["--device", "cpu", "--model", "pythia-14m", "--n-tokens", "4", "--greedy", flag, value,
          *job])
-    if flag in ("--pipeline-stages", "--profile-dir", "--tp-devices", "--coordinator"):
+    if flag in ("--pipeline-stages", "--profile-dir", "--tp-devices", "--coordinator",
+                "--sp-devices"):
         _prompts, outs, stats, _gen, _tok, _s = cli.run(args)
         assert stats.tokens_generated == 4 and len(outs) == 1
         return

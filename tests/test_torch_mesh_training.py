@@ -185,9 +185,12 @@ def test_mesh_guards():
     with pytest.raises(ValueError, match="axes"):
         ttr.Trainer(cfg, ttr.TrainingConfig(**asdict(small_tc())),
                     mesh=make_mesh({"rows": 2}, cpu), device="cpu")
-    with pytest.raises(ValueError, match="whole pp groups"):
+    with pytest.raises(ValueError, match="order dp, pp, tp"):
         # process 0 of 2 would hold stage 0 of both replicas
         ttr.MeshLayout(make_mesh({"pp": 2, "dp": 2}, cpu, process_id=0, num_processes=2))
+    with pytest.raises(ValueError, match="whole tp group"):
+        # each process would hold one stage's half of its tp group
+        ttr.MeshLayout(make_mesh({"pp": 2, "tp": 2}, cpu, process_id=0, num_processes=4))
     with pytest.raises(ValueError, match="not the mesh's device"):
         ttr.Trainer(cfg, ttr.TrainingConfig(**asdict(small_tc())),
                     mesh=make_mesh({"dp": 2}, ["meta"]), device="cpu")

@@ -10,6 +10,11 @@
   1 prints none, and the checkpoint process 0 writes holds the
   single-process run's parameters in the standard layout; the two
   processes resume it with the single-process resume's next loss.
+- The same for `--mesh pp=2` and `--mesh pp=2,tp=2` (each process one
+  stage, with its whole tp group: the stage hop a point-to-point send and
+  receive, the gradients of the received activations sent back), and for
+  pp=2 with tied embeddings (the two stages' gradients of the shared
+  leaf summed).
 - A process whose peer never joins fails within the join's timeout
   (`parallel.nodes.init_distributed(timeout_s=)`, as the CLI calls it).
 - `--coordinator` without `--num-processes`, or without `--mesh`, is
@@ -88,7 +93,7 @@ def _lines(stdout, key):
             if ln.startswith("{") and key in json.loads(ln)]
 
 
-@pytest.mark.parametrize("mesh", ["dp=2", "tp=2"])
+@pytest.mark.parametrize("mesh", ["dp=2", "tp=2", "pp=2", "pp=2,tp=2"])
 def test_two_processes_match_one(tmp_path, dataset, mesh, capsys):
     argv = [*RUN, "--dataset", str(dataset), "--mesh", mesh]
     one, two = tmp_path / "one", tmp_path / "two"
@@ -121,6 +126,28 @@ def test_two_processes_match_one(tmp_path, dataset, mesh, capsys):
     got = _lines(jobs[0][1], "loss")
     assert len(got) == len(want) == 1
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+
+
+def test_two_process_stages_sum_the_tied_embedding(tmp_path, dataset, capsys):
+    """pp=2 over two processes with tied embeddings (stage 0 embeds, the
+    last stage's head reads the same leaf): the two stages' gradients of
+    it are summed before the clip and the update, so the loss lines and
+    the checkpoint are one process's."""
+    argv = [*RUN, "--dataset", str(dataset), "--mesh", "pp=2", "--max-iters", "3",
+            "--override", "tie_embeddings=true"]
+    one, two = tmp_path / "one", tmp_path / "two"
+    train_cli.main([*argv, "--ckpt", str(one)])
+    want = _lines(capsys.readouterr().out, "loss")
+    jobs = _job([*argv, "--ckpt", str(two)])
+    for rc, _, err in jobs:
+        assert rc == 0, err[-3000:]
+    got = _lines(jobs[0][1], "loss")
+    assert len(got) == len(want) == 3
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    a, b = torch.load(one / "params.pt"), torch.load(two / "params.pt")
+    assert "weight" not in a.get("lm_head", {}) and sorted(a) == sorted(b)
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=2e-4, atol=2e-5)
 
 
 # the train CLI's join, with the wait cut from `nodes.TIMEOUT_S` to 3 s
