@@ -154,10 +154,11 @@ remat) compiled instead of compiling them again.
 15. graphs — the engine's and the Generator's steps as CUDA graphs
    (the default everywhere above) against eager launches of the same step
    bodies (the private `_graphs=False` switch), at full tiny-llama-1.1b
-   width and depth in bf16: the serve phase's trace through `cli.build` +
-   `engine.run()` over a bf16 pool in turns eager, graph, graph, eager,
-   over int8 and e4m3 pools eager then graph, and the generate phase's
-   run in turns eager, graph, graph, eager (each Generator
+   width and depth in bf16: the serve phase's trace at `GRAPH_TOKENS` (32)
+   new tokens through `cli.build` + `engine.run()` over a bf16 pool in
+   turns eager, graph, graph, eager, over int8 and e4m3 pools eager then
+   graph, and the generate phase's prompts with 32 new tokens in turns
+   eager, graph, graph, eager (each Generator
    called once first, so the timed calls are the second with their
    shapes).  Fails unless greedy streams are identical between the routes
    (the near-tie rule of the parity phases applies), host_syncs are equal,
@@ -235,8 +236,8 @@ remat) compiled instead of compiling them again.
    with bf16 (printed: random weights make them diverge legitimately) and
    each step report's flops over bf16's (w8a8 within 0.01%); (b)
    `Generator(quantize=...).generate` on the generate phase's 4 prompts
-   with exactly 22 K2 launches, decode tokens/s (the graph capture taken
-   out) and prefill seconds beside bf16's; (c) one float32 forward of each
+   with exactly 22 K2 launches, decode chunks of 8, decode tokens/s (the
+   graph capture taken out) and prefill seconds beside bf16's; (c) one float32 forward of each
    mode (4 layers) against the same forward through
    `plain_quantized_einsum` (float64 products): max |err| <= 1e-4 x
    max(1, max |plain|); (d) `cli.prepare_model --quantize int8` on
@@ -267,8 +268,9 @@ remat) compiled instead of compiling them again.
    exactly 32), stored bytes, tokens/s and MFU/MBU printed; at 4 layers a float32
    forward of each mode (w8, w8a8, int4) against a float64 plain version
    of the quantized forward (`plain_moe_quantized_einsum`): max |err| <=
-   1e-4 x max(1, max |plain|); then the trace served once in each mode at
-   4 layers, peak memory printed (int4's bounded by `quant.W4_Z_BYTES`).
+   1e-4 x max(1, max |plain|); then the trace (32 new tokens) served once
+   in each mode at 4 layers, peak memory printed (int4's bounded by
+   `quant.W4_Z_BYTES`).
 21. moe-train — `Trainer.train_step` at Mixtral's width, 2 layers, bf16,
    B=1, T=2048, remat, the flash route, `moe_aux_weight` 0.01: the
    reckoned memory first, then 3 steps with exactly 4 K2, 2 K3 and 2 K4
@@ -284,7 +286,7 @@ remat) compiled instead of compiling them again.
    steps recorded on a one-layer stand-in, every candidate held against
    the plain version, then timed over those steps, each weighted by its
    count; prints the winner, the default and the committed entry.  Where
-   the winner is not the default split, the trace served whole (22 and 16
+   the winner is not the default split, the trace served whole (22 and 8
    layers, bf16) with the default and the winner in the order default,
    winner, winner, default on fresh engines, each taking as many forwards
    as the recording has steps: tokens/s printed.  K1 at Mixtral's
@@ -390,15 +392,17 @@ remat) compiled instead of compiling them again.
    ranks' geometries (B=4, T=2048, causal, bf16, hs 64: 16 heads over 2
    groups and 8 over 1) against their plain versions (bf16 limits), timed
    beside them, SDPA's backward and the bound.  Then the train phase's
-   set-up (tiny-llama-1.1b, all 22 layers, bf16, B=4, T=2048, 2
-   micro-batches, remat, the flash route, random weights from seed 10137)
+   set-up (tiny-llama-1.1b cut to `MESH_TRAIN_LAYERS` (11) of its 22
+   layers, bf16, B=4, T=2048, 2 micro-batches, remat, the flash route,
+   random weights from seed 10137)
    without a mesh and on `dp=2`, `tp=2`, `dp=2,tp=2`, `dp=1,pp=2` and
    `dp=1,pp=2,tp=2`, one warm-up step and three counted ones each on the
-   same batches: every step runs 2 x 22 x (the mesh's positions) layer
+   same batches: every step runs 2 x 11 x (the mesh's positions) layer
    runs (the Trainer's `layer_runs`: a pp ring runs S micro-batches of
    each dp shard's rows) and launches K2 twice per run, K3 and K4 once,
    and no plain version; prints step seconds beside the unmeshed step's,
-   the losses and peak memory.  Then float32 at 4 layers, B=2, grad_clip
+   the losses and peak memory.  Then float32 at `MESH_F32_LAYERS` (2)
+   layers, B=2, grad_clip
    0.05 (clipping engaged), lr 1e-4 (`MESH_F32`): each mesh, through K2-K4
    and through their plain versions (`flash_kernel=False`), takes three
    steps whose losses equal the unmeshed Trainer's on the same route
@@ -409,20 +413,20 @@ remat) compiled instead of compiling them again.
    port, gloo staged through pinned host memory), each under its own time
    limit, through an entry that reports its Trainer (step seconds, the
    gradient all-reduce's seconds, calls and bytes, layer runs, K2-K4
-   launches) and writes no checkpoint: in float32 at 4 layers (B=2,
+   launches) and writes no checkpoint: in float32 at `MESH_F32_LAYERS` (B=2,
    grad_clip 0.05) process 0's three loss lines equal one process's
    `--mesh dp=2` run's within 1e-5 (relative) and process 1 prints none;
-   in bf16 at the train phase's shape cut to `MESH_PROCS_DP_LAYERS` (11)
+   in bf16 at the train phase's shape cut to `MESH_PROCS_DP_LAYERS` (4)
    layers (the gradient all-reduce, through host memory, is the step)
-   each process runs 3 x 2 x 11 layers, K2 twice per run and K3, K4 once,
+   each process runs 3 x 2 x 4 layers, K2 twice per run and K3, K4 once,
    and the losses are finite; prints both processes' step and all-reduce
    seconds beside one process's steps.  Then the same two parts for `--mesh pp=2` (each
    process one GPipe stage, the hop a gloo send/recv of each
    micro-batch's activations and, in the backward, of their gradients)
    and `--mesh pp=2,tp=2` (one stage and its whole tp group each): the
    float32 loss lines equal one process's run on the same mesh; in bf16
-   each process holds stages [i, i+1), runs 3 x 2 x 2 micro-batches x 11
-   layers (x 2 ranks with tp) and launches K2 twice per run and K3, K4
+   at `MESH_PROCS_PP_LAYERS` (6) layers each process holds stages [i,
+   i+1), runs 3 x 2 x 2 micro-batches x 3 layers (x 2 ranks with tp) and launches K2 twice per run and K3, K4
    once; prints the step seconds beside one process's and the pp group's
    calls, bytes and host seconds.
    Beside its parameter check the float32 part prints, per mesh and route,
@@ -469,8 +473,8 @@ remat) compiled instead of compiling them again.
    ranks), float32 at 4 layers, as a fourth job of the same two
    processes: the one-process pipe x tp ring's streams.
 34. sp — sequence-parallel inference (`parallel/sp_inference.py`) at
-   Llama-3-8B's full width and depth (32 layers, 4096 wide, 32 heads, 8
-   KV groups, hs 128), bf16, random weights: K2 with its LSE against its
+   Llama-3-8B's full width (4096 wide, 32 heads, 8 KV groups, hs 128) at
+   16 of its 32 layers, bf16, random weights: K2 with its LSE against its
    plain version at the sp 2 ring's block shapes (B=2, T=4096, causal and
    non-causal), ring attention's gradient (P=2, T=1024 per rank: K2, K3
    and K4 with the LSE's cotangent against the plain ring in float32,
@@ -479,7 +483,7 @@ remat) compiled instead of compiling them again.
    6000 random tokens, 64 greedy new tokens each, through the
    `Generator` (K2 once per layer) and `SPGenerator` at sp 2 with and
    without `use_flash` and at sp 4 with `use_flash, flash_min_len=1024`:
-   K2 launches exactly P^2 x 32 per flash prefill and 0 on the plain
+   K2 launches exactly P^2 x 16 per flash prefill and 0 on the plain
    ring, every sample gets its 64 tokens; prints prefill seconds, decode
    tokens/s, each rank's KV bytes beside the Generator's cache and the
    bf16 divergences from the Generator's streams (printed with the
@@ -488,6 +492,45 @@ remat) compiled instead of compiling them again.
    Then float32 at 4 layers: sp 2 and sp 4 on both routes give the
    Generator's streams (`divergence_ok`), and an `SPChatSession` of two
    turns around a Ctrl-C rollback gives the `ChatSession`'s replies.
+35. ep — expert parallelism (`parallel/expert.py`), run after moe-train
+   (listed there in the phase order): Mixtral-8x7B's published widths at
+   16 bf16 layers (the moe phase's tree, drawn again from its seed: the
+   card cannot hold it beside moe-quant's 32 int8 layers), the generate
+   phase's four prompts of 1100-1900 tokens (bucket 2048), 32 greedy new
+   tokens in decode chunks of 8, twice (the first call captures, the
+   second, counted, replays), through the dense `Generator` and the
+   `--ep-devices` 2 and 4 Generators at exact capacity (every rank on the
+   card): K2 exactly once
+   per layer (attention runs once on the card), the plain version never,
+   every sample in the vocabulary; prints prefill seconds, decode
+   tokens/s and their ratios to the dense Generator, whether decode
+   replays graphs, and how many bf16 streams differ (not gated: router
+   near-ties).  float32 at 4 layers, the fp tree and its int8 tree, two
+   prompts of ~300 tokens: ep 2 and ep 4 give the dense Generator's
+   greedy streams (`divergence_ok`).
+   Then the Trainer at moe-train's shape (2 layers, B=1, T=2048, bf16,
+   flash, remat): dense (moe-train's counted steps of the same run, or
+   measured here without that phase), then ep 2 and ep 4 at
+   `moe_capacity_factor`
+   None and 1.25, 3 counted steps each: K2 2 x 2, K3 and K4 2 per step
+   (the layers run once over the batch), prints step seconds over the
+   dense step, layer runs and peak memory.  float32 at 2 layers,
+   capacity None: the loss and the first step's gradients of the ep 2 and
+   ep 4 loss equal the dense formulation's within B*T float32 roundings
+   of each leaf's largest gradient (`grad_limit`).
+36. sp-train — sequence-parallel training: K2 with the LSE, K3 and K4
+   against their plain versions at the sp 2 Trainer's per-rank blocks
+   (B=1, T=4096, 32 heads / 8 groups / hs 128, bf16, causal and
+   non-causal); then Llama-3-8B's published widths at 8 of its 32 layers
+   (AdamW's float32 state of all 32 does not fit beside the weights), B=1,
+   T=8192, bf16, flash, remat: the unmeshed Trainer, then `--mesh sp=2`
+   and `sp=4`, a warm-up and 3 counted steps each: K2 2 P^2 x 8, K3 and
+   K4 P^2 x 8 per step; prints the step seconds over the unmeshed step,
+   the peak memory and the activation memory per rank.  float32 at 4
+   layers of tiny-llama-1.1b (mesh-train's cut) on `sp=2` and
+   `dp=1,sp=2,tp=2`: every loss line within 1e-5 (relative) of the
+   unmeshed Trainer's, the parameters after 3 steps within
+   `MESH_PARAM_TOL`, and the first step's gradients within `grad_limit`.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4, each with `paths`: its launches in every phase that drives
@@ -501,7 +544,9 @@ three counted steps, K2's, K3's and K4's `mesh-train` over the five
 meshes' counted bf16 steps, K1's `pp-tp-serve` over its two ring serves,
 K2's `inference-procs` over the two processes' bf16 run, K2's `sp` over
 the three bf16 sp prefills, K3's and K4's `sp` the counted ring
-gradient's); the last line
+gradient's, K2's `ep` over the two ep prefills and the four ep Trainers'
+counted steps, K3's and K4's `ep` over those steps, K2's, K3's and K4's
+`sp-train` over the sp 2 and sp 4 Trainers' counted steps); the last line
 is `{"ok": true, "device": {...}}`.
 """
 
@@ -1868,6 +1913,7 @@ def phase_chat(k2, card, ckpt_dir):
 
 
 GRAPH_ROUTES = (("eager", False), ("graphs", True), ("graphs", True), ("eager", False))
+GRAPH_TOKENS = 32  # new tokens of the phase's serves and generates (64 before PR 18's cuts)
 # pool: (serve CLI flags, the routes in turn)
 GRAPH_POOLS = (("bf16", [], GRAPH_ROUTES), ("int8", ["--kv-dtype", "int8"], GRAPH_ROUTES[:2]),
                ("e4m3", ["--kv-dtype", "float8"], GRAPH_ROUTES[:2]))
@@ -2021,7 +2067,7 @@ def phase_graphs(k1, k2, card):
         return {route: statistics.median(s["tokens_per_s"] for _, s in runs if s["route"] == route)
                 for route in ("eager", "graphs")}
 
-    base = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"]
+    base = SERVE_BASE + ["--synthetic", "16", "--n-tokens", str(GRAPH_TOKENS)]
     graph_serve_run("graphs", SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8"], True)
     for pool, extra, routes in GRAPH_POOLS:
         runs = []
@@ -2055,7 +2101,7 @@ def phase_graphs(k1, k2, card):
     prompts = long_prompts((1100, 1370, 1650, 1900), cfg.vocab_size)
     first = {}
     for graphs, gen in gens.items():  # first calls: the graph route captures here
-        outs, stats = gen.generate(prompts, 64, temperature=0.0, chunk_size=16)
+        outs, stats = gen.generate(prompts, GRAPH_TOKENS, temperature=0.0, chunk_size=16)
         first[graphs] = (outs, stats.captures, stats.capture_s)
     if not first[True][1] > 0 or first[False][1]:
         fail("graphs", f"generate's first calls captured {first[True][1]} (graphs) and "
@@ -2066,7 +2112,7 @@ def phase_graphs(k1, k2, card):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         flash_attention.launches = flash_attention_plain.calls = 0
-        outs, stats = gen.generate(prompts, 64, temperature=0.0, chunk_size=16)
+        outs, stats = gen.generate(prompts, GRAPH_TOKENS, temperature=0.0, chunk_size=16)
         torch.cuda.synchronize()
         launches, plain = flash_attention.launches, flash_attention_plain.calls
         if launches != 22 or plain or stats.captures:
@@ -2954,7 +3000,9 @@ def phase_quant(k1, k2, card, ckpt_dir):
         gen.generate([[1, 2, 3]] * 4, 4, temperature=0.0)  # warm-up, not counted
         torch.cuda.synchronize()
         flash_attention.launches = flash_attention_plain.calls = 0
-        outs, stats = gen.generate(prompts, 64, temperature=0.0, chunk_size=16)
+        # decode chunks of 8: each capture half the launches of one of 16
+        # (PR 18's cuts of the whole run's time)
+        outs, stats = gen.generate(prompts, 64, temperature=0.0, chunk_size=8)
         torch.cuda.synchronize()
         launches, plain = flash_attention.launches, flash_attention_plain.calls
         if launches != 22 or plain:
@@ -3338,7 +3386,9 @@ def phase_moe_quant(k1, k2, card):
     gen = Generator(cfg, params, max_seq_length=2048, device=DEVICE)
     if not gen.quantized:
         fail("moe-quant", "the int8 tree is not seen as quantized")
-    trace = synthetic_trace(16, cfg.vocab_size, 2048, 64)
+    # the 4-layer modes' trace: 32 new tokens (64 before PR 18's cuts of the
+    # whole run's time)
+    trace = synthetic_trace(16, cfg.vocab_size, 2048, 32)
     _res, line, engine, launches = engine_serve(
         "moe-quant", gen, synthetic_trace(16, cfg.vocab_size, 2048, MOE_QUANT_TOKENS), 32)
     dev = line["device"]
@@ -3425,6 +3475,8 @@ def phase_moe_quant(k1, k2, card):
 MOE_TRAIN = dict(batch_size=1, block_size=2048, grad_acc_steps=1, learning_rate=1e-3,
                  warmup_iters=0, lr_decay_iters=100, min_lr=1e-4, eval_iters=1,
                  dtype="bfloat16", remat=True, use_flash=True, moe_aux_weight=0.01)
+# moe-train's counted dense steps, the ep phase's baseline in the same run
+MOE_TRAIN_DENSE = {}
 
 
 def flash_bwd_case_ms(B, T, H, G, hs, card, phase="moe-train", causal=True):
@@ -3539,6 +3591,10 @@ def phase_moe_train(k3, k4, card):
         del _logits
     peak = torch.cuda.max_memory_allocated() / 2**30
     dt = float(np.median([d for d, _l, _a in steps]))
+    MOE_TRAIN_DENSE.update({
+        "step_s": [round(d, 4) for d, _l, _a in steps], "step_s_median": dt,
+        "step_losses": [round(lo, 4) for _d, lo, _a in steps], "layer_runs_per_step": L,
+        "launches_per_step": want, "peak_memory_gib": peak, "measured_in": "moe-train"})
     print("moe-train: " + json.dumps({
         "model": MIXTRAL, "layers": L, "batch": B, "block": T, "dtype": tc.dtype,
         "remat": tc.remat, "use_flash": tr.use_flash, "moe_aux_weight": tc.moe_aux_weight,
@@ -3592,7 +3648,216 @@ def phase_moe_train(k3, k4, card):
     free()
 
 
+EP_SIZES = (2, 4)
+EP_TOKENS = 32  # new tokens of the ep phase's bf16 generates
+EP_CF = 1.25  # the finite capacity factor of the ep Trainer's second runs
+
+
+def ep_generate(phase, label, gen, prompts, n_new, card) -> dict:
+    """`gen.generate` over `prompts`, K2 counted, after a warm-up call on
+    the same shapes (which captures the decode chunks the counted call
+    replays): K2 exactly once per layer (attention runs once on the card
+    whatever the ep ranks), the plain version never.  Returns the run's
+    numbers."""
+    import torch
+
+    # decode chunks of 8: each captured chunk holds half the launches of
+    # one of 16 (the capture's seconds grow with the ep ranks' launches)
+    _outs, warm = gen.generate(prompts, n_new, temperature=0.0, chunk_size=8)
+    torch.cuda.synchronize()
+    reset_flash_counts()
+    outs, stats = gen.generate(prompts, n_new, temperature=0.0, chunk_size=8)
+    torch.cuda.synchronize()
+    got = flash_counts()
+    if (got["K2"], got["plain"]) != (gen.cfg.n_layer, 0):
+        fail(phase, f"{label}: generate launched {got}; want K2 {gen.cfg.n_layer}, plain 0")
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        if len(o) - len(p) != n_new or not all(0 <= t < gen.cfg.padded_vocab_size
+                                               for t in o[len(p):]):
+            fail(phase, f"{label}: sample {i} did not get {n_new} tokens in the vocabulary")
+    return {"outs": dict(enumerate(outs)), "prefill_s": stats.prefill_s,
+            "decode_tokens_per_s": stats.tokens_generated / (stats.decode_s - stats.capture_s),
+            "captures": (warm.captures, stats.captures), "capture_s": warm.capture_s,
+            "decode": "graphs" if gen._graphs else "eager", "k2_launches": got["K2"]}
+
+
+def grad_limit(n_terms: int) -> float:
+    """The float32 limit on two gradients of one loss computed in other
+    summation orders, relative to the leaf's largest entry: each entry is
+    a sum over `n_terms` per-token contributions, and recursive summation
+    errs by at most n u of the sum of their magnitudes (u = 2^-24); that
+    sum is taken to be at most the leaf's largest entry times 1 (a wrong
+    gradient differs at O(1) of it)."""
+    return n_terms * 2.0 ** -24
+
+
+def phase_ep(k2, k3, k4, card):
+    """Expert parallelism on the card (the module docstring, phase 35)."""
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.ops.quant import quantize_params
+    from mdi_llm_tpu_torch.parallel.expert import ep_moe_forward
+    from mdi_llm_tpu_torch.parallel.mesh import make_mesh
+    from mdi_llm_tpu_torch.training import Trainer, TrainingConfig, cross_entropy_loss
+    from mdi_llm_tpu_torch.utils import data_loader
+
+    # (a) 16 bf16 layers: the dense Generator and the --ep-devices 2 and 4 ones
+    cfg = mixtral_config("ep", MOE_LAYERS)
+    free()
+    params = transformer.init_params(cfg, 10137, dtype=torch.bfloat16, device=DEVICE)
+    prompts = long_prompts((1100, 1370, 1650, 1900), cfg.vocab_size)
+    runs, k2_total = {}, 0
+    for ep in (None,) + EP_SIZES:
+        label = "dense" if ep is None else f"ep {ep}"
+        mesh = None if ep is None else make_mesh({"ep": ep}, [DEVICE])
+        gen = Generator(cfg, params, max_seq_length=2048, device=DEVICE, mesh=mesh)
+        if (ep is None) != (gen._moe_impl is None):
+            fail("ep", f"{label}: the token dispatch is {'on' if gen._moe_impl else 'off'}")
+        torch.cuda.reset_peak_memory_stats()
+        runs[label] = ep_generate("ep", label, gen, prompts, EP_TOKENS, card)
+        runs[label]["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if ep is not None:
+            k2_total += runs[label]["k2_launches"]
+        del gen
+        free()
+    base = runs["dense"]
+    for label, r in runs.items():
+        n_div = 0 if label == "dense" else sum(
+            r["outs"][i] != base["outs"][i] for i in base["outs"])
+        print("ep: generate " + json.dumps({
+            "card": card, "model": MIXTRAL, "layers": MOE_LAYERS, "dtype": "bfloat16",
+            "route": label, "capacity_factor": None, "prompt_lens": [len(p) for p in prompts],
+            "new_tokens": EP_TOKENS, "prefill_s": r["prefill_s"],
+            "prefill_over_dense": r["prefill_s"] / base["prefill_s"],
+            "decode_tokens_per_s": r["decode_tokens_per_s"],
+            "decode_over_dense": r["decode_tokens_per_s"] / base["decode_tokens_per_s"],
+            "decode": r["decode"], "captures_warm_counted": r["captures"],
+            "capture_s": r["capture_s"],
+            "k2_launches": r["k2_launches"], "bf16_streams_differing": n_div,
+            "peak_memory_gib": r["peak_memory_gib"]}), flush=True)
+    del params, runs
+    free()
+
+    # (b) float32, 4 layers: the fp tree and its int8 tree, ep 2 and 4 against dense
+    cfg4 = mixtral_config("ep", 4)
+    params = transformer.init_params(cfg4, 10137, dtype=torch.float32, device=DEVICE)
+    fprompts = long_prompts((300, 293), cfg4.vocab_size, seed=7)
+    for tree_label in ("fp", "int8"):
+        tree = params if tree_label == "fp" else quantize_params(params, mode="w8")
+        # eager decode: these runs hold the streams, not the graphs
+        dense = Generator(cfg4, tree, max_seq_length=2048, device=DEVICE, _graphs=False)
+        want, _ = dense.generate(fprompts, 16, temperature=0.0)
+        want = dict(enumerate(want))
+        for ep in EP_SIZES:
+            gen = Generator(cfg4, tree, max_seq_length=2048, device=DEVICE, _graphs=False,
+                            mesh=make_mesh({"ep": ep}, [DEVICE]))
+            got, _ = gen.generate(fprompts, 16, temperature=0.0)
+            got = dict(enumerate(got))
+            divergence_ok("ep", dense, got, want, f"float32 {tree_label} ep {ep}")
+            print(f"ep: float32 {tree_label}, 4 layers at full width: ep {ep} gives "
+                  f"{sum(got[i] == want[i] for i in want)} of {len(want)} greedy streams "
+                  "identical to the dense Generator's", flush=True)
+            del gen
+            free()
+        del dense, tree
+        free()
+    del params
+    free()
+
+    # (c) the Trainer at moe-train's shape: dense, then ep 2 and 4 at
+    # capacity None and EP_CF
+    cfg2 = mixtral_config("ep", 2)
+    tc = TrainingConfig(**MOE_TRAIN)
+    L, B, T = cfg2.n_layer, tc.batch_size, tc.block_size
+    data = synthetic_tokens(1 << 20, seed=11)
+    rng = np.random.default_rng(12)
+    fixed = [data_loader.get_batch(data, B, T, rng) for _ in range(4)]
+    want = {"K2": 2 * L, "K3": L, "K4": L, "plain": 0}
+    # the dense baseline: moe-train's steps (the same shape, batches and
+    # seed) when that phase ran in this call
+    results = {"dense": dict(MOE_TRAIN_DENSE)} if MOE_TRAIN_DENSE else {}
+    totals = {"K2": 0, "K3": 0, "K4": 0}
+    dense_run = () if results else ((None, None),)
+    for ep, cf in dense_run + tuple((e, c) for e in EP_SIZES for c in (None, EP_CF)):
+        label = "dense" if ep is None else f"ep {ep} cf {cf}"
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg2, TrainingConfig(**{**MOE_TRAIN, "moe_capacity_factor": cf}),
+                     mesh=None if ep is None else make_mesh({"ep": ep}, [DEVICE]),
+                     device=DEVICE)
+        tr.train_step(fixed[0][0][None], fixed[0][1][None])  # warm-up, not counted
+        steps = []
+        for x, y in fixed[1:]:
+            torch.cuda.synchronize()
+            reset_flash_counts()
+            runs0 = tr.layer_runs
+            t0 = time.perf_counter()
+            loss = tr.train_step(x[None], y[None])
+            dt = time.perf_counter() - t0
+            got = flash_counts()
+            if got != want or (ep is not None and tr.layer_runs - runs0 != L):
+                fail("ep", f"{label}: one optimizer step launched {got} over "
+                     f"{tr.layer_runs - runs0} layer runs; want {want}")
+            if not np.isfinite(loss):
+                fail("ep", f"{label}: step loss {loss}")
+            if ep is not None:
+                for kk in totals:
+                    totals[kk] += got[kk]
+            steps.append((dt, loss))
+        results[label] = {
+            "step_s": [round(d, 4) for d, _ in steps],
+            "step_s_median": float(np.median([d for d, _ in steps])),
+            "step_losses": [round(lo, 4) for _, lo in steps],
+            "layer_runs_per_step": L, "launches_per_step": want,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "measured_in": "ep"}
+        del tr
+    free()
+    for r in results.values():
+        r["over_dense"] = r["step_s_median"] / results["dense"]["step_s_median"]
+    print("ep: train " + json.dumps({
+        "card": card, "model": MIXTRAL, "layers": L, "batch": B, "block": T,
+        "dtype": tc.dtype, "remat": tc.remat, "use_flash": True, "runs": results}), flush=True)
+    k2.setdefault("paths", {})["ep"] = k2_total + totals["K2"]
+    k3.setdefault("paths", {})["ep"] = totals["K3"]
+    k4.setdefault("paths", {})["ep"] = totals["K4"]
+
+    # (d) float32, 2 layers, capacity None: the first step's gradients of
+    # the ep Trainer's loss against the dense formulation's
+    params = transformer.init_params(cfg2, 10137, dtype=torch.float32, device=DEVICE)
+    transformer.tree_map(lambda a: a.requires_grad_(True), params)
+    leaves = transformer.tree_leaves(params)
+    x, y = (torch.as_tensor(a, device=DEVICE).long() for a in fixed[1])
+
+    def grads(impl):
+        loss = cross_entropy_loss(cfg2, params, x, y, remat=True, use_flash=True,
+                                  moe_aux_weight=MOE_TRAIN["moe_aux_weight"], moe_impl=impl)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    want_loss, want_g = grads(None)
+    limit = grad_limit(B * T)
+    for ep in EP_SIZES:
+        loss, got_g = grads(partial(ep_moe_forward, mesh=make_mesh({"ep": ep}, [DEVICE])))
+        diff = grad_diff(got_g, want_g)
+        del got_g
+        free()
+        rel = abs(loss - want_loss) / abs(want_loss)
+        print(f"ep: float32, 2 layers x {cfg2.n_embd}, B={B} T={T}, ep {ep}, capacity None, "
+              f"aux weight {MOE_TRAIN['moe_aux_weight']}: loss {loss:.7f} vs dense "
+              f"{want_loss:.7f} (rel {rel:.2e}); first-step gradients {diff}, limit "
+              f"{limit:.3e} of the leaf's largest (B*T float32 roundings)", flush=True)
+        if not (diff["max_rel_to_leaf_max"] <= limit and rel <= 1e-5):
+            fail("ep", f"ep {ep}: gradients {diff} (limit {limit}), loss rel {rel}")
+    del params, leaves, want_g
+    free()
+
+
 TUNE_GEOMETRIES = {"tiny-llama-1.1b": (32, 4, 64), MIXTRAL: (32, 8, 128)}
+TUNE_MIXTRAL_LAYERS = 8  # the whole-trace serves (16 before PR 18's cuts of the whole run)
 # the serve and moe phases' trace and engine, as the tuning CLI's flags
 TUNE_SERVE = ["--synthetic", "16", "--n-tokens", "64", "--sequence-length", "2048",
               "--max-batch", "8", "--block-size", "16", "--dtype", "bfloat16", "--seed", "10137"]
@@ -3640,7 +3905,7 @@ def phase_tune(k1, card):
 
     # (b) the trace served whole with the default and the winning split, in
     # the order default, winner, winner, default, each on a fresh engine
-    for model, n_layer in ((TINY_LLAMA, 22), (MIXTRAL, MOE_LAYERS)):
+    for model, n_layer in ((TINY_LLAMA, 22), (MIXTRAL, TUNE_MIXTRAL_LAYERS)):
         best, _results, n_steps = winners[model]
         if best == tuning.DEFAULT_PARAMS:
             print(f"tune: {model}: the winner is the default split; no serve to compare",
@@ -4592,8 +4857,11 @@ def phase_tools(card, ckpt_dir):
 
 MESH_TRAIN_MESHES = ({"dp": 2}, {"tp": 2}, {"dp": 2, "tp": 2}, {"dp": 1, "pp": 2},
                      {"dp": 1, "pp": 2, "tp": 2})
-MESH_F32_LAYERS = 4
-MESH_PROCS_DP_LAYERS = 11  # tiny-llama cut for dp 2 over two processes in bf16
+MESH_F32_LAYERS = 2  # 4 before PR 18's cuts of the whole run's time
+MESH_TRAIN_LAYERS = 11  # the bf16 steps (22 before those cuts)
+MESH_PROCS_DP_LAYERS = 4  # tiny-llama cut for dp 2 over two processes in bf16 (11 before
+# PR 18's cuts of the whole run's time: the gloo gradient all-reduce is the step)
+MESH_PROCS_PP_LAYERS = 6  # and for the GPipe stages over them (22 before PR 18's cuts)
 # clipping engaged (the first norm is far above 0.05).  The learning rate
 # sets how far float32 rounding moves AdamW's normalised update: at 1e-3
 # the first run's 3e8 parameters differed by up to 2.7e-5 on every mesh
@@ -4643,7 +4911,7 @@ def phase_mesh_train(k2, k3, k4, card):
         k3["max_abs_err"] = max(k3.get("max_abs_err", 0.0), rows["dq"][5])
         k4["max_abs_err"] = max(k4.get("max_abs_err", 0.0), rows["dkv"][5])
 
-    cfg = Config.from_name(TINY_LLAMA)
+    cfg = Config.from_name(TINY_LLAMA, n_layer=MESH_TRAIN_LAYERS)
     tc = TrainingConfig(**TRAIN)
     L, a, B, T = cfg.n_layer, tc.grad_acc_steps, tc.batch_size, tc.block_size
     data = synthetic_tokens(1 << 22, seed=10137)
@@ -4921,6 +5189,8 @@ def phase_mesh_train_procs(card):
                            str(TRAIN["batch_size"]), "--grad-acc-steps",
                            str(TRAIN["grad_acc_steps"])] for m in meshes}
         bf16["dp=2"] += ["--override", f"n_layer={MESH_PROCS_DP_LAYERS}"]
+        for m in ("pp=2", "pp=2,tp=2"):
+            bf16[m] += ["--override", f"n_layer={MESH_PROCS_PP_LAYERS}"]
         order = [(m, part) for m in meshes for part in (f32, bf16)]
         ones = {(m, id(part)): mesh_one(part[m]) for m, part in order}
         jobs = dict(zip(((m, id(part)) for m, part in order),
@@ -4948,8 +5218,8 @@ def phase_mesh_train_procs(card):
                 runs = rec["layer_runs"]
                 if mesh == "dp=2":
                     ok = runs == 3 * TRAIN["grad_acc_steps"] * MESH_PROCS_DP_LAYERS
-                else:  # steps x grad-acc x the 2 micro-batches x a stage's 11 layers
-                    ok = (runs == 3 * TRAIN["grad_acc_steps"] * 2 * 11 * tp
+                else:  # steps x grad-acc x the 2 micro-batches x a stage's layers
+                    ok = (runs == 3 * TRAIN["grad_acc_steps"] * 2 * (MESH_PROCS_PP_LAYERS // 2) * tp
                           and rec["stages"] == [i, i + 1])
                 if not ok or (rec["K2"], rec["K3"], rec["K4"]) != (2 * runs, runs, runs):
                     fail("mesh-train-procs", f"{mesh} process {i}: stages {rec['stages']}, "
@@ -4967,7 +5237,8 @@ def phase_mesh_train_procs(card):
                             "pp_group_bytes", "pp_group_s", "peak_memory_gib")
             print("mesh-train-procs: " + json.dumps({
                 "card": card, "model": TINY_LLAMA,
-                "layers": MESH_PROCS_DP_LAYERS if mesh == "dp=2" else 22, "dtype": "bfloat16",
+                "layers": MESH_PROCS_DP_LAYERS if mesh == "dp=2" else MESH_PROCS_PP_LAYERS,
+                "dtype": "bfloat16",
                 "mesh": mesh, "batch": TRAIN["batch_size"], "block": TRAIN["block_size"],
                 "grad_acc": TRAIN["grad_acc_steps"], "losses": losses,
                 "one_process": {**{k: one[k] for k in one_keys}, "losses": loss_lines(one_out)},
@@ -5157,7 +5428,8 @@ INFER_LENS = (1100, 1370, 1650, 1900)  # the generate phase's prompts
 INFER_F32 = ["--model", TINY_LLAMA, "--dtype", "float32", "--override",
              f"n_layer={TP_F32_LAYERS}", "--seed", "10137", "--n-samples", "4",
              "--n-tokens", "32", "--sequence-length", "2048", "--device", DEVICE]
-INFER_BF16_TOKENS = 32  # decode over two processes is gloo calls, one per product
+INFER_BF16_TOKENS = 16  # decode over two processes is gloo calls, one per product (32
+# before PR 18's cuts of the whole run's time)
 INFER_BF16 = ["--model", TINY_LLAMA, "--dtype", "bfloat16", "--seed", "10137",
               "--n-samples", "4", "--n-tokens", str(INFER_BF16_TOKENS),
               "--sequence-length", "2048", "--chunk", "16", "--greedy", "--device", DEVICE]
@@ -5369,8 +5641,8 @@ def phase_inference_procs(k2, card):
 
 
 SP_MODEL = "Llama-3-8B"
-SP_WIDTHS = dict(n_layer=32, n_embd=4096, n_head=32, n_query_groups=8, head_size=128,
-                 block_size=8192)
+SP_WIDTHS = dict(n_embd=4096, n_head=32, n_query_groups=8, head_size=128, block_size=8192)
+SP_LAYERS = 16  # of Llama-3-8B's 32: the whole run's time (PERF.md, PR 18's cuts)
 SP_PROMPTS = (8128, 6000)  # one bucket of 8192: local chunks 4096 (sp 2), 2048 (sp 4)
 SP_RUNS = ((2, True, 2048), (2, False, 2048), (4, True, 1024))  # P, use_flash, flash_min_len
 SP_F32_LAYERS = 4
@@ -5488,16 +5760,15 @@ def sp_ring_grad(k2, k3, k4, card):
     return counts
 
 
-def sp_k2_shapes(k2, card):
-    """K2 against its plain version at the sp 2 ring's two block shapes
-    (the main path's: B=2 rows, T=4096 per rank, 32 heads / 8 groups /
-    hs 128, bfloat16, with the LSE): causal (the diagonal block) and
-    non-causal (a rotated chunk)."""
+def sp_k2_shapes(k2, card, B=2, T=4096, phase="sp"):
+    """K2 against its plain version at an sp 2 ring's two block shapes
+    (the main path's: B rows, T per rank, 32 heads / 8 groups / hs 128,
+    bfloat16, with the LSE; the sp prefill's B=2 by default): causal (the
+    diagonal block) and non-causal (a rotated chunk)."""
     import torch
 
     from mdi_llm_tpu_torch.ops.flash import flash_attention_lse, flash_attention_plain
 
-    B, T = 2, 4096
     q, k, v = flash_inputs(B, T, torch.bfloat16, seed=41, H=32, G=8, hs=128)
     for causal in (True, False):
         out, lse = flash_attention_lse(q, k, v, causal=causal)
@@ -5507,14 +5778,14 @@ def sp_k2_shapes(k2, card):
         lse_err = (lse - ref_lse).abs().max().item()
         del ref, ref_lse, out, lse
         if not (err <= TOL["bfloat16"] and lse_err <= TOL["bfloat16"]):
-            fail("sp", f"K2 ring block causal={causal}: max|err| {err}, lse {lse_err}")
+            fail(phase, f"K2 ring block causal={causal}: max|err| {err}, lse {lse_err}")
         ms = cuda_ms(lambda: flash_attention_lse(q, k, v, causal=causal), 20)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal), 3)
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True), 20)
         b_ms, b_by = flash_bound(B, 32, 8, T, 128, torch.bfloat16, causal, True)
         k2["max_abs_err"] = max(k2.get("max_abs_err", 0.0), err)
-        print(f"sp: {card}: K2 ring block bfloat16 B={B} T={T} 32h/8g hs=128 causal={causal} "
+        print(f"{phase}: {card}: K2 ring block bfloat16 B={B} T={T} 32h/8g hs=128 causal={causal} "
               f"with LSE max_abs_err={err:.3e} lse_err={lse_err:.3e} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
               flush=True)
@@ -5578,7 +5849,7 @@ def phase_sp(k2, k3, k4, card):
     k3.setdefault("paths", {})["sp"] = k34["K3"]
     k4.setdefault("paths", {})["sp"] = k34["K4"]
 
-    cfg = Config.from_name(SP_MODEL)
+    cfg = Config.from_name(SP_MODEL, n_layer=SP_LAYERS)
     got_w = {k: getattr(cfg, k) for k in SP_WIDTHS}
     if got_w != SP_WIDTHS:
         fail("sp", f"{SP_MODEL}'s widths {got_w}, want {SP_WIDTHS}")
@@ -5684,12 +5955,141 @@ def phase_sp(k2, k3, k4, card):
     free()
 
 
+SP_TRAIN_LAYERS = 8  # of Llama-3-8B's 32: AdamW's float32 state of all 32 (~96 GB) does not fit
+SP_TRAIN = dict(TRAIN, batch_size=1, block_size=8192, grad_acc_steps=1, use_flash=True)
+SP_TRAIN_MESHES = ({"sp": 2}, {"sp": 4})
+SP_TRAIN_F32_MESHES = ({"sp": 2}, {"dp": 1, "sp": 2, "tp": 2})
+SP_TRAIN_F32_LAYERS = 4
+
+
+def phase_sp_train(k2, k3, k4, card):
+    """Sequence-parallel training on the card (the module docstring,
+    phase 36)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from mdi_llm_tpu_torch.config import Config
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.parallel.mesh import make_mesh
+    from mdi_llm_tpu_torch.training import Trainer, TrainingConfig
+    from mdi_llm_tpu_torch.utils import data_loader
+
+    # K2, K3 and K4 at the sp 2 Trainer's per-rank blocks: B=1, T=4096
+    sp_k2_shapes(k2, card, B=1, T=4096, phase="sp-train")
+    for causal in (True, False):
+        rows = flash_bwd_case_ms(1, 4096, 32, 8, 128, card, phase="sp-train", causal=causal)
+        k3["max_abs_err"] = max(k3.get("max_abs_err", 0.0), rows["dq"][5])
+        k4["max_abs_err"] = max(k4.get("max_abs_err", 0.0), rows["dkv"][5])
+
+    cfg = Config.from_name(SP_MODEL, n_layer=SP_TRAIN_LAYERS)
+    got_w = {k: getattr(cfg, k) for k in SP_WIDTHS}
+    if got_w != SP_WIDTHS:
+        fail("sp-train", f"{SP_MODEL}'s widths {got_w}")
+    tc = TrainingConfig(**SP_TRAIN)
+    L, B, T = cfg.n_layer, tc.batch_size, tc.block_size
+    data = synthetic_tokens(1 << 22, seed=36)
+    rng = np.random.default_rng(37)
+    fixed = [tuple(b[None] for b in data_loader.get_batch(data, B, T, rng)) for _ in range(4)]
+    results, totals = {}, {"K2": 0, "K3": 0, "K4": 0}
+    for axes in (None,) + SP_TRAIN_MESHES:
+        label = "none" if axes is None else ",".join(f"{k}={v}" for k, v in axes.items())
+        P = 1 if axes is None else axes["sp"]
+        free()
+        tr = Trainer(cfg, tc, mesh=None if axes is None else make_mesh(axes, [DEVICE]),
+                     device=DEVICE)
+        tr.train_step(*fixed[0])  # warm-up, not counted
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        per_step = L * P * P
+        want = {"K2": 2 * per_step, "K3": per_step, "K4": per_step, "plain": 0}
+        steps = []
+        for xs, ys in fixed[1:]:
+            torch.cuda.synchronize()
+            reset_flash_counts()
+            runs0 = tr.layer_runs
+            t0 = time.perf_counter()
+            loss = tr.train_step(xs, ys)
+            dt = time.perf_counter() - t0
+            got = flash_counts()
+            if got != want or (axes is not None and tr.layer_runs - runs0 != per_step):
+                fail("sp-train", f"{label}: one optimizer step launched {got} over "
+                     f"{tr.layer_runs - runs0} layer runs; want {want}")
+            if not math.isfinite(loss):
+                fail("sp-train", f"{label}: step loss {loss}")
+            if axes is not None:
+                for kk in totals:
+                    totals[kk] += got[kk]
+            steps.append((dt, loss))
+        peak = torch.cuda.max_memory_allocated()
+        results[label] = {
+            "step_s": [round(d, 4) for d, _ in steps],
+            "step_s_median": float(np.median([d for d, _ in steps])),
+            "step_losses": [round(lo, 4) for _, lo in steps],
+            "launches_per_step": want, "peak_memory_gib": peak / 2**30,
+            # what a step adds to the params, gradients and moments, and its
+            # share per rank (the ranks' activations all live on this card)
+            "step_activation_gib": (peak - resident) / 2**30,
+            "activation_gib_per_rank": (peak - resident) / P / 2**30}
+        del tr
+    free()
+    for r in results.values():
+        r["over_unmeshed"] = r["step_s_median"] / results["none"]["step_s_median"]
+    print("sp-train: " + json.dumps({
+        "card": card, "model": SP_MODEL, "layers": L, "batch": B, "block": T,
+        "dtype": tc.dtype, "remat": tc.remat, "use_flash": True, "runs": results}), flush=True)
+    k2.setdefault("paths", {})["sp-train"] = totals["K2"]
+    k3.setdefault("paths", {})["sp-train"] = totals["K3"]
+    k4.setdefault("paths", {})["sp-train"] = totals["K4"]
+
+    # float32 at 4 layers, tiny-llama-1.1b widths (mesh-train's set-up): the
+    # sp Trainers' loss lines, parameters and first-step gradients against
+    # the unmeshed Trainer's, every route through K2-K4
+    cfg4 = Config.from_name(TINY_LLAMA, n_layer=SP_TRAIN_F32_LAYERS)
+    tc4 = TrainingConfig(**MESH_F32)
+    params = transformer.init_params(cfg4, 10137, dtype=torch.float32, device=DEVICE)
+    steps4 = [tuple(b[None] for b in data_loader.get_batch(data, 2, 2048, rng)) for _ in range(3)]
+    ref = Trainer(cfg4, tc4, params=params, device=DEVICE)
+    want_grads = first_step_grads(ref)
+    want_losses = [ref.train_step(x, y) for x, y in steps4]
+    limit = grad_limit(2 * 2048)
+    for axes in SP_TRAIN_F32_MESHES:
+        label = f"float32 {axes}"
+        tr = Trainer(cfg4, tc4, mesh=make_mesh(axes, [DEVICE]), params=params, device=DEVICE)
+        got_grads = first_step_grads(tr)
+        reset_flash_counts()
+        losses = [tr.train_step(x, y) for x, y in steps4]
+        runs = tr.layer_runs
+        got = flash_counts()
+        if got != {"K2": 2 * runs, "K3": runs, "K4": runs, "plain": 0}:
+            fail("sp-train", f"{label}: launched {got} over {runs} layer runs")
+        rel = max(abs(g - w) / abs(w) for g, w in zip(losses, want_losses))
+        if not rel <= 1e-5:
+            fail("sp-train", f"{label}: losses {losses} against the unmeshed {want_losses} "
+                 f"(rel {rel:.2e})")
+        worst = mesh_params_close("sp-train", label, tr._standard_params(), ref.params)
+        diff = grad_diff(tr._standard(got_grads[0]), want_grads[0])
+        print(f"sp-train: {label}, {SP_TRAIN_F32_LAYERS} layers x {cfg4.n_embd}, B=2 T=2048: "
+              f"losses rel {rel:.2e} of the unmeshed Trainer's; params after 3 steps within "
+              f"{MESH_PARAM_TOL} (largest |diff| {worst:.3e}); first-step gradients {diff}, "
+              f"limit {limit:.3e} of the leaf's largest; launches {got}", flush=True)
+        if not diff["max_rel_to_leaf_max"] <= limit:
+            fail("sp-train", f"{label}: first-step gradients {diff} (limit {limit})")
+        del tr
+        free()
+    del ref, params
+    free()
+
+
 PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
           "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs", "server",
-          "tier", "quant", "moe", "moe-quant", "moe-train", "tune", "pipeline",
+          "tier", "quant", "moe", "moe-quant", "moe-train", "ep", "tune", "pipeline",
           "pipeline-nodes", "pp-serve", "tp-serve", "tp-generate", "tools", "mesh-train",
-          "mesh-train-procs", "pp-tp-serve", "pipeline-tp", "inference-procs", "sp")
+          "mesh-train-procs", "pp-tp-serve", "pipeline-tp", "inference-procs", "sp",
+          "sp-train")
 
 
 def main(argv=None) -> None:
@@ -5786,6 +6186,7 @@ def main(argv=None) -> None:
         "moe": lambda: phase_moe(k1, k2, card),
         "moe-quant": lambda: phase_moe_quant(k1, k2, card),
         "moe-train": lambda: phase_moe_train(k3, k4, card),
+        "ep": lambda: phase_ep(k2, k3, k4, card),
         "tune": lambda: phase_tune(k1, card),
         "pipeline": lambda: phase_pipeline(card),
         "pipeline-nodes": lambda: phase_pipeline_nodes(card),
@@ -5799,6 +6200,7 @@ def main(argv=None) -> None:
         "pipeline-tp": lambda: phase_pipeline_tp(card),
         "inference-procs": lambda: phase_inference_procs(k2, card),
         "sp": lambda: phase_sp(k2, k3, k4, card),
+        "sp-train": lambda: phase_sp_train(k2, k3, k4, card),
     }
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = Path(tmp) / TINY_LLAMA
@@ -5812,11 +6214,11 @@ def main(argv=None) -> None:
     records = (k1, k1q8, k2, k3, k4)
     missing = [(r["name"], k) for r in records for k in keys if k not in r]
     k2_paths = {"generate", "ckpt", "graphs", "quant", "moe", "moe-quant", "tp-generate",
-                "mesh-train", "inference-procs", "sp"} | (
+                "mesh-train", "inference-procs", "sp", "ep", "sp-train"} | (
         {"chat"} if importlib.util.find_spec("tokenizers") else set())
     k1_paths = {"serve", "ckpt", "graphs", "server", "tier", "quant", "moe", "moe-quant", "tune",
                 "pp-serve", "tp-serve", "pp-tp-serve"}
-    k34_paths = {"train", "moe-train", "mesh-train", "sp"}
+    k34_paths = {"train", "moe-train", "mesh-train", "sp", "ep", "sp-train"}
     if only == set(PHASES) and (set(k1["paths"]) != k1_paths or set(k2["paths"]) != k2_paths
                                 or set(k3["paths"]) != k34_paths
                                 or set(k4["paths"]) != k34_paths):

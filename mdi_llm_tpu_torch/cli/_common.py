@@ -11,7 +11,8 @@ CPU). `--quantize int8|w8a8|int4` quantizes the weights when the
 Generator is built (`ops/quant.py`); a checkpoint written by
 `prepare_model --quantize` loads already quantized, with `--quantize
 none`.  `make_tp_mesh` is the tensor-parallel mesh of `--tp` and
-`--tp-devices`, every rank on `--device`.
+`--tp-devices`, `make_ep_mesh` the expert-parallel one of `--ep-devices`,
+every rank on `--device`.
 """
 
 from __future__ import annotations
@@ -131,6 +132,22 @@ def make_tp_mesh(tp_devices: int, quantize: str, device: str = "cuda",
     from mdi_llm_tpu_torch.parallel.mesh import make_mesh
 
     return make_mesh({"tp": tp_devices}, [device], process_id, num_processes)
+
+
+def make_ep_mesh(ep_devices: int, cfg: Config, device: str = "cuda"):
+    """Shared --ep-devices handling (the JAX CLI's): an MoE config and at
+    least 2 ranks, then a 1-D ep mesh.  As `make_tp_mesh`, every rank goes
+    on the one `--device`, so one card runs ep = N."""
+    if ep_devices < 2:
+        raise SystemExit(
+            "--ep-devices needs at least 2 devices (expert dispatch over an "
+            "ep mesh; a single device is just the dense MoE path)")
+    if cfg.mlp_class_name != "LLaMAMoE":
+        raise SystemExit(f"--ep-devices needs a MoE config; {cfg.name} has "
+                         f"mlp_class_name={cfg.mlp_class_name}")
+    from mdi_llm_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh({"ep": ep_devices}, [device])
 
 
 def refuse(what: str) -> None:

@@ -16,19 +16,21 @@ package's does.  With `--sp-devices N` the conversation lives in an
 `SPChatSession` over N sequence-parallel ranks on `--device`
 (`parallel/sp_inference.py`: the first turn's ring prefill writes each
 rank's cache shard, later turns append round-robin; `--sp-flash` sends
-the ring through K2, `--sp-chunk` decode steps per host read).  An empty
-line or end of input ends the chat.
+the ring through K2, `--sp-chunk` decode steps per host read).  With
+`--ep-devices N` (an MoE config) the `ChatSession` runs over N
+expert-parallel ranks on `--device` (`parallel/expert.py`, at
+`--moe-capacity-factor`).  An empty line or end of input ends the chat.
 
     python -m mdi_llm_tpu_torch.cli.chat --ckpt checkpoints/tiny-llama
     python -m mdi_llm_tpu_torch.cli.chat --device cpu --ckpt DIR --temperature 0
     python -m mdi_llm_tpu_torch.cli.chat --device cpu --ckpt DIR --pipeline-stages 2
     python -m mdi_llm_tpu_torch.cli.chat --device cpu --ckpt DIR --tp-devices 2
     python -m mdi_llm_tpu_torch.cli.chat --device cpu --ckpt DIR --sp-devices 2 --sp-flash
+    python -m mdi_llm_tpu_torch.cli.chat --device cpu --ckpt MOE_DIR --ep-devices 2
 
 Needs a checkpoint with a tokenizer (`--ckpt`).  Runs on the GPU unless
 `--device cpu` is given; without a GPU and without that flag it raises.
-The JAX CLI's other streaming backends are refused, each naming the
-ROADMAP item that carries it, and, as there, one backend at a time.
+As in the JAX CLI, one streaming backend at a time.
 """
 
 from __future__ import annotations
@@ -38,16 +40,12 @@ import argparse
 from mdi_llm_tpu_torch.cli._common import (
     add_common_args,
     load_model,
+    make_ep_mesh,
     make_tp_mesh,
-    refuse,
     resolve_kv_dtype,
 )
 from mdi_llm_tpu_torch.config import TEMPERATURE, TOP_K
 from mdi_llm_tpu_torch.generation import Generator, StreamPrinter, resolve_device
-
-# streaming backends of the JAX CLI: flag -> the ROADMAP item carrying it
-_UNPORTED = {"ep_devices": "item 16"}
-
 
 def build_parser():
     ap = argparse.ArgumentParser(description=__doc__)
@@ -81,8 +79,11 @@ def build_parser():
     ap.add_argument("--sp-chunk", type=int, default=8,
                     help="sp streaming: decode steps per host read (smaller: "
                     "earlier first bytes; larger: more throughput)")
-    unported = ap.add_argument_group("not ported yet (refused when set)")
-    unported.add_argument("--ep-devices", type=int, default=0)
+    ap.add_argument("--ep-devices", type=int, default=0,
+                    help="MoE configs: chat over N expert-parallel ranks, all on --device "
+                    "(0 = off)")
+    ap.add_argument("--moe-capacity-factor", type=float, default=None,
+                    help="ep dispatch capacity factor (default exact, no drops)")
     return ap
 
 
@@ -95,9 +96,6 @@ def main(argv=None):
             "are separate streaming backends; pick one (for a pipe x tp "
             "mesh use cli/starter.py)"
         )
-    for name, item in _UNPORTED.items():
-        if getattr(args, name):
-            refuse(f"--{name.replace('_', '-')} ({item})")
     if args.speculative and args.temperature != 0.0:
         raise SystemExit("--speculative requires --temperature 0 (greedy)")
     if args.speculative and args.pipeline_stages:
@@ -129,12 +127,15 @@ def main(argv=None):
             use_flash=args.sp_flash, quantize=args.quantize,
         )
     else:
+        mesh = None
+        if args.tp_devices:
+            mesh = make_tp_mesh(args.tp_devices, args.quantize, args.device)
+        elif args.ep_devices:
+            mesh = make_ep_mesh(args.ep_devices, cfg, args.device)
         gen = Generator(
             cfg, params, max_seq_length=args.sequence_length, rng_seed=args.seed,
             cache_dtype=resolve_kv_dtype(args.kv_dtype), device=args.device,
-            quantize=args.quantize,
-            mesh=(make_tp_mesh(args.tp_devices, args.quantize, args.device)
-                  if args.tp_devices else None),
+            quantize=args.quantize, mesh=mesh, moe_capacity_factor=args.moe_capacity_factor,
         )
 
     print(f"Chatting with {cfg.name} — empty line or Ctrl-D to exit.")

@@ -19,7 +19,10 @@ stages (each process a contiguous group, with its tp ranks), the hop
 between processes a send/recv.  `--sp-devices N` generates over N
 sequence-parallel ranks on `--device` (`parallel/sp_inference.
 SPGenerator`: ring-attention prefill, the KV cache split over the ranks;
-`--sp-flash` sends the prefill ring through K2), in one process.  As in
+`--sp-flash` sends the prefill ring through K2), in one process;
+`--ep-devices N` splits an MoE config's experts over N ranks on
+`--device` (`parallel/expert.py`: token dispatch by all_to_all, at
+`--moe-capacity-factor`, exact by default), in one process.  As in
 the JAX CLI every process prints
 the samples and the throughput line.  With `--ckpt DIR` the prompts
 (`--prompt TEXT` or `FILE:<path>`, one per blank-line-separated
@@ -30,9 +33,8 @@ tokenizer) every prompt is 8 random token ids drawn from `--seed` and the
 samples print as token ids.  `--profile-dir DIR` writes a torch.profiler
 trace of the run (`utils/profiling.profile`), `--debug` a cProfile dump
 into `--logs-dir`.  Runs on the GPU unless `--device cpu` is given;
-without a GPU and without that flag it raises.  Flags of features the
-port does not carry yet are refused, naming their ROADMAP item; the JAX
-CLI's exclusions between the parallelism flags hold.
+without a GPU and without that flag it raises.  The JAX CLI's
+exclusions between the parallelism flags hold.
 
     python -m mdi_llm_tpu_torch.cli.sample --ckpt checkpoints/tiny-llama --prompt "Once upon a time,"
     python -m mdi_llm_tpu_torch.cli.sample --model tiny-llama-1.1b --n-samples 4 --greedy
@@ -40,6 +42,9 @@ CLI's exclusions between the parallelism flags hold.
     python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8
     python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8 --tp-devices 2
     python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8 --sp-devices 2 --sp-flash
+    python -m mdi_llm_tpu_torch.cli.sample --device cpu --model Mixtral-8x7B-v0.1 --override n_layer=2 \
+        --override n_embd=64 --override n_head=4 --override n_query_groups=2 \
+        --override intermediate_size=128 --greedy --n-tokens 8 --ep-devices 2
     # two processes, one tp rank each (start process 1 the same way):
     python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8 \\
         --tp-devices 2 --coordinator 127.0.0.1:29511 --num-processes 2 --process-id 0
@@ -58,8 +63,8 @@ from mdi_llm_tpu_torch.cli._common import (
     add_log_args,
     add_run_args,
     load_model,
+    make_ep_mesh,
     make_tp_mesh,
-    refuse,
     report_run,
     resolve_kv_dtype,
     setup_logging,
@@ -67,10 +72,6 @@ from mdi_llm_tpu_torch.cli._common import (
 from mdi_llm_tpu_torch.generation import resolve_device
 from mdi_llm_tpu_torch.parallel import nodes
 from mdi_llm_tpu_torch.utils.prompts import get_user_prompt
-
-# flags of the JAX CLI whose features are not ported: flag -> (default, item)
-_UNPORTED = {"ep_devices": (0, "item 16")}
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
@@ -108,9 +109,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sp-flash", action="store_true",
                     help="run the sp prefill ring through kernel K2 (engages when "
                     "the local chunk is >= 2048)")
+    ap.add_argument("--ep-devices", type=int, default=0,
+                    help="MoE configs: expert parallelism over N ranks, all on --device "
+                    "(token dispatch by all_to_all; 0 = off)")
+    ap.add_argument("--moe-capacity-factor", type=float, default=None,
+                    help="ep dispatch capacity factor (bounds the per-rank buffers, "
+                    "Switch-style drops past capacity); default exact, no drops")
     add_log_args(ap)
-    unported = ap.add_argument_group("not ported yet (refused when set)")
-    unported.add_argument("--ep-devices", type=int, default=0)
     return ap
 
 
@@ -138,9 +143,6 @@ def run(args):
             "--ep-devices is a standalone expert-parallel mesh; drop the "
             "other parallelism flags"
         )
-    for name, (default, item) in _UNPORTED.items():
-        if getattr(args, name) != default:
-            refuse(f"--{name.replace('_', '-')} ({item})")
     job = (args.coordinator, args.process_id, args.num_processes)
     if any(v is not None for v in job) and any(v is None for v in job):
         raise SystemExit("--coordinator, --process-id and --num-processes go together")
@@ -211,14 +213,21 @@ def _generate(args, temperature, ring):
             )
             outs, stats = gen.generate(prompt_ids, args.n_tokens, **sampling)
         else:
+            mesh = None
+            if args.tp_devices:
+                mesh = make_tp_mesh(args.tp_devices, args.quantize, args.device,
+                                    0 if ring is None else ring.rank,
+                                    1 if ring is None else ring.world)
+            elif args.ep_devices:
+                if ring is not None:
+                    raise SystemExit("--ep-devices runs its ranks in one process (ep over "
+                                     "processes is ROADMAP item 19); drop --coordinator")
+                mesh = make_ep_mesh(args.ep_devices, cfg, args.device)
             gen = Generator(
                 cfg, params, max_seq_length=args.sequence_length, rng_seed=args.seed,
                 cache_dtype=resolve_kv_dtype(args.kv_dtype),
-                device=args.device, quantize=args.quantize,
-                mesh=(make_tp_mesh(args.tp_devices, args.quantize, args.device,
-                                   0 if ring is None else ring.rank,
-                                   1 if ring is None else ring.world)
-                      if args.tp_devices else None),
+                device=args.device, quantize=args.quantize, mesh=mesh,
+                moe_capacity_factor=args.moe_capacity_factor,
             )
             outs, stats = gen.generate(
                 prompt_ids, args.n_tokens, chunk_size=args.chunk,
@@ -231,7 +240,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     prompt_ids, outs, stats, gen, tokenizer, seconds = run(args)
     n_nodes = (args.pipeline_stages * max(1, args.tp_devices) if args.pipeline_stages
-               else args.tp_devices or args.sp_devices or 1)
+               else args.tp_devices or args.sp_devices or args.ep_devices or 1)
     report_run(args, gen.cfg, tokenizer, prompt_ids, outs, stats, seconds, n_nodes,
                f"{n_nodes} node(s)" + (f", {stats.rotations} rotations"
                                        if args.pipeline_stages else ""))

@@ -32,12 +32,16 @@ order dp, pp, tp).  A process that does not join
 within `parallel.nodes.TIMEOUT_S` seconds, or stops answering, fails the
 others.
 
-An MoE config (Mixtral) trains in the dense formulation with
-`--moe-aux-weight` times its load-balancing loss.
+`--mesh dp=2,sp=4` (or `dp=2,sp=2,tp=2`) splits every row's sequence over
+the sp ranks, attention riding the ring (`ops/ring_attention.py`, with tp
+ranks inside each sp rank); `--mesh dp=2,ep=4` splits an MoE config's
+experts over the ep ranks and its tokens over dp x ep
+(`parallel/expert.py`, at `--moe-capacity-factor`, exact by default).
+Both run in one process: with `--coordinator` they are refused, naming
+ROADMAP item 19.
 
-Refused, each naming its ROADMAP item: `--mesh` with `sp` or `ep` (ring
-attention and token-dispatch experts, item 16) and
-`--moe-capacity-factor` (the token dispatch of an ep mesh, item 16).
+An MoE config (Mixtral) trains with `--moe-aux-weight` times its
+load-balancing loss, in the dense formulation without an ep axis.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import argparse
 import json
 from pathlib import Path
 
-from mdi_llm_tpu_torch.cli._common import DTYPES, add_override_arg, config_overrides, refuse
+from mdi_llm_tpu_torch.cli._common import DTYPES, add_override_arg, config_overrides
 from mdi_llm_tpu_torch.config import Config
 from mdi_llm_tpu_torch.generation import resolve_device
 from mdi_llm_tpu_torch.parallel import nodes
@@ -96,13 +100,15 @@ def build_parser():
     )
     ap.add_argument("--mesh", default=None,
                     help='e.g. "dp=2", "tp=2", "dp=2,tp=2", "dp=1,pp=2" (GPipe stages), '
-                    '"dp=2,pp=2,tp=2"; sp and ep meshes are item 16')
+                    '"dp=2,pp=2,tp=2", "dp=2,sp=4" (ring attention), "dp=2,sp=2,tp=2", '
+                    'or "dp=2,ep=4" (MoE configs: token-dispatch expert parallelism)')
     ap.add_argument("--moe-aux-weight", type=float, default=0.01,
                     help="weight of the MoE load-balancing loss (layer mean; "
                     "no effect on dense configs, not applied on pp meshes)")
     ap.add_argument("--moe-capacity-factor", type=float, default=None,
-                    help="expert capacity of the ep mesh's token dispatch: not "
-                    "ported yet (ROADMAP item 16), refused when set")
+                    help="ep-mesh MoE training: dispatch capacity factor (bounds the "
+                    "per-rank buffers, Switch-style drops past capacity); default "
+                    "exact, no drops: gradients then match the dense formulation")
     ap.add_argument("--coordinator", default=None,
                     help="host:port of process 0's TCP store: train one mesh over "
                     "--num-processes processes (each given its --process-id)")
@@ -125,10 +131,6 @@ def parse_mesh(spec):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     axes = parse_mesh(args.mesh)
-    for axis in ("sp", "ep"):
-        if axes and axes.get(axis, 1) > 1:
-            refuse(f"--mesh with {axis} (ring attention and token-dispatch experts, "
-                   "item 16)")
     if args.coordinator or args.process_id is not None or args.num_processes is not None:
         if not args.coordinator or args.process_id is None or args.num_processes is None:
             raise SystemExit("--coordinator, --process-id and --num-processes go together")

@@ -25,6 +25,14 @@ Port of `mdi_llm_tpu/generation.py`, on one device or on a tp/dp mesh:
   refused with the JAX package's messages; batch compaction and the
   shared-prompt prefill stay off on a mesh, as there.  The decode chunk
   stays a CUDA graph when every position is on one card.
+- `Generator(mesh=make_mesh({"ep": N}, devices), moe_capacity_factor=...)`
+  on an MoE config: every MoE layer dispatches its tokens to the experts
+  of N ranks (`parallel.expert.ep_moe_forward`; the ranks' expert slices
+  `place_ep`'s views of the one tree); attention and every other leaf
+  run whole, once per device, and the decode chunk stays a CUDA graph
+  when the ranks share one card.  A dense config on an ep mesh runs as
+  without one.  Serving refuses ep, as the JAX engine does; ep beside
+  another axis is ROADMAP item 20.
 - `Generator(quantize="int8" | "w8a8" | "int4")`: the linears and an
   untied head quantized once, on the device (`ops/quant.py`); a tree
   that is quantized already (a `prepare_model --quantize` checkpoint) is
@@ -296,32 +304,31 @@ def _refuse(what: str) -> None:
     )
 
 
-# mesh axes of the JAX package the port's Generator does not run yet, and
-# the ROADMAP item that carries each
-_UNPORTED_AXES = {"ep": "item 16"}
-
-
 def _check_inference_mesh(mesh: Mesh) -> None:
-    """A `make_mesh` mesh the Generator runs: `tp`, `dp`, `sp` and a
+    """A `make_mesh` mesh the Generator runs: `tp`, `dp`, `sp`, `ep` and a
     pipeline axis (`pp` or `pipe`; any axis of size 1 is harmless).  An sp
     axis is replicated, as the JAX Generator (which reads only tp, dp and
     ep) leaves it: the sequence splits over sp in
-    `parallel.sp_inference.SPGenerator`.  ep meshes are refused naming
-    their ROADMAP item.  A mesh over processes (`sample --coordinator`)
-    splits its tp axis only: each process holds a contiguous part of the
-    one tp group."""
+    `parallel.sp_inference.SPGenerator`.  An ep axis splits an MoE config's
+    experts (`parallel/expert.py`) and stands alone: ep beside another
+    axis is ROADMAP item 20.  A mesh over processes (`sample
+    --coordinator`) splits its tp axis only: each process holds a
+    contiguous part of the one tp group; sp and ep over processes are
+    item 19."""
     for axis, size in mesh.shape.items():
-        if size <= 1 or axis in ("tp", "dp", "sp") + PIPE_AXES:
+        if size <= 1 or axis in ("tp", "dp", "sp", "ep") + PIPE_AXES:
             continue
-        if axis in _UNPORTED_AXES:
-            _refuse(f"mesh with {axis}={size}: {axis} meshes are {_UNPORTED_AXES[axis]}")
         raise ValueError(f"mesh axis {axis!r} (size {size}): the Generator "
-                         "runs tp, dp, sp and pipeline axes")
-    if mesh.num_processes > 1 and mesh.shape.get("sp", 1) > 1:
+                         "runs tp, dp, sp, ep and pipeline axes")
+    if mesh.shape.get("ep", 1) > 1 and any(
+            n > 1 for a, n in mesh.shape.items() if a != "ep"):
+        _refuse(f"mesh {mesh.shape}: an ep axis beside another axis is ROADMAP item 20")
+    if mesh.num_processes > 1 and (mesh.shape.get("sp", 1) > 1 or mesh.shape.get("ep", 1) > 1):
         raise ValueError(
-            f"mesh {mesh.shape} over {mesh.num_processes} processes: an sp axis splits "
-            "the sequence in parallel.sp_inference.SPGenerator, whose ranks share one "
-            "process (sp over processes is ROADMAP item 19)")
+            f"mesh {mesh.shape} over {mesh.num_processes} processes: an sp or ep axis "
+            "splits the sequence (parallel.sp_inference.SPGenerator) or the experts "
+            "(parallel/expert.py) over ranks that share one process (sp and ep over "
+            "processes are ROADMAP item 19)")
     if mesh.num_processes > 1:
         pa = pipe_axis(mesh)
         if mesh.shape.get("dp", 1) > 1 or (pa and mesh.shape[pa] > 1):
@@ -332,13 +339,13 @@ def _check_inference_mesh(mesh: Mesh) -> None:
                 "--pipeline-stages`)")
 
 
-def _without_sp(mesh: Mesh) -> Mesh:
-    """`mesh` with its sp axis dropped (the positions at sp coordinate 0):
-    the Generator replicates over sp."""
-    i = mesh.axis_names.index("sp")
+def _without(mesh: Mesh, axis: str) -> Mesh:
+    """`mesh` with `axis` dropped (the positions at its coordinate 0): the
+    Generator replicates over sp, and runs an ep axis beside the mesh."""
+    i = mesh.axis_names.index(axis)
     names = mesh.axis_names[:i] + mesh.axis_names[i + 1:]
     devices = np.take(mesh.devices, [0], axis=i)
-    return Mesh(devices.reshape([n for a, n in mesh.shape.items() if a != "sp"] or [1]),
+    return Mesh(devices.reshape([n for a, n in mesh.shape.items() if a != axis] or [1]),
                 names or ("tp",), mesh.process_id, mesh.num_processes)
 
 
@@ -379,8 +386,11 @@ class Generator:
         quantize: Optional[str] = None,  # None | "none" | "int8" (weight-only)
         # | "w8a8" (int8 activations too) | "int4" (ops/quant.py)
         mesh: Any = None,  # {stage: device} of parallel.mesh.pipeline_mesh,
-        # or a parallel.mesh.make_mesh Mesh of tp, dp, sp (replicated) and
-        # pipeline axes
+        # or a parallel.mesh.make_mesh Mesh of tp, dp, sp (replicated), ep
+        # and pipeline axes
+        moe_capacity_factor: Optional[float] = None,  # ep mesh: None → exact
+        # dispatch (no dropped assignments); a finite factor bounds the
+        # dispatch buffers at the cost of Switch-style drops
         scan_unroll: int = 1,
         abstract: bool = False,
         _graphs: Optional[bool] = None,  # None → CUDA graphs on the card;
@@ -392,13 +402,17 @@ class Generator:
         # {stage: [its tp ranks' devices]} on a pipeline mesh of S >= 2
         # stages (the staged serving engine's layout), else None
         self.stage_ranks = None
+        ep_mesh = None
         if isinstance(mesh, Mesh):
             _check_inference_mesh(mesh)
-            if "sp" in mesh.shape:
-                mesh = _without_sp(mesh)
-                if mesh.size == 1:  # sp alone: one replica on one device
-                    device = mesh.devices.flat[0] if device is None else device
-                    mesh = None
+            if mesh.shape.get("ep", 1) > 1:
+                ep_mesh = mesh
+            for axis in ("sp", "ep"):
+                if isinstance(mesh, Mesh) and axis in mesh.shape:
+                    mesh = _without(mesh, axis)
+                    if mesh.size == 1:  # sp or ep alone: the replica on one device
+                        device = mesh.devices.flat[0] if device is None else device
+                        mesh = None
         if isinstance(mesh, Mesh):
             pa = pipe_axis(mesh)
             if pa is not None and mesh.shape[pa] > 1:
@@ -441,6 +455,7 @@ class Generator:
         # structural: a pre-quantized checkpoint loads with quantize=None
         self.quantized = tree_has_quantized(params)
         self._init_mesh(tp_mesh)
+        self._init_ep(ep_mesh, moe_capacity_factor)
         if cache_dtype is None:  # the float weights' dtype, never a scale's
             cache_dtype = transformer.param_dtype(self.params)
         self.cache_dtype = cache_dtype
@@ -464,8 +479,9 @@ class Generator:
                 f"{cfg.name}: head size {cfg.head_size} is not one kernel K2 "
                 f"is built for {KERNEL_HEAD_SIZES}; pass use_flash=False"
             )
-        one_card = self._shards is None or (
-            self._group is None and len(set(self._devices.values())) == 1)
+        one_card = (self._shards is None or (
+            self._group is None and len(set(self._devices.values())) == 1)) and (
+            ep_mesh is None or {str(d) for d in ep_mesh.device_list()} == {str(self.device)})
         if _graphs and not one_card:
             raise ValueError("the decode chunk is captured only when every rank "
                              "of the mesh runs on one device, in one process")
@@ -524,6 +540,27 @@ class Generator:
 
             self._group = CommGroup(range(mesh.num_processes))
 
+    def _init_ep(self, mesh: Optional[Mesh], capacity_factor: Optional[float]) -> None:
+        """On an ep mesh, an MoE config's experts run the token dispatch
+        (`parallel.expert.ep_moe_forward`, `_moe_impl`) over the ranks'
+        expert slices, views of the one tree whose layout `place_ep`
+        checks here; attention and every other leaf stay whole, run once
+        per device.  A dense config on an ep mesh runs as without one, as
+        in the JAX package.  `_ep_mesh` keeps the mesh for `serve`'s
+        refusal."""
+        self._ep_mesh, self._moe_impl = mesh, None
+        if mesh is None or self.cfg.mlp_class_name != "LLaMAMoE":
+            return
+        from functools import partial
+
+        from mdi_llm_tpu_torch.parallel.expert import ep_moe_forward, place_ep
+
+        ep = int(mesh.shape["ep"])
+        if self.cfg.n_expert % ep:
+            raise ValueError(f"ep={ep} does not divide n_expert={self.cfg.n_expert}")
+        place_ep(self.params, mesh, self.cfg.n_expert)  # refuses a layout it cannot split
+        self._moe_impl = partial(ep_moe_forward, mesh=mesh, capacity_factor=capacity_factor)
+
     def attach_device_obs(self, registry) -> None:
         """Attach an `obs.device.DeviceReportRegistry`: later `generate()`
         calls measure each prefill (B, bucket) and decode chunk (B,
@@ -554,7 +591,8 @@ class Generator:
         with torch.no_grad():
             if self._shards is None:
                 return transformer.forward(
-                    self.cfg, self.params, tokens, input_pos, kv, rope=self.rope, **kw
+                    self.cfg, self.params, tokens, input_pos, kv, rope=self.rope,
+                    moe_impl=self._moe_impl, **kw
                 )
             rows = tokens.shape[0] // self.dp
             outs = []
@@ -1025,7 +1063,7 @@ class Generator:
         from mdi_llm_tpu_torch.serving.engine import ServingEngine, validate_serving_mesh
 
         # refused here, naming the axis, before any pool is allocated
-        validate_serving_mesh(self._tp_mesh)
+        validate_serving_mesh(self._ep_mesh or self._tp_mesh)
         if self._group is not None:
             raise ValueError(
                 "serving over processes: each process would run its own scheduler "

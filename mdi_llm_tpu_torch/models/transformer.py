@@ -103,10 +103,12 @@ def check_supported(cfg: Config) -> None:
 
 
 def mlp_forward(cfg: Config, p: Params, x: torch.Tensor, moe_aux: bool = False,
-                project: bool = True):
+                project: bool = True, moe_impl=None):
     """The (B, T, D) output; with `moe_aux` (LLaMAMoE only), (out, aux).
     `project=False` (a dense MLP) returns the input of the `proj` product
-    instead, for a tensor-parallel rank to contract (`_row_parallel`)."""
+    instead, for a tensor-parallel rank to contract (`_row_parallel`).
+    `moe_impl` replaces `moe_forward` with the same signature (the token
+    dispatch of `parallel/expert.ep_moe_forward`)."""
     kind = cfg.mlp_class_name
     if moe_aux and kind != "LLaMAMoE":
         raise ValueError(f"moe_aux requires an MoE config (got {kind!r})")
@@ -118,7 +120,7 @@ def mlp_forward(cfg: Config, p: Params, x: torch.Tensor, moe_aux: bool = False,
     if kind == "GemmaMLP":
         return proj(_gelu(cfg, linear(x, p["fc_1"])) * linear(x, p["fc_2"]))
     if kind == "LLaMAMoE":
-        return moe_forward(cfg, p, x, with_aux=moe_aux)
+        return (moe_impl or moe_forward)(cfg, p, x, with_aux=moe_aux)
     check_supported(cfg)
     raise ValueError(f"unknown mlp_class_name {kind!r}")
 
@@ -178,11 +180,16 @@ def moe_stats(probs: torch.Tensor, onehot: torch.Tensor):
 
 
 def moe_aux_loss(cfg: Config, assign: torch.Tensor, prob_sum: torch.Tensor,
-                 n_tokens: int) -> torch.Tensor:
+                 n_tokens) -> torch.Tensor:
     """E * sum_e f_e * P_e from `moe_stats`' sums over `n_tokens` tokens
-    (sums over several batches' shards give the whole batch's aux)."""
-    f = assign / float(n_tokens * cfg.n_expert_per_token)
-    pm = prob_sum / float(n_tokens)
+    (sums over several batches' shards give the whole batch's aux).  The
+    sums over every rank of a split go in, never a mean of the ranks'
+    auxes (f * P is not linear in the stats): the port's ranks run one
+    after another in a process, so they hand back their raw stats and the
+    caller sums them first, where the JAX package passes
+    `moe_forward(stats_reduce=psum)`."""
+    f = assign / (n_tokens * cfg.n_expert_per_token)
+    pm = prob_sum / n_tokens
     return assign.shape[-1] * (f * pm).sum()
 
 
@@ -291,25 +298,26 @@ def attention_out(cfg: Config, p: Params, y: torch.Tensor, dtype,
 
 
 def block_forward(cfg, p, x, pos, cos, sin, k_cache, v_cache,
-                  collect_moe_aux: bool = False, **attn):
+                  collect_moe_aux: bool = False, moe_impl=None, **attn):
     """One transformer block, parallel-residual (GPT-NeoX) or sequential
     (Llama) form; `attn` goes to `attention_forward`.  With
     `collect_moe_aux` (MoE training) returns (x, this layer's aux loss)."""
     n1 = _norm(cfg, x, p["norm_1"])
     att = attention_forward(cfg, p["attn"], n1, pos, cos, sin, k_cache, v_cache, **attn)
-    return block_finish(cfg, p, x, n1, att, collect_moe_aux)
+    return block_finish(cfg, p, x, n1, att, collect_moe_aux, moe_impl)
 
 
-def block_finish(cfg, p, x, n1, att, collect_moe_aux: bool = False):
+def block_finish(cfg, p, x, n1, att, collect_moe_aux: bool = False, moe_impl=None):
     """The rest of a block after its attention output `att` (`n1` the
-    block input `x` under `norm_1`): the residual, `norm_2` and the MLP."""
+    block input `x` under `norm_1`): the residual, `norm_2` and the MLP
+    (`moe_impl`: `mlp_forward`'s)."""
     if cfg.parallel_residual:
         n2 = n1 if cfg.shared_attention_norm else _norm(cfg, x, p["norm_2"])
         x = x + att
     else:
         x = x + att
         n2 = _norm(cfg, x, p["norm_2"])
-    out = mlp_forward(cfg, p["mlp"], n2, moe_aux=collect_moe_aux)
+    out = mlp_forward(cfg, p["mlp"], n2, moe_aux=collect_moe_aux, moe_impl=moe_impl)
     if collect_moe_aux:
         return x + out[0], out[1]
     return x + out
@@ -347,7 +355,7 @@ def unbind_layers(blocks: Params, L: int) -> list:
 
 def run_blocks(
     cfg, blocks, x, pos, cos, sin, kv: Optional[KVCache], remat: bool = False,
-    collect_moe_aux: bool = False, **attn
+    collect_moe_aux: bool = False, moe_impl=None, **attn
 ):
     """The block stack, layer by layer, over the dense cache, the pooled
     cache or (kv None) none.  `remat` (training, kv None) recomputes each
@@ -364,7 +372,8 @@ def run_blocks(
         raise ValueError("collect_moe_aux is a training path (kv must be None)")
     L = blocks["norm_1"]["weight"].shape[0]
     layers = unbind_layers(blocks, L)
-    block = functools.partial(block_forward, cfg, collect_moe_aux=collect_moe_aux)
+    block = functools.partial(block_forward, cfg, collect_moe_aux=collect_moe_aux,
+                              moe_impl=moe_impl)
     aux_sum = None
     for i in range(L):
         if remat:
@@ -435,6 +444,7 @@ def forward(
     flash_kernel: Optional[bool] = None,
     remat: bool = False,
     collect_moe_aux: bool = False,
+    moe_impl=None,
 ):
     """Logits (B, T, padded_vocab); the cache in `kv` is updated in place.
 
@@ -454,7 +464,9 @@ def forward(
     carries gradients, through K2-K4 with `use_flash` (ops/flash.py), and
     `remat` recomputes each block in the backward.  `collect_moe_aux` (MoE
     training) returns (logits, the layer-summed load-balancing aux): the
-    JAX package's third return, the cache being updated in place here."""
+    JAX package's third return, the cache being updated in place here.
+    `moe_impl` runs the MoE layers instead of `moe_forward` (the token
+    dispatch of an ep mesh, `parallel/expert.ep_moe_forward`)."""
     B, T = tokens.shape
     if input_pos.dim() == 2:
         pos = input_pos.long()
@@ -472,7 +484,7 @@ def forward(
         attn = dict(input_pos=input_pos.long(), fresh_prefill=fresh_prefill,
                     use_flash=use_flash, flash_kernel=flash_kernel)
     out = run_blocks(cfg, params["blocks"], x, pos, cos, sin, kv, remat=remat,
-                     collect_moe_aux=collect_moe_aux, **attn)
+                     collect_moe_aux=collect_moe_aux, moe_impl=moe_impl, **attn)
     if collect_moe_aux:
         return head(cfg, params, out[0]), out[1]
     return head(cfg, params, out)
@@ -588,12 +600,23 @@ class TPRanks:
         with or without a shared norm, and sequential) as `block_forward`.
         `collect_moe_aux` also returns the router's `moe_stats` (the whole
         router, computed once per device)."""
-        cfg, cfg_r, rep, group, tp = self.cfg, self.cfg_r, self.rep, self.group, len(lay)
-        n1 = rep(lambda r: _norm(cfg, x[r], lay[r]["norm_1"]))
-        n1c = rep(lambda r: copy_to_ranks(n1[r], group))
-        heads = [attention_forward(cfg_r, lay[r]["attn"], n1c[r], pos[r], cos[r], sin[r],
+        n1, n1c = self.norm_in(lay, x)
+        heads = [attention_forward(self.cfg_r, lay[r]["attn"], n1c[r], pos[r], cos[r], sin[r],
                                    *caches[r], project=False, **attn[r])
-                 for r in range(tp)]
+                 for r in range(len(lay))]
+        return self.block_rest(lay, x, n1, heads, collect_moe_aux)
+
+    def norm_in(self, lay, x):
+        """Each rank's block input under `norm_1` (once per device), and
+        the same through `copy_to_ranks` for the column-parallel products."""
+        n1 = self.rep(lambda r: _norm(self.cfg, x[r], lay[r]["norm_1"]))
+        return n1, self.rep(lambda r: copy_to_ranks(n1[r], self.group))
+
+    def block_rest(self, lay, x, n1, heads, collect_moe_aux=False):
+        """A block after its attention: `heads` each rank's heads' output
+        (B, T, n_head/tp * hs) before `proj`, `n1` the input under
+        `norm_1` (`norm_in`); `block`'s return."""
+        cfg, cfg_r, rep, group, tp = self.cfg, self.cfg_r, self.rep, self.group, len(lay)
         att = _row_parallel(heads, [lay[r]["attn"]["proj"] for r in range(tp)], rep, group)
         if cfg.parallel_residual:
             n2 = n1 if cfg.shared_attention_norm else rep(
@@ -753,6 +776,74 @@ def sharded_forward(
     return tr.head(out)
 
 
+def sp_forward(cfg: Config, units: Sequence[TPRanks], tokens, input_pos,
+               use_flash: bool = False, flash_kernel: Optional[bool] = None,
+               remat: bool = False, collect_moe_aux: bool = False):
+    """The cache-less forward over a sequence-parallel group (training and
+    eval, the JAX `forward(sp_axis="sp")` under `shard_map`): sp rank s
+    holds the chunk `tokens[s]` (B, T) that starts at `input_pos[s]` (B,)
+    and runs its layers over its tensor-parallel ranks `units[s]` (a
+    `TPRanks`, of one rank at tp = 1).  Each layer runs every sp rank's
+    norm and q/k/v on each of its tp ranks, then, per tp rank, the ring
+    attention over the sp ranks' chunks of that rank's heads
+    (`ops/ring_attention.ring_attention` with q_pos == k_pos: K2 with the
+    LSE per block under `use_flash`, K3 and K4 in the backward), then each
+    sp rank's rest of the block.  `remat` recomputes each layer, all its
+    ranks, in the backward.  Returns each sp rank's logits (B, T,
+    padded_vocab) on its first device; with `collect_moe_aux` also the
+    router's `moe_stats` of every layer summed over the sp ranks, (L, 2,
+    E), for the aux of the whole sequence (`moe_aux_loss`)."""
+    pcs = [u.positions(t, ip) for u, t, ip in zip(units, tokens, input_pos)]
+    pos, cos, sin = ([pc[j] for pc in pcs] for j in range(3))
+    x = [u.embed(t, p) for u, t, p in zip(units, tokens, pos)]
+    memo: Dict[int, list] = {}  # units that are one object unbind once
+    for u in units:
+        if id(u) not in memo:
+            memo[id(u)] = u.layers()
+    layers = [memo[id(u)] for u in units]
+
+    def layer(lay, x, pos, cos, sin):
+        return _sp_layer(units, lay, x, pos, cos, sin, use_flash, flash_kernel,
+                         collect_moe_aux)
+
+    stats = []
+    for i in range(len(layers[0][0])):
+        lay = [[lr[i] for lr in ls] for ls in layers]
+        if remat:
+            out = checkpoint(layer, lay, x, pos, cos, sin, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            out = layer(lay, x, pos, cos, sin)
+        if collect_moe_aux:
+            x, st = out
+            stats.append(st)
+        else:
+            x = out
+    logits = [u.head(h) for u, h in zip(units, x)]
+    return (logits, torch.stack(stats)) if collect_moe_aux else logits
+
+
+def _sp_layer(units, lay, x, pos, cos, sin, use_flash, flash_kernel, collect_moe_aux):
+    """One layer of `sp_forward` over every sp rank (`units`) and tp rank."""
+    tp = len(units[0].ranks)
+    normed = [u.norm_in(lay[s], x[s]) for s, u in enumerate(units)]
+    qkv = [[attention_qkv(u.cfg_r, lay[s][t]["attn"], normed[s][1][t], cos[s][t], sin[s][t])
+            for t in range(tp)] for s, u in enumerate(units)]
+    ys = [ring_attention([q[t][0] for q in qkv], [q[t][1].transpose(1, 2) for q in qkv],
+                         [q[t][2].transpose(1, 2) for q in qkv], [p[t] for p in pos],
+                         [p[t] for p in pos], use_flash=use_flash, use_kernel=flash_kernel)
+          for t in range(tp)]
+    outs = [u.block_rest(lay[s], x[s], normed[s][0],
+                         [attention_out(u.cfg_r, lay[s][t]["attn"], ys[t][s], x[s][t].dtype,
+                                        project=False) for t in range(tp)],
+                         collect_moe_aux)
+            for s, u in enumerate(units)]
+    if not collect_moe_aux:
+        return outs
+    dev = outs[0][1][0].device
+    return [h for h, _ in outs], sum(torch.stack(st).to(dev) for _, st in outs)
+
+
 class SPRanks:
     """The sequence-parallel ranks of one model replica: each rank holds
     the whole weights (`params`, one tree per rank, shared by the ranks of
@@ -807,22 +898,23 @@ class SPRanks:
         """The logits of the hidden states `x` through rank r's head."""
         return head(self.cfg, self.params[r], x)
 
-    def forward(self, tokens, input_pos, use_flash=False, flash_kernel=None, ropes=None):
+    def forward(self, tokens, input_pos, use_flash=False, flash_kernel=None, remat=False,
+                collect_moe_aux=False):
         """The cache-less forward (training and eval): each rank's chunk
         `tokens[r]` (B, T) starting at `input_pos[r]` (B,), ring attention
-        with q_pos == k_pos; each rank's logits (B, T, padded_vocab)."""
-        T = tokens[0].shape[1]
-        pos = [ip.long()[:, None] + torch.arange(T, device=ip.device) for ip in input_pos]
-        if ropes is None:
-            ropes = [get_rope_cache(self.cfg, device=d) for d in self.devs]
-        cos, sin = self.positions(pos, ropes)
-
-        def attend(i, qs, ks, vs):
-            return ring_attention(qs, ks, vs, pos, pos, use_flash=use_flash,
-                                  use_kernel=flash_kernel)
-
-        x = self.blocks(self.embed(tokens, pos), cos, sin, attend)
-        return [self.head(x[r], r) for r in range(self.P)]
+        with q_pos == k_pos (`sp_forward`, each rank one `TPRanks` of
+        tp = 1); each rank's logits (B, T, padded_vocab).  With
+        `collect_moe_aux` also the layer-summed aux of the router stats
+        summed over the ranks (the whole sequence's, as the JAX package's
+        `stats_reduce` psum over sp gives it)."""
+        units = [TPRanks(self.cfg, [p]) for p in self.params]
+        out = sp_forward(self.cfg, units, tokens, input_pos, use_flash, flash_kernel, remat,
+                         collect_moe_aux)
+        if not collect_moe_aux:
+            return out
+        logits, stats = out
+        n = sum(t.numel() for t in tokens)
+        return logits, sum(moe_aux_loss(self.cfg, st[0], st[1], n) for st in stats)
 
 
 @functools.lru_cache(maxsize=16)

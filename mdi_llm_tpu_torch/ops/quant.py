@@ -40,7 +40,10 @@ The mixture-of-experts contractions (`EXPERT_UP` "...d,eid->...ei" over
 `fc_1`/`fc_2` (E, I, D), `EXPERT_DOWN` "...ei,edi->...ed" over `proj`
 (E, D, I)) take the einsum branch (torch's einsum reads the stacks in
 place, as batched products); w8a8 folds E * I into `_int_mm`'s N for the
-up stacks and runs one `_int_mm` per expert for the down stack.  int4's
+up stacks and runs one `_int_mm` per expert for the down stack.  The
+expert-parallel dispatch (`parallel/expert.py`) contracts each expert's
+own slots (`EP_UP` "emd,eid->emi", `EP_DOWN` "emi,edi->emd"): w8a8 runs
+one `_int_mm` per expert there too.  int4's
 intermediate holds one value per (row, output, scale group): its rows
 are split so that it stays under `W4_Z_BYTES`.
 """
@@ -72,6 +75,8 @@ _INT_MM_MIN_ROWS = 17
 
 # the mixture-of-experts contractions (models/transformer.moe_forward)
 EXPERT_UP, EXPERT_DOWN = "...d,eid->...ei", "...ei,edi->...ed"
+# the same over each expert's own dispatched slots (parallel/expert.py)
+EP_UP, EP_DOWN = "emd,eid->emi", "emi,edi->emd"
 
 # int4's per-group partial products of one contraction are built a block
 # of rows at a time, each block's under this many bytes (Mixtral's expert
@@ -302,7 +307,8 @@ def w8a8_int(spec: str, xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """The exact int8 x int8 -> int32 contraction of `spec` through
     `torch._int_mm`: a linear-shaped spec as one product; EXPERT_UP with
     the E * I rows of the (E, I, D) stack as the product's N; EXPERT_DOWN
-    as one product per expert of the (E, D, I) stack."""
+    as one product per expert of the (E, D, I) stack; `EP_UP`/`EP_DOWN`
+    as one product per expert of its (E, M, ·) slots."""
     if _is_linear(spec, wq):
         return _int_mm(xq.reshape(-1, xq.shape[-1]), wq).reshape(*xq.shape[:-1], wq.shape[0])
     if spec == EXPERT_UP and wq.dim() == 3:
@@ -314,10 +320,12 @@ def w8a8_int(spec: str, xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
         xe = xq.reshape(-1, E, I)
         y = torch.stack([_int_mm(xe[:, e].contiguous(), wq[e]) for e in range(E)], dim=1)
         return y.reshape(*xq.shape[:-2], E, D)
+    if spec in (EP_UP, EP_DOWN) and wq.dim() == 3:
+        return torch.stack([_int_mm(xq[e].contiguous(), wq[e]) for e in range(wq.shape[0])])
     raise NotImplementedError(
         f"w8a8 contracts through torch._int_mm: a linear-shaped spec (x's last "
         f"axis against a 2-D weight's) or an expert spec ({EXPERT_UP!r}, "
-        f"{EXPERT_DOWN!r} over a 3-D stack) is needed, got {spec!r}"
+        f"{EXPERT_DOWN!r}, {EP_UP!r}, {EP_DOWN!r} over a 3-D stack) is needed, got {spec!r}"
     )
 
 

@@ -8,7 +8,10 @@ calls these on the list of the ranks' partial results, rank order:
 - `all_reduce(parts)`: the sum (or the maximum), in rank order, on each
   rank's device;
 - `all_gather(parts, dim)`: the concatenation along `dim`, in rank order,
-  on each rank's device.
+  on each rank's device;
+- `all_to_all(parts, split_axis, concat_axis)`: rank r's chunk j goes to
+  rank j (`jax.lax.all_to_all`), the expert dispatch of
+  `parallel/expert.py`.
 
 When every rank is on one device (tp ranks sharing one card) these are
 plain tensor ops, done once and handed to every rank, and autograd
@@ -55,6 +58,7 @@ import torch.distributed as dist
 __all__ = [
     "all_reduce",
     "all_gather",
+    "all_to_all",
     "CommGroup",
     "reduce_from_ranks",
     "copy_to_ranks",
@@ -264,3 +268,22 @@ def all_gather(parts: Sequence[torch.Tensor], dim: int,
     rank on its device; with `group`, then over the group's processes."""
     return _per_device(
         parts, lambda ps: gather_from_ranks(torch.cat(list(ps), dim=dim), dim, group))
+
+
+def all_to_all(parts: Sequence[torch.Tensor], split_axis: int = 0,
+               concat_axis: int = 0) -> List[torch.Tensor]:
+    """`jax.lax.all_to_all` over the ranks of this process: each rank's
+    part is cut into P equal chunks along `split_axis`, and rank j gets
+    chunk j of every rank, joined along `concat_axis` in rank order, on
+    its device.  Index arithmetic on the tensors, as the ring's rotation
+    (`ops/ring_attention.py`): ranks that share a device exchange views
+    of each other's parts, joined once, with no host round trip.
+    Autograd differentiates it as the slices and the join it is, so the
+    backward is the reverse exchange."""
+    P = len(parts)
+    if any(p.shape[split_axis] % P for p in parts):
+        raise ValueError(f"all_to_all over {P} ranks: split axis {split_axis} of "
+                         f"{[tuple(p.shape) for p in parts]} does not divide by {P}")
+    chunks = [p.chunk(P, dim=split_axis) for p in parts]
+    return [torch.cat([c[j].to(parts[j].device, non_blocking=True) for c in chunks],
+                      dim=concat_axis) for j in range(P)]

@@ -8,7 +8,8 @@ eval with `estimate_loss`, checkpoint-on-best with patience early stop,
 and the TFLOP/s estimate of the log lines.
 
 Meshes (`Trainer(mesh=parallel.mesh.make_mesh(axes, devices))`), the
-JAX Trainer's dp, tp, dp x tp and GPipe pp / pp x tp:
+JAX Trainer's dp, tp, dp x tp, GPipe pp / pp x tp, dp x sp (x tp) and
+dp x ep:
 - dp: the global batch is sampled as without a mesh; each dp position
   takes its contiguous rows, and the loss is the global mean, so the
   gradients are the unmeshed ones.  tp: each rank runs its slice of every
@@ -19,6 +20,17 @@ JAX Trainer's dp, tp, dp x tp and GPipe pp / pp x tp:
   stage 0, the head and the loss on the last stage's outputs); the
   bubbles and the JAX ring's zero-padded layers compute exact zeros
   there and are skipped here, so no padded layer exists to train.
+- sp (the JAX `_sp_loss_fn`): each sp rank holds a contiguous chunk of
+  each of its dp rows, its positions from rank * T/sp, and attention
+  rides the ring over the sp ranks (`transformer.sp_forward`, each sp
+  rank running its tp ranks); the loss is the cross-entropy summed over
+  every rank over the global token count, and the MoE aux's router stats
+  sum over dp and sp before the aux is formed.  ep: each MoE layer's
+  tokens split over the dp x ep ranks and go to their experts by
+  all_to_all (`parallel.expert.ep_moe_forward`, at `moe_capacity_factor`),
+  the aux's stats summed over both axes; attention and the other layers
+  run whole, once on the card.  The ranks' expert slices are views of the
+  one tree, so a rank's AdamW moments are the same slice of the tree's.
 - One tree per process (`parallel/sharding.split_dims`): the standard
   layout where the process holds every tp rank (one process: always),
   else its slice of the tp axis; the ranks' trees are views of it, so
@@ -52,7 +64,9 @@ JAX Trainer's dp, tp, dp x tp and GPipe pp / pp x tp:
   process 0, in the standard layout.
 - `layer_runs` counts each layer a rank of this process runs on a
   micro-batch: on the flash route each launches K2 once (twice with
-  remat) and K3 and K4 once.  `grad_sync_s` sums the host seconds of the
+  remat) and K3 and K4 once.  On an sp mesh a tp rank's layer runs the
+  ring's P^2 blocks, each one such run; on an ep mesh the layers run
+  once over the whole batch.  `grad_sync_s` sums the host seconds of the
   gradient all-reduce across processes (waiting for the slowest peer
   included).
 
@@ -61,14 +75,14 @@ What differs from the JAX package:
   dp/tp/pp mesh (GSPMD cannot partition the Pallas call) and runs those
   meshes on its dense route; the port's ranks run their own layer code,
   so a mesh takes the unmeshed gate below.  Losses differ by rounding.
-- sp and ep meshes (ring attention, token-dispatch experts) are ROADMAP
-  item 16 and refused; MoE configs train in the dense formulation
-  (`transformer.moe_forward`) with the load-balancing aux weighted by
+- MoE configs train with the load-balancing aux weighted by
   `moe_aux_weight` (its router statistics summed over the dp shards
-  before the aux is formed, the JAX package's whole-batch aux);
-  `moe_capacity_factor` acts only on the token dispatch of an `ep` mesh
-  (item 16), so anything but None is refused.  Eval is pure
+  before the aux is formed, the JAX package's whole-batch aux), in the
+  dense formulation (`transformer.moe_forward`) except on an ep mesh;
+  `moe_capacity_factor` acts only on an ep mesh's dispatch.  Eval is pure
   cross-entropy, as the JAX Trainer's.
+- sp and ep run in one process: over processes they are ROADMAP item 19.
+  ep beside tp (which the JAX Trainer lays out under GSPMD) is item 20.
 - The optimizer is written out (`AdamW`) with optax's arithmetic:
   `clip_by_global_norm` divides by the norm itself (torch's
   `clip_grad_norm_` adds 1e-6), the moments are float32, the update of
@@ -146,8 +160,8 @@ class TrainingConfig:
     # instead of the dense torch route; None → CUDA and block_size >= 2048
     use_flash: Optional[bool] = None
     # MoE: the load-balancing aux weight (0 for dense configs, as in the
-    # JAX package); the capacity factor of the ep mesh's token dispatch
-    # (item 16), refused unless None
+    # JAX package); the capacity factor of an ep mesh's token dispatch
+    # (None: exact, no dropped assignment; ignored without an ep axis)
     moe_aux_weight: float = 0.01
     moe_capacity_factor: Optional[float] = None
 
@@ -187,18 +201,19 @@ def lr_schedule(tc: TrainingConfig):
 
 def cross_entropy_loss(
     cfg: Config, params, tokens, targets, remat=True, use_flash=False,
-    flash_kernel: Optional[bool] = None, moe_aux_weight: float = 0.0,
+    flash_kernel: Optional[bool] = None, moe_aux_weight: float = 0.0, moe_impl=None,
 ) -> torch.Tensor:
     """Mean next-token CE in float32 over the padded vocabulary (the
     padding columns only enter the softmax normalizer).  `moe_aux_weight`
     > 0 adds that weight times the layer-mean load-balancing aux of an
-    LLaMAMoE config."""
+    LLaMAMoE config; `moe_impl` runs its MoE layers instead of the dense
+    formulation (`parallel.expert.ep_moe_forward` on an ep mesh)."""
     B = tokens.shape[0]
     collect = moe_aux_weight > 0 and cfg.mlp_class_name == "LLaMAMoE"
     out = transformer.forward(
         cfg, params, tokens, torch.zeros(B, dtype=torch.long, device=tokens.device),
         remat=remat, use_flash=use_flash, flash_kernel=flash_kernel,
-        collect_moe_aux=collect,
+        collect_moe_aux=collect, moe_impl=moe_impl,
     )
     logits = out[0] if collect else out
     loss = F.cross_entropy(logits.float().flatten(0, 1), targets.flatten().long())
@@ -288,14 +303,13 @@ def _refuse(what: str, item: str) -> None:
     )
 
 
-TRAIN_AXES = ("dp", "tp", "pp")
-_ITEM_16_AXES = {"sp": "ring attention", "ep": "token-dispatch experts"}
+TRAIN_AXES = ("dp", "tp", "pp", "sp", "ep")
 
 
 class MeshLayout:
     """How a training mesh's positions fall on this process.
 
-    Sizes `dp`, `tp`, `pp` (1 where the mesh lacks the axis); this
+    Sizes `dp`, `tp`, `pp`, `sp`, `ep` (1 where the mesh lacks the axis); this
     process's dp coordinates `dp_coords`, its stages `stages` (a range
     (s0, s1) of the pp axis) and its tp coordinates `tp_start`, `tp_start
     + tp_local`.  The `parallel.collectives.CommGroup`s, each None when
@@ -310,17 +324,22 @@ class MeshLayout:
     A process holds whole dp coordinates, and either every stage with a
     contiguous part of the tp axis, or a contiguous range of stages each
     with its whole tp group (the mesh's axes then in the order dp, pp,
-    tp)."""
+    tp).  It holds every sp and ep coordinate: the ranks of a sequence
+    or expert split share one process (sp and ep over processes are
+    ROADMAP item 19)."""
 
     def __init__(self, mesh: Mesh, tie: bool = False):
         for axis, size in mesh.shape.items():
-            if axis in _ITEM_16_AXES and size > 1:
-                _refuse(f"a training mesh with {axis}={size} ({_ITEM_16_AXES[axis]})",
-                        "item 16")
-            if axis not in TRAIN_AXES and axis not in _ITEM_16_AXES:
+            if axis not in TRAIN_AXES:
                 raise ValueError(f"mesh axis {axis!r} (size {size}): a training mesh "
                                  f"has the axes {TRAIN_AXES}")
-        self.dp, self.tp, self.pp = (int(mesh.shape.get(a, 1)) for a in TRAIN_AXES)
+        self.dp, self.tp, self.pp, self.sp, self.ep = (int(mesh.shape.get(a, 1))
+                                                       for a in TRAIN_AXES)
+        for axis, size in (("sp", self.sp), ("ep", self.ep)):
+            if size > 1 and mesh.num_processes > 1:
+                _refuse(f"a training mesh with {axis}={size} over {mesh.num_processes} "
+                        "processes (the ranks of an sp or ep split share one process)",
+                        "item 19")
         coords = list(mesh.positions())
         spans = [self._span(mesh, coords, p) for p in range(mesh.num_processes)]
         self.dp_coords, self.stages, self.tp_start, self.tp_local = spans[mesh.process_id]
@@ -369,7 +388,7 @@ class MeshLayout:
         tps = sorted({c.get("tp", 0) for c in own})
         sts = sorted({c.get("pp", 0) for c in own})
         where = f"process {p} of {mesh.num_processes} holds the mesh positions {own}"
-        if (len(own) != len(dps) * len(tps) * len(sts)
+        if (len(own) != len(dps) * len(tps) * len(sts) * self.sp * self.ep
                 or tps != list(range(tps[0], tps[0] + len(tps))) or self.tp % len(tps)
                 or sts != list(range(sts[0], sts[0] + len(sts)))):
             raise ValueError(
@@ -436,9 +455,6 @@ class Trainer:
         flash_kernel: Optional[bool] = None,
     ):
         transformer.check_supported(cfg)
-        if tc.moe_capacity_factor is not None:
-            _refuse("moe_capacity_factor (the MoE token dispatch of an ep mesh)",
-                    "item 16")
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh={mesh!r}: pass a parallel.mesh.make_mesh Mesh")
         self.mesh = mesh
@@ -513,8 +529,25 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _check_mesh(self) -> None:
-        """The JAX constructor's checks (`mdi_llm_tpu/training.py`)."""
+        """The JAX constructor's checks (`mdi_llm_tpu/training.py`), in its
+        words; ep beside tp is the port's own refusal (ROADMAP item 20)."""
         lay, cfg, tc = self.layout, self.cfg, self.tc
+        axes = self.mesh.axis_names
+        if "ep" in axes:
+            if cfg.mlp_class_name != "LLaMAMoE":
+                raise ValueError(f"'ep' mesh axis needs an MoE config; {cfg.name} has "
+                                 f"mlp_class_name={cfg.mlp_class_name!r}")
+            if "sp" in axes or "pp" in axes:
+                raise ValueError("ep composes with dp only (ep×sp/pp: future work)")
+            if cfg.n_expert % lay.ep:
+                raise ValueError(f"n_expert={cfg.n_expert} not divisible by ep={lay.ep}")
+            if lay.tp > 1:
+                _refuse(f"a training mesh with ep={lay.ep} beside tp={lay.tp}", "item 20")
+        if "pp" in axes and "sp" in axes:
+            raise ValueError("pp composes with dp/tp only (pp×sp: future work)")
+        if self.block_size % lay.sp:
+            raise ValueError(f"block_size {self.block_size} must divide by sp={lay.sp}: each "
+                             "sp rank takes a contiguous chunk of every row")
         if lay.tp > 1:
             validate_tp_divisibility(cfg, lay.tp)
         if lay.pp > 1:
@@ -657,6 +690,8 @@ class Trainer:
         assignments summed over every dp shard, its own probabilities);
         summed over the dp group it is the unmeshed loss."""
         cfg, lay = self.cfg, self.layout
+        if lay.ep > 1:
+            return self._ep_loss(x, y, remat, aux_weight)
         B, T = x.shape
         rows = B // lay.dp
         collect = aux_weight > 0
@@ -664,6 +699,23 @@ class Trainer:
         ce, stats = torch.zeros((), device=self.device), 0.0
         for d in lay.dp_coords:
             xd, yd = x[d * rows:(d + 1) * rows], y[d * rows:(d + 1) * rows]
+            if lay.sp > 1:
+                # each sp rank its contiguous chunk of the rows, at its offset
+                Tl = T // lay.sp
+                starts = [torch.full((rows,), s * Tl, dtype=torch.long, device=xd.device)
+                          for s in range(lay.sp)]
+                out = transformer.sp_forward(
+                    cfg, [ranks] * lay.sp, list(xd.split(Tl, dim=1)), starts,
+                    use_flash=self.use_flash, flash_kernel=self.flash_kernel, remat=remat,
+                    collect_moe_aux=collect)
+                self.layer_runs += cfg.n_layer * lay.sp ** 2 * lay.tp_local
+                logits_s = out[0] if collect else out
+                if collect:
+                    stats = stats + out[1]
+                for logits, ys in zip(logits_s, yd.split(Tl, dim=1)):
+                    ce = ce + F.cross_entropy(logits.float().flatten(0, 1),
+                                              ys.flatten().long(), reduction="sum")
+                continue
             if lay.pp > 1:
                 logits = self._pp_logits(ranks, xd, remat)
                 if logits is None:  # the last stage is another process's
@@ -687,6 +739,25 @@ class Trainer:
             aux = transformer.moe_aux_loss(cfg, assign, stats[:, 1], B * T)
             loss = loss + aux_weight * aux / cfg.n_layer
         return loss
+
+    def _ep_loss(self, x, y, remat: bool, aux_weight: float) -> torch.Tensor:
+        """The loss of the batch on a (dp, ep) mesh: the unmeshed
+        `cross_entropy_loss` with every MoE layer's tokens split over the
+        dp x ep ranks and dispatched to their experts
+        (`parallel.expert.ep_moe_forward`, the aux's stats summed over both
+        axes); attention and the other layers whole, run once on the
+        card."""
+        from functools import partial
+
+        from mdi_llm_tpu_torch.parallel.expert import ep_moe_forward
+
+        impl = partial(ep_moe_forward, mesh=self.mesh,
+                       capacity_factor=self.tc.moe_capacity_factor,
+                       dp_axis="dp" if "dp" in self.mesh.axis_names else None)
+        self.layer_runs += self.cfg.n_layer
+        return cross_entropy_loss(
+            self.cfg, self.params, x, y, remat=remat, use_flash=self.use_flash,
+            flash_kernel=self.flash_kernel, moe_aux_weight=aux_weight, moe_impl=impl)
 
     def _pp_logits(self, ranks, x, remat: bool) -> Optional[torch.Tensor]:
         """The GPipe ring over one dp shard's rows `x`: S micro-batches,

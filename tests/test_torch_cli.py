@@ -521,10 +521,8 @@ def test_checkpoint_tools_on_the_converted_checkpoint(converted, tmp_path, capsy
 @pytest.mark.parametrize("flag", ["--tp-devices", "--pipeline-stages", "--ep-devices",
                                   "--sp-devices"])
 def test_chat_cli_refuses_unported_backends(flag):
-    """ep is refused; the recurrent pipeline, tp and sp backends are
-    ported and, like every chat, need a checkpoint's tokenizer."""
-    match = ("needs a checkpoint with a tokenizer"
-             if flag in ("--pipeline-stages", "--tp-devices", "--sp-devices")
-             else "not ported")
+    """Every backend is ported (ep since expert parallelism came): each
+    one, like every chat, needs a checkpoint's tokenizer."""
+    match = "needs a checkpoint with a tokenizer"
     with pytest.raises(SystemExit, match=match):
         chat_cli.main(["--device", "cpu", "--model", "pythia-14m", flag, "2"])

@@ -334,11 +334,12 @@ def test_sample_cli_runs_on_cpu_and_raises_without_a_gpu(tmp_path):
 @pytest.mark.parametrize("flag", ["--pipeline-stages", "--sp-devices", "--tp-devices",
                                   "--ep-devices", "--coordinator", "--profile-dir"])
 def test_sample_cli_refuses_unported_flags(flag, tmp_path):
-    """The flags of features the port does not carry are refused; the
-    recurrent pipeline (`--pipeline-stages`), tensor parallelism
-    (`--tp-devices`), sequence parallelism (`--sp-devices`),
-    `--profile-dir` and `--coordinator` (here a job of one process; two
-    are tests/test_torch_inference_procs.py's) are ported and run."""
+    """Every flag is ported: the recurrent pipeline (`--pipeline-stages`),
+    tensor parallelism (`--tp-devices`), sequence parallelism
+    (`--sp-devices`), `--profile-dir` and `--coordinator` (here a job of
+    one process; two are tests/test_torch_inference_procs.py's) run;
+    expert parallelism (`--ep-devices`) refuses a dense config in the JAX
+    CLI's words (its runs are tests/test_torch_expert.py's)."""
     from mdi_llm_tpu_torch.cli import sample as cli
 
     value = {"--profile-dir": str(tmp_path / "prof"),
@@ -352,5 +353,5 @@ def test_sample_cli_refuses_unported_flags(flag, tmp_path):
         _prompts, outs, stats, _gen, _tok, _s = cli.run(args)
         assert stats.tokens_generated == 4 and len(outs) == 1
         return
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="needs a MoE config"):
         cli.run(args)

@@ -14,9 +14,10 @@
 - Clipping engaged (`grad_clip` 0.05, far below the first gradient's
   norm) on tp and dp x tp, and the tiny MoE config at tp 2 with its aux
   weight; the port's eval is pure cross-entropy, as the JAX Trainer's.
-- The guards: batch divisibility (dp, and dp x pp), tp divisibility, sp
-  and ep meshes refused naming item 16, a mesh over processes that splits
-  a pp group.  Save and resume on a pp mesh, from a mesh to none and from
+- The guards: batch divisibility (dp, and dp x pp), tp divisibility, an
+  ep mesh on a dense config (the JAX package's words; sp and ep run in
+  tests/test_torch_sp_training.py and test_torch_expert.py), a mesh over
+  processes that splits a pp group.  Save and resume on a pp mesh, from a mesh to none and from
   none to a mesh: the next loss equal.
 - `make_mesh` over processes: each owns a contiguous block of positions;
   the Generator refuses such a mesh (item 14's next part).
@@ -178,10 +179,12 @@ def test_mesh_guards():
     with pytest.raises(ValueError, match="tp=3 does not divide"):
         ttr.Trainer(cfg, ttr.TrainingConfig(**asdict(small_tc())),
                     mesh=make_mesh({"tp": 3}, cpu), device="cpu")
-    for axes in ({"dp": 1, "sp": 2}, {"dp": 2, "ep": 2}):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            ttr.Trainer(cfg, ttr.TrainingConfig(**asdict(small_tc())),
-                        mesh=make_mesh(axes, cpu), device="cpu")
+    # sp meshes are ported; ep needs an MoE config, in the JAX words
+    assert ttr.Trainer(cfg, ttr.TrainingConfig(**asdict(small_tc())),
+                       mesh=make_mesh({"dp": 1, "sp": 2}, cpu), device="cpu").layout.sp == 2
+    with pytest.raises(ValueError, match="'ep' mesh axis needs an MoE config"):
+        ttr.Trainer(cfg, ttr.TrainingConfig(**asdict(small_tc())),
+                    mesh=make_mesh({"dp": 2, "ep": 2}, cpu), device="cpu")
     with pytest.raises(ValueError, match="axes"):
         ttr.Trainer(cfg, ttr.TrainingConfig(**asdict(small_tc())),
                     mesh=make_mesh({"rows": 2}, cpu), device="cpu")

@@ -20,7 +20,8 @@ experts, top 2) and of the same config with 8 experts go through
 - `init_params` and `init_quantized_params` in the JAX package's layout;
 - the CLIs' `--override KEY=VALUE` on a tiny Mixtral: the serve CLI gives
   the JAX engine's streams over the same weights, the train CLI trains it
-  and refuses an MoE capacity factor, bad overrides are refused.
+  (with an MoE capacity factor on an ep mesh too), bad overrides are
+  refused.
 """
 
 import jax
@@ -372,9 +373,12 @@ def test_train_cli_trains_a_tiny_mixtral_and_refuses_a_capacity_factor(tmp_path)
     result, trainer = train_cli.main(argv)
     assert trainer.cfg.mlp_class_name == "LLaMAMoE" and trainer.moe_aux_weight == 0.01
     assert [h["iter"] for h in result["history"] if "loss" in h] == [1, 2]
+    # the capacity factor, once refused, bounds the dispatch of an ep mesh
     fresh = [a if a != str(tmp_path / "ck") else str(tmp_path / "ck2") for a in argv]
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train_cli.main(fresh + ["--moe-capacity-factor", "1.25"])
+    result, trainer = train_cli.main(fresh + ["--moe-capacity-factor", "1.25",
+                                              "--mesh", "ep=2"])
+    assert trainer.layout.ep == 2 and trainer.tc.moe_capacity_factor == 1.25
+    assert [h["iter"] for h in result["history"] if "loss" in h] == [1, 2]
 
 
 @pytest.mark.parametrize("extra", [[], ["--init", "resume"]], ids=["saved-config", "resume"])

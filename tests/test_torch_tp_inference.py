@@ -506,25 +506,26 @@ def test_shard_config_is_each_ranks_share():
 # the ids are the ones these cases had when the pipeline meshes were
 # refused (item 14, second half): they are ported now, and run
 @pytest.mark.parametrize("axes,match", [
-    pytest.param({"ep": 2}, "item 16", id="axes0-item 16"),
+    pytest.param({"ep": 2}, None, id="axes0-item 16"),
     pytest.param({"sp": 2}, None, id="axes1-item 16"),
     pytest.param({"pp": 2, "tp": 2}, None, id="axes2-item 14, second half"),
     pytest.param({"pipe": 2}, None, id="axes3-item 14, second half"),
 ])
 def test_unported_meshes_are_refused_naming_their_item(model, axes, match):
-    """ep meshes are refused naming item 16; a pipeline axis, alone or
-    beside tp, generates as the JAX Generator does with its replicated
-    pipeline axis: over stage 0's tp ranks, the single device's streams.
-    An sp axis, once refused, is replicated as the JAX Generator leaves
-    it (the sequence splits in `SPGenerator`): the single device's
-    streams."""
+    """A pipeline axis, alone or beside tp, generates as the JAX Generator
+    does with its replicated pipeline axis: over stage 0's tp ranks, the
+    single device's streams.  An sp axis, once refused, is replicated as
+    the JAX Generator leaves it (the sequence splits in `SPGenerator`),
+    and an ep axis, once refused, leaves a dense config as it is, as the
+    JAX Generator does (its experts split on an MoE config,
+    tests/test_torch_expert.py): the single device's streams."""
     _, _, tc, tp = model
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
             _gen(tc, tp, axes)
         return
     gen = _gen(tc, tp, axes)
-    if "sp" in axes:
+    if "sp" in axes or "ep" in axes:
         assert gen.mesh is None and gen.tp == 1
     else:
         assert set(gen.mesh) == {0, 1} and gen.tp == axes.get("tp", 1)

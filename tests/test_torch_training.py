@@ -16,11 +16,12 @@
   resume exact; the NumPy and native loaders give the JAX package's
   batches.
 - The train CLI on the CPU, then `--init resume`; without a GPU it
-  raises; `--mesh` with an sp axis (item 16) and `--coordinator` without
-  `--process-id`/`--num-processes` are refused, `--init hf` without
-  weights in `--ckpt` too, and the Trainer refuses sp meshes and an MoE
-  capacity factor (the ep mesh's token dispatch, item 16).  The meshes
-  the Trainer takes are `tests/test_torch_mesh_training.py`'s.
+  raises; `--mesh` with pp beside sp (the JAX package's refusal) and
+  `--coordinator` without `--process-id`/`--num-processes` are refused,
+  `--init hf` without weights in `--ckpt` too; the Trainer takes an sp
+  mesh and an MoE capacity factor (which acts on an ep mesh's dispatch).
+  The meshes the Trainer takes are `tests/test_torch_mesh_training.py`'s,
+  `test_torch_sp_training.py`'s and `test_torch_expert.py`'s.
 """
 
 import json
@@ -329,8 +330,8 @@ def test_train_cli_raises_without_a_gpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    # --mesh is ported; an sp axis (ring attention) is item 16
-    (["--mesh", "dp=2,sp=2"], SystemExit, "item 16"),
+    # --mesh is ported, sp and ep axes too; pp beside sp is the JAX refusal
+    (["--mesh", "dp=1,pp=2,sp=2"], ValueError, r"pp composes with dp/tp only"),
     # --init hf is ported: a --ckpt with neither params.pt nor HF weights
     # is refused before any work
     (["--init", "hf"], FileNotFoundError, r"no \*.safetensors or \*.bin weights"),
@@ -346,17 +347,20 @@ def test_train_cli_refuses_unported_flags(tmp_path, flags, error, match):
 
 def test_trainer_refuses_meshes_and_moe():
     """sp meshes (ring attention) and the MoE capacity factor (which acts
-    only on an ep mesh's token dispatch) are refused, naming item 16.  MoE
-    configs train (their steps are `test_train_steps_match_jax[moe-*]`),
-    and a dense config takes any `moe_aux_weight` and ignores it, as the
-    JAX Trainer does."""
+    only on an ep mesh's token dispatch), once refused, are taken; pp
+    beside sp is refused in the JAX package's words.  MoE configs train
+    (their steps are `test_train_steps_match_jax[moe-*]`), and a dense
+    config takes any `moe_aux_weight` and ignores it, as the JAX Trainer
+    does."""
     cfg = port_cfg(tiny_config())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ttr.Trainer(cfg, port_tc(), mesh=make_mesh({"dp": 1, "sp": 2}, ["cpu"]),
+    assert ttr.Trainer(cfg, port_tc(), mesh=make_mesh({"dp": 1, "sp": 2}, ["cpu"]),
+                       device="cpu").layout.sp == 2
+    with pytest.raises(ValueError, match=r"pp composes with dp/tp only \(pp×sp"):
+        ttr.Trainer(cfg, port_tc(), mesh=make_mesh({"dp": 1, "pp": 2, "sp": 2}, ["cpu"]),
                     device="cpu")
     moe = port_cfg(tiny_config(**CONFIG_VARIANTS["moe"]))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ttr.Trainer(moe, port_tc(moe_capacity_factor=1.25), device="cpu")
+    assert ttr.Trainer(moe, port_tc(moe_capacity_factor=1.25),
+                       device="cpu").tc.moe_capacity_factor == 1.25
     assert ttr.Trainer(moe, port_tc(), device="cpu").moe_aux_weight == 0.01
     assert ttr.Trainer(cfg, port_tc(moe_aux_weight=0.0), device="cpu").moe_aux_weight == 0.0
     assert ttr.Trainer(cfg, port_tc(moe_aux_weight=0.5), device="cpu").moe_aux_weight == 0.0
