@@ -39,7 +39,17 @@ remat) compiled instead of compiling them again.
    (8 steps) with double buffering.  Every request must finish with its
    token budget, every token must be in the vocabulary, K1 must have been
    launched 22 times per model forward and the plain route never; prints
-   the merge kernel's launches beside K1's.  Here and in every serving and
+   the merge kernel's launches beside K1's.  The run passes `--hbm-gb 80`:
+   its plan audit (`analysis/audit.py`, before the weights load) must pass,
+   its params bytes must equal the engine's weight tensors' and its pool
+   bytes the pool's, exactly, and its per-device total must lie within
+   15% of `torch.cuda.max_memory_allocated()` over the serve (from the
+   built engine to the trace's end, less what the process held before:
+   `serve_peak_checked`); the audit's
+   K1 shared memory must equal what the launch requests
+   (`ragged_paged_attention.launch_smem_bytes`, from the built library)
+   and stay within the card's `shared_memory_per_block_optin`, which must
+   be the audit's limit for the card.  Here and in every serving and
    generation phase below the engine's steps and generate's decode chunks
    run as CUDA graphs (phase 15), so launches are counted at replay.
 5. serve parity — float32, 4 layers at full width, 4 requests of 16 new
@@ -58,7 +68,9 @@ remat) compiled instead of compiling them again.
 5b. serve-q8 — the serve phase's CLI run with `--kv-dtype int8`, then
    with `--kv-dtype float8` (e4m3): every request finishes with its
    budget in the vocabulary, K1 is launched 22 times per forward and the
-   plain route never; prints the pool's bytes beside a bf16 pool's.
+   plain route never; prints the pool's bytes beside a bf16 pool's.  The
+   audit checks of the serve phase over the int8 pool (scales included);
+   over the e4m3 one its bytes and K1's shared memory (its peak printed).
 5c. serve-q8-parity — the serve-parity phase over an int8 pool, then an
    e4m3 pool: greedy streams through K1 and through the plain route.
 5d. spec — speculative serving at full size, bf16 pool, `--spec-k 4
@@ -176,7 +188,7 @@ remat) compiled instead of compiling them again.
    `cli/server.py`) at the serve phase's set-up (tiny-llama-1.1b, all 22
    layers, bf16, random weights from seed 10137, 8 slots, 16-token blocks,
    2048-token window, decode chunk 8 with double buffering, CUDA graphs),
-   over 32 synthetic requests (prompts 4-511, 8-64 new tokens):
+   over 16 synthetic requests (prompts 4-511, 8-64 new tokens):
    (a) the trace through an offline `engine.run()`, then submitted whole
    to a `ServingFrontend` before `start()` with the observer on and off:
    the streams and host_syncs must equal the offline run's;
@@ -229,13 +241,15 @@ remat) compiled instead of compiling them again.
    other block; and pinned copies of 1, 8 and 32 pool blocks each way are
    timed by CUDA events (the link table's row in `serving/host_tier.py`).
 18. quant — weight quantization (`ops/quant.py`) on tiny-llama-1.1b at
-   full width and depth: (a) the serve phase's CLI run in bf16 and with
+   full width and depth: (a) the serve phase's CLI run (`QUANT_TOKENS`,
+   32, new tokens) in bf16 and with
    `--quantize int8`, `w8a8` and `int4`: each as the serve phase checks
    it (K1 22 per forward, replayed inside the step graphs), with the
    weights' stored bytes, tokens/s, MFU/MBU, the greedy tokens' agreement
    with bf16 (printed: random weights make them diverge legitimately) and
    each step report's flops over bf16's (w8a8 within 0.01%); (b)
    `Generator(quantize=...).generate` on the generate phase's 4 prompts
+   (`QUANT_TOKENS` new tokens)
    with exactly 22 K2 launches, decode chunks of 8, decode tokens/s (the
    graph capture taken out) and prefill seconds beside bf16's; (c) one float32 forward of each
    mode (4 layers) against the same forward through
@@ -302,8 +316,8 @@ remat) compiled instead of compiling them again.
    `examples/node_configs/standalone.json`: tiny-llama-1.1b at full
    width and all 22 layers, bf16, seed 10137, S = 2 and S = 4 stages
    (the reference table's [10, 12] and [4, 6, 6, 6]), M = 2 samples per
-   slot, 2·S greedy 8-token prompts, 64 new tokens.  Every sample gets its
-   64 tokens in the vocabulary; a second call on the same engine replays
+   slot, 2·S greedy 8-token prompts, `PIPE_TOKENS` (32) new tokens.  Every
+   sample gets its budget in the vocabulary; a second call on the same engine replays
    the captured decode chunks (no capture) and gives the same streams;
    the ring launches none of K1-K4 and no plain route.  The streams are
    compared with `Generator.generate`'s at B = S·M on the same prompts:
@@ -319,8 +333,10 @@ remat) compiled instead of compiling them again.
    processes sharing the card (gloo, the hop staged through pinned host
    buffers), each under `cli.mem_monitor`, running two jobs in turn: in
    float32 at 4 layers (S = 2, M = 2, 4 samples, 32 tokens) the streams
-   are the one-process ring's (`divergence_ok`); in bf16 at 22 layers (64
-   tokens) every sample gets its budget.  Prints the bf16 job's stats
+   are the one-process ring's (`divergence_ok`); in bf16 at 22 layers (32
+   tokens) every sample gets its budget.  The starter runs both jobs with
+   `--hbm-gb 80`: its plan audit (before the checkpoint load) must print
+   0 errors.  Prints the bf16 job's stats
    line, seconds and each process's ring line (backend, hops, bytes, mean
    and fastest hop ms, its allocator's peak reserved bytes) and each
    monitor's peaks over both jobs: the process's card memory as
@@ -330,8 +346,8 @@ remat) compiled instead of compiling them again.
 25. pp-serve — pipeline-parallel serving (`serving/pipeline.py`): the
    serve phase's CLI run and trace (tiny-llama-1.1b, all 22 layers, bf16,
    seed 10137, 16 synthetic requests, 8 slots, 16-token blocks, 2048-token
-   window, 64 new tokens, decode chunks of 8 with double buffering) with
-   `--pp 2` and `--pp 4` (the reference table's [10, 12] and [4, 6, 6,
+   window, `RING_SERVE_TOKENS` (32) new tokens, decode chunks of 8 with
+   double buffering) with `--pp 2` and `--pp 4` (the reference table's [10, 12] and [4, 6, 6,
    6], every stage on the card), then `--pp 2 --kv-dtype int8` (K1's int8
    branch inside the ring).  Each run: every request finishes with its
    budget in the vocabulary, K1 launches exactly once per stage layer the
@@ -370,7 +386,9 @@ remat) compiled instead of compiling them again.
    ranks' partial sums meet in an all-reduce, another summation order;
    printed, never gated).  Then float32 at 4 layers, tp 2 and 4: the
    streams through K1 must give the single engine's and the tp engine's
-   through the plain route (`divergence_ok`).
+   through the plain route (`divergence_ok`).  The tp 2 serves' plan
+   audits: each rank's params and pool bytes equal its shard tree's and
+   its pool's, exactly.
 27. tp-generate — K2 at the generate phase's prefill shape (B=4, T=2048,
    causal, bf16) with 16 heads over 2 groups and 8 over 1, against its
    plain version (times as for `flash`); then `Generator(mesh=make_mesh(
@@ -449,7 +467,7 @@ remat) compiled instead of compiling them again.
    streams and its own through the plain route (`divergence_ok`).
 32. pipeline-tp — the pipe x tp ring (`PipelineEngine(tp=2)` through
    `cli.starter --tp-devices 2` and `standalone.json`, one process): S = 2
-   ([10, 12]), M = 2, 4 greedy 8-token prompts, 64 new tokens, at full
+   ([10, 12]), M = 2, 4 greedy 8-token prompts, `PIPE_TOKENS` new tokens, at full
    width and depth in bf16, beside the same ring at tp = 1 and
    `Generator.generate` at B = 4: every sample gets its budget, a second
    call replays the captured chunks and gives the same streams, the ring
@@ -474,16 +492,16 @@ remat) compiled instead of compiling them again.
    processes: the one-process pipe x tp ring's streams.
 34. sp — sequence-parallel inference (`parallel/sp_inference.py`) at
    Llama-3-8B's full width (4096 wide, 32 heads, 8 KV groups, hs 128) at
-   16 of its 32 layers, bf16, random weights: K2 with its LSE against its
+   `SP_LAYERS` (8) of its 32 layers, bf16, random weights: K2 with its LSE against its
    plain version at the sp 2 ring's block shapes (B=2, T=4096, causal and
    non-causal), ring attention's gradient (P=2, T=1024 per rank: K2, K3
    and K4 with the LSE's cotangent against the plain ring in float32,
    within `flash_bwd_bf16_limits` of the whole sequence times P plus P
    bf16 roundings; err/limit printed), then two prompts of 8128 and
-   6000 random tokens, 64 greedy new tokens each, through the
+   6000 random tokens, `SP_TOKENS` (32) greedy new tokens each, through the
    `Generator` (K2 once per layer) and `SPGenerator` at sp 2 with and
    without `use_flash` and at sp 4 with `use_flash, flash_min_len=1024`:
-   K2 launches exactly P^2 x 16 per flash prefill and 0 on the plain
+   K2 launches exactly P^2 x `SP_LAYERS` per flash prefill and 0 on the plain
    ring, every sample gets its 64 tokens; prints prefill seconds, decode
    tokens/s, each rank's KV bytes beside the Generator's cache and the
    bf16 divergences from the Generator's streams (printed with the
@@ -531,6 +549,19 @@ remat) compiled instead of compiling them again.
    `dp=1,sp=2,tp=2`: every loss line within 1e-5 (relative) of the
    unmeshed Trainer's, the parameters after 3 steps within
    `MESH_PARAM_TOL`, and the first step's gradients within `grad_limit`.
+37. preflight — the serve CLI's plan audit refusing and downgrading, in
+   this process: `--hbm-gb 1` (below tiny-llama-1.1b's 2.05 GiB of
+   weights) must exit before any weight reaches the card, with
+   `torch.cuda.memory_allocated()` unchanged, printing the refusal and its
+   finding; `--no-preflight` with the same budget prints the finding as a
+   warning and serves 2 requests of 8 tokens (the passing `--hbm-gb 80`
+   is the serve phase's).
+38. doctor — `python -m mdi_llm_tpu_torch.cli.doctor`, the full staged
+   triage, each stage in a fresh interpreter under its own timeout
+   (import_torch, devices, matmul, kernels: K1 and K2 once against their
+   plain versions within `TOL`'s bfloat16 1.5e-2, graph, profiler_trace,
+   collective, threads): prints every stage's status and seconds, and
+   fails unless each is ok or skipped and `kernels` is ok.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4, each with `paths`: its launches in every phase that drives
@@ -764,6 +795,92 @@ def serve_checked(phase, argv, draft_layers=0, n_layer=22):
     return line, launches, engine, results
 
 
+AUDIT_PEAK_TOL = 0.15  # the audit's per-device total against the serve's peak allocation
+
+
+def audit_checked(phase, engine, label, peak=None) -> dict:
+    """The plan audit the serve CLI made before loading the weights
+    (`engine.audit`) against the engine's live tensors: the params bytes
+    per device equal each tp rank's shard tree's (the weights' without a
+    mesh) and the pool bytes per device each rank's pool's, scales
+    included, exactly; with `peak` (max_memory_allocated over the serve)
+    the per-device total lies within AUDIT_PEAK_TOL of it.  Returns what
+    it compared."""
+    from mdi_llm_tpu_torch.models import transformer
+
+    rep = engine.audit
+    dev, pool = rep.breakdown["per_device"], rep.breakdown["kv_pool"]
+    nbytes = lambda tree: sum(int(x.nbytes) for x in transformer.tree_leaves(tree))
+    gen = engine.gen
+    if gen._shards is None:
+        params, pools = [nbytes(gen.params)], [nbytes(engine._kv)]
+    else:
+        params = [nbytes(gen._shards[r]) for r in sorted(gen._shards)]
+        pools = [nbytes(engine._kv[r]) for r in sorted(engine._kv)]
+    out = {"audit_params_bytes": dev["params_bytes"], "live_params_bytes": params,
+           "audit_pool_bytes": pool["pool_bytes_per_device"], "live_pool_bytes": pools,
+           "audit_total_bytes": dev["total_bytes"], "errors": len(rep.errors)}
+    if rep.errors or set(params) != {dev["params_bytes"]} \
+            or set(pools) != {pool["pool_bytes_per_device"]} or sum(pools) != pool["pool_bytes"]:
+        fail(phase, f"{label}: the plan audit against the live tensors: {out}")
+    if peak is not None:
+        out.update(peak_allocated_bytes=peak, audit_over_peak=dev["total_bytes"] / peak)
+        if not abs(dev["total_bytes"] - peak) <= AUDIT_PEAK_TOL * peak:
+            fail(phase, f"{label}: the audit's total {dev['total_bytes']} B is not within "
+                 f"{AUDIT_PEAK_TOL:.0%} of the serve's peak allocation {peak} B")
+    return out
+
+
+def k1_smem_checked(phase, engine) -> dict:
+    """The audit's K1 shared memory for the serve's entry against the size
+    the launch requests (from the built library) and the card's opt-in
+    limit per block, which must be the audit's limit for the card."""
+    import torch
+
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.ops import ragged_paged_attention as rpa
+
+    pool = engine.audit.breakdown["kv_pool"]
+    leaf = engine._kv[0] if engine.gen._shards is not None else engine._kv
+    payload = rpa._pool_parts(leaf["k"])[0]
+    launch = rpa.launch_smem_bytes(transformer.param_dtype(engine.gen.params), payload.dtype,
+                                   engine.gen.cfg.head_size)
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    out = {"kernel_key": pool["kernel_key"], "audit_smem_bytes": pool["k1_smem_bytes"],
+           "launch_smem_bytes": launch, "card_optin_bytes": optin,
+           "audit_limit_bytes": pool["k1_smem_limit"]}
+    if pool["k1_smem_bytes"] != launch or launch > optin or pool["k1_smem_limit"] != optin:
+        fail(phase, f"K1 shared memory: {out}")
+    return out
+
+
+def serve_peak_checked(phase, argv):
+    """`serve_checked` with the peak allocation of the serve itself: the
+    engine built (weights drawn, pool allocated, steps captured), the peak
+    reset, the trace run; what this process held before the build (earlier
+    phases' tensors) taken out.  (Drawing random weights peaks higher: each
+    leaf is drawn in float32 and cast, a transient no checkpoint load has.)
+    Returns (stats line, K1 launches, engine, results, peak bytes)."""
+    import torch
+
+    from mdi_llm_tpu_torch.cli import serve as cli
+
+    args = cli.build_parser().parse_args(argv)
+    peak = {}
+
+    def run():
+        held = torch.cuda.memory_allocated()
+        trace, engine, _tok = cli.build(args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        results, stats = engine.run()
+        peak["bytes"] = torch.cuda.max_memory_allocated() - held
+        return trace, results, stats, engine
+
+    _trace, results, line, engine, launches = served(phase, run, 22)
+    return line, launches, engine, results, peak["bytes"]
+
+
 SINGLE_REFS = {}  # tuple(argv): the single engine's (stats line, Generator, results)
 
 
@@ -788,9 +905,11 @@ def phase_serve(record):
 
     # warm-up (CUDA context, cuBLAS handles), not counted
     cli.serve(cli.build_parser().parse_args(SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8"]))
-    torch.cuda.synchronize()
-    line, launches, engine, _results = serve_checked(
-        "serve", SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"])
+    free()
+    line, launches, engine, _results, peak = serve_peak_checked(
+        "serve", SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64", "--hbm-gb", "80"])
+    audit = audit_checked("serve", engine, "bf16 pool", peak)
+    smem = k1_smem_checked("serve", engine)
     print("serve: " + json.dumps({k: line[k] for k in (
         "requests", "tokens_generated", "tokens_per_s", "wall_s", "decode_s",
         "prefill_s", "mixed_steps", "decode_steps", "host_syncs",
@@ -802,6 +921,8 @@ def phase_serve(record):
           f"{engine.k1_merge_launches} ({line['mixed_steps']} mixed steps, "
           f"{line['decode_steps']} decode steps in chunks of {engine.cfg.decode_chunk}); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print("serve: plan audit (--hbm-gb 80) vs the live engine: " + json.dumps(audit), flush=True)
+    print("serve: K1 shared memory: " + json.dumps(smem), flush=True)
     record["launches"] = launches
     record.setdefault("paths", {})["serve"] = launches
 
@@ -914,7 +1035,16 @@ def phase_serve_q8(record):
     serve_checked("serve-q8", SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8",
                                             "--kv-dtype", "int8"])  # warm-up
     for kv in ("int8", "float8"):
-        line, launches, engine, _results = serve_checked("serve-q8", run + ["--kv-dtype", kv])
+        free()
+        line, launches, engine, _results, peak = serve_peak_checked(
+            "serve-q8", run + ["--kv-dtype", kv])
+        # the 15% bound is held over the int8 pool (and the serve phase's
+        # bf16 one); the e4m3 pool's bytes are held exactly, its peak printed
+        audit = audit_checked("serve-q8", engine, f"{kv} pool", peak if kv == "int8" else None)
+        audit["peak_allocated_bytes"] = peak
+        print(f"serve-q8: --kv-dtype {kv}: plan audit vs the live engine: " + json.dumps(audit)
+              + "; K1 shared memory: " + json.dumps(k1_smem_checked("serve-q8", engine)),
+              flush=True)
         cfg, nb = engine.gen.cfg, engine.pool.num_blocks
         bf16 = 2 * cfg.n_layer * nb * engine.cfg.block_size * cfg.n_query_groups * cfg.head_size * 2
         scales = sum(x["scale"].numel() * 4 for x in engine._kv.values()) if kv == "int8" else 0
@@ -2179,7 +2309,7 @@ def phase_graphs(k1, k2, card):
           f"{ms[torch.bfloat16]:.4f} ms; on {card}", flush=True)
 
 
-SERVER_REQUESTS = 32  # the closed submission's synthetic trace
+SERVER_REQUESTS = 16  # the closed submission's synthetic trace (32 before the doctor phase's cuts)
 # the server's process under cli.server's own entry, with K1's and the plain
 # route's counts printed when it exits (a replay runs no Python, so the
 # counts are StepGraph's, as in every phase)
@@ -2857,6 +2987,7 @@ def phase_tier(k1, card):
 
 
 QUANT_MODES = ("int8", "w8a8", "int4")
+QUANT_TOKENS = 32  # new tokens of the quant phase's serves and generates (64 before the doctor phase's cuts)
 
 
 def plain_quantized_einsum(spec, x, p):
@@ -2951,7 +3082,7 @@ def phase_quant(k1, k2, card, ckpt_dir):
     from mdi_llm_tpu_torch.utils import checkpoint as ck
 
     # (a) the serve CLI, bf16 then each mode, K1 replayed inside the graphs
-    serve_argv = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"]
+    serve_argv = SERVE_BASE + ["--synthetic", "16", "--n-tokens", str(QUANT_TOKENS)]
     serves, k1_launches = {}, 0
     for mode in ("none",) + QUANT_MODES:
         line, launches, engine, results = serve_checked("quant", serve_argv + ["--quantize", mode])
@@ -2972,7 +3103,7 @@ def phase_quant(k1, k2, card, ckpt_dir):
         del engine
         torch.cuda.empty_cache()
     bline, bres, bbytes, bflops = serves["none"]
-    trace = cli.synthetic_trace(16, engine_vocab, 2048, 64)
+    trace = cli.synthetic_trace(16, engine_vocab, 2048, QUANT_TOKENS)
     lens = {rid: len(p) for rid, p, _n in trace}
     for mode in QUANT_MODES:
         line, results, nbytes, flops = serves[mode]
@@ -3002,15 +3133,15 @@ def phase_quant(k1, k2, card, ckpt_dir):
         flash_attention.launches = flash_attention_plain.calls = 0
         # decode chunks of 8: each capture half the launches of one of 16
         # (PR 18's cuts of the whole run's time)
-        outs, stats = gen.generate(prompts, 64, temperature=0.0, chunk_size=8)
+        outs, stats = gen.generate(prompts, QUANT_TOKENS, temperature=0.0, chunk_size=8)
         torch.cuda.synchronize()
         launches, plain = flash_attention.launches, flash_attention_plain.calls
         if launches != 22 or plain:
             fail("quant", f"generate --quantize {mode}: K2 launches {launches} (want 22), "
                  f"plain version calls {plain} (want 0)")
         for i, (p, o) in enumerate(zip(prompts, outs)):
-            if len(o) - len(p) != 64 or not all(0 <= t < cfg.padded_vocab_size for t in o[len(p):]):
-                fail("quant", f"generate --quantize {mode}: sample {i} did not get 64 tokens")
+            if len(o) - len(p) != QUANT_TOKENS or not all(0 <= t < cfg.padded_vocab_size for t in o[len(p):]):
+                fail("quant", f"generate --quantize {mode}: sample {i} did not get {QUANT_TOKENS} tokens")
         # decode tokens/s without the decode-chunk graph's first capture
         # (the warm-up call's shapes differ), which decode_s includes
         decode_tps = stats.tokens_generated / (stats.decode_s - stats.capture_s)
@@ -3056,7 +3187,7 @@ def phase_quant(k1, k2, card, ckpt_dir):
              f"on the same weights in leaves {differ} of {len(want)}")
     del stored, original, on_card, want, got
     torch.cuda.empty_cache()
-    ckpt_base = SERVE_BASE[2:] + ["--synthetic", "16", "--n-tokens", "64"]
+    ckpt_base = SERVE_BASE[2:] + ["--synthetic", "16", "--n-tokens", str(QUANT_TOKENS)]
     _l, _n, e_sib, r_sib = serve_checked("quant", ["--ckpt", str(sibling)] + ckpt_base)
     sib_quantized = e_sib.gen.quantized
     del e_sib
@@ -4051,7 +4182,7 @@ def phase_tune(k1, card):
 PIPE_CONFIG = "examples/node_configs/standalone.json"
 PIPE_RUNS = ((2, [10, 12]), (4, [4, 6, 6, 6]))  # stages, the reference table's split of 22
 PIPE_M = 2  # samples per ring slot: 2 * S samples fill the ring
-PIPE_TOKENS = 64
+PIPE_TOKENS = 32  # new tokens of the rings' bf16 runs (64 before the doctor phase's cuts)
 PIPE_F32_LAYERS = 4
 
 
@@ -4211,10 +4342,11 @@ NODE_ENTRY = (
 )
 
 
-def node_pair(tmp, runs, label, timeout=300):
+def node_pair(tmp, runs, label, timeout=300, starter_args=()):
     """`cli.starter` and one `cli.secondary` as two processes on the card,
     each under `cli.mem_monitor`, which run the node CLIs' argv `runs` in
-    turn (each its own localhost config); returns, per run, (starter
+    turn (each its own localhost config; the starter's with
+    `starter_args` too); returns, per run, (starter
     stdout, starter stderr, secondary stderr, the starter's seconds) and
     {role: the monitor's peak gpu_bytes and card_bytes over every run, or
     its word for them}."""
@@ -4243,7 +4375,7 @@ def node_pair(tmp, runs, label, timeout=300):
         sec = subprocess.Popen(cmd("secondary", ["0"]), cwd=str(root), env=env,
                                stdout=subprocess.DEVNULL, stderr=err)
     try:
-        sta = subprocess.run(cmd("starter", []), cwd=str(root), env=env,
+        sta = subprocess.run(cmd("starter", list(starter_args)), cwd=str(root), env=env,
                              capture_output=True, text=True, timeout=timeout)
         sec.wait(timeout=timeout)
     finally:
@@ -4319,7 +4451,12 @@ def phase_pipeline_nodes(card):
                       "--n-tokens", "32"]
         # bf16 at full depth: tokens/s, the hop, each process's card memory
         bf16 = base + ["--dtype", "bfloat16", "--n-tokens", str(PIPE_TOKENS)]
-        runs, mem = node_pair(tmp, [f32, bf16], "nodes")
+        runs, mem = node_pair(tmp, [f32, bf16], "nodes", starter_args=["--hbm-gb", "80"])
+        for i, (_o, e, _se, _s) in enumerate(runs):
+            audit = next((ln for ln in e.splitlines() if "cli.starter: plan audit:" in ln), "")
+            if "plan audit: 0 error(s)" not in audit or "80 GiB budget" not in audit:
+                fail("pipeline-nodes", f"job {i}: the starter's plan audit line {audit!r}")
+            print(f"pipeline-nodes: job {i}: {audit}", flush=True)
         out, err, serr, _s = runs[0]
         got = printed_samples(out)
         cfg = Config.from_name(TINY_LLAMA, n_layer=PIPE_F32_LAYERS)
@@ -4354,7 +4491,8 @@ def phase_pipeline_nodes(card):
 
 
 PP_SERVE_RUNS = ((2, [10, 12]), (4, [4, 6, 6, 6]))  # stages, the reference table's split of 22
-PP_SERVE_ARGV = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"]
+RING_SERVE_TOKENS = 32  # the pp, tp and pp x tp serves (64 before the doctor phase's cuts)
+PP_SERVE_ARGV = SERVE_BASE + ["--synthetic", "16", "--n-tokens", str(RING_SERVE_TOKENS)]
 PP_SERVE_F32_LAYERS = 4
 
 
@@ -4432,7 +4570,7 @@ def phase_pp_serve(k1, card):
                      f"engine's {single_line['host_syncs']}")
             print("pp-serve: " + json.dumps({
                 "card": card, "pp": S, "split": split, "kv_dtype": kv, "requests": 16,
-                "new_tokens": 64, "tokens_per_s": line["tokens_per_s"],
+                "new_tokens": RING_SERVE_TOKENS, "tokens_per_s": line["tokens_per_s"],
                 "single_tokens_per_s": single_line["tokens_per_s"],
                 "pp_over_single": line["tokens_per_s"] / single_line["tokens_per_s"],
                 "wall_s": line["wall_s"], "single_wall_s": single_line["wall_s"],
@@ -4496,7 +4634,7 @@ def _serve_trace(engine, trace):
 
 
 TP_SIZES = (2, 4)
-TP_SERVE_ARGV = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64"]
+TP_SERVE_ARGV = SERVE_BASE + ["--synthetic", "16", "--n-tokens", str(RING_SERVE_TOKENS)]
 TP_F32_LAYERS = 4
 TP_K1_CASES = ("decode", "mixed", "verify")
 
@@ -4615,13 +4753,17 @@ def phase_tp_serve(k1, card):
             line, launches, engine, got = tp_served("tp-serve", argv, tp)
             peak = torch.cuda.max_memory_allocated() / 2**30
             total += launches
+            if tp == 2:
+                print(f"tp-serve: --tp 2 {kv} pool: plan audit per rank vs the live engine: "
+                      + json.dumps(audit_checked("tp-serve", engine, f"--tp 2 {kv}")), flush=True)
             n_div = bf16_divergences("tp-serve", single_gen, got, want,
                                      f"--tp {tp} {kv} pool vs the single engine")
             if line["host_syncs"] != single_line["host_syncs"]:
                 fail("tp-serve", f"--tp {tp} {kv}: host_syncs {line['host_syncs']}, the single "
                      f"engine's {single_line['host_syncs']}")
             print("tp-serve: " + json.dumps({
-                "card": card, "tp": tp, "kv_dtype": kv, "requests": 16, "new_tokens": 64,
+                "card": card, "tp": tp, "kv_dtype": kv, "requests": 16,
+                "new_tokens": RING_SERVE_TOKENS,
                 "tokens_per_s": line["tokens_per_s"],
                 "single_tokens_per_s": single_line["tokens_per_s"],
                 "tp_over_single": line["tokens_per_s"] / single_line["tokens_per_s"],
@@ -5276,7 +5418,7 @@ def phase_pp_tp_serve(k1, card):
                                  f"--pp {S} --tp {tp} {kv} pool vs the single engine")
         print("pp-tp-serve: " + json.dumps({
             "card": card, "pp": S, "tp": tp, "split": split, "kv_dtype": kv, "requests": 16,
-            "new_tokens": 64, "tokens_per_s": line["tokens_per_s"],
+            "new_tokens": RING_SERVE_TOKENS, "tokens_per_s": line["tokens_per_s"],
             "single_tokens_per_s": single_line["tokens_per_s"],
             "pp_tp_over_single": line["tokens_per_s"] / single_line["tokens_per_s"],
             "wall_s": line["wall_s"], "single_wall_s": single_line["wall_s"],
@@ -5642,7 +5784,8 @@ def phase_inference_procs(k2, card):
 
 SP_MODEL = "Llama-3-8B"
 SP_WIDTHS = dict(n_embd=4096, n_head=32, n_query_groups=8, head_size=128, block_size=8192)
-SP_LAYERS = 16  # of Llama-3-8B's 32: the whole run's time (PERF.md, PR 18's cuts)
+SP_LAYERS = 8  # of Llama-3-8B's 32, for the whole run's time (PERF.md §6 lists the cuts)
+SP_TOKENS = 32  # greedy new tokens per prompt (64 before the doctor phase's cuts)
 SP_PROMPTS = (8128, 6000)  # one bucket of 8192: local chunks 4096 (sp 2), 2048 (sp 4)
 SP_RUNS = ((2, True, 2048), (2, False, 2048), (4, True, 1024))  # P, use_flash, flash_min_len
 SP_F32_LAYERS = 4
@@ -5855,7 +5998,7 @@ def phase_sp(k2, k3, k4, card):
         fail("sp", f"{SP_MODEL}'s widths {got_w}, want {SP_WIDTHS}")
     params = transformer.init_params(cfg, 10137, dtype=torch.bfloat16, device="cuda")
     prompts = long_prompts(SP_PROMPTS, cfg.vocab_size, seed=34)
-    new = 64
+    new = SP_TOKENS
     single = Generator(cfg, params, max_seq_length=cfg.block_size, device="cuda")
     single.generate([[1, 2, 3]] * 2, 4, temperature=0.0)  # warm-up, not counted
     torch.cuda.synchronize()
@@ -6083,13 +6226,86 @@ def phase_sp_train(k2, k3, k4, card):
     free()
 
 
+def phase_preflight(card):
+    """The serve CLI's plan audit refusing and downgrading (the module
+    docstring, phase 37)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mdi_llm_tpu_torch.cli import serve as cli
+
+    argv = SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8", "--hbm-gb", "1"]
+    free()
+    before = torch.cuda.memory_allocated()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            cli.main(argv)
+    except SystemExit as e:
+        refusal = str(e)
+    else:
+        fail("preflight", "--hbm-gb 1: the serve was not refused")
+    refused_s = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated()
+    findings = [ln for ln in err.getvalue().splitlines() if "preflight:" in ln]
+    if after != before or "preflight refused" not in refusal or not any(
+            "error: hbm-over-budget" in ln for ln in findings):
+        fail("preflight", f"--hbm-gb 1: allocated {before} -> {after} B, refusal {refusal!r}, "
+             f"findings {findings}")
+    print(f"preflight: {card}: --hbm-gb 1 refused in {refused_s:.3f} s, "
+          f"torch.cuda.memory_allocated() {before} B before and after; {refusal}; "
+          + " | ".join(findings), flush=True)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        line = cli.main(argv + ["--no-preflight"])
+    warned = [ln for ln in err.getvalue().splitlines() if "error: hbm-over-budget" in ln]
+    if not warned or "refused" in err.getvalue() or line["requests"] != 2 \
+            or line["tokens_generated"] != 16:
+        fail("preflight", f"--no-preflight: warnings {warned}, stats {line}")
+    print(f"preflight: --hbm-gb 1 --no-preflight: the finding as a warning, then "
+          f"{line['requests']} requests served, {line['tokens_generated']} tokens", flush=True)
+
+
+DOCTOR_TIMEOUT_S = 900
+
+
+def phase_doctor(card):
+    """The doctor's full staged triage (the module docstring, phase 38)."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mdi_llm_tpu_torch.cli.doctor"],
+                          cwd=str(root), env=dict(os.environ, PYTHONPATH=str(root)),
+                          capture_output=True, text=True, timeout=DOCTOR_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    try:
+        snap = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail("doctor", f"exit {proc.returncode}, no snapshot\n{proc.stderr[-3000:]}")
+    for r in snap["stages"]:
+        print(f"doctor: {r['name']} {r['status']} {r['elapsed_s']:.2f} s "
+              f"{json.dumps(r['detail'])}" + (f" error: {r['error']}" if r["error"] else ""),
+              flush=True)
+    status = {r["name"]: r["status"] for r in snap["stages"]}
+    if proc.returncode or not snap["ok"] or status.get("kernels") != "ok" \
+            or any(v not in ("ok", "skipped") for v in status.values()):
+        fail("doctor", f"exit {proc.returncode}, stages {status}")
+    print(f"doctor: {card}: {len(status)} stages in {wall:.1f} s, "
+          f"{sum(v == 'ok' for v in status.values())} ok, "
+          f"{sum(v == 'skipped' for v in status.values())} skipped", flush=True)
+
+
 PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
           "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs", "server",
           "tier", "quant", "moe", "moe-quant", "moe-train", "ep", "tune", "pipeline",
           "pipeline-nodes", "pp-serve", "tp-serve", "tp-generate", "tools", "mesh-train",
           "mesh-train-procs", "pp-tp-serve", "pipeline-tp", "inference-procs", "sp",
-          "sp-train")
+          "sp-train", "preflight", "doctor")
 
 
 def main(argv=None) -> None:
@@ -6201,6 +6417,8 @@ def main(argv=None) -> None:
         "inference-procs": lambda: phase_inference_procs(k2, card),
         "sp": lambda: phase_sp(k2, k3, k4, card),
         "sp-train": lambda: phase_sp_train(k2, k3, k4, card),
+        "preflight": lambda: phase_preflight(card),
+        "doctor": lambda: phase_doctor(card),
     }
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = Path(tmp) / TINY_LLAMA

@@ -156,6 +156,47 @@ def refuse(what: str) -> None:
     )
 
 
+def resolve_config(args) -> Config:
+    """The architecture alone, with no weight read: the plan preflight runs
+    on it, so a refused plan never pays the checkpoint load.  The
+    --ckpt/--model resolution of `load_model` (a --ckpt dir of HF weights
+    not converted yet gives its `config.json`'s architecture)."""
+    overrides = config_overrides(getattr(args, "override", []))
+    if args.ckpt and overrides:
+        raise SystemExit("--override changes a registry config: it goes with --model, "
+                         "not with --ckpt")
+    if args.ckpt:
+        ckpt_dir = Path(args.ckpt)
+        if not ckpt_dir.is_dir():
+            raise SystemExit(f"--ckpt {ckpt_dir}: no such checkpoint directory")
+        cfg = Config.from_checkpoint(ckpt_dir)
+    elif args.model:
+        cfg = Config.from_name(args.model, **overrides)
+    else:
+        raise SystemExit("one of --ckpt or --model is required")
+    transformer.check_supported(cfg)
+    return cfg
+
+
+def audit_device_kind(device) -> str:
+    """The card a plan is audited for: "cpu" (the plain route) for a CPU
+    device, else the card the port targets (`analysis.plan.H100`), named
+    without asking the driver: the audit creates no CUDA context."""
+    from mdi_llm_tpu_torch.analysis.plan import H100
+
+    return "cpu" if torch.device(device or "cuda").type == "cpu" else H100
+
+
+def add_preflight_args(ap: argparse.ArgumentParser) -> None:
+    """The plan audit's flags (the JAX serve CLI's)."""
+    ap.add_argument("--no-preflight", action="store_true",
+                    help="downgrade a failing plan audit to a warning instead "
+                    "of refusing to launch")
+    ap.add_argument("--hbm-gb", type=float, default=None,
+                    help="per-device memory budget in GiB for the plan audit "
+                    "(e.g. 80 for an H100)")
+
+
 def load_model(
     args, need_tokenizer: bool = True
 ) -> Tuple[Config, dict, Optional[Tokenizer], Optional[PromptStyle]]:

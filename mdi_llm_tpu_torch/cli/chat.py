@@ -146,6 +146,7 @@ def main(argv=None):
         user = _read_turn()
         if not user:
             break
+        # mdi-lint: disable-next-line=host-sync -- a numpy array of token ids: host data, no device read
         turn = tokenizer.encode(prompt_style.apply(user)).tolist()
         pre_turn = session.history[:]
         printer = StreamPrinter(tokenizer, stop_seqs)
@@ -186,6 +187,7 @@ def _ring_chat(args, eng, tokenizer, prompt_style, stop_seqs):
         user = _read_turn()
         if not user:
             break
+        # mdi-lint: disable-next-line=host-sync -- a numpy array of token ids: host data, no device read
         turn = tokenizer.encode(prompt_style.apply(user)).tolist()
         context = history + turn
         limit = eng.max_seq_length - args.n_tokens - 1

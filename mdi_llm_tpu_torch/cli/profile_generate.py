@@ -61,10 +61,12 @@ def main(argv=None) -> list:
             return gen.generate(prompts, args.n_tokens, temperature=0.0)
 
         run()  # warm-up: CUDA context, cuBLAS handles, kernel build, captures
+        # mdi-lint: disable-next-line=host-sync -- profiler harness: drain the warm-up before the window
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             _outs, stats = run()
+            # mdi-lint: disable-next-line=host-sync -- profiler harness: the window ends at a sync
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
         line = {"route": route, **device_summary(prof, wall_s, top=12)}

@@ -31,6 +31,15 @@ with N ranks inside each stage (`parallel.mesh.pipeline_mesh(S,
 K1 once per stage layer and rank.  Runs on the GPU unless `--device cpu` is given; without a
 GPU and without that flag it raises.
 
+Before any weight loads, the plan audit (`analysis/audit.py`,
+`preflight_serving`) checks the serve the flags describe against the
+architecture alone: the tp split, the pool's geometry and token budget,
+K1's tuning entry and shared memory on the card and, with `--hbm-gb N`,
+the per-device bytes of weights, pool and activations against N GiB.  A
+plan with an error is refused there, each finding on stderr, with nothing
+on the card; `--no-preflight` launches it anyway with the findings as
+warnings.
+
 Observability rides every run (`obs/`, hooks at the engine's host-sync
 boundaries): the stats line carries the per-request latency block
 (TTFT/TPOT/E2E/queue-wait p50/p95/p99) and, unless `--no-device-obs`, a
@@ -44,6 +53,7 @@ request/step timeline, `--sample-rss` adds a host RSS gauge, and
 
     python -m mdi_llm_tpu_torch.cli.serve --ckpt checkpoints/tiny-llama --prompt-file prompts.txt
     python -m mdi_llm_tpu_torch.cli.serve --model tiny-llama-1.1b --synthetic 16
+    python -m mdi_llm_tpu_torch.cli.serve --model tiny-llama-1.1b --synthetic 16 --hbm-gb 80
     python -m mdi_llm_tpu_torch.cli.serve --device cpu --model pythia-14m \\
         --synthetic 3 --max-batch 2 --n-tokens 8 --sequence-length 128 --block-size 8 \\
         --metrics-out logs/metrics.json --trace-out logs/trace.json
@@ -71,8 +81,11 @@ import torch
 from mdi_llm_tpu_torch.cli._common import (
     DTYPES,
     add_common_args,
+    add_preflight_args,
+    audit_device_kind,
     load_model,
     make_tp_mesh,
+    resolve_config,
     resolve_kv_dtype,
 )
 from mdi_llm_tpu_torch.generation import resolve_device
@@ -152,6 +165,7 @@ def build_parser():
     ap.add_argument("--policy", default="fcfs",
                     choices=("fcfs", "priority", "fair", "deadline"),
                     help="scheduling policy (serving/policy.py)")
+    add_preflight_args(ap)
     # observability: recorded at the engine's host-sync boundaries only
     ap.add_argument("--metrics-out", type=Path, default=None, metavar="JSON",
                     help="write serving metrics JSON: per-request "
@@ -201,6 +215,7 @@ def synthetic_trace(n: int, vocab: int, max_seq: int, max_new: int, seed=10137):
         plen = int(rng.integers(4, max(5, max_seq // 4)))
         new = int(rng.integers(8, max(9, max_new + 1)))
         new = max(1, min(new, max_seq - plen - 1))
+        # mdi-lint: disable-next-line=host-sync -- a numpy draw of the synthetic trace: host data, no device read
         prompt = rng.integers(1, vocab, plen).tolist()
         reqs.append((f"syn{i}", prompt, new))
     return reqs
@@ -234,6 +249,42 @@ def make_serving_config(args, admission_queue=None):
         # tier serves preemption swaps only
         host_prefix_spill=not args.no_prefix_cache,
     )
+
+
+def preflight_serving(args, serving_cfg, origin):
+    """The plan audit of the serve the flags describe, with the pool's size
+    on stderr (shared with `cli.server`).  It runs BEFORE the checkpoint
+    load, on the architecture alone: a refused plan exits here, naming
+    each finding, with no weight on the card; `--no-preflight` turns the
+    refusal into warnings.  Returns the `AuditReport`."""
+    from mdi_llm_tpu_torch.analysis.audit import enforce_preflight, preflight
+
+    report = preflight(
+        resolve_config(args),
+        tp=args.tp,
+        pp=args.pp,
+        batch=args.max_batch,
+        seq_len=args.sequence_length,
+        dtype=args.dtype,
+        cache_dtype=args.kv_dtype,
+        quantize=args.quantize,
+        serving=serving_cfg,
+        hbm_gb=args.hbm_gb,
+        origin=origin,
+        device_kind=audit_device_kind(args.device),
+    )
+    enforce_preflight(report, origin, allow=args.no_preflight)
+    pool = report.breakdown.get("kv_pool", {})
+    if pool:
+        axes = " x ".join(f"{ax}={pool[ax]}" for ax in ("tp", "pp") if pool.get(ax, 1) > 1)
+        per_dev = (f" ({pool['pool_bytes_per_device'] / 2**20:.1f} MiB/device over "
+                   f"{axes})" if axes else "")
+        q_tag = (f" [int8 + {pool['scale_bytes'] / 2**20:.2f} MiB scales]"
+                 if pool.get("kv_dtype") == "int8" else "")
+        print(f"{origin}: KV pool {pool['num_blocks']} blocks x {pool['block_size']} "
+              f"tokens ~= {pool['pool_bytes'] / 2**20:.1f} MiB{q_tag}{per_dev}",
+              file=sys.stderr)
+    return report
 
 
 def build_generator(args, cfg, params, _graphs=None):
@@ -275,20 +326,23 @@ def make_observer(args):
 def build_engine(args, need_tokenizer, _graphs=None, admission_queue=None,
                  origin="cli.serve"):
     """The model and an empty engine the flags describe, with its observer
-    (`engine.obs`); returns (engine, tokenizer).  On the card the engine's
-    steps are CUDA graphs captured here; `_graphs=False` (comparisons
-    only) launches them eagerly.  With a host tier, a line on stderr says
-    its size (`origin` names the CLI)."""
+    (`engine.obs`) and the plan audit's report (`engine.audit`, made
+    before the weights load: `preflight_serving`); returns (engine,
+    tokenizer).  On the card the engine's steps are CUDA graphs captured
+    here; `_graphs=False` (comparisons only) launches them eagerly.  With a
+    host tier, a line on stderr says its size (`origin` names the CLI)."""
     from mdi_llm_tpu_torch.serving.policy import make_policy
 
     if args.tp < 1:
         raise SystemExit("--tp must be a positive rank count")
     resolve_device(args.device)  # raises before any work without the device
     serving_cfg = make_serving_config(args, admission_queue=admission_queue)
+    report = preflight_serving(args, serving_cfg, origin)
     cfg, params, tokenizer, _style = load_model(args, need_tokenizer=need_tokenizer)
     gen = build_generator(args, cfg, params, _graphs=_graphs)
     engine = gen.serve(serving=serving_cfg, obs=make_observer(args),
                        policy=make_policy(args.policy))
+    engine.audit = report
     if engine.host_tier is not None:
         store = engine.host_tier.store
         print(f"{origin}: host KV tier {store.num_slots} blocks ~= "

@@ -19,7 +19,9 @@ latency block) then goes to stderr.  It runs on the GPU unless
 `--device cpu` is given; the engine's steps are captured as CUDA graphs
 before the listener opens, and the engine thread only replays them.
 It takes `cli.serve`'s flags (the host tier's, `--quantize` and `--tp`
-among them: `--tp N` serves over N tensor-parallel ranks on `--device`);
+among them: `--tp N` serves over N tensor-parallel ranks on `--device`),
+and runs `cli.serve`'s plan audit before the weights load (`--hbm-gb`,
+`--no-preflight`; the admission queue is audited against the pool);
 `--pp` is refused: the JAX package's server has no pipeline-parallel
 engine either.
 

@@ -19,8 +19,12 @@ secondary as an abort through the run-spec channel, so no process waits
 on a spec that never comes.  `--tp-devices N` (or the node config's
 `tp_devices`) runs N tensor-parallel ranks inside each stage, all on the
 process's device, and travels in the run spec as the JAX starter's `tp`
-does.  The JAX starter's mdi-audit preflight (`--no-preflight`,
-`--hbm-gb`) is item 18: refused when set.
+does.  Before the checkpoint loads, the plan audit (`analysis/audit.py`:
+the stage split, the tp split, the ring's schedule and the paper's
+n_samples >= stages invariant, with `--hbm-gb N` the per-device bytes)
+checks the ring the flags describe; a refused plan reaches every
+secondary as the abort, and `--no-preflight` launches it anyway with the
+findings as warnings.
 
     python -m mdi_llm_tpu_torch.cli.starter --model tiny-llama-1.1b \
         --nodes-config examples/node_configs/standalone.json --pipeline-stages 2 \
@@ -43,10 +47,12 @@ import torch
 from mdi_llm_tpu_torch.cli._common import (
     add_common_args,
     add_log_args,
+    add_preflight_args,
     add_run_args,
+    audit_device_kind,
     load_model,
-    refuse,
     report_run,
+    resolve_config,
     resolve_kv_dtype,
     select_device,
     setup_logging,
@@ -90,17 +96,38 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--stream", action="store_true",
                     help="print sample 0's text live as its tokens come back around "
                     "the ring (needs a --ckpt with a tokenizer)")
-    unported = ap.add_argument_group("not ported yet (refused when set)")
-    unported.add_argument("--no-preflight", action="store_true")
-    unported.add_argument("--hbm-gb", type=float, default=None)
+    add_preflight_args(ap)
     return ap
 
 
-def _starter_spec(args, nodes_cfg: NodesConfig):
-    """Check the flags, load the model and build the run spec (process 0).
-    Returns (spec, cfg, params, tokenizer)."""
-    if getattr(args, "no_preflight", False) or getattr(args, "hbm_gb", None) is not None:
-        refuse("--no-preflight/--hbm-gb (the mdi-audit plan preflight, item 18)")
+def _preflight(args, n_stages: int, tp: int, n_samples: int, log) -> None:
+    """The plan audit of the ring, before the checkpoint load: findings go
+    to the log and a one-line summary to stderr; an error refuses the plan
+    (SystemExit with the refusal and every finding, which `_run` ships to
+    the secondaries as the abort) unless --no-preflight."""
+    from mdi_llm_tpu_torch.analysis.audit import enforce_preflight, preflight, refusal_text
+
+    report = preflight(
+        resolve_config(args), n_stages=n_stages, pipeline=True, tp=tp,
+        samples_per_slot=args.samples_per_slot, n_samples=n_samples, batch=n_samples,
+        seq_len=args.sequence_length, dtype=args.dtype, cache_dtype=args.kv_dtype,
+        quantize=args.quantize, hbm_gb=args.hbm_gb, origin="cli.starter",
+        device_kind=audit_device_kind(args.device),
+    )
+    total = report.breakdown.get("per_device", {}).get("total_bytes", 0)
+    budget = f" of the {args.hbm_gb:g} GiB budget" if args.hbm_gb is not None else ""
+    print(f"cli.starter: plan audit: {len(report.errors)} error(s), "
+          f"{len(report.warnings)} warning(s); {total / 2**30:.2f} GiB per device{budget}",
+          file=sys.stderr, flush=True)
+    if not enforce_preflight(report, "cli.starter", allow=args.no_preflight,
+                             emit=lambda line: log.warning("%s", line), exit_=False):
+        raise SystemExit(refusal_text("cli.starter") + "\n"
+                         + "\n".join(report.render_findings()))
+
+
+def _starter_spec(args, nodes_cfg: NodesConfig, log):
+    """Check the flags, audit the plan, load the model and build the run
+    spec (process 0).  Returns (spec, cfg, params, tokenizer)."""
     # CLI beats the config file, the config the default of 1
     eff_tp = args.tp_devices if args.tp_devices is not None else nodes_cfg.tp_devices
     if eff_tp < 1:
@@ -111,6 +138,7 @@ def _starter_spec(args, nodes_cfg: NodesConfig):
         raise SystemExit(f"--pipeline-stages {n_stages} must be a multiple of the "
                          f"{n_nodes} nodes (each owns a contiguous group of stages)")
     raw_prompts = get_user_prompt(args.prompt, args.n_samples)
+    _preflight(args, n_stages, eff_tp, len(raw_prompts), log)
     cfg, params, tokenizer, prompt_style = load_model(args, need_tokenizer=True)
     if tokenizer is not None:
         prompt_ids = [tokenizer.encode(prompt_style.apply(p)).tolist() for p in raw_prompts]
@@ -155,10 +183,11 @@ def _run(args, nodes_cfg, process_id, ring, log):
     tokenizer = None
     if is_starter:
         try:
-            spec, cfg, params, tokenizer = _starter_spec(args, nodes_cfg)
+            spec, cfg, params, tokenizer = _starter_spec(args, nodes_cfg, log)
         except BaseException as e:
             if ring is not None:  # the secondaries wait on the spec: end them too
-                broadcast_run_spec({"abort": f"{type(e).__name__}: {e}"}, ring)
+                msg = str(e) if isinstance(e, SystemExit) else f"{type(e).__name__}: {e}"
+                broadcast_run_spec({"abort": msg}, ring)
             raise
         spec = broadcast_run_spec(spec, ring)
     else:

@@ -395,11 +395,18 @@ struct Args {
   cudaStream_t stream;
 };
 
+// dynamic shared memory of one block: the tile's queries in float32, the
+// ring of kStages K + V tiles (K rows padded by 16 bytes), the int8 scales
+template <typename KV, int HS>
+constexpr size_t smem_bytes() {
+  return (size_t)kRows * HS * sizeof(float) +
+         (size_t)kStages * kKeys * (2 * HS * sizeof(KV) + 16) +
+         (size_t)kStages * 2 * kKeys * sizeof(float);
+}
+
 template <typename T, typename KV, int HS>
 int launch(const Args& a) {
-  const size_t smem = (size_t)kRows * HS * sizeof(float) +
-                      (size_t)kStages * kKeys * (2 * HS * sizeof(KV) + 16) +
-                      (size_t)kStages * 2 * kKeys * sizeof(float);
+  const size_t smem = smem_bytes<KV, HS>();
   auto kern = ragged_paged_attention_kernel<T, KV, HS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -451,7 +458,37 @@ int launch_merge(const float* ws, const int* q_start, const int* q_len,
   return (int)cudaGetLastError();
 }
 
+template <typename KV>
+long long smem_hs(int hs) {
+  switch (hs) {
+    case 32: return (long long)smem_bytes<KV, 32>();
+    case 64: return (long long)smem_bytes<KV, 64>();
+    case 128: return (long long)smem_bytes<KV, 128>();
+    default: return -1;
+  }
+}
+
+template <typename T>
+long long smem_kv(int kv_dtype, int hs) {
+  switch (kv_dtype) {
+    case 0: return smem_hs<T>(hs);
+    case 2: return smem_hs<int8_t>(hs);
+    case 3: return smem_hs<__nv_fp8_e4m3>(hs);
+    case 4: return smem_hs<__nv_fp8_e5m2>(hs);
+    default: return -1;
+  }
+}
+
 }  // namespace
+
+// The dynamic shared memory (bytes) that ragged_paged_attention_launch
+// requests per block for these codes (as below), or -1 for an unsupported
+// combination.
+extern "C" long long ragged_paged_attention_smem_bytes(int dtype, int kv_dtype, int hs) {
+  if (dtype == 0) return smem_kv<float>(kv_dtype, hs);
+  if (dtype == 1) return smem_kv<__nv_bfloat16>(kv_dtype, hs);
+  return -1;
+}
 
 // dtype (q and out): 0 = float32, 1 = bfloat16.  kv_dtype (the pools): 0 =
 // the same as q, 2 = int8 with k_scale/v_scale (NB, G) float32, 3 =

@@ -442,7 +442,7 @@ class Generator:
         if scan_unroll != 1:
             _refuse(f"scan_unroll={scan_unroll}: the layers run as a Python loop")
         if abstract:
-            _refuse("abstract=True: trace-only analysis, item 18")
+            _refuse("abstract=True: trace-only analysis, item 18.3")
         transformer.check_supported(cfg)
         self.cfg = cfg
         self.mesh = mesh
@@ -975,6 +975,7 @@ class Generator:
                 values = dict(tok=tok, pos=positions, t_op=t_val, p_op=p_val)
                 self._measure_decode_chunk(step, (len(lanes), k), values, kv)
                 # a copy: the step's outputs are overwritten by its next run
+                # mdi-lint: disable-next-line=host-sync -- one read per decode chunk of k steps, the JAX loop's batched fetch
                 toks_np = np.array(step.run(**values).cpu())
                 for i in range(k):
                     n += 1

@@ -138,6 +138,7 @@ class Probe:
         if self.cuda:
             # a capture empties the allocator's cache first; do it here, so
             # the growth across the capture is the graph's private pool
+            # mdi-lint: disable-next-line=host-sync -- measures the capture's pool growth: the sync is the point
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             self._reserved = self._reserved_now()

@@ -60,6 +60,8 @@ __all__ = [
     "token_attention",
     "split_plan",
     "split_attention_plain",
+    "smem_bytes",
+    "launch_smem_bytes",
 ]
 
 # packed tokens per chunk in the plain route: bounds the (chunk, G, window,
@@ -78,6 +80,7 @@ _NARROW_KV = {torch.int8: 2, torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 # 8 slots x 4 groups at depths up to 2000 then put ~4 live blocks per SM
 # in flight.
 ROW_TILE, KEY_TILE = 16, 32
+K1_STAGES = 4  # KV tiles in the kernel's shared-memory ring (kStages)
 MIN_CHUNK, MAX_CHUNKS = 128, 16
 DECODE_CHUNK, DECODE_MAX_CHUNKS = 64, 32
 
@@ -208,6 +211,32 @@ def ragged_paged_attention_plain(
     q_slot, owned = _span_owner(q_start, q_len, q.shape[2])
     out = token_attention(q, k_pool, v_pool, block_tables, q_slot, q_pos, scale)
     return torch.where(owned[None, None, :, None], out, torch.zeros_like(out))
+
+
+def smem_bytes(head_size: int, kv_itemsize: int) -> int:
+    """K1's dynamic shared memory per block, from shapes alone (no card):
+    the row tile's queries in float32, a ring of K1_STAGES K + V key tiles
+    of the pool's element size (each K row padded by 16 bytes) and the
+    int8 scales of each tile — `smem_bytes<KV, HS>()` of the source, which
+    `launch_smem_bytes` reads back from the built library."""
+    return (ROW_TILE * head_size * 4
+            + K1_STAGES * KEY_TILE * (2 * head_size * kv_itemsize + 16)
+            + K1_STAGES * 2 * KEY_TILE * 4)
+
+
+def launch_smem_bytes(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_size: int) -> int:
+    """The dynamic shared memory the kernel's launch requests per block for
+    q of `q_dtype` over a pool of `kv_dtype` (built library; card machine
+    only)."""
+    fn = kernels.library("ragged_paged_attention").ragged_paged_attention_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    kv = 0 if kv_dtype == q_dtype else _NARROW_KV[kv_dtype]
+    n = fn(_KERNEL_DTYPES[q_dtype], kv, head_size)
+    if n < 0:
+        raise ValueError(f"K1 has no launch for q {q_dtype}, pool {kv_dtype}, "
+                         f"head size {head_size}")
+    return int(n)
 
 
 def _lib():

@@ -878,6 +878,7 @@ class PipelineEngine:
                     self._command({
                         "op": "decode", "reseed": reseed, "mode": mode, "top_k": top_k,
                         "operands": (t_val, p_val),
+                        # mdi-lint: disable-next-line=host-sync -- ships the call's operands to the secondaries once per ring call
                         "ov": {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
                                for k, v in ov.items()},
                     })

@@ -332,7 +332,7 @@ class PipelinedServingEngine(ServingEngine):
 
     # -- the decode chunk: the recurrent ring ----------------------------------
 
-    def _decode_chunk_body(self, tok, pos, tables, limit, stop_tok):
+    def _decode_chunk_body(self, tok, pos, tables, limit, stop_tok):  # mdi-lint: captured
         """K = decode_chunk decode steps as one ring of K·S + S ticks (the
         JAX `_decode_chunk_fn`).  Lane group g leaves stage 0 at tick g;
         whenever it returns to stage 0 it is sampled, advanced under the

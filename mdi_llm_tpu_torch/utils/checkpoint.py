@@ -127,6 +127,7 @@ def write_safetensors(
         f.write(head)
         for _, t in items:
             if t.numel():
+                # mdi-lint: disable-next-line=host-sync -- writing the checkpoint to disk: the copy to the host is the point
                 f.write(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy())
     os.replace(tmp, path)
 

@@ -9,8 +9,8 @@
   each under its own subprocess time limit: the streams of the
   one-process ring and of one device, with 2 stages and with 4 (two per
   process, M = 2, refills); a mismatched `--seed` ends both processes
-  with a non-zero exit, and so does a starter refusal (`--no-preflight`,
-  item 18) through the abort sentinel;
+  with a non-zero exit, and so does a starter whose plan audit refuses the
+  ring (`--hbm-gb` below the weights) through the abort sentinel;
 - the CLI flags this slice ported, on `--device cpu`: `cli.sample
   --pipeline-stages` (with `--samples-per-slot`, `--overlap-chunks`,
   `--profile-dir`), `cli.chat --pipeline-stages` against the JAX ring's
@@ -20,7 +20,8 @@
   package's), `cli.inspect_ckpt --n-stages`, `cli.plot_tok_time` and
   `cli.mem_monitor` (its GPU column says `absent` without a card); each
   raises without `--device cpu` on a machine with no GPU, and the starter
-  refuses the mdi-audit preflight flags (item 18);
+  takes the plan audit's flags (`--hbm-gb` refuses a plan over it,
+  `--no-preflight` launches it anyway);
 - importing the new modules loads no jax.
 """
 
@@ -212,9 +213,9 @@ def test_mismatched_seed_ends_both_processes(tmp_path):
 
 def test_starter_refusal_ends_the_secondary(tmp_path):
     (rc, _, err), (src, _, serr) = _run_pair(_two_nodes(tmp_path),
-                                             COMMON + ["--no-preflight"], COMMON)
-    assert rc != 0 and "item 18" in err
-    assert src != 0 and "starter aborted the job" in serr
+                                             COMMON + ["--hbm-gb", "0.00001"], COMMON)
+    assert rc != 0 and "preflight refused" in err and "hbm-over-budget" in err
+    assert src != 0 and "starter aborted the job" in serr and "hbm-over-budget" in serr
 
 
 def test_starter_standalone_and_the_tokens_time_files(tmp_path, capsys):
@@ -263,9 +264,16 @@ def test_starter_streams_sample_0_from_a_checkpoint(converted, capsys):  # noqa:
 
 @pytest.mark.parametrize("flags", [["--no-preflight"], ["--hbm-gb", "16"]])
 def test_starter_refuses_the_preflight_flags(flags):
+    """The plan audit's flags: a budget below the weights refuses the plan
+    before the checkpoint load; with `--no-preflight` that plan runs, and
+    under `--hbm-gb 16` the ring runs as without the flag."""
     cfg = ROOT / "examples" / "node_configs" / "standalone.json"
-    with pytest.raises(SystemExit, match="item 18"):
-        starter_cli.main(COMMON + ["--nodes-config", str(cfg), *flags])
+    over = COMMON + ["--nodes-config", str(cfg), "--hbm-gb", "0.00001"]
+    with pytest.raises(SystemExit, match="preflight refused"):
+        starter_cli.main(over)
+    run = over + flags if flags == ["--no-preflight"] else (
+        COMMON + ["--nodes-config", str(cfg), *flags])
+    assert starter_cli.main(run) == sample_cli.main(COMMON)
 
 
 @pytest.mark.parametrize("flags", [

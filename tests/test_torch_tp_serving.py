@@ -4,7 +4,7 @@ against the JAX package, on the CPU.
 
 One counterpart for each test of `tests/test_tp_serving.py` but the
 recompile counter (JAX-only, and red in the reference) and the audit's
-(item 18), on the same float32 weights of `tiny_config(block_size=128)`,
+(tests/test_torch_audit.py), on the same float32 weights of `tiny_config(block_size=128)`,
 every rank on the CPU:
 
 - greedy streams at tp = 2 and 4 equal the JAX tp engine's (virtual CPU
@@ -232,7 +232,7 @@ def test_tp_gqa_groups_shard(devices):
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])
 def test_tp_pool_bytes_are_a_share_of_the_single_pool(model, kv_dtype):
     """The port's counterpart of the JAX audit test's runtime half (the
-    audit itself is item 18): each rank holds 1/tp of the single engine's
+    audit itself: tests/test_torch_audit.py): each rank holds 1/tp of the single engine's
     pool bytes, on its device, and the tp pool's total is the single's."""
     single = model.tgen.serve(block_size=4, max_batch=3, prefill_chunk=8, kv_dtype=kv_dtype)
     for tp, gen in model.tps.items():
