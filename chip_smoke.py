@@ -52,6 +52,26 @@ remat) compiled instead of compiling them again.
    be the audit's limit for the card.  Here and in every serving and
    generation phase below the engine's steps and generate's decode chunks
    run as CUDA graphs (phase 15), so launches are counted at replay.
+4a. analysis — the compiled-program analysis (`analysis/ir.py`,
+   `analysis/liveness.py`) on the serve phase's engine, kept alive for
+   it: its steps traced on the meta device (`ir.trace_engine`: the
+   engine's meta twin, K1's split planned for this card), which must move
+   no counter and no generator of the live engine; the enumerated (label,
+   key) set must equal the engine's captured steps (this serve dispatches
+   no eager step); K1's nodes in each traced step must equal the step's
+   captured K1 launch delta (`StepGraph._deltas`: 22 per mixed step, 22 x
+   8 per decode chunk) and its merge nodes the captured merge launches;
+   the generate phase's prefill (B=4, bucket 2048) traced from the same
+   Generator must hold 22 K2 nodes, the generate phase's launches per
+   flash prefill; each step's static temporaries + outputs (the flow's
+   profile) must lie within ANALYSIS_PEAK_TOL of one eager run of its body
+   on the card over zero inputs (`torch.cuda.reset_peak_memory_stats`,
+   then `max_memory_allocated` less what was held, under
+   `StepGraph._held`); `audit --liveness`'s per-device total (the flow's
+   worst temporaries as the activation term) must lie within
+   AUDIT_PEAK_TOL of the serve phase's peak, printed beside the analytic
+   term's; the serve CLI's ir and flow preflight seconds at full width
+   are printed.
 5. serve parity — float32, 4 layers at full width, 4 requests of 16 new
    tokens, served through the kernel route and through the plain route on
    the card: the greedy streams must be identical but for a genuine
@@ -316,7 +336,7 @@ remat) compiled instead of compiling them again.
    `examples/node_configs/standalone.json`: tiny-llama-1.1b at full
    width and all 22 layers, bf16, seed 10137, S = 2 and S = 4 stages
    (the reference table's [10, 12] and [4, 6, 6, 6]), M = 2 samples per
-   slot, 2·S greedy 8-token prompts, `PIPE_TOKENS` (32) new tokens.  Every
+   slot, 2·S greedy 8-token prompts, `PIPE_TOKENS` (16) new tokens.  Every
    sample gets its budget in the vocabulary; a second call on the same engine replays
    the captured decode chunks (no capture) and gives the same streams;
    the ring launches none of K1-K4 and no plain route.  The streams are
@@ -346,7 +366,7 @@ remat) compiled instead of compiling them again.
 25. pp-serve — pipeline-parallel serving (`serving/pipeline.py`): the
    serve phase's CLI run and trace (tiny-llama-1.1b, all 22 layers, bf16,
    seed 10137, 16 synthetic requests, 8 slots, 16-token blocks, 2048-token
-   window, `RING_SERVE_TOKENS` (32) new tokens, decode chunks of 8 with
+   window, `RING_SERVE_TOKENS` (16) new tokens, decode chunks of 8 with
    double buffering) with `--pp 2` and `--pp 4` (the reference table's [10, 12] and [4, 6, 6,
    6], every stage on the card), then `--pp 2 --kv-dtype int8` (K1's int8
    branch inside the ring).  Each run: every request finishes with its
@@ -925,6 +945,177 @@ def phase_serve(record):
     print("serve: K1 shared memory: " + json.dumps(smem), flush=True)
     record["launches"] = launches
     record.setdefault("paths", {})["serve"] = launches
+    # the analysis phase runs on this engine, right after this phase
+    SERVE_RUN.update(engine=engine, peak=peak, audit=audit)
+
+
+SERVE_RUN = {}  # the serve phase's engine, its peak allocation and audit comparison
+# a step's static temporaries + outputs (the flow's) against one eager run
+# of its body on the card (max_memory_allocated less what was held): the
+# static model frees each value at its last use, eager Python at its
+# last reference (a decode step's logits live on through the next step's
+# forward); measured 0.9145 (mixed) and 0.7738 (decode chunk) static over
+# measured on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md, PR 20)
+ANALYSIS_PEAK_TOL = 0.30
+
+
+def phase_analysis(card):
+    """The compiled-program analysis on the serve phase's engine (the
+    module docstring, phase 4a)."""
+    import torch
+
+    from mdi_llm_tpu_torch.analysis import ir, liveness
+    from mdi_llm_tpu_torch.analysis.audit import audit_plan
+    from mdi_llm_tpu_torch.analysis.trace import kernel_nodes, trace_step
+    from mdi_llm_tpu_torch.ops import tuning
+    from mdi_llm_tpu_torch.utils.step_graph import kernel_counters
+
+    if "engine" not in SERVE_RUN:
+        fail("analysis", "needs the serve phase's engine: run it with --only serve,analysis")
+    engine, peak = SERVE_RUN.pop("engine"), SERVE_RUN["peak"]
+    gen, cfg = engine.gen, engine.gen.cfg
+    kind = torch.cuda.get_device_name(0)
+    counts = lambda: [getattr(o, a) for o, a in kernel_counters()] + [  # noqa: E731
+        engine.forward_calls, gen.rng.get_state().sum().item(),
+        engine._rng.get_state().sum().item()]
+    before = counts()
+    t0 = time.perf_counter()
+    traces = ir.trace_engine(engine)
+    trace_s = time.perf_counter() - t0
+    if counts() != before:
+        fail("analysis", f"tracing moved a counter or a generator: {before} -> {counts()}")
+    # 1. the enumerated set against the live engine's captured steps (this
+    # serve dispatches no eager step: no spec_k, no host tier)
+    enumerated = {(t.spec.label, tuple(t.spec.key)) for t in traces}
+    captured = {(label, tuple(st.key[:-2])) for label, st in engine._steps.items()}
+    if engine.cfg.spec_k or engine.cfg.host_pool_mib or enumerated != captured:
+        fail("analysis", f"enumerated {sorted(enumerated)} != captured {sorted(captured)}")
+    failed = [t.spec.name for t in traces if t.error is not None]
+    if failed:
+        fail("analysis", f"steps that did not trace: {failed}")
+    # 2. K1 nodes per traced step against the step's captured launch delta
+    k1_nodes = {}
+    for t in traces:
+        st = engine._steps[t.spec.label]
+        k = kernel_nodes(t.graph)
+        delta = dict(zip(("launches", "merges"), st._deltas[:2]))
+        k1_nodes[t.spec.name] = {"nodes": k["ragged_paged_attention"], "merge_nodes": k["merge"],
+                                 "captured_launches": delta["launches"],
+                                 "captured_merges": delta["merges"]}
+        forwards = {"mixed": 1, "decode_chunk": engine.cfg.decode_chunk}[t.spec.label]
+        if k["ragged_paged_attention"] != delta["launches"] \
+                or delta["launches"] != cfg.n_layer * forwards \
+                or k["merge"] != delta["merges"] or k["flash_attention"]:
+            fail("analysis", f"{t.spec.name}: traced {k} against the captured delta {delta}")
+    # 3. K2 nodes in the traced prefill of the generate phase's workload
+    pre = gen.enumerate_executables(batch_size=4, prompt_len=1900, max_new_tokens=64,
+                                    chunk_size=16)[0]
+    with tuning.planned_device(kind):
+        pre_traced = trace_step(pre)
+    k2 = kernel_nodes(pre_traced.graph)["flash_attention"] if pre_traced.graph else None
+    if pre.name != "prefill(4,2048)" or k2 != cfg.n_layer or cfg.n_layer != 22:
+        fail("analysis", f"{pre.name}: {k2} K2 nodes, want the generate phase's 22")
+    # 4. each step's static temporaries + outputs against one eager run of
+    # its body on the card, over inert (zero) inputs as at capture, with
+    # every counter and generator put back
+    _, profiles = liveness.analyze_flow(traces, origin="analysis")
+    peaks = {}
+    for p in profiles:
+        st = engine._steps[p.label]
+        st.load(**{k: torch.zeros_like(v) for k, v in st.inputs.items()})
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        st._held(st.call)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - held
+        static = p.temp_peak_bytes + p.output_bytes - p.alias_bytes
+        peaks[p.name] = {"static_bytes": static, "measured_bytes": measured,
+                         "static_over_measured": round(static / measured, 4),
+                         "temp_peak_bytes": p.temp_peak_bytes, "nodes": p.nodes}
+        if abs(static - measured) > ANALYSIS_PEAK_TOL * measured:
+            fail("analysis", f"{p.name}: static {static} B vs measured {measured} B "
+                 f"(tolerance {ANALYSIS_PEAK_TOL:.0%})")
+    if counts() != before:
+        fail("analysis", "the eager runs moved a counter or a generator")
+    # 5. audit --liveness against the serve's peak, beside the analytic term
+    heur = engine.audit.breakdown["per_device"]
+    t1 = time.perf_counter()
+    lv = audit_plan(engine.audit.plan, liveness=True).breakdown["per_device"]
+    audit_s = time.perf_counter() - t1
+    if lv["act_source"] != "liveness" or lv["act_bytes"] != max(
+            p.temp_peak_bytes for p in profiles):
+        fail("analysis", f"audit --liveness: {lv}, flow's worst temporaries "
+             f"{max(p.temp_peak_bytes for p in profiles)}")
+    audit = {"peak_allocated_bytes": peak,
+             "liveness_total_bytes": lv["total_bytes"], "liveness_act_bytes": lv["act_bytes"],
+             "liveness_over_peak": round(lv["total_bytes"] / peak, 4),
+             "heuristic_total_bytes": heur["total_bytes"], "heuristic_act_bytes": heur["act_bytes"],
+             "heuristic_over_peak": round(heur["total_bytes"] / peak, 4),
+             "audit_liveness_s": round(audit_s, 3)}
+    if not abs(lv["total_bytes"] - peak) <= AUDIT_PEAK_TOL * peak:
+        fail("analysis", f"audit --liveness total {lv['total_bytes']} B is not within "
+             f"{AUDIT_PEAK_TOL:.0%} of the serve's peak {peak} B")
+    dispatch = op_dispatch_us()
+    pre_s = engine.preflight
+    print(f"analysis: {card}: {len(traces)} steps traced on the meta device in {trace_s:.2f} s "
+          f"(serve preflights at full width: ir {pre_s['ir']['seconds']} s with the trace, "
+          f"flow {pre_s['liveness']['seconds']} s); counters and generators unchanged", flush=True)
+    print("analysis: K1 nodes against the captured launch deltas: " + json.dumps(k1_nodes),
+          flush=True)
+    print(f"analysis: {pre.name} traced with {k2} K2 nodes = the generate phase's "
+          f"{cfg.n_layer} launches per flash prefill", flush=True)
+    print(f"analysis: static temporaries + outputs vs one eager run (tolerance "
+          f"{ANALYSIS_PEAK_TOL:.0%}): " + json.dumps(peaks), flush=True)
+    print("analysis: audit --liveness vs the serve's peak: " + json.dumps(audit), flush=True)
+    print("analysis: host us per eager call, through torch.ops.mdi_torch against the launch it "
+          "wraps (tiny-llama decode / prefill shapes): " + json.dumps(dispatch), flush=True)
+    del engine
+    free()
+
+
+def op_dispatch_us(n=400) -> dict:
+    """What K1's and K2's operators add per eager call: host microseconds
+    per call of `torch.ops.mdi_torch.*` and of the CUDA implementation it
+    dispatches to, on the same inputs (K1 at an 8-lane decode over a
+    64-block pool, K2 at a 16-token chunk: the kernels are short, the host
+    enqueue sets the pace), in turns op, direct, direct, op; every counter
+    put back."""
+    import torch
+
+    from mdi_llm_tpu_torch.ops import flash as fl
+    from mdi_llm_tpu_torch.ops import ragged_paged_attention as rpa
+    from mdi_llm_tpu_torch.utils.step_graph import kernel_counters
+
+    before = [getattr(o, a) for o, a in kernel_counters()]
+    dev, bf16, i32 = "cuda", torch.bfloat16, torch.int32
+    q = torch.randn(1, 32, 8, 64, device=dev, dtype=bf16)
+    kv = torch.randn(64, 16, 4, 64, device=dev, dtype=bf16)
+    tables = torch.arange(32, device=dev, dtype=i32).reshape(8, 4)
+    ones = torch.ones(8, device=dev, dtype=i32)
+    k1 = (q, kv, kv, None, None, tables, torch.arange(8, device=dev, dtype=i32), ones,
+          ones * 40, torch.full((8,), 39, device=dev, dtype=i32), 0.125, 64, 1)
+    qf = torch.randn(1, 32, 16, 64, device=dev, dtype=bf16)
+    kf = torch.randn(1, 4, 16, 64, device=dev, dtype=bf16)
+    k2 = (qf, kf, kf, 0.125, True, False)
+    out = {}
+    for name, op, direct, args in (("K1", rpa.OP, rpa._launch, k1),
+                                   ("K2", fl.OP, fl._launch_op, k2)):
+        times = {"op": [], "direct": []}
+        for route in ("op", "direct", "direct", "op"):
+            fn = op if route == "op" else direct
+            fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn(*args)
+            torch.cuda.synchronize()
+            times[route].append((time.perf_counter() - t0) / n * 1e6)
+        out[name] = {k: round(min(v), 2) for k, v in times.items()}
+        out[name]["added_us"] = round(out[name]["op"] - out[name]["direct"], 2)
+    for (o, a), v in zip(kernel_counters(), before):
+        setattr(o, a, v)
+    return out
 
 
 def phase_serve_parity():
@@ -2987,7 +3178,8 @@ def phase_tier(k1, card):
 
 
 QUANT_MODES = ("int8", "w8a8", "int4")
-QUANT_TOKENS = 32  # new tokens of the quant phase's serves and generates (64 before the doctor phase's cuts)
+QUANT_TOKENS = 16  # new tokens of the quant phase's serves and generates (64 before the doctor
+# phase's cuts, 32 before the analysis phase's and the serve preflights')
 
 
 def plain_quantized_einsum(spec, x, p):
@@ -4182,7 +4374,8 @@ def phase_tune(k1, card):
 PIPE_CONFIG = "examples/node_configs/standalone.json"
 PIPE_RUNS = ((2, [10, 12]), (4, [4, 6, 6, 6]))  # stages, the reference table's split of 22
 PIPE_M = 2  # samples per ring slot: 2 * S samples fill the ring
-PIPE_TOKENS = 32  # new tokens of the rings' bf16 runs (64 before the doctor phase's cuts)
+PIPE_TOKENS = 16  # new tokens of the rings' bf16 runs (64 before the doctor phase's cuts, 32
+# before the analysis phase's and the serve preflights')
 PIPE_F32_LAYERS = 4
 
 
@@ -4491,7 +4684,8 @@ def phase_pipeline_nodes(card):
 
 
 PP_SERVE_RUNS = ((2, [10, 12]), (4, [4, 6, 6, 6]))  # stages, the reference table's split of 22
-RING_SERVE_TOKENS = 32  # the pp, tp and pp x tp serves (64 before the doctor phase's cuts)
+RING_SERVE_TOKENS = 16  # the pp, tp and pp x tp serves (64 before the doctor phase's cuts, 32
+# before the analysis phase's and the serve preflights')
 PP_SERVE_ARGV = SERVE_BASE + ["--synthetic", "16", "--n-tokens", str(RING_SERVE_TOKENS)]
 PP_SERVE_F32_LAYERS = 4
 
@@ -6299,7 +6493,7 @@ def phase_doctor(card):
           f"{sum(v == 'skipped' for v in status.values())} skipped", flush=True)
 
 
-PHASES = ("kernel", "serve", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
+PHASES = ("kernel", "serve", "analysis", "serve-parity", "kernel-q8", "serve-q8", "serve-q8-parity",
           "spec", "spec-parity", "flash", "generate", "generate-parity", "flash-bwd",
           "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs", "server",
           "tier", "quant", "moe", "moe-quant", "moe-train", "ep", "tune", "pipeline",
@@ -6380,6 +6574,7 @@ def main(argv=None) -> None:
     runs = {
         "kernel": lambda: phase_kernel(k1),
         "serve": lambda: phase_serve(k1),
+        "analysis": lambda: phase_analysis(card),
         "serve-parity": phase_serve_parity,
         "kernel-q8": lambda: phase_kernel_q8(k1q8),
         "serve-q8": lambda: phase_serve_q8(k1q8),

@@ -1,6 +1,6 @@
 """`python -m mdi_llm_tpu_torch.analysis [lint] ...` runs the lint,
-`python -m mdi_llm_tpu_torch.analysis audit ...` the plan audit.  The JAX
-package's `ir`, `flow` and `check` subcommands are refused (item 18.3)."""
+`... audit ...` the plan audit, `... ir ...` and `... flow ...` the
+analysis of the traced serving steps, `... check ...` all four."""
 
 import sys
 

@@ -26,10 +26,11 @@ Where the JAX audit prices the Pallas kernel's VMEM against the TPU's,
 (`ops/tuning.validate_kernel_params` on what `resolve_kernel_params`
 resolves), the head sizes and pool dtypes K1 is built for, and K1's
 dynamic shared memory per block (`ops/ragged_paged_attention.smem_bytes`,
-the size its launch requests) against the card's opt-in limit.  The
-liveness-derived activation term of the JAX audit (`liveness=True`) needs
-the compiled-program analysis, which is not ported: refused, citing ROADMAP
-item 18.3.
+the size its launch requests) against the card's opt-in limit.  With
+`liveness=True` (`--liveness`), as in the JAX audit, the activation term
+of a serving plan the engine can enumerate (tp and pp meshes) is the worst
+step's temporaries' peak from the liveness pass over the traced steps
+(`analysis/liveness.py`, on the meta device) instead of the heuristic.
 
 Findings reuse the lint's `Finding`/`Baseline` machinery (analysis/core.py).
 Runnable as `python -m mdi_llm_tpu_torch.analysis audit`; `cli.serve`,
@@ -70,10 +71,6 @@ __all__ = [
     "refusal_text",
     "main",
 ]
-
-LIVENESS_REFUSAL = ("liveness=True: the liveness-derived activation term needs the "
-                    "compiled-program analysis (mdi-flow), not ported yet: ROADMAP "
-                    "item 18.3")
 
 ERROR, WARNING = "error", "warning"
 
@@ -429,7 +426,8 @@ def _sharded_nbytes(leaf, spec, sizes: Dict[str, int]) -> int:
 
 
 def _check_memory(
-    plan: PlanSpec, findings: List[Finding], breakdown: Dict[str, Any]
+    plan: PlanSpec, findings: List[Finding], breakdown: Dict[str, Any],
+    liveness: bool = False,
 ) -> None:
     from mdi_llm_tpu_torch.parallel.partition import stage_layers
     from mdi_llm_tpu_torch.parallel.sharding import adapt_specs_to_tree, param_specs
@@ -543,6 +541,13 @@ def _check_memory(
         4 * cfg.n_embd + cfg.qkv_size + cfg.attn_out_size + mlp_live
     ) * par_item + act_batch * cfg.padded_vocab_size * par_item
     act_source = "heuristic"
+    if liveness:
+        # engine-enumerable (Config, mesh, ServingConfig) tuples get the
+        # liveness-derived per-step high-water instead of the analytic
+        # term; everything else keeps the heuristic
+        lv = _liveness_act_bytes(plan)
+        if lv is not None:
+            act_dev, act_source = int(lv), "liveness"
 
     total = params_dev + kv_dev + act_dev
     breakdown["per_device"] = {
@@ -1168,12 +1173,41 @@ def _check_serving(plan: PlanSpec, findings: List[Finding], breakdown) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _liveness_act_bytes(plan: PlanSpec) -> Optional[int]:
+    """The liveness-derived activation high-water of an engine-enumerable
+    serving plan: the worst step's temporaries' peak from the liveness
+    pass over its traced graphs (`analysis/liveness.py`), replacing the
+    analytic term with a per-step number.  None when the engine cannot be
+    built abstractly (no serving config, a dp/ep/pipe mesh, a broken plan):
+    the caller keeps the heuristic.  Still no card: the steps are traced
+    on the meta device, K1's split planned for the plan's card."""
+    if plan.serving is None:
+        return None
+    if any(n not in ("tp", "pp") for n in plan.mesh.names):
+        return None  # dp/ep/pipe plans are not serving-engine-enumerable
+    try:
+        from mdi_llm_tpu_torch.analysis.ir import trace_engine, trace_serving
+        from mdi_llm_tpu_torch.analysis.liveness import analyze_flow
+
+        engine = trace_serving(
+            plan.cfg, plan.serving, tp=plan.mesh.size("tp"), pp=plan.mesh.size("pp"),
+            dtype=plan.dtype, quantize=plan.quantize, max_seq_length=plan.max_seq_length,
+        )
+        kind = plan.device_kind if plan.device_kind not in (None, "cpu") else None
+        _, profiles = analyze_flow(trace_engine(engine, kind), origin=plan.origin)
+    except Exception:
+        return None  # a broken plan audits with the heuristic instead
+    if not profiles:
+        return None
+    return max(p.temp_peak_bytes for p in profiles)
+
+
 def audit_plan(plan: PlanSpec, liveness: bool = False) -> AuditReport:
     """Run every checker family; never touches a card or allocates.
-    `liveness=True` (the JAX audit's liveness-derived activation term) is
-    refused: ROADMAP item 18.3."""
-    if liveness:
-        raise ValueError(LIVENESS_REFUSAL)
+    `liveness=True` swaps the analytic activation high-water for the
+    liveness pass's per-step number whenever the plan is
+    serving-engine-enumerable (`_liveness_act_bytes`; the heuristic
+    otherwise)."""
     findings: List[Finding] = []
     breakdown: Dict[str, Any] = {}
     _check_mesh(plan, findings)
@@ -1181,7 +1215,7 @@ def audit_plan(plan: PlanSpec, liveness: bool = False) -> AuditReport:
     _check_sharding(plan, findings)
     _check_serving(plan, findings, breakdown)
     _check_schedule(plan, findings, breakdown)
-    _check_memory(plan, findings, breakdown)
+    _check_memory(plan, findings, breakdown, liveness=liveness)
     order = {code: i for i, code in enumerate(AUDIT_RULES)}
     findings.sort(key=lambda f: (order.get(f.rule, 99), f.message))
     return AuditReport(plan=plan, findings=findings, breakdown=breakdown)
@@ -1379,8 +1413,9 @@ def build_parser() -> argparse.ArgumentParser:
                     f"shared-memory limit; default {H100!r}); 'cpu' audits "
                     "the plain route")
     ap.add_argument("--liveness", action="store_true",
-                    help="refused: the liveness-derived activation term needs "
-                    "the compiled-program analysis, ROADMAP item 18.3")
+                    help="activation term from the liveness pass over the "
+                    "serving steps traced on the meta device (tp/pp serving "
+                    "plans; the heuristic otherwise)")
     ap.add_argument("--baseline", default=None, metavar="FILE",
                     help="grandfather findings via an mdi-lint-style baseline")
     ap.add_argument("--format", choices=("text", "json"), default="text")
@@ -1492,10 +1527,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     except (ValueError, OSError, json.JSONDecodeError) as e:
         print(f"mdi-audit: {e}", file=sys.stderr)
         return 2
-    if args.liveness:
-        print(f"mdi-audit: {LIVENESS_REFUSAL}", file=sys.stderr)
-        return 2
-    report = audit_plan(plan)
+    report = audit_plan(plan, liveness=args.liveness)
 
     errors = report.errors
     if args.baseline:

@@ -22,11 +22,12 @@ from mdi_llm_tpu_torch.analysis.core import (
     lint_paths,
 )
 
-# the JAX package's compiled-program tools, not ported yet
-UNPORTED = {
-    "ir": "mdi-ir (the compiled-program checks)",
-    "flow": "mdi-flow (buffer liveness)",
-    "check": "mdi-check (the aggregate gate)",
+# the subcommands beside the lint: module of each (its `main(argv)`)
+SUBCOMMANDS = {
+    "audit": "mdi_llm_tpu_torch.analysis.audit",
+    "ir": "mdi_llm_tpu_torch.analysis.ir",
+    "flow": "mdi_llm_tpu_torch.analysis.liveness",
+    "check": "mdi_llm_tpu_torch.analysis.check",
 }
 
 
@@ -116,17 +117,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
 
 def dispatch(argv: List[str]) -> int:
-    """`audit ...` -> the plan audit, `ir`/`flow`/`check` -> refused (exit
-    2), `[lint] ...` -> the lint."""
-    if argv[:1] == ["audit"]:
-        from mdi_llm_tpu_torch.analysis.audit import main as audit_main
+    """`audit ...` -> the plan audit, `ir ...` / `flow ...` -> the analysis
+    of the serving steps traced on the meta device, `check ...` -> the
+    aggregate gate, `[lint] ...` -> the lint."""
+    if argv[:1] and argv[0] in SUBCOMMANDS:
+        import importlib
 
-        return audit_main(argv[1:])
-    if argv[:1] and argv[0] in UNPORTED:
-        print(f"python -m mdi_llm_tpu_torch.analysis {argv[0]}: "
-              f"{UNPORTED[argv[0]]} is not ported yet (ROADMAP item 18.3: a "
-              "redesign onto torch.fx / torch.export graphs)", file=sys.stderr)
-        return 2
+        return importlib.import_module(SUBCOMMANDS[argv[0]]).main(argv[1:])
     if argv[:1] == ["lint"]:
         argv = argv[1:]
     return main(argv)

@@ -37,8 +37,13 @@ architecture alone: the tp split, the pool's geometry and token budget,
 K1's tuning entry and shared memory on the card and, with `--hbm-gb N`,
 the per-device bytes of weights, pool and activations against N GiB.  A
 plan with an error is refused there, each finding on stderr, with nothing
-on the card; `--no-preflight` launches it anyway with the findings as
-warnings.
+on the card.  Once the engine is built, the ir and flow preflights
+(`analysis/ir.py`, `analysis/liveness.py`) trace its steps on its meta
+twin (nothing runs on the card, no counter moves): compile-set closure,
+in-place pool writes, graph hygiene, buffer liveness; an error refuses
+the launch.  `--no-preflight` launches anyway with every finding as a
+warning.  The stats line's `detail` carries both preflights' records and
+seconds.
 
 Observability rides every run (`obs/`, hooks at the engine's host-sync
 boundaries): the stats line carries the per-request latency block
@@ -73,7 +78,9 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -351,10 +358,59 @@ def build_engine(args, need_tokenizer, _graphs=None, admission_queue=None,
     return engine, tokenizer
 
 
+# engine signature -> the preflights' detail: a process that builds the
+# same engine again (the same model, mesh, ServingConfig and weight
+# layout) traces its steps once
+_PREFLIGHTED: Dict[Any, Dict[str, Any]] = {}
+
+
+def _engine_signature(engine) -> tuple:
+    from mdi_llm_tpu_torch.analysis.trace import leaves_of
+
+    gen = engine.gen
+
+    def layout(tree):
+        return tuple((tuple(t.shape), t.dtype) for t in leaves_of(tree))
+
+    draft = engine.draft_gen
+    return (type(engine).__qualname__, repr(gen.cfg), repr(engine.cfg), gen.max_seq_length,
+            layout(engine._step_params(gen)), layout(engine._kv), gen.use_flash,
+            gen.flash_min_len, gen.flash_kernel, device_kind(engine.device),
+            None if draft is None else (repr(draft.cfg), layout(engine._step_params(draft))))
+
+
+def preflight_steps(args, engine, origin="cli.serve") -> Dict[str, Any]:
+    """The ir and flow preflights over the engine just built (the JAX
+    serve's): its steps traced once on its meta twin, K1's split planned
+    for its card; each finding on stderr; an error refuses the launch
+    unless `--no-preflight`.  Returns {"ir": ..., "liveness": ...}, each
+    the report's compact record with its seconds (the trace counts in
+    ir's)."""
+    from mdi_llm_tpu_torch.analysis import ir, liveness
+
+    key = _engine_signature(engine)
+    if key in _PREFLIGHTED:
+        return _PREFLIGHTED[key]
+    t0 = time.perf_counter()
+    traces = ir.trace_engine(engine)
+    ir_report = ir.ir_preflight(engine, origin=origin, traces=traces)
+    t1 = time.perf_counter()
+    ir.enforce_ir_preflight(ir_report, origin, allow=args.no_preflight)
+    flow_report = liveness.flow_preflight(engine, origin=origin, traces=traces)
+    t2 = time.perf_counter()
+    liveness.enforce_flow_preflight(flow_report, origin, allow=args.no_preflight)
+    detail = {"ir": {**ir.ir_detail(ir_report), "seconds": round(t1 - t0, 3)},
+              "liveness": {**liveness.flow_detail(flow_report), "seconds": round(t2 - t1, 3)}}
+    _PREFLIGHTED[key] = detail
+    return detail
+
+
 def build(args, _graphs=None):
-    """Build the model and engine the flags describe and queue the trace;
-    returns (trace, engine, tokenizer)."""
+    """Build the model and engine the flags describe, run the ir and flow
+    preflights on it (`engine.preflight`) and queue the trace; returns
+    (trace, engine, tokenizer)."""
     engine, tokenizer = build_engine(args, not args.synthetic, _graphs=_graphs)
+    engine.preflight = preflight_steps(args, engine)
     cfg, gen = engine.gen.cfg, engine.gen
     if args.synthetic:
         trace = synthetic_trace(
@@ -467,6 +523,8 @@ def stats_line(stats, engine, contexts=()) -> dict:
     })
     if pp > 1:
         line["pipeline"] = engine.pipeline_fill()
+    if getattr(engine, "preflight", None):
+        line["detail"] = engine.preflight
     obs = engine.obs
     if obs is not None:
         line["latency"] = {

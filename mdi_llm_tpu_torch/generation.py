@@ -83,6 +83,14 @@ from mdi_llm_tpu_torch.utils.context_managers import catch_loop_errors
 from mdi_llm_tpu_torch.utils.step_graph import StepGraph, summarize
 
 
+def rng_for(device: torch.device, seed: int) -> torch.Generator:
+    """The sampling generator of a model or engine on `device`, seeded: on
+    the meta device (a traced step) a CPU one, since meta has none, and
+    `torch.multinomial` on meta tensors takes it."""
+    where = "cpu" if device.type == "meta" else device
+    return torch.Generator(device=where).manual_seed(int(seed))
+
+
 def resolve_device(device=None) -> torch.device:
     """`device` as a torch.device, "cuda" when None.  A CUDA device on a
     machine without one raises: the port never falls back to the CPU by
@@ -441,12 +449,19 @@ class Generator:
             mesh = tp_mesh
         if scan_unroll != 1:
             _refuse(f"scan_unroll={scan_unroll}: the layers run as a Python loop")
-        if abstract:
-            _refuse("abstract=True: trace-only analysis, item 18.3")
         transformer.check_supported(cfg)
         self.cfg = cfg
         self.mesh = mesh
+        # trace-only construction (analysis/ir.py): every tensor on the meta
+        # device (the parameters from `analysis.plan.abstract_params`),
+        # nothing allocated on a card; the steps then take the card's route
+        # (K1, K2) and can only be traced
+        self.abstract = bool(abstract)
+        if self.abstract and device is None:
+            device = "meta"
         self.device = resolve_device(device)
+        if self.abstract and self.device.type != "meta":
+            raise ValueError(f"abstract=True runs on the meta device, not {self.device}")
         params = transformer.tree_map(lambda x: x.to(self.device), params)
         if quantize in FLAG_TO_MODE:
             # quantized leaf by leaf on the device, where the tree stays
@@ -468,12 +483,13 @@ class Generator:
                            else transformer.get_rope_cache(cfg, device=d)
                            for i, d in self._devices.items()}
         self.rng_seed = int(rng_seed)
-        self.rng = torch.Generator(device=self.device).manual_seed(self.rng_seed)
-        self.use_flash = self.device.type == "cuda" if use_flash is None else bool(use_flash)
+        self.rng = rng_for(self.device, self.rng_seed)
+        # the card's route on the card and on meta (a traced step)
+        self.use_flash = self.device.type != "cpu" if use_flash is None else bool(use_flash)
         # the crossover on the card is measured by chip_smoke.py (PERF.md)
         self.flash_min_len = int(flash_min_len)
         self.flash_kernel = flash_kernel
-        kernel_route = self.device.type == "cuda" and flash_kernel is not False
+        kernel_route = self.device.type != "cpu" and flash_kernel is not False
         if self.use_flash and kernel_route and cfg.head_size not in KERNEL_HEAD_SIZES:
             raise ValueError(
                 f"{cfg.name}: head size {cfg.head_size} is not one kernel K2 "
@@ -639,15 +655,21 @@ class Generator:
     def _prefill(self, batch: np.ndarray, kv, true_len) -> torch.Tensor:
         """A fresh prefill of the (B, Tb) bucket at offset 0 into the empty
         cache; returns the logits at each row's last real token."""
-        B, T = batch.shape
+        return self._prefill_body(self._tensor(batch), kv, self._tensor(true_len))
+
+    def _prefill_body(self, tokens, kv, true_len) -> torch.Tensor:
+        """`_prefill` on device tensors (the JAX `_prefill_fn(B, T)`): tokens
+        (B, Tb), true_len (B,)."""
+        B, T = tokens.shape
         logits = self._forward(
-            self._tensor(batch), torch.zeros(B, dtype=torch.long, device=self.device),
+            tokens, torch.zeros(B, dtype=torch.long, device=self.device),
             kv, fresh_prefill=True,
             # flash pays off on big tiles; small buckets stay dense
             use_flash=self.use_flash and T >= self.flash_min_len,
             flash_kernel=self.flash_kernel,
         )
-        return self._last_logits(logits, true_len)
+        rows = torch.arange(B, device=self.device)
+        return logits[rows, true_len.long() - 1]
 
     def _prefill_at(self, batch: np.ndarray, kv, pos: int, true_len: int):
         """Chunk prefill at a running cache offset (`ChatSession`): attends
@@ -737,8 +759,12 @@ class Generator:
         successor of every position of `tokens` (1, T).  Exact because
         attention masks strictly by absolute position: stale cache entries
         past a rejected draft stay invisible until overwritten."""
-        logits = self._forward(self._tensor(tokens), self._tensor(positions), kv)
-        return torch.argmax(logits, dim=-1).cpu().numpy()
+        return self._verify_body(self._tensor(tokens), kv, self._tensor(positions)).cpu().numpy()
+
+    def _verify_body(self, tokens, kv, positions) -> torch.Tensor:
+        """`_verify` on device tensors (the JAX `_verify_fn(T)`): the
+        greedy successors (1, T), on the device."""
+        return torch.argmax(self._forward(tokens, positions, kv), dim=-1)
 
     def _grow_kv(self, old, new_len: int):
         """A longer session cache with the old entries in its leading
@@ -755,6 +781,93 @@ class Generator:
     def _first_token(self, logits, temperature, top_k, top_p) -> np.ndarray:
         tok = sample(logits, self.rng, temperature=temperature, top_k=top_k, top_p=top_p)
         return tok.to(torch.int32).cpu().numpy()
+
+    # -- the compile set (analysis/ir.py, analysis/liveness.py) --------------
+
+    def enumerate_executables(
+        self,
+        batch_size: int = 1,
+        prompt_len: int = 32,
+        max_new_tokens: int = 32,
+        chunk_size: int = 16,
+        temperature: float = TEMPERATURE,
+        top_k: Optional[int] = TOP_K,
+        top_p: Optional[float] = None,
+        speculative: Optional[int] = None,
+        compact: bool = True,
+    ) -> List[Any]:
+        """`generate()`'s steps for ONE workload shape, as `StepSpec`s on a
+        meta twin of this Generator (the JAX `enumerate_executables`): the
+        prefill at the prompt's pow2 bucket (through K2 once the bucket
+        reaches `flash_min_len` with `use_flash`), the decode-chunk ladder
+        (the full chunk width, the tail chunk, and every lane count batch
+        compaction can gather down to) and, with `speculative=K`, the
+        verify forward.  Like the JAX set, this is the nominal set of one
+        (B, prompt_len, max_new_tokens) workload: `generate()` builds its
+        steps per shape by design."""
+        from mdi_llm_tpu_torch.obs.device import StepSpec, abstractify
+
+        B = int(batch_size)
+        if B < 1 or prompt_len < 1 or max_new_tokens < 1:
+            raise ValueError("batch_size, prompt_len and max_new_tokens must be >= 1")
+        total_max = prompt_len + max_new_tokens
+        if total_max > self.max_seq_length:
+            raise ValueError(
+                f"prompt+generation length {total_max} exceeds max_seq_length "
+                f"{self.max_seq_length}"
+            )
+        Tb = min(_bucket(prompt_len), self.max_seq_length)
+        cache_len = _run_cache_len(self.max_seq_length, total_max, Tb)
+        memo: Dict[int, Any] = {}
+        twin = abstractify(self, memo)
+        if self.device.type == "cpu" and twin.flash_kernel is None:
+            twin.flash_kernel = False  # a CPU Generator runs K2's plain version
+        params = abstractify(self.params if self._shards is None else self._shards, memo)
+
+        def sds(*shape, dtype=torch.long):
+            return torch.empty(shape, dtype=dtype, device=twin.device)
+
+        # every step reads the weights from the Generator and is passed the
+        # dense cache, which it writes in place (the JAX roles: params at
+        # argnum 0, the donated cache at argnum 2)
+        def spec(label, key, body, inputs, static=None):
+            return StepSpec(label, key, body, twin, {"params": params, **inputs}, static,
+                            {"params": "params", "kv": "kv"}, ("params",), ("kv",))
+
+        specs = [spec("prefill", (B, Tb), Generator._prefill_body, dict(
+            tokens=sds(B, Tb), kv=twin._init_kv(B, cache_len), true_len=sds(B)))]
+        mode = sample_mode(temperature, top_k, top_p)
+        # decode-chunk widths the host loop runs: n starts at 1 (the
+        # prefill-sampled token), so the full width is min(chunk_size,
+        # max_new_tokens - 1) and the remainder rides in one tail chunk
+        k_full = min(int(chunk_size), max_new_tokens - 1)
+        widths = []
+        if k_full >= 1:
+            widths.append(k_full)
+            tail = (max_new_tokens - 1) % k_full
+            if tail and tail != k_full:
+                widths.append(tail)
+        # compaction gathers survivors into the next pow2 >= the live count,
+        # floored at min(4, B) and only when that is <= half the lanes; off
+        # on a mesh (`generate`)
+        lane_counts = {B}
+        if compact and self._shards is None:
+            v = 1
+            while v <= B // 2:
+                if v >= min(4, B):
+                    lane_counts.add(v)
+                v *= 2
+        for nb in sorted(lane_counts, reverse=True):
+            kv = twin._init_kv(nb, cache_len)
+            for w in widths:
+                specs.append(spec("decode_chunk", (nb, w), Generator._decode_steps, dict(
+                    tok=sds(nb), pos=sds(nb), kv=kv, t_op=sds(dtype=torch.float32),
+                    p_op=sds(dtype=torch.float32)), dict(n_steps=w, mode=mode, top_k=top_k)))
+        if speculative:
+            K = int(speculative)
+            specs.append(spec("verify", (K + 1,), Generator._verify_body, dict(
+                tokens=sds(1, K + 1), kv=twin._init_kv(1, cache_len), positions=sds(1))))
+        return specs
 
     # -- sequential generation -----------------------------------------------
 

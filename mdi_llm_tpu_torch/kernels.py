@@ -22,6 +22,14 @@ operations with, `obs/device.py`) cannot see it.  `flop_tally()` opens a
 tally for the current thread; while it is open every wrapper adds the
 operations of each launch, counted from its static shapes, through
 `add_flops`.
+
+`define_op` binds a launch as an operator of the port's own `torch.library`
+namespace (`torch.ops.mdi_torch`): its CUDA implementation is the launch,
+its meta implementation gives the shapes the launch returns and allocates.
+A step traced on meta tensors (the compiled-program analysis,
+`analysis/ir.py`) then holds one node per launch, where the card launches
+it; the CPU has no implementation (the wrappers send CPU tensors to the
+plain versions before the operator).
 """
 
 from __future__ import annotations
@@ -73,6 +81,30 @@ def add_flops(n: float) -> None:
     tally = _tally.get()
     if tally is not None:
         tally.flops += n
+
+
+NAMESPACE = "mdi_torch"
+_library = None
+
+
+def define_op(schema: str, *, cuda, meta):
+    """Define `torch.ops.mdi_torch.<name>` from `schema` with `cuda` as its
+    CUDA implementation and `meta` as its meta one; returns the operator.
+    An operator defined already (a module imported twice) is returned as
+    it is."""
+    import torch
+
+    global _library
+    name = schema.split("(", 1)[0]
+    ns = getattr(torch.ops, NAMESPACE)
+    if hasattr(ns, name):
+        return getattr(ns, name).default
+    if _library is None:
+        _library = torch.library.Library(NAMESPACE, "FRAGMENT")
+    _library.define(schema)
+    _library.impl(name, cuda, "CUDA")
+    _library.impl(name, meta, "Meta")
+    return getattr(ns, name).default
 
 
 def _nvcc() -> str:

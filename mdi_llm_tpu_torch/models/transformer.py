@@ -752,7 +752,7 @@ def sharded_forward(
     pos, cos, sin = tr.positions(tokens, input_pos, ropes)
     x = tr.embed(tokens, pos)
     if paged_tables is not None:
-        if paged_params is None and devs[0].type == "cuda" and paged_kernel is not False:
+        if paged_params is None and devs[0].type != "cpu" and paged_kernel is not False:
             from mdi_llm_tpu_torch.ops import tuning
             from mdi_llm_tpu_torch.ops.ragged_paged_attention import _pool_parts
 

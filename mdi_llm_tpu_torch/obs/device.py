@@ -37,8 +37,11 @@ steps (the speculative verify) are measured at their first call
 
 from __future__ import annotations
 
+import copy
+import enum
+import functools
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,10 +49,121 @@ __all__ = [
     "ExecutableReport",
     "DeviceReportRegistry",
     "Probe",
+    "StepSpec",
+    "abstractify",
     "introspect_step",
     "introspect_call",
     "tensor_bytes",
 ]
+
+META = torch.device("meta")
+
+
+class StepSpec(NamedTuple):
+    """One serving or generation step, described for tracing on the meta
+    device (the JAX `ExecutableSpec`).  Produced by the enumeration seams
+    (`ServingEngine.enumerate_executables`, `Generator.
+    enumerate_executables`) and consumed by `analysis/ir.py` and
+    `analysis/liveness.py`.
+
+    - `body(owner, **static, **{name: args[name] for name not in owned})`
+      is the exact function the dispatch site calls (a `StepGraph` body or
+      an eager method);
+    - `owner` is a meta twin (`abstractify`) of the engine or Generator;
+    - `args` names every tensor tree of the step, in order: those in
+      `owned` the body reads from the owner (the weights, the pool, the
+      sampling operands: the same tensor objects), the others it is passed;
+      each becomes graph inputs, so nothing the step reads is a constant;
+    - `roles` names the special args: ``{"params": "params", "kv": "kv"}``
+      as the JAX argnum roles, so byte attribution need not guess by size;
+    - `writes` names the args the step updates in place (the JAX
+      `donate_argnums`): the pool for every step that writes it."""
+
+    label: str  # mixed / decode / decode_chunk / verify / prefill / ...
+    key: Tuple  # static-shape key, e.g. (B, T)
+    body: Callable[..., Any]
+    owner: Any
+    args: Dict[str, Any]
+    static: Optional[Dict[str, Any]]
+    roles: Dict[str, str]
+    owned: Tuple[str, ...] = ()
+    writes: Tuple[str, ...] = ()
+
+    @property
+    def name(self) -> str:
+        ks = ",".join(str(k) for k in self.key)
+        return f"{self.label}({ks})"
+
+
+def _tensor_twin(x: torch.Tensor, memo: Dict[int, Any]) -> torch.Tensor:
+    """A meta tensor of `x`'s shape, strides and dtype; a view's twin is the
+    same view of its base's twin, so aliasing survives (a tp rank's slices
+    stay views of the one weight tree)."""
+    base = x._base
+    if base is not None:
+        tb = _twin(base, memo)
+        return tb.as_strided(x.shape, x.stride(), x.storage_offset())
+    return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=META)
+
+
+def _twin(x, memo: Dict[int, Any]):
+    key = id(x)
+    if key in memo:
+        return memo[key]
+    if isinstance(x, torch.Tensor):
+        out = _tensor_twin(x, memo)
+    elif isinstance(x, torch.device):
+        out = META
+    elif isinstance(x, torch.Generator):
+        # meta has no generator: draws on meta tensors take a CPU one
+        out = torch.Generator().manual_seed(x.initial_seed())
+    elif isinstance(x, dict):
+        out = type(x)() if type(x) is not dict else {}
+        memo[key] = out
+        for k, v in x.items():
+            out[_twin(k, memo) if isinstance(k, torch.device) else k] = _twin(v, memo)
+        return out
+    elif isinstance(x, list):
+        out = []
+        memo[key] = out
+        out.extend(_twin(v, memo) for v in x)
+        return out
+    elif isinstance(x, tuple):
+        vals = [_twin(v, memo) for v in x]
+        out = type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    elif isinstance(x, functools.partial):
+        out = functools.partial(_twin(x.func, memo), *_twin(x.args, memo),
+                                **_twin(x.keywords, memo))
+    elif type(x).__module__.startswith("mdi_llm_tpu_torch.") and hasattr(x, "__dict__") \
+            and type(x).__name__ not in _NOT_TWINNED and not isinstance(x, enum.Enum):
+        out = copy.copy(x)
+        memo[key] = out
+        for k, v in vars(x).items():
+            object.__setattr__(out, k, _twin(v, memo))
+        return out
+    else:
+        out = x
+    memo[key] = out
+    return out
+
+
+# host-side state a step body never reads: kept as it is (the step graphs
+# hold the live device buffers and weak references to their owner)
+_NOT_TWINNED = ("StepGraph", "Scheduler", "KVPool", "HostTier", "HostBlockStore",
+                "ServingObserver", "ServingStats", "SwapCostModel")
+
+
+def abstractify(tree, memo: Optional[Dict[int, Any]] = None):
+    """The meta twin of a tree (dicts, lists, tuples) of tensors, or of a
+    whole owner (an engine with its Generator): every tensor a meta tensor
+    of its shape, strides and dtype (a view stays a view of its base's
+    twin), every device the meta device, every `torch.Generator` a CPU one
+    with its seed; the port's own objects are copied with their attributes
+    twinned, host-side bookkeeping (`_NOT_TWINNED`) is shared as it is.  A
+    body traced on an owner's twin reads meta tensors, moves no counter of
+    the owner and touches no card.  Pass one `memo` to twin an owner and
+    trees of its tensors consistently (the same object, the same twin)."""
+    return _twin(tree, {} if memo is None else memo)
 
 
 def tensor_bytes(tree) -> int:

@@ -35,6 +35,11 @@ bfloat16 as operands of their last products (`csrc/flash_attention_bwd.cu`).
   `mdi_llm_tpu_torch.kernels`) or raises.  There is no fallback from a
   kernel to its plain version; `use_kernel=False` asks for the plain
   versions on any device (the on-card parity checks use it).
+- K2's launch is the operator `torch.ops.mdi_torch.flash_attention`
+  (`OP`, `kernels.define_op`): its CUDA implementation launches the
+  kernel, its meta implementation gives the output and the LSE, so a
+  prefill traced on meta tensors (`analysis/ir.py`) holds one node per
+  launch.  K3 and K4 (training only) stay plain ctypes calls.
 - Counters, plain ints: `flash_attention.launches` (K2, both entry
   points), `flash_dq.launches` (K3), `flash_dkv.launches` (K4) count
   kernel launches and nothing else; each plain version counts its
@@ -157,11 +162,12 @@ def _check_args(q, k, v) -> None:
         raise ValueError(f"n_head={H} must be a multiple of G={k.shape[1]}")
 
 
-def _check_kernel_args(q, k, v, extra=()) -> None:
+def _check_kernel_args(q, k, v, extra=(), device="cuda") -> None:
     """What every kernel of this module takes: CUDA tensors on q's device,
     q/k/v (and `extra`, e.g. dO) in one float32 or bfloat16 dtype, a head
-    size the kernels are built for."""
-    if q.device.type != "cuda":
+    size the kernels are built for.  K2's meta route (the traced card
+    route, `OP`) checks the same with `device="meta"`."""
+    if q.device.type != device:
         raise ValueError(f"flash attention: no kernel for {q.device}")
     hs = q.shape[-1]
     if hs not in KERNEL_HEAD_SIZES:
@@ -207,12 +213,13 @@ def _call(lib_name, fn_name, q, k, ptrs, scale, causal) -> None:
         )
 
 
-def _launch(q, k, v, scale, causal, with_lse):
-    _check_kernel_args(q, k, v)
+def _launch_op(q, k, v, scale: float, causal: bool, with_lse: bool):
+    """The op's CUDA implementation: K2 on the current stream; returns
+    (out, lse), the LSE empty without `with_lse`."""
     q, k, v = _aligned(q=q, k=k, v=v)
     B, H, T, _ = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if with_lse else None
+    lse = torch.empty((B, H, T) if with_lse else (0,), dtype=torch.float32, device=q.device)
     _call("flash_attention", "flash_attention_launch", q, k,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            lse.data_ptr() if with_lse else None), scale, causal)
@@ -220,6 +227,32 @@ def _launch(q, k, v, scale, causal, with_lse):
     # the full T x T product (the plain version's dense count)
     kernels.add_flops(4.0 * B * H * T * T * q.shape[-1])
     return out, lse
+
+
+def _fake(q, k, v, scale: float, causal: bool, with_lse: bool):
+    """The op's meta implementation: the output and the LSE the launch
+    allocates."""
+    B, H, T, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, T) if with_lse else (0,),
+                                            dtype=torch.float32)
+
+
+# K2 as one operator of the port's namespace (`kernels.define_op`): the card
+# launches the kernel, meta tensors trace one node per launch
+OP = kernels.define_op(
+    "flash_attention(Tensor q, Tensor k, Tensor v, float scale, bool causal, "
+    "bool with_lse) -> (Tensor, Tensor)",
+    cuda=_launch_op, meta=_fake,
+)
+
+
+def _launch(q, k, v, scale, causal, with_lse):
+    if q.device.type == "meta":
+        _check_kernel_args(q, k, v, device="meta")
+    else:
+        _check_kernel_args(q, k, v)
+    out, lse = OP(q, k, v, float(scale), bool(causal), bool(with_lse))
+    return out, (lse if with_lse else None)
 
 
 def _check_stats(q, lse, dsum) -> None:

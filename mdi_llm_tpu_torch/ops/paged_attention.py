@@ -19,8 +19,9 @@ sequence's block table holds absolute positions `[i * block_size, (i + 1)
   calls.
 - `paged_prefill` (the unified ragged step) and `paged_attention` (a
   per-sequence batch, packed into spans of width Tq) route a CUDA tensor
-  to kernel K1 (`ops/ragged_paged_attention.py`) and a CPU tensor to the
-  plain route, the JAX package's lax math.  `use_kernel=False` forces the
+  to kernel K1 (`ops/ragged_paged_attention.py`), a meta tensor (a traced
+  step, `analysis/ir.py`) to K1's operator as the card would, and a CPU
+  tensor to the plain route, the JAX package's lax math.  `use_kernel=False` forces the
   plain route on any device (the on-card parity check uses it);
   `use_kernel=True` always goes through the K1 wrapper.  `params` (K1's
   split knobs) is for a tensor-parallel rank, whose knobs are resolved on
@@ -144,7 +145,7 @@ def paged_prefill(
     if scale is None:
         scale = 1.0 / (hs**0.5)
     if use_kernel is None:
-        use_kernel = q.is_cuda
+        use_kernel = q.device.type != "cpu"
     if not use_kernel:
         return _paged_prefill_plain(
             q, k_pool, v_pool, block_tables, q_slot, q_pos, scale
@@ -178,7 +179,7 @@ def paged_attention(
     if scale is None:
         scale = 1.0 / (hs**0.5)
     if use_kernel is None:
-        use_kernel = q.is_cuda
+        use_kernel = q.device.type != "cpu"
     if not use_kernel:
         return _paged_attention_plain(q, k_pool, v_pool, block_tables, q_pos, scale)
     i32 = torch.int32

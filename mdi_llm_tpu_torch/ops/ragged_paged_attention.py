@@ -16,7 +16,11 @@ prefill chunks are all the same call.
   (`csrc/ragged_paged_attention.cu`, built on first use by
   `mdi_llm_tpu_torch.kernels`) or raises.  There is no fallback from the
   kernel to the plain version.  `ragged_paged_attention.launches` counts
-  kernel launches and nothing else, one per call.
+  kernel launches and nothing else, one per call.  The launch is the
+  operator `torch.ops.mdi_torch.ragged_paged_attention` (`OP`): its CUDA
+  implementation is the launch, its meta implementation gives the output
+  and the split workspace, so a step traced on meta tensors
+  (`analysis/ir.py`, `analysis/liveness.py`) holds one node per launch.
 - Split-KV: the kernel splits each slot's walk over chunks of keys; the
   plan (`split_plan`: the chunk, the number of chunks, the grid) comes
   from static shapes alone, never from `lens` or `q_pos`, so the wrapper
@@ -303,11 +307,79 @@ def _check_kernel_args(q, k, v, scales, block_tables, q_start, q_len, lens, q_po
         if x.shape[0] != (T if name == "q_pos" else S):
             raise ValueError(f"{name} has leading size {x.shape[0]}")
     for name, x in (("q", q), ("k_pool", k), ("v_pool", v)):
-        if not x.is_contiguous() or x.data_ptr() % 16:
+        if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     for x in (k, v, *scales, block_tables, q_start, q_len, lens, q_pos):
         if x.device != q.device:
             raise ValueError(f"every argument must be on {q.device}, got {x.device}")
+
+
+def _launch(q, k, v, k_scale, v_scale, block_tables, q_start, q_len, lens, q_pos,
+            scale: float, chunk: int, n_chunks: int):
+    """The op's CUDA implementation: K1 (and its merge, when the walk is
+    split) on the current stream; returns (out, the float32 split
+    workspace, empty without a split)."""
+    for name, x in (("q", q), ("k_pool", k), ("v_pool", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    _, n_head, T, hs = q.shape
+    BS, G = k.shape[1], k.shape[2]
+    S, MB = block_tables.shape
+    n_ws = n_chunks * n_head * T * (hs + 2) if n_chunks > 1 else 0
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
+    # with a merge, the two kernels write every row (zeros where no slot
+    # owns it); without one the kernel leaves such rows as they are
+    out = torch.empty_like(q) if n_ws else torch.zeros_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn, merge = _lib()
+    dtype = _KERNEL_DTYPES[q.dtype]
+    spans = (q_start.data_ptr(), q_len.data_ptr(), lens.data_ptr(), q_pos.data_ptr())
+    rc = fn(
+        dtype, 0 if k.dtype == q.dtype else _NARROW_KV[k.dtype],
+        hs, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if k_scale is None else k_scale.data_ptr(),
+        None if v_scale is None else v_scale.data_ptr(),
+        block_tables.data_ptr(), *spans, out.data_ptr(),
+        T, n_head, G, BS, S, MB, float(scale),
+        ws.data_ptr() if n_ws else None, chunk, n_chunks, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"ragged_paged_attention kernel launch failed (code {rc}) for "
+            f"q {tuple(q.shape)} {q.dtype}, pool {tuple(k.shape)} {k.dtype}"
+        )
+    ragged_paged_attention.launches += 1
+    # every packed row against the whole table window (the count of the
+    # plain route's dense math, which the CPU's FlopCounterMode sees)
+    kernels.add_flops(4.0 * T * n_head * hs * MB * BS)
+    if n_ws:
+        rc = merge(dtype, hs, ws.data_ptr(), *spans, out.data_ptr(), T, n_head, S,
+                   MB * BS, chunk, n_chunks, stream)
+        if rc != 0:
+            raise RuntimeError(f"ragged_paged_attention merge launch failed (code {rc})")
+        ragged_paged_attention.merge_launches += 1
+    return out, ws
+
+
+def _fake(q, k, v, k_scale, v_scale, block_tables, q_start, q_len, lens, q_pos,
+          scale: float, chunk: int, n_chunks: int):
+    """The op's meta implementation: the shapes the launch gives and what
+    it allocates (the output, and the split's float32 workspace)."""
+    _, n_head, T, hs = q.shape
+    n_ws = n_chunks * n_head * T * (hs + 2) if n_chunks > 1 else 0
+    return torch.empty_like(q), q.new_empty(n_ws, dtype=torch.float32)
+
+
+# K1 as one operator of the port's namespace: the card launches the kernel,
+# meta tensors (the compiled-program analysis, `analysis/ir.py`) trace one
+# node per launch with its output and workspace; no other device has an
+# implementation
+OP = kernels.define_op(
+    "ragged_paged_attention(Tensor q, Tensor k, Tensor v, Tensor? k_scale, "
+    "Tensor? v_scale, Tensor block_tables, Tensor q_start, Tensor q_len, "
+    "Tensor lens, Tensor q_pos, float scale, int chunk, int n_chunks) -> (Tensor, Tensor)",
+    cuda=_launch, meta=_fake,
+)
 
 
 def ragged_paged_attention(
@@ -325,59 +397,29 @@ def ragged_paged_attention(
 ) -> torch.Tensor:
     """K1.  Returns (1, n_head, T, hs) in q's dtype, zeros where no slot
     owns the row.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel on the current stream, or raise.  The split's
-    knobs are `params`, else `ops.tuning.kernel_params_for` the card and
-    geometry (resolved once, on the host)."""
+    launch the kernel on the current stream, or raise; meta tensors trace
+    the op the card launches.  The split's knobs are `params`, else
+    `ops.tuning.kernel_params_for` the card and geometry (resolved once,
+    on the host; on meta, for the card `ops.tuning.planned_device`
+    names)."""
     k, v, ks, vs = _check_pools(k_pool, v_pool)
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
             q, k_pool, v_pool, block_tables, q_start, q_len, lens, q_pos,
             scale=scale,
         )
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"ragged_paged_attention: no kernel for {q.device}")
     scales = () if ks is None else (ks, vs)
     _check_kernel_args(q, k, v, scales, block_tables, q_start, q_len, lens, q_pos)
-    _, n_head, T, hs = q.shape
-    BS, G = k.shape[1], k.shape[2]
-    S, MB = block_tables.shape
+    n_head, hs = q.shape[1], q.shape[3]
     from mdi_llm_tpu_torch.ops import tuning
 
     params = (tuning.kernel_params_for(q, k) if params is None
               else tuning.checked_params(params, n_head, hs))
     plan = plan_for(q, k, block_tables, params)
-    ws = (torch.empty(plan["workspace"], dtype=torch.float32, device=q.device)
-          if plan["workspace"] else None)
-    # with a merge, the two kernels write every row (zeros where no slot
-    # owns it); without one the kernel leaves such rows as they are
-    out = torch.empty_like(q) if ws is not None else torch.zeros_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    fn, merge = _lib()
-    dtype = _KERNEL_DTYPES[q.dtype]
-    spans = (q_start.data_ptr(), q_len.data_ptr(), lens.data_ptr(), q_pos.data_ptr())
-    rc = fn(
-        dtype, 0 if k.dtype == q.dtype else _NARROW_KV[k.dtype],
-        hs, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
-        block_tables.data_ptr(), *spans, out.data_ptr(),
-        T, n_head, G, BS, S, MB, float(scale),
-        None if ws is None else ws.data_ptr(), plan["chunk"], plan["n_chunks"], stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            f"ragged_paged_attention kernel launch failed (code {rc}) for "
-            f"q {tuple(q.shape)} {q.dtype}, pool {tuple(k.shape)} {k.dtype}"
-        )
-    ragged_paged_attention.launches += 1
-    # every packed row against the whole table window (the count of the
-    # plain route's dense math, which the CPU's FlopCounterMode sees)
-    kernels.add_flops(4.0 * T * n_head * hs * MB * BS)
-    if ws is not None:
-        rc = merge(dtype, hs, ws.data_ptr(), *spans, out.data_ptr(), T, n_head, S,
-                   MB * BS, plan["chunk"], plan["n_chunks"], stream)
-        if rc != 0:
-            raise RuntimeError(f"ragged_paged_attention merge launch failed (code {rc})")
-        ragged_paged_attention.merge_launches += 1
+    out, _ = OP(q, k, v, ks, vs, block_tables, q_start, q_len, lens, q_pos,
+                float(scale), plan["chunk"], plan["n_chunks"])
     return out
 
 

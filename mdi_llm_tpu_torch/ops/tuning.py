@@ -51,6 +51,7 @@ candidate's chunk instead: the flow, not a measurement.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -250,9 +251,32 @@ def resolve_kernel_params(
     return DEFAULT_PARAMS, meta
 
 
+# the card a trace on meta tensors plans K1's split for (the
+# compiled-program analysis, `analysis/ir.py`): set by `planned_device`
+_planned = [_H100]
+
+
+@contextlib.contextmanager
+def planned_device(kind: str):
+    """Within this context a K1 call on meta tensors resolves its knobs
+    for the card `kind` (`torch.cuda.get_device_name()`); outside it, for
+    the NVIDIA H100 80GB HBM3.  Reads no card."""
+    _planned.append(str(kind))
+    try:
+        yield
+    finally:
+        _planned.pop()
+
+
 @functools.lru_cache(maxsize=None)
-def _device_name(index: int) -> str:
+def _card_name(index: int) -> str:
     return torch.cuda.get_device_name(index)
+
+
+def _device_name(device: torch.device) -> str:
+    if device.type == "meta":
+        return _planned[-1]
+    return _card_name(device.index or 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -268,7 +292,7 @@ def kernel_params_for(q: torch.Tensor, k_payload: torch.Tensor) -> KernelParams:
     checked once, at the first call of that geometry."""
     _, n_head, _, hs = q.shape
     _, BS, G, _ = k_payload.shape
-    return _resolved(_device_name(q.device.index or 0), n_head, G, hs, BS,
+    return _resolved(_device_name(q.device), n_head, G, hs, BS,
                      _dtype_name(q.dtype), _dtype_name(k_payload.dtype),
                      os.environ.get(TUNE_TABLE_ENV) or None)
 
@@ -280,7 +304,7 @@ def global_kernel_params(n_head: int, n_groups: int, head_size: int, block_size:
     model's whole geometry (`n_head` heads over `n_groups` KV groups), as
     the JAX package resolves them outside its shard_map (`mdi_llm_tpu/ops/
     paged_attention.py:256-259`); memoised like `kernel_params_for`."""
-    return _resolved(_device_name(device.index or 0), n_head, n_groups, head_size,
+    return _resolved(_device_name(device), n_head, n_groups, head_size,
                      block_size, _dtype_name(q_dtype), _dtype_name(kv_dtype),
                      os.environ.get(TUNE_TABLE_ENV) or None)
 
@@ -545,7 +569,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     steps, max_blocks = record_serve_steps(gen, trace, serve_cli.make_serving_config(args))
     del gen
     cases = trace_cases(steps)
-    card = _device_name(device.index or 0) if device.type == "cuda" else "cpu"
+    card = _device_name(device) if device.type == "cuda" else "cpu"
     where = power_limit() if device.type == "cuda" else "cpu"
     best, results = autotune(cfg.n_head, cfg.n_query_groups, cfg.head_size, cases,
                              args.block_size, max_blocks, dtype=dtype, device=device,

@@ -84,6 +84,7 @@ from mdi_llm_tpu_torch.generation import (
     detect_stop_tokens,
     find_eot,
     resolve_device,
+    rng_for,
 )
 from mdi_llm_tpu_torch.models import transformer
 from mdi_llm_tpu_torch.ops.quant import FLAG_TO_MODE, quantize_params
@@ -226,7 +227,7 @@ class PipelineEngine:
         self.rope = {s: transformer.get_rope_cache(cfg, device=self.mesh[s]) for s in self.owned}
         dev0 = self.mesh[self.owned[0]]
         self.rng_seed = int(rng_seed)
-        self.rng = torch.Generator(device=dev0).manual_seed(self.rng_seed)
+        self.rng = rng_for(dev0, self.rng_seed)
         one_device = ring is None and len(
             {str(d) for devs in self.ranks.values() for d in devs}) == 1
         self._graphs = (one_device and dev0.type == "cuda") if _graphs is None else bool(_graphs)

@@ -107,9 +107,15 @@ from mdi_llm_tpu_torch.generation import (
     find_eot,
     ngram_draft,
     pad_draft,
+    rng_for,
 )
 from mdi_llm_tpu_torch.models import transformer
-from mdi_llm_tpu_torch.obs.device import introspect_call, introspect_step
+from mdi_llm_tpu_torch.obs.device import (
+    StepSpec,
+    abstractify,
+    introspect_call,
+    introspect_step,
+)
 from mdi_llm_tpu_torch.ops.sampling import (
     sample_mode,
     sample_traced,
@@ -447,7 +453,7 @@ class ServingEngine:
         self._sample_mode = sample_mode(
             serving.temperature, serving.top_k, serving.top_p
         )
-        self._rng = torch.Generator(device=self.device).manual_seed(gen.rng_seed)
+        self._rng = rng_for(self.device, gen.rng_seed)
         self.forward_calls = 0  # model forwards this engine ran (all layers)
         self.draft_forward_calls = 0  # the draft model's forwards
         # optional draft model with its own paged pool; all None without
@@ -597,13 +603,17 @@ class ServingEngine:
         weights (seed 0, as the JAX engine's PRNGKey(0)) at the target's
         parameter dtype, on the target's device and mesh."""
         gen = self.gen
-        dparams = transformer.init_params(
-            dcfg, 0, dtype=transformer.param_dtype(gen.params), device=gen.device
-        )
+        dtype = transformer.param_dtype(gen.params)
+        if gen.abstract:  # a traced engine's draft: meta stubs, as its target
+            from mdi_llm_tpu_torch.analysis.plan import abstract_params
+
+            dparams = abstract_params(dcfg, str(dtype).replace("torch.", ""))
+        else:
+            dparams = transformer.init_params(dcfg, 0, dtype=dtype, device=gen.device)
         return Generator(
             dcfg, dparams, max_seq_length=self.max_seq_length,
             cache_dtype=gen.cache_dtype, rng_seed=gen.rng_seed, device=gen.device,
-            mesh=gen._tp_mesh,
+            mesh=gen._tp_mesh, abstract=gen.abstract,
         )
 
     def _ensure_draft_blocks(self, seq: SequenceState, n_tokens: int) -> bool:
@@ -691,9 +701,7 @@ class ServingEngine:
             chunk = blocks[i : i + W]
             idx = np.zeros((W,), np.int64)
             idx[: len(chunk)] = chunk
-            idx_d = self._upload_per_device(idx, leaves)
-            gathered = [x.index_select(ba, idx_d[x.device]).movedim(ba, 0).contiguous()
-                        for x in leaves]
+            gathered = self._gather_blocks(self._upload_per_device(idx, leaves))
             store.write(slots[i : i + W], gathered, non_blocking=cuda)
         if cuda:
             end.record()
@@ -729,19 +737,34 @@ class ServingEngine:
         are queued on the stream, ahead of the next step and of any later
         fetch into the same slots, so the slots may be released at once."""
         W = max(1, self.cfg.swap_chunk_blocks)
-        ba = self._kv_block_axis
-        leaves = [_raw(x) for x in transformer.tree_leaves(self._kv)]
+        leaves = transformer.tree_leaves(self._kv)
         store = self.host_tier.store
         for i in range(0, len(blocks), W):
             chunk = blocks[i : i + W]
             idx = np.zeros((W,), np.int64)  # padding writes to the trash block
             idx[: len(chunk)] = chunk
-            idx_d = self._upload_per_device(idx, leaves)
             rows = store.read(slots[i : i + W], width=W, device=self.device,
                               non_blocking=True)
-            for leaf, payload in zip(leaves, rows):
-                payload = payload.to(leaf.device, non_blocking=True)
-                leaf.index_copy_(ba, idx_d[leaf.device], payload.view(leaf.dtype).movedim(0, ba))
+            self._restore_blocks(self._upload_per_device(idx, leaves), rows)
+
+    def _gather_blocks(self, idx_d) -> List[torch.Tensor]:
+        """The tier's gather on the device (the JAX `_fetch_blocks_fn(W)`):
+        each pool leaf's W blocks `idx_d[leaf's device]`, block axis first,
+        as raw bytes."""
+        ba = self._kv_block_axis
+        leaves = [_raw(x) for x in transformer.tree_leaves(self._kv)]
+        return [x.index_select(ba, idx_d[x.device]).movedim(ba, 0).contiguous()
+                for x in leaves]
+
+    def _restore_blocks(self, idx_d, rows) -> None:
+        """The tier's restore on the device (the JAX `_restore_blocks_fn(W)`):
+        each leaf's payload rows written into its W blocks
+        `idx_d[leaf's device]` in place (`index_copy_`)."""
+        ba = self._kv_block_axis
+        leaves = [_raw(x) for x in transformer.tree_leaves(self._kv)]
+        for leaf, payload in zip(leaves, rows):
+            payload = payload.to(leaf.device, non_blocking=True)
+            leaf.index_copy_(ba, idx_d[leaf.device], payload.view(leaf.dtype).movedim(0, ba))
 
     def _swap_out(self, seq: SequenceState) -> Optional[SwapRecord]:
         """Scheduler hook at `preempt_latest`, called while the victim
@@ -1056,10 +1079,16 @@ class ServingEngine:
         if not fresh:
             return
         tables = self._upload(self._sync_draft_tables([s for s, _ in fresh]))
-        ragged = (inputs["q_slot"], inputs["q_start"], inputs["q_len"])
-        self._draft_forward(inputs["tokens"], inputs["pos"], tables, paged_ragged=ragged)
+        self._draft_mixed_body(inputs["tokens"], inputs["pos"], tables, inputs["q_slot"],
+                               inputs["q_start"], inputs["q_len"])
         for seq, n in fresh:
             seq.draft_fed += n
+
+    def _draft_mixed_body(self, tokens, pos, tables, q_slot, q_start, q_len):
+        """The draft model's mirror of the mixed step (the JAX
+        `_draft_mixed_fn`): one ragged draft forward over the packed batch,
+        writing the draft pool in place."""
+        return self._draft_forward(tokens, pos, tables, paged_ragged=(q_slot, q_start, q_len))
 
     def _queue_depth(self) -> int:
         return len(self.scheduler.waiting) + len(self.scheduler.preempted)
@@ -1522,10 +1551,125 @@ class ServingEngine:
         self._draft_scan(up(np.zeros((B, K + 2), np.int32)), dtables, zB, zB, K)
         T = self.token_budget
         trash_pos = self.max_blocks_per_seq * self.pool.block_size
-        self._draft_forward(
+        self._draft_mixed_body(
             up(np.zeros((1, T), np.int32)), up(np.full((1, T), trash_pos, np.int32)),
-            dtables, paged_ragged=(up(np.zeros((T,), np.int32)), zB, zB),
+            dtables, up(np.zeros((T,), np.int32)), zB, zB,
         )
+
+    # -- the compile set (analysis/ir.py, analysis/liveness.py) ---------------
+
+    def reachable_signatures(self) -> List[Tuple[str, Tuple[int, ...]]]:
+        """Every (label, shape-key) `step()` can dispatch for this engine's
+        ServingConfig, as the JAX engine's `reachable_signatures`:
+
+        - ``mixed(max_batch, token_budget)`` always;
+        - ``verify(max_batch, spec_k + 1)`` with speculative decoding and
+          the exact-match verify, ``verify_sample`` at the same shape with
+          the rejection-sampled one (`ServingConfig.spec_verify_sampled`);
+          a turn where no slot drafts falls through to the decode below, so
+          it stays reachable beside it;
+        - ``draft_mixed(max_batch, token_budget)`` and
+          ``draft_scan(max_batch, spec_k + 2)`` with a draft model;
+        - ``decode_chunk(max_batch, decode_chunk)`` when decode_chunk > 1,
+          else ``decode(max_batch,)``;
+        - ``fetch(W,)`` and ``restore(W,)`` with a host tier, W =
+          `swap_chunk_blocks`.
+
+        The captured steps (`_steps`) are the mixed step and the decode;
+        the rest launch eagerly at their dispatch sites.  The analysis's
+        compile-set-closure rule re-derives this set from the ServingConfig
+        alone (`analysis.ir.reachable_serving_set`) and diffs it against
+        `enumerate_executables()`."""
+        B = self.scheduler.max_batch
+        sigs: List[Tuple[str, Tuple[int, ...]]] = [("mixed", (B, self.token_budget))]
+        if self.cfg.spec_k:
+            label = "verify_sample" if self.cfg.spec_verify_sampled() else "verify"
+            sigs.append((label, (B, self.cfg.spec_k + 1)))
+            if self.cfg.draft_model:
+                sigs.append(("draft_mixed", (B, self.token_budget)))
+                sigs.append(("draft_scan", (B, self.cfg.spec_k + 2)))
+        if self.cfg.decode_chunk > 1:
+            sigs.append(("decode_chunk", (B, self.cfg.decode_chunk)))
+        else:
+            sigs.append(("decode", (B,)))
+        if self.cfg.host_pool_mib > 0:
+            W = max(1, self.cfg.swap_chunk_blocks)
+            sigs.append(("fetch", (W,)))
+            sigs.append(("restore", (W,)))
+        return sigs
+
+    def _step_params(self, gen: Generator):
+        """The weights as `gen`'s forward reads them: the tree, or on a tp
+        mesh {rank: its slices} (views of the tree)."""
+        return gen.params if gen._shards is None else gen._shards
+
+    def enumerate_executables(self) -> List[StepSpec]:
+        """One `StepSpec` per reachable signature, on a meta twin of this
+        engine (`obs.device.abstractify`): the exact body each dispatch site
+        calls (a captured step's body over its static inputs' twins, or the
+        eager method), the weights, the pool and the sampling operands as
+        the args it reads from the owner, the run operands as the args it
+        is passed.  Works alike on a live engine (nothing on the card is
+        read, written or counted; a CPU engine's twin keeps the plain
+        route it runs) and on an abstract one (`Generator(abstract=True)`,
+        the card's route); builds the specs, traces nothing.
+        The pipelined engine inherits it: its bodies are the ring's."""
+        memo: Dict[int, Any] = {}
+        twin = abstractify(self, memo)
+        if self.device.type == "cpu" and twin.cfg.use_kernel is None:
+            twin.cfg.use_kernel = False  # a CPU engine runs K1's plain route
+        cls = type(self)
+        B, T = self.scheduler.max_batch, self.token_budget
+        MB = self.max_blocks_per_seq
+        meta = torch.device("meta")
+
+        def sds(*shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device=meta)
+
+        target = abstractify({"params": self._step_params(self.gen), "kv": self._kv,
+                              "operands": (self._t_op, self._p_op)}, memo)
+        roles = {"params": "params", "kv": "kv"}
+
+        def spec(label, key, body, inputs, static=None, state=target, writes=("kv",)):
+            return StepSpec(label, key, body, twin, {**state, **inputs}, static,
+                            dict(roles), tuple(state), writes)
+
+        specs: List[StepSpec] = []
+        for label, k in self.reachable_signatures():
+            if label in self._steps:  # mixed, decode, decode_chunk
+                st = self._steps[label]
+                specs.append(spec(label, k, st.body, abstractify(st.inputs, memo), st.static))
+            elif label == "verify":
+                specs.append(spec(label, k, cls._verify, dict(
+                    toks_in=sds(B, k[1]), tables=sds(B, MB), pos=sds(B))))
+            elif label == "verify_sample":
+                specs.append(spec(label, k, cls._verify_sample, dict(
+                    toks_in=sds(B, k[1]), tables=sds(B, MB), pos=sds(B), draft_len=sds(B))))
+            elif label in ("draft_mixed", "draft_scan"):
+                draft = abstractify({"params": self._step_params(self.draft_gen),
+                                     "kv": self._draft_kv}, memo)
+                if label == "draft_mixed":
+                    specs.append(spec(label, k, cls._draft_mixed_body, dict(
+                        tokens=sds(1, T), pos=sds(1, T), tables=sds(B, MB), q_slot=sds(T),
+                        q_start=sds(B), q_len=sds(B)), state=draft))
+                else:
+                    specs.append(spec(label, k, cls._draft_scan, dict(
+                        toks_in=sds(B, k[1]), tables=sds(B, MB), pos0=sds(B), n_in=sds(B)),
+                        static=dict(K=self.cfg.spec_k), state=draft))
+            elif label in ("fetch", "restore"):
+                # the tier's transfer pair moves pool blocks: the pool only
+                W, ba = k[0], self._kv_block_axis
+                pool = abstractify({"kv": self._kv}, memo)
+                idx = {meta: sds(W, dtype=torch.long)}
+                if label == "fetch":
+                    specs.append(spec(label, k, cls._gather_blocks, dict(idx_d=idx),
+                                      state=pool, writes=()))
+                else:
+                    rows = [sds(W, *(shape[:ba] + shape[ba + 1:]), dtype=raw_dtype(dt))
+                            for shape, dt in self._kv_leaf_shapes()]
+                    specs.append(spec(label, k, cls._restore_blocks,
+                                      dict(idx_d=idx, rows=rows), state=pool))
+        return specs
 
     def step(self) -> bool:
         """Run one scheduler action; False when nothing was runnable."""

@@ -193,7 +193,7 @@ class PipelinedServingEngine(ServingEngine):
         # engine's `sharded_forward` resolves them
         self._k1_params = None
         dev = self._stage_dev[0]
-        if dev.type == "cuda" and self.cfg.use_kernel is not False:
+        if dev.type != "cpu" and self.cfg.use_kernel is not False:
             from mdi_llm_tpu_torch.ops import tuning
             from mdi_llm_tpu_torch.ops.ragged_paged_attention import _pool_parts
 
@@ -202,6 +202,18 @@ class PipelinedServingEngine(ServingEngine):
                 full.n_head, full.n_query_groups, full.head_size, bs, self._x_dtype,
                 _pool_parts(kv[0][0]["k"])[0].dtype, dev)
         return kv
+
+    def _step_params(self, gen):
+        """The weights as the ring reads them (the compile set's "params"):
+        {stage: its blocks, with the embedding, final norm and head on
+        stage 0}, or over tp ranks {stage: {rank: its per-layer views}}, the
+        head whole on stage 0's first rank (views of the one tree)."""
+        if self._tp == 1:
+            return {s: {"blocks": b, **(self._head if s == 0 else {})}
+                    for s, b in enumerate(self._stage_blocks)}
+        return {s: {r: {"blocks": lay, **(self._head if s == 0 and r == 0 else {})}
+                    for r, lay in enumerate(layers)}
+                for s, layers in enumerate(self._stage_layers)}
 
     # -- topology (cli reporting) ---------------------------------------------
 

@@ -18,7 +18,8 @@ the JAX package's (`mdi_llm_tpu/analysis/audit.py`), on the CPU.
   memory), the CLI exit codes against the JAX CLI's, the example plans,
   the serve / server / starter refusals (the starter's through the abort
   sentinel), `liveness`, `ir`/`flow`/`check` and `Generator(abstract=
-  True)` refused citing item 18.3;
+  True)` running (their numbers: tests/test_torch_ir.py and
+  tests/test_torch_flow.py);
 - a tripwire: the whole audit, bad plans included, with `torch.cuda.init`,
   `is_available`, `get_device_properties` and `get_device_name` patched
   to raise.
@@ -465,19 +466,27 @@ def test_example_plans_audit_clean_as_in_jax(plan_file, capsys):
 
 
 def test_liveness_and_the_compiled_program_tools_are_refused(capsys):
+    """Refused until the compiled-program analysis was ported; now each
+    runs: `liveness=True` on a plan that serves nothing keeps the
+    heuristic (the liveness term itself: tests/test_torch_flow.py),
+    `--liveness` exits 0, the `ir`, `flow` and `check` subcommands exit 2
+    only on a usage error (no model) and list their rules, and
+    `Generator(abstract=True)` builds on the meta device."""
     from mdi_llm_tpu_torch.analysis.cli import dispatch
+    from mdi_llm_tpu_torch.analysis.plan import abstract_params
     from mdi_llm_tpu_torch.generation import Generator
-    from mdi_llm_tpu_torch.models import transformer
 
-    with pytest.raises(ValueError, match="18.3"):
-        audit.audit_plan(plan.PlanSpec(cfg=tiny()), liveness=True)
-    assert audit.main(["--model", TINY_LLAMA, "--liveness"]) == 2
+    rep = audit.audit_plan(plan.PlanSpec(cfg=tiny()), liveness=True)
+    assert rep.breakdown["per_device"]["act_source"] == "heuristic"
+    assert audit.main(["--model", TINY_LLAMA, "--liveness"]) == 0
     for sub in ("ir", "flow", "check"):
-        assert dispatch([sub, "--model", TINY_LLAMA]) == 2
-        assert "18.3" in capsys.readouterr().err
+        assert dispatch([sub]) == 2
+        assert "need --model" in capsys.readouterr().err
+        assert dispatch([sub, "--list-checks"]) == 0
+        assert "trace-failure" in capsys.readouterr().out
     cfg = tiny()
-    with pytest.raises(NotImplementedError, match="item 18.3"):
-        Generator(cfg, transformer.init_params(cfg, 0), device="cpu", abstract=True)
+    gen = Generator(cfg, abstract_params(cfg, "bfloat16"), abstract=True)
+    assert gen.device.type == "meta" and gen.abstract
 
 
 def test_module_entry_point_audits():

@@ -88,7 +88,7 @@ def test_cli_serves_on_cpu_and_prints_stats_line():
 # `n_chips` is the JAX line's tp x pp count, which the JAX line prints as
 # `devices`; the port's `devices` counts the distinct devices
 PORT_ONLY_KEYS = {"forward_calls", "draft_forward_calls", "graph_captures",
-                  "graph_replays", "capture_s", "n_chips"}
+                  "graph_replays", "capture_s", "n_chips", "detail"}
 PORT_ONLY_DEVICE_KEYS = {"type", "device_kind", "reports"}
 
 

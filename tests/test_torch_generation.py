@@ -274,8 +274,8 @@ def test_generator_refuses_unported_options(pythia, kw):
     """Weight quantization and tp meshes are ported: `quantize="int8"`
     generates the JAX Generator's greedy tokens in the same mode, and a
     `make_mesh({"tp": 2})` mesh the JAX tp Generator's (a bare dict of
-    axis sizes is not a mesh: refused by type); the other options are
-    still refused."""
+    axis sizes is not a mesh: refused by type); `abstract=True` builds on
+    the meta device; the other options are still refused."""
     prompts = prompts_of(pythia.tc.vocab_size, (5, 2), seed=1)
     if "quantize" in kw:
         want, _ = pythia.jgen(**kw).generate(prompts, 8, chunk_size=4, **GREEDY)
@@ -293,6 +293,21 @@ def test_generator_refuses_unported_options(pythia, kw):
         assert got == want
         with pytest.raises(TypeError, match="make_mesh"):
             pythia.tgen(**kw)
+        return
+    if "abstract" in kw:
+        # ported: a trace-only Generator lives on the meta device, its
+        # weights meta stubs; a CPU device beside it is a contradiction
+        from mdi_llm_tpu_torch.analysis.plan import abstract_params
+
+        with pytest.raises(ValueError, match="meta device"):
+            pythia.tgen(**kw)
+        gen = Generator(pythia.tc, abstract_params(pythia.tc, "float32"), abstract=True)
+        assert gen.device.type == "meta" and gen.rng.device.type == "cpu"
+        from mdi_llm_tpu_torch.models.transformer import tree_leaves
+
+        assert {x.device.type for x in tree_leaves(gen.params)} == {"meta"}
+        assert [s.name for s in gen.enumerate_executables(1, 8, 9, chunk_size=4)] == [
+            "prefill(1,16)", "decode_chunk(1,4)"]
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pythia.tgen(**kw)

@@ -350,8 +350,8 @@ def test_cli_surface(tmp_path, capsys):
     assert lint_main([str(tmp_path / "missing")]) == 2
     assert dispatch(["lint", str(mod), "--no-baseline"]) == 1
     for sub in ("ir", "flow", "check"):
-        assert dispatch([sub]) == 2
-    assert "item 18.3" in capsys.readouterr().err
+        assert dispatch([sub]) == 2  # usage: no model to trace
+        assert "need --model" in capsys.readouterr().err
 
 
 def test_module_entry_point_lints_the_port_clean():
