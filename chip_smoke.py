@@ -261,16 +261,17 @@ remat) compiled instead of compiling them again.
    other block; and pinned copies of 1, 8 and 32 pool blocks each way are
    timed by CUDA events (the link table's row in `serving/host_tier.py`).
 18. quant — weight quantization (`ops/quant.py`) on tiny-llama-1.1b at
-   full width and depth: (a) the serve phase's CLI run (`QUANT_TOKENS`,
-   32, new tokens) in bf16 and with
+   full width, cut to `QUANT_LAYERS` (12) of its 22 layers in (a) and (b):
+   (a) the serve phase's CLI run (`QUANT_TOKENS`, 16, new tokens) in bf16
+   and with
    `--quantize int8`, `w8a8` and `int4`: each as the serve phase checks
-   it (K1 22 per forward, replayed inside the step graphs), with the
+   it (K1 12 per forward, replayed inside the step graphs), with the
    weights' stored bytes, tokens/s, MFU/MBU, the greedy tokens' agreement
    with bf16 (printed: random weights make them diverge legitimately) and
    each step report's flops over bf16's (w8a8 within 0.01%); (b)
    `Generator(quantize=...).generate` on the generate phase's 4 prompts
    (`QUANT_TOKENS` new tokens)
-   with exactly 22 K2 launches, decode chunks of 8, decode tokens/s (the
+   with exactly 12 K2 launches, decode chunks of 8, decode tokens/s (the
    graph capture taken out) and prefill seconds beside bf16's; (c) one float32 forward of each
    mode (4 layers) against the same forward through
    `plain_quantized_einsum` (float64 products): max |err| <= 1e-4 x
@@ -364,14 +365,16 @@ remat) compiled instead of compiling them again.
    processes nvidia-smi lists under one other pid) and the card's
    memory in use.
 25. pp-serve — pipeline-parallel serving (`serving/pipeline.py`): the
-   serve phase's CLI run and trace (tiny-llama-1.1b, all 22 layers, bf16,
-   seed 10137, 16 synthetic requests, 8 slots, 16-token blocks, 2048-token
-   window, `RING_SERVE_TOKENS` (16) new tokens, decode chunks of 8 with
-   double buffering) with `--pp 2` and `--pp 4` (the reference table's [10, 12] and [4, 6, 6,
-   6], every stage on the card), then `--pp 2 --kv-dtype int8` (K1's int8
-   branch inside the ring).  Each run: every request finishes with its
-   budget in the vocabulary, K1 launches exactly once per stage layer the
-   engine counts (`stage_layer_runs`: 22 per tick, 2S - 1 ticks per mixed
+   serve phase's CLI run and trace (tiny-llama-1.1b at full width cut to
+   `RING_SERVE_LAYERS` (12) of its 22 layers, bf16, seed 10137, 16
+   synthetic requests, 8 slots, 16-token blocks, 2048-token window,
+   `RING_SERVE_TOKENS` (16) new tokens, decode chunks of 8 with double
+   buffering) with `--pp 2` and `--pp 4` (the reference table's [5, 7]
+   and the balanced [2, 3, 3, 4], every stage on the card), then `--pp 2
+   --kv-dtype int8` (K1's int8 branch inside the ring).  Each run: every
+   request finishes with its budget in the vocabulary, K1 launches exactly
+   once per stage layer the engine counts (`stage_layer_runs`: 12 per
+   tick, 2S - 1 ticks per mixed
    step and 8S + S per decode chunk, bubbles included; each with its merge
    kernel where the split plan has one), the plain route never, the steps
    are captured when the engine is built and replayed, host_syncs equal the
@@ -395,10 +398,10 @@ remat) compiled instead of compiling them again.
    heads over 2 KV groups (tp 2) and 8 heads over 1 (tp 4), head size
    64, its knobs resolved on the model's 32-head 4-group geometry as the
    serving path resolves them (reference, tolerance and times as for
-   `kernel`).  Then the serve phase's CLI run and trace with `--tp 2`,
-   `--tp 4` and `--tp 2 --kv-dtype int8`, the single engine on the same
-   trace beside each pool: every request finishes with its budget in the
-   vocabulary, K1 launches exactly tp x 22 per target forward (counted at
+   `kernel`).  Then pp-serve's CLI run and trace (`RING_SERVE_LAYERS`) with
+   `--tp 2`, `--tp 4` and `--tp 2 --kv-dtype int8`, the single engine on
+   the same trace beside each pool: every request finishes with its budget
+   in the vocabulary, K1 launches exactly tp x 12 per target forward (counted at
    replay), the plain route never, the steps are captured and replayed,
    host_syncs equal the single engine's.  Prints tokens/s beside the
    single engine's and their ratio, the capture seconds and the bf16
@@ -430,12 +433,12 @@ remat) compiled instead of compiling them again.
    ranks' geometries (B=4, T=2048, causal, bf16, hs 64: 16 heads over 2
    groups and 8 over 1) against their plain versions (bf16 limits), timed
    beside them, SDPA's backward and the bound.  Then the train phase's
-   set-up (tiny-llama-1.1b cut to `MESH_TRAIN_LAYERS` (11) of its 22
+   set-up (tiny-llama-1.1b cut to `MESH_TRAIN_LAYERS` (6) of its 22
    layers, bf16, B=4, T=2048, 2 micro-batches, remat, the flash route,
    random weights from seed 10137)
    without a mesh and on `dp=2`, `tp=2`, `dp=2,tp=2`, `dp=1,pp=2` and
    `dp=1,pp=2,tp=2`, one warm-up step and three counted ones each on the
-   same batches: every step runs 2 x 11 x (the mesh's positions) layer
+   same batches: every step runs 2 x 6 x (the mesh's positions) layer
    runs (the Trainer's `layer_runs`: a pp ring runs S micro-batches of
    each dp shard's rows) and launches K2 twice per run, K3 and K4 once,
    and no plain version; prints step seconds beside the unmeshed step's,
@@ -471,9 +474,29 @@ remat) compiled instead of compiling them again.
    the largest |diff| between the first step's gradients (summed,
    averaged, before the optimizer clips them) and the unmeshed Trainer's,
    absolute and relative to the leaf's largest gradient.
+   Then sp and ep over the two processes, one rank each, in the same two
+   processes (`train_procs_runs`): `--mesh sp=2 --use-flash on` at
+   tiny-llama-1.1b's full width, `SP_PROCS_TRAIN_LAYERS` (4) layers, B=1,
+   T=8192, bf16 (each process's rank runs P = 2 of the ring's 4 blocks a
+   layer: 16 layer runs over `PROCS_BF16_STEPS` (2) steps, K2 32, K3 and
+   K4 16 in each process;
+   the ring's K/V chunks pass between the processes, the gradients sum
+   over them) and `--mesh dp=1,ep=2` at moe-train's shape (Mixtral's
+   widths, 2 layers, B=1, T=2048; each process holds 4 of the 8 experts;
+   4 layer runs, K2 8, K3 and K4 4 in each process), the losses finite,
+   process 1 printing none, the step seconds beside one process's (the ep
+   phase's ep 2 step at the same shape when that phase ran in this call)
+   with the sp / ep group's calls, bytes and host seconds; then float32
+   sp 2 at 4 layers, T=2048, and ep 2 at one Mixtral layer (its float32
+   AdamW state of 4 would not fit one process), `PROCS_F32_STEPS` (2)
+   steps, clipping engaged: process 0 then runs the same argv alone and
+   holds the pair's loss lines within 1e-5 (relative) and its first-step
+   gradients and parameters, the experts gathered, within
+   `MESH_PARAM_TOL` of that run's (`kept_close`).  The doctor (phase 38)
+   runs in the background from here on.
 31. pp-tp-serve — pp x tp serving (`serving/pipeline.py` with a tp axis
    inside each stage): the pp-serve phase's CLI run and trace with `--pp 2
-   --tp 2` (the reference table's [10, 12], two ranks per stage, every
+   --tp 2` (the reference table's [5, 7] of 12 layers, two ranks per stage, every
    rank on the card), over a bf16 pool and an int8 pool, the single engine
    on the same trace beside each: every request finishes with its budget
    in the vocabulary, K1 launches exactly 2 x `stage_layer_runs` (once per
@@ -509,7 +532,25 @@ remat) compiled instead of compiling them again.
    collectives' calls, bytes and host seconds.  (b) `cli.starter` and
    `cli.secondary` with `--tp-devices 2` (each process one stage of two
    ranks), float32 at 4 layers, as a fourth job of the same two
-   processes: the one-process pipe x tp ring's streams.
+   processes: the one-process pipe x tp ring's streams.  (c) sp and ep
+   over the two processes, one rank each, as further jobs of the same
+   processes (`procs_runs`): `--sp-devices 2 --sp-flash` at Llama-3-8B's
+   widths, `SP_LAYERS` (8) layers, bf16, the sp phase's prompts of 8128
+   and 6000 tokens (local chunks of 4096), `SP_TOKENS` (32) greedy new
+   tokens: each process launches K2 16 times (its rank's diagonal and one
+   rotated block a layer; 32 = P² x 8 over the pair), and float32 at 4
+   layers with 16 new tokens (K2 8 each); `--ep-devices 2` at Mixtral's
+   widths, `EP_PROCS_LAYERS` (4) layers, bf16, 4 prompts, 16 new tokens
+   (each process holds 4 of the 8 experts), and float32 at
+   `EP_PROCS_F32_LAYERS` (1) layer, exact and at a capacity factor of 0.5
+   that drops assignments.  Both processes print the same streams, every
+   sample gets its tokens in the vocabulary, the plain K2 never runs; the
+   float32 streams equal one process's run of the same argv
+   (`divergence_ok`), the bf16 divergences from it are printed; each run
+   prints its seconds beside one process's, the collectives' calls, bytes
+   and host seconds, K2 launches and each process's peak memory.  The sp
+   runs' one-process runs are the sp phase's sp 2 K2 rings on the same
+   weights and prompts when that phase runs in this call (held there).
 34. sp — sequence-parallel inference (`parallel/sp_inference.py`) at
    Llama-3-8B's full width (4096 wide, 32 heads, 8 KV groups, hs 128) at
    `SP_LAYERS` (8) of its 32 layers, bf16, random weights: K2 with its LSE against its
@@ -581,7 +622,10 @@ remat) compiled instead of compiling them again.
    (import_torch, devices, matmul, kernels: K1 and K2 once against their
    plain versions within `TOL`'s bfloat16 1.5e-2, graph, profiler_trace,
    collective, threads): prints every stage's status and seconds, and
-   fails unless each is ok or skipped and `kernels` is ok.
+   fails unless each is ok or skipped and `kernels` is ok.  It starts in
+   the background where mesh-train-procs stands in the order (its stages
+   are host-bound, as the two-process phases beside it are; a stage's
+   seconds then include that sharing of the host) and is read here.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4, each with `paths`: its launches in every phase that drives
@@ -593,7 +637,9 @@ three ring serves, its `tp-serve` over the three tp serves, K2's
 `tp-generate` the tp 2 generate's, K3's and K4's `moe-train` over the
 three counted steps, K2's, K3's and K4's `mesh-train` over the five
 meshes' counted bf16 steps, K1's `pp-tp-serve` over its two ring serves,
-K2's `inference-procs` over the two processes' bf16 run, K2's `sp` over
+K2's `inference-procs` over the two processes' bf16 tp run and sp runs
+(both processes), K2's, K3's and K4's `mesh-train-procs` over every run
+of its two processes, K2's `sp` over
 the three bf16 sp prefills, K3's and K4's `sp` the counted ring
 gradient's, K2's `ep` over the two ep prefills and the four ep Trainers'
 counted steps, K3's and K4's `ep` over those steps, K2's, K3's and K4's
@@ -605,6 +651,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -906,12 +953,13 @@ SINGLE_REFS = {}  # tuple(argv): the single engine's (stats line, Generator, res
 
 def single_reference(phase, argv):
     """The single engine's run of the serve CLI on `argv` that the split
-    engines (pp-serve, tp-serve, pp-tp-serve) are held against: served
-    and checked once per argv in this process, then reused.  Returns
+    engines (pp-serve, tp-serve, pp-tp-serve) are held against, at their
+    `RING_SERVE_LAYERS`: served and checked once per argv in this process,
+    then reused.  Returns
     (stats line, its Generator, results)."""
     key = tuple(argv)
     if key not in SINGLE_REFS:
-        line, _launches, engine, results = serve_checked(phase, argv)
+        line, _launches, engine, results = serve_checked(phase, argv, n_layer=RING_SERVE_LAYERS)
         SINGLE_REFS[key] = (line, engine.gen, results)
         del engine
         free()
@@ -3180,6 +3228,8 @@ def phase_tier(k1, card):
 QUANT_MODES = ("int8", "w8a8", "int4")
 QUANT_TOKENS = 16  # new tokens of the quant phase's serves and generates (64 before the doctor
 # phase's cuts, 32 before the analysis phase's and the serve preflights')
+QUANT_LAYERS = 12  # tiny-llama's layers in those serves and generates (22 before the sp and
+# ep runs over processes: each quantized serve's preflight traces every layer)
 
 
 def plain_quantized_einsum(spec, x, p):
@@ -3274,10 +3324,12 @@ def phase_quant(k1, k2, card, ckpt_dir):
     from mdi_llm_tpu_torch.utils import checkpoint as ck
 
     # (a) the serve CLI, bf16 then each mode, K1 replayed inside the graphs
-    serve_argv = SERVE_BASE + ["--synthetic", "16", "--n-tokens", str(QUANT_TOKENS)]
+    serve_argv = SERVE_BASE + ["--override", f"n_layer={QUANT_LAYERS}", "--synthetic", "16",
+                               "--n-tokens", str(QUANT_TOKENS)]
     serves, k1_launches = {}, 0
     for mode in ("none",) + QUANT_MODES:
-        line, launches, engine, results = serve_checked("quant", serve_argv + ["--quantize", mode])
+        line, launches, engine, results = serve_checked("quant", serve_argv + ["--quantize", mode],
+                                                        n_layer=QUANT_LAYERS)
         graphs = engine.graph_stats()
         if graphs["captures"] != graphs["steps"] or graphs["replays"] <= 0:
             fail("quant", f"--quantize {mode}: step graphs {graphs}")
@@ -3313,7 +3365,7 @@ def phase_quant(k1, k2, card, ckpt_dir):
     k1.setdefault("paths", {})["quant"] = k1_launches
 
     # (b) Generator.generate on the generate phase's prompts, K2 in the prefill
-    cfg = Config.from_name(TINY_LLAMA)
+    cfg = Config.from_name(TINY_LLAMA, n_layer=QUANT_LAYERS)
     params = transformer.init_params(cfg, 10137, dtype=torch.bfloat16, device=DEVICE)
     prompts = long_prompts((1100, 1370, 1650, 1900), cfg.vocab_size)
     plens = {i: len(p) for i, p in enumerate(prompts)}
@@ -3328,9 +3380,9 @@ def phase_quant(k1, k2, card, ckpt_dir):
         outs, stats = gen.generate(prompts, QUANT_TOKENS, temperature=0.0, chunk_size=8)
         torch.cuda.synchronize()
         launches, plain = flash_attention.launches, flash_attention_plain.calls
-        if launches != 22 or plain:
-            fail("quant", f"generate --quantize {mode}: K2 launches {launches} (want 22), "
-                 f"plain version calls {plain} (want 0)")
+        if launches != QUANT_LAYERS or plain:
+            fail("quant", f"generate --quantize {mode}: K2 launches {launches} (want "
+                 f"{QUANT_LAYERS}), plain version calls {plain} (want 0)")
         for i, (p, o) in enumerate(zip(prompts, outs)):
             if len(o) - len(p) != QUANT_TOKENS or not all(0 <= t < cfg.padded_vocab_size for t in o[len(p):]):
                 fail("quant", f"generate --quantize {mode}: sample {i} did not get {QUANT_TOKENS} tokens")
@@ -3798,8 +3850,12 @@ def phase_moe_quant(k1, k2, card):
 MOE_TRAIN = dict(batch_size=1, block_size=2048, grad_acc_steps=1, learning_rate=1e-3,
                  warmup_iters=0, lr_decay_iters=100, min_lr=1e-4, eval_iters=1,
                  dtype="bfloat16", remat=True, use_flash=True, moe_aux_weight=0.01)
+MOE_TRAIN_LAYERS = 2  # Mixtral's layers in moe-train's steps
 # moe-train's counted dense steps, the ep phase's baseline in the same run
 MOE_TRAIN_DENSE = {}
+# the ep phase's Trainer runs by label ("ep 2 cf None": one process's ep 2
+# step at moe-train's shape, mesh-train-procs' baseline in the same run)
+EP_TRAIN_RUNS = {}
 
 
 def flash_bwd_case_ms(B, T, H, G, hs, card, phase="moe-train", causal=True):
@@ -3874,7 +3930,7 @@ def phase_moe_train(k3, k4, card):
     )
     from mdi_llm_tpu_torch.utils import data_loader
 
-    cfg = mixtral_config("moe-train", 2)
+    cfg = mixtral_config("moe-train", MOE_TRAIN_LAYERS)
     tc = TrainingConfig(**MOE_TRAIN)
     L, B, T = cfg.n_layer, tc.batch_size, tc.block_size
     n = cfg.estimate_params()
@@ -4142,6 +4198,7 @@ def phase_ep(k2, k3, k4, card):
     free()
     for r in results.values():
         r["over_dense"] = r["step_s_median"] / results["dense"]["step_s_median"]
+    EP_TRAIN_RUNS.update(results)
     print("ep: train " + json.dumps({
         "card": card, "model": MIXTRAL, "layers": L, "batch": B, "block": T,
         "dtype": tc.dtype, "remat": tc.remat, "use_flash": True, "runs": results}), flush=True)
@@ -4683,17 +4740,21 @@ def phase_pipeline_nodes(card):
             "starter_run_s": run_s}), flush=True)
 
 
-PP_SERVE_RUNS = ((2, [10, 12]), (4, [4, 6, 6, 6]))  # stages, the reference table's split of 22
+RING_SERVE_LAYERS = 12  # tiny-llama's layers in the pp, tp and pp x tp serves (22 before the
+# sp and ep runs over processes: each engine layout's preflight traces every layer)
+PP_SERVE_RUNS = ((2, [5, 7]), (4, [2, 3, 3, 4]))  # stages, `partition.stage_layers` of 12 (the
+# reference table's [5, 7] at S = 2)
 RING_SERVE_TOKENS = 16  # the pp, tp and pp x tp serves (64 before the doctor phase's cuts, 32
 # before the analysis phase's and the serve preflights')
-PP_SERVE_ARGV = SERVE_BASE + ["--synthetic", "16", "--n-tokens", str(RING_SERVE_TOKENS)]
+PP_SERVE_ARGV = SERVE_BASE + ["--override", f"n_layer={RING_SERVE_LAYERS}", "--synthetic", "16",
+                              "--n-tokens", str(RING_SERVE_TOKENS)]
 PP_SERVE_F32_LAYERS = 4
 
 
 def pp_served(phase, argv, S, split, tp=1):
     """The serve CLI on `argv` with `--pp S` (and `--tp tp`), K1's and the
     plain route's counts set to 0 just before and read just after.  Fails
-    unless the engine is the ring over `split` of 22 layers with tp ranks
+    unless the engine is the ring over `split` of `RING_SERVE_LAYERS` with tp ranks
     per stage, every request finished with its budget in the vocabulary,
     K1 launched exactly once per stage layer the engine ran and rank and
     the plain route never, and the steps were captured when the engine was
@@ -4709,10 +4770,10 @@ def pp_served(phase, argv, S, split, tp=1):
     launches, plain = k1_counts()
     merges = ragged_paged_attention.merge_launches
     if not isinstance(engine, PipelinedServingEngine) or engine._stage_counts != split \
-            or engine.gen.cfg.n_layer != 22 or engine._tp != tp:
+            or engine.gen.cfg.n_layer != RING_SERVE_LAYERS or engine._tp != tp:
         fail(phase, f"--pp {S} --tp {tp}: engine {type(engine).__name__} over "
              f"{engine.gen.cfg.n_layer} layers split {getattr(engine, '_stage_counts', None)} "
-             f"tp {getattr(engine, '_tp', None)}, want {split} of 22, tp {tp}")
+             f"tp {getattr(engine, '_tp', None)}, want {split} of {RING_SERVE_LAYERS}, tp {tp}")
     if launches != tp * engine.stage_layer_runs or plain or not launches:
         fail(phase, f"--pp {S} --tp {tp}: K1 launches {launches}, plain route {plain}: want "
              f"{tp} x {engine.stage_layer_runs} = the stage layers the ring ran, per rank")
@@ -4774,7 +4835,7 @@ def phase_pp_serve(k1, card):
                 "decode_chunk": K, "forward_calls": engine.forward_calls,
                 "host_syncs": line["host_syncs"], "k1_launches": launches,
                 "k1_merge_launches": merges, "stage_layer_runs": engine.stage_layer_runs,
-                "k1_launches_predicted": 22 * ((2 * S - 1) * line["mixed_steps"]
+                "k1_launches_predicted": RING_SERVE_LAYERS * ((2 * S - 1) * line["mixed_steps"]
                                                + (K * S + S) * chunks),
                 "graph_captures": line["graph_captures"], "graph_replays": line["graph_replays"],
                 "capture_s": line["capture_s"], "single_capture_s": single_line["capture_s"],
@@ -4828,7 +4889,7 @@ def _serve_trace(engine, trace):
 
 
 TP_SIZES = (2, 4)
-TP_SERVE_ARGV = SERVE_BASE + ["--synthetic", "16", "--n-tokens", str(RING_SERVE_TOKENS)]
+TP_SERVE_ARGV = PP_SERVE_ARGV
 TP_F32_LAYERS = 4
 TP_K1_CASES = ("decode", "mixed", "verify")
 
@@ -4887,9 +4948,9 @@ def phase_tp_kernels(record):
 def tp_served(phase, argv, tp):
     """The serve CLI on `argv` with `--tp tp`, K1's and the plain route's
     counts set to 0 just before and read just after.  Fails unless the
-    engine runs 22 layers over tp ranks on one card, every request
+    engine runs `RING_SERVE_LAYERS` over tp ranks on one card, every request
     finished with its budget in the vocabulary, K1 launched exactly tp x
-    22 per target forward and the plain route never, and the steps were
+    that per target forward and the plain route never, and the steps were
     captured when the engine was built and replayed in the run.  Returns
     (stats line, K1 launches, engine, results)."""
     from mdi_llm_tpu_torch.cli import serve as cli
@@ -4902,13 +4963,13 @@ def tp_served(phase, argv, tp):
     launches, plain = k1_counts()
     engine.k1_merge_launches = ragged_paged_attention.merge_launches
     gen = engine.gen
-    if gen.tp != tp or gen.cfg.n_layer != 22 or set(engine._kv) != set(range(tp)):
+    if gen.tp != tp or gen.cfg.n_layer != RING_SERVE_LAYERS or set(engine._kv) != set(range(tp)):
         fail(phase, f"--tp {tp}: Generator tp {gen.tp}, {gen.cfg.n_layer} layers, pool "
              f"ranks {sorted(engine._kv)}")
-    want = tp * 22 * engine.forward_calls
+    want = tp * RING_SERVE_LAYERS * engine.forward_calls
     if launches != want or plain or not launches:
         fail(phase, f"--tp {tp}: K1 launches {launches}, plain route {plain}: want {want} "
-             f"= {tp} ranks x 22 layers x {engine.forward_calls} forwards")
+             f"= {tp} ranks x {RING_SERVE_LAYERS} layers x {engine.forward_calls} forwards")
     graphs = engine.graph_stats()
     if graphs["captures"] != graphs["steps"] or not graphs["replays"]:
         fail(phase, f"--tp {tp}: steps {graphs['steps']}, captures {graphs['captures']}, "
@@ -4935,8 +4996,8 @@ def phase_tp_serve(k1, card):
 
     phase_tp_kernels(k1)
     # warm-up (CUDA context, cuBLAS handles), not counted
-    cli.serve(cli.build_parser().parse_args(SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8",
-                                                          "--tp", "2"]))
+    cli.serve(cli.build_parser().parse_args(TP_SERVE_ARGV + ["--synthetic", "2", "--n-tokens",
+                                                             "8", "--tp", "2"]))
     torch.cuda.synchronize()
     total = 0
     for kv, extra, sizes in (("bfloat16", [], TP_SIZES), ("int8", ["--kv-dtype", "int8"], (2,))):
@@ -5194,7 +5255,8 @@ def phase_tools(card, ckpt_dir):
 MESH_TRAIN_MESHES = ({"dp": 2}, {"tp": 2}, {"dp": 2, "tp": 2}, {"dp": 1, "pp": 2},
                      {"dp": 1, "pp": 2, "tp": 2})
 MESH_F32_LAYERS = 2  # 4 before PR 18's cuts of the whole run's time
-MESH_TRAIN_LAYERS = 11  # the bf16 steps (22 before those cuts)
+MESH_TRAIN_LAYERS = 6  # the bf16 steps (22, then 11, before the cuts for the run's time; 6
+# since the sp and ep runs over processes)
 MESH_PROCS_DP_LAYERS = 4  # tiny-llama cut for dp 2 over two processes in bf16 (11 before
 # PR 18's cuts of the whole run's time: the gloo gradient all-reduce is the step)
 MESH_PROCS_PP_LAYERS = 6  # and for the GPipe stages over them (22 before PR 18's cuts)
@@ -5207,6 +5269,9 @@ MESH_PROCS_PP_LAYERS = 6  # and for the GPipe stages over them (22 before PR 18'
 MESH_F32 = dict(TRAIN, batch_size=2, grad_acc_steps=1, dtype="float32", use_flash=True,
                 grad_clip=0.05, learning_rate=1e-4)
 MESH_PARAM_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_training.py's mesh tolerance
+SP_PROCS_TRAIN_LAYERS = 4  # tiny-llama-1.1b's layers in the sp Trainer over two processes
+PROCS_BF16_STEPS = 2  # the bf16 sp and ep runs over two processes (the first a warm-up)
+PROCS_F32_STEPS = 2  # the float32 sp and ep runs over two processes, checked in the pair
 
 
 def mesh_params_close(phase, label, got, want) -> float:
@@ -5387,74 +5452,126 @@ def grad_diff(got, want) -> dict:
     return {"max_abs_diff": worst, "max_rel_to_leaf_max": rel}
 
 
-def train_report(argv) -> dict:
+def train_report(argv, keep=None) -> dict:
     """`cli.train argv` in this process, its Trainer reported: step
     seconds, the gradient all-reduce's seconds (`Trainer.grad_sync_s`),
-    the dp group's calls and bytes, layer runs, K2-K4 launches and peak
-    memory.  The checkpoint is not written (what a job writes is held on
-    the CPU)."""
+    the dp, pp, sp and ep groups' calls and bytes (and host seconds),
+    layer runs, K2-K4 launches and peak memory.  The checkpoint is not
+    written (what a job writes is held on the CPU).  With `keep` (a dict),
+    where the CLI would save, the whole tree's first-step gradients (before
+    the clip) and its parameters in the standard layout go into `keep`
+    ("grads", "params": leaf lists, on `keep.get("device")`, default the
+    card) on process 0 of a job, or in one process."""
     from unittest import mock
 
     import torch
 
     from mdi_llm_tpu_torch import training
     from mdi_llm_tpu_torch.cli import train as train_cli
+    from mdi_llm_tpu_torch.models import transformer
 
     steps = []
     step = training.Trainer.train_step
 
     def timed(self, xs, ys):
+        if keep is not None and not hasattr(self, "_first_grads"):
+            self._first_grads = first_step_grads(self)
         t0 = time.perf_counter()
         loss = step(self, xs, ys)  # a host float: synchronized
         steps.append(time.perf_counter() - t0)
         return loss
 
+    def saved(self, out_dir):
+        if keep is not None:  # collective: every process gathers
+            grads = self._whole(self._first_grads[0], torch.float32)
+            params = self._whole(transformer.tree_leaves(self.params))
+            if self.mesh is None or self.mesh.process_id == 0:
+                to = keep.get("device", "cuda")
+                keep.update(grads=[g.to(to) for g in grads],
+                            params=[x.detach().to(to) for x in params])
+        return out_dir
+
     reset_flash_counts()
     torch.cuda.reset_peak_memory_stats()
     with mock.patch.object(training.Trainer, "train_step", timed), \
-            mock.patch.object(training.Trainer, "save", lambda self, out_dir: out_dir):
+            mock.patch.object(training.Trainer, "save", saved):
         _, tr = train_cli.main(argv)
-    g = tr.layout.dp_group if tr.layout is not None else None
-    pp = tr.layout.pp_group if tr.layout is not None else None
+    lay = tr.layout
     rec = {"step_s": steps, "layer_runs": tr.layer_runs, **flash_counts(),
-           "grad_allreduce_s": tr.grad_sync_s, "dp_group_calls": g.calls if g else None,
-           "dp_group_bytes": g.bytes if g else None,
-           "pp_group_calls": pp.calls if pp else None,
-           "pp_group_bytes": pp.bytes if pp else None,
-           "pp_group_s": pp.seconds if pp else None,
-           "stages": list(tr.layout.stages) if tr.layout is not None else None,
+           "grad_allreduce_s": tr.grad_sync_s,
+           "stages": list(lay.stages) if lay is not None else None,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    for kind in ("dp", "pp", "sp", "ep"):
+        g = getattr(lay, f"{kind}_group") if lay is not None else None
+        rec.update({f"{kind}_group_calls": g.calls if g else None,
+                    f"{kind}_group_bytes": g.bytes if g else None,
+                    f"{kind}_group_s": g.seconds if g else None})
     del tr
     free()
     return rec
 
 
+def kept_close(got, want) -> dict:
+    """How far `train_report`'s kept gradients and parameters `got` lie
+    from `want`'s, leaf by leaf on the card: per kind, the largest |diff|
+    and how many elements lie outside `MESH_PARAM_TOL`."""
+    out = {}
+    rtol, atol = MESH_PARAM_TOL["rtol"], MESH_PARAM_TOL["atol"]
+    for key in ("grads", "params"):
+        worst, bad = 0.0, 0
+        if len(got[key]) != len(want[key]):
+            return {key: {"leaves": (len(got[key]), len(want[key]))}}
+        for a, b in zip(got[key], want[key]):
+            b = b.float().cuda()
+            d = (a.float().cuda() - b).abs()
+            worst = max(worst, d.max().item())
+            bad += int((d > atol + rtol * b.abs()).sum().item())
+        out[key] = {"max_abs_diff": worst, "outside_tol": bad}
+    return out
+
+
 # one process of a job per `cli.train` run, in one interpreter, reporting
-# each run's stdout and `train_report` record as `train_report` gives them
+# each run's stdout and `train_report` record as `train_report` gives them;
+# a run {"argv": ..., "check": argv} keeps its gradients and parameters,
+# and its process 0 then runs `check` alone (the run in one process) and
+# adds how far they lie from that run's (`kept_close`) and its report
 MESH_PROCS_ENTRY = (
     "import contextlib, io, json, sys\n"
     "import chip_smoke\n"
     "job = json.loads(sys.argv[1])\n"
-    "for argv in job['runs']:\n"
-    "    out = io.StringIO()\n"
+    "me = job['process_id']\n"
+    "for run in job['runs']:\n"
+    "    argv, check = (run, None) if isinstance(run, list) else (run['argv'], run['check'])\n"
+    "    out, kept = io.StringIO(), ({} if check else None)\n"
     "    with contextlib.redirect_stdout(out):\n"
-    "        rec = chip_smoke.train_report(argv + ['--process-id', str(job['process_id'])])\n"
+    "        rec = chip_smoke.train_report(argv + ['--process-id', str(me)], kept)\n"
+    "    if check and me == 0:\n"
+    "        one, ref = io.StringIO(), {}\n"
+    "        with contextlib.redirect_stdout(one):\n"
+    "            rec['one_process'] = [None, chip_smoke.train_report(check, ref)]\n"
+    "        rec['one_process'][0] = one.getvalue()\n"
+    "        rec['check'] = chip_smoke.kept_close(kept, ref)\n"
+    "        del kept, ref\n"
+    "        chip_smoke.free()\n"
     "    print('MESH-PROCS ' + json.dumps([out.getvalue(), rec]), file=sys.stderr, flush=True)\n"
 )
 
 
 def mesh_jobs(phase, runs, n=2, timeout=600):
-    """Each `cli.train` argv of `runs` as processes 0..n-1 of one job on a
-    free localhost port, the runs in turn inside the same n processes
-    (through `MESH_PROCS_ENTRY`), each process under its own time limit;
-    returns, per run, [(stdout, the `train_report` record)] in process
-    order."""
+    """Each `cli.train` argv of `runs` (or {"argv", "check"}: the entry's
+    check against one process) as processes 0..n-1 of one job on a free
+    localhost port, the runs in turn inside the same n processes (through
+    `MESH_PROCS_ENTRY`), each process under its own time limit; returns,
+    per run, [(stdout, the `train_report` record)] in process order."""
     import os
 
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root))
-    runs = [argv + ["--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", str(n)]
-            for argv in runs]
+    def joined(argv):
+        return argv + ["--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", str(n)]
+
+    runs = [joined(r) if isinstance(r, list) else dict(r, argv=joined(r["argv"]))
+            for r in runs]
     procs = [subprocess.Popen(
         [sys.executable, "-c", MESH_PROCS_ENTRY, json.dumps({"process_id": i, "runs": runs})],
         cwd=str(root), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -5493,7 +5610,7 @@ def mesh_one(argv):
     return out.getvalue(), rec
 
 
-def phase_mesh_train_procs(card):
+def phase_mesh_train_procs(k2, k3, k4, card):
     """The train CLI over two processes sharing the card (the module
     docstring, phase 30): every run of the phase in one pair of
     processes, after the one-process runs they are held against."""
@@ -5529,8 +5646,22 @@ def phase_mesh_train_procs(card):
             bf16[m] += ["--override", f"n_layer={MESH_PROCS_PP_LAYERS}"]
         order = [(m, part) for m in meshes for part in (f32, bf16)]
         ones = {(m, id(part)): mesh_one(part[m]) for m, part in order}
-        jobs = dict(zip(((m, id(part)) for m, part in order),
-                        mesh_jobs("mesh-train-procs", [part[m] for m, part in order])))
+        # sp and ep over the two processes (`train_procs_runs`): the bf16
+        # runs beside one process's, the float32 ones checked in the pair
+        new_bf16, new_f32 = train_procs_runs(base)
+        new_ones = {label: (("", dict(EP_TRAIN_RUNS["ep 2 cf None"], measured_in="ep"))
+                            if "ep" in label and "ep 2 cf None" in EP_TRAIN_RUNS
+                            else mesh_one(argv))
+                    for label, (argv, _) in new_bf16.items()}
+        all_jobs = mesh_jobs(
+            "mesh-train-procs", [part[m] for m, part in order]
+            + [argv for argv, _ in new_bf16.values()]
+            + [{"argv": argv, "check": argv} for argv, _ in new_f32.values()], timeout=900)
+        jobs = dict(zip(((m, id(part)) for m, part in order), all_jobs))
+        for kernel, key in ((k2, "K2"), (k3, "K3"), (k4, "K4")):
+            kernel.setdefault("paths", {})["mesh-train-procs"] = sum(
+                rec[key] for job in all_jobs for _, rec in job)
+        new_jobs = all_jobs[len(order):]
 
         for mesh in meshes:
             tp = 2 if "tp" in mesh else 1
@@ -5580,9 +5711,100 @@ def phase_mesh_train_procs(card):
                 "one_process": {**{k: one[k] for k in one_keys}, "losses": loss_lines(one_out)},
                 "two_processes": [{k: rec[k] for k in two_keys} for _, rec in job]}),
                 flush=True)
+        train_procs_checked(new_bf16, new_f32, new_ones, new_jobs, loss_lines, card)
+
+
+def train_procs_runs(base):
+    """The mesh-train-procs phase's sp and ep runs over two processes, one
+    rank each: ({label: (`cli.train` argv, layer runs each process makes)}
+    in bf16, the same in float32).  sp 2 through K2-K4 at tiny-llama-1.1b's
+    full width, 4 layers, B=1, T=8192 (each process's rank runs P of the
+    ring's P^2 blocks a layer); ep 2 at moe-train's shape (Mixtral's
+    widths, 2 layers, B=1, T=2048: each process holds 4 of the 8 experts
+    and runs the layers once over the batch).  float32: sp 2 at 4 layers
+    and T=2048, ep 2 at 1 layer (its float32 AdamW state of a Mixtral
+    layer is 34 GB in one process), `PROCS_F32_STEPS` steps, clipping
+    engaged, learning rate 1e-4 (`MESH_F32`'s reason)."""
+    one = ["--batch-size", "1", "--grad-acc-steps", "1"]
+    sp = base + one + ["--mesh", "sp=2", "--override", f"n_layer={SP_PROCS_TRAIN_LAYERS}"]
+    ep = base + one + ["--model", MIXTRAL, "--mesh", "dp=1,ep=2", "--block-size",
+                       str(MOE_TRAIN["block_size"])]
+    f32 = ["--dtype", "float32", "--grad-clip", "0.05", "--learning-rate", "1e-4",
+           "--max-iters", str(PROCS_F32_STEPS)]
+    steps = ["--max-iters", str(PROCS_BF16_STEPS)]
+    bf16 = {"sp=2": (sp + steps + ["--dtype", "bfloat16", "--block-size", "8192"],
+                     PROCS_BF16_STEPS * SP_PROCS_TRAIN_LAYERS * 2),
+            "dp=1,ep=2": (ep + steps + ["--dtype", "bfloat16", "--override",
+                                        f"n_layer={MOE_TRAIN_LAYERS}"],
+                          PROCS_BF16_STEPS * MOE_TRAIN_LAYERS)}
+    f32s = {"sp=2": (sp + f32 + ["--block-size", "2048"],
+                     PROCS_F32_STEPS * SP_PROCS_TRAIN_LAYERS * 2),
+            "dp=1,ep=2": (ep + f32 + ["--override", "n_layer=1"], PROCS_F32_STEPS)}
+    return bf16, f32s
+
+
+def train_procs_checked(bf16, f32, ones, jobs, loss_lines, card) -> None:
+    """The sp and ep runs of `train_procs_runs` over two processes (`jobs`
+    in that order: the bf16 runs, then the float32 ones) against one
+    process's: in bf16 each process's layer runs, K2 twice a run (remat),
+    K3 and K4 once, finite losses, process 1 printing none, the step
+    seconds beside one process's (`ones`); in float32 the loss lines
+    within 1e-5 (relative) of the same run in one process, its first-step
+    gradients and its parameters after its steps within `MESH_PARAM_TOL`
+    (`kept_close`, on process 0).  One process's ep 2 bf16 step is the ep
+    phase's (`EP_TRAIN_RUNS`) when that phase ran in this call."""
+    keys = ("step_s", "layer_runs", "K2", "K3", "K4", "sp_group_calls", "sp_group_bytes",
+            "sp_group_s", "ep_group_calls", "ep_group_bytes", "ep_group_s", "dp_group_calls",
+            "dp_group_bytes", "grad_allreduce_s", "peak_memory_gib")
+    for (mesh, (argv, runs)), job in zip(bf16.items(), jobs):
+        for i, (out, rec) in enumerate(job):
+            if (rec["layer_runs"], rec["K2"], rec["K3"], rec["K4"]) != (runs, 2 * runs, runs,
+                                                                         runs):
+                fail("mesh-train-procs", f"bf16 {mesh} process {i}: layer runs "
+                     f"{rec['layer_runs']} (want {runs}), launches {rec['K2']}/{rec['K3']}/"
+                     f"{rec['K4']}")
+        losses = loss_lines(job[0][0])
+        if len(losses) != PROCS_BF16_STEPS or not all(v == v and abs(v) < 1e9 for v in losses) \
+                or loss_lines(job[1][0]):
+            fail("mesh-train-procs", f"bf16 {mesh}: loss lines {losses} (process 1 printed "
+                 f"{loss_lines(job[1][0])})")
+        one_out, one = ones[mesh]
+        one = {"losses": loss_lines(one_out), **{k: one.get(k) for k in keys + ("measured_in",)}}
+        print("mesh-train-procs: " + json.dumps({
+            "card": card, "mesh": mesh, "argv": " ".join(argv), "dtype": "bfloat16",
+            "losses": losses, "one_process": one,
+            "two_processes": [{k: rec[k] for k in keys} for _, rec in job],
+            # the steps past each run's first (one process's steps in the ep
+            # phase follow a warm-up)
+            "step_over_one": statistics.median(job[0][1]["step_s"][1:])
+            / statistics.median(one["step_s"][1:])}), flush=True)
+    for (mesh, (argv, runs)), job in zip(f32.items(), jobs[len(bf16):]):
+        (out0, rec0), (out1, rec1) = job
+        one_out, one = rec0["one_process"]
+        got, want = loss_lines(out0), loss_lines(one_out)
+        rel = max((abs(g - w) / abs(w) for g, w in zip(got, want)), default=float("inf"))
+        check = rec0["check"]
+        bad = [k for k in ("grads", "params") if check.get(k, {}).get("outside_tol") != 0]
+        if len(got) != PROCS_F32_STEPS or len(want) != PROCS_F32_STEPS or loss_lines(out1) \
+                or not rel <= 1e-5 or bad:
+            fail("mesh-train-procs", f"float32 {mesh}: loss lines {got} over two processes "
+                 f"against one process's {want} (rel {rel}); gradients and parameters "
+                 f"{check}")
+        for i, rec in enumerate((rec0, rec1)):
+            if (rec["layer_runs"], rec["K2"], rec["K3"], rec["K4"]) != (runs, 2 * runs, runs,
+                                                                         runs):
+                fail("mesh-train-procs", f"float32 {mesh} process {i}: layer runs "
+                     f"{rec['layer_runs']} (want {runs}), launches {rec['K2']}/{rec['K3']}/"
+                     f"{rec['K4']}")
+        print("mesh-train-procs: " + json.dumps({
+            "card": card, "mesh": mesh, "argv": " ".join(argv), "dtype": "float32",
+            "losses": got, "one_process_losses": want, "loss_rel": rel,
+            "first_step_grads_and_params": check, "tolerance": MESH_PARAM_TOL,
+            "step_s": rec0["step_s"], "one_process_step_s": one["step_s"]}), flush=True)
 
 
 PP_TP = (2, [10, 12], 2)  # stages, the reference table's split of 22, tp ranks per stage
+PP_TP_SERVE = (2, [5, 7], 2)  # pp-tp-serve's: the split of its `RING_SERVE_LAYERS`
 
 
 def phase_pp_tp_serve(k1, card):
@@ -5593,7 +5815,7 @@ def phase_pp_tp_serve(k1, card):
     from mdi_llm_tpu_torch.generation import Generator
     from mdi_llm_tpu_torch.parallel.mesh import pipeline_mesh
 
-    S, split, tp = PP_TP
+    S, split, tp = PP_TP_SERVE
     total = 0
     for kv, extra in (("bfloat16", []), ("int8", ["--kv-dtype", "int8"])):
         argv = PP_SERVE_ARGV + extra
@@ -5801,10 +6023,11 @@ INFER_PROCS_ENTRY = (
 def sample_report(argv, long=False) -> dict:
     """`cli.sample argv` (its `run`) in this process, K2's counts set to 0
     just before and read just after; with `long` its prompts are the
-    generate phase's four long prompts instead of the CLI's 8-token draws.
-    Returns the streams, stats, K2 launches and plain calls, and the tp
-    group's collective calls, bytes and host seconds (None in one
-    process)."""
+    generate phase's four long prompts (or, `long` a pair [lengths,
+    seed], `long_prompts` of those) instead of the CLI's 8-token draws.
+    Returns the streams, stats, K2 launches and plain calls, the peak
+    memory, and the processes' group's collective calls, bytes and host
+    seconds (None in one process)."""
     import contextlib
     from unittest import mock
 
@@ -5815,17 +6038,22 @@ def sample_report(argv, long=False) -> dict:
     args = sample_cli.build_parser().parse_args(argv)
     patch = contextlib.nullcontext()
     if long:
+        lens, seed = (INFER_LENS, 10137) if long is True else long
         patch = mock.patch.object(sample_cli, "prompt_ids_for", lambda a, cfg, t, st: (
-            long_prompts(INFER_LENS, cfg.vocab_size), ()))
+            long_prompts(lens, cfg.vocab_size, seed), ()))
     sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
     sync()
     reset_flash_counts()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
     with patch:
         prompt_ids, outs, stats, gen, _tok, seconds = sample_cli.run(args)
     sync()
     counts = flash_counts()
     g = gen._group
     rec = {"prompt_lens": [len(p) for p in prompt_ids], "outs": outs, "seconds": seconds,
+           "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2**30
+                               if torch.cuda.is_available() else None),
            "tokens_per_s": stats.tokens_per_s, "decode_s": stats.decode_s,
            "prefill_s": stats.prefill_s, "captures": stats.captures,
            "capture_s": stats.capture_s, "tokens_generated": stats.tokens_generated,
@@ -5899,12 +6127,18 @@ def phase_inference_procs(k2, card):
     # (a) cli.sample --coordinator --tp-devices 2: float32 greedy and
     # sampled at 4 layers, bf16 greedy at 22 layers on the long prompts;
     # then (b)'s job in the same two processes
+    # (c) sp and ep over the two processes, one rank each, in the same two
+    # processes: `procs_runs`'s bf16 runs (K2 in each process's ring
+    # prefill) and float32 runs held to one process's streams
+    new_runs = procs_runs()
     with node_tmp:
         p0, p1 = sample_pair("inference-procs", [
             {"argv": INFER_F32 + tp2 + ["--greedy"], "long": False},
             {"argv": INFER_F32 + tp2 + sampled, "long": False},
             {"argv": INFER_BF16 + tp2, "long": True},
-            {"argv": node_base, "node": str(node_cfg)}])
+            {"argv": node_base, "node": str(node_cfg)}]
+            + [{"argv": argv, "long": long} for argv, long, _ in new_runs.values()],
+            timeout=600)
     one = sample_report(INFER_F32 + tp2 + ["--greedy"])
     cfg4 = Config.from_name(TINY_LLAMA, n_layer=TP_F32_LAYERS)
     params4 = transformer.init_params(cfg4, 10137, dtype=torch.float32, device=DEVICE)
@@ -5932,7 +6166,8 @@ def phase_inference_procs(k2, card):
     # printed, not gated: the same sums in the same order, but the one
     # process's decode replays captured graphs
     n_div = sum(a != b for a, b in zip(p0[2]["outs"], single["outs"]))
-    k2.setdefault("paths", {})["inference-procs"] = p0[2]["K2"] + p1[2]["K2"]
+    k2.setdefault("paths", {})["inference-procs"] = p0[2]["K2"] + p1[2]["K2"] + sum(
+        r["K2"] for recs in (p0, p1) for r in recs[4:])
 
     def row(r):
         return {k: r[k] for k in ("tokens_per_s", "decode_s", "prefill_s", "captures",
@@ -5974,8 +6209,131 @@ def phase_inference_procs(k2, card):
         "secondary_ring": lines[1]}), flush=True)
     del gen4, params4
     free()
+    procs_runs_checked(new_runs, p0[4:], p1[4:], card)
 
 
+def procs_runs() -> dict:
+    """{label: (`cli.sample` argv, its prompts for `sample_report`, K2
+    launches each process must make)} of the inference-procs phase's sp
+    and ep runs over two processes: sp 2 through K2 (`--sp-flash`) at
+    Llama-3-8B's widths on the sp phase's two prompts (local chunks of
+    4096: each process launches K2 for its rank's two blocks a layer),
+    ep 2 at Mixtral's widths on the CLI's four 8-token prompts (each
+    process holds 4 of the 8 experts; the prefill stays on the dense
+    route), and float32 runs of both at fewer layers, ep also at a
+    capacity factor that drops assignments."""
+    sp = ["--model", SP_MODEL, "--seed", "10137", "--sequence-length",
+          str(SP_WIDTHS["block_size"]), "--greedy", "--device", DEVICE, "--sp-devices", "2",
+          "--sp-flash"]
+    ep = ["--model", MIXTRAL, "--seed", "10137", "--sequence-length", "2048", "--greedy",
+          "--device", DEVICE, "--ep-devices", "2", "--n-samples", "4", "--n-tokens",
+          str(EP_PROCS_TOKENS)]
+    sp_prompts = [list(SP_PROMPTS), 34]
+    return {
+        "sp-bf16": (sp + ["--override", f"n_layer={SP_LAYERS}", "--dtype", "bfloat16",
+                          "--n-tokens", str(SP_TOKENS)], sp_prompts, 2 * SP_LAYERS),
+        "sp-f32": (sp + ["--override", f"n_layer={SP_F32_LAYERS}", "--dtype", "float32",
+                         "--n-tokens", "16"], sp_prompts, 2 * SP_F32_LAYERS),
+        "ep-bf16": (ep + ["--override", f"n_layer={EP_PROCS_LAYERS}", "--dtype", "bfloat16"],
+                    False, 0),
+        "ep-f32": (ep + ["--override", f"n_layer={EP_PROCS_F32_LAYERS}", "--dtype",
+                         "float32"], False, 0),
+        "ep-f32-drop": (ep + ["--override", f"n_layer={EP_PROCS_F32_LAYERS}", "--dtype",
+                              "float32", "--moe-capacity-factor", "0.5"], False, 0),
+    }
+
+
+class CliModel:
+    """The `cfg` and `params` that a `cli.sample` argv loads (its `--model`
+    drawn from `--seed`), loaded at first use: the gap checks of
+    `divergence_ok` and `sp_divergences` need them only where two streams
+    part."""
+
+    def __init__(self, argv):
+        self.argv, self._loaded = argv, None
+
+    def _load(self):
+        if self._loaded is None:
+            from mdi_llm_tpu_torch.cli import sample as sample_cli
+            from mdi_llm_tpu_torch.cli._common import load_model
+
+            cfg, params, _, _ = load_model(sample_cli.build_parser().parse_args(self.argv))
+            self._loaded = (cfg, params)
+        return self._loaded
+
+    cfg = property(lambda self: self._load()[0])
+    params = property(lambda self: self._load()[1])
+
+
+def procs_runs_checked(runs, recs0, recs1, card) -> None:
+    """The inference-procs phase's sp and ep runs over two processes
+    (`procs_runs`, records in its order): both processes print the same
+    streams, every sample gets its tokens in the vocabulary, each process
+    launches K2 as planned and its plain version never; then each is held
+    against the same run in one process (`procs_run_report`).  The sp
+    runs' one-process runs are the sp phase's sp 2 K2 rings on the same
+    weights and prompts when that phase runs in this call (they are kept
+    in `PROCS_SP` for it); else they run here."""
+    from mdi_llm_tpu_torch.config import Config
+
+    for (label, (argv, long, k2_want)), r0, r1 in zip(runs.items(), recs0, recs1):
+        if r0["outs"] != r1["outs"]:
+            fail("inference-procs", f"{label}: the two processes printed different streams")
+        n_new = int(argv[argv.index("--n-tokens") + 1])
+        vocab = Config.from_name(argv[argv.index("--model") + 1]).padded_vocab_size
+        for i, r in enumerate((r0, r1)):
+            if r["K2"] != k2_want or r["plain"]:
+                fail("inference-procs", f"{label} process {i}: K2 launches {r['K2']} (want "
+                     f"{k2_want}), plain calls {r['plain']}")
+            ring_budget_ok("inference-procs", f"{label} process {i}", r["outs"],
+                           [o[:n] for o, n in zip(r["outs"], r["prompt_lens"])], n_new, vocab)
+        if label.startswith("sp") and "sp" in RUN_PHASES:
+            PROCS_SP[label] = (argv, r0, r1)
+            continue
+        procs_run_report("inference-procs", label, argv, r0, r1, sample_report(argv, long),
+                         CliModel(argv), card)
+        free()
+
+
+def procs_run_report(phase, label, argv, r0, r1, one, model, card) -> None:
+    """One sp or ep run over two processes (records `r0`, `r1`) against the
+    same run in one process (`one`, a `sample_report`-like record): float32
+    streams are one process's (`divergence_ok`), bf16 divergences are
+    printed with their gaps (`sp_divergences`); prints the seconds beside
+    one process's, the collectives' calls, bytes and host seconds, K2
+    launches and each process's peak memory."""
+    got, want = dict(enumerate(r0["outs"])), dict(enumerate(one["outs"]))
+    if "f32" in label:
+        divergence_ok(phase, model, got, want, f"{label} over 2 processes vs one process")
+        n_div = sum(got[i] != want[i] for i in want)
+    else:
+        n_div = sp_divergences(phase, model, got, want,
+                               f"{label} over 2 processes vs one process")
+
+    def row(r):
+        return {k: r.get(k) for k in ("seconds", "prefill_s", "decode_s", "tokens_per_s", "K2",
+                                      "collective_calls", "collective_bytes", "collective_s",
+                                      "peak_memory_gib")}
+
+    print(f"{phase}: " + json.dumps({
+        "card": card, "run": label, "argv": " ".join(argv),
+        "prompt_lens": r0["prompt_lens"], "two_processes": [row(r0), row(r1)],
+        "one_process": {**row(one), "measured_in": one.get("measured_in", phase)},
+        "seconds_over_one": r0["seconds"] / one["seconds"],
+        "streams_differing_from_one_process": n_div}), flush=True)
+
+
+# the inference-procs phase's sp runs over two processes ({label: (argv,
+# process 0's record, process 1's)}), held in the sp phase against its own
+# sp 2 rings on the same weights and prompts
+PROCS_SP = {}
+RUN_PHASES = set()  # the phases of this call (`main`)
+
+
+EP_PROCS_LAYERS = 4  # Mixtral's layers in the bf16 ep run over two processes
+EP_PROCS_F32_LAYERS = 1  # and in its float32 runs: each process draws the whole float32
+# tree before it keeps its experts (6 GB a layer), two processes at once
+EP_PROCS_TOKENS = 16  # new tokens of the ep runs over two processes
 SP_MODEL = "Llama-3-8B"
 SP_WIDTHS = dict(n_embd=4096, n_head=32, n_query_groups=8, head_size=128, block_size=8192)
 SP_LAYERS = 8  # of Llama-3-8B's 32, for the whole run's time (PERF.md §6 lists the cuts)
@@ -6220,8 +6578,10 @@ def phase_sp(k2, k3, k4, card):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         flash_attention.launches = flash_attention_plain.calls = 0
+        t0 = time.perf_counter()
         outs, stats = sp.generate(prompts, new, temperature=0.0)
         torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
         launches = flash_attention.launches
         expect = P * P * cfg.n_layer if use_flash else 0
         if launches != expect or flash_attention_plain.calls:
@@ -6242,6 +6602,14 @@ def phase_sp(k2, k3, k4, card):
             "k2_launches": launches, "kv_bytes_per_rank": sp.kv_bytes(len(prompts), C),
             "single_kv_bytes": single_kv, "bf16_divergences": n_div,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
+        if (P, use_flash, fml) == (2, True, 2048) and "sp-bf16" in PROCS_SP:
+            # the inference-procs phase's sp 2 ring over two processes
+            argv, r0, r1 = PROCS_SP["sp-bf16"]
+            procs_run_report("sp", "sp-bf16", argv, r0, r1, {
+                "outs": outs, "seconds": seconds, "prefill_s": stats.prefill_s,
+                "decode_s": stats.decode_s, "tokens_per_s": stats.tokens_per_s,
+                "K2": launches, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "measured_in": "sp"}, single, card)
         del sp
         free()
     k2.setdefault("paths", {})["sp"] = total
@@ -6259,7 +6627,16 @@ def phase_sp(k2, k3, k4, card):
             sp = SPGenerator(cfg, params, n_devices=P, devices=["cuda"],
                              max_seq_length=cfg.block_size, use_flash=use_flash,
                              flash_min_len=1024)
-            got, _ = sp.generate(prompts, 16, temperature=0.0)
+            t0 = time.perf_counter()
+            got, stats = sp.generate(prompts, 16, temperature=0.0)
+            seconds = time.perf_counter() - t0
+            if (P, use_flash) == (2, True) and "sp-f32" in PROCS_SP:
+                # the inference-procs phase's float32 sp 2 ring over two processes
+                argv, r0, r1 = PROCS_SP["sp-f32"]
+                procs_run_report("sp", "sp-f32", argv, r0, r1, {
+                    "outs": got, "seconds": seconds, "prefill_s": stats.prefill_s,
+                    "decode_s": stats.decode_s, "tokens_per_s": stats.tokens_per_s,
+                    "measured_in": "sp"}, single, card)
             got = dict(enumerate(got))
             divergence_ok("sp", single, got, want, f"float32 sp {P} use_flash={use_flash}")
             print(f"sp: float32 {SP_F32_LAYERS} layers, sp {P} use_flash={use_flash}: "
@@ -6464,22 +6841,59 @@ def phase_preflight(card):
 
 
 DOCTOR_TIMEOUT_S = 900
+DOCTOR_STARTS_BEFORE = "mesh-train-procs"  # the doctor runs beside this phase and the next
+DOCTOR = {}  # the doctor's process, its output files and start time (`doctor_start`)
 
 
-def phase_doctor(card):
-    """The doctor's full staged triage (the module docstring, phase 38)."""
+def doctor_start() -> None:
+    """Start `python -m mdi_llm_tpu_torch.cli.doctor` in the background (its
+    stages run one after another in fresh interpreters, host-bound: the
+    phases beside it are the host-paced two-process ones); `phase_doctor`
+    waits for it.  `main` stops it if the run ends first."""
     import os
 
     root = Path(__file__).resolve().parent
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "mdi_llm_tpu_torch.cli.doctor"],
-                          cwd=str(root), env=dict(os.environ, PYTHONPATH=str(root)),
-                          capture_output=True, text=True, timeout=DOCTOR_TIMEOUT_S)
-    wall = time.perf_counter() - t0
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    DOCTOR.update(proc=subprocess.Popen(
+        [sys.executable, "-m", "mdi_llm_tpu_torch.cli.doctor"], cwd=str(root),
+        env=dict(os.environ, PYTHONPATH=str(root)), stdout=out, stderr=err, text=True,
+        start_new_session=True), out=out, err=err, t0=time.perf_counter())
+
+
+def doctor_stop() -> None:
+    """Kill the doctor and the stage it runs (its own process group)."""
+    import os
+    import signal
+
+    proc = DOCTOR.get("proc")
+    if proc is not None and proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def phase_doctor(card):
+    """The doctor's full staged triage (the module docstring, phase 38),
+    started by `doctor_start` beside the earlier phases when they ran in
+    this call."""
+    if not DOCTOR:
+        doctor_start()
+    proc = DOCTOR["proc"]
     try:
-        snap = json.loads(proc.stdout.strip().splitlines()[-1])
+        proc.wait(timeout=max(1.0, DOCTOR_TIMEOUT_S - (time.perf_counter() - DOCTOR["t0"])))
+    except subprocess.TimeoutExpired:
+        doctor_stop()
+        fail("doctor", f"the doctor ran past {DOCTOR_TIMEOUT_S} s")
+    wall = time.perf_counter() - DOCTOR["t0"]
+    DOCTOR["out"].seek(0)
+    DOCTOR["err"].seek(0)
+    stdout, stderr = DOCTOR["out"].read(), DOCTOR["err"].read()
+    try:
+        snap = json.loads(stdout.strip().splitlines()[-1])
     except (IndexError, json.JSONDecodeError):
-        fail("doctor", f"exit {proc.returncode}, no snapshot\n{proc.stderr[-3000:]}")
+        fail("doctor", f"exit {proc.returncode}, no snapshot\n{stderr[-3000:]}")
     for r in snap["stages"]:
         print(f"doctor: {r['name']} {r['status']} {r['elapsed_s']:.2f} s "
               f"{json.dumps(r['detail'])}" + (f" error: {r['error']}" if r["error"] else ""),
@@ -6488,7 +6902,7 @@ def phase_doctor(card):
     if proc.returncode or not snap["ok"] or status.get("kernels") != "ok" \
             or any(v not in ("ok", "skipped") for v in status.values()):
         fail("doctor", f"exit {proc.returncode}, stages {status}")
-    print(f"doctor: {card}: {len(status)} stages in {wall:.1f} s, "
+    print(f"doctor: {card}: {len(status)} stages in {wall:.1f} s from its start, "
           f"{sum(v == 'ok' for v in status.values())} ok, "
           f"{sum(v == 'skipped' for v in status.values())} skipped", flush=True)
 
@@ -6518,6 +6932,7 @@ def main(argv=None) -> None:
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phases to run (default: all)")
     only = set(ap.parse_args(argv).only.split(","))
+    RUN_PHASES.update(only)
     if not only <= set(PHASES):
         fail("args", f"unknown phases {sorted(only - set(PHASES))}")
     if not torch.cuda.is_available():
@@ -6606,7 +7021,7 @@ def main(argv=None) -> None:
         "tp-generate": lambda: phase_tp_generate(k2, card),
         "tools": lambda: phase_tools(card, ckpt_dir),
         "mesh-train": lambda: phase_mesh_train(k2, k3, k4, card),
-        "mesh-train-procs": lambda: phase_mesh_train_procs(card),
+        "mesh-train-procs": lambda: phase_mesh_train_procs(k2, k3, k4, card),
         "pp-tp-serve": lambda: phase_pp_tp_serve(k1, card),
         "pipeline-tp": lambda: phase_pipeline_tp(card),
         "inference-procs": lambda: phase_inference_procs(k2, card),
@@ -6617,21 +7032,28 @@ def main(argv=None) -> None:
     }
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = Path(tmp) / TINY_LLAMA
-        for phase in PHASES:
-            if phase in only:
-                t = time.perf_counter()
-                runs[phase]()
-                print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
+        try:
+            for phase in PHASES:
+                if phase == DOCTOR_STARTS_BEFORE and "doctor" in only:
+                    doctor_start()
+                if phase in only:
+                    t = time.perf_counter()
+                    runs[phase]()
+                    print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
+        finally:
+            doctor_stop()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
     records = (k1, k1q8, k2, k3, k4)
     missing = [(r["name"], k) for r in records for k in keys if k not in r]
     k2_paths = {"generate", "ckpt", "graphs", "quant", "moe", "moe-quant", "tp-generate",
-                "mesh-train", "inference-procs", "sp", "ep", "sp-train"} | (
+                "mesh-train", "mesh-train-procs", "inference-procs", "sp", "ep",
+                "sp-train"} | (
         {"chat"} if importlib.util.find_spec("tokenizers") else set())
     k1_paths = {"serve", "ckpt", "graphs", "server", "tier", "quant", "moe", "moe-quant", "tune",
                 "pp-serve", "tp-serve", "pp-tp-serve"}
-    k34_paths = {"train", "moe-train", "mesh-train", "sp", "ep", "sp-train"}
+    k34_paths = {"train", "moe-train", "mesh-train", "mesh-train-procs", "sp", "ep",
+                 "sp-train"}
     if only == set(PHASES) and (set(k1["paths"]) != k1_paths or set(k2["paths"]) != k2_paths
                                 or set(k3["paths"]) != k34_paths
                                 or set(k4["paths"]) != k34_paths):

@@ -233,14 +233,15 @@ class Traced:
 _META_MEMO: Dict[Any, Any] = {}
 
 
-def _run_meta(func, args, kwargs, key, ins: List[torch.Tensor]):
+def _run_meta(func, args, kwargs, key, ins: List[torch.Tensor], all_meta: bool = True):
     """`func(*args, **kwargs)` on meta tensors (`ins` the tensors among the
-    arguments, `key` the operator with the arguments' metadata); a call
-    whose key was seen before makes its outputs from the first call's (the
-    same argument object for an in-place result, the same view of the same
-    argument, or a fresh meta tensor of the recorded shape, strides and
-    dtype) without running the meta kernel again."""
-    if not all(t.is_meta for t in ins):
+    arguments, `key` the operator with the arguments' metadata, `all_meta`
+    whether every one of `ins` is a meta tensor); a call whose key was seen
+    before makes its outputs from the first call's (the same argument
+    object for an in-place result, the same view of the same argument, or a
+    fresh meta tensor of the recorded shape, strides and dtype) without
+    running the meta kernel again."""
+    if not all_meta:
         return func(*args, **kwargs)
     try:
         recipe = _META_MEMO.get(key)
@@ -281,13 +282,30 @@ def _run_meta(func, args, kwargs, key, ins: List[torch.Tensor]):
     return made[0] if kind is None else kind(made)
 
 
+# argument types that hold no tensor: a list or tuple of them is kept whole
+_PLAIN = frozenset({int, float, bool, type(None), str, torch.dtype, torch.device,
+                    torch.layout, torch.memory_format})
+# id(operator) -> whether it may be a host round trip (`_host_op`): an
+# operator's own hash is Python code, its id is not
+_SUSPECT: Dict[int, bool] = {}
+
+
 class _Recorder(TorchDispatchMode):
     """Records every operator a body dispatches as one node (the level
     `make_fx` records at: after autograd and the composite decompositions),
     running it on the meta tensors to learn its outputs.  Tensors are known
     by object: a placeholder's, or a node's output (an in-place operator
     returns its argument, now the node's); any other tensor an operator
-    reads becomes a constant.  Stops at a host round trip."""
+    reads becomes a constant.  Stops at a host round trip.  Every
+    operator of a step passes through `__torch_dispatch__`, so it keeps to
+    the few Python calls a node needs: the mode is not wrapped to keep
+    dynamo out (nothing here is compiled), a list of plain values (a
+    shape, dims) is one piece of the memo key, and operators are known by
+    id."""
+
+    @classmethod
+    def _should_skip_dynamo(cls) -> bool:
+        return False
 
     def __init__(self, graph: Graph, env: Dict[int, Any], constants: Dict[str, Any]):
         super().__init__()
@@ -298,11 +316,22 @@ class _Recorder(TorchDispatchMode):
         """`a` with every tensor replaced by its node (a constant's, made
         here, for a tensor no node produced); with `parts`/`ins`, also
         appends the arguments' metadata (the memo key) and their tensors."""
+        t = type(a)
+        if t in _PLAIN:
+            if parts is not None:
+                parts.append(a)
+            return a
+        if (t is tuple or t is list) and _PLAIN.issuperset(map(type, a)):
+            if parts is not None:
+                parts.append((t, tuple(a)))
+            return a
         if isinstance(a, torch.Tensor):
             if parts is not None:
                 # no storage offset: an operator's shapes do not depend on
                 # it (a view's offset is kept relative to its argument's)
-                parts.append((a.shape, a.stride(), a.dtype, a.is_meta))
+                meta = a.is_meta
+                self.all_meta = self.all_meta and meta
+                parts.append((a.shape, a.stride(), a.dtype, meta))
                 ins.append(a)
             node = self.env.get(id(a))
             if node is None:
@@ -313,7 +342,6 @@ class _Recorder(TorchDispatchMode):
                 self.env[id(a)] = node
                 self.alive.append(a)
             return node
-        t = type(a)
         if t is tuple or t is list:
             if parts is not None:
                 parts.append(len(a))
@@ -321,22 +349,28 @@ class _Recorder(TorchDispatchMode):
         if t is dict:
             return {k: self._arg(v, parts, ins) for k, v in a.items()}
         if parts is not None:
-            parts.append("generator" if isinstance(a, torch.Generator) else a)
+            parts.append("generator" if t is torch.Generator else a)
         return a
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        what = _host_op(func, args, kwargs)
-        if what is not None:
-            raise HostRoundTrip(what, _source_line())
-        parts: List[Any] = [func]
+        suspect = _SUSPECT.get(id(func))
+        if suspect is None:
+            suspect = _SUSPECT[id(func)] = (getattr(func, "overloadpacket", None)
+                                            in _HOST_SUSPECTS)
+        if suspect:
+            what = _host_op(func, args, kwargs)
+            if what is not None:
+                raise HostRoundTrip(what, _source_line())
+        parts: List[Any] = [id(func)]
         ins: List[torch.Tensor] = []
+        self.all_meta = True
         node_args = self._arg(tuple(args), parts, ins)
         node_kwargs = {}
         for k in sorted(kwargs):
             parts.append(k)
             node_kwargs[k] = self._arg(kwargs[k], parts, ins)
-        out = _run_meta(func, args, kwargs, tuple(parts), ins)
+        out = _run_meta(func, args, kwargs, tuple(parts), ins, self.all_meta)
         node = self.graph.add("call_function", func, node_args, node_kwargs)
         node.meta["val"] = out
         if isinstance(out, torch.Tensor):

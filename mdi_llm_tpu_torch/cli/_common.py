@@ -134,10 +134,12 @@ def make_tp_mesh(tp_devices: int, quantize: str, device: str = "cuda",
     return make_mesh({"tp": tp_devices}, [device], process_id, num_processes)
 
 
-def make_ep_mesh(ep_devices: int, cfg: Config, device: str = "cuda"):
+def make_ep_mesh(ep_devices: int, cfg: Config, device: str = "cuda",
+                 process_id: int = 0, num_processes: int = 1):
     """Shared --ep-devices handling (the JAX CLI's): an MoE config and at
-    least 2 ranks, then a 1-D ep mesh.  As `make_tp_mesh`, every rank goes
-    on the one `--device`, so one card runs ep = N."""
+    least 2 ranks, then a 1-D ep mesh, over `num_processes` processes when
+    the CLI joined a job (`--coordinator`), as `make_tp_mesh`.  Every rank
+    of a process goes on the one `--device`, so one card runs ep = N."""
     if ep_devices < 2:
         raise SystemExit(
             "--ep-devices needs at least 2 devices (expert dispatch over an "
@@ -147,7 +149,7 @@ def make_ep_mesh(ep_devices: int, cfg: Config, device: str = "cuda"):
                          f"mlp_class_name={cfg.mlp_class_name}")
     from mdi_llm_tpu_torch.parallel.mesh import make_mesh
 
-    return make_mesh({"ep": ep_devices}, [device])
+    return make_mesh({"ep": ep_devices}, [device], process_id, num_processes)
 
 
 def refuse(what: str) -> None:

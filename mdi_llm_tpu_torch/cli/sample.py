@@ -19,11 +19,13 @@ stages (each process a contiguous group, with its tp ranks), the hop
 between processes a send/recv.  `--sp-devices N` generates over N
 sequence-parallel ranks on `--device` (`parallel/sp_inference.
 SPGenerator`: ring-attention prefill, the KV cache split over the ranks;
-`--sp-flash` sends the prefill ring through K2), in one process;
-`--ep-devices N` splits an MoE config's experts over N ranks on
-`--device` (`parallel/expert.py`: token dispatch by all_to_all, at
-`--moe-capacity-factor`, exact by default), in one process.  As in
-the JAX CLI every process prints
+`--sp-flash` sends the prefill ring through K2); `--ep-devices N` splits
+an MoE config's experts over N ranks on `--device` (`parallel/expert.py`:
+token dispatch by all_to_all, at `--moe-capacity-factor`, exact by
+default).  With `--coordinator` both split their ranks over the
+processes, a contiguous range each: the ring's K/V chunks, its decode
+merge, the expert dispatch and return cross processes in
+`torch.distributed` collectives.  As in the JAX CLI every process prints
 the samples and the throughput line.  With `--ckpt DIR` the prompts
 (`--prompt TEXT` or `FILE:<path>`, one per blank-line-separated
 paragraph) go through the checkpoint's prompt style and tokenizer,
@@ -48,6 +50,9 @@ exclusions between the parallelism flags hold.
     # two processes, one tp rank each (start process 1 the same way):
     python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8 \\
         --tp-devices 2 --coordinator 127.0.0.1:29511 --num-processes 2 --process-id 0
+    # the same with one sp rank (or, on an MoE config, one ep rank) each:
+    python -m mdi_llm_tpu_torch.cli.sample --device cpu --model pythia-14m --greedy --n-tokens 8 \\
+        --sp-devices 2 --sp-flash --coordinator 127.0.0.1:29511 --num-processes 2 --process-id 0
 """
 
 from __future__ import annotations
@@ -103,15 +108,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--sp-devices", type=int, default=0,
-                    help="sequence-parallel inference over N ranks, all on --device: "
-                    "ring-attention prefill and a sequence-split KV cache (the "
-                    "context grows with N; 0 = off)")
+                    help="sequence-parallel inference over N ranks, all on --device "
+                    "(split over the processes of --coordinator): ring-attention "
+                    "prefill and a sequence-split KV cache (the context grows with "
+                    "N; 0 = off)")
     ap.add_argument("--sp-flash", action="store_true",
                     help="run the sp prefill ring through kernel K2 (engages when "
                     "the local chunk is >= 2048)")
     ap.add_argument("--ep-devices", type=int, default=0,
                     help="MoE configs: expert parallelism over N ranks, all on --device "
-                    "(token dispatch by all_to_all; 0 = off)")
+                    "(split over the processes of --coordinator; token dispatch by "
+                    "all_to_all; 0 = off)")
     ap.add_argument("--moe-capacity-factor", type=float, default=None,
                     help="ep dispatch capacity factor (bounds the per-rank buffers, "
                     "Switch-style drops past capacity); default exact, no drops")
@@ -188,13 +195,13 @@ def _generate(args, temperature, ring):
                 raise SystemExit("--sp-devices and --pipeline-stages are exclusive")
             if args.speculative:
                 raise SystemExit("--speculative applies to single-device decode only")
-            if ring is not None:
-                raise SystemExit("--sp-devices runs its ranks in one process (sp over "
-                                 "processes is ROADMAP item 19); drop --coordinator")
+            from mdi_llm_tpu_torch.parallel.mesh import make_mesh
             from mdi_llm_tpu_torch.parallel.sp_inference import SPGenerator
 
             gen = SPGenerator(
-                cfg, params, n_devices=args.sp_devices, devices=[resolve_device(args.device)],
+                cfg, params, mesh=make_mesh(
+                    {"sp": args.sp_devices}, [resolve_device(args.device)],
+                    0 if ring is None else ring.rank, 1 if ring is None else ring.world),
                 max_seq_length=args.sequence_length, rng_seed=args.seed,
                 cache_dtype=resolve_kv_dtype(args.kv_dtype), use_flash=args.sp_flash,
                 quantize=args.quantize,
@@ -219,16 +226,16 @@ def _generate(args, temperature, ring):
                                     0 if ring is None else ring.rank,
                                     1 if ring is None else ring.world)
             elif args.ep_devices:
-                if ring is not None:
-                    raise SystemExit("--ep-devices runs its ranks in one process (ep over "
-                                     "processes is ROADMAP item 19); drop --coordinator")
-                mesh = make_ep_mesh(args.ep_devices, cfg, args.device)
+                mesh = make_ep_mesh(args.ep_devices, cfg, args.device,
+                                    0 if ring is None else ring.rank,
+                                    1 if ring is None else ring.world)
             gen = Generator(
                 cfg, params, max_seq_length=args.sequence_length, rng_seed=args.seed,
                 cache_dtype=resolve_kv_dtype(args.kv_dtype),
                 device=args.device, quantize=args.quantize, mesh=mesh,
                 moe_capacity_factor=args.moe_capacity_factor,
             )
+            del params  # an ep process over processes keeps only its experts
             outs, stats = gen.generate(
                 prompt_ids, args.n_tokens, chunk_size=args.chunk,
                 speculative=args.speculative or None, **sampling,

@@ -37,8 +37,11 @@ the sp ranks, attention riding the ring (`ops/ring_attention.py`, with tp
 ranks inside each sp rank); `--mesh dp=2,ep=4` splits an MoE config's
 experts over the ep ranks and its tokens over dp x ep
 (`parallel/expert.py`, at `--moe-capacity-factor`, exact by default).
-Both run in one process: with `--coordinator` they are refused, naming
-ROADMAP item 19.
+With `--coordinator` a process holds a contiguous range of the sp ranks
+(each with its whole tp group: the ring's K/V chunks pass between the
+processes, the gradients sum over them) or, at dp=1 (`--mesh
+dp=1,ep=2`), of the ep ranks (it keeps only their experts; the tokens'
+dispatch and return cross the processes).
 
 An MoE config (Mixtral) trains with `--moe-aux-weight` times its
 load-balancing loss, in the dense formulation without an ep axis.

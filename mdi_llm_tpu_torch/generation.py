@@ -31,7 +31,12 @@ Port of `mdi_llm_tpu/generation.py`, on one device or on a tp/dp mesh:
   `place_ep`'s views of the one tree); attention and every other leaf
   run whole, once per device, and the decode chunk stays a CUDA graph
   when the ranks share one card.  A dense config on an ep mesh runs as
-  without one.  Serving refuses ep, as the JAX engine does; ep beside
+  without one.  Over the processes of a job (`make_mesh({"ep": N},
+  [device], process_id, num_processes)`) each process keeps only its
+  ranks' experts, the dispatch and the return cross processes in one
+  all-to-all each, and the combined tokens are all-gathered, so every
+  process runs the replicated layers on the whole batch and draws the
+  same tokens.  Serving refuses ep, as the JAX engine does; ep beside
   another axis is ROADMAP item 20.
 - `Generator(quantize="int8" | "w8a8" | "int4")`: the linears and an
   untied head quantized once, on the device (`ops/quant.py`); a tree
@@ -320,9 +325,10 @@ def _check_inference_mesh(mesh: Mesh) -> None:
     `parallel.sp_inference.SPGenerator`.  An ep axis splits an MoE config's
     experts (`parallel/expert.py`) and stands alone: ep beside another
     axis is ROADMAP item 20.  A mesh over processes (`sample
-    --coordinator`) splits its tp axis only: each process holds a
-    contiguous part of the one tp group; sp and ep over processes are
-    item 19."""
+    --coordinator`) splits its tp axis (each process holds a contiguous
+    part of the one tp group), its sp axis (`SPGenerator`) or its ep axis
+    (each process holds a contiguous range of the ep ranks and their
+    experts)."""
     for axis, size in mesh.shape.items():
         if size <= 1 or axis in ("tp", "dp", "sp", "ep") + PIPE_AXES:
             continue
@@ -331,12 +337,6 @@ def _check_inference_mesh(mesh: Mesh) -> None:
     if mesh.shape.get("ep", 1) > 1 and any(
             n > 1 for a, n in mesh.shape.items() if a != "ep"):
         _refuse(f"mesh {mesh.shape}: an ep axis beside another axis is ROADMAP item 20")
-    if mesh.num_processes > 1 and (mesh.shape.get("sp", 1) > 1 or mesh.shape.get("ep", 1) > 1):
-        raise ValueError(
-            f"mesh {mesh.shape} over {mesh.num_processes} processes: an sp or ep axis "
-            "splits the sequence (parallel.sp_inference.SPGenerator) or the experts "
-            "(parallel/expert.py) over ranks that share one process (sp and ep over "
-            "processes are ROADMAP item 19)")
     if mesh.num_processes > 1:
         pa = pipe_axis(mesh)
         if mesh.shape.get("dp", 1) > 1 or (pa and mesh.shape[pa] > 1):
@@ -495,8 +495,8 @@ class Generator:
                 f"{cfg.name}: head size {cfg.head_size} is not one kernel K2 "
                 f"is built for {KERNEL_HEAD_SIZES}; pass use_flash=False"
             )
-        one_card = (self._shards is None or (
-            self._group is None and len(set(self._devices.values())) == 1)) and (
+        one_card = self._group is None and (
+            self._shards is None or len(set(self._devices.values())) == 1) and (
             ep_mesh is None or {str(d) for d in ep_mesh.device_list()} == {str(self.device)})
         if _graphs and not one_card:
             raise ValueError("the decode chunk is captured only when every rank "
@@ -563,7 +563,10 @@ class Generator:
         checks here; attention and every other leaf stay whole, run once
         per device.  A dense config on an ep mesh runs as without one, as
         in the JAX package.  `_ep_mesh` keeps the mesh for `serve`'s
-        refusal."""
+        refusal.  Over processes each process keeps only its ranks' expert
+        slices (copies: the whole stacks are dropped) and the exchange
+        and the combined output go through the processes' group
+        (`_group`)."""
         self._ep_mesh, self._moe_impl = mesh, None
         if mesh is None or self.cfg.mlp_class_name != "LLaMAMoE":
             return
@@ -575,7 +578,15 @@ class Generator:
         if self.cfg.n_expert % ep:
             raise ValueError(f"ep={ep} does not divide n_expert={self.cfg.n_expert}")
         place_ep(self.params, mesh, self.cfg.n_expert)  # refuses a layout it cannot split
-        self._moe_impl = partial(ep_moe_forward, mesh=mesh, capacity_factor=capacity_factor)
+        group = None
+        if mesh.num_processes > 1:
+            from mdi_llm_tpu_torch.parallel.collectives import CommGroup
+            from mdi_llm_tpu_torch.parallel.expert import local_experts
+
+            self.params = local_experts(self.params, mesh, self.cfg.n_expert)
+            group = self._group = CommGroup(range(mesh.num_processes))
+        self._moe_impl = partial(ep_moe_forward, mesh=mesh, capacity_factor=capacity_factor,
+                                 group=group)
 
     def attach_device_obs(self, registry) -> None:
         """Attach an `obs.device.DeviceReportRegistry`: later `generate()`

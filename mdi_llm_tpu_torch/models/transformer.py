@@ -778,7 +778,7 @@ def sharded_forward(
 
 def sp_forward(cfg: Config, units: Sequence[TPRanks], tokens, input_pos,
                use_flash: bool = False, flash_kernel: Optional[bool] = None,
-               remat: bool = False, collect_moe_aux: bool = False):
+               remat: bool = False, collect_moe_aux: bool = False, group=None):
     """The cache-less forward over a sequence-parallel group (training and
     eval, the JAX `forward(sp_axis="sp")` under `shard_map`): sp rank s
     holds the chunk `tokens[s]` (B, T) that starts at `input_pos[s]` (B,)
@@ -792,7 +792,14 @@ def sp_forward(cfg: Config, units: Sequence[TPRanks], tokens, input_pos,
     ranks, in the backward.  Returns each sp rank's logits (B, T,
     padded_vocab) on its first device; with `collect_moe_aux` also the
     router's `moe_stats` of every layer summed over the sp ranks, (L, 2,
-    E), for the aux of the whole sequence (`moe_aux_loss`)."""
+    E), for the aux of the whole sequence (`moe_aux_loss`).
+
+    With `group` (a `parallel.collectives.CommGroup` of the processes that
+    hold the sp ranks, each a contiguous range of equal chunks, contiguous
+    in position), `units`, `tokens` and `input_pos` are this process's sp
+    ranks: the ring gathers the other processes' K/V chunks
+    (`ring_attention(group=...)`), and the sums over sp ranks are this
+    process's."""
     pcs = [u.positions(t, ip) for u, t, ip in zip(units, tokens, input_pos)]
     pos, cos, sin = ([pc[j] for pc in pcs] for j in range(3))
     x = [u.embed(t, p) for u, t, p in zip(units, tokens, pos)]
@@ -804,7 +811,7 @@ def sp_forward(cfg: Config, units: Sequence[TPRanks], tokens, input_pos,
 
     def layer(lay, x, pos, cos, sin):
         return _sp_layer(units, lay, x, pos, cos, sin, use_flash, flash_kernel,
-                         collect_moe_aux)
+                         collect_moe_aux, group)
 
     stats = []
     for i in range(len(layers[0][0])):
@@ -823,7 +830,18 @@ def sp_forward(cfg: Config, units: Sequence[TPRanks], tokens, input_pos,
     return (logits, torch.stack(stats)) if collect_moe_aux else logits
 
 
-def _sp_layer(units, lay, x, pos, cos, sin, use_flash, flash_kernel, collect_moe_aux):
+def _ring_positions(pos, t: int, group) -> list:
+    """Every sp rank's key positions on tp rank t: this process's, or
+    across processes each rank's chunk after the one before it."""
+    mine = [p[t] for p in pos]
+    if group is None or group.size == 1:
+        return mine
+    first, T = group.index * len(mine), mine[0].shape[-1]
+    return [mine[0] + (j - first) * T for j in range(len(mine) * group.size)]
+
+
+def _sp_layer(units, lay, x, pos, cos, sin, use_flash, flash_kernel, collect_moe_aux,
+              group=None):
     """One layer of `sp_forward` over every sp rank (`units`) and tp rank."""
     tp = len(units[0].ranks)
     normed = [u.norm_in(lay[s], x[s]) for s, u in enumerate(units)]
@@ -831,7 +849,8 @@ def _sp_layer(units, lay, x, pos, cos, sin, use_flash, flash_kernel, collect_moe
             for t in range(tp)] for s, u in enumerate(units)]
     ys = [ring_attention([q[t][0] for q in qkv], [q[t][1].transpose(1, 2) for q in qkv],
                          [q[t][2].transpose(1, 2) for q in qkv], [p[t] for p in pos],
-                         [p[t] for p in pos], use_flash=use_flash, use_kernel=flash_kernel)
+                         _ring_positions(pos, t, group), use_flash=use_flash,
+                         use_kernel=flash_kernel, group=group)
           for t in range(tp)]
     outs = [u.block_rest(lay[s], x[s], normed[s][0],
                          [attention_out(u.cfg_r, lay[s][t]["attn"], ys[t][s], x[s][t].dtype,

@@ -16,6 +16,16 @@ ppermute ring hands it after h steps.  Ranks on different devices get the
 chunk copied to theirs.  `ring_decode`'s `pmax`/`psum` are a max and a sum
 over the ranks' partials (`parallel.collectives.all_reduce`).
 
+Across processes (`group`, a `parallel.collectives.CommGroup` of the
+processes that hold the sp ranks, each a contiguous range of them, in
+rank order) a process passes its own ranks' tensors: `ring_attention`
+first all-gathers every rank's K/V chunks of the call (one
+`gather_summed` of K and V together, whose backward sums the
+cotangent over the processes: other processes' queries read these
+chunks), then runs its ranks' rings; `ring_decode` merges its ranks'
+partials and then the processes' in two all-reduces, a max of m and one
+sum of l and o packed together.
+
 Two bodies, with the JAX package's numerics:
 
 - the plain body: float32 accumulators, `NEG_INF` finite, exp arguments
@@ -44,7 +54,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from mdi_llm_tpu_torch.ops.flash import flash_attention_lse
-from mdi_llm_tpu_torch.parallel.collectives import all_reduce
+from mdi_llm_tpu_torch.parallel.collectives import CommGroup, all_reduce, gather_summed
 
 __all__ = ["ring_attention", "ring_decode", "NEG_INF"]
 
@@ -126,25 +136,41 @@ def ring_attention(
     use_flash: bool = False,
     use_kernel: Optional[bool] = None,  # K2-K4: None → the tensors' device
     # decides; False → their plain versions anywhere
+    group: Optional[CommGroup] = None,
 ) -> List[torch.Tensor]:
     """Each rank's (B, n_head, Tq_local, hs): its queries' attention over
     the whole distributed key/value sequence, on its device.  `use_flash`
     (with `causal`) runs every block through K2 with its LSE (the module
-    docstring)."""
-    P = len(qs)
+    docstring).  With `group`, `qs`, `ks`, `vs` and `q_pos` are this
+    process's ranks (one device) and `k_pos` every rank's."""
+    first = 0
+    if group is not None and group.size > 1:
+        first = group.index * len(qs)
+        ks, vs = _gather_chunks(ks, vs, group)
+    P = len(ks)
+    if len(k_pos) != P:
+        raise ValueError(f"{len(k_pos)} key position chunks for a ring of {P} ranks")
     hs = qs[0].shape[-1]
     if scale is None:
         scale = 1.0 / (hs**0.5)
     out = []
-    for r in range(P):
+    for i in range(len(qs)):
+        r = first + i
         if use_flash and causal:
             order = [(r - h) % P for h in range(1, P)]
-            out.append(_flash_rank(qs[r], ks, vs, q_pos[r], k_pos, r, order, scale,
+            out.append(_flash_rank(qs[i], ks, vs, q_pos[i], k_pos, r, order, scale,
                                    use_kernel))
         else:
             order = [(r - h) % P for h in range(P)]
-            out.append(_plain_rank(qs[r], ks, vs, q_pos[r], k_pos, order, causal, scale))
+            out.append(_plain_rank(qs[i], ks, vs, q_pos[i], k_pos, order, causal, scale))
     return out
+
+
+def _gather_chunks(ks, vs, group: CommGroup):
+    """Every rank's K and V chunks from the process's own (one call):
+    stacked (2, local ranks, ...), gathered along the rank axis."""
+    both = gather_summed(torch.stack([torch.stack(list(ks)), torch.stack(list(vs))]), 1, group)
+    return list(both[0].unbind(0)), list(both[1].unbind(0))
 
 
 def ring_decode(
@@ -155,12 +181,14 @@ def ring_decode(
     # position (a sentinel >= 2^30 marks an empty slot)
     q_pos: Sequence[torch.Tensor],  # per rank (B, 1) the query's position
     scale: Optional[float] = None,
+    group: Optional[CommGroup] = None,
 ) -> List[torch.Tensor]:
     """Decode-step attention over a sequence-split KV cache: each rank's
     online-softmax partials (m, l, o) over its shard, merged across the
     ranks by a max and two sums (the JAX `pmax`/`psum`), the distributed
     flash-decoding.  Returns each rank's (B, n_head, 1, hs), equal on
-    every rank."""
+    every rank.  With `group`, the arguments are this process's ranks (one
+    device), merged with the other processes' in two all-reduces."""
     B, H, Tq, hs = qs[0].shape
     G = k_caches[0].shape[1]
     if scale is None:
@@ -178,9 +206,18 @@ def ring_decode(
         ms.append(m)
         ls.append(p.sum(dim=-1))
         os_.append(torch.einsum("bgqts,bgsh->bgqth", p, vc.float()))
-    m_g = all_reduce(ms, op="max")
+    if group is not None and group.size > 1:
+        m_g = [group.all_reduce_(torch.stack(ms).amax(dim=0), op="max")] * len(ms)
+    else:
+        m_g = all_reduce(ms, op="max")
     corr = [torch.exp(torch.clamp(m - mg, min=-80.0)) for m, mg in zip(ms, m_g)]
     l_g = all_reduce([l * c for l, c in zip(ls, corr)])
     o_g = all_reduce([o * c[..., None] for o, c in zip(os_, corr)])
+    if group is not None and group.size > 1:
+        # l and o of this process's ranks, summed with the others' in one call
+        packed = group.all_reduce_(torch.cat([l_g[0].reshape(-1), o_g[0].reshape(-1)]))
+        n = l_g[0].numel()
+        l_g = [packed[:n].view_as(l_g[0])] * len(ms)
+        o_g = [packed[n:].view_as(o_g[0])] * len(ms)
     return [(o / torch.clamp(l[..., None], min=1e-30)).reshape(B, H, Tq, hs).to(q.dtype)
             for o, l, q in zip(o_g, l_g, qs)]

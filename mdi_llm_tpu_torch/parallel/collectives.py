@@ -11,7 +11,9 @@ calls these on the list of the ranks' partial results, rank order:
   on each rank's device;
 - `all_to_all(parts, split_axis, concat_axis)`: rank r's chunk j goes to
   rank j (`jax.lax.all_to_all`), the expert dispatch of
-  `parallel/expert.py`.
+  `parallel/expert.py`; with a `CommGroup`, over the ranks of every
+  process of the group (`CommGroup.all_to_all` under autograd, whose
+  backward is the reverse exchange).
 
 When every rank is on one device (tp ranks sharing one card) these are
 plain tensor ops, done once and handed to every rank, and autograd
@@ -32,8 +34,12 @@ replicated values (norms, residuals, the loss) itself, so:
   MoE router's weights before each rank takes its experts' share): the
   identity, whose backward all-reduces what the process's ranks gave
   back;
-- `gather_from_ranks` (the head's vocabulary slices): an all-gather
-  whose backward keeps the process's own slice.
+- `gather_from_ranks` (the head's vocabulary slices, an ep layer's
+  combined tokens): an all-gather whose backward keeps the process's own
+  slice;
+- `gather_summed` (the ring's K/V chunks, which every process's queries
+  read): an all-gather whose backward sums the cotangent over the
+  group's processes and keeps the process's slice, a reduce-scatter.
 
 A bare `dist.all_reduce` inside the forward would be invisible to
 autograd: every tp gradient would come out wrong.  `CommGroup` also
@@ -63,6 +69,7 @@ __all__ = [
     "reduce_from_ranks",
     "copy_to_ranks",
     "gather_from_ranks",
+    "gather_summed",
 ]
 
 
@@ -194,6 +201,27 @@ class CommGroup:
         return out
 
 
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The exchange of `x`'s `size` slices along dim 0: slice q goes to
+        the group's process q, and slice q of the result is what process q
+        sent here (outside autograd).  Moved as raw bytes, so every dtype
+        travels."""
+        if x.shape[0] != self.size:
+            raise ValueError(f"all_to_all over {self.size} processes: dim 0 of "
+                             f"{tuple(x.shape)} must be {self.size}")
+        t0 = time.perf_counter()
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        src = self._stage(x, "a2a-send")
+        dst = self._buffer(out, "a2a-recv")
+        dist.all_to_all_single(dst.reshape(-1).view(torch.uint8),
+                               src.reshape(-1).view(torch.uint8), group=self.group)
+        if dst is not out:
+            out.copy_(dst.reshape(out.shape), non_blocking=True)
+        self._tick(t0, out)
+        return out
+
+
 class _ReduceFromRanks(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group: CommGroup):
@@ -226,6 +254,30 @@ class _GatherFromRanks(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
 
 
+class _GatherSummed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim: int, group: CommGroup):
+        ctx.dim, ctx.index, ctx.n, ctx.group = dim, group.index, x.shape[dim], group
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.group.all_reduce_(g.clone(memory_format=torch.contiguous_format))
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: CommGroup):
+        ctx.group = group
+        return group.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the exchange is its own reverse: slice q came from process q
+        return ctx.group.all_to_all(g), None
+
+
 def reduce_from_ranks(x: torch.Tensor, group: Optional[CommGroup]) -> torch.Tensor:
     """The sum of `x` over the group's processes; backward: the identity."""
     return x if group is None or group.size == 1 else _ReduceFromRanks.apply(x, group)
@@ -239,6 +291,15 @@ def copy_to_ranks(x: torch.Tensor, group: Optional[CommGroup]) -> torch.Tensor:
 def gather_from_ranks(x: torch.Tensor, dim: int, group: Optional[CommGroup]) -> torch.Tensor:
     """The group's `x`s joined along `dim`; backward: this process's slice."""
     return x if group is None or group.size == 1 else _GatherFromRanks.apply(x, dim, group)
+
+
+def gather_summed(x: torch.Tensor, dim: int, group: Optional[CommGroup]) -> torch.Tensor:
+    """The group's `x`s joined along `dim`; backward: the cotangent summed
+    over the group's processes, this process's slice of it.  For a tensor
+    that every process's downstream reads differently (the ring's K/V
+    chunks), where `gather_from_ranks` would drop the other processes'
+    share of its gradient."""
+    return x if group is None or group.size == 1 else _GatherSummed.apply(x, dim, group)
 
 
 def all_reduce(parts: Sequence[torch.Tensor], op: str = "sum",
@@ -271,19 +332,41 @@ def all_gather(parts: Sequence[torch.Tensor], dim: int,
 
 
 def all_to_all(parts: Sequence[torch.Tensor], split_axis: int = 0,
-               concat_axis: int = 0) -> List[torch.Tensor]:
-    """`jax.lax.all_to_all` over the ranks of this process: each rank's
-    part is cut into P equal chunks along `split_axis`, and rank j gets
-    chunk j of every rank, joined along `concat_axis` in rank order, on
-    its device.  Index arithmetic on the tensors, as the ring's rotation
+               concat_axis: int = 0, group: Optional[CommGroup] = None) -> List[torch.Tensor]:
+    """`jax.lax.all_to_all` over the ranks: each rank's part is cut into P
+    equal chunks along `split_axis`, and rank j gets chunk j of every rank,
+    joined along `concat_axis` in rank order, on its device.  Index
+    arithmetic on the tensors, as the ring's rotation
     (`ops/ring_attention.py`): ranks that share a device exchange views
     of each other's parts, joined once, with no host round trip.
     Autograd differentiates it as the slices and the join it is, so the
-    backward is the reverse exchange."""
-    P = len(parts)
+    backward is the reverse exchange.
+
+    With `group`, `parts` are this process's ranks (one device), the
+    group's processes holding P = len(parts) * group.size ranks in rank
+    order: the chunks bound for each process travel in one
+    `CommGroup.all_to_all` under autograd (its backward the reverse
+    exchange); the result equals the one-process exchange of every
+    rank's part."""
+    if group is None or group.size == 1:
+        P = len(parts)
+        _check_split(parts, split_axis, P)
+        chunks = [p.chunk(P, dim=split_axis) for p in parts]
+        return [torch.cat([c[j].to(parts[j].device, non_blocking=True) for c in chunks],
+                          dim=concat_axis) for j in range(P)]
+    n, Q = len(parts), group.size
+    P = n * Q
+    _check_split(parts, split_axis, P)
+    chunks = [p.chunk(P, dim=split_axis) for p in parts]
+    # (process q, its local rank j, this process's rank i): chunk q * n + j of rank i
+    send = torch.stack([torch.stack([torch.stack([chunks[i][q * n + j] for i in range(n)])
+                                     for j in range(n)]) for q in range(Q)])
+    got = _AllToAll.apply(send, group)  # (source process q, local rank j, its rank i)
+    return [torch.cat([got[q, j, i] for q in range(Q) for i in range(n)], dim=concat_axis)
+            for j in range(n)]
+
+
+def _check_split(parts, split_axis: int, P: int) -> None:
     if any(p.shape[split_axis] % P for p in parts):
         raise ValueError(f"all_to_all over {P} ranks: split axis {split_axis} of "
                          f"{[tuple(p.shape) for p in parts]} does not divide by {P}")
-    chunks = [p.chunk(P, dim=split_axis) for p in parts]
-    return [torch.cat([c[j].to(parts[j].device, non_blocking=True) for c in chunks],
-                      dim=concat_axis) for j in range(P)]

@@ -32,6 +32,21 @@ of the expert stacks (copies only for a rank on another device), and the
 exchange is index arithmetic on the tensors.  Autograd differentiates
 the whole dispatch (the exchange's backward is the reverse exchange), so
 this path trains.
+
+Over the processes of a job (`group`, a `collectives.CommGroup`; the
+mesh a `make_mesh(..., process_id, num_processes)` one whose dp axis, if
+any, has size 1) a process runs the ranks it owns (`Mesh.owned`, a
+contiguous range) and holds only their experts (`local_experts`).  Its
+input is the whole batch, the same on every process: it routes its
+ranks' shards, the dispatch and the return cross processes in one
+`CommGroup.all_to_all` each, and the combined rows of its ranks are
+all-gathered (`gather_from_ranks`), so every process goes on with the
+whole batch.  Under autograd the layer's input and the router's weights
+enter through `copy_to_ranks`: the processes' shares of their gradients
+are summed there, so everything outside the experts gets the whole
+batch's gradient on every process, while each expert's gradient (every
+token routed to it) stays on its owner.  The aux's stats are summed over
+the processes.
 """
 
 from __future__ import annotations
@@ -44,9 +59,15 @@ import torch.nn.functional as F
 
 from mdi_llm_tpu_torch.config import Config
 from mdi_llm_tpu_torch.ops.quant import EP_DOWN, EP_UP, quantized_einsum
-from mdi_llm_tpu_torch.parallel.collectives import all_to_all
+from mdi_llm_tpu_torch.parallel.collectives import (
+    CommGroup,
+    all_to_all,
+    copy_to_ranks,
+    gather_from_ranks,
+    reduce_from_ranks,
+)
 
-__all__ = ["expert_capacity", "ep_moe_forward", "place_ep"]
+__all__ = ["expert_capacity", "ep_moe_forward", "place_ep", "local_experts", "ep_dims"]
 
 Params = Any
 
@@ -93,6 +114,44 @@ def place_ep(params: Params, mesh, n_expert: int, axis: str = "ep") -> Dict[int,
             for i, (c, d) in enumerate(zip(mesh.positions(), mesh.device_list()))}
 
 
+def ep_dims(params: Params) -> Params:
+    """The tree of each leaf's ep split dimension: 1 (the expert axis
+    after the stacked layer axis) for a leaf of two or more dims under an
+    "experts" subtree, None for a leaf every ep rank holds whole."""
+
+    def walk(node, in_experts):
+        if isinstance(node, dict):
+            return {k: walk(v, in_experts or k == "experts") for k, v in node.items()}
+        return 1 if in_experts and node.dim() >= 2 else None
+
+    return walk(params, False)
+
+
+def _owned_ranks(mesh, axis: str) -> List[int]:
+    """The `axis` coordinates of the mesh positions this process owns."""
+    owned = mesh.owned()
+    return sorted({c[axis] for i, c in enumerate(mesh.positions()) if i in owned})
+
+
+def local_experts(params: Params, mesh, n_expert: int, axis: str = "ep") -> Params:
+    """The tree a process of an ep mesh over processes holds: every leaf
+    whole, each expert leaf cut to the experts of the ep ranks it owns
+    (`Mesh.owned`, contiguous), as a copy, so the whole stacks can go."""
+    ranks = _owned_ranks(mesh, axis)
+    n = n_expert // int(mesh.shape[axis])
+
+    def cut(x, d):
+        return x if d is None else x.narrow(d, ranks[0] * n, len(ranks) * n).clone()
+
+    return _zip_map(cut, params, ep_dims(params))
+
+
+def _zip_map(fn, tree, other):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
+
+
 def _rank_devices(mesh, axis: str, dp_axis: Optional[str]) -> List[List[torch.device]]:
     """[dp coordinate][ep coordinate] -> the device of that mesh position
     (coordinate 0 on every other axis)."""
@@ -104,12 +163,13 @@ def _rank_devices(mesh, axis: str, dp_axis: Optional[str]) -> List[List[torch.de
     return out
 
 
-def _rank_params(p: Params, e: int, ep: int, n_expert: int, device) -> Params:
+def _rank_params(p: Params, e: int, ep: int, n_expert: int, device, gate=None) -> Params:
     """Rank e's part of one layer's MoE params `p` (a layout `place_ep`
-    accepts): the whole router and its n_expert / ep experts, axis 0 of
-    every expert leaf (views), on `device`."""
+    accepts): the whole router (`gate`, default p's) and its n_expert / ep
+    experts, axis 0 of every expert leaf (views), on `device`.  `e` counts
+    from the first rank whose experts `p` holds."""
     n = n_expert // ep
-    return {"gate": _tree_map(lambda a: a.to(device), p["gate"]),
+    return {"gate": _tree_map(lambda a: a.to(device), p["gate"] if gate is None else gate),
             "experts": _tree_map(lambda a: a.narrow(0, e * n, n).to(device), p["experts"])}
 
 
@@ -165,6 +225,7 @@ def ep_moe_forward(
     capacity_factor: Optional[float] = None,
     with_aux: bool = False,
     dp_axis: Optional[str] = None,
+    group: Optional[CommGroup] = None,
 ):
     """Expert-parallel MoE layer, a drop-in for `transformer.moe_forward`
     (pass it as `moe_impl=` through `transformer.forward`): one layer's
@@ -177,7 +238,10 @@ def ep_moe_forward(
     `dp_axis` (training on a (dp, ep) mesh): the tokens split over both
     axes, N / (dp * ep) per rank, shard d * ep + e to position (d, e); the
     exchange stays within each dp row, and the aux's stats sum over both
-    axes."""
+    axes.
+
+    `group` (a mesh over processes, dp of size 1): this process runs its
+    own ranks, `p` holding their experts only (the module docstring)."""
     ep = int(mesh.shape[axis])
     E = cfg.n_expert
     if E % ep:
@@ -192,29 +256,45 @@ def ep_moe_forward(
     xf = F.pad(x.reshape(N, D), (0, 0, 0, Np - N))
     valid = torch.arange(Np, device=x.device) < N
     devs = _rank_devices(mesh, axis, dp_axis)
+    mine = range(ep)  # the ep ranks this process runs
+    gate = p["gate"]
+    if group is not None and group.size > 1:
+        if dp > 1:
+            raise ValueError(f"an ep layer over {group.size} processes takes dp=1, not dp={dp}")
+        mine = _owned_ranks(mesh, axis)
+        if torch.is_grad_enabled():
+            xf = copy_to_ranks(xf, group)
+            gate = _tree_map(lambda a: copy_to_ranks(a, group), gate)
     outs, stats = [], []
     for d in range(dp):
-        ps = [_rank_params(p, e, ep, E, devs[d][e]) for e in range(ep)]
+        ps = [_rank_params(p, e - mine[0], ep, E, devs[d][e], gate) for e in mine]
         routed = []
-        for e in range(ep):
+        for e, pe in zip(mine, ps):
             rows = slice((d * ep + e) * n_loc, (d * ep + e + 1) * n_loc)
-            routed.append(_route(cfg, ps[e]["gate"], xf[rows].to(devs[d][e]),
+            routed.append(_route(cfg, pe["gate"], xf[rows].to(devs[d][e]),
                                  valid[rows].to(devs[d][e]), C))
         # to the experts' owners: experts are owner-major on the leading
         # axis, expert g on rank g // E_loc
-        recv = all_to_all([r[0].reshape(ep, E_loc, C, D) for r in routed])
-        outb = [_experts(ps[e], recv[e].transpose(0, 1).reshape(E_loc, ep * C, D))
-                for e in range(ep)]
+        recv = all_to_all([r[0].reshape(ep, E_loc, C, D) for r in routed], group=group)
+        outb = [_experts(pe, recv[i].transpose(0, 1).reshape(E_loc, ep * C, D))
+                for i, pe in enumerate(ps)]
         # and back: rank e's slots of source j's tokens go to rank j
-        back = all_to_all([o.reshape(E_loc, ep, C, D).transpose(0, 1) for o in outb])
-        for e, (_disp, slot, w, st) in enumerate(routed):
-            y = back[e].reshape(E * C, D)[slot] * w[:, None]
+        back = all_to_all([o.reshape(E_loc, ep, C, D).transpose(0, 1) for o in outb],
+                          group=group)
+        for i, (_disp, slot, w, st) in enumerate(routed):
+            y = back[i].reshape(E * C, D)[slot] * w[:, None]
             outs.append(y.reshape(n_loc, -1, D).sum(dim=1).to(x.device))
             stats.append(st.to(x.device))
-    out = torch.cat(outs)[:N].reshape(B, T, D)
+    out = torch.cat(outs)
+    if len(mine) < ep:  # every process goes on with the whole batch
+        out = gather_from_ranks(out, 0, group)
+    out = out[:N].reshape(B, T, D)
     if not with_aux:
         return out
-    assign, prob_sum, n_valid = sum(stats)
+    total = sum(stats)
+    if len(mine) < ep:
+        total = reduce_from_ranks(total, group)
+    assign, prob_sum, n_valid = total
     k = cfg.n_expert_per_token
     f = assign / torch.clamp(n_valid * k, min=1.0)
     pm = prob_sum / torch.clamp(n_valid, min=1.0)

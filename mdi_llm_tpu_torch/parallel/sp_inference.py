@@ -35,8 +35,19 @@ runs once per device.  What differs from the JAX package:
   `"force"` is accepted as a synonym of True.
 - Sampling draws once per step from the first rank's device generator
   for the whole batch.
-- The ranks of one process only: an sp mesh over processes is ROADMAP
-  item 19 and refused.
+
+Across processes (`mesh` from `make_mesh({"sp": P}, [device], process_id,
+num_processes)`, the sample CLI's `--coordinator`), a process holds a
+contiguous range of the sp ranks: their chunks of the prompt and their
+cache shards (the lists of per-rank state hold None at the other
+processes' ranks).  Each layer's K/V chunks reach the other processes
+before the ring runs (`ring_attention(group=...)`, one all-gather);
+each decode step's K/V is written by the process that owns its slot
+only, and `ring_decode` merges over the processes in two all-reduces.
+The hidden row of each sample's last prompt token comes from the
+process that holds it (one all-reduce of the rows, zero elsewhere), so
+every process runs the head on the same rows and, its generator seeded
+alike, draws the same tokens.
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ from mdi_llm_tpu_torch.ops.flash import KERNEL_HEAD_SIZES
 from mdi_llm_tpu_torch.ops.quant import FLAG_TO_MODE, quantize_params
 from mdi_llm_tpu_torch.ops.ring_attention import ring_attention, ring_decode
 from mdi_llm_tpu_torch.ops.sampling import sample
+from mdi_llm_tpu_torch.parallel.collectives import CommGroup
 from mdi_llm_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mdi_llm_tpu_torch.utils.context_managers import catch_loop_errors
 
@@ -81,7 +93,8 @@ class SPGenerator:
     `devices` (default: the CUDA devices; one entry puts every rank on it)
     and `n_devices` (default: one rank per device) build the mesh
     `make_mesh({"sp": n_devices}, devices)`; or pass `mesh`, whose axes
-    other than sp have size 1."""
+    other than sp have size 1, over the processes of a job or in this
+    one."""
 
     def __init__(
         self,
@@ -111,15 +124,15 @@ class SPGenerator:
         if extra:
             raise ValueError(f"mesh {mesh.shape}: an sp mesh has no other axis above "
                              "size 1")
-        if mesh.num_processes > 1:
-            raise NotImplementedError(
-                f"SPGenerator over {mesh.num_processes} processes is not ported yet "
-                "(ROADMAP item 19, sp over processes): its ranks share this process")
         self.mesh = mesh
         self.P = int(mesh.size)
         self.cfg = cfg
         transformer.check_supported(cfg)
-        self.devices = [resolve_device(d) for d in mesh.device_list()]
+        # this process's ranks (all of them in one process), and the
+        # processes' group across a job
+        self.local = list(mesh.owned())
+        self._group = CommGroup(range(mesh.num_processes)) if mesh.num_processes > 1 else None
+        self.devices = [resolve_device(mesh.device_list()[r]) for r in self.local]
         self.device = self.devices[0]
         self.max_seq_length = int(min(max_seq_length or cfg.block_size, cfg.block_size))
         trees: Dict[torch.device, dict] = {}
@@ -157,6 +170,14 @@ class SPGenerator:
         B = self._last_kp.shape[0]
         return self._last_kp.reshape(B, self.P, -1)
 
+    def _whole_kp(self, kp) -> np.ndarray:
+        """Every rank's kp joined on the host, (B, P * C): across processes
+        gathered from the processes that hold them (one call)."""
+        mine = torch.cat([kp[r] for r in self.local], dim=1)
+        if self._group is not None:
+            mine = self._group.all_gather(mine, dim=1)
+        return mine.cpu().numpy()
+
     def kv_bytes(self, B: int, C: int) -> int:
         """One rank's cache bytes for B rows of C slots."""
         cfg = self.cfg
@@ -165,70 +186,90 @@ class SPGenerator:
 
     # -- the steps -----------------------------------------------------------
 
-    def _init_kv(self, B: int, C: int) -> List[Dict[str, torch.Tensor]]:
-        """Each rank's cache shard {"k", "v"} (L, B, G, C, hs) on its device."""
-        return [transformer.init_kv_cache(self.cfg, B, C, dtype=self.cache_dtype, device=d)
-                for d in self.devices]
+    def _init_kv(self, B: int, C: int) -> List[Optional[Dict[str, torch.Tensor]]]:
+        """Each rank's cache shard {"k", "v"} (L, B, G, C, hs) on its device
+        (None at another process's rank)."""
+        kv: List[Optional[Dict[str, torch.Tensor]]] = [None] * self.P
+        for r, d in zip(self.local, self.devices):
+            kv[r] = transformer.init_kv_cache(self.cfg, B, C, dtype=self.cache_dtype, device=d)
+        return kv
 
     def _prefill(self, toks: np.ndarray, lens: Sequence[int], kv, Tl: int, C: int):
         """The ring prefill of the (B, Tl * P) prompt bucket: each rank's
         chunk into its shard at local offset 0.  Returns (each rank's kp
-        (B, C), the float32 logits (B, V) at each sample's last prompt
-        token, on the first rank's device)."""
+        (B, C), None at another process's rank; the float32 logits (B, V)
+        at each sample's last prompt token, on the first rank's device)."""
         B, P, ranks = toks.shape[0], self.P, self.ranks
-        tokens, pos, kp = [], [], []
-        for d, dev in enumerate(self.devices):
+        tokens, pos, kp = [], [], [None] * P
+        for d, dev in zip(self.local, self.devices):
             tokens.append(torch.as_tensor(toks[:, d * Tl:(d + 1) * Tl], device=dev).long())
             gpos = torch.arange(d * Tl, (d + 1) * Tl, device=dev)
             pos.append(gpos.expand(B, Tl))
             lens_d = torch.as_tensor(np.asarray(lens), device=dev)[:, None]
-            kp.append(torch.cat([
+            kp[d] = torch.cat([
                 torch.where(gpos[None] < lens_d, gpos[None], POS_SENTINEL),
-                torch.full((B, C - Tl), POS_SENTINEL, dtype=torch.long, device=dev)], dim=1))
+                torch.full((B, C - Tl), POS_SENTINEL, dtype=torch.long, device=dev)], dim=1)
         use_flash = self.use_flash and Tl >= self.flash_min_len
         cos, sin = ranks.positions(pos, self.ropes)
+        k_pos = pos  # the ring's key positions: every rank's
+        if self._group is not None:
+            k_pos = [torch.arange(d * Tl, (d + 1) * Tl, device=self.device).expand(B, Tl)
+                     for d in range(P)]
 
         def attend(i, qs, ks, vs):
-            for r in range(P):
-                kv[r]["k"][i][:, :, :Tl] = ks[r].to(self.cache_dtype)
-                kv[r]["v"][i][:, :, :Tl] = vs[r].to(self.cache_dtype)
+            for j, r in enumerate(self.local):
+                kv[r]["k"][i][:, :, :Tl] = ks[j].to(self.cache_dtype)
+                kv[r]["v"][i][:, :, :Tl] = vs[j].to(self.cache_dtype)
             # q_pos == k_pos == the rank's contiguous chunk; padded bucket
             # positions sit after the prompt, so the causal mask hides them
-            return ring_attention(qs, ks, vs, pos, pos, use_flash=use_flash)
+            return ring_attention(qs, ks, vs, pos, k_pos, use_flash=use_flash,
+                                  group=self._group)
 
         x = ranks.blocks(ranks.embed(tokens, pos), cos, sin, attend)
         rows = []
         for b, n in enumerate(lens):
             d = (n - 1) // Tl
-            rows.append(x[d][b, n - 1 - d * Tl].to(self.device))
-        last = ranks.head(torch.stack(rows)[:, None])[:, 0].float()
+            if d in self.local:
+                rows.append(x[self.local.index(d)][b, n - 1 - d * Tl].to(self.device))
+            else:
+                rows.append(torch.zeros_like(x[0][b, 0]).to(self.device))
+        rows = torch.stack(rows)
+        if self._group is not None:
+            # each row from the process that holds it: a sum with zeros
+            self._group.all_reduce_(rows)
+        last = ranks.head(rows[:, None])[:, 0].float()
         return kp, last
 
     def _step(self, kv, kp, tok: torch.Tensor, pos: torch.Tensor, owner: int, loc: int,
               write: bool = True) -> torch.Tensor:
         """One decode step of the tokens `tok` (B,) at positions `pos` (B,):
         rank `owner` writes their K/V at its local slot `loc` (with
-        `write`); every rank's shard is read through `kp`.  Returns the
-        logits (B, V) on the first rank's device."""
+        `write`, on its process); every rank's shard is read through `kp`.
+        Returns the logits (B, V) on the first rank's device."""
         ranks = self.ranks
         toks = ranks.rep(lambda r: tok.to(self.devices[r])[:, None])
         p = ranks.rep(lambda r: pos.to(self.devices[r])[:, None])
         cos, sin = ranks.positions(p, self.ropes, replicated=True)
 
         def attend(i, qs, ks, vs):
-            if write:
-                kv[owner]["k"][i][:, :, loc] = ks[owner][:, :, 0].to(self.cache_dtype)
-                kv[owner]["v"][i][:, :, loc] = vs[owner][:, :, 0].to(self.cache_dtype)
-            return ring_decode(qs, [c["k"][i] for c in kv], [c["v"][i] for c in kv], kp, p)
+            if write and kv[owner] is not None:
+                j = self.local.index(owner)
+                kv[owner]["k"][i][:, :, loc] = ks[j][:, :, 0].to(self.cache_dtype)
+                kv[owner]["v"][i][:, :, loc] = vs[j][:, :, 0].to(self.cache_dtype)
+            return ring_decode(qs, [kv[r]["k"][i] for r in self.local],
+                               [kv[r]["v"][i] for r in self.local],
+                               [kp[r] for r in self.local], p, group=self._group)
 
         x = ranks.blocks(ranks.embed(toks, p, replicated=True), cos, sin, attend,
                          replicated=True)
         return ranks.head(x[0])[:, -1]
 
     def _stamp(self, kp, step: int, Tl: int, pos: torch.Tensor) -> Tuple[int, int]:
-        """Stamp decode step `step`'s slot with `pos`: (owner, local slot)."""
+        """Stamp decode step `step`'s slot with `pos` (on the owner's
+        process): (owner, local slot)."""
         owner, loc = step % self.P, Tl + step // self.P
-        kp[owner][:, loc] = pos.to(kp[owner].device)
+        if kp[owner] is not None:
+            kp[owner][:, loc] = pos.to(kp[owner].device)
         return owner, loc
 
     def _decode(self, kv, kp, tok, pos, step0: int, n_steps: int, Tl: int, sampling):
@@ -334,7 +375,7 @@ class SPGenerator:
                     stats.tok_time.append(
                         (sum(len(o) - l for o, l in zip(out, lens)), time.perf_counter() - t0))
         stats.interrupted = guard.interrupted
-        self._last_kp = torch.cat([k.cpu() for k in kp], dim=1).numpy()
+        self._last_kp = self._whole_kp(kp)
         stats.decode_s = time.perf_counter() - t0 - stats.prefill_s
         trimmed = []
         for o, l in zip(out, lens):
@@ -458,7 +499,8 @@ class SPChatSession:
         (a rejected draft, a stop-trimmed reply)."""
         P = self.gen.P
         for s in range(first_step, first_step + n):
-            self._kp[s % P][0, self._Tl + s // P] = POS_SENTINEL
+            if self._kp[s % P] is not None:  # the owner's process clears it
+                self._kp[s % P][0, self._Tl + s // P] = POS_SENTINEL
 
     def _send(self, turn, max_new, temperature, top_k, top_p, stop_sequences,
               speculative=None):

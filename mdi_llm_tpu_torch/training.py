@@ -42,12 +42,25 @@ dp x ep:
   holds a contiguous block of positions (`MeshLayout`): whole dp
   coordinates, and either every stage with whole tp groups or a part of
   one, or a contiguous range of stages each with its whole tp group (the
-  mesh's axes in the order dp, pp, tp).  The tp collectives then run
-  through `torch.distributed` under autograd (`parallel/collectives.py`),
-  the gradients are summed over the processes that hold the same stages
-  and tp slice (once per step, after accumulation), the clip's norm
+  mesh's axes in the order dp, pp, tp), or a contiguous range of the sp
+  ranks (with their whole tp groups) or of the ep ranks.  The tp
+  collectives then run through `torch.distributed` under autograd
+  (`parallel/collectives.py`), the gradients are summed over the
+  processes that hold the same stages, tp and ep slice (other replicas,
+  other sp chunks; once per step, after accumulation), the clip's norm
   counts each replicated leaf once, and process 0 writes the checkpoint
   after a gather.  Every process samples the same global batch.
+- sp over processes: a process runs its ranks' chunks only; each
+  layer's K/V chunks pass between the processes under autograd
+  (`ring_attention(group=...)`, an all-gather whose backward sums the
+  cotangent over them); the loss and the MoE aux's assignments sum over
+  the sp processes as over dp.  ep over processes (dp of size 1): a
+  process holds its ranks' expert slices only (`parallel.expert.
+  local_experts`; the tree's split leaves, gathered for `save` as tp
+  slices are), runs the whole batch's replicated layers, and exchanges
+  its ranks' tokens with the other processes (`ep_moe_forward(group=
+  ...)`): the gradients outside the experts come out whole on every
+  process, each expert's on its owner.
 - GPipe stages on other processes: a process holds the layers of its
   stages only (the embedding with stage 0; the final norm and the head,
   and a tied embedding, with the last), runs only those stages in the
@@ -81,8 +94,8 @@ What differs from the JAX package:
   dense formulation (`transformer.moe_forward`) except on an ep mesh;
   `moe_capacity_factor` acts only on an ep mesh's dispatch.  Eval is pure
   cross-entropy, as the JAX Trainer's.
-- sp and ep run in one process: over processes they are ROADMAP item 19.
-  ep beside tp (which the JAX Trainer lays out under GSPMD) is item 20.
+- ep beside tp (which the JAX Trainer lays out under GSPMD) is ROADMAP
+  item 20.
 - The optimizer is written out (`AdamW`) with optax's arithmetic:
   `clip_by_global_norm` divides by the norm itself (torch's
   `clip_grad_norm_` adds 1e-6), the moments are float32, the update of
@@ -104,6 +117,7 @@ What differs from the JAX package:
 from __future__ import annotations
 
 import json
+import math
 import sys
 import time
 from dataclasses import asdict, dataclass
@@ -311,22 +325,26 @@ class MeshLayout:
 
     Sizes `dp`, `tp`, `pp`, `sp`, `ep` (1 where the mesh lacks the axis); this
     process's dp coordinates `dp_coords`, its stages `stages` (a range
-    (s0, s1) of the pp axis) and its tp coordinates `tp_start`, `tp_start
-    + tp_local`.  The `parallel.collectives.CommGroup`s, each None when
-    this process holds the whole axis: `tp_group`, the processes holding
-    the other tp ranks of its stages and replicas; `dp_group`, those
-    holding the same stages and tp ranks of the other replicas; `pp_group`,
-    those holding the other stages of its replica and tp ranks, in stage
-    order (`pp_stages` their stage ranges); `tie_group` (with `tie`, the
-    tied embedding) the first and last of the pp group.  Every process
-    builds every group, in one order.
+    (s0, s1) of the pp axis), its tp coordinates `tp_start`, `tp_start
+    + tp_local`, its sp ranks `sp_start`, `sp_start + sp_local` and its ep
+    ranks `ep_start`, `ep_start + ep_local`.  The
+    `parallel.collectives.CommGroup`s, each None when this process holds
+    the whole axis: `tp_group`, the processes holding the other tp ranks
+    of its stages and replicas; `dp_group`, those holding the same stages,
+    tp and ep ranks of the other replicas and the other sp chunks (the
+    gradients, the loss and the aux's assignments sum over it);
+    `pp_group`, those holding the other stages of its replica and tp
+    ranks, in stage order (`pp_stages` their stage ranges); `sp_group`,
+    those holding the other sp ranks of its replicas (the ring);
+    `ep_group`, those holding the other ep ranks (the expert exchange);
+    `tie_group` (with `tie`, the tied embedding) the first and last of
+    the pp group.  Every process builds every group, in one order.
 
     A process holds whole dp coordinates, and either every stage with a
     contiguous part of the tp axis, or a contiguous range of stages each
     with its whole tp group (the mesh's axes then in the order dp, pp,
-    tp).  It holds every sp and ep coordinate: the ranks of a sequence
-    or expert split share one process (sp and ep over processes are
-    ROADMAP item 19)."""
+    tp), or a contiguous range of the sp ranks with their whole tp
+    groups, or (with dp of size 1) a contiguous range of the ep ranks."""
 
     def __init__(self, mesh: Mesh, tie: bool = False):
         for axis, size in mesh.shape.items():
@@ -335,31 +353,35 @@ class MeshLayout:
                                  f"has the axes {TRAIN_AXES}")
         self.dp, self.tp, self.pp, self.sp, self.ep = (int(mesh.shape.get(a, 1))
                                                        for a in TRAIN_AXES)
-        for axis, size in (("sp", self.sp), ("ep", self.ep)):
-            if size > 1 and mesh.num_processes > 1:
-                _refuse(f"a training mesh with {axis}={size} over {mesh.num_processes} "
-                        "processes (the ranks of an sp or ep split share one process)",
-                        "item 19")
         coords = list(mesh.positions())
         spans = [self._span(mesh, coords, p) for p in range(mesh.num_processes)]
-        self.dp_coords, self.stages, self.tp_start, self.tp_local = spans[mesh.process_id]
+        (self.dp_coords, self.stages, (self.tp_start, self.tp_local),
+         (self.sp_start, self.sp_local), (self.ep_start, self.ep_local)) = spans[mesh.process_id]
         self.tp_group = self.dp_group = self.pp_group = self.tie_group = None
+        self.sp_group = self.ep_group = None
         self.pp_stages = [self.stages]
         if mesh.num_processes == 1:
             return
-        tables: Dict[str, Dict[tuple, list]] = {"tp": {}, "dp": {}, "pp": {}}
-        for p, (dps, sts, t0, k) in enumerate(spans):
-            tables["tp"].setdefault((dps, sts), []).append((t0, p))
-            tables["dp"].setdefault((sts, t0, k), []).append((dps, p))
-            tables["pp"].setdefault((dps, t0, k), []).append((sts, p))
-        for key, members in tables["tp"].items():
-            if sorted(t for t, _ in members) != list(range(0, self.tp, self.tp_local)):
-                raise ValueError(f"the processes holding dp coordinates and stages {key} do "
-                                 f"not hold each tp rank once: {members}")
+        # per kind of group: {what its members share: [(where they differ, process)]}
+        tables: Dict[str, Dict[tuple, list]] = {k: {} for k in ("tp", "dp", "pp", "sp", "ep")}
+        for p, (dps, sts, tp, sp, ep) in enumerate(spans):
+            tables["tp"].setdefault((dps, sts, sp, ep), []).append((tp, p))
+            tables["dp"].setdefault((sts, tp, ep), []).append(((sp, dps), p))
+            tables["pp"].setdefault((dps, tp, sp, ep), []).append((sts, p))
+            tables["sp"].setdefault((dps, sts, tp, ep), []).append((sp, p))
+            tables["ep"].setdefault((dps, sts, tp, sp), []).append((ep, p))
+        for kind, size in (("tp", self.tp), ("sp", self.sp), ("ep", self.ep)):
+            for key, members in tables[kind].items():
+                starts = sorted(a for (a, _), _ in members)
+                if starts != list(range(0, size, members[0][0][1])):
+                    raise ValueError(f"the processes holding {key} do not hold each {kind} "
+                                     f"rank once: {members}")
         for key, members in tables["dp"].items():
-            if sorted(d for dps, _ in members for d in dps) != list(range(self.dp)):
-                raise ValueError(f"the processes holding stages and tp ranks {key} do not "
-                                 f"hold each dp coordinate once: {members}")
+            held = sorted((d, s) for ((s0, k), dps), _ in members
+                          for d in dps for s in range(s0, s0 + k))
+            if held != [(d, s) for d in range(self.dp) for s in range(self.sp)]:
+                raise ValueError(f"the processes holding stages, tp and ep ranks {key} do not "
+                                 f"hold each dp coordinate and sp rank once: {members}")
         for key, members in tables["pp"].items():
             edges = sorted(members)
             if [a for (a, _), _ in edges] != [0] + [b for (_, b), _ in edges[:-1]] \
@@ -367,7 +389,7 @@ class MeshLayout:
                 raise ValueError(f"the processes holding dp coordinates and tp ranks {key} "
                                  f"do not hold each stage once: {members}")
         # every process builds every group, in one order
-        for kind in ("tp", "dp", "pp"):
+        for kind in ("tp", "dp", "pp", "sp", "ep"):
             for key in sorted(tables[kind]):
                 ranks = [p for _, p in sorted(tables[kind][key])]
                 if len(ranks) == 1:
@@ -383,18 +405,23 @@ class MeshLayout:
                         self.tie_group = tied
 
     def _span(self, mesh: Mesh, coords, p: int):
+        """Process p's (dp coordinates, (first stage, end), and (start,
+        count) of its tp, sp and ep ranks)."""
         own = [coords[i] for i in mesh.owned(p)]
         dps = tuple(sorted({c.get("dp", 0) for c in own}))
-        tps = sorted({c.get("tp", 0) for c in own})
         sts = sorted({c.get("pp", 0) for c in own})
+        held = {a: sorted({c.get(a, 0) for c in own}) for a in ("tp", "sp", "ep")}
         where = f"process {p} of {mesh.num_processes} holds the mesh positions {own}"
-        if (len(own) != len(dps) * len(tps) * len(sts) * self.sp * self.ep
-                or tps != list(range(tps[0], tps[0] + len(tps))) or self.tp % len(tps)
-                or sts != list(range(sts[0], sts[0] + len(sts)))):
+        size = {"tp": self.tp, "sp": self.sp, "ep": self.ep}
+        if (len(own) != len(dps) * len(sts) * math.prod(len(v) for v in held.values())
+                or sts != list(range(sts[0], sts[-1] + 1))
+                or any(v != list(range(v[0], v[-1] + 1)) or size[a] % len(v)
+                       for a, v in held.items())):
             raise ValueError(
                 f"{where}: a process holds whole dp coordinates, a contiguous range of "
-                "stages and a contiguous part of the tp axis (order the mesh's axes dp, "
-                "pp, tp)")
+                "stages and contiguous parts of the tp, sp and ep axes (order the mesh's "
+                "axes dp, pp, sp, ep, tp)")
+        tps = held["tp"]
         if len(sts) < self.pp:
             names = [a for a in mesh.axis_names if mesh.shape[a] > 1]
             if names != [a for a in ("dp", "pp", "tp") if a in names]:
@@ -408,18 +435,39 @@ class MeshLayout:
                     f"{where}: a process that holds part of the pp axis holds each of its "
                     "stages with the whole tp group (a stage hop between processes that "
                     "each hold part of a tp group is not ported)")
-        return dps, (sts[0], sts[-1] + 1), tps[0], len(tps)
+        if len(held["sp"]) < self.sp and len(tps) < self.tp:
+            raise ValueError(
+                f"{where}: a process that holds part of the sp axis holds each of its sp "
+                "ranks with the whole tp group (the ring runs per tp rank over the sp "
+                "ranks; a ring between processes that each hold part of a tp group is "
+                "not ported)")
+        if len(held["ep"]) < self.ep and self.dp > 1:
+            raise ValueError(
+                f"{where}: the ep axis splits over processes at dp=1 only: every process "
+                "runs the whole batch's replicated layers beside its experts, so the "
+                f"batch's rows do not split over dp={self.dp} there")
+        return (dps, (sts[0], sts[-1] + 1),
+                *((v[0], len(v)) for v in (held["tp"], held["sp"], held["ep"])))
 
     @property
     def counts_replicated(self) -> bool:
         """Whether this process counts the replicated leaves in the clip's
-        norm (the first of its tp group)."""
-        return self.tp_group is None or self.tp_group.index == 0
+        norm (the first of its tp and ep groups)."""
+        return all(g is None or g.index == 0 for g in (self.tp_group, self.ep_group))
 
     @property
     def split_stages(self) -> bool:
         """Whether the pp axis is split over processes."""
         return self.pp_group is not None
+
+    @property
+    def shard(self):
+        """How this process's tree is cut: (the group over which its split
+        leaves are gathered, the number of slices, its slice), from the tp
+        axis or, when the ep axis splits over processes, the ep axis."""
+        if self.ep_local < self.ep:
+            return self.ep_group, self.ep // self.ep_local, self.ep_start // self.ep_local
+        return self.tp_group, self.tp // self.tp_local, self.tp_start // self.tp_local
 
 
 def _with_leaves(tree, leaves):
@@ -502,7 +550,13 @@ class Trainer:
         # the whole standard tree's shapes, and this process's split dims
         self._meta = transformer.tree_map(lambda x: torch.empty_like(x, device="meta"),
                                           params)
-        self._dims = transformer.tree_leaves(self._stage_tree(split_dims(cfg, params)))
+        if self.layout is not None and self.layout.ep_local < self.layout.ep:
+            from mdi_llm_tpu_torch.parallel.expert import ep_dims
+
+            dims = ep_dims(params)  # the experts split over the processes
+        else:
+            dims = split_dims(cfg, params)
+        self._dims = transformer.tree_leaves(self._stage_tree(dims))
         if self.layout is not None and mesh.num_processes > 1:
             import torch.distributed as dist
 
@@ -602,16 +656,15 @@ class Trainer:
     def _split(self) -> bool:
         """Whether this process holds part of the tree."""
         lay = self.layout
-        return lay is not None and (lay.tp_local < lay.tp or lay.stages != (0, lay.pp))
+        return lay is not None and (lay.tp_local < lay.tp or lay.ep_local < lay.ep
+                                    or lay.stages != (0, lay.pp))
 
     def _local(self, leaves) -> List[torch.Tensor]:
         """This process's part of the whole tree's standard-layout
-        `leaves`: its stages and its tp slice (copies)."""
-        lay = self.layout
+        `leaves`: its stages and its tp (or ep) slice (copies)."""
         leaves = transformer.tree_leaves(self._stage_tree(_with_leaves(self._meta, leaves)))
-        n = lay.tp // lay.tp_local
-        return [tp_slice(x, d, n, lay.tp_start // lay.tp_local).clone()
-                for x, d in zip(leaves, self._dims)]
+        _, n, index = self.layout.shard
+        return [tp_slice(x, d, n, index).clone() for x, d in zip(leaves, self._dims)]
 
     def _to_local_tree(self, params):
         if not self._split:
@@ -621,8 +674,9 @@ class Trainer:
 
     def _standard(self, leaves) -> List[torch.Tensor]:
         """`leaves` of this process's tree in the standard layout
-        (collective over the tp group)."""
-        group = None if self.layout is None else self.layout.tp_group
+        (collective over the tp group, or the ep group whose experts it
+        splits)."""
+        group = None if self.layout is None else self.layout.shard[0]
         return unshard_params(leaves, self._dims, group)
 
     def _whole(self, leaves, dtype=None) -> Optional[List[torch.Tensor]]:
@@ -700,19 +754,22 @@ class Trainer:
         for d in lay.dp_coords:
             xd, yd = x[d * rows:(d + 1) * rows], y[d * rows:(d + 1) * rows]
             if lay.sp > 1:
-                # each sp rank its contiguous chunk of the rows, at its offset
+                # each sp rank of this process its contiguous chunk of the
+                # rows, at its offset; the ring's K/V cross the sp group
                 Tl = T // lay.sp
+                mine = range(lay.sp_start, lay.sp_start + lay.sp_local)
                 starts = [torch.full((rows,), s * Tl, dtype=torch.long, device=xd.device)
-                          for s in range(lay.sp)]
+                          for s in mine]
+                xs_, ys_ = xd.split(Tl, dim=1), yd.split(Tl, dim=1)
                 out = transformer.sp_forward(
-                    cfg, [ranks] * lay.sp, list(xd.split(Tl, dim=1)), starts,
+                    cfg, [ranks] * lay.sp_local, [xs_[s] for s in mine], starts,
                     use_flash=self.use_flash, flash_kernel=self.flash_kernel, remat=remat,
-                    collect_moe_aux=collect)
-                self.layer_runs += cfg.n_layer * lay.sp ** 2 * lay.tp_local
+                    collect_moe_aux=collect, group=lay.sp_group)
+                self.layer_runs += cfg.n_layer * lay.sp_local * lay.sp * lay.tp_local
                 logits_s = out[0] if collect else out
                 if collect:
                     stats = stats + out[1]
-                for logits, ys in zip(logits_s, yd.split(Tl, dim=1)):
+                for logits, ys in zip(logits_s, [ys_[s] for s in mine]):
                     ce = ce + F.cross_entropy(logits.float().flatten(0, 1),
                                               ys.flatten().long(), reduction="sum")
                 continue
@@ -753,7 +810,8 @@ class Trainer:
 
         impl = partial(ep_moe_forward, mesh=self.mesh,
                        capacity_factor=self.tc.moe_capacity_factor,
-                       dp_axis="dp" if "dp" in self.mesh.axis_names else None)
+                       dp_axis="dp" if "dp" in self.mesh.axis_names else None,
+                       group=self.layout.ep_group)
         self.layer_runs += self.cfg.n_layer
         return cross_entropy_loss(
             self.cfg, self.params, x, y, remat=remat, use_flash=self.use_flash,
@@ -842,21 +900,22 @@ class Trainer:
 
     def _grad_norm(self, grads) -> torch.Tensor:
         """The global norm of the whole tree's gradients: split leaves
-        summed over the tp group, replicated leaves counted once, each
-        stage's leaves on its process (summed over the pp group), a tied
-        embedding once (on stage 0's process)."""
+        summed over the tp (or ep) group, replicated leaves counted once,
+        each stage's leaves on its process (summed over the pp group), a
+        tied embedding once (on stage 0's process)."""
         lay = self.layout
         skip = self._wte_index if lay.stages[0] > 0 else None
         sq = torch.stack([g.square().sum() for i, (g, d) in enumerate(zip(grads, self._dims))
                           if (d is not None or lay.counts_replicated) and i != skip]).sum()
-        for group in (lay.tp_group, lay.pp_group):
+        for group in (lay.tp_group, lay.ep_group, lay.pp_group):
             if group is not None:
                 group.all_reduce_(sq)
         return sq.sqrt()
 
     def _global_value(self, loss: torch.Tensor) -> torch.Tensor:
-        """A detached per-process loss summed over the dp group, then over
-        the pp group (only the last stage's processes hold a part)."""
+        """A detached per-process loss summed over the dp group (other
+        replicas and sp chunks), then over the pp group (only the last
+        stage's processes hold a part)."""
         v = loss.detach().clone()
         for group in (() if self.layout is None
                       else (self.layout.dp_group, self.layout.pp_group)):

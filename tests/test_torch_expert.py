@@ -28,6 +28,7 @@ import shutil
 import sys
 from dataclasses import asdict
 from functools import partial
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -259,8 +260,9 @@ def test_chat_session_on_ep_mesh(moe_model):
 def test_ep_generator_guards(moe_model):
     """A dense config on an ep mesh runs as without one (the JAX
     Generator's), `n_expert % ep` is refused in its words, serving refuses
-    ep (the JAX engine's message), ep beside another axis is item 20 and
-    ep over processes item 19."""
+    ep (the JAX engine's message), ep beside another axis is item 20, and
+    an ep mesh over processes is accepted, each process keeping its ranks'
+    experts (the exchange runs in `tests/test_torch_sp_ep_inference_procs.py`)."""
     _cfg, _jp, tc, tp = moe_model
     dense_cfg = TConfig(**moe_config(mlp_class_name="LLaMAMLP").asdict())
     dp = ttf.init_params(dense_cfg, 0)
@@ -275,9 +277,15 @@ def test_ep_generator_guards(moe_model):
         gen.serve(block_size=8, max_batch=2)
     with pytest.raises(NotImplementedError, match="item 20"):
         Generator(tc, tp, max_seq_length=64, device="cpu", mesh=tmesh({"tp": 2, "ep": 2}))
-    with pytest.raises(ValueError, match="item 19"):
-        Generator(tc, tp, max_seq_length=64, device="cpu",
-                  mesh=make_mesh({"ep": 2}, ["cpu"], process_id=0, num_processes=2))
+    with mock.patch("mdi_llm_tpu_torch.parallel.collectives.CommGroup") as group:
+        gen = Generator(tc, tp, max_seq_length=64, device="cpu",
+                        mesh=make_mesh({"ep": 2}, ["cpu"], process_id=1, num_processes=2))
+    group.assert_called_once_with(range(2))
+    assert gen._group is group.return_value and not gen._graphs
+    n = tc.n_expert // 2
+    for a, b in zip(ttf.tree_leaves(gen.params["blocks"]["mlp"]["experts"]),
+                    ttf.tree_leaves(tp["blocks"]["mlp"]["experts"])):
+        assert torch.equal(a, b[:, n:])  # its rank's experts only
 
 
 def _tcs(**kw):

@@ -17,6 +17,8 @@ from the Generator's distribution; the sample and chat CLIs run
 `--sp-devices`.
 """
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,7 @@ from mdi_llm_tpu_torch.convert import params_from_numpy
 from mdi_llm_tpu_torch.generation import Generator, _bucket
 from mdi_llm_tpu_torch.ops import flash as tflash
 from mdi_llm_tpu_torch.parallel.mesh import make_mesh
+from mdi_llm_tpu_torch.parallel import sp_inference
 from mdi_llm_tpu_torch.parallel.sp_inference import POS_SENTINEL, SPGenerator
 from tests.test_model import CONFIG_VARIANTS, tiny_config
 
@@ -314,20 +317,21 @@ def test_sp_chat_session_speculative_stop_rollback(model, devices):
 
 
 def test_sp_refusals(model):
-    """An sp mesh over processes is ROADMAP item 19, not item 16; a mesh
-    with another axis above size 1 is refused."""
-    mesh = make_mesh({"sp": 2}, ["cpu"], process_id=0, num_processes=2)
-    with pytest.raises(NotImplementedError, match="item 19") as e:
-        SPGenerator(model[2], model[3], mesh=mesh)
-    assert "item 16" not in str(e.value)
+    """An sp mesh over processes is accepted (the process holds its ranks:
+    the group's collectives run in `tests/test_torch_sp_ep_inference_procs.py`);
+    a mesh with another axis above size 1 is refused."""
+    mesh = make_mesh({"sp": 4}, ["cpu"], process_id=1, num_processes=2)
+    with mock.patch.object(sp_inference, "CommGroup") as group:
+        gen = SPGenerator(model[2], model[3], mesh=mesh)
+    group.assert_called_once_with(range(2))
+    assert (gen.P, gen.local, gen.ranks.P) == (4, [2, 3], 2)
     with pytest.raises(ValueError, match="no other axis"):
         SPGenerator(model[2], model[3], mesh=make_mesh({"sp": 2, "tp": 2}, ["cpu"]))
 
 
 def test_sample_cli_sp_devices_generates_the_single_streams():
     """`sample --sp-devices 2` (and with `--sp-flash`) prints the single
-    device's greedy float32 streams; with `--coordinator` it is refused
-    naming item 19."""
+    device's greedy float32 streams."""
     from mdi_llm_tpu_torch.cli import sample as cli
 
     base = ["--device", "cpu", "--model", "pythia-14m", "--greedy", "--dtype", "float32",

@@ -13,8 +13,8 @@ and `tests/test_expert.py`'s training cases).
   K3 and K4 P^2 calls per layer, tp rank and dp row group (remat).
 - The MoE aux on a (dp, sp) mesh is the whole batch's: the router stats
   summed over dp and sp before the aux is formed.
-- pp x sp and ep x sp are refused in the JAX package's words; sp and ep
-  over processes cite ROADMAP item 19.
+- pp x sp and ep x sp are refused in the JAX package's words (sp and ep
+  over processes: `tests/test_torch_sp_ep_training_procs.py`).
 - `train --mesh dp=2,sp=2` and `dp=2,ep=2` on a converted tiny Mixtral
   (`--init hf`): the JAX CLI's loss lines.
 """
@@ -163,17 +163,6 @@ def test_pp_sp_and_ep_sp_refused_in_the_jax_words():
     with pytest.raises(ValueError, match=r"pp composes with dp/tp only \(pp×sp"):
         jtr.Trainer(jc, tcs()[0], mesh=jmesh.make_mesh({"dp": 1, "pp": 2, "sp": 2},
                                                        jax.devices()[:4]))
-
-
-@pytest.mark.parametrize("axes", [{"dp": 1, "sp": 2}, {"dp": 1, "ep": 2}],
-                         ids=["sp", "ep"])
-def test_sp_and_ep_over_processes_cite_item_19(axes):
-    mesh = make_mesh(axes, ["cpu"], process_id=0, num_processes=2)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        ttr.MeshLayout(mesh)
-    # one process holding every sp or ep rank is the layout
-    lay = ttr.MeshLayout(make_mesh(axes, ["cpu"]))
-    assert (lay.sp, lay.ep) == (axes.get("sp", 1), axes.get("ep", 1))
 
 
 @pytest.mark.parametrize("mesh", ["dp=2,sp=2", "dp=2,ep=2"])
