@@ -186,10 +186,10 @@ remat) compiled instead of compiling them again.
 15. graphs — the engine's and the Generator's steps as CUDA graphs
    (the default everywhere above) against eager launches of the same step
    bodies (the private `_graphs=False` switch), at full tiny-llama-1.1b
-   width and depth in bf16: the serve phase's trace at `GRAPH_TOKENS` (32)
+   width and depth in bf16: the serve phase's trace at `GRAPH_TOKENS` (16)
    new tokens through `cli.build` + `engine.run()` over a bf16 pool in
    turns eager, graph, graph, eager, over int8 and e4m3 pools eager then
-   graph, and the generate phase's prompts with 32 new tokens in turns
+   graph, and the generate phase's prompts with `GRAPH_TOKENS` new tokens in turns
    eager, graph, graph, eager (each Generator
    called once first, so the timed calls are the second with their
    shapes).  Fails unless greedy streams are identical between the routes
@@ -284,8 +284,9 @@ remat) compiled instead of compiling them again.
    size 128, intermediate 14336, 8 experts, top 2, rope base 1e6) in bf16
    with random weights from seed 10137, cut to 16 of its 32 layers (46.4 GB
    of blocks): (a) the serve phase's CLI run and trace with `--override
-   n_layer=16`, K1 at exactly 16 launches per forward inside the step
-   graphs and the plain route never; prints tokens/s, MFU and MBU (MFU
+   n_layer=16`, `MOE_SERVE_TOKENS` (32) new tokens per request, K1 at
+   exactly 16 launches per forward inside the step graphs and the plain
+   route never; prints tokens/s, MFU and MBU (MFU
    counts the dense formulation's 8 experts per token), the stored weight
    bytes, peak memory and graph captures; the same trace through the plain
    route, its bf16 divergences from K1's streams printed with the router
@@ -455,11 +456,11 @@ remat) compiled instead of compiling them again.
    limit, through an entry that reports its Trainer (step seconds, the
    gradient all-reduce's seconds, calls and bytes, layer runs, K2-K4
    launches) and writes no checkpoint: in float32 at `MESH_F32_LAYERS` (B=2,
-   grad_clip 0.05) process 0's three loss lines equal one process's
+   grad_clip 0.05) process 0's `MESH_PROCS_STEPS` (2) loss lines equal one process's
    `--mesh dp=2` run's within 1e-5 (relative) and process 1 prints none;
    in bf16 at the train phase's shape cut to `MESH_PROCS_DP_LAYERS` (4)
    layers (the gradient all-reduce, through host memory, is the step)
-   each process runs 3 x 2 x 4 layers, K2 twice per run and K3, K4 once,
+   each process runs 2 x 2 x 4 layers, K2 twice per run and K3, K4 once,
    and the losses are finite; prints both processes' step and all-reduce
    seconds beside one process's steps.  Then the same two parts for `--mesh pp=2` (each
    process one GPipe stage, the hop a gloo send/recv of each
@@ -467,7 +468,7 @@ remat) compiled instead of compiling them again.
    and `--mesh pp=2,tp=2` (one stage and its whole tp group each): the
    float32 loss lines equal one process's run on the same mesh; in bf16
    at `MESH_PROCS_PP_LAYERS` (6) layers each process holds stages [i,
-   i+1), runs 3 x 2 x 2 micro-batches x 3 layers (x 2 ranks with tp) and launches K2 twice per run and K3, K4
+   i+1), runs 2 x 2 x 2 micro-batches x 3 layers (x 2 ranks with tp) and launches K2 twice per run and K3, K4
    once; prints the step seconds beside one process's and the pp group's
    calls, bytes and host seconds.
    Beside its parameter check the float32 part prints, per mesh and route,
@@ -484,16 +485,15 @@ remat) compiled instead of compiling them again.
    over them) and `--mesh dp=1,ep=2` at moe-train's shape (Mixtral's
    widths, 2 layers, B=1, T=2048; each process holds 4 of the 8 experts;
    4 layer runs, K2 8, K3 and K4 4 in each process), the losses finite,
-   process 1 printing none, the step seconds beside one process's (the ep
-   phase's ep 2 step at the same shape when that phase ran in this call)
-   with the sp / ep group's calls, bytes and host seconds; then float32
+   process 1 printing none, the step seconds beside one process's run of
+   the same argv (before the pair), with the sp / ep group's calls, bytes
+   and host seconds; then float32
    sp 2 at 4 layers, T=2048, and ep 2 at one Mixtral layer (its float32
    AdamW state of 4 would not fit one process), `PROCS_F32_STEPS` (2)
    steps, clipping engaged: process 0 then runs the same argv alone and
    holds the pair's loss lines within 1e-5 (relative) and its first-step
    gradients and parameters, the experts gathered, within
-   `MESH_PARAM_TOL` of that run's (`kept_close`).  The doctor (phase 38)
-   runs in the background from here on.
+   `MESH_PARAM_TOL` of that run's (`kept_close`).
 31. pp-tp-serve — pp x tp serving (`serving/pipeline.py` with a tp axis
    inside each stage): the pp-serve phase's CLI run and trace with `--pp 2
    --tp 2` (the reference table's [5, 7] of 12 layers, two ranks per stage, every
@@ -524,9 +524,10 @@ remat) compiled instead of compiling them again.
    two processes, each a job on its own port: float32 at 4 layers greedy
    (both processes' streams equal one process's tp 2 run, `divergence_ok`)
    and at temperature 0.8 (the two processes draw the same tokens); bf16
-   at 22 layers on the generate phase's four prompts (1100-1900 tokens,
-   the CLI's prompt source swapped for them), 32 new tokens: each process
-   launches K2 exactly 22 times (one rank x 22 layers) and its plain
+   at `INFER_BF16_LAYERS` (12) layers on the generate phase's four prompts
+   (1100-1900 tokens, the CLI's prompt source swapped for them),
+   `INFER_BF16_TOKENS` (16) new tokens: each process launches K2 exactly
+   12 times (one rank x 12 layers) and its plain
    version never, the two print the same streams.  Prints decode tokens/s
    beside the one-process tp 2 run's (its graphs replayed) and the
    collectives' calls, bytes and host seconds.  (b) `cli.starter` and
@@ -536,21 +537,21 @@ remat) compiled instead of compiling them again.
    over the two processes, one rank each, as further jobs of the same
    processes (`procs_runs`): `--sp-devices 2 --sp-flash` at Llama-3-8B's
    widths, `SP_LAYERS` (8) layers, bf16, the sp phase's prompts of 8128
-   and 6000 tokens (local chunks of 4096), `SP_TOKENS` (32) greedy new
+   and 6000 tokens (local chunks of 4096), `SP_TOKENS` (16) greedy new
    tokens: each process launches K2 16 times (its rank's diagonal and one
    rotated block a layer; 32 = P² x 8 over the pair), and float32 at 4
    layers with 16 new tokens (K2 8 each); `--ep-devices 2` at Mixtral's
-   widths, `EP_PROCS_LAYERS` (4) layers, bf16, 4 prompts, 16 new tokens
-   (each process holds 4 of the 8 experts), and float32 at
-   `EP_PROCS_F32_LAYERS` (1) layer, exact and at a capacity factor of 0.5
-   that drops assignments.  Both processes print the same streams, every
+   widths, `EP_PROCS_LAYERS` (4) layers, bf16 on the generate phase's
+   four prompts (1100-1900 tokens: K2 4 times in each process), 16 new
+   tokens (each process draws only its 4 of the 8 experts), and float32
+   at 4 layers on the CLI's four 8-token prompts, exact and at a capacity
+   factor of 0.5 that drops assignments.  Both processes print the same streams, every
    sample gets its tokens in the vocabulary, the plain K2 never runs; the
    float32 streams equal one process's run of the same argv
    (`divergence_ok`), the bf16 divergences from it are printed; each run
    prints its seconds beside one process's, the collectives' calls, bytes
-   and host seconds, K2 launches and each process's peak memory.  The sp
-   runs' one-process runs are the sp phase's sp 2 K2 rings on the same
-   weights and prompts when that phase runs in this call (held there).
+   and host seconds, K2 launches and each process's peak memory; the
+   one-process runs follow the pair.
 34. sp — sequence-parallel inference (`parallel/sp_inference.py`) at
    Llama-3-8B's full width (4096 wide, 32 heads, 8 KV groups, hs 128) at
    `SP_LAYERS` (8) of its 32 layers, bf16, random weights: K2 with its LSE against its
@@ -559,7 +560,7 @@ remat) compiled instead of compiling them again.
    and K4 with the LSE's cotangent against the plain ring in float32,
    within `flash_bwd_bf16_limits` of the whole sequence times P plus P
    bf16 roundings; err/limit printed), then two prompts of 8128 and
-   6000 random tokens, `SP_TOKENS` (32) greedy new tokens each, through the
+   6000 random tokens, `SP_TOKENS` (16) greedy new tokens each, through the
    `Generator` (K2 once per layer) and `SPGenerator` at sp 2 with and
    without `use_flash` and at sp 4 with `use_flash, flash_min_len=1024`:
    K2 launches exactly P^2 x `SP_LAYERS` per flash prefill and 0 on the plain
@@ -622,10 +623,7 @@ remat) compiled instead of compiling them again.
    (import_torch, devices, matmul, kernels: K1 and K2 once against their
    plain versions within `TOL`'s bfloat16 1.5e-2, graph, profiler_trace,
    collective, threads): prints every stage's status and seconds, and
-   fails unless each is ok or skipped and `kernels` is ok.  It starts in
-   the background where mesh-train-procs stands in the order (its stages
-   are host-bound, as the two-process phases beside it are; a stage's
-   seconds then include that sharing of the host) and is read here.
+   fails unless each is ok or skipped and `kernels` is ok.
 
 The line before the last is the JSON `kernels` record (K1, K1 over int8
 pools, K2-K4, each with `paths`: its launches in every phase that drives
@@ -2282,7 +2280,8 @@ def phase_chat(k2, card, ckpt_dir):
 
 
 GRAPH_ROUTES = (("eager", False), ("graphs", True), ("graphs", True), ("eager", False))
-GRAPH_TOKENS = 32  # new tokens of the phase's serves and generates (64 before PR 18's cuts)
+GRAPH_TOKENS = 16  # new tokens of the phase's serves and generates (64, then 32, before
+# the cuts for the whole run's time)
 # pool: (serve CLI flags, the routes in turn)
 GRAPH_POOLS = (("bf16", [], GRAPH_ROUTES), ("int8", ["--kv-dtype", "int8"], GRAPH_ROUTES[:2]),
                ("e4m3", ["--kv-dtype", "float8"], GRAPH_ROUTES[:2]))
@@ -2524,7 +2523,8 @@ def phase_graphs(k1, k2, card):
         del engine
         torch.cuda.empty_cache()
     gen_draws = {graphs: Generator(cfg, params, max_seq_length=2048, device="cuda",
-                                   _graphs=graphs).generate(prompts, 32, temperature=0.8,
+                                   _graphs=graphs).generate(prompts, GRAPH_TOKENS,
+                                                            temperature=0.8,
                                                             top_k=None)[0]
                  for graphs in (False, True)}
     same = sum(serve_draws["graphs"][r] == serve_draws["eager"][r] for r in serve_draws["eager"])
@@ -3454,9 +3454,12 @@ MOE_QUANT_TOKENS = 16  # new tokens per request of int8 Mixtral at all 32 layers
 MIXTRAL_WIDTHS = dict(n_embd=4096, n_head=32, n_query_groups=8, head_size=128,
                       intermediate_size=14336, n_expert=8, n_expert_per_token=2,
                       padded_vocab_size=32256, rope_base=1000000)
+MOE_SERVE_TOKENS = 32  # new tokens per request of the moe phase's serves (64 before the
+# cuts for the whole run's time: its bf16 plain-route serve is eager)
 MOE_SERVE = ["--model", MIXTRAL, "--override", f"n_layer={MOE_LAYERS}", "--dtype", "bfloat16",
              "--seed", "10137", "--max-batch", "8", "--block-size", "16",
-             "--sequence-length", "2048", "--synthetic", "16", "--n-tokens", "64"]
+             "--sequence-length", "2048", "--synthetic", "16", "--n-tokens",
+             str(MOE_SERVE_TOKENS)]
 
 
 def free() -> None:
@@ -3627,7 +3630,7 @@ def phase_moe(k1, k2, card):
         + f"; MFU counts the dense formulation's 8 experts per token; on {card}", flush=True)
     k1.setdefault("paths", {})["moe"] = launches
     args = cli.build_parser().parse_args(MOE_SERVE)
-    trace = cli.synthetic_trace(16, cfg.vocab_size, 2048, 64)
+    trace = cli.synthetic_trace(16, cfg.vocab_size, 2048, MOE_SERVE_TOKENS)
     serving = cli.make_serving_config(args)
     params = gen.params
     del engine, gen
@@ -3853,9 +3856,6 @@ MOE_TRAIN = dict(batch_size=1, block_size=2048, grad_acc_steps=1, learning_rate=
 MOE_TRAIN_LAYERS = 2  # Mixtral's layers in moe-train's steps
 # moe-train's counted dense steps, the ep phase's baseline in the same run
 MOE_TRAIN_DENSE = {}
-# the ep phase's Trainer runs by label ("ep 2 cf None": one process's ep 2
-# step at moe-train's shape, mesh-train-procs' baseline in the same run)
-EP_TRAIN_RUNS = {}
 
 
 def flash_bwd_case_ms(B, T, H, G, hs, card, phase="moe-train", causal=True):
@@ -4028,7 +4028,7 @@ def phase_moe_train(k3, k4, card):
 
 
 EP_SIZES = (2, 4)
-EP_TOKENS = 32  # new tokens of the ep phase's bf16 generates
+EP_TOKENS = 16  # new tokens of the ep phase's bf16 generates (32 before the run's cuts)
 EP_CF = 1.25  # the finite capacity factor of the ep Trainer's second runs
 
 
@@ -4198,7 +4198,6 @@ def phase_ep(k2, k3, k4, card):
     free()
     for r in results.values():
         r["over_dense"] = r["step_s_median"] / results["dense"]["step_s_median"]
-    EP_TRAIN_RUNS.update(results)
     print("ep: train " + json.dumps({
         "card": card, "model": MIXTRAL, "layers": L, "batch": B, "block": T,
         "dtype": tc.dtype, "remat": tc.remat, "use_flash": True, "runs": results}), flush=True)
@@ -4237,7 +4236,8 @@ def phase_ep(k2, k3, k4, card):
 
 
 TUNE_GEOMETRIES = {"tiny-llama-1.1b": (32, 4, 64), MIXTRAL: (32, 8, 128)}
-TUNE_MIXTRAL_LAYERS = 8  # the whole-trace serves (16 before PR 18's cuts of the whole run)
+TUNE_MIXTRAL_LAYERS = 4  # the whole-trace serves (16, then 8, before the cuts for the
+# whole run's time)
 # the serve and moe phases' trace and engine, as the tuning CLI's flags
 TUNE_SERVE = ["--synthetic", "16", "--n-tokens", "64", "--sequence-length", "2048",
               "--max-batch", "8", "--block-size", "16", "--dtype", "bfloat16", "--seed", "10137"]
@@ -4829,6 +4829,7 @@ def phase_pp_serve(k1, card):
                 "single_tokens_per_s": single_line["tokens_per_s"],
                 "pp_over_single": line["tokens_per_s"] / single_line["tokens_per_s"],
                 "wall_s": line["wall_s"], "single_wall_s": single_line["wall_s"],
+                "preflight_s": {k: v["seconds"] for k, v in engine.preflight.items()},
                 "pipeline": line["pipeline"], "devices": line["devices"],
                 "tokens_per_s_per_chip": line["tokens_per_s_per_chip"],
                 "mixed_steps": line["mixed_steps"], "decode_chunks": chunks,
@@ -5023,6 +5024,7 @@ def phase_tp_serve(k1, card):
                 "single_tokens_per_s": single_line["tokens_per_s"],
                 "tp_over_single": line["tokens_per_s"] / single_line["tokens_per_s"],
                 "wall_s": line["wall_s"], "single_wall_s": single_line["wall_s"],
+                "preflight_s": {k: v["seconds"] for k, v in engine.preflight.items()},
                 "n_chips": line["n_chips"], "devices": line["devices"],
                 "mixed_steps": line["mixed_steps"], "forward_calls": engine.forward_calls,
                 "host_syncs": line["host_syncs"], "k1_launches": launches,
@@ -5260,6 +5262,7 @@ MESH_TRAIN_LAYERS = 6  # the bf16 steps (22, then 11, before the cuts for the ru
 MESH_PROCS_DP_LAYERS = 4  # tiny-llama cut for dp 2 over two processes in bf16 (11 before
 # PR 18's cuts of the whole run's time: the gloo gradient all-reduce is the step)
 MESH_PROCS_PP_LAYERS = 6  # and for the GPipe stages over them (22 before PR 18's cuts)
+MESH_PROCS_STEPS = 2  # steps of the dp and pp runs over two processes (3 before the run's cuts)
 # clipping engaged (the first norm is far above 0.05).  The learning rate
 # sets how far float32 rounding moves AdamW's normalised update: at 1e-3
 # the first run's 3e8 parameters differed by up to 2.7e-5 on every mesh
@@ -5536,15 +5539,17 @@ def kept_close(got, want) -> dict:
 # and its process 0 then runs `check` alone (the run in one process) and
 # adds how far they lie from that run's (`kept_close`) and its report
 MESH_PROCS_ENTRY = (
-    "import contextlib, io, json, sys\n"
+    "import contextlib, io, json, sys, time\n"
     "import chip_smoke\n"
     "job = json.loads(sys.argv[1])\n"
     "me = job['process_id']\n"
     "for run in job['runs']:\n"
     "    argv, check = (run, None) if isinstance(run, list) else (run['argv'], run['check'])\n"
     "    out, kept = io.StringIO(), ({} if check else None)\n"
+    "    t0 = time.perf_counter()\n"
     "    with contextlib.redirect_stdout(out):\n"
     "        rec = chip_smoke.train_report(argv + ['--process-id', str(me)], kept)\n"
+    "    rec['wall_s'] = time.perf_counter() - t0\n"
     "    if check and me == 0:\n"
     "        one, ref = io.StringIO(), {}\n"
     "        with contextlib.redirect_stdout(one):\n"
@@ -5622,7 +5627,8 @@ def phase_mesh_train_procs(k2, k3, k4, card):
         base = ["--model", TINY_LLAMA, "--dataset", str(ds), "--ckpt", str(Path(tmp) / "ck"),
                 "--block-size", str(TRAIN["block_size"]), "--warmup-iters", "0",
                 "--learning-rate", "1e-3", "--lr-decay-iters", "100", "--log-interval", "1",
-                "--ckpt-interval", "1000", "--eval-iters", "1", "--max-iters", "3",
+                "--ckpt-interval", "1000", "--eval-iters", "1", "--max-iters",
+                str(MESH_PROCS_STEPS),
                 "--use-flash", "on", "--device", DEVICE]
 
         def loss_lines(stdout):
@@ -5649,10 +5655,7 @@ def phase_mesh_train_procs(k2, k3, k4, card):
         # sp and ep over the two processes (`train_procs_runs`): the bf16
         # runs beside one process's, the float32 ones checked in the pair
         new_bf16, new_f32 = train_procs_runs(base)
-        new_ones = {label: (("", dict(EP_TRAIN_RUNS["ep 2 cf None"], measured_in="ep"))
-                            if "ep" in label and "ep 2 cf None" in EP_TRAIN_RUNS
-                            else mesh_one(argv))
-                    for label, (argv, _) in new_bf16.items()}
+        new_ones = {label: mesh_one(argv) for label, (argv, _) in new_bf16.items()}
         all_jobs = mesh_jobs(
             "mesh-train-procs", [part[m] for m, part in order]
             + [argv for argv, _ in new_bf16.values()]
@@ -5669,7 +5672,8 @@ def phase_mesh_train_procs(k2, k3, k4, card):
             job = jobs[(mesh, id(f32))]
             want, got = loss_lines(one_out), loss_lines(job[0][0])
             rel = max((abs(g - w) / abs(w) for g, w in zip(got, want)), default=float("inf"))
-            if len(got) != 3 or len(want) != 3 or loss_lines(job[1][0]) or not rel <= 1e-5:
+            if len(got) != MESH_PROCS_STEPS or len(want) != MESH_PROCS_STEPS \
+                    or loss_lines(job[1][0]) or not rel <= 1e-5:
                 fail("mesh-train-procs", f"float32 {mesh}: loss lines {got} over two processes "
                      f"(process 1 printed {loss_lines(job[1][0])}) against one process's "
                      f"{want} (rel {rel})")
@@ -5684,24 +5688,26 @@ def phase_mesh_train_procs(k2, k3, k4, card):
             for i, (out, rec) in enumerate(job):
                 runs = rec["layer_runs"]
                 if mesh == "dp=2":
-                    ok = runs == 3 * TRAIN["grad_acc_steps"] * MESH_PROCS_DP_LAYERS
+                    ok = runs == MESH_PROCS_STEPS * TRAIN["grad_acc_steps"] * MESH_PROCS_DP_LAYERS
                 else:  # steps x grad-acc x the 2 micro-batches x a stage's layers
-                    ok = (runs == 3 * TRAIN["grad_acc_steps"] * 2 * (MESH_PROCS_PP_LAYERS // 2) * tp
+                    ok = (runs == MESH_PROCS_STEPS * TRAIN["grad_acc_steps"] * 2
+                          * (MESH_PROCS_PP_LAYERS // 2) * tp
                           and rec["stages"] == [i, i + 1])
                 if not ok or (rec["K2"], rec["K3"], rec["K4"]) != (2 * runs, runs, runs):
                     fail("mesh-train-procs", f"{mesh} process {i}: stages {rec['stages']}, "
                          f"layer runs {runs}, launches {rec['K2']}/{rec['K3']}/{rec['K4']}")
             losses = loss_lines(job[0][0])
-            if len(losses) != 3 or not all(map(lambda v: v == v and abs(v) < 1e9, losses)):
+            if len(losses) != MESH_PROCS_STEPS or not all(
+                    map(lambda v: v == v and abs(v) < 1e9, losses)):
                 fail("mesh-train-procs", f"bf16 {mesh} loss lines {losses}")
             if mesh == "dp=2":
                 one_keys = ("step_s", "peak_memory_gib")
-                two_keys = ("step_s", "grad_allreduce_s", "dp_group_calls", "dp_group_bytes",
-                            "peak_memory_gib")
+                two_keys = ("wall_s", "step_s", "grad_allreduce_s", "dp_group_calls",
+                            "dp_group_bytes", "peak_memory_gib")
             else:
                 one_keys = ("step_s", "peak_memory_gib", "layer_runs")
-                two_keys = ("stages", "step_s", "layer_runs", "K2", "K3", "K4", "pp_group_calls",
-                            "pp_group_bytes", "pp_group_s", "peak_memory_gib")
+                two_keys = ("wall_s", "stages", "step_s", "layer_runs", "K2", "K3", "K4",
+                            "pp_group_calls", "pp_group_bytes", "pp_group_s", "peak_memory_gib")
             print("mesh-train-procs: " + json.dumps({
                 "card": card, "model": TINY_LLAMA,
                 "layers": MESH_PROCS_DP_LAYERS if mesh == "dp=2" else MESH_PROCS_PP_LAYERS,
@@ -5751,9 +5757,8 @@ def train_procs_checked(bf16, f32, ones, jobs, loss_lines, card) -> None:
     seconds beside one process's (`ones`); in float32 the loss lines
     within 1e-5 (relative) of the same run in one process, its first-step
     gradients and its parameters after its steps within `MESH_PARAM_TOL`
-    (`kept_close`, on process 0).  One process's ep 2 bf16 step is the ep
-    phase's (`EP_TRAIN_RUNS`) when that phase ran in this call."""
-    keys = ("step_s", "layer_runs", "K2", "K3", "K4", "sp_group_calls", "sp_group_bytes",
+    (`kept_close`, on process 0)."""
+    keys = ("wall_s", "step_s", "layer_runs", "K2", "K3", "K4", "sp_group_calls", "sp_group_bytes",
             "sp_group_s", "ep_group_calls", "ep_group_bytes", "ep_group_s", "dp_group_calls",
             "dp_group_bytes", "grad_allreduce_s", "peak_memory_gib")
     for (mesh, (argv, runs)), job in zip(bf16.items(), jobs):
@@ -5769,13 +5774,12 @@ def train_procs_checked(bf16, f32, ones, jobs, loss_lines, card) -> None:
             fail("mesh-train-procs", f"bf16 {mesh}: loss lines {losses} (process 1 printed "
                  f"{loss_lines(job[1][0])})")
         one_out, one = ones[mesh]
-        one = {"losses": loss_lines(one_out), **{k: one.get(k) for k in keys + ("measured_in",)}}
+        one = {"losses": loss_lines(one_out), **{k: one.get(k) for k in keys}}
         print("mesh-train-procs: " + json.dumps({
             "card": card, "mesh": mesh, "argv": " ".join(argv), "dtype": "bfloat16",
             "losses": losses, "one_process": one,
             "two_processes": [{k: rec[k] for k in keys} for _, rec in job],
-            # the steps past each run's first (one process's steps in the ep
-            # phase follow a warm-up)
+            # the steps past each run's first (the first pays the warm-up)
             "step_over_one": statistics.median(job[0][1]["step_s"][1:])
             / statistics.median(one["step_s"][1:])}), flush=True)
     for (mesh, (argv, runs)), job in zip(f32.items(), jobs[len(bf16):]):
@@ -5800,7 +5804,8 @@ def train_procs_checked(bf16, f32, ones, jobs, loss_lines, card) -> None:
             "card": card, "mesh": mesh, "argv": " ".join(argv), "dtype": "float32",
             "losses": got, "one_process_losses": want, "loss_rel": rel,
             "first_step_grads_and_params": check, "tolerance": MESH_PARAM_TOL,
-            "step_s": rec0["step_s"], "one_process_step_s": one["step_s"]}), flush=True)
+            "step_s": rec0["step_s"], "one_process_step_s": one["step_s"],
+            "wall_s": [rec0["wall_s"], rec1["wall_s"]]}), flush=True)
 
 
 PP_TP = (2, [10, 12], 2)  # stages, the reference table's split of 22, tp ranks per stage
@@ -5838,6 +5843,7 @@ def phase_pp_tp_serve(k1, card):
             "single_tokens_per_s": single_line["tokens_per_s"],
             "pp_tp_over_single": line["tokens_per_s"] / single_line["tokens_per_s"],
             "wall_s": line["wall_s"], "single_wall_s": single_line["wall_s"],
+            "preflight_s": {k: v["seconds"] for k, v in engine.preflight.items()},
             "n_chips": line["n_chips"], "devices": line["devices"],
             "pipeline": line["pipeline"], "mixed_steps": line["mixed_steps"],
             "forward_calls": engine.forward_calls, "host_syncs": line["host_syncs"],
@@ -5988,7 +5994,9 @@ INFER_F32 = ["--model", TINY_LLAMA, "--dtype", "float32", "--override",
              "--n-tokens", "32", "--sequence-length", "2048", "--device", DEVICE]
 INFER_BF16_TOKENS = 16  # decode over two processes is gloo calls, one per product (32
 # before PR 18's cuts of the whole run's time)
+INFER_BF16_LAYERS = 12  # tiny-llama's layers there (22 before the cuts for the run's time)
 INFER_BF16 = ["--model", TINY_LLAMA, "--dtype", "bfloat16", "--seed", "10137",
+              "--override", f"n_layer={INFER_BF16_LAYERS}",
               "--n-samples", "4", "--n-tokens", str(INFER_BF16_TOKENS),
               "--sequence-length", "2048", "--chunk", "16", "--greedy", "--device", DEVICE]
 # one process of two-process jobs, running the runs of its JSON spec in
@@ -6046,12 +6054,15 @@ def sample_report(argv, long=False) -> dict:
     reset_flash_counts()
     if torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     with patch:
         prompt_ids, outs, stats, gen, _tok, seconds = sample_cli.run(args)
     sync()
+    wall = time.perf_counter() - t0
     counts = flash_counts()
     g = gen._group
     rec = {"prompt_lens": [len(p) for p in prompt_ids], "outs": outs, "seconds": seconds,
+           "wall_s": wall,
            "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2**30
                                if torch.cuda.is_available() else None),
            "tokens_per_s": stats.tokens_per_s, "decode_s": stats.decode_s,
@@ -6154,9 +6165,10 @@ def phase_inference_procs(k2, card):
         fail("inference-procs", "bf16: the two processes printed different streams")
     for i, recs in enumerate((p0, p1)):
         r = recs[2]
-        if r["K2"] != 22 or r["plain"] or r["prompt_lens"] != list(INFER_LENS):
-            fail("inference-procs", f"bf16 process {i}: K2 launches {r['K2']} (want 22: one "
-                 f"rank x 22 layers), plain calls {r['plain']}, prompts {r['prompt_lens']}")
+        if r["K2"] != INFER_BF16_LAYERS or r["plain"] or r["prompt_lens"] != list(INFER_LENS):
+            fail("inference-procs", f"bf16 process {i}: K2 launches {r['K2']} (want "
+                 f"{INFER_BF16_LAYERS}: one rank x {INFER_BF16_LAYERS} layers), plain calls "
+                 f"{r['plain']}, prompts {r['prompt_lens']}")
         ring_budget_ok("inference-procs", f"bf16 process {i}", r["outs"],
                        long_prompts(INFER_LENS, 32000), INFER_BF16_TOKENS, 32000)
     # the same bf16 run in one process (its decode chunks captured): a
@@ -6176,7 +6188,8 @@ def phase_inference_procs(k2, card):
 
     replay_s = single["decode_s"] - single["capture_s"]
     print("inference-procs: " + json.dumps({
-        "card": card, "model": TINY_LLAMA, "layers": 22, "dtype": "bfloat16", "tp": 2,
+        "card": card, "model": TINY_LLAMA, "layers": INFER_BF16_LAYERS, "dtype": "bfloat16",
+        "tp": 2,
         "prompt_lens": list(INFER_LENS), "new_tokens": INFER_BF16_TOKENS,
         "two_processes": [row(p0[2]), row(p1[2])], "one_process": row(single),
         "one_process_replay_tokens_per_s": single["tokens_generated"] / replay_s,
@@ -6218,10 +6231,13 @@ def procs_runs() -> dict:
     and ep runs over two processes: sp 2 through K2 (`--sp-flash`) at
     Llama-3-8B's widths on the sp phase's two prompts (local chunks of
     4096: each process launches K2 for its rank's two blocks a layer),
-    ep 2 at Mixtral's widths on the CLI's four 8-token prompts (each
-    process holds 4 of the 8 experts; the prefill stays on the dense
-    route), and float32 runs of both at fewer layers, ep also at a
-    capacity factor that drops assignments."""
+    ep 2 at Mixtral's widths on the generate phase's four prompts of
+    1100-1900 tokens (each process draws only its 4 of the 8 experts; the
+    prefill's dispatch crosses the processes at its full length, its
+    attention through K2 once a layer in each process), and float32 runs
+    of both at 4 layers, ep's on the CLI's four 8-token prompts (the
+    dense route: no K2), exact and at a capacity factor that drops
+    assignments."""
     sp = ["--model", SP_MODEL, "--seed", "10137", "--sequence-length",
           str(SP_WIDTHS["block_size"]), "--greedy", "--device", DEVICE, "--sp-devices", "2",
           "--sp-flash"]
@@ -6235,10 +6251,10 @@ def procs_runs() -> dict:
         "sp-f32": (sp + ["--override", f"n_layer={SP_F32_LAYERS}", "--dtype", "float32",
                          "--n-tokens", "16"], sp_prompts, 2 * SP_F32_LAYERS),
         "ep-bf16": (ep + ["--override", f"n_layer={EP_PROCS_LAYERS}", "--dtype", "bfloat16"],
-                    False, 0),
-        "ep-f32": (ep + ["--override", f"n_layer={EP_PROCS_F32_LAYERS}", "--dtype",
-                         "float32"], False, 0),
-        "ep-f32-drop": (ep + ["--override", f"n_layer={EP_PROCS_F32_LAYERS}", "--dtype",
+                    True, EP_PROCS_LAYERS),
+        "ep-f32": (ep + ["--override", f"n_layer={EP_PROCS_LAYERS}", "--dtype", "float32"],
+                   False, 0),
+        "ep-f32-drop": (ep + ["--override", f"n_layer={EP_PROCS_LAYERS}", "--dtype",
                               "float32", "--moe-capacity-factor", "0.5"], False, 0),
     }
 
@@ -6270,10 +6286,8 @@ def procs_runs_checked(runs, recs0, recs1, card) -> None:
     (`procs_runs`, records in its order): both processes print the same
     streams, every sample gets its tokens in the vocabulary, each process
     launches K2 as planned and its plain version never; then each is held
-    against the same run in one process (`procs_run_report`).  The sp
-    runs' one-process runs are the sp phase's sp 2 K2 rings on the same
-    weights and prompts when that phase runs in this call (they are kept
-    in `PROCS_SP` for it); else they run here."""
+    against the same run in one process (`procs_run_report`), run here
+    after the pair."""
     from mdi_llm_tpu_torch.config import Config
 
     for (label, (argv, long, k2_want)), r0, r1 in zip(runs.items(), recs0, recs1):
@@ -6287,9 +6301,6 @@ def procs_runs_checked(runs, recs0, recs1, card) -> None:
                      f"{k2_want}), plain calls {r['plain']}")
             ring_budget_ok("inference-procs", f"{label} process {i}", r["outs"],
                            [o[:n] for o, n in zip(r["outs"], r["prompt_lens"])], n_new, vocab)
-        if label.startswith("sp") and "sp" in RUN_PHASES:
-            PROCS_SP[label] = (argv, r0, r1)
-            continue
         procs_run_report("inference-procs", label, argv, r0, r1, sample_report(argv, long),
                          CliModel(argv), card)
         free()
@@ -6311,33 +6322,26 @@ def procs_run_report(phase, label, argv, r0, r1, one, model, card) -> None:
                                f"{label} over 2 processes vs one process")
 
     def row(r):
-        return {k: r.get(k) for k in ("seconds", "prefill_s", "decode_s", "tokens_per_s", "K2",
+        return {k: r.get(k) for k in ("wall_s", "seconds", "prefill_s", "decode_s",
+                                      "tokens_per_s", "K2",
                                       "collective_calls", "collective_bytes", "collective_s",
                                       "peak_memory_gib")}
 
     print(f"{phase}: " + json.dumps({
         "card": card, "run": label, "argv": " ".join(argv),
         "prompt_lens": r0["prompt_lens"], "two_processes": [row(r0), row(r1)],
-        "one_process": {**row(one), "measured_in": one.get("measured_in", phase)},
+        "one_process": row(one),
         "seconds_over_one": r0["seconds"] / one["seconds"],
         "streams_differing_from_one_process": n_div}), flush=True)
 
 
-# the inference-procs phase's sp runs over two processes ({label: (argv,
-# process 0's record, process 1's)}), held in the sp phase against its own
-# sp 2 rings on the same weights and prompts
-PROCS_SP = {}
-RUN_PHASES = set()  # the phases of this call (`main`)
-
-
-EP_PROCS_LAYERS = 4  # Mixtral's layers in the bf16 ep run over two processes
-EP_PROCS_F32_LAYERS = 1  # and in its float32 runs: each process draws the whole float32
-# tree before it keeps its experts (6 GB a layer), two processes at once
+EP_PROCS_LAYERS = 4  # Mixtral's layers in the bf16 and float32 ep runs over two processes
 EP_PROCS_TOKENS = 16  # new tokens of the ep runs over two processes
 SP_MODEL = "Llama-3-8B"
 SP_WIDTHS = dict(n_embd=4096, n_head=32, n_query_groups=8, head_size=128, block_size=8192)
 SP_LAYERS = 8  # of Llama-3-8B's 32, for the whole run's time (PERF.md §6 lists the cuts)
-SP_TOKENS = 32  # greedy new tokens per prompt (64 before the doctor phase's cuts)
+SP_TOKENS = 16  # greedy new tokens per prompt (64, then 32, before the cuts for the whole
+# run's time)
 SP_PROMPTS = (8128, 6000)  # one bucket of 8192: local chunks 4096 (sp 2), 2048 (sp 4)
 SP_RUNS = ((2, True, 2048), (2, False, 2048), (4, True, 1024))  # P, use_flash, flash_min_len
 SP_F32_LAYERS = 4
@@ -6578,10 +6582,8 @@ def phase_sp(k2, k3, k4, card):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         flash_attention.launches = flash_attention_plain.calls = 0
-        t0 = time.perf_counter()
         outs, stats = sp.generate(prompts, new, temperature=0.0)
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
         launches = flash_attention.launches
         expect = P * P * cfg.n_layer if use_flash else 0
         if launches != expect or flash_attention_plain.calls:
@@ -6602,14 +6604,6 @@ def phase_sp(k2, k3, k4, card):
             "k2_launches": launches, "kv_bytes_per_rank": sp.kv_bytes(len(prompts), C),
             "single_kv_bytes": single_kv, "bf16_divergences": n_div,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
-        if (P, use_flash, fml) == (2, True, 2048) and "sp-bf16" in PROCS_SP:
-            # the inference-procs phase's sp 2 ring over two processes
-            argv, r0, r1 = PROCS_SP["sp-bf16"]
-            procs_run_report("sp", "sp-bf16", argv, r0, r1, {
-                "outs": outs, "seconds": seconds, "prefill_s": stats.prefill_s,
-                "decode_s": stats.decode_s, "tokens_per_s": stats.tokens_per_s,
-                "K2": launches, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-                "measured_in": "sp"}, single, card)
         del sp
         free()
     k2.setdefault("paths", {})["sp"] = total
@@ -6627,16 +6621,7 @@ def phase_sp(k2, k3, k4, card):
             sp = SPGenerator(cfg, params, n_devices=P, devices=["cuda"],
                              max_seq_length=cfg.block_size, use_flash=use_flash,
                              flash_min_len=1024)
-            t0 = time.perf_counter()
-            got, stats = sp.generate(prompts, 16, temperature=0.0)
-            seconds = time.perf_counter() - t0
-            if (P, use_flash) == (2, True) and "sp-f32" in PROCS_SP:
-                # the inference-procs phase's float32 sp 2 ring over two processes
-                argv, r0, r1 = PROCS_SP["sp-f32"]
-                procs_run_report("sp", "sp-f32", argv, r0, r1, {
-                    "outs": got, "seconds": seconds, "prefill_s": stats.prefill_s,
-                    "decode_s": stats.decode_s, "tokens_per_s": stats.tokens_per_s,
-                    "measured_in": "sp"}, single, card)
+            got, _ = sp.generate(prompts, 16, temperature=0.0)
             got = dict(enumerate(got))
             divergence_ok("sp", single, got, want, f"float32 sp {P} use_flash={use_flash}")
             print(f"sp: float32 {SP_F32_LAYERS} layers, sp {P} use_flash={use_flash}: "
@@ -6841,59 +6826,22 @@ def phase_preflight(card):
 
 
 DOCTOR_TIMEOUT_S = 900
-DOCTOR_STARTS_BEFORE = "mesh-train-procs"  # the doctor runs beside this phase and the next
-DOCTOR = {}  # the doctor's process, its output files and start time (`doctor_start`)
-
-
-def doctor_start() -> None:
-    """Start `python -m mdi_llm_tpu_torch.cli.doctor` in the background (its
-    stages run one after another in fresh interpreters, host-bound: the
-    phases beside it are the host-paced two-process ones); `phase_doctor`
-    waits for it.  `main` stops it if the run ends first."""
-    import os
-
-    root = Path(__file__).resolve().parent
-    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
-    DOCTOR.update(proc=subprocess.Popen(
-        [sys.executable, "-m", "mdi_llm_tpu_torch.cli.doctor"], cwd=str(root),
-        env=dict(os.environ, PYTHONPATH=str(root)), stdout=out, stderr=err, text=True,
-        start_new_session=True), out=out, err=err, t0=time.perf_counter())
-
-
-def doctor_stop() -> None:
-    """Kill the doctor and the stage it runs (its own process group)."""
-    import os
-    import signal
-
-    proc = DOCTOR.get("proc")
-    if proc is not None and proc.poll() is None:
-        try:
-            os.killpg(proc.pid, signal.SIGKILL)
-        except ProcessLookupError:
-            pass
-        proc.wait()
 
 
 def phase_doctor(card):
-    """The doctor's full staged triage (the module docstring, phase 38),
-    started by `doctor_start` beside the earlier phases when they ran in
-    this call."""
-    if not DOCTOR:
-        doctor_start()
-    proc = DOCTOR["proc"]
+    """The doctor's full staged triage (the module docstring, phase 38)."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mdi_llm_tpu_torch.cli.doctor"],
+                          cwd=str(root), env=dict(os.environ, PYTHONPATH=str(root)),
+                          capture_output=True, text=True, timeout=DOCTOR_TIMEOUT_S)
+    wall = time.perf_counter() - t0
     try:
-        proc.wait(timeout=max(1.0, DOCTOR_TIMEOUT_S - (time.perf_counter() - DOCTOR["t0"])))
-    except subprocess.TimeoutExpired:
-        doctor_stop()
-        fail("doctor", f"the doctor ran past {DOCTOR_TIMEOUT_S} s")
-    wall = time.perf_counter() - DOCTOR["t0"]
-    DOCTOR["out"].seek(0)
-    DOCTOR["err"].seek(0)
-    stdout, stderr = DOCTOR["out"].read(), DOCTOR["err"].read()
-    try:
-        snap = json.loads(stdout.strip().splitlines()[-1])
+        snap = json.loads(proc.stdout.strip().splitlines()[-1])
     except (IndexError, json.JSONDecodeError):
-        fail("doctor", f"exit {proc.returncode}, no snapshot\n{stderr[-3000:]}")
+        fail("doctor", f"exit {proc.returncode}, no snapshot\n{proc.stderr[-3000:]}")
     for r in snap["stages"]:
         print(f"doctor: {r['name']} {r['status']} {r['elapsed_s']:.2f} s "
               f"{json.dumps(r['detail'])}" + (f" error: {r['error']}" if r["error"] else ""),
@@ -6902,7 +6850,7 @@ def phase_doctor(card):
     if proc.returncode or not snap["ok"] or status.get("kernels") != "ok" \
             or any(v not in ("ok", "skipped") for v in status.values()):
         fail("doctor", f"exit {proc.returncode}, stages {status}")
-    print(f"doctor: {card}: {len(status)} stages in {wall:.1f} s from its start, "
+    print(f"doctor: {card}: {len(status)} stages in {wall:.1f} s, "
           f"{sum(v == 'ok' for v in status.values())} ok, "
           f"{sum(v == 'skipped' for v in status.values())} skipped", flush=True)
 
@@ -6932,7 +6880,6 @@ def main(argv=None) -> None:
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phases to run (default: all)")
     only = set(ap.parse_args(argv).only.split(","))
-    RUN_PHASES.update(only)
     if not only <= set(PHASES):
         fail("args", f"unknown phases {sorted(only - set(PHASES))}")
     if not torch.cuda.is_available():
@@ -7032,16 +6979,11 @@ def main(argv=None) -> None:
     }
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = Path(tmp) / TINY_LLAMA
-        try:
-            for phase in PHASES:
-                if phase == DOCTOR_STARTS_BEFORE and "doctor" in only:
-                    doctor_start()
-                if phase in only:
-                    t = time.perf_counter()
-                    runs[phase]()
-                    print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
-        finally:
-            doctor_stop()
+        for phase in PHASES:
+            if phase in only:
+                t = time.perf_counter()
+                runs[phase]()
+                print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
     records = (k1, k1q8, k2, k3, k4)

@@ -101,10 +101,19 @@ _HOST_SUSPECTS = {aten._local_scalar_dense, aten.nonzero, aten.masked_select, at
                   aten._unique2, aten._to_copy, aten.copy_}
 
 
+# id(operator) -> whether it is one of `_HOST_SUSPECTS`: an operator's own
+# hash is Python code, its id is not
+_SUSPECT: Dict[int, bool] = {}
+
+
 def _host_op(func, args, kwargs) -> Optional[str]:
-    packet = getattr(func, "overloadpacket", None)
-    if packet not in _HOST_SUSPECTS:
+    suspect = _SUSPECT.get(id(func))
+    if suspect is None:
+        suspect = _SUSPECT[id(func)] = (getattr(func, "overloadpacket", None)
+                                        in _HOST_SUSPECTS)
+    if not suspect:
         return None
+    packet = func.overloadpacket
     if packet is aten._local_scalar_dense:
         return "item"  # .item(), int()/bool() of a tensor, a Python branch on one
     if packet in (aten.nonzero, aten.masked_select, aten.unique_dim, aten._unique2):
@@ -285,9 +294,6 @@ def _run_meta(func, args, kwargs, key, ins: List[torch.Tensor], all_meta: bool =
 # argument types that hold no tensor: a list or tuple of them is kept whole
 _PLAIN = frozenset({int, float, bool, type(None), str, torch.dtype, torch.device,
                     torch.layout, torch.memory_format})
-# id(operator) -> whether it may be a host round trip (`_host_op`): an
-# operator's own hash is Python code, its id is not
-_SUSPECT: Dict[int, bool] = {}
 
 
 class _Recorder(TorchDispatchMode):
@@ -354,14 +360,9 @@ class _Recorder(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        suspect = _SUSPECT.get(id(func))
-        if suspect is None:
-            suspect = _SUSPECT[id(func)] = (getattr(func, "overloadpacket", None)
-                                            in _HOST_SUSPECTS)
-        if suspect:
-            what = _host_op(func, args, kwargs)
-            if what is not None:
-                raise HostRoundTrip(what, _source_line())
+        what = _host_op(func, args, kwargs)
+        if what is not None:
+            raise HostRoundTrip(what, _source_line())
         parts: List[Any] = [id(func)]
         ins: List[torch.Tensor] = []
         self.all_meta = True

@@ -200,12 +200,14 @@ def add_preflight_args(ap: argparse.ArgumentParser) -> None:
 
 
 def load_model(
-    args, need_tokenizer: bool = True
+    args, need_tokenizer: bool = True, experts: Optional[Tuple[int, int]] = None
 ) -> Tuple[Config, dict, Optional[Tokenizer], Optional[PromptStyle]]:
     """(config, params on --device, tokenizer, prompt style) from --ckpt
     or --model.  A --ckpt dir holding raw HF weights is converted in place
     first; its tokenizer and prompt style load when `need_tokenizer`.
-    --model draws random weights from --seed and has no tokenizer."""
+    --model draws random weights from --seed and has no tokenizer.
+    `experts` = (first, count): the MoE stacks hold only those experts (a
+    process of an ep mesh over processes, `parallel.expert.owned_experts`)."""
     dtype = DTYPES[args.dtype]
     tokenizer = prompt_style = None
     overrides = config_overrides(getattr(args, "override", []))
@@ -221,7 +223,7 @@ def load_model(
         cfg = Config.from_checkpoint(ckpt_dir)
         transformer.check_supported(cfg)
         cfg, params = ckpt_utils.load_checkpoint(
-            ckpt_dir, dtype=dtype, cfg=cfg, device=args.device
+            ckpt_dir, dtype=dtype, cfg=cfg, device=args.device, experts=experts
         )
         if need_tokenizer:
             tokenizer = Tokenizer(ckpt_dir)
@@ -233,7 +235,8 @@ def load_model(
     elif args.model:
         cfg = Config.from_name(args.model, **overrides)
         transformer.check_supported(cfg)
-        params = transformer.init_params(cfg, args.seed, dtype=dtype, device=args.device)
+        params = transformer.init_params(cfg, args.seed, dtype=dtype, device=args.device,
+                                         experts=experts)
         prompt_style = style_for_model(cfg.name)
     else:
         raise SystemExit("one of --ckpt or --model is required")

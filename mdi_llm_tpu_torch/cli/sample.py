@@ -71,6 +71,7 @@ from mdi_llm_tpu_torch.cli._common import (
     make_ep_mesh,
     make_tp_mesh,
     report_run,
+    resolve_config,
     resolve_kv_dtype,
     setup_logging,
 )
@@ -182,8 +183,22 @@ def _generate(args, temperature, ring):
     from mdi_llm_tpu_torch.generation import Generator
     from mdi_llm_tpu_torch.utils.profiling import profile
 
-    cfg, params, tokenizer, prompt_style = load_model(args)
-    nodes.check_params_consistency(params, ring)  # every process, the same weights
+    mesh = experts = None
+    if args.ep_devices and ring is not None:
+        # over processes: each draws or loads only its ranks' experts
+        from mdi_llm_tpu_torch.parallel.expert import owned_experts
+
+        cfg = resolve_config(args)
+        mesh = make_ep_mesh(args.ep_devices, cfg, args.device, ring.rank, ring.world)
+        experts = owned_experts(mesh, cfg.n_expert)
+    cfg, params, tokenizer, prompt_style = load_model(args, experts=experts)
+    if experts is not None:
+        from mdi_llm_tpu_torch.parallel.expert import replicated
+
+        # the same weights on every process, its own experts aside
+        nodes.check_params_consistency(replicated(params), ring)
+    else:
+        nodes.check_params_consistency(params, ring)  # every process, the same weights
     prompt_ids, stop_seqs = prompt_ids_for(args, cfg, tokenizer, prompt_style)
     sampling = dict(temperature=temperature, top_k=args.top_k, top_p=args.top_p,
                     stop_sequences=stop_seqs)
@@ -220,22 +235,18 @@ def _generate(args, temperature, ring):
             )
             outs, stats = gen.generate(prompt_ids, args.n_tokens, **sampling)
         else:
-            mesh = None
             if args.tp_devices:
                 mesh = make_tp_mesh(args.tp_devices, args.quantize, args.device,
                                     0 if ring is None else ring.rank,
                                     1 if ring is None else ring.world)
-            elif args.ep_devices:
-                mesh = make_ep_mesh(args.ep_devices, cfg, args.device,
-                                    0 if ring is None else ring.rank,
-                                    1 if ring is None else ring.world)
+            elif args.ep_devices and mesh is None:
+                mesh = make_ep_mesh(args.ep_devices, cfg, args.device)
             gen = Generator(
                 cfg, params, max_seq_length=args.sequence_length, rng_seed=args.seed,
                 cache_dtype=resolve_kv_dtype(args.kv_dtype),
                 device=args.device, quantize=args.quantize, mesh=mesh,
                 moe_capacity_factor=args.moe_capacity_factor,
             )
-            del params  # an ep process over processes keeps only its experts
             outs, stats = gen.generate(
                 prompt_ids, args.n_tokens, chunk_size=args.chunk,
                 speculative=args.speculative or None, **sampling,

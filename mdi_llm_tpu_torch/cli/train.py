@@ -58,7 +58,7 @@ from mdi_llm_tpu_torch.config import Config
 from mdi_llm_tpu_torch.generation import resolve_device
 from mdi_llm_tpu_torch.parallel import nodes
 from mdi_llm_tpu_torch.parallel.mesh import make_mesh
-from mdi_llm_tpu_torch.training import Trainer, TrainingConfig
+from mdi_llm_tpu_torch.training import Trainer, TrainingConfig, mesh_experts
 from mdi_llm_tpu_torch.utils import data_loader, native_loader
 from mdi_llm_tpu_torch.utils.checkpoint import (
     convert_hf_checkpoint,
@@ -201,7 +201,10 @@ def _train(args, tc, out_dir, overrides, device, mesh, lead: bool):
 
                 dist.barrier()  # the others read what process 0 converted
         if args.init == "hf" or (args.ckpt and has_checkpoint(out_dir)):
-            cfg, params = load_checkpoint(out_dir, device=device)
+            cfg = Config.from_checkpoint(out_dir)
+            # with the ep axis over the processes, this process's experts only
+            cfg, params = load_checkpoint(out_dir, cfg=cfg, device=device,
+                                          experts=mesh_experts(mesh, cfg))
         else:
             cfg = (
                 Config.from_checkpoint(out_dir)

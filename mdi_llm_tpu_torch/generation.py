@@ -564,9 +564,10 @@ class Generator:
         per device.  A dense config on an ep mesh runs as without one, as
         in the JAX package.  `_ep_mesh` keeps the mesh for `serve`'s
         refusal.  Over processes each process keeps only its ranks' expert
-        slices (copies: the whole stacks are dropped) and the exchange
-        and the combined output go through the processes' group
-        (`_group`)."""
+        slices (`params` may hold just those, as `sample --coordinator`
+        loads them; a whole tree is cut, copies, so its stacks can go) and
+        the exchange and the combined output go through the processes'
+        group (`_group`)."""
         self._ep_mesh, self._moe_impl = mesh, None
         if mesh is None or self.cfg.mlp_class_name != "LLaMAMoE":
             return
@@ -577,14 +578,16 @@ class Generator:
         ep = int(mesh.shape["ep"])
         if self.cfg.n_expert % ep:
             raise ValueError(f"ep={ep} does not divide n_expert={self.cfg.n_expert}")
-        place_ep(self.params, mesh, self.cfg.n_expert)  # refuses a layout it cannot split
         group = None
         if mesh.num_processes > 1:
             from mdi_llm_tpu_torch.parallel.collectives import CommGroup
             from mdi_llm_tpu_torch.parallel.expert import local_experts
 
+            # a tree drawn or loaded with only this process's experts stays
             self.params = local_experts(self.params, mesh, self.cfg.n_expert)
             group = self._group = CommGroup(range(mesh.num_processes))
+        else:
+            place_ep(self.params, mesh, self.cfg.n_expert)  # refuses a layout it cannot split
         self._moe_impl = partial(ep_moe_forward, mesh=mesh, capacity_factor=capacity_factor,
                                  group=group)
 

@@ -956,6 +956,7 @@ def init_params(
     dtype=torch.float32,
     device="cpu",
     n_layer: Optional[int] = None,
+    experts: Optional[Tuple[int, int]] = None,
 ) -> Params:
     """Random weights from `seed` in the JAX package's tree layout:
     normal(0, 0.02), output projections scaled by 1/sqrt(2 * n_layer),
@@ -964,7 +965,11 @@ def init_params(
     A leaf is drawn in float32 and cast, except the MoE expert stacks,
     which are drawn one (layer, expert) matrix at a time into the `dtype`
     stack: a whole float32 draw of Mixtral's (L, E, I, D) would not fit
-    beside the weights on one card."""
+    beside the weights on one card.  `experts` = (first, count) keeps
+    only those experts in the stacks (a process of an ep mesh over
+    processes, `parallel.expert.owned_experts`): the others are still
+    drawn, one matrix at a time, and dropped, so every kept value is the
+    whole tree's."""
     check_supported(cfg)
     L = cfg.n_layer if n_layer is None else n_layer
     D, V, I = cfg.n_embd, cfg.padded_vocab_size, cfg.intermediate_size
@@ -976,10 +981,13 @@ def init_params(
         return (torch.randn(shape, generator=gen, device=device) * s).to(dtype)
 
     def w_stack(shape, s=std):  # (L, E, ...), one (layer, expert) draw at a time
-        out = torch.empty(shape, dtype=dtype, device=device)
+        e0, n = (0, shape[1]) if experts is None else experts
+        out = torch.empty((shape[0], n) + shape[2:], dtype=dtype, device=device)
         for i in range(shape[0]):
             for e in range(shape[1]):
-                out[i, e] = torch.randn(shape[2:], generator=gen, device=device) * s
+                m = torch.randn(shape[2:], generator=gen, device=device)
+                if e0 <= e < e0 + n:
+                    out[i, e - e0] = m * s
         return out
 
     def zeros(shape):

@@ -246,24 +246,19 @@ class _CopyToRanks(torch.autograd.Function):
 class _GatherFromRanks(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim: int, group: CommGroup):
-        ctx.dim, ctx.index, ctx.n = dim, group.index, x.shape[dim]
-        return group.all_gather(x, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
-
-
-class _GatherSummed(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, dim: int, group: CommGroup):
         ctx.dim, ctx.index, ctx.n, ctx.group = dim, group.index, x.shape[dim], group
         return group.all_gather(x, dim)
 
     @staticmethod
     def backward(ctx, g):
-        g = ctx.group.all_reduce_(g.clone(memory_format=torch.contiguous_format))
         return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
+
+
+class _GatherSummed(_GatherFromRanks):
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.group.all_reduce_(g.clone(memory_format=torch.contiguous_format))
+        return _GatherFromRanks.backward(ctx, g)
 
 
 class _AllToAll(torch.autograd.Function):

@@ -36,7 +36,10 @@ this path trains.
 Over the processes of a job (`group`, a `collectives.CommGroup`; the
 mesh a `make_mesh(..., process_id, num_processes)` one whose dp axis, if
 any, has size 1) a process runs the ranks it owns (`Mesh.owned`, a
-contiguous range) and holds only their experts (`local_experts`).  Its
+contiguous range) and holds only their experts (`owned_experts`; a
+process draws or loads only those, `transformer.init_params(experts=)`,
+`utils.checkpoint.load_checkpoint(experts=)`, or cuts a whole tree with
+`local_experts`).  Its
 input is the whole batch, the same on every process: it routes its
 ranks' shards, the dispatch and the return cross processes in one
 `CommGroup.all_to_all` each, and the combined rows of its ranks are
@@ -52,7 +55,7 @@ the processes.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,7 +70,8 @@ from mdi_llm_tpu_torch.parallel.collectives import (
     reduce_from_ranks,
 )
 
-__all__ = ["expert_capacity", "ep_moe_forward", "place_ep", "local_experts", "ep_dims"]
+__all__ = ["expert_capacity", "ep_moe_forward", "place_ep", "local_experts", "ep_dims",
+           "owned_experts", "replicated"]
 
 Params = Any
 
@@ -133,17 +137,45 @@ def _owned_ranks(mesh, axis: str) -> List[int]:
     return sorted({c[axis] for i, c in enumerate(mesh.positions()) if i in owned})
 
 
+def owned_experts(mesh, n_expert: int, axis: str = "ep") -> Optional[Tuple[int, int]]:
+    """(first expert, count) of the experts this process's ep ranks hold
+    (`Mesh.owned`, contiguous), or None when it holds every rank."""
+    ranks = _owned_ranks(mesh, axis)
+    if len(ranks) == int(mesh.shape[axis]):
+        return None
+    n = n_expert // int(mesh.shape[axis])
+    return ranks[0] * n, len(ranks) * n
+
+
 def local_experts(params: Params, mesh, n_expert: int, axis: str = "ep") -> Params:
     """The tree a process of an ep mesh over processes holds: every leaf
     whole, each expert leaf cut to the experts of the ep ranks it owns
-    (`Mesh.owned`, contiguous), as a copy, so the whole stacks can go."""
-    ranks = _owned_ranks(mesh, axis)
-    n = n_expert // int(mesh.shape[axis])
+    (`owned_experts`), as a copy, so the whole stacks can go.  A tree that
+    already holds only those experts (drawn or loaded so) is kept as it
+    is; an expert leaf of any other size on axis 1 is refused."""
+    owned = owned_experts(mesh, n_expert, axis)
+    if owned is None:
+        return params
+    start, count = owned
 
     def cut(x, d):
-        return x if d is None else x.narrow(d, ranks[0] * n, len(ranks) * n).clone()
+        if d is None or x.shape[d] == count:
+            return x
+        if x.shape[d] != n_expert:
+            raise ValueError(f"expert-subtree leaf has axis-{d} size {x.shape[d]}: neither "
+                             f"n_expert={n_expert} nor this process's {count} experts")
+        return x.narrow(d, start, count).clone()
 
     return _zip_map(cut, params, ep_dims(params))
+
+
+def replicated(params: Params) -> Params:
+    """`params` without its expert stacks (the leaves `ep_dims` splits):
+    what every process of an ep mesh over processes holds alike."""
+    if not isinstance(params, dict):
+        return params
+    return {k: replicated(v) for k, v in params.items()
+            if not (k == "experts" and isinstance(v, dict))}
 
 
 def _zip_map(fn, tree, other):

@@ -122,7 +122,7 @@ import sys
 import time
 from dataclasses import asdict, dataclass
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -470,6 +470,25 @@ class MeshLayout:
         return self.tp_group, self.tp // self.tp_local, self.tp_start // self.tp_local
 
 
+def mesh_experts(mesh: Optional[Mesh], cfg: Config) -> Optional[Tuple[int, int]]:
+    """(first expert, count) that a process of `mesh` holds when the mesh's
+    ep axis splits an MoE config's experts over the processes
+    (`parallel.expert.owned_experts`), else None: the whole stacks."""
+    if (mesh is None or mesh.num_processes == 1 or mesh.shape.get("ep", 1) == 1
+            or cfg.mlp_class_name != "LLaMAMoE"):
+        return None
+    from mdi_llm_tpu_torch.parallel.expert import owned_experts
+
+    return owned_experts(mesh, cfg.n_expert)
+
+
+def _zip_tree(fn, tree, other):
+    """`fn(leaf, other's leaf)` over two trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: _zip_tree(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
+
+
 def _with_leaves(tree, leaves):
     """`tree`'s structure holding `leaves` (in `transformer.tree_leaves`
     order)."""
@@ -539,33 +558,47 @@ class Trainer:
         if self.layout is not None:
             self._check_mesh()
         dtype = DTYPES[tc.dtype]
+        # the ep axis split over the processes: this process's experts only,
+        # drawn so, or cut from the tree it is given (`mesh_experts`)
+        experts = mesh_experts(mesh, cfg)
         if params is None:
-            params = transformer.init_params(cfg, tc.seed, dtype=dtype, device=self.device)
+            params = transformer.init_params(cfg, tc.seed, dtype=dtype, device=self.device,
+                                             experts=experts)
         else:
+            if experts is not None:
+                from mdi_llm_tpu_torch.parallel.expert import local_experts
+
+                params = local_experts(params, mesh, cfg.n_expert)
             # a private copy: the optimizer updates the params in place
             params = transformer.tree_map(
                 lambda x: x.detach().to(device=self.device, dtype=dtype, copy=True),
                 params,
             )
         # the whole standard tree's shapes, and this process's split dims
-        self._meta = transformer.tree_map(lambda x: torch.empty_like(x, device="meta"),
-                                          params)
-        if self.layout is not None and self.layout.ep_local < self.layout.ep:
-            from mdi_llm_tpu_torch.parallel.expert import ep_dims
+        if experts is not None:
+            from mdi_llm_tpu_torch.parallel.expert import ep_dims, replicated
 
-            dims = ep_dims(params)  # the experts split over the processes
+            dims = ep_dims(params)
+            self._meta = _zip_tree(lambda x, d: torch.empty(
+                x.shape[:1] + (cfg.n_expert,) + x.shape[2:] if d is not None else x.shape,
+                dtype=x.dtype, device="meta"), params, dims)
         else:
             dims = split_dims(cfg, params)
+            self._meta = transformer.tree_map(lambda x: torch.empty_like(x, device="meta"),
+                                              params)
         self._dims = transformer.tree_leaves(self._stage_tree(dims))
         if self.layout is not None and mesh.num_processes > 1:
             import torch.distributed as dist
 
             from mdi_llm_tpu_torch.parallel import nodes
 
-            # every process must start from the same weights
-            nodes.check_params_consistency(params, nodes.RingGroup(
-                dist.get_rank(), dist.get_world_size(), dist.get_backend(), self.device))
-            params = self._to_local_tree(params)
+            # every process must start from the same weights (its own
+            # experts aside)
+            nodes.check_params_consistency(
+                params if experts is None else replicated(params), nodes.RingGroup(
+                    dist.get_rank(), dist.get_world_size(), dist.get_backend(), self.device))
+            if experts is None:
+                params = self._to_local_tree(params)
         transformer.tree_map(lambda x: x.requires_grad_(True), params)
         self.params = params
         self.optimizer = AdamW(tc, params)
@@ -1072,12 +1105,16 @@ class Trainer:
         tc = TrainingConfig(**state["training_config"])
         if mesh is not None and device is None:
             device = mesh.device_list()[mesh.owned()[0]]
-        cfg, params = load_checkpoint(out_dir, device=resolve_device(device))
+        cfg = Config.from_checkpoint(out_dir)
+        cfg, params = load_checkpoint(out_dir, cfg=cfg, device=resolve_device(device),
+                                      experts=mesh_experts(mesh, cfg))
         tr = cls(cfg, tc, mesh=mesh, params=params, out_dir=out_dir, device=device)
         del params
-        opt = torch.load(out_dir / "opt_state.pt", map_location=tr.device)
-        if tr._split:
+        if tr._split:  # the moments mapped, only this process's part read
+            opt = torch.load(out_dir / "opt_state.pt", map_location="cpu", mmap=True)
             opt = dict(opt, mu=tr._local(opt["mu"]), nu=tr._local(opt["nu"]))
+        else:
+            opt = torch.load(out_dir / "opt_state.pt", map_location=tr.device)
         tr.optimizer.load_state_dict(opt)
         tr.iter_num = state["iter_num"]
         tr.best_val_loss = state["best_val_loss"]

@@ -702,22 +702,30 @@ def save_checkpoint(params: Tree, cfg: Config, out_dir: PathLike) -> Path:
 def load_checkpoint(
     ckpt_dir: PathLike, dtype: Optional[torch.dtype] = None,
     cfg: Optional[Config] = None, device="cpu",
+    experts: Optional[Tuple[int, int]] = None,
 ) -> Tuple[Config, Tree]:
     """(cfg, params) of a checkpoint dir, params cast to `dtype` (None
     keeps the stored dtypes) on `device`.  The tree is read to the host
     and its leaves move to the device one at a time, each host copy freed
     as its leaf moves.  The cast is quantization-aware: integer leaves and
-    "scale" leaves keep their dtype."""
+    "scale" leaves keep their dtype.  `experts` = (first, count) keeps
+    only those experts of the MoE stacks (axis 1 of every leaf of two or
+    more dims under an "experts" subtree, as `parallel.expert.place_ep`
+    splits them): the file is mapped, not read, and only their bytes
+    reach the host and the device."""
     ckpt_dir = Path(ckpt_dir).resolve()
     if cfg is None:
         cfg = Config.from_checkpoint(ckpt_dir)
-    params = torch.load(ckpt_dir / PARAMS_FILE, map_location="cpu", weights_only=True)
+    params = torch.load(ckpt_dir / PARAMS_FILE, map_location="cpu", weights_only=True,
+                        mmap=experts is not None)
 
-    def place(tree: Tree) -> None:
+    def place(tree: Tree, in_experts: bool = False) -> None:
         for k, v in tree.items():
             if isinstance(v, dict):
-                place(v)
+                place(v, in_experts or k == "experts")
                 continue
+            if in_experts and experts is not None and v.dim() >= 2:
+                v = v.narrow(1, *experts).clone()
             if dtype is not None and v.is_floating_point() and k != "scale":
                 v = v.to(dtype)
             tree[k] = v.to(device)

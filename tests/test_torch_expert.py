@@ -288,6 +288,38 @@ def test_ep_generator_guards(moe_model):
         assert torch.equal(a, b[:, n:])  # its rank's experts only
 
 
+def test_local_trees_hold_only_the_owned_experts(moe_model, tmp_path):
+    """A process of an ep mesh over processes draws, loads and keeps only
+    its ranks' experts: `owned_experts` over 2 processes of ep 4,
+    `init_params(experts=)` equal to the whole draw's slice (the other
+    experts drawn and dropped), `load_checkpoint(experts=)` equal to the
+    stored stacks' slice, `local_experts` keeping a local tree and
+    refusing a stack of another size, `replicated` dropping the stacks."""
+    from mdi_llm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    _cfg, _jp, tc, tp = moe_model
+    meshes = [make_mesh({"ep": 4}, ["cpu"], process_id=i, num_processes=2) for i in range(2)]
+    assert [texpert.owned_experts(m, tc.n_expert) for m in meshes] == [(0, 4), (4, 4)]
+    assert texpert.owned_experts(tmesh({"ep": 4}), tc.n_expert) is None
+    whole = ttf.init_params(tc, 5)
+    save_checkpoint(tp, tc, tmp_path)
+    for mesh, (start, n) in zip(meshes, ((0, 4), (4, 4))):
+        local = ttf.init_params(tc, 5, experts=(start, n))
+        _, loaded = load_checkpoint(tmp_path, experts=(start, n))
+        dims = ttf.tree_leaves(texpert.ep_dims(whole))
+        for d, a, b, c, w in zip(dims, ttf.tree_leaves(local), ttf.tree_leaves(whole),
+                                 ttf.tree_leaves(loaded), ttf.tree_leaves(tp)):
+            assert torch.equal(a, b if d is None else b.narrow(1, start, n))
+            assert torch.equal(c, w if d is None else w.narrow(1, start, n))
+        kept = texpert.local_experts(local, mesh, tc.n_expert)
+        assert all(a is b for a, b in zip(ttf.tree_leaves(kept), ttf.tree_leaves(local)))
+        assert "experts" not in texpert.replicated(local)["blocks"]["mlp"]
+        assert ttf.tree_leaves(texpert.replicated(local)["blocks"]["attn"])
+    bad = {"experts": {"fc_1": {"weight": torch.zeros(2, 3, 4)}}}
+    with pytest.raises(ValueError, match="axis-1 size 3"):
+        texpert.local_experts(bad, meshes[0], 8)
+
+
 def _tcs(**kw):
     jt = small_tc(grad_acc_steps=1, **kw)
     return jt, ttr.TrainingConfig(**asdict(jt))
