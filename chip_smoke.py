@@ -576,28 +576,36 @@ remat) compiled instead of compiling them again.
    (listed there in the phase order): Mixtral-8x7B's published widths at
    16 bf16 layers (the moe phase's tree, drawn again from its seed: the
    card cannot hold it beside moe-quant's 32 int8 layers), the generate
-   phase's four prompts of 1100-1900 tokens (bucket 2048), 32 greedy new
-   tokens in decode chunks of 8, twice (the first call captures, the
-   second, counted, replays), through the dense `Generator` and the
-   `--ep-devices` 2 and 4 Generators at exact capacity (every rank on the
-   card): K2 exactly once
-   per layer (attention runs once on the card), the plain version never,
+   phase's four prompts of 1100-1900 tokens (bucket 2048), `EP_TOKENS`
+   greedy new tokens in decode chunks of 8, twice (the first call
+   captures, the second, counted, replays), through the dense `Generator`, the
+   `--ep-devices` 2 and 4 Generators and the Generators on
+   `make_mesh({"ep": 2, "tp": 2})` and `{"dp": 2, "ep": 2, "tp": 2}` at
+   exact capacity (every position on the card): K2 exactly once per
+   layer, tp rank and dp replica (attention runs once on the card beside
+   an ep axis alone; 32 and 64 with tp, dp), the plain version never,
    every sample in the vocabulary; prints prefill seconds, decode
    tokens/s and their ratios to the dense Generator, whether decode
    replays graphs, and how many bf16 streams differ (not gated: router
    near-ties).  float32 at 4 layers, the fp tree and its int8 tree, two
-   prompts of ~300 tokens: ep 2 and ep 4 give the dense Generator's
-   greedy streams (`divergence_ok`).
+   prompts of ~300 tokens: ep 2, ep 4 and ep 2 x tp 2 give the dense
+   Generator's greedy streams (`divergence_ok`), and dp 2 x ep 2 at
+   capacity factor 0.5 gives ep 2's at that factor (one dispatch over the
+   whole batch, as the JAX Generator routes it).
    Then the Trainer at moe-train's shape (2 layers, B=1, T=2048, bf16,
    flash, remat): dense (moe-train's counted steps of the same run, or
    measured here without that phase), then ep 2 and ep 4 at
    `moe_capacity_factor`
-   None and 1.25, 3 counted steps each: K2 2 x 2, K3 and K4 2 per step
-   (the layers run once over the batch), prints step seconds over the
-   dense step, layer runs and peak memory.  float32 at 2 layers,
+   None and 1.25, and on `{"ep": 2, "tp": 2}` at None, 3 counted steps
+   each: K2 2 x 2, K3 and K4 2 per step (the layers run once over the
+   batch; beside tp 2 once per rank, so 8, 4, 4), prints step seconds
+   over the dense step, layer runs and peak memory.  float32 at 2 layers,
    capacity None: the loss and the first step's gradients of the ep 2 and
-   ep 4 loss equal the dense formulation's within B*T float32 roundings
-   of each leaf's largest gradient (`grad_limit`).
+   ep 4 loss and of the ep 2 x tp 2 Trainer's loss equal the dense
+   formulation's within B*T float32 roundings of each leaf's largest
+   gradient (`grad_limit`).  Last, K2, K3 and K4 against their plain
+   versions and SDPA at a tp 2 rank's geometry of Mixtral (16 heads, 4
+   groups, hs 128, causal, B=1, T=2048, bf16).
 36. sp-train — sequence-parallel training: K2 with the LSE, K3 and K4
    against their plain versions at the sp 2 Trainer's per-rank blocks
    (B=1, T=4096, 32 heads / 8 groups / hs 128, bf16, causal and
@@ -640,7 +648,10 @@ K2's `inference-procs` over the two processes' bf16 tp run and sp runs
 of its two processes, K2's `sp` over
 the three bf16 sp prefills, K3's and K4's `sp` the counted ring
 gradient's, K2's `ep` over the two ep prefills and the four ep Trainers'
-counted steps, K3's and K4's `ep` over those steps, K2's, K3's and K4's
+counted steps, K3's and K4's `ep` over those steps, K2's `ep-tp` over the
+ep 2 x tp 2 and dp 2 x ep 2 x tp 2 prefills and the ep 2 x tp 2
+Trainer's counted steps, K3's and K4's `ep-tp` over those steps, K2's,
+K3's and K4's
 `sp-train` over the sp 2 and sp 4 Trainers' counted steps); the last line
 is `{"ok": true, "device": {...}}`.
 """
@@ -4028,15 +4039,20 @@ def phase_moe_train(k3, k4, card):
 
 
 EP_SIZES = (2, 4)
-EP_TOKENS = 16  # new tokens of the ep phase's bf16 generates (32 before the run's cuts)
+EP_TOKENS = 8  # new tokens of the ep phase's bf16 generates (32, then 16, before the run's cuts)
 EP_CF = 1.25  # the finite capacity factor of the ep Trainer's second runs
+# ep beside tp and dp in one process (every position on the card)
+EP_TP_MESHES = {"ep 2 x tp 2": {"ep": 2, "tp": 2},
+                "dp 2 x ep 2 x tp 2": {"dp": 2, "ep": 2, "tp": 2}}
+EP_TP_CF = 0.5  # the capacity factor at which dp x ep must route the whole batch
 
 
 def ep_generate(phase, label, gen, prompts, n_new, card) -> dict:
     """`gen.generate` over `prompts`, K2 counted, after a warm-up call on
     the same shapes (which captures the decode chunks the counted call
-    replays): K2 exactly once per layer (attention runs once on the card
-    whatever the ep ranks), the plain version never.  Returns the run's
+    replays): K2 exactly once per layer, tp rank and dp replica (attention
+    runs once on the card whatever the ep ranks; beside tp and dp, over
+    each replica's tp ranks), the plain version never.  Returns the run's
     numbers."""
     import torch
 
@@ -4048,8 +4064,9 @@ def ep_generate(phase, label, gen, prompts, n_new, card) -> dict:
     outs, stats = gen.generate(prompts, n_new, temperature=0.0, chunk_size=8)
     torch.cuda.synchronize()
     got = flash_counts()
-    if (got["K2"], got["plain"]) != (gen.cfg.n_layer, 0):
-        fail(phase, f"{label}: generate launched {got}; want K2 {gen.cfg.n_layer}, plain 0")
+    k2 = gen.cfg.n_layer * gen.tp * gen.dp
+    if (got["K2"], got["plain"]) != (k2, 0):
+        fail(phase, f"{label}: generate launched {got}; want K2 {k2}, plain 0")
     for i, (p, o) in enumerate(zip(prompts, outs)):
         if len(o) - len(p) != n_new or not all(0 <= t < gen.cfg.padded_vocab_size
                                                for t in o[len(p):]):
@@ -4085,22 +4102,30 @@ def phase_ep(k2, k3, k4, card):
     from mdi_llm_tpu_torch.training import Trainer, TrainingConfig, cross_entropy_loss
     from mdi_llm_tpu_torch.utils import data_loader
 
-    # (a) 16 bf16 layers: the dense Generator and the --ep-devices 2 and 4 ones
+    t_phase = time.perf_counter()
+
+    def part(name):
+        print(f"ep: {name} done at {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # (a) 16 bf16 layers: the dense Generator, the --ep-devices 2 and 4 ones,
+    # and ep beside tp and dp
     cfg = mixtral_config("ep", MOE_LAYERS)
     free()
     params = transformer.init_params(cfg, 10137, dtype=torch.bfloat16, device=DEVICE)
     prompts = long_prompts((1100, 1370, 1650, 1900), cfg.vocab_size)
-    runs, k2_total = {}, 0
-    for ep in (None,) + EP_SIZES:
-        label = "dense" if ep is None else f"ep {ep}"
-        mesh = None if ep is None else make_mesh({"ep": ep}, [DEVICE])
+    runs, k2_total, k2_tp = {}, 0, 0
+    meshes = {"dense": None, **{f"ep {ep}": {"ep": ep} for ep in EP_SIZES}, **EP_TP_MESHES}
+    for label, axes in meshes.items():
+        mesh = None if axes is None else make_mesh(axes, [DEVICE])
         gen = Generator(cfg, params, max_seq_length=2048, device=DEVICE, mesh=mesh)
-        if (ep is None) != (gen._moe_impl is None):
+        if (axes is None) != (gen._moe_impl is None):
             fail("ep", f"{label}: the token dispatch is {'on' if gen._moe_impl else 'off'}")
         torch.cuda.reset_peak_memory_stats()
         runs[label] = ep_generate("ep", label, gen, prompts, EP_TOKENS, card)
         runs[label]["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        if ep is not None:
+        if label in EP_TP_MESHES:
+            k2_tp += runs[label]["k2_launches"]
+        elif axes is not None:
             k2_total += runs[label]["k2_launches"]
         del gen
         free()
@@ -4110,7 +4135,8 @@ def phase_ep(k2, k3, k4, card):
             r["outs"][i] != base["outs"][i] for i in base["outs"])
         print("ep: generate " + json.dumps({
             "card": card, "model": MIXTRAL, "layers": MOE_LAYERS, "dtype": "bfloat16",
-            "route": label, "capacity_factor": None, "prompt_lens": [len(p) for p in prompts],
+            "route": label, "mesh": meshes[label], "capacity_factor": None,
+            "prompt_lens": [len(p) for p in prompts],
             "new_tokens": EP_TOKENS, "prefill_s": r["prefill_s"],
             "prefill_over_dense": r["prefill_s"] / base["prefill_s"],
             "decode_tokens_per_s": r["decode_tokens_per_s"],
@@ -4121,32 +4147,54 @@ def phase_ep(k2, k3, k4, card):
             "peak_memory_gib": r["peak_memory_gib"]}), flush=True)
     del params, runs
     free()
+    part("(a) bf16 generates")
 
-    # (b) float32, 4 layers: the fp tree and its int8 tree, ep 2 and 4 against dense
+    # (b) float32, 4 layers: the fp tree and its int8 tree, ep 2 and 4 and
+    # ep 2 x tp 2 against dense; dp 2 x ep 2 at EP_TP_CF against ep 2 there
     cfg4 = mixtral_config("ep", 4)
     params = transformer.init_params(cfg4, 10137, dtype=torch.float32, device=DEVICE)
     fprompts = long_prompts((300, 293), cfg4.vocab_size, seed=7)
+    f32_meshes = {**{f"ep {ep}": {"ep": ep} for ep in EP_SIZES},
+                  "ep 2 x tp 2": EP_TP_MESHES["ep 2 x tp 2"]}
     for tree_label in ("fp", "int8"):
         tree = params if tree_label == "fp" else quantize_params(params, mode="w8")
         # eager decode: these runs hold the streams, not the graphs
         dense = Generator(cfg4, tree, max_seq_length=2048, device=DEVICE, _graphs=False)
         want, _ = dense.generate(fprompts, 16, temperature=0.0)
         want = dict(enumerate(want))
-        for ep in EP_SIZES:
+        for label, axes in f32_meshes.items():
             gen = Generator(cfg4, tree, max_seq_length=2048, device=DEVICE, _graphs=False,
-                            mesh=make_mesh({"ep": ep}, [DEVICE]))
+                            mesh=make_mesh(axes, [DEVICE]))
             got, _ = gen.generate(fprompts, 16, temperature=0.0)
             got = dict(enumerate(got))
-            divergence_ok("ep", dense, got, want, f"float32 {tree_label} ep {ep}")
-            print(f"ep: float32 {tree_label}, 4 layers at full width: ep {ep} gives "
+            divergence_ok("ep", dense, got, want, f"float32 {tree_label} {label}")
+            print(f"ep: float32 {tree_label}, 4 layers at full width: {label} gives "
                   f"{sum(got[i] == want[i] for i in want)} of {len(want)} greedy streams "
                   "identical to the dense Generator's", flush=True)
             del gen
             free()
+        if tree_label == "fp":
+            # the whole batch's routing: dp 2 x ep 2 drops the assignments ep 2 drops
+            cf_runs = {}
+            for label, axes in (("ep 2", {"ep": 2}), ("dp 2 x ep 2", {"dp": 2, "ep": 2})):
+                gen = Generator(cfg4, tree, max_seq_length=2048, device=DEVICE, _graphs=False,
+                                mesh=make_mesh(axes, [DEVICE]), moe_capacity_factor=EP_TP_CF)
+                cf_runs[label] = dict(enumerate(gen.generate(fprompts, 16, temperature=0.0)[0]))
+                del gen
+                free()
+            divergence_ok("ep", dense, cf_runs["dp 2 x ep 2"], cf_runs["ep 2"],
+                          f"float32 dp 2 x ep 2 against ep 2 at capacity factor {EP_TP_CF}")
+            same = sum(cf_runs["dp 2 x ep 2"][i] == cf_runs["ep 2"][i] for i in want)
+            moved = sum(cf_runs["ep 2"][i] != want[i] for i in want)
+            print(f"ep: float32 fp, 4 layers, capacity factor {EP_TP_CF}: dp 2 x ep 2 gives "
+                  f"{same} of {len(want)} greedy streams identical to ep 2's at that factor; "
+                  f"the drops move {moved} of {len(want)} streams off the dense ones",
+                  flush=True)
         del dense, tree
         free()
     del params
     free()
+    part("(b) float32 streams")
 
     # (c) the Trainer at moe-train's shape: dense, then ep 2 and 4 at
     # capacity None and EP_CF
@@ -4161,13 +4209,19 @@ def phase_ep(k2, k3, k4, card):
     # seed) when that phase ran in this call
     results = {"dense": dict(MOE_TRAIN_DENSE)} if MOE_TRAIN_DENSE else {}
     totals = {"K2": 0, "K3": 0, "K4": 0}
-    dense_run = () if results else ((None, None),)
-    for ep, cf in dense_run + tuple((e, c) for e in EP_SIZES for c in (None, EP_CF)):
-        label = "dense" if ep is None else f"ep {ep} cf {cf}"
+    tp_totals = {"K2": 0, "K3": 0, "K4": 0}
+    dense_run = () if results else (("dense", None, None),)
+    train_runs = dense_run + tuple((f"ep {e} cf {c}", {"ep": e}, c)
+                                   for e in EP_SIZES for c in (None, EP_CF)) + (
+        ("ep 2 x tp 2 cf None", EP_TP_MESHES["ep 2 x tp 2"], None),)
+    for label, axes, cf in train_runs:
+        # per step: the layers once over the batch, per tp rank (remat: K2 twice)
+        ranks = 1 if axes is None else axes.get("tp", 1)
+        want = {"K2": 2 * L * ranks, "K3": L * ranks, "K4": L * ranks, "plain": 0}
         free()
         torch.cuda.reset_peak_memory_stats()
         tr = Trainer(cfg2, TrainingConfig(**{**MOE_TRAIN, "moe_capacity_factor": cf}),
-                     mesh=None if ep is None else make_mesh({"ep": ep}, [DEVICE]),
+                     mesh=None if axes is None else make_mesh(axes, [DEVICE]),
                      device=DEVICE)
         tr.train_step(fixed[0][0][None], fixed[0][1][None])  # warm-up, not counted
         steps = []
@@ -4179,20 +4233,20 @@ def phase_ep(k2, k3, k4, card):
             loss = tr.train_step(x[None], y[None])
             dt = time.perf_counter() - t0
             got = flash_counts()
-            if got != want or (ep is not None and tr.layer_runs - runs0 != L):
+            if got != want or (axes is not None and tr.layer_runs - runs0 != L * ranks):
                 fail("ep", f"{label}: one optimizer step launched {got} over "
                      f"{tr.layer_runs - runs0} layer runs; want {want}")
             if not np.isfinite(loss):
                 fail("ep", f"{label}: step loss {loss}")
-            if ep is not None:
+            if axes is not None:
                 for kk in totals:
-                    totals[kk] += got[kk]
+                    (tp_totals if ranks > 1 else totals)[kk] += got[kk]
             steps.append((dt, loss))
         results[label] = {
             "step_s": [round(d, 4) for d, _ in steps],
             "step_s_median": float(np.median([d for d, _ in steps])),
             "step_losses": [round(lo, 4) for _, lo in steps],
-            "layer_runs_per_step": L, "launches_per_step": want,
+            "layer_runs_per_step": L * ranks, "launches_per_step": want,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "measured_in": "ep"}
         del tr
     free()
@@ -4204,6 +4258,10 @@ def phase_ep(k2, k3, k4, card):
     k2.setdefault("paths", {})["ep"] = k2_total + totals["K2"]
     k3.setdefault("paths", {})["ep"] = totals["K3"]
     k4.setdefault("paths", {})["ep"] = totals["K4"]
+    k2.setdefault("paths", {})["ep-tp"] = k2_tp + tp_totals["K2"]
+    k3.setdefault("paths", {})["ep-tp"] = tp_totals["K3"]
+    k4.setdefault("paths", {})["ep-tp"] = tp_totals["K4"]
+    part("(c) Trainer steps")
 
     # (d) float32, 2 layers, capacity None: the first step's gradients of
     # the ep Trainer's loss against the dense formulation's
@@ -4231,8 +4289,39 @@ def phase_ep(k2, k3, k4, card):
               f"{limit:.3e} of the leaf's largest (B*T float32 roundings)", flush=True)
         if not (diff["max_rel_to_leaf_max"] <= limit and rel <= 1e-5):
             fail("ep", f"ep {ep}: gradients {diff} (limit {limit}), loss rel {rel}")
-    del params, leaves, want_g
+    # the ep 2 x tp 2 Trainer's loss (its own copy of the tree; no step is
+    # taken, so its AdamW moments go): attention over each dp row's tp
+    # ranks, one dispatch a layer over the whole batch
+    tr = Trainer(cfg2, TrainingConfig(**{**MOE_TRAIN, "dtype": "float32"}), params=params,
+                 mesh=make_mesh(EP_TP_MESHES["ep 2 x tp 2"], [DEVICE]), device=DEVICE)
+    tr.optimizer.mu = tr.optimizer.nu = None
+    del params, leaves
     free()
+    reset_flash_counts()
+    loss_t = tr._loss(x, y, remat=True)
+    got_g = torch.autograd.grad(loss_t, transformer.tree_leaves(tr.params))
+    got = flash_counts()
+    if got != {"K2": 2 * L * 2, "K3": L * 2, "K4": L * 2, "plain": 0}:
+        fail("ep", f"ep 2 x tp 2 float32 gradient launched {got}")
+    diff = grad_diff(got_g, want_g)
+    rel = abs(loss_t.item() - want_loss) / abs(want_loss)
+    print(f"ep: float32, 2 layers x {cfg2.n_embd}, B={B} T={T}, ep 2 x tp 2 Trainer, capacity "
+          f"None, aux weight {MOE_TRAIN['moe_aux_weight']}: loss {loss_t.item():.7f} vs dense "
+          f"{want_loss:.7f} (rel {rel:.2e}); first-step gradients {diff}, limit {limit:.3e} "
+          "of the leaf's largest (B*T float32 roundings)", flush=True)
+    if not (diff["max_rel_to_leaf_max"] <= limit and rel <= 1e-5):
+        fail("ep", f"ep 2 x tp 2: gradients {diff} (limit {limit}), loss rel {rel}")
+    del tr, got_g, want_g, loss_t
+    free()
+    part("(d) float32 gradients")
+
+    # (e) K2-K4 at a tp 2 rank's geometry of Mixtral (16 heads, 4 groups, hs 128)
+    err, (ms, plain_ms, lib_ms, b_ms, b_by) = flash_case_ms(B, T, 16, 4, 128)
+    print(f"ep: K2 bfloat16 B={B} T={T} H=16 G=4 hs=128 causal=True max_abs_err={err:.3e} "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA) "
+          f"bound_ms={b_ms:.5f} ({b_by}); on {card}", flush=True)
+    flash_bwd_case_ms(B, T, 16, 4, 128, card, phase="ep")
+    part("(e) kernel rows")
 
 
 TUNE_GEOMETRIES = {"tiny-llama-1.1b": (32, 4, 64), MIXTRAL: (32, 8, 128)}
@@ -6989,12 +7078,12 @@ def main(argv=None) -> None:
     records = (k1, k1q8, k2, k3, k4)
     missing = [(r["name"], k) for r in records for k in keys if k not in r]
     k2_paths = {"generate", "ckpt", "graphs", "quant", "moe", "moe-quant", "tp-generate",
-                "mesh-train", "mesh-train-procs", "inference-procs", "sp", "ep",
+                "mesh-train", "mesh-train-procs", "inference-procs", "sp", "ep", "ep-tp",
                 "sp-train"} | (
         {"chat"} if importlib.util.find_spec("tokenizers") else set())
     k1_paths = {"serve", "ckpt", "graphs", "server", "tier", "quant", "moe", "moe-quant", "tune",
                 "pp-serve", "tp-serve", "pp-tp-serve"}
-    k34_paths = {"train", "moe-train", "mesh-train", "mesh-train-procs", "sp", "ep",
+    k34_paths = {"train", "moe-train", "mesh-train", "mesh-train-procs", "sp", "ep", "ep-tp",
                  "sp-train"}
     if only == set(PHASES) and (set(k1["paths"]) != k1_paths or set(k2["paths"]) != k2_paths
                                 or set(k3["paths"]) != k34_paths

@@ -323,22 +323,28 @@ def _check_inference_mesh(mesh: Mesh) -> None:
     axis is replicated, as the JAX Generator (which reads only tp, dp and
     ep) leaves it: the sequence splits over sp in
     `parallel.sp_inference.SPGenerator`.  An ep axis splits an MoE config's
-    experts (`parallel/expert.py`) and stands alone: ep beside another
-    axis is ROADMAP item 20.  A mesh over processes (`sample
-    --coordinator`) splits its tp axis (each process holds a contiguous
-    part of the one tp group), its sp axis (`SPGenerator`) or its ep axis
+    experts (`parallel/expert.py`), alone or beside tp, dp and a
+    replicated sp; not beside a pipeline axis, whose staged engines run
+    the dense MoE layers.  A mesh over processes (`sample --coordinator`)
+    splits its tp axis (each process holds a contiguous part of the one tp
+    group), its sp axis (`SPGenerator`) or an ep axis that stands alone
     (each process holds a contiguous range of the ep ranks and their
-    experts)."""
+    experts); ep beside another axis over processes is ROADMAP item
+    20.2."""
     for axis, size in mesh.shape.items():
         if size <= 1 or axis in ("tp", "dp", "sp", "ep") + PIPE_AXES:
             continue
         raise ValueError(f"mesh axis {axis!r} (size {size}): the Generator "
                          "runs tp, dp, sp, ep and pipeline axes")
-    if mesh.shape.get("ep", 1) > 1 and any(
+    pa = pipe_axis(mesh)
+    if mesh.shape.get("ep", 1) > 1 and pa and mesh.shape[pa] > 1:
+        raise ValueError(f"mesh {mesh.shape}: an ep axis runs beside tp, dp and sp, not "
+                         "beside a pipeline axis (its stages run the dense MoE layers)")
+    if mesh.num_processes > 1 and mesh.shape.get("ep", 1) > 1 and any(
             n > 1 for a, n in mesh.shape.items() if a != "ep"):
-        _refuse(f"mesh {mesh.shape}: an ep axis beside another axis is ROADMAP item 20")
+        _refuse(f"mesh {mesh.shape} over {mesh.num_processes} processes: an ep axis "
+                "beside another axis over processes is ROADMAP item 20.2")
     if mesh.num_processes > 1:
-        pa = pipe_axis(mesh)
         if mesh.shape.get("dp", 1) > 1 or (pa and mesh.shape[pa] > 1):
             raise ValueError(
                 f"mesh {mesh.shape} over {mesh.num_processes} processes: a Generator's "
@@ -469,7 +475,13 @@ class Generator:
         self.params = params
         # structural: a pre-quantized checkpoint loads with quantize=None
         self.quantized = tree_has_quantized(params)
-        self._init_mesh(tp_mesh)
+        dispatch = ep_mesh is not None and cfg.mlp_class_name == "LLaMAMoE"
+        # the JAX `_place_ep_quantized`: a quantized tree's experts split over
+        # ep and every other leaf whole, so the tp and dp axes replicate
+        whole = dispatch and self.quantized and tp_mesh is not None
+        self._init_mesh(None if whole else tp_mesh, dispatch)
+        if whole:  # the batch still divides over dp, as there
+            self.dp = int(tp_mesh.shape.get("dp", 1))
         self._init_ep(ep_mesh, moe_capacity_factor)
         if cache_dtype is None:  # the float weights' dtype, never a scale's
             cache_dtype = transformer.param_dtype(self.params)
@@ -516,10 +528,14 @@ class Generator:
         # measured into it at their first run per shape
         self.device_obs = None
 
-    def _init_mesh(self, mesh: Optional[Mesh]) -> None:
+    def _init_mesh(self, mesh: Optional[Mesh], dispatch: bool = False) -> None:
         """Lay the weights over a tp/dp mesh (`parallel/sharding.py`): each
         position's slice of every leaf on its device, and per dp replica its
-        positions in tp order.  Without a mesh, every field is None."""
+        positions in tp order.  Without a mesh, every field is None.  With
+        `dispatch` (an ep axis beside the mesh) the positions' trees leave
+        out the MoE layers' router and experts: the dispatch runs them from
+        the one tree, split over ep and whole over tp and dp, as the JAX
+        `param_specs(ep_axis="ep")` lays them."""
         self._tp_mesh = mesh
         self._shards = self._replicas = self._devices = self._group = None
         self.tp = self.dp = 1
@@ -534,8 +550,10 @@ class Generator:
         self.tp, self.dp = int(mesh.shape.get("tp", 1)), int(mesh.shape.get("dp", 1))
         # vocab counts here: the Generator splits the embedding and head
         validate_tp_divisibility(self.cfg, self.tp, check_vocab=True)
-        self._shards = shard_params(self.params, self.cfg, mesh,
-                                    "tp" if self.tp > 1 else None)
+        tree = self.params
+        if dispatch:
+            tree = {**tree, "blocks": {k: v for k, v in tree["blocks"].items() if k != "mlp"}}
+        self._shards = shard_params(tree, self.cfg, mesh, "tp" if self.tp > 1 else None)
         regroup_w4_row_scales(self.params, self._shards, mesh)
         owned = set(mesh.owned())
         self._shards = {i: t for i, t in self._shards.items() if i in owned}
@@ -560,14 +578,17 @@ class Generator:
         """On an ep mesh, an MoE config's experts run the token dispatch
         (`parallel.expert.ep_moe_forward`, `_moe_impl`) over the ranks'
         expert slices, views of the one tree whose layout `place_ep`
-        checks here; attention and every other leaf stay whole, run once
-        per device.  A dense config on an ep mesh runs as without one, as
-        in the JAX package.  `_ep_mesh` keeps the mesh for `serve`'s
-        refusal.  Over processes each process keeps only its ranks' expert
-        slices (`params` may hold just those, as `sample --coordinator`
-        loads them; a whole tree is cut, copies, so its stacks can go) and
-        the exchange and the combined output go through the processes'
-        group (`_group`)."""
+        checks here, and the whole batch's tokens split over the ep ranks
+        (over dp x ep replicas too, as the JAX Generator's dispatch, which
+        names no dp axis, routes them); attention and every other leaf run
+        whole, once per device, or over the tp ranks of each dp replica
+        (`_init_mesh`, `transformer.replicas_forward`).  A dense config on
+        an ep mesh runs as without one, as in the JAX package.  `_ep_mesh`
+        keeps the mesh for `serve`'s refusal.  Over processes each process
+        keeps only its ranks' expert slices (`params` may hold just those,
+        as `sample --coordinator` loads them; a whole tree is cut, copies,
+        so its stacks can go) and the exchange and the combined output go
+        through the processes' group (`_group`)."""
         self._ep_mesh, self._moe_impl = mesh, None
         if mesh is None or self.cfg.mlp_class_name != "LLaMAMoE":
             return
@@ -617,13 +638,24 @@ class Generator:
         """The model's logits; the cache in `kv` is updated in place.  On a
         mesh, each dp replica runs `transformer.sharded_forward` over its
         tp ranks on its rows of the batch (`kv` then holds each position's
-        cache), and the logits meet on the first device."""
+        cache), and the logits meet on the first device; beside an ep axis
+        the replicas run layer by layer, `transformer.replicas_forward`."""
         with torch.no_grad():
             if self._shards is None:
                 return transformer.forward(
                     self.cfg, self.params, tokens, input_pos, kv, rope=self.rope,
                     moe_impl=self._moe_impl, **kw
                 )
+            if self._moe_impl is not None:
+                # the MoE layers dispatch every replica's rows at once
+                units = [transformer.TPRanks(self.cfg, [self._shards[i] for i in ranks])
+                         for ranks in self._replicas]
+                return transformer.replicas_forward(
+                    self.cfg, units, (self._moe_impl, self.params["blocks"]["mlp"]), tokens,
+                    input_pos, None if kv is None else [[kv[i] for i in r]
+                                                        for r in self._replicas],
+                    ropes=[[self._ropes[i] for i in r] for r in self._replicas], **kw,
+                ).to(self.device)
             rows = tokens.shape[0] // self.dp
             outs = []
             for d, ranks in enumerate(self._replicas):

@@ -600,11 +600,17 @@ class TPRanks:
         with or without a shared norm, and sequential) as `block_forward`.
         `collect_moe_aux` also returns the router's `moe_stats` (the whole
         router, computed once per device)."""
+        x, n2 = self.block_attn(lay, x, pos, cos, sin, caches, attn)
+        return self.block_mlp(lay, x, n2, collect_moe_aux)
+
+    def block_attn(self, lay, x, pos, cos, sin, caches, attn):
+        """A block up to its MLP: (the residual stream after the
+        attention, its input to the MLP under `norm_2`), each per rank."""
         n1, n1c = self.norm_in(lay, x)
         heads = [attention_forward(self.cfg_r, lay[r]["attn"], n1c[r], pos[r], cos[r], sin[r],
                                    *caches[r], project=False, **attn[r])
                  for r in range(len(lay))]
-        return self.block_rest(lay, x, n1, heads, collect_moe_aux)
+        return self.attn_rest(lay, x, n1, heads)
 
     def norm_in(self, lay, x):
         """Each rank's block input under `norm_1` (once per device), and
@@ -616,8 +622,14 @@ class TPRanks:
         """A block after its attention: `heads` each rank's heads' output
         (B, T, n_head/tp * hs) before `proj`, `n1` the input under
         `norm_1` (`norm_in`); `block`'s return."""
-        cfg, cfg_r, rep, group, tp = self.cfg, self.cfg_r, self.rep, self.group, len(lay)
-        att = _row_parallel(heads, [lay[r]["attn"]["proj"] for r in range(tp)], rep, group)
+        x, n2 = self.attn_rest(lay, x, n1, heads)
+        return self.block_mlp(lay, x, n2, collect_moe_aux)
+
+    def attn_rest(self, lay, x, n1, heads):
+        """`heads` through the row-parallel `proj`, the residual and
+        `norm_2`: `block_attn`'s return."""
+        cfg, rep, tp = self.cfg, self.rep, len(lay)
+        att = _row_parallel(heads, [lay[r]["attn"]["proj"] for r in range(tp)], rep, self.group)
         if cfg.parallel_residual:
             n2 = n1 if cfg.shared_attention_norm else rep(
                 lambda r: _norm(cfg, x[r], lay[r]["norm_2"]))
@@ -625,6 +637,11 @@ class TPRanks:
         else:
             x = rep(lambda r: x[r] + att[r])
             n2 = rep(lambda r: _norm(cfg, x[r], lay[r]["norm_2"]))
+        return x, n2
+
+    def block_mlp(self, lay, x, n2, collect_moe_aux=False):
+        """A block's MLP on `n2` and its residual: `block`'s return."""
+        cfg, cfg_r, rep, group, tp = self.cfg, self.cfg_r, self.rep, self.group, len(lay)
         n2c = rep(lambda r: copy_to_ranks(n2[r], group))
         stats = None
         if cfg.mlp_class_name == "LLaMAMoE":
@@ -659,9 +676,7 @@ class TPRanks:
         stats = []
         for i in range(start, stop):
             lay = [layers[r][i] for r in range(len(self.ranks))]
-            caches = [(None, None) if kv is None
-                      else (_layer_pool(kv[r]["k"], i), _layer_pool(kv[r]["v"], i))
-                      for r in range(len(self.ranks))]
+            caches = self.caches(kv, i)
             if remat:
                 out = checkpoint(self.block, lay, x, pos, cos, sin, caches, attn,
                                  collect_moe_aux, use_reentrant=False,
@@ -674,6 +689,12 @@ class TPRanks:
             else:
                 x = out
         return (x, torch.stack(stats)) if collect_moe_aux else x
+
+    def caches(self, kv, i: int) -> list:
+        """Each rank's (k, v) cache of layer `i`, (None, None) without `kv`."""
+        return [(None, None) if kv is None
+                else (_layer_pool(kv[r]["k"], i), _layer_pool(kv[r]["v"], i))
+                for r in range(len(self.ranks))]
 
     def stage(self, layers, x, pos, cos, sin, kv, **attn) -> torch.Tensor:
         """The layers `layers` (`self.layers()`: a pipeline stage's slice)
@@ -774,6 +795,79 @@ def sharded_forward(
     if collect_moe_aux:
         return tr.head(out[0]), out[1]
     return tr.head(out)
+
+
+def replicas_forward(cfg: Config, units: Sequence[TPRanks], moe, tokens, input_pos,
+                     kv=None, ropes=None, fresh_prefill: bool = False, use_flash: bool = False,
+                     flash_kernel: Optional[bool] = None, remat: bool = False,
+                     collect_moe_aux: bool = False):
+    """`sharded_forward` over the dp replicas of an ep mesh beside tp or dp
+    (the JAX Generator's and Trainer's `ep_moe_forward` under GSPMD):
+    `units` holds each replica's `TPRanks` (of one rank at tp = 1), which
+    takes its contiguous rows of `tokens` (B, T) and `input_pos` (B,);
+    `kv` and `ropes` hold each replica's per-rank caches and rope tables,
+    as `sharded_forward`'s.  `moe` is (impl, mlp): the token dispatch
+    (`parallel.expert.ep_moe_forward` bound to its mesh) and the whole
+    tree's layer-stacked `blocks.mlp` subtree.
+
+    Each layer runs every replica's attention over its tp ranks
+    (`TPRanks.block_attn`), then one dispatch over every replica's rows
+    under `norm_2` at once, in replica order: the whole batch, as the JAX
+    dispatch routes it (at a finite capacity factor which assignments
+    drop depends on every row).  The dispatch runs on the first rank's
+    device over the whole router and every expert, split over ep by the
+    dispatch and never over tp, and its output goes to every rank of its
+    rows' replica as it is: no partial sums, no all-reduce.  `remat`
+    recomputes each layer, every replica, in the backward.  Returns the
+    logits (B, T, padded_vocab) on the first rank's device; with
+    `collect_moe_aux` also the layers' summed aux (the dispatch's, from
+    the whole batch's router stats)."""
+    impl, mlp = moe
+    n = len(units)
+    rows = tokens.shape[0] // n
+    sls = [slice(d * rows, (d + 1) * rows) for d in range(n)]
+    pcs = [u.positions(tokens[sl], input_pos[sl], None if ropes is None else ropes[d])
+           for d, (u, sl) in enumerate(zip(units, sls))]
+    x = [u.embed(tokens[sl], pc[0]) for u, sl, pc in zip(units, sls, pcs)]
+    attn = [u.rep(lambda r, u=u, sl=sl: dict(
+        input_pos=input_pos[sl].long().to(u.devs[r]), fresh_prefill=fresh_prefill,
+        use_flash=use_flash, flash_kernel=flash_kernel)) for u, sl in zip(units, sls)]
+    memo: Dict[int, list] = {}  # replicas that are one object unbind once
+    for u in units:
+        if id(u) not in memo:
+            memo[id(u)] = u.layers()
+    layers = [memo[id(u)] for u in units]
+    L = mlp["gate"]["weight"].shape[0]
+    moe_layers = unbind_layers(mlp, L)
+    dev = units[0].devs[0]
+
+    def layer(i, lay, moe_lay, x):
+        mids = [u.block_attn(lay[d], x[d], *pcs[d], u.caches(None if kv is None else kv[d], i),
+                             attn[d]) for d, u in enumerate(units)]
+        out = impl(cfg, moe_lay, torch.cat([n2[0].to(dev) for _, n2 in mids]),
+                   with_aux=collect_moe_aux)
+        y = out[0] if collect_moe_aux else out
+        xs = []
+        for d, (u, (h, _)) in enumerate(zip(units, mids)):
+            part = y[sls[d]]
+            xs.append(u.rep(lambda r, u=u, h=h, part=part: h[r] + part.to(u.devs[r])))
+        return (xs, out[1]) if collect_moe_aux else xs
+
+    aux = []
+    for i in range(L):
+        lay = [[lr[i] for lr in ls] for ls in layers]
+        if remat:
+            out = checkpoint(layer, i, lay, moe_layers[i], x, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            out = layer(i, lay, moe_layers[i], x)
+        if collect_moe_aux:
+            x, a = out
+            aux.append(a)
+        else:
+            x = out
+    logits = torch.cat([u.head(h).to(dev) for u, h in zip(units, x)])
+    return (logits, torch.stack(aux).sum()) if collect_moe_aux else logits
 
 
 def sp_forward(cfg: Config, units: Sequence[TPRanks], tokens, input_pos,

@@ -254,11 +254,12 @@ def shard_params(
     }
 
 
-def split_dims(cfg: Config, params: Any, tp_axis: str = "tp") -> Any:
+def split_dims(cfg: Config, params: Any, tp_axis: str = "tp",
+               ep_axis: Optional[str] = None) -> Any:
     """The tree of each leaf's dimension that the tp rules split, None
     where the leaf is replicated over tp (norms, row-parallel biases, the
-    MoE router)."""
-    specs = adapt_specs_to_tree(param_specs(cfg, tp_axis), params)
+    MoE router; with `ep_axis`, the experts too: they split over ep)."""
+    specs = adapt_specs_to_tree(param_specs(cfg, tp_axis, ep_axis), params)
 
     def walk(p_node, s_node):
         if isinstance(p_node, dict):

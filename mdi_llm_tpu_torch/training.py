@@ -9,7 +9,7 @@ and the TFLOP/s estimate of the log lines.
 
 Meshes (`Trainer(mesh=parallel.mesh.make_mesh(axes, devices))`), the
 JAX Trainer's dp, tp, dp x tp, GPipe pp / pp x tp, dp x sp (x tp) and
-dp x ep:
+dp x ep (x tp):
 - dp: the global batch is sampled as without a mesh; each dp position
   takes its contiguous rows, and the loss is the global mean, so the
   gradients are the unmeshed ones.  tp: each rank runs its slice of every
@@ -28,9 +28,11 @@ dp x ep:
   sum over dp and sp before the aux is formed.  ep: each MoE layer's
   tokens split over the dp x ep ranks and go to their experts by
   all_to_all (`parallel.expert.ep_moe_forward`, at `moe_capacity_factor`),
-  the aux's stats summed over both axes; attention and the other layers
-  run whole, once on the card.  The ranks' expert slices are views of the
-  one tree, so a rank's AdamW moments are the same slice of the tree's.
+  the aux's stats summed over both axes, one dispatch a layer over the
+  whole batch; attention and the other layers run per dp row, over its
+  tp ranks (`transformer.replicas_forward`).  The ranks' expert slices
+  are views of the one tree, so a rank's AdamW moments are the same
+  slice of the tree's.
 - One tree per process (`parallel/sharding.split_dims`): the standard
   layout where the process holds every tp rank (one process: always),
   else its slice of the tp axis; the ranks' trees are views of it, so
@@ -94,8 +96,11 @@ What differs from the JAX package:
   dense formulation (`transformer.moe_forward`) except on an ep mesh;
   `moe_capacity_factor` acts only on an ep mesh's dispatch.  Eval is pure
   cross-entropy, as the JAX Trainer's.
-- ep beside tp (which the JAX Trainer lays out under GSPMD) is ROADMAP
-  item 20.
+- ep beside tp (`{"ep": N, "tp": M}`, `{"dp": D, "ep": N, "tp": M}`, in
+  one process) keeps the experts whole over tp, as the JAX Trainer lays
+  them (`param_specs(tp, ep_axis="ep")`).  ep beside sp or pp is refused
+  in the JAX Trainer's words; ep beside tp over processes is ROADMAP item
+  20.2.
 - The optimizer is written out (`AdamW`) with optax's arithmetic:
   `clip_by_global_norm` divides by the norm itself (torch's
   `clip_grad_norm_` adds 1e-6), the moments are float32, the update of
@@ -344,7 +349,8 @@ class MeshLayout:
     contiguous part of the tp axis, or a contiguous range of stages each
     with its whole tp group (the mesh's axes then in the order dp, pp,
     tp), or a contiguous range of the sp ranks with their whole tp
-    groups, or (with dp of size 1) a contiguous range of the ep ranks."""
+    groups, or (with dp and tp of size 1) a contiguous range of the ep
+    ranks: ep beside tp over processes is ROADMAP item 20.2."""
 
     def __init__(self, mesh: Mesh, tie: bool = False):
         for axis, size in mesh.shape.items():
@@ -353,6 +359,9 @@ class MeshLayout:
                                  f"has the axes {TRAIN_AXES}")
         self.dp, self.tp, self.pp, self.sp, self.ep = (int(mesh.shape.get(a, 1))
                                                        for a in TRAIN_AXES)
+        if self.ep > 1 and self.tp > 1 and mesh.num_processes > 1:
+            _refuse(f"a training mesh with ep={self.ep} beside tp={self.tp} over "
+                    f"{mesh.num_processes} processes", "item 20.2")
         coords = list(mesh.positions())
         spans = [self._span(mesh, coords, p) for p in range(mesh.num_processes)]
         (self.dp_coords, self.stages, (self.tp_start, self.tp_local),
@@ -440,12 +449,12 @@ class MeshLayout:
                 f"{where}: a process that holds part of the sp axis holds each of its sp "
                 "ranks with the whole tp group (the ring runs per tp rank over the sp "
                 "ranks; a ring between processes that each hold part of a tp group is "
-                "not ported)")
+                "ROADMAP item 20.2)")
         if len(held["ep"]) < self.ep and self.dp > 1:
             raise ValueError(
                 f"{where}: the ep axis splits over processes at dp=1 only: every process "
                 "runs the whole batch's replicated layers beside its experts, so the "
-                f"batch's rows do not split over dp={self.dp} there")
+                f"batch's rows do not split over dp={self.dp} there (ROADMAP item 20.2)")
         return (dps, (sts[0], sts[-1] + 1),
                 *((v[0], len(v)) for v in (held["tp"], held["sp"], held["ep"])))
 
@@ -583,7 +592,8 @@ class Trainer:
                 x.shape[:1] + (cfg.n_expert,) + x.shape[2:] if d is not None else x.shape,
                 dtype=x.dtype, device="meta"), params, dims)
         else:
-            dims = split_dims(cfg, params)
+            ep_split = mesh is not None and mesh.shape.get("ep", 1) > 1
+            dims = split_dims(cfg, params, ep_axis="ep" if ep_split else None)
             self._meta = transformer.tree_map(lambda x: torch.empty_like(x, device="meta"),
                                               params)
         self._dims = transformer.tree_leaves(self._stage_tree(dims))
@@ -617,7 +627,7 @@ class Trainer:
 
     def _check_mesh(self) -> None:
         """The JAX constructor's checks (`mdi_llm_tpu/training.py`), in its
-        words; ep beside tp is the port's own refusal (ROADMAP item 20)."""
+        words."""
         lay, cfg, tc = self.layout, self.cfg, self.tc
         axes = self.mesh.axis_names
         if "ep" in axes:
@@ -628,8 +638,6 @@ class Trainer:
                 raise ValueError("ep composes with dp only (ep×sp/pp: future work)")
             if cfg.n_expert % lay.ep:
                 raise ValueError(f"n_expert={cfg.n_expert} not divisible by ep={lay.ep}")
-            if lay.tp > 1:
-                _refuse(f"a training mesh with ep={lay.ep} beside tp={lay.tp}", "item 20")
         if "pp" in axes and "sp" in axes:
             raise ValueError("pp composes with dp/tp only (pp×sp: future work)")
         if self.block_size % lay.sp:
@@ -831,24 +839,34 @@ class Trainer:
         return loss
 
     def _ep_loss(self, x, y, remat: bool, aux_weight: float) -> torch.Tensor:
-        """The loss of the batch on a (dp, ep) mesh: the unmeshed
-        `cross_entropy_loss` with every MoE layer's tokens split over the
-        dp x ep ranks and dispatched to their experts
-        (`parallel.expert.ep_moe_forward`, the aux's stats summed over both
-        axes); attention and the other layers whole, run once on the
-        card."""
+        """The loss of the batch on a (dp, ep[, tp]) mesh: each dp row's
+        rows run over the tp ranks (one rank at tp = 1, the whole tree),
+        layer by layer, and every MoE layer's one dispatch takes the whole
+        batch's tokens split over the dp x ep ranks to their experts
+        (`transformer.replicas_forward`, `parallel.expert.ep_moe_forward`,
+        the aux's stats summed over both axes)."""
         from functools import partial
 
         from mdi_llm_tpu_torch.parallel.expert import ep_moe_forward
 
+        cfg, lay = self.cfg, self.layout
         impl = partial(ep_moe_forward, mesh=self.mesh,
                        capacity_factor=self.tc.moe_capacity_factor,
                        dp_axis="dp" if "dp" in self.mesh.axis_names else None,
-                       group=self.layout.ep_group)
-        self.layer_runs += self.cfg.n_layer
-        return cross_entropy_loss(
-            self.cfg, self.params, x, y, remat=remat, use_flash=self.use_flash,
-            flash_kernel=self.flash_kernel, moe_aux_weight=aux_weight, moe_impl=impl)
+                       group=lay.ep_group)
+        collect = aux_weight > 0
+        ranks = transformer.TPRanks(cfg, self._rank_trees(), lay.tp_group)
+        out = transformer.replicas_forward(
+            cfg, [ranks] * lay.dp, (impl, self.params["blocks"]["mlp"]), x,
+            torch.zeros(x.shape[0], dtype=torch.long, device=x.device),
+            use_flash=self.use_flash, flash_kernel=self.flash_kernel, remat=remat,
+            collect_moe_aux=collect)
+        self.layer_runs += cfg.n_layer * lay.tp_local * lay.dp
+        logits = out[0] if collect else out
+        loss = F.cross_entropy(logits.float().flatten(0, 1), y.flatten().long())
+        if collect:
+            loss = loss + aux_weight * out[1] / cfg.n_layer
+        return loss
 
     def _pp_logits(self, ranks, x, remat: bool) -> Optional[torch.Tensor]:
         """The GPipe ring over one dp shard's rows `x`: S micro-batches,

@@ -71,6 +71,13 @@ def xs(cfg, shape, seed):
     return np.random.default_rng(seed).standard_normal(shape + (cfg.n_embd,)).astype(np.float32)
 
 
+def jep(cfg, p, x, mesh, **kw):
+    """The JAX ep layer on `x`, compiled (the eager `shard_map` runs the
+    same program op by op, an order of magnitude slower on the CPU)."""
+    return jax.jit(lambda p, x: jexpert.ep_moe_forward(cfg, p, x, mesh, **kw))(
+        p, jnp.asarray(x))
+
+
 def model(cfg, seed):
     jp = jtf.init_params(cfg, jax.random.PRNGKey(seed))
     return jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
@@ -81,7 +88,7 @@ def test_layer_parity_exact_capacity(devices, E, k, ep):
     cfg = moe_config(E=E, k=k)
     p = moe_layer_params(cfg)
     x = xs(cfg, (3, 5), 1)
-    want = jexpert.ep_moe_forward(cfg, p, jnp.asarray(x), jmesh.make_mesh({"ep": ep}, devices[:ep]))
+    want = jep(cfg, p, x, jmesh.make_mesh({"ep": ep}, devices[:ep]))
     tc, tp = TConfig(**cfg.asdict()), port_layer(p)
     got = texpert.ep_moe_forward(tc, tp, torch.from_numpy(x), tmesh({"ep": ep}))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
@@ -97,8 +104,7 @@ def test_capacity_drops_match_jax(devices):
     x = xs(cfg, (1, 12), 4)
     C = texpert.expert_capacity(TConfig(**cfg.asdict()), 6, 0.5)
     assert C == jexpert.expert_capacity(cfg, 6, 0.5) and C < 6  # the buffer can overflow
-    want = jexpert.ep_moe_forward(cfg, p, jnp.asarray(x), jmesh.make_mesh({"ep": 2}, devices[:2]),
-                                  capacity_factor=0.5)
+    want = jep(cfg, p, x, jmesh.make_mesh({"ep": 2}, devices[:2]), capacity_factor=0.5)
     tc, tp = TConfig(**cfg.asdict()), port_layer(p)
     got = texpert.ep_moe_forward(tc, tp, torch.from_numpy(x), tmesh({"ep": 2}),
                                  capacity_factor=0.5).numpy()
@@ -112,8 +118,7 @@ def test_moe_aux_loss_dense_vs_ep(devices):
     cfg = moe_config(E=4, k=2)
     p = moe_layer_params(cfg, seed=5)
     x = xs(cfg, (2, 8), 6)
-    _, jaux = jexpert.ep_moe_forward(cfg, p, jnp.asarray(x), jmesh.make_mesh({"ep": 4}, devices[:4]),
-                                     with_aux=True)
+    _, jaux = jep(cfg, p, x, jmesh.make_mesh({"ep": 4}, devices[:4]), with_aux=True)
     tc, tp = TConfig(**cfg.asdict()), port_layer(p)
     yd, aux_d = ttf.moe_forward(tc, tp, torch.from_numpy(x), with_aux=True)
     ye, aux_e = texpert.ep_moe_forward(tc, tp, torch.from_numpy(x), tmesh({"ep": 4}),
@@ -172,9 +177,8 @@ def test_ep_dispatch_splits_tokens_over_dp(devices):
     cfg = moe_config(E=4, k=2, n_layer=2)
     p = moe_layer_params(cfg, seed=11)
     x = xs(cfg, (2, 8), 12)
-    jy, jaux = jexpert.ep_moe_forward(cfg, p, jnp.asarray(x),
-                                      jmesh.make_mesh({"dp": 2, "ep": 4}, devices),
-                                      with_aux=True, dp_axis="dp")
+    jy, jaux = jep(cfg, p, x, jmesh.make_mesh({"dp": 2, "ep": 4}, devices), with_aux=True,
+                   dp_axis="dp")
     tc, tp = TConfig(**cfg.asdict()), port_layer(p)
     y, aux = texpert.ep_moe_forward(tc, tp, torch.from_numpy(x), tmesh({"dp": 2, "ep": 4}),
                                     with_aux=True, dp_axis="dp")
@@ -260,8 +264,9 @@ def test_chat_session_on_ep_mesh(moe_model):
 def test_ep_generator_guards(moe_model):
     """A dense config on an ep mesh runs as without one (the JAX
     Generator's), `n_expert % ep` is refused in its words, serving refuses
-    ep (the JAX engine's message), ep beside another axis is item 20, and
-    an ep mesh over processes is accepted, each process keeping its ranks'
+    ep (the JAX engine's message), ep beside tp runs (the streams against
+    the JAX Generator's are `tests/test_torch_ep_beside.py`'s), and an ep
+    mesh over processes is accepted, each process keeping its ranks'
     experts (the exchange runs in `tests/test_torch_sp_ep_inference_procs.py`)."""
     _cfg, _jp, tc, tp = moe_model
     dense_cfg = TConfig(**moe_config(mlp_class_name="LLaMAMLP").asdict())
@@ -275,8 +280,10 @@ def test_ep_generator_guards(moe_model):
     gen = Generator(tc, tp, max_seq_length=64, device="cpu", mesh=tmesh({"ep": 2}))
     with pytest.raises(ValueError, match="serving does not support ep=2"):
         gen.serve(block_size=8, max_batch=2)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        Generator(tc, tp, max_seq_length=64, device="cpu", mesh=tmesh({"tp": 2, "ep": 2}))
+    gen = Generator(tc, tp, max_seq_length=64, device="cpu", mesh=tmesh({"tp": 2, "ep": 2}))
+    assert gen._moe_impl is not None and gen.tp == 2
+    assert gen.generate(PROMPTS, 4, **GREEDY)[0] == Generator(
+        tc, tp, max_seq_length=64, device="cpu").generate(PROMPTS, 4, **GREEDY)[0]
     with mock.patch("mdi_llm_tpu_torch.parallel.collectives.CommGroup") as group:
         gen = Generator(tc, tp, max_seq_length=64, device="cpu",
                         mesh=make_mesh({"ep": 2}, ["cpu"], process_id=1, num_processes=2))
@@ -333,10 +340,14 @@ def test_trainer_ep_refusals_in_the_jax_words():
              (moe, {"dp": 1, "sp": 2, "ep": 2}, ValueError, r"ep composes with dp only \(ep×sp/pp"),
              (moe, {"dp": 1, "pp": 2, "ep": 2}, ValueError, r"ep composes with dp only"),
              (moe, {"ep": 3}, ValueError, "n_expert=4 not divisible by ep=3"),
-             (moe, {"tp": 2, "ep": 2}, NotImplementedError, "item 20")]
+             (moe, {"tp": 2, "ep": 2}, NotImplementedError, r"item 20\.2")]
     for cfg, axes, err, match in cases:
         with pytest.raises(err, match=match):
-            ttr.Trainer(cfg, tc, mesh=tmesh(axes), device="cpu")
+            # ep beside tp runs in one process; over two it is item 20.2
+            procs = dict(process_id=0, num_processes=2) if "tp" in axes else {}
+            ttr.Trainer(cfg, tc, mesh=make_mesh(axes, ["cpu"], **procs), device="cpu")
+    tr = ttr.Trainer(moe, tc, mesh=tmesh({"tp": 2, "ep": 2}), device="cpu")
+    assert (tr.layout.tp, tr.layout.ep) == (2, 2)
     # the words are the JAX Trainer's own
     for cfg, axes in ((moe_config(mlp_class_name="LLaMAMLP"), {"dp": 2, "ep": 2}),
                       (moe_config(E=4), {"dp": 1, "sp": 2, "ep": 2})):
@@ -365,7 +376,8 @@ def test_ep_trainer_steps_equal_the_jax_ep_trainers(devices, cf):
     for a, b in zip(ttf.tree_leaves(tr._standard_params()),
                     jax.tree_util.tree_leaves(jtrainer.params)):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=2e-4, atol=2e-5)
-    assert tr.layer_runs == 3 * cfg.n_layer
+    # each step: every dp row's attention runs every layer once
+    assert tr.layer_runs == 3 * cfg.n_layer * 2
 
 
 # ---------------------------------------------------------------------------

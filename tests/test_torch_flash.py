@@ -167,7 +167,7 @@ def _jax_vjp(fn, q, k, v, co, co_lse=None):
             return jnp.sum(o * co)
         return jnp.sum(o[0] * co) + jnp.sum(o[1] * co_lse)
 
-    return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(
+    return [np.asarray(g) for g in jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
 
 

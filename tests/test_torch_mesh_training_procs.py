@@ -68,11 +68,21 @@ def _job(argv, n=2, timeout=PROC_TIMEOUT, cmd=("-m", "mdi_llm_tpu_torch.cli.trai
     """`cli.train argv` (or `python *cmd argv`) as processes 0..n-1 of one
     job on a free port, each under its own time limit (a hang fails the
     test): [(returncode, stdout, stderr)] in process order."""
+    return _collect(_spawn(argv, n, cmd), timeout)
+
+
+def _spawn(argv, n=2, cmd=("-m", "mdi_llm_tpu_torch.cli.train")):
+    """`_job`'s processes, started: the caller goes on (a single-process
+    reference run in this process) while they import and join."""
     coord = ["--coordinator", f"127.0.0.1:{_free_port()}", "--num-processes", str(n)]
-    procs = [subprocess.Popen(
+    return [subprocess.Popen(
         [sys.executable, *cmd, *argv, *coord, "--process-id", str(i)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT, env=ENV)
         for i in range(n)]
+
+
+def _collect(procs, timeout=PROC_TIMEOUT):
+    """The [(returncode, stdout, stderr)] of `_spawn`'s processes."""
     out = []
     try:
         for p in procs:
@@ -97,9 +107,10 @@ def _lines(stdout, key):
 def test_two_processes_match_one(tmp_path, dataset, mesh, capsys):
     argv = [*RUN, "--dataset", str(dataset), "--mesh", mesh]
     one, two = tmp_path / "one", tmp_path / "two"
+    procs = _spawn([*argv, "--ckpt", str(two), "--max-iters", "3"])
     _, single = train_cli.main([*argv, "--ckpt", str(one), "--max-iters", "3"])
     printed = capsys.readouterr().out
-    jobs = _job([*argv, "--ckpt", str(two), "--max-iters", "3"])
+    jobs = _collect(procs)
     for rc, _, err in jobs:
         assert rc == 0, err[-3000:]
     (_, out0, _), (_, out1, _) = jobs
@@ -119,9 +130,10 @@ def test_two_processes_match_one(tmp_path, dataset, mesh, capsys):
 
     # both resume: the two processes from their checkpoint, one from its own
     more = ["--init", "resume", "--max-iters", "4"]
+    procs = _spawn([*argv, "--ckpt", str(two), *more])
     _ = train_cli.main([*argv, "--ckpt", str(one), *more])
     want = _lines(capsys.readouterr().out, "loss")
-    jobs = _job([*argv, "--ckpt", str(two), *more])
+    jobs = _collect(procs)
     assert all(rc == 0 for rc, _, _ in jobs), jobs[0][2][-3000:]
     got = _lines(jobs[0][1], "loss")
     assert len(got) == len(want) == 1
@@ -136,9 +148,10 @@ def test_two_process_stages_sum_the_tied_embedding(tmp_path, dataset, capsys):
     argv = [*RUN, "--dataset", str(dataset), "--mesh", "pp=2", "--max-iters", "3",
             "--override", "tie_embeddings=true"]
     one, two = tmp_path / "one", tmp_path / "two"
+    procs = _spawn([*argv, "--ckpt", str(two)])
     train_cli.main([*argv, "--ckpt", str(one)])
     want = _lines(capsys.readouterr().out, "loss")
-    jobs = _job([*argv, "--ckpt", str(two)])
+    jobs = _collect(procs)
     for rc, _, err in jobs:
         assert rc == 0, err[-3000:]
     got = _lines(jobs[0][1], "loss")

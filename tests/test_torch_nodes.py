@@ -48,7 +48,7 @@ from mdi_llm_tpu_torch.cli import sample as sample_cli
 from mdi_llm_tpu_torch.cli import starter as starter_cli
 from mdi_llm_tpu_torch.parallel import nodes as tnodes
 from mdi_llm_tpu_torch.utils import checkpoint as ck
-from tests.test_torch_cli import CKPT_RUN, converted, hf_snapshot, jax_model  # noqa: F401
+from tests.test_torch_cli_ckpt import CKPT_RUN, converted, hf_snapshot, jax_model  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent

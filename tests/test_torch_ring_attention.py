@@ -113,7 +113,7 @@ def test_ring_flash_grads_match_plain_and_jax(devices, P_sp, groups):
         ring = _jax_ring(devices, P_sp, use_flash)
         return lambda q, k, v: jnp.sum(ring(q, k, v, pos, pos) * co)
 
-    want = jax.grad(jloss(True), argnums=(0, 1, 2))(q, k, v)
+    want = jax.jit(jax.grad(jloss(True), argnums=(0, 1, 2)))(q, k, v)
 
     def tgrads(use_flash):
         leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]

@@ -165,12 +165,13 @@ def test_pp_sp_and_ep_sp_refused_in_the_jax_words():
                                                        jax.devices()[:4]))
 
 
-@pytest.mark.parametrize("mesh", ["dp=2,sp=2", "dp=2,ep=2"])
+@pytest.mark.parametrize("mesh", ["dp=2,sp=2", "dp=2,ep=2", "ep=2,tp=2"])
 def test_train_cli_sp_and_ep_loss_lines_equal_the_jax_clis(mixtral_ckpt, tmp_path, mesh,
                                                            capsys):
     """`train --init hf --mesh ...` on the same converted weights and
     dataset: the JAX CLI's loss lines (an MoE config: the sp aux and the
-    ep dispatch both apply)."""
+    ep dispatch both apply; ep beside tp reaches the Trainer with no
+    other flag)."""
     from mdi_llm_tpu.cli import train as jcli
     from mdi_llm_tpu_torch.cli import train as tcli
 
