@@ -94,8 +94,8 @@ remat) compiled instead of compiling them again.
 5c. serve-q8-parity — the serve-parity phase over an int8 pool, then an
    e4m3 pool: greedy streams through K1 and through the plain route.
 5d. spec — speculative serving at full size, bf16 pool, `--spec-k 4
-   --draft-model NanoLlama`, greedy, the serve trace's 16 requests with
-   `SPEC_TOKENS` (32) new tokens each: every request finishes in the
+   --draft-model NanoLlama`, greedy, 8 of the serve trace's requests with
+   `SPEC_TOKENS` (16) new tokens each: every request finishes in the
    vocabulary, the draft model and the lookup drafted, and K1 launches
    are exactly 22 per target forward + 12 per draft forward, the plain
    route never.  Then `--spec-k 4 --kv-dtype int8 --temperature 0.8`
@@ -186,8 +186,8 @@ remat) compiled instead of compiling them again.
 15. graphs — the engine's and the Generator's steps as CUDA graphs
    (the default everywhere above) against eager launches of the same step
    bodies (the private `_graphs=False` switch), at full tiny-llama-1.1b
-   width and depth in bf16: the serve phase's trace at `GRAPH_TOKENS` (16)
-   new tokens through `cli.build` + `engine.run()` over a bf16 pool in
+   width and depth in bf16: 8 of the serve phase's requests at `GRAPH_TOKENS`
+   (8) new tokens through `cli.build` + `engine.run()` over a bf16 pool in
    turns eager, graph, graph, eager, over int8 and e4m3 pools eager then
    graph, and the generate phase's prompts with `GRAPH_TOKENS` new tokens in turns
    eager, graph, graph, eager (each Generator
@@ -208,7 +208,7 @@ remat) compiled instead of compiling them again.
    `cli/server.py`) at the serve phase's set-up (tiny-llama-1.1b, all 22
    layers, bf16, random weights from seed 10137, 8 slots, 16-token blocks,
    2048-token window, decode chunk 8 with double buffering, CUDA graphs),
-   over 16 synthetic requests (prompts 4-511, 8-64 new tokens):
+   over `SERVER_REQUESTS` (8) synthetic requests (prompts 4-511, 8-64 new tokens):
    (a) the trace through an offline `engine.run()`, then submitted whole
    to a `ServingFrontend` before `start()` with the observer on and off:
    the streams and host_syncs must equal the offline run's;
@@ -225,7 +225,8 @@ remat) compiled instead of compiling them again.
    `/metrics` parses with `serving_tokens_generated_total` equal to
    `/v1/stats`' `tokens_generated`, and SIGTERM drains and exits 0;
    (d) `cli.serve --spec-k 4 --draft-model NanoLlama --metrics-out
-   --trace-out`: the observer's spec counters equal the stats line's,
+   --trace-out` over `SERVER_SPEC` (8 synthetic requests, 32 new tokens):
+   the observer's spec counters equal the stats line's,
    the verify spans carry `spec_k` 4 and their `accepted` sum to
    `spec_accepted`.  Every part: K1 launched 22 times per forward (and
    12 per draft forward) and the plain route never, counted at replay; no
@@ -261,8 +262,8 @@ remat) compiled instead of compiling them again.
    other block; and pinned copies of 1, 8 and 32 pool blocks each way are
    timed by CUDA events (the link table's row in `serving/host_tier.py`).
 18. quant — weight quantization (`ops/quant.py`) on tiny-llama-1.1b at
-   full width, cut to `QUANT_LAYERS` (12) of its 22 layers in (a) and (b):
-   (a) the serve phase's CLI run (`QUANT_TOKENS`, 16, new tokens) in bf16
+   full width, cut to `QUANT_LAYERS` (6) of its 22 layers in (a) and (b):
+   (a) the serve phase's CLI run (`QUANT_TOKENS`, 8, new tokens) in bf16
    and with
    `--quantize int8`, `w8a8` and `int4`: each as the serve phase checks
    it (K1 12 per forward, replayed inside the step graphs), with the
@@ -282,29 +283,29 @@ remat) compiled instead of compiling them again.
 19. moe   — Mixtral-8x7B (`Config.from_name("Mixtral-8x7B-v0.1")`, its
    published widths checked: n_embd 4096, 32 heads over 8 KV groups, head
    size 128, intermediate 14336, 8 experts, top 2, rope base 1e6) in bf16
-   with random weights from seed 10137, cut to 16 of its 32 layers (46.4 GB
-   of blocks): (a) the serve phase's CLI run and trace with `--override
-   n_layer=16`, `MOE_SERVE_TOKENS` (32) new tokens per request, K1 at
-   exactly 16 launches per forward inside the step graphs and the plain
+   with random weights from seed 10137, cut to `MOE_LAYERS` (4) of its 32
+   layers (11.6 GB of blocks): (a) the serve phase's CLI run and trace with
+   `--override n_layer=4`, `MOE_SERVE_TOKENS` (16) new tokens per request,
+   K1 at exactly 4 launches per forward inside the step graphs and the plain
    route never; prints tokens/s, MFU and MBU (MFU
    counts the dense formulation's 8 experts per token), the stored weight
    bytes, peak memory and graph captures; the same trace through the plain
    route, its bf16 divergences from K1's streams printed with the router
    flips at the diverging step (`router_flips`), not gated; (b)
    `Generator.generate` on the generate phase's 4 prompts, 64 new tokens,
-   K2 at exactly 16 launches; K2 at that prefill's shape (B=4, T=2048, 32
+   K2 at exactly 4 launches; K2 at that prefill's shape (B=4, T=2048, 32
    heads over 8 groups, hs 128) against its plain version, timed beside
    it and SDPA; (c) float32 at full width and 2 layers: the greedy serve
    streams through K1 and the plain route, and generate's through K2 and
    its plain version, equal but for a near-tie (`divergence_ok`).
 20. moe-quant — Mixtral-8x7B at all 32 layers with int8 weights
-   (`init_quantized_params(mode="w8")`, 46.4 GB): the moe phase's 16
+   (`init_quantized_params(mode="w8")`, 46.4 GB): 8 of the moe phase's
    requests served with `MOE_QUANT_TOKENS` new tokens each (K1 32 per
    forward) and generate on its prompts, `MOE_QUANT_TOKENS` new tokens (K2
    exactly 32), stored bytes, tokens/s and MFU/MBU printed; at 4 layers a float32
    forward of each mode (w8, w8a8, int4) against a float64 plain version
    of the quantized forward (`plain_moe_quantized_einsum`): max |err| <=
-   1e-4 x max(1, max |plain|); then the trace (32 new tokens) served once
+   1e-4 x max(1, max |plain|); then the trace (16 new tokens) served once
    in each mode at 4 layers, peak memory printed (int4's bounded by
    `quant.W4_Z_BYTES`).
 21. moe-train — `Trainer.train_step` at Mixtral's width, 2 layers, bf16,
@@ -338,7 +339,7 @@ remat) compiled instead of compiling them again.
    `examples/node_configs/standalone.json`: tiny-llama-1.1b at full
    width and all 22 layers, bf16, seed 10137, S = 2 and S = 4 stages
    (the reference table's [10, 12] and [4, 6, 6, 6]), M = 2 samples per
-   slot, 2·S greedy 8-token prompts, `PIPE_TOKENS` (16) new tokens.  Every
+   slot, 2·S greedy 8-token prompts, `PIPE_TOKENS` (8) new tokens.  Every
    sample gets its budget in the vocabulary; a second call on the same engine replays
    the captured decode chunks (no capture) and gives the same streams;
    the ring launches none of K1-K4 and no plain route.  The streams are
@@ -367,11 +368,11 @@ remat) compiled instead of compiling them again.
    memory in use.
 25. pp-serve — pipeline-parallel serving (`serving/pipeline.py`): the
    serve phase's CLI run and trace (tiny-llama-1.1b at full width cut to
-   `RING_SERVE_LAYERS` (12) of its 22 layers, bf16, seed 10137, 16
+   `RING_SERVE_LAYERS` (6) of its 22 layers, bf16, seed 10137, 16
    synthetic requests, 8 slots, 16-token blocks, 2048-token window,
-   `RING_SERVE_TOKENS` (16) new tokens, decode chunks of 8 with double
-   buffering) with `--pp 2` and `--pp 4` (the reference table's [5, 7]
-   and the balanced [2, 3, 3, 4], every stage on the card), then `--pp 2
+   `RING_SERVE_TOKENS` (8) new tokens, decode chunks of 8 with double
+   buffering) with `--pp 2` and `--pp 4` (the reference table's split of 6,
+   [2, 4], and [1, 1, 2, 2], every stage on the card), then `--pp 2
    --kv-dtype int8` (K1's int8 branch inside the ring).  Each run: every
    request finishes with its budget in the vocabulary, K1 launches exactly
    once per stage layer the engine counts (`stage_layer_runs`: 12 per
@@ -434,7 +435,7 @@ remat) compiled instead of compiling them again.
    ranks' geometries (B=4, T=2048, causal, bf16, hs 64: 16 heads over 2
    groups and 8 over 1) against their plain versions (bf16 limits), timed
    beside them, SDPA's backward and the bound.  Then the train phase's
-   set-up (tiny-llama-1.1b cut to `MESH_TRAIN_LAYERS` (6) of its 22
+   set-up (tiny-llama-1.1b cut to `MESH_TRAIN_LAYERS` (4) of its 22
    layers, bf16, B=4, T=2048, 2 micro-batches, remat, the flash route,
    random weights from seed 10137)
    without a mesh and on `dp=2`, `tp=2`, `dp=2,tp=2`, `dp=1,pp=2` and
@@ -458,17 +459,17 @@ remat) compiled instead of compiling them again.
    launches) and writes no checkpoint: in float32 at `MESH_F32_LAYERS` (B=2,
    grad_clip 0.05) process 0's `MESH_PROCS_STEPS` (2) loss lines equal one process's
    `--mesh dp=2` run's within 1e-5 (relative) and process 1 prints none;
-   in bf16 at the train phase's shape cut to `MESH_PROCS_DP_LAYERS` (4)
+   in bf16 at the train phase's shape cut to `MESH_PROCS_DP_LAYERS` (2)
    layers (the gradient all-reduce, through host memory, is the step)
-   each process runs 2 x 2 x 4 layers, K2 twice per run and K3, K4 once,
+   each process runs 2 x 2 x 2 layers, K2 twice per run and K3, K4 once,
    and the losses are finite; prints both processes' step and all-reduce
    seconds beside one process's steps.  Then the same two parts for `--mesh pp=2` (each
    process one GPipe stage, the hop a gloo send/recv of each
    micro-batch's activations and, in the backward, of their gradients)
    and `--mesh pp=2,tp=2` (one stage and its whole tp group each): the
    float32 loss lines equal one process's run on the same mesh; in bf16
-   at `MESH_PROCS_PP_LAYERS` (6) layers each process holds stages [i,
-   i+1), runs 2 x 2 x 2 micro-batches x 3 layers (x 2 ranks with tp) and launches K2 twice per run and K3, K4
+   at `MESH_PROCS_PP_LAYERS` (4) layers each process holds stages [i,
+   i+1), runs 2 x 2 x 2 micro-batches x 2 layers (x 2 ranks with tp) and launches K2 twice per run and K3, K4
    once; prints the step seconds beside one process's and the pp group's
    calls, bytes and host seconds.
    Beside its parameter check the float32 part prints, per mesh and route,
@@ -494,6 +495,39 @@ remat) compiled instead of compiling them again.
    holds the pair's loss lines within 1e-5 (relative) and its first-step
    gradients and parameters, the experts gathered, within
    `MESH_PARAM_TOL` of that run's (`kept_close`).
+   Then ep beside tp and dp over the two processes, in the same two
+   processes and held the same way, at moe-train's shape (Mixtral's
+   widths, T=2048): `--mesh ep=2,tp=2` (one ep rank, 4 experts, with its
+   whole tp group per process; 2 layers, B=1: 8 layer runs, K2 16, K3 and
+   K4 8 in each process), `--mesh tp=2,ep=2` (one tp rank with every
+   expert; 1 layer: 2 layer runs) and `--mesh ep=2,dp=2` (one ep rank
+   with both dp rows; 2 layers, B=2: 8 layer runs), with the tp / ep
+   group's calls, bytes and host seconds; then each in float32 at one
+   layer with `EP_F32_CUT` (the vocabulary cut to 4096 ids, T=1024,
+   capacity factor 1.25: two tp=2,ep=2 processes each holding every
+   expert's float32 state would not fit the card), its step seconds
+   beside one process's, its loss lines and first-step gradients checked
+   against one process's as above (`CHECKED`: its parameters after the
+   steps are the CPU tests').
+30a. mesh-train-quad — the train CLI over four processes sharing the
+   card, every run in one set of four (`mesh_jobs(n=4)`): `--mesh
+   dp=2,ep=2` (one (dp, ep) position each: a dp row and 4 experts; the
+   exchange within each dp row, the gradients summed over the dp group)
+   at Mixtral's widths, 1 layer (four processes' bf16 state of two would
+   not fit the card), B=2, T=2048, bf16 (2 layer runs, K2 4,
+   K3 and K4 2 in each process), and `--mesh dp=1,sp=2,tp=2` (one (sp,
+   tp) position each: the ring per tp rank over its sp group, the tp
+   partial sums in the tp group) at tiny-llama-1.1b's width, 4 layers,
+   B=1, T=8192, bf16 (16 layer runs: K2 32, K3 and K4 16 in each
+   process), the losses finite, the processes past the first printing
+   none; then both in float32 (dp x ep at one layer with `EP_F32_CUT`:
+   four processes' float32 state of Mixtral's 32000-id embedding and
+   head beside their experts would not fit the card; sp x tp at 4 layers,
+   T=2048), `PROCS_F32_STEPS` (2) steps, process 0 holding the loss
+   lines and first-step gradients (and sp x tp's parameters) to one
+   process's run as in mesh-train-procs (the kept trees in host memory),
+   with the step seconds beside one process's and the dp group's gradient
+   sum seconds.
 31. pp-tp-serve — pp x tp serving (`serving/pipeline.py` with a tp axis
    inside each stage): the pp-serve phase's CLI run and trace with `--pp 2
    --tp 2` (the reference table's [5, 7] of 12 layers, two ranks per stage, every
@@ -524,10 +558,10 @@ remat) compiled instead of compiling them again.
    two processes, each a job on its own port: float32 at 4 layers greedy
    (both processes' streams equal one process's tp 2 run, `divergence_ok`)
    and at temperature 0.8 (the two processes draw the same tokens); bf16
-   at `INFER_BF16_LAYERS` (12) layers on the generate phase's four prompts
+   at `INFER_BF16_LAYERS` (6) layers on the generate phase's four prompts
    (1100-1900 tokens, the CLI's prompt source swapped for them),
    `INFER_BF16_TOKENS` (16) new tokens: each process launches K2 exactly
-   12 times (one rank x 12 layers) and its plain
+   6 times (one rank x 6 layers) and its plain
    version never, the two print the same streams.  Prints decode tokens/s
    beside the one-process tp 2 run's (its graphs replayed) and the
    collectives' calls, bytes and host seconds.  (b) `cli.starter` and
@@ -536,31 +570,48 @@ remat) compiled instead of compiling them again.
    processes: the one-process pipe x tp ring's streams.  (c) sp and ep
    over the two processes, one rank each, as further jobs of the same
    processes (`procs_runs`): `--sp-devices 2 --sp-flash` at Llama-3-8B's
-   widths, `SP_LAYERS` (8) layers, bf16, the sp phase's prompts of 8128
-   and 6000 tokens (local chunks of 4096), `SP_TOKENS` (16) greedy new
-   tokens: each process launches K2 16 times (its rank's diagonal and one
-   rotated block a layer; 32 = P² x 8 over the pair), and float32 at 4
+   widths, `SP_LAYERS` (4) layers, bf16, the sp phase's prompts of 8128
+   and 6000 tokens (local chunks of 4096), `SP_TOKENS` (8) greedy new
+   tokens: each process launches K2 8 times (its rank's diagonal and one
+   rotated block a layer; 16 = P² x 4 over the pair), and float32 at 4
    layers with 16 new tokens (K2 8 each); `--ep-devices 2` at Mixtral's
    widths, `EP_PROCS_LAYERS` (4) layers, bf16 on the generate phase's
-   four prompts (1100-1900 tokens: K2 4 times in each process), 16 new
-   tokens (each process draws only its 4 of the 8 experts), and float32
-   at 4 layers on the CLI's four 8-token prompts, exact and at a capacity
+   four prompts (1100-1900 tokens: K2 4 times in each process),
+   `EP_PROCS_TOKENS` (8) new tokens (each process draws only its 4 of the
+   8 experts), and float32 at `EP_PROCS_F32_LAYERS` (2) layers on the
+   CLI's four 8-token prompts, exact and at a capacity
    factor of 0.5 that drops assignments.  Both processes print the same streams, every
    sample gets its tokens in the vocabulary, the plain K2 never runs; the
    float32 streams equal one process's run of the same argv
    (`divergence_ok`), the bf16 divergences from it are printed; each run
    prints its seconds beside one process's, the collectives' calls, bytes
    and host seconds, K2 launches and each process's peak memory; the
-   one-process runs follow the pair.
+   one-process runs follow the pair.  (d) the Generator's ep layouts
+   beside tp and dp over the two processes, through the API (`api_runs`:
+   `Generator(mesh=make_mesh(axes, [card], process_id, 2))`), as further
+   jobs of the same processes: ep 2 x tp 2 (one ep rank with its tp group
+   per process), tp 2 x ep 2 (one tp rank with every expert), ep 2 x dp 2
+   and ep 2 x dp 2 x tp 2 (one ep rank with every replica), at Mixtral's
+   widths, `EP_PROCS_LAYERS` (4) bf16 layers on the generate phase's four
+   prompts at capacity factor 1.25, `EP_API_TOKENS` (8) greedy new
+   tokens: each process launches K2 once a layer for every tp rank and dp
+   replica it holds (8, 4, 8, 16) and its plain version never; then each
+   in float32 at `EP_API_F32_LAYERS` (2) layers on four short prompts,
+   exact, and ep 2 x dp 2 at capacity factor 0.5: the streams equal one
+   process's run on the same mesh (`divergence_ok`), the capacity run's
+   differ from the exact one's.  Each prints its seconds and decode
+   tokens/s (the float32 ones beside one process's, its chunks captured),
+   the tp and ep groups' calls, bytes and host seconds and the peak
+   memory.
 34. sp — sequence-parallel inference (`parallel/sp_inference.py`) at
    Llama-3-8B's full width (4096 wide, 32 heads, 8 KV groups, hs 128) at
-   `SP_LAYERS` (8) of its 32 layers, bf16, random weights: K2 with its LSE against its
+   `SP_LAYERS` (4) of its 32 layers, bf16, random weights: K2 with its LSE against its
    plain version at the sp 2 ring's block shapes (B=2, T=4096, causal and
    non-causal), ring attention's gradient (P=2, T=1024 per rank: K2, K3
    and K4 with the LSE's cotangent against the plain ring in float32,
    within `flash_bwd_bf16_limits` of the whole sequence times P plus P
    bf16 roundings; err/limit printed), then two prompts of 8128 and
-   6000 random tokens, `SP_TOKENS` (16) greedy new tokens each, through the
+   6000 random tokens, `SP_TOKENS` (8) greedy new tokens each, through the
    `Generator` (K2 once per layer) and `SPGenerator` at sp 2 with and
    without `use_flash` and at sp 4 with `use_flash, flash_min_len=1024`:
    K2 launches exactly P^2 x `SP_LAYERS` per flash prefill and 0 on the plain
@@ -574,8 +625,8 @@ remat) compiled instead of compiling them again.
    turns around a Ctrl-C rollback gives the `ChatSession`'s replies.
 35. ep — expert parallelism (`parallel/expert.py`), run after moe-train
    (listed there in the phase order): Mixtral-8x7B's published widths at
-   16 bf16 layers (the moe phase's tree, drawn again from its seed: the
-   card cannot hold it beside moe-quant's 32 int8 layers), the generate
+   `MOE_LAYERS` (4) bf16 layers (the moe phase's tree, drawn again from its
+   seed: the card cannot hold it beside moe-quant's 32 int8 layers), the generate
    phase's four prompts of 1100-1900 tokens (bucket 2048), `EP_TOKENS`
    greedy new tokens in decode chunks of 8, twice (the first call
    captures, the second, counted, replays), through the dense `Generator`, the
@@ -583,12 +634,13 @@ remat) compiled instead of compiling them again.
    `make_mesh({"ep": 2, "tp": 2})` and `{"dp": 2, "ep": 2, "tp": 2}` at
    exact capacity (every position on the card): K2 exactly once per
    layer, tp rank and dp replica (attention runs once on the card beside
-   an ep axis alone; 32 and 64 with tp, dp), the plain version never,
+   an ep axis alone; 2L and 4L with tp, dp), the plain version never,
    every sample in the vocabulary; prints prefill seconds, decode
    tokens/s and their ratios to the dense Generator, whether decode
    replays graphs, and how many bf16 streams differ (not gated: router
    near-ties).  float32 at 4 layers, the fp tree and its int8 tree, two
-   prompts of ~300 tokens: ep 2, ep 4 and ep 2 x tp 2 give the dense
+   prompts of ~300 tokens, `EP_F32_TOKENS` (8) new tokens: ep 2, ep 4 and
+   ep 2 x tp 2 give the dense
    Generator's greedy streams (`divergence_ok`), and dp 2 x ep 2 at
    capacity factor 0.5 gives ep 2's at that factor (one dispatch over the
    whole batch, as the JAX Generator routes it).
@@ -609,11 +661,12 @@ remat) compiled instead of compiling them again.
 36. sp-train — sequence-parallel training: K2 with the LSE, K3 and K4
    against their plain versions at the sp 2 Trainer's per-rank blocks
    (B=1, T=4096, 32 heads / 8 groups / hs 128, bf16, causal and
-   non-causal); then Llama-3-8B's published widths at 8 of its 32 layers
-   (AdamW's float32 state of all 32 does not fit beside the weights), B=1,
+   non-causal); then Llama-3-8B's published widths at `SP_TRAIN_LAYERS` (4)
+   of its 32 layers (AdamW's float32 state of all 32 does not fit beside
+   the weights), B=1,
    T=8192, bf16, flash, remat: the unmeshed Trainer, then `--mesh sp=2`
-   and `sp=4`, a warm-up and 3 counted steps each: K2 2 P^2 x 8, K3 and
-   K4 P^2 x 8 per step; prints the step seconds over the unmeshed step,
+   and `sp=4`, a warm-up and 3 counted steps each: K2 2 P^2 x 4, K3 and
+   K4 P^2 x 4 per step; prints the step seconds over the unmeshed step,
    the peak memory and the activation memory per rank.  float32 at 4
    layers of tiny-llama-1.1b (mesh-train's cut) on `sp=2` and
    `dp=1,sp=2,tp=2`: every loss line within 1e-5 (relative) of the
@@ -643,9 +696,10 @@ three ring serves, its `tp-serve` over the three tp serves, K2's
 `tp-generate` the tp 2 generate's, K3's and K4's `moe-train` over the
 three counted steps, K2's, K3's and K4's `mesh-train` over the five
 meshes' counted bf16 steps, K1's `pp-tp-serve` over its two ring serves,
-K2's `inference-procs` over the two processes' bf16 tp run and sp runs
-(both processes), K2's, K3's and K4's `mesh-train-procs` over every run
-of its two processes, K2's `sp` over
+K2's `inference-procs` over the two processes' bf16 tp run, sp, ep and
+API runs (both processes), K2's, K3's and K4's `mesh-train-procs` over
+every run of its two processes, `mesh-train-quad` over every run of its
+four, K2's `sp` over
 the three bf16 sp prefills, K3's and K4's `sp` the counted ring
 gradient's, K2's `ep` over the two ep prefills and the four ep Trainers'
 counted steps, K3's and K4's `ep` over those steps, K2's `ep-tp` over the
@@ -674,7 +728,9 @@ TINY_LLAMA = "tiny-llama-1.1b"
 
 
 def fail(phase: str, msg: str) -> None:
+    # on both streams: a caller that keeps only the end of one still reads why
     print(f"FAIL [{phase}] {msg}", flush=True)
+    print(f"FAIL [{phase}] {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -1376,14 +1432,15 @@ def phase_serve_q8_parity():
     torch.cuda.empty_cache()
 
 
-SPEC_TOKENS = 32  # new tokens per request of the spec phase's eager verify steps
+SPEC_TOKENS = 16  # new tokens per request of the spec phase's eager verify steps (32 before
+# the cuts for the layouts over processes)
 
 
 def phase_spec():
     import torch
 
     draft = ["--spec-k", "4", "--draft-model", "NanoLlama"]
-    run = SERVE_BASE + ["--synthetic", "16", "--n-tokens", str(SPEC_TOKENS)] + draft
+    run = SERVE_BASE + ["--synthetic", "8", "--n-tokens", str(SPEC_TOKENS)] + draft
     for label, extra in (("greedy, bf16 pool", []),
                          ("temperature 0.8, int8 pool", ["--kv-dtype", "int8",
                                                          "--temperature", "0.8"])):
@@ -2291,8 +2348,8 @@ def phase_chat(k2, card, ckpt_dir):
 
 
 GRAPH_ROUTES = (("eager", False), ("graphs", True), ("graphs", True), ("eager", False))
-GRAPH_TOKENS = 16  # new tokens of the phase's serves and generates (64, then 32, before
-# the cuts for the whole run's time)
+GRAPH_TOKENS = 8  # new tokens of the phase's serves and generates (64, then 32, then 16,
+# before the cuts for the whole run's time)
 # pool: (serve CLI flags, the routes in turn)
 GRAPH_POOLS = (("bf16", [], GRAPH_ROUTES), ("int8", ["--kv-dtype", "int8"], GRAPH_ROUTES[:2]),
                ("e4m3", ["--kv-dtype", "float8"], GRAPH_ROUTES[:2]))
@@ -2446,7 +2503,7 @@ def phase_graphs(k1, k2, card):
         return {route: statistics.median(s["tokens_per_s"] for _, s in runs if s["route"] == route)
                 for route in ("eager", "graphs")}
 
-    base = SERVE_BASE + ["--synthetic", "16", "--n-tokens", str(GRAPH_TOKENS)]
+    base = SERVE_BASE + ["--synthetic", "8", "--n-tokens", str(GRAPH_TOKENS)]
     graph_serve_run("graphs", SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8"], True)
     for pool, extra, routes in GRAPH_POOLS:
         runs = []
@@ -2559,7 +2616,10 @@ def phase_graphs(k1, k2, card):
           f"{ms[torch.bfloat16]:.4f} ms; on {card}", flush=True)
 
 
-SERVER_REQUESTS = 16  # the closed submission's synthetic trace (32 before the doctor phase's cuts)
+SERVER_REQUESTS = 8  # the closed submission's synthetic trace (32, then 16, before the cuts for
+# the whole run's time)
+SERVER_SPEC = (8, 32)  # (d)'s synthetic requests and new tokens ((16, 64) before the layouts
+# over processes)
 # the server's process under cli.server's own entry, with K1's and the plain
 # route's counts printed when it exits (a replay runs no Python, so the
 # counts are StepGraph's, as in every phase)
@@ -2652,12 +2712,34 @@ def server_part(label, gen, serving, trace, drive, observe=True):
     return results, engine, launches, summary
 
 
+PICKED_PORTS: set = set()
+
+
 def free_port() -> int:
+    """A localhost port that no socket holds, below the kernel's ephemeral
+    range: a port picked for a job's later run cannot then be taken by a
+    socket of its earlier runs (gloo's pairs and clients bind ephemeral
+    ports), and no port is handed out twice."""
+    import random
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    try:
+        low = int(Path("/proc/sys/net/ipv4/ip_local_port_range").read_text().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.Random()
+    for _ in range(4096):
+        port = rng.randrange(max(1024, low - 12000), low)
+        if port in PICKED_PORTS:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        PICKED_PORTS.add(port)
+        return port
+    fail("port", f"no free localhost port below {low}")
 
 
 def http_call(port, method, path, body=None, timeout=300):
@@ -2861,7 +2943,8 @@ def phase_server_spec(card, tmp):
     from mdi_llm_tpu_torch.cli import serve as cli
 
     m_path, t_path = Path(tmp) / "spec-metrics.json", Path(tmp) / "spec-trace.json"
-    argv = SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64", "--spec-k", "4",
+    argv = SERVE_BASE + ["--synthetic", str(SERVER_SPEC[0]), "--n-tokens", str(SERVER_SPEC[1]),
+                         "--spec-k", "4",
                          "--draft-model", "NanoLlama", "--metrics-out", str(m_path),
                          "--trace-out", str(t_path)]
     reset_k1_counts()
@@ -3237,10 +3320,12 @@ def phase_tier(k1, card):
 
 
 QUANT_MODES = ("int8", "w8a8", "int4")
-QUANT_TOKENS = 16  # new tokens of the quant phase's serves and generates (64 before the doctor
-# phase's cuts, 32 before the analysis phase's and the serve preflights')
-QUANT_LAYERS = 12  # tiny-llama's layers in those serves and generates (22 before the sp and
-# ep runs over processes: each quantized serve's preflight traces every layer)
+QUANT_TOKENS = 8  # new tokens of the quant phase's serves and generates (64 before the doctor
+# phase's cuts, 32 before the analysis phase's and the serve preflights', 16 before the
+# layouts over processes)
+QUANT_LAYERS = 6  # tiny-llama's layers in those serves and generates (22 before the sp and
+# ep runs over processes, 12 before the layouts over processes: each quantized serve's
+# preflight traces every layer)
 
 
 def plain_quantized_einsum(spec, x, p):
@@ -3459,14 +3544,15 @@ def phase_quant(k1, k2, card, ckpt_dir):
 
 
 MIXTRAL = "Mixtral-8x7B-v0.1"
-MOE_LAYERS = 16  # of 32: 46.4 GB of bf16 blocks beside the pool and activations
-MOE_QUANT_TOKENS = 16  # new tokens per request of int8 Mixtral at all 32 layers
+MOE_LAYERS = 4  # of 32 (16, 46.4 GB of bf16 blocks, before the layouts over processes)
+MOE_QUANT_TOKENS = 8  # new tokens per request of int8 Mixtral at all 32 layers (16 before the
+# layouts over processes)
 # Mixtral-8x7B's published widths, which every MoE phase checks it runs at
 MIXTRAL_WIDTHS = dict(n_embd=4096, n_head=32, n_query_groups=8, head_size=128,
                       intermediate_size=14336, n_expert=8, n_expert_per_token=2,
                       padded_vocab_size=32256, rope_base=1000000)
-MOE_SERVE_TOKENS = 32  # new tokens per request of the moe phase's serves (64 before the
-# cuts for the whole run's time: its bf16 plain-route serve is eager)
+MOE_SERVE_TOKENS = 16  # new tokens per request of the moe phase's serves (64, then 32, before
+# the cuts for the whole run's time: its bf16 plain-route serve is eager)
 MOE_SERVE = ["--model", MIXTRAL, "--override", f"n_layer={MOE_LAYERS}", "--dtype", "bfloat16",
              "--seed", "10137", "--max-batch", "8", "--block-size", "16",
              "--sequence-length", "2048", "--synthetic", "16", "--n-tokens",
@@ -3619,7 +3705,7 @@ def phase_moe(k1, k2, card):
     from mdi_llm_tpu_torch.obs.roofline import param_bytes
     from mdi_llm_tpu_torch.ops.flash import flash_attention, flash_attention_plain
 
-    # (a) the serve CLI at 16 layers, K1 replayed inside the step graphs
+    # (a) the serve CLI at `MOE_LAYERS` layers, K1 replayed inside the step graphs
     free()
     torch.cuda.reset_peak_memory_stats()
     line, launches, engine, results = serve_checked("moe", MOE_SERVE, n_layer=MOE_LAYERS)
@@ -3775,11 +3861,12 @@ def phase_moe_quant(k1, k2, card):
     gen = Generator(cfg, params, max_seq_length=2048, device=DEVICE)
     if not gen.quantized:
         fail("moe-quant", "the int8 tree is not seen as quantized")
-    # the 4-layer modes' trace: 32 new tokens (64 before PR 18's cuts of the
-    # whole run's time)
-    trace = synthetic_trace(16, cfg.vocab_size, 2048, 32)
+    # the 4-layer modes' trace: 16 new tokens (64, then 32, before the cuts
+    # of the whole run's time); the 32-layer serve's 8 requests (16 before
+    # the layouts over processes)
+    trace = synthetic_trace(16, cfg.vocab_size, 2048, 16)
     _res, line, engine, launches = engine_serve(
-        "moe-quant", gen, synthetic_trace(16, cfg.vocab_size, 2048, MOE_QUANT_TOKENS), 32)
+        "moe-quant", gen, synthetic_trace(8, cfg.vocab_size, 2048, MOE_QUANT_TOKENS), 32)
     dev = line["device"]
     utilization_ok("moe-quant", "serve int8", dev.get("mfu"), dev.get("mbu"))
     print("moe-quant: serve " + json.dumps({
@@ -4040,6 +4127,7 @@ def phase_moe_train(k3, k4, card):
 
 EP_SIZES = (2, 4)
 EP_TOKENS = 8  # new tokens of the ep phase's bf16 generates (32, then 16, before the run's cuts)
+EP_F32_TOKENS = 8  # and of its float32 ones (16 before the layouts over processes)
 EP_CF = 1.25  # the finite capacity factor of the ep Trainer's second runs
 # ep beside tp and dp in one process (every position on the card)
 EP_TP_MESHES = {"ep 2 x tp 2": {"ep": 2, "tp": 2},
@@ -4107,7 +4195,7 @@ def phase_ep(k2, k3, k4, card):
     def part(name):
         print(f"ep: {name} done at {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # (a) 16 bf16 layers: the dense Generator, the --ep-devices 2 and 4 ones,
+    # (a) `MOE_LAYERS` bf16 layers: the dense Generator, the --ep-devices 2 and 4 ones,
     # and ep beside tp and dp
     cfg = mixtral_config("ep", MOE_LAYERS)
     free()
@@ -4160,12 +4248,12 @@ def phase_ep(k2, k3, k4, card):
         tree = params if tree_label == "fp" else quantize_params(params, mode="w8")
         # eager decode: these runs hold the streams, not the graphs
         dense = Generator(cfg4, tree, max_seq_length=2048, device=DEVICE, _graphs=False)
-        want, _ = dense.generate(fprompts, 16, temperature=0.0)
+        want, _ = dense.generate(fprompts, EP_F32_TOKENS, temperature=0.0)
         want = dict(enumerate(want))
         for label, axes in f32_meshes.items():
             gen = Generator(cfg4, tree, max_seq_length=2048, device=DEVICE, _graphs=False,
                             mesh=make_mesh(axes, [DEVICE]))
-            got, _ = gen.generate(fprompts, 16, temperature=0.0)
+            got, _ = gen.generate(fprompts, EP_F32_TOKENS, temperature=0.0)
             got = dict(enumerate(got))
             divergence_ok("ep", dense, got, want, f"float32 {tree_label} {label}")
             print(f"ep: float32 {tree_label}, 4 layers at full width: {label} gives "
@@ -4179,7 +4267,8 @@ def phase_ep(k2, k3, k4, card):
             for label, axes in (("ep 2", {"ep": 2}), ("dp 2 x ep 2", {"dp": 2, "ep": 2})):
                 gen = Generator(cfg4, tree, max_seq_length=2048, device=DEVICE, _graphs=False,
                                 mesh=make_mesh(axes, [DEVICE]), moe_capacity_factor=EP_TP_CF)
-                cf_runs[label] = dict(enumerate(gen.generate(fprompts, 16, temperature=0.0)[0]))
+                cf_runs[label] = dict(enumerate(gen.generate(fprompts, EP_F32_TOKENS,
+                                                             temperature=0.0)[0]))
                 del gen
                 free()
             divergence_ok("ep", dense, cf_runs["dp 2 x ep 2"], cf_runs["ep 2"],
@@ -4325,7 +4414,7 @@ def phase_ep(k2, k3, k4, card):
 
 
 TUNE_GEOMETRIES = {"tiny-llama-1.1b": (32, 4, 64), MIXTRAL: (32, 8, 128)}
-TUNE_MIXTRAL_LAYERS = 4  # the whole-trace serves (16, then 8, before the cuts for the
+TUNE_MIXTRAL_LAYERS = 2  # the whole-trace serves (16, then 8, then 4, before the cuts for the
 # whole run's time)
 # the serve and moe phases' trace and engine, as the tuning CLI's flags
 TUNE_SERVE = ["--synthetic", "16", "--n-tokens", "64", "--sequence-length", "2048",
@@ -4520,8 +4609,8 @@ def phase_tune(k1, card):
 PIPE_CONFIG = "examples/node_configs/standalone.json"
 PIPE_RUNS = ((2, [10, 12]), (4, [4, 6, 6, 6]))  # stages, the reference table's split of 22
 PIPE_M = 2  # samples per ring slot: 2 * S samples fill the ring
-PIPE_TOKENS = 16  # new tokens of the rings' bf16 runs (64 before the doctor phase's cuts, 32
-# before the analysis phase's and the serve preflights')
+PIPE_TOKENS = 8  # new tokens of the rings' bf16 runs (64 before the doctor phase's cuts, 32
+# before the analysis phase's and the serve preflights', 16 before the layouts over processes)
 PIPE_F32_LAYERS = 4
 
 
@@ -4829,12 +4918,13 @@ def phase_pipeline_nodes(card):
             "starter_run_s": run_s}), flush=True)
 
 
-RING_SERVE_LAYERS = 12  # tiny-llama's layers in the pp, tp and pp x tp serves (22 before the
-# sp and ep runs over processes: each engine layout's preflight traces every layer)
-PP_SERVE_RUNS = ((2, [5, 7]), (4, [2, 3, 3, 4]))  # stages, `partition.stage_layers` of 12 (the
-# reference table's [5, 7] at S = 2)
-RING_SERVE_TOKENS = 16  # the pp, tp and pp x tp serves (64 before the doctor phase's cuts, 32
-# before the analysis phase's and the serve preflights')
+RING_SERVE_LAYERS = 6  # tiny-llama's layers in the pp, tp and pp x tp serves (22 before the
+# sp and ep runs over processes, 12 before the layouts over processes: each engine
+# layout's preflight traces every layer)
+PP_SERVE_RUNS = ((2, [2, 4]), (4, [1, 1, 2, 2]))  # stages, `partition.stage_layers` of 6 (of
+# 12 before the layouts over processes)
+RING_SERVE_TOKENS = 8  # the pp, tp and pp x tp serves (64 before the doctor phase's cuts, 32
+# before the analysis phase's and the serve preflights', 16 before the layouts over processes)
 PP_SERVE_ARGV = SERVE_BASE + ["--override", f"n_layer={RING_SERVE_LAYERS}", "--synthetic", "16",
                               "--n-tokens", str(RING_SERVE_TOKENS)]
 PP_SERVE_F32_LAYERS = 4
@@ -5346,11 +5436,11 @@ def phase_tools(card, ckpt_dir):
 MESH_TRAIN_MESHES = ({"dp": 2}, {"tp": 2}, {"dp": 2, "tp": 2}, {"dp": 1, "pp": 2},
                      {"dp": 1, "pp": 2, "tp": 2})
 MESH_F32_LAYERS = 2  # 4 before PR 18's cuts of the whole run's time
-MESH_TRAIN_LAYERS = 6  # the bf16 steps (22, then 11, before the cuts for the run's time; 6
-# since the sp and ep runs over processes)
-MESH_PROCS_DP_LAYERS = 4  # tiny-llama cut for dp 2 over two processes in bf16 (11 before
-# PR 18's cuts of the whole run's time: the gloo gradient all-reduce is the step)
-MESH_PROCS_PP_LAYERS = 6  # and for the GPipe stages over them (22 before PR 18's cuts)
+MESH_TRAIN_LAYERS = 4  # the bf16 steps (22, then 11, before the cuts for the run's time; 6
+# since the sp and ep runs over processes, 4 since the layouts over processes)
+MESH_PROCS_DP_LAYERS = 2  # tiny-llama cut for dp 2 over two processes in bf16 (11, then 4,
+# before the cuts for the whole run's time: the gloo gradient all-reduce is the step)
+MESH_PROCS_PP_LAYERS = 4  # and for the GPipe stages over them (22, then 6, before the cuts)
 MESH_PROCS_STEPS = 2  # steps of the dp and pp runs over two processes (3 before the run's cuts)
 # clipping engaged (the first norm is far above 0.05).  The learning rate
 # sets how far float32 rounding moves AdamW's normalised update: at 1e-3
@@ -5517,16 +5607,17 @@ def phase_mesh_train(k2, k3, k4, card):
     free()
 
 
-def first_step_grads(tr) -> list:
+def first_step_grads(tr, device=None) -> list:
     """Make `tr`'s optimizer keep a copy of the float32 gradients its first
     step is handed (summed over the micro-batches and the dp group,
-    averaged, not yet clipped) in the list it returns."""
+    averaged, not yet clipped) in the list it returns, on `device`
+    (default: theirs)."""
     kept = []
     update = tr.optimizer.update
 
     def keeping(params, grads, norm=None):
         if not kept:
-            kept.append([g.detach().clone() for g in grads])
+            kept.append([g.detach().to(device or g.device, copy=True) for g in grads])
         return update(params, grads, norm=norm)
 
     tr.optimizer.update = keeping
@@ -5567,20 +5658,33 @@ def train_report(argv, keep=None) -> dict:
 
     def timed(self, xs, ys):
         if keep is not None and not hasattr(self, "_first_grads"):
-            self._first_grads = first_step_grads(self)
+            self._first_grads = first_step_grads(self, keep.get("device", DEVICE))
         t0 = time.perf_counter()
         loss = step(self, xs, ys)  # a host float: synchronized
         steps.append(time.perf_counter() - t0)
         return loss
 
     def saved(self, out_dir):
-        if keep is not None:  # collective: every process gathers
-            grads = self._whole(self._first_grads[0], torch.float32)
-            params = self._whole(transformer.tree_leaves(self.params))
-            if self.mesh is None or self.mesh.process_id == 0:
-                to = keep.get("device", "cuda")
-                keep.update(grads=[g.to(to) for g in grads],
-                            params=[x.detach().to(to) for x in params])
+        if keep is None:
+            return out_dir
+        to = keep.get("device", DEVICE)
+        lead = self.mesh is None or self.mesh.process_id == 0
+        for key, leaves in (("grads", self._first_grads[0]),
+                            ("params", transformer.tree_leaves(self.params))):
+            if key not in keep.get("kept", ("grads", "params")):
+                continue
+            if self.layout is not None and self.layout.split_stages:
+                whole = self._whole(leaves, torch.float32 if key == "grads" else None)
+                got = None if whole is None else [x.detach().to(to) for x in whole]
+            else:  # leaf by leaf (collective): only process 0 keeps each
+                got = []
+                for i, x in enumerate(leaves):
+                    x = self._gathered(i, x) if self.layout is not None else x
+                    if lead:
+                        got.append(x.detach().to(to))
+                    del x
+            if lead:
+                keep[key] = got
         return out_dir
 
     reset_flash_counts()
@@ -5592,8 +5696,9 @@ def train_report(argv, keep=None) -> dict:
     rec = {"step_s": steps, "layer_runs": tr.layer_runs, **flash_counts(),
            "grad_allreduce_s": tr.grad_sync_s,
            "stages": list(lay.stages) if lay is not None else None,
-           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
-    for kind in ("dp", "pp", "sp", "ep"):
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+    for kind in ("dp", "pp", "sp", "ep", "tp"):
         g = getattr(lay, f"{kind}_group") if lay is not None else None
         rec.update({f"{kind}_group_calls": g.calls if g else None,
                     f"{kind}_group_bytes": g.bytes if g else None,
@@ -5609,86 +5714,172 @@ def kept_close(got, want) -> dict:
     and how many elements lie outside `MESH_PARAM_TOL`."""
     out = {}
     rtol, atol = MESH_PARAM_TOL["rtol"], MESH_PARAM_TOL["atol"]
-    for key in ("grads", "params"):
+    for key in [k for k in ("grads", "params") if k in want]:
         worst, bad = 0.0, 0
         if len(got[key]) != len(want[key]):
             return {key: {"leaves": (len(got[key]), len(want[key]))}}
         for a, b in zip(got[key], want[key]):
-            b = b.float().cuda()
-            d = (a.float().cuda() - b).abs()
+            b = b.float().to(DEVICE)
+            d = (a.float().to(DEVICE) - b).abs()
             worst = max(worst, d.max().item())
             bad += int((d > atol + rtol * b.abs()).sum().item())
         out[key] = {"max_abs_diff": worst, "outside_tol": bad}
     return out
 
 
+class Headroom:
+    """The least free card memory (`torch.cuda.mem_get_info`: every
+    process's use of the card) and the least available host memory
+    (MemAvailable) seen while a job's processes run, read every 50 ms on a
+    thread of this process."""
+
+    def __init__(self):
+        import threading
+
+        self.card_gib = self.host_gib = float("inf")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+
+    def _watch(self):
+        import torch
+
+        while not self._stop.is_set():
+            self.card_gib = min(self.card_gib, torch.cuda.mem_get_info()[0] / 2**30)
+            try:
+                for ln in Path("/proc/meminfo").read_text().splitlines():
+                    if ln.startswith("MemAvailable:"):
+                        self.host_gib = min(self.host_gib, int(ln.split()[1]) / 2**20)
+            except OSError:
+                pass
+            self._stop.wait(0.05)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def row(self) -> dict:
+        return {"min_card_free_gib": round(self.card_gib, 3),
+                "min_host_available_gib": round(self.host_gib, 3)}
+
+
 # one process of a job per `cli.train` run, in one interpreter, reporting
 # each run's stdout and `train_report` record as `train_report` gives them;
-# a run {"argv": ..., "check": argv} keeps its gradients and parameters,
-# and its process 0 then runs `check` alone (the run in one process) and
-# adds how far they lie from that run's (`kept_close`) and its report
+# a run {"argv": ..., "check": argv[, "kept": ("grads",)]} keeps its
+# gradients and parameters (or what "kept" names, on the job's `keep`
+# device), and its process 0 then runs `check` alone (the run in one
+# process) and adds how far they lie from that run's (`kept_close`) and its
+# report: it starts once every other process has left the run (a marker
+# file each in the job's `sync` directory), and they start the next run
+# once it is done (its marker)
 MESH_PROCS_ENTRY = (
-    "import contextlib, io, json, sys, time\n"
+    "import contextlib, io, json, os, sys, time\n"
     "import chip_smoke\n"
     "job = json.loads(sys.argv[1])\n"
-    "me = job['process_id']\n"
-    "for run in job['runs']:\n"
+    "me, sync, keep = job['process_id'], job['sync'], job['keep']\n"
+    "def mark(name):\n"
+    "    open(os.path.join(sync, name), 'w').close()\n"
+    "def wait(name):\n"
+    "    while not os.path.exists(os.path.join(sync, name)):\n"
+    "        time.sleep(0.1)\n"
+    "for j, run in enumerate(job['runs']):\n"
     "    argv, check = (run, None) if isinstance(run, list) else (run['argv'], run['check'])\n"
-    "    out, kept = io.StringIO(), ({} if check else None)\n"
+    "    what = None if check is None else run.get('kept', ['grads', 'params'])\n"
+    "    out, kept = io.StringIO(), ({'device': keep, 'kept': what} if check else None)\n"
     "    t0 = time.perf_counter()\n"
     "    with contextlib.redirect_stdout(out):\n"
     "        rec = chip_smoke.train_report(argv + ['--process-id', str(me)], kept)\n"
     "    rec['wall_s'] = time.perf_counter() - t0\n"
-    "    if check and me == 0:\n"
-    "        one, ref = io.StringIO(), {}\n"
+    "    if check and me:  # its card memory freed: process 0 checks alone\n"
+    "        mark(f'{j}.{me}')\n"
+    "        wait(f'{j}.done')\n"
+    "    elif check:\n"
+    "        for i in range(1, job['n']):\n"
+    "            wait(f'{j}.{i}')\n"
+    "        one, ref = io.StringIO(), {'device': keep, 'kept': what}\n"
     "        with contextlib.redirect_stdout(one):\n"
     "            rec['one_process'] = [None, chip_smoke.train_report(check, ref)]\n"
     "        rec['one_process'][0] = one.getvalue()\n"
     "        rec['check'] = chip_smoke.kept_close(kept, ref)\n"
     "        del kept, ref\n"
     "        chip_smoke.free()\n"
+    "        mark(f'{j}.done')\n"
     "    print('MESH-PROCS ' + json.dumps([out.getvalue(), rec]), file=sys.stderr, flush=True)\n"
 )
 
 
-def mesh_jobs(phase, runs, n=2, timeout=600):
+ALLOC_CONF = "expandable_segments:True"
+
+
+def mesh_jobs(phase, runs, n=2, timeout=600, keep=None):
     """Each `cli.train` argv of `runs` (or {"argv", "check"}: the entry's
-    check against one process) as processes 0..n-1 of one job on a free
-    localhost port, the runs in turn inside the same n processes (through
-    `MESH_PROCS_ENTRY`), each process under its own time limit; returns,
-    per run, [(stdout, the `train_report` record)] in process order."""
+    check against one process, its gradients and parameters kept on
+    `keep`, default `DEVICE`) as processes 0..n-1 of one job on a free localhost port, the
+    runs in turn inside the same n processes (through `MESH_PROCS_ENTRY`),
+    all of them under one time limit; returns, per run, [(stdout, the
+    `train_report` record)] in process order.  The processes' allocators
+    grow their segments in place (`ALLOC_CONF`): the caching allocator's
+    fixed segments held 74.1 GiB of the card for four dp=2,ep=2 processes'
+    63.5 GiB of tensors, and left 0.6 GiB free beside this process."""
     import os
 
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root))
+    env.setdefault("PYTORCH_CUDA_ALLOC_CONF", ALLOC_CONF)
+
     def joined(argv):
         return argv + ["--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", str(n)]
 
     runs = [joined(r) if isinstance(r, list) else dict(r, argv=joined(r["argv"]))
             for r in runs]
+    sync = tempfile.TemporaryDirectory()
     procs = [subprocess.Popen(
-        [sys.executable, "-c", MESH_PROCS_ENTRY, json.dumps({"process_id": i, "runs": runs})],
+        [sys.executable, "-c", MESH_PROCS_ENTRY,
+         json.dumps({"process_id": i, "n": n, "sync": sync.name, "keep": keep or DEVICE,
+                     "runs": runs})],
         cwd=str(root), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for i in range(n)]
-    per_proc = []
+    per_proc, failed, errs = [], [], [None] * n
+    deadline = time.monotonic() + timeout
+    room = Headroom()
     try:
+        with room:
+            for i, p in enumerate(procs):
+                try:
+                    errs[i] = p.communicate(timeout=max(1.0, deadline - time.monotonic()))[1]
+                except subprocess.TimeoutExpired:
+                    break
+        # every process's record and error: a peer's death shows as a lost
+        # link, a hang as a process past the time limit
         for i, p in enumerate(procs):
-            try:
-                _o, e = p.communicate(timeout=timeout)
-            except subprocess.TimeoutExpired:
-                fail(phase, f"process {i} of {n} ran past {timeout} s")
-            if p.returncode:
-                fail(phase, f"process {i} of {n} exited {p.returncode}:\n{e[-3000:]}")
+            late = errs[i] is None
+            if late:
+                p.kill()
+                errs[i] = p.communicate()[1]
+            e = errs[i]
             recs = [json.loads(ln[len("MESH-PROCS "):]) for ln in e.splitlines()
                     if ln.startswith("MESH-PROCS ")]
-            if len(recs) != len(runs):
-                fail(phase, f"process {i} of {n} reported {len(recs)} of {len(runs)} runs")
+            run = runs[len(recs)] if len(recs) < len(runs) else None
+            if late or p.returncode:
+                why = f"ran past {timeout} s" if late else f"exited {p.returncode}"
+                failed.append(f"process {i} of {n} {why} in run {len(recs)} ({run}):\n"
+                              f"{e[-2000:]}")
+            elif len(recs) != len(runs):
+                failed.append(f"process {i} of {n} reported {len(recs)} of {len(runs)} runs")
             per_proc.append([tuple(r) for r in recs])
+        if failed:
+            fail(phase, f"headroom {json.dumps(room.row())}\n" + "\n".join(failed))
+        print(f"{phase}: {n} processes, {len(runs)} runs: headroom "
+              f"{json.dumps(room.row())}", flush=True)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+        sync.cleanup()
     return [[per_proc[i][j] for i in range(n)] for j in range(len(runs))]
 
 
@@ -5744,11 +5935,16 @@ def phase_mesh_train_procs(k2, k3, k4, card):
         # sp and ep over the two processes (`train_procs_runs`): the bf16
         # runs beside one process's, the float32 ones checked in the pair
         new_bf16, new_f32 = train_procs_runs(base)
-        new_ones = {label: mesh_one(argv) for label, (argv, _) in new_bf16.items()}
+        # (the ep layouts beside tp and dp hold their steps to one process's
+        # in float32, their check runs)
+        new_ones = {label: mesh_one(argv) for label, (argv, _) in new_bf16.items()
+                    if label in ("sp=2", "dp=1,ep=2")}
         all_jobs = mesh_jobs(
             "mesh-train-procs", [part[m] for m, part in order]
             + [argv for argv, _ in new_bf16.values()]
-            + [{"argv": argv, "check": argv} for argv, _ in new_f32.values()], timeout=900)
+            + [{"argv": argv, "check": argv, **({"kept": CHECKED[label]} if label in CHECKED
+                                                 else {})}
+               for label, (argv, _) in new_f32.items()], timeout=900)
         jobs = dict(zip(((m, id(part)) for m, part in order), all_jobs))
         for kernel, key in ((k2, "K2"), (k3, "K3"), (k4, "K4")):
             kernel.setdefault("paths", {})["mesh-train-procs"] = sum(
@@ -5811,8 +6007,8 @@ def phase_mesh_train_procs(k2, k3, k4, card):
 
 def train_procs_runs(base):
     """The mesh-train-procs phase's sp and ep runs over two processes, one
-    rank each: ({label: (`cli.train` argv, layer runs each process makes)}
-    in bf16, the same in float32).  sp 2 through K2-K4 at tiny-llama-1.1b's
+    rank each, and its ep runs beside tp and dp: ({label: (`cli.train`
+    argv, layer runs each process makes)} in bf16, the same in float32).  sp 2 through K2-K4 at tiny-llama-1.1b's
     full width, 4 layers, B=1, T=8192 (each process's rank runs P of the
     ring's P^2 blocks a layer); ep 2 at moe-train's shape (Mixtral's
     widths, 2 layers, B=1, T=2048: each process holds 4 of the 8 experts
@@ -5835,70 +6031,162 @@ def train_procs_runs(base):
     f32s = {"sp=2": (sp + f32 + ["--block-size", "2048"],
                      PROCS_F32_STEPS * SP_PROCS_TRAIN_LAYERS * 2),
             "dp=1,ep=2": (ep + f32 + ["--override", "n_layer=1"], PROCS_F32_STEPS)}
+    # ep beside tp and dp: (mesh, batch, bf16 layers, (dp, tp) positions a
+    # process holds); a process of tp=2,ep=2 holds every expert, so its
+    # bf16 run keeps one layer (two such processes' AdamW state of two
+    # would not fit the card beside each other)
+    for mesh, batch, layers, held in (("ep=2,tp=2", 1, MOE_TRAIN_LAYERS, 2),
+                                      ("tp=2,ep=2", 1, 1, 1),
+                                      ("ep=2,dp=2", 2, MOE_TRAIN_LAYERS, 2)):
+        argv = base + ["--batch-size", str(batch), "--grad-acc-steps", "1", "--model", MIXTRAL,
+                       "--mesh", mesh, "--block-size", str(MOE_TRAIN["block_size"])]
+        bf16[mesh] = (argv + steps + ["--dtype", "bfloat16", "--override", f"n_layer={layers}"],
+                      PROCS_BF16_STEPS * layers * held)
+        # float32 at `EP_F32_CUT`, as the four-process phase's dp=2,ep=2
+        # (tp=2,ep=2's processes each hold every expert)
+        f32s[mesh] = (argv + f32 + ["--override", "n_layer=1"] + EP_F32_CUT,
+                      PROCS_F32_STEPS * held)
     return bf16, f32s
 
 
-def train_procs_checked(bf16, f32, ones, jobs, loss_lines, card) -> None:
-    """The sp and ep runs of `train_procs_runs` over two processes (`jobs`
-    in that order: the bf16 runs, then the float32 ones) against one
-    process's: in bf16 each process's layer runs, K2 twice a run (remat),
-    K3 and K4 once, finite losses, process 1 printing none, the step
-    seconds beside one process's (`ones`); in float32 the loss lines
-    within 1e-5 (relative) of the same run in one process, its first-step
-    gradients and its parameters after its steps within `MESH_PARAM_TOL`
-    (`kept_close`, on process 0)."""
+def train_procs_checked(bf16, f32, ones, jobs, loss_lines, card,
+                        phase="mesh-train-procs") -> None:
+    """The runs of `train_procs_runs` (or the four-process phase's) over
+    their processes (`jobs` in that order: the bf16 runs, then the float32
+    ones) against one process's: in bf16 each process's layer runs, K2
+    twice a run (remat), K3 and K4 once, finite losses, the processes past
+    the first printing none, the step seconds beside one process's
+    (`ones`); in float32 the loss lines within 1e-5 (relative) of the same
+    run in one process, its first-step gradients and its parameters after
+    its steps within `MESH_PARAM_TOL` (`kept_close`, on process 0)."""
     keys = ("wall_s", "step_s", "layer_runs", "K2", "K3", "K4", "sp_group_calls", "sp_group_bytes",
-            "sp_group_s", "ep_group_calls", "ep_group_bytes", "ep_group_s", "dp_group_calls",
-            "dp_group_bytes", "grad_allreduce_s", "peak_memory_gib")
+            "sp_group_s", "ep_group_calls", "ep_group_bytes", "ep_group_s", "tp_group_calls",
+            "tp_group_bytes", "tp_group_s", "dp_group_calls", "dp_group_bytes",
+            "grad_allreduce_s", "peak_memory_gib", "peak_reserved_gib")
     for (mesh, (argv, runs)), job in zip(bf16.items(), jobs):
         for i, (out, rec) in enumerate(job):
             if (rec["layer_runs"], rec["K2"], rec["K3"], rec["K4"]) != (runs, 2 * runs, runs,
                                                                          runs):
-                fail("mesh-train-procs", f"bf16 {mesh} process {i}: layer runs "
+                fail(phase, f"bf16 {mesh} process {i}: layer runs "
                      f"{rec['layer_runs']} (want {runs}), launches {rec['K2']}/{rec['K3']}/"
                      f"{rec['K4']}")
         losses = loss_lines(job[0][0])
+        others = [loss_lines(out) for out, _ in job[1:]]
         if len(losses) != PROCS_BF16_STEPS or not all(v == v and abs(v) < 1e9 for v in losses) \
-                or loss_lines(job[1][0]):
-            fail("mesh-train-procs", f"bf16 {mesh}: loss lines {losses} (process 1 printed "
-                 f"{loss_lines(job[1][0])})")
-        one_out, one = ones[mesh]
-        one = {"losses": loss_lines(one_out), **{k: one.get(k) for k in keys}}
-        print("mesh-train-procs: " + json.dumps({
-            "card": card, "mesh": mesh, "argv": " ".join(argv), "dtype": "bfloat16",
-            "losses": losses, "one_process": one,
-            "two_processes": [{k: rec[k] for k in keys} for _, rec in job],
+                or any(others):
+            fail(phase, f"bf16 {mesh}: loss lines {losses} (the other processes printed "
+                 f"{others})")
+        row = {"card": card, "mesh": mesh, "argv": " ".join(argv), "dtype": "bfloat16",
+               "losses": losses, "processes": [{k: rec[k] for k in keys} for _, rec in job]}
+        if mesh in ones:
+            one_out, one = ones[mesh]
+            row["one_process"] = {"losses": loss_lines(one_out), **{k: one.get(k) for k in keys}}
             # the steps past each run's first (the first pays the warm-up)
-            "step_over_one": statistics.median(job[0][1]["step_s"][1:])
-            / statistics.median(one["step_s"][1:])}), flush=True)
+            row["step_over_one"] = (statistics.median(job[0][1]["step_s"][1:])
+                                    / statistics.median(one["step_s"][1:]))
+        print(f"{phase}: " + json.dumps(row), flush=True)
     for (mesh, (argv, runs)), job in zip(f32.items(), jobs[len(bf16):]):
-        (out0, rec0), (out1, rec1) = job
+        out0, rec0 = job[0]
         one_out, one = rec0["one_process"]
         got, want = loss_lines(out0), loss_lines(one_out)
         rel = max((abs(g - w) / abs(w) for g, w in zip(got, want)), default=float("inf"))
         check = rec0["check"]
-        bad = [k for k in ("grads", "params") if check.get(k, {}).get("outside_tol") != 0]
-        if len(got) != PROCS_F32_STEPS or len(want) != PROCS_F32_STEPS or loss_lines(out1) \
+        bad = [k for k in ("grads", "params") if (k in check or k == "grads")
+               and check.get(k, {}).get("outside_tol") != 0]
+        others = [loss_lines(out) for out, _ in job[1:]]
+        if len(got) != PROCS_F32_STEPS or len(want) != PROCS_F32_STEPS or any(others) \
                 or not rel <= 1e-5 or bad:
-            fail("mesh-train-procs", f"float32 {mesh}: loss lines {got} over two processes "
+            fail(phase, f"float32 {mesh}: loss lines {got} over {len(job)} processes "
                  f"against one process's {want} (rel {rel}); gradients and parameters "
                  f"{check}")
-        for i, rec in enumerate((rec0, rec1)):
+        for i, (_, rec) in enumerate(job):
             if (rec["layer_runs"], rec["K2"], rec["K3"], rec["K4"]) != (runs, 2 * runs, runs,
                                                                          runs):
-                fail("mesh-train-procs", f"float32 {mesh} process {i}: layer runs "
+                fail(phase, f"float32 {mesh} process {i}: layer runs "
                      f"{rec['layer_runs']} (want {runs}), launches {rec['K2']}/{rec['K3']}/"
                      f"{rec['K4']}")
-        print("mesh-train-procs: " + json.dumps({
+        print(f"{phase}: " + json.dumps({
             "card": card, "mesh": mesh, "argv": " ".join(argv), "dtype": "float32",
             "losses": got, "one_process_losses": want, "loss_rel": rel,
             "first_step_grads_and_params": check, "tolerance": MESH_PARAM_TOL,
             "step_s": rec0["step_s"], "one_process_step_s": one["step_s"],
-            "wall_s": [rec0["wall_s"], rec1["wall_s"]]}), flush=True)
+            "step_over_one": rec0["step_s"][-1] / one["step_s"][-1],
+            "grad_allreduce_s": rec0["grad_allreduce_s"],
+            "group_calls": {k: rec0[f"{k}_group_calls"] for k in ("tp", "ep", "dp", "sp")},
+            "wall_s": [rec["wall_s"] for _, rec in job],
+            "peak_memory_gib": [rec["peak_memory_gib"] for _, rec in job],
+            "peak_reserved_gib": [rec["peak_reserved_gib"] for _, rec in job]}), flush=True)
+
+
+# the float32 runs whose processes would not fit the card beside each
+# other take Mixtral's widths with the vocabulary cut to `EP_F32_VOCAB` ids,
+# T=1024 and capacity factor `EP_CF` (the slots each expert computes):
+# tp=2,ep=2 over two processes (each its float32 params, AdamW moments,
+# accumulated and fresh gradients of a layer with every expert beside its
+# activations: 34.3 GiB allocated when the second ran out of the card at
+# 32000 ids) and dp=2,ep=2 over four (half the experts each)
+EP_F32_VOCAB = 4096
+# the float32 checks of the ep layouts beside tp and dp hold the losses and
+# the first-step gradients to one process's: their parameters after the
+# steps are the CPU tests' (gathering a Mixtral layer's experts' float32
+# parameters through host memory as well doubles a check's seconds)
+CHECKED = {"ep=2,tp=2": ("grads",), "tp=2,ep=2": ("grads",), "ep=2,dp=2": ("grads",),
+           "dp=2,ep=2": ("grads",)}
+EP_F32_CUT = ["--override", f"vocab_size={EP_F32_VOCAB}", "--override",
+              f"padded_vocab_size={EP_F32_VOCAB}", "--block-size", "1024",
+              "--moe-capacity-factor", str(EP_CF)]
+
+
+def phase_mesh_train_quad(k2, k3, k4, card):
+    """The train CLI over four processes sharing the card (the module
+    docstring, phase 30a): every run in one set of four processes, the
+    float32 ones held to one process's run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = Path(tmp) / "data"
+        ds.mkdir()
+        synthetic_tokens(1 << 21, seed=21).tofile(ds / "train.bin")
+        synthetic_tokens(1 << 18, seed=22).tofile(ds / "val.bin")
+        base = ["--dataset", str(ds), "--ckpt", str(Path(tmp) / "ck"), "--warmup-iters", "0",
+                "--learning-rate", "1e-3", "--lr-decay-iters", "100", "--log-interval", "1",
+                "--ckpt-interval", "1000", "--eval-iters", "1", "--use-flash", "on",
+                "--device", DEVICE, "--grad-acc-steps", "1"]
+        ep = base + ["--model", MIXTRAL, "--mesh", "dp=2,ep=2", "--batch-size", "2",
+                     "--block-size", str(MOE_TRAIN["block_size"]), "--override", "n_layer=1"]
+        sp = base + ["--model", TINY_LLAMA, "--mesh", "dp=1,sp=2,tp=2", "--batch-size", "1",
+                     "--override", f"n_layer={SP_PROCS_TRAIN_LAYERS}"]
+        f32 = ["--dtype", "float32", "--grad-clip", "0.05", "--learning-rate", "1e-4",
+               "--max-iters", str(PROCS_F32_STEPS)]
+        steps = ["--max-iters", str(PROCS_BF16_STEPS), "--dtype", "bfloat16"]
+        # layer runs per process: dp x ep one dp row's layer a step (at
+        # Mixtral's widths, one layer: four processes' bf16 state of two
+        # would not fit the card); sp x tp its rank's P = 2 ring blocks a layer
+        bf16 = {"dp=2,ep=2": (ep + steps, PROCS_BF16_STEPS),
+                "dp=1,sp=2,tp=2": (sp + steps + ["--block-size", "8192"],
+                                   PROCS_BF16_STEPS * SP_PROCS_TRAIN_LAYERS * 2)}
+        f32s = {"dp=2,ep=2": (ep + f32 + EP_F32_CUT, PROCS_F32_STEPS),
+                "dp=1,sp=2,tp=2": (sp + f32 + ["--block-size", "2048"],
+                                   PROCS_F32_STEPS * SP_PROCS_TRAIN_LAYERS * 2)}
+        # the steps held to one process's in float32 (the check runs); the
+        # float32 runs' kept trees in host memory: four processes' state
+        # leaves no room for them on the card
+        jobs = mesh_jobs("mesh-train-quad", [argv for argv, _ in bf16.values()]
+                         + [{"argv": argv, "check": argv,
+                             **({"kept": CHECKED[mesh]} if mesh in CHECKED else {})}
+                            for mesh, (argv, _) in f32s.items()],
+                         n=4, timeout=420, keep="cpu")
+        for kernel, key in ((k2, "K2"), (k3, "K3"), (k4, "K4")):
+            kernel.setdefault("paths", {})["mesh-train-quad"] = sum(
+                rec[key] for job in jobs for _, rec in job)
+
+        def loss_lines(stdout):
+            return [json.loads(ln)["loss"] for ln in stdout.splitlines()
+                    if ln.startswith("{") and "loss" in ln]
+
+        train_procs_checked(bf16, f32s, {}, jobs, loss_lines, card, phase="mesh-train-quad")
 
 
 PP_TP = (2, [10, 12], 2)  # stages, the reference table's split of 22, tp ranks per stage
-PP_TP_SERVE = (2, [5, 7], 2)  # pp-tp-serve's: the split of its `RING_SERVE_LAYERS`
+PP_TP_SERVE = (2, [2, 4], 2)  # pp-tp-serve's: the split of its `RING_SERVE_LAYERS`
 
 
 def phase_pp_tp_serve(k1, card):
@@ -6083,14 +6371,16 @@ INFER_F32 = ["--model", TINY_LLAMA, "--dtype", "float32", "--override",
              "--n-tokens", "32", "--sequence-length", "2048", "--device", DEVICE]
 INFER_BF16_TOKENS = 16  # decode over two processes is gloo calls, one per product (32
 # before PR 18's cuts of the whole run's time)
-INFER_BF16_LAYERS = 12  # tiny-llama's layers there (22 before the cuts for the run's time)
+INFER_BF16_LAYERS = 6  # tiny-llama's layers there (22, then 12, before the cuts for the
+# run's time)
 INFER_BF16 = ["--model", TINY_LLAMA, "--dtype", "bfloat16", "--seed", "10137",
               "--override", f"n_layer={INFER_BF16_LAYERS}",
               "--n-samples", "4", "--n-tokens", str(INFER_BF16_TOKENS),
               "--sequence-length", "2048", "--chunk", "16", "--greedy", "--device", DEVICE]
 # one process of two-process jobs, running the runs of its JSON spec in
 # turn, each a job of its own on its own port: a `cli.sample` run
-# (`sample_report`), or with "node" a `cli.starter` (process 0) or
+# (`sample_report`), with "api" a `Generator` on a mesh over the two
+# processes (`api_report`), or with "node" a `cli.starter` (process 0) or
 # `cli.secondary` (process 1) run on the nodes config "node", its stdout
 # and stderr kept
 INFER_PROCS_ENTRY = (
@@ -6101,6 +6391,9 @@ INFER_PROCS_ENTRY = (
     "me = spec['process_id']\n"
     "recs = []\n"
     "for r in spec['runs']:\n"
+    "    if 'api' in r:\n"
+    "        recs.append(chip_smoke.api_report(r['api'], me, 2, r['port']))\n"
+    "        continue\n"
     "    if 'node' not in r:\n"
     "        recs.append(chip_smoke.sample_report(r['argv'] + [\n"
     "            '--coordinator', '127.0.0.1:%d' % r['port'], '--num-processes', '2',\n"
@@ -6149,7 +6442,9 @@ def sample_report(argv, long=False) -> dict:
     sync()
     wall = time.perf_counter() - t0
     counts = flash_counts()
-    g = gen._group
+    # the processes' groups: the tp (or sp) group, and an ep Generator's
+    groups = [g for g in (gen._group, getattr(gen, "_ep_group", None)) if g is not None]
+    g = groups[0] if groups else None
     rec = {"prompt_lens": [len(p) for p in prompt_ids], "outs": outs, "seconds": seconds,
            "wall_s": wall,
            "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2**30
@@ -6158,9 +6453,9 @@ def sample_report(argv, long=False) -> dict:
            "prefill_s": stats.prefill_s, "captures": stats.captures,
            "capture_s": stats.capture_s, "tokens_generated": stats.tokens_generated,
            "K2": counts["K2"], "plain": counts["plain"],
-           "collective_calls": g.calls if g else None,
-           "collective_bytes": g.bytes if g else None,
-           "collective_s": g.seconds if g else None}
+           "collective_calls": sum(g.calls for g in groups) if g else None,
+           "collective_bytes": sum(g.bytes for g in groups) if g else None,
+           "collective_s": sum(g.seconds for g in groups) if g else None}
     del gen
     free()
     return rec
@@ -6183,16 +6478,22 @@ def sample_pair(phase, runs, timeout=400) -> list:
         cwd=str(root), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for i in range(2)]
     recs = []
+    room = Headroom()
     try:
-        for i, p in enumerate(procs):
-            try:
-                _o, e = p.communicate(timeout=timeout)
-            except subprocess.TimeoutExpired:
-                fail(phase, f"process {i} ran past {timeout} s")
-            if p.returncode:
-                fail(phase, f"process {i} exited {p.returncode}:\n{e[-3000:]}")
-            line = [ln for ln in e.splitlines() if ln.startswith("INFER-PROCS ")]
-            recs.append(json.loads(line[-1][len("INFER-PROCS "):]))
+        with room:
+            for i, p in enumerate(procs):
+                try:
+                    _o, e = p.communicate(timeout=timeout)
+                except subprocess.TimeoutExpired:
+                    fail(phase, f"process {i} ran past {timeout} s; headroom "
+                         f"{json.dumps(room.row())}")
+                if p.returncode:
+                    fail(phase, f"process {i} exited {p.returncode}; headroom "
+                         f"{json.dumps(room.row())}:\n{e[-3000:]}")
+                line = [ln for ln in e.splitlines() if ln.startswith("INFER-PROCS ")]
+                recs.append(json.loads(line[-1][len("INFER-PROCS "):]))
+        print(f"{phase}: 2 processes, {len(runs)} runs: headroom {json.dumps(room.row())}",
+              flush=True)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -6231,13 +6532,17 @@ def phase_inference_procs(k2, card):
     # processes: `procs_runs`'s bf16 runs (K2 in each process's ring
     # prefill) and float32 runs held to one process's streams
     new_runs = procs_runs()
+    # (d) the Generator's ep layouts beside tp and dp over the two
+    # processes, through the API, in the same two processes (`api_runs`)
+    api = api_runs()
     with node_tmp:
         p0, p1 = sample_pair("inference-procs", [
             {"argv": INFER_F32 + tp2 + ["--greedy"], "long": False},
             {"argv": INFER_F32 + tp2 + sampled, "long": False},
             {"argv": INFER_BF16 + tp2, "long": True},
             {"argv": node_base, "node": str(node_cfg)}]
-            + [{"argv": argv, "long": long} for argv, long, _ in new_runs.values()],
+            + [{"argv": argv, "long": long} for argv, long, _ in new_runs.values()]
+            + [{"api": run} for run, _ in api.values()],
             timeout=600)
     one = sample_report(INFER_F32 + tp2 + ["--greedy"])
     cfg4 = Config.from_name(TINY_LLAMA, n_layer=TP_F32_LAYERS)
@@ -6311,7 +6616,9 @@ def phase_inference_procs(k2, card):
         "secondary_ring": lines[1]}), flush=True)
     del gen4, params4
     free()
-    procs_runs_checked(new_runs, p0[4:], p1[4:], card)
+    n = 4 + len(new_runs)
+    procs_runs_checked(new_runs, p0[4:n], p1[4:n], card)
+    api_runs_checked(api, p0[n:], p1[n:], card)
 
 
 def procs_runs() -> dict:
@@ -6341,9 +6648,9 @@ def procs_runs() -> dict:
                          "--n-tokens", "16"], sp_prompts, 2 * SP_F32_LAYERS),
         "ep-bf16": (ep + ["--override", f"n_layer={EP_PROCS_LAYERS}", "--dtype", "bfloat16"],
                     True, EP_PROCS_LAYERS),
-        "ep-f32": (ep + ["--override", f"n_layer={EP_PROCS_LAYERS}", "--dtype", "float32"],
+        "ep-f32": (ep + ["--override", f"n_layer={EP_PROCS_F32_LAYERS}", "--dtype", "float32"],
                    False, 0),
-        "ep-f32-drop": (ep + ["--override", f"n_layer={EP_PROCS_LAYERS}", "--dtype",
+        "ep-f32-drop": (ep + ["--override", f"n_layer={EP_PROCS_F32_LAYERS}", "--dtype",
                               "float32", "--moe-capacity-factor", "0.5"], False, 0),
     }
 
@@ -6424,13 +6731,164 @@ def procs_run_report(phase, label, argv, r0, r1, one, model, card) -> None:
         "streams_differing_from_one_process": n_div}), flush=True)
 
 
-EP_PROCS_LAYERS = 4  # Mixtral's layers in the bf16 and float32 ep runs over two processes
-EP_PROCS_TOKENS = 16  # new tokens of the ep runs over two processes
+# the Generator's ep layouts beside tp and dp over two processes (the API:
+# the sample CLI's --ep-devices stands alone, as the JAX CLI's)
+EP_API_LAYOUTS = {"ep 2 x tp 2": {"ep": 2, "tp": 2}, "tp 2 x ep 2": {"tp": 2, "ep": 2},
+                  "ep 2 x dp 2": {"ep": 2, "dp": 2},
+                  "ep 2 x dp 2 x tp 2": {"ep": 2, "dp": 2, "tp": 2}}
+EP_API_TOKENS = 8  # greedy new tokens of each of their runs
+EP_API_F32_LAYERS = 2  # Mixtral's layers in their float32 runs
+EP_API_F32_LENS = (9, 13, 7, 11)  # the float32 runs' prompts: the dense route, no K2
+EP_API_CF = 0.5  # the capacity factor at which ep 2 x dp 2 drops assignments
+
+
+def api_runs() -> dict:
+    """{label: (an `api_report` run, K2 launches each of two processes must
+    make)} of the inference-procs phase's Generator layouts over two
+    processes: each of `EP_API_LAYOUTS` at Mixtral's widths,
+    `EP_PROCS_LAYERS` (4) bf16 layers on the generate phase's four prompts
+    of 1100-1900 tokens (K2 once a layer for every tp rank and dp replica
+    a process holds), `EP_API_TOKENS` new tokens, at capacity factor
+    `EP_CF` (the long prompts' dispatch buffers through host memory);
+    float32 at `EP_API_F32_LAYERS` layers on four short prompts, exact; ep
+    2 x dp 2 in float32 at capacity factor `EP_API_CF` (one dispatch over
+    both replicas' rows, across the processes)."""
+    from mdi_llm_tpu_torch.parallel.mesh import make_mesh
+
+    runs = {}
+    for name, axes in EP_API_LAYOUTS.items():
+        mesh = make_mesh(axes, ["cpu"], 0, 2)
+        ranks = len(mesh.owned()) // len(mesh.held("ep"))  # (dp, tp) positions held
+        runs[f"{name} bf16"] = (dict(axes=axes, layers=EP_PROCS_LAYERS, dtype="bfloat16",
+                                     lens=list(INFER_LENS), n_new=EP_API_TOKENS, cf=EP_CF),
+                                ranks * EP_PROCS_LAYERS)
+        runs[f"{name} f32"] = (dict(axes=axes, layers=EP_API_F32_LAYERS, dtype="float32",
+                                    lens=list(EP_API_F32_LENS), n_new=EP_API_TOKENS, cf=None), 0)
+    runs[f"ep 2 x dp 2 f32 cf {EP_API_CF}"] = (dict(
+        runs["ep 2 x dp 2 f32"][0], cf=EP_API_CF), 0)
+    return runs
+
+
+def api_report(run, process_id=0, num_processes=1, port=None, keep=False) -> dict:
+    """`Generator(mesh=make_mesh(run["axes"], [DEVICE], process_id,
+    num_processes))` at Mixtral's widths and `run`'s layers and dtype, its
+    weights drawn from seed 10137 (over processes a process draws only its
+    experts), greedy `generate` on `long_prompts(run["lens"])` for
+    `run["n_new"]` tokens at capacity factor `run["cf"]`, K2's counts set
+    to 0 just before and read just after.  Over processes it joins the job
+    on 127.0.0.1:`port` and leaves it after.  Returns the streams, the
+    seconds, K2 launches and plain calls, the peak memory and the tp and
+    ep groups' calls, bytes and host seconds (and, with `keep`, the
+    Generator under "gen")."""
+    import torch
+
+    from mdi_llm_tpu_torch.generation import Generator
+    from mdi_llm_tpu_torch.models import transformer
+    from mdi_llm_tpu_torch.parallel import nodes
+    from mdi_llm_tpu_torch.parallel.expert import owned_experts
+    from mdi_llm_tpu_torch.parallel.mesh import make_mesh
+
+    if num_processes > 1:
+        nodes.init_distributed(nodes.coordinator_config(f"127.0.0.1:{port}", num_processes),
+                               process_id, device=DEVICE)
+    try:
+        cfg = mixtral_config("inference-procs", run["layers"])
+        mesh = make_mesh(run["axes"], [DEVICE], process_id, num_processes)
+        params = transformer.init_params(cfg, 10137, dtype=getattr(torch, run["dtype"]),
+                                         device=DEVICE,
+                                         experts=owned_experts(mesh, cfg.n_expert))
+        gen = Generator(cfg, params, max_seq_length=2048, device=DEVICE, mesh=mesh,
+                        moe_capacity_factor=run["cf"])
+        del params
+        prompts = long_prompts(run["lens"], cfg.vocab_size)
+        torch.cuda.synchronize()
+        reset_flash_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs, stats = gen.generate(prompts, run["n_new"], temperature=0.0)
+        torch.cuda.synchronize()
+        rec = {"outs": outs, "prompt_lens": [len(p) for p in prompts],
+               "wall_s": time.perf_counter() - t0, "prefill_s": stats.prefill_s,
+               "decode_s": stats.decode_s, "captures": stats.captures,
+               "capture_s": stats.capture_s, "tokens_generated": stats.tokens_generated,
+               "decode_tokens_per_s": stats.tokens_generated / (stats.decode_s
+                                                                - stats.capture_s),
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               **flash_counts()}
+        for kind, g in (("tp", gen._group), ("ep", gen._ep_group)):
+            rec.update({f"{kind}_group_calls": g.calls if g else None,
+                        f"{kind}_group_bytes": g.bytes if g else None,
+                        f"{kind}_group_s": g.seconds if g else None})
+        if keep:
+            rec["gen"] = gen
+        del gen
+        free()
+    finally:
+        if num_processes > 1:
+            nodes.shutdown_distributed()
+    return rec
+
+
+def api_runs_checked(runs, recs0, recs1, card) -> None:
+    """The Generator layouts of `api_runs` over two processes (records in
+    its order): both processes print the same streams, every sample gets
+    its tokens in the vocabulary, each process launches K2 as planned and
+    its plain version never; each float32 run against the same run in one
+    process on the same mesh, run here after the pair: the streams equal
+    (`divergence_ok`), ep 2 x dp 2's at the capacity factor too, and those
+    differ from its exact ones (the drops act).  Prints each run's seconds
+    and decode tokens/s (the float32 ones beside one process's), the tp
+    and ep groups' calls, bytes and host seconds, and each process's peak
+    memory."""
+
+    def row(r):
+        return {k: r.get(k) for k in (
+            "wall_s", "prefill_s", "decode_s", "capture_s", "decode_tokens_per_s", "K2",
+            "tp_group_calls", "tp_group_bytes", "tp_group_s", "ep_group_calls",
+            "ep_group_bytes", "ep_group_s", "peak_memory_gib")}
+
+    for (label, (run, k2_want)), r0, r1 in zip(runs.items(), recs0, recs1):
+        if r0["outs"] != r1["outs"]:
+            fail("inference-procs", f"{label}: the two processes printed different streams")
+        vocab = mixtral_config("inference-procs", run["layers"]).padded_vocab_size
+        for i, r in enumerate((r0, r1)):
+            if r["K2"] != k2_want or r["plain"]:
+                fail("inference-procs", f"{label} process {i}: K2 launches {r['K2']} (want "
+                     f"{k2_want}), plain calls {r['plain']}")
+            ring_budget_ok("inference-procs", f"{label} process {i}", r["outs"],
+                           [o[:n] for o, n in zip(r["outs"], r["prompt_lens"])],
+                           run["n_new"], vocab)
+        rec = {"card": card, "run": label, "model": MIXTRAL, "layers": run["layers"],
+               "mesh": run["axes"], "capacity_factor": run["cf"],
+               "prompt_lens": r0["prompt_lens"], "new_tokens": run["n_new"],
+               "two_processes": [row(r0), row(r1)]}
+        if "f32" in label:
+            one = api_report(run, keep=True)
+            got, want = dict(enumerate(r0["outs"])), dict(enumerate(one["outs"]))
+            divergence_ok("inference-procs", one.pop("gen"), got, want,
+                          f"{label} over 2 processes vs one process")
+            if run["cf"] is not None:
+                exact = recs0[list(runs).index(label.replace(f" cf {run['cf']}", ""))]
+                if exact["outs"] == r0["outs"]:
+                    fail("inference-procs", f"{label}: the streams equal the exact "
+                         "dispatch's (no drop moved a stream)")
+            free()
+            rec.update(one_process=row(one),
+                       decode_over_one=r0["decode_tokens_per_s"] / one["decode_tokens_per_s"],
+                       streams_differing_from_one_process=sum(got[i] != want[i] for i in want))
+        print("inference-procs: " + json.dumps(rec), flush=True)
+
+
+EP_PROCS_LAYERS = 4  # Mixtral's layers in the bf16 ep runs over two processes
+EP_PROCS_F32_LAYERS = 2  # and in their float32 runs (4 before the layouts over processes)
+EP_PROCS_TOKENS = 8  # new tokens of the ep runs over two processes (16 before the cuts for
+# the layouts over processes)
 SP_MODEL = "Llama-3-8B"
 SP_WIDTHS = dict(n_embd=4096, n_head=32, n_query_groups=8, head_size=128, block_size=8192)
-SP_LAYERS = 8  # of Llama-3-8B's 32, for the whole run's time (PERF.md §6 lists the cuts)
-SP_TOKENS = 16  # greedy new tokens per prompt (64, then 32, before the cuts for the whole
-# run's time)
+SP_LAYERS = 4  # of Llama-3-8B's 32, for the whole run's time (8 before the layouts over
+# processes; PERF.md §4 lists the cuts)
+SP_TOKENS = 8  # greedy new tokens per prompt (64, then 32, then 16, before the cuts for the
+# whole run's time)
 SP_PROMPTS = (8128, 6000)  # one bucket of 8192: local chunks 4096 (sp 2), 2048 (sp 4)
 SP_RUNS = ((2, True, 2048), (2, False, 2048), (4, True, 1024))  # P, use_flash, flash_min_len
 SP_F32_LAYERS = 4
@@ -6743,7 +7201,8 @@ def phase_sp(k2, k3, k4, card):
     free()
 
 
-SP_TRAIN_LAYERS = 8  # of Llama-3-8B's 32: AdamW's float32 state of all 32 (~96 GB) does not fit
+SP_TRAIN_LAYERS = 4  # of Llama-3-8B's 32 (8 before the layouts over processes): AdamW's
+# float32 state of all 32 (~96 GB) does not fit
 SP_TRAIN = dict(TRAIN, batch_size=1, block_size=8192, grad_acc_steps=1, use_flash=True)
 SP_TRAIN_MESHES = ({"sp": 2}, {"sp": 4})
 SP_TRAIN_F32_MESHES = ({"sp": 2}, {"dp": 1, "sp": 2, "tp": 2})
@@ -6949,7 +7408,8 @@ PHASES = ("kernel", "serve", "analysis", "serve-parity", "kernel-q8", "serve-q8"
           "train", "train-parity", "train-parity-bf16", "ckpt", "chat", "graphs", "server",
           "tier", "quant", "moe", "moe-quant", "moe-train", "ep", "tune", "pipeline",
           "pipeline-nodes", "pp-serve", "tp-serve", "tp-generate", "tools", "mesh-train",
-          "mesh-train-procs", "pp-tp-serve", "pipeline-tp", "inference-procs", "sp",
+          "mesh-train-procs", "mesh-train-quad", "pp-tp-serve", "pipeline-tp",
+          "inference-procs", "sp",
           "sp-train", "preflight", "doctor")
 
 
@@ -7058,6 +7518,7 @@ def main(argv=None) -> None:
         "tools": lambda: phase_tools(card, ckpt_dir),
         "mesh-train": lambda: phase_mesh_train(k2, k3, k4, card),
         "mesh-train-procs": lambda: phase_mesh_train_procs(k2, k3, k4, card),
+        "mesh-train-quad": lambda: phase_mesh_train_quad(k2, k3, k4, card),
         "pp-tp-serve": lambda: phase_pp_tp_serve(k1, card),
         "pipeline-tp": lambda: phase_pipeline_tp(card),
         "inference-procs": lambda: phase_inference_procs(k2, card),
@@ -7078,13 +7539,13 @@ def main(argv=None) -> None:
     records = (k1, k1q8, k2, k3, k4)
     missing = [(r["name"], k) for r in records for k in keys if k not in r]
     k2_paths = {"generate", "ckpt", "graphs", "quant", "moe", "moe-quant", "tp-generate",
-                "mesh-train", "mesh-train-procs", "inference-procs", "sp", "ep", "ep-tp",
-                "sp-train"} | (
+                "mesh-train", "mesh-train-procs", "mesh-train-quad", "inference-procs", "sp",
+                "ep", "ep-tp", "sp-train"} | (
         {"chat"} if importlib.util.find_spec("tokenizers") else set())
     k1_paths = {"serve", "ckpt", "graphs", "server", "tier", "quant", "moe", "moe-quant", "tune",
                 "pp-serve", "tp-serve", "pp-tp-serve"}
-    k34_paths = {"train", "moe-train", "mesh-train", "mesh-train-procs", "sp", "ep", "ep-tp",
-                 "sp-train"}
+    k34_paths = {"train", "moe-train", "mesh-train", "mesh-train-procs", "mesh-train-quad",
+                 "sp", "ep", "ep-tp", "sp-train"}
     if only == set(PHASES) and (set(k1["paths"]) != k1_paths or set(k2["paths"]) != k2_paths
                                 or set(k3["paths"]) != k34_paths
                                 or set(k4["paths"]) != k34_paths):

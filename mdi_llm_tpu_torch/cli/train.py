@@ -37,11 +37,20 @@ the sp ranks, attention riding the ring (`ops/ring_attention.py`, with tp
 ranks inside each sp rank); `--mesh dp=2,ep=4` splits an MoE config's
 experts over the ep ranks and its tokens over dp x ep
 (`parallel/expert.py`, at `--moe-capacity-factor`, exact by default).
-With `--coordinator` a process holds a contiguous range of the sp ranks
-(each with its whole tp group: the ring's K/V chunks pass between the
-processes, the gradients sum over them) or, at dp=1 (`--mesh
-dp=1,ep=2`), of the ep ranks (it keeps only their experts; the tokens'
-dispatch and return cross the processes).
+With `--coordinator` a process holds a contiguous block of the mesh's
+positions: of the sp ranks (the ring's K/V chunks pass between the
+processes, the gradients sum over them; `--mesh dp=1,sp=2,tp=2` over
+four processes gives each one (sp, tp) position, the ring running per
+tp rank), of the ep ranks (it keeps only their experts; the tokens'
+dispatch and return cross the processes: `--mesh dp=1,ep=2`, `ep=2,tp=2`
+with each process's whole tp group, `ep=2,dp=2` with both dp rows, or
+`dp=2,ep=2` over four processes, one (dp, ep) position each), or of the
+tp ranks beside every expert (`--mesh tp=2,ep=2`).  Start one command
+per process, e.g. four on one card:
+
+    for i in 3 2 1 0; do python -m mdi_llm_tpu_torch.cli.train \\
+        --model tiny-llama-1.1b --dataset data/shakespeare --mesh dp=1,sp=2,tp=2 \\
+        --coordinator 127.0.0.1:29500 --num-processes 4 --process-id $i & done
 
 An MoE config (Mixtral) trains with `--moe-aux-weight` times its
 load-balancing loss, in the dense formulation without an ep axis.

@@ -325,12 +325,15 @@ def _check_inference_mesh(mesh: Mesh) -> None:
     `parallel.sp_inference.SPGenerator`.  An ep axis splits an MoE config's
     experts (`parallel/expert.py`), alone or beside tp, dp and a
     replicated sp; not beside a pipeline axis, whose staged engines run
-    the dense MoE layers.  A mesh over processes (`sample --coordinator`)
-    splits its tp axis (each process holds a contiguous part of the one tp
-    group), its sp axis (`SPGenerator`) or an ep axis that stands alone
-    (each process holds a contiguous range of the ep ranks and their
-    experts); ep beside another axis over processes is ROADMAP item
-    20.2."""
+    the dense MoE layers.  A mesh over processes (`sample --coordinator`,
+    or `make_mesh(..., process_id, num_processes)` through the API)
+    splits its tp and ep axes: each process holds a contiguous block of
+    positions (`Mesh.owned`) with whole dp replicas, so a part of each
+    replica's tp group, a range of the ep ranks with their experts, or
+    both (`{"ep": 2, "tp": 2}` over two processes: one ep rank with its
+    tp group each; `{"tp": 2, "ep": 2}`: one tp rank with every expert
+    each; `{"ep": 2, "dp": 2[, "tp": 2]}`: one ep rank with every
+    replica each); or its sp axis (`SPGenerator`)."""
     for axis, size in mesh.shape.items():
         if size <= 1 or axis in ("tp", "dp", "sp", "ep") + PIPE_AXES:
             continue
@@ -340,17 +343,14 @@ def _check_inference_mesh(mesh: Mesh) -> None:
     if mesh.shape.get("ep", 1) > 1 and pa and mesh.shape[pa] > 1:
         raise ValueError(f"mesh {mesh.shape}: an ep axis runs beside tp, dp and sp, not "
                          "beside a pipeline axis (its stages run the dense MoE layers)")
-    if mesh.num_processes > 1 and mesh.shape.get("ep", 1) > 1 and any(
-            n > 1 for a, n in mesh.shape.items() if a != "ep"):
-        _refuse(f"mesh {mesh.shape} over {mesh.num_processes} processes: an ep axis "
-                "beside another axis over processes is ROADMAP item 20.2")
     if mesh.num_processes > 1:
-        if mesh.shape.get("dp", 1) > 1 or (pa and mesh.shape[pa] > 1):
+        if mesh.shape.get("dp", 1) > 1 and len(mesh.held("dp")) < mesh.shape["dp"] or (
+                pa and mesh.shape[pa] > 1):
             raise ValueError(
                 f"mesh {mesh.shape} over {mesh.num_processes} processes: a Generator's "
-                "processes split its tp axis only (the ring over processes is "
-                "parallel.pipeline.PipelineEngine(ring=...), `sample --coordinator "
-                "--pipeline-stages`)")
+                "processes split the tp and ep axes only, each holding whole dp replicas "
+                "(the ring over processes is parallel.pipeline.PipelineEngine(ring=...), "
+                "`sample --coordinator --pipeline-stages`)")
 
 
 def _without(mesh: Mesh, axis: str) -> Mesh:
@@ -361,6 +361,40 @@ def _without(mesh: Mesh, axis: str) -> Mesh:
     devices = np.take(mesh.devices, [0], axis=i)
     return Mesh(devices.reshape([n for a, n in mesh.shape.items() if a != axis] or [1]),
                 names or ("tp",), mesh.process_id, mesh.num_processes)
+
+
+def _process_group(mesh: Mesh, axis: str):
+    """This process's `CommGroup` over the processes that split `axis`
+    (`Mesh.process_groups`), None when it holds the whole axis.  Every
+    process builds every such group, in one order."""
+    from mdi_llm_tpu_torch.parallel.collectives import CommGroup
+
+    mine = None
+    for ranks in mesh.process_groups(axis):
+        group = CommGroup(ranks)
+        if mesh.process_id in ranks:
+            mine = group
+    return mine
+
+
+def _tp_part(full: Mesh, mesh: Mesh, group) -> Mesh:
+    """The tp/dp `mesh` (`full` without its sp and ep axes) as this
+    process holds it: over the processes of its tp `group` (one process,
+    holding every position, without one), its positions a contiguous
+    block (`Mesh.owned`), checked against those it holds of `full`."""
+    mesh = Mesh(mesh.devices, mesh.axis_names,
+                *((0, 1) if group is None else (group.index, group.size)))
+    names = [a for a in mesh.axis_names if a in full.shape]
+    want = sorted({tuple(c.get(a, 0) for a in names)
+                   for i, c in enumerate(full.positions()) if i in full.owned()})
+    coords = list(mesh.positions())
+    got = sorted(tuple(coords[i].get(a, 0) for a in names) for i in mesh.owned())
+    if names and got != want:
+        raise ValueError(
+            f"process {full.process_id} of {full.num_processes} holds the {names} "
+            f"coordinates {want} of mesh {full.shape}: not a contiguous part of one tp "
+            "group (order the mesh's axes so that each process holds whole dp replicas)")
+    return mesh
 
 
 def _pipeline_mesh(mesh, device) -> Dict[int, torch.device]:
@@ -417,16 +451,25 @@ class Generator:
         # stages (the staged serving engine's layout), else None
         self.stage_ranks = None
         ep_mesh = None
+        # over processes: the processes that split the tp axis and the ep
+        # axis with this one (each None where it holds the whole axis)
+        tp_group = ep_group = None
+        self._procs = isinstance(mesh, Mesh) and mesh.num_processes > 1
         if isinstance(mesh, Mesh):
             _check_inference_mesh(mesh)
+            full = mesh
             if mesh.shape.get("ep", 1) > 1:
                 ep_mesh = mesh
+            if self._procs:
+                tp_group, ep_group = (_process_group(mesh, a) for a in ("tp", "ep"))
             for axis in ("sp", "ep"):
                 if isinstance(mesh, Mesh) and axis in mesh.shape:
                     mesh = _without(mesh, axis)
                     if mesh.size == 1:  # sp or ep alone: the replica on one device
                         device = mesh.devices.flat[0] if device is None else device
                         mesh = None
+            if isinstance(mesh, Mesh) and self._procs:
+                mesh = _tp_part(full, mesh, tp_group)
         if isinstance(mesh, Mesh):
             pa = pipe_axis(mesh)
             if pa is not None and mesh.shape[pa] > 1:
@@ -479,10 +522,10 @@ class Generator:
         # the JAX `_place_ep_quantized`: a quantized tree's experts split over
         # ep and every other leaf whole, so the tp and dp axes replicate
         whole = dispatch and self.quantized and tp_mesh is not None
-        self._init_mesh(None if whole else tp_mesh, dispatch)
+        self._init_mesh(None if whole else tp_mesh, dispatch, tp_group)
         if whole:  # the batch still divides over dp, as there
             self.dp = int(tp_mesh.shape.get("dp", 1))
-        self._init_ep(ep_mesh, moe_capacity_factor)
+        self._init_ep(ep_mesh, moe_capacity_factor, ep_group)
         if cache_dtype is None:  # the float weights' dtype, never a scale's
             cache_dtype = transformer.param_dtype(self.params)
         self.cache_dtype = cache_dtype
@@ -507,7 +550,7 @@ class Generator:
                 f"{cfg.name}: head size {cfg.head_size} is not one kernel K2 "
                 f"is built for {KERNEL_HEAD_SIZES}; pass use_flash=False"
             )
-        one_card = self._group is None and (
+        one_card = not self._procs and (
             self._shards is None or len(set(self._devices.values())) == 1) and (
             ep_mesh is None or {str(d) for d in ep_mesh.device_list()} == {str(self.device)})
         if _graphs and not one_card:
@@ -528,14 +571,16 @@ class Generator:
         # measured into it at their first run per shape
         self.device_obs = None
 
-    def _init_mesh(self, mesh: Optional[Mesh], dispatch: bool = False) -> None:
+    def _init_mesh(self, mesh: Optional[Mesh], dispatch: bool = False, group=None) -> None:
         """Lay the weights over a tp/dp mesh (`parallel/sharding.py`): each
         position's slice of every leaf on its device, and per dp replica its
         positions in tp order.  Without a mesh, every field is None.  With
         `dispatch` (an ep axis beside the mesh) the positions' trees leave
         out the MoE layers' router and experts: the dispatch runs them from
         the one tree, split over ep and whole over tp and dp, as the JAX
-        `param_specs(ep_axis="ep")` lays them."""
+        `param_specs(ep_axis="ep")` lays them.  Over processes `mesh` holds
+        this process's positions (`Mesh.owned`) and `group` the processes
+        holding the other parts of its tp groups (`_group`)."""
         self._tp_mesh = mesh
         self._shards = self._replicas = self._devices = self._group = None
         self.tp = self.dp = 1
@@ -566,15 +611,14 @@ class Generator:
             for d in range(self.dp)
         ]
         if mesh.num_processes > 1:
-            # every process holds a contiguous part of the one tp group
-            # (`_check_inference_mesh`): their partial sums meet in the
-            # group's collectives, and each samples the same tokens from
-            # the same gathered logits, its generator seeded alike
-            from mdi_llm_tpu_torch.parallel.collectives import CommGroup
+            # every process holds a contiguous part of its replicas' tp
+            # group (`_check_inference_mesh`): their partial sums meet in
+            # the group's collectives, and each samples the same tokens
+            # from the same gathered logits, its generator seeded alike
+            self._group = group
 
-            self._group = CommGroup(range(mesh.num_processes))
-
-    def _init_ep(self, mesh: Optional[Mesh], capacity_factor: Optional[float]) -> None:
+    def _init_ep(self, mesh: Optional[Mesh], capacity_factor: Optional[float],
+                 group=None) -> None:
         """On an ep mesh, an MoE config's experts run the token dispatch
         (`parallel.expert.ep_moe_forward`, `_moe_impl`) over the ranks'
         expert slices, views of the one tree whose layout `place_ep`
@@ -584,31 +628,31 @@ class Generator:
         whole, once per device, or over the tp ranks of each dp replica
         (`_init_mesh`, `transformer.replicas_forward`).  A dense config on
         an ep mesh runs as without one, as in the JAX package.  `_ep_mesh`
-        keeps the mesh for `serve`'s refusal.  Over processes each process
-        keeps only its ranks' expert slices (`params` may hold just those,
-        as `sample --coordinator` loads them; a whole tree is cut, copies,
-        so its stacks can go) and the exchange and the combined output go
-        through the processes' group (`_group`)."""
-        self._ep_mesh, self._moe_impl = mesh, None
+        keeps the mesh for `serve`'s refusal.  Over processes that split
+        the ep axis (`group`, the processes holding its other ranks beside
+        the same tp ranks) each process keeps only its ranks' expert
+        slices (`params` may hold just those, as `sample --coordinator`
+        loads them; a whole tree is cut, copies, so its stacks can go) and
+        the exchange and the combined output go through `group`
+        (`_ep_group`); a
+        process that holds every ep rank (its processes split tp only)
+        runs the whole dispatch itself."""
+        self._ep_mesh, self._moe_impl, self._ep_group = mesh, None, None
         if mesh is None or self.cfg.mlp_class_name != "LLaMAMoE":
             return
         from functools import partial
 
-        from mdi_llm_tpu_torch.parallel.expert import ep_moe_forward, place_ep
+        from mdi_llm_tpu_torch.parallel.expert import ep_moe_forward, local_experts, place_ep
 
         ep = int(mesh.shape["ep"])
         if self.cfg.n_expert % ep:
             raise ValueError(f"ep={ep} does not divide n_expert={self.cfg.n_expert}")
-        group = None
         if mesh.num_processes > 1:
-            from mdi_llm_tpu_torch.parallel.collectives import CommGroup
-            from mdi_llm_tpu_torch.parallel.expert import local_experts
-
             # a tree drawn or loaded with only this process's experts stays
             self.params = local_experts(self.params, mesh, self.cfg.n_expert)
-            group = self._group = CommGroup(range(mesh.num_processes))
         else:
             place_ep(self.params, mesh, self.cfg.n_expert)  # refuses a layout it cannot split
+        self._ep_group = group
         self._moe_impl = partial(ep_moe_forward, mesh=mesh, capacity_factor=capacity_factor,
                                  group=group)
 
@@ -648,8 +692,8 @@ class Generator:
                 )
             if self._moe_impl is not None:
                 # the MoE layers dispatch every replica's rows at once
-                units = [transformer.TPRanks(self.cfg, [self._shards[i] for i in ranks])
-                         for ranks in self._replicas]
+                units = [transformer.TPRanks(self.cfg, [self._shards[i] for i in ranks],
+                                             self._group) for ranks in self._replicas]
                 return transformer.replicas_forward(
                     self.cfg, units, (self._moe_impl, self.params["blocks"]["mlp"]), tokens,
                     input_pos, None if kv is None else [[kv[i] for i in r]
@@ -1224,7 +1268,7 @@ class Generator:
 
         # refused here, naming the axis, before any pool is allocated
         validate_serving_mesh(self._ep_mesh or self._tp_mesh)
-        if self._group is not None:
+        if self._procs:
             raise ValueError(
                 "serving over processes: each process would run its own scheduler "
                 "over the shared collectives; serve in one process (the serve CLI has "

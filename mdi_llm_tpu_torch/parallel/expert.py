@@ -33,23 +33,34 @@ exchange is index arithmetic on the tensors.  Autograd differentiates
 the whole dispatch (the exchange's backward is the reverse exchange), so
 this path trains.
 
-Over the processes of a job (`group`, a `collectives.CommGroup`; the
-mesh a `make_mesh(..., process_id, num_processes)` one whose dp axis, if
-any, has size 1) a process runs the ranks it owns (`Mesh.owned`, a
-contiguous range) and holds only their experts (`owned_experts`; a
-process draws or loads only those, `transformer.init_params(experts=)`,
-`utils.checkpoint.load_checkpoint(experts=)`, or cuts a whole tree with
-`local_experts`).  Its
-input is the whole batch, the same on every process: it routes its
-ranks' shards, the dispatch and the return cross processes in one
-`CommGroup.all_to_all` each, and the combined rows of its ranks are
-all-gathered (`gather_from_ranks`), so every process goes on with the
-whole batch.  Under autograd the layer's input and the router's weights
-enter through `copy_to_ranks`: the processes' shares of their gradients
-are summed there, so everything outside the experts gets the whole
-batch's gradient on every process, while each expert's gradient (every
-token routed to it) stays on its owner.  The aux's stats are summed over
-the processes.
+Over the processes of a job (`group`, a `collectives.CommGroup` of the
+processes that split the ep axis; the mesh a `make_mesh(...,
+process_id, num_processes)` one) a process runs the ranks it owns
+(`Mesh.owned`, a contiguous range) and holds only their experts
+(`owned_experts`; a process draws or loads only those,
+`transformer.init_params(experts=)`, `utils.checkpoint.
+load_checkpoint(experts=)`, or cuts a whole tree with `local_experts`).
+Its input is its dp rows' whole batch, the same on every process of the
+group: it routes its ranks' shards, the dispatch and the return cross
+processes in one `CommGroup.all_to_all` each per dp row, and the
+combined rows of its ranks are all-gathered (`gather_from_ranks`), so
+every process goes on with its rows' whole batch.  Under autograd the
+layer's input and the router's weights enter through `copy_to_ranks`:
+the processes' shares of their gradients are summed there, so
+everything outside the experts gets its rows' gradient on every
+process, while each expert's gradient (every token of those rows routed
+to it) stays on its owner.  The aux's stats are summed over the group.
+
+The layouts this takes, beside the tp ranks a process runs (the group
+is then the processes holding the same tp ranks, `training.MeshLayout`
+and the `Generator` build it): every ep rank in each process (the
+processes split tp only; no exchange crosses them), a range of the ep
+ranks with every dp row (`{"ep": 2, "dp": 2}` over two processes, ep
+beside a whole tp group, `{"ep": 2, "tp": 2}`), or with the dp axis
+split too (`dp_group`: `{"dp": 2, "ep": 2}` over four processes, one
+position each): a process then holds its dp rows only, the exchange
+stays among the processes of those rows, and the dp group sums the
+aux's counts, while the Trainer sums the gradients over it.
 """
 
 from __future__ import annotations
@@ -195,14 +206,14 @@ def _rank_devices(mesh, axis: str, dp_axis: Optional[str]) -> List[List[torch.de
     return out
 
 
-def _rank_params(p: Params, e: int, ep: int, n_expert: int, device, gate=None) -> Params:
-    """Rank e's part of one layer's MoE params `p` (a layout `place_ep`
-    accepts): the whole router (`gate`, default p's) and its n_expert / ep
-    experts, axis 0 of every expert leaf (views), on `device`.  `e` counts
-    from the first rank whose experts `p` holds."""
-    n = n_expert // ep
-    return {"gate": _tree_map(lambda a: a.to(device), p["gate"] if gate is None else gate),
-            "experts": _tree_map(lambda a: a.narrow(0, e * n, n).to(device), p["experts"])}
+def _rank_params(experts: Params, i: int, device, gate: Params) -> Params:
+    """The i-th of this process's ranks' part of one layer's MoE params: the
+    whole router `gate` and the rank's slice of `experts` (every expert
+    leaf split once along its expert axis, a layout `place_ep` accepts:
+    the ranks' slices are outputs of one split, so the backward builds one
+    full-size gradient per leaf, not one per rank), on `device`."""
+    return {"gate": _tree_map(lambda a: a.to(device), gate),
+            "experts": _tree_map(lambda a: a[i].to(device), experts)}
 
 
 def _route(cfg: Config, gate: Params, x: torch.Tensor, valid: torch.Tensor, C: int):
@@ -258,6 +269,7 @@ def ep_moe_forward(
     with_aux: bool = False,
     dp_axis: Optional[str] = None,
     group: Optional[CommGroup] = None,
+    dp_group: Optional[CommGroup] = None,
 ):
     """Expert-parallel MoE layer, a drop-in for `transformer.moe_forward`
     (pass it as `moe_impl=` through `transformer.forward`): one layer's
@@ -272,39 +284,53 @@ def ep_moe_forward(
     exchange stays within each dp row, and the aux's stats sum over both
     axes.
 
-    `group` (a mesh over processes, dp of size 1): this process runs its
-    own ranks, `p` holding their experts only (the module docstring)."""
+    `group` (a mesh over processes): the processes holding this
+    process's dp rows' other ep ranks; this process runs its own ranks,
+    `p` holding their experts only (the module docstring).  `dp_group`
+    (the dp axis split over the processes too): the processes holding the
+    other dp rows beside the same ep ranks; `x` then holds this process's
+    rows only (its dp coordinates', whose tokens are exactly its ranks'
+    shards: B * T divides by dp * ep), and the aux is this process's
+    part of the whole batch's: the assignments and token counts summed
+    over every process, the router's probabilities over its rows, so that
+    the parts sum to the aux over the dp group."""
     ep = int(mesh.shape[axis])
     E = cfg.n_expert
     if E % ep:
         raise ValueError(f"n_expert={E} not divisible by {axis}={ep}")
     dp = int(mesh.shape[dp_axis]) if dp_axis else 1
     B, T, D = x.shape
-    N = B * T
+    mine = range(ep)  # the ep ranks this process runs
+    rows = range(dp)  # and the dp rows, x's
+    if group is not None and group.size > 1:
+        mine = _owned_ranks(mesh, axis)
+    if dp_group is not None and dp_group.size > 1:
+        rows = _owned_ranks(mesh, dp_axis)
+    N = B * T * dp // len(rows)  # the whole batch's tokens
+    if len(rows) < dp and N % (dp * ep):
+        raise ValueError(f"the dp axis split over the processes: the batch's {N} tokens "
+                         f"must divide by dp x {axis} = {dp * ep}, so that each process's "
+                         "rows hold its ranks' shards")
     n_loc = -(-N // (dp * ep))
-    Np = n_loc * dp * ep
+    Np = n_loc * len(rows) * ep  # x's tokens, padded
     C = expert_capacity(cfg, n_loc, capacity_factor)
     E_loc = E // ep
-    xf = F.pad(x.reshape(N, D), (0, 0, 0, Np - N))
-    valid = torch.arange(Np, device=x.device) < N
+    xf = F.pad(x.reshape(B * T, D), (0, 0, 0, Np - B * T))
+    valid = torch.arange(Np, device=x.device) < B * T
     devs = _rank_devices(mesh, axis, dp_axis)
-    mine = range(ep)  # the ep ranks this process runs
     gate = p["gate"]
-    if group is not None and group.size > 1:
-        if dp > 1:
-            raise ValueError(f"an ep layer over {group.size} processes takes dp=1, not dp={dp}")
-        mine = _owned_ranks(mesh, axis)
-        if torch.is_grad_enabled():
-            xf = copy_to_ranks(xf, group)
-            gate = _tree_map(lambda a: copy_to_ranks(a, group), gate)
+    if len(mine) < ep and torch.is_grad_enabled():
+        xf = copy_to_ranks(xf, group)
+        gate = _tree_map(lambda a: copy_to_ranks(a, group), gate)
+    experts = _tree_map(lambda a: a.split(E_loc), p["experts"])  # this process's ranks'
     outs, stats = [], []
-    for d in range(dp):
-        ps = [_rank_params(p, e - mine[0], ep, E, devs[d][e], gate) for e in mine]
+    for j, d in enumerate(rows):
+        ps = [_rank_params(experts, e - mine[0], devs[d][e], gate) for e in mine]
         routed = []
         for e, pe in zip(mine, ps):
-            rows = slice((d * ep + e) * n_loc, (d * ep + e + 1) * n_loc)
-            routed.append(_route(cfg, pe["gate"], xf[rows].to(devs[d][e]),
-                                 valid[rows].to(devs[d][e]), C))
+            sl = slice((j * ep + e) * n_loc, (j * ep + e + 1) * n_loc)
+            routed.append(_route(cfg, pe["gate"], xf[sl].to(devs[d][e]),
+                                 valid[sl].to(devs[d][e]), C))
         # to the experts' owners: experts are owner-major on the leading
         # axis, expert g on rank g // E_loc
         recv = all_to_all([r[0].reshape(ep, E_loc, C, D) for r in routed], group=group)
@@ -313,20 +339,25 @@ def ep_moe_forward(
         # and back: rank e's slots of source j's tokens go to rank j
         back = all_to_all([o.reshape(E_loc, ep, C, D).transpose(0, 1) for o in outb],
                           group=group)
+        row = []
         for i, (_disp, slot, w, st) in enumerate(routed):
             y = back[i].reshape(E * C, D)[slot] * w[:, None]
-            outs.append(y.reshape(n_loc, -1, D).sum(dim=1).to(x.device))
+            row.append(y.reshape(n_loc, -1, D).sum(dim=1).to(x.device))
             stats.append(st.to(x.device))
-    out = torch.cat(outs)
-    if len(mine) < ep:  # every process goes on with the whole batch
-        out = gather_from_ranks(out, 0, group)
-    out = out[:N].reshape(B, T, D)
+        outs.append(torch.cat(row))
+    out = torch.stack(outs)  # (rows, this process's ranks' tokens, D)
+    if len(mine) < ep:  # every process goes on with its rows' whole batch
+        out = gather_from_ranks(out, 1, group)
+    out = out.reshape(Np, D)[:B * T].reshape(B, T, D)
     if not with_aux:
         return out
     total = sum(stats)
     if len(mine) < ep:
         total = reduce_from_ranks(total, group)
     assign, prob_sum, n_valid = total
+    if len(rows) < dp:  # the counts of the other processes' rows
+        counts = dp_group.all_reduce_(torch.stack([assign, n_valid]).detach().clone())
+        assign, n_valid = counts[0], counts[1]
     k = cfg.n_expert_per_token
     f = assign / torch.clamp(n_valid * k, min=1.0)
     pm = prob_sum / torch.clamp(n_valid, min=1.0)

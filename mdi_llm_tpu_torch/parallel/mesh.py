@@ -16,7 +16,10 @@ Port of `mdi_llm_tpu/parallel/mesh.py`.
   `--coordinator`) gives each process `n / num_processes` contiguous
   positions, process-major, as `jax.distributed` lays out its global
   device list (`Mesh.owned`); `devices` then names the process's own
-  device, where every position it owns sits.
+  device, where every position it owns sits; `Mesh.held` reads which
+  coordinates of an axis it holds, `Mesh.process_groups` which processes
+  split an axis between them (the tp group, the ep group of a Generator
+  over processes).
 - `pipeline_mesh` maps each pipeline stage to a `torch.device` where the
   JAX package lays S stages over a 1-D `pipe` mesh axis.  Three layouts:
   S stages on one device (`devices` one entry, or None: the default
@@ -73,6 +76,25 @@ class Mesh:
         p = self.process_id if process_id is None else process_id
         n = self.size // self.num_processes
         return range(p * n, (p + 1) * n)
+
+    def held(self, axis: str, process_id: Optional[int] = None) -> List[int]:
+        """The coordinates of `axis` (0 where the mesh lacks it) among the
+        positions process `process_id` (default: this one) holds."""
+        coords = list(self.positions())
+        return sorted({coords[i].get(axis, 0) for i in self.owned(process_id)})
+
+    def process_groups(self, axis: str) -> List[List[int]]:
+        """The processes that split `axis` between them, one list per
+        group: processes holding the same coordinates of every other axis,
+        in the order of their `axis` coordinates; the groups in one order
+        on every process (sorted by what their members share), a process
+        alone left out.  Build a `collectives.CommGroup` of each on every
+        process, in this order: `dist.new_group` is collective."""
+        table: Dict[tuple, list] = {}
+        for p in range(self.num_processes):
+            key = tuple(tuple(self.held(a, p)) for a in self.axis_names if a != axis)
+            table.setdefault(key, []).append((self.held(axis, p), p))
+        return [[p for _, p in sorted(m)] for _, m in sorted(table.items()) if len(m) > 1]
 
     def positions(self):
         """Every mesh position as {axis: coordinate}, row-major (the order

@@ -48,7 +48,6 @@ __all__ = [
     "shard_params",
     "split_dims",
     "tp_slice",
-    "unshard_params",
     "regroup_w4_row_scales",
     "shard_ranks",
     "batch_spec",
@@ -276,17 +275,6 @@ def tp_slice(x: torch.Tensor, dim: Optional[int], n: int, i: int) -> torch.Tenso
         return x
     w = x.shape[dim] // n
     return x.narrow(dim, i * w, w)
-
-
-def unshard_params(leaves, dims, group) -> list:
-    """The standard layout of a process's `leaves` (`dims` their split
-    dimensions, leaf for leaf): each split leaf gathered over the
-    processes of `group` (a `collectives.CommGroup` in tp order), the
-    replicated ones as they are.  Without a group the leaves are already
-    standard.  Collective: every process of the group calls it."""
-    if group is None or group.size == 1:
-        return list(leaves)
-    return [x if d is None else group.all_gather(x.detach(), d) for x, d in zip(leaves, dims)]
 
 
 def batch_spec(dp_axis: str = "dp", sp_axis: Optional[str] = None) -> P:

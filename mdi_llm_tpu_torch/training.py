@@ -41,28 +41,41 @@ dp x ep (x tp):
   on every mesh, so a run resumes on any other.
 - Across processes (`mesh` from `make_mesh(..., process_id,
   num_processes)` after `parallel/nodes.init_distributed`), each process
-  holds a contiguous block of positions (`MeshLayout`): whole dp
-  coordinates, and either every stage with whole tp groups or a part of
-  one, or a contiguous range of stages each with its whole tp group (the
-  mesh's axes in the order dp, pp, tp), or a contiguous range of the sp
-  ranks (with their whole tp groups) or of the ep ranks.  The tp
-  collectives then run through `torch.distributed` under autograd
-  (`parallel/collectives.py`), the gradients are summed over the
-  processes that hold the same stages, tp and ep slice (other replicas,
-  other sp chunks; once per step, after accumulation), the clip's norm
-  counts each replicated leaf once, and process 0 writes the checkpoint
-  after a gather.  Every process samples the same global batch.
+  holds a contiguous block of positions (`MeshLayout`): dp coordinates,
+  and either every stage with contiguous parts of the tp, sp and ep axes,
+  or a contiguous range of stages each with its whole tp group (the
+  mesh's axes in the order dp, pp, tp).  The tp collectives then run
+  through `torch.distributed` under autograd (`parallel/collectives.py`),
+  the gradients are summed over the processes that hold the same stages,
+  tp and ep slice (other replicas, other sp chunks; once per step, after
+  accumulation), the clip's norm counts each leaf once over the groups
+  that replicate it, and process 0 writes the checkpoint after a gather.
+  Every process samples the same global batch and keeps its dp rows.
 - sp over processes: a process runs its ranks' chunks only; each
   layer's K/V chunks pass between the processes under autograd
   (`ring_attention(group=...)`, an all-gather whose backward sums the
   cotangent over them); the loss and the MoE aux's assignments sum over
-  the sp processes as over dp.  ep over processes (dp of size 1): a
-  process holds its ranks' expert slices only (`parallel.expert.
-  local_experts`; the tree's split leaves, gathered for `save` as tp
-  slices are), runs the whole batch's replicated layers, and exchanges
-  its ranks' tokens with the other processes (`ep_moe_forward(group=
-  ...)`): the gradients outside the experts come out whole on every
-  process, each expert's on its owner.
+  the sp processes as over dp.  A process may hold part of each sp
+  rank's tp group (`{"dp": 1, "sp": 2, "tp": 2}` over four processes,
+  one position each): the ring then runs per tp rank over the processes
+  holding that rank (the sp group), the tp partial sums meet in the tp
+  group.  ep over processes: a process holds its ranks' expert slices
+  only (`parallel.expert.local_experts`; the tree's split leaves,
+  gathered for `save` over the ep group as tp slices are over the tp
+  group), runs its dp rows' replicated layers over its tp ranks, and
+  exchanges its ranks' tokens with the processes holding the other ep
+  ranks of those rows (`ep_moe_forward(group=...)`): the gradients
+  outside the experts come out whole for its rows on every such process,
+  each expert's on its owner.  The layouts: `{"ep": 2, "tp": 2}` over two
+  processes (one ep rank with its whole tp group each), `{"tp": 2, "ep":
+  2}` (one tp rank with every expert: the experts, whole over tp, are
+  replicated leaves there), `{"ep": 2, "dp": 2}` (one ep rank with both
+  dp rows) and `{"dp": 2, "ep": 2}` over two (one dp row with every ep
+  rank) or four processes (one position each: the tokens split over dp x
+  ep as the JAX dispatch's `dp_axis` splits them, the exchange within
+  each dp row, the aux's counts and the gradients summed over the dp
+  group).  Started by `cli/train.py --mesh ... --coordinator host:port
+  --num-processes N --process-id I`, one command per process.
 - GPipe stages on other processes: a process holds the layers of its
   stages only (the embedding with stage 0; the final norm and the head,
   and a tied embedding, with the last), runs only those stages in the
@@ -97,10 +110,9 @@ What differs from the JAX package:
   `moe_capacity_factor` acts only on an ep mesh's dispatch.  Eval is pure
   cross-entropy, as the JAX Trainer's.
 - ep beside tp (`{"ep": N, "tp": M}`, `{"dp": D, "ep": N, "tp": M}`, in
-  one process) keeps the experts whole over tp, as the JAX Trainer lays
-  them (`param_specs(tp, ep_axis="ep")`).  ep beside sp or pp is refused
-  in the JAX Trainer's words; ep beside tp over processes is ROADMAP item
-  20.2.
+  one process or over processes) keeps the experts whole over tp, as the
+  JAX Trainer lays them (`param_specs(tp, ep_axis="ep")`).  ep beside sp
+  or pp is refused in the JAX Trainer's words.
 - The optimizer is written out (`AdamW`) with optax's arithmetic:
   `clip_by_global_norm` divides by the norm itself (torch's
   `clip_grad_norm_` adds 1e-6), the moments are float32, the update of
@@ -141,7 +153,6 @@ from mdi_llm_tpu_torch.parallel.mesh import Mesh
 from mdi_llm_tpu_torch.parallel.sharding import (
     split_dims,
     tp_slice,
-    unshard_params,
     validate_tp_divisibility,
 )
 from mdi_llm_tpu_torch.utils import data_loader
@@ -316,12 +327,6 @@ def estimate_flops_per_token(cfg: Config, T: int) -> float:
     return 6.0 * N + 12.0 * cfg.n_layer * cfg.n_head * cfg.head_size * T
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"mdi_llm_tpu_torch: {what} is not ported yet (ROADMAP Queue 1, {item})"
-    )
-
-
 TRAIN_AXES = ("dp", "tp", "pp", "sp", "ep")
 
 
@@ -345,12 +350,11 @@ class MeshLayout:
     `tie_group` (with `tie`, the tied embedding) the first and last of
     the pp group.  Every process builds every group, in one order.
 
-    A process holds whole dp coordinates, and either every stage with a
-    contiguous part of the tp axis, or a contiguous range of stages each
-    with its whole tp group (the mesh's axes then in the order dp, pp,
-    tp), or a contiguous range of the sp ranks with their whole tp
-    groups, or (with dp and tp of size 1) a contiguous range of the ep
-    ranks: ep beside tp over processes is ROADMAP item 20.2."""
+    A process holds dp coordinates and either every stage with contiguous
+    parts of the tp, sp and ep axes (any of them split over the processes
+    beside the others: ep beside tp or dp, sp beside a split tp group), or
+    a contiguous range of stages each with its whole tp group (the mesh's
+    axes then in the order dp, pp, tp)."""
 
     def __init__(self, mesh: Mesh, tie: bool = False):
         for axis, size in mesh.shape.items():
@@ -359,9 +363,6 @@ class MeshLayout:
                                  f"has the axes {TRAIN_AXES}")
         self.dp, self.tp, self.pp, self.sp, self.ep = (int(mesh.shape.get(a, 1))
                                                        for a in TRAIN_AXES)
-        if self.ep > 1 and self.tp > 1 and mesh.num_processes > 1:
-            _refuse(f"a training mesh with ep={self.ep} beside tp={self.tp} over "
-                    f"{mesh.num_processes} processes", "item 20.2")
         coords = list(mesh.positions())
         spans = [self._span(mesh, coords, p) for p in range(mesh.num_processes)]
         (self.dp_coords, self.stages, (self.tp_start, self.tp_local),
@@ -444,39 +445,20 @@ class MeshLayout:
                     f"{where}: a process that holds part of the pp axis holds each of its "
                     "stages with the whole tp group (a stage hop between processes that "
                     "each hold part of a tp group is not ported)")
-        if len(held["sp"]) < self.sp and len(tps) < self.tp:
-            raise ValueError(
-                f"{where}: a process that holds part of the sp axis holds each of its sp "
-                "ranks with the whole tp group (the ring runs per tp rank over the sp "
-                "ranks; a ring between processes that each hold part of a tp group is "
-                "ROADMAP item 20.2)")
-        if len(held["ep"]) < self.ep and self.dp > 1:
-            raise ValueError(
-                f"{where}: the ep axis splits over processes at dp=1 only: every process "
-                "runs the whole batch's replicated layers beside its experts, so the "
-                f"batch's rows do not split over dp={self.dp} there (ROADMAP item 20.2)")
         return (dps, (sts[0], sts[-1] + 1),
                 *((v[0], len(v)) for v in (held["tp"], held["sp"], held["ep"])))
-
-    @property
-    def counts_replicated(self) -> bool:
-        """Whether this process counts the replicated leaves in the clip's
-        norm (the first of its tp and ep groups)."""
-        return all(g is None or g.index == 0 for g in (self.tp_group, self.ep_group))
 
     @property
     def split_stages(self) -> bool:
         """Whether the pp axis is split over processes."""
         return self.pp_group is not None
 
-    @property
-    def shard(self):
-        """How this process's tree is cut: (the group over which its split
-        leaves are gathered, the number of slices, its slice), from the tp
-        axis or, when the ep axis splits over processes, the ep axis."""
-        if self.ep_local < self.ep:
-            return self.ep_group, self.ep // self.ep_local, self.ep_start // self.ep_local
-        return self.tp_group, self.tp // self.tp_local, self.tp_start // self.tp_local
+    def shard(self, axis: str) -> Tuple[int, int]:
+        """How this process's tree is cut over `axis` ("tp" or "ep"): (the
+        number of slices, its slice)."""
+        size, start, local = (getattr(self, axis), getattr(self, f"{axis}_start"),
+                              getattr(self, f"{axis}_local"))
+        return size // local, start // local
 
 
 def mesh_experts(mesh: Optional[Mesh], cfg: Config) -> Optional[Tuple[int, int]]:
@@ -583,20 +565,24 @@ class Trainer:
                 lambda x: x.detach().to(device=self.device, dtype=dtype, copy=True),
                 params,
             )
-        # the whole standard tree's shapes, and this process's split dims
+        # the whole standard tree's shapes; each leaf's tp split dimension
+        # (the experts whole over tp beside an ep axis) and, with the ep
+        # axis split over the processes, its ep one (the experts')
+        ep_mesh = mesh is not None and mesh.shape.get("ep", 1) > 1
+        dims = split_dims(cfg, params, ep_axis="ep" if ep_mesh else None)
         if experts is not None:
             from mdi_llm_tpu_torch.parallel.expert import ep_dims, replicated
 
-            dims = ep_dims(params)
+            e_dims = ep_dims(params)
             self._meta = _zip_tree(lambda x, d: torch.empty(
                 x.shape[:1] + (cfg.n_expert,) + x.shape[2:] if d is not None else x.shape,
-                dtype=x.dtype, device="meta"), params, dims)
+                dtype=x.dtype, device="meta"), params, e_dims)
         else:
-            ep_split = mesh is not None and mesh.shape.get("ep", 1) > 1
-            dims = split_dims(cfg, params, ep_axis="ep" if ep_split else None)
+            e_dims = transformer.tree_map(lambda x: None, params)
             self._meta = transformer.tree_map(lambda x: torch.empty_like(x, device="meta"),
                                               params)
         self._dims = transformer.tree_leaves(self._stage_tree(dims))
+        self._ep_dims = transformer.tree_leaves(self._stage_tree(e_dims))
         if self.layout is not None and mesh.num_processes > 1:
             import torch.distributed as dist
 
@@ -607,12 +593,10 @@ class Trainer:
             nodes.check_params_consistency(
                 params if experts is None else replicated(params), nodes.RingGroup(
                     dist.get_rank(), dist.get_world_size(), dist.get_backend(), self.device))
-            if experts is None:
-                params = self._to_local_tree(params)
+            params = self._to_local_tree(params)
         transformer.tree_map(lambda x: x.requires_grad_(True), params)
         self.params = params
         self.optimizer = AdamW(tc, params)
-        self._acc: Optional[List[torch.Tensor]] = None
         # with the pp axis split: the tied embedding's leaf index, and the
         # activations this micro-batch received and sent (`_micro_grads`)
         self._wte_index = None
@@ -638,6 +622,11 @@ class Trainer:
                 raise ValueError("ep composes with dp only (ep×sp/pp: future work)")
             if cfg.n_expert % lay.ep:
                 raise ValueError(f"n_expert={cfg.n_expert} not divisible by ep={lay.ep}")
+            if len(lay.dp_coords) < lay.dp and tc.batch_size // lay.dp * self.block_size % lay.ep:
+                raise ValueError(
+                    f"the dp axis split over the processes beside ep={lay.ep}: a dp row's "
+                    f"{tc.batch_size // lay.dp} x {self.block_size} tokens must divide by ep, "
+                    "so that each process's rows hold its ep ranks' shards of the dispatch")
         if "pp" in axes and "sp" in axes:
             raise ValueError("pp composes with dp/tp only (pp×sp: future work)")
         if self.block_size % lay.sp:
@@ -702,10 +691,20 @@ class Trainer:
 
     def _local(self, leaves) -> List[torch.Tensor]:
         """This process's part of the whole tree's standard-layout
-        `leaves`: its stages and its tp (or ep) slice (copies)."""
+        `leaves`: its stages, its tp slice of the leaves the tp axis splits
+        and its ep slice of the experts (copies; expert leaves that hold
+        only its experts already are kept)."""
+        lay = self.layout
         leaves = transformer.tree_leaves(self._stage_tree(_with_leaves(self._meta, leaves)))
-        _, n, index = self.layout.shard
-        return [tp_slice(x, d, n, index).clone() for x, d in zip(leaves, self._dims)]
+        metas = transformer.tree_leaves(self._stage_tree(self._meta))
+        out = []
+        for x, m, d, e in zip(leaves, metas, self._dims, self._ep_dims):
+            if e is not None and x.shape[e] == m.shape[e]:
+                x = tp_slice(x, e, *lay.shard("ep"))
+            elif e is None:
+                x = tp_slice(x, d, *lay.shard("tp"))
+            out.append(x.clone())
+        return out
 
     def _to_local_tree(self, params):
         if not self._split:
@@ -714,11 +713,23 @@ class Trainer:
                             self._local(transformer.tree_leaves(params)))
 
     def _standard(self, leaves) -> List[torch.Tensor]:
-        """`leaves` of this process's tree in the standard layout
-        (collective over the tp group, or the ep group whose experts it
-        splits)."""
-        group = None if self.layout is None else self.layout.shard[0]
-        return unshard_params(leaves, self._dims, group)
+        """`leaves` of this process's tree in the standard layout (collective
+        over the tp and ep groups, `_gathered`)."""
+        if self.layout is None:
+            return list(leaves)
+        return [self._gathered(i, x) for i, x in enumerate(leaves)]
+
+    def _gathered(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Leaf `i` of this process's tree, `x`, in the standard layout: an
+        expert leaf gathered over the ep group that splits it, a leaf the
+        tp axis splits over the tp group, any other as it is (collective
+        over the group that gathers it)."""
+        lay, d, e = self.layout, self._dims[i], self._ep_dims[i]
+        if e is not None:
+            return lay.ep_group.all_gather(x.detach(), e)
+        if d is not None and lay.tp_group is not None:
+            return lay.tp_group.all_gather(x.detach(), d)
+        return x
 
     def _whole(self, leaves, dtype=None) -> Optional[List[torch.Tensor]]:
         """The whole tree's standard-layout leaves from this process's
@@ -853,17 +864,24 @@ class Trainer:
         impl = partial(ep_moe_forward, mesh=self.mesh,
                        capacity_factor=self.tc.moe_capacity_factor,
                        dp_axis="dp" if "dp" in self.mesh.axis_names else None,
-                       group=lay.ep_group)
+                       group=lay.ep_group, dp_group=lay.dp_group)
         collect = aux_weight > 0
+        B, T = x.shape
+        rows = B // lay.dp
+        # this process's dp rows (every row unless the dp axis splits over
+        # the processes: its part of the loss, summed over the dp group)
+        xs, ys = (torch.cat([a[d * rows:(d + 1) * rows] for d in lay.dp_coords])
+                  for a in (x, y))
         ranks = transformer.TPRanks(cfg, self._rank_trees(), lay.tp_group)
         out = transformer.replicas_forward(
-            cfg, [ranks] * lay.dp, (impl, self.params["blocks"]["mlp"]), x,
-            torch.zeros(x.shape[0], dtype=torch.long, device=x.device),
+            cfg, [ranks] * len(lay.dp_coords), (impl, self.params["blocks"]["mlp"]), xs,
+            torch.zeros(xs.shape[0], dtype=torch.long, device=x.device),
             use_flash=self.use_flash, flash_kernel=self.flash_kernel, remat=remat,
             collect_moe_aux=collect)
-        self.layer_runs += cfg.n_layer * lay.tp_local * lay.dp
+        self.layer_runs += cfg.n_layer * lay.tp_local * len(lay.dp_coords)
         logits = out[0] if collect else out
-        loss = F.cross_entropy(logits.float().flatten(0, 1), y.flatten().long())
+        loss = F.cross_entropy(logits.float().flatten(0, 1), ys.flatten().long(),
+                               reduction="sum") / float(B * T)
         if collect:
             loss = loss + aux_weight * out[1] / cfg.n_layer
         return loss
@@ -956,8 +974,13 @@ class Trainer:
         tied embedding once (on stage 0's process)."""
         lay = self.layout
         skip = self._wte_index if lay.stages[0] > 0 else None
-        sq = torch.stack([g.square().sum() for i, (g, d) in enumerate(zip(grads, self._dims))
-                          if (d is not None or lay.counts_replicated) and i != skip]).sum()
+        # a leaf counts on the first process of each group that replicates it
+        first_tp, first_ep = (g is None or g.index == 0 for g in (lay.tp_group, lay.ep_group))
+        terms = [g.square().sum() for i, (g, d, e) in enumerate(zip(grads, self._dims,
+                                                                      self._ep_dims))
+                 if (d is not None or first_tp) and (e is not None or first_ep) and i != skip]
+        # (a process past the first of both its tp and ep groups may count none)
+        sq = torch.stack(terms).sum() if terms else torch.zeros((), device=self.device)
         for group in (lay.tp_group, lay.ep_group, lay.pp_group):
             if group is not None:
                 group.all_reduce_(sq)
@@ -980,30 +1003,33 @@ class Trainer:
         in float32 and averaged."""
         xs, ys = self._tokens(xs), self._tokens(ys)
         leaves = transformer.tree_leaves(self.params)
-        if self._acc is None:
-            self._acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
-        else:
-            for acc in self._acc:
-                acc.zero_()
+        # the float32 sum lives for the step only: the first micro-batch's
+        # gradients start it (float32 ones are taken as they are)
+        accs: Optional[List[torch.Tensor]] = None
         losses = []
         for m in range(xs.shape[0]):
             loss, grads = self._micro_grads(xs[m], ys[m], leaves)
-            for acc, g in zip(self._acc, grads):
-                if g is not None:  # an unused leaf's gradient is zero
-                    acc.add_(g)
+            if accs is None:  # an unused leaf's gradient is zero
+                accs = [torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
+                        for p, g in zip(leaves, grads)]
+            else:
+                for acc, g in zip(accs, grads):
+                    if g is not None:
+                        acc.add_(g)
             del grads
             losses.append(loss.detach())
         if self.layout is not None and self.layout.dp_group is not None:
             t0 = time.perf_counter()  # once per step, after accumulation
-            self.layout.dp_group.all_reduce_many_(self._acc)
+            self.layout.dp_group.all_reduce_many_(accs)
             self.grad_sync_s += time.perf_counter() - t0
-        for acc in self._acc:
+        for acc in accs:
             acc.div_(xs.shape[0])
         if self._wte_index is not None:
             # the tied embedding's gradients of stage 0 and the last stage
-            self.layout.tie_group.all_reduce_(self._acc[self._wte_index])
-        norm = None if self.layout is None else self._grad_norm(self._acc)
-        self.optimizer.update(leaves, self._acc, norm=norm)
+            self.layout.tie_group.all_reduce_(accs[self._wte_index])
+        norm = None if self.layout is None else self._grad_norm(accs)
+        self.optimizer.update(leaves, accs, norm=norm)
+        del accs
         self.iter_num += 1
         return float(self._global_value(torch.stack(losses).mean()))
 

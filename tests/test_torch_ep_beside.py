@@ -18,8 +18,11 @@ once per (mesh, weights) in a module-scoped cache:
   replicas routed apart;
 - `ChatSession` on ep 2 x tp 2 equals the dense full-history re-prefill;
 - what stays refused: serving on any ep mesh, ep beside a pipeline axis,
-  ep beside another axis over processes (item 20.2).
+  a dp axis split over processes; ep beside tp over two processes builds
+  its ep group (the runs are tests/test_torch_ep_beside_procs.py's).
 """
+
+from unittest import mock
 
 import jax
 import numpy as np
@@ -194,8 +197,10 @@ def test_chat_session_on_ep_tp_mesh(moe_model):
 def test_ep_beside_guards(moe_model, mesh_id):
     """Serving refuses every ep mesh (the JAX engine's message, naming dp
     first where the mesh has one); ep beside
-    a pipeline axis is refused; ep beside another axis over processes is
-    ROADMAP item 20.2."""
+    a pipeline axis is refused; over two processes each holds whole dp
+    replicas: ep 2 x tp 2 builds its ep group (one ep rank with its tp
+    group per process; the runs are tests/test_torch_ep_beside_procs.py's),
+    a mesh whose processes would split the dp axis is refused."""
     _cfg, _jp, tc, tp = moe_model
     axes = MESHES[mesh_id]
     gen = Generator(tc, tp, max_seq_length=64, device="cpu", mesh=tmesh(axes))
@@ -203,6 +208,16 @@ def test_ep_beside_guards(moe_model, mesh_id):
         gen.serve(block_size=8, max_batch=2)
     with pytest.raises(ValueError, match="not beside a pipeline axis"):
         Generator(tc, tp, max_seq_length=64, device="cpu", mesh=tmesh({"pp": 2, **axes}))
-    with pytest.raises(NotImplementedError, match=r"item 20\.2"):
-        Generator(tc, tp, max_seq_length=64, device="cpu",
-                  mesh=make_mesh(axes, ["cpu"], process_id=0, num_processes=2))
+    procs = make_mesh(axes, ["cpu"], process_id=1, num_processes=2)
+    if "dp" in axes:  # process 1 would hold dp row 1 only
+        with pytest.raises(ValueError, match="split the tp and ep axes only, each holding "
+                                             "whole dp replicas"):
+            Generator(tc, tp, max_seq_length=64, device="cpu", mesh=procs)
+        return
+    with mock.patch("mdi_llm_tpu_torch.parallel.collectives.CommGroup") as group:
+        gen = Generator(tc, tp, max_seq_length=64, device="cpu", mesh=procs)
+    group.assert_called_once_with([0, 1])
+    assert gen._ep_group is group.return_value and gen._group is None
+    assert gen.tp == 2 and len(gen._shards) == 2 and not gen._graphs
+    with pytest.raises(ValueError, match="serving does not support ep=2"):
+        gen.serve(block_size=8, max_batch=2)

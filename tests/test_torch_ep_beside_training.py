@@ -7,11 +7,14 @@ package's, on the CPU, in float32.
   `layer_runs` counting each dp row's tp ranks' layers;
 - the first step's gradients through the ep x tp route equal the dense
   (unmeshed) ones at exact capacity, the router's and the experts' once;
-- what stays refused: ep beside sp or pp (the JAX Trainer's words) and ep
-  beside tp over processes (ROADMAP item 20.2).
+- what stays refused: ep beside sp or pp (the JAX Trainer's words); ep
+  beside tp over two processes lays out one ep rank with its tp group, or
+  one tp rank with every expert, per process (the runs are
+  tests/test_torch_ep_beside_procs.py's).
 """
 
 from dataclasses import asdict
+from unittest import mock
 
 import jax
 import numpy as np
@@ -94,9 +97,15 @@ def test_ep_beside_sp_pp_and_over_processes_stay_refused():
     for axes in ({"dp": 1, "sp": 2, "ep": 2, "tp": 2}, {"dp": 1, "pp": 2, "ep": 2, "tp": 2}):
         with pytest.raises(ValueError, match=r"ep composes with dp only \(ep×sp/pp"):
             ttr.Trainer(moe, tc, mesh=make_mesh(axes, ["cpu"]), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 20\.2"):
-        ttr.Trainer(moe, tc, mesh=make_mesh({"ep": 2, "tp": 2}, ["cpu"], process_id=0,
-                                            num_processes=2), device="cpu")
+    # over two processes: the groups each layout splits
+    for axes, split, spans in (({"ep": 2, "tp": 2}, "ep", (0, 2, 1, 1)),
+                               ({"tp": 2, "ep": 2}, "tp", (1, 1, 0, 2))):
+        with mock.patch("mdi_llm_tpu_torch.training.CommGroup") as group:
+            lay = ttr.MeshLayout(make_mesh(axes, ["cpu"], process_id=1, num_processes=2))
+        group.assert_called_once_with([0, 1])
+        assert (lay.tp_start, lay.tp_local, lay.ep_start, lay.ep_local) == spans
+        assert {k: getattr(lay, k + "_group") for k in ("tp", "ep", "dp")} == {
+            k: group.return_value if k == split else None for k in ("tp", "ep", "dp")}
     with pytest.raises(ValueError, match=r"ep composes with dp only \(ep×sp/pp"):
         jtr.Trainer(moe_config(E=4), _tcs()[0],
                     mesh=jmesh.make_mesh({"dp": 1, "sp": 2, "ep": 2}, jax.devices()[:4]))

@@ -287,8 +287,8 @@ def test_ep_generator_guards(moe_model):
     with mock.patch("mdi_llm_tpu_torch.parallel.collectives.CommGroup") as group:
         gen = Generator(tc, tp, max_seq_length=64, device="cpu",
                         mesh=make_mesh({"ep": 2}, ["cpu"], process_id=1, num_processes=2))
-    group.assert_called_once_with(range(2))
-    assert gen._group is group.return_value and not gen._graphs
+    group.assert_called_once_with([0, 1])
+    assert gen._ep_group is group.return_value and not gen._graphs
     n = tc.n_expert // 2
     for a, b in zip(ttf.tree_leaves(gen.params["blocks"]["mlp"]["experts"]),
                     ttf.tree_leaves(tp["blocks"]["mlp"]["experts"])):
@@ -339,15 +339,20 @@ def test_trainer_ep_refusals_in_the_jax_words():
     cases = [(dense, {"dp": 2, "ep": 2}, ValueError, "'ep' mesh axis needs an MoE config"),
              (moe, {"dp": 1, "sp": 2, "ep": 2}, ValueError, r"ep composes with dp only \(ep×sp/pp"),
              (moe, {"dp": 1, "pp": 2, "ep": 2}, ValueError, r"ep composes with dp only"),
-             (moe, {"ep": 3}, ValueError, "n_expert=4 not divisible by ep=3"),
-             (moe, {"tp": 2, "ep": 2}, NotImplementedError, r"item 20\.2")]
+             (moe, {"ep": 3}, ValueError, "n_expert=4 not divisible by ep=3")]
     for cfg, axes, err, match in cases:
         with pytest.raises(err, match=match):
-            # ep beside tp runs in one process; over two it is item 20.2
-            procs = dict(process_id=0, num_processes=2) if "tp" in axes else {}
-            ttr.Trainer(cfg, tc, mesh=make_mesh(axes, ["cpu"], **procs), device="cpu")
+            ttr.Trainer(cfg, tc, mesh=make_mesh(axes, ["cpu"]), device="cpu")
     tr = ttr.Trainer(moe, tc, mesh=tmesh({"tp": 2, "ep": 2}), device="cpu")
     assert (tr.layout.tp, tr.layout.ep) == (2, 2)
+    # over two processes each holds one tp rank with every expert (the
+    # runs are tests/test_torch_ep_beside_procs.py's)
+    with mock.patch("mdi_llm_tpu_torch.training.CommGroup") as group:
+        lay = ttr.MeshLayout(make_mesh({"tp": 2, "ep": 2}, ["cpu"], process_id=0,
+                                       num_processes=2))
+    group.assert_called_once_with([0, 1])
+    assert (lay.tp_local, lay.ep_local, lay.tp_group, lay.ep_group) == (
+        1, 2, group.return_value, None)
     # the words are the JAX Trainer's own
     for cfg, axes in ((moe_config(mlp_class_name="LLaMAMLP"), {"dp": 2, "ep": 2}),
                       (moe_config(E=4), {"dp": 1, "sp": 2, "ep": 2})):

@@ -230,9 +230,9 @@ def test_save_resume_across_layouts(tmp_path, first, then):
 
 def test_make_mesh_over_processes():
     """Each of P processes owns n / P contiguous positions, process-major,
-    all on its one device; a Generator's processes split its tp axis
-    only, so a dp axis over processes is refused (the two-process tp
-    Generator is tests/test_torch_inference_procs.py's)."""
+    all on its one device; a Generator's processes split its tp and ep
+    axes only, so a dp axis split over processes is refused (the
+    two-process tp Generator is tests/test_torch_inference_procs.py's)."""
     from mdi_llm_tpu_torch.generation import Generator
 
     m = make_mesh({"dp": 2, "tp": 2}, ["cpu"], process_id=1, num_processes=2)
@@ -246,5 +246,5 @@ def test_make_mesh_over_processes():
         make_mesh({"dp": 2}, ["cpu", "cpu"], process_id=0, num_processes=2)
     cfg = TConfig(**tiny_config(block_size=16, n_layer=2).asdict())
     params = ttf.init_params(cfg, 0)
-    with pytest.raises(ValueError, match="split its tp axis only"):
+    with pytest.raises(ValueError, match="split the tp and ep axes only"):
         Generator(cfg, params, max_seq_length=16, device="cpu", mesh=m)

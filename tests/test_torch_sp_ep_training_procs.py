@@ -18,7 +18,8 @@ limit:
   assignments: three steps from the JAX package's weights on the same
   batches give the JAX meshed Trainer's losses and parameters, and the
   port's one-process Trainer's.
-- Layouts that do not split over processes are refused, saying why.
+- Layouts that split over four processes build every group in one order
+  on every process (their runs are tests/test_torch_mesh_quad_procs.py's).
 """
 
 import json
@@ -27,6 +28,7 @@ import subprocess
 import sys
 from dataclasses import asdict
 from pathlib import Path
+from unittest import mock
 
 import jax
 import numpy as np
@@ -226,10 +228,21 @@ def test_trainer_over_two_processes_matches_jax_and_one_process(pair, devices, k
             np.testing.assert_allclose(a, b, **TOL)
 
 
-@pytest.mark.parametrize("axes,n,match", [
-    ({"dp": 2, "ep": 2}, 4, "dp=1 only"),
-    ({"dp": 1, "sp": 2, "tp": 2}, 4, "whole tp group"),
+@pytest.mark.parametrize("axes,spans,groups", [
+    ({"dp": 2, "ep": 2}, [((p // 2,), 0, 0, p % 2) for p in range(4)],
+     [[0, 2], [1, 3], [0, 1], [2, 3]]),
+    ({"dp": 1, "sp": 2, "tp": 2}, [((0,), p % 2, p // 2, 0) for p in range(4)],
+     [[0, 1], [2, 3], [0, 2], [1, 3], [0, 2], [1, 3]]),
 ], ids=["ep-beside-dp", "sp-with-part-of-tp"])
-def test_layouts_that_do_not_split_are_refused(axes, n, match):
-    with pytest.raises(ValueError, match=match):
-        ttr.MeshLayout(make_mesh(axes, ["cpu"], process_id=0, num_processes=n))
+def test_layouts_that_do_not_split_are_refused(axes, spans, groups):
+    """These layouts split over four processes now, one position each (the
+    runs are tests/test_torch_mesh_quad_procs.py's): ep beside dp (each
+    process one dp row and one ep rank: the dp and ep groups) and sp beside
+    a split tp group (each process one (sp, tp) position: the tp groups,
+    the dp groups of the other sp chunks, the sp groups of the ring).
+    Every process builds every group, in one order."""
+    for p in range(4):
+        with mock.patch("mdi_llm_tpu_torch.training.CommGroup") as group:
+            lay = ttr.MeshLayout(make_mesh(axes, ["cpu"], process_id=p, num_processes=4))
+        assert [c.args[0] for c in group.call_args_list] == groups
+        assert (lay.dp_coords, lay.tp_start, lay.sp_start, lay.ep_start) == spans[p]
