@@ -170,13 +170,22 @@ remat) compiled instead of compiling them again.
 13. ckpt   — a real checkpoint through the normal entry points: the serve
    phase's weights (tiny-llama-1.1b, bf16, seed 10137) written by the
    port's reverse map as a HF snapshot of three safetensors shards with
-   its index and config.json, converted by `cli.prepare_model`, every
-   loaded leaf bit-identical to the written one; `cli.serve --ckpt` must
-   give the 16 greedy streams of `cli.serve --model` with K1 at 22
-   launches per forward and the plain route never; `Generator.generate`
-   on the loaded weights over the generate phase's prompts must launch
-   K2 exactly 22 times and give the original weights' tokens.  Prints
-   the seconds to write, convert, load and serve beside the card.
+   its index and config.json into `checkpoints/<HUB_ORG>/tiny-llama-1.1b`
+   of the run's temporary directory, where a finished hub download leaves
+   it; where `huggingface_hub` is installed, `cli.prepare_model
+   <HUB_ORG>/tiny-llama-1.1b --checkpoints-dir ...` reaches it through the
+   hub route (`HF_HUB_OFFLINE=1`, set before the library is imported:
+   nothing is fetched, `snapshot_download` returns the directory) and
+   converts it; where it is not, `cli.prepare_model <dir>` converts it and
+   the line says so.  Every loaded leaf bit-identical to the written one;
+   `cli.serve --ckpt` must give the 16 streams of `cli.serve --model` (the
+   serve phase's run of the same flags; without that phase, one here)
+   with K1 at 22 launches per forward and the plain route never;
+   `Generator.generate` on the loaded weights over the generate phase's
+   prompts must launch K2 exactly 22 times and give the original
+   weights' tokens (the generate phase's; without it, a run here).  Prints
+   the route (`hub` or `local`) and the seconds to write, convert, load
+   and serve beside the card.
 14. chat   — a 32000-word word-level tokenizer.json in that checkpoint,
    then `cli.chat --ckpt` through stdin for two turns: a pasted
    1500-word first turn (bucket 2048) prefills the empty cache through K2
@@ -424,9 +433,15 @@ remat) compiled instead of compiling them again.
    float32 at 4 layers: tp 2 and dp x tp = 2 x 2 generate the single
    device's streams (`divergence_ok`).
 28. tools — `cli.prepare_data` on a text file the phase writes, tokenized
-   by the chat phase's word-level tokenizer into train.bin and val.bin,
-   then `cli.evaluate` on the ckpt phase's checkpoint (all 22 layers,
-   bf16) over those bins: its loss must equal, within 1e-3, the port's
+   by the chat phase's word-level tokenizer into train.bin and val.bin
+   (the text's tokens in order); where `datasets` is installed, the same
+   words as `TOOLS_DOCS` documents saved as a local dataset and
+   `cli.prepare_owt --num-proc 1` on it (tokenized in this process): its
+   train.bin and val.bin must hold every document exactly once, each as
+   bos, its words' ids (read off the words, not through the tokenizer)
+   and eos.  Then `cli.evaluate` on the ckpt phase's checkpoint (all 22
+   layers, bf16) over prepare_owt's val.bin (prepare_data's without
+   `datasets`): its loss must equal, within 1e-3, the port's
    `cross_entropy_loss` computed here on the same batches.  Without the
    ckpt phase it writes the snapshot first, as `chat` does; without the
    `tokenizers` library it says so and skips, as `chat` does.
@@ -527,7 +542,11 @@ remat) compiled instead of compiling them again.
    lines and first-step gradients (and sp x tp's parameters) to one
    process's run as in mesh-train-procs (the kept trees in host memory),
    with the step seconds beside one process's and the dp group's gradient
-   sum seconds.
+   sum seconds.  Then K2, K3 and K4 alone at the sp x tp ring's blocks
+   (tiny-llama's tp 2 rank: 16 heads, 2 groups, hs 64; B=1, T=4096 a
+   rank; bf16, causal and not, with the LSE and its cotangent) against
+   their plain versions, timed beside them, SDPA and its backward, and
+   the bound.
 31. pp-tp-serve — pp x tp serving (`serving/pipeline.py` with a tp axis
    inside each stage): the pp-serve phase's CLI run and trace with `--pp 2
    --tp 2` (the reference table's [5, 7] of 12 layers, two ranks per stage, every
@@ -1039,7 +1058,7 @@ def phase_serve(record):
     # warm-up (CUDA context, cuBLAS handles), not counted
     cli.serve(cli.build_parser().parse_args(SERVE_BASE + ["--synthetic", "2", "--n-tokens", "8"]))
     free()
-    line, launches, engine, _results, peak = serve_peak_checked(
+    line, launches, engine, results, peak = serve_peak_checked(
         "serve", SERVE_BASE + ["--synthetic", "16", "--n-tokens", "64", "--hbm-gb", "80"])
     audit = audit_checked("serve", engine, "bf16 pool", peak)
     smem = k1_smem_checked("serve", engine)
@@ -1059,10 +1078,10 @@ def phase_serve(record):
     record["launches"] = launches
     record.setdefault("paths", {})["serve"] = launches
     # the analysis phase runs on this engine, right after this phase
-    SERVE_RUN.update(engine=engine, peak=peak, audit=audit)
+    SERVE_RUN.update(engine=engine, peak=peak, audit=audit, results=results)
 
 
-SERVE_RUN = {}  # the serve phase's engine, its peak allocation and audit comparison
+SERVE_RUN = {}  # the serve phase's engine, peak allocation, audit comparison and streams
 # a step's static temporaries + outputs (the flow's) against one eager run
 # of its body on the card (max_memory_allocated less what was held): the
 # static model frees each value at its last use, eager Python at its
@@ -1778,6 +1797,9 @@ def long_prompts(lens, vocab, seed=10137):
     return [rng.integers(1, vocab, n).tolist() for n in lens]
 
 
+GENERATE_RUN = {}  # the generate phase's greedy tokens on the long prompts
+
+
 def phase_generate(record):
     import torch
 
@@ -1812,6 +1834,7 @@ def phase_generate(record):
         "k2_launches": launches, "k2_plain_calls": plain}), flush=True)
     record["launches"] = launches
     record.setdefault("paths", {})["generate"] = launches
+    GENERATE_RUN["outs"] = outs  # the ckpt phase's reference
     del gen
     torch.cuda.empty_cache()
 
@@ -2145,6 +2168,7 @@ TINY_LLAMA_HF = {
     "bos_token_id": 1, "eos_token_id": 2, "torch_dtype": "bfloat16",
 }
 SHARD_BYTES = 1 << 30  # three safetensors shards for tiny-llama-1.1b in bf16
+HUB_ORG = "mdi-smoke"  # the ckpt phase's hub id is HUB_ORG/tiny-llama-1.1b
 
 
 def write_snapshot(ckpt_dir):
@@ -2170,12 +2194,15 @@ def write_snapshot(ckpt_dir):
 
 def phase_ckpt(k1, k2, card, ckpt_dir):
     """A real checkpoint through the normal entry points, at full width and
-    depth: the serve phase's weights written as a sharded HF snapshot,
-    `cli.prepare_model` on it, every loaded leaf bit-identical to the
-    original; `cli.serve --ckpt` token-identical to `cli.serve --model` at
-    the same seed with K1 at 22 launches per forward; `Generator.generate`
-    on the loaded weights over the generate phase's prompts with exactly 22
-    K2 launches and the original weights' tokens."""
+    depth: the serve phase's weights written as a sharded HF snapshot in
+    `ckpt_dir` (`<checkpoints>/HUB_ORG/tiny-llama-1.1b`), `cli.prepare_model`
+    on its hub id (offline: the hub route finds the snapshot there) or,
+    without `huggingface_hub`, on the directory; every loaded leaf
+    bit-identical to the original; `cli.serve --ckpt` token-identical to
+    `cli.serve --model` at the same seed (the serve phase's streams) with
+    K1 at 22 launches per forward; `Generator.generate` on the loaded
+    weights over the generate phase's prompts with exactly 22 K2 launches
+    and the original weights' tokens (the generate phase's)."""
     import torch
 
     from mdi_llm_tpu_torch.cli import prepare_model
@@ -2187,8 +2214,18 @@ def phase_ckpt(k1, k2, card, ckpt_dir):
 
     cfg, params, shards, write_s = write_snapshot(ckpt_dir)
     size = sum(p.stat().st_size for p in shards)
+    route = "hub" if importlib.util.find_spec("huggingface_hub") else "local"
     t0 = time.perf_counter()
-    prepare_model.main([str(ckpt_dir)])
+    if route == "hub":
+        repo_id = f"{ckpt_dir.parent.name}/{ckpt_dir.name}"
+        got = prepare_model.main([repo_id, "--checkpoints-dir", str(ckpt_dir.parent.parent)])
+        offline = sys.modules["huggingface_hub"].constants.HF_HUB_OFFLINE
+        if got != ckpt_dir or not offline:
+            fail("ckpt", f"the hub route gave {got} (want {ckpt_dir}), offline {offline}")
+        hub = f"huggingface_hub {sys.modules['huggingface_hub'].__version__}, offline"
+    else:
+        prepare_model.main([str(ckpt_dir)])
+        hub = "huggingface_hub is not installed on this machine: the local route"
     convert_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     lcfg, loaded = ck.load_checkpoint(ckpt_dir, device=DEVICE)
@@ -2205,22 +2242,31 @@ def phase_ckpt(k1, k2, card, ckpt_dir):
         fail("ckpt", "a loaded leaf is not bit-identical to the written one")
 
     ckpt_base = ["--ckpt", str(ckpt_dir)] + SERVE_BASE[2:]
-    runs = {}
-    for label, base in (("--model", SERVE_BASE), ("--ckpt", ckpt_base)):
+    # the --model streams are the serve phase's, which ran these flags (its
+    # --hbm-gb sets only the preflight's limit); without that phase, a run here
+    trace = ["--synthetic", "16", "--n-tokens", "64"]
+    want, model_s = SERVE_RUN.get("results"), None
+    if want is None:
         t0 = time.perf_counter()
-        line, launches, engine, results = serve_checked(
-            "ckpt", base + ["--synthetic", "16", "--n-tokens", "64"])
-        runs[label] = (line, launches, engine.forward_calls, results,
-                       time.perf_counter() - t0)
+        _line, _launches, engine, want = serve_checked("ckpt", SERVE_BASE + trace)
+        model_s = time.perf_counter() - t0
         del engine
         torch.cuda.empty_cache()
-    if runs["--ckpt"][3] != runs["--model"][3]:
+    t0 = time.perf_counter()
+    line, launches, engine, results = serve_checked("ckpt", ckpt_base + trace)
+    forwards, serve_s = engine.forward_calls, time.perf_counter() - t0
+    del engine
+    torch.cuda.empty_cache()
+    if results != want:
         fail("ckpt", "cli.serve --ckpt streams differ from cli.serve --model's")
-    line, launches, forwards, results, serve_s = runs["--ckpt"]
 
     prompts = long_prompts((1100, 1370, 1650, 1900), cfg.vocab_size)
-    outs = {}
+    # the original weights' tokens are the generate phase's, which ran these
+    # prompts on them; without that phase, a run here
+    outs = {"original": GENERATE_RUN["outs"]} if "outs" in GENERATE_RUN else {}
     for label, p in (("original", params), ("loaded", loaded)):
+        if label in outs:
+            continue
         gen = Generator(lcfg, p, max_seq_length=2048, device=DEVICE)
         flash_attention.launches = flash_attention_plain.calls = 0
         t0 = time.perf_counter()
@@ -2235,19 +2281,22 @@ def phase_ckpt(k1, k2, card, ckpt_dir):
     if outs["loaded"] != outs["original"]:
         fail("ckpt", "Generator.generate on the loaded weights differs from the original's")
     print("ckpt: " + json.dumps({
+        "route": route, "hub": hub,
         "shards": len(shards), "snapshot_gib": round(size / 2**30, 3),
         "write_s": round(write_s, 2), "convert_s": round(convert_s, 2),
         "load_s": round(load_s, 2), "serve_s": round(serve_s, 2),
         "serve_tokens_per_s": line["tokens_per_s"], "k1_launches": launches,
-        "forwards": forwards, "serve_model_s": round(runs["--model"][4], 2),
+        "forwards": forwards,
+        "serve_model_s": "the serve phase's run" if model_s is None else round(model_s, 2),
         "generate_s": round(gen_s, 2),
         "generate_prefill_s": round(stats.prefill_s, 4), "k2_launches": k2_launches}),
         flush=True)
     print(f"ckpt: {len(shards)} safetensors shards ({size / 2**30:.2f} GiB) written in "
-          f"{write_s:.1f} s, converted by cli.prepare_model in {convert_s:.1f} s, "
+          f"{write_s:.1f} s, converted by cli.prepare_model ({route} route; {hub}) in "
+          f"{convert_s:.1f} s, "
           f"loaded to the card in {load_s:.1f} s, every leaf bit-identical; cli.serve "
-          f"--ckpt (load included) {serve_s:.1f} s against --model's "
-          f"{runs['--model'][4]:.1f} s, 16 streams identical, K1 "
+          f"--ckpt (load included) {serve_s:.1f} s, 16 streams identical to --model's "
+          f"({'the serve phase' if model_s is None else f'{model_s:.1f} s'}), K1 "
           f"{launches} = 22 x {forwards} forwards; generate on the loaded weights: 22 K2 "
           f"launches, the original weights' tokens; on {card}", flush=True)
     k1.setdefault("paths", {})["ckpt"] = launches
@@ -3956,11 +4005,12 @@ MOE_TRAIN_LAYERS = 2  # Mixtral's layers in moe-train's steps
 MOE_TRAIN_DENSE = {}
 
 
-def flash_bwd_case_ms(B, T, H, G, hs, card, phase="moe-train", causal=True):
-    """K3 and K4 against their plain versions at one bf16 shape (causal or not)
-    (held to `flash_bwd_bf16_limits`), then timed beside the plain
-    versions and SDPA's backward; returns {"dq"/"dkv": (ms, plain ms,
-    library ms, bound ms, bound by, max |err|)}."""
+def flash_bwd_case_ms(B, T, H, G, hs, card, phase="moe-train", causal=True, dlse=False):
+    """K3 and K4 against their plain versions at one bf16 shape (causal or not;
+    with `dlse`, a random cotangent of the LSE in D, as a ring's blocks
+    take it) (held to `flash_bwd_bf16_limits`), then timed beside the
+    plain versions and SDPA's backward; returns {"dq"/"dkv": (ms, plain
+    ms, library ms, bound ms, bound by, max |err|)}."""
     import torch
     import torch.nn.functional as F
 
@@ -3978,6 +4028,8 @@ def flash_bwd_case_ms(B, T, H, G, hs, card, phase="moe-train", causal=True):
     g = torch.Generator(device=DEVICE).manual_seed(T + 1)
     do = torch.randn(q.shape, generator=g, device=DEVICE).to(dtype)
     dsum = (do.float() * out.float()).sum(-1)
+    if dlse:
+        dsum = dsum - torch.randn(lse.shape, generator=g, device=DEVICE)
     args = (q, k, v, do, lse, dsum, scale, causal)
     got = (flash_dq(*args),) + flash_dkv(*args)
     f32 = [x.float() for x in (q, k, v, do)]
@@ -4005,7 +4057,8 @@ def flash_bwd_case_ms(B, T, H, G, hs, card, phase="moe-train", causal=True):
         b_ms, b_by = flash_bwd_bound(B, H, G, T, hs, dtype, causal, which)
         out_rows[which] = (ms, plain_ms, lib_ms, b_ms, b_by, errs[which])
         print(f"{phase}: {'K3' if which == 'dq' else 'K4'} bfloat16 B={B} T={T} H={H} G={G} "
-              f"hs={hs} causal={causal} max_abs_err={errs[which]:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"hs={hs} causal={causal} dlse={dlse} max_abs_err={errs[which]:.3e} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} (SDPA backward, dQ+dK+dV) bound_ms={b_ms:.5f} ({b_by}); "
               f"on {card}", flush=True)
         free()
@@ -5355,11 +5408,12 @@ def phase_tp_generate(k2, card):
 
 
 TOOLS_WORDS = 60000  # the text file's words: ~54k train and ~6k val tokens
+TOOLS_DOCS = 30  # prepare_owt's documents of those words: 3 (~6k tokens) in val
 
 
 def phase_tools(card, ckpt_dir):
-    """`cli.prepare_data` and `cli.evaluate` on the card (the module
-    docstring, phase 28)."""
+    """`cli.prepare_data`, `cli.prepare_owt` and `cli.evaluate` on the card
+    (the module docstring, phase 28)."""
     import contextlib
     import io
 
@@ -5387,7 +5441,8 @@ def phase_tools(card, ckpt_dir):
     data_dir.mkdir(exist_ok=True)
     rng = np.random.default_rng(10137)
     text = data_dir / "input.txt"
-    text.write_text(" ".join(f"w{i}" for i in rng.integers(3, CHAT_VOCAB, TOOLS_WORDS)))
+    words = [f"w{i}" for i in rng.integers(3, CHAT_VOCAB, TOOLS_WORDS)]
+    text.write_text(" ".join(words))
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         train_p, val_p = prepare_data.main(["--dataset", str(text), "--ckpt", str(ckpt_dir)])
@@ -5396,8 +5451,38 @@ def phase_tools(card, ckpt_dir):
     bins = np.concatenate([np.fromfile(train_p, np.uint16), np.fromfile(val_p, np.uint16)])
     if not np.array_equal(bins, ids.astype(np.uint16)):
         fail("tools", "train.bin + val.bin are not the text's tokens in order")
+    eval_dir, evaluated, owt = data_dir, "prepare_data", {
+        "datasets": "not installed on this machine: prepare_owt is held on the CPU only"}
+    if importlib.util.find_spec("datasets") is not None:
+        from mdi_llm_tpu_torch.cli import prepare_owt
 
-    argv = ["--ckpt", str(ckpt_dir), "--dataset", str(data_dir), "--split", "val",
+        docs = [" ".join(d) for d in np.array_split(words, TOOLS_DOCS)]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            prepare_owt.save_documents(docs, data_dir / "docs")
+            owt_p = prepare_owt.main(["--dataset", str(data_dir / "docs"), "--ckpt",
+                                      str(ckpt_dir), "--out", str(data_dir / "owt"),
+                                      "--num-proc", "1", "--val-frac", "0.1"])
+        owt_s = time.perf_counter() - t0
+        # each document as bos ("<s>" = 1), its words' ids and eos ("</s>" = 2)
+        want = sorted((1, *(int(w[1:]) for w in d.split())) for d in docs)
+        got, n = [], []
+        for p in owt_p:
+            ids = np.fromfile(p, np.uint16)
+            pieces = np.split(ids, np.flatnonzero(ids == 2) + 1)
+            if pieces[-1].size:
+                fail("tools", f"{p.name} does not end with eos")
+            got += [tuple(int(t) for t in d[:-1]) for d in pieces[:-1]]
+            n.append(len(pieces) - 1)
+        if sorted(got) != want or not 0 < n[1] < n[0]:
+            fail("tools", f"prepare_owt's bins ({n} documents) are not every document's "
+                 "bos, ids and eos once each")
+        eval_dir, evaluated, val_p = data_dir / "owt", "prepare_owt", owt_p[1]
+        owt = {"datasets": sys.modules["datasets"].__version__, "documents": n,
+               "tokens": [int(p.stat().st_size // 2) for p in owt_p],
+               "prepare_owt_s": round(owt_s, 3)}
+
+    argv = ["--ckpt", str(ckpt_dir), "--dataset", str(eval_dir), "--split", "val",
             "--eval-iters", "4", "--batch-size", "4", "--block-size", "1024",
             "--dtype", "bfloat16", "--device", DEVICE]
     printed = io.StringIO()
@@ -5427,8 +5512,8 @@ def phase_tools(card, ckpt_dir):
     print("tools: " + json.dumps({
         "card": card, "text_words": TOOLS_WORDS, "train_tokens": int(np.fromfile(
             train_p, np.uint16).size), "val_tokens": int(data.size),
-        "prepare_data_s": round(prep_s, 3), "evaluate": rec, "evaluate_s": round(eval_s, 2),
-        "direct_loss": direct}), flush=True)
+        "prepare_data_s": round(prep_s, 3), "prepare_owt": owt, "evaluated": evaluated,
+        "evaluate": rec, "evaluate_s": round(eval_s, 2), "direct_loss": direct}), flush=True)
     del params
     free()
 
@@ -6183,6 +6268,15 @@ def phase_mesh_train_quad(k2, k3, k4, card):
                     if ln.startswith("{") and "loss" in ln]
 
         train_procs_checked(bf16, f32s, {}, jobs, loss_lines, card, phase="mesh-train-quad")
+    # K2-K4 alone at the sp x tp ring's blocks: tiny-llama's tp 2 rank (16
+    # heads, 2 groups, hs 64), T=4096 a rank, with the LSE (K2) and its
+    # cotangent (K3, K4), the diagonal block causal and a rotated one not
+    sp_k2_shapes(k2, card, B=1, T=4096, phase="mesh-train-quad", H=16, G=2, hs=64)
+    for causal in (True, False):
+        rows = flash_bwd_case_ms(1, 4096, 16, 2, 64, card, phase="mesh-train-quad",
+                                 causal=causal, dlse=True)
+        k3["max_abs_err"] = max(k3.get("max_abs_err", 0.0), rows["dq"][5])
+        k4["max_abs_err"] = max(k4.get("max_abs_err", 0.0), rows["dkv"][5])
 
 
 PP_TP = (2, [10, 12], 2)  # stages, the reference table's split of 22, tp ranks per stage
@@ -7006,16 +7100,16 @@ def sp_ring_grad(k2, k3, k4, card):
     return counts
 
 
-def sp_k2_shapes(k2, card, B=2, T=4096, phase="sp"):
+def sp_k2_shapes(k2, card, B=2, T=4096, phase="sp", H=32, G=8, hs=128):
     """K2 against its plain version at an sp 2 ring's two block shapes
-    (the main path's: B rows, T per rank, 32 heads / 8 groups / hs 128,
-    bfloat16, with the LSE; the sp prefill's B=2 by default): causal (the
-    diagonal block) and non-causal (a rotated chunk)."""
+    (the main path's: B rows, T per rank, H heads / G groups / hs, bfloat16,
+    with the LSE; the sp prefill's B=2 and Llama-3-8B's 32 / 8 / 128 by
+    default): causal (the diagonal block) and non-causal (a rotated chunk)."""
     import torch
 
     from mdi_llm_tpu_torch.ops.flash import flash_attention_lse, flash_attention_plain
 
-    q, k, v = flash_inputs(B, T, torch.bfloat16, seed=41, H=32, G=8, hs=128)
+    q, k, v = flash_inputs(B, T, torch.bfloat16, seed=41, H=H, G=G, hs=hs)
     for causal in (True, False):
         out, lse = flash_attention_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -7029,9 +7123,9 @@ def sp_k2_shapes(k2, card, B=2, T=4096, phase="sp"):
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal), 3)
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True), 20)
-        b_ms, b_by = flash_bound(B, 32, 8, T, 128, torch.bfloat16, causal, True)
+        b_ms, b_by = flash_bound(B, H, G, T, hs, torch.bfloat16, causal, True)
         k2["max_abs_err"] = max(k2.get("max_abs_err", 0.0), err)
-        print(f"{phase}: {card}: K2 ring block bfloat16 B={B} T={T} 32h/8g hs=128 causal={causal} "
+        print(f"{phase}: {card}: K2 ring block bfloat16 B={B} T={T} {H}h/{G}g hs={hs} causal={causal} "
               f"with LSE max_abs_err={err:.3e} lse_err={lse_err:.3e} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
               flush=True)
@@ -7423,6 +7517,9 @@ def main(argv=None) -> None:
     os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
     sys.dont_write_bytecode = False
+    # before any HF library is imported (the ckpt and tools phases): the
+    # hub route and `datasets` find what the phases place and fetch nothing
+    os.environ["HF_HUB_OFFLINE"] = os.environ["HF_DATASETS_OFFLINE"] = "1"
     import torch
 
     ap = argparse.ArgumentParser(description="bring-up check of the port on one GPU")
@@ -7528,7 +7625,10 @@ def main(argv=None) -> None:
         "doctor": lambda: phase_doctor(card),
     }
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt_dir = Path(tmp) / TINY_LLAMA
+        # the HF libraries' caches and token in the run's directory, not $HOME's
+        os.environ["HF_HOME"] = str(Path(tmp) / "hf-home")
+        os.environ["HF_DATASETS_CACHE"] = str(Path(tmp) / "hf-home" / "datasets")
+        ckpt_dir = Path(tmp) / "checkpoints" / HUB_ORG / TINY_LLAMA
         for phase in PHASES:
             if phase in only:
                 t = time.perf_counter()

@@ -1,10 +1,13 @@
-"""Model preparation CLI of the port: convert a local HF snapshot.
+"""Model preparation CLI of the port: download, convert, partition.
 
-Port of `mdi_llm_tpu/cli/prepare_model.py` for a local directory: the HF
-weights in it (`*.safetensors` or `*.bin`, with their `config.json`) are
+Port of `mdi_llm_tpu/cli/prepare_model.py`.  A local directory's HF
+weights (`*.safetensors` or `*.bin`, with their `config.json`) are
 converted in place into a checkpoint of the port (`params.pt` +
 `model_config.yaml`, the tokenizer files kept beside them), unless one is
-there already.  Nothing is downloaded: a hub name is refused.
+there already.  Any other argument is a hub id (`org/name`): it is
+downloaded into `<checkpoints-dir>/org/name` and converted there
+(`utils/download.download_from_hub`; with `HF_HUB_OFFLINE=1` a snapshot
+already placed in that directory is converted and nothing is fetched).
 `--quantize int8|int4` also writes a pre-quantized copy into the sibling
 directory `<ckpt>-<mode>/` (quantized `params.pt`, the config and the
 tokenizer files), which every CLI's `--ckpt` loads with no further flag.
@@ -12,6 +15,7 @@ tokenizer files), which every CLI's `--ckpt` loads with no further flag.
 under `<ckpt>/chunks/<S>stages/stage_<i>/` (`parallel/partition.py`'s
 split) and its `stage_map.json` (for the quantized copy too).
 
+    python -m mdi_llm_tpu_torch.cli.prepare_model TinyLlama/TinyLlama-1.1B-Chat-v1.0
     python -m mdi_llm_tpu_torch.cli.prepare_model checkpoints/TinyLlama-1.1B-Chat-v1.0
     python -m mdi_llm_tpu_torch.cli.prepare_model checkpoints/TinyLlama-1.1B-Chat-v1.0 --quantize int8
     python -m mdi_llm_tpu_torch.cli.prepare_model checkpoints/TinyLlama-1.1B-Chat-v1.0 --n-stages 2
@@ -37,8 +41,11 @@ DTYPES = ("bfloat16", "float32")
 
 def build_parser():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("model", help="local HF checkpoint directory")
+    ap.add_argument("model", help="HF repo id (org/name) or local checkpoint dir")
+    ap.add_argument("--checkpoints-dir", type=Path, default=Path("checkpoints"),
+                    help="where a hub id is downloaded to (<dir>/org/name)")
     ap.add_argument("--dtype", choices=DTYPES, default="bfloat16")
+    ap.add_argument("--access-token", default=None, help="HF token for gated repos")
     ap.add_argument(
         "--quantize", choices=("none", "int8", "int4"), default="none",
         help="additionally write a pre-quantized checkpoint (<ckpt>-<mode>/) "
@@ -66,15 +73,16 @@ def main(argv=None) -> Path:
     import torch
 
     args = build_parser().parse_args(argv)
+    dtype = getattr(torch, args.dtype)
     ckpt_dir = Path(args.model)
-    if not ckpt_dir.is_dir():
-        raise SystemExit(
-            f"{args.model} is not a local directory: the port downloads "
-            "nothing (no network access is assumed); place the HF snapshot "
-            "in a directory and pass its path"
-        )
-    if not has_checkpoint(ckpt_dir):
-        convert_hf_checkpoint(ckpt_dir, dtype=getattr(torch, args.dtype))
+    if ckpt_dir.exists():
+        if not has_checkpoint(ckpt_dir):
+            convert_hf_checkpoint(ckpt_dir, dtype=dtype)
+    else:
+        from mdi_llm_tpu_torch.utils.download import download_from_hub
+
+        ckpt_dir = download_from_hub(args.model, args.checkpoints_dir,
+                                     access_token=args.access_token, dtype=dtype)
     cfg = params = None
     if args.n_stages > 1 or args.quantize != "none":
         cfg, params = load_checkpoint(ckpt_dir)

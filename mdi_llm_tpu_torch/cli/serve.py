@@ -141,6 +141,9 @@ def build_parser():
     ap.add_argument("--no-double-buffer", action="store_true",
                     help="do not launch the next decode chunk before "
                     "reading the current one")
+    ap.add_argument("--scan-unroll", type=int, default=1,
+                    help="the JAX CLI's layer-scan unroll factor; the port runs "
+                    "the layers as a Python loop, so the Generator takes 1 only")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable hash-based prefix block reuse")
     ap.add_argument("--host-pool-mib", type=int, default=0,
@@ -318,6 +321,7 @@ def build_generator(args, cfg, params, _graphs=None):
         rng_seed=args.seed,
         device=args.device,
         quantize=args.quantize,
+        scan_unroll=args.scan_unroll,
         _graphs=_graphs,
     )
 

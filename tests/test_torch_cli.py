@@ -13,7 +13,8 @@
   `--trace-out`, `--xprof-steps` and `--sample-rss` each do their work;
 - no module of the port, and not `chip_smoke.py`, imports jax, ml_dtypes,
   orbax, yaml or the JAX package, and only the tokenizer imports
-  `tokenizers` (an AST scan); importing the CLIs leaves jax out of
+  `tokenizers`, the hub download `huggingface_hub` and `cli.prepare_owt`
+  `datasets` (an AST scan); importing the CLIs leaves jax out of
   `sys.modules`;
 - the checkpoint CLIs on a converted HF snapshot are
   `tests/test_torch_cli_ckpt.py`'s.
@@ -36,9 +37,12 @@ ROOT = Path(__file__).resolve().parent.parent
 CPU_RUN = ["--model", "pythia-14m", "--synthetic", "3", "--max-batch", "2",
            "--n-tokens", "8", "--sequence-length", "128", "--block-size", "8"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "orbax", "yaml", "mdi_llm_tpu")
-# the HF libraries: only the tokenizer's backend imports one
+# the HF libraries: only the tokenizer's backend, the hub download and
+# the dataset CLI import one
 HF_LIBS = {"safetensors": (), "transformers": (),
-           "tokenizers": ("mdi_llm_tpu_torch/utils/tokenizer.py",)}
+           "tokenizers": ("mdi_llm_tpu_torch/utils/tokenizer.py",),
+           "huggingface_hub": ("mdi_llm_tpu_torch/utils/download.py",),
+           "datasets": ("mdi_llm_tpu_torch/cli/prepare_owt.py",)}
 
 
 def _run(args):
@@ -235,6 +239,20 @@ def test_cli_refuses_unported_kv_dtype():
     assert sample.build_parser().parse_args(["--kv-dtype", "float8"]).kv_dtype == "float8"
 
 
+def test_cli_scan_unroll_parses_as_the_jax_clis_and_the_generator_takes_only_1():
+    """`--scan-unroll` parses as the JAX CLI's (int, default 1): 1 serves,
+    and any other factor reaches the Generator, which refuses it in its
+    own words (the port's layers are a Python loop, not a scan)."""
+    assert cli.build_parser().parse_args([]).scan_unroll == 1
+    args = cli.build_parser().parse_args(["--device", "cpu", *CPU_RUN, "--scan-unroll", "1"])
+    _trace, _results, stats, _engine, _tok = cli.serve(args)
+    assert stats.requests_finished == 3
+    args = cli.build_parser().parse_args(["--device", "cpu", *CPU_RUN, "--scan-unroll", "2"])
+    with pytest.raises(NotImplementedError,
+                       match=r"Generator\(scan_unroll=2: the layers run as a Python loop\)"):
+        cli.serve(args)
+
+
 def _imports(path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
@@ -269,9 +287,11 @@ def test_importing_the_cli_loads_no_jax():
             "mdi_llm_tpu_torch.obs, mdi_llm_tpu_torch.obs.device, mdi_llm_tpu_torch.server, "
             "mdi_llm_tpu_torch.server.http, mdi_llm_tpu_torch.utils.profiling, "
             "mdi_llm_tpu_torch.serving.host_tier, mdi_llm_tpu_torch.ops.quant, "
-            "mdi_llm_tpu_torch.serving.pipeline; "
+            "mdi_llm_tpu_torch.serving.pipeline, mdi_llm_tpu_torch.cli.download_weights, "
+            "mdi_llm_tpu_torch.cli.prepare_owt, mdi_llm_tpu_torch.utils.download; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert not any(m.split('.')[0] == 'mdi_llm_tpu' for m in sys.modules)")
+            "assert not any(m.split('.')[0] == 'mdi_llm_tpu' for m in sys.modules); "
+            "assert not {'huggingface_hub', 'datasets'} & set(sys.modules), 'HF imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120,
                           env=dict(os.environ, PYTHONPATH=str(ROOT)))

@@ -15,6 +15,7 @@ import io
 import json
 import math
 import shutil
+import socket
 import sys
 
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from mdi_llm_tpu import generation as jgen
+from mdi_llm_tpu.cli import prepare_model as jprepare_model
 from mdi_llm_tpu.utils import checkpoint as jck
 from mdi_llm_tpu.utils.prompts import style_for_model as jstyle_for_model
 from mdi_llm_tpu.utils.tokenizer import Tokenizer as JTokenizer
@@ -85,6 +87,34 @@ def jax_model(jax_dir, max_seq_length=64):
 
 
 CKPT_RUN = ["--dtype", "float32", "--sequence-length", "64"]
+
+
+def offline_hub(monkeypatch, root):
+    """`huggingface_hub` offline in this process for the test: the
+    variable and the constant it was read into, its cache and token under
+    `root`, the HTTP sessions rebuilt, and a connection or name lookup for
+    an outside host refused."""
+    from huggingface_hub import constants
+    from huggingface_hub.utils import reset_sessions
+
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"a network connection was attempted: {args[:2]}")
+
+    connect = socket.socket.connect
+
+    def local_only(self, address):
+        if self.family in (socket.AF_INET, socket.AF_INET6) and address[0] not in (
+                "127.0.0.1", "::1", "localhost"):
+            refuse(address)
+        return connect(self, address)
+
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setattr(constants, "HF_HUB_OFFLINE", True)
+    monkeypatch.setattr(constants, "HF_HUB_CACHE", str(root / "hf-home" / "hub"))
+    monkeypatch.setattr(constants, "HF_TOKEN_PATH", str(root / "hf-home" / "token"))
+    monkeypatch.setattr(socket, "getaddrinfo", refuse)
+    monkeypatch.setattr(socket.socket, "connect", local_only)
+    reset_sessions()
 
 
 def test_sample_cli_ckpt_text_prompt_gives_the_jax_greedy_tokens(converted, capsys):
@@ -219,11 +249,13 @@ def test_ckpt_entry_points_raise_without_a_gpu(converted, tmp_path, entry):
         run()
 
 
-def test_checkpoint_tools_on_the_converted_checkpoint(converted, tmp_path, capsys):
+def test_checkpoint_tools_on_the_converted_checkpoint(converted, tmp_path, capsys,
+                                                      monkeypatch):
     """inspect_ckpt lists every leaf; convert_to_hf writes safetensors and
     .bin that `transformers` loads back to the original weights;
     model_surgery patches the config and drops a leaf; prepare_model
-    refuses a hub name and writes the stage partition (`--n-stages`), which
+    sends a hub name to the hub download (offline: the JAX CLI's
+    exception) and writes the stage partition (`--n-stages`), which
     inspect_ckpt shows."""
     import transformers
 
@@ -249,8 +281,16 @@ def test_checkpoint_tools_on_the_converted_checkpoint(converted, tmp_path, capsy
     cfg, params = ck.load_checkpoint(work)
     assert (cfg.block_size, cfg.name) == (64, "patched")
     assert "head" in params and "lm_head" not in params
-    with pytest.raises(SystemExit, match="downloads nothing"):
-        prepare_model.main(["TinyLlama/TinyLlama-1.1B-Chat-v1.0"])
+    # a hub id goes to the hub download, as in the JAX CLI: offline, on an
+    # empty checkpoints dir, both packages raise the same exception
+    offline_hub(monkeypatch, tmp_path)
+    raised = []
+    for main, root in ((prepare_model.main, "port"), (jprepare_model.main, "jax")):
+        with pytest.raises(Exception) as e:
+            main(["TinyLlama/TinyLlama-1.1B-Chat-v1.0", "--checkpoints-dir",
+                  str(tmp_path / root)])
+        raised.append(type(e.value))
+    assert raised[0] is raised[1] and raised[0].__name__ == "LocalEntryNotFoundError"
     prepare_model.main([str(work), "--n-stages", "2"])
     assert (work / "chunks" / "2stages" / "stage_map.json").exists()
     capsys.readouterr()
